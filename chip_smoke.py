@@ -3,29 +3,41 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path -- the bench `baseline` frame: the 5,120
-triangle bunny BVH scene at 1920x1080, 1 SPP, GI/AO/TAA/SVGF off --
-through `render_frame` on `cuda`, in phases, each printing its result
-and seconds on a line of its own:
+Drives the port's two paths through `render_frame` on `cuda`, in phases,
+each printing its result and seconds on a line of its own:
+
+  * the bench `baseline` frame: the 5,120 triangle bunny BVH scene at
+    1920x1080, 1 SPP, GI/AO/TAA/SVGF off (kernels K1, K2, K5);
+  * the bench `an_baseline` frame: the analytic scene (floor, albedo,
+    glass and mirror spheres, point-light marker) at 800x600 with the
+    same preset and the gradient sky (kernel K3).
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: nvcc builds csrc/bvh_trace.cu from the sources;
-  3. kernels: the closest-hit and any-hit kernels on the exact inputs one
-     baseline frame hands them (2,073,600 primary rays; the six-batch
-     shadow wavefront of 12,441,600 rays), held against their plain
-     PyTorch walks on the card: at most 1e-5 of lanes may differ in
-     `valid`/occlusion, and t within 1e-5 relative on hit lanes; kernel
-     and plain times from CUDA events;
+  2. build: nvcc builds every csrc/*.cu from the sources, one process
+     per source, all at once;
+  3. kernels: each kernel on the exact inputs one frame hands it -- the
+     closest-hit and any-hit BVH kernels and the BVH BRDF tail on a
+     baseline frame's, the analytic direct-light kernel on every call of
+     an an_baseline frame -- held against its plain PyTorch version on
+     the card.  BVH walks: at most 1e-5 of lanes may differ in
+     `valid`/occlusion, t within 1e-5 relative on hit lanes.  Direct
+     light: radiance within rtol 1e-4 / atol 1e-5 on lanes whose hit is
+     valid.  Wrapper and plain times from CUDA events, the kernel alone
+     from the profiler;
   4. frames: 32 chained baseline frames; launch counters are zeroed just
-     before and must have grown by at least 32 per kernel; the image
-     must be finite and in [0,1]; ms/frame, fps, primary Mrays/s and a
-     checksum; the last frame goes to out/verify_torch_bvh.png;
-  5. reference: one frame at 270x480 on the card against the same
-     frame from the plain walks on the CPU: max abs <= 2/255, 99.9th
-     percentile <= 1e-3;
-  6. profile: one frame under torch.profiler: device time by stage, by
-     PyTorch operator and of the two BVH kernels; the device's idle
-     share of the unprofiled frame time.
+     before and each kernel of the path must have grown by at least 32;
+     the image must be finite and in [0,1]; ms/frame, fps, primary
+     Mrays/s and a checksum; the last frame goes to
+     out/verify_torch_bvh.png;
+  5. reference: one baseline frame at 270x480 on the card against the
+     same frame from the plain versions on the CPU: max abs <= 2/255,
+     99.9th percentile <= 1e-3;
+  6. profile: one baseline frame under torch.profiler: device time by
+     stage, by PyTorch operator and of each kernel; the device's idle
+     share of the unprofiled frame time;
+  7-9. frames_analytic, reference_analytic (300x400), profile_analytic:
+     the same three for the an_baseline frame; its last frame goes to
+     out/verify_torch_analytic.png.
 
 Any failure raises, so the script exits non-zero.  It needs one CUDA
 card and exits non-zero, printing no result, without one.  Before the
@@ -36,6 +48,7 @@ last line it prints the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import contextlib
+import importlib
 import inspect
 import json
 import os
@@ -44,18 +57,35 @@ import sys
 import time
 
 HEIGHT, WIDTH = 1080, 1920
+AN_HEIGHT, AN_WIDTH = 600, 800
 FRAMES = 32
 REF_HEIGHT, REF_WIDTH = 270, 480
+AN_REF_HEIGHT, AN_REF_WIDTH = 300, 400
 MISMATCH_FRAC = 1e-5   # lanes allowed to differ in valid/occlusion
 T_RTOL = 1e-5          # t on lanes both kernels hit
+RAD_RTOL, RAD_ATOL = 1e-4, 1e-5  # direct-light radiance on valid lanes
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-KERNELS = {
+KERNELS = {  # wrapper key -> record of the JSON line
     "closest": dict(name="trace_closest",
-                    replaces="opengl_raytracing_tpu/ops/bvh_mxu.py:684"),
+                    source="opengl_raytracing_tpu_torch/csrc/bvh_trace.cu",
+                    replaces="opengl_raytracing_tpu/ops/bvh_mxu.py:684",
+                    kernel="trace_closest_kernel"),
     "any": dict(name="trace_any",
-                replaces="opengl_raytracing_tpu/ops/bvh_mxu.py:1021"),
+                source="opengl_raytracing_tpu_torch/csrc/bvh_trace.cu",
+                replaces="opengl_raytracing_tpu/ops/bvh_mxu.py:1021",
+                kernel="trace_any_kernel"),
+    "an_direct": dict(name="an_direct_light",
+                      source="opengl_raytracing_tpu_torch/csrc/an_direct.cu",
+                      replaces="opengl_raytracing_tpu/ops/an_pallas.py:162",
+                      kernel="an_direct_light_kernel"),
+    "bvh_brdf": dict(name="bvh_brdf",
+                     source="opengl_raytracing_tpu_torch/csrc/an_direct.cu",
+                     replaces="opengl_raytracing_tpu/ops/an_pallas.py:307",
+                     kernel="bvh_brdf_kernel"),
 }
+BVH_PATH = ("closest", "any", "bvh_brdf")
+AN_PATH = ("an_direct",)
 
 
 def phase(label, t0, **result):
@@ -91,11 +121,12 @@ def frame_inputs(height, width, frame, device):
 
 
 def render(bvh, height, width, frames, device, on_frame=None):
-    """`frames` chained baseline frames; returns the last FrameOutputs."""
+    """`frames` chained baseline frames of the BVH scene, or of the
+    analytic scene when `bvh` is None; returns the last FrameOutputs."""
     from opengl_raytracing_tpu_torch.models import (RenderState,
                                                     make_render_fn, preset)
     params = preset("baseline")
-    fn = make_render_fn(height, width, device)
+    fn = make_render_fn(height, width, device, use_bvh=bvh is not None)
     state = RenderState.create(height, width, device)
     out = None
     for i in range(frames):
@@ -108,6 +139,7 @@ def render(bvh, height, width, frames, device, on_frame=None):
 
 def cuda_ms(fn, reps):
     import torch
+    fn()  # warm
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(reps):
@@ -117,12 +149,35 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def record_kernel_inputs(bvh, height, width, device):
-    """Render one baseline frame and keep the arguments, by name, that the
-    frame hands the two kernel wrappers (the wrappers still launch)."""
-    from opengl_raytracing_tpu_torch.ops import bvh_cuda
-    calls = {}
-    real = {"closest": bvh_cuda.trace_closest, "any": bvh_cuda.trace_any}
+def kernel_ms(fn, kernel, reps=5):
+    """Device time of one launch of `kernel` (by name), from the profiler
+    over `reps` calls of `fn`; None if the profiler saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and kernel in ev.key:
+            return ev.self_device_time_total / 1e3 / ev.count
+    return None
+
+
+def record_kernel_inputs(bvh, height, width, device, keys):
+    """Render one frame (BVH, or analytic if `bvh` is None) and keep the
+    arguments, by name, of every call it makes to the wrappers `keys`
+    (the wrappers still launch)."""
+    from opengl_raytracing_tpu_torch.ops import an_cuda, bvh_cuda
+    where = {"closest": (bvh_cuda, "trace_closest"),
+             "any": (bvh_cuda, "trace_any"),
+             "an_direct": (an_cuda, "direct_light"),
+             "bvh_brdf": (an_cuda, "shade_bvh_brdf")}
+    calls = {k: [] for k in keys}
+    real = {k: getattr(*where[k]) for k in keys}
 
     def spy(key):
         sig = inspect.signature(real[key])
@@ -130,29 +185,40 @@ def record_kernel_inputs(bvh, height, width, device):
         def fn(*args, **kw):
             bound = sig.bind(*args, **kw)
             bound.apply_defaults()
-            calls.setdefault(key, dict(bound.arguments))
+            calls[key].append(dict(bound.arguments))
             return real[key](*args, **kw)
         return fn
-    bvh_cuda.trace_closest, bvh_cuda.trace_any = spy("closest"), spy("any")
+    for k in keys:
+        setattr(*where[k], spy(k))
     try:
         render(bvh, height, width, 1, device)
     finally:
-        bvh_cuda.trace_closest, bvh_cuda.trace_any = (real["closest"],
-                                                      real["any"])
+        for k in keys:
+            setattr(*where[k], real[k])
     return calls
+
+
+def _radiance_err(got, want, valid):
+    """(max abs error, lanes out of tolerance) on the valid lanes."""
+    g, w = got[valid], want[valid]
+    err = (g - w).abs()
+    bad = int((err > RAD_ATOL + RAD_RTOL * w.abs()).any(-1).sum())
+    return float(err.max()) if err.numel() else 0.0, bad
 
 
 def check_kernels(bvh, height=HEIGHT, width=WIDTH, device="cuda",
                   timer=None):
-    """Each kernel against its plain walk on the inputs of one frame."""
+    """Each BVH-path kernel against its plain version on the inputs of
+    one baseline frame."""
     import torch
-    from opengl_raytracing_tpu_torch.ops import bvh_cuda
+    from opengl_raytracing_tpu_torch.ops import an_cuda, bvh_cuda
     from opengl_raytracing_tpu_torch.ops import bvh_traverse as plain
+    from opengl_raytracing_tpu_torch.ops import lighting as lt
     timer = timer or cuda_ms
-    calls = record_kernel_inputs(bvh, height, width, device)
+    calls = record_kernel_inputs(bvh, height, width, device, BVH_PATH)
     records = {}
 
-    c = calls["closest"]
+    c = calls["closest"][0]
     arrays, ro, rd, eps = c["bvh"], c["ro"], c["rd"], c["eps"]
     n_rays = ro.numel() // 3
     h = bvh_cuda.trace_closest(arrays, ro, rd, eps)
@@ -165,14 +231,17 @@ def check_kernels(bvh, height=HEIGHT, width=WIDTH, device="cuda",
     if mismatch > MISMATCH_FRAC * n_rays or rel > T_RTOL:
         raise AssertionError(f"trace_closest disagrees with the plain walk: "
                              f"{mismatch} valid mismatches, t rel {rel}")
-    ms = timer(lambda: bvh_cuda.trace_closest(arrays, ro, rd, eps), 20)
-    plain_ms = timer(lambda: plain.trace_bvh(arrays, ro, rd, eps), 2)
-    records["closest"] = dict(rays=n_rays, max_abs_err=err,
-                              n_max_abs_err=n_err, mismatch_lanes=mismatch,
-                              hit_frac=float(hp.valid.float().mean()), ms=ms,
-                              plain_ms=plain_ms)
 
-    c = calls["any"]
+    def closest():
+        bvh_cuda.trace_closest(arrays, ro, rd, eps)
+    records["closest"] = dict(
+        rays=n_rays, max_abs_err=err, n_max_abs_err=n_err,
+        mismatch_lanes=mismatch, hit_frac=float(hp.valid.float().mean()),
+        ms=timer(closest, 20),
+        kernel_ms=kernel_ms(closest, KERNELS["closest"]["kernel"]),
+        plain_ms=timer(lambda: plain.trace_bvh(arrays, ro, rd, eps), 2))
+
+    c = calls["any"][0]
     arrays, ro, rd, t_max, eps, active = (c["bvh"], c["ro"], c["rd"],
                                           c["t_max"], c["eps"], c["active"])
     occ = bvh_cuda.trace_any(arrays, ro, rd, t_max, eps, active)
@@ -182,23 +251,121 @@ def check_kernels(bvh, height=HEIGHT, width=WIDTH, device="cuda",
 
     def plain_any():
         occ_p = plain.trace_bvh_shadow(arrays, o, d, tm, eps)
-        return occ_p.reshape(occ.shape) & active
+        occ_p = occ_p.reshape(occ.shape)
+        return occ_p if active is None else occ_p & active
     occ_p = plain_any()
     n_rays = tm.numel()
     mismatch = int((occ != occ_p).sum())
     if mismatch > MISMATCH_FRAC * n_rays:
         raise AssertionError(f"trace_any disagrees with the plain walk on "
                              f"{mismatch} of {n_rays} lanes")
-    ms = timer(lambda: bvh_cuda.trace_any(arrays, ro, rd, t_max, eps, active),
-               20)
-    plain_ms = timer(plain_any, 2)
-    records["any"] = dict(rays=n_rays, batches=len(ro),
-                          max_abs_err=float(mismatch > 0),
-                          mismatch_lanes=mismatch,
-                          traced_frac=float((tm > 0).float().mean()),
-                          occluded_frac=float(occ_p.float().mean()), ms=ms,
-                          plain_ms=plain_ms)
+
+    def any_hit():
+        bvh_cuda.trace_any(arrays, ro, rd, t_max, eps, active)
+    records["any"] = dict(
+        rays=n_rays, batches=len(ro), max_abs_err=float(mismatch > 0),
+        mismatch_lanes=mismatch, traced_frac=float((tm > 0).float().mean()),
+        occluded_frac=float(occ_p.float().mean()), ms=timer(any_hit, 20),
+        kernel_ms=kernel_ms(any_hit, KERNELS["any"]["kernel"]),
+        plain_ms=timer(plain_any, 2))
+
+    # the BRDF tail: every lane is a finite surface point here (the frame
+    # sanitizes its misses), so every lane is compared
+    args = calls["bvh_brdf"][0]
+    got = an_cuda.shade_bvh_brdf(**args)
+    want = lt.shade_bvh_brdf_plain(**args)
+    err, bad = _radiance_err(got, want, torch.ones_like(got[..., 0],
+                                                        dtype=torch.bool))
+    if bad:
+        raise AssertionError(f"bvh_brdf disagrees with the plain tail on "
+                             f"{bad} lanes (max abs {err})")
+    records["bvh_brdf"] = dict(
+        pixels=got[..., 0].numel(), max_abs_err=err, bad_lanes=bad,
+        ms=timer(lambda: an_cuda.shade_bvh_brdf(**args), 20),
+        kernel_ms=kernel_ms(lambda: an_cuda.shade_bvh_brdf(**args),
+                            KERNELS["bvh_brdf"]["kernel"]),
+        plain_ms=timer(lambda: lt.shade_bvh_brdf_plain(**args), 5))
     return records
+
+
+def check_an_kernel(height=AN_HEIGHT, width=AN_WIDTH, device="cuda",
+                    timer=None):
+    """The analytic direct-light kernel against its plain version on every
+    call one an_baseline frame makes (primary hits, the mirror's and the
+    glass's three secondary hits); times on the primary call."""
+    from opengl_raytracing_tpu_torch.ops import an_cuda
+    from opengl_raytracing_tpu_torch.ops import lighting as lt
+    timer = timer or cuda_ms
+    calls = record_kernel_inputs(None, height, width, device, AN_PATH)
+    errs, bad, lanes = [], 0, 0
+    for args in calls["an_direct"]:
+        valid = args["h"].valid
+        e, b = _radiance_err(an_cuda.direct_light(**args),
+                             lt.direct_light_plain(**args), valid)
+        errs.append(e)
+        bad += b
+        lanes += int(valid.sum())
+    if bad:
+        raise AssertionError(f"an_direct_light disagrees with the plain "
+                             f"direct_light on {bad} lanes (max abs "
+                             f"{max(errs)})")
+    args = calls["an_direct"][0]
+    return dict(calls=len(errs), pixels=height * width, valid_lanes=lanes,
+                max_abs_err=max(errs), max_abs_err_per_call=errs,
+                bad_lanes=bad,
+                ms=timer(lambda: an_cuda.direct_light(**args), 20),
+                kernel_ms=kernel_ms(lambda: an_cuda.direct_light(**args),
+                                    KERNELS["an_direct"]["kernel"]),
+                plain_ms=timer(lambda: lt.direct_light_plain(**args), 5))
+
+
+def run_frames(bvh, height, width, keys, png, smi):
+    """FRAMES chained frames with the launch counters of the path's kernels
+    `keys` zeroed just before; checks the image and the counts."""
+    import torch
+    from opengl_raytracing_tpu_torch.ops.cuda_lib import LAUNCHES
+    from opengl_raytracing_tpu_torch.utils.image import write_png
+    sums = []
+    torch.cuda.synchronize()
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    t_frames = time.time()
+    out = render(bvh, height, width, FRAMES, "cuda",
+                 on_frame=lambda o: sums.append(o.image.sum()))
+    torch.cuda.synchronize()
+    sec = (time.time() - t_frames) / FRAMES
+    launches = {k: LAUNCHES[k] for k in keys}
+    img = out.image
+    if img.shape != (height, width, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError("frame is not a finite [H,W,3] image")
+    if float(img.min()) < 0.0 or float(img.max()) > 1.0:
+        raise AssertionError("frame leaves [0,1]")
+    if min(launches.values()) < FRAMES:
+        raise AssertionError(f"kernels not launched once per frame: "
+                             f"{launches}")
+    checksum = float(torch.stack(sums).sum())
+    os.makedirs(os.path.join(ROOT, "out"), exist_ok=True)
+    write_png(os.path.join(ROOT, "out", png), img.cpu().numpy()[::-1])
+    return dict(frames=FRAMES, size=[height, width],
+                ms_per_frame=sec * 1e3, fps=1.0 / sec,
+                primary_mrays_per_s=height * width / sec / 1e6,
+                checksum=checksum, launches=launches, card=smi,
+                png=f"out/{png}")
+
+
+def check_reference(bvh_cuda_scene, bvh_cpu_scene, height, width):
+    """One frame on the card against the same frame on the CPU."""
+    import torch
+    ref = render(bvh_cpu_scene, height, width, 1, "cpu").image
+    got = render(bvh_cuda_scene, height, width, 1, "cuda").image.cpu()
+    diff = (got - ref).abs()
+    q999 = float(torch.quantile(diff.flatten(), 0.999))
+    if float(diff.max()) > 2.0 / 255.0 or q999 > 1e-3:
+        raise AssertionError(f"card frame differs from the CPU frame: max "
+                             f"{float(diff.max())}, q99.9 {q999}")
+    at = [int(i) for i in torch.nonzero(diff == diff.max())[0]]
+    return dict(size=[height, width], max_abs=float(diff.max()), q999=q999,
+                values_over_1e_3=int((diff > 1e-3).sum()), max_at_yxc=at)
 
 
 def main() -> int:
@@ -209,8 +376,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from opengl_raytracing_tpu_torch.ops import bvh_cuda
-    from opengl_raytracing_tpu_torch.utils.image import write_png
+    from opengl_raytracing_tpu_torch.ops import cuda_lib
 
     t0 = time.time()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -222,97 +388,106 @@ def main() -> int:
           torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.time()
-    lib = bvh_cuda.build()
-    build_s = time.time() - t0
-    with open(lib[:-3] + ".log") as fh:
-        ptxas = [ln.strip() for ln in fh if "registers" in ln]
-    phase("build", t0, seconds=build_s, library=os.path.relpath(lib, ROOT),
+    libs = cuda_lib.build_all()
+    ptxas = {}
+    for name, lib in libs.items():
+        with open(lib[:-3] + ".log") as fh:
+            ptxas[name] = [ln.strip() for ln in fh if "registers" in ln]
+    phase("build", t0, seconds=time.time() - t0,
+          libraries={k: os.path.relpath(v, ROOT) for k, v in libs.items()},
           ptxas=ptxas)
 
     t0 = time.time()
     _, bvh = scene("cuda")
     records = check_kernels(bvh)
+    records["an_direct"] = check_an_kernel()
     phase("kernels", t0, **records)
 
     t0 = time.time()
-    sums = []
-    for k in bvh_cuda.LAUNCHES:
-        bvh_cuda.LAUNCHES[k] = 0
-    torch.cuda.synchronize()
-    t_frames = time.time()
-    out = render(bvh, HEIGHT, WIDTH, FRAMES, "cuda",
-                 on_frame=lambda o: sums.append(o.image.sum()))
-    torch.cuda.synchronize()
-    sec = (time.time() - t_frames) / FRAMES
-    launches = dict(bvh_cuda.LAUNCHES)
-    img = out.image
-    if img.shape != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(img).all()):
-        raise AssertionError("frame is not a finite [H,W,3] image")
-    if float(img.min()) < 0.0 or float(img.max()) > 1.0:
-        raise AssertionError("frame leaves [0,1]")
-    if min(launches.values()) < FRAMES:
-        raise AssertionError(f"kernels not launched once per frame: "
-                             f"{launches}")
-    checksum = float(torch.stack(sums).sum())
-    os.makedirs(os.path.join(ROOT, "out"), exist_ok=True)
-    write_png(os.path.join(ROOT, "out", "verify_torch_bvh.png"),
-              img.cpu().numpy()[::-1])
-    phase("frames", t0, frames=FRAMES, ms_per_frame=sec * 1e3, fps=1.0 / sec,
-          primary_mrays_per_s=HEIGHT * WIDTH / sec / 1e6, checksum=checksum,
-          launches=launches, card=smi)
+    frames = run_frames(bvh, HEIGHT, WIDTH, BVH_PATH, "verify_torch_bvh.png",
+                        smi)
+    phase("frames", t0, **frames)
 
     t0 = time.time()
     _, bvh_cpu = scene("cpu")
-    ref = render(bvh_cpu, REF_HEIGHT, REF_WIDTH, 1, "cpu").image
-    got = render(bvh, REF_HEIGHT, REF_WIDTH, 1, "cuda").image.cpu()
-    diff = (got - ref).abs()
-    q999 = float(torch.quantile(diff.flatten(), 0.999))
-    if float(diff.max()) > 2.0 / 255.0 or q999 > 1e-3:
-        raise AssertionError(f"card frame differs from the CPU frame: max "
-                             f"{float(diff.max())}, q99.9 {q999}")
-    phase("reference", t0, size=[REF_HEIGHT, REF_WIDTH],
-          max_abs=float(diff.max()), q999=q999)
+    phase("reference", t0, **check_reference(bvh, bvh_cpu, REF_HEIGHT,
+                                             REF_WIDTH))
 
     t0 = time.time()
-    phase("profile", t0, **profile(bvh, sec * 1e3))
+    phase("profile", t0, **profile(bvh, HEIGHT, WIDTH, BVH_STAGES,
+                                   frames["ms_per_frame"]))
 
+    t0 = time.time()
+    frames_an = run_frames(None, AN_HEIGHT, AN_WIDTH, AN_PATH,
+                           "verify_torch_analytic.png", smi)
+    phase("frames_analytic", t0, **frames_an)
+
+    t0 = time.time()
+    phase("reference_analytic", t0, **check_reference(
+        None, None, AN_REF_HEIGHT, AN_REF_WIDTH))
+
+    t0 = time.time()
+    phase("profile_analytic", t0, **profile(None, AN_HEIGHT, AN_WIDTH,
+                                            AN_STAGES,
+                                            frames_an["ms_per_frame"]))
+
+    launches = {**frames["launches"], **frames_an["launches"]}
     print(json.dumps({"kernels": [
-        dict(KERNELS[k], route="cuda",
-             source="opengl_raytracing_tpu_torch/csrc/bvh_trace.cu",
+        dict(name=KERNELS[k]["name"], route="cuda",
+             source=KERNELS[k]["source"], replaces=KERNELS[k]["replaces"],
              launches=launches[k], max_abs_err=records[k]["max_abs_err"],
              ms=records[k]["ms"], plain_ms=records[k]["plain_ms"])
-        for k in ("closest", "any")]}), flush=True)
+        for k in ("closest", "any", "an_direct", "bvh_brdf")]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 
-STAGES = (  # (label, module, attribute) of each stage the profile times
+# (label, module, attribute) of each stage a profile times; a label ending
+# in "#" numbers the calls of that attribute within the frame, so the
+# first call can be told from the later ones
+BVH_STAGES = (
     ("render_frame", "models.pipeline", "render_frame"),
     ("trace_and_shade", "models.pipeline", "trace_and_shade"),
     ("primary_trace", "ops.bvh_cuda", "trace_closest"),
     ("direct_light", "ops.lighting", "direct_light_bvh"),
     ("shadow_trace", "ops.bvh_cuda", "trace_any"),
+    ("brdf_tail", "ops.an_cuda", "shade_bvh_brdf"),
+    ("store", "models.pipeline", "resolve_taa"),
+    ("present", "models.pipeline", "present"),
+)
+AN_STAGES = (
+    ("render_frame", "models.pipeline", "render_frame"),
+    ("trace_and_shade", "models.pipeline", "trace_and_shade"),
+    ("trace#", "ops.scene_analytic", "trace_analytic"),
+    ("direct_light", "ops.an_cuda", "direct_light"),
+    ("mirror", "ops.lighting", "shade_mirror"),
+    ("glass", "ops.lighting", "shade_glass"),
     ("store", "models.pipeline", "resolve_taa"),
     ("present", "models.pipeline", "present"),
 )
 
 
 @contextlib.contextmanager
-def stage_ranges():
+def stage_ranges(stages):
     """Wrap each stage in a profiler range (the module attributes the
     frame calls through), and restore them after."""
-    import importlib
     import torch
     saved = []
 
     def ranged(label, fn):
+        count = [0]
+
         def wrapper(*args, **kw):
-            with torch.profiler.record_function(label):
+            name = label
+            if label.endswith("#"):
+                name = f"{label}{count[0]}"
+                count[0] += 1
+            with torch.profiler.record_function(name):
                 return fn(*args, **kw)
         return wrapper
-    for label, mod, attr in STAGES:
+    for label, mod, attr in stages:
         m = importlib.import_module(f"opengl_raytracing_tpu_torch.{mod}")
         saved.append((m, attr, getattr(m, attr)))
         setattr(m, attr, ranged(label, getattr(m, attr)))
@@ -323,37 +498,39 @@ def stage_ranges():
             setattr(m, attr, fn)
 
 
-def profile(bvh, frame_ms):
-    """Device time of one warm baseline frame: by stage (inclusive device
-    time of the kernels launched inside each range), by PyTorch operator,
-    and of the two BVH kernels alone; the device's busy time against
-    the unprofiled frame time gives its idle share."""
+def profile(bvh, height, width, stages, frame_ms):
+    """Device time of one warm frame: by stage (inclusive device time of
+    the kernels launched inside each range), by PyTorch operator, and of
+    each hand-written kernel; the device's busy time against the
+    unprofiled frame time gives its idle share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
-    render(bvh, HEIGHT, WIDTH, 1, "cuda")
+    render(bvh, height, width, 1, "cuda")
     torch.cuda.synchronize()
-    with stage_ranges(), torch.profiler.profile(
+    with stage_ranges(stages), torch.profiler.profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        render(bvh, HEIGHT, WIDTH, 1, "cuda")
+        render(bvh, height, width, 1, "cuda")
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    stages, ops, kernels = {}, [], {}
+    stages_ms, ops, kernels = {}, [], {}
     busy_ms, launches = 0.0, 0
-    labels = {label for label, _, _ in STAGES}
+    prefixes = tuple(label for label, _, _ in stages)
     for ev in prof.key_averages():
         self_ms = ev.self_device_time_total / 1e3
+        is_stage = ev.key.startswith(prefixes)
         if ev.device_type == DeviceType.CUDA:
-            if ev.key in labels:
+            if is_stage:
                 continue  # a range's own span on the device timeline
             busy_ms += self_ms
             launches += ev.count
-            for name in ("trace_closest_kernel", "trace_any_kernel"):
-                if name in ev.key:
-                    kernels[name] = self_ms
-        elif ev.key in labels:
-            stages[ev.key] = ev.device_time_total / 1e3
+            for rec in KERNELS.values():
+                if rec["kernel"] in ev.key:
+                    kernels[rec["kernel"]] = dict(device_ms=self_ms,
+                                                  launches=ev.count)
+        elif is_stage:
+            stages_ms[ev.key] = ev.device_time_total / 1e3
         elif ev.key.startswith("aten::") and self_ms > 0:
             ops.append((self_ms, ev.count, ev.key))
     ops.sort(reverse=True)
@@ -362,8 +539,8 @@ def profile(bvh, frame_ms):
                     "time", wall_ms_profiled=wall_ms)
     return dict(frame_ms=frame_ms, wall_ms_profiled=wall_ms,
                 device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / frame_ms,
-                kernel_launches=launches, stages_device_ms=stages,
-                bvh_kernels_device_ms=kernels,
+                kernel_launches=launches, stages_device_ms=stages_ms,
+                kernels_device_ms=kernels,
                 top_ops=[dict(op=k, calls=c, device_ms=ms)
                          for ms, c, k in ops[:10]])
 

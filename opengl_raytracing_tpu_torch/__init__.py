@@ -3,18 +3,22 @@
 A port of `opengl_raytracing_tpu` (JAX on a TPU), which stays the
 reference: every module here is held against its JAX counterpart by the
 `tests/test_torch_*.py` parity tests.  Plain array code is PyTorch; the
-two BVH kernels of the main path (closest hit, any hit) are CUDA C++ in
-`csrc/`, built with nvcc at first use (ops/bvh_cuda.py).
+kernels are CUDA C++ in `csrc/`, built with nvcc at first use
+(ops/cuda_lib.py): the BVH closest-hit and any-hit walks
+(ops/bvh_cuda.py), the analytic scene's direct light and the BVH
+scene's BRDF tail (ops/an_cuda.py).
 
-The slice ported so far is the bench `baseline` frame: the bunny BVH
-scene at 1 SPP with GI, AO, TAA and SVGF off and the analytic gradient
-sky.  Everything else raises NotImplementedError.
+The slices ported so far are the bench `baseline` frame (the bunny BVH
+scene) and `an_baseline` frame (the analytic scene: floor, albedo,
+glass and mirror spheres, point-light marker), at 1 SPP with GI, AO,
+TAA and SVGF off and the gradient sky.  Everything else raises
+NotImplementedError.
 
 Layout (mirrors the JAX package):
   constants.py, params.py, camera.py, sampling.py   host values and RNG
   scene/     procedural bunny, triangle gather, numpy BVH builder
-  ops/       vector math, intersection, BVH walks and kernels, lighting,
-             accumulation store, present
+  ops/       vector math, intersection, the analytic scene, BVH walks,
+             kernel wrappers, lighting, accumulation store, present
   models/    the frame function and the presets
   convert.py carries JAX-side state (BVH arrays, params, frame inputs)
   utils/     PNG writer

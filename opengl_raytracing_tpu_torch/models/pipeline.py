@@ -2,9 +2,11 @@
 
 PyTorch counterpart of `opengl_raytracing_tpu/models/pipeline.py`
 (reference: shaders/rt/rt.frag:50-197, rt_present.frag:231-266,
-src/render/render.cpp:55-243), for the BVH scene at 1 SPP with GI, AO,
-TAA and SVGF off: the `baseline` preset.  Every stage not yet ported
-raises NotImplementedError rather than approximating it.
+src/render/render.cpp:55-243), for the BVH scene and the analytic scene
+at 1 SPP with GI, AO, TAA and SVGF off: the `baseline` preset.  Every
+stage not yet ported raises NotImplementedError rather than
+approximating it.  The JAX package's tile gates and swizzle are not
+ported: they leave the image unchanged.
 
 The layout at the public functions is the JAX package's: [H,W,C] images
 with GL bottom-up rows and an [H,W,4] accumulation (rgb + M2).  Frames run
@@ -18,14 +20,16 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..constants import MAT_POINTLIGHT_SPHERE
 from ..params import RenderParams
 from ..sampling import ndc_from_world
+from ..ops.materials import MTYPE_GLASS, MTYPE_MIRROR, get_material
 from ..ops.scene import BVHDevice, SceneCtx
 from ..ops.scene_analytic import Hit
 from ..ops import lighting as lt
 from ..ops.taa import resolve_taa
 from ..ops.svgf import present
-from ..ops.vecmath import normalize
+from ..ops.vecmath import const3, length, normalize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,10 +125,41 @@ def _shade_bvh(scene: SceneCtx, h: Hit, seed: int, frame_index: int, vdir,
                                active=active)
 
 
-def _check_supported(params: RenderParams, env_map, use_bvh: bool,
-                     show_motion: bool):
+def _shade_analytic(scene: SceneCtx, h: Hit, seed: int, frame_index: int,
+                    vdir, px, py):
+    """Analytic-scene material dispatch (reference: rt.frag:119-162):
+    direct light, the emissive point-light marker, and the mirror and
+    glass secondaries, computed for every lane and selected in like the
+    fragment shader's divergent branches.  GI and AO are refused by
+    render_frame until they are ported."""
+    params = scene.params
+    mat = get_material(h.mat, params)
+    radiance = lt.direct_light(scene, h, seed, frame_index, vdir, px, py)
+
+    # emissive point-light marker (reference: rt.frag:137-148)
+    base_col = (const3(params.point_light_color, h.t.device)
+                * params.point_light_intensity)
+    d = length(h.p - scene.cam_pos)
+    falloff = 1.0 / torch.clamp_min(d * d * 0.25 + 1.0, 1.0)
+    emissive = base_col * falloff[..., None]
+    is_marker = h.mat == MAT_POINTLIGHT_SPHERE
+    radiance = torch.where(is_marker[..., None], emissive, radiance)
+
+    if params.mat_mirror_enabled:
+        mirror_r = lt.shade_mirror(scene, h, vdir, mat, seed, frame_index,
+                                   px, py)
+        radiance = torch.where((mat.mtype == MTYPE_MIRROR)[..., None],
+                               mirror_r, radiance)
+    if params.mat_glass_enabled:
+        glass_r = lt.shade_glass(scene, h, vdir, mat, seed, frame_index,
+                                 px, py)
+        radiance = torch.where((mat.mtype == MTYPE_GLASS)[..., None],
+                               glass_r, radiance)
+    return radiance
+
+
+def _check_supported(params: RenderParams, env_map, show_motion: bool):
     missing = [name for name, on in (
-        ("the analytic scene (use_bvh=False)", not use_bvh),
         ("TAA", params.enable_taa), ("SVGF", params.enable_svgf),
         ("GI", params.enable_gi), ("AO", params.enable_ao),
         ("spp_per_frame > 1", int(params.spp_per_frame) > 1),
@@ -149,13 +184,13 @@ def render_frame(params: RenderParams, fin: FrameInputs, state: RenderState,
     reads no history), so `state` must not be used after the call, as
     with the JAX package's donated buffer.
     """
-    _check_supported(params, env_map, use_bvh, show_motion)
+    _check_supported(params, env_map, show_motion)
     scene = SceneCtx.create(params, fin.cam_pos, env_map=None,
                             use_bvh=use_bvh, bvh=bvh)
     px, py, rd = primary_rays(height, width, fin, params)
     frame_index = state.frame_index
     curr, motion, gpos, gnrm = trace_and_shade(
-        scene, params, fin, px, py, rd, frame_index)
+        scene, params, fin, px, py, rd, frame_index, use_bvh=use_bvh)
     accum = resolve_taa(curr, motion, state.accum, frame_index, params,
                         out=state.accum)
     image = present(accum, motion, gpos, gnrm, params)
@@ -164,7 +199,7 @@ def render_frame(params: RenderParams, fin: FrameInputs, state: RenderState,
 
 
 def trace_and_shade(scene: SceneCtx, params: RenderParams, fin: FrameInputs,
-                    px, py, rd, frame_index: int):
+                    px, py, rd, frame_index: int, *, use_bvh: bool):
     """Trace + shade a pixel grid: primary trace, gbuffer, motion with the
     sky sentinel, direct light, sky select.
 
@@ -184,15 +219,19 @@ def trace_and_shade(scene: SceneCtx, params: RenderParams, fin: FrameInputs,
     gnrm = torch.where(hit_mask[..., None], normalize(h.n), 0.0)
 
     sky_radiance = scene.sky(rd)
-    shaded = _shade_bvh(scene, h, frame_index, frame_index, -rd, px, py,
-                        active=hit_mask)
+    if use_bvh:
+        shaded = _shade_bvh(scene, h, frame_index, frame_index, -rd, px, py,
+                            active=hit_mask)
+    else:
+        shaded = _shade_analytic(scene, h, frame_index, frame_index, -rd,
+                                 px, py)
     curr = torch.where(hit_mask[..., None], shaded, sky_radiance)
     return curr, motion, gpos, gnrm
 
 
-def make_render_fn(height: int, width: int, device):
-    """Frame function for the BVH scene bound to an image size and a
-    device: fn(params, fin, state, env_map=None, bvh=None).
+def make_render_fn(height: int, width: int, device, use_bvh: bool = False):
+    """Frame function bound to an image size, a device and the scene mode:
+    fn(params, fin, state, env_map=None, bvh=None).
 
     Raises at once when the device is CUDA and no card is present: the
     frame never runs on the CPU in its place."""
@@ -209,5 +248,5 @@ def make_render_fn(height: int, width: int, device):
             raise ValueError(f"state is on {state.accum.device}, the "
                              f"render function on {device}")
         return render_frame(params, fin, state, env_map, bvh,
-                            height=height, width=width, use_bvh=True)
+                            height=height, width=width, use_bvh=use_bvh)
     return fn

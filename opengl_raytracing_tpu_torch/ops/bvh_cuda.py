@@ -9,140 +9,48 @@
   * a CUDA tensor launches the kernel, or the call raises.  Nothing falls
     back to the plain walk on the card.
 
-The kernels are compiled at first use with nvcc for sm_90a into a shared
-library with a plain C interface, under `_build/` in the package, keyed by
-a hash of the sources and flags, and loaded with ctypes.  A missing nvcc
-or a failed build raises with the compiler's output.  Importing this
-module needs neither nvcc nor a card.
-
-`LAUNCHES` counts each kernel's launches, so a run can show that the frame
-went through the kernels; only a launch of the kernel adds to it.
+The kernels are built and launched through ops/cuda_lib.py, which also
+holds the launch counters (`LAUNCHES["closest"]`, `LAUNCHES["any"]`).
+Importing this module needs neither nvcc nor a card.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 
 import torch
 
 from ..constants import EPS
 from ..scene.bvh import BVHArrays
+from . import cuda_lib
 from .bvh_traverse import _finalize, trace_bvh, trace_bvh_shadow
+from .cuda_lib import LAUNCHES, check  # noqa: F401  (LAUNCHES re-exported)
 from .scene_analytic import Hit
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = (os.path.join(_PKG, "csrc", "bvh_trace.cu"),)
-BUILD_DIR = os.path.join(_PKG, "_build")
-# No --use_fast_math: the walk relies on IEEE division (1/1e-30) and exact
-# comparisons.  --fmad=false keeps nvcc from contracting a*b+c into FMAs,
-# so the kernels round exactly like the plain walk (one rounding per op).
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
-
-LAUNCHES = {"closest": 0, "any": 0}
-
-_lib = None
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (neither on PATH nor under "
-                           f"{cuda_home}/bin): the CUDA BVH kernels cannot "
-                           "be built")
-    return path
-
-
-def library_path() -> str:
-    """Where the build for the current sources and flags goes."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        with open(src, "rb") as fh:
-            h.update(fh.read())
-    return os.path.join(BUILD_DIR, f"libbvh_trace_{h.hexdigest()[:16]}.so")
-
-
-def build() -> str:
-    """Compile the kernels unless this exact build exists; return the
-    library's path.  The compiler's output (ptxas register counts) is
-    kept beside it as `.log`."""
-    path = library_path()
-    if os.path.exists(path):
-        return path
-    nvcc = _nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *SOURCES]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {res.returncode}: "
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    with open(path[:-3] + ".log", "w") as fh:
-        fh.write(res.stdout + res.stderr)
-    os.replace(tmp, path)
-    return path
+_P, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                        ctypes.c_float)
+_SIGNATURES = {
+    "ort_trace_closest": ([_P, _P, _P, _I32, _P, _P, _I64, _F32, _P, _P, _P],
+                          ctypes.c_int),
+    "ort_trace_any": ([_P, _P, _P, _I32, _P, _P, _P, _I64, _F32, _P, _P],
+                      ctypes.c_int),
+}
 
 
 def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        p, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                            ctypes.c_float)
-        lib.ort_trace_closest.argtypes = [p, p, p, i32, p, p, i64, f32, p, p,
-                                          p]
-        lib.ort_trace_closest.restype = ctypes.c_int
-        lib.ort_trace_any.argtypes = [p, p, p, i32, p, p, p, i64, f32, p, p]
-        lib.ort_trace_any.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
-def _check(name, x, dtype, width, device, align=4):
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if (x.dim() != (1 if width is None else 2)
-            or (width is not None and x.shape[1] != width)):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
-                         f"[N{'' if width is None else f', {width}'}]")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if x.data_ptr() % align:
-        raise ValueError(f"{name} must be {align}-byte aligned")
+    return cuda_lib.library("bvh_trace", _SIGNATURES)
 
 
 def _check_bvh(bvh: BVHArrays, device):
     # node and triangle rows are read as 16-byte vectors
-    _check("bvh.bounds", bvh.bounds, torch.float32, 8, device, 16)
-    _check("bvh.meta", bvh.meta, torch.int32, 4, device, 16)
-    _check("bvh.tris", bvh.tris, torch.float32, 12, device, 16)
-
-
-def _launch(fn, kernel, device, *args):
-    """Call a C entry on the current stream of `device`; raise on a CUDA
-    error, count the launch otherwise."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel trace_{kernel} failed to launch: "
-                           f"cudaError {err}")
-    LAUNCHES[kernel] += 1
+    n_nodes, n_tris = bvh.bounds.shape[0], bvh.tris.shape[0]
+    check("bvh.bounds", bvh.bounds, torch.float32, (n_nodes, 8), device, 16)
+    check("bvh.meta", bvh.meta, torch.int32, (n_nodes, 4), device, 16)
+    check("bvh.tris", bvh.tris, torch.float32, (n_tris, 12), device, 16)
 
 
 def _cuda_device(x):
-    if x.device.type != "cuda":
-        raise ValueError(f"BVH kernels take CPU or CUDA tensors, got "
-                         f"{x.device}")
-    return x.device
+    return cuda_lib.cuda_device(x, "BVH kernels")
 
 
 def trace_closest(bvh: BVHArrays, ro, rd, eps: float = EPS) -> Hit:
@@ -156,16 +64,15 @@ def trace_closest(bvh: BVHArrays, ro, rd, eps: float = EPS) -> Hit:
     o = ro.expand(shape + (3,)).reshape(-1, 3).contiguous()
     d = rd.expand(shape + (3,)).reshape(-1, 3).contiguous()
     _check_bvh(bvh, device)
-    _check("ro", o, torch.float32, 3, device)
-    _check("rd", d, torch.float32, 3, device)
     n_rays = o.shape[0]
+    check("ro", o, torch.float32, (n_rays, 3), device)
+    check("rd", d, torch.float32, (n_rays, 3), device)
     t = torch.empty(n_rays, dtype=torch.float32, device=device)
     n = torch.empty((n_rays, 3), dtype=torch.float32, device=device)
-    lib = _library()
-    _launch(lib.ort_trace_closest, "closest", device,
-            bvh.bounds.data_ptr(), bvh.meta.data_ptr(), bvh.tris.data_ptr(),
-            bvh.bounds.shape[0], o.data_ptr(), d.data_ptr(), n_rays, eps,
-            t.data_ptr(), n.data_ptr())
+    cuda_lib.launch(_library().ort_trace_closest, "closest", device,
+                    bvh.bounds.data_ptr(), bvh.meta.data_ptr(),
+                    bvh.tris.data_ptr(), bvh.bounds.shape[0], o.data_ptr(),
+                    d.data_ptr(), n_rays, eps, t.data_ptr(), n.data_ptr())
     return _finalize(shape, ro, rd.expand(shape + (3,)), t, n)
 
 
@@ -176,7 +83,8 @@ def trace_any(bvh: BVHArrays, ro, rd, t_max, eps: float = EPS,
     ro/rd/t_max may be tuples of k batches of one shape: they are
     concatenated into one stream (one kernel launch) and the result is
     [k, ...].  `active` (per-batch shape) is ANDed in, so inactive lanes
-    are guaranteed False."""
+    are guaranteed False; without it the result is the kernel's own
+    buffer, [k, ...] contiguous bytes."""
     multi = isinstance(ro, (list, tuple))
     if not multi:
         ro, rd, t_max = (ro,), (rd,), (t_max,)
@@ -191,17 +99,18 @@ def trace_any(bvh: BVHArrays, ro, rd, t_max, eps: float = EPS,
     else:
         device = _cuda_device(o)
         _check_bvh(bvh, device)
-        _check("ro", o, torch.float32, 3, device)
-        _check("rd", d, torch.float32, 3, device)
-        _check("t_max", tm, torch.float32, None, device)
         n_rays = o.shape[0]
+        check("ro", o, torch.float32, (n_rays, 3), device)
+        check("rd", d, torch.float32, (n_rays, 3), device)
+        check("t_max", tm, torch.float32, (n_rays,), device)
         occ_u8 = torch.empty(n_rays, dtype=torch.uint8, device=device)
-        lib = _library()
-        _launch(lib.ort_trace_any, "any", device,
-                bvh.bounds.data_ptr(), bvh.meta.data_ptr(),
-                bvh.tris.data_ptr(), bvh.bounds.shape[0], o.data_ptr(),
-                d.data_ptr(), tm.data_ptr(), n_rays, eps, occ_u8.data_ptr())
-        occ = occ_u8.bool()
+        cuda_lib.launch(_library().ort_trace_any, "any", device,
+                        bvh.bounds.data_ptr(), bvh.meta.data_ptr(),
+                        bvh.tris.data_ptr(), bvh.bounds.shape[0],
+                        o.data_ptr(), d.data_ptr(), tm.data_ptr(), n_rays,
+                        eps, occ_u8.data_ptr())
+        # the kernel writes 0/1 bytes: a bool view of them, no copy
+        occ = occ_u8.view(torch.bool)
     occ = occ.reshape((len(ro),) + shape)
     if active is not None:
         occ = occ & active

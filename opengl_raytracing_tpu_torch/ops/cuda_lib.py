@@ -1,0 +1,139 @@
+"""Build, load and launch the hand-written CUDA kernels of csrc/.
+
+Each source in `SOURCES` is compiled at first use with nvcc for sm_90a
+into a shared library with a plain C interface, under `_build/` in the
+package, keyed by a hash of the source and the flags, and loaded with
+ctypes.  `build_all()` starts one nvcc per source at once and waits for
+all of them.  A missing nvcc or a failed build raises with the
+compiler's output.  Importing this module needs neither nvcc nor a card.
+
+`LAUNCHES` counts each kernel's launches, so a run can show that a frame
+went through the kernels; only `launch` adds to it, after the kernel was
+accepted.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
+           for name in ("bvh_trace", "an_direct")}
+BUILD_DIR = os.path.join(_PKG, "_build")
+# No --use_fast_math: the kernels rely on IEEE division, sqrt and exact
+# comparisons.  --fmad=false keeps nvcc from contracting a*b+c into FMAs,
+# so the kernels round like their plain PyTorch versions (one rounding
+# per operation).
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+LAUNCHES = {"closest": 0, "any": 0, "an_direct": 0, "bvh_brdf": 0}
+
+_libs: dict = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (neither on PATH nor under "
+                           f"{cuda_home}/bin): the CUDA kernels cannot be "
+                           "built")
+    return path
+
+
+def library_path(name: str) -> str:
+    """Where the build of source `name` with the current flags goes."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    with open(SOURCES[name], "rb") as fh:
+        h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+
+
+def build_all(names=None) -> dict:
+    """Compile every named source (all by default) whose exact build is
+    missing, one nvcc process per source, all started together; return
+    {name: library path}.  The compiler's output (ptxas register counts)
+    is kept beside each library as `.log`."""
+    names = list(SOURCES) if names is None else list(names)
+    paths = {name: library_path(name) for name in names}
+    todo = {name: p for name, p in paths.items() if not os.path.exists(p)}
+    if not todo:
+        return paths
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name, path in todo.items():
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCES[name]]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for name, (cmd, tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed with code {proc.returncode}: "
+                          f"{' '.join(cmd)}\n{out}")
+            continue
+        with open(paths[name][:-3] + ".log", "w") as fh:
+            fh.write(out)
+        os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def library(name: str, signatures: dict):
+    """The loaded library of source `name`, built if needed, with each C
+    entry's (argtypes, restype) from `signatures` declared."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(build_all([name])[name])
+        for fn, (argtypes, restype) in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        _libs[name] = lib
+    return lib
+
+
+def check(name, x, dtype, shape, device, align=4):
+    """Raise unless `x` is a contiguous, aligned tensor of `dtype` and
+    `shape` (a tuple of ints) on `device`."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if x.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
+
+
+def cuda_device(x, what: str):
+    """The CUDA device of `x`; raise for any other device."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} take CPU or CUDA tensors, got {x.device}")
+    return x.device
+
+
+def launch(fn, kernel: str, device, *args):
+    """Call C entry `fn` on the current stream of `device`; raise on a
+    CUDA error, count the launch otherwise."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
+                           f"cudaError {err}")
+    LAUNCHES[kernel] += 1

@@ -1,9 +1,16 @@
-"""Direct lighting of BVH triangles, vectorized over pixel batches.
+"""Direct lighting and the mirror/glass secondaries, vectorized over pixel
+batches.
 
-Counterpart of the BVH path of `opengl_raytracing_tpu/ops/lighting.py`
-(reference: shaders/rt/rt_lighting.glsl).  Per-fragment branches become
-masked selects; the RNG call sites hash the same (pixel, frame, offset)
-values, so the soft-shadow noise matches the JAX package bit for bit.
+Counterpart of `opengl_raytracing_tpu/ops/lighting.py` for the analytic
+scene and for BVH triangles (reference: shaders/rt/rt_lighting.glsl).
+Per-fragment branches become masked selects; the RNG call sites hash the
+same (pixel, frame, offset) values, so the soft-shadow noise matches the
+JAX package bit for bit.
+
+Two CUDA kernels (ops/an_cuda.py) take over on the card: the analytic
+`direct_light` tree and the BRDF tail of `direct_light_bvh`.  Their plain
+versions are `direct_light_plain` and `shade_bvh_brdf_plain` here, which
+the wrappers run for CPU tensors.
 
 Naming of the RNG arguments follows the GLSL call chain:
   * `rng_frame`  — the `frame` parameter of the GLSL function;
@@ -15,13 +22,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constants import (PI, SOFT_SHADOW_SAMPLES, LIGHT_CENTER,
+from ..constants import (EPS, PI, SOFT_SHADOW_SAMPLES, LIGHT_CENTER,
                          LIGHT_NORMAL_RAW, LIGHT_RADIUS, LIGHT_COLOR,
-                         BVH_ALBEDO, BVH_SPEC_STRENGTH, BVH_GLOSS)
+                         BVH_ALBEDO, BVH_SPEC_STRENGTH, BVH_GLOSS,
+                         GLASS_DISTORTION_STRENGTH, GLASS_LOCAL_REFL_WEIGHT)
 from ..sampling import rand, eps_for_dist, concentric_sample, cp_offset
-from .materials import MaterialProps, MTYPE_DIFFUSE
+from .materials import (get_material, MaterialProps, MTYPE_DIFFUSE,
+                        MTYPE_MIRROR, MTYPE_GLASS)
 from .scene import SceneCtx
-from .vecmath import dot, normalize, const3, length
+from .vecmath import dot, normalize, reflect, refract, mix, const3, length
 
 # Disk light frame, precomputed on host
 # (reference: shaders/rt/rt_lighting.glsl:29-32, 355-357).
@@ -44,6 +53,15 @@ def _segment_shadow_query(p, q):
     rd = delta / torch.clamp_min(max_t, 1e-12)[..., None]
     eps = eps_for_dist(max_t)
     return p + rd * eps[..., None], rd, max_t - eps
+
+
+def occluded_toward(scene: SceneCtx, p, q):
+    """Segment occlusion test (reference: rt_lighting.glsl:49-60): a
+    closest hit inside the window.  (The BVH frame batches its segments
+    into one any-hit wavefront instead: direct_light_bvh.)"""
+    origin, rd, win = _segment_shadow_query(p, q)
+    h = scene.trace(origin, rd)
+    return h.valid & (h.t < win)
 
 
 def shade_lambert_phong(n, v, l, li, albedo, spec_strength, gloss):
@@ -82,7 +100,10 @@ def sun_direct(scene: SceneCtx, h, mat, vdir, blocked=None):
     ndl = torch.clamp_min(dot(n, l), 0.0)
     if blocked is None:
         origin, ldir, win = _sun_shadow_query(scene, h, n)
-        blocked = scene.trace_shadow_any(origin, ldir, win)
+        if scene.use_bvh:
+            blocked = scene.trace_shadow_any(origin, ldir, win)
+        else:
+            blocked = scene.trace(origin, ldir).valid  # any hit blocks
     li = (const3(scene.params.sun_color, h.t.device)
           * scene.params.sun_intensity)
     spec = torch.where(mat.mtype == MTYPE_DIFFUSE, mat.spec_strength, 0.0)
@@ -126,7 +147,12 @@ def point_direct(scene: SceneCtx, h, mat, vdir, blocked=None):
     ndl = torch.clamp_min(dot(n, l), 0.0)
     if blocked is None:
         origin, ldir, win = _point_shadow_query(scene, h)
-        blocked = scene.trace_shadow_any(origin, ldir, win)
+        if scene.use_bvh:
+            blocked = scene.trace_shadow_any(origin, ldir, win)
+        else:
+            # the marker sphere must not shadow its own light
+            tmp = scene.trace_ignore_point_light(origin, ldir)
+            blocked = tmp.valid & (tmp.t < win)
     li = (const3(scene.params.point_light_color, h.t.device)
           * (scene.params.point_light_intensity
              / torch.clamp_min(dist2, 1e-4))[..., None])
@@ -151,6 +177,16 @@ def _disk_offsets(rng_frame: int, frame_index: int, px, py):
     return offs
 
 
+def _disk_points(offs, device):
+    """The world-space disk-light points of the unit-disk offsets
+    (reference: rt_lighting.glsl:359-371)."""
+    center = const3(LIGHT_CENTER, device)
+    t_axis = torch.from_numpy(LIGHT_T).to(device)
+    b_axis = torch.from_numpy(LIGHT_B).to(device)
+    return [center + t_axis * (dx * LIGHT_RADIUS)[..., None]
+            + b_axis * (dy * LIGHT_RADIUS)[..., None] for dx, dy in offs]
+
+
 def _disk_light_sum(h, n, v, albedo, spec_strength, gloss, xls, occ_all):
     """Soft disk area light: SOFT_SHADOW_SAMPLES concentric samples with
     per-pixel CP rotation (reference: rt_lighting.glsl:355-387,414-445),
@@ -173,6 +209,50 @@ def _disk_light_sum(h, n, v, albedo, spec_strength, gloss, xls, occ_all):
     return acc / float(SOFT_SHADOW_SAMPLES)
 
 
+def direct_light_plain(scene: SceneCtx, h, rng_frame: int,
+                       frame_index: int, vdir, px, py):
+    """Direct lighting, analytic scene (reference: rt_lighting.glsl:313-395):
+    the plain version of the CUDA kernel behind `direct_light`.
+
+    Secondary-hit mirror/glass are approximated by environment
+    reflections (no recursion), as in the reference."""
+    params = scene.params
+    n = normalize(h.n)
+    mat = get_material(h.mat, params)
+    v = normalize(vdir)
+
+    # mirror-like secondary: tinted env reflection (rt_lighting.glsl:325-335)
+    r = reflect(-v, n)
+    mirror_out = scene.sky(r) * mat.albedo
+
+    # glass-like secondary: env reflection + sky diffuse (.:337-350)
+    glass_out = scene.sky(r) * mat.albedo + sky_direct(scene, h, mat)
+
+    # diffuse/phong: disk area light + hybrid lights (.:352-394); the four
+    # disk occlusion queries trace as one batch
+    xls = _disk_points(_disk_offsets(rng_frame, frame_index, px, py),
+                       h.t.device)
+    occ = occluded_toward(scene, h.p[None], torch.stack(xls))
+    diff = _disk_light_sum(h, n, v, mat.albedo, mat.spec_strength,
+                           mat.gloss, xls, occ)
+    diff = diff + sun_direct(scene, h, mat, v)
+    diff = diff + sky_direct(scene, h, mat)
+    diff = diff + point_direct(scene, h, mat, v)
+
+    return torch.where((mat.mtype == MTYPE_MIRROR)[..., None], mirror_out,
+                       torch.where((mat.mtype == MTYPE_GLASS)[..., None],
+                                   glass_out, diff))
+
+
+def direct_light(scene: SceneCtx, h, rng_frame: int, frame_index: int, vdir,
+                 px, py):
+    """Direct lighting, analytic scene: the CUDA kernel for CUDA tensors,
+    `direct_light_plain` for CPU tensors (ops/an_cuda.py)."""
+    from . import an_cuda
+    return an_cuda.direct_light(scene, h, rng_frame, frame_index, vdir,
+                                px, py)
+
+
 def direct_light_bvh(scene: SceneCtx, h, rng_frame: int, frame_index: int,
                      vdir, px, py, active=None):
     """Direct lighting for BVH triangles: hard-coded white plastic
@@ -180,34 +260,27 @@ def direct_light_bvh(scene: SceneCtx, h, rng_frame: int, frame_index: int,
 
     All shadow queries (4 disk + sun + point) go through ONE any-hit call,
     traced as one stream: the wavefront form of the reference's six
-    sequential shadow traces.
+    sequential shadow traces.  The BRDF sum over their occlusion bits is
+    `shade_bvh_brdf`: the CUDA kernel for CUDA tensors, the plain
+    `shade_bvh_brdf_plain` for CPU tensors (ops/an_cuda.py).
 
     `active` (bool, shape of h.t) marks lanes whose radiance the caller
-    keeps; inactive lanes get a collapsed window (-1) and values on them
-    are unspecified.  The ndl gate does the same for rays the reference
-    never consumes (the surface faces away from the light: sunDirect and
-    pointDirect return before the trace, and the disk loop multiplies vis
-    by ndl*cosThetaL == 0), so it leaves the image unchanged and saves the
+    keeps; inactive lanes get a collapsed window (-1), so they trace
+    nothing and read "not occluded", and values on them are unspecified.
+    The ndl gate does the same for rays the reference never consumes (the
+    surface faces away from the light: sunDirect and pointDirect return
+    before the trace, and the disk loop multiplies vis by
+    ndl*cosThetaL == 0), so it leaves the image unchanged and saves the
     rays."""
-    dev = h.t.device
+    from . import an_cuda
     n = normalize(h.n)
     v = normalize(vdir)
-    shape = h.t.shape
-    albedo = const3(BVH_ALBEDO, dev).expand(shape + (3,))
-    spec = torch.full(shape, BVH_SPEC_STRENGTH, device=dev)
-    gloss = torch.full(shape, BVH_GLOSS, device=dev)
     params = scene.params
 
     offs = _disk_offsets(rng_frame, frame_index, px, py)
-    center = const3(LIGHT_CENTER, dev)
-    t_axis = torch.from_numpy(LIGHT_T).to(dev)
-    b_axis = torch.from_numpy(LIGHT_B).to(dev)
-    xls = [center + t_axis * (dx * LIGHT_RADIUS)[..., None]
-           + b_axis * (dy * LIGHT_RADIUS)[..., None] for dx, dy in offs]
-
-    light_n = -torch.from_numpy(LIGHT_N).to(dev)
+    light_n = -torch.from_numpy(LIGHT_N).to(h.t.device)
     origins, dirs, wins = [], [], []
-    for xl in xls:
+    for xl in _disk_points(offs, h.t.device):
         o, d, w = _segment_shadow_query(h.p, xl)
         facing = (dot(n, d) > 0.0) & (dot(d, light_n) > 0.0)
         origins.append(o)
@@ -225,8 +298,23 @@ def direct_light_bvh(scene: SceneCtx, h, rng_frame: int, frame_index: int,
         wins.append(torch.where(dot(n, d) > 0.0, w, -1.0))
     if active is not None:
         wins = [torch.where(active, w, -1.0) for w in wins]
-    occ = scene.trace_shadow_any(tuple(origins), tuple(dirs), tuple(wins),
-                                 active=active)
+    occ = scene.trace_shadow_any(tuple(origins), tuple(dirs), tuple(wins))
+    return an_cuda.shade_bvh_brdf(scene, h, n, v, offs, occ)
+
+
+def shade_bvh_brdf_plain(scene: SceneCtx, h, n, v, offs, occ):
+    """The BRDF tail of `direct_light_bvh` (reference:
+    rt_lighting.glsl:414-460): the disk-light sum and the sun, sky and
+    point terms of the white plastic, given the unit-disk offsets and the
+    occlusion bits `occ` [k, ...] of the shadow wavefront (4 disk
+    samples, then the sun and the point light where they are on).  The
+    plain version of the CUDA kernel behind `shade_bvh_brdf`."""
+    dev = h.t.device
+    shape = h.t.shape
+    params = scene.params
+    albedo = const3(BVH_ALBEDO, dev).expand(shape + (3,))
+    spec = torch.full(shape, BVH_SPEC_STRENGTH, device=dev)
+    gloss = torch.full(shape, BVH_GLOSS, device=dev)
     k = SOFT_SHADOW_SAMPLES
     blocked_sun = blocked_point = None
     if params.sun_enabled:
@@ -235,8 +323,8 @@ def direct_light_bvh(scene: SceneCtx, h, rng_frame: int, frame_index: int,
     if params.point_light_enabled:
         blocked_point = occ[k]
 
-    acc = _disk_light_sum(h, n, v, albedo, spec, gloss, xls,
-                          occ[:SOFT_SHADOW_SAMPLES])
+    acc = _disk_light_sum(h, n, v, albedo, spec, gloss,
+                          _disk_points(offs, dev), occ[:SOFT_SHADOW_SAMPLES])
 
     # "fake" analytic material for the hybrid lights (rt_lighting.glsl:448-453)
     fake = MaterialProps(albedo, spec, gloss,
@@ -246,3 +334,72 @@ def direct_light_bvh(scene: SceneCtx, h, rng_frame: int, frame_index: int,
     acc = acc + sky_direct(scene, h, fake)
     acc = acc + point_direct(scene, h, fake, v, blocked=blocked_point)
     return acc
+
+
+def shade_glass(scene: SceneCtx, h, wo, mat, seed: int, frame_index: int,
+                px, py):
+    """Thin-glass shading: Fresnel mix of (env + local reflection) and
+    (straight-through + softened bent refraction)
+    (reference: rt_lighting.glsl:576-663).  The three secondary rays
+    trace and light one after the other (the JAX package's default
+    sequential form)."""
+    n = normalize(h.n)
+    v = normalize(wo)
+    i = -v
+    ior = torch.clamp_min(mat.ior, 1.0001)
+    eta = 1.0 / ior
+
+    r = reflect(i, n)
+    reflect_env = scene.sky(r)
+    cos_theta = torch.clamp(dot(-i, n), 0.0, 1.0)
+    t_phys, k = refract(i, n, eta)
+    t_dir = normalize(mix(i, normalize(t_phys), GLASS_DISTORTION_STRENGTH))
+
+    def secondary(d):
+        # misses are not sanitized: their p is ro + d * INF, and the
+        # garbage lit there is dropped by the callers' valid select
+        h2 = scene.trace_ignore_glass(h.p + d * EPS, d)
+        v2 = normalize(scene.cam_pos - h2.p)
+        return direct_light(scene, h2, seed, frame_index, v2, px, py), \
+            h2.valid
+
+    refl_lit, refl_valid = secondary(r)
+    straight_lit, str_valid = secondary(i)
+    bent_lit, bent_valid = secondary(t_dir)
+
+    # Reflection: env + local
+    reflect_local = torch.where(refl_valid[..., None], refl_lit, reflect_env)
+    reflect_col = mix(reflect_env, reflect_local, GLASS_LOCAL_REFL_WEIGHT)
+
+    # Straight-through
+    straight_col = torch.where(str_valid[..., None], straight_lit,
+                               scene.sky(i))
+
+    # Bent refraction, softened toward straight-through
+    bent_col = torch.where(bent_valid[..., None], bent_lit, scene.sky(t_dir))
+
+    refr_col = torch.where((k > 0.0)[..., None],
+                           mix(straight_col, bent_col,
+                               GLASS_DISTORTION_STRENGTH),
+                           straight_col)
+    refr_col = refr_col * mat.albedo
+
+    f0 = ((ior - 1.0) / (ior + 1.0)) ** 2
+    fresnel = f0 + (1.0 - f0) * torch.pow(1.0 - cos_theta, 5.0)
+    return mix(refr_col, reflect_col, fresnel[..., None])
+
+
+def shade_mirror(scene: SceneCtx, h, wo, mat, seed: int, frame_index: int,
+                 px, py):
+    """Perfect mirror: one reflected trace + direct light at the reflected
+    hit (reference: rt_lighting.glsl:675-708).  The GI term of the
+    reference's mirror raises until GI is ported."""
+    if scene.params.enable_gi:
+        raise NotImplementedError("GI is not ported yet")
+    n = normalize(h.n)
+    i = -normalize(wo)
+    r = reflect(i, n)
+    h2 = scene.trace(h.p + r * EPS, r)
+    col_hit = direct_light(scene, h2, seed, frame_index, -r, px, py)
+    col = torch.where(h2.valid[..., None], col_hit, scene.sky(r))
+    return col * mat.albedo

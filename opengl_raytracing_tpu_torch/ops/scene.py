@@ -1,10 +1,11 @@
-"""Scene context: trace/shadow/sky dispatch for the BVH scene (PyTorch).
+"""Scene context: trace/shadow/sky dispatch for both scene modes (PyTorch).
 
-Counterpart of `opengl_raytracing_tpu/ops/scene.py` for the BVH path
-(reference: shaders/rt/rt_uniforms.glsl, rt_bvh.glsl:193-304).  Traces go
-to ops/bvh_cuda.py, which walks the tree with the CUDA kernels for CUDA
-tensors and with the plain PyTorch walk for CPU tensors.  The analytic
-scene is not ported yet.
+Counterpart of `opengl_raytracing_tpu/ops/scene.py` (reference:
+shaders/rt/rt_uniforms.glsl, rt_scene_analytic.glsl:132-197,
+rt_bvh.glsl:193-304).  BVH traces go to ops/bvh_cuda.py, which walks the
+tree with the CUDA kernels for CUDA tensors and with the plain PyTorch
+walk for CPU tensors; analytic traces are plain PyTorch
+(ops/scene_analytic.py).  The cubemap environment is not ported yet.
 """
 
 from __future__ import annotations
@@ -43,81 +44,92 @@ def _deg2rad(x):
     return x * (math.pi / 180.0)
 
 
-def dir_from_yaw_pitch(yaw_deg, pitch_deg, device):
-    """Direction from yaw/pitch degrees
+def dir_from_yaw_pitch(yaw_deg, pitch_deg):
+    """Direction from yaw/pitch degrees, on the host
     (reference: src/render/render.cpp:35-51)."""
-    yaw = _deg2rad(torch.tensor(yaw_deg, dtype=torch.float32, device=device))
-    pitch = _deg2rad(torch.tensor(pitch_deg, dtype=torch.float32,
-                                  device=device))
+    yaw = _deg2rad(torch.tensor(yaw_deg, dtype=torch.float32))
+    pitch = _deg2rad(torch.tensor(pitch_deg, dtype=torch.float32))
     d = v3(torch.cos(pitch) * torch.cos(yaw), torch.sin(pitch),
-           torch.cos(pitch) * torch.sin(yaw), device=device)
+           torch.cos(pitch) * torch.sin(yaw))
     small = (d * d).sum() < 1e-6
-    fallback = torch.tensor([0.0, -1.0, 0.0], dtype=torch.float32,
-                            device=device)
+    fallback = torch.tensor([0.0, -1.0, 0.0], dtype=torch.float32)
     return torch.where(small, fallback, normalize(d))
 
 
-def compute_point_light_world_pos(params: RenderParams, device):
-    """Base position + optional orbit offset
+def compute_point_light_world_pos(params: RenderParams):
+    """Base position + optional orbit offset, on the host
     (reference: src/render/render.cpp:8-31).  Orbit yaw/pitch use the
     camera-style basis (sy, sp, cy), distinct from dir_from_yaw_pitch."""
-    base = torch.tensor(params.point_light_pos, dtype=torch.float32,
-                        device=device)
+    base = torch.tensor(params.point_light_pos, dtype=torch.float32)
     if not params.point_light_orbit_enabled:
         return base
-    yaw = _deg2rad(torch.tensor(params.point_light_yaw, dtype=torch.float32,
-                                device=device))
+    yaw = _deg2rad(torch.tensor(params.point_light_yaw, dtype=torch.float32))
     pitch = _deg2rad(torch.tensor(params.point_light_pitch,
-                                  dtype=torch.float32, device=device))
+                                  dtype=torch.float32))
     d = v3(torch.cos(pitch) * torch.sin(yaw), torch.sin(pitch),
-           torch.cos(pitch) * torch.cos(yaw), device=device)
+           torch.cos(pitch) * torch.cos(yaw))
     return base + d * max(float(np.float32(params.point_light_orbit_radius)),
                           0.0)
 
 
 @dataclasses.dataclass(frozen=True)
 class SceneCtx:
-    """Per-frame scene inputs for the BVH scene."""
+    """Per-frame scene inputs and the scene mode."""
     params: RenderParams
     cam_pos: torch.Tensor          # [3]
     point_light_pos: torch.Tensor  # [3]
     sun_dir: torch.Tensor          # [3]
     sky_up: torch.Tensor           # [3]
-    bvh: BVHDevice
+    # the three vectors above as host floats, for kernel arguments
+    host_vectors: dict
+    use_bvh: bool = False
+    bvh: Optional[BVHDevice] = None
 
     @staticmethod
     def create(params: RenderParams, cam_pos: torch.Tensor, env_map=None,
                use_bvh: bool = False, bvh: Optional[BVHDevice] = None
                ) -> "SceneCtx":
-        """The JAX signature; the analytic scene and the cubemap env
-        raise until they are ported."""
-        if not use_bvh:
-            raise NotImplementedError("the analytic scene is not ported yet")
+        """The JAX signature; the cubemap env raises until it is ported.
+
+        The light vectors depend on the parameters alone: they are
+        computed on the host and copied to the frame's device once, so a
+        kernel can take them as arguments without reading the device."""
         if env_map is not None:
             raise NotImplementedError("cubemap environment is not ported yet")
-        if bvh is None:
+        if use_bvh and bvh is None:
             raise ValueError("use_bvh needs a BVHDevice")
+        host = dict(
+            point_light_pos=compute_point_light_world_pos(params),
+            sun_dir=dir_from_yaw_pitch(params.sun_yaw, params.sun_pitch),
+            sky_up=dir_from_yaw_pitch(params.sky_yaw, params.sky_pitch))
         device = cam_pos.device
         return SceneCtx(
-            params=params,
-            cam_pos=cam_pos.to(torch.float32),
-            point_light_pos=compute_point_light_world_pos(params, device),
-            sun_dir=dir_from_yaw_pitch(params.sun_yaw, params.sun_pitch,
-                                       device),
-            sky_up=dir_from_yaw_pitch(params.sky_yaw, params.sky_pitch,
-                                      device),
-            bvh=bvh)
+            params=params, cam_pos=cam_pos.to(torch.float32),
+            **{k: v.to(device) for k, v in host.items()},
+            host_vectors={k: tuple(v.tolist()) for k, v in host.items()},
+            use_bvh=use_bvh, bvh=bvh)
 
     def trace(self, ro, rd, eps: float = EPS) -> sa.Hit:
-        """Closest hit against the BVH."""
-        return bvh_cuda.trace_closest(self.bvh.arrays, ro, rd, eps)
+        """Closest hit against the BVH or the analytic scene."""
+        if self.use_bvh:
+            return bvh_cuda.trace_closest(self.bvh.arrays, ro, rd, eps)
+        return sa.trace_analytic(ro, rd, self.params, self.point_light_pos,
+                                 eps)
+
+    def trace_ignore_glass(self, ro, rd, eps: float = EPS) -> sa.Hit:
+        return sa.trace_analytic_ignore_glass(ro, rd, self.params,
+                                              self.point_light_pos, eps)
+
+    def trace_ignore_point_light(self, ro, rd, eps: float = EPS) -> sa.Hit:
+        return sa.trace_analytic_ignore_point_light(
+            ro, rd, self.params, self.point_light_pos, eps)
 
     def trace_shadow_any(self, ro, rd, t_max, eps: float = EPS,
                          active=None):
-        """Any occluder in [eps, t_max].  ro/rd/t_max may be tuples of k
-        same-shape batches, traced as one stream ([k, ...] result);
-        `active` has the per-batch shape, and inactive lanes are
-        guaranteed False."""
+        """Any occluder in [eps, t_max] (BVH mode only).  ro/rd/t_max may
+        be tuples of k same-shape batches, traced as one stream
+        ([k, ...] result); `active` has the per-batch shape, and inactive
+        lanes are guaranteed False."""
         return bvh_cuda.trace_any(self.bvh.arrays, ro, rd, t_max, eps,
                                   active=active)
 

@@ -8,12 +8,22 @@ the port through `convert.bvh_from_numpy`.  Tolerances:
   (dot products are summed in another order);
 * plain walker vs the Pallas kernels K1/K2 (interpret mode), which do
   Moller-Trumbore as bf16_3x matmuls: rtol/atol 1e-4 on t and 1e-3 on
-  normals as in tests/test_bvh_mxu.py, occlusion equal.
+  normals as in tests/test_bvh_mxu.py, occlusion equal;
+* plain any-hit walk vs K6, the lane-packed shadow kernel
+  (`bvh_mxu.SHADOW_PACK`), in interpret mode: occlusion equal;
+* plain walks vs K7a/K7b, the scalar packet walks of
+  experiments/bvh_pallas.py, in interpret mode: the same float32 scalar
+  arithmetic, so `valid` and occlusion are equal and t agrees within
+  1e-5; a normal may differ only where another triangle ties in t.
+
+The port's CUDA kernels are held to these plain walks on the card, so
+they stand for K1, K2, K6, K7a and K7b alike.
 
 tests/test_torch_cuda.py holds the kernels' own tests, which need a card.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -32,7 +42,7 @@ from opengl_raytracing_tpu.scene import bvh_to_arrays as jbvh_to_arrays
 
 from opengl_raytracing_tpu_torch.camera import Camera
 from opengl_raytracing_tpu_torch.convert import bvh_from_numpy
-from opengl_raytracing_tpu_torch.ops import bvh_cuda
+from opengl_raytracing_tpu_torch.ops import bvh_cuda, cuda_lib
 from opengl_raytracing_tpu_torch.ops import bvh_traverse as tbt
 from opengl_raytracing_tpu_torch.ops.intersect import (intersect_aabb,
                                                        intersect_triangle)
@@ -244,13 +254,98 @@ def test_wrappers_on_cpu_use_plain_walks(scene):
 
 def test_wrapper_checks_reject_bad_tensors():
     x = torch.zeros(8, 3)
-    bvh_cuda._check("x", x, torch.float32, 3, x.device)
+    check = cuda_lib.check
+    check("x", x, torch.float32, (8, 3), x.device)
     with pytest.raises(TypeError):
-        bvh_cuda._check("x", x.double(), torch.float32, 3, x.device)
+        check("x", x.double(), torch.float32, (8, 3), x.device)
     with pytest.raises(ValueError, match="shape"):
-        bvh_cuda._check("x", torch.zeros(8, 4), torch.float32, 3, x.device)
+        check("x", torch.zeros(8, 4), torch.float32, (8, 3), x.device)
     with pytest.raises(ValueError, match="contiguous"):
-        bvh_cuda._check("x", torch.zeros(3, 8).T, torch.float32, 3, x.device)
+        check("x", torch.zeros(3, 8).T, torch.float32, (8, 3), x.device)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         bvh_cuda.trace_closest(None, torch.zeros(1, 3, device="meta"),
                                torch.zeros(1, 3, device="meta"))
+
+
+@pytest.mark.parametrize("case", ["per_batch", "shared", "active"])
+def test_any_walk_matches_packed_shadow_kernel(case, monkeypatch):
+    """K6 (`_shadow_kernel_pack`, the k batches packed on lanes) against
+    the port's trace_any on the CPU: four disk-light-like batches with
+    their own origins, four hemisphere-like batches sharing one origin,
+    and per-batch origins under an `active` mask."""
+    from opengl_raytracing_tpu.ops import bvh_mxu as bm
+    tris = gather_triangles(make_icosphere(1.0, 2),
+                            model_transform((0.0, 1.0, -3.0), 1.0))
+    host = jbuild_bvh(tris)
+    pages = bm.build_mxu_paged(host)
+    arrays = bvh_from_numpy(BVHArrays(*jbvh_to_arrays(host)), "cpu").arrays
+    rng = np.random.RandomState(7)
+    n = 512
+    hp = (rng.uniform(-1.5, 1.5, (n, 3))
+          + np.float32([0, 1, -3])).astype(np.float32)
+    light = np.float32([0.5, 5.0, -1.0])
+    oris, dirs, wins = [], [], []
+    for _ in range(4):
+        d = (light + rng.randn(3) * 0.4)[None] - hp
+        if case == "shared":
+            d = rng.randn(n, 3)
+        w = np.linalg.norm(d, axis=1)
+        d = (d / w[:, None]).astype(np.float32)
+        oris.append(hp if case == "shared" else (hp + d * 1e-3))
+        dirs.append(d)
+        wins.append((w - 1e-3 if case != "shared"
+                     else np.full(n, 1.2)).astype(np.float32))
+    act = rng.rand(n) > 0.35 if case == "active" else None
+    monkeypatch.setenv("ORT_FORCE_MXU", "1")
+    monkeypatch.setattr(bm, "SHADOW_PACK", True)
+    packed = []
+    real = bm._trace_shadow_packed
+    monkeypatch.setattr(bm, "_trace_shadow_packed",
+                        lambda *a: packed.append(1) or real(*a))
+    jo = [jnp.asarray(o) for o in oris]
+    if case == "shared":
+        jo = [jo[0]] * 4
+    want = np.asarray(bm.trace_bvh_shadow_mxu_paged(
+        pages, tuple(jo), tuple(jnp.asarray(d) for d in dirs),
+        tuple(jnp.asarray(w) for w in wins),
+        active=None if act is None else jnp.asarray(act))).astype(bool)
+    jax.clear_caches()
+    assert packed  # the lane-packed kernel ran
+    got = bvh_cuda.trace_any(arrays, tuple(_t(o) for o in oris),
+                             tuple(_t(d) for d in dirs),
+                             tuple(_t(w) for w in wins),
+                             active=None if act is None else _t(act))
+    if act is not None:
+        want = want & act[None]
+    assert got.shape == (4, n) and 0.05 < got.float().mean() < 0.95
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_walks_match_packet_kernels(scene):
+    """K7a/K7b (`trace_bvh_packet`, `trace_bvh_shadow_packet`, scalar
+    packet walks over the same BVHArrays) in interpret mode against the
+    port's trace_closest and trace_any on the CPU."""
+    from opengl_raytracing_tpu.experiments import bvh_pallas
+    tris, jarrays, arrays = scene
+    ro, rd = _rays(9, 512)
+    h = bvh_cuda.trace_closest(arrays, _t(ro), _t(rd))
+    jh = bvh_pallas.trace_bvh_packet(jarrays, jnp.asarray(ro),
+                                     jnp.asarray(rd))
+    valid = h.valid.numpy()
+    np.testing.assert_array_equal(valid, np.asarray(jh.valid))
+    assert 0.1 < valid.mean() < 0.9
+    np.testing.assert_allclose(h.t.numpy()[valid], np.asarray(jh.t)[valid],
+                               rtol=1e-5, atol=1e-5)
+    near, tri_n = _tied_normals(tris, ro, rd, h.t, 1e-5, 1e-5)
+    jn = torch.from_numpy(np.array(jh.n))
+    flip = (h.n - jn).abs().amax(-1) > 1e-5
+    ok = ((tri_n - jn[:, None]).abs().amax(-1) <= 1e-5) & near
+    assert bool((near.sum(-1)[flip] >= 2).all())
+    assert bool(ok[flip].any(-1).all())
+
+    t_max = np.random.RandomState(9).uniform(-1, 4, 512).astype(np.float32)
+    occ = bvh_cuda.trace_any(arrays, _t(ro), _t(rd), _t(t_max)).numpy()
+    want = np.asarray(bvh_pallas.trace_bvh_shadow_packet(
+        jarrays, jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(t_max)))
+    np.testing.assert_array_equal(occ, want)
+    assert 0.05 < occ.mean() < 0.95

@@ -1,4 +1,4 @@
-"""The CUDA BVH kernels against their plain PyTorch walks, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here is marked `cuda` and skips where no card is present.  The
 file imports no JAX, so it also runs where JAX is not installed; on the
@@ -6,18 +6,31 @@ card machine run it without the suite's conftest (which imports JAX):
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-The kernels are built with --fmad=false and evaluate the plain walk's
-expressions in the same order, so hit masks and occlusion are equal and
-t agrees to 1e-6.
+The kernels are built with --fmad=false and evaluate the plain versions'
+expressions in the same order.  The BVH walks then give equal hit masks
+and occlusion, and t within 1e-6.  The direct-light kernels differ from
+PyTorch only in the library's pow: radiance is held to rtol 1e-4 /
+atol 1e-5 on the lanes whose hit is valid (the value of a miss lane is
+garbage that the callers' select drops; the kernels must still finish on
+it).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from opengl_raytracing_tpu_torch.ops import bvh_cuda
+from opengl_raytracing_tpu_torch.camera import Camera
+from opengl_raytracing_tpu_torch.constants import EPS
+from opengl_raytracing_tpu_torch.convert import camera_frame_inputs
+from opengl_raytracing_tpu_torch.models import preset
+from opengl_raytracing_tpu_torch.models.pipeline import (_sanitize_hit,
+                                                         primary_rays)
+from opengl_raytracing_tpu_torch.ops import an_cuda, bvh_cuda, cuda_lib
 from opengl_raytracing_tpu_torch.ops import bvh_traverse as plain
-from opengl_raytracing_tpu_torch.ops.scene import prepare_bvh
+from opengl_raytracing_tpu_torch.ops import lighting as lt
+from opengl_raytracing_tpu_torch.ops.scene import SceneCtx, prepare_bvh
+from opengl_raytracing_tpu_torch.ops.scene_analytic import Hit
+from opengl_raytracing_tpu_torch.ops.vecmath import normalize, reflect
 from opengl_raytracing_tpu_torch.scene import (gather_triangles, make_bunny,
                                                model_transform)
 
@@ -79,3 +92,136 @@ def test_wrappers_reject_bad_inputs(bvh):
         bvh_cuda.trace_closest(bvh, ro.double(), rd.double())
     with pytest.raises(ValueError):
         bvh_cuda.trace_closest(bvh, ro, rd.cpu())
+
+
+TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _analytic(params, height=96, width=128):
+    """The analytic scene's primary hits of the default camera on the card,
+    with the pixel centers and view directions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cam = Camera()
+    cam.aspect = width / height
+    fin = camera_frame_inputs(cam, "cuda")
+    scene = SceneCtx.create(params, fin.cam_pos, use_bvh=False)
+    px, py, rd = primary_rays(height, width, fin, params)
+    ro = fin.cam_pos.expand(rd.shape)
+    h = scene.trace(ro, rd)
+    return scene, h, _sanitize_hit(h, ro, rd), px, py, -rd
+
+
+def _random_hits(n, seed):
+    """Hits anywhere in the scene box with any normal and material id."""
+    g = torch.Generator().manual_seed(seed)
+    p = torch.rand(n, 3, generator=g) * torch.tensor([6.0, 4.0, 8.0]) \
+        - torch.tensor([3.0, 0.0, 7.0])
+    nrm = torch.randn(n, 3, generator=g)
+    mat = torch.randint(0, 5, (n,), generator=g, dtype=torch.int32)
+    v = torch.randn(n, 3, generator=g)
+    px = torch.rand(n, generator=g) * 800
+    py = torch.rand(n, generator=g) * 600
+    return (Hit(torch.ones(n).cuda(), p.cuda(), nrm.cuda(), mat.cuda()),
+            v.cuda(), px.cuda(), py.cuda())
+
+
+@pytest.mark.parametrize("change", [dict(), dict(sun_enabled=0),
+                                    dict(point_light_enabled=0,
+                                         sky_enabled=0)])
+def test_an_direct_kernel_matches_plain(change):
+    params = preset("baseline").replace(**change)
+    scene, _, h, px, py, vdir = _analytic(params)
+    before = cuda_lib.LAUNCHES["an_direct"]
+    got = an_cuda.direct_light(scene, h, 3, 3, vdir, px, py)
+    assert cuda_lib.LAUNCHES["an_direct"] == before + 1
+    want = lt.direct_light_plain(scene, h, 3, 3, vdir, px, py)
+    torch.testing.assert_close(got, want, **TOL)
+    assert want.std() > 0.01
+    hr, v, rpx, rpy = _random_hits(1 << 14, 0)
+    torch.testing.assert_close(
+        an_cuda.direct_light(scene, hr, 7, 7, v, rpx, rpy),
+        lt.direct_light_plain(scene, hr, 7, 7, v, rpx, rpy), **TOL)
+
+
+def test_an_direct_kernel_on_unsanitized_secondary_hits():
+    """The mirror's reflected rays, misses included (p = ro + rd * 1e30):
+    the kernel finishes, and agrees with the plain version on hits."""
+    scene, _, h, px, py, vdir = _analytic(preset("baseline"))
+    r = reflect(-normalize(vdir), normalize(h.n))
+    h2 = scene.trace(h.p + r * EPS, r)
+    assert 0.05 < h2.valid.float().mean() < 0.95
+    got = an_cuda.direct_light(scene, h2, 1, 1, -r, px, py)
+    torch.cuda.synchronize()
+    want = lt.direct_light_plain(scene, h2, 1, 1, -r, px, py)
+    torch.testing.assert_close(got[h2.valid], want[h2.valid], **TOL)
+
+
+@pytest.mark.parametrize("change", [dict(), dict(sun_enabled=0),
+                                    dict(point_light_enabled=0)])
+def test_bvh_brdf_kernel_matches_plain(change):
+    params = preset("baseline").replace(**change)
+    scene, _, h, px, py, vdir = _analytic(params)
+    n, v = normalize(h.n), normalize(vdir)
+    offs = lt._disk_offsets(2, 2, px, py)
+    k = 4 + int(bool(params.sun_enabled)) + int(
+        bool(params.point_light_enabled))
+    occ = torch.rand((k,) + h.t.shape, device="cuda") < 0.3
+    before = cuda_lib.LAUNCHES["bvh_brdf"]
+    got = an_cuda.shade_bvh_brdf(scene, h, n, v, offs, occ)
+    got_u8 = an_cuda.shade_bvh_brdf(scene, h, n, v, offs,
+                                    occ.to(torch.uint8))
+    assert cuda_lib.LAUNCHES["bvh_brdf"] == before + 2
+    want = lt.shade_bvh_brdf_plain(scene, h, n, v, offs, occ)
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, got_u8)
+
+
+def test_direct_light_bvh_uses_both_kernels(bvh):
+    """The BVH frame's direct light on the card (the any-hit kernel, then
+    the BRDF kernel on its bytes) against the same call on the CPU (the
+    plain walk and the plain tail), on the hit lanes."""
+    from opengl_raytracing_tpu_torch.ops.scene import BVHDevice
+    from opengl_raytracing_tpu_torch.scene.bvh import BVHArrays
+    params = preset("baseline")
+    cam = Camera()
+    cam.aspect = 128 / 96
+    cam.fov = 12.0
+    cam.point_at((-2.0, 1.5, 0.0))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        fin = camera_frame_inputs(cam, dev)
+        arrays = BVHArrays(*(x.to(dev) for x in bvh))
+        scene = SceneCtx.create(params, fin.cam_pos, use_bvh=True,
+                                bvh=BVHDevice(arrays))
+        px, py, rd = primary_rays(96, 128, fin, params)
+        ro = fin.cam_pos.expand(rd.shape)
+        h_raw = scene.trace(ro, rd)
+        before = dict(cuda_lib.LAUNCHES)
+        out[dev] = (lt.direct_light_bvh(scene, _sanitize_hit(h_raw, ro, rd),
+                                        0, 0, -rd, px, py,
+                                        active=h_raw.valid).cpu(),
+                    h_raw.valid.cpu())
+        grew = {k: cuda_lib.LAUNCHES[k] - before[k] for k in before}
+        assert grew["any"] == grew["bvh_brdf"] == (dev == "cuda")
+    (got, hit), (want, hit_cpu) = out["cuda"], out["cpu"]
+    assert torch.equal(hit, hit_cpu) and 0.2 < hit.float().mean() < 0.9
+    torch.testing.assert_close(got[hit], want[hit], **TOL)
+
+
+def test_an_wrappers_reject_bad_inputs():
+    scene, _, h, px, py, vdir = _analytic(preset("baseline"), 8, 8)
+    with pytest.raises(TypeError):
+        an_cuda.direct_light(scene, Hit(h.t, h.p.double(), h.n, h.mat), 0,
+                             0, vdir, px, py)
+    with pytest.raises(ValueError):
+        an_cuda.direct_light(scene, h, 0, 0, vdir, px.cpu(), py.cpu())
+    n, v = normalize(h.n), normalize(vdir)
+    offs = lt._disk_offsets(0, 0, px, py)
+    occ = torch.zeros((6,) + h.t.shape, dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="shape"):
+        an_cuda.shade_bvh_brdf(scene, h, n, v, offs, occ[:5])
+    with pytest.raises(TypeError):
+        an_cuda.shade_bvh_brdf(scene, h, n, v, offs, occ.float())
+    with pytest.raises(ValueError):
+        an_cuda.shade_bvh_brdf(scene, h, n, v.cpu(), offs, occ)

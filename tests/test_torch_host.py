@@ -190,6 +190,7 @@ def test_encode_png_matches():
 def test_port_never_imports_jax():
     mods = _port_modules()
     assert "opengl_raytracing_tpu_torch.ops.bvh_cuda" in mods
+    assert "opengl_raytracing_tpu_torch.ops.an_cuda" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -207,12 +208,14 @@ def test_port_never_imports_jax():
 
 
 def test_kernel_module_imports_without_nvcc_and_build_raises():
-    """ops/bvh_cuda imports with neither nvcc nor triton, and building
+    """The kernel modules import with neither nvcc nor triton, and building
     without nvcc raises with a message instead of falling back."""
     code = ("import sys\n"
-            "import opengl_raytracing_tpu_torch.ops.bvh_cuda as k\n"
+            "import opengl_raytracing_tpu_torch.ops.bvh_cuda\n"
+            "import opengl_raytracing_tpu_torch.ops.an_cuda\n"
+            "import opengl_raytracing_tpu_torch.ops.cuda_lib as k\n"
             "assert 'triton' not in sys.modules\n"
-            "try:\n    k.build()\nexcept RuntimeError as e:\n"
+            "try:\n    k.build_all()\nexcept RuntimeError as e:\n"
             "    assert 'nvcc' in str(e), e\n"
             "else:\n    raise SystemExit('build did not raise')\n")
     env = dict(os.environ, PATH="/nonexistent", CUDA_HOME="/nonexistent")

@@ -117,7 +117,7 @@ def test_goldens(tris, name):
         np.float32) / 255.0
     cam = Camera()
     cam.aspect = width / height
-    render = make_render_fn(height, width, "cpu")
+    render = make_render_fn(height, width, "cpu", use_bvh=True)
     state = RenderState.create(height, width, "cpu")
     _, out = render(preset("baseline"), camera_frame_inputs(cam, "cpu"),
                     state, None, prepare_bvh(tris, "cpu"))
@@ -143,7 +143,7 @@ def test_accumulation_is_updated_in_place(tris):
 
 
 @pytest.mark.parametrize("change", [
-    dict(use_bvh=False), dict(enable_taa=1), dict(enable_svgf=1),
+    dict(use_bvh=False, enable_gi=1), dict(enable_taa=1), dict(enable_svgf=1),
     dict(enable_gi=1), dict(enable_ao=1), dict(spp_per_frame=2),
     dict(env_map=True), dict(show_motion=True)])
 def test_unported_stages_raise(tris, change):
