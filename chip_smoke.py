@@ -3,14 +3,18 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths through `render_frame` on `cuda`, in phases,
-each printing its result and seconds on a line of its own:
+Drives the port's three paths through `render_frame` on `cuda`, in
+phases, each printing its result and seconds on a line of its own:
 
   * the bench `baseline` frame: the 5,120 triangle bunny BVH scene at
     1920x1080, 1 SPP, GI/AO/TAA/SVGF off (kernels K1, K2, K5);
   * the bench `an_baseline` frame: the analytic scene (floor, albedo,
     glass and mirror spheres, point-light marker) at 800x600 with the
-    same preset and the gradient sky (kernel K3).
+    same preset and the gradient sky (kernel K3);
+  * the bench `full` frame: the bunny scene at 1920x1080 with GI, AO,
+    TAA and SVGF on at 1 SPP (kernels K1 on primary and bounce rays, K2
+    on shadow and AO rays, K5, and the SVGF kernel K4), and the analytic
+    scene's `full` preset against the CPU (K3 and K4).
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every csrc/*.cu from the sources, one process
@@ -18,12 +22,14 @@ each printing its result and seconds on a line of its own:
   3. kernels: each kernel on the exact inputs one frame hands it -- the
      closest-hit and any-hit BVH kernels and the BVH BRDF tail on a
      baseline frame's, the analytic direct-light kernel on every call of
-     an an_baseline frame -- held against its plain PyTorch version on
-     the card.  BVH walks: at most 1e-5 of lanes may differ in
-     `valid`/occlusion, t within 1e-5 relative on hit lanes.  Direct
-     light: radiance within rtol 1e-4 / atol 1e-5 on lanes whose hit is
-     valid.  Wrapper and plain times from CUDA events, the kernel alone
-     from the profiler;
+     an an_baseline frame, the SVGF kernel and the closest-hit kernel's
+     bounce-ray call (with its `active` mask) on a 1080p `full` frame's
+     -- held against its plain PyTorch version on the card.  BVH walks:
+     at most 1e-5 of lanes may differ in `valid`/occlusion, t within 1e-5
+     relative on hit lanes.  Direct light: radiance within rtol 1e-4 /
+     atol 1e-5 on lanes whose hit is valid.  SVGF: rtol 1e-5 / atol 1e-5
+     on every pixel.  Wrapper and plain times from CUDA events, the
+     kernel alone from the profiler;
   4. frames: 32 chained baseline frames; launch counters are zeroed just
      before and each kernel of the path must have grown by at least 32;
      the image must be finite and in [0,1]; ms/frame, fps, primary
@@ -37,7 +43,19 @@ each printing its result and seconds on a line of its own:
      share of the unprofiled frame time;
   7-9. frames_analytic, reference_analytic (300x400), profile_analytic:
      the same three for the an_baseline frame; its last frame goes to
-     out/verify_torch_analytic.png.
+     out/verify_torch_analytic.png;
+  10. frames_full: 32 chained `full` frames at 1080p (they cross TAA's
+     weight steps at frames 8 and 32); closest, any, bvh_brdf and svgf
+     must each grow by at least 32; the last frame goes to
+     out/verify_torch_full.png;
+  11. reference_full: a 3-frame `full` chain at 270x480 on the card
+     against the CPU, so that TAA's history is compared too; the gate of
+     step 5;
+  12. reference_analytic_full: the analytic `full` preset without the env
+     map, a 3-frame chain at 150x200, card against CPU (analytic GI and
+     AO, mirror GI, TAA, K3 and K4 together); the gate of step 5;
+  13. profile_full: the third frame of a `full` chain at 1080p by stage
+     (primary trace, direct light, GI, AO, TAA, SVGF, present).
 
 Any failure raises, so the script exits non-zero.  It needs one CUDA
 card and exits non-zero, printing no result, without one.  Before the
@@ -61,9 +79,13 @@ AN_HEIGHT, AN_WIDTH = 600, 800
 FRAMES = 32
 REF_HEIGHT, REF_WIDTH = 270, 480
 AN_REF_HEIGHT, AN_REF_WIDTH = 300, 400
+AN_FULL_REF_HEIGHT, AN_FULL_REF_WIDTH = 150, 200
+REF_FRAMES = 3         # the `full` references chain frames: TAA history
+PROFILE_FRAME = 3      # the `full` profile times frame 3 (TAA resolves)
 MISMATCH_FRAC = 1e-5   # lanes allowed to differ in valid/occlusion
 T_RTOL = 1e-5          # t on lanes both kernels hit
 RAD_RTOL, RAD_ATOL = 1e-4, 1e-5  # direct-light radiance on valid lanes
+SVGF_TOL = 1e-5        # SVGF kernel vs plain filter, rtol and atol
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 KERNELS = {  # wrapper key -> record of the JSON line
@@ -83,9 +105,14 @@ KERNELS = {  # wrapper key -> record of the JSON line
                      source="opengl_raytracing_tpu_torch/csrc/an_direct.cu",
                      replaces="opengl_raytracing_tpu/ops/an_pallas.py:307",
                      kernel="bvh_brdf_kernel"),
+    "svgf": dict(name="svgf_filter",
+                 source="opengl_raytracing_tpu_torch/csrc/svgf.cu",
+                 replaces="opengl_raytracing_tpu/ops/svgf_pallas.py:68",
+                 kernel="svgf_kernel"),
 }
 BVH_PATH = ("closest", "any", "bvh_brdf")
 AN_PATH = ("an_direct",)
+FULL_PATH = ("closest", "any", "bvh_brdf", "svgf")
 
 
 def phase(label, t0, **result):
@@ -120,18 +147,21 @@ def frame_inputs(height, width, frame, device):
                                jitter=generate_jitter2d(frame) * scale)
 
 
-def render(bvh, height, width, frames, device, on_frame=None):
-    """`frames` chained baseline frames of the BVH scene, or of the
-    analytic scene when `bvh` is None; returns the last FrameOutputs."""
+def render(bvh, height, width, frames, device, on_frame=None,
+           preset_name="baseline", last=contextlib.nullcontext):
+    """`frames` chained frames of the preset on the BVH scene, or on the
+    analytic scene (without its env map) when `bvh` is None; returns the
+    last FrameOutputs.  The last frame runs inside the context `last()`."""
     from opengl_raytracing_tpu_torch.models import (RenderState,
                                                     make_render_fn, preset)
-    params = preset("baseline")
+    params = preset(preset_name).replace(enable_env_map=0)
     fn = make_render_fn(height, width, device, use_bvh=bvh is not None)
     state = RenderState.create(height, width, device)
     out = None
     for i in range(frames):
-        state, out = fn(params, frame_inputs(height, width, i, device),
-                        state, None, bvh)
+        fin = frame_inputs(height, width, i, device)
+        with last() if i == frames - 1 else contextlib.nullcontext():
+            state, out = fn(params, fin, state, None, bvh)
         if on_frame is not None:
             on_frame(out)
     return out
@@ -167,15 +197,17 @@ def kernel_ms(fn, kernel, reps=5):
     return None
 
 
-def record_kernel_inputs(bvh, height, width, device, keys):
-    """Render one frame (BVH, or analytic if `bvh` is None) and keep the
-    arguments, by name, of every call it makes to the wrappers `keys`
-    (the wrappers still launch)."""
-    from opengl_raytracing_tpu_torch.ops import an_cuda, bvh_cuda
+def record_kernel_inputs(bvh, height, width, device, keys,
+                         preset_name="baseline", frames=1):
+    """Render `frames` chained frames (BVH, or analytic if `bvh` is None)
+    and keep the arguments, by name, of every call the last frame makes to
+    the wrappers `keys` (the wrappers still launch)."""
+    from opengl_raytracing_tpu_torch.ops import an_cuda, bvh_cuda, svgf_cuda
     where = {"closest": (bvh_cuda, "trace_closest"),
              "any": (bvh_cuda, "trace_any"),
              "an_direct": (an_cuda, "direct_light"),
-             "bvh_brdf": (an_cuda, "shade_bvh_brdf")}
+             "bvh_brdf": (an_cuda, "shade_bvh_brdf"),
+             "svgf": (svgf_cuda, "svgf_filter")}
     calls = {k: [] for k in keys}
     real = {k: getattr(*where[k]) for k in keys}
 
@@ -188,13 +220,17 @@ def record_kernel_inputs(bvh, height, width, device, keys):
             calls[key].append(dict(bound.arguments))
             return real[key](*args, **kw)
         return fn
-    for k in keys:
-        setattr(*where[k], spy(k))
-    try:
-        render(bvh, height, width, 1, device)
-    finally:
+    @contextlib.contextmanager
+    def spying():
         for k in keys:
-            setattr(*where[k], real[k])
+            setattr(*where[k], spy(k))
+        try:
+            yield
+        finally:
+            for k in keys:
+                setattr(*where[k], real[k])
+    render(bvh, height, width, frames, device, preset_name=preset_name,
+           last=spying)
     return calls
 
 
@@ -319,7 +355,55 @@ def check_an_kernel(height=AN_HEIGHT, width=AN_WIDTH, device="cuda",
                 plain_ms=timer(lambda: lt.direct_light_plain(**args), 5))
 
 
-def run_frames(bvh, height, width, keys, png, smi):
+def check_full_kernels(bvh, height=HEIGHT, width=WIDTH, device="cuda",
+                       timer=None):
+    """On the inputs of the third frame of a 1080p `full` chain: the SVGF
+    kernel against the plain filter, and the closest-hit kernel's
+    bounce-ray call (incoherent rays, sky lanes inactive) against the
+    plain walk."""
+    import torch
+    from opengl_raytracing_tpu_torch.ops import bvh_cuda, svgf_cuda
+    from opengl_raytracing_tpu_torch.ops import bvh_traverse as plain
+    from opengl_raytracing_tpu_torch.ops.svgf import svgf_filter
+    timer = timer or cuda_ms
+    calls = record_kernel_inputs(bvh, height, width, device,
+                                 ("closest", "svgf"), "full", PROFILE_FRAME)
+    args = calls["svgf"][0]
+    got = svgf_cuda.svgf_filter(**args)
+    want = svgf_filter(**args)
+    err = (got - want).abs()
+    bad = int((err > SVGF_TOL + SVGF_TOL * want.abs()).any(-1).sum())
+    if bad or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"svgf_filter disagrees with the plain filter on "
+                             f"{bad} pixels (max abs {float(err.max())})")
+    svgf = dict(
+        pixels=height * width, max_abs_err=float(err.max()), bad_pixels=bad,
+        ms=timer(lambda: svgf_cuda.svgf_filter(**args), 20),
+        kernel_ms=kernel_ms(lambda: svgf_cuda.svgf_filter(**args),
+                            KERNELS["svgf"]["kernel"]),
+        plain_ms=timer(lambda: svgf_filter(**args), 3))
+
+    # the bounce call is the one with an `active` mask
+    c = [c for c in calls["closest"] if c["active"] is not None][0]
+    h = bvh_cuda.trace_closest(**c)
+    hp = plain.trace_bvh(c["bvh"], c["ro"], c["rd"], c["eps"], c["active"])
+    both = h.valid & hp.valid
+    mismatch = int((h.valid != hp.valid).sum())
+    rel = float(((h.t[both] - hp.t[both]).abs() / hp.t[both]).max()) \
+        if bool(both.any()) else 0.0
+    if mismatch > MISMATCH_FRAC * h.t.numel() or rel > T_RTOL:
+        raise AssertionError(f"trace_closest (bounce rays) disagrees with the "
+                             f"plain walk: {mismatch} valid mismatches, t rel "
+                             f"{rel}")
+    bounce = dict(rays=h.t.numel(), active_frac=float(c["active"].float()
+                                                      .mean()),
+                  hit_frac=float(hp.valid.float().mean()),
+                  mismatch_lanes=mismatch, t_max_rel_err=rel,
+                  ms=timer(lambda: bvh_cuda.trace_closest(**c), 20))
+    return svgf, bounce
+
+
+def run_frames(bvh, height, width, keys, png, smi, preset_name="baseline"):
     """FRAMES chained frames with the launch counters of the path's kernels
     `keys` zeroed just before; checks the image and the counts."""
     import torch
@@ -331,7 +415,8 @@ def run_frames(bvh, height, width, keys, png, smi):
         LAUNCHES[k] = 0
     t_frames = time.time()
     out = render(bvh, height, width, FRAMES, "cuda",
-                 on_frame=lambda o: sums.append(o.image.sum()))
+                 on_frame=lambda o: sums.append(o.image.sum()),
+                 preset_name=preset_name)
     torch.cuda.synchronize()
     sec = (time.time() - t_frames) / FRAMES
     launches = {k: LAUNCHES[k] for k in keys}
@@ -346,26 +431,34 @@ def run_frames(bvh, height, width, keys, png, smi):
     checksum = float(torch.stack(sums).sum())
     os.makedirs(os.path.join(ROOT, "out"), exist_ok=True)
     write_png(os.path.join(ROOT, "out", png), img.cpu().numpy()[::-1])
-    return dict(frames=FRAMES, size=[height, width],
+    return dict(frames=FRAMES, preset=preset_name, size=[height, width],
                 ms_per_frame=sec * 1e3, fps=1.0 / sec,
                 primary_mrays_per_s=height * width / sec / 1e6,
                 checksum=checksum, launches=launches, card=smi,
                 png=f"out/{png}")
 
 
-def check_reference(bvh_cuda_scene, bvh_cpu_scene, height, width):
-    """One frame on the card against the same frame on the CPU."""
+def check_reference(bvh_cuda_scene, bvh_cpu_scene, height, width,
+                    preset_name="baseline", frames=1):
+    """The last of `frames` chained frames on the card against the same
+    frame on the CPU: max abs <= 2/255 and 99.9th percentile <= 1e-3."""
     import torch
-    ref = render(bvh_cpu_scene, height, width, 1, "cpu").image
-    got = render(bvh_cuda_scene, height, width, 1, "cuda").image.cpu()
+    ref = render(bvh_cpu_scene, height, width, frames, "cpu",
+                 preset_name=preset_name).image
+    got = render(bvh_cuda_scene, height, width, frames, "cuda",
+                 preset_name=preset_name).image.cpu()
     diff = (got - ref).abs()
     q999 = float(torch.quantile(diff.flatten(), 0.999))
+    over = int((diff > 2.0 / 255.0).sum())
     if float(diff.max()) > 2.0 / 255.0 or q999 > 1e-3:
         raise AssertionError(f"card frame differs from the CPU frame: max "
-                             f"{float(diff.max())}, q99.9 {q999}")
+                             f"{float(diff.max())}, q99.9 {q999}, {over} "
+                             f"values over 2/255")
     at = [int(i) for i in torch.nonzero(diff == diff.max())[0]]
-    return dict(size=[height, width], max_abs=float(diff.max()), q999=q999,
-                values_over_1e_3=int((diff > 1e-3).sum()), max_at_yxc=at)
+    return dict(size=[height, width], preset=preset_name, frames=frames,
+                max_abs=float(diff.max()), q999=q999,
+                values_over_1e_3=int((diff > 1e-3).sum()),
+                values_over_2_255=over, max_at_yxc=at)
 
 
 def main() -> int:
@@ -401,6 +494,7 @@ def main() -> int:
     _, bvh = scene("cuda")
     records = check_kernels(bvh)
     records["an_direct"] = check_an_kernel()
+    records["svgf"], records["closest_bounce"] = check_full_kernels(bvh)
     phase("kernels", t0, **records)
 
     t0 = time.time()
@@ -431,13 +525,34 @@ def main() -> int:
                                             AN_STAGES,
                                             frames_an["ms_per_frame"]))
 
-    launches = {**frames["launches"], **frames_an["launches"]}
+    t0 = time.time()
+    frames_full = run_frames(bvh, HEIGHT, WIDTH, FULL_PATH,
+                             "verify_torch_full.png", smi, "full")
+    phase("frames_full", t0, **frames_full)
+
+    t0 = time.time()
+    phase("reference_full", t0, **check_reference(
+        bvh, bvh_cpu, REF_HEIGHT, REF_WIDTH, "full", REF_FRAMES))
+
+    t0 = time.time()
+    phase("reference_analytic_full", t0, **check_reference(
+        None, None, AN_FULL_REF_HEIGHT, AN_FULL_REF_WIDTH, "full",
+        REF_FRAMES))
+
+    t0 = time.time()
+    phase("profile_full", t0, **profile(bvh, HEIGHT, WIDTH, FULL_STAGES,
+                                        frames_full["ms_per_frame"], "full",
+                                        PROFILE_FRAME))
+
+    # each kernel's launches in the newest path that runs it
+    launches = {**frames_an["launches"], **frames_full["launches"]}
     print(json.dumps({"kernels": [
         dict(name=KERNELS[k]["name"], route="cuda",
              source=KERNELS[k]["source"], replaces=KERNELS[k]["replaces"],
              launches=launches[k], max_abs_err=records[k]["max_abs_err"],
              ms=records[k]["ms"], plain_ms=records[k]["plain_ms"])
-        for k in ("closest", "any", "an_direct", "bvh_brdf")]}), flush=True)
+        for k in ("closest", "any", "an_direct", "bvh_brdf", "svgf")]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -465,6 +580,17 @@ AN_STAGES = (
     ("mirror", "ops.lighting", "shade_mirror"),
     ("glass", "ops.lighting", "shade_glass"),
     ("store", "models.pipeline", "resolve_taa"),
+    ("present", "models.pipeline", "present"),
+)
+FULL_STAGES = (
+    ("render_frame", "models.pipeline", "render_frame"),
+    ("trace_and_shade", "models.pipeline", "trace_and_shade"),
+    ("trace_closest#", "ops.bvh_cuda", "trace_closest"),  # 0 primary, 1 GI
+    ("direct_light#", "ops.lighting", "direct_light_bvh"),  # 1 inside GI
+    ("gi", "ops.lighting", "one_bounce_gi_bvh"),
+    ("ao", "ops.lighting", "compute_ao"),
+    ("taa", "models.pipeline", "resolve_taa"),
+    ("svgf", "ops.svgf_cuda", "svgf_filter"),
     ("present", "models.pipeline", "present"),
 )
 
@@ -498,22 +624,32 @@ def stage_ranges(stages):
             setattr(m, attr, fn)
 
 
-def profile(bvh, height, width, stages, frame_ms):
-    """Device time of one warm frame: by stage (inclusive device time of
-    the kernels launched inside each range), by PyTorch operator, and of
-    each hand-written kernel; the device's busy time against the
-    unprofiled frame time gives its idle share."""
+def profile(bvh, height, width, stages, frame_ms, preset_name="baseline",
+            frames=1):
+    """Device time of the last of `frames` chained warm frames: by stage
+    (inclusive device time of the kernels launched inside each range), by
+    PyTorch operator, and of each hand-written kernel; the device's busy
+    time against the unprofiled frame time gives its idle share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
-    render(bvh, height, width, 1, "cuda")
+    render(bvh, height, width, frames, "cuda", preset_name=preset_name)
     torch.cuda.synchronize()
-    with stage_ranges(stages), torch.profiler.profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        render(bvh, height, width, 1, "cuda")
-        torch.cuda.synchronize()
-        wall_ms = (time.time() - t0) * 1e3
+    box = {}
+
+    @contextlib.contextmanager
+    def profiled():
+        with stage_ranges(stages), torch.profiler.profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            yield
+            torch.cuda.synchronize()
+            box["wall_ms"] = (time.time() - t0) * 1e3
+        box["prof"] = prof
+    render(bvh, height, width, frames, "cuda", preset_name=preset_name,
+           last=profiled)
+    prof, wall_ms = box["prof"], box["wall_ms"]
     stages_ms, ops, kernels = {}, [], {}
     busy_ms, launches = 0.0, 0
     prefixes = tuple(label for label, _, _ in stages)

@@ -6,19 +6,20 @@ reference: every module here is held against its JAX counterpart by the
 kernels are CUDA C++ in `csrc/`, built with nvcc at first use
 (ops/cuda_lib.py): the BVH closest-hit and any-hit walks
 (ops/bvh_cuda.py), the analytic scene's direct light and the BVH
-scene's BRDF tail (ops/an_cuda.py).
+scene's BRDF tail (ops/an_cuda.py), and the SVGF filter
+(ops/svgf_cuda.py).
 
-The slices ported so far are the bench `baseline` frame (the bunny BVH
-scene) and `an_baseline` frame (the analytic scene: floor, albedo,
-glass and mirror spheres, point-light marker), at 1 SPP with GI, AO,
-TAA and SVGF off and the gradient sky.  Everything else raises
-NotImplementedError.
+The slices ported so far render both scenes (the bunny BVH scene; the
+analytic scene: floor, albedo, glass and mirror spheres, point-light
+marker) under the `baseline`, `realistic` and `full` presets at 1 SPP,
+GI, AO, TAA and SVGF on or off, with the gradient sky.  SPP > 1, the
+cubemap environment and the motion view raise NotImplementedError.
 
 Layout (mirrors the JAX package):
   constants.py, params.py, camera.py, sampling.py   host values and RNG
   scene/     procedural bunny, triangle gather, numpy BVH builder
   ops/       vector math, intersection, the analytic scene, BVH walks,
-             kernel wrappers, lighting, accumulation store, present
+             kernel wrappers, lighting, GI and AO, TAA, SVGF, present
   models/    the frame function and the presets
   convert.py carries JAX-side state (BVH arrays, params, frame inputs)
   utils/     PNG writer

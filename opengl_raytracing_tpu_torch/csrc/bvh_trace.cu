@@ -121,8 +121,10 @@ trace_closest_kernel(const float4* __restrict__ bounds,
                      const int4* __restrict__ meta,
                      const float4* __restrict__ tris, int n_nodes,
                      const float* __restrict__ ro,
-                     const float* __restrict__ rd, int64_t n_rays, float eps,
-                     float* __restrict__ t_out, float* __restrict__ n_out) {
+                     const float* __restrict__ rd,
+                     const uint8_t* __restrict__ active, int64_t n_rays,
+                     float eps, float* __restrict__ t_out,
+                     float* __restrict__ n_out) {
   const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n_rays) return;
   const V3 o = load3(ro + 3 * i);
@@ -130,7 +132,8 @@ trace_closest_kernel(const float4* __restrict__ bounds,
   const V3 inv = {safe_inv(d.x), safe_inv(d.y), safe_inv(d.z)};
   float t_best = kInf;
   V3 n_best = {0.0f, 0.0f, 0.0f};
-  int cur = 0;
+  // an inactive lane (active may be null: all active) reads as a miss
+  int cur = (active == nullptr || active[i]) ? 0 : n_nodes;
   while (cur < n_nodes) {
     const int4 m = __ldg(&meta[cur]);  // skip, first, count, pad
     const bool bhit = hit_box(bounds, cur, o, inv, t_best);
@@ -197,16 +200,18 @@ inline unsigned blocks_for(int64_t n) {
 
 // Plain C entry points for ctypes.  Pointers are device pointers; the
 // stream is a cudaStream_t.  Each returns cudaGetLastError() as an int.
+// `active` is a device array of n_rays 0/1 bytes, or null (all active).
 extern "C" int ort_trace_closest(const void* bounds, const void* meta,
                                  const void* tris, int n_nodes, const void* ro,
-                                 const void* rd, int64_t n_rays, float eps,
-                                 void* t_out, void* n_out, void* stream) {
+                                 const void* rd, const void* active,
+                                 int64_t n_rays, float eps, void* t_out,
+                                 void* n_out, void* stream) {
   if (n_rays > 0) {
     trace_closest_kernel<<<blocks_for(n_rays), kThreads, 0,
                            (cudaStream_t)stream>>>(
         (const float4*)bounds, (const int4*)meta, (const float4*)tris,
-        n_nodes, (const float*)ro, (const float*)rd, n_rays, eps,
-        (float*)t_out, (float*)n_out);
+        n_nodes, (const float*)ro, (const float*)rd, (const uint8_t*)active,
+        n_rays, eps, (float*)t_out, (float*)n_out);
   }
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,12 @@
-"""The frame function: primary rays -> shading -> accumulation -> present.
+"""The frame function: primary rays -> shading -> TAA -> present.
 
 PyTorch counterpart of `opengl_raytracing_tpu/models/pipeline.py`
 (reference: shaders/rt/rt.frag:50-197, rt_present.frag:231-266,
 src/render/render.cpp:55-243), for the BVH scene and the analytic scene
-at 1 SPP with GI, AO, TAA and SVGF off: the `baseline` preset.  Every
-stage not yet ported raises NotImplementedError rather than
-approximating it.  The JAX package's tile gates and swizzle are not
+at 1 SPP, with GI, AO, TAA and SVGF on or off: the `baseline`,
+`realistic` and `full` presets.  SPP > 1, the cubemap environment and
+the motion debug view raise NotImplementedError rather than
+approximating them.  The JAX package's tile gates and swizzle are not
 ported: they leave the image unchanged.
 
 The layout at the public functions is the JAX package's: [H,W,C] images
@@ -21,7 +22,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..constants import MAT_POINTLIGHT_SPHERE
-from ..params import RenderParams
+from ..params import RenderParams, f32
 from ..sampling import ndc_from_world
 from ..ops.materials import MTYPE_GLASS, MTYPE_MIRROR, get_material
 from ..ops.scene import BVHDevice, SceneCtx
@@ -119,22 +120,41 @@ def _sanitize_hit(h: Hit, ro, rd) -> Hit:
 
 def _shade_bvh(scene: SceneCtx, h: Hit, seed: int, frame_index: int, vdir,
                px, py, active=None):
-    """BVH-scene shading (reference: rt.frag:105-117), direct light only:
-    GI and AO are refused by render_frame until they are ported."""
-    return lt.direct_light_bvh(scene, h, seed, frame_index, vdir, px, py,
-                               active=active)
+    """BVH-scene shading (reference: rt.frag:105-117): direct light, plus
+    the GI bounce and times AO when they are on.  `active` marks the
+    lanes whose radiance survives the sky select; the others trace
+    nothing and their values are unspecified."""
+    params = scene.params
+    radiance = lt.direct_light_bvh(scene, h, seed, frame_index, vdir, px, py,
+                                   active=active)
+    if params.enable_gi:
+        radiance = radiance + f32(params.gi_scale_bvh) * \
+            lt.one_bounce_gi_bvh(scene, h, frame_index, seed, frame_index,
+                                 px, py, active=active)
+    if params.enable_ao:
+        ao = lt.compute_ao(scene, h, frame_index, px, py, active=active)
+        radiance = radiance * ao[..., None]
+    return radiance
 
 
 def _shade_analytic(scene: SceneCtx, h: Hit, seed: int, frame_index: int,
                     vdir, px, py):
     """Analytic-scene material dispatch (reference: rt.frag:119-162):
-    direct light, the emissive point-light marker, and the mirror and
-    glass secondaries, computed for every lane and selected in like the
-    fragment shader's divergent branches.  GI and AO are refused by
-    render_frame until they are ported."""
+    direct light (plus the GI bounce, times AO, when they are on), the
+    emissive point-light marker, and the mirror and glass secondaries,
+    computed for every lane and selected in like the fragment shader's
+    divergent branches.  Direct light and GI are two calls, the JAX
+    package's default (its 2-batch `direct_and_gi_analytic` is opt-in)."""
     params = scene.params
     mat = get_material(h.mat, params)
     radiance = lt.direct_light(scene, h, seed, frame_index, vdir, px, py)
+    if params.enable_gi:
+        radiance = radiance + f32(params.gi_scale_analytic) * \
+            lt.one_bounce_gi_analytic(scene, h, frame_index, seed,
+                                      frame_index, px, py)
+    if params.enable_ao:
+        radiance = radiance * lt.compute_ao(scene, h, frame_index, px,
+                                            py)[..., None]
 
     # emissive point-light marker (reference: rt.frag:137-148)
     base_col = (const3(params.point_light_color, h.t.device)
@@ -160,8 +180,6 @@ def _shade_analytic(scene: SceneCtx, h: Hit, seed: int, frame_index: int,
 
 def _check_supported(params: RenderParams, env_map, show_motion: bool):
     missing = [name for name, on in (
-        ("TAA", params.enable_taa), ("SVGF", params.enable_svgf),
-        ("GI", params.enable_gi), ("AO", params.enable_ao),
         ("spp_per_frame > 1", int(params.spp_per_frame) > 1),
         ("an environment map",
          env_map is not None and params.enable_env_map),
@@ -175,14 +193,14 @@ def render_frame(params: RenderParams, fin: FrameInputs, state: RenderState,
                  bvh: Optional[BVHDevice] = None,
                  *, height: int, width: int, use_bvh: bool = False,
                  show_motion: bool = False):
-    """One frame: trace + shade + accumulation store, then present.
+    """One frame: trace + shade + TAA into the accumulation, then present.
 
     Returns (new_state, FrameOutputs).  The frame runs on the device of
     `state.accum`, which must also hold `fin` and `bvh`.  The new
     accumulation is written into `state.accum` in place (the ping-pong
-    swap of reference: src/render/render.cpp:242; with TAA off the store
-    reads no history), so `state` must not be used after the call, as
-    with the JAX package's donated buffer.
+    swap of reference: src/render/render.cpp:242): `resolve_taa` reads
+    the whole history before it writes any of it, so `state` must not be
+    used after the call, as with the JAX package's donated buffer.
     """
     _check_supported(params, env_map, show_motion)
     scene = SceneCtx.create(params, fin.cam_pos, env_map=None,
@@ -191,7 +209,10 @@ def render_frame(params: RenderParams, fin: FrameInputs, state: RenderState,
     frame_index = state.frame_index
     curr, motion, gpos, gnrm = trace_and_shade(
         scene, params, fin, px, py, rd, frame_index, use_bvh=use_bvh)
-    accum = resolve_taa(curr, motion, state.accum, frame_index, params,
+    # TAA sees zero motion when the camera is static (reference:
+    # rt.frag:184-190); SVGF reads the motion as traced
+    taa_motion = torch.where(fin.camera_moved > 0, motion, 0.0)
+    accum = resolve_taa(curr, taa_motion, state.accum, frame_index, params,
                         out=state.accum)
     image = present(accum, motion, gpos, gnrm, params)
     return (RenderState(accum, frame_index + 1),

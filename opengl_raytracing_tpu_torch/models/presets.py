@@ -6,8 +6,8 @@
   full     : 1 SPP, all on
   heavy    : 4 SPP, all on
 
-Only `baseline` renders in the port so far; the others build their
-parameters, and `render_frame` refuses the stages not yet ported.
+`baseline`, `realistic` and `full` render in the port; `heavy` builds
+its parameters, and `render_frame` refuses its 4 SPP (not yet ported).
 """
 
 from __future__ import annotations

@@ -30,8 +30,8 @@ from .scene_analytic import Hit
 _P, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                         ctypes.c_float)
 _SIGNATURES = {
-    "ort_trace_closest": ([_P, _P, _P, _I32, _P, _P, _I64, _F32, _P, _P, _P],
-                          ctypes.c_int),
+    "ort_trace_closest": ([_P, _P, _P, _I32, _P, _P, _P, _I64, _F32, _P, _P,
+                           _P], ctypes.c_int),
     "ort_trace_any": ([_P, _P, _P, _I32, _P, _P, _P, _I64, _F32, _P, _P],
                       ctypes.c_int),
 }
@@ -53,12 +53,14 @@ def _cuda_device(x):
     return cuda_lib.cuda_device(x, "BVH kernels")
 
 
-def trace_closest(bvh: BVHArrays, ro, rd, eps: float = EPS) -> Hit:
+def trace_closest(bvh: BVHArrays, ro, rd, eps: float = EPS,
+                  active=None) -> Hit:
     """Closest hit of rays ro/rd [...,3] (the contract of
     bvh_traverse.trace_bvh: t = 1e30 on a miss, unit normal on hit lanes
-    and zero elsewhere, mat = 1)."""
+    and zero elsewhere, mat = 1).  Lanes where `active` (bool, the rays'
+    shape) is False do not walk and read as misses."""
     if ro.device.type == "cpu":
-        return trace_bvh(bvh, ro, rd, eps)
+        return trace_bvh(bvh, ro, rd, eps, active)
     device = _cuda_device(ro)
     shape = torch.broadcast_shapes(ro.shape[:-1], rd.shape[:-1])
     o = ro.expand(shape + (3,)).reshape(-1, 3).contiguous()
@@ -67,12 +69,19 @@ def trace_closest(bvh: BVHArrays, ro, rd, eps: float = EPS) -> Hit:
     n_rays = o.shape[0]
     check("ro", o, torch.float32, (n_rays, 3), device)
     check("rd", d, torch.float32, (n_rays, 3), device)
+    act_ptr = None
+    if active is not None:
+        # the kernel reads one 0/1 byte per ray
+        act = active.expand(shape).reshape(-1).contiguous()
+        check("active", act, torch.bool, (n_rays,), device, align=1)
+        act_ptr = act.data_ptr()
     t = torch.empty(n_rays, dtype=torch.float32, device=device)
     n = torch.empty((n_rays, 3), dtype=torch.float32, device=device)
     cuda_lib.launch(_library().ort_trace_closest, "closest", device,
                     bvh.bounds.data_ptr(), bvh.meta.data_ptr(),
                     bvh.tris.data_ptr(), bvh.bounds.shape[0], o.data_ptr(),
-                    d.data_ptr(), n_rays, eps, t.data_ptr(), n.data_ptr())
+                    d.data_ptr(), act_ptr, n_rays, eps, t.data_ptr(),
+                    n.data_ptr())
     return _finalize(shape, ro, rd.expand(shape + (3,)), t, n)
 
 

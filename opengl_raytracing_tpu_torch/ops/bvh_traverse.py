@@ -62,11 +62,14 @@ def _finalize(shape, ro, rd, t_best, n_best) -> Hit:
                torch.ones(shape, dtype=torch.int32, device=ro.device))
 
 
-def trace_bvh(bvh: BVHArrays, ro, rd, eps: float = EPS) -> Hit:
+def trace_bvh(bvh: BVHArrays, ro, rd, eps: float = EPS,
+              active=None) -> Hit:
     """Closest-hit traversal (reference: shaders/rt/rt_bvh.glsl:193-243).
 
     bvh: BVHArrays of tensors on the rays' device; ro/rd [...,3].
-    Returns Hit with mat=1 (triangles shade as diffuse).
+    Returns Hit with mat=1 (triangles shade as diffuse).  Lanes where
+    `active` (bool, the rays' shape) is False do not walk and read as
+    misses.
     """
     bounds, meta, tris = bvh.bounds, bvh.meta.long(), bvh.tris
     n_nodes = bounds.shape[0]
@@ -78,10 +81,13 @@ def trace_bvh(bvh: BVHArrays, ro, rd, eps: float = EPS) -> Hit:
 
     # working set: the lanes whose cursor is still inside the tree
     lane = torch.arange(n_rays, device=dev)
+    if active is not None:
+        lane = lane[active.expand(shape).reshape(-1)]
+        o, d = o[lane], d[lane]
     inv = _safe_inv(d)
-    cur = torch.zeros(n_rays, dtype=torch.int64, device=dev)
-    t_best = t_out.clone()
-    n_best = n_out.clone()
+    cur = torch.zeros(lane.numel(), dtype=torch.int64, device=dev)
+    t_best = torch.full_like(cur, INF, dtype=torch.float32)
+    n_best = torch.zeros((lane.numel(), 3), dtype=torch.float32, device=dev)
     while lane.numel():  # == (cur < n_nodes).any() over all rays
         b = bounds[cur]
         m = meta[cur]

@@ -24,7 +24,7 @@ import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
-           for name in ("bvh_trace", "an_direct")}
+           for name in ("bvh_trace", "an_direct", "svgf")}
 BUILD_DIR = os.path.join(_PKG, "_build")
 # No --use_fast_math: the kernels rely on IEEE division, sqrt and exact
 # comparisons.  --fmad=false keeps nvcc from contracting a*b+c into FMAs,
@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-LAUNCHES = {"closest": 0, "any": 0, "an_direct": 0, "bvh_brdf": 0}
+LAUNCHES = {"closest": 0, "any": 0, "an_direct": 0, "bvh_brdf": 0,
+            "svgf": 0}
 
 _libs: dict = {}
 

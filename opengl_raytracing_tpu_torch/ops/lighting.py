@@ -1,11 +1,15 @@
-"""Direct lighting and the mirror/glass secondaries, vectorized over pixel
-batches.
+"""Direct lighting, the mirror/glass secondaries, one-bounce GI and
+ambient occlusion, vectorized over pixel batches.
 
 Counterpart of `opengl_raytracing_tpu/ops/lighting.py` for the analytic
 scene and for BVH triangles (reference: shaders/rt/rt_lighting.glsl).
 Per-fragment branches become masked selects; the RNG call sites hash the
-same (pixel, frame, offset) values, so the soft-shadow noise matches the
-JAX package bit for bit.
+same (pixel, frame, offset) values, so the soft-shadow, bounce and AO
+noise matches the JAX package bit for bit.  The GI bounce and the AO
+hemisphere rays go through the same traces as the primary rays (on the
+card: the closest-hit and any-hit kernels, and the direct-light
+kernels at the bounce hit).  The JAX package's opt-in 2-batch
+`direct_and_gi_analytic` is not ported; its default two-call form is.
 
 Two CUDA kernels (ops/an_cuda.py) take over on the card: the analytic
 `direct_light` tree and the BRDF tail of `direct_light_bvh`.  Their plain
@@ -22,11 +26,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..params import f32
 from ..constants import (EPS, PI, SOFT_SHADOW_SAMPLES, LIGHT_CENTER,
                          LIGHT_NORMAL_RAW, LIGHT_RADIUS, LIGHT_COLOR,
-                         BVH_ALBEDO, BVH_SPEC_STRENGTH, BVH_GLOSS,
-                         GLASS_DISTORTION_STRENGTH, GLASS_LOCAL_REFL_WEIGHT)
-from ..sampling import rand, eps_for_dist, concentric_sample, cp_offset
+                         BVH_ALBEDO, BVH_SPEC_STRENGTH, BVH_GLOSS, GI_MAX_LUM,
+                         GI_MIN_COS_THETA, GLASS_DISTORTION_STRENGTH,
+                         GLASS_LOCAL_REFL_WEIGHT, YCOEFF)
+from ..sampling import (rand, eps_for_dist, concentric_sample, cp_offset,
+                        sample_hemisphere_cosine)
 from .materials import (get_material, MaterialProps, MTYPE_DIFFUSE,
                         MTYPE_MIRROR, MTYPE_GLASS)
 from .scene import SceneCtx
@@ -389,17 +396,103 @@ def shade_glass(scene: SceneCtx, h, wo, mat, seed: int, frame_index: int,
     return mix(refr_col, reflect_col, fresnel[..., None])
 
 
+def one_bounce_gi_analytic(scene: SceneCtx, h0, rng_frame: int, seed: int,
+                           frame_index: int, px, py):
+    """One cosine-weighted bounce + direct light at the secondary hit
+    (reference: rt_lighting.glsl:473-507).  The bounce hits go to
+    `direct_light` unsanitized (misses have p = o + wi * 1e30); the
+    valid select drops whatever is lit there."""
+    mat0 = get_material(h0.mat, scene.params)
+    n0 = normalize(h0.n)
+    so, so2 = f32(seed * 13), f32(seed * 37)
+    ux = rand(px + so, py + so, rng_frame)
+    uy = rand(py + so2, px + so2, rng_frame)
+    wi = sample_hemisphere_cosine(n0, ux, uy)
+    cos_theta = torch.clamp_min(dot(n0, wi), 0.0)
+    h1 = scene.trace(h0.p + n0 * EPS, wi)
+    li_hit = direct_light(scene, h1, rng_frame, frame_index, -wi, px, py)
+    li = torch.where(h1.valid[..., None], li_hit, scene.sky(wi))
+    out = mat0.albedo * (cos_theta / PI)[..., None] * li
+    return torch.where((cos_theta > 0.0)[..., None], out, 0.0)
+
+
+def one_bounce_gi_bvh(scene: SceneCtx, h0, rng_frame: int, seed: int,
+                      frame_index: int, px, py, active=None):
+    """BVH GI with grazing-angle cut and firefly luminance clamp
+    (reference: rt_lighting.glsl:515-561).
+
+    Inactive lanes (sky pixels) do not walk the bounce ray, and their
+    secondary lighting traces nothing; their values are unspecified.  The
+    bounce hits reach `direct_light_bvh` unsanitized (misses have
+    p = o + wi * 1e30): its windows are collapsed there, and the valid
+    select drops the radiance lit on them before any sum."""
+    so, so2 = f32(seed * 19), f32(seed * 41)
+    ux = rand(px + so, py + so, rng_frame)
+    uy = rand(py + so2, px + so2, rng_frame)
+    n0 = normalize(h0.n)
+    wi = sample_hemisphere_cosine(n0, ux, uy)
+    cos_theta = torch.clamp_min(dot(n0, wi), 0.0)
+    h1 = scene.trace(h0.p + n0 * EPS, wi, active=active)
+    act1 = h1.valid if active is None else (active & h1.valid)
+    li_hit = direct_light_bvh(scene, h1, rng_frame, frame_index, -wi, px, py,
+                              active=act1)
+    li = torch.where(h1.valid[..., None], li_hit, scene.sky(wi))
+    dev = h0.t.device
+    contrib = const3(BVH_ALBEDO, dev) * (cos_theta / PI)[..., None] * li
+    lum = dot(contrib, const3(YCOEFF, dev))
+    scale = torch.where(lum > GI_MAX_LUM,
+                        GI_MAX_LUM / torch.clamp_min(lum, 1e-6), 1.0)
+    contrib = contrib * scale[..., None]
+    return torch.where((cos_theta > GI_MIN_COS_THETA)[..., None], contrib,
+                       0.0)
+
+
 def shade_mirror(scene: SceneCtx, h, wo, mat, seed: int, frame_index: int,
                  px, py):
-    """Perfect mirror: one reflected trace + direct light at the reflected
-    hit (reference: rt_lighting.glsl:675-708).  The GI term of the
-    reference's mirror raises until GI is ported."""
-    if scene.params.enable_gi:
-        raise NotImplementedError("GI is not ported yet")
+    """Perfect mirror: one reflected trace + direct light (+ GI when it is
+    on) at the reflected hit (reference: rt_lighting.glsl:675-708)."""
     n = normalize(h.n)
     i = -normalize(wo)
     r = reflect(i, n)
     h2 = scene.trace(h.p + r * EPS, r)
     col_hit = direct_light(scene, h2, seed, frame_index, -r, px, py)
+    if scene.params.enable_gi:
+        # the GLSL call passes the mirror's seed as the bounce's rng frame
+        # and a derived seed for its sample offsets
+        col_hit = col_hit + f32(scene.params.gi_scale_analytic) * \
+            one_bounce_gi_analytic(scene, h2, seed, seed * 131 + 17,
+                                   frame_index, px, py)
     col = torch.where(h2.valid[..., None], col_hit, scene.sky(r))
     return col * mat.albedo
+
+
+def compute_ao(scene: SceneCtx, h, frame_index: int, px, py, active=None):
+    """Cosine-hemisphere ambient occlusion, radius-limited, remapped to
+    [ao_min, 1] (reference: rt_lighting.glsl:721-757).
+
+    BVH mode: the `ao_samples` hemisphere batches share one origin and one
+    `ao_radius` window and trace as one any-hit call (boolean-identical to
+    the reference's closest hit within the radius).  Analytic mode: one
+    batched closest-hit trace, counting hits with t < ao_radius."""
+    params = scene.params
+    n = normalize(h.n)
+    dirs = []
+    for i in range(params.ao_samples):
+        o1, o2 = float(37 * i + 3), float(19 * i + 11)
+        ux = rand(px + o1, py + o1, frame_index)
+        uy = rand(py + o2, px + o2, frame_index)
+        dirs.append(sample_hemisphere_cosine(n, ux, uy))
+    org = h.p + n * f32(params.ao_bias)
+    radius = f32(params.ao_radius)
+    if scene.use_bvh:
+        win = torch.full(h.t.shape, radius, dtype=torch.float32,
+                         device=h.t.device)
+        occ = scene.trace_shadow_any((org,) * len(dirs), tuple(dirs),
+                                     (win,) * len(dirs), active=active)
+    else:
+        hits = scene.trace(org[None], torch.stack(dirs))
+        occ = hits.valid & (hits.t < radius)
+    occluded = occ.to(torch.float32).sum(0)
+    ao_min = f32(params.ao_min)
+    ao = 1.0 - occluded / float(params.ao_samples)
+    return torch.clamp(ao_min + f32(1.0 - ao_min) * ao, ao_min, 1.0)

@@ -109,10 +109,15 @@ class SceneCtx:
             host_vectors={k: tuple(v.tolist()) for k, v in host.items()},
             use_bvh=use_bvh, bvh=bvh)
 
-    def trace(self, ro, rd, eps: float = EPS) -> sa.Hit:
-        """Closest hit against the BVH or the analytic scene."""
+    def trace(self, ro, rd, eps: float = EPS, active=None) -> sa.Hit:
+        """Closest hit against the BVH or the analytic scene.  `active`
+        (bool, the rays' shape) marks the lanes whose hit the caller
+        keeps; in BVH mode the others do not walk and read as misses
+        (values there are unspecified, as in the JAX package), the
+        analytic scene traces every lane."""
         if self.use_bvh:
-            return bvh_cuda.trace_closest(self.bvh.arrays, ro, rd, eps)
+            return bvh_cuda.trace_closest(self.bvh.arrays, ro, rd, eps,
+                                          active)
         return sa.trace_analytic(ro, rd, self.params, self.point_light_pos,
                                  eps)
 

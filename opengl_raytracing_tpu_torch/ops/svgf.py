@@ -1,26 +1,142 @@
-"""Present pass (reference: shaders/rt/rt_present.frag:231-266).
+"""SVGF-lite variance-guided spatial filter + present pass
+(reference: shaders/rt/rt_present.frag:126-266).
 
-Only the SVGF-off branch of `opengl_raytracing_tpu/ops/svgf.py:present` is
-ported, in the default texel-exact convention.  The 7x7 variance-guided
-filter (the TPU kernel svgf_pallas.py:_kernel) comes with the `full`
-preset.
+Counterpart of `opengl_raytracing_tpu/ops/svgf.py`.  `svgf_filter` is the
+plain PyTorch version of the 7x7 filter: 49 shifted slices of the
+zero-padded planes, out-of-image taps weighted 0 like the GLSL
+`continue`.  On the card `present` runs the CUDA kernel instead
+(ops/svgf_cuda.py, replacing the TPU kernel svgf_pallas.py:_kernel).
 """
 
 from __future__ import annotations
 
-from ..params import RenderParams
+import os
+
+import torch
+import torch.nn.functional as F
+
+from ..constants import YCOEFF
+from ..params import RenderParams, f32
 from .tonemap import aces_tonemap, gamma_encode
+from .vecmath import dot, luminance, normalize, smoothstep
+
+RADIUS = 3     # 7x7 kernel (rt_present.frag:169)
+K_NRM = 2.0    # rt_present.frag:160
+K_POS = 0.02   # rt_present.frag:161
+
+
+def svgf_params(params: RenderParams):
+    """(var_max, k_var, k_color, k_var_motion, k_color_motion) as float32
+    values, the kernel's by-value arguments."""
+    return tuple(f32(getattr(params, f"svgf_{k}"))
+                 for k in ("var_max", "k_var", "k_color", "k_var_motion",
+                           "k_color_motion"))
+
+
+def svgf_filter(accum, motion, gpos, gnrm, params: RenderParams, *,
+                halo: int = 0, row_offset: int = 0, full_height=None):
+    """Variance/motion/GBuffer-aware 7x7 filter
+    (reference: rt_present.frag:126-225).  accum [BH+2*halo,W,4] rgb+M2,
+    motion/gpos/gnrm with the same rows; returns the filtered rgb of the
+    BH centre rows [BH,W,3].
+
+    `halo` rows at top and bottom are real neighbour data (a row band of
+    a sharded image); tap validity is taken against the full image
+    (`row_offset` is the band's first global row, `full_height` the
+    image's height), so band seams filter like the whole image.
+
+    The sums run in the kernel's order: dot products x, y, z; the taps
+    dy outer, dx inner; normals normalised once."""
+    rows, w = accum.shape[0], accum.shape[1]
+    bh = rows - 2 * halo
+    if full_height is None:
+        full_height = bh
+    var_max, k_var0, k_col0, k_var_m, k_col_m = svgf_params(params)
+
+    def center(a):
+        return a[halo:halo + bh]
+
+    def padded(a):
+        # pad once; each tap is then a slice of the padded plane
+        return F.pad(a, (0, 0, RADIUS, RADIUS, RADIUS, RADIUS))
+
+    def shift(ap, dy, dx):
+        r0, c0 = RADIUS + halo + dy, RADIUS + dx
+        return ap[r0:r0 + bh, c0:c0 + w]
+
+    c_center = center(accum)[..., :3]
+    m2_center = center(accum)[..., 3]
+    mot = center(motion)
+    gpos_c = center(gpos)
+    l_center = luminance(c_center, YCOEFF)
+    var_center = torch.clamp(m2_center - l_center * l_center, 0.0, var_max)
+    mot_mag = torch.sqrt(mot[..., 0] * mot[..., 0] + mot[..., 1] * mot[..., 1])
+    t = smoothstep(0.005, 0.05, mot_mag)
+    # the parameter differences in float32, as the kernel takes them
+    k_var = k_var0 + f32(k_var_m - k_var0) * t
+    k_color = k_col0 + f32(k_col_m - k_col0) * t
+    var_boost = 1.0 + var_center * (1.0 + k_var * 0.5)
+    w_off_center = var_boost * (1.0 + var_center * 4.0)
+    k_col_scale = k_color * 0.3 + 0.05
+
+    gnrm_n = normalize(gnrm)
+    n_center = center(gnrm_n)
+    accum_p, gpos_p, gnrm_p = padded(accum), padded(gpos), padded(gnrm_n)
+    dev = accum.device
+    ix = torch.arange(w, device=dev)[None, :]
+    iy = torch.arange(bh, device=dev)[:, None] + row_offset
+
+    acc_col = torch.zeros_like(c_center)
+    acc_w = torch.zeros((bh, w), dtype=torch.float32, device=dev)
+    for j in range(-RADIUS, RADIUS + 1):
+        for i in range(-RADIUS, RADIUS + 1):
+            valid = ((ix + i >= 0) & (ix + i < w)
+                     & (iy + j >= 0) & (iy + j < full_height))
+            c = shift(accum_p, j, i)[..., :3]
+            dc = c - c_center
+            dp = shift(gpos_p, j, i) - gpos_c
+            ndot = torch.clamp(dot(n_center, shift(gnrm_p, j, i)), -1.0, 1.0)
+            expo = (dot(dc, dc) * k_col_scale + dot(dp, dp) * K_POS
+                    + torch.clamp_min(1.0 - ndot, 0.0) * K_NRM)
+            base = var_boost if (i == 0 and j == 0) else w_off_center
+            wgt = torch.where(valid, base * torch.exp(-expo), 0.0)
+            acc_col = acc_col + c * wgt[..., None]
+            acc_w = acc_w + wgt
+
+    out = acc_col / torch.clamp_min(acc_w, 1e-20)[..., None]
+    return torch.where((acc_w <= 0.0)[..., None], c_center, out)
+
+
+def _half_texel(a):
+    """Every texel read from (x+1, y+1), clamped at the edges."""
+    a = torch.cat([a[1:], a[-1:]], dim=0)
+    return torch.cat([a[:, 1:], a[:, -1:]], dim=1)
 
 
 def present(accum, motion, gpos, gnrm, params: RenderParams,
             show_motion: bool = False):
-    """SVGF blend -> ACES -> gamma.  Returns sRGB [H,W,3]."""
+    """Present pass: SVGF blend -> ACES -> gamma
+    (reference: rt_present.frag:231-266).  Returns sRGB [H,W,3].
+
+    ORT_PRESENT_HALF_TEXEL=1 reproduces the reference's one-texel quirk
+    as the JAX package does: rt_present.frag:232 samples at
+    (gl_FragCoord.xy + 0.5)/sz, so every fetch of the pass reads texel
+    (x+1, y+1), clamped at the edges; shifting all pass inputs by one
+    texel covers the whole stencil.  The default is texel-exact.
+
+    The filter is the CUDA kernel for CUDA tensors and `svgf_filter` for
+    CPU tensors (ops/svgf_cuda.py)."""
     if show_motion:
         raise NotImplementedError("the motion debug view is not ported yet")
-    if params.enable_svgf:
-        raise NotImplementedError("the SVGF filter is not ported yet")
+    if os.environ.get("ORT_PRESENT_HALF_TEXEL", "0") == "1":
+        accum, motion, gpos, gnrm = (_half_texel(x)
+                                     for x in (accum, motion, gpos, gnrm))
     raw = accum[..., :3]
-    return blend_tonemap(raw, raw, params)
+    if not params.enable_svgf:
+        return blend_tonemap(raw, raw, params)
+    from . import svgf_cuda
+    filtered = svgf_cuda.svgf_filter(accum, motion, gpos, gnrm, params)
+    return blend_tonemap(raw, filtered, params)
 
 
 def blend_tonemap(raw, filtered, params: RenderParams):

@@ -1,9 +1,16 @@
-"""TAA store (reference: shaders/rt/rt_taa.glsl:47-61).
+"""TAA resolve with history variance tracking
+(reference: shaders/rt/rt_taa.glsl:47-180).
 
-Only the TAA-off branch of `opengl_raytracing_tpu/ops/taa.py:resolve_taa`
-is ported: it stores the frame with its luminance squared as the M2
-channel, which SVGF reads as variance.  History blending and motion
-reprojection come with the `realistic` preset.
+Counterpart of `opengl_raytracing_tpu/ops/taa.py`.  Operates on whole
+[H,W] buffers; history fetches are NEAREST + CLAMP_TO_EDGE texel gathers,
+matching the accum texture parameters (reference: src/render/accum.cpp:
+11-14).  Rows follow GL's bottom-up y, so UV math carries over 1:1.
+
+The moving path runs for every frame, in the JAX package's branch-free
+form: `moved` is a device value, and branching on it would cost a host
+sync per frame.  With a static camera the caller zeroes the motion, and
+every pixel then takes the still branch of the per-pixel select, so the
+result is the same as the JAX package's `lax.cond` skip.
 """
 
 from __future__ import annotations
@@ -11,21 +18,92 @@ from __future__ import annotations
 import torch
 
 from ..constants import YCOEFF
-from ..params import RenderParams
-from .vecmath import luminance
+from ..params import RenderParams, f32
+from .vecmath import luminance, smoothstep
 
 
-def resolve_taa(curr, motion, prev_accum, frame_index, params: RenderParams,
-                out=None):
-    """[H,W,3] frame -> [H,W,4] (rgb, M2).
+def _sample_nearest(tex, u, v):
+    """NEAREST + CLAMP_TO_EDGE fetch of tex [H,W,C] at uv in [0,1]: one
+    row gather of the flat [H*W, C] texture."""
+    h, w = tex.shape[0], tex.shape[1]
+    x = torch.clamp(torch.floor(u * w), 0, w - 1).to(torch.int64)
+    y = torch.clamp(torch.floor(v * h), 0, h - 1).to(torch.int64)
+    return tex.reshape(h * w, -1)[y * w + x]
 
-    `out` may be the [H,W,4] buffer to write into (the accumulation is
-    updated in place; without TAA it holds no history to read)."""
-    if params.enable_taa:
-        raise NotImplementedError("TAA history resolve is not ported yet")
-    l_curr = luminance(curr, YCOEFF)
+
+def _store(col, m2, out):
     if out is None:
-        return torch.cat([curr, (l_curr * l_curr)[..., None]], dim=-1)
-    out[..., :3] = curr
-    out[..., 3] = l_curr * l_curr
+        return torch.cat([col, m2[..., None]], dim=-1)
+    out[..., :3] = col
+    out[..., 3] = m2
     return out
+
+
+def resolve_taa(curr, motion, prev_accum, frame_index: int,
+                params: RenderParams, out=None):
+    """Blend the current frame with its (reprojected) history.
+
+    curr [H,W,3] linear colour; motion [H,W,2] NDC motion, already zeroed
+    by the caller when the camera is static (reference: rt.frag:188);
+    prev_accum [H,W,4] rgb + M2; frame_index a host int.  Returns [H,W,4]
+    (colour, M2).  Without TAA the frame is stored with its luminance
+    squared as M2, which SVGF reads as variance (rt_taa.glsl:58-61).
+
+    `out` may be the [H,W,4] buffer to write into, `prev_accum` itself
+    included: every value of the result is computed before the first
+    write, so the moving path's gather never reads an updated pixel."""
+    l_curr = luminance(curr, YCOEFF)
+    l_curr2 = l_curr * l_curr
+    if not params.enable_taa or frame_index == 0:
+        # no TAA, or the first frame: no history (rt_taa.glsl:66-68)
+        return _store(curr, l_curr2, out)
+
+    h, w = curr.shape[0], curr.shape[1]
+    dev = curr.device
+    uvx = ((torch.arange(w, dtype=torch.float32, device=dev) + 0.5)
+           / w)[None, :].expand(h, w)
+    uvy = ((torch.arange(h, dtype=torch.float32, device=dev) + 0.5)
+           / h)[:, None].expand(h, w)
+    mot_mag = torch.sqrt(motion[..., 0] * motion[..., 0]
+                         + motion[..., 1] * motion[..., 1])
+    max_w = f32(params.taa_history_max_weight)
+    box = f32(params.taa_history_box_size)
+    # still weights (rt_taa.glsl:86-105), float32 as the JAX package's
+    w_still = (f32(params.taa_history_min_weight) if frame_index < 8 else
+               f32(params.taa_history_avg_weight) if frame_index < 32 else
+               max_w)
+    w_curr_still = f32(1.0 - w_still)
+
+    # moving: reproject (rt_taa.glsl:116-179).  One history fetch for both
+    # per-pixel cases: still pixels read their own texel.
+    uv_prev_x = uvx - motion[..., 0] * 0.5
+    uv_prev_y = uvy - motion[..., 1] * 0.5
+    oob = ((uv_prev_x < 0.0) | (uv_prev_x > 1.0)
+           | (uv_prev_y < 0.0) | (uv_prev_y > 1.0))
+    still_px = mot_mag < f32(params.taa_still_thresh)
+    prev = _sample_nearest(prev_accum, torch.where(still_px, uvx, uv_prev_x),
+                           torch.where(still_px, uvy, uv_prev_y))
+    prev_col, prev_m2 = prev[..., :3], prev[..., 3]
+    col_still = prev_col * w_still + curr * w_curr_still
+    m2_still = prev_m2 * w_still + l_curr2 * w_curr_still
+
+    hard = f32(params.taa_hard_moving_thresh)
+    w_hist = 1.0 - smoothstep(0.02, hard, mot_mag)
+    w_hist = torch.where(mot_mag > hard, 0.0, w_hist)
+    l_prev = luminance(prev_col, YCOEFF)
+    max_l = torch.clamp_min(torch.maximum(l_curr, l_prev), 1e-3)
+    rel_diff = (l_curr - l_prev).abs() / max_l
+    w_hist = w_hist * (1.0 - smoothstep(0.03, 0.25, rel_diff))
+    w_hist = torch.where((mot_mag > 0.02) & (rel_diff > 0.30), 0.0, w_hist)
+    w_hist = torch.clamp(w_hist, 0.0, max_w)
+    w_cur = 1.0 - w_hist
+    hist_col = torch.minimum(torch.maximum(prev_col, curr - box), curr + box)
+    taa_col = w_hist[..., None] * hist_col + w_cur[..., None] * curr
+    m2_new = w_hist * prev_m2 + w_cur * l_curr2
+    # out-of-bounds reprojection: passthrough (rt_taa.glsl:124-127)
+    col_mov = torch.where(oob[..., None], curr, taa_col)
+    m2_mov = torch.where(oob, l_curr2, m2_new)
+
+    col = torch.where(still_px[..., None], col_still, col_mov)
+    m2 = torch.where(still_px, m2_still, m2_mov)
+    return _store(col, m2, out)

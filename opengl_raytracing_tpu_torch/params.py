@@ -12,7 +12,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
+
 Color = Tuple[float, float, float]
+
+
+def f32(x) -> float:
+    """A host value rounded to float32, as the JAX package traces its
+    float fields (and products of them) under jit."""
+    return float(np.float32(x))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .constants import PI
+from .ops.vecmath import cross, normalize
 
 _M32 = 0xFFFFFFFF
 
@@ -113,6 +114,33 @@ def concentric_sample(ux, uy):
     r = torch.where(zero, 0.0, r)
     phi = torch.where(zero, 0.0, phi)
     return r * torch.cos(phi), r * torch.sin(phi)
+
+
+def build_onb(n):
+    """Orthonormal basis (T, B) around normal n [..., 3]
+    (reference: shaders/rt/rt_lighting.glsl:227-231)."""
+    up_is_y = n[..., 1].abs() < 0.99
+    up = torch.where(up_is_y[..., None],
+                     torch.tensor([0.0, 1.0, 0.0], device=n.device),
+                     torch.tensor([1.0, 0.0, 0.0], device=n.device))
+    t = normalize(cross(up, n))
+    b = cross(n, t)
+    return t, b
+
+
+def sample_hemisphere_cosine(n, ux, uy):
+    """Cosine-weighted hemisphere sample around n
+    (reference: shaders/rt/rt_lighting.glsl:251-266).  The JAX
+    version's `v / max(norm(v), 1e-12)` is the port's `normalize`."""
+    phi = 2.0 * PI * ux
+    r = torch.sqrt(uy)
+    x = r * torch.cos(phi)
+    z = r * torch.sin(phi)
+    y = torch.sqrt(torch.clamp_min(1.0 - uy, 0.0))
+    nn = normalize(n)
+    t, b = build_onb(nn)
+    d = x[..., None] * t + z[..., None] * b + y[..., None] * nn
+    return normalize(d)
 
 
 def cp_offset(px, py, frame: int):

@@ -241,13 +241,15 @@ def test_shade_mirror_and_glass_match_jax(frame, which):
 
 
 def test_shade_mirror_gi_raises(frame):
-    _, scene = _scenes(jpreset("baseline").replace(enable_gi=1),
-                       frame["cam_pos"])
-    h = frame["h"]
+    """The mirror's GI term renders now (tests/test_torch_gi_ao.py holds it
+    to JAX); on tensors that are neither on the CPU nor on a CUDA card it
+    raises rather than running anything in its place."""
+    scene = SceneCtx.create(params_from(jpreset("full")),
+                            _t(frame["cam_pos"]).to("meta"), use_bvh=False)
+    h = tsa.Hit(*(x.to("meta") for x in frame["h"]))
     mat = tmat.get_material(h.mat, scene.params)
-    with pytest.raises(NotImplementedError):
-        tlt.shade_mirror(scene, h, _t(frame["vdir"]), mat, 0, 0,
-                         _t(frame["px"]), _t(frame["py"]))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tlt.shade_mirror(scene, h, h.p, mat, 0, 0, h.t, h.t)
 
 
 @pytest.mark.parametrize("change", [dict(), dict(sun_enabled=0),

@@ -12,7 +12,8 @@ and occlusion, and t within 1e-6.  The direct-light kernels differ from
 PyTorch only in the library's pow: radiance is held to rtol 1e-4 /
 atol 1e-5 on the lanes whose hit is valid (the value of a miss lane is
 garbage that the callers' select drops; the kernels must still finish on
-it).
+it).  The SVGF kernel sums its 49 taps in the plain filter's order with
+the same expf: rtol 1e-5 / atol 1e-5 on every pixel.
 """
 
 import numpy as np
@@ -25,9 +26,11 @@ from opengl_raytracing_tpu_torch.convert import camera_frame_inputs
 from opengl_raytracing_tpu_torch.models import preset
 from opengl_raytracing_tpu_torch.models.pipeline import (_sanitize_hit,
                                                          primary_rays)
-from opengl_raytracing_tpu_torch.ops import an_cuda, bvh_cuda, cuda_lib
+from opengl_raytracing_tpu_torch.ops import (an_cuda, bvh_cuda, cuda_lib,
+                                             svgf_cuda)
 from opengl_raytracing_tpu_torch.ops import bvh_traverse as plain
 from opengl_raytracing_tpu_torch.ops import lighting as lt
+from opengl_raytracing_tpu_torch.ops.svgf import svgf_filter
 from opengl_raytracing_tpu_torch.ops.scene import SceneCtx, prepare_bvh
 from opengl_raytracing_tpu_torch.ops.scene_analytic import Hit
 from opengl_raytracing_tpu_torch.ops.vecmath import normalize, reflect
@@ -225,3 +228,87 @@ def test_an_wrappers_reject_bad_inputs():
         an_cuda.shade_bvh_brdf(scene, h, n, v, offs, occ.float())
     with pytest.raises(ValueError):
         an_cuda.shade_bvh_brdf(scene, h, n, v.cpu(), offs, occ)
+
+
+def test_closest_kernel_active_lanes(bvh):
+    """Inactive lanes do not walk and read as misses; active lanes get the
+    plain walk's hit."""
+    ro, rd = _rays(3)
+    active = torch.rand(N, device="cuda") < 0.5
+    before = bvh_cuda.LAUNCHES["closest"]
+    h = bvh_cuda.trace_closest(bvh, ro, rd, active=active)
+    assert bvh_cuda.LAUNCHES["closest"] == before + 1
+    hp = plain.trace_bvh(bvh, ro, rd, active=active)
+    assert torch.equal(h.valid, hp.valid) and not h.valid[~active].any()
+    v = hp.valid
+    torch.testing.assert_close(h.t[v], hp.t[v], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(h.n, hp.n, rtol=1e-5, atol=1e-5)
+
+
+SVGF_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _svgf_inputs(h, w, seed, sky=0.0):
+    """accum, motion, gpos, gnrm on the card; a `sky` share of the pixels
+    have zero position and normal, as the frame writes them."""
+    g = torch.Generator().manual_seed(seed)
+    col = 0.5 + 0.3 * torch.randn(h, w, 3, generator=g)
+    lum = col @ torch.tensor([0.299, 0.587, 0.114])
+    m2 = lum * lum + 0.08 * torch.rand(h, w, generator=g)
+    accum = torch.cat([col, m2[..., None]], -1)
+    motion = 0.04 * torch.randn(h, w, 2, generator=g)
+    gpos = torch.randn(h, w, 3, generator=g)
+    gnrm = 2.0 * torch.randn(h, w, 3, generator=g)
+    is_sky = torch.rand(h, w, generator=g) < sky
+    gpos[is_sky] = 0.0
+    gnrm[is_sky] = 0.0
+    return tuple(x.cuda() for x in (accum, motion, gpos, gnrm))
+
+
+@pytest.mark.parametrize("size", [(37, 131), (1080, 1920)])
+@pytest.mark.parametrize("sky", [0.0, 0.3, 1.0])
+def test_svgf_kernel_matches_plain(size, sky):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    params = preset("full")
+    inputs = _svgf_inputs(*size, seed=int(sky * 10), sky=sky)
+    before = cuda_lib.LAUNCHES["svgf"]
+    got = svgf_cuda.svgf_filter(*inputs, params)
+    assert cuda_lib.LAUNCHES["svgf"] == before + 1
+    want = svgf_filter(*inputs, params)
+    assert got.shape == size + (3,) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, **SVGF_TOL)
+
+
+@pytest.mark.parametrize("change", [
+    dict(svgf_var_max=0.01), dict(svgf_k_var=2.5), dict(svgf_k_color=0.4),
+    dict(svgf_k_var_motion=0.2), dict(svgf_k_color_motion=3.0)])
+def test_svgf_kernel_parameters(change):
+    """Each svgf_* parameter moved away from its default reaches the
+    kernel by value: the kernel still matches the plain filter, and where
+    the parameter can change the image it does.  (The k_var pair only
+    scales the variance boost, which multiplies every tap's weight alike
+    and cancels in the normalised sum.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    inputs = _svgf_inputs(61, 97, seed=5, sky=0.2)
+    params = preset("full").replace(**change)
+    got = svgf_cuda.svgf_filter(*inputs, params)
+    torch.testing.assert_close(got, svgf_filter(*inputs, params), **SVGF_TOL)
+    base = svgf_cuda.svgf_filter(*inputs, preset("full"))
+    if "k_var" not in next(iter(change)):
+        assert float((got - base).abs().max()) > 1e-4
+
+
+def test_svgf_wrapper_rejects_bad_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    accum, motion, gpos, gnrm = _svgf_inputs(8, 8, seed=0)
+    params = preset("full")
+    with pytest.raises(ValueError, match="shape"):
+        svgf_cuda.svgf_filter(accum[..., :3].contiguous(), motion, gpos,
+                              gnrm, params)
+    with pytest.raises(ValueError):
+        svgf_cuda.svgf_filter(accum, motion, gpos.cpu(), gnrm, params)
+    with pytest.raises(TypeError):
+        svgf_cuda.svgf_filter(accum, motion.double(), gpos, gnrm, params)

@@ -179,13 +179,14 @@ def test_store_and_present_match_jax(exposure):
 
 @pytest.mark.parametrize("field", ["enable_taa", "enable_svgf"])
 def test_unported_branches_raise(field):
+    """TAA and SVGF render now (tests/test_torch_temporal.py holds them to
+    JAX); the motion debug view of the present pass is still refused,
+    whichever of them is on."""
     params = params_from(jpreset("baseline")).replace(**{field: 1})
     x = torch.zeros(4, 4, 3)
+    accum = ttaa.resolve_taa(x, x[..., :2], torch.zeros(4, 4, 4), 3, params)
     with pytest.raises(NotImplementedError):
-        if field == "enable_taa":
-            ttaa.resolve_taa(x, x[..., :2], None, 0, params)
-        else:
-            tsvgf.present(torch.zeros(4, 4, 4), x[..., :2], x, x, params)
+        tsvgf.present(accum, x[..., :2], x, x, params, show_motion=True)
 
 
 def test_params_are_frozen():

@@ -143,15 +143,18 @@ def test_accumulation_is_updated_in_place(tris):
 
 
 @pytest.mark.parametrize("change", [
-    dict(use_bvh=False, enable_gi=1), dict(enable_taa=1), dict(enable_svgf=1),
-    dict(enable_gi=1), dict(enable_ao=1), dict(spp_per_frame=2),
+    dict(use_bvh=False, spp_per_frame=2), dict(preset="heavy"),
+    dict(preset="full", env_map=True), dict(preset="full", show_motion=True),
+    dict(use_bvh=False, env_map=True), dict(spp_per_frame=2),
     dict(env_map=True), dict(show_motion=True)])
 def test_unported_stages_raise(tris, change):
+    """What the port still refuses (SPP > 1, the cubemap environment, the
+    motion view), on both scenes and under the presets that render now."""
     change = dict(change)
     kw = {k: change.pop(k) for k in ("use_bvh", "show_motion")
           if k in change}
     env = torch.ones(6, 4, 4, 3) if change.pop("env_map", False) else None
-    params = preset("baseline").replace(**change)
+    params = preset(change.pop("preset", "baseline")).replace(**change)
     state = RenderState.create(8, 8, "cpu")
     fin = camera_frame_inputs(Camera(), "cpu")
     with pytest.raises(NotImplementedError):
