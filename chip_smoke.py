@@ -7,29 +7,34 @@ Drives the port's three paths through `render_frame` on `cuda`, in
 phases, each printing its result and seconds on a line of its own:
 
   * the bench `baseline` frame: the 5,120 triangle bunny BVH scene at
-    1920x1080, 1 SPP, GI/AO/TAA/SVGF off (kernels K1, K2, K5);
+    1920x1080, 1 SPP, GI/AO/TAA/SVGF off (kernels K1 and the BVH direct
+    light, K5 with its shadow walks);
   * the bench `an_baseline` frame: the analytic scene (floor, albedo,
     glass and mirror spheres, point-light marker) at 800x600 with the
     same preset and the gradient sky (kernel K3);
   * the bench `full` frame: the bunny scene at 1920x1080 with GI, AO,
-    TAA and SVGF on at 1 SPP (kernels K1 on primary and bounce rays, K2
-    on shadow and AO rays, K5, and the SVGF kernel K4), and the analytic
-    scene's `full` preset against the CPU (K3 and K4).
+    TAA and SVGF on at 1 SPP (K1 on primary and bounce rays, the BVH
+    direct light at both, K2 on the AO rays, and the SVGF kernel K4),
+    and the analytic scene's `full` preset against the CPU (K3 and K4).
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every csrc/*.cu from the sources, one process
      per source, all at once;
   3. kernels: each kernel on the exact inputs one frame hands it -- the
-     closest-hit and any-hit BVH kernels and the BVH BRDF tail on a
-     baseline frame's, the analytic direct-light kernel on every call of
-     an an_baseline frame, the SVGF kernel and the closest-hit kernel's
-     bounce-ray call (with its `active` mask) on a 1080p `full` frame's
-     -- held against its plain PyTorch version on the card.  BVH walks:
-     at most 1e-5 of lanes may differ in `valid`/occlusion, t within 1e-5
-     relative on hit lanes.  Direct light: radiance within rtol 1e-4 /
-     atol 1e-5 on lanes whose hit is valid.  SVGF: rtol 1e-5 / atol 1e-5
-     on every pixel.  Wrapper and plain times from CUDA events, the
-     kernel alone from the profiler;
+     closest-hit kernel and the BVH direct light on a baseline frame's,
+     the analytic direct-light kernel on every call of an an_baseline
+     frame, and on the third frame of a 1080p `full` chain the SVGF
+     kernel, the any-hit kernel's AO call, and the bounce-ray calls of
+     the closest-hit kernel and of the BVH direct light (unsanitized
+     hits, sky lanes inactive) -- held against its plain PyTorch version
+     on the card.  BVH walks: at most 1e-5 of lanes may differ in
+     `valid`/occlusion, t within 1e-5 relative on hit lanes.  Direct
+     light: the in-kernel disk offsets equal lighting._disk_offsets bit
+     for bit; radiance within max abs 2e-6 (K3, valid lanes) and 1e-6
+     (BVH, live lanes).  SVGF: rtol 1e-5 / atol 1e-5 on every pixel.
+     Wrapper and plain times from CUDA events, the kernel alone and the
+     launches of one direct-light call from the profiler; each kernel's
+     bound (`bound_ms`) from the bytes and operations of these inputs;
   4. frames: 32 chained baseline frames; launch counters are zeroed just
      before and each kernel of the path must have grown by at least 32;
      the image must be finite and in [0,1]; ms/frame, fps, primary
@@ -39,13 +44,13 @@ phases, each printing its result and seconds on a line of its own:
      same frame from the plain versions on the CPU: max abs <= 2/255,
      99.9th percentile <= 1e-3;
   6. profile: one baseline frame under torch.profiler: device time by
-     stage, by PyTorch operator and of each kernel; the device's idle
-     share of the unprofiled frame time;
+     stage, by PyTorch operator and of each kernel, and the launches; the
+     device's idle share of the unprofiled frame time;
   7-9. frames_analytic, reference_analytic (300x400), profile_analytic:
      the same three for the an_baseline frame; its last frame goes to
      out/verify_torch_analytic.png;
   10. frames_full: 32 chained `full` frames at 1080p (they cross TAA's
-     weight steps at frames 8 and 32); closest, any, bvh_brdf and svgf
+     weight steps at frames 8 and 32); closest, any, bvh_direct and svgf
      must each grow by at least 32; the last frame goes to
      out/verify_torch_full.png;
   11. reference_full: a 3-frame `full` chain at 270x480 on the card
@@ -85,6 +90,8 @@ PROFILE_FRAME = 3      # the `full` profile times frame 3 (TAA resolves)
 MISMATCH_FRAC = 1e-5   # lanes allowed to differ in valid/occlusion
 T_RTOL = 1e-5          # t on lanes both kernels hit
 RAD_RTOL, RAD_ATOL = 1e-4, 1e-5  # direct-light radiance on valid lanes
+K3_MAX_ABS = 2e-6      # K3 vs the plain version: the libraries' powf
+BVH_DIRECT_MAX_ABS = 1e-6  # the BVH direct light, on live lanes
 SVGF_TOL = 1e-5        # SVGF kernel vs plain filter, rtol and atol
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -101,18 +108,83 @@ KERNELS = {  # wrapper key -> record of the JSON line
                       source="opengl_raytracing_tpu_torch/csrc/an_direct.cu",
                       replaces="opengl_raytracing_tpu/ops/an_pallas.py:162",
                       kernel="an_direct_light_kernel"),
-    "bvh_brdf": dict(name="bvh_brdf",
-                     source="opengl_raytracing_tpu_torch/csrc/an_direct.cu",
-                     replaces="opengl_raytracing_tpu/ops/an_pallas.py:307",
-                     kernel="bvh_brdf_kernel"),
+    "bvh_direct": dict(name="bvh_direct",
+                       source="opengl_raytracing_tpu_torch/csrc/an_direct.cu",
+                       replaces="opengl_raytracing_tpu/ops/an_pallas.py:307",
+                       kernel="bvh_direct_kernel"),
     "svgf": dict(name="svgf_filter",
                  source="opengl_raytracing_tpu_torch/csrc/svgf.cu",
                  replaces="opengl_raytracing_tpu/ops/svgf_pallas.py:68",
                  kernel="svgf_kernel"),
 }
-BVH_PATH = ("closest", "any", "bvh_brdf")
+BVH_PATH = ("closest", "bvh_direct")
 AN_PATH = ("an_direct",)
-FULL_PATH = ("closest", "any", "bvh_brdf", "svgf")
+FULL_PATH = ("closest", "any", "bvh_direct", "svgf")
+
+# The least time the card could take for a kernel's work: the larger of
+# its bytes (each input read once, each output written once) over the
+# memory rate and its operations over the float32 rate outside the tensor
+# cores (H100 SXM, NVIDIA's data sheet, at the 700 W limit).  Operations
+# are counted from the kernels' expressions, each add, multiply,
+# comparison, select, conversion or library call (sqrtf, powf, cosf)
+# as one, for the work these inputs need: the walks' node visits and
+# triangle tests as the plain walk counts them, the direct-light terms of
+# the lanes that compute them.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+OPS = dict(
+    node=25,            # slab test: 6 sub, 6 mul, 11 min/max, 2 compares
+    tri=52,             # Moller-Trumbore with its window
+    normalize=11,
+    cp_rot=46,          # two rand draws, two adds, two remainders
+    offset=66,          # a sample's two rand draws, remainders, concentric
+    disk_point=14,
+    query=23,           # a segment shadow query
+    facing=12,          # the BVH query's two ndl gates
+    trace_t=84,         # K3's closest t: the floor and three spheres
+    marker=23,          # ... and the point-light marker
+    brdf=75,            # a light's geometry term and Lambert-Phong
+    sun=6, sky=13, point=30,  # the light's own setup
+    env=60,             # a mirror/glass pixel: normalize, reflect, sky
+    svgf_pixel=40,      # the centre pixel's weights
+    svgf_tap=41,        # one in-bounds tap
+)
+
+
+def unique_bytes(*tensors):
+    """Bytes of the distinct tensors among `tensors` (None skipped), each
+    counted by its distinct elements: a broadcast view counts its
+    storage, not its shape."""
+    seen, total = set(), 0
+    for x in tensors:
+        if x is None:
+            continue
+        key = (x.data_ptr(), tuple(x.shape), tuple(x.stride()))
+        if key in seen:
+            continue
+        seen.add(key)
+        n = 1
+        for size, stride in zip(x.shape, x.stride()):
+            n *= size if stride else 1
+        total += n * x.element_size()
+    return total
+
+
+def bound(n_bytes, n_ops):
+    """{bound_ms, bound_by, bytes, ops} of a kernel call."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bound_bytes=n_bytes, bound_ops=n_ops)
+
+
+def bvh_bytes(arrays):
+    return unique_bytes(arrays.bounds, arrays.meta, arrays.tris)
+
+
+def walk_ops(counts):
+    return counts["nodes"] * OPS["node"] + counts["tris"] * OPS["tri"]
 
 
 def phase(label, t0, **result):
@@ -206,7 +278,7 @@ def record_kernel_inputs(bvh, height, width, device, keys,
     where = {"closest": (bvh_cuda, "trace_closest"),
              "any": (bvh_cuda, "trace_any"),
              "an_direct": (an_cuda, "direct_light"),
-             "bvh_brdf": (an_cuda, "shade_bvh_brdf"),
+             "bvh_direct": (an_cuda, "direct_light_bvh"),
              "svgf": (svgf_cuda, "svgf_filter")}
     calls = {k: [] for k in keys}
     real = {k: getattr(*where[k]) for k in keys}
@@ -217,7 +289,8 @@ def record_kernel_inputs(bvh, height, width, device, keys,
         def fn(*args, **kw):
             bound = sig.bind(*args, **kw)
             bound.apply_defaults()
-            calls[key].append(dict(bound.arguments))
+            calls[key].append({k: v for k, v in bound.arguments.items()
+                               if k != "offsets_out"})
             return real[key](*args, **kw)
         return fn
     @contextlib.contextmanager
@@ -234,22 +307,113 @@ def record_kernel_inputs(bvh, height, width, device, keys,
     return calls
 
 
+def launches_per_call(fn, reps=5):
+    """Device launches (kernels and copies) per call of `fn`, from the
+    profiler over `reps` calls; None if it saw no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(ev.count for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA)
+    return n / reps if n else None
+
+
 def _radiance_err(got, want, valid):
-    """(max abs error, lanes out of tolerance) on the valid lanes."""
+    """(max abs error, lanes out of tolerance) on the valid lanes; a NaN
+    counts as out of tolerance."""
     g, w = got[valid], want[valid]
     err = (g - w).abs()
-    bad = int((err > RAD_ATOL + RAD_RTOL * w.abs()).any(-1).sum())
+    bad = int((~(err <= RAD_ATOL + RAD_RTOL * w.abs())).any(-1).sum())
     return float(err.max()) if err.numel() else 0.0, bad
+
+
+def _offsets_bitwise(fn, args):
+    """Run direct-light wrapper `fn` on `args` with its offsets output and
+    hold the in-kernel disk offsets to lighting._disk_offsets bit for bit;
+    returns the radiance."""
+    import torch
+    from opengl_raytracing_tpu_torch.ops import lighting as lt
+    shape = args["h"].t.shape
+    offs = torch.full((8, args["h"].t.numel()), float("nan"), device="cuda")
+    got = fn(**args, offsets_out=offs)
+    want = torch.stack([c.expand(shape).reshape(-1) for dxy in
+                        lt._disk_offsets(args["rng_frame"],
+                                         args["frame_index"], args["px"],
+                                         args["py"]) for c in dxy])
+    if not torch.equal(offs, want):
+        raise AssertionError(f"{fn.__name__}: in-kernel disk offsets differ "
+                             f"from _disk_offsets on "
+                             f"{int((offs != want).sum())} values")
+    return got
+
+
+def check_bvh_direct(args, timer):
+    """The BVH direct light against direct_light_bvh_plain on one call's
+    arguments: offsets bit for bit, radiance on the live lanes (the others
+    are unspecified), the walks' steps for the bound; times."""
+    import torch
+    from opengl_raytracing_tpu_torch.ops import an_cuda
+    from opengl_raytracing_tpu_torch.ops import lighting as lt
+    from opengl_raytracing_tpu_torch.ops.bvh_traverse import trace_bvh_shadow
+    from opengl_raytracing_tpu_torch.ops.vecmath import normalize
+    h, active = args["h"], args["active"]
+    got = _offsets_bitwise(an_cuda.direct_light_bvh, args)
+    want = lt.direct_light_bvh_plain(**args)
+    live = torch.ones_like(h.t, dtype=torch.bool) if active is None \
+        else active
+    err = float((got - want)[live].abs().max()) if bool(live.any()) else 0.0
+    if not err <= BVH_DIRECT_MAX_ABS:  # a NaN fails too
+        raise AssertionError(f"bvh_direct disagrees with "
+                             f"direct_light_bvh_plain: max abs {err}")
+    # the bound: what the function needs, the mask, the tree, the pixel
+    # grids and the live lanes' p, n, v rows read, their radiance written;
+    # the terms of the live lanes and the walks of their open windows
+    scene = args["scene"]
+    params = scene.params
+    shape = h.t.shape
+    offs = lt._disk_offsets(args["rng_frame"], args["frame_index"],
+                            args["px"], args["py"])
+    o, d, w = lt._bvh_shadow_queries(scene, h, normalize(h.n), offs, active)
+    w = torch.cat([x.expand(shape).reshape(-1) for x in w])
+    walked = w > 0.0  # the kernel walks the open windows only
+    counts = dict(nodes=0, tris=0)
+    trace_bvh_shadow(
+        scene.bvh.arrays,
+        torch.cat([x.expand(shape + (3,)).reshape(-1, 3) for x in o])[walked],
+        torch.cat([x.expand(shape + (3,)).reshape(-1, 3) for x in d])[walked],
+        w[walked], counts=counts)
+    per_lane = (3 * OPS["normalize"] + OPS["cp_rot"] + 4 * (
+        OPS["offset"] + OPS["disk_point"] + OPS["query"] + OPS["facing"]
+        + OPS["brdf"]) + bool(params.sun_enabled) * (OPS["sun"] + OPS["brdf"])
+        + bool(params.sky_enabled) * OPS["sky"]
+        + bool(params.point_light_enabled) * (OPS["point"] + OPS["brdf"]))
+    n_live = int(live.sum())
+    def call():
+        an_cuda.direct_light_bvh(**args)
+    return dict(pixels=h.t.numel(), live_lanes=n_live, max_abs_err=err,
+                offsets="bitwise", walk_nodes=counts["nodes"],
+                walk_tris=counts["tris"],
+                **bound(unique_bytes(active, args["px"], args["py"])
+                        + bvh_bytes(scene.bvh.arrays) + (36 + 12) * n_live,
+                        n_live * per_lane + walk_ops(counts)),
+                ms=timer(call, 20),
+                kernel_ms=kernel_ms(call, KERNELS["bvh_direct"]["kernel"]),
+                launches_per_call=launches_per_call(call),
+                plain_ms=timer(lambda: lt.direct_light_bvh_plain(**args), 3))
 
 
 def check_kernels(bvh, height=HEIGHT, width=WIDTH, device="cuda",
                   timer=None):
-    """Each BVH-path kernel against its plain version on the inputs of
-    one baseline frame."""
-    import torch
-    from opengl_raytracing_tpu_torch.ops import an_cuda, bvh_cuda
+    """The closest-hit kernel and the BVH direct light against their
+    plain versions on the inputs of one baseline frame."""
+    from opengl_raytracing_tpu_torch.ops import bvh_cuda
     from opengl_raytracing_tpu_torch.ops import bvh_traverse as plain
-    from opengl_raytracing_tpu_torch.ops import lighting as lt
     timer = timer or cuda_ms
     calls = record_kernel_inputs(bvh, height, width, device, BVH_PATH)
     records = {}
@@ -258,7 +422,8 @@ def check_kernels(bvh, height=HEIGHT, width=WIDTH, device="cuda",
     arrays, ro, rd, eps = c["bvh"], c["ro"], c["rd"], c["eps"]
     n_rays = ro.numel() // 3
     h = bvh_cuda.trace_closest(arrays, ro, rd, eps)
-    hp = plain.trace_bvh(arrays, ro, rd, eps)
+    counts = dict(nodes=0, tris=0)
+    hp = plain.trace_bvh(arrays, ro, rd, eps, counts=counts)
     both = h.valid & hp.valid
     mismatch = int((h.valid != hp.valid).sum())
     err = float((h.t[both] - hp.t[both]).abs().max())
@@ -273,10 +438,107 @@ def check_kernels(bvh, height=HEIGHT, width=WIDTH, device="cuda",
     records["closest"] = dict(
         rays=n_rays, max_abs_err=err, n_max_abs_err=n_err,
         mismatch_lanes=mismatch, hit_frac=float(hp.valid.float().mean()),
+        walk_nodes=counts["nodes"], walk_tris=counts["tris"],
+        # rows in, t and the unnormalised normal out
+        **bound(unique_bytes(ro, rd) + bvh_bytes(arrays) + 16 * n_rays,
+                walk_ops(counts)),
         ms=timer(closest, 20),
         kernel_ms=kernel_ms(closest, KERNELS["closest"]["kernel"]),
         plain_ms=timer(lambda: plain.trace_bvh(arrays, ro, rd, eps), 2))
 
+    records["bvh_direct"] = check_bvh_direct(calls["bvh_direct"][0], timer)
+    return records
+
+
+def check_an_kernel(height=AN_HEIGHT, width=AN_WIDTH, device="cuda",
+                    timer=None):
+    """The analytic direct-light kernel against its plain version on every
+    call one an_baseline frame makes (primary hits, the mirror's and the
+    glass's three secondary hits): offsets bit for bit, radiance on the
+    valid lanes; times, launches and the bound on the primary call."""
+    from opengl_raytracing_tpu_torch.ops import an_cuda
+    from opengl_raytracing_tpu_torch.ops import lighting as lt
+    from opengl_raytracing_tpu_torch.ops.materials import get_material
+    timer = timer or cuda_ms
+    calls = record_kernel_inputs(None, height, width, device, AN_PATH)
+    errs, bad, lanes = [], 0, 0
+    for args in calls["an_direct"]:
+        valid = args["h"].valid
+        e, b = _radiance_err(_offsets_bitwise(an_cuda.direct_light, args),
+                             lt.direct_light_plain(**args), valid)
+        errs.append(e)
+        bad += b
+        lanes += int(valid.sum())
+    if bad or not max(errs) <= K3_MAX_ABS:  # a NaN lane counts in `bad`
+        raise AssertionError(f"an_direct_light disagrees with the plain "
+                             f"direct_light on {bad} lanes (max abs "
+                             f"{max(errs)})")
+    args = calls["an_direct"][0]
+    h, params = args["h"], args["scene"].params
+    n_env = int((get_material(h.mat, params).mtype != 0).sum())
+    trace = OPS["trace_t"] + bool(params.point_light_enabled) * OPS["marker"]
+    per_diffuse = (3 * OPS["normalize"] + OPS["cp_rot"] + 4 * (
+        OPS["offset"] + OPS["disk_point"] + OPS["query"] + trace
+        + OPS["brdf"]) + bool(params.sun_enabled) * (
+            trace + OPS["sun"] + OPS["brdf"])
+        + bool(params.sky_enabled) * OPS["sky"]
+        + bool(params.point_light_enabled) * (
+            OPS["point"] + OPS["trace_t"] + OPS["brdf"]))
+
+    def call():
+        an_cuda.direct_light(**args)
+    # bytes: n, v and the material id of every pixel, p of the diffuse
+    # ones, the pixel grids, the radiance written
+    return dict(calls=len(errs), pixels=height * width, valid_lanes=lanes,
+                max_abs_err=max(errs), max_abs_err_per_call=errs,
+                bad_lanes=bad, offsets="bitwise", env_pixels=n_env,
+                **bound(unique_bytes(h.n, h.mat, args["vdir"], args["px"],
+                                     args["py"])
+                        + 12 * (h.t.numel() - n_env) + 12 * h.t.numel(),
+                        n_env * OPS["env"]
+                        + (h.t.numel() - n_env) * per_diffuse),
+                ms=timer(call, 20),
+                kernel_ms=kernel_ms(call, KERNELS["an_direct"]["kernel"]),
+                launches_per_call=launches_per_call(call),
+                plain_ms=timer(lambda: lt.direct_light_plain(**args), 5))
+
+
+def check_full_kernels(bvh, height=HEIGHT, width=WIDTH, device="cuda",
+                       timer=None):
+    """On the inputs of the third frame of a 1080p `full` chain: the SVGF
+    kernel against the plain filter, the any-hit kernel's AO call, and the
+    bounce-ray calls (incoherent rays, sky lanes inactive) of the
+    closest-hit kernel and of the BVH direct light against the plain
+    versions."""
+    import torch
+    from opengl_raytracing_tpu_torch.ops import bvh_cuda, svgf_cuda
+    from opengl_raytracing_tpu_torch.ops import bvh_traverse as plain
+    from opengl_raytracing_tpu_torch.ops.svgf import svgf_filter
+    timer = timer or cuda_ms
+    calls = record_kernel_inputs(bvh, height, width, device, FULL_PATH,
+                                 "full", PROFILE_FRAME)
+    records = {}
+    args = calls["svgf"][0]
+    got = svgf_cuda.svgf_filter(**args)
+    want = svgf_filter(**args)
+    err = (got - want).abs()
+    bad = int((err > SVGF_TOL + SVGF_TOL * want.abs()).any(-1).sum())
+    if bad or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"svgf_filter disagrees with the plain filter on "
+                             f"{bad} pixels (max abs {float(err.max())})")
+    taps = (7 * width - 12) * (7 * height - 12)  # in-bounds taps, radius 3
+    records["svgf"] = dict(
+        pixels=height * width, max_abs_err=float(err.max()), bad_pixels=bad,
+        **bound(unique_bytes(*(args[k] for k in ("accum", "motion", "gpos",
+                                                  "gnrm")))
+                + 12 * height * width,
+                height * width * OPS["svgf_pixel"] + taps * OPS["svgf_tap"]),
+        ms=timer(lambda: svgf_cuda.svgf_filter(**args), 20),
+        kernel_ms=kernel_ms(lambda: svgf_cuda.svgf_filter(**args),
+                            KERNELS["svgf"]["kernel"]),
+        plain_ms=timer(lambda: svgf_filter(**args), 3))
+
+    # the AO call: the frame's only any-hit call
     c = calls["any"][0]
     arrays, ro, rd, t_max, eps, active = (c["bvh"], c["ro"], c["rd"],
                                           c["t_max"], c["eps"], c["active"])
@@ -284,12 +546,13 @@ def check_kernels(bvh, height=HEIGHT, width=WIDTH, device="cuda",
     o, d, tm = (torch.cat([x.reshape(-1, 3) for x in ro]),
                 torch.cat([x.reshape(-1, 3) for x in rd]),
                 torch.cat([x.reshape(-1) for x in t_max]))
+    counts = dict(nodes=0, tris=0)
 
-    def plain_any():
-        occ_p = plain.trace_bvh_shadow(arrays, o, d, tm, eps)
+    def plain_any(counts=None):
+        occ_p = plain.trace_bvh_shadow(arrays, o, d, tm, eps, counts)
         occ_p = occ_p.reshape(occ.shape)
         return occ_p if active is None else occ_p & active
-    occ_p = plain_any()
+    occ_p = plain_any(counts)
     n_rays = tm.numel()
     mismatch = int((occ != occ_p).sum())
     if mismatch > MISMATCH_FRAC * n_rays:
@@ -301,89 +564,18 @@ def check_kernels(bvh, height=HEIGHT, width=WIDTH, device="cuda",
     records["any"] = dict(
         rays=n_rays, batches=len(ro), max_abs_err=float(mismatch > 0),
         mismatch_lanes=mismatch, traced_frac=float((tm > 0).float().mean()),
-        occluded_frac=float(occ_p.float().mean()), ms=timer(any_hit, 20),
+        occluded_frac=float(occ_p.float().mean()),
+        walk_nodes=counts["nodes"], walk_tris=counts["tris"],
+        # the shared origin and window once, the four directions, a byte
+        # out per ray
+        **bound(unique_bytes(*ro, *rd, *t_max, active) + bvh_bytes(arrays)
+                + n_rays, walk_ops(counts)),
+        ms=timer(any_hit, 20),
         kernel_ms=kernel_ms(any_hit, KERNELS["any"]["kernel"]),
         plain_ms=timer(plain_any, 2))
 
-    # the BRDF tail: every lane is a finite surface point here (the frame
-    # sanitizes its misses), so every lane is compared
-    args = calls["bvh_brdf"][0]
-    got = an_cuda.shade_bvh_brdf(**args)
-    want = lt.shade_bvh_brdf_plain(**args)
-    err, bad = _radiance_err(got, want, torch.ones_like(got[..., 0],
-                                                        dtype=torch.bool))
-    if bad:
-        raise AssertionError(f"bvh_brdf disagrees with the plain tail on "
-                             f"{bad} lanes (max abs {err})")
-    records["bvh_brdf"] = dict(
-        pixels=got[..., 0].numel(), max_abs_err=err, bad_lanes=bad,
-        ms=timer(lambda: an_cuda.shade_bvh_brdf(**args), 20),
-        kernel_ms=kernel_ms(lambda: an_cuda.shade_bvh_brdf(**args),
-                            KERNELS["bvh_brdf"]["kernel"]),
-        plain_ms=timer(lambda: lt.shade_bvh_brdf_plain(**args), 5))
-    return records
-
-
-def check_an_kernel(height=AN_HEIGHT, width=AN_WIDTH, device="cuda",
-                    timer=None):
-    """The analytic direct-light kernel against its plain version on every
-    call one an_baseline frame makes (primary hits, the mirror's and the
-    glass's three secondary hits); times on the primary call."""
-    from opengl_raytracing_tpu_torch.ops import an_cuda
-    from opengl_raytracing_tpu_torch.ops import lighting as lt
-    timer = timer or cuda_ms
-    calls = record_kernel_inputs(None, height, width, device, AN_PATH)
-    errs, bad, lanes = [], 0, 0
-    for args in calls["an_direct"]:
-        valid = args["h"].valid
-        e, b = _radiance_err(an_cuda.direct_light(**args),
-                             lt.direct_light_plain(**args), valid)
-        errs.append(e)
-        bad += b
-        lanes += int(valid.sum())
-    if bad:
-        raise AssertionError(f"an_direct_light disagrees with the plain "
-                             f"direct_light on {bad} lanes (max abs "
-                             f"{max(errs)})")
-    args = calls["an_direct"][0]
-    return dict(calls=len(errs), pixels=height * width, valid_lanes=lanes,
-                max_abs_err=max(errs), max_abs_err_per_call=errs,
-                bad_lanes=bad,
-                ms=timer(lambda: an_cuda.direct_light(**args), 20),
-                kernel_ms=kernel_ms(lambda: an_cuda.direct_light(**args),
-                                    KERNELS["an_direct"]["kernel"]),
-                plain_ms=timer(lambda: lt.direct_light_plain(**args), 5))
-
-
-def check_full_kernels(bvh, height=HEIGHT, width=WIDTH, device="cuda",
-                       timer=None):
-    """On the inputs of the third frame of a 1080p `full` chain: the SVGF
-    kernel against the plain filter, and the closest-hit kernel's
-    bounce-ray call (incoherent rays, sky lanes inactive) against the
-    plain walk."""
-    import torch
-    from opengl_raytracing_tpu_torch.ops import bvh_cuda, svgf_cuda
-    from opengl_raytracing_tpu_torch.ops import bvh_traverse as plain
-    from opengl_raytracing_tpu_torch.ops.svgf import svgf_filter
-    timer = timer or cuda_ms
-    calls = record_kernel_inputs(bvh, height, width, device,
-                                 ("closest", "svgf"), "full", PROFILE_FRAME)
-    args = calls["svgf"][0]
-    got = svgf_cuda.svgf_filter(**args)
-    want = svgf_filter(**args)
-    err = (got - want).abs()
-    bad = int((err > SVGF_TOL + SVGF_TOL * want.abs()).any(-1).sum())
-    if bad or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"svgf_filter disagrees with the plain filter on "
-                             f"{bad} pixels (max abs {float(err.max())})")
-    svgf = dict(
-        pixels=height * width, max_abs_err=float(err.max()), bad_pixels=bad,
-        ms=timer(lambda: svgf_cuda.svgf_filter(**args), 20),
-        kernel_ms=kernel_ms(lambda: svgf_cuda.svgf_filter(**args),
-                            KERNELS["svgf"]["kernel"]),
-        plain_ms=timer(lambda: svgf_filter(**args), 3))
-
-    # the bounce call is the one with an `active` mask
+    # the bounce calls are the ones with an `active` mask on unsanitized
+    # hits: the second closest-hit and the second direct-light call
     c = [c for c in calls["closest"] if c["active"] is not None][0]
     h = bvh_cuda.trace_closest(**c)
     hp = plain.trace_bvh(c["bvh"], c["ro"], c["rd"], c["eps"], c["active"])
@@ -395,12 +587,13 @@ def check_full_kernels(bvh, height=HEIGHT, width=WIDTH, device="cuda",
         raise AssertionError(f"trace_closest (bounce rays) disagrees with the "
                              f"plain walk: {mismatch} valid mismatches, t rel "
                              f"{rel}")
-    bounce = dict(rays=h.t.numel(), active_frac=float(c["active"].float()
-                                                      .mean()),
-                  hit_frac=float(hp.valid.float().mean()),
-                  mismatch_lanes=mismatch, t_max_rel_err=rel,
-                  ms=timer(lambda: bvh_cuda.trace_closest(**c), 20))
-    return svgf, bounce
+    records["closest_bounce"] = dict(
+        rays=h.t.numel(), active_frac=float(c["active"].float().mean()),
+        hit_frac=float(hp.valid.float().mean()), mismatch_lanes=mismatch,
+        t_max_rel_err=rel, ms=timer(lambda: bvh_cuda.trace_closest(**c), 20))
+    records["bvh_direct_bounce"] = check_bvh_direct(calls["bvh_direct"][1],
+                                                    timer)
+    return records
 
 
 def run_frames(bvh, height, width, keys, png, smi, preset_name="baseline"):
@@ -485,7 +678,8 @@ def main() -> int:
     ptxas = {}
     for name, lib in libs.items():
         with open(lib[:-3] + ".log") as fh:
-            ptxas[name] = [ln.strip() for ln in fh if "registers" in ln]
+            ptxas[name] = [ln.strip() for ln in fh
+                           if "registers" in ln or "spill" in ln]
     phase("build", t0, seconds=time.time() - t0,
           libraries={k: os.path.relpath(v, ROOT) for k, v in libs.items()},
           ptxas=ptxas)
@@ -494,7 +688,7 @@ def main() -> int:
     _, bvh = scene("cuda")
     records = check_kernels(bvh)
     records["an_direct"] = check_an_kernel()
-    records["svgf"], records["closest_bounce"] = check_full_kernels(bvh)
+    records.update(check_full_kernels(bvh))
     phase("kernels", t0, **records)
 
     t0 = time.time()
@@ -546,13 +740,19 @@ def main() -> int:
 
     # each kernel's launches in the newest path that runs it
     launches = {**frames_an["launches"], **frames_full["launches"]}
-    print(json.dumps({"kernels": [
-        dict(name=KERNELS[k]["name"], route="cuda",
-             source=KERNELS[k]["source"], replaces=KERNELS[k]["replaces"],
-             launches=launches[k], max_abs_err=records[k]["max_abs_err"],
-             ms=records[k]["ms"], plain_ms=records[k]["plain_ms"])
-        for k in ("closest", "any", "an_direct", "bvh_brdf", "svgf")]}),
-        flush=True)
+
+    def line(k):
+        r = records[k]
+        return dict(name=KERNELS[k]["name"], route="cuda",
+                    source=KERNELS[k]["source"],
+                    replaces=KERNELS[k]["replaces"], launches=launches[k],
+                    max_abs_err=r["max_abs_err"], ms=r["ms"],
+                    plain_ms=r["plain_ms"], kernel_ms=r["kernel_ms"],
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    share=(r["bound_ms"] / r["kernel_ms"]
+                           if r["kernel_ms"] else None),
+                    library_ms=None)  # no single PyTorch call computes these
+    print(json.dumps({"kernels": [line(k) for k in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -567,8 +767,6 @@ BVH_STAGES = (
     ("trace_and_shade", "models.pipeline", "trace_and_shade"),
     ("primary_trace", "ops.bvh_cuda", "trace_closest"),
     ("direct_light", "ops.lighting", "direct_light_bvh"),
-    ("shadow_trace", "ops.bvh_cuda", "trace_any"),
-    ("brdf_tail", "ops.an_cuda", "shade_bvh_brdf"),
     ("store", "models.pipeline", "resolve_taa"),
     ("present", "models.pipeline", "present"),
 )

@@ -1,58 +1,81 @@
-// Direct light per pixel for Hopper (sm_90a): the analytic scene's whole
-// direct-light tree, and the BVH scene's BRDF tail.
+// Direct light per pixel for Hopper (sm_90a), from hit records to
+// radiance in one launch: the analytic scene's whole direct-light tree,
+// and the BVH scene's, shadow walks included.
 //
 // an_direct_light_kernel replaces the TPU kernel K3,
 //   opengl_raytracing_tpu/ops/an_pallas.py  _kernel
 //   (launched by direct_light_pallas);
-// bvh_brdf_kernel replaces the TPU kernel K5,
+// bvh_direct_kernel replaces the TPU kernel K5,
 //   opengl_raytracing_tpu/ops/an_pallas.py  _kernel_bvh
-//   (launched by shade_bvh_brdf_pallas).
+//   (launched by shade_bvh_brdf_pallas),
+// with the six shadow walks that the any-hit kernel (K2) traced for it
+// folded in.
 //
-// Design: one thread per pixel.  A pixel's p, n, v (and, for the analytic
-// scene, albedo, env reflection, spec, gloss and material type) are read
-// as rows; the scene constants arrive by value in one struct; the unit
-// disk offsets of the soft shadow samples stream in as [2S, N] planes,
-// because their hash/sin chain stays in PyTorch, where the tests hold it
-// bit-exact.  K3 traces its own shadow rays against the five analytic
-// primitives (closest t only); K5 reads the occlusion bytes the any-hit
-// BVH kernel wrote, [k, N] as they are.  Mirror and glass pixels of K3
-// return their env reflection before any shadow work: the plain version
-// computes the diffuse tree for them too and then throws it away.
+// Design: one thread per pixel, no shared memory.  A pixel's raw hit
+// point, normal and view direction, its material id (K3) and its pixel
+// centre are all it reads; the pixel-centre grids are read in place
+// through their strides (a broadcast grid is a row or a column of
+// floats), and only by lanes that need them.  The scene constants, the material table
+// (get_material with the glass/mirror toggles resolved on the host) and
+// the call's RNG keys arrive by value in one struct.  Everything else is
+// computed here: normalize(n) and normalize(v), the material row, the
+// gradient sky of the reflected view (K3's mirror and glass), and the
+// unit-disk offsets of the four soft-shadow samples (lighting._disk_
+// offsets: the uint32 hash of sampling.rand, cp_offset's rotation,
+// remainder and concentric_sample).  K3 traces its shadow rays against
+// the five analytic primitives (closest t only) and returns the env
+// reflection for mirror and glass pixels before any shadow work.
+// bvh_direct_kernel builds the four segment queries, the sun and the
+// point query with their ndl gates (lighting._bvh_shadow_queries) and
+// walks each open window with the any-hit walk of bvh_walk.cuh, the one
+// trace_any_kernel runs; a lane that `active` marks off (the caller's
+// sky select drops it) does no work and writes nothing.
 //
 // The arithmetic is the plain PyTorch version's (ops/lighting.py,
-// ops/scene_analytic.py, ops/intersect.py) expression for expression:
-// dot products summed left to right, normalize as x / max(sqrt(max(d, 0)),
-// 1e-12), the disk points as (center + T*(dx*R)) + B*(dy*R), the point
-// light's radiance as color * (I / max(d2, 1e-4)), the view direction
-// normalised once more for the sun and point terms, pow as powf.  Built
-// with --fmad=false and without --use_fast_math, so every operation rounds
-// once, as in PyTorch; only the libraries' pow differs in the last bits.
+// ops/scene_analytic.py, ops/intersect.py, sampling.py) expression for
+// expression: dot products summed left to right, normalize as
+// x / max(sqrt(max(d, 0)), 1e-12), the disk points as
+// (center + T*(dx*R)) + B*(dy*R), the point light's radiance as
+// color * (I / max(d2, 1e-4)), the view direction normalised once more
+// for the sun and point terms, pow as powf, IEEE cosf/sinf for the disk
+// offsets.  Built with --fmad=false and without --use_fast_math, so
+// every operation rounds once, as in PyTorch: the disk offsets equal the
+// plain version's bit for bit, and only the libraries' pow differs in
+// the last bits of the radiance.  An optional output (null on the main
+// path) receives the offsets as [8, N] planes dx0, dy0, dx1, ... so a
+// test can hold them to lighting._disk_offsets.
 //
-// What bounds it on this card: the arithmetic.  K3 does six shadow traces
-// against four or five primitives and six Lambert-Phong terms (with a
-// powf each) per diffuse pixel for 128 bytes of input; K5 reads about 80
-// bytes and does six BRDF terms.  Neither touches device memory beyond its
-// inputs and its 12-byte output, so both run at the rate of the FP32
-// pipes and the special-function units, with no shared memory.
+// What bounds it on this card.  A pixel reads 40 bytes (p, n, v and, for
+// K3, the material id) and writes 12; a BVH lane that `active` marks off
+// reads its mask byte and nothing else.  A diffuse pixel does the
+// hash chain (ten rand draws), four concentric samples with a sincos
+// each, six shadow traces (five analytic primitives each for K3, a BVH
+// walk for each open window of the BVH scene) and six Lambert-Phong
+// terms with a powf each.  K3 is bound by that arithmetic.  The BVH
+// kernel's dead lanes leave at once, and its time is the latency of its
+// longest live lane: one thread walks a pixel's windows one after
+// another, each node fetch waiting on the last, and a frame has too few
+// live warps per SM to hide that.  Spreading a pixel's walks over
+// threads is the next step.
 //
-// Left for later: the disk offsets in-kernel (the hash chain is integer
-// arithmetic and two sincos), which would drop ten elementwise PyTorch
-// passes and the 32 bytes/pixel stream; the glass/mirror secondary traces
-// fused into K3.
+// Left for later: the glass/mirror secondary traces fused into K3.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bvh_walk.cuh"
+
 namespace {
 
-constexpr float kInf = 1e30f;
 constexpr float kPi = 3.1415926535f;
 constexpr int kThreads = 128;
-constexpr int kSamples = 4;  // SOFT_SHADOW_SAMPLES
+constexpr int kSamples = 4;   // SOFT_SHADOW_SAMPLES
+constexpr int kMatRows = 5;   // material ids 0-3, then the grey fallback
 
 }  // namespace
 
-// Scene constants, filled on the host (ops/an_cuda.py:_scene_args).
+// Scene constants and the call's RNG keys, filled on the host
+// (ops/an_cuda.py:scene_args).
 struct AnScene {
   float light_c[3], light_t[3], light_b[3];  // disk light center and frame
   float light_nneg[3];                       // -(disk light normal)
@@ -70,50 +93,150 @@ struct AnScene {
   float sky_li[3];        // sky color * intensity
   float point_color[3];
   float point_intensity;
-  float bvh_albedo[3];    // the BVH scene's white plastic
+  float sky_top[3];       // the gradient sky looking up, and looking down
+  float sky_bottom[3];
+  // get_material: rows for ids 0-3 (floor, albedo, glass, mirror sphere)
+  // with the toggles resolved, row 4 for every other id (the marker)
+  float mat_albedo[kMatRows][3];
+  float mat_spec[kMatRows];
+  float mat_gloss[kMatRows];
+  int mat_type[kMatRows];  // 0 diffuse, 1 mirror, 2 glass
+  float bvh_albedo[3];     // the BVH scene's white plastic
   float bvh_spec, bvh_gloss;
   float eps;
+  // sampling.rand's xor keys (x, y) of cp_offset's two draws and of the
+  // four samples' draws, and ld2(frame_index)
+  uint32_t cp_key[4];
+  uint32_t smp_key[2];
+  float ld[2];
+  float pi_4, pi_2;        // PI / 4.0 and PI / 2.0 rounded to float32
   int sun_e, sky_e, point_e;
+};
+
+// The pixel-centre grids of a call, read in place: lane i is (r, c) =
+// (i / cols, i % cols) of the call's [rows, cols] view, and its px is
+// px[r * px_sr + c * px_sc] (a broadcast grid has a zero stride).
+struct PixelGrid {
+  const float* px;
+  const float* py;
+  int64_t cols, px_sr, px_sc, py_sr, py_sc;
 };
 
 namespace {
 
-struct V3 {
-  float x, y, z;
-};
-
 __device__ __forceinline__ V3 c3(const float* a) { return {a[0], a[1], a[2]}; }
 
-__device__ __forceinline__ V3 load3(const float* __restrict__ p,
-                                    int64_t i) {
+__device__ __forceinline__ V3 row3(const float* __restrict__ p, int64_t i) {
   return {__ldg(p + 3 * i), __ldg(p + 3 * i + 1), __ldg(p + 3 * i + 2)};
 }
 
-__device__ __forceinline__ V3 add3(V3 a, V3 b) {
-  return {a.x + b.x, a.y + b.y, a.z + b.z};
+__device__ __forceinline__ void pixel_centre(const PixelGrid& g, int64_t i,
+                                             float* px, float* py) {
+  // a 32-bit division where both fit (a 64-bit one is a long subroutine)
+  const int64_t r = ((i | g.cols) >> 32)
+                        ? i / g.cols
+                        : (int64_t)((uint32_t)i / (uint32_t)g.cols);
+  const int64_t c = i - r * g.cols;
+  *px = __ldg(g.px + r * g.px_sr + c * g.px_sc);
+  *py = __ldg(g.py + r * g.py_sr + c * g.py_sc);
 }
 
-__device__ __forceinline__ V3 sub3(V3 a, V3 b) {
-  return {a.x - b.x, a.y - b.y, a.z - b.z};
+// ---- the disk offsets (lighting._disk_offsets) in native uint32 ----
+
+__device__ __forceinline__ uint32_t lcg(uint32_t v) {
+  return v * 1664525u + 1013904223u;
 }
 
-__device__ __forceinline__ V3 mul3(V3 a, V3 b) {
-  return {a.x * b.x, a.y * b.y, a.z * b.z};
+// sampling.hash2
+__device__ __forceinline__ uint32_t hash2(uint32_t vx, uint32_t vy) {
+  vx = lcg(vx);
+  vy = lcg(vy);
+  vx = vx ^ (vy >> 16);
+  vy = vy ^ (vx << 5);
+  return lcg(vx) ^ lcg(vy);
 }
 
-__device__ __forceinline__ V3 scale3(V3 a, float s) {
-  return {a.x * s, a.y * s, a.z * s};
+// sampling.rand with the frame's xor keys: the coordinates truncate after
+// max(x, 0); a hash of 2^32 - 128 or more rounds to 2^32, so the result
+// can be exactly 1.0, as in PyTorch.
+__device__ __forceinline__ float rand01(float x, float y, uint32_t kx,
+                                        uint32_t ky) {
+  const uint32_t ux = (uint32_t)fmaxf(x, 0.0f) ^ kx;
+  const uint32_t uy = (uint32_t)fmaxf(y, 0.0f) ^ ky;
+  return __uint2float_rn(hash2(ux, uy)) / 4294967296.0f;
 }
 
-__device__ __forceinline__ float dot3(V3 a, V3 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z;
+// torch.remainder(x, 1.0): fmod, then the sign fix for a negative rest
+__device__ __forceinline__ float rem1(float x) {
+  const float m = fmodf(x, 1.0f);
+  return (m != 0.0f && m < 0.0f) ? m + 1.0f : m;
 }
 
-// vecmath.normalize: x / max(length(x), 1e-12)
-__device__ __forceinline__ V3 norm3(V3 a) {
-  const float ln = fmaxf(sqrtf(fmaxf(dot3(a, a), 0.0f)), 1e-12f);
-  return {a.x / ln, a.y / ln, a.z / ln};
+// sampling.concentric_sample
+__device__ __forceinline__ void concentric(const AnScene& s, float ux,
+                                           float uy, float* dx, float* dy) {
+  const float a = 2.0f * ux - 1.0f;
+  const float b = 2.0f * uy - 1.0f;
+  const bool a_dom = fabsf(a) > fabsf(b);
+  const float safe_a = fabsf(a) > 1e-20f ? a : 1.0f;
+  const float safe_b = fabsf(b) > 1e-20f ? b : 1.0f;
+  float r = a_dom ? a : b;
+  float phi = a_dom ? s.pi_4 * (b / safe_a) : s.pi_2 - s.pi_4 * (a / safe_b);
+  if (a == 0.0f && b == 0.0f) {
+    r = 0.0f;
+    phi = 0.0f;
+  }
+  *dx = r * cosf(phi);
+  *dy = r * sinf(phi);
 }
+
+struct Rot {
+  float x, y;
+};
+
+// sampling.cp_offset: the pixel's rotation of the sample pattern
+__device__ __forceinline__ Rot cp_rot(const AnScene& s, float px, float py) {
+  const float hx = rand01(px, py, s.cp_key[0], s.cp_key[1]);
+  const float hy = rand01(py, px, s.cp_key[2], s.cp_key[3]);
+  return {rem1(hx + s.ld[0]), rem1(hy + s.ld[1])};
+}
+
+// Sample k's unit-disk offset.
+__device__ __forceinline__ void disk_offset(const AnScene& s, float px,
+                                            float py, Rot rot, int k,
+                                            float* dx, float* dy) {
+  const float fk = (float)k;
+  const float off = (float)(31 * k + 7);
+  const float ux = rand01(px + fk, py + fk, s.smp_key[0], s.smp_key[1]);
+  const float uy = rand01(py + off, px + off, s.smp_key[0], s.smp_key[1]);
+  concentric(s, rem1(ux + rot.x), rem1(uy + rot.y), dx, dy);
+}
+
+// The offsets as [2S, N] planes, for the tests.
+__device__ void write_offsets(const AnScene& s, const PixelGrid& g,
+                              int64_t i, int64_t n_px,
+                              float* __restrict__ offs) {
+  float px, py;
+  pixel_centre(g, i, &px, &py);
+  const Rot rot = cp_rot(s, px, py);
+  for (int k = 0; k < kSamples; ++k) {
+    float dx, dy;
+    disk_offset(s, px, py, rot, k, &dx, &dy);
+    offs[(2 * k) * n_px + i] = dx;
+    offs[(2 * k + 1) * n_px + i] = dy;
+  }
+}
+
+// lighting._disk_points for one offset
+__device__ __forceinline__ V3 disk_point(const AnScene& s, float dx,
+                                         float dy) {
+  const float dxr = dx * s.light_radius;
+  const float dyr = dy * s.light_radius;
+  return add3(add3(c3(s.light_c), scale3(c3(s.light_t), dxr)),
+              scale3(c3(s.light_b), dyr));
+}
+
+// ---- the analytic scene ----
 
 // intersect.intersect_sphere: (t, valid) folded into the closest-t rule
 // of scene_analytic.trace_analytic_core (valid & t < best).
@@ -146,6 +269,21 @@ __device__ float trace_t(const AnScene& s, V3 o, V3 d, bool marker) {
   return best;
 }
 
+// scene_analytic.sky: the gradient, mix(top, bottom, 1 - t)
+__device__ __forceinline__ V3 sky(const AnScene& s, V3 d) {
+  const float t = fminf(fmaxf(0.5f * (d.y + 1.0f), 0.0f), 1.0f);
+  const V3 top = c3(s.sky_top);
+  return add3(top, scale3(sub3(c3(s.sky_bottom), top), 1.0f - t));
+}
+
+// vecmath.reflect(-v, n)
+__device__ __forceinline__ V3 reflect_view(V3 v, V3 n) {
+  const V3 i = {-v.x, -v.y, -v.z};
+  return sub3(i, scale3(n, 2.0f * dot3(n, i)));
+}
+
+// ---- shading ----
+
 // lighting.shade_lambert_phong for one light sample.
 __device__ __forceinline__ V3 lambert_phong(V3 n, V3 v, V3 l, V3 li,
                                             V3 albedo, float spec_strength,
@@ -159,16 +297,6 @@ __device__ __forceinline__ V3 lambert_phong(V3 n, V3 v, V3 l, V3 li,
   if (!(ndl > 0.0f)) return {0.0f, 0.0f, 0.0f};
   return {(albedo.x * kd + spec) * li.x, (albedo.y * kd + spec) * li.y,
           (albedo.z * kd + spec) * li.z};
-}
-
-// Sample `k`'s point on the disk light (lighting._disk_points).
-__device__ __forceinline__ V3 disk_point(const AnScene& s,
-                                         const float* __restrict__ offs,
-                                         int k, int64_t i, int64_t n_px) {
-  const float dxr = __ldg(offs + (2 * k) * n_px + i) * s.light_radius;
-  const float dyr = __ldg(offs + (2 * k + 1) * n_px + i) * s.light_radius;
-  return add3(add3(c3(s.light_c), scale3(c3(s.light_t), dxr)),
-              scale3(c3(s.light_b), dyr));
 }
 
 // One disk sample's term of lighting._disk_light_sum, given its point
@@ -230,6 +358,21 @@ __device__ __forceinline__ V3 point_term(const AnScene& s, V3 p, V3 n,
   return {0.0f, 0.0f, 0.0f};
 }
 
+// lighting._segment_shadow_query from p toward xl.
+struct Query {
+  V3 o, d;
+  float win;
+};
+
+__device__ __forceinline__ Query segment_query(V3 p, V3 xl) {
+  const V3 delta = sub3(xl, p);
+  const float max_t = sqrtf(fmaxf(dot3(delta, delta), 0.0f));
+  const float ln = fmaxf(max_t, 1e-12f);
+  const V3 rd = {delta.x / ln, delta.y / ln, delta.z / ln};
+  const float seps = fmaxf(1e-3f * max_t, 1e-4f);
+  return {add3(p, scale3(rd, seps)), rd, max_t - seps};
+}
+
 __device__ __forceinline__ void store3(float* __restrict__ out, int64_t i,
                                        V3 c) {
   out[3 * i] = c.x;
@@ -237,100 +380,145 @@ __device__ __forceinline__ void store3(float* __restrict__ out, int64_t i,
   out[3 * i + 2] = c.z;
 }
 
+// get_material's row of material id `id`.
+struct Material {
+  V3 albedo;
+  float spec, gloss;
+  int type;
+};
+
+__device__ __forceinline__ Material material(const AnScene& s, int id) {
+  const int row = (id >= 0 && id < kMatRows - 1) ? id : kMatRows - 1;
+  Material m = {c3(s.mat_albedo[0]), s.mat_spec[0], s.mat_gloss[0],
+                s.mat_type[0]};
+  // a select chain: no dynamic index into the parameter struct
+#pragma unroll
+  for (int r = 1; r < kMatRows; ++r) {
+    if (r == row)
+      m = {c3(s.mat_albedo[r]), s.mat_spec[r], s.mat_gloss[r], s.mat_type[r]};
+  }
+  return m;
+}
+
 // K3: lighting.direct_light_plain per pixel.
 __global__ void __launch_bounds__(kThreads)
 an_direct_light_kernel(const AnScene s, const float* __restrict__ p_in,
                        const float* __restrict__ n_in,
                        const float* __restrict__ v_in,
-                       const float* __restrict__ albedo_in,
-                       const float* __restrict__ spec_in,
-                       const float* __restrict__ gloss_in,
-                       const int32_t* __restrict__ mtype_in,
-                       const float* __restrict__ sky_r_in,
-                       const float* __restrict__ offs, int64_t n_px,
-                       float* __restrict__ out) {
+                       const int32_t* __restrict__ mat_in,
+                       const PixelGrid g, int64_t n_px,
+                       float* __restrict__ out,
+                       float* __restrict__ offs_out) {
   const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n_px) return;
-  const V3 n = load3(n_in, i);
-  const V3 albedo = load3(albedo_in, i);
-  const int mt = __ldg(mtype_in + i);
-  if (mt == 1 || mt == 2) {
+  if (offs_out != nullptr) write_offsets(s, g, i, n_px, offs_out);
+  const V3 n = norm3(row3(n_in, i));
+  const V3 v = norm3(row3(v_in, i));
+  const Material m = material(s, __ldg(mat_in + i));
+  if (m.type == 1 || m.type == 2) {
     // mirror: tinted env reflection; glass: plus the sky's diffuse term
-    V3 c = mul3(load3(sky_r_in, i), albedo);
-    if (mt == 2 && s.sky_e) c = add3(c, sky_term(s, n, albedo));
+    V3 c = mul3(sky(s, reflect_view(v, n)), m.albedo);
+    if (m.type == 2 && s.sky_e) c = add3(c, sky_term(s, n, m.albedo));
     store3(out, i, c);
     return;
   }
-  const V3 p = load3(p_in, i);
-  const V3 v = load3(v_in, i);
-  const float spec = __ldg(spec_in + i);
-  const float gloss = __ldg(gloss_in + i);
+  const V3 p = row3(p_in, i);
+  float px, py;
+  pixel_centre(g, i, &px, &py);
+  const Rot rot = cp_rot(s, px, py);
   V3 acc = {0.0f, 0.0f, 0.0f};
   for (int k = 0; k < kSamples; ++k) {
-    const V3 xl = disk_point(s, offs, k, i, n_px);
-    // lighting.occluded_toward: _segment_shadow_query + the full trace
-    const V3 delta = sub3(xl, p);
-    const float max_t = sqrtf(fmaxf(dot3(delta, delta), 0.0f));
-    const float ln = fmaxf(max_t, 1e-12f);
-    const V3 rd = {delta.x / ln, delta.y / ln, delta.z / ln};
-    const float seps = fmaxf(1e-3f * max_t, 1e-4f);
-    const float t = trace_t(s, add3(p, scale3(rd, seps)), rd, s.point_e);
-    const bool occ = t < kInf && t < max_t - seps;
-    acc = add3(acc, disk_term(s, p, n, v, xl, occ, albedo, spec, gloss));
+    float dx, dy;
+    disk_offset(s, px, py, rot, k, &dx, &dy);
+    const V3 xl = disk_point(s, dx, dy);
+    // lighting.occluded_toward: the segment query + the full trace
+    const Query q = segment_query(p, xl);
+    const float t = trace_t(s, q.o, q.d, s.point_e);
+    const bool occ = t < kInf && t < q.win;
+    acc = add3(acc, disk_term(s, p, n, v, xl, occ, m.albedo, m.spec,
+                              m.gloss));
   }
   acc = {acc.x / (float)kSamples, acc.y / (float)kSamples,
          acc.z / (float)kSamples};
-  const float spec_d = mt == 0 ? spec : 0.0f;
+  const float spec_d = m.type == 0 ? m.spec : 0.0f;
   const V3 vv = norm3(v);
   if (s.sun_e) {
     // any hit blocks the sun: no window (lighting.sun_direct)
     const bool blocked =
         trace_t(s, add3(p, scale3(n, 1.0f)), c3(s.sun_l), s.point_e) < kInf;
-    acc = add3(acc, sun_term(s, n, vv, blocked, albedo, spec_d, gloss));
+    acc = add3(acc, sun_term(s, n, vv, blocked, m.albedo, spec_d, m.gloss));
   }
-  if (s.sky_e) acc = add3(acc, sky_term(s, n, albedo));
+  if (s.sky_e) acc = add3(acc, sky_term(s, n, m.albedo));
   if (s.point_e)
-    acc = add3(acc, point_term(s, p, n, vv, -1, albedo, spec_d, gloss));
+    acc = add3(acc, point_term(s, p, n, vv, -1, m.albedo, spec_d, m.gloss));
   store3(out, i, acc);
 }
 
-// K5: lighting.shade_bvh_brdf_plain per pixel; occ rows are the disk
-// samples, then the sun (if on), then the point light (if on).
+// K5 with its shadow walks: lighting.direct_light_bvh_plain per pixel.
+// A window is walked only where the plain version leaves it open (its ndl
+// gate passed and it is > 0); the walk is bvh_walk.cuh's any_hit.
 __global__ void __launch_bounds__(kThreads)
-bvh_brdf_kernel(const AnScene s, const float* __restrict__ p_in,
-                const float* __restrict__ n_in,
-                const float* __restrict__ v_in,
-                const float* __restrict__ offs,
-                const uint8_t* __restrict__ occ, int64_t n_px,
-                float* __restrict__ out) {
+bvh_direct_kernel(const AnScene s, const float4* __restrict__ bounds,
+                  const int4* __restrict__ meta,
+                  const float4* __restrict__ tris, int n_nodes,
+                  const float* __restrict__ p_in,
+                  const float* __restrict__ n_in,
+                  const float* __restrict__ v_in, const PixelGrid g,
+                  const uint8_t* __restrict__ active, int64_t n_px,
+                  float* __restrict__ out, float* __restrict__ offs_out) {
   const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n_px) return;
-  const V3 p = load3(p_in, i);
-  const V3 n = load3(n_in, i);
-  const V3 v = load3(v_in, i);
+  if (offs_out != nullptr) write_offsets(s, g, i, n_px, offs_out);
+  // an inactive lane's radiance is unspecified by contract: not written
+  if (active != nullptr && !__ldg(active + i)) return;
+  const V3 p = row3(p_in, i);
+  const V3 n = norm3(row3(n_in, i));
+  const V3 v = norm3(row3(v_in, i));
+  float px, py;
+  pixel_centre(g, i, &px, &py);
   const V3 albedo = c3(s.bvh_albedo);
+  const Rot rot = cp_rot(s, px, py);
   V3 acc = {0.0f, 0.0f, 0.0f};
   for (int k = 0; k < kSamples; ++k) {
-    const V3 xl = disk_point(s, offs, k, i, n_px);
-    const bool o = __ldg(occ + k * n_px + i) != 0;
-    acc = add3(acc, disk_term(s, p, n, v, xl, o, albedo, s.bvh_spec,
+    float dx, dy;
+    disk_offset(s, px, py, rot, k, &dx, &dy);
+    const V3 xl = disk_point(s, dx, dy);
+    const Query q = segment_query(p, xl);
+    const bool facing =
+        dot3(n, q.d) > 0.0f && dot3(q.d, c3(s.light_nneg)) > 0.0f;
+    const bool occ = facing && q.win > 0.0f &&
+                     any_hit(bounds, meta, tris, n_nodes, q.o, q.d, q.win,
+                             s.eps);
+    acc = add3(acc, disk_term(s, p, n, v, xl, occ, albedo, s.bvh_spec,
                               s.bvh_gloss));
   }
   acc = {acc.x / (float)kSamples, acc.y / (float)kSamples,
          acc.z / (float)kSamples};
   const V3 vv = norm3(v);
-  int row = kSamples;
   if (s.sun_e) {
-    const bool blocked = __ldg(occ + row * n_px + i) != 0;
-    ++row;
+    // lighting._sun_shadow_query: eps 1.0, window 999
+    const V3 l = c3(s.sun_l);
+    const bool blocked =
+        dot3(n, l) > 0.0f &&
+        any_hit(bounds, meta, tris, n_nodes, add3(p, scale3(n, 1.0f)), l,
+                999.0f, s.eps);
     acc = add3(acc, sun_term(s, n, vv, blocked, albedo, s.bvh_spec,
                              s.bvh_gloss));
   }
   if (s.sky_e) acc = add3(acc, sky_term(s, n, albedo));
   if (s.point_e) {
-    const int blocked = __ldg(occ + row * n_px + i) != 0 ? 1 : 0;
-    acc = add3(acc, point_term(s, p, n, vv, blocked, albedo, s.bvh_spec,
-                               s.bvh_gloss));
+    // lighting._point_shadow_query
+    const V3 to_l = sub3(c3(s.point), p);
+    const float dist = sqrtf(fmaxf(dot3(to_l, to_l), 1e-20f));
+    const V3 l = {to_l.x / dist, to_l.y / dist, to_l.z / dist};
+    const float peps = fmaxf(1e-3f * dist, 1e-4f);
+    const float win = dist - peps;
+    const bool blocked =
+        dot3(n, l) > 0.0f && win > 0.0f &&
+        any_hit(bounds, meta, tris, n_nodes, add3(p, scale3(l, peps)), l,
+                win, s.eps);
+    acc = add3(acc, point_term(s, p, n, vv, blocked ? 1 : 0, albedo,
+                               s.bvh_spec, s.bvh_gloss));
   }
   store3(out, i, acc);
 }
@@ -341,37 +529,40 @@ inline unsigned blocks_for(int64_t n) {
 
 }  // namespace
 
-// Plain C entry points for ctypes.  `scene` is a host pointer; the other
-// pointers are device pointers; the stream is a cudaStream_t.  Each
-// returns cudaGetLastError() as an int.
+// Plain C entry points for ctypes.  `scene` and `grid` are host pointers
+// (the grid's own pointers are device pointers); the other pointers are
+// device pointers (`active` and `offs` may be null); the stream is a
+// cudaStream_t.  Each returns cudaGetLastError() as an int.
 extern "C" int ort_an_direct(const AnScene* scene, const void* p,
-                             const void* n, const void* v,
-                             const void* albedo, const void* spec,
-                             const void* gloss, const void* mtype,
-                             const void* sky_r, const void* offs,
-                             int64_t n_px, void* out, void* stream) {
+                             const void* n, const void* v, const void* mat,
+                             const PixelGrid* grid, int64_t n_px, void* out,
+                             void* offs, void* stream) {
   if (n_px > 0) {
     an_direct_light_kernel<<<blocks_for(n_px), kThreads, 0,
                              (cudaStream_t)stream>>>(
         *scene, (const float*)p, (const float*)n, (const float*)v,
-        (const float*)albedo, (const float*)spec, (const float*)gloss,
-        (const int32_t*)mtype, (const float*)sky_r, (const float*)offs, n_px,
-        (float*)out);
+        (const int32_t*)mat, *grid, n_px, (float*)out, (float*)offs);
   }
   return (int)cudaGetLastError();
 }
 
-extern "C" int ort_bvh_brdf(const AnScene* scene, const void* p,
-                            const void* n, const void* v, const void* offs,
-                            const void* occ, int64_t n_px, void* out,
-                            void* stream) {
+extern "C" int ort_bvh_direct(const AnScene* scene, const void* bounds,
+                              const void* meta, const void* tris, int n_nodes,
+                              const void* p, const void* n, const void* v,
+                              const PixelGrid* grid, const void* active,
+                              int64_t n_px, void* out, void* offs,
+                              void* stream) {
   if (n_px > 0) {
-    bvh_brdf_kernel<<<blocks_for(n_px), kThreads, 0, (cudaStream_t)stream>>>(
-        *scene, (const float*)p, (const float*)n, (const float*)v,
-        (const float*)offs, (const uint8_t*)occ, n_px, (float*)out);
+    bvh_direct_kernel<<<blocks_for(n_px), kThreads, 0,
+                        (cudaStream_t)stream>>>(
+        *scene, (const float4*)bounds, (const int4*)meta,
+        (const float4*)tris, n_nodes, (const float*)p, (const float*)n,
+        (const float*)v, *grid, (const uint8_t*)active, n_px, (float*)out,
+        (float*)offs);
   }
   return (int)cudaGetLastError();
 }
 
-// The struct's size, so the host can check its mirror of the layout.
+// The structs' sizes, so the host can check its mirrors of the layouts.
 extern "C" int ort_an_scene_size() { return (int)sizeof(AnScene); }
+extern "C" int ort_pixel_grid_size() { return (int)sizeof(PixelGrid); }

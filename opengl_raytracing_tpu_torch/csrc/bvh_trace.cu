@@ -23,7 +23,9 @@
 // to right, the slab test with tmin clamped to >= 0, |det| < 1e-8 rejected,
 // the window t >= eps && t <= t_max, 1/rd with exact zeros nudged to 1e-30.
 // Build without --use_fast_math: the walk relies on IEEE division and
-// exact comparisons.
+// exact comparisons.  The walk's pieces are in bvh_walk.cuh, which the
+// fused BVH direct light (an_direct.cu) includes too, so every any-hit
+// walk of the port is one piece of code.
 //
 // What bounds it on this card: the node and triangle fetches.  Each step
 // of a walk is a dependent, data-driven load of a 32-byte node (and, at a
@@ -40,81 +42,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bvh_walk.cuh"
+
 namespace {
 
-constexpr float kInf = 1e30f;
-constexpr int kLeafMax = 8;
 constexpr int kThreads = 128;
-
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 sub3(V3 a, V3 b) {
-  return {a.x - b.x, a.y - b.y, a.z - b.z};
-}
-
-__device__ __forceinline__ float dot3(V3 a, V3 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z;
-}
-
-__device__ __forceinline__ V3 cross3(V3 a, V3 b) {
-  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
-          a.x * b.y - a.y * b.x};
-}
-
-__device__ __forceinline__ V3 load3(const float* p) {
-  return {p[0], p[1], p[2]};
-}
-
-__device__ __forceinline__ float safe_inv(float d) {
-  return 1.0f / (d == 0.0f ? 1e-30f : d);
-}
-
-// Slab test against node `cur`: bounds rows are bmin.xyz, bmax.xyz, pad2.
-__device__ __forceinline__ bool hit_box(const float4* __restrict__ bounds,
-                                        int cur, V3 o, V3 inv, float t_lim) {
-  const float4 b0 = __ldg(&bounds[2 * cur]);
-  const float4 b1 = __ldg(&bounds[2 * cur + 1]);
-  const float t0x = (b0.x - o.x) * inv.x, t1x = (b0.w - o.x) * inv.x;
-  const float t0y = (b0.y - o.y) * inv.y, t1y = (b1.x - o.y) * inv.y;
-  const float t0z = (b0.z - o.z) * inv.z, t1z = (b1.y - o.z) * inv.z;
-  const float tmin = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                           fmaxf(fminf(t0z, t1z), 0.0f));
-  const float tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                           fmaxf(t0z, t1z));
-  return tmax >= tmin && tmin <= t_lim;
-}
-
-struct Tri {
-  V3 v0, e1, e2;
-};
-
-// Triangle rows are v0.xyz, e1.xyz, e2.xyz, pad3: three float4 loads.
-__device__ __forceinline__ Tri load_tri(const float4* __restrict__ tris,
-                                        int k) {
-  const float4 a = __ldg(&tris[3 * k]);
-  const float4 b = __ldg(&tris[3 * k + 1]);
-  const float4 c = __ldg(&tris[3 * k + 2]);
-  return {{a.x, a.y, a.z}, {a.w, b.x, b.y}, {b.z, b.w, c.x}};
-}
-
-// Moller-Trumbore as ops/intersect.py:intersect_triangle writes it.
-__device__ __forceinline__ bool hit_tri(const Tri& tr, V3 o, V3 d,
-                                        float t_max, float eps, float* t_out) {
-  const V3 pvec = cross3(d, tr.e2);
-  const float det = dot3(tr.e1, pvec);
-  const bool small = fabsf(det) < 1e-8f;
-  const float inv_det = 1.0f / (small ? 1.0f : det);
-  const V3 tvec = sub3(o, tr.v0);
-  const float u = dot3(tvec, pvec) * inv_det;
-  const V3 qvec = cross3(tvec, tr.e1);
-  const float v = dot3(d, qvec) * inv_det;
-  const float t = dot3(tr.e2, qvec) * inv_det;
-  *t_out = t;
-  return !small && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
-         t >= eps && t <= t_max;
-}
 
 __global__ void __launch_bounds__(kThreads)
 trace_closest_kernel(const float4* __restrict__ bounds,
@@ -166,30 +98,11 @@ trace_any_kernel(const float4* __restrict__ bounds,
   const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n_rays) return;
   const float tm = t_max[i];
-  uint8_t occ = 0;
   // A window <= 0 (or NaN) can hold no t >= eps: nothing to walk.
-  if (tm > 0.0f) {
-    const V3 o = load3(ro + 3 * i);
-    const V3 d = load3(rd + 3 * i);
-    const V3 inv = {safe_inv(d.x), safe_inv(d.y), safe_inv(d.z)};
-    int cur = 0;
-    while (cur < n_nodes && !occ) {
-      const int4 m = __ldg(&meta[cur]);
-      const bool bhit = hit_box(bounds, cur, o, inv, tm);
-      if (bhit && m.z > 0) {
-        const int cnt = m.z < kLeafMax ? m.z : kLeafMax;
-        for (int j = 0; j < cnt; ++j) {
-          float t;
-          if (hit_tri(load_tri(tris, m.y + j), o, d, tm, eps, &t)) {
-            occ = 1;  // first occluder ends the walk
-            break;
-          }
-        }
-      }
-      cur = (bhit && m.z == 0) ? cur + 1 : m.x;
-    }
-  }
-  occ_out[i] = occ;
+  const bool occ = tm > 0.0f && any_hit(bounds, meta, tris, n_nodes,
+                                         load3(ro + 3 * i), load3(rd + 3 * i),
+                                         tm, eps);
+  occ_out[i] = occ ? 1 : 0;
 }
 
 inline unsigned blocks_for(int64_t n) {

@@ -2,42 +2,61 @@
 
 `direct_light` (the analytic scene's whole direct-light tree; replaces
 the TPU kernel `opengl_raytracing_tpu/ops/an_pallas.py:_kernel`) and
-`shade_bvh_brdf` (the BRDF tail of the BVH scene's direct light; replaces
-`an_pallas.py:_kernel_bvh`) take the arguments of their plain versions
-in ops/lighting.py:
+`direct_light_bvh` (the BVH scene's direct light, its six shadow walks
+included; replaces `an_pallas.py:_kernel_bvh` and the any-hit call that
+fed it) take the arguments of lighting.direct_light and
+lighting.direct_light_bvh:
 
   * CPU tensors run the plain version (`direct_light_plain`,
-    `shade_bvh_brdf_plain`);
+    `direct_light_bvh_plain`);
   * CUDA tensors launch the kernel, or the call raises.  Nothing falls
     back to the plain version on the card.
 
-The kernels read per-pixel rows ([N,3] p, n, v, ...), the unit-disk
-offsets as [8, N] planes and the scene constants by value (`_AnScene`,
-the mirror of the C struct `AnScene`).  They are built and launched
-through ops/cuda_lib.py (`LAUNCHES["an_direct"]`, `LAUNCHES["bvh_brdf"]`).
-Importing this module needs neither nvcc nor a card.
+Each call is one launch.  The kernels read the raw hit records as rows
+([N,3] p, n, v and [N] material id), the pixel-centre grids in place
+through their strides (`_PixelGrid`), and compute the rest themselves:
+normalisation, the material table, the sky of the reflected view and the
+disk-light offsets' hash chain.  The scene constants, the material table
+and the call's RNG keys go by value in one struct (`_AnScene`, the
+mirror of the C struct `AnScene`, filled by `scene_args`).  The wrapper
+makes nothing but the contiguous copies of rows that are not contiguous
+already.
+Launches go through ops/cuda_lib.py (`LAUNCHES["an_direct"]`,
+`LAUNCHES["bvh_direct"]`).  Importing this module needs neither nvcc nor
+a card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
-from ..constants import (EPS, FLOOR_NORMAL, FLOOR_D, SPHERE_LEFT_CENTER,
+from ..constants import (EPS, PI, FLOOR_NORMAL, FLOOR_D, SPHERE_LEFT_CENTER,
                          SPHERE_LEFT_RADIUS, GLASS_CENTER, GLASS_RADIUS,
                          MIRROR_CENTER, MIRROR_RADIUS,
                          POINT_LIGHT_MARKER_RADIUS, LIGHT_CENTER,
                          LIGHT_RADIUS, LIGHT_COLOR, SOFT_SHADOW_SAMPLES,
-                         BVH_ALBEDO, BVH_SPEC_STRENGTH, BVH_GLOSS)
-from . import cuda_lib
+                         BVH_ALBEDO, BVH_SPEC_STRENGTH, BVH_GLOSS, MAT_FLOOR,
+                         MAT_ALBEDO_SPHERE, MAT_GLASS_SPHERE,
+                         MAT_MIRROR_SPHERE)
+from ..sampling import _frame_bits, ld2
+from . import bvh_cuda, cuda_lib
 from . import lighting as lt
 from .cuda_lib import check
 from .materials import get_material
-from .vecmath import normalize, reflect
 
 _F3 = ctypes.c_float * 3
+_U32 = ctypes.c_uint32
+# One material id per row of the kernels' table: the floor, the albedo,
+# glass and mirror spheres (the kernel takes row = id), then an id that
+# gets get_material's grey fallback, as the point-light marker does.
+_TABLE_IDS = (MAT_FLOOR, MAT_ALBEDO_SPHERE, MAT_GLASS_SPHERE,
+              MAT_MIRROR_SPHERE, -1)
+assert _TABLE_IDS[:-1] == (0, 1, 2, 3)
+MAT_ROWS = len(_TABLE_IDS)
 
 
 class _AnScene(ctypes.Structure):
@@ -53,29 +72,51 @@ class _AnScene(ctypes.Structure):
         ("point", _F3), ("sun_l", _F3), ("sky_up", _F3),
         ("sun_li", _F3), ("sky_li", _F3),
         ("point_color", _F3), ("point_intensity", ctypes.c_float),
+        ("sky_top", _F3), ("sky_bottom", _F3),
+        ("mat_albedo", _F3 * MAT_ROWS),
+        ("mat_spec", ctypes.c_float * MAT_ROWS),
+        ("mat_gloss", ctypes.c_float * MAT_ROWS),
+        ("mat_type", ctypes.c_int * MAT_ROWS),
         ("bvh_albedo", _F3), ("bvh_spec", ctypes.c_float),
         ("bvh_gloss", ctypes.c_float),
         ("eps", ctypes.c_float),
+        ("cp_key", _U32 * 4), ("smp_key", _U32 * 2),
+        ("ld", ctypes.c_float * 2),
+        ("pi_4", ctypes.c_float), ("pi_2", ctypes.c_float),
         ("sun_e", ctypes.c_int), ("sky_e", ctypes.c_int),
         ("point_e", ctypes.c_int),
     ]
 
 
-_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+class _PixelGrid(ctypes.Structure):
+    """Host mirror of `PixelGrid` in csrc/an_direct.cu: the px and py
+    grids' device pointers, the call's columns and each grid's row and
+    column strides in elements."""
+    _fields_ = [("px", ctypes.c_void_p), ("py", ctypes.c_void_p),
+                ("cols", ctypes.c_int64),
+                ("px_sr", ctypes.c_int64), ("px_sc", ctypes.c_int64),
+                ("py_sr", ctypes.c_int64), ("py_sc", ctypes.c_int64)]
+
+
+_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_GRID = ctypes.POINTER(_PixelGrid)
 _SIGNATURES = {
-    "ort_an_direct": ([ctypes.POINTER(_AnScene)] + [_P] * 9 + [_I64, _P, _P],
-                      ctypes.c_int),
-    "ort_bvh_brdf": ([ctypes.POINTER(_AnScene)] + [_P] * 5 + [_I64, _P, _P],
-                     ctypes.c_int),
+    "ort_an_direct": ([ctypes.POINTER(_AnScene)] + [_P] * 4
+                      + [_GRID, _I64, _P, _P, _P], ctypes.c_int),
+    "ort_bvh_direct": ([ctypes.POINTER(_AnScene), _P, _P, _P, _I32]
+                       + [_P] * 3 + [_GRID, _P, _I64, _P, _P, _P],
+                       ctypes.c_int),
     "ort_an_scene_size": ([], ctypes.c_int),
+    "ort_pixel_grid_size": ([], ctypes.c_int),
 }
 
 
 def _library():
     lib = cuda_lib.library("an_direct", _SIGNATURES)
-    if lib.ort_an_scene_size() != ctypes.sizeof(_AnScene):
-        raise RuntimeError("AnScene layout differs between csrc/an_direct.cu "
-                           "and ops/an_cuda.py")
+    if (lib.ort_an_scene_size() != ctypes.sizeof(_AnScene)
+            or lib.ort_pixel_grid_size() != ctypes.sizeof(_PixelGrid)):
+        raise RuntimeError("AnScene or PixelGrid layout differs between "
+                           "csrc/an_direct.cu and ops/an_cuda.py")
     return lib
 
 
@@ -83,22 +124,44 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
-def _scene_args(scene) -> _AnScene:
-    """The kernels' scene constants, each rounded to float32 as the plain
-    version rounds it (products of two host floats are taken in float32,
-    like a float32 tensor times a Python float; squared radii in double
-    first, like `dot(oc, oc) - radius * radius`)."""
-    p = scene.params
-    hv = scene.host_vectors
+def scene_args(scene, rng_frame: int, frame_index: int) -> _AnScene:
+    """The kernels' constants for one call: the scene's (see
+    `_scene_constants`) and the RNG keys, sampling.rand's xor keys
+    `_frame_bits(frame)` and `_frame_bits(frame, 1663)` of cp_offset's two
+    frames (frame_index * 911 and * 577) and of `rng_frame`, with
+    ld2(frame_index)."""
+    s = _AnScene.from_buffer_copy(_scene_constants(
+        scene.params, tuple(sorted(scene.host_vectors.items()))))
 
-    def li(color, intensity):
+    def keys(frame):
+        return _frame_bits(frame), _frame_bits(frame, 1663)
+    s.cp_key = (_U32 * 4)(*keys(_frame_bits(frame_index, 911)),
+                          *keys(_frame_bits(frame_index, 577)))
+    s.smp_key = (_U32 * 2)(*keys(rng_frame))
+    s.ld = (ctypes.c_float * 2)(*ld2(frame_index))
+    return s
+
+
+@functools.lru_cache(maxsize=16)
+def _scene_constants(params, host_vectors) -> bytes:
+    """The `AnScene` bytes that depend on the parameters alone (the RNG
+    keys left zero), each value rounded to float32 as the plain version
+    rounds it: products of two host floats are taken in float32, like a
+    float32 tensor times a Python float; squared radii in double first,
+    like `dot(oc, oc) - radius * radius`; the material table is
+    get_material's own rows, the glass and mirror toggles resolved."""
+    p = params
+    hv = dict(host_vectors)
+
+    def prod(color, scale):
         return _F3(*(torch.tensor(color, dtype=torch.float32)
-                     * intensity).tolist())
+                     * scale).tolist())
 
     def v3(x):
         return _F3(*(_f32(c) for c in x))
 
-    return _AnScene(
+    mat = get_material(torch.tensor(_TABLE_IDS, dtype=torch.int32), p)
+    return bytes(_AnScene(
         light_c=v3(LIGHT_CENTER), light_t=v3(lt.LIGHT_T),
         light_b=v3(lt.LIGHT_B), light_nneg=v3(-lt.LIGHT_N),
         light_color=v3(LIGHT_COLOR), light_radius=_f32(LIGHT_RADIUS),
@@ -111,18 +174,27 @@ def _scene_args(scene) -> _AnScene:
         marker_r2=_f32(POINT_LIGHT_MARKER_RADIUS * POINT_LIGHT_MARKER_RADIUS),
         point=v3(hv["point_light_pos"]),
         sun_l=v3(-np.float32(hv["sun_dir"])), sky_up=v3(hv["sky_up"]),
-        sun_li=li(p.sun_color, p.sun_intensity),
-        sky_li=li(p.sky_color, p.sky_intensity),
+        sun_li=prod(p.sun_color, p.sun_intensity),
+        sky_li=prod(p.sky_color, p.sky_intensity),
         point_color=v3(p.point_light_color),
         point_intensity=_f32(p.point_light_intensity),
+        # scene_analytic.sky's gradient ends
+        sky_top=prod((0.6, 0.7, 0.9), 0.3),
+        sky_bottom=prod((0.1, 0.15, 0.3), 0.3),
+        mat_albedo=(_F3 * MAT_ROWS)(*(_F3(*a) for a in mat.albedo.tolist())),
+        mat_spec=(ctypes.c_float * MAT_ROWS)(*mat.spec_strength.tolist()),
+        mat_gloss=(ctypes.c_float * MAT_ROWS)(*mat.gloss.tolist()),
+        mat_type=(ctypes.c_int * MAT_ROWS)(*mat.mtype.tolist()),
         bvh_albedo=v3(BVH_ALBEDO), bvh_spec=_f32(BVH_SPEC_STRENGTH),
         bvh_gloss=_f32(BVH_GLOSS), eps=_f32(EPS),
+        pi_4=_f32(PI / 4.0), pi_2=_f32(PI / 2.0),
         sun_e=int(bool(p.sun_enabled)), sky_e=int(bool(p.sky_enabled)),
-        point_e=int(bool(p.point_light_enabled)))
+        point_e=int(bool(p.point_light_enabled))))
 
 
 def _rows(x, shape):
-    """[..., 3] broadcast to shape + (3,) -> contiguous [N, 3]."""
+    """[..., 3] broadcast to shape + (3,) -> contiguous [N, 3] (a view
+    where it already is)."""
     return x.expand(shape + (3,)).reshape(-1, 3).contiguous()
 
 
@@ -130,72 +202,104 @@ def _flat(x, shape):
     return x.expand(shape).reshape(-1).contiguous()
 
 
-def _offset_planes(offs, shape):
-    """[(dx, dy)] * S -> contiguous [2S, N] planes dx0, dy0, dx1, ..."""
-    return torch.stack([_flat(c, shape) for dxy in offs for c in dxy])
+def _pixel_rows(h, vdir, device):
+    """The rows both kernels read: p, n, v [N,3]."""
+    shape = h.t.shape
+    rows = dict(p=_rows(h.p, shape), n=_rows(h.n, shape),
+                v=_rows(vdir, shape))
+    for name, x in rows.items():
+        check(name, x, torch.float32, (h.t.numel(), 3), device)
+    return rows
 
 
-def direct_light(scene, h, rng_frame: int, frame_index: int, vdir, px, py):
+def _pixel_grid(px, py, shape, device):
+    """(the kernels' `PixelGrid`, the tensors it points into): px and py
+    broadcast to `shape` and viewed as [rows, shape[-1]] without a copy
+    where their strides allow (a broadcast grid is one row or column of
+    floats); the tensors must outlive the launch."""
+    cols = max(shape[-1], 1) if len(shape) else 1
+    views = []
+    for name, x in (("px", px), ("py", py)):
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, expected {device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} has dtype {x.dtype}, expected "
+                            f"torch.float32")
+        x = x.expand(shape)
+        try:
+            x = x.view(-1, cols)
+        except RuntimeError:  # strides that do not fold into two
+            x = x.reshape(-1, cols).contiguous()
+        views.append(x)
+    gx, gy = views
+    return _PixelGrid(gx.data_ptr(), gy.data_ptr(), cols, *gx.stride(),
+                      *gy.stride()), views
+
+
+def _offsets_ptr(offsets_out, n_px, device):
+    if offsets_out is None:
+        return None
+    check("offsets_out", offsets_out, torch.float32,
+          (2 * SOFT_SHADOW_SAMPLES, n_px), device)
+    return offsets_out.data_ptr()
+
+
+def direct_light(scene, h, rng_frame: int, frame_index: int, vdir, px, py,
+                 offsets_out=None):
     """Direct light of the analytic scene at hits `h` [...] (the contract
-    of lighting.direct_light_plain): rgb [..., 3]."""
+    of lighting.direct_light_plain): rgb [..., 3].  On the card,
+    `offsets_out` (float32 [8, N], optional) receives the kernel's disk
+    offsets as planes dx0, dy0, dx1, ..."""
     if h.t.device.type == "cpu":
         return lt.direct_light_plain(scene, h, rng_frame, frame_index, vdir,
                                      px, py)
     device = cuda_lib.cuda_device(h.t, "direct-light kernels")
     shape = h.t.shape
     n_px = h.t.numel()
-    n = normalize(h.n)
-    v = normalize(vdir)
-    mat = get_material(h.mat, scene.params)
-    sky_r = scene.sky(reflect(-v, n))
-    offs = _offset_planes(
-        lt._disk_offsets(rng_frame, frame_index, px, py), shape)
-    args = dict(p=_rows(h.p, shape), n=_rows(n, shape), v=_rows(v, shape),
-                albedo=_rows(mat.albedo, shape),
-                spec=_flat(mat.spec_strength, shape),
-                gloss=_flat(mat.gloss, shape), mtype=_flat(mat.mtype, shape),
-                sky_r=_rows(sky_r, shape))
-    for name in ("p", "n", "v", "albedo", "sky_r"):
-        check(name, args[name], torch.float32, (n_px, 3), device)
-    check("spec", args["spec"], torch.float32, (n_px,), device)
-    check("gloss", args["gloss"], torch.float32, (n_px,), device)
-    check("mtype", args["mtype"], torch.int32, (n_px,), device)
-    check("offs", offs, torch.float32, (2 * SOFT_SHADOW_SAMPLES, n_px),
-          device)
+    rows = _pixel_rows(h, vdir, device)
+    grid, _keep = _pixel_grid(px, py, shape, device)
+    mat = _flat(h.mat, shape)
+    check("mat", mat, torch.int32, (n_px,), device)
+    offs = _offsets_ptr(offsets_out, n_px, device)
     out = torch.empty((n_px, 3), dtype=torch.float32, device=device)
     cuda_lib.launch(_library().ort_an_direct, "an_direct", device,
-                    ctypes.byref(_scene_args(scene)),
-                    *(a.data_ptr() for a in args.values()), offs.data_ptr(),
-                    n_px, out.data_ptr())
+                    ctypes.byref(scene_args(scene, rng_frame, frame_index)),
+                    rows["p"].data_ptr(), rows["n"].data_ptr(),
+                    rows["v"].data_ptr(), mat.data_ptr(), ctypes.byref(grid),
+                    n_px, out.data_ptr(), offs)
     return out.reshape(shape + (3,))
 
 
-def shade_bvh_brdf(scene, h, n, v, offs, occ):
-    """The BRDF tail of lighting.direct_light_bvh (the contract of
-    lighting.shade_bvh_brdf_plain): rgb [..., 3].  `occ` is the any-hit
-    result [k, ...] as trace_any returns it; on the card its bytes are
-    read in place."""
+def direct_light_bvh(scene, h, rng_frame: int, frame_index: int, vdir, px,
+                     py, active=None, offsets_out=None):
+    """Direct light of the BVH scene at hits `h` [...] (the contract of
+    lighting.direct_light_bvh_plain): rgb [..., 3], with the six shadow
+    walks in the same launch.  Lanes where `active` is False do no work;
+    their values are unspecified (the kernel leaves them unwritten).
+    `offsets_out` as for `direct_light`."""
     if h.t.device.type == "cpu":
-        return lt.shade_bvh_brdf_plain(scene, h, n, v, offs, occ)
+        return lt.direct_light_bvh_plain(scene, h, rng_frame, frame_index,
+                                         vdir, px, py, active)
     device = cuda_lib.cuda_device(h.t, "direct-light kernels")
-    params = scene.params
     shape = h.t.shape
     n_px = h.t.numel()
-    k = (SOFT_SHADOW_SAMPLES + int(bool(params.sun_enabled))
-         + int(bool(params.point_light_enabled)))
-    if occ.dtype not in (torch.bool, torch.uint8):
-        raise TypeError(f"occ has dtype {occ.dtype}, expected bool or uint8")
-    check("occ", occ, occ.dtype, (k,) + tuple(shape), device, align=1)
-    occ_b = occ.view(k, n_px)
-    p, n, v = _rows(h.p, shape), _rows(n, shape), _rows(v, shape)
-    for name, x in (("p", p), ("n", n), ("v", v)):
-        check(name, x, torch.float32, (n_px, 3), device)
-    planes = _offset_planes(offs, shape)
-    check("offs", planes, torch.float32, (2 * SOFT_SHADOW_SAMPLES, n_px),
-          device)
+    rows = _pixel_rows(h, vdir, device)
+    grid, _keep = _pixel_grid(px, py, shape, device)
+    act = None
+    if active is not None:
+        # the kernel reads one 0/1 byte per pixel
+        act = _flat(active, shape)
+        check("active", act, torch.bool, (n_px,), device, align=1)
+        act = act.data_ptr()
+    bvh = scene.bvh.arrays
+    bvh_cuda.check_bvh(bvh, device)
+    offs = _offsets_ptr(offsets_out, n_px, device)
     out = torch.empty((n_px, 3), dtype=torch.float32, device=device)
-    cuda_lib.launch(_library().ort_bvh_brdf, "bvh_brdf", device,
-                    ctypes.byref(_scene_args(scene)), p.data_ptr(),
-                    n.data_ptr(), v.data_ptr(), planes.data_ptr(),
-                    occ_b.data_ptr(), n_px, out.data_ptr())
+    cuda_lib.launch(_library().ort_bvh_direct, "bvh_direct", device,
+                    ctypes.byref(scene_args(scene, rng_frame, frame_index)),
+                    bvh.bounds.data_ptr(), bvh.meta.data_ptr(),
+                    bvh.tris.data_ptr(), bvh.bounds.shape[0],
+                    rows["p"].data_ptr(), rows["n"].data_ptr(),
+                    rows["v"].data_ptr(), ctypes.byref(grid), act, n_px,
+                    out.data_ptr(), offs)
     return out.reshape(shape + (3,))

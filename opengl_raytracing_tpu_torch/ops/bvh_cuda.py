@@ -41,7 +41,7 @@ def _library():
     return cuda_lib.library("bvh_trace", _SIGNATURES)
 
 
-def _check_bvh(bvh: BVHArrays, device):
+def check_bvh(bvh: BVHArrays, device):
     # node and triangle rows are read as 16-byte vectors
     n_nodes, n_tris = bvh.bounds.shape[0], bvh.tris.shape[0]
     check("bvh.bounds", bvh.bounds, torch.float32, (n_nodes, 8), device, 16)
@@ -65,7 +65,7 @@ def trace_closest(bvh: BVHArrays, ro, rd, eps: float = EPS,
     shape = torch.broadcast_shapes(ro.shape[:-1], rd.shape[:-1])
     o = ro.expand(shape + (3,)).reshape(-1, 3).contiguous()
     d = rd.expand(shape + (3,)).reshape(-1, 3).contiguous()
-    _check_bvh(bvh, device)
+    check_bvh(bvh, device)
     n_rays = o.shape[0]
     check("ro", o, torch.float32, (n_rays, 3), device)
     check("rd", d, torch.float32, (n_rays, 3), device)
@@ -107,7 +107,7 @@ def trace_any(bvh: BVHArrays, ro, rd, t_max, eps: float = EPS,
         occ = trace_bvh_shadow(bvh, o, d, tm, eps)
     else:
         device = _cuda_device(o)
-        _check_bvh(bvh, device)
+        check_bvh(bvh, device)
         n_rays = o.shape[0]
         check("ro", o, torch.float32, (n_rays, 3), device)
         check("rd", d, torch.float32, (n_rays, 3), device)

@@ -62,14 +62,23 @@ def _finalize(shape, ro, rd, t_best, n_best) -> Hit:
                torch.ones(shape, dtype=torch.int32, device=ro.device))
 
 
+def _count(counts, lane, count, li):
+    """Add one step's node visits and its leaf lanes' triangle tests to
+    `counts`."""
+    if counts is not None:
+        counts["nodes"] += lane.numel()
+        counts["tris"] += int(count[li].clamp(max=LEAF_MAX).sum())
+
+
 def trace_bvh(bvh: BVHArrays, ro, rd, eps: float = EPS,
-              active=None) -> Hit:
+              active=None, counts=None) -> Hit:
     """Closest-hit traversal (reference: shaders/rt/rt_bvh.glsl:193-243).
 
     bvh: BVHArrays of tensors on the rays' device; ro/rd [...,3].
     Returns Hit with mat=1 (triangles shade as diffuse).  Lanes where
     `active` (bool, the rays' shape) is False do not walk and read as
-    misses.
+    misses.  `counts` (a dict with "nodes" and "tris", optional) gets the
+    walk's node visits and triangle tests added.
     """
     bounds, meta, tris = bvh.bounds, bvh.meta.long(), bvh.tris
     n_nodes = bounds.shape[0]
@@ -95,6 +104,7 @@ def trace_bvh(bvh: BVHArrays, ro, rd, eps: float = EPS,
         tmin, _, bhit = intersect_aabb(o, inv, b[:, 0:3], b[:, 3:6])
         bhit = bhit & (tmin <= t_best)      # t-pruning, rt_bvh.glsl:208
         li = (bhit & (count > 0)).nonzero().squeeze(1)
+        _count(counts, lane, count, li)
         if li.numel():
             lo, ld, lt, ln = o[li], d[li], t_best[li], n_best[li]
             first, cnt = m[li, 1], count[li]
@@ -117,10 +127,13 @@ def trace_bvh(bvh: BVHArrays, ro, rd, eps: float = EPS,
     return _finalize(shape, ro, rd.expand(shape + (3,)), t_out, n_out)
 
 
-def trace_bvh_shadow(bvh: BVHArrays, ro, rd, t_max, eps: float = EPS):
+def trace_bvh_shadow(bvh: BVHArrays, ro, rd, t_max, eps: float = EPS,
+                     counts=None):
     """Any-hit traversal with early out
     (reference: shaders/rt/rt_bvh.glsl:260-304).  Returns a bool mask:
-    an occluder with t in [eps, t_max].  A window <= 0 finds nothing."""
+    an occluder with t in [eps, t_max].  A window <= 0 finds nothing.
+    `counts` as for trace_bvh (a leaf that occludes counts all its
+    triangles)."""
     bounds, meta, tris = bvh.bounds, bvh.meta.long(), bvh.tris
     n_nodes = bounds.shape[0]
     shape, (o, d, tm) = _flat_rays(ro, rd, t_max)
@@ -139,6 +152,7 @@ def trace_bvh_shadow(bvh: BVHArrays, ro, rd, t_max, eps: float = EPS):
         bhit = bhit & (tmin <= tm)
         occ = torch.zeros_like(bhit)
         li = (bhit & (count > 0)).nonzero().squeeze(1)
+        _count(counts, lane, count, li)
         if li.numel():
             lo, ld, lt = o[li], d[li], tm[li]
             first, cnt = m[li, 1], count[li]

@@ -2,9 +2,10 @@
 
 Each source in `SOURCES` is compiled at first use with nvcc for sm_90a
 into a shared library with a plain C interface, under `_build/` in the
-package, keyed by a hash of the source and the flags, and loaded with
-ctypes.  `build_all()` starts one nvcc per source at once and waits for
-all of them.  A missing nvcc or a failed build raises with the
+package, keyed by a hash of the flags, the source and every header in
+csrc/ (a source may include any of them), and loaded with ctypes.
+`build_all()` starts one nvcc per source at once and waits for all of
+them.  A missing nvcc or a failed build raises with the
 compiler's output.  Importing this module needs neither nvcc nor a card.
 
 `LAUNCHES` counts each kernel's launches, so a run can show that a frame
@@ -23,7 +24,8 @@ import subprocess
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
+_CSRC = os.path.join(_PKG, "csrc")
+SOURCES = {name: os.path.join(_CSRC, f"{name}.cu")
            for name in ("bvh_trace", "an_direct", "svgf")}
 BUILD_DIR = os.path.join(_PKG, "_build")
 # No --use_fast_math: the kernels rely on IEEE division, sqrt and exact
@@ -34,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-LAUNCHES = {"closest": 0, "any": 0, "an_direct": 0, "bvh_brdf": 0,
+LAUNCHES = {"closest": 0, "any": 0, "an_direct": 0, "bvh_direct": 0,
             "svgf": 0}
 
 _libs: dict = {}
@@ -51,10 +53,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where the build of source `name` with the current flags goes."""
+    """Where the build of source `name` with the current flags goes.  The
+    key covers the headers too, so an edited header is rebuilt."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(SOURCES[name], "rb") as fh:
-        h.update(fh.read())
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for path in [SOURCES[name]] + [os.path.join(_CSRC, f) for f in headers]:
+        with open(path, "rb") as fh:
+            h.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 

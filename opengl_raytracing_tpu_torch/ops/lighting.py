@@ -11,10 +11,11 @@ card: the closest-hit and any-hit kernels, and the direct-light
 kernels at the bounce hit).  The JAX package's opt-in 2-batch
 `direct_and_gi_analytic` is not ported; its default two-call form is.
 
-Two CUDA kernels (ops/an_cuda.py) take over on the card: the analytic
-`direct_light` tree and the BRDF tail of `direct_light_bvh`.  Their plain
-versions are `direct_light_plain` and `shade_bvh_brdf_plain` here, which
-the wrappers run for CPU tensors.
+Two CUDA kernels (ops/an_cuda.py) take over on the card, each computing
+the whole function from hit records to radiance in one launch: the
+analytic `direct_light` tree and `direct_light_bvh`, its six shadow walks
+included.  Their plain versions are `direct_light_plain` and
+`direct_light_bvh_plain` here, which the wrappers run for CPU tensors.
 
 Naming of the RNG arguments follows the GLSL call chain:
   * `rng_frame`  — the `frame` parameter of the GLSL function;
@@ -34,6 +35,7 @@ from ..constants import (EPS, PI, SOFT_SHADOW_SAMPLES, LIGHT_CENTER,
                          GLASS_LOCAL_REFL_WEIGHT, YCOEFF)
 from ..sampling import (rand, eps_for_dist, concentric_sample, cp_offset,
                         sample_hemisphere_cosine)
+from .bvh_traverse import trace_bvh_shadow
 from .materials import (get_material, MaterialProps, MTYPE_DIFFUSE,
                         MTYPE_MIRROR, MTYPE_GLASS)
 from .scene import SceneCtx
@@ -64,8 +66,8 @@ def _segment_shadow_query(p, q):
 
 def occluded_toward(scene: SceneCtx, p, q):
     """Segment occlusion test (reference: rt_lighting.glsl:49-60): a
-    closest hit inside the window.  (The BVH frame batches its segments
-    into one any-hit wavefront instead: direct_light_bvh.)"""
+    closest hit inside the window.  (The BVH scene asks any-hit walks
+    instead: direct_light_bvh.)"""
     origin, rd, win = _segment_shadow_query(p, q)
     h = scene.trace(origin, rd)
     return h.valid & (h.t < win)
@@ -263,28 +265,28 @@ def direct_light(scene: SceneCtx, h, rng_frame: int, frame_index: int, vdir,
 def direct_light_bvh(scene: SceneCtx, h, rng_frame: int, frame_index: int,
                      vdir, px, py, active=None):
     """Direct lighting for BVH triangles: hard-coded white plastic
-    (reference: rt_lighting.glsl:405-460).
-
-    All shadow queries (4 disk + sun + point) go through ONE any-hit call,
-    traced as one stream: the wavefront form of the reference's six
-    sequential shadow traces.  The BRDF sum over their occlusion bits is
-    `shade_bvh_brdf`: the CUDA kernel for CUDA tensors, the plain
-    `shade_bvh_brdf_plain` for CPU tensors (ops/an_cuda.py).
+    (reference: rt_lighting.glsl:405-460).  The CUDA kernel for CUDA
+    tensors (one launch, the shadow walks included), the plain
+    `direct_light_bvh_plain` for CPU tensors (ops/an_cuda.py).
 
     `active` (bool, shape of h.t) marks lanes whose radiance the caller
-    keeps; inactive lanes get a collapsed window (-1), so they trace
-    nothing and read "not occluded", and values on them are unspecified.
-    The ndl gate does the same for rays the reference never consumes (the
-    surface faces away from the light: sunDirect and pointDirect return
-    before the trace, and the disk loop multiplies vis by
-    ndl*cosThetaL == 0), so it leaves the image unchanged and saves the
-    rays."""
+    keeps; values on the other lanes are unspecified."""
     from . import an_cuda
-    n = normalize(h.n)
-    v = normalize(vdir)
-    params = scene.params
+    return an_cuda.direct_light_bvh(scene, h, rng_frame, frame_index, vdir,
+                                    px, py, active)
 
-    offs = _disk_offsets(rng_frame, frame_index, px, py)
+
+def _bvh_shadow_queries(scene: SceneCtx, h, n, offs, active=None):
+    """(origins, dirs, windows) of the BVH direct light's shadow rays: the
+    4 disk samples, then the sun and the point light where they are on.
+
+    Inactive lanes get a collapsed window (-1), so they trace nothing and
+    read "not occluded".  The ndl gate does the same for rays the
+    reference never consumes (the surface faces away from the light:
+    sunDirect and pointDirect return before the trace, and the disk loop
+    multiplies vis by ndl*cosThetaL == 0), so it leaves the image
+    unchanged and saves the rays."""
+    params = scene.params
     light_n = -torch.from_numpy(LIGHT_N).to(h.t.device)
     origins, dirs, wins = [], [], []
     for xl in _disk_points(offs, h.t.device):
@@ -305,8 +307,27 @@ def direct_light_bvh(scene: SceneCtx, h, rng_frame: int, frame_index: int,
         wins.append(torch.where(dot(n, d) > 0.0, w, -1.0))
     if active is not None:
         wins = [torch.where(active, w, -1.0) for w in wins]
-    occ = scene.trace_shadow_any(tuple(origins), tuple(dirs), tuple(wins))
-    return an_cuda.shade_bvh_brdf(scene, h, n, v, offs, occ)
+    return origins, dirs, wins
+
+
+def direct_light_bvh_plain(scene: SceneCtx, h, rng_frame: int,
+                           frame_index: int, vdir, px, py, active=None):
+    """The plain version of the CUDA kernel behind `direct_light_bvh`:
+    the shadow queries, traced as one stream by the plain any-hit walk
+    (the wavefront form of the reference's six sequential shadow
+    traces), then the BRDF sum over their occlusion bits."""
+    n = normalize(h.n)
+    v = normalize(vdir)
+    offs = _disk_offsets(rng_frame, frame_index, px, py)
+    origins, dirs, wins = _bvh_shadow_queries(scene, h, n, offs, active)
+    shape = h.t.shape
+    occ = trace_bvh_shadow(
+        scene.bvh.arrays,
+        torch.cat([o.expand(shape + (3,)).reshape(-1, 3) for o in origins]),
+        torch.cat([d.expand(shape + (3,)).reshape(-1, 3) for d in dirs]),
+        torch.cat([w.expand(shape).reshape(-1) for w in wins]))
+    return shade_bvh_brdf_plain(scene, h, n, v, offs,
+                                occ.reshape((len(wins),) + shape))
 
 
 def shade_bvh_brdf_plain(scene: SceneCtx, h, n, v, offs, occ):
@@ -314,8 +335,7 @@ def shade_bvh_brdf_plain(scene: SceneCtx, h, n, v, offs, occ):
     rt_lighting.glsl:414-460): the disk-light sum and the sun, sky and
     point terms of the white plastic, given the unit-disk offsets and the
     occlusion bits `occ` [k, ...] of the shadow wavefront (4 disk
-    samples, then the sun and the point light where they are on).  The
-    plain version of the CUDA kernel behind `shade_bvh_brdf`."""
+    samples, then the sun and the point light where they are on)."""
     dev = h.t.device
     shape = h.t.shape
     params = scene.params

@@ -256,10 +256,10 @@ def test_shade_mirror_gi_raises(frame):
                                     dict(point_light_enabled=0,
                                          sky_enabled=0)])
 def test_bvh_brdf_tail_matches_k5(frame, change):
-    """The plain BRDF tail of direct_light_bvh (K5's plain version) against
-    K5 in interpret mode, both fed the same occlusion bits (from a numpy
-    seed) and unit-disk offsets.  Any surface will do: the analytic
-    frame's hits."""
+    """The plain BRDF tail of direct_light_bvh_plain (K5's part of the
+    fused BVH direct-light kernel) against K5 in interpret mode, both fed
+    the same occlusion bits (from a numpy seed) and unit-disk offsets.
+    Any surface will do: the analytic frame's hits."""
     jparams = jpreset("baseline").replace(**change)
     jscene, scene = _scenes(jparams, frame["cam_pos"])
     h, jh, px, py, vdir = _direct_light_inputs(frame)
@@ -268,10 +268,7 @@ def test_bvh_brdf_tail_matches_k5(frame, change):
     k = 4 + int(bool(jparams.sun_enabled)) + int(
         bool(jparams.point_light_enabled))
     occ = np.random.RandomState(3).rand(k, H, W) < 0.3
-    got = an_cuda.shade_bvh_brdf(scene, h, n, v, offs, _t(occ)).numpy()
-    np.testing.assert_array_equal(
-        got, tlt.shade_bvh_brdf_plain(scene, h, n, v, offs,
-                                      _t(occ)).numpy())
+    got = tlt.shade_bvh_brdf_plain(scene, h, n, v, offs, _t(occ)).numpy()
     jocc = [jnp.asarray(o) for o in occ]
     want = np.asarray(an_pallas.shade_bvh_brdf_pallas(
         jscene, jh, jnp.asarray(n.numpy()), jnp.asarray(v.numpy()),
@@ -396,4 +393,4 @@ def test_an_kernel_wrappers_reject_other_devices(frame):
     with pytest.raises(ValueError, match="CPU or CUDA"):
         an_cuda.direct_light(scene, h, 0, 0, h.p, h.t, h.t)
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        an_cuda.shade_bvh_brdf(scene, h, h.n, h.p, [], h.t)
+        an_cuda.direct_light_bvh(scene, h, 0, 0, h.p, h.t, h.t)

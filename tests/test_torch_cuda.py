@@ -8,12 +8,16 @@ card machine run it without the suite's conftest (which imports JAX):
 
 The kernels are built with --fmad=false and evaluate the plain versions'
 expressions in the same order.  The BVH walks then give equal hit masks
-and occlusion, and t within 1e-6.  The direct-light kernels differ from
-PyTorch only in the library's pow: radiance is held to rtol 1e-4 /
-atol 1e-5 on the lanes whose hit is valid (the value of a miss lane is
-garbage that the callers' select drops; the kernels must still finish on
-it).  The SVGF kernel sums its 49 taps in the plain filter's order with
-the same expf: rtol 1e-5 / atol 1e-5 on every pixel.
+and occlusion, and t within 1e-6.  The direct-light kernels compute
+their disk offsets in the kernel, held bit for bit to
+lighting._disk_offsets through the wrappers' `offsets_out`, and differ
+from PyTorch only in the library's pow: radiance is held to max abs 2e-6
+(K3) and 1e-6 (the BVH direct light) on frames, and to rtol 1e-4 /
+atol 1e-5 everywhere, on the lanes whose radiance the caller keeps (the
+value of a miss or inactive lane is dropped by the callers' select; the
+kernels must still finish on it).  The SVGF kernel sums its 49 taps in
+the plain filter's order with the same expf: rtol 1e-5 / atol 1e-5 on
+every pixel.
 """
 
 import numpy as np
@@ -98,6 +102,11 @@ def test_wrappers_reject_bad_inputs(bvh):
 
 
 TOL = dict(rtol=1e-4, atol=1e-5)
+K3_MAX_ABS = 2e-6        # K3 vs direct_light_plain: the libraries' powf
+BVH_DIRECT_MAX_ABS = 1e-6  # bvh_direct vs direct_light_bvh_plain, live lanes
+WRAP = 2 ** 31 // 1663 + 5  # frame * 1663 wraps int32 here
+FRAMES = [(0, 0), (1, 1), (7, 7), (1023, 1023), (1024, 1024), (WRAP, WRAP)]
+SIZES = [(37, 131), (1080, 1920)]
 
 
 def _analytic(params, height=96, width=128):
@@ -109,6 +118,24 @@ def _analytic(params, height=96, width=128):
     cam.aspect = width / height
     fin = camera_frame_inputs(cam, "cuda")
     scene = SceneCtx.create(params, fin.cam_pos, use_bvh=False)
+    px, py, rd = primary_rays(height, width, fin, params)
+    ro = fin.cam_pos.expand(rd.shape)
+    h = scene.trace(ro, rd)
+    return scene, h, _sanitize_hit(h, ro, rd), px, py, -rd
+
+
+def _bvh_frame(bvh, params, height=96, width=128):
+    """The BVH scene's primary hits with the camera on the bunny (it fills
+    about a third of the frame): scene, raw hit, sanitized hit, px, py,
+    vdir."""
+    from opengl_raytracing_tpu_torch.ops.scene import BVHDevice
+    cam = Camera()
+    cam.aspect = width / height
+    cam.fov = 12.0
+    cam.point_at((-2.0, 1.5, 0.0))
+    fin = camera_frame_inputs(cam, "cuda")
+    scene = SceneCtx.create(params, fin.cam_pos, use_bvh=True,
+                            bvh=BVHDevice(bvh))
     px, py, rd = primary_rays(height, width, fin, params)
     ro = fin.cam_pos.expand(rd.shape)
     h = scene.trace(ro, rd)
@@ -129,22 +156,102 @@ def _random_hits(n, seed):
             v.cuda(), px.cuda(), py.cuda())
 
 
+def _grew(before):
+    return {k: cuda_lib.LAUNCHES[k] - before[k] for k in before}
+
+
+def _want_offsets(rng_frame, frame_index, px, py, shape):
+    return torch.stack([c.expand(shape).reshape(-1) for dxy in
+                        lt._disk_offsets(rng_frame, frame_index, px, py)
+                        for c in dxy])
+
+
+def _an_direct(scene, h, rng_frame, frame_index, vdir, px, py,
+               live=None, max_abs=K3_MAX_ABS):
+    """K3 against direct_light_plain: one launch, the in-kernel disk
+    offsets bit for bit, radiance within `max_abs` on `live` lanes (all
+    by default) and within TOL; returns the kernel's radiance."""
+    offs = torch.full((8, h.t.numel()), float("nan"), device="cuda")
+    before = dict(cuda_lib.LAUNCHES)
+    got = an_cuda.direct_light(scene, h, rng_frame, frame_index, vdir, px,
+                               py, offsets_out=offs)
+    assert _grew(before) == {**{k: 0 for k in before}, "an_direct": 1}
+    torch.cuda.synchronize()
+    assert torch.equal(offs, _want_offsets(rng_frame, frame_index, px, py,
+                                           h.t.shape))
+    want = lt.direct_light_plain(scene, h, rng_frame, frame_index, vdir, px,
+                                 py)
+    live = torch.ones_like(h.t, dtype=torch.bool) if live is None else live
+    torch.testing.assert_close(got[live], want[live], **TOL)
+    if max_abs is not None:
+        err = (got - want)[live].abs()
+        assert float(err.max()) <= max_abs, float(err.max())
+    return got
+
+
+def _bvh_direct(scene, h, rng_frame, frame_index, vdir, px, py, active,
+                live=None):
+    """bvh_direct against direct_light_bvh_plain: one launch, the disk
+    offsets bit for bit, radiance within BVH_DIRECT_MAX_ABS on the live
+    lanes (`live`, else `active`, else all; the others are unspecified);
+    returns the kernel's radiance."""
+    offs = torch.full((8, h.t.numel()), float("nan"), device="cuda")
+    before = dict(cuda_lib.LAUNCHES)
+    got = an_cuda.direct_light_bvh(scene, h, rng_frame, frame_index, vdir,
+                                   px, py, active, offsets_out=offs)
+    assert _grew(before) == {**{k: 0 for k in before}, "bvh_direct": 1}
+    torch.cuda.synchronize()
+    assert torch.equal(offs, _want_offsets(rng_frame, frame_index, px, py,
+                                           h.t.shape))
+    want = lt.direct_light_bvh_plain(scene, h, rng_frame, frame_index, vdir,
+                                     px, py, active)
+    if live is None:
+        live = (torch.ones_like(h.t, dtype=torch.bool) if active is None
+                else active)
+    if bool(live.any()):
+        err = (got - want)[live].abs()
+        assert float(err.max()) <= BVH_DIRECT_MAX_ABS, float(err.max())
+    return got
+
+
 @pytest.mark.parametrize("change", [dict(), dict(sun_enabled=0),
                                     dict(point_light_enabled=0,
                                          sky_enabled=0)])
 def test_an_direct_kernel_matches_plain(change):
     params = preset("baseline").replace(**change)
     scene, _, h, px, py, vdir = _analytic(params)
-    before = cuda_lib.LAUNCHES["an_direct"]
-    got = an_cuda.direct_light(scene, h, 3, 3, vdir, px, py)
-    assert cuda_lib.LAUNCHES["an_direct"] == before + 1
-    want = lt.direct_light_plain(scene, h, 3, 3, vdir, px, py)
-    torch.testing.assert_close(got, want, **TOL)
-    assert want.std() > 0.01
+    got = _an_direct(scene, h, 3, 3, vdir, px, py)
+    assert got.std() > 0.01
+    # anywhere in the scene box, up to the point light's hot spot: the
+    # relative tolerance alone
     hr, v, rpx, rpy = _random_hits(1 << 14, 0)
-    torch.testing.assert_close(
-        an_cuda.direct_light(scene, hr, 7, 7, v, rpx, rpy),
-        lt.direct_light_plain(scene, hr, 7, 7, v, rpx, rpy), **TOL)
+    _an_direct(scene, hr, 7, 7, v, rpx, rpy, max_abs=None)
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("rng_frame,frame_index", FRAMES)
+def test_an_direct_kernel_frames(size, rng_frame, frame_index):
+    """K3 on a whole frame's primary hits at each frame counter, the
+    in-kernel disk offsets bit for bit."""
+    scene, _, h, px, py, vdir = _analytic(preset("baseline"), *size)
+    _an_direct(scene, h, rng_frame, frame_index, vdir, px, py)
+
+
+@pytest.mark.parametrize("change", [
+    dict(mat_glass_enabled=0), dict(mat_mirror_enabled=0),
+    dict(mat_glass_enabled=0, mat_mirror_enabled=0),
+    dict(point_light_enabled=0), dict(sun_enabled=0, sky_enabled=0),
+    dict(mat_albedo_color=(0.3, 0.6, 0.2), mat_mirror_color=(0.9, 0.8, 0.6),
+         mat_glass_color=(0.7, 0.9, 0.8))])
+@pytest.mark.parametrize("size", SIZES)
+def test_an_direct_kernel_materials_and_lights(change, size):
+    """Mirror and glass pixels (and the toggles that shade them as
+    diffuse), each light switched off."""
+    scene, _, h, px, py, vdir = _analytic(
+        preset("baseline").replace(**change), *size)
+    mats = set(h.mat.unique().tolist())
+    assert {0, 1, 2, 3} <= mats
+    _an_direct(scene, h, 5, 5, vdir, px, py)
 
 
 def test_an_direct_kernel_on_unsanitized_secondary_hits():
@@ -154,36 +261,103 @@ def test_an_direct_kernel_on_unsanitized_secondary_hits():
     r = reflect(-normalize(vdir), normalize(h.n))
     h2 = scene.trace(h.p + r * EPS, r)
     assert 0.05 < h2.valid.float().mean() < 0.95
-    got = an_cuda.direct_light(scene, h2, 1, 1, -r, px, py)
-    torch.cuda.synchronize()
-    want = lt.direct_light_plain(scene, h2, 1, 1, -r, px, py)
-    torch.testing.assert_close(got[h2.valid], want[h2.valid], **TOL)
+    _an_direct(scene, h2, 1, 1, -r, px, py, live=h2.valid)
+
+
+def _grid_layout(x, layout):
+    """The [H, W] pixel grid `x` (a broadcast row or column) in another
+    memory layout, with the same values."""
+    if layout == "contiguous":
+        return x.contiguous()
+    if layout == "transposed":  # column-major storage
+        return x.t().contiguous().t()
+    # [2, H, W] from a [H, 2, W] storage: the leading dims do not fold
+    return torch.stack([x, x], 1).permute(1, 0, 2)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "transposed", "unfoldable"])
+def test_direct_light_kernels_pixel_grid_layouts(bvh, layout):
+    """The kernels read the pixel grids in place through their strides
+    (a broadcast grid, as the frame passes it, everywhere else); other
+    layouts give the same offsets and radiance."""
+    params = preset("baseline")
+    for kind in ("analytic", "bvh"):
+        scene, h_raw, h, px, py, vdir = (
+            _analytic(params, 37, 131) if kind == "analytic"
+            else _bvh_frame(bvh, params, 37, 131))
+        gx, gy = _grid_layout(px, layout), _grid_layout(py, layout)
+        if layout == "unfoldable":
+            h, h_raw = (Hit(*(x.expand((2,) + x.shape) for x in hit))
+                        for hit in (h, h_raw))
+            vdir = vdir.expand((2,) + vdir.shape)
+        if kind == "analytic":
+            _an_direct(scene, h, 4, 4, vdir, gx, gy)
+        else:
+            _bvh_direct(scene, h, 4, 4, vdir, gx, gy, h_raw.valid)
 
 
 @pytest.mark.parametrize("change", [dict(), dict(sun_enabled=0),
                                     dict(point_light_enabled=0)])
-def test_bvh_brdf_kernel_matches_plain(change):
+def test_bvh_brdf_kernel_matches_plain(bvh, change):
+    """The BVH direct light (K5 with its shadow walks) against the plain
+    version on the bunny frame's hits, with each light switched off."""
     params = preset("baseline").replace(**change)
-    scene, _, h, px, py, vdir = _analytic(params)
-    n, v = normalize(h.n), normalize(vdir)
-    offs = lt._disk_offsets(2, 2, px, py)
-    k = 4 + int(bool(params.sun_enabled)) + int(
-        bool(params.point_light_enabled))
-    occ = torch.rand((k,) + h.t.shape, device="cuda") < 0.3
-    before = cuda_lib.LAUNCHES["bvh_brdf"]
-    got = an_cuda.shade_bvh_brdf(scene, h, n, v, offs, occ)
-    got_u8 = an_cuda.shade_bvh_brdf(scene, h, n, v, offs,
-                                    occ.to(torch.uint8))
-    assert cuda_lib.LAUNCHES["bvh_brdf"] == before + 2
-    want = lt.shade_bvh_brdf_plain(scene, h, n, v, offs, occ)
-    torch.testing.assert_close(got, want, **TOL)
-    assert torch.equal(got, got_u8)
+    scene, h_raw, h, px, py, vdir = _bvh_frame(bvh, params)
+    hit = h_raw.valid
+    got = _bvh_direct(scene, h, 2, 2, vdir, px, py, hit)
+    want = lt.direct_light_bvh_plain(scene, h, 2, 2, vdir, px, py, hit)
+    torch.testing.assert_close(got[hit], want[hit], **TOL)
+    assert got[hit].std() > 0.01
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("rng_frame,frame_index", FRAMES)
+def test_bvh_direct_kernel_frames(bvh, size, rng_frame, frame_index):
+    scene, h_raw, h, px, py, vdir = _bvh_frame(bvh, preset("baseline"),
+                                               *size)
+    _bvh_direct(scene, h, rng_frame, frame_index, vdir, px, py, h_raw.valid)
+
+
+@pytest.mark.parametrize("mask", ["none", "partial", "none_live"])
+@pytest.mark.parametrize("change", [dict(), dict(sun_enabled=0,
+                                                 point_light_enabled=0)])
+def test_bvh_direct_kernel_active(bvh, mask, change):
+    """`active` None (every lane walks, sky lanes included), a random part
+    of the hit lanes, or no lane at all."""
+    scene, h_raw, h, px, py, vdir = _bvh_frame(
+        bvh, preset("baseline").replace(**change), 1080, 1920)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    active = {"none": None,
+              "partial": h_raw.valid & (torch.rand(h.t.shape, device="cuda",
+                                                   generator=g) < 0.5),
+              "none_live": torch.zeros_like(h_raw.valid)}[mask]
+    _bvh_direct(scene, h, 6, 6, vdir, px, py, active)
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_bvh_direct_kernel_on_unsanitized_bounce_hits(bvh, size):
+    """GI's bounce hits as one_bounce_gi_bvh hands them over: misses keep
+    p = o + wi * 1e30 and are inactive; with `active` None every lane is
+    walked and the kernel still finishes.  Few bounces hit the bunny
+    again (about 0.1% of the frame), so few lanes are live."""
+    from opengl_raytracing_tpu_torch.sampling import (rand,
+                                                      sample_hemisphere_cosine)
+    params = preset("full")
+    scene, h_raw, h, px, py, _ = _bvh_frame(bvh, params, *size)
+    n0 = normalize(h.n)
+    wi = sample_hemisphere_cosine(n0, rand(px + 19.0, py + 19.0, 3),
+                                  rand(py + 41.0, px + 41.0, 3))
+    h1 = scene.trace(h.p + n0 * EPS, wi, active=h_raw.valid)
+    act1 = h_raw.valid & h1.valid
+    assert 0 < int(act1.sum()) < int(h_raw.valid.sum())
+    _bvh_direct(scene, h1, 3, 3, -wi, px, py, act1)
+    _bvh_direct(scene, h1, 3, 3, -wi, px, py, None, live=act1)
 
 
 def test_direct_light_bvh_uses_both_kernels(bvh):
-    """The BVH frame's direct light on the card (the any-hit kernel, then
-    the BRDF kernel on its bytes) against the same call on the CPU (the
-    plain walk and the plain tail), on the hit lanes."""
+    """lighting.direct_light_bvh on the card is one bvh_direct launch and
+    no any-hit launch (the walks are inside it); against the same call on
+    the CPU (the plain walk and the plain tail), on the hit lanes."""
     from opengl_raytracing_tpu_torch.ops.scene import BVHDevice
     from opengl_raytracing_tpu_torch.scene.bvh import BVHArrays
     params = preset("baseline")
@@ -205,29 +379,33 @@ def test_direct_light_bvh_uses_both_kernels(bvh):
                                         0, 0, -rd, px, py,
                                         active=h_raw.valid).cpu(),
                     h_raw.valid.cpu())
-        grew = {k: cuda_lib.LAUNCHES[k] - before[k] for k in before}
-        assert grew["any"] == grew["bvh_brdf"] == (dev == "cuda")
+        grew = _grew(before)
+        assert grew["bvh_direct"] == (dev == "cuda") and grew["any"] == 0
     (got, hit), (want, hit_cpu) = out["cuda"], out["cpu"]
     assert torch.equal(hit, hit_cpu) and 0.2 < hit.float().mean() < 0.9
     torch.testing.assert_close(got[hit], want[hit], **TOL)
 
 
-def test_an_wrappers_reject_bad_inputs():
+def test_an_wrappers_reject_bad_inputs(bvh):
     scene, _, h, px, py, vdir = _analytic(preset("baseline"), 8, 8)
     with pytest.raises(TypeError):
         an_cuda.direct_light(scene, Hit(h.t, h.p.double(), h.n, h.mat), 0,
                              0, vdir, px, py)
     with pytest.raises(ValueError):
         an_cuda.direct_light(scene, h, 0, 0, vdir, px.cpu(), py.cpu())
-    n, v = normalize(h.n), normalize(vdir)
-    offs = lt._disk_offsets(0, 0, px, py)
-    occ = torch.zeros((6,) + h.t.shape, dtype=torch.bool, device="cuda")
-    with pytest.raises(ValueError, match="shape"):
-        an_cuda.shade_bvh_brdf(scene, h, n, v, offs, occ[:5])
     with pytest.raises(TypeError):
-        an_cuda.shade_bvh_brdf(scene, h, n, v, offs, occ.float())
+        an_cuda.direct_light(scene, Hit(h.t, h.p, h.n, h.mat.long()), 0, 0,
+                             vdir, px, py)
+    scene, h_raw, h, px, py, vdir = _bvh_frame(bvh, preset("baseline"), 8, 8)
+    with pytest.raises(ValueError, match="shape"):
+        an_cuda.direct_light_bvh(scene, h, 0, 0, vdir, px, py,
+                                 offsets_out=torch.empty(7, 64,
+                                                         device="cuda"))
+    with pytest.raises(TypeError):
+        an_cuda.direct_light_bvh(scene, h, 0, 0, vdir, px, py,
+                                 active=h_raw.valid.float())
     with pytest.raises(ValueError):
-        an_cuda.shade_bvh_brdf(scene, h, n, v.cpu(), offs, occ)
+        an_cuda.direct_light_bvh(scene, h, 0, 0, vdir.cpu(), px, py)
 
 
 def test_closest_kernel_active_lanes(bvh):
