@@ -13,9 +13,10 @@ phases, each printing its result and seconds on a line of its own:
     glass and mirror spheres, point-light marker) at 800x600 with the
     same preset and the gradient sky (kernel K3);
   * the bench `full` frame: the bunny scene at 1920x1080 with GI, AO,
-    TAA and SVGF on at 1 SPP (K1 on primary and bounce rays, the BVH
-    direct light at both, K2 on the AO rays, and the SVGF kernel K4),
-    and the analytic scene's `full` preset against the CPU (K3 and K4).
+    TAA and SVGF on at 1 SPP (K1 on primary rays and, sampling them
+    itself, on GI's bounce rays; the BVH direct light at both hits; K2's
+    AO call, sampling its own rays; the SVGF kernel K4), and the analytic
+    scene's `full` preset against the CPU (K3 and K4).
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every csrc/*.cu from the sources, one process
@@ -24,14 +25,18 @@ phases, each printing its result and seconds on a line of its own:
      closest-hit kernel and the BVH direct light on a baseline frame's,
      the analytic direct-light kernel on every call of an an_baseline
      frame, and on the third frame of a 1080p `full` chain the SVGF
-     kernel, the any-hit kernel's AO call, and the bounce-ray calls of
-     the closest-hit kernel and of the BVH direct light (unsanitized
-     hits, sky lanes inactive) -- held against its plain PyTorch version
-     on the card.  BVH walks: at most 1e-5 of lanes may differ in
-     `valid`/occlusion, t within 1e-5 relative on hit lanes.  Direct
-     light: the in-kernel disk offsets equal lighting._disk_offsets bit
-     for bit; radiance within max abs 2e-6 (K3, valid lanes) and 1e-6
-     (BVH, live lanes).  SVGF: rtol 1e-5 / atol 1e-5 on every pixel.
+     kernel, the AO kernel (K2's AO call), the closest-hit kernel's GI
+     bounce call and the BVH direct light at the bounce hits
+     (unsanitized hits, sky lanes inactive) -- held against its plain
+     PyTorch version on the card.  Closest hits: at most 1e-5 of lanes
+     may differ in `valid`; on lanes both hit, t and the point within
+     1e-5 relative to t, the unit normal within 1e-6; the bounce call's
+     direction and cosine bit for bit on live lanes.  AO:
+     equal on live lanes but for at most 1e-3 of them, each off by one
+     sample step.  Direct light: the in-kernel disk offsets equal
+     lighting._disk_offsets bit for bit; radiance within max abs 2e-6
+     (K3, valid lanes) and 1e-6 (BVH, live lanes).  SVGF: rtol 1e-5 /
+     atol 1e-5 on every pixel.  A NaN fails every check.
      Wrapper and plain times from CUDA events, the kernel alone and the
      launches of one direct-light call from the profiler; each kernel's
      bound (`bound_ms`) from the bytes and operations of these inputs;
@@ -50,8 +55,8 @@ phases, each printing its result and seconds on a line of its own:
      the same three for the an_baseline frame; its last frame goes to
      out/verify_torch_analytic.png;
   10. frames_full: 32 chained `full` frames at 1080p (they cross TAA's
-     weight steps at frames 8 and 32); closest, any, bvh_direct and svgf
-     must each grow by at least 32; the last frame goes to
+     weight steps at frames 8 and 32); closest, bounce, ao, bvh_direct
+     and svgf must each grow by at least 32; the last frame goes to
      out/verify_torch_full.png;
   11. reference_full: a 3-frame `full` chain at 270x480 on the card
      against the CPU, so that TAA's history is compared too; the gate of
@@ -60,7 +65,8 @@ phases, each printing its result and seconds on a line of its own:
      map, a 3-frame chain at 150x200, card against CPU (analytic GI and
      AO, mirror GI, TAA, K3 and K4 together); the gate of step 5;
   13. profile_full: the third frame of a `full` chain at 1080p by stage
-     (primary trace, direct light, GI, AO, TAA, SVGF, present).
+     (primary trace, direct light, GI with its bounce trace, AO, TAA,
+     SVGF, present).
 
 Any failure raises, so the script exits non-zero.  It needs one CUDA
 card and exits non-zero, printing no result, without one.  Before the
@@ -87,8 +93,10 @@ AN_REF_HEIGHT, AN_REF_WIDTH = 300, 400
 AN_FULL_REF_HEIGHT, AN_FULL_REF_WIDTH = 150, 200
 REF_FRAMES = 3         # the `full` references chain frames: TAA history
 PROFILE_FRAME = 3      # the `full` profile times frame 3 (TAA resolves)
-MISMATCH_FRAC = 1e-5   # lanes allowed to differ in valid/occlusion
-T_RTOL = 1e-5          # t on lanes both kernels hit
+MISMATCH_FRAC = 1e-5   # lanes allowed to differ in valid
+AO_FLIP_FRAC = 1e-3    # live AO lanes that may differ, by one sample step
+T_RTOL = 1e-5          # t, and p relative to t, on lanes both kernels hit
+N_ATOL = 1e-6          # the unit normal on lanes both kernels hit
 RAD_RTOL, RAD_ATOL = 1e-4, 1e-5  # direct-light radiance on valid lanes
 K3_MAX_ABS = 2e-6      # K3 vs the plain version: the libraries' powf
 BVH_DIRECT_MAX_ABS = 1e-6  # the BVH direct light, on live lanes
@@ -100,10 +108,14 @@ KERNELS = {  # wrapper key -> record of the JSON line
                     source="opengl_raytracing_tpu_torch/csrc/bvh_trace.cu",
                     replaces="opengl_raytracing_tpu/ops/bvh_mxu.py:684",
                     kernel="trace_closest_kernel"),
-    "any": dict(name="trace_any",
-                source="opengl_raytracing_tpu_torch/csrc/bvh_trace.cu",
-                replaces="opengl_raytracing_tpu/ops/bvh_mxu.py:1021",
-                kernel="trace_any_kernel"),
+    "bounce": dict(name="trace_bounce",
+                   source="opengl_raytracing_tpu_torch/csrc/bvh_trace.cu",
+                   replaces="opengl_raytracing_tpu/ops/bvh_mxu.py:684",
+                   kernel="trace_bounce_kernel"),
+    "ao": dict(name="ambient_occlusion",
+               source="opengl_raytracing_tpu_torch/csrc/bvh_trace.cu",
+               replaces="opengl_raytracing_tpu/ops/bvh_mxu.py:1021",
+               kernel="ambient_occlusion_kernel"),
     "an_direct": dict(name="an_direct_light",
                       source="opengl_raytracing_tpu_torch/csrc/an_direct.cu",
                       replaces="opengl_raytracing_tpu/ops/an_pallas.py:162",
@@ -119,7 +131,7 @@ KERNELS = {  # wrapper key -> record of the JSON line
 }
 BVH_PATH = ("closest", "bvh_direct")
 AN_PATH = ("an_direct",)
-FULL_PATH = ("closest", "any", "bvh_direct", "svgf")
+FULL_PATH = ("closest", "bounce", "ao", "bvh_direct", "svgf")
 
 # The least time the card could take for a kernel's work: the larger of
 # its bytes (each input read once, each output written once) over the
@@ -148,6 +160,15 @@ OPS = dict(
     env=60,             # a mirror/glass pixel: normalize, reflect, sky
     svgf_pixel=40,      # the centre pixel's weights
     svgf_tap=41,        # one in-bounds tap
+    rand=23,            # one sampling.rand draw: adds, max, conversions,
+                        # key xors, hash2 (4 LCGs, 2 shifts, 3 xors), / 2^32
+    onb=34,             # build_onb: the up select, cross, normalize, cross
+    hemisphere=46,      # sample_hemisphere_cosine but its ONB: phi, sqrt,
+                        # cos, sin, normalize(n), the sum, normalize
+    origin=6,           # p + n * offset
+    cos=6,              # max(dot(n0, wi), 0)
+    ao_remap=7,         # occ / S, the remap and the clamp
+    hit_out=17,         # p = o + d*t and the unit normal
 )
 
 
@@ -276,7 +297,8 @@ def record_kernel_inputs(bvh, height, width, device, keys,
     the wrappers `keys` (the wrappers still launch)."""
     from opengl_raytracing_tpu_torch.ops import an_cuda, bvh_cuda, svgf_cuda
     where = {"closest": (bvh_cuda, "trace_closest"),
-             "any": (bvh_cuda, "trace_any"),
+             "bounce": (bvh_cuda, "trace_bounce"),
+             "ao": (bvh_cuda, "ambient_occlusion"),
              "an_direct": (an_cuda, "direct_light"),
              "bvh_direct": (an_cuda, "direct_light_bvh"),
              "svgf": (svgf_cuda, "svgf_filter")}
@@ -408,6 +430,24 @@ def check_bvh_direct(args, timer):
                 plain_ms=timer(lambda: lt.direct_light_bvh_plain(**args), 3))
 
 
+def _hit_errs(h, hp):
+    """(t max abs, t max rel, p max abs over t, n max abs) of a kernel's
+    hit against the plain walk's, on the lanes both hit; NaN where a
+    value is NaN, so a `not err <= tol` check fails on it."""
+    import torch
+    both = h.valid & hp.valid
+    if not bool(both.any()):
+        return 0.0, 0.0, 0.0, 0.0
+    t, tp = h.t[both], hp.t[both]
+    dp = (h.p[both] - hp.p[both]).abs().amax(-1)
+    dn = (h.n[both] - hp.n[both]).abs()
+    nan = float("nan")
+    def worst(x):  # the largest value, or NaN if there is one
+        return nan if bool(torch.isnan(x).any()) else float(x.max())
+    return (worst((t - tp).abs()), worst((t - tp).abs() / tp),
+            worst(dp / tp), worst(dn))
+
+
 def check_kernels(bvh, height=HEIGHT, width=WIDTH, device="cuda",
                   timer=None):
     """The closest-hit kernel and the BVH direct light against their
@@ -424,24 +464,24 @@ def check_kernels(bvh, height=HEIGHT, width=WIDTH, device="cuda",
     h = bvh_cuda.trace_closest(arrays, ro, rd, eps)
     counts = dict(nodes=0, tris=0)
     hp = plain.trace_bvh(arrays, ro, rd, eps, counts=counts)
-    both = h.valid & hp.valid
     mismatch = int((h.valid != hp.valid).sum())
-    err = float((h.t[both] - hp.t[both]).abs().max())
-    rel = float(((h.t[both] - hp.t[both]).abs() / hp.t[both]).max())
-    n_err = float((h.n[both] - hp.n[both]).abs().max())
-    if mismatch > MISMATCH_FRAC * n_rays or rel > T_RTOL:
+    err, rel, p_rel, n_err = _hit_errs(h, hp)
+    if mismatch > MISMATCH_FRAC * n_rays or not rel <= T_RTOL \
+            or not p_rel <= T_RTOL or not n_err <= N_ATOL:
         raise AssertionError(f"trace_closest disagrees with the plain walk: "
-                             f"{mismatch} valid mismatches, t rel {rel}")
+                             f"{mismatch} valid mismatches, t rel {rel}, p "
+                             f"rel {p_rel}, n max abs {n_err}")
 
     def closest():
         bvh_cuda.trace_closest(arrays, ro, rd, eps)
     records["closest"] = dict(
-        rays=n_rays, max_abs_err=err, n_max_abs_err=n_err,
-        mismatch_lanes=mismatch, hit_frac=float(hp.valid.float().mean()),
+        rays=n_rays, max_abs_err=err, t_max_rel_err=rel,
+        p_max_rel_err=p_rel, n_max_abs_err=n_err, mismatch_lanes=mismatch,
+        hit_frac=float(hp.valid.float().mean()),
         walk_nodes=counts["nodes"], walk_tris=counts["tris"],
-        # rows in, t and the unnormalised normal out
-        **bound(unique_bytes(ro, rd) + bvh_bytes(arrays) + 16 * n_rays,
-                walk_ops(counts)),
+        # rows in (a broadcast origin once), t, p and n out
+        **bound(unique_bytes(ro, rd) + bvh_bytes(arrays) + 28 * n_rays,
+                walk_ops(counts) + n_rays * OPS["hit_out"]),
         ms=timer(closest, 20),
         kernel_ms=kernel_ms(closest, KERNELS["closest"]["kernel"]),
         plain_ms=timer(lambda: plain.trace_bvh(arrays, ro, rd, eps), 2))
@@ -506,13 +546,11 @@ def check_an_kernel(height=AN_HEIGHT, width=AN_WIDTH, device="cuda",
 def check_full_kernels(bvh, height=HEIGHT, width=WIDTH, device="cuda",
                        timer=None):
     """On the inputs of the third frame of a 1080p `full` chain: the SVGF
-    kernel against the plain filter, the any-hit kernel's AO call, and the
-    bounce-ray calls (incoherent rays, sky lanes inactive) of the
-    closest-hit kernel and of the BVH direct light against the plain
-    versions."""
+    kernel against the plain filter, the AO kernel, and the bounce calls
+    (incoherent rays, sky lanes inactive) of the closest-hit kernel and of
+    the BVH direct light against the plain versions."""
     import torch
-    from opengl_raytracing_tpu_torch.ops import bvh_cuda, svgf_cuda
-    from opengl_raytracing_tpu_torch.ops import bvh_traverse as plain
+    from opengl_raytracing_tpu_torch.ops import svgf_cuda
     from opengl_raytracing_tpu_torch.ops.svgf import svgf_filter
     timer = timer or cuda_ms
     calls = record_kernel_inputs(bvh, height, width, device, FULL_PATH,
@@ -538,62 +576,131 @@ def check_full_kernels(bvh, height=HEIGHT, width=WIDTH, device="cuda",
                             KERNELS["svgf"]["kernel"]),
         plain_ms=timer(lambda: svgf_filter(**args), 3))
 
-    # the AO call: the frame's only any-hit call
-    c = calls["any"][0]
-    arrays, ro, rd, t_max, eps, active = (c["bvh"], c["ro"], c["rd"],
-                                          c["t_max"], c["eps"], c["active"])
-    occ = bvh_cuda.trace_any(arrays, ro, rd, t_max, eps, active)
-    o, d, tm = (torch.cat([x.reshape(-1, 3) for x in ro]),
-                torch.cat([x.reshape(-1, 3) for x in rd]),
-                torch.cat([x.reshape(-1) for x in t_max]))
-    counts = dict(nodes=0, tris=0)
-
-    def plain_any(counts=None):
-        occ_p = plain.trace_bvh_shadow(arrays, o, d, tm, eps, counts)
-        occ_p = occ_p.reshape(occ.shape)
-        return occ_p if active is None else occ_p & active
-    occ_p = plain_any(counts)
-    n_rays = tm.numel()
-    mismatch = int((occ != occ_p).sum())
-    if mismatch > MISMATCH_FRAC * n_rays:
-        raise AssertionError(f"trace_any disagrees with the plain walk on "
-                             f"{mismatch} of {n_rays} lanes")
-
-    def any_hit():
-        bvh_cuda.trace_any(arrays, ro, rd, t_max, eps, active)
-    records["any"] = dict(
-        rays=n_rays, batches=len(ro), max_abs_err=float(mismatch > 0),
-        mismatch_lanes=mismatch, traced_frac=float((tm > 0).float().mean()),
-        occluded_frac=float(occ_p.float().mean()),
-        walk_nodes=counts["nodes"], walk_tris=counts["tris"],
-        # the shared origin and window once, the four directions, a byte
-        # out per ray
-        **bound(unique_bytes(*ro, *rd, *t_max, active) + bvh_bytes(arrays)
-                + n_rays, walk_ops(counts)),
-        ms=timer(any_hit, 20),
-        kernel_ms=kernel_ms(any_hit, KERNELS["any"]["kernel"]),
-        plain_ms=timer(plain_any, 2))
-
-    # the bounce calls are the ones with an `active` mask on unsanitized
-    # hits: the second closest-hit and the second direct-light call
-    c = [c for c in calls["closest"] if c["active"] is not None][0]
-    h = bvh_cuda.trace_closest(**c)
-    hp = plain.trace_bvh(c["bvh"], c["ro"], c["rd"], c["eps"], c["active"])
-    both = h.valid & hp.valid
-    mismatch = int((h.valid != hp.valid).sum())
-    rel = float(((h.t[both] - hp.t[both]).abs() / hp.t[both]).max()) \
-        if bool(both.any()) else 0.0
-    if mismatch > MISMATCH_FRAC * h.t.numel() or rel > T_RTOL:
-        raise AssertionError(f"trace_closest (bounce rays) disagrees with the "
-                             f"plain walk: {mismatch} valid mismatches, t rel "
-                             f"{rel}")
-    records["closest_bounce"] = dict(
-        rays=h.t.numel(), active_frac=float(c["active"].float().mean()),
-        hit_frac=float(hp.valid.float().mean()), mismatch_lanes=mismatch,
-        t_max_rel_err=rel, ms=timer(lambda: bvh_cuda.trace_closest(**c), 20))
+    records["ao"] = check_ao(calls["ao"][0], timer)
+    records["bounce"] = check_bounce(calls["bounce"][0], timer)
     records["bvh_direct_bounce"] = check_bvh_direct(calls["bvh_direct"][1],
                                                     timer)
     return records
+
+
+def _live(h, active):
+    import torch
+    return torch.ones_like(h.t, dtype=torch.bool) if active is None \
+        else active.expand(h.t.shape)
+
+
+def check_ao(args, timer):
+    """The AO kernel against ambient_occlusion_plain on one call's
+    arguments: equal on live lanes but for at most AO_FLIP_FRAC of them,
+    each off by exactly one sample step; the bound from the live lanes'
+    walks; times."""
+    import torch
+    from opengl_raytracing_tpu_torch.ops import bvh_cuda
+    from opengl_raytracing_tpu_torch.ops import lighting as lt
+    from opengl_raytracing_tpu_torch.ops.bvh_traverse import trace_bvh_shadow
+    h, params, arrays = args["h"], args["params"], args["bvh"]
+    got = bvh_cuda.ambient_occlusion(**args)
+    want = lt.ambient_occlusion_plain(**args)
+    live = _live(h, args["active"])
+    n_live, S = int(live.sum()), int(params.ao_samples)
+    g, w = got[live], want[live]
+    off = ~(g == w)  # a NaN counts as off
+    step = bvh_cuda.ao_args(params, 0).ao_span / S
+    steps_ok = bool((((g - w)[off].abs() - step).abs() <= 1e-6).all())
+    flips = int(off.sum())
+    if flips > AO_FLIP_FRAC * max(n_live, 1) or not steps_ok:
+        raise AssertionError(f"ambient_occlusion disagrees with "
+                             f"ambient_occlusion_plain on {flips} of {n_live} "
+                             f"live lanes")
+    # the bound: what the function needs, the mask, the tree, the grids,
+    # the live lanes' p and n rows read and their AO written; the live
+    # lanes' sampling, remap and walks
+    org, dirs = lt._ao_rays(h, args["frame_index"], args["px"], args["py"],
+                            params)
+    sel = live.reshape(-1)
+    shape = h.t.shape
+    counts = dict(nodes=0, tris=0)
+    trace_bvh_shadow(
+        arrays, torch.cat([org.expand(shape + (3,)).reshape(-1, 3)[sel]] * S),
+        torch.cat([d.reshape(-1, 3)[sel] for d in dirs]),
+        torch.full((S * n_live,), bvh_cuda.ao_args(params, 0).radius,
+                   device=h.t.device), counts=counts)
+    per_pixel = OPS["normalize"] + OPS["origin"] + OPS["ao_remap"]
+    per_sample = 2 * OPS["rand"] + OPS["onb"] + OPS["hemisphere"]
+
+    def call():
+        bvh_cuda.ambient_occlusion(**args)
+    return dict(pixels=h.t.numel(), live_lanes=n_live, samples=S,
+                max_abs_err=float((g - w).abs().max()) if n_live else 0.0,
+                flipped_lanes=flips, walk_nodes=counts["nodes"],
+                walk_tris=counts["tris"],
+                occluded_frac=float((w < 1.0).float().mean())
+                if n_live else 0.0,
+                **bound(unique_bytes(args["active"], args["px"], args["py"])
+                        + bvh_bytes(arrays) + (24 + 4) * n_live,
+                        n_live * (per_pixel + S * per_sample)
+                        + walk_ops(counts)),
+                ms=timer(call, 20),
+                kernel_ms=kernel_ms(call, KERNELS["ao"]["kernel"]),
+                launches_per_call=launches_per_call(call),
+                plain_ms=timer(lambda: lt.ambient_occlusion_plain(**args),
+                               2))
+
+
+def check_bounce(args, timer):
+    """K1's GI bounce call against gi_bounce_plain on one call's
+    arguments: the direction and its cosine bit for bit on live lanes,
+    `valid` on every lane, t, p and n on the lanes both hit; the bound
+    from the live lanes' walks; times."""
+    import torch
+    from opengl_raytracing_tpu_torch.ops import bvh_cuda
+    from opengl_raytracing_tpu_torch.ops import lighting as lt
+    from opengl_raytracing_tpu_torch.ops.bvh_traverse import trace_bvh
+    h0, arrays = args["h0"], args["bvh"]
+    h1, wi, cos = bvh_cuda.trace_bounce(**args)
+    hp, wip, cosp = lt.gi_bounce_plain(**args)
+    live = _live(h0, args["active"])
+    n_rays, n_live = h0.t.numel(), int(live.sum())
+    same_ray = (torch.equal(wi[live], wip[live])
+                and torch.equal(cos[live], cosp[live]))
+    mismatch = int((h1.valid != hp.valid).sum())
+    err, rel, p_rel, n_err = _hit_errs(h1, hp)
+    if not same_ray or mismatch > MISMATCH_FRAC * n_rays \
+            or not rel <= T_RTOL or not p_rel <= T_RTOL \
+            or not n_err <= N_ATOL:
+        raise AssertionError(f"trace_bounce disagrees with gi_bounce_plain: "
+                             f"rays equal {same_ray}, {mismatch} valid "
+                             f"mismatches, t rel {rel}, p rel {p_rel}, n max "
+                             f"abs {n_err}")
+    origin, wi_p, _ = lt._bounce_ray(h0, args["rng_frame"], args["seed"],
+                                     args["px"], args["py"])
+    sel = live.reshape(-1)
+    counts = dict(nodes=0, tris=0)
+    trace_bvh(arrays, origin.reshape(-1, 3)[sel], wi_p.reshape(-1, 3)[sel],
+              counts=counts)
+    per_live = (2 * OPS["rand"] + OPS["normalize"] + OPS["onb"]
+                + OPS["hemisphere"] + OPS["cos"] + OPS["origin"]
+                + OPS["hit_out"])
+
+    def call():
+        bvh_cuda.trace_bounce(**args)
+    # bytes: the mask, the tree, the grids, the live lanes' p and n rows
+    # read; t, p, n, wi and cos written for a live lane (44 B), t, wi and
+    # cos for a dead one (20 B: a miss, NaN-free for the tail; its p and n
+    # are unspecified)
+    return dict(rays=n_rays, live_lanes=n_live,
+                hit_frac=float(hp.valid.float().mean()),
+                mismatch_lanes=mismatch, t_max_rel_err=rel,
+                max_abs_err=err, p_max_rel_err=p_rel, n_max_abs_err=n_err,
+                walk_nodes=counts["nodes"], walk_tris=counts["tris"],
+                **bound(unique_bytes(args["active"], args["px"], args["py"])
+                        + bvh_bytes(arrays) + (24 + 44) * n_live
+                        + 20 * (n_rays - n_live),
+                        n_live * per_live + walk_ops(counts)),
+                ms=timer(call, 20),
+                kernel_ms=kernel_ms(call, KERNELS["bounce"]["kernel"]),
+                launches_per_call=launches_per_call(call),
+                plain_ms=timer(lambda: lt.gi_bounce_plain(**args), 2))
 
 
 def run_frames(bvh, height, width, keys, png, smi, preset_name="baseline"):
@@ -783,7 +890,8 @@ AN_STAGES = (
 FULL_STAGES = (
     ("render_frame", "models.pipeline", "render_frame"),
     ("trace_and_shade", "models.pipeline", "trace_and_shade"),
-    ("trace_closest#", "ops.bvh_cuda", "trace_closest"),  # 0 primary, 1 GI
+    ("trace_closest", "ops.bvh_cuda", "trace_closest"),  # the primary call
+    ("trace_bounce", "ops.bvh_cuda", "trace_bounce"),  # inside GI
     ("direct_light#", "ops.lighting", "direct_light_bvh"),  # 1 inside GI
     ("gi", "ops.lighting", "one_bounce_gi_bvh"),
     ("ao", "ops.lighting", "compute_ao"),

@@ -27,8 +27,8 @@
 // reflection for mirror and glass pixels before any shadow work.
 // bvh_direct_kernel builds the four segment queries, the sun and the
 // point query with their ndl gates (lighting._bvh_shadow_queries) and
-// walks each open window with the any-hit walk of bvh_walk.cuh, the one
-// trace_any_kernel runs; a lane that `active` marks off (the caller's
+// walks each open window with the any-hit walk of bvh_walk.cuh (node
+// rows from device memory); a lane that `active` marks off (the caller's
 // sky select drops it) does no work and writes nothing.
 //
 // The arithmetic is the plain PyTorch version's (ops/lighting.py,
@@ -64,6 +64,7 @@
 #include <stdint.h>
 
 #include "bvh_walk.cuh"
+#include "sampling.cuh"
 
 namespace {
 
@@ -113,58 +114,11 @@ struct AnScene {
   int sun_e, sky_e, point_e;
 };
 
-// The pixel-centre grids of a call, read in place: lane i is (r, c) =
-// (i / cols, i % cols) of the call's [rows, cols] view, and its px is
-// px[r * px_sr + c * px_sc] (a broadcast grid has a zero stride).
-struct PixelGrid {
-  const float* px;
-  const float* py;
-  int64_t cols, px_sr, px_sc, py_sr, py_sc;
-};
-
 namespace {
 
 __device__ __forceinline__ V3 c3(const float* a) { return {a[0], a[1], a[2]}; }
 
-__device__ __forceinline__ V3 row3(const float* __restrict__ p, int64_t i) {
-  return {__ldg(p + 3 * i), __ldg(p + 3 * i + 1), __ldg(p + 3 * i + 2)};
-}
-
-__device__ __forceinline__ void pixel_centre(const PixelGrid& g, int64_t i,
-                                             float* px, float* py) {
-  // a 32-bit division where both fit (a 64-bit one is a long subroutine)
-  const int64_t r = ((i | g.cols) >> 32)
-                        ? i / g.cols
-                        : (int64_t)((uint32_t)i / (uint32_t)g.cols);
-  const int64_t c = i - r * g.cols;
-  *px = __ldg(g.px + r * g.px_sr + c * g.px_sc);
-  *py = __ldg(g.py + r * g.py_sr + c * g.py_sc);
-}
-
-// ---- the disk offsets (lighting._disk_offsets) in native uint32 ----
-
-__device__ __forceinline__ uint32_t lcg(uint32_t v) {
-  return v * 1664525u + 1013904223u;
-}
-
-// sampling.hash2
-__device__ __forceinline__ uint32_t hash2(uint32_t vx, uint32_t vy) {
-  vx = lcg(vx);
-  vy = lcg(vy);
-  vx = vx ^ (vy >> 16);
-  vy = vy ^ (vx << 5);
-  return lcg(vx) ^ lcg(vy);
-}
-
-// sampling.rand with the frame's xor keys: the coordinates truncate after
-// max(x, 0); a hash of 2^32 - 128 or more rounds to 2^32, so the result
-// can be exactly 1.0, as in PyTorch.
-__device__ __forceinline__ float rand01(float x, float y, uint32_t kx,
-                                        uint32_t ky) {
-  const uint32_t ux = (uint32_t)fmaxf(x, 0.0f) ^ kx;
-  const uint32_t uy = (uint32_t)fmaxf(y, 0.0f) ^ ky;
-  return __uint2float_rn(hash2(ux, uy)) / 4294967296.0f;
-}
+// ---- the disk offsets (lighting._disk_offsets), on sampling.cuh's hash ----
 
 // torch.remainder(x, 1.0): fmod, then the sign fix for a negative rest
 __device__ __forceinline__ float rem1(float x) {

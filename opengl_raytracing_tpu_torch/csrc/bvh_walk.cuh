@@ -1,8 +1,9 @@
 // Shared device code of the hand-written kernels: float3 arithmetic and
 // the skip-link BVH walk's pieces (slab test, triangle fetch,
-// Moller-Trumbore, the any-hit loop).  Included by bvh_trace.cu (K1, K2)
-// and an_direct.cu (the fused BVH direct light), so that every any-hit
-// walk in the port is one piece of code and rounds the same way.
+// Moller-Trumbore, the any-hit and closest-hit walks).  Included by
+// bvh_trace.cu (K1, the AO kernel) and an_direct.cu (the fused BVH direct
+// light), so that every walk in the port is one piece of code and rounds
+// the same way.
 //
 // The arithmetic is the plain PyTorch version's (ops/vecmath.py,
 // ops/intersect.py, ops/bvh_traverse.py) expression for expression: dot
@@ -29,6 +30,15 @@ struct V3 {
 
 __device__ __forceinline__ V3 load3(const float* p) {
   return {p[0], p[1], p[2]};
+}
+
+// three read-only floats, and row i of a read-only [N, 3] array
+__device__ __forceinline__ V3 ldg3(const float* __restrict__ p) {
+  return {__ldg(p), __ldg(p + 1), __ldg(p + 2)};
+}
+
+__device__ __forceinline__ V3 row3(const float* __restrict__ p, int64_t i) {
+  return ldg3(p + 3 * i);
 }
 
 __device__ __forceinline__ V3 add3(V3 a, V3 b) {
@@ -113,7 +123,8 @@ __device__ __forceinline__ bool hit_tri(const Tri& tr, V3 o, V3 d,
 
 // Any occluder with t in [eps, tm] along o + t*d (bvh_traverse.
 // trace_bvh_shadow for one ray); the first one ends the walk.  The caller
-// skips windows <= 0 (and NaN), which can hold no t >= eps.
+// skips windows <= 0 (and NaN), which can hold no t >= eps.  One node a
+// step, its leaf tested in the step (the BVH direct light's walks).
 __device__ __forceinline__ bool any_hit(const float4* __restrict__ bounds,
                                         const int4* __restrict__ meta,
                                         const float4* __restrict__ tris,
@@ -134,4 +145,87 @@ __device__ __forceinline__ bool any_hit(const float4* __restrict__ bounds,
     cur = (bhit && m.z == 0) ? cur + 1 : m.x;
   }
   return false;
+}
+
+// The any-hit and closest-hit walks in the "while-while" form (Aila and
+// Laine, Understanding the efficiency of ray traversal on GPUs, 2009): a
+// lane steps through inner nodes and missed boxes until it stands at a
+// leaf whose box it hits, and only then tests the leaf's triangles.  Each
+// lane makes the same tests in the same order as in the form above, so
+// the results are the same bits; but a warp's lanes now reach the leaf
+// loop together, instead of running it once for every step in which any
+// one lane stands at a leaf.  The walk kernels of bvh_trace.cu use this
+// form.
+
+// any_hit in the while-while form.  The inner loop is written out with
+// its own exit, after which the warp's lanes meet at the leaf loop (the
+// same walk through a helper that returned from inside the inner loop
+// ran no faster than the form above on the card).
+__device__ __forceinline__ bool any_hit_ww(const float4* __restrict__ bounds,
+                                           const int4* __restrict__ meta,
+                                           const float4* __restrict__ tris,
+                                           int n_nodes, V3 o, V3 d, float tm,
+                                           float eps) {
+  const V3 inv = {safe_inv(d.x), safe_inv(d.y), safe_inv(d.z)};
+  int cur = 0;
+  while (cur < n_nodes) {
+    int4 m;  // skip, first, count, pad
+    bool leaf = false;
+    while (cur < n_nodes) {  // to the next leaf whose box is hit
+      m = __ldg(&meta[cur]);
+      const bool bhit = hit_box(bounds, cur, o, inv, tm);
+      if (bhit && m.z > 0) {
+        leaf = true;
+        break;
+      }
+      cur = bhit ? cur + 1 : m.x;
+    }
+    if (!leaf) break;
+    const int cnt = m.z < kLeafMax ? m.z : kLeafMax;
+    for (int j = 0; j < cnt; ++j) {
+      float t;
+      if (hit_tri(load_tri(tris, m.y + j), o, d, tm, eps, &t)) return true;
+    }
+    cur = m.x;
+  }
+  return false;
+}
+
+// The closest hit along o + t*d (bvh_traverse.trace_bvh for one ray), in
+// the while-while form: t (kInf on a miss) and the winning triangle's
+// cross(e1, e2), zero on a miss; a later triangle wins an exact tie.
+__device__ __forceinline__ float closest_hit_ww(
+    const float4* __restrict__ bounds, const int4* __restrict__ meta,
+    const float4* __restrict__ tris, int n_nodes, V3 o, V3 d, float eps,
+    V3* n_out) {
+  const V3 inv = {safe_inv(d.x), safe_inv(d.y), safe_inv(d.z)};
+  float t_best = kInf;
+  V3 n_best = {0.0f, 0.0f, 0.0f};
+  int cur = 0;
+  while (cur < n_nodes) {
+    int4 m;  // skip, first, count, pad
+    bool leaf = false;
+    while (cur < n_nodes) {  // to the next leaf whose box is hit
+      m = __ldg(&meta[cur]);
+      const bool bhit = hit_box(bounds, cur, o, inv, t_best);
+      if (bhit && m.z > 0) {
+        leaf = true;
+        break;
+      }
+      cur = bhit ? cur + 1 : m.x;
+    }
+    if (!leaf) break;
+    const int cnt = m.z < kLeafMax ? m.z : kLeafMax;
+    for (int j = 0; j < cnt; ++j) {
+      const Tri tr = load_tri(tris, m.y + j);
+      float t;
+      if (hit_tri(tr, o, d, t_best, eps, &t)) {
+        t_best = t;
+        n_best = cross3(tr.e1, tr.e2);
+      }
+    }
+    cur = m.x;
+  }
+  *n_out = n_best;
+  return t_best;
 }

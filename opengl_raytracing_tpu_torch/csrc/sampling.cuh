@@ -1,0 +1,84 @@
+// The port's one device RNG and its samplers: the uint32 hash of
+// sampling.rand, the pixel-centre grids read in place, and the cosine
+// hemisphere sample with its orthonormal basis.  Included by an_direct.cu
+// (the disk-light offsets of K3 and the BVH direct light) and
+// bvh_trace.cu (the AO rays and the GI bounce ray).
+//
+// The arithmetic is sampling.py's expression for expression, so a kernel
+// draws the plain version's bits: the hash in native uint32; the
+// coordinates truncated after max(x, 0); phi = float32(2 * PI) * ux, the
+// Python scalar rounded to float32 on the host as PyTorch rounds it;
+// IEEE sqrtf, cosf, sinf and division (build with --fmad=false and
+// without --use_fast_math); d = (x*t + z*b) + y*nn, then normalize.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "bvh_walk.cuh"
+
+// The pixel-centre grids of a call, read in place: lane i is (r, c) =
+// (i / cols, i % cols) of the call's [rows, cols] view, and its px is
+// px[r * px_sr + c * px_sc] (a broadcast grid has a zero stride).
+struct PixelGrid {
+  const float* px;
+  const float* py;
+  int64_t cols, px_sr, px_sc, py_sr, py_sc;
+};
+
+__device__ __forceinline__ void pixel_centre(const PixelGrid& g, int64_t i,
+                                             float* px, float* py) {
+  // a 32-bit division where both fit (a 64-bit one is a long subroutine)
+  const int64_t r = ((i | g.cols) >> 32)
+                        ? i / g.cols
+                        : (int64_t)((uint32_t)i / (uint32_t)g.cols);
+  const int64_t c = i - r * g.cols;
+  *px = __ldg(g.px + r * g.px_sr + c * g.px_sc);
+  *py = __ldg(g.py + r * g.py_sr + c * g.py_sc);
+}
+
+__device__ __forceinline__ uint32_t lcg(uint32_t v) {
+  return v * 1664525u + 1013904223u;
+}
+
+// sampling.hash2
+__device__ __forceinline__ uint32_t hash2(uint32_t vx, uint32_t vy) {
+  vx = lcg(vx);
+  vy = lcg(vy);
+  vx = vx ^ (vy >> 16);
+  vy = vy ^ (vx << 5);
+  return lcg(vx) ^ lcg(vy);
+}
+
+// sampling.rand with the frame's xor keys: the coordinates truncate after
+// max(x, 0); a hash of 2^32 - 128 or more rounds to 2^32, so the result
+// can be exactly 1.0, as in PyTorch.
+__device__ __forceinline__ float rand01(float x, float y, uint32_t kx,
+                                        uint32_t ky) {
+  const uint32_t ux = (uint32_t)fmaxf(x, 0.0f) ^ kx;
+  const uint32_t uy = (uint32_t)fmaxf(y, 0.0f) ^ ky;
+  return __uint2float_rn(hash2(ux, uy)) / 4294967296.0f;
+}
+
+// sampling.build_onb: (t, b) around the unit normal n
+__device__ __forceinline__ void build_onb(V3 n, V3* t, V3* b) {
+  const V3 up = fabsf(n.y) < 0.99f ? V3{0.0f, 1.0f, 0.0f}
+                                   : V3{1.0f, 0.0f, 0.0f};
+  *t = norm3(cross3(up, n));
+  *b = cross3(n, *t);
+}
+
+// sampling.sample_hemisphere_cosine; two_pi is float32(2.0 * PI)
+__device__ __forceinline__ V3 hemisphere_cosine(V3 n, float ux, float uy,
+                                                float two_pi) {
+  const float phi = two_pi * ux;
+  const float r = sqrtf(uy);
+  const float x = r * cosf(phi);
+  const float z = r * sinf(phi);
+  const float y = sqrtf(fmaxf(1.0f - uy, 0.0f));
+  const V3 nn = norm3(n);
+  V3 t, b;
+  build_onb(nn, &t, &b);
+  return norm3(add3(add3(scale3(t, x), scale3(b, z)), scale3(nn, y)));
+}

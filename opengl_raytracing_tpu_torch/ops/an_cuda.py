@@ -14,7 +14,7 @@ lighting.direct_light_bvh:
 
 Each call is one launch.  The kernels read the raw hit records as rows
 ([N,3] p, n, v and [N] material id), the pixel-centre grids in place
-through their strides (`_PixelGrid`), and compute the rest themselves:
+through their strides (`cuda_lib.PixelGrid`), and compute the rest themselves:
 normalisation, the material table, the sky of the reflected view and the
 disk-light offsets' hash chain.  The scene constants, the material table
 and the call's RNG keys go by value in one struct (`_AnScene`, the
@@ -88,18 +88,8 @@ class _AnScene(ctypes.Structure):
     ]
 
 
-class _PixelGrid(ctypes.Structure):
-    """Host mirror of `PixelGrid` in csrc/an_direct.cu: the px and py
-    grids' device pointers, the call's columns and each grid's row and
-    column strides in elements."""
-    _fields_ = [("px", ctypes.c_void_p), ("py", ctypes.c_void_p),
-                ("cols", ctypes.c_int64),
-                ("px_sr", ctypes.c_int64), ("px_sc", ctypes.c_int64),
-                ("py_sr", ctypes.c_int64), ("py_sc", ctypes.c_int64)]
-
-
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-_GRID = ctypes.POINTER(_PixelGrid)
+_GRID = ctypes.POINTER(cuda_lib.PixelGrid)
 _SIGNATURES = {
     "ort_an_direct": ([ctypes.POINTER(_AnScene)] + [_P] * 4
                       + [_GRID, _I64, _P, _P, _P], ctypes.c_int),
@@ -114,7 +104,8 @@ _SIGNATURES = {
 def _library():
     lib = cuda_lib.library("an_direct", _SIGNATURES)
     if (lib.ort_an_scene_size() != ctypes.sizeof(_AnScene)
-            or lib.ort_pixel_grid_size() != ctypes.sizeof(_PixelGrid)):
+            or lib.ort_pixel_grid_size()
+            != ctypes.sizeof(cuda_lib.PixelGrid)):
         raise RuntimeError("AnScene or PixelGrid layout differs between "
                            "csrc/an_direct.cu and ops/an_cuda.py")
     return lib
@@ -192,48 +183,14 @@ def _scene_constants(params, host_vectors) -> bytes:
         point_e=int(bool(p.point_light_enabled))))
 
 
-def _rows(x, shape):
-    """[..., 3] broadcast to shape + (3,) -> contiguous [N, 3] (a view
-    where it already is)."""
-    return x.expand(shape + (3,)).reshape(-1, 3).contiguous()
-
-
-def _flat(x, shape):
-    return x.expand(shape).reshape(-1).contiguous()
-
-
 def _pixel_rows(h, vdir, device):
     """The rows both kernels read: p, n, v [N,3]."""
     shape = h.t.shape
-    rows = dict(p=_rows(h.p, shape), n=_rows(h.n, shape),
-                v=_rows(vdir, shape))
+    rows = dict(p=cuda_lib.rows(h.p, shape), n=cuda_lib.rows(h.n, shape),
+                v=cuda_lib.rows(vdir, shape))
     for name, x in rows.items():
         check(name, x, torch.float32, (h.t.numel(), 3), device)
     return rows
-
-
-def _pixel_grid(px, py, shape, device):
-    """(the kernels' `PixelGrid`, the tensors it points into): px and py
-    broadcast to `shape` and viewed as [rows, shape[-1]] without a copy
-    where their strides allow (a broadcast grid is one row or column of
-    floats); the tensors must outlive the launch."""
-    cols = max(shape[-1], 1) if len(shape) else 1
-    views = []
-    for name, x in (("px", px), ("py", py)):
-        if x.device != device:
-            raise ValueError(f"{name} is on {x.device}, expected {device}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} has dtype {x.dtype}, expected "
-                            f"torch.float32")
-        x = x.expand(shape)
-        try:
-            x = x.view(-1, cols)
-        except RuntimeError:  # strides that do not fold into two
-            x = x.reshape(-1, cols).contiguous()
-        views.append(x)
-    gx, gy = views
-    return _PixelGrid(gx.data_ptr(), gy.data_ptr(), cols, *gx.stride(),
-                      *gy.stride()), views
 
 
 def _offsets_ptr(offsets_out, n_px, device):
@@ -257,8 +214,8 @@ def direct_light(scene, h, rng_frame: int, frame_index: int, vdir, px, py,
     shape = h.t.shape
     n_px = h.t.numel()
     rows = _pixel_rows(h, vdir, device)
-    grid, _keep = _pixel_grid(px, py, shape, device)
-    mat = _flat(h.mat, shape)
+    grid, _keep = cuda_lib.pixel_grid(px, py, shape, device)
+    mat = cuda_lib.flat(h.mat, shape)
     check("mat", mat, torch.int32, (n_px,), device)
     offs = _offsets_ptr(offsets_out, n_px, device)
     out = torch.empty((n_px, 3), dtype=torch.float32, device=device)
@@ -284,13 +241,8 @@ def direct_light_bvh(scene, h, rng_frame: int, frame_index: int, vdir, px,
     shape = h.t.shape
     n_px = h.t.numel()
     rows = _pixel_rows(h, vdir, device)
-    grid, _keep = _pixel_grid(px, py, shape, device)
-    act = None
-    if active is not None:
-        # the kernel reads one 0/1 byte per pixel
-        act = _flat(active, shape)
-        check("active", act, torch.bool, (n_px,), device, align=1)
-        act = act.data_ptr()
+    grid, _keep = cuda_lib.pixel_grid(px, py, shape, device)
+    act, _keep_act = cuda_lib.mask_bytes(active, shape, device)
     bvh = scene.bvh.arrays
     bvh_cuda.check_bvh(bvh, device)
     offs = _offsets_ptr(offsets_out, n_px, device)

@@ -1,17 +1,27 @@
 """Wrappers of the CUDA BVH kernels in csrc/bvh_trace.cu.
 
-`trace_closest` (closest hit; replaces the TPU kernel
-`opengl_raytracing_tpu/ops/bvh_mxu.py:_closest_kernel`) and `trace_any`
-(any-hit occlusion; replaces `bvh_mxu.py:_shadow_kernel`) take a
-`BVHArrays` of tensors and rays on one device:
+  * `trace_closest` -- the closest hit of given rays (the primary call);
+  * `trace_bounce` -- GI's bounce ray of each pixel, sampled in the kernel,
+    and its closest hit (lighting.gi_bounce_plain);
+  * `ambient_occlusion` -- compute_ao's BVH branch whole: the hemisphere
+    samples, their any-hit walks and the AO value
+    (lighting.ambient_occlusion_plain).
 
-  * a CPU tensor runs the plain PyTorch walk (ops/bvh_traverse.py);
-  * a CUDA tensor launches the kernel, or the call raises.  Nothing falls
-    back to the plain walk on the card.
+The first two replace the TPU kernel
+`opengl_raytracing_tpu/ops/bvh_mxu.py:_closest_kernel`, the third
+`bvh_mxu.py:_shadow_kernel` on its AO call.  Each takes a `BVHArrays` of
+tensors and its inputs on one device:
 
-The kernels are built and launched through ops/cuda_lib.py, which also
-holds the launch counters (`LAUNCHES["closest"]`, `LAUNCHES["any"]`).
-Importing this module needs neither nvcc nor a card.
+  * CPU tensors run the plain version (bvh_traverse.trace_bvh and the two
+    plain functions of ops/lighting.py);
+  * CUDA tensors launch the kernel, or the call raises.  Nothing falls
+    back to the plain version on the card.
+
+The kernels read the hit rows and the pixel-centre grids in place and
+write finished results: each call is one launch.  Launches go through
+ops/cuda_lib.py, which counts them (`LAUNCHES["closest"]`,
+`LAUNCHES["bounce"]`, `LAUNCHES["ao"]`).  Importing this module needs
+neither nvcc nor a card.
 """
 
 from __future__ import annotations
@@ -20,107 +30,210 @@ import ctypes
 
 import torch
 
-from ..constants import EPS
+from ..constants import EPS, PI
+from ..params import f32
+from ..sampling import _frame_bits
 from ..scene.bvh import BVHArrays
 from . import cuda_lib
-from .bvh_traverse import _finalize, trace_bvh, trace_bvh_shadow
+from .bvh_traverse import trace_bvh
 from .cuda_lib import LAUNCHES, check  # noqa: F401  (LAUNCHES re-exported)
 from .scene_analytic import Hit
 
+_U32x2 = ctypes.c_uint32 * 2
+
+
+class _BounceArgs(ctypes.Structure):
+    """Host mirror of `BounceArgs` in csrc/bvh_trace.cu."""
+    _fields_ = [("p", ctypes.c_void_p), ("n", ctypes.c_void_p),
+                ("grid", cuda_lib.PixelGrid), ("key", _U32x2),
+                ("so", ctypes.c_float), ("so2", ctypes.c_float),
+                ("two_pi", ctypes.c_float), ("eps", ctypes.c_float)]
+
+
+class _AoArgs(ctypes.Structure):
+    """Host mirror of `AoArgs` in csrc/bvh_trace.cu."""
+    _fields_ = [("p", ctypes.c_void_p), ("n", ctypes.c_void_p),
+                ("grid", cuda_lib.PixelGrid), ("key", _U32x2),
+                ("samples", ctypes.c_int), ("bias", ctypes.c_float),
+                ("radius", ctypes.c_float), ("ao_min", ctypes.c_float),
+                ("ao_span", ctypes.c_float), ("two_pi", ctypes.c_float)]
+
+
 _P, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                         ctypes.c_float)
+_TREE = [_P, _P, _P, _I32]
 _SIGNATURES = {
-    "ort_trace_closest": ([_P, _P, _P, _I32, _P, _P, _P, _I64, _F32, _P, _P,
-                           _P], ctypes.c_int),
-    "ort_trace_any": ([_P, _P, _P, _I32, _P, _P, _P, _I64, _F32, _P, _P],
-                      ctypes.c_int),
+    "ort_trace_closest": (_TREE + [_P, _I64, _P, _P, _I64, _F32]
+                          + [_P] * 4, ctypes.c_int),
+    "ort_trace_bounce": (_TREE + [ctypes.POINTER(_BounceArgs), _P, _I64, _F32]
+                         + [_P] * 6, ctypes.c_int),
+    "ort_ambient_occlusion": (_TREE + [ctypes.POINTER(_AoArgs), _P, _I64,
+                                       _F32, _P, _P], ctypes.c_int),
+    "ort_bounce_args_size": ([], ctypes.c_int),
+    "ort_ao_args_size": ([], ctypes.c_int),
 }
 
 
 def _library():
-    return cuda_lib.library("bvh_trace", _SIGNATURES)
+    lib = cuda_lib.library("bvh_trace", _SIGNATURES)
+    if (lib.ort_bounce_args_size() != ctypes.sizeof(_BounceArgs)
+            or lib.ort_ao_args_size() != ctypes.sizeof(_AoArgs)):
+        raise RuntimeError("BounceArgs or AoArgs layout differs between "
+                           "csrc/bvh_trace.cu and ops/bvh_cuda.py")
+    return lib
 
 
 def check_bvh(bvh: BVHArrays, device):
-    # node and triangle rows are read as 16-byte vectors
+    # node and triangle rows are read as 16-byte vectors (and the node
+    # rows copied in bulk, which needs 16-byte alignment too)
     n_nodes, n_tris = bvh.bounds.shape[0], bvh.tris.shape[0]
     check("bvh.bounds", bvh.bounds, torch.float32, (n_nodes, 8), device, 16)
     check("bvh.meta", bvh.meta, torch.int32, (n_nodes, 4), device, 16)
     check("bvh.tris", bvh.tris, torch.float32, (n_tris, 12), device, 16)
 
 
+def _tree(bvh: BVHArrays):
+    return (bvh.bounds.data_ptr(), bvh.meta.data_ptr(), bvh.tris.data_ptr(),
+            bvh.bounds.shape[0])
+
+
 def _cuda_device(x):
     return cuda_lib.cuda_device(x, "BVH kernels")
+
+
+def _keys(frame: int):
+    """sampling.rand's xor keys of `frame`."""
+    return _U32x2(_frame_bits(frame), _frame_bits(frame, 1663))
+
+
+def bounce_args(rng_frame: int, seed: int) -> _BounceArgs:
+    """The bounce kernel's constants for one call (the pointers left
+    null): the RNG keys of `rng_frame`, the offsets float32(seed * 19) and
+    float32(seed * 41), float32(2 PI) and the origin's EPS, each rounded
+    as the plain version rounds it."""
+    return _BounceArgs(key=_keys(rng_frame), so=f32(seed * 19),
+                       so2=f32(seed * 41), two_pi=f32(2.0 * PI), eps=EPS)
+
+
+def ao_args(params, frame_index: int) -> _AoArgs:
+    """The AO kernel's constants for one call (the pointers left null):
+    the RNG keys of `frame_index` and the AO parameters in float32, as
+    lighting.ambient_occlusion_plain rounds them."""
+    ao_min = f32(params.ao_min)
+    return _AoArgs(key=_keys(frame_index), samples=int(params.ao_samples),
+                   bias=f32(params.ao_bias), radius=f32(params.ao_radius),
+                   ao_min=ao_min, ao_span=f32(1.0 - ao_min),
+                   two_pi=f32(2.0 * PI))
+
+
+def _hit_out(shape, device):
+    n = shape.numel()
+    return (torch.empty(n, dtype=torch.float32, device=device),
+            torch.empty((n, 3), dtype=torch.float32, device=device),
+            torch.empty((n, 3), dtype=torch.float32, device=device))
+
+
+def _hit(shape, t, p, n) -> Hit:
+    return Hit(t.reshape(shape), p.reshape(shape + (3,)),
+               n.reshape(shape + (3,)),
+               torch.ones(shape, dtype=torch.int32, device=t.device))
+
+
+def _hit_rows(h, device):
+    """The p and n rows [N, 3] of hits `h` that the sampling kernels read."""
+    shape = h.t.shape
+    p, n = cuda_lib.rows(h.p, shape), cuda_lib.rows(h.n, shape)
+    check("h.p", p, torch.float32, (shape.numel(), 3), device)
+    check("h.n", n, torch.float32, (shape.numel(), 3), device)
+    return p, n
 
 
 def trace_closest(bvh: BVHArrays, ro, rd, eps: float = EPS,
                   active=None) -> Hit:
     """Closest hit of rays ro/rd [...,3] (the contract of
-    bvh_traverse.trace_bvh: t = 1e30 on a miss, unit normal on hit lanes
-    and zero elsewhere, mat = 1).  Lanes where `active` (bool, the rays'
-    shape) is False do not walk and read as misses."""
+    bvh_traverse.trace_bvh: t = 1e30 on a miss, p = ro + rd*t, unit
+    normal on hit lanes and zero elsewhere, mat = 1).  Lanes where
+    `active` (bool, the rays' shape) is False do not walk and read as
+    misses.  A broadcast origin (one row for every ray) is read in place."""
     if ro.device.type == "cpu":
         return trace_bvh(bvh, ro, rd, eps, active)
     device = _cuda_device(ro)
     shape = torch.broadcast_shapes(ro.shape[:-1], rd.shape[:-1])
-    o = ro.expand(shape + (3,)).reshape(-1, 3).contiguous()
-    d = rd.expand(shape + (3,)).reshape(-1, 3).contiguous()
-    check_bvh(bvh, device)
-    n_rays = o.shape[0]
-    check("ro", o, torch.float32, (n_rays, 3), device)
+    n_rays = shape.numel()
+    o = ro.expand(shape + (3,)).reshape(-1, 3)
+    ro_step = 0 if o.stride() == (0, 1) else 3
+    if ro_step:
+        o = o.contiguous()
+    check("ro", o[:1] if ro_step == 0 else o, torch.float32,
+          (1 if ro_step == 0 else n_rays, 3), device)
+    d = cuda_lib.rows(rd, shape)
     check("rd", d, torch.float32, (n_rays, 3), device)
-    act_ptr = None
-    if active is not None:
-        # the kernel reads one 0/1 byte per ray
-        act = active.expand(shape).reshape(-1).contiguous()
-        check("active", act, torch.bool, (n_rays,), device, align=1)
-        act_ptr = act.data_ptr()
-    t = torch.empty(n_rays, dtype=torch.float32, device=device)
-    n = torch.empty((n_rays, 3), dtype=torch.float32, device=device)
+    check_bvh(bvh, device)
+    act, _keep = cuda_lib.mask_bytes(active, shape, device)
+    t, p, n = _hit_out(shape, device)
     cuda_lib.launch(_library().ort_trace_closest, "closest", device,
-                    bvh.bounds.data_ptr(), bvh.meta.data_ptr(),
-                    bvh.tris.data_ptr(), bvh.bounds.shape[0], o.data_ptr(),
-                    d.data_ptr(), act_ptr, n_rays, eps, t.data_ptr(),
-                    n.data_ptr())
-    return _finalize(shape, ro, rd.expand(shape + (3,)), t, n)
+                    *_tree(bvh), o.data_ptr(), ro_step, d.data_ptr(), act,
+                    n_rays, eps, t.data_ptr(), p.data_ptr(), n.data_ptr())
+    return _hit(shape, t, p, n)
 
 
-def trace_any(bvh: BVHArrays, ro, rd, t_max, eps: float = EPS,
-              active=None):
-    """Any occluder with t in [eps, t_max]; a window <= 0 finds nothing.
+def trace_bounce(bvh: BVHArrays, h0: Hit, rng_frame: int, seed: int, px,
+                 py, active=None):
+    """GI's bounce ray at each hit of `h0` and its closest hit: (Hit, wi,
+    cos_theta), the contract of lighting.gi_bounce_plain.  The ray is
+    sample_hemisphere_cosine around normalize(h0.n) from the rand pair at
+    offsets seed*19 and seed*41 of pixel (px, py), from h0.p + n0*EPS.
 
-    ro/rd/t_max may be tuples of k batches of one shape: they are
-    concatenated into one stream (one kernel launch) and the result is
-    [k, ...].  `active` (per-batch shape) is ANDed in, so inactive lanes
-    are guaranteed False; without it the result is the kernel's own
-    buffer, [k, ...] contiguous bytes."""
-    multi = isinstance(ro, (list, tuple))
-    if not multi:
-        ro, rd, t_max = (ro,), (rd,), (t_max,)
-    shape = torch.broadcast_shapes(*(x.shape[:-1] for x in ro),
-                                   *(x.shape[:-1] for x in rd),
-                                   *(x.shape for x in t_max))
-    o = torch.cat([x.expand(shape + (3,)).reshape(-1, 3) for x in ro])
-    d = torch.cat([x.expand(shape + (3,)).reshape(-1, 3) for x in rd])
-    tm = torch.cat([x.expand(shape).reshape(-1) for x in t_max])
-    if o.device.type == "cpu":
-        occ = trace_bvh_shadow(bvh, o, d, tm, eps)
-    else:
-        device = _cuda_device(o)
-        check_bvh(bvh, device)
-        n_rays = o.shape[0]
-        check("ro", o, torch.float32, (n_rays, 3), device)
-        check("rd", d, torch.float32, (n_rays, 3), device)
-        check("t_max", tm, torch.float32, (n_rays,), device)
-        occ_u8 = torch.empty(n_rays, dtype=torch.uint8, device=device)
-        cuda_lib.launch(_library().ort_trace_any, "any", device,
-                        bvh.bounds.data_ptr(), bvh.meta.data_ptr(),
-                        bvh.tris.data_ptr(), bvh.bounds.shape[0],
-                        o.data_ptr(), d.data_ptr(), tm.data_ptr(), n_rays,
-                        eps, occ_u8.data_ptr())
-        # the kernel writes 0/1 bytes: a bool view of them, no copy
-        occ = occ_u8.view(torch.bool)
-    occ = occ.reshape((len(ro),) + shape)
-    if active is not None:
-        occ = occ & active
-    return occ if multi else occ[0]
+    Lanes where `active` (bool, h0.t's shape) is False trace nothing and
+    read as misses (t = 1e30, valid False).  There wi and cos_theta are
+    finite and otherwise unspecified (the kernel writes zeros, the plain
+    version its own values), and so are p and n on the CPU; the kernel
+    leaves p and n unwritten."""
+    if h0.t.device.type == "cpu":
+        from .lighting import gi_bounce_plain
+        return gi_bounce_plain(bvh, h0, rng_frame, seed, px, py, active)
+    device = _cuda_device(h0.t)
+    shape = h0.t.shape
+    p0, n0 = _hit_rows(h0, device)
+    grid, _keep_grid = cuda_lib.pixel_grid(px, py, shape, device)
+    act, _keep_act = cuda_lib.mask_bytes(active, shape, device)
+    check_bvh(bvh, device)
+    args = bounce_args(rng_frame, seed)
+    args.p, args.n, args.grid = p0.data_ptr(), n0.data_ptr(), grid
+    t, p, n = _hit_out(shape, device)
+    wi = torch.empty((shape.numel(), 3), dtype=torch.float32, device=device)
+    cos = torch.empty(shape.numel(), dtype=torch.float32, device=device)
+    cuda_lib.launch(_library().ort_trace_bounce, "bounce", device,
+                    *_tree(bvh), ctypes.byref(args), act, shape.numel(), EPS,
+                    t.data_ptr(), p.data_ptr(), n.data_ptr(), wi.data_ptr(),
+                    cos.data_ptr())
+    return _hit(shape, t, p, n), wi.reshape(shape + (3,)), cos.reshape(shape)
+
+
+def ambient_occlusion(bvh: BVHArrays, h: Hit, frame_index: int, px, py,
+                      params, active=None):
+    """Cosine-hemisphere ambient occlusion at hits `h` (the contract of
+    lighting.ambient_occlusion_plain): params.ao_samples any-hit walks in
+    [EPS, ao_radius] from h.p + normalize(h.n)*ao_bias, remapped to
+    [ao_min, 1].  Lanes where `active` (bool, h.t's shape) is False trace
+    nothing; their values are unspecified (the kernel leaves them
+    unwritten)."""
+    if h.t.device.type == "cpu":
+        from .lighting import ambient_occlusion_plain
+        return ambient_occlusion_plain(bvh, h, frame_index, px, py, params,
+                                       active)
+    device = _cuda_device(h.t)
+    if int(params.ao_samples) < 1:
+        raise ValueError(f"ao_samples must be >= 1, got {params.ao_samples}")
+    shape = h.t.shape
+    p, n = _hit_rows(h, device)
+    grid, _keep_grid = cuda_lib.pixel_grid(px, py, shape, device)
+    act, _keep_act = cuda_lib.mask_bytes(active, shape, device)
+    check_bvh(bvh, device)
+    args = ao_args(params, frame_index)
+    args.p, args.n, args.grid = p.data_ptr(), n.data_ptr(), grid
+    ao = torch.empty(shape.numel(), dtype=torch.float32, device=device)
+    cuda_lib.launch(_library().ort_ambient_occlusion, "ao", device,
+                    *_tree(bvh), ctypes.byref(args), act, shape.numel(), EPS,
+                    ao.data_ptr())
+    return ao.reshape(shape)

@@ -8,9 +8,10 @@ csrc/ (a source may include any of them), and loaded with ctypes.
 them.  A missing nvcc or a failed build raises with the
 compiler's output.  Importing this module needs neither nvcc nor a card.
 
-`LAUNCHES` counts each kernel's launches, so a run can show that a frame
+`LAUNCHES` counts each wrapper's launches, so a run can show that a frame
 went through the kernels; only `launch` adds to it, after the kernel was
-accepted.
+accepted.  The host mirror of the kernels' `PixelGrid` (csrc/sampling.cuh)
+and the row helpers the wrappers share are here too.
 """
 
 from __future__ import annotations
@@ -36,8 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-LAUNCHES = {"closest": 0, "any": 0, "an_direct": 0, "bvh_direct": 0,
-            "svgf": 0}
+LAUNCHES = {"closest": 0, "bounce": 0, "ao": 0, "an_direct": 0,
+            "bvh_direct": 0, "svgf": 0}
 
 _libs: dict = {}
 
@@ -143,3 +144,60 @@ def launch(fn, kernel: str, device, *args):
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
                            f"cudaError {err}")
     LAUNCHES[kernel] += 1
+
+
+class PixelGrid(ctypes.Structure):
+    """Host mirror of `PixelGrid` in csrc/sampling.cuh: the px and py
+    grids' device pointers, the call's columns and each grid's row and
+    column strides in elements."""
+    _fields_ = [("px", ctypes.c_void_p), ("py", ctypes.c_void_p),
+                ("cols", ctypes.c_int64),
+                ("px_sr", ctypes.c_int64), ("px_sc", ctypes.c_int64),
+                ("py_sr", ctypes.c_int64), ("py_sc", ctypes.c_int64)]
+
+
+def pixel_grid(px, py, shape, device):
+    """(the kernels' `PixelGrid`, the tensors it points into): px and py
+    broadcast to `shape` and viewed as [rows, shape[-1]] without a copy
+    where their strides allow (a broadcast grid is one row or column of
+    floats); the tensors must outlive the launch."""
+    cols = max(shape[-1], 1) if len(shape) else 1
+    views = []
+    for name, x in (("px", px), ("py", py)):
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, expected {device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} has dtype {x.dtype}, expected "
+                            f"torch.float32")
+        x = x.expand(shape)
+        try:
+            x = x.view(-1, cols)
+        except RuntimeError:  # strides that do not fold into two
+            x = x.reshape(-1, cols).contiguous()
+        views.append(x)
+    gx, gy = views
+    return PixelGrid(gx.data_ptr(), gy.data_ptr(), cols, *gx.stride(),
+                     *gy.stride()), views
+
+
+def rows(x, shape):
+    """[..., 3] broadcast to shape + (3,) -> contiguous [N, 3] (a view
+    where it already is)."""
+    return x.expand(shape + (3,)).reshape(-1, 3).contiguous()
+
+
+def flat(x, shape):
+    """[...] broadcast to shape -> contiguous [N] (a view where it already
+    is)."""
+    return x.expand(shape).reshape(-1).contiguous()
+
+
+def mask_bytes(active, shape, device):
+    """The kernels' `active` argument: None (every lane live), or the
+    bool mask broadcast to `shape` as n contiguous 0/1 bytes; returns
+    (pointer or None, the tensor to keep alive)."""
+    if active is None:
+        return None, None
+    act = flat(active, shape)
+    check("active", act, torch.bool, (shape.numel(),), device, align=1)
+    return act.data_ptr(), act

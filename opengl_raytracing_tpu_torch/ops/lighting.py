@@ -5,17 +5,18 @@ Counterpart of `opengl_raytracing_tpu/ops/lighting.py` for the analytic
 scene and for BVH triangles (reference: shaders/rt/rt_lighting.glsl).
 Per-fragment branches become masked selects; the RNG call sites hash the
 same (pixel, frame, offset) values, so the soft-shadow, bounce and AO
-noise matches the JAX package bit for bit.  The GI bounce and the AO
-hemisphere rays go through the same traces as the primary rays (on the
-card: the closest-hit and any-hit kernels, and the direct-light
-kernels at the bounce hit).  The JAX package's opt-in 2-batch
-`direct_and_gi_analytic` is not ported; its default two-call form is.
+noise matches the JAX package bit for bit.  The JAX package's opt-in
+2-batch `direct_and_gi_analytic` is not ported; its default two-call form
+is.
 
-Two CUDA kernels (ops/an_cuda.py) take over on the card, each computing
-the whole function from hit records to radiance in one launch: the
-analytic `direct_light` tree and `direct_light_bvh`, its six shadow walks
-included.  Their plain versions are `direct_light_plain` and
-`direct_light_bvh_plain` here, which the wrappers run for CPU tensors.
+Four CUDA kernels take over on the card, each computing its whole call
+from hit records in one launch: the analytic `direct_light` tree and
+`direct_light_bvh`, its six shadow walks included (ops/an_cuda.py); the
+BVH scene's GI bounce ray, sampled and traced (`bvh_cuda.trace_bounce`),
+and its ambient occlusion, sampled, walked and remapped
+(`bvh_cuda.ambient_occlusion`).  Their plain versions are
+`direct_light_plain`, `direct_light_bvh_plain`, `gi_bounce_plain` and
+`ambient_occlusion_plain` here, which the wrappers run for CPU tensors.
 
 Naming of the RNG arguments follows the GLSL call chain:
   * `rng_frame`  — the `frame` parameter of the GLSL function;
@@ -35,7 +36,8 @@ from ..constants import (EPS, PI, SOFT_SHADOW_SAMPLES, LIGHT_CENTER,
                          GLASS_LOCAL_REFL_WEIGHT, YCOEFF)
 from ..sampling import (rand, eps_for_dist, concentric_sample, cp_offset,
                         sample_hemisphere_cosine)
-from .bvh_traverse import trace_bvh_shadow
+from . import bvh_cuda
+from .bvh_traverse import trace_bvh, trace_bvh_shadow
 from .materials import (get_material, MaterialProps, MTYPE_DIFFUSE,
                         MTYPE_MIRROR, MTYPE_GLASS)
 from .scene import SceneCtx
@@ -100,7 +102,8 @@ def _sun_shadow_query(scene: SceneCtx, h, n):
 def sun_direct(scene: SceneCtx, h, mat, vdir, blocked=None):
     """Hard-shadowed directional sun (reference: rt_lighting.glsl:114-144).
 
-    `blocked` may be precomputed by a batched shadow trace."""
+    `blocked` is precomputed by the BVH scene's batched shadow walks
+    (direct_light_bvh_plain); without it the analytic scene traces."""
     if not scene.params.sun_enabled:
         return torch.zeros(h.t.shape + (3,), device=h.t.device)
     n = normalize(h.n)
@@ -108,11 +111,8 @@ def sun_direct(scene: SceneCtx, h, mat, vdir, blocked=None):
     l = -scene.sun_dir
     ndl = torch.clamp_min(dot(n, l), 0.0)
     if blocked is None:
-        origin, ldir, win = _sun_shadow_query(scene, h, n)
-        if scene.use_bvh:
-            blocked = scene.trace_shadow_any(origin, ldir, win)
-        else:
-            blocked = scene.trace(origin, ldir).valid  # any hit blocks
+        origin, ldir, _ = _sun_shadow_query(scene, h, n)
+        blocked = scene.trace(origin, ldir).valid  # any hit blocks
     li = (const3(scene.params.sun_color, h.t.device)
           * scene.params.sun_intensity)
     spec = torch.where(mat.mtype == MTYPE_DIFFUSE, mat.spec_strength, 0.0)
@@ -144,7 +144,8 @@ def _point_shadow_query(scene: SceneCtx, h):
 
 def point_direct(scene: SceneCtx, h, mat, vdir, blocked=None):
     """Point light with inverse-square falloff and shadows
-    (reference: rt_lighting.glsl:181-214)."""
+    (reference: rt_lighting.glsl:181-214).  `blocked` as for
+    sun_direct."""
     if not scene.params.point_light_enabled:
         return torch.zeros(h.t.shape + (3,), device=h.t.device)
     n = normalize(h.n)
@@ -156,12 +157,9 @@ def point_direct(scene: SceneCtx, h, mat, vdir, blocked=None):
     ndl = torch.clamp_min(dot(n, l), 0.0)
     if blocked is None:
         origin, ldir, win = _point_shadow_query(scene, h)
-        if scene.use_bvh:
-            blocked = scene.trace_shadow_any(origin, ldir, win)
-        else:
-            # the marker sphere must not shadow its own light
-            tmp = scene.trace_ignore_point_light(origin, ldir)
-            blocked = tmp.valid & (tmp.t < win)
+        # the marker sphere must not shadow its own light
+        tmp = scene.trace_ignore_point_light(origin, ldir)
+        blocked = tmp.valid & (tmp.t < win)
     li = (const3(scene.params.point_light_color, h.t.device)
           * (scene.params.point_light_intensity
              / torch.clamp_min(dist2, 1e-4))[..., None])
@@ -436,26 +434,43 @@ def one_bounce_gi_analytic(scene: SceneCtx, h0, rng_frame: int, seed: int,
     return torch.where((cos_theta > 0.0)[..., None], out, 0.0)
 
 
-def one_bounce_gi_bvh(scene: SceneCtx, h0, rng_frame: int, seed: int,
-                      frame_index: int, px, py, active=None):
-    """BVH GI with grazing-angle cut and firefly luminance clamp
-    (reference: rt_lighting.glsl:515-561).
-
-    Inactive lanes (sky pixels) do not walk the bounce ray, and their
-    secondary lighting traces nothing; their values are unspecified.  The
-    bounce hits reach `direct_light_bvh` unsanitized (misses have
-    p = o + wi * 1e30): its windows are collapsed there, and the valid
-    select drops the radiance lit on them before any sum."""
+def _bounce_ray(h0, rng_frame: int, seed: int, px, py):
+    """(origin, wi, cos_theta) of the BVH GI bounce ray: a cosine-
+    hemisphere sample around the hit normal from the rand pair at offsets
+    seed*19 and seed*41 (reference: rt_lighting.glsl:515-527)."""
     so, so2 = f32(seed * 19), f32(seed * 41)
     ux = rand(px + so, py + so, rng_frame)
     uy = rand(py + so2, px + so2, rng_frame)
     n0 = normalize(h0.n)
     wi = sample_hemisphere_cosine(n0, ux, uy)
-    cos_theta = torch.clamp_min(dot(n0, wi), 0.0)
-    h1 = scene.trace(h0.p + n0 * EPS, wi, active=active)
-    act1 = h1.valid if active is None else (active & h1.valid)
+    return h0.p + n0 * EPS, wi, torch.clamp_min(dot(n0, wi), 0.0)
+
+
+def gi_bounce_plain(bvh, h0, rng_frame: int, seed: int, px, py,
+                    active=None):
+    """GI's bounce ray at each hit of `h0` and its closest hit (reference:
+    rt_lighting.glsl:515-530): (Hit, wi, cos_theta), the plain version of
+    the CUDA kernel behind `bvh_cuda.trace_bounce`.  Lanes where `active`
+    is False do not walk and read as misses."""
+    origin, wi, cos_theta = _bounce_ray(h0, rng_frame, seed, px, py)
+    return trace_bvh(bvh, origin, wi, active=active), wi, cos_theta
+
+
+def one_bounce_gi_bvh(scene: SceneCtx, h0, rng_frame: int, seed: int,
+                      frame_index: int, px, py, active=None):
+    """BVH GI with grazing-angle cut and firefly luminance clamp
+    (reference: rt_lighting.glsl:515-561).
+
+    Inactive lanes (sky pixels) do not walk the bounce ray and read as
+    misses, so their secondary lighting traces nothing; their values are
+    unspecified.  The bounce hits reach `direct_light_bvh` unsanitized
+    (misses have p = o + wi * 1e30): its windows are collapsed there, and
+    the valid select drops the radiance lit on them before any sum."""
+    h1, wi, cos_theta = bvh_cuda.trace_bounce(scene.bvh.arrays, h0,
+                                              rng_frame, seed, px, py,
+                                              active)
     li_hit = direct_light_bvh(scene, h1, rng_frame, frame_index, -wi, px, py,
-                              active=act1)
+                              active=h1.valid)
     li = torch.where(h1.valid[..., None], li_hit, scene.sky(wi))
     dev = h0.t.device
     contrib = const3(BVH_ALBEDO, dev) * (cos_theta / PI)[..., None] * li
@@ -486,15 +501,9 @@ def shade_mirror(scene: SceneCtx, h, wo, mat, seed: int, frame_index: int,
     return col * mat.albedo
 
 
-def compute_ao(scene: SceneCtx, h, frame_index: int, px, py, active=None):
-    """Cosine-hemisphere ambient occlusion, radius-limited, remapped to
-    [ao_min, 1] (reference: rt_lighting.glsl:721-757).
-
-    BVH mode: the `ao_samples` hemisphere batches share one origin and one
-    `ao_radius` window and trace as one any-hit call (boolean-identical to
-    the reference's closest hit within the radius).  Analytic mode: one
-    batched closest-hit trace, counting hits with t < ao_radius."""
-    params = scene.params
+def _ao_rays(h, frame_index: int, px, py, params):
+    """(origin, [direction] * ao_samples) of the AO hemisphere rays
+    (reference: rt_lighting.glsl:721-744)."""
     n = normalize(h.n)
     dirs = []
     for i in range(params.ao_samples):
@@ -502,17 +511,52 @@ def compute_ao(scene: SceneCtx, h, frame_index: int, px, py, active=None):
         ux = rand(px + o1, py + o1, frame_index)
         uy = rand(py + o2, px + o2, frame_index)
         dirs.append(sample_hemisphere_cosine(n, ux, uy))
-    org = h.p + n * f32(params.ao_bias)
-    radius = f32(params.ao_radius)
-    if scene.use_bvh:
-        win = torch.full(h.t.shape, radius, dtype=torch.float32,
-                         device=h.t.device)
-        occ = scene.trace_shadow_any((org,) * len(dirs), tuple(dirs),
-                                     (win,) * len(dirs), active=active)
-    else:
-        hits = scene.trace(org[None], torch.stack(dirs))
-        occ = hits.valid & (hits.t < radius)
+    return h.p + n * f32(params.ao_bias), dirs
+
+
+def _ao_value(occ, params):
+    """The occlusion bits [ao_samples, ...] remapped to [ao_min, 1]
+    (reference: rt_lighting.glsl:745-757)."""
     occluded = occ.to(torch.float32).sum(0)
     ao_min = f32(params.ao_min)
     ao = 1.0 - occluded / float(params.ao_samples)
     return torch.clamp(ao_min + f32(1.0 - ao_min) * ao, ao_min, 1.0)
+
+
+def ambient_occlusion_plain(bvh, h, frame_index: int, px, py, params,
+                            active=None):
+    """BVH ambient occlusion: the plain version of the CUDA kernel behind
+    `bvh_cuda.ambient_occlusion`.  The `ao_samples` hemisphere batches
+    share one origin and one `ao_radius` window and trace as one stream
+    of the plain any-hit walk (boolean-identical to the reference's
+    closest hit within the radius); lanes where `active` is False count
+    no occluder."""
+    org, dirs = _ao_rays(h, frame_index, px, py, params)
+    shape = h.t.shape
+    win = torch.full(shape, f32(params.ao_radius), dtype=torch.float32,
+                     device=h.t.device)
+    occ = trace_bvh_shadow(
+        bvh, torch.cat([org.expand(shape + (3,)).reshape(-1, 3)] * len(dirs)),
+        torch.cat([d.expand(shape + (3,)).reshape(-1, 3) for d in dirs]),
+        torch.cat([win.reshape(-1)] * len(dirs)))
+    occ = occ.reshape((len(dirs),) + shape)
+    if active is not None:
+        occ = occ & active
+    return _ao_value(occ, params)
+
+
+def compute_ao(scene: SceneCtx, h, frame_index: int, px, py, active=None):
+    """Cosine-hemisphere ambient occlusion, radius-limited, remapped to
+    [ao_min, 1] (reference: rt_lighting.glsl:721-757).
+
+    BVH mode: `bvh_cuda.ambient_occlusion` (the CUDA kernel on the card,
+    `ambient_occlusion_plain` on the CPU); values on lanes where `active`
+    is False are unspecified.  Analytic mode: one batched closest-hit
+    trace, counting hits with t < ao_radius."""
+    params = scene.params
+    if scene.use_bvh:
+        return bvh_cuda.ambient_occlusion(scene.bvh.arrays, h, frame_index,
+                                          px, py, params, active)
+    org, dirs = _ao_rays(h, frame_index, px, py, params)
+    hits = scene.trace(org[None], torch.stack(dirs))
+    return _ao_value(hits.valid & (hits.t < f32(params.ao_radius)), params)

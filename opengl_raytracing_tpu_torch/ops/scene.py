@@ -3,8 +3,9 @@
 Counterpart of `opengl_raytracing_tpu/ops/scene.py` (reference:
 shaders/rt/rt_uniforms.glsl, rt_scene_analytic.glsl:132-197,
 rt_bvh.glsl:193-304).  BVH traces go to ops/bvh_cuda.py, which walks the
-tree with the CUDA kernels for CUDA tensors and with the plain PyTorch
-walk for CPU tensors; analytic traces are plain PyTorch
+tree with the CUDA kernel for CUDA tensors and with the plain PyTorch
+walk for CPU tensors (the AO and GI bounce calls go there from
+ops/lighting.py); analytic traces are plain PyTorch
 (ops/scene_analytic.py).  The cubemap environment is not ported yet.
 """
 
@@ -128,15 +129,6 @@ class SceneCtx:
     def trace_ignore_point_light(self, ro, rd, eps: float = EPS) -> sa.Hit:
         return sa.trace_analytic_ignore_point_light(
             ro, rd, self.params, self.point_light_pos, eps)
-
-    def trace_shadow_any(self, ro, rd, t_max, eps: float = EPS,
-                         active=None):
-        """Any occluder in [eps, t_max] (BVH mode only).  ro/rd/t_max may
-        be tuples of k same-shape batches, traced as one stream
-        ([k, ...] result); `active` has the per-batch shape, and inactive
-        lanes are guaranteed False."""
-        return bvh_cuda.trace_any(self.bvh.arrays, ro, rd, t_max, eps,
-                                  active=active)
 
     def sky(self, d):
         return sa.sky(d, self.params)

@@ -229,26 +229,32 @@ def test_walker_matches_pallas_kernels(case):
 
 
 def test_wrappers_on_cpu_use_plain_walks(scene):
-    """trace_closest / trace_any on CPU tensors are the plain walks; the
-    k-batch form is one stream, and `active` forces inactive lanes False;
-    no kernel launch is counted."""
+    """The wrappers on CPU tensors are the plain versions: trace_closest
+    the plain walk (with and without `active`), trace_bounce and
+    ambient_occlusion lighting's gi_bounce_plain and
+    ambient_occlusion_plain; no kernel launch is counted."""
+    from opengl_raytracing_tpu_torch.models import preset
+    from opengl_raytracing_tpu_torch.ops import lighting as tlt
     _, _, arrays = scene
     before = dict(bvh_cuda.LAUNCHES)
     ro, rd = _rays(4, 3 * 512)
-    h = bvh_cuda.trace_closest(arrays, _t(ro), _t(rd))
-    hp = tbt.trace_bvh(arrays, _t(ro), _t(rd))
-    for a, b in zip(h, hp):
+    active = torch.from_numpy(np.random.RandomState(5).rand(3 * 512) < 0.7)
+    for act in (None, active):
+        h = bvh_cuda.trace_closest(arrays, _t(ro), _t(rd), active=act)
+        hp = tbt.trace_bvh(arrays, _t(ro), _t(rd), active=act)
+        for a, b in zip(h, hp):
+            assert torch.equal(a, b)
+    assert 0.1 < h.valid.float().mean() < 0.9
+    px, py = (torch.arange(3 * 512, dtype=torch.float32) + 0.5,
+              torch.full((3 * 512,), 7.5))
+    params = preset("full")
+    got = bvh_cuda.trace_bounce(arrays, h, 3, 3, px, py, h.valid)
+    want = tlt.gi_bounce_plain(arrays, h, 3, 3, px, py, h.valid)
+    for a, b in zip((*got[0], *got[1:]), (*want[0], *want[1:])):
         assert torch.equal(a, b)
-    t_max = np.random.RandomState(4).uniform(-1, 4, 3 * 512).astype(
-        np.float32)
-    batches = [(_t(ro[i::3]), _t(rd[i::3]), _t(t_max[i::3]))
-               for i in range(3)]
-    active = torch.from_numpy(np.random.RandomState(5).rand(512) < 0.7)
-    occ = bvh_cuda.trace_any(arrays, *zip(*batches), active=active)
-    assert occ.shape == (3, 512) and occ.dtype == torch.bool
-    for i, (o, d, t) in enumerate(batches):
-        want = tbt.trace_bvh_shadow(arrays, o, d, t) & active
-        assert torch.equal(occ[i], want)
+    ao = bvh_cuda.ambient_occlusion(arrays, h, 3, px, py, params, h.valid)
+    assert torch.equal(ao, tlt.ambient_occlusion_plain(arrays, h, 3, px, py,
+                                                       params, h.valid))
     assert bvh_cuda.LAUNCHES == before
 
 
@@ -267,12 +273,21 @@ def test_wrapper_checks_reject_bad_tensors():
                                torch.zeros(1, 3, device="meta"))
 
 
+def _any_batches(arrays, oris, dirs, wins, active=None):
+    """The plain any-hit walk over k same-shape batches traced as one
+    stream, [k, ...]; inactive lanes (per-batch shape) read False."""
+    occ = tbt.trace_bvh_shadow(arrays, torch.cat(oris), torch.cat(dirs),
+                               torch.cat(wins)).reshape(len(oris), -1)
+    return occ if active is None else occ & active
+
+
 @pytest.mark.parametrize("case", ["per_batch", "shared", "active"])
 def test_any_walk_matches_packed_shadow_kernel(case, monkeypatch):
     """K6 (`_shadow_kernel_pack`, the k batches packed on lanes) against
-    the port's trace_any on the CPU: four disk-light-like batches with
-    their own origins, four hemisphere-like batches sharing one origin,
-    and per-batch origins under an `active` mask."""
+    the port's plain any-hit walk on the CPU, the walk the AO and BVH
+    direct-light kernels run: four disk-light-like batches with their own
+    origins, four hemisphere-like batches sharing one origin, and
+    per-batch origins under an `active` mask."""
     from opengl_raytracing_tpu.ops import bvh_mxu as bm
     tris = gather_triangles(make_icosphere(1.0, 2),
                             model_transform((0.0, 1.0, -3.0), 1.0))
@@ -311,10 +326,9 @@ def test_any_walk_matches_packed_shadow_kernel(case, monkeypatch):
         active=None if act is None else jnp.asarray(act))).astype(bool)
     jax.clear_caches()
     assert packed  # the lane-packed kernel ran
-    got = bvh_cuda.trace_any(arrays, tuple(_t(o) for o in oris),
-                             tuple(_t(d) for d in dirs),
-                             tuple(_t(w) for w in wins),
-                             active=None if act is None else _t(act))
+    got = _any_batches(arrays, [_t(o) for o in oris], [_t(d) for d in dirs],
+                       [_t(w) for w in wins],
+                       active=None if act is None else _t(act))
     if act is not None:
         want = want & act[None]
     assert got.shape == (4, n) and 0.05 < got.float().mean() < 0.95
@@ -324,7 +338,7 @@ def test_any_walk_matches_packed_shadow_kernel(case, monkeypatch):
 def test_walks_match_packet_kernels(scene):
     """K7a/K7b (`trace_bvh_packet`, `trace_bvh_shadow_packet`, scalar
     packet walks over the same BVHArrays) in interpret mode against the
-    port's trace_closest and trace_any on the CPU."""
+    port's trace_closest and plain any-hit walk on the CPU."""
     from opengl_raytracing_tpu.experiments import bvh_pallas
     tris, jarrays, arrays = scene
     ro, rd = _rays(9, 512)
@@ -344,7 +358,7 @@ def test_walks_match_packet_kernels(scene):
     assert bool(ok[flip].any(-1).all())
 
     t_max = np.random.RandomState(9).uniform(-1, 4, 512).astype(np.float32)
-    occ = bvh_cuda.trace_any(arrays, _t(ro), _t(rd), _t(t_max)).numpy()
+    occ = tbt.trace_bvh_shadow(arrays, _t(ro), _t(rd), _t(t_max)).numpy()
     want = np.asarray(bvh_pallas.trace_bvh_shadow_packet(
         jarrays, jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(t_max)))
     np.testing.assert_array_equal(occ, want)

@@ -15,7 +15,7 @@ ops/an_cuda.py builds for the launch:
 * the material table against get_material, exactly, for every id and
   glass/mirror toggle;
 * the pixel-centre grids as the kernels index them through the strides
-  of the wrappers' `PixelGrid`, for every memory layout a caller may
+  of the wrappers' `cuda_lib.PixelGrid`, for every memory layout a caller may
   pass, and read in place (no copy) where they are broadcast.
 
 The plain BVH direct light, `direct_light_bvh_plain`, is held to the JAX
@@ -215,12 +215,12 @@ def _grid_layout(x, layout):
                                     "flat", "unfoldable"])
 def test_pixel_grid_matches_the_grids(layout):
     """Lane i reads px[(i // cols) * px_sr + (i % cols) * px_sc] of the
-    grid's storage (pixel_centre in csrc/an_direct.cu): the grids' values
+    grid's storage (pixel_centre in csrc/sampling.cuh): the grids' values
     in the call's order, and the frame's broadcast grids are not copied."""
     px, py = pixel_centers(H, W, "cpu", 517)
     gx, gy = _grid_layout(px, layout), _grid_layout(py, layout)
     shape = gx.shape
-    grid, keep = an_cuda._pixel_grid(gx, gy, shape, torch.device("cpu"))
+    grid, keep = cuda_lib.pixel_grid(gx, gy, shape, torch.device("cpu"))
     i = np.arange(shape.numel())
     r, c = i // grid.cols, i % grid.cols
     for ptr, sr, sc, x in ((grid.px, grid.px_sr, grid.px_sc, gx),
