@@ -7,25 +7,29 @@ Drives the port's three paths through `render_frame` on `cuda`, in
 phases, each printing its result and seconds on a line of its own:
 
   * the bench `baseline` frame: the 5,120 triangle bunny BVH scene at
-    1920x1080, 1 SPP, GI/AO/TAA/SVGF off (kernels K1 and the BVH direct
-    light, K5 with its shadow walks);
+    1920x1080, 1 SPP, GI/AO/TAA/SVGF off (kernels K1, the BVH direct
+    light, K5 with its shadow walks, and the tonemap kernel, the present
+    pass without SVGF);
   * the bench `an_baseline` frame: the analytic scene (floor, albedo,
     glass and mirror spheres, point-light marker) at 800x600 with the
-    same preset and the gradient sky (kernel K3);
+    same preset and the gradient sky (kernel K3 and the tonemap kernel);
   * the bench `full` frame: the bunny scene at 1920x1080 with GI, AO,
     TAA and SVGF on at 1 SPP (K1 on primary rays and, sampling them
     itself, on GI's bounce rays; the BVH direct light at both hits; K2's
-    AO call, sampling its own rays; the SVGF kernel K4), and the analytic
+    AO call, sampling its own rays; the SVGF kernel K4 through its fused
+    entry, the whole present pass in one launch), and the analytic
     scene's `full` preset against the CPU (K3 and K4).
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every csrc/*.cu from the sources, one process
      per source, all at once;
   3. kernels: each kernel on the exact inputs one frame hands it -- the
-     closest-hit kernel and the BVH direct light on a baseline frame's,
-     the analytic direct-light kernel on every call of an an_baseline
-     frame, and on the third frame of a 1080p `full` chain the SVGF
-     kernel, the AO kernel (K2's AO call), the closest-hit kernel's GI
+     closest-hit kernel, the BVH direct light and the tonemap kernel on a
+     baseline frame's, the analytic direct-light kernel on every call of
+     an an_baseline frame and the tonemap kernel on that frame's
+     accumulation too, and on the third frame of a 1080p `full` chain
+     the SVGF kernel's two entries (the filter alone, the fused present),
+     the AO kernel (K2's AO call), the closest-hit kernel's GI
      bounce call and the BVH direct light at the bounce hits
      (unsanitized hits, sky lanes inactive) -- held against its plain
      PyTorch version on the card.  Closest hits: at most 1e-5 of lanes
@@ -35,13 +39,17 @@ phases, each printing its result and seconds on a line of its own:
      equal on live lanes but for at most 1e-3 of them, each off by one
      sample step.  Direct light: the in-kernel disk offsets equal
      lighting._disk_offsets bit for bit; radiance within max abs 2e-6
-     (K3, valid lanes) and 1e-6 (BVH, live lanes).  SVGF: rtol 1e-5 /
-     atol 1e-5 on every pixel.  A NaN fails every check.
+     (K3, valid lanes) and 1e-6 (BVH, live lanes).  SVGF's filter entry:
+     rtol 1e-5 / atol 1e-5 on every pixel against the plain filter; the
+     fused present and the tonemap kernel: max abs 2e-6 on every pixel
+     against the plain present pass, and one device launch a call of
+     `present`.  A NaN fails every check.
      Wrapper and plain times from CUDA events, the kernel alone and the
      launches of one direct-light call from the profiler; each kernel's
      bound (`bound_ms`) from the bytes and operations of these inputs;
   4. frames: 32 chained baseline frames; launch counters are zeroed just
-     before and each kernel of the path must have grown by at least 32;
+     before and each kernel of the path (the tonemap kernel too) must
+     have grown by at least 32;
      the image must be finite and in [0,1]; ms/frame, fps, primary
      Mrays/s and a checksum; the last frame goes to
      out/verify_torch_bvh.png;
@@ -56,7 +64,7 @@ phases, each printing its result and seconds on a line of its own:
      out/verify_torch_analytic.png;
   10. frames_full: 32 chained `full` frames at 1080p (they cross TAA's
      weight steps at frames 8 and 32); closest, bounce, ao, bvh_direct
-     and svgf must each grow by at least 32; the last frame goes to
+     and svgf_present must each grow by at least 32; the last frame goes to
      out/verify_torch_full.png;
   11. reference_full: a 3-frame `full` chain at 270x480 on the card
      against the CPU, so that TAA's history is compared too; the gate of
@@ -81,6 +89,7 @@ import importlib
 import inspect
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -99,6 +108,10 @@ T_RTOL = 1e-5          # t, and p relative to t, on lanes both kernels hit
 N_ATOL = 1e-6          # the unit normal on lanes both kernels hit
 RAD_RTOL, RAD_ATOL = 1e-4, 1e-5  # direct-light radiance on valid lanes
 K3_MAX_ABS = 2e-6      # K3 vs the plain version: the libraries' powf
+# the fused present and the tonemap kernel vs the plain present pass: the
+# kernel's powf (built with --fmad=false) and PyTorch's pow may round the
+# last bits of the gamma curve apart; everything before it is the same bits
+PRESENT_MAX_ABS = 2e-6
 BVH_DIRECT_MAX_ABS = 1e-6  # the BVH direct light, on live lanes
 SVGF_TOL = 1e-5        # SVGF kernel vs plain filter, rtol and atol
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -128,10 +141,21 @@ KERNELS = {  # wrapper key -> record of the JSON line
                  source="opengl_raytracing_tpu_torch/csrc/svgf.cu",
                  replaces="opengl_raytracing_tpu/ops/svgf_pallas.py:68",
                  kernel="svgf_kernel"),
+    "svgf_present": dict(name="svgf_present",
+                         source="opengl_raytracing_tpu_torch/csrc/svgf.cu",
+                         replaces="opengl_raytracing_tpu/ops/svgf_pallas.py:68",
+                         kernel="svgf_present_kernel"),
+    "tonemap": dict(name="tonemap",
+                    source="opengl_raytracing_tpu_torch/csrc/svgf.cu",
+                    replaces="opengl_raytracing_tpu/ops/svgf.py:174",
+                    kernel="tonemap_kernel"),
 }
-BVH_PATH = ("closest", "bvh_direct")
-AN_PATH = ("an_direct",)
-FULL_PATH = ("closest", "bounce", "ao", "bvh_direct", "svgf")
+# the launch counters each path must move (ops/cuda_lib.py:LAUNCHES, one
+# per kernel); no path launches "svgf", the filter entry alone: `full`
+# enters the same body through svgf_present
+BVH_PATH = ("closest", "bvh_direct", "tonemap")
+AN_PATH = ("an_direct", "tonemap")
+FULL_PATH = ("closest", "bounce", "ao", "bvh_direct", "svgf_present")
 
 # The least time the card could take for a kernel's work: the larger of
 # its bytes (each input read once, each output written once) over the
@@ -160,6 +184,8 @@ OPS = dict(
     env=60,             # a mirror/glass pixel: normalize, reflect, sky
     svgf_pixel=40,      # the centre pixel's weights
     svgf_tap=41,        # one in-bounds tap
+    present_pixel=45,   # per channel: the blend 3, exposure 1, the ACES
+                        # quotient 8, the clamp 2, powf 1
     rand=23,            # one sampling.rand draw: adds, max, conversions,
                         # key xors, hash2 (4 LCGs, 2 shifts, 3 xors), / 2^32
     onb=34,             # build_onb: the up select, cross, normalize, cross
@@ -272,22 +298,38 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def is_kernel(key, kernel):
+    """Whether the profiler row `key` (a demangled signature) is the
+    kernel function `kernel`, by its whole name."""
+    return re.search(rf"(?<!\w){re.escape(kernel)}(?!\w)", key) is not None
+
+
 def kernel_ms(fn, kernel, reps=5):
     """Device time of one launch of `kernel` (by name), from the profiler
-    over `reps` calls of `fn`; None if the profiler saw no device time."""
+    over `reps` calls of `fn`.  A profile that comes back without the
+    kernel's row is reported on stderr and taken again; three in a row
+    raise."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and kernel in ev.key:
-            return ev.self_device_time_total / 1e3 / ev.count
-    return None
+    for attempt in range(3):
+        with torch.profiler.profile(
+                activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [ev for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA]
+        for ev in rows:
+            if is_kernel(ev.key, kernel):
+                return ev.self_device_time_total / 1e3 / ev.count
+        print(f"kernel_ms: profile {attempt + 1} of {kernel} has no row for "
+              f"it; device rows: {[ev.key[:60] for ev in rows]}",
+              file=sys.stderr, flush=True)
+    raise AssertionError(f"the profiler saw no launch of {kernel} in three "
+                         f"profiles of {reps} calls")
 
 
 def record_kernel_inputs(bvh, height, width, device, keys,
@@ -301,7 +343,8 @@ def record_kernel_inputs(bvh, height, width, device, keys,
              "ao": (bvh_cuda, "ambient_occlusion"),
              "an_direct": (an_cuda, "direct_light"),
              "bvh_direct": (an_cuda, "direct_light_bvh"),
-             "svgf": (svgf_cuda, "svgf_filter")}
+             "svgf_present": (svgf_cuda, "svgf_present"),
+             "tonemap": (svgf_cuda, "tonemap")}
     calls = {k: [] for k in keys}
     real = {k: getattr(*where[k]) for k in keys}
 
@@ -430,6 +473,40 @@ def check_bvh_direct(args, timer):
                 plain_ms=timer(lambda: lt.direct_light_bvh_plain(**args), 3))
 
 
+def check_present(key, args, ops, timer):
+    """One present-pass kernel (`key`: "svgf_present" or "tonemap") on one
+    call's arguments against the plain present pass (which takes the
+    planes the tonemap kernel does not read as None): max abs
+    PRESENT_MAX_ABS on every pixel; `present` itself must be one device
+    launch on these inputs; the bound from the planes read, the sRGB
+    written and `ops`; times."""
+    import torch
+    from opengl_raytracing_tpu_torch.ops import svgf_cuda
+    from opengl_raytracing_tpu_torch.ops.svgf import present, present_plain
+    fn = getattr(svgf_cuda, key)
+    plain_args = {**dict(motion=None, gpos=None, gnrm=None), **args}
+    got, want = fn(**args), present_plain(**plain_args)
+    err = float((got - want).abs().max())
+    if got.shape != want.shape or not err <= PRESENT_MAX_ABS \
+            or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{key} disagrees with the plain present pass: "
+                             f"max abs {err}")
+    per_present = launches_per_call(lambda: present(**plain_args))
+    if per_present != 1:
+        raise AssertionError(f"present makes {per_present} device launches "
+                             f"a call, not 1")
+    h, w = got.shape[:2]
+    planes = [v for v in args.values() if isinstance(v, torch.Tensor)]
+    return dict(pixels=h * w, max_abs_err=err,
+                bitwise=bool(torch.equal(got, want)),
+                launches_per_present=per_present,
+                **bound(unique_bytes(*planes) + 12 * h * w, ops),
+                ms=timer(lambda: fn(**args), 20),
+                kernel_ms=kernel_ms(lambda: fn(**args),
+                                    KERNELS[key]["kernel"]),
+                plain_ms=timer(lambda: present_plain(**plain_args), 3))
+
+
 def _hit_errs(h, hp):
     """(t max abs, t max rel, p max abs over t, n max abs) of a kernel's
     hit against the plain walk's, on the lanes both hit; NaN where a
@@ -450,8 +527,8 @@ def _hit_errs(h, hp):
 
 def check_kernels(bvh, height=HEIGHT, width=WIDTH, device="cuda",
                   timer=None):
-    """The closest-hit kernel and the BVH direct light against their
-    plain versions on the inputs of one baseline frame."""
+    """The closest-hit kernel, the BVH direct light and the tonemap kernel
+    against their plain versions on the inputs of one baseline frame."""
     from opengl_raytracing_tpu_torch.ops import bvh_cuda
     from opengl_raytracing_tpu_torch.ops import bvh_traverse as plain
     timer = timer or cuda_ms
@@ -487,6 +564,10 @@ def check_kernels(bvh, height=HEIGHT, width=WIDTH, device="cuda",
         plain_ms=timer(lambda: plain.trace_bvh(arrays, ro, rd, eps), 2))
 
     records["bvh_direct"] = check_bvh_direct(calls["bvh_direct"][0], timer)
+
+    records["tonemap"] = check_present(
+        "tonemap", calls["tonemap"][0],
+        height * width * OPS["present_pixel"], timer)
     return records
 
 
@@ -495,7 +576,9 @@ def check_an_kernel(height=AN_HEIGHT, width=AN_WIDTH, device="cuda",
     """The analytic direct-light kernel against its plain version on every
     call one an_baseline frame makes (primary hits, the mirror's and the
     glass's three secondary hits): offsets bit for bit, radiance on the
-    valid lanes; times, launches and the bound on the primary call."""
+    valid lanes; times, launches and the bound on the primary call.  And
+    the tonemap kernel on the frame's accumulation at this size, as
+    check_kernels holds it at the baseline frame's."""
     from opengl_raytracing_tpu_torch.ops import an_cuda
     from opengl_raytracing_tpu_torch.ops import lighting as lt
     from opengl_raytracing_tpu_torch.ops.materials import get_material
@@ -529,7 +612,10 @@ def check_an_kernel(height=AN_HEIGHT, width=AN_WIDTH, device="cuda",
         an_cuda.direct_light(**args)
     # bytes: n, v and the material id of every pixel, p of the diffuse
     # ones, the pixel grids, the radiance written
-    return dict(calls=len(errs), pixels=height * width, valid_lanes=lanes,
+    tonemap = check_present("tonemap", calls["tonemap"][0],
+                            height * width * OPS["present_pixel"], timer)
+    return dict(tonemap_an=tonemap, an_direct=dict(
+                calls=len(errs), pixels=height * width, valid_lanes=lanes,
                 max_abs_err=max(errs), max_abs_err_per_call=errs,
                 bad_lanes=bad, offsets="bitwise", env_pixels=n_env,
                 **bound(unique_bytes(h.n, h.mat, args["vdir"], args["px"],
@@ -540,13 +626,14 @@ def check_an_kernel(height=AN_HEIGHT, width=AN_WIDTH, device="cuda",
                 ms=timer(call, 20),
                 kernel_ms=kernel_ms(call, KERNELS["an_direct"]["kernel"]),
                 launches_per_call=launches_per_call(call),
-                plain_ms=timer(lambda: lt.direct_light_plain(**args), 5))
+                plain_ms=timer(lambda: lt.direct_light_plain(**args), 5)))
 
 
 def check_full_kernels(bvh, height=HEIGHT, width=WIDTH, device="cuda",
                        timer=None):
     """On the inputs of the third frame of a 1080p `full` chain: the SVGF
-    kernel against the plain filter, the AO kernel, and the bounce calls
+    kernel's filter entry against the plain filter and its fused entry
+    against the plain present pass, the AO kernel, and the bounce calls
     (incoherent rays, sky lanes inactive) of the closest-hit kernel and of
     the BVH direct light against the plain versions."""
     import torch
@@ -556,7 +643,7 @@ def check_full_kernels(bvh, height=HEIGHT, width=WIDTH, device="cuda",
     calls = record_kernel_inputs(bvh, height, width, device, FULL_PATH,
                                  "full", PROFILE_FRAME)
     records = {}
-    args = calls["svgf"][0]
+    args = calls["svgf_present"][0]
     got = svgf_cuda.svgf_filter(**args)
     want = svgf_filter(**args)
     err = (got - want).abs()
@@ -565,16 +652,20 @@ def check_full_kernels(bvh, height=HEIGHT, width=WIDTH, device="cuda",
         raise AssertionError(f"svgf_filter disagrees with the plain filter on "
                              f"{bad} pixels (max abs {float(err.max())})")
     taps = (7 * width - 12) * (7 * height - 12)  # in-bounds taps, radius 3
+    filter_ops = height * width * OPS["svgf_pixel"] + taps * OPS["svgf_tap"]
     records["svgf"] = dict(
         pixels=height * width, max_abs_err=float(err.max()), bad_pixels=bad,
+        bitwise=bool(torch.equal(got, want)),
         **bound(unique_bytes(*(args[k] for k in ("accum", "motion", "gpos",
                                                   "gnrm")))
-                + 12 * height * width,
-                height * width * OPS["svgf_pixel"] + taps * OPS["svgf_tap"]),
+                + 12 * height * width, filter_ops),
         ms=timer(lambda: svgf_cuda.svgf_filter(**args), 20),
         kernel_ms=kernel_ms(lambda: svgf_cuda.svgf_filter(**args),
                             KERNELS["svgf"]["kernel"]),
         plain_ms=timer(lambda: svgf_filter(**args), 3))
+    # the same planes in, sRGB out in place of the filtered image
+    records["svgf_present"] = check_present(
+        "svgf_present", args, filter_ops + height * width * OPS["present_pixel"], timer)
 
     records["ao"] = check_ao(calls["ao"][0], timer)
     records["bounce"] = check_bounce(calls["bounce"][0], timer)
@@ -719,14 +810,14 @@ def run_frames(bvh, height, width, keys, png, smi, preset_name="baseline"):
                  preset_name=preset_name)
     torch.cuda.synchronize()
     sec = (time.time() - t_frames) / FRAMES
-    launches = {k: LAUNCHES[k] for k in keys}
+    launches = dict(LAUNCHES)  # every counter; the path's are checked
     img = out.image
     if img.shape != (height, width, 3) or not bool(torch.isfinite(img).all()):
         raise AssertionError("frame is not a finite [H,W,3] image")
     if float(img.min()) < 0.0 or float(img.max()) > 1.0:
         raise AssertionError("frame leaves [0,1]")
-    if min(launches.values()) < FRAMES:
-        raise AssertionError(f"kernels not launched once per frame: "
+    if min(launches[k] for k in keys) < FRAMES:
+        raise AssertionError(f"kernels {keys} not launched once per frame: "
                              f"{launches}")
     checksum = float(torch.stack(sums).sum())
     os.makedirs(os.path.join(ROOT, "out"), exist_ok=True)
@@ -794,7 +885,7 @@ def main() -> int:
     t0 = time.time()
     _, bvh = scene("cuda")
     records = check_kernels(bvh)
-    records["an_direct"] = check_an_kernel()
+    records.update(check_an_kernel())
     records.update(check_full_kernels(bvh))
     phase("kernels", t0, **records)
 
@@ -845,14 +936,19 @@ def main() -> int:
                                         frames_full["ms_per_frame"], "full",
                                         PROFILE_FRAME))
 
-    # each kernel's launches in the newest path that runs it
-    launches = {**frames_an["launches"], **frames_full["launches"]}
+    # each kernel's own count in the newest path that must run it; a
+    # kernel no path runs (the filter entry alone) as `full` counted it
+    launches = dict(frames_full["launches"])
+    for path, run in ((AN_PATH, frames_an), (BVH_PATH, frames),
+                      (FULL_PATH, frames_full)):
+        launches.update({k: run["launches"][k] for k in path})
 
     def line(k):
         r = records[k]
         return dict(name=KERNELS[k]["name"], route="cuda",
                     source=KERNELS[k]["source"],
                     replaces=KERNELS[k]["replaces"], launches=launches[k],
+                    on_main_path=k in BVH_PATH + AN_PATH + FULL_PATH,
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], kernel_ms=r["kernel_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -875,6 +971,7 @@ BVH_STAGES = (
     ("primary_trace", "ops.bvh_cuda", "trace_closest"),
     ("direct_light", "ops.lighting", "direct_light_bvh"),
     ("store", "models.pipeline", "resolve_taa"),
+    ("tonemap", "ops.svgf_cuda", "tonemap"),
     ("present", "models.pipeline", "present"),
 )
 AN_STAGES = (
@@ -885,6 +982,7 @@ AN_STAGES = (
     ("mirror", "ops.lighting", "shade_mirror"),
     ("glass", "ops.lighting", "shade_glass"),
     ("store", "models.pipeline", "resolve_taa"),
+    ("tonemap", "ops.svgf_cuda", "tonemap"),
     ("present", "models.pipeline", "present"),
 )
 FULL_STAGES = (
@@ -896,7 +994,7 @@ FULL_STAGES = (
     ("gi", "ops.lighting", "one_bounce_gi_bvh"),
     ("ao", "ops.lighting", "compute_ao"),
     ("taa", "models.pipeline", "resolve_taa"),
-    ("svgf", "ops.svgf_cuda", "svgf_filter"),
+    ("svgf", "ops.svgf_cuda", "svgf_present"),
     ("present", "models.pipeline", "present"),
 )
 
@@ -968,7 +1066,7 @@ def profile(bvh, height, width, stages, frame_ms, preset_name="baseline",
             busy_ms += self_ms
             launches += ev.count
             for rec in KERNELS.values():
-                if rec["kernel"] in ev.key:
+                if is_kernel(ev.key, rec["kernel"]):
                     kernels[rec["kernel"]] = dict(device_ms=self_ms,
                                                   launches=ev.count)
         elif is_stage:
@@ -983,6 +1081,14 @@ def profile(bvh, height, width, stages, frame_ms, preset_name="baseline",
                 device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / frame_ms,
                 kernel_launches=launches, stages_device_ms=stages_ms,
                 kernels_device_ms=kernels,
+                # the present pass: PyTorch's device time inside the stage
+                # (its kernel, launched through ctypes, falls outside the
+                # range) beside the kernel's own row
+                present=dict(
+                    torch_device_ms=stages_ms.get("present"),
+                    kernel={k: v for k, v in kernels.items()
+                            if k in (KERNELS["svgf_present"]["kernel"],
+                                     KERNELS["tonemap"]["kernel"])}),
                 top_ops=[dict(op=k, calls=c, device_ms=ms)
                          for ms, c, k in ops[:10]])
 

@@ -6,8 +6,8 @@ reference: every module here is held against its JAX counterpart by the
 kernels are CUDA C++ in `csrc/`, built with nvcc at first use
 (ops/cuda_lib.py): the BVH closest-hit and any-hit walks
 (ops/bvh_cuda.py), the analytic scene's direct light and the BVH
-scene's BRDF tail (ops/an_cuda.py), and the SVGF filter
-(ops/svgf_cuda.py).
+scene's BRDF tail (ops/an_cuda.py), and the present pass, one launch
+with the SVGF filter or without it (ops/svgf_cuda.py).
 
 The slices ported so far render both scenes (the bunny BVH scene; the
 analytic scene: floor, albedo, glass and mirror spheres, point-light

@@ -1,6 +1,7 @@
-// SVGF-lite 7x7 variance-guided filter for Hopper (sm_90a).
+// The present pass for Hopper (sm_90a): SVGF-lite 7x7 variance-guided
+// filter, strength blend, ACES and gamma, one launch.
 //
-// svgf_kernel replaces the TPU kernel K4,
+// The filter replaces the TPU kernel K4,
 //   opengl_raytracing_tpu/ops/svgf_pallas.py  _kernel
 //   (launched by svgf_filter_pallas),
 // and computes what the plain PyTorch version
@@ -9,159 +10,426 @@
 // weighted mean of its 7x7 neighbourhood, each tap weighted by
 // exp(-(colour distance * k + position distance * 0.02 + normal distance
 // * 2)) times a variance boost; taps outside the image weigh 0, and a pixel
-// whose weights sum to 0 keeps its own colour.
+// whose weights sum to 0 keeps its own colour.  The TPU side left the tail
+// of the pass (ops/svgf.py:blend_tonemap: raw + (filtered - raw) * s,
+// exposure, the ACES quotient, the clamps, pow(x, 1/2.2)) to its compiler's
+// fusion; here it is the last thing a thread does to its pixel.
 //
-// Design: one thread per output pixel, a 32x8 block of pixels.  The block
-// first stages its (8+6)x(32+6) halo tile of colour, position and normal
-// in shared memory (zeros outside the image), normalising each normal once
-// as it is loaded, then every thread runs its 49 taps out of shared memory.
-// None of the TPU kernel's schedule carries over: its 8-row VMEM bands,
-// 128-lane padding, 12-plane stack and DMA semaphores were for the TPU.
+// Three kernels share the device functions below:
+//   svgf_kernel          filtered rgb (held alone to the plain filter);
+//   svgf_present_kernel  the same body ending in the tail: sRGB, and no
+//                        filtered image in device memory;
+//   tonemap_kernel       the tail alone over accum's rgb, SVGF off.
+//
+// What bounds the filter on this card: instruction issue, not bytes.  A
+// tap is 46 float instructions (three distances, the exponent, expf's 8,
+// the weight, four sums; nothing contracts under --fmad=false), 49 taps a
+// pixel, against 60 bytes of device memory a pixel.  An SM issues four
+// warp instructions a cycle, so whatever is not one of those 46 costs time
+// one for one.  The design spends as little as it can on the rest:
+//
+//   * A thread computes a run of kRun pixels along a row.  For each of its
+//     7 tile rows it loads the run's kRun + 6 tile pixels once (two
+//     16-byte shared loads and a 4-byte one each: r g b px | py pz nx ny
+//     | nz) and uses those registers for every pixel of the run the tap
+//     belongs to: 1.7 shared loads a tap at a run of 2 (one pixel a thread
+//     took 9 scalar loads a tap).  Each pixel still sees its taps dy outer,
+//     dx inner.  The loop over tile rows stays rolled; inside it the taps
+//     of a row are straight-line code with no branch, so the compiler
+//     interleaves the run's independent pixels.
+//   * A tile row lies in shared memory with its columns run-strided
+//     (column x at (x % kRun) * kStride + x / kRun): threads whose runs
+//     start kRun columns apart read neighbouring 16 bytes, so the wide
+//     loads have no bank conflicts.
+//   * A block whose whole halo tile lies inside the image (all but the
+//     image's rim) runs the body without any bounds test.  Rim blocks
+//     test each tile row and tile pixel once (not each tap): outside the
+//     image it weighs 0, so it is skipped.
+//   * The numbers (probe_svgf.py --sweep times others): a run of 2, a
+//     32 x 16 output tile a block of 256 threads, 64 registers, so that an
+//     SM holds 32 warps.  The 38 x 22 halo tile reads each input 1.63
+//     times (the 32 x 8 tile it replaces: 2.08 times).  A run of 4 issues
+//     1% fewer instructions but needs 110 registers, 16 warps an SM, and
+//     is slower; wider and taller tiles read less twice but leave the SMs
+//     fewer blocks to overlap one block's tile load with another's taps.
+//     Each thread gathers whole tile pixels: the colour as one 16-byte
+//     load, position and normal as 4-byte loads 12 bytes apart, which the
+//     L1 serves from the lines a warp shares.
 //
 // Rounding: the plain version's expressions in its order (dot products
-// x, y, z; the taps dy outer, dx inner; `normalize` as
+// x, y, z; the taps dy outer, dx inner; `normalize` once a tile pixel as
 // x / max(sqrt(max(d, 0)), 1e-12)), IEEE expf, division and sqrtf, and
-// --fmad=false, so no product is contracted into an FMA.
-//
-// What bounds it on this card: 49 taps of ~25 FLOPs and one expf each per
-// pixel, out of shared memory; device memory sees the four HWC inputs
-// (48 bytes a pixel, each read about 1.6 times through the halo) and the
-// 12-byte output.  At 1920x1080 that is ~2.6 GFLOP and ~0.2 GB.
-// Left for later: TMA loads of the halo tile, several pixels per thread.
+// --fmad=false, so no product is contracted into an FMA.  Two operations
+// of the plain version that cannot change a value are left out:
+// max(1 - nd, 0) after nd was clamped to [-1, 1], and gamma's max(x, 0)
+// after the clamp to [0, 1].  The card's float32 peak counts an FMA as two
+// operations, so a kernel that contracts nothing can reach half of it at
+// most.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kRadius = 3;
-constexpr int kBX = 32, kBY = 8;                   // output pixels per block
+constexpr int kRadius = 3, kTaps = 2 * kRadius + 1;
+constexpr int kRun = 2;               // output pixels a thread, along a row
+constexpr int kBX = 32, kBY = 16;     // output pixels of a block
+constexpr int kBlocks = 4;            // blocks an SM the registers allow for
+constexpr int kThreadsX = kBX / kRun;              // threads along a row
+constexpr int kThreads = kThreadsX * kBY;
 constexpr int kTX = kBX + 2 * kRadius;             // halo tile width
 constexpr int kTY = kBY + 2 * kRadius;             // halo tile height
+constexpr int kCols = kRun + 2 * kRadius;          // tile columns a run reads
+// A tile row in shared memory holds its columns run-strided: column x at
+// (x % kRun) * kStride + x / kRun, so that the threads of a row, whose
+// runs start kRun columns apart, read neighbouring 16 bytes.  A warp spans
+// 32 / kThreadsX thread rows: the pitch puts them on different banks.
+constexpr int kStride = 24;
+constexpr int kPitch = kStride * kRun;
+constexpr int kTile = kPitch * kTY;
+constexpr int kLoads = (kTX * kTY + kThreads - 1) / kThreads;  // a thread
+constexpr size_t kSharedBytes = (size_t)kTile * (2 * sizeof(float4) + 4);
 constexpr float kKPos = 0.02f, kKNrm = 2.0f;       // rt_present.frag:160-161
 constexpr float kY0 = 0.299f, kY1 = 0.587f, kY2 = 0.114f;
+constexpr float kInvGamma = (float)(1.0 / 2.2);
+constexpr int kTonePixels = 4, kToneThreads = 256;
+static_assert(kBX % kRun == 0 && (kThreadsX >= 32 || 32 % kThreadsX == 0),
+              "a warp covers whole thread rows");
+static_assert(kPitch >= kTX && (kThreadsX >= 32 || kPitch % 32 == kThreadsX),
+              "a warp's thread rows read disjoint banks");
 
 struct Params {
   float var_max, k_var, k_color, k_var_m, k_color_m;
 };
 
-__global__ void __launch_bounds__(kBX * kBY)
-svgf_kernel(const float* __restrict__ accum, const float* __restrict__ motion,
-            const float* __restrict__ gpos, const float* __restrict__ gnrm,
-            int h, int w, Params prm, float* __restrict__ out) {
-  // plane k of the tile: 0-2 colour, 3-5 position, 6-8 unit normal
-  __shared__ float tile[9][kTY][kTX];
-  const int x0 = blockIdx.x * kBX - kRadius, y0 = blockIdx.y * kBY - kRadius;
-  const int tid = threadIdx.y * kBX + threadIdx.x;
-  for (int k = tid; k < kTX * kTY; k += kBX * kBY) {
-    const int ty = k / kTX, tx = k % kTX;
+struct Tone {
+  float strength, exposure;
+};
+
+// One channel of ops/svgf.py:blend_tonemap: the strength blend, exposure,
+// the ACES quotient (ops/tonemap.py:aces_tonemap), the clamp, gamma.
+__device__ __forceinline__ float tone_channel(float raw, float fil, Tone t) {
+  const float lin = raw + (fil - raw) * t.strength;
+  const float x = lin * t.exposure;
+  float m = (x * (2.51f * x + 0.03f)) / (x * (2.43f * x + 0.59f) + 0.14f);
+  m = m < 0.0f ? 0.0f : (m > 1.0f ? 1.0f : m);
+  return powf(m, kInvGamma);
+}
+
+// min(max(x, lo), hi) that keeps a NaN, as torch.clamp does: one
+// instruction each (fminf and fmaxf would drop the NaN).
+__device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
+  float y;
+  asm("max.NaN.f32 %0, %1, %2;\n\tmin.NaN.f32 %0, %0, %3;"
+      : "=&f"(y) : "f"(x), "f"(lo), "f"(hi));
+  return y;
+}
+
+// Where tile pixel (row ty, column tx) lies in a shared plane.
+__device__ __forceinline__ int tile_at(int ty, int tx) {
+  return ty * kPitch + (tx % kRun) * kStride + tx / kRun;
+}
+
+// Stage the block's halo tile: plane a holds r g b px, plane b py pz nx ny,
+// plane c nz, the normal normalised; zeros outside the image.  A thread
+// takes kLoads tile pixels and issues all their device loads before it
+// uses any, so that the block waits for device memory once.
+template <bool kInterior>
+__device__ __forceinline__ void load_tile(
+    float4* __restrict__ a, float4* __restrict__ b, float* __restrict__ c,
+    const float* __restrict__ accum, const float* __restrict__ gpos,
+    const float* __restrict__ gnrm, int h, int w, int x0, int y0, int tid) {
+  float4 col[kLoads];
+  float pos[kLoads][3], nrm[kLoads][3];
+#pragma unroll
+  for (int n = 0; n < kLoads; ++n) {
+    const int k = tid + n * kThreads;
+    const int ty = k / kTX, tx = k - ty * kTX;
     const int gx = x0 + tx, gy = y0 + ty;
-    float v[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    if (gx >= 0 && gx < w && gy >= 0 && gy < h) {
+    col[n] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int e = 0; e < 3; ++e) pos[n][e] = nrm[n][e] = 0.0f;
+    if (k < kTX * kTY &&
+        (kInterior || (gx >= 0 && gx < w && gy >= 0 && gy < h))) {
       const int64_t i = (int64_t)gy * w + gx;
-      const float4 c = __ldg(reinterpret_cast<const float4*>(accum) + i);
-      v[0] = c.x;
-      v[1] = c.y;
-      v[2] = c.z;
-      v[3] = __ldg(gpos + 3 * i);
-      v[4] = __ldg(gpos + 3 * i + 1);
-      v[5] = __ldg(gpos + 3 * i + 2);
-      const float nx = __ldg(gnrm + 3 * i), ny = __ldg(gnrm + 3 * i + 1),
-                  nz = __ldg(gnrm + 3 * i + 2);
-      float d = nx * nx + ny * ny + nz * nz;
-      d = d < 0.0f ? 0.0f : d;
-      float len = sqrtf(d);
-      len = len < 1e-12f ? 1e-12f : len;
-      v[6] = nx / len;
-      v[7] = ny / len;
-      v[8] = nz / len;
+      col[n] = __ldg(reinterpret_cast<const float4*>(accum) + i);
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        pos[n][e] = __ldg(gpos + 3 * i + e);
+        nrm[n][e] = __ldg(gnrm + 3 * i + e);
+      }
     }
-    for (int p = 0; p < 9; ++p) tile[p][ty][tx] = v[p];
   }
-  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < kLoads; ++n) {
+    const int k = tid + n * kThreads;
+    if (k >= kTX * kTY) break;
+    const int ty = k / kTX, tx = k - ty * kTX;
+    const float nx = nrm[n][0], ny = nrm[n][1], nz = nrm[n][2];
+    float d = nx * nx + ny * ny + nz * nz;
+    d = d < 0.0f ? 0.0f : d;
+    float len = sqrtf(d);
+    len = len < 1e-12f ? 1e-12f : len;  // a zero normal stays zero
+    const int t = tile_at(ty, tx);
+    a[t] = make_float4(col[n].x, col[n].y, col[n].z, pos[n][0]);
+    b[t] = make_float4(pos[n][1], pos[n][2], nx / len, ny / len);
+    c[t] = nz / len;
+  }
+}
 
-  const int x = blockIdx.x * kBX + threadIdx.x;
-  const int y = blockIdx.y * kBY + threadIdx.y;
-  if (x >= w || y >= h) return;
-  const int cx = threadIdx.x + kRadius, cy = threadIdx.y + kRadius;
-  const int64_t i = (int64_t)y * w + x;
+// What a pixel's 49 weights share (rt_present.frag:139-166).
+struct Centre {
+  float r, g, b, px, py, pz, nx, ny, nz;
+  float k_col, var_boost, w_off;
+};
 
-  const float cr = tile[0][cy][cx], cg = tile[1][cy][cx], cb = tile[2][cy][cx];
-  const float m2 = __ldg(accum + 4 * i + 3);
-  const float l = cr * kY0 + cg * kY1 + cb * kY2;
+__device__ __forceinline__ Centre centre_of(float4 va, float4 vb, float vc,
+                                            float m2, float mx, float my,
+                                            Params prm) {
+  Centre ce;
+  ce.r = va.x, ce.g = va.y, ce.b = va.z;
+  ce.px = va.w, ce.py = vb.x, ce.pz = vb.y;
+  ce.nx = vb.z, ce.ny = vb.w, ce.nz = vc;
+  const float l = ce.r * kY0 + ce.g * kY1 + ce.b * kY2;
   float var_c = m2 - l * l;
   var_c = var_c < 0.0f ? 0.0f : (var_c > prm.var_max ? prm.var_max : var_c);
-  const float mx = __ldg(motion + 2 * i), my = __ldg(motion + 2 * i + 1);
   const float mot = sqrtf(mx * mx + my * my);
   float t = (mot - 0.005f) / (float)(0.05 - 0.005);  // smoothstep(.005, .05)
   t = t < 0.0f ? 0.0f : (t > 1.0f ? 1.0f : t);
   t = t * t * (3.0f - 2.0f * t);
   const float k_var = prm.k_var + (prm.k_var_m - prm.k_var) * t;
   const float k_color = prm.k_color + (prm.k_color_m - prm.k_color) * t;
-  const float var_boost = 1.0f + var_c * (1.0f + k_var * 0.5f);
-  const float w_off = var_boost * (1.0f + var_c * 4.0f);
-  const float k_col = k_color * 0.3f + 0.05f;
-  const float px = tile[3][cy][cx], py = tile[4][cy][cx], pz = tile[5][cy][cx];
-  const float nx = tile[6][cy][cx], ny = tile[7][cy][cx], nz = tile[8][cy][cx];
+  ce.var_boost = 1.0f + var_c * (1.0f + k_var * 0.5f);
+  ce.w_off = ce.var_boost * (1.0f + var_c * 4.0f);
+  ce.k_col = k_color * 0.3f + 0.05f;
+  return ce;
+}
 
-  float ar = 0.0f, ag = 0.0f, ab = 0.0f, aw = 0.0f;
-  for (int dy = -kRadius; dy <= kRadius; ++dy) {
-    const int ty = cy + dy;
-    const bool row_ok = y + dy >= 0 && y + dy < h;
-    for (int dx = -kRadius; dx <= kRadius; ++dx) {
-      if (!row_ok || x + dx < 0 || x + dx >= w) continue;  // weight 0
-      const int tx = cx + dx;
-      const float r = tile[0][ty][tx], g = tile[1][ty][tx],
-                  b = tile[2][ty][tx];
-      const float dr = r - cr, dg = g - cg, db = b - cb;
-      const float dc2 = dr * dr + dg * dg + db * db;
-      const float qx = tile[3][ty][tx] - px, qy = tile[4][ty][tx] - py,
-                  qz = tile[5][ty][tx] - pz;
-      const float dist2 = qx * qx + qy * qy + qz * qz;
-      float nd = nx * tile[6][ty][tx] + ny * tile[7][ty][tx] +
-                 nz * tile[8][ty][tx];
-      nd = nd < -1.0f ? -1.0f : (nd > 1.0f ? 1.0f : nd);
-      float ndist = 1.0f - nd;
-      ndist = ndist < 0.0f ? 0.0f : ndist;
-      const float expo = dc2 * k_col + dist2 * kKPos + ndist * kKNrm;
-      const float wgt = (dx == 0 && dy == 0 ? var_boost : w_off) * expf(-expo);
-      ar = ar + r * wgt;
-      ag = ag + g * wgt;
-      ab = ab + b * wgt;
-      aw = aw + wgt;
+// The block's pixels out of its staged tile.  Thread (tx, ty) owns the
+// pixels (bx0 + tx * kRun + j, by0 + ty), j < kRun.
+template <bool kInterior, bool kPresent>
+__device__ __forceinline__ void filter_runs(
+    const float4* __restrict__ a, const float4* __restrict__ b,
+    const float* __restrict__ c, const float* __restrict__ accum,
+    const float* __restrict__ motion, int h, int w, int bx0, int by0,
+    Params prm, Tone tone, float* __restrict__ out) {
+  const int xs = bx0 + threadIdx.x * kRun;
+  const int y = by0 + threadIdx.y;
+  if (!kInterior && (xs >= w || y >= h)) return;
+
+  Centre ce[kRun];
+  float ar[kRun], ag[kRun], ab[kRun], aw[kRun];
+  // the run's tap (row 0, column col) is tile pixel t0 + tile_at(0, col):
+  // its columns start a multiple of kRun into the tile row
+  const int t0 = threadIdx.y * kPitch + threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < kRun; ++j) {
+    const int t = t0 + tile_at(kRadius, j + kRadius);
+    // a run that leaves the image on the right computes on the tile's
+    // zeros there and stores nothing
+    const bool in = kInterior || xs + j < w;
+    const int64_t i = (int64_t)y * w + (in ? xs + j : xs);
+    ce[j] = centre_of(a[t], b[t], c[t], __ldg(accum + 4 * i + 3),
+                      __ldg(motion + 2 * i), __ldg(motion + 2 * i + 1), prm);
+    ar[j] = ag[j] = ab[j] = aw[j] = 0.0f;
+  }
+
+#pragma unroll 1
+  for (int r = 0; r < kTaps; ++r) {
+    if (!kInterior && (y - kRadius + r < 0 || y - kRadius + r >= h))
+      continue;  // a tile row outside the image weighs 0
+    const bool centre_row = r == kRadius;
+#pragma unroll
+    for (int col = 0; col < kCols; ++col) {
+      if (!kInterior) {  // and so does a tile pixel left or right of it
+        const int gx = xs - kRadius + col;
+        if (gx < 0 || gx >= w) continue;
+      }
+      const int t = t0 + tile_at(r, col);
+      const float4 va = a[t], vb = b[t];
+      const float vc = c[t];
+#pragma unroll
+      for (int j = 0; j < kRun; ++j) {
+        const int dx = col - j;  // the tap's column among pixel j's 7
+        if (dx < 0 || dx >= kTaps) continue;
+        const Centre& p = ce[j];
+        const float dr = va.x - p.r, dg = va.y - p.g, db = va.z - p.b;
+        const float dc2 = dr * dr + dg * dg + db * db;
+        const float qx = va.w - p.px, qy = vb.x - p.py, qz = vb.y - p.pz;
+        const float dist2 = qx * qx + qy * qy + qz * qz;
+        const float nd = p.nx * vb.z + p.ny * vb.w + p.nz * vc;
+        const float ndist = 1.0f - clamp_nan(nd, -1.0f, 1.0f);
+        const float expo = dc2 * p.k_col + dist2 * kKPos + ndist * kKNrm;
+        const float wgt = (dx == kRadius && centre_row ? p.var_boost
+                                                       : p.w_off) *
+                          expf(-expo);
+        ar[j] = ar[j] + va.x * wgt;
+        ag[j] = ag[j] + va.y * wgt;
+        ab[j] = ab[j] + va.z * wgt;
+        aw[j] = aw[j] + wgt;
+      }
     }
   }
-  float* o = out + 3 * i;
-  if (aw <= 0.0f) {
-    o[0] = cr;
-    o[1] = cg;
-    o[2] = cb;
-  } else {
-    const float den = aw < 1e-20f ? 1e-20f : aw;
-    o[0] = ar / den;
-    o[1] = ag / den;
-    o[2] = ab / den;
+
+#pragma unroll
+  for (int j = 0; j < kRun; ++j) {
+    if (!kInterior && xs + j >= w) break;
+    float fr = ce[j].r, fg = ce[j].g, fb = ce[j].b;
+    if (!(aw[j] <= 0.0f)) {
+      const float den = aw[j] < 1e-20f ? 1e-20f : aw[j];
+      fr = ar[j] / den;
+      fg = ag[j] / den;
+      fb = ab[j] / den;
+    }
+    float* o = out + 3 * ((int64_t)y * w + xs + j);
+    if (kPresent) {
+      o[0] = tone_channel(ce[j].r, fr, tone);
+      o[1] = tone_channel(ce[j].g, fg, tone);
+      o[2] = tone_channel(ce[j].b, fb, tone);
+    } else {
+      o[0] = fr;
+      o[1] = fg;
+      o[2] = fb;
+    }
   }
+}
+
+template <bool kPresent>
+__device__ __forceinline__ void svgf_block(
+    const float* __restrict__ accum, const float* __restrict__ motion,
+    const float* __restrict__ gpos, const float* __restrict__ gnrm, int h,
+    int w, Params prm, Tone tone, float* __restrict__ out) {
+  extern __shared__ float4 tile[];
+  float4* a = tile;
+  float4* b = a + kTile;
+  float* c = reinterpret_cast<float*>(b + kTile);
+  const int bx0 = blockIdx.x * kBX, by0 = blockIdx.y * kBY;
+  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
+  // the whole halo tile inside the image: the same for the whole block
+  const bool interior = bx0 >= kRadius && bx0 + kBX + kRadius <= w &&
+                        by0 >= kRadius && by0 + kBY + kRadius <= h;
+  if (interior) {
+    load_tile<true>(a, b, c, accum, gpos, gnrm, h, w, bx0 - kRadius,
+                    by0 - kRadius, tid);
+    __syncthreads();
+    filter_runs<true, kPresent>(a, b, c, accum, motion, h, w, bx0, by0, prm,
+                                tone, out);
+  } else {
+    load_tile<false>(a, b, c, accum, gpos, gnrm, h, w, bx0 - kRadius,
+                     by0 - kRadius, tid);
+    __syncthreads();
+    filter_runs<false, kPresent>(a, b, c, accum, motion, h, w, bx0, by0, prm,
+                                 tone, out);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocks)
+svgf_kernel(const float* __restrict__ accum, const float* __restrict__ motion,
+            const float* __restrict__ gpos, const float* __restrict__ gnrm,
+            int h, int w, Params prm, float* __restrict__ out) {
+  svgf_block<false>(accum, motion, gpos, gnrm, h, w, prm, Tone{0.0f, 0.0f},
+                    out);
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocks)
+svgf_present_kernel(const float* __restrict__ accum,
+                    const float* __restrict__ motion,
+                    const float* __restrict__ gpos,
+                    const float* __restrict__ gnrm, int h, int w, Params prm,
+                    Tone tone, float* __restrict__ out) {
+  svgf_block<true>(accum, motion, gpos, gnrm, h, w, prm, tone, out);
+}
+
+// The tail alone, SVGF off: filtered == raw.  A thread takes kTonePixels
+// neighbouring pixels: 16-byte loads, and where all are inside the image
+// three 16-byte stores.
+__global__ void __launch_bounds__(kToneThreads)
+tonemap_kernel(const float* __restrict__ accum, int64_t n, Tone tone,
+               float* __restrict__ out) {
+  const int64_t i0 =
+      ((int64_t)blockIdx.x * kToneThreads + threadIdx.x) * kTonePixels;
+  if (i0 >= n) return;
+  float v[3 * kTonePixels];
+#pragma unroll
+  for (int k = 0; k < kTonePixels; ++k) {
+    // a pixel past the end repeats the last one and is not stored
+    const int64_t i = i0 + k < n ? i0 + k : n - 1;
+    const float4 col = __ldg(reinterpret_cast<const float4*>(accum) + i);
+    v[3 * k] = tone_channel(col.x, col.x, tone);
+    v[3 * k + 1] = tone_channel(col.y, col.y, tone);
+    v[3 * k + 2] = tone_channel(col.z, col.z, tone);
+  }
+  if (i0 + kTonePixels <= n) {
+    float4* o = reinterpret_cast<float4*>(out + 3 * i0);
+#pragma unroll
+    for (int k = 0; k < 3 * kTonePixels / 4; ++k)
+      o[k] = make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 3 * kTonePixels; ++k)
+      if (i0 + k / 3 < n) out[3 * i0 + k] = v[k];
+  }
+}
+
+template <typename Kernel, typename... Args>
+int launch_svgf(Kernel kernel, int h, int w, void* stream, Args... args) {
+  if (h > 0 && w > 0) {
+    // a block may ask for more than 48 KB only after this
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kSharedBytes);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((w + kBX - 1) / kBX, (h + kBY - 1) / kBY);
+    kernel<<<grid, dim3(kThreadsX, kBY), kSharedBytes, (cudaStream_t)stream>>>(
+        args...);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes.  accum [h,w,4] (16-byte aligned), motion
-// [h,w,2], gpos and gnrm [h,w,3], out [h,w,3]: contiguous float32 device
-// arrays.  The five svgf_* parameters come by value.  Returns
-// cudaGetLastError() as an int.
+// Plain C entry points for ctypes.  accum [h,w,4] (16-byte aligned), motion
+// [h,w,2], gpos and gnrm [h,w,3], out [h,w,3] (16-byte aligned for
+// ort_tonemap): contiguous float32 device arrays.  The five svgf_*
+// parameters, the blend strength (already clamped to [0, 1]) and the
+// exposure come by value.  Each returns cudaGetLastError() as an int.
+
+// out = the filtered rgb.
 extern "C" int ort_svgf(const void* accum, const void* motion,
                         const void* gpos, const void* gnrm, int h, int w,
                         float var_max, float k_var, float k_color,
                         float k_var_m, float k_color_m, void* out,
                         void* stream) {
-  if (h > 0 && w > 0) {
-    const dim3 grid((w + kBX - 1) / kBX, (h + kBY - 1) / kBY);
-    const dim3 block(kBX, kBY);
-    svgf_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        (const float*)accum, (const float*)motion, (const float*)gpos,
-        (const float*)gnrm, h, w,
-        Params{var_max, k_var, k_color, k_var_m, k_color_m}, (float*)out);
+  return launch_svgf(svgf_kernel, h, w, stream, (const float*)accum,
+                     (const float*)motion, (const float*)gpos,
+                     (const float*)gnrm, h, w,
+                     Params{var_max, k_var, k_color, k_var_m, k_color_m},
+                     (float*)out);
+}
+
+// out = sRGB of the filtered image blended with accum's rgb.
+extern "C" int ort_svgf_present(const void* accum, const void* motion,
+                                const void* gpos, const void* gnrm, int h,
+                                int w, float var_max, float k_var,
+                                float k_color, float k_var_m, float k_color_m,
+                                float strength, float exposure, void* out,
+                                void* stream) {
+  return launch_svgf(svgf_present_kernel, h, w, stream, (const float*)accum,
+                     (const float*)motion, (const float*)gpos,
+                     (const float*)gnrm, h, w,
+                     Params{var_max, k_var, k_color, k_var_m, k_color_m},
+                     Tone{strength, exposure}, (float*)out);
+}
+
+// out = sRGB of accum's rgb.
+extern "C" int ort_tonemap(const void* accum, int h, int w, float strength,
+                           float exposure, void* out, void* stream) {
+  const int64_t n = (int64_t)h * w;
+  if (n > 0) {
+    const int64_t per_block = (int64_t)kToneThreads * kTonePixels;
+    tonemap_kernel<<<(unsigned)((n + per_block - 1) / per_block),
+                     kToneThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)accum, n, Tone{strength, exposure}, (float*)out);
   }
   return (int)cudaGetLastError();
 }

@@ -37,8 +37,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
+# one count per kernel: "svgf" is the filter entry alone, "svgf_present"
+# the fused present pass, "tonemap" the present pass without SVGF
 LAUNCHES = {"closest": 0, "bounce": 0, "ao": 0, "an_direct": 0,
-            "bvh_direct": 0, "svgf": 0}
+            "bvh_direct": 0, "svgf": 0, "svgf_present": 0, "tonemap": 0}
 
 _libs: dict = {}
 

@@ -4,8 +4,10 @@
 Counterpart of `opengl_raytracing_tpu/ops/svgf.py`.  `svgf_filter` is the
 plain PyTorch version of the 7x7 filter: 49 shifted slices of the
 zero-padded planes, out-of-image taps weighted 0 like the GLSL
-`continue`.  On the card `present` runs the CUDA kernel instead
-(ops/svgf_cuda.py, replacing the TPU kernel svgf_pallas.py:_kernel).
+`continue`; `present_plain` composes it with `blend_tonemap`.  On the card
+`present` is one launch of a CUDA kernel instead (ops/svgf_cuda.py: the
+filter, replacing the TPU kernel svgf_pallas.py:_kernel, ending in the
+blend, ACES and gamma; or those alone when SVGF is off).
 """
 
 from __future__ import annotations
@@ -116,7 +118,8 @@ def _half_texel(a):
 def present(accum, motion, gpos, gnrm, params: RenderParams,
             show_motion: bool = False):
     """Present pass: SVGF blend -> ACES -> gamma
-    (reference: rt_present.frag:231-266).  Returns sRGB [H,W,3].
+    (reference: rt_present.frag:231-266).  Returns sRGB [H,W,3]; `accum`
+    is only read.
 
     ORT_PRESENT_HALF_TEXEL=1 reproduces the reference's one-texel quirk
     as the JAX package does: rt_present.frag:232 samples at
@@ -124,26 +127,45 @@ def present(accum, motion, gpos, gnrm, params: RenderParams,
     (x+1, y+1), clamped at the edges; shifting all pass inputs by one
     texel covers the whole stencil.  The default is texel-exact.
 
-    The filter is the CUDA kernel for CUDA tensors and `svgf_filter` for
-    CPU tensors (ops/svgf_cuda.py)."""
+    CUDA tensors take one kernel launch, with SVGF on or off
+    (ops/svgf_cuda.py: `svgf_present`, `tonemap`); CPU tensors run
+    `present_plain`."""
     if show_motion:
         raise NotImplementedError("the motion debug view is not ported yet")
-    if os.environ.get("ORT_PRESENT_HALF_TEXEL", "0") == "1":
+    from . import svgf_cuda
+    half_texel = os.environ.get("ORT_PRESENT_HALF_TEXEL", "0") == "1"
+    if not params.enable_svgf:
+        return svgf_cuda.tonemap(_half_texel(accum) if half_texel else accum,
+                                 params)
+    if half_texel:
         accum, motion, gpos, gnrm = (_half_texel(x)
                                      for x in (accum, motion, gpos, gnrm))
+    return svgf_cuda.svgf_present(accum, motion, gpos, gnrm, params)
+
+
+def present_plain(accum, motion, gpos, gnrm, params: RenderParams):
+    """The plain PyTorch version of the present pass on the inputs as
+    given (no texel shift): `svgf_filter` when SVGF is on, then
+    `blend_tonemap`.  With SVGF off only `accum` is read."""
     raw = accum[..., :3]
     if not params.enable_svgf:
         return blend_tonemap(raw, raw, params)
-    from . import svgf_cuda
-    filtered = svgf_cuda.svgf_filter(accum, motion, gpos, gnrm, params)
-    return blend_tonemap(raw, filtered, params)
+    return blend_tonemap(raw, svgf_filter(accum, motion, gpos, gnrm, params),
+                         params)
+
+
+def tone_params(params: RenderParams):
+    """(blend strength clamped to [0, 1], exposure) as float32 values, the
+    kernels' by-value arguments."""
+    return (f32(min(max(float(params.svgf_strength), 0.0), 1.0)),
+            f32(params.exposure))
 
 
 def blend_tonemap(raw, filtered, params: RenderParams):
     """Shared present tail: SVGF strength blend -> ACES -> gamma
     (reference: rt_present.frag:244-266).  `filtered == raw` degrades to
     plain tonemapping."""
-    s = min(max(float(params.svgf_strength), 0.0), 1.0)
+    s, exposure = tone_params(params)
     linear = raw + (filtered - raw) * s
-    mapped = aces_tonemap(linear, float(params.exposure))
+    mapped = aces_tonemap(linear, exposure)
     return gamma_encode(mapped)

@@ -1,18 +1,26 @@
-"""Wrapper of the CUDA SVGF kernel in csrc/svgf.cu.
+"""Wrappers of the CUDA present-pass kernels in csrc/svgf.cu.
 
-`svgf_filter` (the 7x7 variance-guided filter; replaces the TPU kernel
-`opengl_raytracing_tpu/ops/svgf_pallas.py:_kernel`) takes the arguments
-of the plain version, ops/svgf.py:svgf_filter, for a whole image:
+Each takes the arguments of its plain version in ops/svgf.py for a whole
+image:
 
-  * CPU tensors run the plain version;
-  * CUDA tensors launch the kernel, or the call raises.  Nothing falls
-    back to the plain version on the card.
+  * `svgf_filter`: the 7x7 variance-guided filter alone (replaces the TPU
+    kernel `opengl_raytracing_tpu/ops/svgf_pallas.py:_kernel`), plain
+    version `svgf.svgf_filter`;
+  * `svgf_present`: the same kernel body ending in the strength blend,
+    ACES and gamma, one launch and no filtered image in device memory;
+    plain version `svgf.present_plain` with SVGF on;
+  * `tonemap`: ACES and gamma of accum's rgb, the present pass with SVGF
+    off, one launch; plain version `svgf.present_plain` with SVGF off.
 
-The kernel reads the four HWC planes as they are (accum [H,W,4], motion
-[H,W,2], gpos and gnrm [H,W,3]) and takes the five `svgf_*` parameters by
-value.  It is built and launched through ops/cuda_lib.py
-(`LAUNCHES["svgf"]`).  Importing this module needs neither nvcc nor a
-card.
+CPU tensors run the plain version.  CUDA tensors launch the kernel, or
+the call raises: nothing falls back to the plain version on the card.
+
+The kernels read the HWC planes as they are (accum [H,W,4], motion
+[H,W,2], gpos and gnrm [H,W,3]) and take the five `svgf_*` parameters,
+the clamped blend strength and the exposure by value.  They are built and
+launched through ops/cuda_lib.py, each counted under its own name
+(`LAUNCHES["svgf"]`, `LAUNCHES["svgf_present"]`, `LAUNCHES["tonemap"]`).
+Importing this module needs neither nvcc nor a card.
 """
 
 from __future__ import annotations
@@ -24,21 +32,24 @@ import torch
 from ..params import RenderParams
 from . import cuda_lib
 from .cuda_lib import check
-from .svgf import svgf_filter as svgf_filter_plain, svgf_params
+from .svgf import (present_plain, svgf_filter as svgf_filter_plain,
+                   svgf_params, tone_params)
 
 _P, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ort_svgf": ([_P, _P, _P, _P, _I32, _I32] + [_F32] * 5 + [_P, _P],
                  ctypes.c_int),
+    "ort_svgf_present": ([_P, _P, _P, _P, _I32, _I32] + [_F32] * 7
+                         + [_P, _P], ctypes.c_int),
+    "ort_tonemap": ([_P, _I32, _I32, _F32, _F32, _P, _P], ctypes.c_int),
 }
 
 
-def svgf_filter(accum, motion, gpos, gnrm, params: RenderParams):
-    """Filtered rgb [H,W,3] of the whole image (the contract of
-    ops/svgf.py:svgf_filter with no halo)."""
-    if accum.device.type == "cpu":
-        return svgf_filter_plain(accum, motion, gpos, gnrm, params)
-    device = cuda_lib.cuda_device(accum, "the SVGF kernel")
+def _filter_launch(kernel, accum, motion, gpos, gnrm, by_value):
+    """Check the four planes, launch C entry `ort_<kernel>` of the filter
+    body with the `by_value` floats, counted under `kernel`, and return
+    its [H,W,3] output."""
+    device = cuda_lib.cuda_device(accum, "the SVGF kernels")
     h, w = accum.shape[0], accum.shape[1]
     check("accum", accum, torch.float32, (h, w, 4), device, align=16)
     check("motion", motion, torch.float32, (h, w, 2), device)
@@ -46,7 +57,42 @@ def svgf_filter(accum, motion, gpos, gnrm, params: RenderParams):
     check("gnrm", gnrm, torch.float32, (h, w, 3), device)
     out = torch.empty((h, w, 3), dtype=torch.float32, device=device)
     lib = cuda_lib.library("svgf", _SIGNATURES)
-    cuda_lib.launch(lib.ort_svgf, "svgf", device, accum.data_ptr(),
-                    motion.data_ptr(), gpos.data_ptr(), gnrm.data_ptr(), h, w,
-                    *svgf_params(params), out.data_ptr())
+    cuda_lib.launch(getattr(lib, f"ort_{kernel}"), kernel, device,
+                    accum.data_ptr(), motion.data_ptr(), gpos.data_ptr(),
+                    gnrm.data_ptr(), h, w, *by_value, out.data_ptr())
+    return out
+
+
+def svgf_filter(accum, motion, gpos, gnrm, params: RenderParams):
+    """Filtered rgb [H,W,3] of the whole image (the contract of
+    ops/svgf.py:svgf_filter with no halo)."""
+    if accum.device.type == "cpu":
+        return svgf_filter_plain(accum, motion, gpos, gnrm, params)
+    return _filter_launch("svgf", accum, motion, gpos, gnrm,
+                          svgf_params(params))
+
+
+def svgf_present(accum, motion, gpos, gnrm, params: RenderParams):
+    """sRGB [H,W,3]: the filtered image blended with accum's rgb by
+    `svgf_strength`, ACES, gamma.  `accum` is only read."""
+    if accum.device.type == "cpu":
+        return present_plain(accum, motion, gpos, gnrm,
+                             params.replace(enable_svgf=1))
+    return _filter_launch("svgf_present", accum, motion, gpos, gnrm,
+                          svgf_params(params) + tone_params(params))
+
+
+def tonemap(accum, params: RenderParams):
+    """sRGB [H,W,3] of accum's rgb: ACES and gamma, SVGF off.  `accum` is
+    only read."""
+    if accum.device.type == "cpu":
+        return present_plain(accum, None, None, None,
+                             params.replace(enable_svgf=0))
+    device = cuda_lib.cuda_device(accum, "the tonemap kernel")
+    h, w = accum.shape[0], accum.shape[1]
+    check("accum", accum, torch.float32, (h, w, 4), device, align=16)
+    out = torch.empty((h, w, 3), dtype=torch.float32, device=device)
+    lib = cuda_lib.library("svgf", _SIGNATURES)
+    cuda_lib.launch(lib.ort_tonemap, "tonemap", device, accum.data_ptr(), h,
+                    w, *tone_params(params), out.data_ptr())
     return out

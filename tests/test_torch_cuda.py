@@ -20,7 +20,10 @@ atol 1e-5 everywhere, on the lanes whose radiance the caller keeps (the
 value of a miss or inactive lane is dropped by the callers' select; the
 kernels must still finish on it).  The SVGF kernel sums its 49 taps in
 the plain filter's order with the same expf: rtol 1e-5 / atol 1e-5 on
-every pixel.
+every pixel, and bit for bit along the seams of its blocks.  Its fused
+entry (the whole present pass) and the tonemap kernel repeat the plain
+present pass's tail; only their powf may round the last bits of the gamma
+curve apart from PyTorch's pow: max abs 2e-6 on every pixel.
 """
 
 import numpy as np
@@ -37,7 +40,8 @@ from opengl_raytracing_tpu_torch.ops import (an_cuda, bvh_cuda, cuda_lib,
                                              svgf_cuda)
 from opengl_raytracing_tpu_torch.ops import bvh_traverse as plain
 from opengl_raytracing_tpu_torch.ops import lighting as lt
-from opengl_raytracing_tpu_torch.ops.svgf import svgf_filter
+from opengl_raytracing_tpu_torch.ops.svgf import (_half_texel, present,
+                                                  present_plain, svgf_filter)
 from opengl_raytracing_tpu_torch.ops.scene import SceneCtx, prepare_bvh
 from opengl_raytracing_tpu_torch.ops.scene_analytic import Hit
 from opengl_raytracing_tpu_torch.ops.vecmath import normalize, reflect
@@ -573,7 +577,12 @@ def _svgf_inputs(h, w, seed, sky=0.0):
     return tuple(x.cuda() for x in (accum, motion, gpos, gnrm))
 
 
-@pytest.mark.parametrize("size", [(37, 131), (1080, 1920)])
+PRESENT_SIZES = [(37, 131), (1, 1), (3, 300), (1080, 1920)]
+# the kernels' powf against PyTorch's pow, at the end of the gamma curve
+PRESENT_MAX_ABS = 2e-6
+
+
+@pytest.mark.parametrize("size", PRESENT_SIZES)
 @pytest.mark.parametrize("sky", [0.0, 0.3, 1.0])
 def test_svgf_kernel_matches_plain(size, sky):
     if not torch.cuda.is_available():
@@ -620,3 +629,138 @@ def test_svgf_wrapper_rejects_bad_inputs():
         svgf_cuda.svgf_filter(accum, motion, gpos.cpu(), gnrm, params)
     with pytest.raises(TypeError):
         svgf_cuda.svgf_filter(accum, motion.double(), gpos, gnrm, params)
+
+
+def _assert_present(got, want):
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    err = float((got - want).abs().max())
+    assert err <= PRESENT_MAX_ABS, err
+    assert 0.0 <= float(got.min()) and float(got.max()) <= 1.0
+
+
+@pytest.mark.parametrize("size", PRESENT_SIZES)
+@pytest.mark.parametrize("sky", [0.0, 0.3, 1.0])
+def test_present_kernels_match_plain(size, sky):
+    """The fused entry (SVGF on) and the tonemap kernel (SVGF off) against
+    the plain present pass, one launch each, the accumulation only read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    inputs = _svgf_inputs(*size, seed=1 + int(sky * 10), sky=sky)
+    inputs[0][..., :3] *= 2.0   # HDR, so ACES matters
+    kept = inputs[0].clone()
+    for params, key in ((preset("full"), "svgf_present"),
+                        (preset("baseline"), "tonemap")):
+        before = dict(cuda_lib.LAUNCHES)
+        got = present(*inputs, params)
+        after = dict(cuda_lib.LAUNCHES)
+        assert after.pop(key) == before.pop(key) + 1 and after == before
+        _assert_present(got, present_plain(*inputs, params))
+        assert torch.equal(inputs[0], kept)
+
+
+@pytest.mark.parametrize("change", [
+    dict(svgf_var_max=0.01), dict(svgf_k_var=2.5), dict(svgf_k_color=0.4),
+    dict(svgf_k_var_motion=0.2), dict(svgf_k_color_motion=3.0),
+    dict(svgf_strength=0.0), dict(svgf_strength=1.0),
+    dict(svgf_strength=1.7), dict(exposure=0.5), dict(exposure=2.0)])
+def test_present_kernel_parameters(change):
+    """Each parameter of the pass reaches the fused entry by value (the
+    strength clamped to [0, 1] on the host); exposure the tonemap kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    inputs = _svgf_inputs(61, 97, seed=5, sky=0.2)
+    params = preset("full").replace(**change)
+    got = svgf_cuda.svgf_present(*inputs, params)
+    _assert_present(got, present_plain(*inputs, params))
+    base = svgf_cuda.svgf_present(*inputs, preset("full"))
+    if "k_var" not in next(iter(change)) and change != dict(svgf_strength=1.7):
+        assert float((got - base).abs().max()) > 1e-4
+    if change == dict(svgf_strength=1.7):
+        assert torch.equal(got, svgf_cuda.svgf_present(
+            *inputs, preset("full").replace(svgf_strength=1.0)))
+    if change == dict(svgf_strength=0.0):  # the raw image, tonemapped
+        _assert_present(got, svgf_cuda.tonemap(inputs[0], params))
+    if "exposure" in change:
+        off = params.replace(enable_svgf=0)
+        _assert_present(svgf_cuda.tonemap(inputs[0], off),
+                        present_plain(*inputs, off))
+
+
+@pytest.mark.parametrize("svgf", [1, 0])
+def test_present_half_texel_knob_on_the_card(monkeypatch, svgf):
+    """ORT_PRESENT_HALF_TEXEL=1 shifts the pass's inputs in PyTorch before
+    the one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    inputs = _svgf_inputs(45, 70, seed=9, sky=0.2)
+    params = preset("full").replace(enable_svgf=svgf)
+    exact = present(*inputs, params)
+    monkeypatch.setenv("ORT_PRESENT_HALF_TEXEL", "1")
+    before = dict(cuda_lib.LAUNCHES)
+    got = present(*inputs, params)
+    key = "svgf_present" if svgf else "tonemap"
+    after = dict(cuda_lib.LAUNCHES)
+    assert after.pop(key) == before.pop(key) + 1 and after == before
+    _assert_present(got, present_plain(*(_half_texel(x) for x in inputs),
+                                       params))
+    assert float((got - exact).abs().max()) > 1e-2
+    if not svgf:
+        assert torch.equal(got[:-1, :-1], exact[1:, 1:])
+
+
+def test_svgf_block_seams_equal_plain_exactly():
+    """Pixels on both sides of every seam between two blocks' output tiles
+    (32 x 16 pixels; the interior body left and right, above and below, and
+    the rim body against it), and the last pixels of a width that ends
+    inside a run: the filter entry equals the plain filter bit for bit
+    there, and the fused entry the plain present pass to its tolerance.
+
+    The motion is still on the left half and fast on the right, so that
+    its smoothstep is exactly 0 or 1: between them the kernel divides by
+    0.045 where PyTorch on the card multiplies by its reciprocal (a
+    division by a host scalar), an ulp apart."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    h, w = 115, 203
+    inputs = _svgf_inputs(h, w, seed=21, sky=0.1)
+    inputs[1][:, :w // 2] = 0.0
+    inputs[1][:, w // 2:] = 0.2
+    params = preset("full")
+    got = svgf_cuda.svgf_filter(*inputs, params)
+    want = svgf_filter(*inputs, params)
+    rows = [y for y0 in range(16, h, 16) for y in (y0 - 1, y0)]
+    cols = [x for x0 in range(32, w, 32) for x in (x0 - 1, x0)] + [w - 1]
+    assert torch.equal(got[rows], want[rows])
+    assert torch.equal(got[:, cols], want[:, cols])
+    fused = svgf_cuda.svgf_present(*inputs, params)
+    plain = present_plain(*inputs, params)
+    assert float((fused[rows] - plain[rows]).abs().max()) <= PRESENT_MAX_ABS
+    assert float((fused[:, cols] - plain[:, cols]).abs().max()) \
+        <= PRESENT_MAX_ABS
+
+
+def test_present_wrappers_reject_bad_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    accum, motion, gpos, gnrm = _svgf_inputs(8, 8, seed=0)
+    params = preset("full")
+    with pytest.raises(ValueError, match="shape"):
+        svgf_cuda.svgf_present(accum[..., :3].contiguous(), motion, gpos,
+                               gnrm, params)
+    with pytest.raises(ValueError, match="shape"):
+        svgf_cuda.svgf_present(accum, motion, gpos[:4], gnrm, params)
+    with pytest.raises(ValueError):
+        svgf_cuda.svgf_present(accum, motion, gpos.cpu(), gnrm, params)
+    with pytest.raises(TypeError):
+        svgf_cuda.svgf_present(accum, motion.double(), gpos, gnrm, params)
+    with pytest.raises(ValueError, match="contiguous"):
+        svgf_cuda.svgf_present(accum, motion, gpos.transpose(0, 1), gnrm,
+                               params)
+    with pytest.raises(ValueError, match="shape"):
+        svgf_cuda.tonemap(accum[..., :3].contiguous(), params)
+    with pytest.raises(TypeError):
+        svgf_cuda.tonemap(accum.double(), params)
+    with pytest.raises(ValueError, match="contiguous"):
+        svgf_cuda.tonemap(accum.transpose(0, 1), params)
+    with pytest.raises(NotImplementedError):
+        present(accum, motion, gpos, gnrm, params, show_motion=True)
