@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths through `render_frame` on `cuda`, in
+Drives the port's six paths through `render_frame` on `cuda`, in
 phases, each printing its result and seconds on a line of its own:
 
   * the bench `baseline` frame: the 5,120 triangle bunny BVH scene at
@@ -18,7 +18,18 @@ phases, each printing its result and seconds on a line of its own:
     itself, on GI's bounce rays; the BVH direct light at both hits; K2's
     AO call, sampling its own rays; the SVGF kernel K4 through its fused
     entry, the whole present pass in one launch), and the analytic
-    scene's `full` preset against the CPU (K3 and K4).
+    scene's `full` preset against the CPU (K3 and K4).  The camera is
+    still, and the host knows it: TAA runs its still path alone;
+  * the bench `an_full` frame: the analytic scene at 1920x1080 with the
+    `full` preset under the day-sky cubemap (cubemaps/sky_day.png through
+    the port's loader and `env_from_numpy`): K3 seven times a frame,
+    sampling the cubemap itself on its mirror and glass lanes, and K4's
+    fused present;
+  * the bench `heavy` frame: the bunny scene at 1920x1080 with 4 samples
+    a pixel (a frame: the primary trace, AO and the present pass once;
+    the bounce call four times, the BVH direct light eight times);
+  * the bench `moving` frame: `full` with a camera that turns and dollies
+    every frame (TAA's reprojection path, SVGF's motion-aware weights).
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every csrc/*.cu from the sources, one process
@@ -27,7 +38,10 @@ phases, each printing its result and seconds on a line of its own:
      closest-hit kernel, the BVH direct light and the tonemap kernel on a
      baseline frame's, the analytic direct-light kernel on every call of
      an an_baseline frame and the tonemap kernel on that frame's
-     accumulation too, and on the third frame of a 1080p `full` chain
+     accumulation too, the same kernel with the cubemap on every call of a
+     1080p an_full frame (a record of its own, `an_direct_env`, with the
+     mirror and glass lanes that sampled the map: not 0), and on the
+     third frame of a 1080p `full` chain
      the SVGF kernel's two entries (the filter alone, the fused present),
      the AO kernel (K2's AO call), the closest-hit kernel's GI
      bounce call and the BVH direct light at the bounce hits
@@ -61,7 +75,9 @@ phases, each printing its result and seconds on a line of its own:
      device's idle share of the unprofiled frame time;
   7-9. frames_analytic, reference_analytic (300x400), profile_analytic:
      the same three for the an_baseline frame; its last frame goes to
-     out/verify_torch_analytic.png;
+     out/verify_torch_analytic.png; the reference lists every pixel with
+     a value over 1e-3 between card and CPU: its coordinates, the primary
+     hit's material and t on both devices, and |n.v|;
   10. frames_full: 32 chained `full` frames at 1080p (they cross TAA's
      weight steps at frames 8 and 32); closest, bounce, ao, bvh_direct
      and svgf_present must each grow by at least 32; the last frame goes to
@@ -74,7 +90,25 @@ phases, each printing its result and seconds on a line of its own:
      AO, mirror GI, TAA, K3 and K4 together); the gate of step 5;
   13. profile_full: the third frame of a `full` chain at 1080p by stage
      (primary trace, direct light, GI with its bounce trace, AO, TAA,
-     SVGF, present).
+     SVGF, present);
+  14. taa_skip: the `full` chain again with the host flag unknown (TAA's
+     branch-free form): its checksum must equal frames_full's, which ran
+     the skip; TAA's stage time, the device time and the launches of one
+     profiled frame each way;
+  15-17. frames_an_full (K3 exactly 7 times and svgf_present once a
+     frame; the last frame goes to out/verify_torch_an_full.png),
+     reference_an_full (150x200, 3 frames, with the cubemap on both
+     devices), profile_an_full (the dense cubemap lookups as stages
+     sky#n);
+  18-20. frames_heavy (a frame: closest 1, bvh_direct 8, bounce 4, ao 1,
+     svgf_present 1, exactly), reference_heavy (270x480, 3 frames),
+     profile_heavy;
+  21-24. frames_moving, reference_motion_view (the motion debug wheel of
+     the second frame of a moving pair, 270x480), reference_moving (3
+     frames), profile_moving;
+  25. reference_raster: `render_raster` at 270x480, the mesh through the
+     closest-hit kernel, against the CPU: flat colours, equal but on tie
+     lanes (at most 1e-4 of the pixels).
 
 Any failure raises, so the script exits non-zero.  It needs one CUDA
 card and exits non-zero, printing no result, without one.  Before the
@@ -85,6 +119,7 @@ last line it prints the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib
 import inspect
 import json
@@ -133,6 +168,11 @@ KERNELS = {  # wrapper key -> record of the JSON line
                       source="opengl_raytracing_tpu_torch/csrc/an_direct.cu",
                       replaces="opengl_raytracing_tpu/ops/an_pallas.py:162",
                       kernel="an_direct_light_kernel"),
+    "an_direct_env": dict(name="an_direct_light_env",
+                          source="opengl_raytracing_tpu_torch/csrc/an_direct.cu",
+                          replaces="opengl_raytracing_tpu/ops/an_pallas.py:162",
+                          kernel="an_direct_light_kernel",
+                          counter="an_direct"),
     "bvh_direct": dict(name="bvh_direct",
                        source="opengl_raytracing_tpu_torch/csrc/an_direct.cu",
                        replaces="opengl_raytracing_tpu/ops/an_pallas.py:307",
@@ -156,6 +196,15 @@ KERNELS = {  # wrapper key -> record of the JSON line
 BVH_PATH = ("closest", "bvh_direct", "tonemap")
 AN_PATH = ("an_direct", "tonemap")
 FULL_PATH = ("closest", "bounce", "ao", "bvh_direct", "svgf_present")
+AN_FULL_PATH = ("an_direct", "svgf_present")
+# launches a frame.  an_full: K3 at the primary hits, at their GI bounce,
+# at the mirror's hit and its GI bounce, at the glass's three secondary
+# hits.  heavy: each of the 4 samples runs the direct light at the primary
+# and at the bounce hits and one bounce call; the primary trace, AO (hoisted
+# out of the samples) and the present pass run once.
+AN_FULL_LAUNCHES = dict(an_direct=7, svgf_present=1, tonemap=0)
+HEAVY_LAUNCHES = dict(closest=1, bvh_direct=8, bounce=4, ao=1,
+                      svgf_present=1, svgf=0, tonemap=0)
 
 # The least time the card could take for a kernel's work: the larger of
 # its bytes (each input read once, each output written once) over the
@@ -182,6 +231,10 @@ OPS = dict(
     brdf=75,            # a light's geometry term and Lambert-Phong
     sun=6, sky=13, point=30,  # the light's own setup
     env=60,             # a mirror/glass pixel: normalize, reflect, sky
+    cubemap=77,         # ... and the cubemap lookup in the gradient's place:
+                        # the face select 17, two divisions and s, t 6, the
+                        # taps 22, rows and indices 14, three lerps a
+                        # channel 18
     svgf_pixel=40,      # the centre pixel's weights
     svgf_tap=41,        # one in-bounds tap
     present_pixel=45,   # per channel: the blend 3, exposure 1, the ACES
@@ -252,35 +305,74 @@ def scene(device):
     return tris, prepare_bvh(tris, device)
 
 
-def frame_inputs(height, width, frame, device):
-    """The bench's static camera with Halton jitter scaled by
-    jitter_still_scale (bench.py:_run_frames)."""
+def frame_inputs(height, width, frames, device, preset_name="baseline",
+                 camera="still", moved="host"):
+    """The FrameInputs of `frames` chained frames.  camera="still": the
+    bench's static camera with Halton jitter scaled by jitter_still_scale
+    (bench.py:_run_frames).  camera="moving": the bench's moving camera
+    (bench.py:measure_moving): yaw += 0.4 and a dolly of -0.05 along z a
+    frame, jitter scaled by jitter_moving_scale, the previous frame's
+    view-projection, camera_moved = 1.  moved="host" keeps the host flag
+    as the camera fills it (False for the still camera: TAA's skip); None
+    marks it unknown (TAA's branch-free form)."""
+    import numpy as np
     from opengl_raytracing_tpu_torch.camera import Camera
     from opengl_raytracing_tpu_torch.convert import camera_frame_inputs
     from opengl_raytracing_tpu_torch.models import preset
     from opengl_raytracing_tpu_torch.sampling import generate_jitter2d
+    params = preset(preset_name)
     cam = Camera()
     cam.aspect = width / height
-    scale = preset("baseline").jitter_still_scale
-    return camera_frame_inputs(cam, device,
-                               jitter=generate_jitter2d(frame) * scale)
+    prev_vp = cam.view_projection()
+    for frame in range(frames):
+        if camera == "moving":
+            cam.yaw += 0.4
+            cam.position = cam.position + np.asarray([0.0, 0.0, -0.05],
+                                                     np.float32)
+            fin = camera_frame_inputs(
+                cam, device, prev_view_proj=prev_vp, moved=1,
+                jitter=generate_jitter2d(frame) * params.jitter_moving_scale)
+            prev_vp = cam.view_projection()
+        else:
+            fin = camera_frame_inputs(
+                cam, device,
+                jitter=generate_jitter2d(frame) * params.jitter_still_scale)
+        if moved is None:
+            fin = dataclasses.replace(fin, moved=None)
+        yield fin
+
+
+def sky_day(device):
+    """The bench's an_full environment (bench.py:253-269): the day-sky cross
+    through the port's loader, as the uint8 table the bench builds from it,
+    carried to the device by env_from_numpy."""
+    import numpy as np
+    from opengl_raytracing_tpu_torch.convert import env_from_numpy
+    from opengl_raytracing_tpu_torch.utils.image import load_cubemap_cross
+    faces = load_cubemap_cross(os.path.join(ROOT, "cubemaps", "sky_day.png"))
+    return env_from_numpy(np.clip(np.round(faces * 255.0), 0.0,
+                                  255.0).astype(np.uint8), device)
 
 
 def render(bvh, height, width, frames, device, on_frame=None,
-           preset_name="baseline", last=contextlib.nullcontext):
+           preset_name="baseline", last=contextlib.nullcontext, env=None,
+           camera="still", moved="host", show_motion=False):
     """`frames` chained frames of the preset on the BVH scene, or on the
-    analytic scene (without its env map) when `bvh` is None; returns the
-    last FrameOutputs.  The last frame runs inside the context `last()`."""
+    analytic scene when `bvh` is None, under the cubemap `env` or, without
+    one, the gradient sky; returns the last FrameOutputs.  `camera` and
+    `moved` as for frame_inputs.  The last frame runs inside the context
+    `last()`."""
     from opengl_raytracing_tpu_torch.models import (RenderState,
                                                     make_render_fn, preset)
-    params = preset(preset_name).replace(enable_env_map=0)
-    fn = make_render_fn(height, width, device, use_bvh=bvh is not None)
+    params = preset(preset_name).replace(enable_env_map=int(env is not None))
+    fn = make_render_fn(height, width, device, use_bvh=bvh is not None,
+                        show_motion=show_motion)
     state = RenderState.create(height, width, device)
     out = None
-    for i in range(frames):
-        fin = frame_inputs(height, width, i, device)
+    for i, fin in enumerate(frame_inputs(height, width, frames, device,
+                                         preset_name, camera, moved)):
         with last() if i == frames - 1 else contextlib.nullcontext():
-            state, out = fn(params, fin, state, None, bvh)
+            state, out = fn(params, fin, state, env, bvh)
         if on_frame is not None:
             on_frame(out)
     return out
@@ -333,10 +425,11 @@ def kernel_ms(fn, kernel, reps=5):
 
 
 def record_kernel_inputs(bvh, height, width, device, keys,
-                         preset_name="baseline", frames=1):
-    """Render `frames` chained frames (BVH, or analytic if `bvh` is None)
-    and keep the arguments, by name, of every call the last frame makes to
-    the wrappers `keys` (the wrappers still launch)."""
+                         preset_name="baseline", frames=1, **how):
+    """Render `frames` chained frames (BVH, or analytic if `bvh` is None;
+    `how`: render's env, camera and moved) and keep the arguments, by
+    name, of every call the last frame makes to the wrappers `keys` (the
+    wrappers still launch)."""
     from opengl_raytracing_tpu_torch.ops import an_cuda, bvh_cuda, svgf_cuda
     where = {"closest": (bvh_cuda, "trace_closest"),
              "bounce": (bvh_cuda, "trace_bounce"),
@@ -368,7 +461,7 @@ def record_kernel_inputs(bvh, height, width, device, keys,
             for k in keys:
                 setattr(*where[k], real[k])
     render(bvh, height, width, frames, device, preset_name=preset_name,
-           last=spying)
+           last=spying, **how)
     return calls
 
 
@@ -572,30 +665,43 @@ def check_kernels(bvh, height=HEIGHT, width=WIDTH, device="cuda",
 
 
 def check_an_kernel(height=AN_HEIGHT, width=AN_WIDTH, device="cuda",
-                    timer=None):
+                    timer=None, preset_name="baseline", env=None):
     """The analytic direct-light kernel against its plain version on every
-    call one an_baseline frame makes (primary hits, the mirror's and the
-    glass's three secondary hits): offsets bit for bit, radiance on the
-    valid lanes; times, launches and the bound on the primary call.  And
-    the tonemap kernel on the frame's accumulation at this size, as
-    check_kernels holds it at the baseline frame's."""
+    call one analytic frame makes (primary hits, the mirror's and the
+    glass's three secondary hits, with the `full` preset the GI bounces'
+    too): offsets bit for bit, radiance on the valid lanes; times, launches
+    and the bound on the primary call.  Without `env`: an an_baseline
+    frame, and the tonemap kernel on the frame's accumulation at this size,
+    as check_kernels holds it at the baseline frame's.  With the cubemap
+    table `env`: an an_full frame, whose mirror and glass lanes sample the
+    map in the kernel (the plain version samples it through scene.sky);
+    some lane must."""
     from opengl_raytracing_tpu_torch.ops import an_cuda
     from opengl_raytracing_tpu_torch.ops import lighting as lt
     from opengl_raytracing_tpu_torch.ops.materials import get_material
     timer = timer or cuda_ms
-    calls = record_kernel_inputs(None, height, width, device, AN_PATH)
-    errs, bad, lanes = [], 0, 0
+    calls = record_kernel_inputs(None, height, width, device,
+                                 AN_PATH if env is None else ("an_direct",),
+                                 preset_name, env=env)
+    errs, bad, lanes, env_lanes = [], 0, 0, 0
     for args in calls["an_direct"]:
+        if (args["scene"].env_map is None) != (env is None):
+            raise AssertionError("the frame's scene does not carry the "
+                                 "environment it was given")
         valid = args["h"].valid
         e, b = _radiance_err(_offsets_bitwise(an_cuda.direct_light, args),
                              lt.direct_light_plain(**args), valid)
         errs.append(e)
         bad += b
         lanes += int(valid.sum())
+        env_lanes += int((valid & (get_material(
+            args["h"].mat, args["scene"].params).mtype != 0)).sum())
     if bad or not max(errs) <= K3_MAX_ABS:  # a NaN lane counts in `bad`
         raise AssertionError(f"an_direct_light disagrees with the plain "
                              f"direct_light on {bad} lanes (max abs "
                              f"{max(errs)})")
+    if env is not None and not env_lanes:
+        raise AssertionError("no mirror or glass lane sampled the cubemap")
     args = calls["an_direct"][0]
     h, params = args["h"], args["scene"].params
     n_env = int((get_material(h.mat, params).mtype != 0).sum())
@@ -607,26 +713,30 @@ def check_an_kernel(height=AN_HEIGHT, width=AN_WIDTH, device="cuda",
         + bool(params.sky_enabled) * OPS["sky"]
         + bool(params.point_light_enabled) * (
             OPS["point"] + OPS["trace_t"] + OPS["brdf"]))
+    per_env = OPS["env"] + (OPS["cubemap"] if env is not None else 0)
 
     def call():
         an_cuda.direct_light(**args)
     # bytes: n, v and the material id of every pixel, p of the diffuse
-    # ones, the pixel grids, the radiance written
+    # ones, the pixel grids, the cubemap table, the radiance written
+    record = dict(
+        calls=len(errs), pixels=height * width, valid_lanes=lanes,
+        max_abs_err=max(errs), max_abs_err_per_call=errs,
+        bad_lanes=bad, offsets="bitwise", env_pixels=n_env,
+        env_lanes_all_calls=env_lanes,
+        **bound(unique_bytes(h.n, h.mat, args["vdir"], args["px"],
+                             args["py"], env)
+                + 12 * (h.t.numel() - n_env) + 12 * h.t.numel(),
+                n_env * per_env + (h.t.numel() - n_env) * per_diffuse),
+        ms=timer(call, 20),
+        kernel_ms=kernel_ms(call, KERNELS["an_direct"]["kernel"]),
+        launches_per_call=launches_per_call(call),
+        plain_ms=timer(lambda: lt.direct_light_plain(**args), 5))
+    if env is not None:
+        return dict(an_direct_env=record)
     tonemap = check_present("tonemap", calls["tonemap"][0],
                             height * width * OPS["present_pixel"], timer)
-    return dict(tonemap_an=tonemap, an_direct=dict(
-                calls=len(errs), pixels=height * width, valid_lanes=lanes,
-                max_abs_err=max(errs), max_abs_err_per_call=errs,
-                bad_lanes=bad, offsets="bitwise", env_pixels=n_env,
-                **bound(unique_bytes(h.n, h.mat, args["vdir"], args["px"],
-                                     args["py"])
-                        + 12 * (h.t.numel() - n_env) + 12 * h.t.numel(),
-                        n_env * OPS["env"]
-                        + (h.t.numel() - n_env) * per_diffuse),
-                ms=timer(call, 20),
-                kernel_ms=kernel_ms(call, KERNELS["an_direct"]["kernel"]),
-                launches_per_call=launches_per_call(call),
-                plain_ms=timer(lambda: lt.direct_light_plain(**args), 5)))
+    return dict(tonemap_an=tonemap, an_direct=record)
 
 
 def check_full_kernels(bvh, height=HEIGHT, width=WIDTH, device="cuda",
@@ -794,9 +904,13 @@ def check_bounce(args, timer):
                 plain_ms=timer(lambda: lt.gi_bounce_plain(**args), 2))
 
 
-def run_frames(bvh, height, width, keys, png, smi, preset_name="baseline"):
-    """FRAMES chained frames with the launch counters of the path's kernels
-    `keys` zeroed just before; checks the image and the counts."""
+def run_frames(bvh, height, width, keys, png, smi, preset_name="baseline",
+               expect=None, frames=FRAMES, **how):
+    """`frames` chained frames (`how`: render's env, camera and moved) with
+    the launch counters zeroed just before; checks the image, that each of
+    the path's kernels `keys` was launched at least once a frame, and the
+    exact counts `expect` ({counter: launches a frame}).  `png` may be
+    None."""
     import torch
     from opengl_raytracing_tpu_torch.ops.cuda_lib import LAUNCHES
     from opengl_raytracing_tpu_torch.utils.image import write_png
@@ -805,51 +919,139 @@ def run_frames(bvh, height, width, keys, png, smi, preset_name="baseline"):
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     t_frames = time.time()
-    out = render(bvh, height, width, FRAMES, "cuda",
+    out = render(bvh, height, width, frames, "cuda",
                  on_frame=lambda o: sums.append(o.image.sum()),
-                 preset_name=preset_name)
+                 preset_name=preset_name, **how)
     torch.cuda.synchronize()
-    sec = (time.time() - t_frames) / FRAMES
+    sec = (time.time() - t_frames) / frames
     launches = dict(LAUNCHES)  # every counter; the path's are checked
     img = out.image
     if img.shape != (height, width, 3) or not bool(torch.isfinite(img).all()):
         raise AssertionError("frame is not a finite [H,W,3] image")
     if float(img.min()) < 0.0 or float(img.max()) > 1.0:
         raise AssertionError("frame leaves [0,1]")
-    if min(launches[k] for k in keys) < FRAMES:
+    if min(launches[k] for k in keys) < frames:
         raise AssertionError(f"kernels {keys} not launched once per frame: "
                              f"{launches}")
+    for k, per_frame in (expect or {}).items():
+        if launches[k] != per_frame * frames:
+            raise AssertionError(f"{k} launched {launches[k]} times in "
+                                 f"{frames} frames, not {per_frame} a frame")
     checksum = float(torch.stack(sums).sum())
-    os.makedirs(os.path.join(ROOT, "out"), exist_ok=True)
-    write_png(os.path.join(ROOT, "out", png), img.cpu().numpy()[::-1])
-    return dict(frames=FRAMES, preset=preset_name, size=[height, width],
+    if png is not None:
+        os.makedirs(os.path.join(ROOT, "out"), exist_ok=True)
+        write_png(os.path.join(ROOT, "out", png), img.cpu().numpy()[::-1])
+    return dict(frames=frames, preset=preset_name, size=[height, width],
                 ms_per_frame=sec * 1e3, fps=1.0 / sec,
                 primary_mrays_per_s=height * width / sec / 1e6,
                 checksum=checksum, launches=launches, card=smi,
-                png=f"out/{png}")
+                png=png and f"out/{png}")
 
 
-def check_reference(bvh_cuda_scene, bvh_cpu_scene, height, width,
-                    preset_name="baseline", frames=1):
-    """The last of `frames` chained frames on the card against the same
-    frame on the CPU: max abs <= 2/255 and 99.9th percentile <= 1e-3."""
+def _frame_gate(got, ref, what):
+    """max abs <= 2/255 and 99.9th percentile <= 1e-3 between two frames;
+    returns the record."""
     import torch
-    ref = render(bvh_cpu_scene, height, width, frames, "cpu",
-                 preset_name=preset_name).image
-    got = render(bvh_cuda_scene, height, width, frames, "cuda",
-                 preset_name=preset_name).image.cpu()
     diff = (got - ref).abs()
     q999 = float(torch.quantile(diff.flatten(), 0.999))
     over = int((diff > 2.0 / 255.0).sum())
-    if float(diff.max()) > 2.0 / 255.0 or q999 > 1e-3:
-        raise AssertionError(f"card frame differs from the CPU frame: max "
-                             f"{float(diff.max())}, q99.9 {q999}, {over} "
+    if not float(diff.max()) <= 2.0 / 255.0 or not q999 <= 1e-3:
+        raise AssertionError(f"{what}: card frame differs from the CPU frame: "
+                             f"max {float(diff.max())}, q99.9 {q999}, {over} "
                              f"values over 2/255")
     at = [int(i) for i in torch.nonzero(diff == diff.max())[0]]
-    return dict(size=[height, width], preset=preset_name, frames=frames,
-                max_abs=float(diff.max()), q999=q999,
+    return dict(max_abs=float(diff.max()), q999=q999,
                 values_over_1e_3=int((diff > 1e-3).sum()),
                 values_over_2_255=over, max_at_yxc=at)
+
+
+def check_reference(bvh_cuda_scene, bvh_cpu_scene, height, width,
+                    preset_name="baseline", frames=1, lanes=False, **how):
+    """The last of `frames` chained frames on the card against the same
+    frame on the CPU (`how`: render's camera, moved and show_motion, and
+    env=True for the day-sky cubemap on both devices): max abs <= 2/255
+    and 99.9th percentile <= 1e-3.  `lanes` (analytic scene, one frame)
+    lists every value over 1e-3 with its pixel, the material and the
+    primary hit's t on both devices."""
+    import torch
+    with_env = how.pop("env", False)
+    outs = {}
+    for device, bvh in (("cpu", bvh_cpu_scene), ("cuda", bvh_cuda_scene)):
+        outs[device] = render(bvh, height, width, frames, device,
+                              preset_name=preset_name,
+                              env=sky_day(device) if with_env else None,
+                              **how)
+    got, ref = outs["cuda"].image.cpu(), outs["cpu"].image
+    rec = dict(size=[height, width], preset=preset_name, frames=frames,
+               **how,
+               **_frame_gate(got, ref, f"{preset_name} {how}"))
+    if lanes:
+        rec["lanes_over_1e_3"] = divergent_lanes(
+            (got - ref).abs(), height, width, preset_name)
+    return rec
+
+
+def divergent_lanes(diff, height, width, preset_name):
+    """For every pixel of the analytic frame with a value over 1e-3 between
+    the card and the CPU: [y, x], the largest difference, the primary
+    hit's material and t on both devices, |n.v| there, and how far the
+    two devices' primary ray directions are apart on that lane (on the
+    card PyTorch divides the pixel coordinate by the image size as a
+    multiplication by the rounded reciprocal, so a direction may differ
+    by an ulp; `rd_lanes_differ` counts such lanes in the frame)."""
+    import torch
+    from opengl_raytracing_tpu_torch.models import preset
+    from opengl_raytracing_tpu_torch.models.pipeline import primary_rays
+    from opengl_raytracing_tpu_torch.ops.scene import SceneCtx
+    from opengl_raytracing_tpu_torch.ops.vecmath import dot, normalize
+    params = preset(preset_name).replace(enable_env_map=0)
+    hits = {}
+    for device in ("cpu", "cuda"):
+        fin = next(frame_inputs(height, width, 1, device, preset_name))
+        _, _, rd = primary_rays(height, width, fin, params)
+        h = SceneCtx.create(params, fin.cam_pos).trace(
+            fin.cam_pos.expand(rd.shape), rd)
+        hits[device] = (h.mat.cpu(), h.t.cpu(),
+                        dot(normalize(h.n), -rd).abs().cpu(), rd.cpu())
+    rd_diff = (hits["cpu"][3] - hits["cuda"][3]).abs().amax(-1)
+    out = []
+    for y, x in torch.nonzero((diff > 1e-3).any(-1)).tolist():
+        out.append(dict(yx=[y, x], max_abs=float(diff[y, x].max()),
+                        mat=[int(hits[d][0][y, x]) for d in ("cpu", "cuda")],
+                        t=[float(hits[d][1][y, x]) for d in ("cpu", "cuda")],
+                        abs_n_dot_v=float(hits["cpu"][2][y, x]),
+                        rd_max_abs_diff=float(rd_diff[y, x]),
+                        rd_lanes_differ=int((rd_diff > 0).sum())))
+    return out
+
+
+def check_raster_reference(bvh_cuda_scene, bvh_cpu_scene, height, width):
+    """render_raster on the card (the mesh through the closest-hit kernel)
+    against the CPU: flat colours, so equal but on tie lanes, where two
+    surfaces are within rounding of each other in t and the pixel flips
+    whole: at most 1e-4 of the pixels."""
+    import torch
+    from opengl_raytracing_tpu_torch.models import preset, render_raster
+    from opengl_raytracing_tpu_torch.ops.cuda_lib import LAUNCHES
+    params = preset("baseline")
+    before = LAUNCHES["closest"]
+    imgs = {}
+    for device, bvh in (("cpu", bvh_cpu_scene), ("cuda", bvh_cuda_scene)):
+        fin = next(frame_inputs(height, width, 1, device))
+        imgs[device] = render_raster(params, fin, bvh, height=height,
+                                     width=width).cpu()
+    if LAUNCHES["closest"] != before + 1:
+        raise AssertionError("render_raster on the card did not launch the "
+                             "closest-hit kernel once")
+    flips = int((imgs["cuda"] != imgs["cpu"]).any(-1).sum())
+    colours = len(torch.unique(imgs["cuda"].reshape(-1, 3), dim=0))
+    mesh = int((imgs["cuda"] == 0.9).all(-1).sum())
+    if flips > 1e-4 * height * width or colours < 4 or not mesh:
+        raise AssertionError(f"render_raster: {flips} pixels differ from the "
+                             f"CPU image, {colours} colours, {mesh} mesh "
+                             f"pixels")
+    return dict(size=[height, width], pixels_differ=flips, colours=colours,
+                mesh_pixels=mesh)
 
 
 def main() -> int:
@@ -886,6 +1088,9 @@ def main() -> int:
     _, bvh = scene("cuda")
     records = check_kernels(bvh)
     records.update(check_an_kernel())
+    env = sky_day("cuda")
+    records.update(check_an_kernel(HEIGHT, WIDTH, preset_name="full",
+                                   env=env))
     records.update(check_full_kernels(bvh))
     phase("kernels", t0, **records)
 
@@ -910,7 +1115,7 @@ def main() -> int:
 
     t0 = time.time()
     phase("reference_analytic", t0, **check_reference(
-        None, None, AN_REF_HEIGHT, AN_REF_WIDTH))
+        None, None, AN_REF_HEIGHT, AN_REF_WIDTH, lanes=True))
 
     t0 = time.time()
     phase("profile_analytic", t0, **profile(None, AN_HEIGHT, AN_WIDTH,
@@ -932,9 +1137,91 @@ def main() -> int:
         REF_FRAMES))
 
     t0 = time.time()
-    phase("profile_full", t0, **profile(bvh, HEIGHT, WIDTH, FULL_STAGES,
-                                        frames_full["ms_per_frame"], "full",
-                                        PROFILE_FRAME))
+    prof_full = profile(bvh, HEIGHT, WIDTH, FULL_STAGES,
+                        frames_full["ms_per_frame"], "full", PROFILE_FRAME)
+    phase("profile_full", t0, **prof_full)
+
+    # TAA's still-camera skip: the `full` chain above ran with the host
+    # flag (moved=False: the still path alone); the same chain with the
+    # flag unknown runs the branch-free form and must give the same frames
+    t0 = time.time()
+    branch_free = run_frames(bvh, HEIGHT, WIDTH, FULL_PATH, None, smi, "full",
+                             moved=None)
+    if branch_free["checksum"] != frames_full["checksum"]:
+        raise AssertionError(
+            f"TAA's skip changed the frames: checksum "
+            f"{frames_full['checksum']} with it, {branch_free['checksum']} "
+            f"in the branch-free form")
+    prof_free = profile(bvh, HEIGHT, WIDTH, FULL_STAGES,
+                        branch_free["ms_per_frame"], "full", PROFILE_FRAME,
+                        moved=None)
+    phase("taa_skip", t0, checksum_skip=frames_full["checksum"],
+          checksum_branch_free=branch_free["checksum"],
+          taa_device_ms_skip=prof_full["stages_device_ms"].get("taa"),
+          taa_device_ms_branch_free=prof_free["stages_device_ms"].get("taa"),
+          device_busy_ms_skip=prof_full["device_busy_ms"],
+          device_busy_ms_branch_free=prof_free["device_busy_ms"],
+          kernel_launches_skip=prof_full["kernel_launches"],
+          kernel_launches_branch_free=prof_free["kernel_launches"],
+          ms_per_frame_skip=frames_full["ms_per_frame"],
+          ms_per_frame_branch_free=branch_free["ms_per_frame"])
+
+    # the bench's an_full: the analytic scene, `full` preset, day-sky cubemap
+    t0 = time.time()
+    frames_an_full = run_frames(None, HEIGHT, WIDTH, AN_FULL_PATH,
+                                "verify_torch_an_full.png", smi, "full",
+                                expect=AN_FULL_LAUNCHES, env=env)
+    phase("frames_an_full", t0, **frames_an_full)
+
+    t0 = time.time()
+    phase("reference_an_full", t0, **check_reference(
+        None, None, AN_FULL_REF_HEIGHT, AN_FULL_REF_WIDTH, "full",
+        REF_FRAMES, env=True))
+
+    t0 = time.time()
+    phase("profile_an_full", t0, **profile(
+        None, HEIGHT, WIDTH, AN_FULL_STAGES, frames_an_full["ms_per_frame"],
+        "full", PROFILE_FRAME, env=env))
+
+    # the bench's heavy: 4 samples a pixel on the bunny scene
+    t0 = time.time()
+    frames_heavy = run_frames(bvh, HEIGHT, WIDTH, FULL_PATH, None, smi,
+                              "heavy", expect=HEAVY_LAUNCHES)
+    phase("frames_heavy", t0, **frames_heavy)
+
+    t0 = time.time()
+    phase("reference_heavy", t0, **check_reference(
+        bvh, bvh_cpu, REF_HEIGHT, REF_WIDTH, "heavy", REF_FRAMES))
+
+    t0 = time.time()
+    phase("profile_heavy", t0, **profile(
+        bvh, HEIGHT, WIDTH, FULL_STAGES, frames_heavy["ms_per_frame"],
+        "heavy", PROFILE_FRAME))
+
+    # the bench's moving: `full` with a camera that moves every frame
+    t0 = time.time()
+    frames_moving = run_frames(bvh, HEIGHT, WIDTH, FULL_PATH, None, smi,
+                               "full", camera="moving")
+    phase("frames_moving", t0, **frames_moving)
+
+    t0 = time.time()
+    phase("reference_motion_view", t0, **check_reference(
+        bvh, bvh_cpu, REF_HEIGHT, REF_WIDTH, "full", 2, camera="moving",
+        show_motion=True))
+
+    t0 = time.time()
+    phase("reference_moving", t0, **check_reference(
+        bvh, bvh_cpu, REF_HEIGHT, REF_WIDTH, "full", REF_FRAMES,
+        camera="moving"))
+
+    t0 = time.time()
+    phase("profile_moving", t0, **profile(
+        bvh, HEIGHT, WIDTH, FULL_STAGES, frames_moving["ms_per_frame"],
+        "full", PROFILE_FRAME, camera="moving"))
+
+    t0 = time.time()
+    phase("reference_raster", t0, **check_raster_reference(
+        bvh, bvh_cpu, REF_HEIGHT, REF_WIDTH))
 
     # each kernel's own count in the newest path that must run it; a
     # kernel no path runs (the filter entry alone) as `full` counted it
@@ -942,13 +1229,15 @@ def main() -> int:
     for path, run in ((AN_PATH, frames_an), (BVH_PATH, frames),
                       (FULL_PATH, frames_full)):
         launches.update({k: run["launches"][k] for k in path})
+    launches["an_direct_env"] = frames_an_full["launches"]["an_direct"]
 
     def line(k):
         r = records[k]
         return dict(name=KERNELS[k]["name"], route="cuda",
                     source=KERNELS[k]["source"],
                     replaces=KERNELS[k]["replaces"], launches=launches[k],
-                    on_main_path=k in BVH_PATH + AN_PATH + FULL_PATH,
+                    on_main_path=k in (BVH_PATH + AN_PATH + FULL_PATH
+                                       + ("an_direct_env",)),
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], kernel_ms=r["kernel_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -999,6 +1288,22 @@ FULL_STAGES = (
 )
 
 
+AN_FULL_STAGES = (
+    ("render_frame", "models.pipeline", "render_frame"),
+    ("trace_and_shade", "models.pipeline", "trace_and_shade"),
+    ("trace#", "ops.scene_analytic", "trace_analytic"),
+    ("sky#", "ops.scene_analytic", "sky"),  # the dense cubemap lookups
+    ("direct_light", "ops.an_cuda", "direct_light"),
+    ("gi#", "ops.lighting", "one_bounce_gi_analytic"),  # 1 inside mirror
+    ("ao", "ops.lighting", "compute_ao"),
+    ("mirror", "ops.lighting", "shade_mirror"),
+    ("glass", "ops.lighting", "shade_glass"),
+    ("taa", "models.pipeline", "resolve_taa"),
+    ("svgf", "ops.svgf_cuda", "svgf_present"),
+    ("present", "models.pipeline", "present"),
+)
+
+
 @contextlib.contextmanager
 def stage_ranges(stages):
     """Wrap each stage in a profiler range (the module attributes the
@@ -1029,15 +1334,17 @@ def stage_ranges(stages):
 
 
 def profile(bvh, height, width, stages, frame_ms, preset_name="baseline",
-            frames=1):
-    """Device time of the last of `frames` chained warm frames: by stage
+            frames=1, **how):
+    """Device time of the last of `frames` chained warm frames (`how`:
+    render's env, camera and moved): by stage
     (inclusive device time of the kernels launched inside each range), by
     PyTorch operator, and of each hand-written kernel; the device's busy
     time against the unprofiled frame time gives its idle share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
-    render(bvh, height, width, frames, "cuda", preset_name=preset_name)
+    render(bvh, height, width, frames, "cuda", preset_name=preset_name,
+           **how)
     torch.cuda.synchronize()
     box = {}
 
@@ -1052,7 +1359,7 @@ def profile(bvh, height, width, stages, frame_ms, preset_name="baseline",
             box["wall_ms"] = (time.time() - t0) * 1e3
         box["prof"] = prof
     render(bvh, height, width, frames, "cuda", preset_name=preset_name,
-           last=profiled)
+           last=profiled, **how)
     prof, wall_ms = box["prof"], box["wall_ms"]
     stages_ms, ops, kernels = {}, [], {}
     busy_ms, launches = 0.0, 0

@@ -6,23 +6,26 @@ reference: every module here is held against its JAX counterpart by the
 kernels are CUDA C++ in `csrc/`, built with nvcc at first use
 (ops/cuda_lib.py): the BVH closest-hit and any-hit walks
 (ops/bvh_cuda.py), the analytic scene's direct light and the BVH
-scene's BRDF tail (ops/an_cuda.py), and the present pass, one launch
-with the SVGF filter or without it (ops/svgf_cuda.py).
+scene's BRDF tail (ops/an_cuda.py; the analytic kernel samples the
+cubemap environment itself), and the present pass, one launch with the
+SVGF filter or without it (ops/svgf_cuda.py).
 
-The slices ported so far render both scenes (the bunny BVH scene; the
-analytic scene: floor, albedo, glass and mirror spheres, point-light
-marker) under the `baseline`, `realistic` and `full` presets at 1 SPP,
-GI, AO, TAA and SVGF on or off, with the gradient sky.  SPP > 1, the
-cubemap environment and the motion view raise NotImplementedError.
+`render_frame` renders both scenes (the bunny BVH scene; the analytic
+scene: floor, albedo, glass and mirror spheres, point-light marker) under
+every preset (`baseline`, `realistic`, `full`, `heavy`): GI, AO, TAA and
+SVGF on or off, one or more samples a pixel, the gradient sky or a cubemap
+environment, the motion debug view.  `render_raster` is the flat-colour
+raster preview.
 
 Layout (mirrors the JAX package):
   constants.py, params.py, camera.py, sampling.py   host values and RNG
   scene/     procedural bunny, triangle gather, numpy BVH builder
   ops/       vector math, intersection, the analytic scene, BVH walks,
              kernel wrappers, lighting, GI and AO, TAA, SVGF, present
-  models/    the frame function and the presets
-  convert.py carries JAX-side state (BVH arrays, params, frame inputs)
-  utils/     PNG writer
+  models/    the frame function, the raster preview and the presets
+  convert.py carries host and JAX-side state (BVH arrays, params, frame
+             inputs, cubemap faces) onto the device
+  utils/     PNG writer and reader, cubemap-cross loader
 
 Nothing here imports JAX: the machine with the card has none.
 """

@@ -1,5 +1,9 @@
 """Carry host and JAX-side state into the port's tensors.
 
+`env_from_numpy` places a cubemap environment (the loader's float faces,
+or the uint8 table a bench builds from an 8-bit source) on the device as
+the float32 table the samplers read.
+
 The parity tests build a scene, a parameter set and frame inputs once and
 feed both packages the same values: the JAX BVH arrays (converted to
 numpy) go through `bvh_from_numpy`, so both sides walk the very same tree
@@ -35,6 +39,22 @@ def bvh_from_numpy(arrays: BVHArrays, device) -> BVHDevice:
                                put(arrays.tris, np.float32)))
 
 
+def env_from_numpy(faces, device) -> torch.Tensor:
+    """Cubemap faces [6,F,F,3] on the host -> the contiguous float32 table
+    on `device` that `ops.cubemap.sample_cubemap` and the analytic
+    direct-light kernel read.  A uint8 table becomes k / 255 by true
+    division on the host (the loader's own values); a float table is
+    carried as is."""
+    faces = np.asarray(faces)
+    if faces.ndim != 4 or faces.shape[0] != 6 or faces.shape[3] != 3 \
+            or faces.shape[1] != faces.shape[2]:
+        raise ValueError(f"cubemap faces must be [6,F,F,3], got "
+                         f"{faces.shape}")
+    if faces.dtype == np.uint8:
+        faces = faces.astype(np.float32) / np.float32(255.0)
+    return torch.from_numpy(np.array(faces, dtype=np.float32)).to(device)
+
+
 def params_from(src) -> RenderParams:
     """RenderParams of the port from any dataclass with the same field
     names (the JAX package's RenderParams).  Raises on a field either side
@@ -60,20 +80,25 @@ def params_from(src) -> RenderParams:
 
 def frame_inputs_from_numpy(src, device) -> FrameInputs:
     """FrameInputs on `device` from any object with the same attributes
-    (the JAX package's FrameInputs, or a namespace of numpy arrays)."""
+    (the JAX package's FrameInputs, or a namespace of numpy arrays).  The
+    source's `camera_moved` is read on the host and kept there too, as the
+    `moved` flag."""
     kw = {name: torch.from_numpy(
               np.array(getattr(src, name), dtype=np.float32)).to(device)
           for name in _FIN_FLOAT}
-    kw["camera_moved"] = torch.tensor(int(np.asarray(src.camera_moved)),
-                                      dtype=torch.int32, device=device)
-    return FrameInputs(**kw)
+    moved = int(np.asarray(src.camera_moved))
+    kw["camera_moved"] = torch.tensor(moved, dtype=torch.int32, device=device)
+    # the same flag on the host, so the frame can branch on it without
+    # reading the device
+    return FrameInputs(**kw, moved=bool(moved))
 
 
 def camera_frame_inputs(cam: Camera, device, jitter=(0.0, 0.0),
                         prev_view_proj=None, moved: int = 0) -> FrameInputs:
     """FrameInputs of a camera pose (reference: render.cpp:73-167): the
     previous view-projection defaults to the current one (a still
-    camera); `jitter` is in pixels, already scaled."""
+    camera); `jitter` is in pixels, already scaled; `moved` fills both the
+    device `camera_moved` and the host `moved` flag."""
     right, up, fwd, thf = cam.basis()
     vp = cam.view_projection()
     return frame_inputs_from_numpy(SimpleNamespace(

@@ -19,7 +19,9 @@
 // (get_material with the glass/mirror toggles resolved on the host) and
 // the call's RNG keys arrive by value in one struct.  Everything else is
 // computed here: normalize(n) and normalize(v), the material row, the
-// gradient sky of the reflected view (K3's mirror and glass), and the
+// environment of the reflected view (K3's mirror and glass: the cubemap
+// when the scene has one, sampled per lane by cubemap.cuh from the table
+// `AnScene::env` points to, else the gradient sky), and the
 // unit-disk offsets of the four soft-shadow samples (lighting._disk_
 // offsets: the uint32 hash of sampling.rand, cp_offset's rotation,
 // remainder and concentric_sample).  K3 traces its shadow rays against
@@ -29,7 +31,9 @@
 // point query with their ndl gates (lighting._bvh_shadow_queries) and
 // walks each open window with the any-hit walk of bvh_walk.cuh (node
 // rows from device memory); a lane that `active` marks off (the caller's
-// sky select drops it) does no work and writes nothing.
+// sky select drops it) does no work and writes nothing.  It reads the
+// environment of no direction (its sky light is the constant-colour dome
+// of sky_term), so a cubemap changes nothing in it.
 //
 // The arithmetic is the plain PyTorch version's (ops/lighting.py,
 // ops/scene_analytic.py, ops/intersect.py, sampling.py) expression for
@@ -64,6 +68,7 @@
 #include <stdint.h>
 
 #include "bvh_walk.cuh"
+#include "cubemap.cuh"
 #include "sampling.cuh"
 
 namespace {
@@ -78,6 +83,11 @@ constexpr int kMatRows = 5;   // material ids 0-3, then the grey fallback
 // Scene constants and the call's RNG keys, filled on the host
 // (ops/an_cuda.py:scene_args).
 struct AnScene {
+  // the cubemap environment: the float32 [6, env_f, env_f, 3] table on the
+  // device (null: the gradient sky) and scene_analytic.sky's intensity
+  const float* env;
+  int env_f;
+  float env_intensity;
   float light_c[3], light_t[3], light_b[3];  // disk light center and frame
   float light_nneg[3];                       // -(disk light normal)
   float light_color[3];
@@ -223,8 +233,11 @@ __device__ float trace_t(const AnScene& s, V3 o, V3 d, bool marker) {
   return best;
 }
 
-// scene_analytic.sky: the gradient, mix(top, bottom, 1 - t)
+// scene_analytic.sky: the cubemap times its intensity when the scene has
+// one, else the gradient, mix(top, bottom, 1 - t)
 __device__ __forceinline__ V3 sky(const AnScene& s, V3 d) {
+  if (s.env != nullptr)
+    return scale3(sample_cubemap(s.env, s.env_f, d), s.env_intensity);
   const float t = fminf(fmaxf(0.5f * (d.y + 1.0f), 0.0f), 1.0f);
   const V3 top = c3(s.sky_top);
   return add3(top, scale3(sub3(c3(s.sky_bottom), top), 1.0f - t));
@@ -484,7 +497,7 @@ inline unsigned blocks_for(int64_t n) {
 }  // namespace
 
 // Plain C entry points for ctypes.  `scene` and `grid` are host pointers
-// (the grid's own pointers are device pointers); the other pointers are
+// (the grid's own pointers and `scene->env` are device pointers); the other pointers are
 // device pointers (`active` and `offs` may be null); the stream is a
 // cudaStream_t.  Each returns cudaGetLastError() as an int.
 extern "C" int ort_an_direct(const AnScene* scene, const void* p,

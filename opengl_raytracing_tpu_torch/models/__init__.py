@@ -1,5 +1,6 @@
-"""The frame function and the benchmark presets."""
+"""The frame function, the raster preview and the benchmark presets."""
 
 from .pipeline import (FrameInputs, RenderState, FrameOutputs, render_frame,
                        make_render_fn)
 from .presets import PRESETS, preset
+from .raster import render_raster

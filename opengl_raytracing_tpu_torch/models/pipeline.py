@@ -2,12 +2,17 @@
 
 PyTorch counterpart of `opengl_raytracing_tpu/models/pipeline.py`
 (reference: shaders/rt/rt.frag:50-197, rt_present.frag:231-266,
-src/render/render.cpp:55-243), for the BVH scene and the analytic scene
-at 1 SPP, with GI, AO, TAA and SVGF on or off: the `baseline`,
-`realistic` and `full` presets.  SPP > 1, the cubemap environment and
-the motion debug view raise NotImplementedError rather than
-approximating them.  The JAX package's tile gates and swizzle are not
-ported: they leave the image unchanged.
+src/render/render.cpp:55-243), for the BVH scene and the analytic scene,
+with GI, AO, TAA and SVGF on or off, any number of samples a pixel, the
+gradient sky or a cubemap environment, and the motion debug view: every
+preset, and every argument the JAX `render_frame` takes.  The JAX
+package's tile gates and swizzle are not ported: they leave the image
+unchanged.
+
+Samples a pixel (`spp_per_frame`) share the primary hit, the gbuffer, the
+motion and, when there is more than one, the ambient occlusion; the
+shading runs once a sample on the host, each with its own seed, and the
+frame is their mean.
 
 The layout at the public functions is the JAX package's: [H,W,C] images
 with GL bottom-up rows and an [H,W,4] accumulation (rgb + M2).  Frames run
@@ -36,7 +41,9 @@ from ..ops.vecmath import const3, length, normalize
 @dataclasses.dataclass(frozen=True)
 class FrameInputs:
     """Per-frame camera/motion uniforms (reference: render.cpp:73-167),
-    as float32 tensors on the render device."""
+    as float32 tensors on the render device.  `moved` is `camera_moved`
+    as the host knows it (None: unknown), so the frame can skip TAA's
+    moving path without reading the device; the two must agree."""
     cam_pos: torch.Tensor         # [3]
     cam_right: torch.Tensor       # [3]
     cam_up: torch.Tensor          # [3]
@@ -47,6 +54,7 @@ class FrameInputs:
     curr_view_proj: torch.Tensor  # [4,4]
     prev_view_proj: torch.Tensor  # [4,4]
     camera_moved: torch.Tensor    # [] int32 (0/1)
+    moved: Optional[bool] = None  # camera_moved on the host
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,11 +127,13 @@ def _sanitize_hit(h: Hit, ro, rd) -> Hit:
 
 
 def _shade_bvh(scene: SceneCtx, h: Hit, seed: int, frame_index: int, vdir,
-               px, py, active=None):
+               px, py, active=None, ao=None):
     """BVH-scene shading (reference: rt.frag:105-117): direct light, plus
     the GI bounce and times AO when they are on.  `active` marks the
     lanes whose radiance survives the sky select; the others trace
-    nothing and their values are unspecified."""
+    nothing and their values are unspecified.  `ao` may carry the
+    occlusion term computed once for all samples: it depends on the pixel
+    and the frame index, never on the sample's seed."""
     params = scene.params
     radiance = lt.direct_light_bvh(scene, h, seed, frame_index, vdir, px, py,
                                    active=active)
@@ -132,19 +142,21 @@ def _shade_bvh(scene: SceneCtx, h: Hit, seed: int, frame_index: int, vdir,
             lt.one_bounce_gi_bvh(scene, h, frame_index, seed, frame_index,
                                  px, py, active=active)
     if params.enable_ao:
-        ao = lt.compute_ao(scene, h, frame_index, px, py, active=active)
+        if ao is None:
+            ao = lt.compute_ao(scene, h, frame_index, px, py, active=active)
         radiance = radiance * ao[..., None]
     return radiance
 
 
 def _shade_analytic(scene: SceneCtx, h: Hit, seed: int, frame_index: int,
-                    vdir, px, py):
+                    vdir, px, py, ao=None):
     """Analytic-scene material dispatch (reference: rt.frag:119-162):
     direct light (plus the GI bounce, times AO, when they are on), the
     emissive point-light marker, and the mirror and glass secondaries,
     computed for every lane and selected in like the fragment shader's
     divergent branches.  Direct light and GI are two calls, the JAX
-    package's default (its 2-batch `direct_and_gi_analytic` is opt-in)."""
+    package's default (its 2-batch `direct_and_gi_analytic` is opt-in).
+    `ao` as in `_shade_bvh`."""
     params = scene.params
     mat = get_material(h.mat, params)
     radiance = lt.direct_light(scene, h, seed, frame_index, vdir, px, py)
@@ -153,8 +165,9 @@ def _shade_analytic(scene: SceneCtx, h: Hit, seed: int, frame_index: int,
             lt.one_bounce_gi_analytic(scene, h, frame_index, seed,
                                       frame_index, px, py)
     if params.enable_ao:
-        radiance = radiance * lt.compute_ao(scene, h, frame_index, px,
-                                            py)[..., None]
+        if ao is None:
+            ao = lt.compute_ao(scene, h, frame_index, px, py)
+        radiance = radiance * ao[..., None]
 
     # emissive point-light marker (reference: rt.frag:137-148)
     base_col = (const3(params.point_light_color, h.t.device)
@@ -178,16 +191,6 @@ def _shade_analytic(scene: SceneCtx, h: Hit, seed: int, frame_index: int,
     return radiance
 
 
-def _check_supported(params: RenderParams, env_map, show_motion: bool):
-    missing = [name for name, on in (
-        ("spp_per_frame > 1", int(params.spp_per_frame) > 1),
-        ("an environment map",
-         env_map is not None and params.enable_env_map),
-        ("show_motion", show_motion)) if on]
-    if missing:
-        raise NotImplementedError("not ported yet: " + ", ".join(missing))
-
-
 def render_frame(params: RenderParams, fin: FrameInputs, state: RenderState,
                  env_map: Optional[torch.Tensor] = None,
                  bvh: Optional[BVHDevice] = None,
@@ -201,28 +204,36 @@ def render_frame(params: RenderParams, fin: FrameInputs, state: RenderState,
     swap of reference: src/render/render.cpp:242): `resolve_taa` reads
     the whole history before it writes any of it, so `state` must not be
     used after the call, as with the JAX package's donated buffer.
+
+    `env_map` is the cubemap environment as `convert.env_from_numpy`
+    places it on the device (used when `params.enable_env_map`);
+    `show_motion` returns the motion debug wheel as the image (the frame
+    is shaded at 1 SPP and accumulated all the same).  When `fin.moved`
+    is False, TAA takes its still path alone.
     """
-    _check_supported(params, env_map, show_motion)
-    scene = SceneCtx.create(params, fin.cam_pos, env_map=None,
+    scene = SceneCtx.create(params, fin.cam_pos, env_map=env_map,
                             use_bvh=use_bvh, bvh=bvh)
     px, py, rd = primary_rays(height, width, fin, params)
     frame_index = state.frame_index
     curr, motion, gpos, gnrm = trace_and_shade(
-        scene, params, fin, px, py, rd, frame_index, use_bvh=use_bvh)
+        scene, params, fin, px, py, rd, frame_index, use_bvh=use_bvh,
+        show_motion=show_motion)
     # TAA sees zero motion when the camera is static (reference:
     # rt.frag:184-190); SVGF reads the motion as traced
     taa_motion = torch.where(fin.camera_moved > 0, motion, 0.0)
     accum = resolve_taa(curr, taa_motion, state.accum, frame_index, params,
-                        out=state.accum)
-    image = present(accum, motion, gpos, gnrm, params)
+                        out=state.accum, moved=fin.moved)
+    image = present(accum, motion, gpos, gnrm, params,
+                    show_motion=show_motion)
     return (RenderState(accum, frame_index + 1),
             FrameOutputs(image, motion, gpos, gnrm))
 
 
 def trace_and_shade(scene: SceneCtx, params: RenderParams, fin: FrameInputs,
-                    px, py, rd, frame_index: int, *, use_bvh: bool):
+                    px, py, rd, frame_index: int, *, use_bvh: bool,
+                    show_motion: bool = False):
     """Trace + shade a pixel grid: primary trace, gbuffer, motion with the
-    sky sentinel, direct light, sky select.
+    sky sentinel, the samples' shading with the sky select, their mean.
 
     Returns (curr [H,W,3], motion [H,W,2], gpos, gnrm)."""
     ro = fin.cam_pos.expand(rd.shape)
@@ -240,19 +251,38 @@ def trace_and_shade(scene: SceneCtx, params: RenderParams, fin: FrameInputs,
     gnrm = torch.where(hit_mask[..., None], normalize(h.n), 0.0)
 
     sky_radiance = scene.sky(rd)
-    if use_bvh:
-        shaded = _shade_bvh(scene, h, frame_index, frame_index, -rd, px, py,
-                            active=hit_mask)
-    else:
-        shaded = _shade_analytic(scene, h, frame_index, frame_index, -rd,
-                                 px, py)
-    curr = torch.where(hit_mask[..., None], shaded, sky_radiance)
-    return curr, motion, gpos, gnrm
+    vdir = -rd
+    spp = 1 if show_motion else max(int(params.spp_per_frame), 1)
+    # the primary hit is the same for every sample (reference: rt.frag:79
+    # loops the shading only), and so is AO: with more than one sample it
+    # is computed once, ahead of them
+    ao = None
+    if params.enable_ao and spp > 1:
+        ao = lt.compute_ao(scene, h, frame_index, px, py,
+                           active=hit_mask if use_bvh else None)
+    frame_sum = None
+    for s in range(spp):
+        seed = frame_index * spp + s
+        if use_bvh:
+            shaded = _shade_bvh(scene, h, seed, frame_index, vdir, px, py,
+                                active=hit_mask, ao=ao)
+        else:
+            shaded = _shade_analytic(scene, h, seed, frame_index, vdir, px,
+                                     py, ao=ao)
+        sample = torch.where(hit_mask[..., None], shaded, sky_radiance)
+        frame_sum = sample if frame_sum is None else frame_sum + sample
+    if spp == 1:
+        return frame_sum, motion, gpos, gnrm
+    # a tensor divisor: on the card a division by a host scalar would
+    # multiply by the reciprocal
+    return (frame_sum / torch.full((), float(spp), device=rd.device), motion,
+            gpos, gnrm)
 
 
-def make_render_fn(height: int, width: int, device, use_bvh: bool = False):
-    """Frame function bound to an image size, a device and the scene mode:
-    fn(params, fin, state, env_map=None, bvh=None).
+def make_render_fn(height: int, width: int, device, use_bvh: bool = False,
+                   show_motion: bool = False):
+    """Frame function bound to an image size, a device, the scene mode and
+    the motion debug view: fn(params, fin, state, env_map=None, bvh=None).
 
     Raises at once when the device is CUDA and no card is present: the
     frame never runs on the CPU in its place."""
@@ -269,5 +299,6 @@ def make_render_fn(height: int, width: int, device, use_bvh: bool = False):
             raise ValueError(f"state is on {state.accum.device}, the "
                              f"render function on {device}")
         return render_frame(params, fin, state, env_map, bvh,
-                            height=height, width=width, use_bvh=use_bvh)
+                            height=height, width=width, use_bvh=use_bvh,
+                            show_motion=show_motion)
     return fn

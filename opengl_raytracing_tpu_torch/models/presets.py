@@ -5,9 +5,6 @@
   realistic: 1 SPP, GI/AO on, TAA on, SVGF off
   full     : 1 SPP, all on
   heavy    : 4 SPP, all on
-
-`baseline`, `realistic` and `full` render in the port; `heavy` builds
-its parameters, and `render_frame` refuses its 4 SPP (not yet ported).
 """
 
 from __future__ import annotations

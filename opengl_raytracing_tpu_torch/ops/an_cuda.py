@@ -15,8 +15,10 @@ lighting.direct_light_bvh:
 Each call is one launch.  The kernels read the raw hit records as rows
 ([N,3] p, n, v and [N] material id), the pixel-centre grids in place
 through their strides (`cuda_lib.PixelGrid`), and compute the rest themselves:
-normalisation, the material table, the sky of the reflected view and the
-disk-light offsets' hash chain.  The scene constants, the material table
+normalisation, the material table, the environment of the reflected view
+(the scene's cubemap, sampled in the kernel from the float32 table that
+`_AnScene.env` points to, or the gradient sky when the scene has none)
+and the disk-light offsets' hash chain.  The scene constants, the material table
 and the call's RNG keys go by value in one struct (`_AnScene`, the
 mirror of the C struct `AnScene`, filled by `scene_args`).  The wrapper
 makes nothing but the contiguous copies of rows that are not contiguous
@@ -60,9 +62,12 @@ MAT_ROWS = len(_TABLE_IDS)
 
 
 class _AnScene(ctypes.Structure):
-    """Host mirror of `AnScene` in csrc/an_direct.cu (all 4-byte fields,
-    no padding)."""
+    """Host mirror of `AnScene` in csrc/an_direct.cu (the table's device
+    pointer first, then 4-byte fields; the layouts' sizes are compared
+    when the library loads)."""
     _fields_ = [
+        ("env", ctypes.c_void_p), ("env_f", ctypes.c_int),
+        ("env_intensity", ctypes.c_float),
         ("light_c", _F3), ("light_t", _F3), ("light_b", _F3),
         ("light_nneg", _F3), ("light_color", _F3),
         ("light_radius", ctypes.c_float),
@@ -115,9 +120,22 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
-def scene_args(scene, rng_frame: int, frame_index: int) -> _AnScene:
+def _env_table(scene, device):
+    """The scene's cubemap as the kernel reads it, or None for the
+    gradient sky: the table `scene.sky` samples, checked."""
+    if not scene.params.enable_env_map or scene.env_map is None:
+        return None
+    env = scene.env_map
+    check("env_map", env, torch.float32, (6, env.shape[1], env.shape[1], 3),
+          device)
+    return env
+
+
+def scene_args(scene, rng_frame: int, frame_index: int,
+               env=None) -> _AnScene:
     """The kernels' constants for one call: the scene's (see
-    `_scene_constants`) and the RNG keys, sampling.rand's xor keys
+    `_scene_constants`), the cubemap table `env` (`_env_table`; None
+    leaves the pointer null) and the RNG keys, sampling.rand's xor keys
     `_frame_bits(frame)` and `_frame_bits(frame, 1663)` of cp_offset's two
     frames (frame_index * 911 and * 577) and of `rng_frame`, with
     ld2(frame_index)."""
@@ -130,6 +148,10 @@ def scene_args(scene, rng_frame: int, frame_index: int) -> _AnScene:
                           *keys(_frame_bits(frame_index, 577)))
     s.smp_key = (_U32 * 2)(*keys(rng_frame))
     s.ld = (ctypes.c_float * 2)(*ld2(frame_index))
+    if env is not None:
+        s.env = env.data_ptr()
+        s.env_f = env.shape[1]
+        s.env_intensity = _f32(scene.params.env_map_intensity)
     return s
 
 
@@ -204,7 +226,9 @@ def _offsets_ptr(offsets_out, n_px, device):
 def direct_light(scene, h, rng_frame: int, frame_index: int, vdir, px, py,
                  offsets_out=None):
     """Direct light of the analytic scene at hits `h` [...] (the contract
-    of lighting.direct_light_plain): rgb [..., 3].  On the card,
+    of lighting.direct_light_plain): rgb [..., 3].  With a cubemap in the
+    scene the kernel samples it on its mirror and glass lanes.  On the
+    card,
     `offsets_out` (float32 [8, N], optional) receives the kernel's disk
     offsets as planes dx0, dy0, dx1, ..."""
     if h.t.device.type == "cpu":
@@ -218,9 +242,11 @@ def direct_light(scene, h, rng_frame: int, frame_index: int, vdir, px, py,
     mat = cuda_lib.flat(h.mat, shape)
     check("mat", mat, torch.int32, (n_px,), device)
     offs = _offsets_ptr(offsets_out, n_px, device)
+    env = _env_table(scene, device)
     out = torch.empty((n_px, 3), dtype=torch.float32, device=device)
     cuda_lib.launch(_library().ort_an_direct, "an_direct", device,
-                    ctypes.byref(scene_args(scene, rng_frame, frame_index)),
+                    ctypes.byref(scene_args(scene, rng_frame, frame_index,
+                                            env)),
                     rows["p"].data_ptr(), rows["n"].data_ptr(),
                     rows["v"].data_ptr(), mat.data_ptr(), ctypes.byref(grid),
                     n_px, out.data_ptr(), offs)

@@ -6,7 +6,9 @@ rt_bvh.glsl:193-304).  BVH traces go to ops/bvh_cuda.py, which walks the
 tree with the CUDA kernel for CUDA tensors and with the plain PyTorch
 walk for CPU tensors (the AO and GI bounce calls go there from
 ops/lighting.py); analytic traces are plain PyTorch
-(ops/scene_analytic.py).  The cubemap environment is not ported yet.
+(ops/scene_analytic.py).  With a cubemap environment `sky` samples it
+(ops/cubemap.py); the analytic direct-light kernel samples the same table
+itself (ops/an_cuda.py).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from ..params import RenderParams
 from ..scene.bvh import BVHArrays, build_bvh, bvh_to_arrays
 from . import bvh_cuda
 from . import scene_analytic as sa
+from .cubemap import texel_table
 from .vecmath import normalize, v3
 
 
@@ -85,18 +88,25 @@ class SceneCtx:
     host_vectors: dict
     use_bvh: bool = False
     bvh: Optional[BVHDevice] = None
+    env_map: Optional[torch.Tensor] = None  # [6,F,F,3] float32 or None
 
     @staticmethod
     def create(params: RenderParams, cam_pos: torch.Tensor, env_map=None,
                use_bvh: bool = False, bvh: Optional[BVHDevice] = None
                ) -> "SceneCtx":
-        """The JAX signature; the cubemap env raises until it is ported.
+        """The JAX signature.  `env_map` is the float32 [6,F,F,3] table of
+        `convert.env_from_numpy` on the frame's device (a uint8 table is
+        converted here, k / 255 by true division).
 
         The light vectors depend on the parameters alone: they are
         computed on the host and copied to the frame's device once, so a
         kernel can take them as arguments without reading the device."""
         if env_map is not None:
-            raise NotImplementedError("cubemap environment is not ported yet")
+            f = env_map.shape[1] if env_map.dim() == 4 else 0
+            if tuple(env_map.shape) != (6, f, f, 3):
+                raise ValueError(f"env_map must be [6,F,F,3], got "
+                                 f"{tuple(env_map.shape)}")
+            env_map = texel_table(env_map).contiguous()
         if use_bvh and bvh is None:
             raise ValueError("use_bvh needs a BVHDevice")
         host = dict(
@@ -108,7 +118,7 @@ class SceneCtx:
             params=params, cam_pos=cam_pos.to(torch.float32),
             **{k: v.to(device) for k, v in host.items()},
             host_vectors={k: tuple(v.tolist()) for k, v in host.items()},
-            use_bvh=use_bvh, bvh=bvh)
+            use_bvh=use_bvh, bvh=bvh, env_map=env_map)
 
     def trace(self, ro, rd, eps: float = EPS, active=None) -> sa.Hit:
         """Closest hit against the BVH or the analytic scene.  `active`
@@ -131,4 +141,4 @@ class SceneCtx:
             ro, rd, self.params, self.point_light_pos, eps)
 
     def sky(self, d):
-        return sa.sky(d, self.params)
+        return sa.sky(d, self.params, self.env_map)

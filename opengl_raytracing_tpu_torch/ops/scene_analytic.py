@@ -3,8 +3,7 @@
 Counterpart of `opengl_raytracing_tpu/ops/scene_analytic.py` (reference:
 shaders/rt/rt_common.glsl:39-44, rt_scene_analytic.glsl:132-223).  The
 GLSL per-fragment if-chains become closest-hit where-selects over the
-batch: every primitive is tested for every ray.  The cubemap sky is not
-ported yet.
+batch: every primitive is tested for every ray.
 """
 
 from __future__ import annotations
@@ -20,6 +19,7 @@ from ..constants import (EPS, INF, FLOOR_NORMAL, FLOOR_D, SPHERE_LEFT_CENTER,
                          MAT_ALBEDO_SPHERE, MAT_GLASS_SPHERE,
                          MAT_MIRROR_SPHERE, MAT_POINTLIGHT_SPHERE)
 from ..params import RenderParams
+from .cubemap import sample_cubemap
 from .intersect import intersect_plane, intersect_sphere
 from .vecmath import const3, mix, normalize
 
@@ -105,11 +105,11 @@ def trace_analytic_ignore_point_light(ro, rd, params, point_light_pos,
 
 
 def sky(d, params: RenderParams, env_map=None):
-    """Environment lookup: the analytic gradient
-    (reference: shaders/rt/rt_scene_analytic.glsl:211-223).  The cubemap
-    branch (an env map with enable_env_map) is not ported yet."""
+    """Environment lookup: the cubemap if one is given and enabled, else
+    the analytic gradient
+    (reference: shaders/rt/rt_scene_analytic.glsl:211-223)."""
     if params.enable_env_map and env_map is not None:
-        raise NotImplementedError("cubemap environment is not ported yet")
+        return sample_cubemap(env_map, d) * params.env_map_intensity
     t = torch.clamp(0.5 * (d[..., 1] + 1.0), 0.0, 1.0)
     a = torch.tensor((0.6, 0.7, 0.9), dtype=torch.float32,
                      device=d.device) * 0.3

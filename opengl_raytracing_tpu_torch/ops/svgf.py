@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from ..constants import YCOEFF
 from ..params import RenderParams, f32
-from .tonemap import aces_tonemap, gamma_encode
+from .tonemap import aces_tonemap, gamma_encode, visualize_motion
 from .vecmath import dot, luminance, normalize, smoothstep
 
 RADIUS = 3     # 7x7 kernel (rt_present.frag:169)
@@ -117,9 +117,11 @@ def _half_texel(a):
 
 def present(accum, motion, gpos, gnrm, params: RenderParams,
             show_motion: bool = False):
-    """Present pass: SVGF blend -> ACES -> gamma
+    """Present pass: motion debug | SVGF blend -> ACES -> gamma
     (reference: rt_present.frag:231-266).  Returns sRGB [H,W,3]; `accum`
-    is only read.
+    is only read.  `show_motion` returns the HSV wheel of `motion`
+    (`tonemap.visualize_motion`, plain PyTorch on either device) in place
+    of the image, after the texel shift below.
 
     ORT_PRESENT_HALF_TEXEL=1 reproduces the reference's one-texel quirk
     as the JAX package does: rt_present.frag:232 samples at
@@ -130,10 +132,11 @@ def present(accum, motion, gpos, gnrm, params: RenderParams,
     CUDA tensors take one kernel launch, with SVGF on or off
     (ops/svgf_cuda.py: `svgf_present`, `tonemap`); CPU tensors run
     `present_plain`."""
-    if show_motion:
-        raise NotImplementedError("the motion debug view is not ported yet")
     from . import svgf_cuda
     half_texel = os.environ.get("ORT_PRESENT_HALF_TEXEL", "0") == "1"
+    if show_motion:
+        return visualize_motion(_half_texel(motion) if half_texel else motion,
+                                f32(params.motion_scale))
     if not params.enable_svgf:
         return svgf_cuda.tonemap(_half_texel(accum) if half_texel else accum,
                                  params)

@@ -6,14 +6,19 @@ Counterpart of `opengl_raytracing_tpu/ops/taa.py`.  Operates on whole
 matching the accum texture parameters (reference: src/render/accum.cpp:
 11-14).  Rows follow GL's bottom-up y, so UV math carries over 1:1.
 
-The moving path runs for every frame, in the JAX package's branch-free
-form: `moved` is a device value, and branching on it would cost a host
-sync per frame.  With a static camera the caller zeroes the motion, and
-every pixel then takes the still branch of the per-pixel select, so the
-result is the same as the JAX package's `lax.cond` skip.
+Whether the camera moved is known on the host (`FrameInputs.moved`), so
+the JAX package's `lax.cond` skip is a Python branch here and costs no
+device read: with `moved=False` only the still weights are computed, no
+reprojection gather and none of the moving path's ops.  With a static
+camera the caller zeroes the motion, every pixel of the branch-free form
+takes the still branch of its per-pixel select and reads its own texel,
+so the skip returns the same bits.  `moved=None` (unknown) keeps the
+branch-free form.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -40,7 +45,8 @@ def _store(col, m2, out):
 
 
 def resolve_taa(curr, motion, prev_accum, frame_index: int,
-                params: RenderParams, out=None):
+                params: RenderParams, out=None,
+                moved: Optional[bool] = None):
     """Blend the current frame with its (reprojected) history.
 
     curr [H,W,3] linear colour; motion [H,W,2] NDC motion, already zeroed
@@ -49,14 +55,33 @@ def resolve_taa(curr, motion, prev_accum, frame_index: int,
     (colour, M2).  Without TAA the frame is stored with its luminance
     squared as M2, which SVGF reads as variance (rt_taa.glsl:58-61).
 
+    `moved` is the host's knowledge of the camera: False (with
+    `taa_still_thresh > 0`, the JAX package's guard: at a threshold <= 0
+    zero motion is not "still") skips the moving path, which then equals
+    the branch-free form bit for bit given the zeroed motion; True or None
+    run the branch-free form.
+
     `out` may be the [H,W,4] buffer to write into, `prev_accum` itself
     included: every value of the result is computed before the first
-    write, so the moving path's gather never reads an updated pixel."""
+    write, so the moving path's gather never reads an updated pixel (the
+    still path reads only a pixel's own texel)."""
     l_curr = luminance(curr, YCOEFF)
     l_curr2 = l_curr * l_curr
     if not params.enable_taa or frame_index == 0:
         # no TAA, or the first frame: no history (rt_taa.glsl:66-68)
         return _store(curr, l_curr2, out)
+
+    max_w = f32(params.taa_history_max_weight)
+    # still weights (rt_taa.glsl:86-105), float32 as the JAX package's
+    w_still = (f32(params.taa_history_min_weight) if frame_index < 8 else
+               f32(params.taa_history_avg_weight) if frame_index < 32 else
+               max_w)
+    w_curr_still = f32(1.0 - w_still)
+    if moved is False and f32(params.taa_still_thresh) > 0.0:
+        # the camera is still: every pixel blends with its own texel
+        return _store(prev_accum[..., :3] * w_still + curr * w_curr_still,
+                      prev_accum[..., 3] * w_still + l_curr2 * w_curr_still,
+                      out)
 
     h, w = curr.shape[0], curr.shape[1]
     dev = curr.device
@@ -66,13 +91,7 @@ def resolve_taa(curr, motion, prev_accum, frame_index: int,
            / h)[:, None].expand(h, w)
     mot_mag = torch.sqrt(motion[..., 0] * motion[..., 0]
                          + motion[..., 1] * motion[..., 1])
-    max_w = f32(params.taa_history_max_weight)
     box = f32(params.taa_history_box_size)
-    # still weights (rt_taa.glsl:86-105), float32 as the JAX package's
-    w_still = (f32(params.taa_history_min_weight) if frame_index < 8 else
-               f32(params.taa_history_avg_weight) if frame_index < 32 else
-               max_w)
-    w_curr_still = f32(1.0 - w_still)
 
     # moving: reproject (rt_taa.glsl:116-179).  One history fetch for both
     # per-pixel cases: still pixels read their own texel.

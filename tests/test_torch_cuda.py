@@ -273,6 +273,104 @@ def test_an_direct_kernel_on_unsanitized_secondary_hits():
     _an_direct(scene, h2, 1, 1, -r, px, py, live=h2.valid)
 
 
+def _env_table(f, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand(6, f, f, 3, generator=g) * 2.0).cuda()  # HDR too
+
+
+@pytest.mark.parametrize("f", [1, 8, 64])
+@pytest.mark.parametrize("size", SIZES)
+def test_an_direct_kernel_samples_the_cubemap(f, size):
+    """K3 with an environment map: the kernel samples the cubemap on its
+    mirror and glass lanes (csrc/cubemap.cuh), within K3's gate of the plain
+    version, whose sky is `sample_cubemap`; the map shows on those lanes and
+    on no other."""
+    params = preset("baseline").replace(env_map_intensity=0.8)
+    scene, _, h, px, py, vdir = _analytic(params, *size)
+    env = _env_table(f, seed=f)
+    with_env = SceneCtx.create(params, scene.cam_pos, env_map=env)
+    got = _an_direct(with_env, h, 3, 3, vdir, px, py)
+    grad = an_cuda.direct_light(scene, h, 3, 3, vdir, px, py)
+    env_lanes = h.mat.eq(2) | h.mat.eq(3)
+    assert int(env_lanes.sum()) > 20
+    assert float((got - grad)[env_lanes].abs().max()) > 0.05
+    assert torch.equal(got[~env_lanes], grad[~env_lanes])
+
+
+def test_an_direct_kernel_cubemap_directions():
+    """Mirror lanes whose reflected view lies on a face diagonal, a face
+    edge or an axis: the kernel picks the plain version's face and taps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    params = preset("baseline")
+    n = 1 << 12
+    g = torch.Generator().manual_seed(1)
+    signs = torch.randint(0, 2, (n, 3), generator=g) * 2.0 - 1.0
+    mags = torch.tensor([[1, 1, 1], [1, 1, 0.3], [1, 0.3, 1], [0.3, 1, 1],
+                         [0.5, 0.5, 0], [0, 0.5, 0.5], [0.5, 0, 0.5],
+                         [1, 0, 0], [0, 1, 0], [0, 0, 1], [1, 0.875, 0.25],
+                         [0.125, 1, 1]])[torch.arange(n) % 12]
+    r = normalize(signs * mags)
+    # a mirror lane looking along its normal reflects straight back: r = n
+    h = Hit(torch.ones(n).cuda(), torch.zeros(n, 3).cuda(), r.cuda(),
+            torch.full((n,), 3, dtype=torch.int32).cuda())
+    px = (torch.arange(n) % 64 + 0.5).cuda()
+    py = (torch.arange(n) // 64 + 0.5).cuda()
+    for f in (1, 8):
+        scene = SceneCtx.create(params, torch.zeros(3).cuda(),
+                                env_map=_env_table(f, seed=2))
+        got = _an_direct(scene, h, 2, 2, r.cuda(), px, py)
+        assert got.std() > 0.05
+
+
+def test_an_direct_kernel_null_map_is_the_gradient_bit_for_bit():
+    """Without a map, with the map disabled, and on the BVH direct light
+    (which reads no sky of a direction) the result is what it was before
+    the kernel learned the cubemap: equal bits."""
+    params = preset("baseline")
+    scene, _, h, px, py, vdir = _analytic(params)
+    base = an_cuda.direct_light(scene, h, 4, 4, vdir, px, py)
+    off = SceneCtx.create(params.replace(enable_env_map=0), scene.cam_pos,
+                          env_map=_env_table(8))
+    assert torch.equal(an_cuda.direct_light(off, h, 4, 4, vdir, px, py),
+                       base)
+    # the in-kernel gradient against the plain gradient sky on env lanes
+    mirror = h.mat.eq(3)
+    want = lt.direct_light_plain(scene, h, 4, 4, vdir, px, py)
+    assert float((base - want)[mirror].abs().max()) <= K3_MAX_ABS
+
+
+def test_a_card_tensor_with_a_map_never_reaches_the_plain_version(
+        monkeypatch):
+    """With a map given, a CUDA tensor goes through the kernel, which
+    samples the map: neither the plain version, nor the plain sampler, nor
+    the gradient stands in."""
+    params = preset("baseline")
+    scene, _, h, px, py, vdir = _analytic(params)
+    env = _env_table(8, seed=3)
+    with_env = SceneCtx.create(params, scene.cam_pos, env_map=env)
+    want = lt.direct_light_plain(with_env, h, 6, 6, vdir, px, py)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+    from opengl_raytracing_tpu_torch.ops import cubemap, scene_analytic
+    monkeypatch.setattr(lt, "direct_light_plain", refuse)
+    monkeypatch.setattr(cubemap, "sample_cubemap", refuse)
+    monkeypatch.setattr(scene_analytic, "sample_cubemap", refuse)
+    before = dict(cuda_lib.LAUNCHES)
+    got = lt.direct_light(with_env, h, 6, 6, vdir, px, py)
+    assert _grew(before)["an_direct"] == 1
+    assert float((got - want).abs().max()) <= K3_MAX_ABS
+    # a table the kernel cannot read raises; nothing falls back
+    bad = SceneCtx.create(params, scene.cam_pos, env_map=env)
+    object.__setattr__(bad, "env_map", env.double())
+    with pytest.raises(TypeError, match="env_map"):
+        an_cuda.direct_light(bad, h, 6, 6, vdir, px, py)
+    object.__setattr__(bad, "env_map", env.cpu())
+    with pytest.raises(ValueError, match="env_map"):
+        an_cuda.direct_light(bad, h, 6, 6, vdir, px, py)
+
+
 def _grid_layout(x, layout):
     """The [H, W] pixel grid `x` (a broadcast row or column) in another
     memory layout, with the same values."""
@@ -762,5 +860,11 @@ def test_present_wrappers_reject_bad_inputs():
         svgf_cuda.tonemap(accum.double(), params)
     with pytest.raises(ValueError, match="contiguous"):
         svgf_cuda.tonemap(accum.transpose(0, 1), params)
-    with pytest.raises(NotImplementedError):
-        present(accum, motion, gpos, gnrm, params, show_motion=True)
+    # the motion view launches no kernel: plain PyTorch on the card, the
+    # CPU's wheel within rounding
+    before = dict(cuda_lib.LAUNCHES)
+    wheel = present(accum, motion, gpos, gnrm, params, show_motion=True)
+    assert cuda_lib.LAUNCHES == before and wheel.is_cuda
+    want = present(accum.cpu(), motion.cpu(), gpos.cpu(), gnrm.cpu(), params,
+                   show_motion=True)
+    torch.testing.assert_close(wheel.cpu(), want, rtol=0, atol=1e-5)

@@ -8,6 +8,7 @@ numpy operations on the same inputs, so every comparison here is exact.
 
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -191,6 +192,8 @@ def test_port_never_imports_jax():
     mods = _port_modules()
     assert "opengl_raytracing_tpu_torch.ops.bvh_cuda" in mods
     assert "opengl_raytracing_tpu_torch.ops.an_cuda" in mods
+    for new in ("ops.cubemap", "ops.tonemap", "models.raster", "utils.image"):
+        assert f"opengl_raytracing_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -205,6 +208,15 @@ def test_port_never_imports_jax():
         with open(path) as fh:
             src = fh.read()
         assert "import jax" not in src and "from jax" not in src, m
+    # the card-side scripts at the repo root import neither
+    for name in sorted(os.listdir(REPO)):
+        if name == "chip_smoke.py" or (name.startswith("probe_")
+                                       and name.endswith(".py")):
+            with open(os.path.join(REPO, name)) as fh:
+                src = fh.read()
+            assert not re.search(r"^\s*(import|from)\s+(jax|"
+                                 r"opengl_raytracing_tpu)(\s|\.|$)", src,
+                                 re.M), name
 
 
 def test_kernel_module_imports_without_nvcc_and_build_raises():

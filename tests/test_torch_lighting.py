@@ -178,15 +178,25 @@ def test_store_and_present_match_jax(exposure):
 
 
 @pytest.mark.parametrize("field", ["enable_taa", "enable_svgf"])
-def test_unported_branches_raise(field):
-    """TAA and SVGF render now (tests/test_torch_temporal.py holds them to
-    JAX); the motion debug view of the present pass is still refused,
-    whichever of them is on."""
-    params = params_from(jpreset("baseline")).replace(**{field: 1})
-    x = torch.zeros(4, 4, 3)
-    accum = ttaa.resolve_taa(x, x[..., :2], torch.zeros(4, 4, 4), 3, params)
-    with pytest.raises(NotImplementedError):
-        tsvgf.present(accum, x[..., :2], x, x, params, show_motion=True)
+def test_motion_view_replaces_the_image(field):
+    """The motion debug view of the present pass, whichever of TAA and
+    SVGF is on: the HSV wheel of the motion, as JAX `present` returns it
+    (1e-5: atan2 and the wrapped hue)."""
+    jparams = jpreset("baseline").replace(**{field: 1})
+    params = params_from(jparams)
+    rng = np.random.RandomState(2)
+    x = rng.rand(6, 8, 3).astype(np.float32)
+    motion = (rng.randn(6, 8, 2) * 0.05).astype(np.float32)
+    accum = ttaa.resolve_taa(torch.from_numpy(x), torch.from_numpy(motion),
+                             torch.zeros(6, 8, 4), 3, params)
+    got = tsvgf.present(accum, torch.from_numpy(motion), torch.from_numpy(x),
+                        torch.from_numpy(x), params, show_motion=True)
+    want = jsvgf.present(jnp.asarray(accum.numpy()), jnp.asarray(motion),
+                         jnp.asarray(x), jnp.asarray(x), jparams,
+                         show_motion=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+    assert got.numpy().std() > 0.05
 
 
 def test_params_are_frozen():

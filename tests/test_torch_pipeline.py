@@ -8,7 +8,10 @@ Tolerances: image, accumulation, motion, gpos and gnrm agree within 1e-4
 over a 3-frame chain with jitter and one moved-camera frame (float32
 rounding of pow/cos/sin and of sums in another order; the hit masks are
 equal).  The port's frame also meets the goldens `bvh_baseline` and
-`bvh_baseline_large` at the thresholds of tests/test_golden.py.
+`bvh_baseline_large` at the thresholds of tests/test_golden.py.  The
+parameter sets `render_frame` once refused (SPP > 1, a cubemap
+environment, the motion view) are held to JAX in
+tests/test_torch_stages.py.
 """
 
 import functools
@@ -140,23 +143,3 @@ def test_accumulation_is_updated_in_place(tris):
     assert img.min() >= 0.0 and img.max() <= 1.0
     reset = st.reset()
     assert reset.frame_index == 0 and not reset.accum.any()
-
-
-@pytest.mark.parametrize("change", [
-    dict(use_bvh=False, spp_per_frame=2), dict(preset="heavy"),
-    dict(preset="full", env_map=True), dict(preset="full", show_motion=True),
-    dict(use_bvh=False, env_map=True), dict(spp_per_frame=2),
-    dict(env_map=True), dict(show_motion=True)])
-def test_unported_stages_raise(tris, change):
-    """What the port still refuses (SPP > 1, the cubemap environment, the
-    motion view), on both scenes and under the presets that render now."""
-    change = dict(change)
-    kw = {k: change.pop(k) for k in ("use_bvh", "show_motion")
-          if k in change}
-    env = torch.ones(6, 4, 4, 3) if change.pop("env_map", False) else None
-    params = preset(change.pop("preset", "baseline")).replace(**change)
-    state = RenderState.create(8, 8, "cpu")
-    fin = camera_frame_inputs(Camera(), "cpu")
-    with pytest.raises(NotImplementedError):
-        render_frame(params, fin, state, env, prepare_bvh(tris, "cpu"),
-                     height=8, width=8, **{"use_bvh": True, **kw})

@@ -41,6 +41,8 @@ from opengl_raytracing_tpu_torch.convert import params_from
 from opengl_raytracing_tpu_torch.models import preset
 from opengl_raytracing_tpu_torch.ops import cuda_lib, svgf_cuda
 from opengl_raytracing_tpu_torch.ops import svgf as tsvgf
+from opengl_raytracing_tpu_torch.ops.tonemap import visualize_motion
+from opengl_raytracing_tpu_torch.params import f32
 
 torch.set_num_threads(2)
 
@@ -412,8 +414,12 @@ def test_present_on_cpu_launches_nothing(monkeypatch, svgf, half_texel):
     if half_texel == "1":
         inputs = [tsvgf._half_texel(x) for x in inputs]
     assert torch.equal(got, tsvgf.present_plain(*inputs, params))
-    with pytest.raises(NotImplementedError):
-        tsvgf.present(*inputs, params, show_motion=True)
+    # the motion view: the wheel of the (shifted) motion, no launch either
+    wheel = tsvgf.present(*inputs, params, show_motion=True)
+    assert cuda_lib.LAUNCHES == before
+    motion = tsvgf._half_texel(inputs[1]) if half_texel == "1" else inputs[1]
+    assert torch.equal(wheel, visualize_motion(motion,
+                                               f32(params.motion_scale)))
 
 
 @pytest.mark.parametrize("svgf", [1, 0])

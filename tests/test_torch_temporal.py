@@ -11,6 +11,9 @@ Tolerances:
   49 exps and the weight sums round in another order;
 * `present` (SVGF blend, ACES, gamma): 1e-5.
 
+`resolve_taa`'s host flag `moved` (the still-camera skip) is held bit for
+bit to the branch-free form and to JAX `resolve_taa(moved=...)`.
+
 It also holds the two repairs of the port against the JAX package: the
 `ORT_PRESENT_HALF_TEXEL=1` knob of `present`, and `render_frame` zeroing
 TAA's motion when the camera did not move.
@@ -116,6 +119,60 @@ def test_resolve_taa_matches_jax(case):
         still = ttaa.resolve_taa(_t(curr), torch.zeros(H, W, 2), _t(hist),
                                  fi, params)
         assert np.abs(got.numpy() - still.numpy()).max() > 1e-3
+
+
+@pytest.mark.parametrize("moved", [False, True, None])
+@pytest.mark.parametrize("case", ["frame0", "still3", "still8", "still40",
+                                  "mixed", "thresh0", "taa_off"])
+def test_resolve_taa_moved_flag(case, moved):
+    """The host flag: False skips the moving path (on the zeroed motion a
+    still camera's frame hands TAA), True and None run the branch-free
+    form; all three equal it bit for bit, in place too, and JAX
+    `resolve_taa(moved=...)` within 1e-6.  At taa_still_thresh <= 0 the
+    skip is not taken (the JAX package's guard: zero motion is not below
+    the threshold, so the pixels take the moving branch)."""
+    jparams = jpreset("full")
+    if case == "thresh0":
+        jparams = jparams.replace(taa_still_thresh=0.0)
+    if case == "taa_off":
+        jparams = jparams.replace(enable_taa=0)
+    curr, motion, hist, fi = _taa_case(
+        "still8" if case in ("thresh0", "taa_off") else case)
+    if moved is False:
+        motion = np.zeros_like(motion)  # the caller's contract
+    params = params_from(jparams)
+    base = ttaa.resolve_taa(_t(curr), _t(motion), _t(hist), fi, params)
+    got = ttaa.resolve_taa(_t(curr), _t(motion), _t(hist), fi, params,
+                           moved=moved)
+    np.testing.assert_array_equal(got.numpy(), base.numpy())
+    buf = _t(hist)
+    inplace = ttaa.resolve_taa(_t(curr), _t(motion), buf, fi, params,
+                               out=buf, moved=moved)
+    assert inplace.data_ptr() == buf.data_ptr()
+    np.testing.assert_array_equal(inplace.numpy(), base.numpy())
+    want = np.asarray(jtaa.resolve_taa(
+        jnp.asarray(curr), jnp.asarray(motion), jnp.asarray(hist),
+        jnp.int32(fi), jparams,
+        moved=None if moved is None else jnp.asarray(moved)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_resolve_taa_skip_runs_no_gather(monkeypatch):
+    """With moved=False the history is not gathered and no moving-path op
+    runs; with the threshold at 0, or moved unknown, it is."""
+    calls = []
+    real = ttaa._sample_nearest
+    monkeypatch.setattr(ttaa, "_sample_nearest",
+                        lambda *a: calls.append(1) or real(*a))
+    curr, motion, hist, fi = _taa_case("still8")
+    params = params_from(jpreset("full"))
+    ttaa.resolve_taa(_t(curr), _t(motion), _t(hist), fi, params, moved=False)
+    assert not calls
+    ttaa.resolve_taa(_t(curr), _t(motion), _t(hist), fi, params, moved=None)
+    ttaa.resolve_taa(_t(curr), _t(motion), _t(hist), fi, params, moved=True)
+    ttaa.resolve_taa(_t(curr), _t(motion), _t(hist), fi,
+                     params.replace(taa_still_thresh=0.0), moved=False)
+    assert len(calls) == 3
 
 
 def _svgf_inputs(h, w, seed, sky_rows=0):
@@ -251,3 +308,30 @@ def test_static_camera_zeroes_taa_motion():
     motion = out.motion.numpy()
     np.testing.assert_allclose(motion, np.asarray(jout.motion), atol=1e-5)
     assert np.abs(motion).max() > 0.02  # reprojection would move pixels
+
+
+@pytest.mark.parametrize("use_moved", [False, None])
+def test_frame_with_skip_equals_branch_free_frame(use_moved):
+    """A still-camera TAA chain rendered with the host flag (the skip) and
+    with the flag unknown (the branch-free form) gives the same frames bit
+    for bit; the flag rides in FrameInputs.moved."""
+    import dataclasses
+    fh, fw = 24, 32
+    params = params_from(jpreset("realistic"))
+    cam = JCamera()
+    cam.aspect = fw / fh
+    states = [RenderState.create(fh, fw, "cpu") for _ in range(2)]
+    for i in range(3):
+        fin = frame_inputs_from_numpy(_jfin(cam, cam.view_projection(), 0),
+                                      "cpu")
+        assert fin.moved is False and int(fin.camera_moved) == 0
+        fins = (fin, dataclasses.replace(fin, moved=use_moved))
+        outs = []
+        for k in range(2):
+            states[k], out = render_frame(params, fins[k], states[k],
+                                          height=fh, width=fw, use_bvh=False)
+            outs.append(out)
+        np.testing.assert_array_equal(outs[0].image.numpy(),
+                                      outs[1].image.numpy())
+        np.testing.assert_array_equal(states[0].accum.numpy(),
+                                      states[1].accum.numpy())
