@@ -108,7 +108,32 @@ phases, each printing its result and seconds on a line of its own:
      frames), profile_moving;
   25. reference_raster: `render_raster` at 270x480, the mesh through the
      closest-hit kernel, against the CPU: flat colours, equal but on tie
-     lanes (at most 1e-4 of the pixels).
+     lanes (at most 1e-4 of the pixels);
+  26. app_headless: the app layer as a user drives it, 1920x1080, through
+     `app.headless`'s parser, `make_app` and `Application.step`:
+     (a) `--scene bvh --preset full`, 32 still frames: the sum of the
+     steps' images equals frames_full's checksum bit for bit, with
+     frames_full's launches a frame (closest 1, bvh_direct 2, bounce 1, AO
+     1, svgf_present 1); (b) `--scene analytic --preset full --env
+     cubemaps/sky_day.png`: frames_an_full's checksum, K3 7 times a frame;
+     (c) `--model models/bunny_lp.obj --env cubemaps/sky_noon.hdr
+     --camera-anim dolly`: 8 frames finite and in [0,1], and the card
+     app's third frame at 270x480 against the CPU app's under the gate of
+     step 5; (d) `headless.main` with `--snapshot` after 16 frames, then
+     `--resume` for 16 more: the last image bit-equal to (a)'s, and every
+     resumed step's sum equal to (a)'s; (e) that `main` call's
+     frame_last.png decodes to 1080x1920x3.  The app's ms/frame beside
+     frames_full's and, in turns (render_frame, app, app, render_frame),
+     32-frame chains of each; one step's device launches and
+     host-to-device copies beside one `render_frame` call's, from the
+     profiler;
+  27. app_viewer: the HTTP viewer in process (`ViewerState` and
+     `make_handler` on 127.0.0.1, BVH `full` at 1080p, the viewer's 8
+     frames a step): /frame.png until 3 distinct frames were served, each
+     decoding to 1080x1920x3; /act?name=move_w moves /state's camera,
+     /set?exposure=2 sets the exposure, /act?name=quit ends the render
+     loop; no failed frame.  Frames served, and the stream's frames/s
+     over 5 s with the host's ms a turn in the step and in the encode.
 
 Any failure raises, so the script exits non-zero.  It needs one CUDA
 card and exits non-zero, printing no result, without one.  Before the
@@ -136,6 +161,7 @@ REF_HEIGHT, REF_WIDTH = 270, 480
 AN_REF_HEIGHT, AN_REF_WIDTH = 300, 400
 AN_FULL_REF_HEIGHT, AN_FULL_REF_WIDTH = 150, 200
 REF_FRAMES = 3         # the `full` references chain frames: TAA history
+STREAM_SECONDS = 5.0   # the viewer's stream rate is read over this window
 PROFILE_FRAME = 3      # the `full` profile times frame 3 (TAA resolves)
 MISMATCH_FRAC = 1e-5   # lanes allowed to differ in valid
 AO_FLIP_FRAC = 1e-3    # live AO lanes that may differ, by one sample step
@@ -1223,6 +1249,13 @@ def main() -> int:
     phase("reference_raster", t0, **check_raster_reference(
         bvh, bvh_cpu, REF_HEIGHT, REF_WIDTH))
 
+    t0 = time.time()
+    app_run = check_app_headless(frames_full, frames_an_full, smi)
+    phase("app_headless", t0, **app_run)
+
+    t0 = time.time()
+    phase("app_viewer", t0, **check_app_viewer(smi))
+
     # each kernel's own count in the newest path that must run it; a
     # kernel no path runs (the filter entry alone) as `full` counted it
     launches = dict(frames_full["launches"])
@@ -1243,12 +1276,311 @@ def main() -> int:
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     share=(r["bound_ms"] / r["kernel_ms"]
                            if r["kernel_ms"] else None),
+                    app_launches=app_run["launches_all"][k],
                     library_ms=None)  # no single PyTorch call computes these
     print(json.dumps({"kernels": [line(k) for k in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def app_args(*argv, size=(HEIGHT, WIDTH)):
+    """The headless CLI's arguments: `argv` at `size` (height, width)."""
+    from opengl_raytracing_tpu_torch.app import headless
+    return headless.build_parser().parse_args(
+        ["--size", f"{size[1]}x{size[0]}", *argv])
+
+
+def app_steps(args, frames, on_step=None):
+    """make_app(args), then `frames` steps, each after --camera-anim's
+    action as `headless.main` applies it; on_step(application, image)
+    after each.  Returns the Application."""
+    from opengl_raytracing_tpu_torch.app import headless
+    application = headless.make_app(args)
+    action = headless.camera_action(args)
+    for _ in range(frames):
+        if action is not None:
+            application.act(action)
+        img = application.step()
+        if on_step is not None:
+            on_step(application, img)
+    return application
+
+
+def device_events(fn):
+    """Device launches (kernels and copies), host-to-device and
+    device-to-host copies of one call of `fn`, from the profiler (`fn` is
+    called once before, unprofiled)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [ev for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA]
+    return dict(launches=sum(ev.count for ev in rows),
+                h2d_copies=sum(ev.count for ev in rows if "HtoD" in ev.key),
+                d2h_copies=sum(ev.count for ev in rows if "DtoH" in ev.key))
+
+
+def app_frames(args, frames, expect):
+    """`frames` steps of make_app(args) with the launch counters zeroed
+    just before: each step's image finite and in [0,1], the launches a
+    frame `expect` ({counter: launches}, every other counter 0).  Returns
+    the record, the per-step image sums and the last image."""
+    import torch
+    from opengl_raytracing_tpu_torch.ops.cuda_lib import LAUNCHES
+    sums, bad = [], []
+
+    def on_step(application, img):
+        sums.append(img.sum())
+        if img.shape != (application.app.height, application.app.width, 3) \
+                or not img.is_cuda:
+            bad.append(f"step {len(sums)}: {tuple(img.shape)} {img.device}")
+        elif not bool(torch.isfinite(img).all()) or float(img.min()) < 0.0 \
+                or float(img.max()) > 1.0:
+            bad.append(f"step {len(sums)} not finite in [0,1]")
+    torch.cuda.synchronize()
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    t0 = time.time()
+    application = app_steps(args, frames, on_step)
+    torch.cuda.synchronize()
+    sec = (time.time() - t0) / frames
+    launches = dict(LAUNCHES)
+    if bad:
+        raise AssertionError(f"app frames: {bad}")
+    want = {k: expect.get(k, 0) * frames for k in launches}
+    if launches != want:
+        raise AssertionError(f"app launched {launches} in {frames} frames, "
+                             f"not {want}")
+    app = application.app
+    rec = dict(frames=frames, size=[app.height, app.width],
+               device=str(app.device), ms_per_frame=sec * 1e3,
+               checksum=float(torch.stack(sums).sum()), launches=launches)
+    return rec, sums, application
+
+
+def check_app_headless(frames_full, frames_an_full, smi):
+    """Phase app_headless (docstring, step 26)."""
+    import tempfile
+    import torch
+    from opengl_raytracing_tpu_torch.app import headless
+    from opengl_raytracing_tpu_torch.convert import camera_frame_inputs
+    from opengl_raytracing_tpu_torch.models import (RenderState,
+                                                    make_render_fn, preset)
+    from opengl_raytracing_tpu_torch.utils.image import read_png
+    day = os.path.join(ROOT, "cubemaps", "sky_day.png")
+    noon = os.path.join(ROOT, "cubemaps", "sky_noon.hdr")
+    bunny = os.path.join(ROOT, "models", "bunny_lp.obj")
+    out = dict(card=smi)
+
+    # (a) the bunny scene, `full`, still camera: frames_full's frames
+    full_args = app_args("--scene", "bvh", "--preset", "full")
+    full_expect = dict(closest=1, bvh_direct=2, bounce=1, ao=1,
+                       svgf_present=1)
+    a, sums_a, app_a = app_frames(full_args, FRAMES, full_expect)
+    if a["checksum"] != frames_full["checksum"]:
+        raise AssertionError(f"app (a) checksum {a['checksum']} is not "
+                             f"frames_full's {frames_full['checksum']}")
+    last_a = (app_a.app.render_state.accum.clone(),
+              app_a.last_output.image.clone())
+    # one step against one render_frame call on the same scene: device
+    # launches and host-to-device copies
+    fn = make_render_fn(HEIGHT, WIDTH, "cuda", use_bvh=True)
+    state = [RenderState.create(HEIGHT, WIDTH, "cuda")]
+    fin = next(frame_inputs(HEIGHT, WIDTH, 1, "cuda", "full"))
+    params = preset("full")
+
+    def render_call():
+        state[0], _ = fn(params, fin, state[0], None, app_a.app.bvh)
+    a.update(step_events=device_events(app_a.step),
+             render_frame_events=device_events(render_call),
+             render_frame_ms_per_frame=frames_full["ms_per_frame"])
+    # ms/frame of 32-frame chains in turns, render_frame, app, app,
+    # render_frame, on one scene (host clock, ending in a synchronize)
+
+    def app_chain():
+        for _ in range(FRAMES):
+            app_a.step()
+
+    def render_chain():
+        render(app_a.app.bvh, HEIGHT, WIDTH, FRAMES, "cuda",
+               preset_name="full")
+    turns = dict(render_frame=[], app=[])
+    for name, chain in (("render_frame", render_chain), ("app", app_chain),
+                        ("app", app_chain), ("render_frame", render_chain)):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        chain()
+        torch.cuda.synchronize()
+        turns[name].append((time.time() - t0) / FRAMES * 1e3)
+    a["ms_per_frame_turns"] = turns
+    out["a_full"] = a
+
+    # (b) the analytic scene, `full`, the day-sky cross: frames_an_full's
+    b, _, _ = app_frames(
+        app_args("--scene", "analytic", "--preset", "full", "--env", day),
+        FRAMES, AN_FULL_LAUNCHES)
+    if b["checksum"] != frames_an_full["checksum"]:
+        raise AssertionError(f"app (b) checksum {b['checksum']} is not "
+                             f"frames_an_full's {frames_an_full['checksum']}")
+    b["render_frame_ms_per_frame"] = frames_an_full["ms_per_frame"]
+    out["b_an_full"] = b
+
+    # (c) a model file, an HDR environment, a dollying camera
+    c_argv = ("--scene", "bvh", "--preset", "full", "--model", bunny,
+              "--env", noon, "--camera-anim", "dolly")
+    c, _, app_c = app_frames(app_args(*c_argv), 8, full_expect)
+    if app_c.app.bvh_tri_count != 5120 or app_c.app.env_map is None \
+            or app_c.app.env_map.shape != (6, 64, 64, 3):
+        raise AssertionError("app (c) did not load its model and cubemap")
+    ref = {}
+    for device in ("cpu", "cuda"):
+        argv = c_argv + (("--cpu",) if device == "cpu" else ())
+        ref[device] = app_steps(app_args(*argv, size=(REF_HEIGHT, REF_WIDTH)),
+                                REF_FRAMES).last_output.image.cpu()
+    c["reference"] = dict(size=[REF_HEIGHT, REF_WIDTH], frame=REF_FRAMES,
+                          **_frame_gate(ref["cuda"], ref["cpu"], "app (c)"))
+    out["c_model_hdr_dolly"] = c
+
+    # (d) snapshot after 16 frames, resume for 16: (a)'s frames; (e) the
+    # main call's frame_last.png
+    half = FRAMES // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = os.path.join(tmp, "snap.npz")
+        t0 = time.time()
+        rc = headless.main(["--scene", "bvh", "--preset", "full", "--size",
+                            f"{WIDTH}x{HEIGHT}", "--frames", str(half),
+                            "--snapshot", snap, "--out", tmp])
+        main_s = time.time() - t0
+        png = read_png(os.path.join(tmp, "frame_last.png"))
+        sums_d = []
+        app_d = app_steps(app_args("--scene", "bvh", "--preset", "full",
+                                   "--resume", snap), half,
+                          lambda _, img: sums_d.append(img.sum()))
+    if rc != 0 or png.shape != (HEIGHT, WIDTH, 3):
+        raise AssertionError(f"headless.main returned {rc}, wrote "
+                             f"frame_last.png of {png.shape}")
+    same_sums = bool(torch.equal(torch.stack(sums_d),
+                                 torch.stack(sums_a[half:])))
+    same_last = (torch.equal(app_d.app.render_state.accum, last_a[0])
+                 and torch.equal(app_d.last_output.image, last_a[1]))
+    if not (same_sums and same_last) \
+            or app_d.app.render_state.frame_index != FRAMES:
+        raise AssertionError(f"resumed run differs from the uninterrupted "
+                             f"one: step sums equal {same_sums}, last "
+                             f"accumulation and image equal {same_last}")
+    out["d_snapshot_resume"] = dict(frames=[half, half], bitwise=True,
+                                    main_seconds=main_s)
+    out["e_main_png"] = dict(shape=list(png.shape), mean=float(png.mean()))
+    # every counter over (a) and (b), and (b)'s K3 as the env kernel's
+    out["launches_all"] = {k: a["launches"][k] + b["launches"][k]
+                           for k in a["launches"]}
+    out["launches_all"]["an_direct_env"] = b["launches"]["an_direct"]
+    return out
+
+
+def check_app_viewer(smi, timeout=240.0):
+    """Phase app_viewer (docstring, step 27)."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+    import torch
+    from opengl_raytracing_tpu_torch.app import headless
+    from opengl_raytracing_tpu_torch.app.viewer import (ViewerState,
+                                                        make_handler)
+    from opengl_raytracing_tpu_torch.ops.cuda_lib import LAUNCHES
+    from opengl_raytracing_tpu_torch.utils.image import read_png
+    args = app_args("--scene", "bvh", "--preset", "full")
+    args._viewer = True  # the viewer's default turbo
+    application = headless.make_app(args)
+    vs = ViewerState(application)
+    before = dict(LAUNCHES)
+    loop = threading.Thread(target=vs.loop, args=(30.0,), daemon=True)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(vs))
+    port = server.server_address[1]
+    serve = threading.Thread(target=server.serve_forever, daemon=True)
+
+    def get(path):
+        return urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                      timeout=60).read()
+    t_start = time.time()
+    loop.start()
+    serve.start()
+    try:
+        deadline = t_start + timeout
+        served, distinct, shapes = 0, set(), set()
+        t_first = None
+        while len(distinct) < 3 and time.time() < deadline:
+            png = get("/frame.png")
+            if not png:
+                time.sleep(0.05)
+                continue
+            t_first = t_first or time.time()
+            served += 1
+            if png not in distinct:
+                distinct.add(png)
+                path = os.path.join(ROOT, "out", "app_viewer_frame.png")
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                with open(path, "wb") as fh:
+                    fh.write(png)
+                shapes.add(read_png(path).shape)
+            time.sleep(0.02)
+        s0 = json.loads(get("/state"))
+        moved = json.loads(get("/act?name=move_w"))["ok"]
+        get("/set?exposure=2.0")
+        t_move = time.time()
+        s1 = json.loads(get("/state"))
+        while s1["frame_index"] == s0["frame_index"] \
+                and time.time() < deadline:
+            time.sleep(0.05)
+            s1 = json.loads(get("/state"))
+        u8_on_card = application.last_u8 is not None and \
+            application.last_u8.is_cuda
+        # the stream's rate over a window of STREAM_SECONDS
+        while time.time() < (t_first or t_start) + STREAM_SECONDS \
+                and time.time() < deadline:
+            time.sleep(0.1)
+        s2 = json.loads(get("/state"))
+        encoded = vs.frames_encoded
+        t_quit = time.time()
+        get("/act?name=quit")
+        loop.join(timeout=60)
+    finally:
+        vs.running = False
+        server.shutdown()
+        server.server_close()
+    launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    rec = dict(card=smi, size=[HEIGHT, WIDTH], turbo=application.turbo,
+               frames_served=served, distinct_frames=len(distinct),
+               frame_shapes=sorted(list(x) for x in shapes),
+               frames_encoded=encoded,
+               # frames encoded from the first served frame to the quit
+               stream_fps=(encoded - 1) / max(t_quit - (t_first or t_quit),
+                                              1e-9),
+               steps=application.frame_count,
+               # host ms a loop turn spends in the step (the uint8 copy
+               # queued) and in the PNG encode, last 30 turns
+               step_ms=s2["step_ms"], encode_ms=s2["encode_ms"],
+               seconds_to_first_frame=(t_first or time.time()) - t_start,
+               camera=[s0["camera"], s1["camera"]],
+               exposure=[s0["exposure"], s1["exposure"]],
+               state_after_move_s=time.time() - t_move,
+               failed_frames=vs.failed_frames, u8_on_card=u8_on_card,
+               loop_stopped=not loop.is_alive(), launches=launches)
+    ok = (len(distinct) >= 3 and shapes == {(HEIGHT, WIDTH, 3)} and moved
+          and s1["camera"] != s0["camera"] and s1["exposure"] == 2.0
+          and s0["exposure"] != 2.0 and vs.failed_frames == 0
+          and u8_on_card and not loop.is_alive()
+          and min(launches[k] for k in FULL_PATH) > 0)
+    if not ok:
+        raise AssertionError(f"app_viewer: {rec}")
+    return rec
 
 
 # (label, module, attribute) of each stage a profile times; a label ending

@@ -19,15 +19,27 @@ raster preview.
 
 Layout (mirrors the JAX package):
   constants.py, params.py, camera.py, sampling.py   host values and RNG
-  scene/     procedural bunny, triangle gather, numpy BVH builder
+  scene/     procedural meshes, model importers (OBJ, STL, PLY, glTF,
+             Collada, 3DS, FBX), triangle gather, numpy BVH builder
   ops/       vector math, intersection, the analytic scene, BVH walks,
              kernel wrappers, lighting, GI and AO, TAA, SVGF, present
   models/    the frame function, the raster preview and the presets
   convert.py carries host and JAX-side state (BVH arrays, params, frame
              inputs, cubemap faces) onto the device
-  utils/     PNG writer and reader, cubemap-cross loader
+  utils/     image codecs (PNG, JPEG, Radiance HDR, OpenEXR) and the
+             cubemap-cross loader, snapshots and presets, logging, asset
+             paths, frame timers
+  frame_state.py  the camera matrices of this frame and the last
+  app/       the application: state, input actions, the frame loop, the
+             headless CLI (`python -m opengl_raytracing_tpu_torch.app.
+             headless`) and the HTTP viewer (`... .app.viewer`)
 
 Nothing here imports JAX: the machine with the card has none.
 """
 
 __version__ = "0.1.0"
+
+from .constants import EPS, PI, INF
+from .params import RenderParams, params_changed
+from .camera import Camera
+from .frame_state import FrameState

@@ -279,13 +279,9 @@ def trace_and_shade(scene: SceneCtx, params: RenderParams, fin: FrameInputs,
             gpos, gnrm)
 
 
-def make_render_fn(height: int, width: int, device, use_bvh: bool = False,
-                   show_motion: bool = False):
-    """Frame function bound to an image size, a device, the scene mode and
-    the motion debug view: fn(params, fin, state, env_map=None, bvh=None).
-
-    Raises at once when the device is CUDA and no card is present: the
-    frame never runs on the CPU in its place."""
+def render_device(device) -> torch.device:
+    """`device` as a torch.device, a CUDA one with its index.  Raises when
+    it is CUDA and no card is present: nothing falls back to the CPU."""
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -293,6 +289,17 @@ def make_render_fn(height: int, width: int, device, use_bvh: bool = False,
                                "available")
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def make_render_fn(height: int, width: int, device, use_bvh: bool = False,
+                   show_motion: bool = False):
+    """Frame function bound to an image size, a device, the scene mode and
+    the motion debug view: fn(params, fin, state, env_map=None, bvh=None).
+
+    Raises at once when the device is CUDA and no card is present: the
+    frame never runs on the CPU in its place."""
+    device = render_device(device)
 
     def fn(params, fin, state, env_map=None, bvh=None):
         if state.accum.device != device:

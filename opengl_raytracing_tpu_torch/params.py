@@ -110,3 +110,40 @@ class RenderParams:
 
     def replace(self, **kw) -> "RenderParams":
         return dataclasses.replace(self, **kw)
+
+
+_META_FIELDS = tuple(
+    f.name for f in dataclasses.fields(RenderParams) if f.type == "int"
+)
+
+
+def _as_floats(x):
+    if isinstance(x, tuple):
+        return tuple(float(v) for v in x)
+    return float(x)
+
+
+def params_changed(a: RenderParams, b: RenderParams, tol: float = 1e-5) -> bool:
+    """Field-by-field diff; True triggers accumulation reset.
+
+    Mirrors `app_detail::paramsChanged`
+    (reference: src/app/application.cpp:51-145): int fields compare exactly,
+    float fields compare with |x - y| > 1e-5.  `ordered_primary` (a
+    traversal schedule), `exposure` and `motion_scale` (tonemap and debug
+    view only) are left out, as the reference leaves out the last two.
+    """
+    for f in dataclasses.fields(RenderParams):
+        if f.name in ("ordered_primary", "exposure", "motion_scale"):
+            continue
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if f.name in _META_FIELDS:
+            if int(va) != int(vb):
+                return True
+        else:
+            va, vb = _as_floats(va), _as_floats(vb)
+            if isinstance(va, tuple):
+                if any(abs(x - y) > tol for x, y in zip(va, vb)):
+                    return True
+            elif abs(va - vb) > tol:
+                return True
+    return False

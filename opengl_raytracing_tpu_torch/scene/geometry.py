@@ -1,19 +1,56 @@
-"""Procedural geometry and world-space triangle gather (numpy).
+"""Procedural geometry, OBJ IO and world-space triangle gather (numpy).
 
-Copies of the parts of `opengl_raytracing_tpu/scene/geometry.py` the BVH
-frame needs: the icosphere, the bunny-like blob that stands in for the
-reference's `models/bunny_lp.obj`, the model transform, and the gather
-that mirrors `gather_model_triangles` (reference: src/scene/bvh.cpp:225-246).
-The tests hold them to the originals exactly.
+Copies of `opengl_raytracing_tpu/scene/geometry.py`: the ground plane, UV
+sphere and icosphere, the bunny-like blob that stands in for the
+reference's `models/bunny_lp.obj`, a minimal OBJ reader and writer, the
+model transform, and the gather that mirrors `gather_model_triangles`
+(reference: src/scene/bvh.cpp:225-246).  The JAX package's `_fast` forms
+call its g++ library when it is built; here they are the Python and numpy
+forms that library stands in for.  The tests hold every function to the
+original exactly.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
 
 Mesh = Tuple[np.ndarray, np.ndarray]  # (verts [V,3] f32, faces [F,3] i32)
+
+
+def make_plane(size: float = 20.0, y: float = 0.0) -> Mesh:
+    """Ground quad (two triangles)."""
+    s = size
+    verts = np.array([[-s, y, -s], [s, y, -s], [s, y, s], [-s, y, s]],
+                     np.float32)
+    faces = np.array([[0, 2, 1], [0, 3, 2]], np.int32)
+    return verts, faces
+
+
+def make_uv_sphere(radius: float = 1.0, stacks: int = 24,
+                   slices: int = 48) -> Mesh:
+    vs, fs = [], []
+    for i in range(stacks + 1):
+        theta = np.pi * i / stacks
+        for j in range(slices):
+            phi = 2 * np.pi * j / slices
+            vs.append([radius * np.sin(theta) * np.cos(phi),
+                       radius * np.cos(theta),
+                       radius * np.sin(theta) * np.sin(phi)])
+
+    def vid(i, j):
+        return i * slices + (j % slices)
+    for i in range(stacks):
+        for j in range(slices):
+            a, b = vid(i, j), vid(i, j + 1)
+            c, d = vid(i + 1, j), vid(i + 1, j + 1)
+            if i > 0:
+                fs.append([a, b, c])
+            if i < stacks - 1:
+                fs.append([b, d, c])
+    return np.asarray(vs, np.float32), np.asarray(fs, np.int32)
 
 
 def make_icosphere(radius: float = 1.0, subdivisions: int = 3) -> Mesh:
@@ -80,6 +117,48 @@ def make_bunny(subdivisions: int = 4) -> Mesh:
     return v.astype(np.float32), faces
 
 
+def load_obj(path: str) -> Mesh:
+    """Minimal OBJ reader: v / f records, triangulates polygon fans.
+
+    Parity target: assimp import with Triangulate
+    (reference: include/scene/model.h:108-115); normals/uvs are recomputed
+    downstream so only positions and connectivity are kept.
+    """
+    verts, faces = [], []
+    with open(path, "r", encoding="utf-8", errors="replace") as fh:
+        for line in fh:
+            if line.startswith("v "):
+                parts = line.split()
+                verts.append([float(parts[1]), float(parts[2]),
+                              float(parts[3])])
+            elif line.startswith("f "):
+                idx = []
+                for tok in line.split()[1:]:
+                    i = tok.split("/")[0]
+                    k = int(i)
+                    idx.append(k - 1 if k > 0 else len(verts) + k)
+                for j in range(1, len(idx) - 1):
+                    faces.append([idx[0], idx[j], idx[j + 1]])
+    return (np.asarray(verts, np.float32),
+            np.asarray(faces, np.int32).reshape(-1, 3))
+
+
+def load_obj_fast(path: str) -> Mesh:
+    """The JAX package's name for its OBJ load; here the Python reader."""
+    return load_obj(path)
+
+
+def save_obj(path: str, mesh: Mesh) -> None:
+    verts, faces = mesh
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w", encoding="utf-8") as fh:
+        fh.write("# generated by opengl_raytracing_tpu\n")
+        for v in verts:
+            fh.write(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n")
+        for f in faces:
+            fh.write(f"f {f[0] + 1} {f[1] + 1} {f[2] + 1}\n")
+
+
 def model_transform(translate=(0.0, 0.0, 0.0), scale=1.0) -> np.ndarray:
     m = np.eye(4, dtype=np.float32)
     m[:3, 3] = translate
@@ -95,3 +174,15 @@ def gather_triangles(mesh: Mesh, transform: np.ndarray) -> np.ndarray:
     p1 = w[faces[:, 1]]
     p2 = w[faces[:, 2]]
     return np.concatenate([p0, p1 - p0, p2 - p0], axis=1).astype(np.float32)
+
+
+def gather_triangles_fast(mesh: Mesh, transform: np.ndarray) -> np.ndarray:
+    """The gather with the JAX package's index validation: a face that
+    indexes outside the vertices raises IndexError naming the count (the
+    JAX package checks before its g++ gather, which does not)."""
+    verts, faces = mesh
+    if faces.size and (faces.min() < 0 or faces.max() >= len(verts)):
+        raise IndexError(
+            f"face index out of range (verts={len(verts)}, "
+            f"max index={int(faces.max())})")
+    return gather_triangles(mesh, transform)

@@ -1,4 +1,7 @@
-"""Host utilities."""
+"""Host utilities: logging, image IO, path resolution, checkpointing,
+frame timers."""
 
-from .image import (write_png, read_png, slice_cubemap_cross,
+from .log import Logger, log
+from .image import (write_png, read_png, read_image, slice_cubemap_cross,
                     load_cubemap_cross)
+from .paths import resolve_path, resolve_dir

@@ -4,7 +4,8 @@ computes of it.
 
 * the host loaders (`read_png`, `slice_cubemap_cross`,
   `load_cubemap_cross`) are copies: array equality against the originals
-  on the two PNG crosses of cubemaps/; other formats are refused;
+  on the two PNG crosses of cubemaps/, and on its JPEG, HDR and EXR
+  crosses; a file of no known format is refused;
 * `direction_to_face_uv` and `sample_cubemap` against JAX on random,
   axis, face-diagonal and face-edge directions, float and uint8 tables:
   the face ids are equal, s, t and the colour agree within rtol 1e-6
@@ -108,9 +109,19 @@ def test_png_reader_defilters_every_filter_type(tmp_path):
 
 @pytest.mark.parametrize("name", ["sky_day.jpg", "sky_noon.hdr",
                                   "sky_storm.exr"])
-def test_other_formats_are_refused(name):
-    with pytest.raises(NotImplementedError, match="A7"):
-        timage.load_cubemap_cross(os.path.join(CUBEMAPS, name))
+def test_other_formats_are_refused(name, tmp_path):
+    """The JPEG, Radiance HDR and OpenEXR crosses load since the port has
+    the JAX package's readers, to the JAX package's arrays; a file of any
+    other format is refused with ValueError, as in the JAX package."""
+    path = os.path.join(CUBEMAPS, name)
+    faces = timage.load_cubemap_cross(path)
+    np.testing.assert_array_equal(faces, jimage.load_cubemap_cross(path))
+    assert faces.shape == (6, 64, 64, 3)
+    other = tmp_path / f"cross.{name.split('.')[1]}"
+    with open(path, "rb") as fh:
+        other.write_bytes(b"GIF89a" + fh.read()[6:])
+    with pytest.raises(ValueError, match="unrecognized image format"):
+        timage.load_cubemap_cross(str(other))
 
 
 def test_bad_cross_dimensions_raise():

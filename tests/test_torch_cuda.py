@@ -868,3 +868,89 @@ def test_present_wrappers_reject_bad_inputs():
     want = present(accum.cpu(), motion.cpu(), gpos.cpu(), gnrm.cpu(), params,
                    show_motion=True)
     torch.testing.assert_close(wheel.cpu(), want, rtol=0, atol=1e-5)
+
+
+# -- the app layer on the card --
+
+def _app_gate(got, want):
+    """chip_smoke.py's frame gate: max abs <= 2/255, q99.9 <= 1e-3."""
+    diff = (got.cpu() - want).abs()
+    assert float(diff.max()) <= 2.0 / 255.0
+    assert float(torch.quantile(diff.flatten(), 0.999)) <= 1e-3
+
+
+@pytest.mark.parametrize("argv", [
+    ("--scene", "bvh", "--preset", "full", "--camera-anim", "dolly"),
+    ("--scene", "analytic", "--preset", "full", "--env",
+     "cubemaps/sky_day.png"),
+    ("--scene", "bvh", "--preset", "heavy", "--model", "models/orb.glb",
+     "--env", "cubemaps/sky_storm.exr", "--camera-anim", "pan")])
+def test_app_steps_on_card_match_cpu(argv):
+    """The app's steps on the card against the same steps on the CPU:
+    every frame within the frame gate, the same host state, the card's
+    kernels launched and the frames left on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import os
+    from opengl_raytracing_tpu_torch.app import headless
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    argv = tuple(os.path.join(root, a) if "/" in a else a for a in argv)
+    apps = {}
+    for device in ("cpu", "cuda"):
+        args = headless.build_parser().parse_args(
+            ["--size", "128x96", *argv] + (["--cpu"] if device == "cpu"
+                                           else []))
+        apps[device] = headless.make_app(args)
+    action = headless.camera_action(args)
+    before = dict(cuda_lib.LAUNCHES)
+    for _ in range(3):
+        imgs = {}
+        for device, app in apps.items():
+            if action is not None:
+                app.act(action)
+            imgs[device] = app.step()
+        assert imgs["cuda"].is_cuda and imgs["cpu"].device.type == "cpu"
+        _app_gate(imgs["cuda"], imgs["cpu"])
+        c, g = apps["cpu"].app, apps["cuda"].app
+        assert c.host_frame_index == g.host_frame_index
+        np.testing.assert_array_equal(c.frame.jitter, g.frame.jitter)
+        np.testing.assert_array_equal(c.camera.position, g.camera.position)
+    assert cuda_lib.LAUNCHES["svgf_present"] >= before["svgf_present"] + 3
+
+
+def test_viewer_frames_come_from_the_card():
+    """The viewer's render thread runs the card app: each frame's uint8
+    image is a CUDA tensor copied through pinned memory, and the served
+    PNG is that image."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import tempfile
+    import threading
+    import time
+    from opengl_raytracing_tpu_torch.app import headless
+    from opengl_raytracing_tpu_torch.app.viewer import ViewerState
+    from opengl_raytracing_tpu_torch.utils.image import read_png
+    args = headless.build_parser().parse_args(
+        ["--size", "64x48", "--scene", "bvh", "--preset", "full"])
+    app = headless.make_app(args)
+    vs = ViewerState(app)
+    loop = threading.Thread(target=vs.loop, args=(120.0,), daemon=True)
+    loop.start()
+    try:
+        deadline = time.time() + 120
+        while vs.frames_encoded < 3 and time.time() < deadline:
+            time.sleep(0.05)
+        with vs.lock:
+            u8 = app.last_u8
+            assert u8 is not None and u8.is_cuda
+            assert u8.device == app.app.device
+    finally:
+        app.act("quit")
+        loop.join(timeout=60)
+    assert not loop.is_alive() and vs.failed_frames == 0
+    with tempfile.NamedTemporaryFile(suffix=".png") as fh:
+        fh.write(vs.png)
+        fh.flush()
+        served = read_png(fh.name)
+    assert served.shape == (48, 64, 3) and served.dtype == np.uint8
+    assert 0 < served.mean() < 255

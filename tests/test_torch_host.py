@@ -192,7 +192,11 @@ def test_port_never_imports_jax():
     mods = _port_modules()
     assert "opengl_raytracing_tpu_torch.ops.bvh_cuda" in mods
     assert "opengl_raytracing_tpu_torch.ops.an_cuda" in mods
-    for new in ("ops.cubemap", "ops.tonemap", "models.raster", "utils.image"):
+    for new in ("ops.cubemap", "ops.tonemap", "models.raster", "utils.image",
+                "frame_state", "utils.log", "utils.paths",
+                "utils.checkpoint", "utils.profiling", "scene.importers",
+                "app", "app.input", "app.state", "app.application",
+                "app.headless", "app.viewer"):
         assert f"opengl_raytracing_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -240,3 +244,135 @@ def test_cuda_device_without_card_raises():
         pytest.skip("a card is present: nothing to refuse")
     with pytest.raises(RuntimeError, match="CUDA"):
         make_render_fn(48, 64, "cuda")
+
+
+def test_frame_state_equals_jax():
+    from opengl_raytracing_tpu.frame_state import FrameState as JFrameState
+    from opengl_raytracing_tpu_torch import FrameState
+    cam = Camera()
+    vp, pos = cam.view_projection(), cam.position
+    for cls in (FrameState, JFrameState):
+        assert [f.name for f in dataclasses.fields(cls)] == [
+            "curr_view_proj", "prev_view_proj", "curr_cam_pos",
+            "prev_cam_pos", "jitter"]
+    ours, theirs = FrameState.initial(vp, pos), JFrameState.initial(vp, pos)
+    for _ in range(2):
+        for f in dataclasses.fields(FrameState):
+            x, y = getattr(ours, f.name), np.asarray(getattr(theirs, f.name))
+            assert x.dtype == y.dtype == np.float32
+            np.testing.assert_array_equal(x, y, f.name)
+        assert ours.camera_moved() == theirs.camera_moved()
+        cam.move(forward=1.0)
+        ours = ours.begin_frame(cam.view_projection(), cam.position,
+                                (0.25, -0.125))
+        theirs = theirs.begin_frame(cam.view_projection(), cam.position,
+                                    (0.25, -0.125))
+        assert ours.camera_moved() and theirs.camera_moved()
+        assert ours.camera_moved(tol=10.0) == theirs.camera_moved(tol=10.0)
+        ours, theirs = ours.end_frame(), theirs.end_frame()
+        assert not ours.camera_moved() and not theirs.camera_moved()
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        ours.jitter = None
+
+
+def test_params_changed_equals_jax():
+    """Every field changed alone, by more and by less than the 1e-5
+    tolerance, gives JAX's decision; the exclusions (exposure,
+    motion_scale, ordered_primary) are the same."""
+    from opengl_raytracing_tpu.params import params_changed as jchanged
+    from opengl_raytracing_tpu_torch import params_changed
+    from opengl_raytracing_tpu_torch.params import _as_floats
+    assert _as_floats((1, 2)) == (1.0, 2.0) and _as_floats(3) == 3.0
+    base, jbase = RenderParams(), JRenderParams()
+    decisions = []
+    for f in dataclasses.fields(RenderParams):
+        v = getattr(base, f.name)
+        if f.type == "int":
+            deltas = [dict(value=v + 1)]
+        elif isinstance(v, tuple):
+            deltas = [dict(value=(v[0], v[1] + d, v[2]))
+                      for d in (2e-5, 5e-6)]
+        else:
+            deltas = [dict(value=v + d) for d in (2e-5, 5e-6, -1.0)]
+        for d in deltas:
+            ours = params_changed(base, base.replace(**{f.name: d["value"]}))
+            theirs = jchanged(jbase, jbase.replace(**{f.name: d["value"]}))
+            assert ours == theirs, (f.name, d)
+            decisions.append(ours)
+    assert any(decisions) and not all(decisions)
+    for name in ("exposure", "motion_scale", "ordered_primary"):
+        v = getattr(base, name)
+        assert not params_changed(base, base.replace(**{name: v * 3 + 1}))
+    assert not params_changed(base, base)
+
+
+def test_log_and_paths_equal_jax(tmp_path, monkeypatch):
+    import importlib
+    jlog, jpaths, tlog, tpaths = (
+        importlib.import_module(f"{pkg}.utils.{m}")
+        for pkg in ("opengl_raytracing_tpu", "opengl_raytracing_tpu_torch")
+        for m in ("log", "paths"))
+    assert tlog.KNOWN_TAGS == jlog.KNOWN_TAGS
+    ours, theirs = tlog.Logger(echo=False), jlog.Logger(echo=False)
+    got = []
+    ours.sinks.append(got.append)
+    for lg in (ours, theirs):
+        lg.log("BVH", "loaded %s: %d tris", "m.obj", 12)
+        lg.log("ACCUM", "reset (manual)")
+        lg.log("GUI", "100%% plain")
+    assert ours.lines == theirs.lines == got
+    assert ours.filtered("ACCUM") == theirs.filtered("ACCUM") == [
+        "[ACCUM] reset (manual)"]
+    assert ours.filtered(None) == ours.lines
+    ours.clear()
+    assert ours.lines == []
+    assert isinstance(tlog.default_logger(), tlog.Logger)
+    # the repo is found from inside it and from the package's own file
+    assert tpaths.repo_root() == jpaths.repo_root() == REPO
+    assert tpaths.repo_root(os.path.join(PKG, "app")) == REPO
+    for rel in ("models", "cubemaps", "models/bunny_lp.obj"):
+        assert tpaths.resolve_path(rel) == jpaths.resolve_path(rel)
+        assert os.path.exists(tpaths.resolve_path(rel))
+    monkeypatch.chdir(tmp_path)  # away from the repo: the package's file
+    assert tpaths.repo_root() == REPO
+    assert tpaths.resolve_dir("cubemaps") == os.path.join(REPO, "cubemaps")
+    made = tpaths.resolve_dir("fresh", create=True)
+    assert os.path.isdir(made)
+
+
+def test_profiling_helpers():
+    from opengl_raytracing_tpu.utils.profiling import RayCounter as JRays
+    from opengl_raytracing_tpu_torch.models import FrameOutputs
+    from opengl_raytracing_tpu_torch.utils.profiling import (
+        FrameTimer, RayCounter, force_complete, torch_profiler_trace)
+    for name in PRESETS:
+        assert RayCounter(48, 64).rays_per_frame(preset(name)) == \
+            JRays(48, 64).rays_per_frame(jpreset(name))
+        assert RayCounter(48, 64).mrays(preset(name), 2.0) == \
+            JRays(48, 64).mrays(jpreset(name), 2.0)
+    out = FrameOutputs(*(torch.full((2, 3), float(i)) for i in range(4)))
+    assert force_complete(out) == 36.0
+    assert force_complete({"a": [torch.ones(3)], "b": None}) == 3.0
+    assert force_complete([]) == 0.0
+    timer = FrameTimer(window=2)
+    for _ in range(3):
+        with timer.section("frame", [out]):
+            pass
+    assert timer.stats()["frame"]["n"] == 2
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        with torch_profiler_trace(d):
+            torch.ones(4).sum()
+        assert os.path.getsize(os.path.join(d, "trace.json")) > 0
+
+
+def test_package_exports_match_jax():
+    import opengl_raytracing_tpu as jpkg
+    import opengl_raytracing_tpu_torch as tpkg
+    from opengl_raytracing_tpu import app as japp
+    from opengl_raytracing_tpu_torch import app as tapp
+    for name in ("EPS", "PI", "INF", "RenderParams", "params_changed",
+                 "Camera", "FrameState"):
+        assert hasattr(tpkg, name) and hasattr(jpkg, name), name
+    for name in ("AppState", "InputState", "ACTIONS", "Application"):
+        assert hasattr(tapp, name) and hasattr(japp, name), name
