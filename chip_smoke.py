@@ -29,7 +29,9 @@ phases, each printing its result and seconds on a line of its own:
     a pixel (a frame: the primary trace, AO and the present pass once;
     the bounce call four times, the BVH direct light eight times);
   * the bench `moving` frame: `full` with a camera that turns and dollies
-    every frame (TAA's reprojection path, SVGF's motion-aware weights).
+    every frame (TAA's reprojection path, SVGF's motion-aware weights);
+  * `full` and `moving` again as row bands (parallel/): each band traced,
+    shaded and TAA'd on its own rows, K4 filtering it with its halo rows.
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every csrc/*.cu from the sources, one process
@@ -134,6 +136,29 @@ phases, each printing its result and seconds on a line of its own:
      /set?exposure=2 sets the exposure, /act?name=quit ends the render
      loop; no failed frame.  Frames served, and the stream's frames/s
      over 5 s with the host's ms a turn in the step and in the encode.
+  28. sharded: the multi-GPU row-band renderer (opengl_raytracing_tpu_
+     torch/parallel/), 1080 rows in 4 bands of 270: (a) K4's two filter
+     entries on each band of the third `full` frame's planes, with 3 halo
+     rows of its neighbours (zeros past the edge): the filter entry equals
+     the plain band filter bit for bit, the fused entry the plain band
+     present pass within max abs 2e-6, and the stitched bands equal the
+     whole-image kernel's output bit for bit; one band call's times and
+     bound; (c) the four bands of each frame in turn on this card
+     (`render_bands_in_turn`: `band_shade`, then `band_present` with the
+     halos and the gathered history sliced from the other bands), `full`
+     and `moving`, 3 frames each, counters zeroed before, every kernel of
+     the `full` path launched: every frame's stitched image and the last
+     accumulation equal render_frame's bit for bit, mean_lum within 1e-4
+     of the host's; (b) a one-rank NCCL group on this card through
+     `make_sharded_render_fn`, the `full` and `moving` chains of 32
+     frames (the history all-gather on every moving frame, the halo ring
+     with no neighbour, the luminance all-reduce), counters zeroed before:
+     checksums equal frames_full's and frames_moving's, the gathered last
+     image's mean luminance the all-reduce's; where the machine has two
+     cards or more, min(cards, 4) NCCL ranks, one a card, in processes of
+     their own (`sharding.spawn_ranks`): rank 0's gathered `full` and
+     `moving` frames equal (c)'s single-card frames bit for bit.  With one
+     card it says so on a line of its own.
 
 Any failure raises, so the script exits non-zero.  It needs one CUDA
 card and exits non-zero, printing no result, without one.  Before the
@@ -145,6 +170,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import importlib
 import inspect
 import json
@@ -161,6 +187,8 @@ REF_HEIGHT, REF_WIDTH = 270, 480
 AN_REF_HEIGHT, AN_REF_WIDTH = 300, 400
 AN_FULL_REF_HEIGHT, AN_FULL_REF_WIDTH = 150, 200
 REF_FRAMES = 3         # the `full` references chain frames: TAA history
+SHARD_BANDS = 4        # phase sharded cuts 1080 rows into 4 bands of 270
+SHARD_FRAMES = 3       # frames of its four-band and multi-card chains
 STREAM_SECONDS = 5.0   # the viewer's stream rate is read over this window
 PROFILE_FRAME = 3      # the `full` profile times frame 3 (TAA resolves)
 MISMATCH_FRAC = 1e-5   # lanes allowed to differ in valid
@@ -605,12 +633,15 @@ def check_present(key, args, ops, timer):
     fn = getattr(svgf_cuda, key)
     plain_args = {**dict(motion=None, gpos=None, gnrm=None), **args}
     got, want = fn(**args), present_plain(**plain_args)
+    # `present` takes the whole image's planes, no band arguments
+    present_args = {k: plain_args[k] for k in ("accum", "motion", "gpos",
+                                               "gnrm", "params")}
     err = float((got - want).abs().max())
     if got.shape != want.shape or not err <= PRESENT_MAX_ABS \
             or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{key} disagrees with the plain present pass: "
                              f"max abs {err}")
-    per_present = launches_per_call(lambda: present(**plain_args))
+    per_present = launches_per_call(lambda: present(**present_args))
     if per_present != 1:
         raise AssertionError(f"present makes {per_present} device launches "
                              f"a call, not 1")
@@ -1256,6 +1287,12 @@ def main() -> int:
     t0 = time.time()
     phase("app_viewer", t0, **check_app_viewer(smi))
 
+    t0 = time.time()
+    sharded = check_sharded(bvh, frames_full, frames_moving, smi)
+    phase("sharded", t0, **sharded)
+    band = sharded["band_kernels"]["band"]
+    sharded_launches = sharded["nccl_one_rank_still"]["launches"]
+
     # each kernel's own count in the newest path that must run it; a
     # kernel no path runs (the filter entry alone) as `full` counted it
     launches = dict(frames_full["launches"])
@@ -1277,12 +1314,354 @@ def main() -> int:
                     share=(r["bound_ms"] / r["kernel_ms"]
                            if r["kernel_ms"] else None),
                     app_launches=app_run["launches_all"][k],
+                    sharded_launches=sharded_launches[
+                        KERNELS[k].get("counter", k)],
                     library_ms=None)  # no single PyTorch call computes these
-    print(json.dumps({"kernels": [line(k) for k in KERNELS]}), flush=True)
+
+    def band_keys(k):
+        # K4's fused entry on one 270-row band with its halo (sharded (a))
+        if k != "svgf_present":
+            return {}
+        return dict(band_kernel_ms=band["kernel_ms"], band_ms=band["ms"],
+                    band_plain_ms=band["plain_ms"],
+                    band_bound_ms=band["bound_ms"],
+                    band_bound_by=band["bound_by"])
+    print(json.dumps({"kernels": [dict(line(k), **band_keys(k))
+                                  for k in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def band_planes(planes, n, k):
+    """(first row, planes) of band k of n of whole-image planes, with
+    HALO rows of its neighbours above and below (zeros past the image's
+    edge), built with the renderer's own halo helpers."""
+    import torch
+    from opengl_raytracing_tpu_torch.parallel.shardmap import (band_of,
+                                                               halo_rows,
+                                                               with_halos)
+    row0, bh = band_of(planes[0].shape[0], n, k)
+    own = [x[row0:row0 + bh] for x in planes]
+    zeros = torch.zeros_like(halo_rows(own, True))
+    above = halo_rows([x[:row0] for x in planes], False) if k > 0 else zeros
+    below = halo_rows([x[row0 + bh:] for x in planes], True) \
+        if k < n - 1 else zeros
+    return row0, with_halos(own, above, below)
+
+
+def tap_rows(row0, bh, height):
+    """The in-image tap rows of a band's pixels, summed over its rows (a
+    whole image: 7 * height - 12)."""
+    return sum(0 <= row0 + y + j < height for y in range(bh)
+               for j in range(-3, 4))
+
+
+def check_band_kernels(bvh, device="cuda", timer=None):
+    """Phase sharded (a): K4's two filter entries on the SHARD_BANDS bands
+    (270 rows, 3 halo rows) of the third frame of a 1080p `full` chain:
+    each band's filter entry equals the plain band filter bit for bit and
+    its fused entry the plain band present pass within PRESENT_MAX_ABS;
+    the stitched bands equal the whole-image kernel's output bit for bit.
+    A middle band's call: kernel alone, wrapper and plain times, bound;
+    the whole image's fused call alone beside it."""
+    import torch
+    from opengl_raytracing_tpu_torch.ops import svgf_cuda
+    from opengl_raytracing_tpu_torch.ops.svgf import (present_plain,
+                                                      svgf_filter)
+    from opengl_raytracing_tpu_torch.parallel.shardmap import HALO
+    timer = timer or cuda_ms
+    args = record_kernel_inputs(bvh, HEIGHT, WIDTH, device,
+                                ("svgf_present",), "full",
+                                PROFILE_FRAME)["svgf_present"][0]
+    planes = [args[k] for k in ("accum", "motion", "gpos", "gnrm")]
+    params = args["params"]
+    whole = dict(svgf=svgf_cuda.svgf_filter(*planes, params),
+                 svgf_present=svgf_cuda.svgf_present(*planes, params))
+    got = dict(svgf=[], svgf_present=[])
+    bands, timed = [], None
+    for k in range(SHARD_BANDS):
+        row0, ext = band_planes(planes, SHARD_BANDS, k)
+        kw = dict(halo=HALO, row_offset=row0, full_height=HEIGHT)
+        f = svgf_cuda.svgf_filter(*ext, params, **kw)
+        p = svgf_cuda.svgf_present(*ext, params, **kw)
+        want_p = present_plain(*ext, params, **kw)
+        err = float((p - want_p).abs().max())
+        if not torch.equal(f, svgf_filter(*ext, params, **kw)) \
+                or not err <= PRESENT_MAX_ABS \
+                or not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"band {k}: K4's band entries disagree with "
+                                 f"their plain versions (present max abs "
+                                 f"{err})")
+        got["svgf"].append(f)
+        got["svgf_present"].append(p)
+        bands.append(dict(row0=row0, rows=f.shape[0], present_max_abs=err,
+                          present_bitwise=bool(torch.equal(p, want_p))))
+        if k == 1:
+            timed = (row0, ext, kw)
+    for key, parts in got.items():
+        if not torch.equal(torch.cat(parts), whole[key]):
+            raise AssertionError(f"the stitched bands of {key} differ from "
+                                 f"the whole-image kernel")
+    row0, ext, kw = timed
+    bh = ext[0].shape[0] - 2 * HALO
+    ops = (bh * WIDTH * (OPS["svgf_pixel"] + OPS["present_pixel"])
+           + tap_rows(row0, bh, HEIGHT) * (7 * WIDTH - 12) * OPS["svgf_tap"])
+
+    def band_call():
+        svgf_cuda.svgf_present(*ext, params, **kw)
+    kernel = KERNELS["svgf_present"]["kernel"]
+    return dict(
+        bands=bands, stitched_bitwise=True, band_rows=bh, halo=HALO,
+        band_row0=row0,
+        band=dict(**bound(unique_bytes(*ext) + 12 * bh * WIDTH, ops),
+                  ms=timer(band_call, 20), kernel_ms=kernel_ms(band_call,
+                                                               kernel),
+                  plain_ms=timer(lambda: present_plain(*ext, params, **kw),
+                                 3)),
+        whole_kernel_ms=kernel_ms(
+            lambda: svgf_cuda.svgf_present(*planes, params), kernel))
+
+
+def sharded_frames(mesh, bvh, preset_name, camera, frames):
+    """`frames` chained 1080p frames of the preset on the bunny scene
+    through make_sharded_render_fn on this rank's band, after one warm
+    frame, the counters zeroed just before: the record (the checksum of
+    this rank's image sums, launches, ms/frame, each frame's mean_lum),
+    and the last frame's image and accumulation gathered on rank 0 (None
+    elsewhere)."""
+    import torch
+    from opengl_raytracing_tpu_torch.models import RenderState, preset
+    from opengl_raytracing_tpu_torch.ops.cuda_lib import LAUNCHES
+    from opengl_raytracing_tpu_torch.parallel import (make_sharded_render_fn,
+                                                      shard_image_rows)
+    from opengl_raytracing_tpu_torch.parallel.shardmap import gather_rows
+    params = preset(preset_name).replace(enable_env_map=0)
+    fn = make_sharded_render_fn(mesh, HEIGHT, WIDTH, use_bvh=True)
+    state = shard_image_rows(mesh, RenderState.create(HEIGHT, WIDTH,
+                                                      mesh.device))
+    fins = list(frame_inputs(HEIGHT, WIDTH, frames, mesh.device, preset_name,
+                             camera))
+    # warm: NCCL sets its communicators up at a group's first collective
+    # of each kind (the history's all-gather needs a frame with a history)
+    warm = shard_image_rows(mesh, RenderState.create(HEIGHT, WIDTH,
+                                                     mesh.device))
+    fn(params, fins[0], RenderState(warm.accum, 1), None, bvh)
+    sums, lums = [], []
+    torch.cuda.synchronize()
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    t0 = time.time()
+    for fin in fins:
+        state, out, lum = fn(params, fin, state, None, bvh)
+        sums.append(out.image.sum())
+        lums.append(lum)
+    torch.cuda.synchronize()
+    sec = (time.time() - t0) / frames
+    launches = dict(LAUNCHES)
+    # (CPU tensors, a rehearsal, launch nothing)
+    if mesh.device.type == "cuda" \
+            and min(launches[k] for k in FULL_PATH) < frames:
+        raise AssertionError(f"the band step skipped a kernel of the path: "
+                             f"{launches}")
+    image, accum = gather_rows(mesh, out.image), gather_rows(mesh,
+                                                             state.accum)
+    rec = dict(preset=preset_name, camera=camera, frames=frames,
+               ranks=mesh.size, band=list(out.image.shape),
+               ms_per_frame=sec * 1e3,
+               checksum=float(torch.stack(sums).sum()), launches=launches,
+               mean_lum=[float(x) for x in lums])
+    return rec, image, accum
+
+
+def sharded_in_turns(mesh, bvh, frames=FRAMES):
+    """Phase sharded (b): 32-frame `full` chains of render_frame and of
+    the one-rank sharded function in turns (render_frame, sharded,
+    sharded, render_frame: the host's time spreads between chains), ms a
+    frame each; one frame's device launches, copies and busy ms each
+    way (the band step's own work: the halo planes, the all-reduce)."""
+    import torch
+    from opengl_raytracing_tpu_torch.models import (RenderState,
+                                                    make_render_fn, preset)
+    from opengl_raytracing_tpu_torch.parallel import (make_sharded_render_fn,
+                                                      shard_image_rows)
+    params = preset("full").replace(enable_env_map=0)
+    fins = list(frame_inputs(HEIGHT, WIDTH, frames, mesh.device, "full"))
+    fns = dict(render_frame=make_render_fn(HEIGHT, WIDTH, mesh.device,
+                                           use_bvh=True),
+               sharded=make_sharded_render_fn(mesh, HEIGHT, WIDTH,
+                                              use_bvh=True))
+
+    def state():  # one rank: its band is the whole image
+        return shard_image_rows(mesh, RenderState.create(HEIGHT, WIDTH,
+                                                         mesh.device))
+    ms = dict(render_frame=[], sharded=[])
+    for name in ("render_frame", "sharded", "sharded", "render_frame"):
+        st = state()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for fin in fins:
+            st = fns[name](params, fin, st, None, bvh)[0]
+        torch.cuda.synchronize()
+        ms[name].append((time.time() - t0) / frames * 1e3)
+    frame = {}
+    for name, fn in fns.items():
+        st = RenderState(state().accum, PROFILE_FRAME)
+        frame[name] = device_events(
+            lambda: fn(params, fins[PROFILE_FRAME], st, None, bvh))
+    return dict(frames=frames, ms_per_frame_in_turns=ms, one_frame=frame)
+
+
+def sharded_rank(mesh, frames):
+    """One rank of the multi-card run: the `full` and `moving` chains of
+    `frames` frames at 1080p on this rank's card; rank 0's gathered last
+    image and accumulation of each, as numpy."""
+    _, bvh = scene(mesh.device)
+    out = {}
+    for camera in ("still", "moving"):
+        rec, image, accum = sharded_frames(mesh, bvh, "full", camera, frames)
+        out[camera] = dict(
+            rec, image=None if image is None else image.cpu().numpy(),
+            accum=None if accum is None else accum.cpu().numpy())
+    return out
+
+
+def bands_in_turn(bvh, preset_name, camera, frames=SHARD_FRAMES,
+                  device="cuda"):
+    """Phase sharded (c): the four bands of each frame in turn on this
+    card (parallel.shardmap.render_bands_in_turn, the launch counters
+    zeroed just before), then the same frames through render_frame: every
+    frame's stitched image, motion and gbuffer and the last accumulation
+    bit for bit.
+    Returns the record and the single-card last image and accumulation."""
+    import torch
+    from opengl_raytracing_tpu_torch.models import (RenderState,
+                                                    make_render_fn, preset)
+    from opengl_raytracing_tpu_torch.ops.cuda_lib import LAUNCHES
+    from opengl_raytracing_tpu_torch.parallel.shardmap import (
+        band_of, render_bands_in_turn)
+    params = preset(preset_name).replace(enable_env_map=0)
+    fins = list(frame_inputs(HEIGHT, WIDTH, frames, device, preset_name,
+                             camera))
+    states = [RenderState(torch.zeros((band_of(HEIGHT, SHARD_BANDS, k)[1],
+                                       WIDTH, 4), device=device), 0)
+              for k in range(SHARD_BANDS)]
+    bands, lums = [], []
+    torch.cuda.synchronize()
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    for fin in fins:
+        states, outs, lum = render_bands_in_turn(
+            params, fin, states, None, bvh, height=HEIGHT, width=WIDTH,
+            use_bvh=True)
+        bands.append([torch.cat(planes) for planes in zip(*outs)])
+        lums.append(lum)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    if device != "cpu" \
+            and min(launches[k] for k in FULL_PATH) < SHARD_BANDS * frames:
+        raise AssertionError(f"a band skipped a kernel of the path: "
+                             f"{launches}")
+    fn = make_render_fn(HEIGHT, WIDTH, device, use_bvh=True)
+    state = RenderState.create(HEIGHT, WIDTH, device)
+    for i, fin in enumerate(fins):
+        state, out = fn(params, fin, state, None, bvh)
+        differ = {name: float((got - want).abs().max())
+                  for name, got, want in zip(out._fields, bands[i], out)
+                  if not torch.equal(got, want)}
+        if differ:
+            raise AssertionError(
+                f"{preset_name} {camera} frame {i}: the stitched bands "
+                f"differ from render_frame's, max abs {differ}")
+        host = float(luminance_mean(out.image))
+        if not abs(float(lums[i]) - host) < 1e-4:
+            raise AssertionError(f"mean_lum {float(lums[i])}, host {host}")
+    accum = torch.cat([s.accum for s in states])
+    if not torch.equal(accum, state.accum):
+        raise AssertionError(f"{preset_name} {camera}: the bands' "
+                             f"accumulation differs from render_frame's")
+    return dict(preset=preset_name, camera=camera, frames=frames,
+                bands=SHARD_BANDS, launches=launches, bitwise=True,
+                mean_lum=[float(x) for x in lums]), out.image, state.accum
+
+
+def luminance_mean(image):
+    import torch
+    return (image @ torch.tensor([0.299, 0.587, 0.114],
+                                 device=image.device)).mean()
+
+
+def check_sharded(bvh, frames_full, frames_moving, smi, device="cuda"):
+    """Phase sharded: K4's band entries (a), a one-rank NCCL group through
+    make_sharded_render_fn (b), four bands in turn on this card (c), and
+    min(cards, 4) NCCL ranks, one a card, where there are two or more.
+    (device "cpu": the same with gloo and the plain versions, a rehearsal
+    of the control flow at a small size.)"""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from opengl_raytracing_tpu_torch.parallel import make_mesh
+    from opengl_raytracing_tpu_torch.parallel.sharding import (
+        COLLECTIVE_TIMEOUT_S, spawn_ranks)
+    out = dict(card=smi, band_kernels=check_band_kernels(bvh, device))
+
+    refs = {}
+    for camera in ("still", "moving"):
+        rec, image, accum = bands_in_turn(bvh, "full", camera, device=device)
+        out[f"four_bands_{camera}"] = rec
+        refs[camera] = (image.cpu().numpy(), accum.cpu().numpy())
+
+    # (b) one rank, NCCL on this card: frames_full's and frames_moving's
+    # chains, the same checksums
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "gloo" if device == "cpu" else "nccl",
+            init_method=f"file://{tmp}/store", world_size=1, rank=0,
+            timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+        try:
+            mesh = make_mesh(cpu=device == "cpu")
+            for camera, run in (("still", frames_full),
+                                ("moving", frames_moving)):
+                rec, image, _ = sharded_frames(mesh, bvh, "full", camera,
+                                               FRAMES)
+                if rec["checksum"] != run["checksum"]:
+                    raise AssertionError(
+                        f"one NCCL rank, {camera}: checksum "
+                        f"{rec['checksum']}, render_frame's "
+                        f"{run['checksum']}")
+                host = float(luminance_mean(image))
+                if not abs(rec["mean_lum"][-1] - host) < 1e-4:
+                    raise AssertionError(f"mean_lum {rec['mean_lum'][-1]}, "
+                                         f"host {host}")
+                rec["mean_lum"] = rec["mean_lum"][-1]
+                out[f"nccl_one_rank_{camera}"] = rec
+            out["nccl_one_rank_in_turns"] = sharded_in_turns(mesh, bvh)
+        finally:
+            dist.destroy_process_group()
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"sharded: the machine has {cards} card: the multi-card spawn "
+              f"is not run", flush=True)
+        out["multi_card"] = f"not run: {cards} card"
+        return out
+    n = min(cards, SHARD_BANDS)
+    t0 = time.time()
+    results = spawn_ranks(sharded_rank, n, SHARD_FRAMES, timeout=600.0)
+    for camera, (image, accum) in refs.items():
+        got = results[0][camera]
+        if not (np.array_equal(got["image"], image)
+                and np.array_equal(got["accum"], accum)):
+            raise AssertionError(f"{n} NCCL ranks, {camera}: the gathered "
+                                 f"frame differs from the single-card frame")
+    out["multi_card"] = dict(
+        ranks=n, seconds=time.time() - t0, bitwise=True,
+        **{camera: [{k: v for k, v in r[camera].items()
+                     if k not in ("image", "accum")} for r in results]
+           for camera in refs})
+    return out
 
 
 def app_args(*argv, size=(HEIGHT, WIDTH)):
@@ -1310,8 +1689,8 @@ def app_steps(args, frames, on_step=None):
 
 def device_events(fn):
     """Device launches (kernels and copies), host-to-device and
-    device-to-host copies of one call of `fn`, from the profiler (`fn` is
-    called once before, unprofiled)."""
+    device-to-host copies and device busy ms of one call of `fn`, from the
+    profiler (`fn` is called once before, unprofiled)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -1324,7 +1703,8 @@ def device_events(fn):
             if ev.device_type == DeviceType.CUDA]
     return dict(launches=sum(ev.count for ev in rows),
                 h2d_copies=sum(ev.count for ev in rows if "HtoD" in ev.key),
-                d2h_copies=sum(ev.count for ev in rows if "DtoH" in ev.key))
+                d2h_copies=sum(ev.count for ev in rows if "DtoH" in ev.key),
+                device_ms=sum(ev.self_device_time_total for ev in rows) / 1e3)
 
 
 def app_frames(args, frames, expect):

@@ -45,6 +45,16 @@
 //     image's rim) runs the body without any bounds test.  Rim blocks
 //     test each tile row and tile pixel once (not each tap): outside the
 //     image it weighs 0, so it is skipped.
+//   * The two filter entries take a row band of the image as well as the
+//     whole of it (a band per card, parallel/shardmap.py): planes of the
+//     band's h rows with `halo` neighbour rows above and below, the
+//     band's first row in the image and the image's height.  A tap's
+//     weight tests its row in the image, its data comes from the planes
+//     (zeros past them, as the plain version pads), and a block takes
+//     the body without tests only where its output rows lie in the band,
+//     its tile in the planes and its taps' rows in the image.  The whole
+//     image is the band of h rows at row 0 with no halo: the same blocks
+//     take the same body as before.
 //   * The numbers (probe_svgf.py --sweep times others): a run of 2, a
 //     32 x 16 output tile a block of 256 threads, 64 registers, so that an
 //     SM holds 32 warps.  The 38 x 22 halo tile reads each input 1.63
@@ -106,6 +116,13 @@ struct Tone {
   float strength, exposure;
 };
 
+// Where the output rows lie: the planes hold `halo` rows above and below
+// them (row -halo .. h + halo - 1 of the output's row numbering), and
+// output row 0 is row `row0` of an image `full_h` rows high.
+struct Band {
+  int halo, row0, full_h;
+};
+
 // One channel of ops/svgf.py:blend_tonemap: the strength blend, exposure,
 // the ACES quotient (ops/tonemap.py:aces_tonemap), the clamp, gamma.
 __device__ __forceinline__ float tone_channel(float raw, float fil, Tone t) {
@@ -131,14 +148,16 @@ __device__ __forceinline__ int tile_at(int ty, int tx) {
 }
 
 // Stage the block's halo tile: plane a holds r g b px, plane b py pz nx ny,
-// plane c nz, the normal normalised; zeros outside the image.  A thread
+// plane c nz, the normal normalised; zeros outside the planes (h rows and
+// `halo` more above and below; the pointers at output row 0).  A thread
 // takes kLoads tile pixels and issues all their device loads before it
 // uses any, so that the block waits for device memory once.
 template <bool kInterior>
 __device__ __forceinline__ void load_tile(
     float4* __restrict__ a, float4* __restrict__ b, float* __restrict__ c,
     const float* __restrict__ accum, const float* __restrict__ gpos,
-    const float* __restrict__ gnrm, int h, int w, int x0, int y0, int tid) {
+    const float* __restrict__ gnrm, int h, int w, int halo, int x0, int y0,
+    int tid) {
   float4 col[kLoads];
   float pos[kLoads][3], nrm[kLoads][3];
 #pragma unroll
@@ -149,8 +168,8 @@ __device__ __forceinline__ void load_tile(
     col[n] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
     for (int e = 0; e < 3; ++e) pos[n][e] = nrm[n][e] = 0.0f;
-    if (k < kTX * kTY &&
-        (kInterior || (gx >= 0 && gx < w && gy >= 0 && gy < h))) {
+    if (k < kTX * kTY && (kInterior || (gx >= 0 && gx < w &&
+                                        gy >= -halo && gy < h + halo))) {
       const int64_t i = (int64_t)gy * w + gx;
       col[n] = __ldg(reinterpret_cast<const float4*>(accum) + i);
 #pragma unroll
@@ -206,13 +225,13 @@ __device__ __forceinline__ Centre centre_of(float4 va, float4 vb, float vc,
 }
 
 // The block's pixels out of its staged tile.  Thread (tx, ty) owns the
-// pixels (bx0 + tx * kRun + j, by0 + ty), j < kRun.
+// pixels (bx0 + tx * kRun + j, by0 + ty), j < kRun, of the h output rows.
 template <bool kInterior, bool kPresent>
 __device__ __forceinline__ void filter_runs(
     const float4* __restrict__ a, const float4* __restrict__ b,
     const float* __restrict__ c, const float* __restrict__ accum,
-    const float* __restrict__ motion, int h, int w, int bx0, int by0,
-    Params prm, Tone tone, float* __restrict__ out) {
+    const float* __restrict__ motion, int h, int w, Band band, int bx0,
+    int by0, Params prm, Tone tone, float* __restrict__ out) {
   const int xs = bx0 + threadIdx.x * kRun;
   const int y = by0 + threadIdx.y;
   if (!kInterior && (xs >= w || y >= h)) return;
@@ -236,7 +255,8 @@ __device__ __forceinline__ void filter_runs(
 
 #pragma unroll 1
   for (int r = 0; r < kTaps; ++r) {
-    if (!kInterior && (y - kRadius + r < 0 || y - kRadius + r >= h))
+    const int gy = band.row0 + y - kRadius + r;  // the tap row in the image
+    if (!kInterior && (gy < 0 || gy >= band.full_h))
       continue;  // a tile row outside the image weighs 0
     const bool centre_row = r == kRadius;
 #pragma unroll
@@ -298,46 +318,50 @@ template <bool kPresent>
 __device__ __forceinline__ void svgf_block(
     const float* __restrict__ accum, const float* __restrict__ motion,
     const float* __restrict__ gpos, const float* __restrict__ gnrm, int h,
-    int w, Params prm, Tone tone, float* __restrict__ out) {
+    int w, Band band, Params prm, Tone tone, float* __restrict__ out) {
   extern __shared__ float4 tile[];
   float4* a = tile;
   float4* b = a + kTile;
   float* c = reinterpret_cast<float*>(b + kTile);
   const int bx0 = blockIdx.x * kBX, by0 = blockIdx.y * kBY;
   const int tid = threadIdx.y * kThreadsX + threadIdx.x;
-  // the whole halo tile inside the image: the same for the whole block
-  const bool interior = bx0 >= kRadius && bx0 + kBX + kRadius <= w &&
-                        by0 >= kRadius && by0 + kBY + kRadius <= h;
+  // the same for the whole block: every output row in the band, the
+  // whole halo tile in the planes' columns and rows, and in the image
+  const bool interior =
+      bx0 >= kRadius && bx0 + kBX + kRadius <= w && by0 + kBY <= h &&
+      by0 - kRadius >= -band.halo && by0 + kBY + kRadius <= h + band.halo &&
+      band.row0 + by0 - kRadius >= 0 &&
+      band.row0 + by0 + kBY + kRadius <= band.full_h;
   if (interior) {
-    load_tile<true>(a, b, c, accum, gpos, gnrm, h, w, bx0 - kRadius,
-                    by0 - kRadius, tid);
+    load_tile<true>(a, b, c, accum, gpos, gnrm, h, w, band.halo,
+                    bx0 - kRadius, by0 - kRadius, tid);
     __syncthreads();
-    filter_runs<true, kPresent>(a, b, c, accum, motion, h, w, bx0, by0, prm,
-                                tone, out);
+    filter_runs<true, kPresent>(a, b, c, accum, motion, h, w, band, bx0, by0,
+                                prm, tone, out);
   } else {
-    load_tile<false>(a, b, c, accum, gpos, gnrm, h, w, bx0 - kRadius,
-                     by0 - kRadius, tid);
+    load_tile<false>(a, b, c, accum, gpos, gnrm, h, w, band.halo,
+                     bx0 - kRadius, by0 - kRadius, tid);
     __syncthreads();
-    filter_runs<false, kPresent>(a, b, c, accum, motion, h, w, bx0, by0, prm,
-                                 tone, out);
+    filter_runs<false, kPresent>(a, b, c, accum, motion, h, w, band, bx0,
+                                 by0, prm, tone, out);
   }
 }
 
 __global__ void __launch_bounds__(kThreads, kBlocks)
 svgf_kernel(const float* __restrict__ accum, const float* __restrict__ motion,
             const float* __restrict__ gpos, const float* __restrict__ gnrm,
-            int h, int w, Params prm, float* __restrict__ out) {
-  svgf_block<false>(accum, motion, gpos, gnrm, h, w, prm, Tone{0.0f, 0.0f},
-                    out);
+            int h, int w, Band band, Params prm, float* __restrict__ out) {
+  svgf_block<false>(accum, motion, gpos, gnrm, h, w, band, prm,
+                    Tone{0.0f, 0.0f}, out);
 }
 
 __global__ void __launch_bounds__(kThreads, kBlocks)
 svgf_present_kernel(const float* __restrict__ accum,
                     const float* __restrict__ motion,
                     const float* __restrict__ gpos,
-                    const float* __restrict__ gnrm, int h, int w, Params prm,
-                    Tone tone, float* __restrict__ out) {
-  svgf_block<true>(accum, motion, gpos, gnrm, h, w, prm, tone, out);
+                    const float* __restrict__ gnrm, int h, int w, Band band,
+                    Params prm, Tone tone, float* __restrict__ out) {
+  svgf_block<true>(accum, motion, gpos, gnrm, h, w, band, prm, tone, out);
 }
 
 // The tail alone, SVGF off: filtered == raw.  A thread takes kTonePixels
@@ -386,23 +410,35 @@ int launch_svgf(Kernel kernel, int h, int w, void* stream, Args... args) {
   return (int)cudaGetLastError();
 }
 
+// Output row 0 of a band's planes, which start `halo` rows above it.
+template <int kChannels>
+const float* band_rows(const void* plane, int halo, int w) {
+  return (const float*)plane + (int64_t)halo * w * kChannels;
+}
+
 }  // namespace
 
-// Plain C entry points for ctypes.  accum [h,w,4] (16-byte aligned), motion
-// [h,w,2], gpos and gnrm [h,w,3], out [h,w,3] (16-byte aligned for
-// ort_tonemap): contiguous float32 device arrays.  The five svgf_*
-// parameters, the blend strength (already clamped to [0, 1]) and the
-// exposure come by value.  Each returns cudaGetLastError() as an int.
+// Plain C entry points for ctypes.  accum [h + 2*halo, w, 4] (16-byte
+// aligned), motion [h + 2*halo, w, 2], gpos and gnrm [h + 2*halo, w, 3],
+// out [h, w, 3] (16-byte aligned for ort_tonemap, whose accum is
+// [h, w, 4]): contiguous float32 device arrays.  The filter entries
+// compute the h rows of a band that starts at row `row0` of an image
+// `full_h` rows high, with `halo` rows of neighbour data above and below
+// it in the planes; the whole image is halo 0, row0 0, full_h h.  The
+// five svgf_* parameters, the blend strength (already clamped to [0, 1])
+// and the exposure come by value.  Each returns cudaGetLastError() as an
+// int.
 
 // out = the filtered rgb.
 extern "C" int ort_svgf(const void* accum, const void* motion,
                         const void* gpos, const void* gnrm, int h, int w,
-                        float var_max, float k_var, float k_color,
-                        float k_var_m, float k_color_m, void* out,
-                        void* stream) {
-  return launch_svgf(svgf_kernel, h, w, stream, (const float*)accum,
-                     (const float*)motion, (const float*)gpos,
-                     (const float*)gnrm, h, w,
+                        int halo, int row0, int full_h, float var_max,
+                        float k_var, float k_color, float k_var_m,
+                        float k_color_m, void* out, void* stream) {
+  return launch_svgf(svgf_kernel, h, w, stream, band_rows<4>(accum, halo, w),
+                     band_rows<2>(motion, halo, w),
+                     band_rows<3>(gpos, halo, w), band_rows<3>(gnrm, halo, w),
+                     h, w, Band{halo, row0, full_h},
                      Params{var_max, k_var, k_color, k_var_m, k_color_m},
                      (float*)out);
 }
@@ -410,13 +446,16 @@ extern "C" int ort_svgf(const void* accum, const void* motion,
 // out = sRGB of the filtered image blended with accum's rgb.
 extern "C" int ort_svgf_present(const void* accum, const void* motion,
                                 const void* gpos, const void* gnrm, int h,
-                                int w, float var_max, float k_var,
-                                float k_color, float k_var_m, float k_color_m,
+                                int w, int halo, int row0, int full_h,
+                                float var_max, float k_var, float k_color,
+                                float k_var_m, float k_color_m,
                                 float strength, float exposure, void* out,
                                 void* stream) {
-  return launch_svgf(svgf_present_kernel, h, w, stream, (const float*)accum,
-                     (const float*)motion, (const float*)gpos,
-                     (const float*)gnrm, h, w,
+  return launch_svgf(svgf_present_kernel, h, w, stream,
+                     band_rows<4>(accum, halo, w),
+                     band_rows<2>(motion, halo, w),
+                     band_rows<3>(gpos, halo, w), band_rows<3>(gnrm, halo, w),
+                     h, w, Band{halo, row0, full_h},
                      Params{var_max, k_var, k_color, k_var_m, k_color_m},
                      Tone{strength, exposure}, (float*)out);
 }

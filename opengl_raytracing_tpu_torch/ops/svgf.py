@@ -146,14 +146,19 @@ def present(accum, motion, gpos, gnrm, params: RenderParams,
     return svgf_cuda.svgf_present(accum, motion, gpos, gnrm, params)
 
 
-def present_plain(accum, motion, gpos, gnrm, params: RenderParams):
+def present_plain(accum, motion, gpos, gnrm, params: RenderParams, *,
+                  halo: int = 0, row_offset: int = 0, full_height=None):
     """The plain PyTorch version of the present pass on the inputs as
     given (no texel shift): `svgf_filter` when SVGF is on, then
-    `blend_tonemap`.  With SVGF off only `accum` is read."""
-    raw = accum[..., :3]
+    `blend_tonemap`.  With SVGF off only `accum` is read.  A row band's
+    planes carry `halo` neighbour rows at top and bottom (as for
+    `svgf_filter`); the pass presents the band's own rows."""
+    raw = accum[halo:accum.shape[0] - halo, :, :3]
     if not params.enable_svgf:
         return blend_tonemap(raw, raw, params)
-    return blend_tonemap(raw, svgf_filter(accum, motion, gpos, gnrm, params),
+    return blend_tonemap(raw, svgf_filter(accum, motion, gpos, gnrm, params,
+                                          halo=halo, row_offset=row_offset,
+                                          full_height=full_height),
                          params)
 
 

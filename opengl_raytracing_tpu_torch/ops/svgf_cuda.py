@@ -1,7 +1,7 @@
 """Wrappers of the CUDA present-pass kernels in csrc/svgf.cu.
 
-Each takes the arguments of its plain version in ops/svgf.py for a whole
-image:
+Each takes the arguments of its plain version in ops/svgf.py: the whole
+image or, for the two filter entries, a row band with its halo rows:
 
   * `svgf_filter`: the 7x7 variance-guided filter alone (replaces the TPU
     kernel `opengl_raytracing_tpu/ops/svgf_pallas.py:_kernel`), plain
@@ -16,10 +16,12 @@ CPU tensors run the plain version.  CUDA tensors launch the kernel, or
 the call raises: nothing falls back to the plain version on the card.
 
 The kernels read the HWC planes as they are (accum [H,W,4], motion
-[H,W,2], gpos and gnrm [H,W,3]) and take the five `svgf_*` parameters,
-the clamped blend strength and the exposure by value.  They are built and
-launched through ops/cuda_lib.py, each counted under its own name
-(`LAUNCHES["svgf"]`, `LAUNCHES["svgf_present"]`, `LAUNCHES["tonemap"]`).
+[H,W,2], gpos and gnrm [H,W,3]; a band's [BH + 2*halo, W, C] with its
+halo rows, its first row and the image's height) and take the five
+`svgf_*` parameters, the clamped blend strength and the exposure by
+value.  They are built and launched through ops/cuda_lib.py, each counted
+under its own name (`LAUNCHES["svgf"]`, `LAUNCHES["svgf_present"]`,
+`LAUNCHES["tonemap"]`).
 Importing this module needs neither nvcc nor a card.
 """
 
@@ -37,48 +39,73 @@ from .svgf import (present_plain, svgf_filter as svgf_filter_plain,
 
 _P, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "ort_svgf": ([_P, _P, _P, _P, _I32, _I32] + [_F32] * 5 + [_P, _P],
+    "ort_svgf": ([_P, _P, _P, _P] + [_I32] * 5 + [_F32] * 5 + [_P, _P],
                  ctypes.c_int),
-    "ort_svgf_present": ([_P, _P, _P, _P, _I32, _I32] + [_F32] * 7
+    "ort_svgf_present": ([_P, _P, _P, _P] + [_I32] * 5 + [_F32] * 7
                          + [_P, _P], ctypes.c_int),
     "ort_tonemap": ([_P, _I32, _I32, _F32, _F32, _P, _P], ctypes.c_int),
 }
 
 
-def _filter_launch(kernel, accum, motion, gpos, gnrm, by_value):
+def _band(rows, halo, row_offset, full_height):
+    """(band rows, full height) of planes with `rows` rows; raise on a
+    band that does not fit them or the image."""
+    bh = rows - 2 * halo
+    full_height = bh if full_height is None else full_height
+    if halo < 0 or bh < 0 or row_offset < 0 \
+            or row_offset + bh > full_height:
+        raise ValueError(f"a band of {bh} rows with halo {halo} at row "
+                         f"{row_offset} does not fit planes of {rows} rows "
+                         f"and an image of {full_height}")
+    return bh, full_height
+
+
+def _filter_launch(kernel, accum, motion, gpos, gnrm, halo, row_offset,
+                   full_height, by_value):
     """Check the four planes, launch C entry `ort_<kernel>` of the filter
-    body with the `by_value` floats, counted under `kernel`, and return
-    its [H,W,3] output."""
+    body on their band with the `by_value` floats, counted under
+    `kernel`, and return its [BH,W,3] output."""
     device = cuda_lib.cuda_device(accum, "the SVGF kernels")
-    h, w = accum.shape[0], accum.shape[1]
-    check("accum", accum, torch.float32, (h, w, 4), device, align=16)
-    check("motion", motion, torch.float32, (h, w, 2), device)
-    check("gpos", gpos, torch.float32, (h, w, 3), device)
-    check("gnrm", gnrm, torch.float32, (h, w, 3), device)
-    out = torch.empty((h, w, 3), dtype=torch.float32, device=device)
+    rows, w = accum.shape[0], accum.shape[1]
+    bh, full_height = _band(rows, halo, row_offset, full_height)
+    check("accum", accum, torch.float32, (rows, w, 4), device, align=16)
+    check("motion", motion, torch.float32, (rows, w, 2), device)
+    check("gpos", gpos, torch.float32, (rows, w, 3), device)
+    check("gnrm", gnrm, torch.float32, (rows, w, 3), device)
+    out = torch.empty((bh, w, 3), dtype=torch.float32, device=device)
     lib = cuda_lib.library("svgf", _SIGNATURES)
     cuda_lib.launch(getattr(lib, f"ort_{kernel}"), kernel, device,
                     accum.data_ptr(), motion.data_ptr(), gpos.data_ptr(),
-                    gnrm.data_ptr(), h, w, *by_value, out.data_ptr())
+                    gnrm.data_ptr(), bh, w, halo, row_offset, full_height,
+                    *by_value, out.data_ptr())
     return out
 
 
-def svgf_filter(accum, motion, gpos, gnrm, params: RenderParams):
-    """Filtered rgb [H,W,3] of the whole image (the contract of
-    ops/svgf.py:svgf_filter with no halo)."""
+def svgf_filter(accum, motion, gpos, gnrm, params: RenderParams, *,
+                halo: int = 0, row_offset: int = 0, full_height=None):
+    """Filtered rgb [BH,W,3] of the whole image, or of a row band whose
+    planes carry `halo` neighbour rows at top and bottom, its first row
+    at `row_offset` of an image `full_height` rows high (the contract of
+    ops/svgf.py:svgf_filter)."""
     if accum.device.type == "cpu":
-        return svgf_filter_plain(accum, motion, gpos, gnrm, params)
-    return _filter_launch("svgf", accum, motion, gpos, gnrm,
-                          svgf_params(params))
+        return svgf_filter_plain(accum, motion, gpos, gnrm, params,
+                                 halo=halo, row_offset=row_offset,
+                                 full_height=full_height)
+    return _filter_launch("svgf", accum, motion, gpos, gnrm, halo,
+                          row_offset, full_height, svgf_params(params))
 
 
-def svgf_present(accum, motion, gpos, gnrm, params: RenderParams):
-    """sRGB [H,W,3]: the filtered image blended with accum's rgb by
-    `svgf_strength`, ACES, gamma.  `accum` is only read."""
+def svgf_present(accum, motion, gpos, gnrm, params: RenderParams, *,
+                 halo: int = 0, row_offset: int = 0, full_height=None):
+    """sRGB [BH,W,3]: the filtered image blended with accum's rgb by
+    `svgf_strength`, ACES, gamma; a band as for `svgf_filter`.  `accum`
+    is only read."""
     if accum.device.type == "cpu":
         return present_plain(accum, motion, gpos, gnrm,
-                             params.replace(enable_svgf=1))
-    return _filter_launch("svgf_present", accum, motion, gpos, gnrm,
+                             params.replace(enable_svgf=1), halo=halo,
+                             row_offset=row_offset, full_height=full_height)
+    return _filter_launch("svgf_present", accum, motion, gpos, gnrm, halo,
+                          row_offset, full_height,
                           svgf_params(params) + tone_params(params))
 
 

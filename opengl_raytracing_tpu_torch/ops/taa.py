@@ -1,10 +1,12 @@
 """TAA resolve with history variance tracking
 (reference: shaders/rt/rt_taa.glsl:47-180).
 
-Counterpart of `opengl_raytracing_tpu/ops/taa.py`.  Operates on whole
-[H,W] buffers; history fetches are NEAREST + CLAMP_TO_EDGE texel gathers,
-matching the accum texture parameters (reference: src/render/accum.cpp:
-11-14).  Rows follow GL's bottom-up y, so UV math carries over 1:1.
+Counterpart of `opengl_raytracing_tpu/ops/taa.py`.  Operates on the whole
+[H,W] image, or on a row band of it against the whole history
+(`row_offset`, parallel/shardmap.py); history fetches are NEAREST +
+CLAMP_TO_EDGE texel gathers, matching the accum texture parameters
+(reference: src/render/accum.cpp:11-14).  Rows follow GL's bottom-up y,
+so UV math carries over 1:1.
 
 Whether the camera moved is known on the host (`FrameInputs.moved`), so
 the JAX package's `lax.cond` skip is a Python branch here and costs no
@@ -46,14 +48,18 @@ def _store(col, m2, out):
 
 def resolve_taa(curr, motion, prev_accum, frame_index: int,
                 params: RenderParams, out=None,
-                moved: Optional[bool] = None):
+                moved: Optional[bool] = None, row_offset: int = 0):
     """Blend the current frame with its (reprojected) history.
 
-    curr [H,W,3] linear colour; motion [H,W,2] NDC motion, already zeroed
-    by the caller when the camera is static (reference: rt.frag:188);
-    prev_accum [H,W,4] rgb + M2; frame_index a host int.  Returns [H,W,4]
-    (colour, M2).  Without TAA the frame is stored with its luminance
-    squared as M2, which SVGF reads as variance (rt_taa.glsl:58-61).
+    curr [BH,W,3] linear colour; motion [BH,W,2] NDC motion, already
+    zeroed by the caller when the camera is static (reference:
+    rt.frag:188); prev_accum [H,W,4] rgb + M2, the whole history:
+    reprojection may read anywhere; frame_index a host int.  When curr is
+    a row band of the image, `row_offset` is its first row in prev_accum
+    (the still path reads rows row_offset .. row_offset + BH of it).
+    Returns [BH,W,4] (colour, M2).  Without TAA the frame is stored with
+    its luminance squared as M2, which SVGF reads as variance
+    (rt_taa.glsl:58-61).
 
     `moved` is the host's knowledge of the camera: False (with
     `taa_still_thresh > 0`, the JAX package's guard: at a threshold <= 0
@@ -61,10 +67,12 @@ def resolve_taa(curr, motion, prev_accum, frame_index: int,
     the branch-free form bit for bit given the zeroed motion; True or None
     run the branch-free form.
 
-    `out` may be the [H,W,4] buffer to write into, `prev_accum` itself
-    included: every value of the result is computed before the first
-    write, so the moving path's gather never reads an updated pixel (the
-    still path reads only a pixel's own texel)."""
+    `out` may be the [BH,W,4] buffer to write into, `prev_accum` itself
+    included when it holds only the band (row_offset 0): every value of
+    the result is computed before the first write, so the moving path's
+    gather never reads an updated pixel (the still path reads only a
+    pixel's own texel).  It must not alias a history with more rows than
+    the band: another band's pixels would be overwritten."""
     l_curr = luminance(curr, YCOEFF)
     l_curr2 = l_curr * l_curr
     if not params.enable_taa or frame_index == 0:
@@ -77,18 +85,20 @@ def resolve_taa(curr, motion, prev_accum, frame_index: int,
                f32(params.taa_history_avg_weight) if frame_index < 32 else
                max_w)
     w_curr_still = f32(1.0 - w_still)
+    bh, w = curr.shape[0], curr.shape[1]
     if moved is False and f32(params.taa_still_thresh) > 0.0:
         # the camera is still: every pixel blends with its own texel
-        return _store(prev_accum[..., :3] * w_still + curr * w_curr_still,
-                      prev_accum[..., 3] * w_still + l_curr2 * w_curr_still,
-                      out)
+        prev = prev_accum[row_offset:row_offset + bh]
+        return _store(prev[..., :3] * w_still + curr * w_curr_still,
+                      prev[..., 3] * w_still + l_curr2 * w_curr_still, out)
 
-    h, w = curr.shape[0], curr.shape[1]
     dev = curr.device
     uvx = ((torch.arange(w, dtype=torch.float32, device=dev) + 0.5)
-           / w)[None, :].expand(h, w)
-    uvy = ((torch.arange(h, dtype=torch.float32, device=dev) + 0.5)
-           / h)[:, None].expand(h, w)
+           / w)[None, :].expand(bh, w)
+    # the band's global rows: the pixel centres are exact in float32
+    uvy = ((torch.arange(row_offset, row_offset + bh, dtype=torch.float32,
+                         device=dev) + 0.5)
+           / prev_accum.shape[0])[:, None].expand(bh, w)
     mot_mag = torch.sqrt(motion[..., 0] * motion[..., 0]
                          + motion[..., 1] * motion[..., 1])
     box = f32(params.taa_history_box_size)

@@ -157,12 +157,14 @@ def ndc_from_world(p, vp):
     """Project world positions [...,3] by VP [4,4] -> NDC xy [...,2].
 
     The JAX version asks for precision=HIGHEST: motion vectors are
-    differences of two projections compared against 1e-5 thresholds.  The
-    torch counterpart is a full-float32 matmul, so TF32 is switched off
-    here explicitly for CUDA tensors (it is off by default, but a caller
-    may have turned it on)."""
-    if p.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
-    clip = torch.matmul(p, vp[:3, :3].T) + vp[:3, 3]
-    w = torch.matmul(p, vp[3, :3]) + vp[3, 3]
-    return clip[..., :2] / torch.clamp_min(w, 1e-6)[..., None]
+    differences of two projections compared against 1e-5 thresholds.
+    Here each row of VP is applied in full float32 by elementwise ops, x,
+    y, z then the translation, and not by a matmul: on the card the GEMM's
+    algorithm, and so its rounding, follows the grid's shape, and a row
+    band of the image (parallel/) must get the whole image's motion bit
+    for bit."""
+    def row(k):
+        m = vp[k]
+        return p[..., 0] * m[0] + p[..., 1] * m[1] + p[..., 2] * m[2] + m[3]
+    w = torch.clamp_min(row(3), 1e-6)
+    return torch.stack([row(0) / w, row(1) / w], dim=-1)

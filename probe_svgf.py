@@ -75,7 +75,8 @@ __device__ __forceinline__ void cp_async(float* dst, const float* src,
 __device__ __forceinline__ void load_tile_flat(
     float4* __restrict__ a, float4* __restrict__ b, float* __restrict__ c,
     const float* __restrict__ accum, const float* __restrict__ gpos,
-    const float* __restrict__ gnrm, int h, int w, int x0, int y0, int tid) {
+    const float* __restrict__ gnrm, int h, int w, int /*halo*/, int x0,
+    int y0, int tid) {
   float* raw[2] = {c + kTile, c + kTile + kTY * kRawRow};
   const int64_t total = (int64_t)3 * h * w;
   for (int k = tid; k < 2 * kTY * kChunks; k += kThreads) {

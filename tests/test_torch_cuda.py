@@ -20,7 +20,9 @@ atol 1e-5 everywhere, on the lanes whose radiance the caller keeps (the
 value of a miss or inactive lane is dropped by the callers' select; the
 kernels must still finish on it).  The SVGF kernel sums its 49 taps in
 the plain filter's order with the same expf: rtol 1e-5 / atol 1e-5 on
-every pixel, and bit for bit along the seams of its blocks.  Its fused
+every pixel, and bit for bit along the seams of its blocks; on the row
+bands of an image with their halo rows, bit for bit against the plain
+band filter and, stitched, against its own whole-image output.  Its fused
 entry (the whole present pass) and the tonemap kernel repeat the plain
 present pass's tail; only their powf may round the last bits of the gamma
 curve apart from PyTorch's pow: max abs 2e-6 on every pixel.
@@ -835,6 +837,162 @@ def test_svgf_block_seams_equal_plain_exactly():
     assert float((fused[rows] - plain[rows]).abs().max()) <= PRESENT_MAX_ABS
     assert float((fused[:, cols] - plain[:, cols]).abs().max()) \
         <= PRESENT_MAX_ABS
+
+
+def _bands(inputs, n, halo=3):
+    """The n row bands of whole-image planes, each with `halo` rows of
+    its neighbours above and below (zeros past the image's edge): the
+    planes ring_halos hands K4."""
+    h = inputs[0].shape[0]
+    bh = h // n
+    out = []
+    for k in range(n):
+        planes = []
+        for x in inputs:
+            pad = torch.zeros((halo,) + tuple(x.shape[1:]), device=x.device)
+            ext = torch.cat([pad, x, pad], 0)
+            planes.append(ext[k * bh:(k + 1) * bh + 2 * halo].contiguous())
+        out.append((k * bh, planes))
+    return out
+
+
+@pytest.mark.parametrize("size", [(1080, 1920), (1080, 203), (64, 96)])
+def test_svgf_band_entries_match_plain_and_stitch_to_the_whole(size):
+    """K4's two entries on the 4 bands of an image (1080 rows: 270 a band,
+    a partial last block row) with 3 halo rows: the filter entry equals
+    the plain band filter bit for bit, the fused entry the plain band
+    present pass to its tolerance, and the stitched bands equal the
+    whole-image kernel's output bit for bit.  The motion's smoothstep is
+    0 or 1 (see test_svgf_block_seams_equal_plain_exactly)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    h, w = size
+    inputs = _svgf_inputs(h, w, seed=31, sky=0.1)
+    inputs[1][:, :w // 2] = 0.0
+    inputs[1][:, w // 2:] = 0.2
+    params = preset("full")
+    whole = svgf_cuda.svgf_filter(*inputs, params)
+    whole_present = svgf_cuda.svgf_present(*inputs, params)
+    got, got_present = [], []
+    for row0, planes in _bands(inputs, 4):
+        kw = dict(halo=3, row_offset=row0, full_height=h)
+        before = dict(cuda_lib.LAUNCHES)
+        f = svgf_cuda.svgf_filter(*planes, params, **kw)
+        p = svgf_cuda.svgf_present(*planes, params, **kw)
+        after = dict(cuda_lib.LAUNCHES)
+        assert after.pop("svgf") == before.pop("svgf") + 1
+        assert after.pop("svgf_present") == before.pop("svgf_present") + 1
+        assert after == before
+        assert f.shape == (h // 4, w, 3) and p.shape == (h // 4, w, 3)
+        assert torch.equal(f, svgf_filter(*planes, params, **kw))
+        _assert_present(p, present_plain(*planes, params, **kw))
+        got.append(f)
+        got_present.append(p)
+    assert torch.equal(torch.cat(got), whole)
+    assert torch.equal(torch.cat(got_present), whole_present)
+
+
+def test_svgf_band_wrappers_reject_bad_bands():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    inputs = _svgf_inputs(14, 32, seed=0)
+    params = preset("full")
+    for kw in (dict(halo=8), dict(halo=3, row_offset=4, full_height=10),
+               dict(halo=-1), dict(row_offset=-1)):
+        with pytest.raises(ValueError, match="band"):
+            svgf_cuda.svgf_present(*inputs, params, **kw)
+        with pytest.raises(ValueError, match="band"):
+            svgf_cuda.svgf_filter(*inputs, params, **kw)
+
+
+def test_one_rank_nccl_frames_match_render_frame(bvh, tmp_path):
+    """A one-rank NCCL group through make_sharded_render_fn: three `full`
+    frames, still and then moving (the all-gathered history, the halo
+    exchange with no neighbour, the all-reduce), equal render_frame's on
+    the card bit for bit, through the same kernels."""
+    import torch.distributed as dist
+    from opengl_raytracing_tpu_torch.models import RenderState, render_frame
+    from opengl_raytracing_tpu_torch.parallel import (make_mesh,
+                                                      make_sharded_render_fn,
+                                                      shard_image_rows)
+    from opengl_raytracing_tpu_torch.parallel.shardmap import gather_rows
+    from opengl_raytracing_tpu_torch.ops.scene import BVHDevice
+    h, w = 96, 128
+    scene = BVHDevice(bvh)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        assert mesh.device == torch.device("cuda", 0)
+        fn = make_sharded_render_fn(mesh, h, w, use_bvh=True)
+        params = preset("full")
+        cam = Camera()
+        cam.aspect = w / h
+        cam.point_at((-2.0, 1.5, 0.0))
+        state = RenderState.create(h, w, "cuda")
+        band = shard_image_rows(mesh, RenderState.create(h, w, "cuda"))
+        prev = cam.view_projection()
+        for i in range(3):
+            moved = int(i > 0)
+            if moved:
+                cam.yaw += 1.0
+            fin = camera_frame_inputs(cam, "cuda", prev_view_proj=prev,
+                                      moved=moved)
+            prev = cam.view_projection()
+            state, out = render_frame(params, fin, state, None, scene,
+                                      height=h, width=w, use_bvh=True)
+            before = dict(cuda_lib.LAUNCHES)
+            band, bout, lum = fn(params, fin, band, None, scene)
+            for k in ("closest", "bounce", "ao", "bvh_direct",
+                      "svgf_present"):
+                assert cuda_lib.LAUNCHES[k] > before[k], k
+            assert torch.equal(bout.image, out.image)
+            assert torch.equal(band.accum, state.accum)
+            assert torch.equal(gather_rows(mesh, bout.image), out.image)
+            host = float((out.image.cpu() @ torch.tensor(
+                [0.299, 0.587, 0.114])).mean())
+            assert abs(float(lum) - host) < 1e-4
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("moving", [False, True], ids=["still", "moving"])
+def test_bands_in_turn_on_card_match_render_frame(bvh, moving):
+    """Four row bands a frame on the card, one after another
+    (render_bands_in_turn: the band step with its collectives done by
+    slicing), three `full` frames: every plane of every frame, and the
+    accumulation, equal render_frame's bit for bit.  The bands' grids are
+    a quarter of the image's: nothing on the path may round by the
+    shape (a GEMM's algorithm does; the motion's projection is
+    elementwise for this)."""
+    from opengl_raytracing_tpu_torch.models import RenderState, render_frame
+    from opengl_raytracing_tpu_torch.ops.scene import BVHDevice
+    from opengl_raytracing_tpu_torch.parallel.shardmap import (
+        render_bands_in_turn)
+    h, w, n = 96, 128, 4
+    scene = BVHDevice(bvh)
+    params = preset("full")
+    cam = Camera()
+    cam.aspect = w / h
+    cam.point_at((-2.0, 1.5, 0.0))
+    state = RenderState.create(h, w, "cuda")
+    bands = [RenderState(torch.zeros((h // n, w, 4), device="cuda"), 0)
+             for _ in range(n)]
+    prev = cam.view_projection()
+    for i in range(3):
+        if moving:
+            cam.yaw += 1.0
+        fin = camera_frame_inputs(cam, "cuda", prev_view_proj=prev,
+                                  moved=int(moving))
+        prev = cam.view_projection()
+        state, out = render_frame(params, fin, state, None, scene,
+                                  height=h, width=w, use_bvh=True)
+        bands, outs, _ = render_bands_in_turn(params, fin, bands, None,
+                                              scene, height=h, width=w,
+                                              use_bvh=True)
+        for name, got in zip(out._fields, zip(*outs)):
+            assert torch.equal(torch.cat(got), getattr(out, name)), name
+    assert torch.equal(torch.cat([b.accum for b in bands]), state.accum)
 
 
 def test_present_wrappers_reject_bad_inputs():

@@ -196,7 +196,8 @@ def test_port_never_imports_jax():
                 "frame_state", "utils.log", "utils.paths",
                 "utils.checkpoint", "utils.profiling", "scene.importers",
                 "app", "app.input", "app.state", "app.application",
-                "app.headless", "app.viewer"):
+                "app.headless", "app.viewer", "parallel",
+                "parallel.sharding", "parallel.shardmap"):
         assert f"opengl_raytracing_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

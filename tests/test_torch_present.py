@@ -13,7 +13,11 @@ by block, with the source's numbers (run length, output tile, run stride):
   blocks skipping tile rows and pixels outside the image; runs that
   straddle the right edge;
 * the tail (`tone_channel`): strength blend, exposure, ACES, clamp, gamma;
-* `tonemap_kernel`: four pixels a thread and the ragged last thread.
+* `tonemap_kernel`: four pixels a thread and the ragged last thread;
+* a row band of the image (the filter entries' `halo`, `row0`,
+  `full_h`): the planes' halo rows, the taps' rows tested in the image,
+  the interior test on the band's rows, planes and image, and the partial
+  last block row of a 270-row band (1080 rows over 4 cards).
 
 The transcription equals `svgf_filter` and `present_plain` bit for bit
 (sqrt, exp and pow are torch's, as the plain versions call them: torch's
@@ -77,29 +81,36 @@ def tile_at(ty, tx):
     return ty * PITCH + (tx % RUN) * STRIDE + tx // RUN
 
 
-def interior(bx0, by0, h, w):
-    return (bx0 >= RADIUS and bx0 + BX + RADIUS <= w
-            and by0 >= RADIUS and by0 + BY + RADIUS <= h)
+def interior(bx0, by0, h, w, halo=0, row0=0, full_h=None):
+    """svgf_block's test, for the h output rows of a band with `halo`
+    rows of planes above and below, at row `row0` of a `full_h` image."""
+    full_h = h if full_h is None else full_h
+    return (bx0 >= RADIUS and bx0 + BX + RADIUS <= w and by0 + BY <= h
+            and by0 - RADIUS >= -halo and by0 + BY + RADIUS <= h + halo
+            and row0 + by0 - RADIUS >= 0
+            and row0 + by0 + BY + RADIUS <= full_h)
 
 
 # ---- numpy transcription of the kernels ----
 
-def load_tile(accum, gpos, gnrm, x0, y0, inside):
-    """Planes a [slots,4], b [slots,4], c [slots] of one block."""
-    h, w = accum.shape[:2]
+def load_tile(accum, gpos, gnrm, x0, y0, inside, halo=0):
+    """Planes a [slots,4], b [slots,4], c [slots] of one block; the input
+    planes hold h output rows and `halo` more above and below."""
+    w = accum.shape[1]
+    h = accum.shape[0] - 2 * halo
     a = np.full((PITCH * TY, 4), np.nan, F32)
     b = np.full((PITCH * TY, 4), np.nan, F32)
     c = np.full(PITCH * TY, np.nan, F32)
     k = np.arange(TX * TY)
     ty, tx = k // TX, k % TX
     gx, gy = x0 + tx, y0 + ty
-    ok = (gx >= 0) & (gx < w) & (gy >= 0) & (gy < h)
-    if inside:  # no test in the kernel: every load must be in the image
+    ok = (gx >= 0) & (gx < w) & (gy >= -halo) & (gy < h + halo)
+    if inside:  # no test in the kernel: every load must be in the planes
         assert ok.all()
     va = np.zeros((k.size, 4), F32)
     vb = np.zeros((k.size, 4), F32)
     vc = np.zeros(k.size, F32)
-    col, pos, nrm = (x[gy[ok], gx[ok]] for x in (accum, gpos, gnrm))
+    col, pos, nrm = (x[gy[ok] + halo, gx[ok]] for x in (accum, gpos, gnrm))
     nx, ny, nz = nrm[:, 0], nrm[:, 1], nrm[:, 2]
     d = np.maximum(nx * nx + ny * ny + nz * nz, F32(0.0))
     length = np.maximum(_tsqrt(d), F32(1e-12))
@@ -148,9 +159,14 @@ def gamma(m):
     return _tpow(m, 1.0 / 2.2)
 
 
-def filter_runs(a, b, c, accum, motion, bx0, by0, inside, prm, tone, out):
-    """One block's threads, all at once: arrays over [BY, THREADS_X]."""
-    h, w = accum.shape[:2]
+def filter_runs(a, b, c, accum, motion, bx0, by0, inside, prm, tone, out,
+                halo=0, row0=0, full_h=None):
+    """One block's threads, all at once: arrays over [BY, THREADS_X]; the
+    planes hold `halo` rows above and below the h output rows, which
+    start at row `row0` of a `full_h` image."""
+    w = accum.shape[1]
+    h = accum.shape[0] - 2 * halo
+    full_h = h if full_h is None else full_h
     tx, ty = np.meshgrid(np.arange(THREADS_X), np.arange(BY))
     xs, y = bx0 + tx * RUN, by0 + ty
     live = np.ones_like(xs, bool) if inside else (xs < w) & (y < h)
@@ -163,12 +179,14 @@ def filter_runs(a, b, c, accum, motion, bx0, by0, inside, prm, tone, out):
         xc = np.minimum(np.where(inb, xs + j, xs), w - 1)
         if inside:
             assert (xs + j < w).all() and (y < h).all()
-        ce.append(centre_of(a[t], b[t], c[t], accum[yc, xc, 3],
-                            motion[yc, xc, 0], motion[yc, xc, 1], prm))
+        ce.append(centre_of(a[t], b[t], c[t], accum[yc + halo, xc, 3],
+                            motion[yc + halo, xc, 0],
+                            motion[yc + halo, xc, 1], prm))
         acc.append([np.zeros(xs.shape, F32) for _ in range(4)])
     for r in range(TAPS):
+        gy = row0 + y - RADIUS + r  # the tap row in the image
         row_ok = np.ones_like(xs, bool) if inside else \
-            (y - RADIUS + r >= 0) & (y - RADIUS + r < h)
+            (gy >= 0) & (gy < full_h)
         for col in range(COLS):
             gx = xs - RADIUS + col
             ok = row_ok if inside else row_ok & (gx >= 0) & (gx < w)
@@ -211,19 +229,22 @@ def filter_runs(a, b, c, accum, motion, bx0, by0, inside, prm, tone, out):
         out[y[store], (xs + j)[store]] = np.stack(fil, -1)[store]
 
 
-def kernel_svgf(accum, motion, gpos, gnrm, prm, tone=None):
-    """ort_svgf (tone None) or ort_svgf_present, block by block."""
-    h, w = accum.shape[:2]
+def kernel_svgf(accum, motion, gpos, gnrm, prm, tone=None, halo=0, row0=0,
+                full_h=None):
+    """ort_svgf (tone None) or ort_svgf_present, block by block, on the
+    whole image or on a band (planes with `halo` rows above and below the
+    band's, which starts at row `row0` of a `full_h` image)."""
+    h, w = accum.shape[0] - 2 * halo, accum.shape[1]
     out = np.full((h, w, 3), np.nan, F32)
     n_inside = 0
     for by0 in range(0, h, BY):
         for bx0 in range(0, w, BX):
-            inside = interior(bx0, by0, h, w)
+            inside = interior(bx0, by0, h, w, halo, row0, full_h)
             n_inside += inside
             planes = load_tile(accum, gpos, gnrm, bx0 - RADIUS, by0 - RADIUS,
-                               inside)
+                               inside, halo)
             filter_runs(*planes, accum, motion, bx0, by0, inside, prm, tone,
-                        out)
+                        out, halo, row0, full_h)
     return (out if tone is None else gamma(out)), n_inside
 
 
@@ -379,6 +400,87 @@ def test_interior_blocks_are_those_with_the_whole_tile_inside(size):
     if size == (1080, 1920):  # all but the rim takes the fast body
         blocks = -(-h // BY) * -(-w // BX)
         assert n_inside >= 0.9 * blocks
+
+
+# bands: (image height, width, band rows, first row, halo).  1080 rows
+# over 4 cards give 270-row bands, whose last block row is partial (270 =
+# 16 * 16 + 14); the middle bands take the body without tests on every
+# other block row, their halo rows in the planes; the first and last have
+# the image's edge; halo 1 and 0 read zeros past the planes where the
+# image goes on (as the plain version pads)
+BANDS = [(1080, 96, 270, 270, 3), (1080, 96, 270, 810, 3),
+         (1080, 96, 270, 0, 3), (32, 64, 8, 8, 3), (37, 131, 12, 24, 3),
+         (40, 70, 20, 10, 1), (40, 70, 20, 10, 0)]
+
+
+def _band_inputs(full_h, w, bh, row0, halo, seed):
+    """The whole image's planes, and the band's with `halo` rows of the
+    image above and below it (zeros past the image's edge, as the ring
+    shifts deliver them)."""
+    whole = _inputs(full_h, w, seed)
+    band = []
+    for x in whole:
+        pad = np.zeros((halo,) + x.shape[1:], F32)
+        band.append(np.ascontiguousarray(np.concatenate([pad, x, pad])[
+            row0:row0 + bh + 2 * halo]))
+    return whole, band
+
+
+@pytest.mark.parametrize("band", BANDS[:2] + BANDS[3:])
+def test_band_filter_schedule_matches_plain_band_filter(band):
+    full_h, w, bh, row0, halo = band
+    whole, ext = _band_inputs(full_h, w, bh, row0, halo, seed=bh + row0)
+    params = preset("full")
+    got, n_inside = kernel_svgf(*ext, _prm(params), halo=halo, row0=row0,
+                                full_h=full_h)
+    want = tsvgf.svgf_filter(*(_t(x) for x in ext), params, halo=halo,
+                             row_offset=row0, full_height=full_h).numpy()
+    np.testing.assert_array_equal(got, want)
+    if halo == RADIUS:  # with its halo a band is the whole image's rows
+        full = tsvgf.svgf_filter(*(_t(x) for x in whole), params).numpy()
+        np.testing.assert_array_equal(got, full[row0:row0 + bh])
+    if bh == 270:  # the interior body runs, and the partial block row too
+        assert n_inside > 0 and bh % BY
+        assert not np.isnan(got).any()
+
+
+# bands of whole vectors: the band's pow sees the whole image's lanes
+@pytest.mark.parametrize("band", [BANDS[2], BANDS[3]])
+@pytest.mark.parametrize("strength", [0.7, 1.0])
+def test_band_present_schedule_matches_plain_band_present(band, strength):
+    full_h, w, bh, row0, halo = band
+    whole, ext = _band_inputs(full_h, w, bh, row0, halo, seed=bh + 1)
+    params = preset("full").replace(svgf_strength=strength)
+    got, _ = kernel_svgf(*ext, _prm(params), tsvgf.tone_params(params),
+                         halo=halo, row0=row0, full_h=full_h)
+    want = tsvgf.present_plain(*(_t(x) for x in ext), params, halo=halo,
+                               row_offset=row0, full_height=full_h).numpy()
+    np.testing.assert_array_equal(got, want)
+    full = tsvgf.present_plain(*(_t(x) for x in whole), params).numpy()
+    np.testing.assert_array_equal(got, full[row0:row0 + bh])
+
+
+@pytest.mark.parametrize("band", BANDS)
+def test_band_interior_blocks(band):
+    """The interior test of a band: every output row in the band, the
+    whole halo tile in the planes (band and halo rows) and in the image.
+    1080 over 4: the middle bands' every block row but the partial last
+    one, the first band's from the second on."""
+    full_h, w, bh, row0, halo = band
+    rows = []
+    for by0 in range(0, bh, BY):
+        whole = (by0 + BY <= bh and by0 - RADIUS >= -halo
+                 and by0 + BY + RADIUS <= bh + halo
+                 and row0 + by0 - RADIUS >= 0
+                 and row0 + by0 + BY + RADIUS <= full_h)
+        for bx0 in range(0, w, BX):
+            cols = bx0 - RADIUS >= 0 and bx0 + BX + RADIUS <= w
+            assert interior(bx0, by0, bh, w, halo, row0, full_h) == (
+                whole and cols)
+        rows.append(whole)
+    if bh == 270:
+        assert rows[-1] is False  # the partial last block row
+        assert all(rows[1:-1]) and rows[0] == (row0 > 0)
 
 
 def test_tile_layout():
