@@ -20,7 +20,10 @@ raster preview.
 Layout (mirrors the JAX package):
   constants.py, params.py, camera.py, sampling.py   host values and RNG
   scene/     procedural meshes, model importers (OBJ, STL, PLY, glTF,
-             Collada, 3DS, FBX), triangle gather, numpy BVH builder
+             Collada, 3DS, FBX), triangle gather, BVH builders
+  native/    the g++ host library (BVH builder, OBJ parser, triangle
+             gather, cubemap slicer, PNG/HDR/JPEG codec loops), built at
+             first use, with the numpy forms where no g++ is on PATH
   ops/       vector math, intersection, the analytic scene, BVH walks,
              kernel wrappers, lighting, GI and AO, TAA, SVGF, present
   models/    the frame function, the raster preview and the presets

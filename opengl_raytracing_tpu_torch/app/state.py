@@ -18,6 +18,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from .. import native
 from ..camera import Camera
 from ..constants import DEFAULT_BVH_SCALE, DEFAULT_BVH_TRANSLATE
 from ..convert import env_from_numpy
@@ -142,7 +143,12 @@ class AppState:
         (reference: src/app/application.cpp:300-304,513-515)."""
         try:
             img = read_image(path)
-            faces = slice_cubemap_cross(img)
+            # 8-bit crosses through the native slicer, as the JAX app
+            # slices them; float crosses (HDR, EXR) through numpy
+            faces = (native.slice_cubemap_cross(img)
+                     if img.dtype == np.uint8 else None)
+            if faces is None:
+                faces = slice_cubemap_cross(img)
             if img.dtype == np.uint8:
                 # 8-bit sources as the JAX package keeps them: integer
                 # texels (round repairs the f32 divide+multiply round

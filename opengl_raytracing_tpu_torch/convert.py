@@ -6,9 +6,10 @@ the float32 table the samplers read.
 
 The parity tests build a scene, a parameter set and frame inputs once and
 feed both packages the same values: the JAX BVH arrays (converted to
-numpy) go through `bvh_from_numpy`, so both sides walk the very same tree
-even where the JAX side used its native builder.  Nothing here imports
-JAX: a JAX array is read through `np.asarray`, like any array.
+numpy) go through `bvh_from_numpy`, so both sides walk one tree (the
+port's `prepare_bvh` builds that same tree itself, with the same g++
+builder).  Nothing here imports JAX: a JAX array is read through
+`np.asarray`, like any array.
 """
 
 from __future__ import annotations

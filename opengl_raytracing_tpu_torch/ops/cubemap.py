@@ -92,9 +92,10 @@ def sample_cubemap(env, d):
     return top + (bot - top) * fy
 
 
-def dummy_cubemap(size: int = 1, device=None):
+def dummy_cubemap(size: int = 1, device="cuda"):
     """1x1 blue-ish fallback cubemap so env samplers are always valid
-    (reference: src/render/cubemap.cpp:7-31, pixel (128,128,255)/255)."""
+    (reference: src/render/cubemap.cpp:7-31, pixel (128,128,255)/255), on
+    `device` (the card unless the caller asks for the CPU)."""
     base = (torch.tensor([128.0, 128.0, 255.0], dtype=torch.float32)
             / torch.tensor(255.0)).to(device)
     return base.expand(6, size, size, 3).contiguous()

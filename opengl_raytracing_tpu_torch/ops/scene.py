@@ -22,7 +22,7 @@ import torch
 
 from ..constants import EPS
 from ..params import RenderParams
-from ..scene.bvh import BVHArrays, build_bvh, bvh_to_arrays
+from ..scene.bvh import BVHArrays, build_bvh_fast, bvh_to_arrays
 from . import bvh_cuda
 from . import scene_analytic as sa
 from .cubemap import texel_table
@@ -38,10 +38,11 @@ class BVHDevice:
 
 
 def prepare_bvh(tris: np.ndarray, device) -> BVHDevice:
-    """Build the skip-link BVH of world-space tris [T,9] with the numpy
-    builder and place it on `device`."""
+    """Build the skip-link BVH of world-space tris [T,9] as the JAX
+    package's `prepare_bvh` does (`build_bvh_fast`: the g++ builder's
+    tree) and place it on `device`."""
     from ..convert import bvh_from_numpy
-    return bvh_from_numpy(bvh_to_arrays(build_bvh(tris)), device)
+    return bvh_from_numpy(bvh_to_arrays(build_bvh_fast(tris)), device)
 
 
 def _deg2rad(x):

@@ -11,6 +11,13 @@ traversal state is one int32 cursor:
 
 That cursor is what the CUDA kernels walk, one thread per ray
 (ops/bvh_cuda.py).  The tests hold this copy to the original exactly.
+
+`build_bvh_fast` builds with the g++ library (native/), as the JAX
+package's does: that tree is the one both packages render.  The two
+builders split alike but may leave centroid ties in another order, so
+their trees differ in node bounds and triangle order (not in the
+triangle multiset or the node count); the numpy builder stands in only
+where no g++ is on PATH.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ import dataclasses
 from typing import NamedTuple
 
 import numpy as np
+
+from .. import native
 
 LEAF_MAX = 8
 
@@ -162,3 +171,42 @@ def bvh_to_arrays(bvh: BVH) -> BVHArrays:
     if t:
         tris[:t, 0:9] = bvh.tris
     return BVHArrays(bounds, meta, tris)
+
+
+def build_bvh_fast(tris: np.ndarray, leaf_max: int = LEAF_MAX) -> BVH:
+    """Build with the native C++ builder (native/bvh_native.cpp, the JAX
+    package's tree), or with the numpy builder where no g++ is on PATH."""
+    result = native.build_bvh(tris, leaf_max)
+    return result if result is not None else build_bvh(tris, leaf_max)
+
+
+def validate_bvh(bvh: BVH, tris_original: np.ndarray) -> None:
+    """Structural invariants (used by tests and chip_smoke.py).
+
+    - every triangle appears exactly once across leaves
+    - every leaf's triangles are inside the leaf AABB
+    - child AABBs are inside parents; preorder + skip links consistent
+    - the multiset of triangles is the input's
+    """
+    n = bvh.n_nodes
+    seen = np.zeros(bvh.n_tris, bool)
+    for i in range(n):
+        if bvh.count[i] > 0:
+            f, c = int(bvh.first[i]), int(bvh.count[i])
+            assert not seen[f:f + c].any()
+            seen[f:f + c] = True
+            tmin, tmax, _ = _tri_bounds(bvh.tris[f:f + c])
+            assert (tmin >= bvh.bmin[i] - 1e-4).all()
+            assert (tmax <= bvh.bmax[i] + 1e-4).all()
+        else:
+            l, r = int(bvh.left[i]), int(bvh.right[i])
+            assert l == i + 1, "preorder: left child must follow parent"
+            assert (bvh.bmin[l] >= bvh.bmin[i] - 1e-5).all()
+            assert (bvh.bmax[r] <= bvh.bmax[i] + 1e-5).all()
+            assert bvh.skip[l] == r and bvh.skip[r] == bvh.skip[i]
+    assert seen.all(), "triangle lost in remap"
+    # Multiset of triangles preserved (orderless compare via sorted bytes).
+    a = np.sort(bvh.tris.round(5).view([('', np.float32)] * 9), axis=0)
+    b = np.sort(np.ascontiguousarray(tris_original, np.float32).round(5)
+                .view([('', np.float32)] * 9), axis=0)
+    assert (a == b).all()

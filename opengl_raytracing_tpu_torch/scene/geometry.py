@@ -4,10 +4,10 @@ Copies of `opengl_raytracing_tpu/scene/geometry.py`: the ground plane, UV
 sphere and icosphere, the bunny-like blob that stands in for the
 reference's `models/bunny_lp.obj`, a minimal OBJ reader and writer, the
 model transform, and the gather that mirrors `gather_model_triangles`
-(reference: src/scene/bvh.cpp:225-246).  The JAX package's `_fast` forms
-call its g++ library when it is built; here they are the Python and numpy
-forms that library stands in for.  The tests hold every function to the
-original exactly.
+(reference: src/scene/bvh.cpp:225-246).  The `_fast` forms call the
+port's g++ library (native/), as the JAX package's call its own, and
+run the Python and numpy forms where no g++ is on PATH.  The tests hold
+every function to the original exactly.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ import os
 from typing import Tuple
 
 import numpy as np
+
+from .. import native
 
 Mesh = Tuple[np.ndarray, np.ndarray]  # (verts [V,3] f32, faces [F,3] i32)
 
@@ -144,8 +146,11 @@ def load_obj(path: str) -> Mesh:
 
 
 def load_obj_fast(path: str) -> Mesh:
-    """The JAX package's name for its OBJ load; here the Python reader."""
-    return load_obj(path)
+    """OBJ load through the native C++ parser (native/), else the Python
+    reader: where no g++ is on PATH, and for a file the parser refuses
+    (a malformed vertex line), which the reader then raises on."""
+    result = native.load_obj(path)
+    return result if result is not None else load_obj(path)
 
 
 def save_obj(path: str, mesh: Mesh) -> None:
@@ -177,12 +182,15 @@ def gather_triangles(mesh: Mesh, transform: np.ndarray) -> np.ndarray:
 
 
 def gather_triangles_fast(mesh: Mesh, transform: np.ndarray) -> np.ndarray:
-    """The gather with the JAX package's index validation: a face that
-    indexes outside the vertices raises IndexError naming the count (the
-    JAX package checks before its g++ gather, which does not)."""
+    """Triangle gather through the native C++ path (native/), else numpy
+    where no g++ is on PATH.  The native gather does no bounds check, so
+    a face that indexes outside the vertices raises IndexError naming the
+    count first, on either route."""
     verts, faces = mesh
     if faces.size and (faces.min() < 0 or faces.max() >= len(verts)):
         raise IndexError(
             f"face index out of range (verts={len(verts)}, "
             f"max index={int(faces.max())})")
-    return gather_triangles(mesh, transform)
+    result = native.gather_triangles(mesh, transform)
+    return result if result is not None else gather_triangles(mesh,
+                                                              transform)

@@ -2,12 +2,14 @@
 (sequential and progressive) and baseline encoder, Radiance HDR and
 OpenEXR readers and writers, and the cubemap-cross slicer.
 
-Copies of `opengl_raytracing_tpu/utils/image.py` (numpy and zlib only),
-so frames and environment crosses can be read and written where there is
-no JAX package.  Where the JAX package hands a step to its g++ library
-(the PNG defilter, the HDR run-length decode, the JPEG entropy decode and
-encode), this module runs the numpy and Python form that library stands
-in for; both give the same bytes and arrays.  Formats cover the reference
+Copies of `opengl_raytracing_tpu/utils/image.py` (numpy and zlib), so
+frames and environment crosses can be read and written where there is no
+JAX package.  The PNG defilter, the HDR run-length decode and the JPEG
+entropy decode and encode go to the port's g++ library (native/), as the
+JAX package's go to its own; their numpy and Python forms
+(`_unfilter_numpy`, `_hdr_unrle_numpy`, `_scan_blocks`,
+`_jenc_entropy_python`) are the oracles and run where no g++ is on PATH.
+Both routes give the same bytes and arrays.  Formats cover the reference
 env-picker surface `*.{png,jpg,jpeg,hdr,exr}`
 (reference: src/ui/gui.cpp:806-838, src/render/cubemap.cpp:35-106).
 """
@@ -18,6 +20,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from .. import native
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 
@@ -54,11 +58,18 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 
 def _unfilter(raw: np.ndarray, h: int, w: int, c: int) -> np.ndarray:
-    """PNG scanline defilter (None, Sub, Up, Average, Paeth)."""
+    """PNG scanline defilter (None, Sub, Up, Average, Paeth): the native
+    C++ route, else `_unfilter_numpy`.  A truncated or corrupt IDAT
+    stream raises the same ValueError on both routes."""
     if raw.shape[0] < h * (1 + w * c):
         raise ValueError(
             f"PNG data too short: {raw.shape[0]} bytes for "
             f"{h}x{w}x{c} (+filter bytes)")
+    out = native.png_unfilter(raw, h, w, c)
+    return out if out is not None else _unfilter_numpy(raw, h, w, c)
+
+
+def _unfilter_numpy(raw: np.ndarray, h: int, w: int, c: int) -> np.ndarray:
     stride = w * c
     out = np.zeros((h, stride), np.uint8)
     pos = 0
@@ -168,7 +179,10 @@ def read_hdr(path: str) -> np.ndarray:
     h, w = int(dims[1]), int(dims[3])
 
     buf = np.frombuffer(data, np.uint8, offset=pos)
-    return _rgbe_to_float(_hdr_unrle_numpy(buf, h, w))
+    rgbe = native.hdr_unrle(buf, 0, h, w)
+    if rgbe is None:
+        rgbe = _hdr_unrle_numpy(buf, h, w)
+    return _rgbe_to_float(rgbe)
 
 
 def _hdr_unrle_numpy(buf: np.ndarray, h: int, w: int) -> np.ndarray:
@@ -668,7 +682,7 @@ def _scan_blocks(data, pos, mcux, mcuy, comps, restart_interval):
     """Entropy-decode a sequential scan: the dequantized natural-order
     coefficients of every block [nb,8,8] float32, in the stream's order
     (MCU by MCU, then component, then block row and column) -- the
-    array the JAX package's g++ decoder returns."""
+    array native.jpeg_entropy_scan returns as [nb,64]."""
     for c in comps:
         c["pred"] = 0
     br = _BitReader(data + b"\xff\xd9", pos)
@@ -692,11 +706,20 @@ def _scan_blocks(data, pos, mcux, mcuy, comps, restart_interval):
 
 def _scan_planes(data, pos, mcux, mcuy, comps, restart_interval) -> None:
     """Decode a sequential scan into each component's sample plane
-    c["plane"]: the entropy decode, then the JAX package's batched IDCT
-    and block assembly, so the planes are its bits."""
+    c["plane"]: the entropy decode (native/, else `_scan_blocks`), then
+    the JAX package's batched IDCT and block assembly, so the planes are
+    its bits."""
     hs = np.array([c["hs"] for c in comps], np.int32)
     vs = np.array([c["vs"] for c in comps], np.int32)
-    coefs = _scan_blocks(data, pos, mcux, mcuy, comps, restart_interval)
+    coefs = native.jpeg_entropy_scan(
+        np.frombuffer(data, np.uint8), pos, mcux, mcuy, hs, vs,
+        np.stack([c["dc"][0] for c in comps]),
+        np.stack([c["dc"][1] for c in comps]),
+        np.stack([c["ac"][0] for c in comps]),
+        np.stack([c["ac"][1] for c in comps]),
+        np.stack([c["qt"] for c in comps]), restart_interval)
+    if coefs is None:
+        coefs = _scan_blocks(data, pos, mcux, mcuy, comps, restart_interval)
     # batched IDCT over every block at once as two LARGE flat GEMMs —
     # a broadcast (8,8) @ (b,8,8) matmul dispatches b tiny BLAS calls
     # (~ms each in overhead); R = M^T C M computed as
@@ -998,12 +1021,19 @@ def encode_jpeg(img: np.ndarray, quality: int = 85,
 
     dc_codes = [_jenc_codes(_JH_DC_Y), _jenc_codes(_JH_DC_C)]
     ac_codes = [_jenc_codes(_JH_AC_Y), _jenc_codes(_JH_AC_C)]
-    data = _jenc_entropy_python(
+    data = native.jpeg_entropy_encode(
         blocks, comp_ids,
-        [dc_codes[0][0], dc_codes[1][0]],
-        [dc_codes[0][1], dc_codes[1][1]],
-        [ac_codes[0][0], ac_codes[1][0]],
-        [ac_codes[0][1], ac_codes[1][1]])
+        np.stack([dc_codes[0][0], dc_codes[1][0]]),
+        np.stack([dc_codes[0][1], dc_codes[1][1]]),
+        np.stack([ac_codes[0][0], ac_codes[1][0]]),
+        np.stack([ac_codes[0][1], ac_codes[1][1]]))
+    if data is None:  # no g++, or the buffer overflowed
+        data = _jenc_entropy_python(
+            blocks, comp_ids,
+            [dc_codes[0][0], dc_codes[1][0]],
+            [dc_codes[0][1], dc_codes[1][1]],
+            [ac_codes[0][0], ac_codes[1][0]],
+            [ac_codes[0][1], ac_codes[1][1]])
 
     def seg(marker, payload):
         return struct.pack(">HH", marker, len(payload) + 2) + payload

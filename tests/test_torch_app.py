@@ -87,14 +87,20 @@ def _apps(name):
             small_app(name))
 
 
-def _share_bvh(ja, ta):
-    """Both apps on the BVH scene with the JAX package's tree (its g++
-    builder may order the nodes differently from the port's numpy one)."""
+def _share_bvh(ja, ta, share=True):
+    """Both apps on the BVH scene with the JAX package's tree; with
+    share=False the port's app builds its own tree from the same
+    triangles (`set_bvh_from_tris`), which must be JAX's exactly."""
     tris = gather_triangles(make_bunny(2),
                             model_transform((-2.0, 1.5, 0.0), 0.5))
     ja.app.set_bvh_from_tris(tris)
-    ta.app.bvh = bvh_from_numpy(
-        BVHArrays(*(np.asarray(x) for x in ja.app.bvh.arrays)), "cpu")
+    if share:
+        ta.app.bvh = bvh_from_numpy(
+            BVHArrays(*(np.asarray(x) for x in ja.app.bvh.arrays)), "cpu")
+    else:
+        ta.app.set_bvh_from_tris(tris)
+        for got, want in zip(ta.app.bvh.arrays, ja.app.bvh.arrays):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     for a in (ja, ta):
         a.app.use_bvh = True
         a.app.camera.fov = 20.0  # the bunny fills a fifth of the frame
@@ -138,12 +144,13 @@ def _assert_same_host_state(ja, ta):
 
 
 @pytest.mark.parametrize("scene,name", [("analytic", "baseline"),
-                                        ("bvh", "baseline")])
+                                        ("bvh", "baseline"),
+                                        ("bvh_own_tree", "baseline")])
 def test_scripted_session_matches_jax(scene, name):
     ja, ta = _apps(name)
     script = SESSION
-    if scene == "bvh":
-        _share_bvh(ja, ta)
+    if scene != "analytic":
+        _share_bvh(ja, ta, share=scene == "bvh")
         script = BVH_SESSION
     nj, nt = len(jlogger().lines), len(default_logger().lines)
     for step, actions in enumerate(script):

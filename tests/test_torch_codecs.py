@@ -3,9 +3,10 @@
 `opengl_raytracing_tpu_torch/utils/image.py` carries numpy copies of the
 JAX package's readers and writers.  Where the JAX package hands a step to
 its g++ library (PNG defilter, HDR run-length decode, JPEG entropy decode
-and encode) the port runs the Python form the library stands in for.
-Both are exact integer or float32 pipelines over the same arrays, so
-every comparison here is exact: decoded arrays equal value for value and
+and encode) the port hands it to its own copy of that library
+(tests/test_torch_native.py holds each entry to JAX's and to the Python
+form).  Both are exact integer or float32 pipelines over the same arrays,
+so every comparison here is exact: decoded arrays equal value for value and
 dtype for dtype, encoded files equal byte for byte.  Pillow writes the
 JPEG variants the assets do not cover (progressive, restart markers,
 grayscale, 4:2:2), as tests/test_image_codecs.py does.

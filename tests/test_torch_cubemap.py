@@ -225,8 +225,9 @@ def test_env_from_numpy_and_dummy_cubemap():
     with pytest.raises(ValueError, match=r"\[6,F,F,3\]"):
         env_from_numpy(faces[:5], "cpu")
     for size in (1, 4):
-        np.testing.assert_array_equal(tcube.dummy_cubemap(size).numpy(),
-                                      np.asarray(jcube.dummy_cubemap(size)))
+        np.testing.assert_array_equal(
+            tcube.dummy_cubemap(size, "cpu").numpy(),
+            np.asarray(jcube.dummy_cubemap(size)))
 
 
 # ---- the kernel's arithmetic (csrc/cubemap.cuh), transcribed ----

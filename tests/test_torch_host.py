@@ -197,7 +197,7 @@ def test_port_never_imports_jax():
                 "utils.checkpoint", "utils.profiling", "scene.importers",
                 "app", "app.input", "app.state", "app.application",
                 "app.headless", "app.viewer", "parallel",
-                "parallel.sharding", "parallel.shardmap"):
+                "parallel.sharding", "parallel.shardmap", "native"):
         assert f"opengl_raytracing_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
