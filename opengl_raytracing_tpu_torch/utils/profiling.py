@@ -116,6 +116,25 @@ class RayCounter:
         return rays / (frame_ms * 1e-3) / 1e6
 
 
+def device_activity(prof, frames: int, top: int = 8) -> Optional[dict]:
+    """The device side of a torch.profiler window over `frames` frames:
+    busy ms a frame, device operations (kernels, copies, fills) a frame,
+    and the `top` operations by device time under the profiler's own
+    names, each with its ms and calls a frame.  None where the profiler
+    saw no device time."""
+    from torch.autograd import DeviceType
+    rows = sorted(((ev.self_device_time_total / 1e3, ev.count, ev.key)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA), reverse=True)
+    busy_ms = sum(ms for ms, _, _ in rows)
+    if not busy_ms:
+        return None
+    return dict(device_ms=busy_ms / frames,
+                launches=sum(n for _, n, _ in rows) / frames,
+                top_ops=[dict(op=key, ms=ms / frames, calls=n / frames)
+                         for ms, n, key in rows[:top]])
+
+
 @contextlib.contextmanager
 def torch_profiler_trace(outdir: str):
     """torch.profiler trace of the block (host and, where there is a card,
