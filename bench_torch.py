@@ -15,21 +15,31 @@ record (the baseline preset) with the whole matrix embedded:
   {"metric": "...", "value": N, "unit": "Mrays/s", "vs_baseline": N,
    "presets": {...}, "close_far": {...}}
 
-Each case renders through the port's `render_frame` (`make_render_fn`)
-in a host loop: one warm chain of BENCH_FRAMES frames, then five timed
-chains, each from a fresh RenderState and timed by the host clock from
-the first call to `torch.cuda.synchronize()`.  `ms_per_frame` is the
-median of the five (`ms_per_frame_runs`, `spread` = max / min beside it);
+Each case renders through the port's frame function (`make_render_fn`)
+in a host loop, its headline the compiled frame (`jit`: on the card the
+frame's CUDA graph, captured once and replayed, the counterpart of
+bench.py's jitted chain; on the CPU the eager frame): one warm chain of
+BENCH_FRAMES frames (the capture), one warm eager chain, then five timed
+chains of the compiled frame and EAGER_CHAINS of the eager one in turns,
+each from a fresh RenderState with its frames' inputs built before the
+clock, timed by the host clock from the first call to
+`torch.cuda.synchronize()`.  `ms_per_frame` is the median of the five
+(`ms_per_frame_runs`, `spread` = max / min beside it),
+`ms_per_frame_eager` the eager chains' median (`ms_per_frame_eager_runs`);
 the checksum is the sum of every frame's `image.sum()`, as bench.py and
-chip_smoke.py form it, and the five chains must give the same bits.
-After the timed chains, and never part of them, a case line adds the
-card (`device`), the hand-written kernels' launches a frame over one
-timed chain (`kernel_launches`, from ops/cuda_lib.py's counters), the
-peak of allocated device memory over that chain (`peak_mem_mb`) and a
+chip_smoke.py form it, and every chain, eager or not, must give the same
+bits.  After the timed chains, and never part of them, a case line adds
+the card (`device`), `jit`, the captures the case made (`captures`) and
+the device memory its graphs hold (`graph_pool_mb`), the hand-written
+kernels' launches a frame over one timed chain (`kernel_launches`, from
+ops/cuda_lib.py's counters, which a replay adds to), the peak of
+allocated device memory over that chain (`peak_mem_mb`) and a
 torch.profiler window over the last PROFILE_FRAMES frames of one more
-chain: device ms and launches a frame, the idle share of the median
-frame time and the TOP_OPS device operations by time.  Where the
-profiler sees no device time those are null, with a `profile_note`.
+compiled chain: device ms and launches (kernels and copies on the card)
+a frame, the host's `cudaLaunchKernel` and `cudaGraphLaunch` calls a
+frame, the idle share of the median frame time and the TOP_OPS device
+operations by time.  Where the profiler sees no device time those are
+null, with a `profile_note`.
 A profiler window can leave the launches after it in its process slower
 (probe_profiler.py tax), so a child times every case of its group
 before it profiles any.
@@ -76,6 +86,7 @@ TIMEOUT_S = int(os.environ.get("BENCH_TIMEOUT", "480"))
 BUDGET_S = int(os.environ.get("BENCH_BUDGET", "900"))
 
 TIMED_CHAINS = 5      # timed chains a case, after one warm chain
+EAGER_CHAINS = 3      # timed chains of the eager frame, in turns
 PROFILE_FRAMES = 4    # the profiled window: the last frames of a chain
 PROFILE_ATTEMPTS = 3  # profiled chains before the profile reads null
 TOP_OPS = 8           # device operations listed by time
@@ -144,19 +155,23 @@ def _scene(device, subdiv: int = 4):
     return tris, prepare_bvh(tris, device)
 
 
-def _fin(cam, device, jitter=(0.0, 0.0), prev_view_proj=None, moved=0):
-    """FrameInputs of the camera's pose; `moved` fills the device flag and
-    the host one, so a still camera (0) runs TAA's still path."""
+def _fin(cam, device, frame_index, jitter=(0.0, 0.0), prev_view_proj=None,
+         moved=0):
+    """FrameInputs of the camera's pose for frame `frame_index` (its
+    block staged with that index: a chain's frame makes no copy of its
+    own); `moved` fills the device flag and the host one, so a still
+    camera (0) runs TAA's still path."""
     from opengl_raytracing_tpu_torch.convert import camera_frame_inputs
     return camera_frame_inputs(cam, device, jitter=jitter,
-                               prev_view_proj=prev_view_proj, moved=moved)
+                               prev_view_proj=prev_view_proj, moved=moved,
+                               frame_index=frame_index)
 
 
 def _still_fins(cam, params, frames, device):
     """`frames` FrameInputs of a still camera with the Halton jitter
     scaled by jitter_still_scale (bench.py:_run_frames)."""
     from opengl_raytracing_tpu_torch.sampling import generate_jitter2d
-    return [_fin(cam, device,
+    return [_fin(cam, device, i,
                  jitter=generate_jitter2d(i) * params.jitter_still_scale)
             for i in range(frames)]
 
@@ -185,12 +200,19 @@ def _run_frames(params, bvh, fins, height, width, device, *, use_bvh=True,
     adds to bench.py's).  The profiled window is deferred: `_finish` takes
     it into the record."""
     import torch
-    from opengl_raytracing_tpu_torch.models import make_render_fn
+    from opengl_raytracing_tpu_torch.models import graph, make_render_fn
     from opengl_raytracing_tpu_torch.ops.cuda_lib import LAUNCHES
     frames = len(fins)
     render = make_render_fn(height, width, device, use_bvh=use_bvh)
+    eager = make_render_fn(height, width, device, use_bvh=use_bvh,
+                           jit=False)
     args = (render, params, fins, env_map, bvh, height, width, device)
-    _chain(*args)  # warm
+    eager_args = (eager,) + args[1:]
+    graph.clear()
+    captures = graph.STATS["captures"]
+    _chain(*args)  # warm: the capture
+    pool_mb = graph.stats()["pool_bytes"] / 2**20
+    _chain(*eager_args)  # warm
     # the launch counters and the memory peak over the first timed chain
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -200,17 +222,30 @@ def _run_frames(params, bvh, fins, height, width, device, *, use_bvh=True,
     launches = {k: v / frames for k, v in LAUNCHES.items()}
     peak_mb = (torch.cuda.max_memory_allocated(device) / 2**20
                if device.type == "cuda" else None)
-    timed += [_chain(*args) for _ in range(TIMED_CHAINS - 1)]
+    # the rest in turns: eager, compiled, eager, compiled, ...
+    timed_eager = []
+    while len(timed) < TIMED_CHAINS or len(timed_eager) < EAGER_CHAINS:
+        if len(timed_eager) < EAGER_CHAINS:
+            timed_eager.append(_chain(*eager_args))
+        if len(timed) < TIMED_CHAINS:
+            timed.append(_chain(*args))
     runs = [sec / frames for sec, _ in timed]
-    checksums = [checksum for _, checksum in timed]
+    eager_runs = [sec / frames for sec, _ in timed_eager]
+    checksums = [checksum for _, checksum in timed + timed_eager]
     if len(set(checksums)) != 1 or not math.isfinite(checksums[0]):
         raise RuntimeError(f"the timed chains' checksums differ or are not "
-                           f"finite: {checksums}")
+                           f"finite (the compiled chains first): "
+                           f"{checksums}")
     sec = statistics.median(runs)
     extra = dict(
         ms_per_frame_runs=[round(r * 1e3, 4) for r in runs],
         spread=round(max(runs) / min(runs), 4),
+        ms_per_frame_eager=round(statistics.median(eager_runs) * 1e3, 4),
+        ms_per_frame_eager_runs=[round(r * 1e3, 4) for r in eager_runs],
         device=_device_record(device),
+        jit=device.type == "cuda",
+        captures=graph.STATS["captures"] - captures,
+        graph_pool_mb=round(pool_mb, 1),
         kernel_launches={k: int(v) if v == int(v) else v
                          for k, v in launches.items()},
         peak_mem_mb=None if peak_mb is None else round(peak_mb, 1),
@@ -227,18 +262,20 @@ def _finish(rec: dict) -> dict:
 
 
 def _profile(args, frame_ms) -> dict:
-    """torch.profiler over the last PROFILE_FRAMES frames of one more chain:
-    device ms and launches a frame, the idle share of the unprofiled
-    median frame time `frame_ms`, and the TOP_OPS device operations.  A
-    window with no device time is taken again, up to PROFILE_ATTEMPTS
-    times, then reads null."""
+    """torch.profiler over the last PROFILE_FRAMES frames of one more chain
+    (replayed frames on the card): device ms and launches a frame, the
+    host's kernel launch and graph launch calls a frame, the idle share of
+    the unprofiled median frame time `frame_ms`, and the TOP_OPS device
+    operations.  A window with no device time is taken again, up to
+    PROFILE_ATTEMPTS times, then reads null."""
     import torch
     from torch.profiler import ProfilerActivity
     from opengl_raytracing_tpu_torch.models import RenderState
     from opengl_raytracing_tpu_torch.utils.profiling import device_activity
     render, params, fins, env_map, bvh, height, width, device = args
     null = dict(device_ms=None, launches=None, idle=None, top_ops=None,
-                profile_window_ms=None)
+                profile_window_ms=None, host_kernel_launches=None,
+                host_graph_launches=None)
     if device.type != "cuda":
         return dict(null, profile_note="not measured: no card")
     window = fins[-PROFILE_FRAMES:]
@@ -256,8 +293,14 @@ def _profile(args, frame_ms) -> dict:
             window_ms = (time.perf_counter() - t0) * 1e3 / len(window)
         act = device_activity(prof, len(window), TOP_OPS)
         if act is not None:
+            calls = {ev.key: ev.count / len(window)
+                     for ev in prof.key_averages()}
             return dict(device_ms=round(act["device_ms"], 4),
                         launches=act["launches"],
+                        host_kernel_launches=calls.get("cudaLaunchKernel",
+                                                       0.0),
+                        host_graph_launches=calls.get("cudaGraphLaunch",
+                                                      0.0),
                         idle=round(1.0 - act["device_ms"] / frame_ms, 4),
                         top_ops=act["top_ops"],
                         profile_window_ms=round(window_ms, 4),
@@ -407,7 +450,7 @@ def measure_moving(height, width, frames) -> dict:
                             + np.asarray([0.0, 0.0, -0.05], np.float32))
         # moved=1 in every mode, "still" too: the host flag must send TAA
         # down its reprojection path, as the device flag does
-        fins.append(_fin(cam, device, prev_view_proj=prev_vp, moved=1,
+        fins.append(_fin(cam, device, f, prev_view_proj=prev_vp, moved=1,
                          jitter=generate_jitter2d(f)
                          * params.jitter_moving_scale))
         prev_vp = cam.view_projection()

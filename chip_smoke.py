@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's paths through `render_frame` on `cuda`, in
-phases, each printing its result and seconds on a line of its own:
+Drives the port's paths on `cuda` through `make_render_fn` (the frame
+captured as a CUDA graph once per configuration and replayed, its
+default; the kernel checks and the stage profiles run the frame eagerly),
+in phases, each printing its result and seconds on a line of its own:
 
   * the bench `baseline` frame: the 5,120 triangle bunny BVH scene at
     1920x1080, 1 SPP, GI/AO/TAA/SVGF off (kernels K1, the BVH direct
@@ -139,6 +141,28 @@ phases, each printing its result and seconds on a line of its own:
      builder's tree of the same triangles: t bit for bit where both hit),
      reference_cf (both cameras at 270x480 under step 5's gate),
      profile_cf_close (the stage table);
+  25g. graph: the compiled frame (models/graph.py: `render_frame`
+     captured once per configuration as a CUDA graph and replayed, the
+     main path of every frames phase above), for each of the eight cases
+     those phases render at their sizes (baseline, an_baseline, full,
+     an_full, heavy, moving, cf_close, cf_far): after one chain that
+     captures, 32-frame chains eager and replayed in turns (eager,
+     replayed, replayed, eager): every chain's checksum the same bits and
+     PR 11's (PR11_CHECKSUMS); the kernels' launches a replayed frame
+     those of an eager frame; one capture, every other frame a replay;
+     ms/frame both ways and the graph's memory; one warm frame each way,
+     its inputs staged inside the profiled window as a caller stages
+     them: device ms and operations, at most one host-to-device copy (the
+     frame block; the profiler may lose a record), at most one copy call
+     eager and two replayed (the block's device copy into the graph's),
+     no cudaStreamSynchronize, and the host's cudaLaunchKernel and
+     cudaGraphLaunch calls; each kernel's launches in replayed frames as
+     the profiler sees the card run them, equal to what the counters add
+     a replay (the kernels line's `replay_launches_profiled` beside
+     `replay_launches`).  Then the app's `--scene bvh --preset
+     full --turbo 8` (a moving step, then still ones: the moving key, then
+     the still key) with `--jit` and `--no-jit`, 30 frames in 4 steps:
+     every step's image and the accumulation bit for bit;
   26. app_headless: the app layer as a user drives it, 1920x1080, through
      `app.headless`'s parser, `make_app` and `Application.step`:
      (a) `--scene bvh --preset full`, 32 still frames: the sum of the
@@ -450,12 +474,14 @@ def frame_inputs(height, width, frames, device, preset_name="baseline",
                                                      np.float32)
             fin = camera_frame_inputs(
                 cam, device, prev_view_proj=prev_vp, moved=1,
-                jitter=generate_jitter2d(frame) * params.jitter_moving_scale)
+                jitter=generate_jitter2d(frame) * params.jitter_moving_scale,
+                frame_index=frame)
             prev_vp = cam.view_projection()
         else:
             fin = camera_frame_inputs(
                 cam, device,
-                jitter=generate_jitter2d(frame) * params.jitter_still_scale)
+                jitter=generate_jitter2d(frame) * params.jitter_still_scale,
+                frame_index=frame)
         if moved is None:
             fin = dataclasses.replace(fin, moved=None)
         yield fin
@@ -475,17 +501,18 @@ def sky_day(device):
 
 def render(bvh, height, width, frames, device, on_frame=None,
            preset_name="baseline", last=contextlib.nullcontext, env=None,
-           camera="still", moved="host", show_motion=False):
+           camera="still", moved="host", show_motion=False, jit=True):
     """`frames` chained frames of the preset on the BVH scene, or on the
     analytic scene when `bvh` is None, under the cubemap `env` or, without
     one, the gradient sky; returns the last FrameOutputs.  `camera` and
     `moved` as for frame_inputs.  The last frame runs inside the context
-    `last()`."""
+    `last()`.  `jit`: the frames replay their CUDA graph (make_render_fn's
+    default, the main path); False runs them eagerly."""
     from opengl_raytracing_tpu_torch.models import (RenderState,
                                                     make_render_fn, preset)
     params = preset(preset_name).replace(enable_env_map=int(env is not None))
     fn = make_render_fn(height, width, device, use_bvh=bvh is not None,
-                        show_motion=show_motion)
+                        show_motion=show_motion, jit=jit)
     state = RenderState.create(height, width, device)
     out = None
     for i, fin in enumerate(frame_inputs(height, width, frames, device,
@@ -600,8 +627,10 @@ def record_kernel_inputs(bvh, height, width, device, keys,
         finally:
             for k in keys:
                 setattr(*where[k], real[k])
+    # eager frames: the spies see the wrappers' calls, and each frame's
+    # arguments stay its own
     render(bvh, height, width, frames, device, preset_name=preset_name,
-           last=spying, **how)
+           last=spying, jit=False, **how)
     return calls
 
 
@@ -1010,7 +1039,8 @@ def check_ao(args, timer):
     n_live, S = int(live.sum()), int(params.ao_samples)
     g, w = got[live], want[live]
     off = ~(g == w)  # a NaN counts as off
-    step = bvh_cuda.ao_args(params, 0).ao_span / S
+    consts, _ = bvh_cuda.ao_args(params, args["frame_index"])
+    step = consts.ao_span / S
     steps_ok = bool((((g - w)[off].abs() - step).abs() <= 1e-6).all())
     flips = int(off.sum())
     if flips > AO_FLIP_FRAC * max(n_live, 1) or not steps_ok:
@@ -1028,7 +1058,7 @@ def check_ao(args, timer):
     trace_bvh_shadow(
         arrays, torch.cat([org.expand(shape + (3,)).reshape(-1, 3)[sel]] * S),
         torch.cat([d.reshape(-1, 3)[sel] for d in dirs]),
-        torch.full((S * n_live,), bvh_cuda.ao_args(params, 0).radius,
+        torch.full((S * n_live,), consts.radius,
                    device=h.t.device), counts=counts)
     per_pixel = OPS["normalize"] + OPS["origin"] + OPS["ao_remap"]
     per_sample = 2 * OPS["rand"] + OPS["onb"] + OPS["hemisphere"]
@@ -1225,17 +1255,21 @@ def check_native(smi):
 def run_frames(bvh, height, width, keys, png, smi, preset_name="baseline",
                expect=None, frames=FRAMES, **how):
     """`frames` chained frames (`how`: render's env, camera and moved) with
-    the launch counters zeroed just before; checks the image, that each of
-    the path's kernels `keys` was launched at least once a frame, and the
-    exact counts `expect` ({counter: launches a frame}).  `png` may be
-    None."""
+    the launch counters zeroed just before, through the main path: the
+    first frame captures the frame's CUDA graph, the others replay it
+    (checked); checks the image, that each of the path's kernels `keys`
+    was launched at least once a frame, and the exact counts `expect`
+    ({counter: launches a frame}).  `png` may be None."""
     import torch
+    from opengl_raytracing_tpu_torch.models import graph
     from opengl_raytracing_tpu_torch.ops.cuda_lib import LAUNCHES
     from opengl_raytracing_tpu_torch.utils.image import write_png
     sums = []
+    graph.clear()
     torch.cuda.synchronize()
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    stats0 = graph.stats()
     t_frames = time.time()
     out = render(bvh, height, width, frames, "cuda",
                  on_frame=lambda o: sums.append(o.image.sum()),
@@ -1259,7 +1293,14 @@ def run_frames(bvh, height, width, keys, png, smi, preset_name="baseline",
     if png is not None:
         os.makedirs(os.path.join(ROOT, "out"), exist_ok=True)
         write_png(os.path.join(ROOT, "out", png), img.cpu().numpy()[::-1])
-    return dict(frames=frames, preset=preset_name, size=[height, width],
+    stats = graph.stats()
+    if stats["captures"] - stats0["captures"] != 1 \
+            or stats["replays"] - stats0["replays"] != frames - 1:
+        raise AssertionError(f"the chain did not replay one captured frame: "
+                             f"{stats} after {stats0}")
+    graph.clear()  # its memory back before the next phase
+    return dict(graph=dict(captures=1, replays=frames - 1,
+                           pool_mb=stats["pool_bytes"] / 2**20),frames=frames, preset=preset_name, size=[height, width],
                 ms_per_frame=sec * 1e3, fps=1.0 / sec,
                 primary_mrays_per_s=height * width / sec / 1e6,
                 checksum=checksum, launches=launches, card=smi,
@@ -1575,6 +1616,10 @@ def main() -> int:
     phase("profile_cf_close", t0, **prof_cf["cf_close"])
 
     t0 = time.time()
+    graph_run = check_graph(bvh, bvh6, env, smi)
+    phase("graph", t0, **graph_run)
+
+    t0 = time.time()
     app_run = check_app_headless(frames_full, frames_an_full, smi)
     phase("app_headless", t0, **app_run)
 
@@ -1602,6 +1647,14 @@ def main() -> int:
                       (FULL_PATH, frames_full)):
         launches.update({k: run["launches"][k] for k in path})
     launches["an_direct_env"] = frames_an_full["launches"]["an_direct"]
+    # a replay's launches, summed over the graph phase's cases: what the
+    # counters add a replay, and what the profiler saw the card run
+    replayed = {how: {k: sum(graph_run[name][key].get(k, 0)
+                             for name in GRAPH_CASES)
+                      for k in frames_full["launches"]}
+                for how, key in (("counted", "launches_per_replay"),
+                                 ("profiled",
+                                  "launches_per_replay_profiled"))}
 
     def line(k):
         r = records[k]
@@ -1617,6 +1670,10 @@ def main() -> int:
                            if r["kernel_ms"] else None),
                     app_launches=app_run["launches_all"][k],
                     sharded_launches=sharded_launches[
+                        KERNELS[k].get("counter", k)],
+                    replay_launches=replayed["counted"][
+                        KERNELS[k].get("counter", k)],
+                    replay_launches_profiled=replayed["profiled"][
                         KERNELS[k].get("counter", k)],
                     library_ms=None)  # no single PyTorch call computes these
 
@@ -1651,6 +1708,247 @@ def main() -> int:
     return 0
 
 
+# phase graph: each case's (scene, preset, size, how) as its frames phase
+# renders it, and its checksum of 32 frames as PR 11's frames phases gave
+# it (H100 80GB HBM3, 700 W); the eager frame and the replayed one must
+# both give it, bit for bit
+GRAPH_CASES = {
+    "baseline": ("bvh", "baseline", (HEIGHT, WIDTH), {}),
+    "an_baseline": (None, "baseline", (AN_HEIGHT, AN_WIDTH), {}),
+    "full": ("bvh", "full", (HEIGHT, WIDTH), {}),
+    "an_full": (None, "full", (HEIGHT, WIDTH), {"env": True}),
+    "heavy": ("bvh", "heavy", (HEIGHT, WIDTH), {}),
+    "moving": ("bvh", "full", (HEIGHT, WIDTH), {"camera": "moving"}),
+    "cf_close": ("bvh6", "baseline", (HEIGHT, WIDTH),
+                 {"camera": "cf_close"}),
+    "cf_far": ("bvh6", "baseline", (HEIGHT, WIDTH), {"camera": "cf_far"}),
+}
+PR11_CHECKSUMS = dict(baseline=87087872.0, an_baseline=26648676.0,
+                      full=87136776.0, an_full=141605440.0,
+                      heavy=87136776.0, moving=86964288.0,
+                      cf_close=54046920.0, cf_far=90449184.0)
+HOST_CALLS = ("cudaLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync",
+              "cudaStreamSynchronize")
+
+
+def frame_events(fn, reps=3):
+    """A call of `fn` as the profiler sees it, a call's worth over `reps`
+    calls (`fn` called once before, unprofiled): device busy ms, device
+    operations (kernels, copies, fills), host-to-device copies, and the
+    host's CUDA runtime calls HOST_CALLS.  A window that saw no device
+    activity is taken again, up to PROFILE_ATTEMPTS times; then the
+    device numbers are None."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = prof.key_averages()
+        dev = [ev for ev in rows if ev.device_type == DeviceType.CUDA]
+        host = {k: sum(ev.count for ev in rows if ev.key == k) / reps
+                for k in HOST_CALLS}
+        if dev:
+            return dict(
+                device_ms=sum(ev.self_device_time_total
+                              for ev in dev) / 1e3 / reps,
+                device_ops=sum(ev.count for ev in dev) / reps,
+                h2d_copies=sum(ev.count for ev in dev
+                               if "HtoD" in ev.key) / reps,
+                host_calls=host, attempts=attempt)
+        print(f"profile {attempt} of a frame saw no device activity",
+              file=sys.stderr, flush=True)
+    return dict(device_ms=None, device_ops=None, h2d_copies=None,
+                host_calls=host, attempts=PROFILE_ATTEMPTS)
+
+
+def kernel_rows(rows):
+    """{launch counter: launches} of the hand-written kernels among the
+    profiler's device rows, by kernel name."""
+    return {k: sum(ev.count for ev in rows
+                   if is_kernel(ev.key, KERNELS[k]["kernel"]))
+            for k in KERNELS if "counter" not in KERNELS[k]}
+
+
+def profiled_launches(fn, expect, reps=5):
+    """Each hand-written kernel's launches a call of `fn` (a replayed
+    frame: no wrapper runs, and the counters only add what the capture
+    enqueued), as the profiler sees them on the card over `reps` calls;
+    they must equal `expect` ({counter: launches a call}).  The profiler
+    can drop a record, so a window that disagrees is taken again, as
+    device_rows takes it, and the check fails only if none of
+    PROFILE_ATTEMPTS windows agrees.  Returns (launches a call, windows
+    taken)."""
+    want = {k: round(expect.get(k, 0) * reps) for k in kernel_rows([])}
+    taken = device_rows(fn, reps, "the replayed kernels",
+                        lambda rows: kernel_rows(rows) == want)
+    got = kernel_rows(taken[-1])
+    if got != want:
+        raise AssertionError(f"the profiler saw {got} kernel launches in "
+                             f"{reps} replays, the counters {want} "
+                             f"({len(taken)} windows)")
+    return {k: n / reps for k, n in got.items()}, len(taken)
+
+
+def graph_case(name, scene_of, env):
+    """Phase graph, one case: 32 frames eager and 32 replayed, in turns
+    (after one chain that captures), bit for bit one checksum and
+    PR11_CHECKSUMS' own; the kernels' launches a replayed frame those of
+    an eager one; one warm frame each way, its inputs staged inside the
+    window as a caller stages them, under the profiler: no more than the
+    block's host-to-device copy (and a replay's device copy of it), no
+    stream synchronization; and the kernels' launches in replayed frames
+    as the profiler sees them on the card, equal to what the counters add
+    a replay (`profiled_launches`)."""
+    import torch
+    from opengl_raytracing_tpu_torch.models import (FrameInputs, RenderState,
+                                                    frame_block, graph,
+                                                    make_render_fn, preset)
+    from opengl_raytracing_tpu_torch.ops.cuda_lib import LAUNCHES
+    scene_key, preset_name, (h, w), how = GRAPH_CASES[name]
+    bvh = scene_of[scene_key] if scene_key else None
+    env_map = env if how.get("env") else None
+    params = preset(preset_name).replace(enable_env_map=int(env_map
+                                                            is not None))
+    fins = list(frame_inputs(h, w, FRAMES, "cuda", preset_name,
+                             how.get("camera", "still")))
+    fns = {jit: make_render_fn(h, w, "cuda", use_bvh=bvh is not None,
+                               jit=jit) for jit in (True, False)}
+
+    def chain(jit):
+        state = RenderState.create(h, w, "cuda")
+        sums = []
+        torch.cuda.synchronize()
+        before = dict(LAUNCHES)
+        t0 = time.time()
+        for fin in fins:
+            state, out = fns[jit](params, fin, state, env_map, bvh)
+            sums.append(out.image.sum())
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) / FRAMES * 1e3
+        launches = {k: (LAUNCHES[k] - before[k]) / FRAMES for k in LAUNCHES}
+        return ms, float(torch.stack(sums).sum()), launches
+    graph.clear()
+    stats0 = graph.stats()
+    chain(True)  # the capture
+    pool_mb = graph.stats()["pool_bytes"] / 2**20
+    runs = {True: [], False: []}
+    for jit in (False, True, True, False):
+        runs[jit].append(chain(jit))
+    sums = {r[1] for rs in runs.values() for r in rs}
+    if sums != {PR11_CHECKSUMS[name]}:
+        raise AssertionError(f"graph {name}: checksums {sorted(sums)} "
+                             f"(eager and replayed), PR 11's "
+                             f"{PR11_CHECKSUMS[name]}")
+    eager_launches, replay_launches = runs[False][0][2], runs[True][0][2]
+    if replay_launches != eager_launches or not any(
+            replay_launches.values()):
+        raise AssertionError(f"graph {name}: a replay launches "
+                             f"{replay_launches}, an eager frame "
+                             f"{eager_launches}")
+    stats = graph.stats()
+    if stats["captures"] - stats0["captures"] != 1 or stats["replays"] \
+            - stats0["replays"] != 3 * FRAMES - 1:
+        raise AssertionError(f"graph {name}: {stats} after {stats0}")
+    state = {jit: [RenderState.create(h, w, "cuda")] for jit in runs}
+
+    def frame(jit):
+        # the caller's staging of a frame's inputs, then the frame
+        index = state[jit][0].frame_index
+        src = fins[index % FRAMES]
+        fin = FrameInputs.stage(frame_block.at_frame(src.words, index),
+                                "cuda", src.moved)
+        state[jit][0], _ = fns[jit](params, fin, state[jit][0], env_map,
+                                    bvh)
+    events = {jit: frame_events(lambda jit=jit: frame(jit), reps=5)
+              for jit in runs}
+    profiled, windows = profiled_launches(lambda: frame(True),
+                                          replay_launches)
+    for jit, ev in events.items():
+        # the block's copy, and a replay's device copy of it into the
+        # graph's block; the profiler may lose a record, never add one
+        copies = 2 if jit else 1
+        calls = ev["host_calls"]
+        if (ev["h2d_copies"] or 0) > 1 or calls["cudaMemcpyAsync"] > copies \
+                or calls["cudaStreamSynchronize"] != 0:
+            raise AssertionError(f"graph {name}: a warm "
+                                 f"{'replayed' if jit else 'eager'} frame "
+                                 f"makes {ev['h2d_copies']} host-to-device "
+                                 f"copies, {calls['cudaMemcpyAsync']} copy "
+                                 f"calls and "
+                                 f"{calls['cudaStreamSynchronize']} stream "
+                                 f"synchronizations")
+    graph.clear()
+    return dict(
+        checksum=PR11_CHECKSUMS[name], size=[h, w], preset=preset_name,
+        ms_per_frame_eager=[r[0] for r in runs[False]],
+        ms_per_frame_replayed=[r[0] for r in runs[True]],
+        launches_per_replay={k: v for k, v in replay_launches.items() if v},
+        launches_per_replay_profiled={k: v for k, v in profiled.items()
+                                      if v},
+        profiled_windows=windows,
+        captures=1, replays=3 * FRAMES - 1, pool_mb=pool_mb,
+        replayed_frame=events[True], eager_frame=events[False])
+
+
+def graph_app_turbo():
+    """Phase graph, the app: `--scene bvh --preset full --turbo 8` at 1080p,
+    4 steps (32 frames; the first moving the camera, so its chain replays
+    the moving key, then the still one), with `--jit` and `--no-jit`:
+    every step's image and the last accumulation bit for bit."""
+    import torch
+    from opengl_raytracing_tpu_torch.models import graph
+    runs = {}
+    for flag in ("--jit", "--no-jit"):
+        graph.clear()
+        stats0 = graph.stats()
+        application = app_steps(app_args("--scene", "bvh", "--preset",
+                                         "full", "--turbo", "8", flag), 0)
+        images = []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for step in range(4):
+            if step == 0:
+                application.act("look 4 0")
+            images.append(application.step().clone())
+        torch.cuda.synchronize()
+        frames = application.app.render_state.frame_index
+        runs[flag] = dict(
+            images=images, accum=application.app.render_state.accum.clone(),
+            ms_per_frame=(time.time() - t0) / frames * 1e3, frames=frames,
+            eager_frames=application.eager_frames,
+            captures=graph.stats()["captures"] - stats0["captures"])
+    graph.clear()
+    same = all(torch.equal(a, b) for a, b in zip(runs["--jit"]["images"],
+                                                 runs["--no-jit"]["images"]))
+    same = same and torch.equal(runs["--jit"]["accum"],
+                                runs["--no-jit"]["accum"])
+    if not same or runs["--jit"]["frames"] != 6 + 3 * 8 \
+            or runs["--jit"]["eager_frames"] or runs["--jit"]["captures"] != 2:
+        raise AssertionError(f"app turbo: replayed steps equal the eager "
+                             f"ones {same}; {runs['--jit']['frames']} frames, "
+                             f"{runs['--jit']['eager_frames']} eager, "
+                             f"{runs['--jit']['captures']} captures")
+    return dict(bitwise=True, frames=runs["--jit"]["frames"],
+                captures=runs["--jit"]["captures"],
+                ms_per_frame_replayed=runs["--jit"]["ms_per_frame"],
+                ms_per_frame_eager=runs["--no-jit"]["ms_per_frame"])
+
+
+def check_graph(bvh, bvh6, env, smi):
+    """Phase graph (docstring, step 25g)."""
+    scene_of = {"bvh": bvh, "bvh6": bvh6}
+    out = {name: graph_case(name, scene_of, env) for name in GRAPH_CASES}
+    out["app_turbo"] = graph_app_turbo()
+    out["card"] = smi
+    return out
+
+
 def check_bench(chains):
     """Phase bench: `python3 bench_torch.py` at its defaults, the nine cases
     in their child processes.  It must exit 0 with nine case lines and no
@@ -1659,7 +1957,10 @@ def check_bench(chains):
     configuration, and its kernel launches a frame that chain's;
     `realistic`, which no other phase renders, must give a finite checksum
     and REALISTIC_LAUNCHES.  Returns each case's median ms/frame, spread,
-    checksum, device ms and idle share, and the phase's seconds."""
+    checksum, device ms and idle share (the replayed frame: the bench's
+    headline), the eager frame's median, the captures and the graphs'
+    memory, the profiled frame's device operations and the host's kernel
+    and graph launches, and the phase's seconds."""
     import math
     t0 = time.time()
     proc = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py")],
@@ -1691,7 +1992,10 @@ def check_bench(chains):
                                  f"expected {per_frame}")
     return dict(seconds=time.time() - t0, cases={
         c: {k: ln[k] for k in ("ms_per_frame", "spread", "checksum",
-                               "device_ms", "idle")}
+                               "device_ms", "idle", "ms_per_frame_eager",
+                               "jit", "captures", "graph_pool_mb",
+                               "launches", "host_kernel_launches",
+                               "host_graph_launches")}
         for c, ln in cases.items()})
 
 
@@ -2510,8 +2814,8 @@ def stage_ranges(stages):
 
 def profile(bvh, height, width, stages, frame_ms, preset_name="baseline",
             frames=1, **how):
-    """Device time of the last of `frames` chained warm frames (`how`:
-    render's env, camera and moved): by stage
+    """Device time of the last of `frames` chained warm eager frames
+    (`how`: render's env, camera and moved): by stage
     (inclusive device time of the kernels launched inside each range), by
     PyTorch operator, and of each hand-written kernel; the device's busy
     time against the unprofiled frame time gives its idle share.  A
@@ -2519,8 +2823,10 @@ def profile(bvh, height, width, stages, frame_ms, preset_name="baseline",
     chain rendered again, up to PROFILE_ATTEMPTS times (device_rows)."""
     import torch
     from torch.profiler import ProfilerActivity
+    # eager frames: a replayed frame has no stage ranges (phase graph
+    # profiles the replayed frames)
     render(bvh, height, width, frames, "cuda", preset_name=preset_name,
-           **how)
+           jit=False, **how)
     torch.cuda.synchronize()
     box = {}
 
@@ -2536,7 +2842,7 @@ def profile(bvh, height, width, stages, frame_ms, preset_name="baseline",
         box["prof"] = prof
     for attempt in range(PROFILE_ATTEMPTS):
         render(bvh, height, width, frames, "cuda", preset_name=preset_name,
-               last=profiled, **how)
+               last=profiled, jit=False, **how)
         out = _frame_profile(box["prof"], stages, frame_ms)
         out["wall_ms_profiled"] = box["wall_ms"]
         if "device_busy_ms" in out:

@@ -7,42 +7,47 @@ detection from the view-projection diff, motion-scaled jitter, hotkey
 reactions, render dispatch (ray vs raster), picker-driven asset reloads,
 and the accumulation-reset decision driven by the exhaustive param diff.
 
-Frames run eagerly on the app's device: `render_frame` writes the
-accumulation in place and the step rebinds `app.render_state` at once, so
-nothing is cached or compiled per configuration.  The JAX package's
+With `jit` (the default, as the JAX package's `--jit`) a frame on the
+card is a replay of its CUDA graph (models/graph.py), captured once per
+configuration: the turbo chain replays it k times, the first frame with
+the camera's key (moved or still) and the others with the still one, and
+the uint8 image the viewer streams is quantized inside the graph.  With
+the point-light orbit on, the parameters change every step and each step
+would capture anew: those frames run eagerly, through the same kernels
+(logged once, counted in `eager_frames`), as the JAX package's chain also
+steps aside under the orbit.  Without `jit`, and on the CPU, frames run
+eagerly (`render_frame`).  Either way the accumulation is written in place
+and the step rebinds `app.render_state` at once.  The JAX package's
 per-frame resolution of `ordered_primary` is left out: it picks between
 two TPU walk schedules, and the port has one walk.
 """
 
 from __future__ import annotations
 
-import dataclasses
 from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
-import torch
 
 from ..convert import frame_inputs_from_numpy
 from ..frame_state import FrameState
+from ..models import graph
 from ..models.pipeline import FrameInputs, render_frame
 from ..models.raster import render_raster
 from ..params import params_changed
 from ..sampling import generate_jitter2d
+from ..utils.log import log
 from .input import InputState, apply_action
 from .state import AppState
 
 
-def quantize_u8(img: torch.Tensor) -> torch.Tensor:
-    """[0,1] float image -> uint8 on its device, rounding half up as the
-    JAX package's `clip(x * 255 + 0.5).astype(uint8)` does."""
-    return torch.clamp(img * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
-
-
 class Application:
     def __init__(self, state: Optional[AppState] = None, height: int = 1080,
-                 width: int = 1920, device="cuda"):
+                 width: int = 1920, device="cuda", jit: bool = True):
         self.app = state or AppState(height, width, device=device)
+        self.jit = jit
+        # frames run eagerly on the card under `jit` (the orbit's)
+        self.eager_frames = 0
         self.input = InputState(spp_per_frame=self.app.params.spp_per_frame,
                                 exposure=float(self.app.params.exposure))
         self.frame_count = 0
@@ -67,11 +72,12 @@ class Application:
             if a.startswith("move_") or a.startswith("look "):
                 self.input.camera_changed_this_frame = True
 
-    def _frame_inputs(self, frame: FrameState,
-                      camera_moved: bool) -> FrameInputs:
-        """This frame's FrameInputs on the device; the host flag `moved`
-        is set with the device one, so TAA takes its still path alone
-        when the camera did not move."""
+    def _frame_inputs(self, frame: FrameState, camera_moved: bool,
+                      frame_index: int) -> FrameInputs:
+        """The FrameInputs of frame `frame_index` on the device (one
+        host-to-device copy); the host flag `moved` is set with the device
+        one, so TAA takes its still path alone when the camera did not
+        move."""
         cam = self.app.camera
         right, up, fwd, thf = cam.basis()
         return frame_inputs_from_numpy(SimpleNamespace(
@@ -79,27 +85,53 @@ class Application:
             tan_half_fov=thf, aspect=cam.aspect, jitter=frame.jitter,
             curr_view_proj=frame.curr_view_proj,
             prev_view_proj=frame.prev_view_proj,
-            camera_moved=int(camera_moved)), self.app.device)
+            camera_moved=int(camera_moved)), self.app.device, frame_index)
 
-    def _chain(self, fin: FrameInputs, k: int):
-        """The FrameInputs of a step's k frames.  Frame 0 is `fin`, with
-        the real camera_moved.  Frames 1..k-1 settle at its camera:
-        camera_moved 0, prev = curr, still-scale jitter of the frame
-        indices that follow."""
+    def _chain(self, frame: FrameState, camera_moved: bool, k: int):
+        """The FrameInputs of a step's k frames.  Frame 0 has the real
+        camera_moved.  Frames 1..k-1 settle at its camera: camera_moved
+        0, prev = curr, still-scale jitter of the frame indices that
+        follow."""
         app = self.app
-        fins = [fin]
-        if k > 1:
-            still = torch.zeros((), dtype=torch.int32, device=app.device)
-            scale = float(app.params.jitter_still_scale)
-            jit = np.stack([
-                generate_jitter2d(app.host_frame_index + i) * scale
-                if app.params.enable_jitter else np.zeros(2, np.float32)
-                for i in range(1, k)]).astype(np.float32)
-            jit = torch.from_numpy(jit).to(app.device)
-            fins += [dataclasses.replace(
-                fin, jitter=jit[i - 1], camera_moved=still, moved=False,
-                prev_view_proj=fin.curr_view_proj) for i in range(1, k)]
+        index = app.render_state.frame_index
+        fins = [self._frame_inputs(frame, camera_moved, index)]
+        scale = float(app.params.jitter_still_scale)
+        for i in range(1, k):
+            jitter = (generate_jitter2d(app.host_frame_index + i) * scale
+                      if app.params.enable_jitter
+                      else np.zeros(2, np.float32))
+            settled = FrameState(frame.curr_view_proj, frame.curr_view_proj,
+                                 frame.curr_cam_pos, frame.curr_cam_pos,
+                                 np.asarray(jitter, np.float32))
+            fins.append(self._frame_inputs(settled, False, index + i))
         return fins
+
+    def _render(self, fins):
+        """The step's frames, chained: (the last FrameOutputs, its uint8
+        image on the device when `want_u8`, else None)."""
+        app = self.app
+        captured = self.jit and app.device.type == "cuda"
+        if captured and app.params.point_light_orbit_enabled:
+            if not self.eager_frames:
+                log("APP", "point-light orbit: frames run eagerly (the "
+                    "parameters change every step)")
+            self.eager_frames += len(fins)
+            captured = False
+        state, u8 = app.render_state, None
+        kw = dict(height=app.height, width=app.width, use_bvh=app.use_bvh,
+                  show_motion=app.show_motion)
+        for fin in fins:
+            if captured:
+                state, out, u8 = graph.render(
+                    app.params, fin, state, app.env_map, app.bvh,
+                    want_u8=self.want_u8, **kw)
+            else:
+                state, out = render_frame(app.params, fin, state,
+                                          app.env_map, app.bvh, **kw)
+        app.render_state = state
+        if self.want_u8 and u8 is None:
+            u8 = graph.quantize_u8(out.image)
+        return out, u8
 
     # -- one frame (reference: application.cpp:330-554) --
 
@@ -160,7 +192,6 @@ class Application:
         app.frame = frame
 
         # 4. render (application.cpp:453-457)
-        fin = self._frame_inputs(frame, camera_moved)
         k = 1
         if app.ray_mode:
             # Turbo: K frames per step.  Idle (camera still): all K
@@ -173,18 +204,14 @@ class Application:
             # resets accumulation anyway, matching paramsChanged).
             if self.turbo > 1 and not app.params.point_light_orbit_enabled:
                 k = min(self.turbo, 6) if camera_moved else self.turbo
-            state = app.render_state
-            for fin_i in self._chain(fin, k):
-                state, out = render_frame(
-                    app.params, fin_i, state, app.env_map, app.bvh,
-                    height=app.height, width=app.width, use_bvh=app.use_bvh,
-                    show_motion=app.show_motion)
-            app.render_state = state
-            self.last_u8 = quantize_u8(out.image) if self.want_u8 else None
+            out, self.last_u8 = self._render(
+                self._chain(frame, camera_moved, k))
             app.host_frame_index += k
             self.last_output = out
             image = out.image
         else:
+            fin = self._frame_inputs(frame, camera_moved,
+                                     app.render_state.frame_index)
             image = render_raster(app.params, fin, app.bvh,
                                   height=app.height, width=app.width)
             self.last_output = None

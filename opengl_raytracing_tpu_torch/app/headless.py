@@ -1,7 +1,8 @@
 """Headless CLI: render frames, param sweeps, frame dumps, checkpoints.
 
 Counterpart of `opengl_raytracing_tpu/app/headless.py`, with the same
-flags but `--jit` (frames run eagerly here).  Drives the Application loop
+flags: `--jit` (the default) replays each frame as a captured CUDA graph
+on the card, `--no-jit` runs it eagerly.  Drives the Application loop
 without a display and writes tonemapped PNGs + structured logs.  Frames
 run on the CUDA card; `--cpu` runs them on the CPU, and without it a
 machine with no card raises.
@@ -70,6 +71,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", help="snapshot .npz to resume from")
     p.add_argument("--snapshot", help="write a snapshot .npz at the end")
     p.add_argument("--save-preset", help="write current params as JSON")
+    p.add_argument("--jit", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="replay each frame as its captured CUDA graph on "
+                        "the card (--no-jit runs it eagerly, for debug "
+                        "tracebacks; the CPU always runs it eagerly)")
     p.add_argument("--cpu", action="store_true",
                    help="render on the CPU (default: the CUDA card)")
     p.add_argument("--turbo", type=int, default=None,
@@ -106,7 +112,7 @@ def make_app(args) -> Application:
     if args.orbit:
         params = params.replace(point_light_orbit_enabled=1)
     state = AppState(height=h, width=w, params=params, device=device)
-    application = Application(state=state)
+    application = Application(state=state, jit=getattr(args, "jit", True))
     turbo = getattr(args, "turbo", None)
     if turbo is None:
         # viewer defaults to 8 (the reference loop free-runs); headless

@@ -181,10 +181,16 @@ class AppState:
     def restore_render_state(self, rs: RenderState) -> None:
         """Install an externally loaded RenderState (snapshot resume),
         keeping host_frame_index in sync so the jitter sequence continues
-        from the restored frame rather than restarting at 0."""
+        from the restored frame rather than restarting at 0.  Its
+        accumulation is copied into the app's own (one device copy), which
+        a captured frame may own (models/graph.py): resuming recaptures
+        nothing."""
         if rs.accum.device != self.device:
             raise ValueError(f"render state is on {rs.accum.device}, the "
                              f"app on {self.device}")
+        accum = self.render_state.accum
+        if accum.shape == rs.accum.shape:
+            rs = RenderState(accum.copy_(rs.accum), rs.frame_index)
         self.render_state = rs
         self.host_frame_index = int(rs.frame_index)
 

@@ -43,7 +43,7 @@ import torch
 from ..utils.checkpoint import params_to_dict
 from ..utils.image import encode_jpeg, encode_png
 from ..utils.log import default_logger, log
-from .application import quantize_u8
+from ..models.graph import STATS as GRAPH_STATS, quantize_u8
 from .headless import build_parser, make_app
 
 # Panel schema mirroring the ImGui sections (reference: gui.cpp:213-621).
@@ -367,7 +367,8 @@ class ViewerState:
         self.jpeg_quality = jpeg_quality
         self.stream_ctype = (b"image/jpeg" if stream_format == "jpeg"
                              else b"image/png")
-        # ray frames leave their uint8 image on the device
+        # ray frames leave their uint8 image on the device (quantized in
+        # the captured frame)
         application.want_u8 = True
 
     def _encode(self, arr: np.ndarray) -> None:
@@ -568,6 +569,10 @@ def make_handler(vs: ViewerState):
                     "device": str(a.device),
                     "frames_encoded": vs.frames_encoded,
                     "failed_frames": vs.failed_frames,
+                    "jit": vs.application.jit,
+                    "eager_frames": vs.application.eager_frames,
+                    "captures": GRAPH_STATS["captures"],
+                    "replays": GRAPH_STATS["replays"],
                     "step_ms": _mean(vs.step_ms),
                     "encode_ms": _mean(vs.encode_ms),
             }

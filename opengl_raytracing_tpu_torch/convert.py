@@ -21,14 +21,11 @@ import numpy as np
 import torch
 
 from .camera import Camera
+from .models import frame_block
 from .models.pipeline import FrameInputs
 from .ops.scene import BVHDevice
 from .params import RenderParams
 from .scene.bvh import BVHArrays
-
-_FIN_FLOAT = ("cam_pos", "cam_right", "cam_up", "cam_fwd", "tan_half_fov",
-              "aspect", "jitter", "curr_view_proj", "prev_view_proj")
-
 
 def bvh_from_numpy(arrays: BVHArrays, device) -> BVHDevice:
     """BVHArrays of host arrays -> BVHDevice of contiguous tensors on
@@ -79,27 +76,26 @@ def params_from(src) -> RenderParams:
     return RenderParams(**kw)
 
 
-def frame_inputs_from_numpy(src, device) -> FrameInputs:
+def frame_inputs_from_numpy(src, device, frame_index: int = 0
+                            ) -> FrameInputs:
     """FrameInputs on `device` from any object with the same attributes
-    (the JAX package's FrameInputs, or a namespace of numpy arrays).  The
-    source's `camera_moved` is read on the host and kept there too, as the
-    `moved` flag."""
-    kw = {name: torch.from_numpy(
-              np.array(getattr(src, name), dtype=np.float32)).to(device)
-          for name in _FIN_FLOAT}
-    moved = int(np.asarray(src.camera_moved))
-    kw["camera_moved"] = torch.tensor(moved, dtype=torch.int32, device=device)
-    # the same flag on the host, so the frame can branch on it without
-    # reading the device
-    return FrameInputs(**kw, moved=bool(moved))
+    (the JAX package's FrameInputs, or a namespace of numpy arrays), as
+    views of one device block made by one host-to-device copy that also
+    holds `frame_index`'s record (models/frame_block.py; a frame of
+    another index restages it).  The source's `camera_moved` is read on
+    the host and kept there too, as the `moved` flag."""
+    return FrameInputs.stage(frame_block.pack(src, frame_index), device,
+                             moved=bool(int(np.asarray(src.camera_moved))))
 
 
 def camera_frame_inputs(cam: Camera, device, jitter=(0.0, 0.0),
-                        prev_view_proj=None, moved: int = 0) -> FrameInputs:
+                        prev_view_proj=None, moved: int = 0,
+                        frame_index: int = 0) -> FrameInputs:
     """FrameInputs of a camera pose (reference: render.cpp:73-167): the
     previous view-projection defaults to the current one (a still
     camera); `jitter` is in pixels, already scaled; `moved` fills both the
-    device `camera_moved` and the host `moved` flag."""
+    device `camera_moved` and the host `moved` flag; `frame_index` as for
+    `frame_inputs_from_numpy`."""
     right, up, fwd, thf = cam.basis()
     vp = cam.view_projection()
     return frame_inputs_from_numpy(SimpleNamespace(
@@ -107,4 +103,4 @@ def camera_frame_inputs(cam: Camera, device, jitter=(0.0, 0.0),
         tan_half_fov=thf, aspect=cam.aspect, jitter=jitter,
         curr_view_proj=vp,
         prev_view_proj=vp if prev_view_proj is None else prev_view_proj,
-        camera_moved=moved), device)
+        camera_moved=moved), device, frame_index)

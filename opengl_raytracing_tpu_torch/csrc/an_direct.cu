@@ -17,7 +17,12 @@
 // through their strides (a broadcast grid is a row or a column of
 // floats), and only by lanes that need them.  The scene constants, the material table
 // (get_material with the glass/mirror toggles resolved on the host) and
-// the call's RNG keys arrive by value in one struct.  Everything else is
+// the (a, b) of the call's two frame values (rng_frame and frame_index =
+// index * a + b) arrive by value in one struct, with a pointer to the
+// frame's record (sampling.cuh: the frame index and ld2 of it, computed
+// on the host with the JAX device Halton's float32 steps): the struct is
+// the same for every frame, so a captured CUDA graph replays the call
+// for any frame.  The RNG keys are derived here.  Everything else is
 // computed here: normalize(n) and normalize(v), the material row, the
 // environment of the reflected view (K3's mirror and glass: the cubemap
 // when the scene has one, sampled per lane by cubemap.cuh from the table
@@ -80,12 +85,13 @@ constexpr int kMatRows = 5;   // material ids 0-3, then the grey fallback
 
 }  // namespace
 
-// Scene constants and the call's RNG keys, filled on the host
+// Scene constants and the call's frame values, filled on the host
 // (ops/an_cuda.py:scene_args).
 struct AnScene {
   // the cubemap environment: the float32 [6, env_f, env_f, 3] table on the
   // device (null: the gradient sky) and scene_analytic.sky's intensity
   const float* env;
+  const FrameRecord* frame;  // the frame index and ld2 of it
   int env_f;
   float env_intensity;
   float light_c[3], light_t[3], light_b[3];  // disk light center and frame
@@ -115,11 +121,9 @@ struct AnScene {
   float bvh_albedo[3];     // the BVH scene's white plastic
   float bvh_spec, bvh_gloss;
   float eps;
-  // sampling.rand's xor keys (x, y) of cp_offset's two draws and of the
-  // four samples' draws, and ld2(frame_index)
-  uint32_t cp_key[4];
-  uint32_t smp_key[2];
-  float ld[2];
+  // frame_index (the record's index itself) and rng_frame as frame values
+  FrameAffine cp;
+  FrameAffine smp;
   float pi_4, pi_2;        // PI / 4.0 and PI / 2.0 rounded to float32
   int sun_e, sky_e, point_e;
 };
@@ -158,34 +162,41 @@ struct Rot {
   float x, y;
 };
 
-// sampling.cp_offset: the pixel's rotation of the sample pattern
-__device__ __forceinline__ Rot cp_rot(const AnScene& s, float px, float py) {
-  const float hx = rand01(px, py, s.cp_key[0], s.cp_key[1]);
-  const float hy = rand01(py, px, s.cp_key[2], s.cp_key[3]);
-  return {rem1(hx + s.ld[0]), rem1(hy + s.ld[1])};
+// sampling.cp_offset: the pixel's rotation of the sample pattern, from
+// the frame index `f` (the keys of frame_index * 911 and * 577, and the
+// record's ld2)
+__device__ __forceinline__ Rot cp_rot(const AnScene& s, uint32_t f,
+                                      float px, float py) {
+  const uint32_t fi = frame_value(f, s.cp);
+  const uint32_t kx = fi * 911u, kx2 = fi * 577u;
+  const float hx = rand01(px, py, kx, key_y(kx));
+  const float hy = rand01(py, px, kx2, key_y(kx2));
+  return {rem1(hx + __ldg(&s.frame->ld[0])),
+          rem1(hy + __ldg(&s.frame->ld[1]))};
 }
 
 // Sample k's unit-disk offset.
-__device__ __forceinline__ void disk_offset(const AnScene& s, float px,
-                                            float py, Rot rot, int k,
-                                            float* dx, float* dy) {
+__device__ __forceinline__ void disk_offset(const AnScene& s, uint32_t f,
+                                            float px, float py, Rot rot,
+                                            int k, float* dx, float* dy) {
   const float fk = (float)k;
   const float off = (float)(31 * k + 7);
-  const float ux = rand01(px + fk, py + fk, s.smp_key[0], s.smp_key[1]);
-  const float uy = rand01(py + off, px + off, s.smp_key[0], s.smp_key[1]);
+  const uint32_t kx = frame_value(f, s.smp), ky = key_y(kx);
+  const float ux = rand01(px + fk, py + fk, kx, ky);
+  const float uy = rand01(py + off, px + off, kx, ky);
   concentric(s, rem1(ux + rot.x), rem1(uy + rot.y), dx, dy);
 }
 
 // The offsets as [2S, N] planes, for the tests.
-__device__ void write_offsets(const AnScene& s, const PixelGrid& g,
-                              int64_t i, int64_t n_px,
+__device__ void write_offsets(const AnScene& s, uint32_t f,
+                              const PixelGrid& g, int64_t i, int64_t n_px,
                               float* __restrict__ offs) {
   float px, py;
   pixel_centre(g, i, &px, &py);
-  const Rot rot = cp_rot(s, px, py);
+  const Rot rot = cp_rot(s, f, px, py);
   for (int k = 0; k < kSamples; ++k) {
     float dx, dy;
-    disk_offset(s, px, py, rot, k, &dx, &dy);
+    disk_offset(s, f, px, py, rot, k, &dx, &dy);
     offs[(2 * k) * n_px + i] = dx;
     offs[(2 * k + 1) * n_px + i] = dy;
   }
@@ -378,7 +389,8 @@ an_direct_light_kernel(const AnScene s, const float* __restrict__ p_in,
                        float* __restrict__ offs_out) {
   const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n_px) return;
-  if (offs_out != nullptr) write_offsets(s, g, i, n_px, offs_out);
+  if (offs_out != nullptr)
+    write_offsets(s, frame_index(s.frame), g, i, n_px, offs_out);
   const V3 n = norm3(row3(n_in, i));
   const V3 v = norm3(row3(v_in, i));
   const Material m = material(s, __ldg(mat_in + i));
@@ -392,11 +404,13 @@ an_direct_light_kernel(const AnScene s, const float* __restrict__ p_in,
   const V3 p = row3(p_in, i);
   float px, py;
   pixel_centre(g, i, &px, &py);
-  const Rot rot = cp_rot(s, px, py);
+  // the frame index, read by the lanes that draw samples only
+  const uint32_t f = frame_index(s.frame);
+  const Rot rot = cp_rot(s, f, px, py);
   V3 acc = {0.0f, 0.0f, 0.0f};
   for (int k = 0; k < kSamples; ++k) {
     float dx, dy;
-    disk_offset(s, px, py, rot, k, &dx, &dy);
+    disk_offset(s, f, px, py, rot, k, &dx, &dy);
     const V3 xl = disk_point(s, dx, dy);
     // lighting.occluded_toward: the segment query + the full trace
     const Query q = segment_query(p, xl);
@@ -435,20 +449,22 @@ bvh_direct_kernel(const AnScene s, const float4* __restrict__ bounds,
                   float* __restrict__ out, float* __restrict__ offs_out) {
   const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n_px) return;
-  if (offs_out != nullptr) write_offsets(s, g, i, n_px, offs_out);
+  if (offs_out != nullptr)
+    write_offsets(s, frame_index(s.frame), g, i, n_px, offs_out);
   // an inactive lane's radiance is unspecified by contract: not written
   if (active != nullptr && !__ldg(active + i)) return;
+  const uint32_t f = frame_index(s.frame);
   const V3 p = row3(p_in, i);
   const V3 n = norm3(row3(n_in, i));
   const V3 v = norm3(row3(v_in, i));
   float px, py;
   pixel_centre(g, i, &px, &py);
   const V3 albedo = c3(s.bvh_albedo);
-  const Rot rot = cp_rot(s, px, py);
+  const Rot rot = cp_rot(s, f, px, py);
   V3 acc = {0.0f, 0.0f, 0.0f};
   for (int k = 0; k < kSamples; ++k) {
     float dx, dy;
-    disk_offset(s, px, py, rot, k, &dx, &dy);
+    disk_offset(s, f, px, py, rot, k, &dx, &dy);
     const V3 xl = disk_point(s, dx, dy);
     const Query q = segment_query(p, xl);
     const bool facing =
@@ -497,7 +513,8 @@ inline unsigned blocks_for(int64_t n) {
 }  // namespace
 
 // Plain C entry points for ctypes.  `scene` and `grid` are host pointers
-// (the grid's own pointers and `scene->env` are device pointers); the other pointers are
+// (the grid's own pointers, `scene->env` and `scene->frame` are device
+// pointers); the other pointers are
 // device pointers (`active` and `offs` may be null); the stream is a
 // cudaStream_t.  Each returns cudaGetLastError() as an int.
 extern "C" int ort_an_direct(const AnScene* scene, const void* p,

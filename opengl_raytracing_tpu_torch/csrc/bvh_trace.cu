@@ -63,7 +63,10 @@
 //     order per lane.
 //   * The call samples its own rays.  The AO kernel takes the raw hit
 //     point and normal, the pixel grids (in place, through their strides)
-//     and the frame's RNG keys and computes the samples' rand pairs, the
+//     and the frame's record (read through a pointer, with the RNG
+//     keys' (a, b) of the index by value: the arguments are the same for
+//     every frame, so one captured CUDA graph replays it for any frame)
+//     and computes the keys, the samples' rand pairs, the
 //     cosine-hemisphere directions, the biased origin, the walks in
 //     [eps, ao_radius] and the remapped AO value.  The bounce kernel
 //     computes GI's rand pair, normal, hemisphere direction and origin,
@@ -109,8 +112,9 @@ struct BounceArgs {
   const float* p;   // the primary hits' points and raw normals, [N, 3]
   const float* n;
   PixelGrid grid;
-  uint32_t key[2];  // sampling.rand's xor keys of rng_frame
-  float so, so2;    // float32(seed * 19), float32(seed * 41)
+  const FrameRecord* frame;  // the frame index, read on the device
+  FrameAffine rng;  // rng_frame of the index (sampling.rand's keys)
+  FrameAffine seed; // seed of the index: offsets float32(seed * 19), * 41
   float two_pi;     // float32(2.0 * PI)
   float eps;        // the origin's offset along the normal (EPS)
 };
@@ -121,7 +125,8 @@ struct AoArgs {
   const float* p;   // the hits' points and raw normals, [N, 3]
   const float* n;
   PixelGrid grid;
-  uint32_t key[2];  // sampling.rand's xor keys of frame_index
+  const FrameRecord* frame;  // the frame index, read on the device
+  FrameAffine fi;   // frame_index of the index (sampling.rand's keys)
   int samples;      // ao_samples
   float bias, radius, ao_min;  // float32 of the parameters
   float ao_span;    // float32(1.0 - ao_min)
@@ -229,6 +234,10 @@ trace_bounce_kernel(const Tree tree, const Units u,
   __shared__ uint8_t slot[kWarps][32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned below = (1u << lane) - 1u;
+  const uint32_t f = frame_index(a.frame);
+  const uint32_t kx = frame_value(f, a.rng), ky = key_y(kx);
+  const uint32_t seed = frame_value(f, a.seed);
+  const float so = frame_f32(seed * 19u), so2 = frame_f32(seed * 41u);
   for (int64_t j = u.first(); j < u.n_units; j += u.stride()) {
     const int64_t base = u.base(j), i = base + lane;
     const bool live = is_live(active, u, base, lane, n);
@@ -239,8 +248,8 @@ trace_bounce_kernel(const Tree tree, const Units u,
       const int64_t k = base + slot[warp][lane];
       float px, py;
       pixel_centre(a.grid, k, &px, &py);
-      const float ux = rand01(px + a.so, py + a.so, a.key[0], a.key[1]);
-      const float uy = rand01(py + a.so2, px + a.so2, a.key[0], a.key[1]);
+      const float ux = rand01(px + so, py + so, kx, ky);
+      const float uy = rand01(py + so2, px + so2, kx, ky);
       const V3 n0 = norm3(row3(a.n, k));
       const V3 wi = hemisphere_cosine(n0, ux, uy, a.two_pi);
       store3(wi_out, k, wi);
@@ -265,13 +274,14 @@ __device__ __forceinline__ unsigned bit_range(int lo, int hi) {
 
 // Sample s of the AO pixel k: occluded within [eps, radius]?
 __device__ __forceinline__ bool ao_occluded(const Tree& tree,
-                                            const AoArgs& a, int64_t k,
-                                            int s, float eps) {
+                                            const AoArgs& a, uint32_t kx,
+                                            int64_t k, int s, float eps) {
   float px, py;
   pixel_centre(a.grid, k, &px, &py);
   const float o1 = (float)(37 * s + 3), o2 = (float)(19 * s + 11);
-  const float ux = rand01(px + o1, py + o1, a.key[0], a.key[1]);
-  const float uy = rand01(py + o2, px + o2, a.key[0], a.key[1]);
+  const uint32_t ky = key_y(kx);
+  const float ux = rand01(px + o1, py + o1, kx, ky);
+  const float uy = rand01(py + o2, px + o2, kx, ky);
   const V3 nn = norm3(row3(a.n, k));
   const V3 d = hemisphere_cosine(nn, ux, uy, a.two_pi);
   const V3 o = add3(row3(a.p, k), scale3(nn, a.bias));
@@ -294,6 +304,7 @@ ambient_occlusion_kernel(const Tree tree, const Units u,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned below = (1u << lane) - 1u;
   const int S = a.samples;
+  const uint32_t kx = frame_value(frame_index(a.frame), a.fi);
   for (int64_t j = u.first(); j < u.n_units; j += u.stride()) {
     const int64_t base = u.base(j), i = base + lane;
     const bool live = is_live(active, u, base, lane, n);
@@ -309,7 +320,8 @@ ambient_occlusion_kernel(const Tree tree, const Units u,
       bool hit = false;
       if (item < items) {
         const int q = item / S;
-        hit = ao_occluded(tree, a, base + slot[warp][q], item - q * S, eps);
+        hit = ao_occluded(tree, a, kx, base + slot[warp][q], item - q * S,
+                          eps);
       }
       const unsigned bits = __ballot_sync(kAll, hit);
       const int lo = max(rank * S - j0, 0), hi = min(rank * S + S - j0, 32);

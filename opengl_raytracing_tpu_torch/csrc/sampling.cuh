@@ -38,6 +38,36 @@ __device__ __forceinline__ void pixel_centre(const PixelGrid& g, int64_t i,
   *py = __ldg(g.py + r * g.py_sr + c * g.py_sc);
 }
 
+// The frame's record on the device (sampling.frame_record; the first
+// words of the frame block, models/frame_block.py): the frame index and
+// ld2(index) in float32.  A kernel reads it through a pointer, so its
+// arguments are the same for every frame and a captured CUDA graph
+// replays it for any frame.
+struct FrameRecord {
+  int32_t index;
+  float ld[2];
+};
+
+// int32(index * a + b) as uint32 bits: a frame value of sampling.py
+// (`FrameValue`), its (a, b) constant per configuration.
+struct FrameAffine {
+  uint32_t a, b;
+};
+
+__device__ __forceinline__ uint32_t frame_index(const FrameRecord* f) {
+  return (uint32_t)__ldg(&f->index);
+}
+
+__device__ __forceinline__ uint32_t frame_value(uint32_t index,
+                                                FrameAffine v) {
+  return index * v.a + v.b;
+}
+
+// float32 of the int32 value (sampling.frame_f32)
+__device__ __forceinline__ float frame_f32(uint32_t bits) {
+  return (float)(int32_t)bits;
+}
+
 __device__ __forceinline__ uint32_t lcg(uint32_t v) {
   return v * 1664525u + 1013904223u;
 }
@@ -49,6 +79,11 @@ __device__ __forceinline__ uint32_t hash2(uint32_t vx, uint32_t vy) {
   vx = vx ^ (vy >> 16);
   vy = vy ^ (vx << 5);
   return lcg(vx) ^ lcg(vy);
+}
+
+// sampling.rand's xor keys of a frame value: its bits and bits * 1663
+__device__ __forceinline__ uint32_t key_y(uint32_t frame_bits) {
+  return frame_bits * 1663u;
 }
 
 // sampling.rand with the frame's xor keys: the coordinates truncate after

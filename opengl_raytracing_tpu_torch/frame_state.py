@@ -1,8 +1,8 @@
 """Per-frame temporal state on the host.
 
 A copy of `opengl_raytracing_tpu/frame_state.py` without its pytree
-registration: the port's frames run eagerly and take the matrices as
-tensors through `convert.frame_inputs_from_numpy`.  Replaces the
+registration: the port's frames take the matrices as words of their
+device block through `convert.frame_inputs_from_numpy`.  Replaces the
 reference's mutable `rt::FrameState`
 (reference: include/render/frame_state.h:15-86): current/previous
 view-projection matrices, camera positions, and the per-frame jitter.

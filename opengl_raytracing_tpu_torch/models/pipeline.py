@@ -15,8 +15,15 @@ shading runs once a sample on the host, each with its own seed, and the
 frame is their mean.
 
 The layout at the public functions is the JAX package's: [H,W,C] images
-with GL bottom-up rows and an [H,W,4] accumulation (rgb + M2).  Frames run
-eagerly; a sequence of frames is a Python loop.
+with GL bottom-up rows and an [H,W,4] accumulation (rgb + M2).
+
+Every per-frame value reaches the frame through the device block of its
+FrameInputs (models/frame_block.py): the frame index as a device int32, as
+the JAX package's `RenderState.frame_index` is, ld2 of it, and the camera's
+uniforms.  The frame's operations are then the same for every frame, and
+`make_render_fn` captures the frame once per configuration as a CUDA graph
+and replays it (models/graph.py: the port's counterpart of the JAX
+package's jitted frame); `render_frame` itself runs eagerly.
 """
 
 from __future__ import annotations
@@ -24,11 +31,12 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..constants import MAT_POINTLIGHT_SPHERE
 from ..params import RenderParams, f32
-from ..sampling import ndc_from_world
+from ..sampling import Frame, FrameValue, ndc_from_world
 from ..ops.materials import MTYPE_GLASS, MTYPE_MIRROR, get_material
 from ..ops.scene import BVHDevice, SceneCtx
 from ..ops.scene_analytic import Hit
@@ -36,32 +44,85 @@ from ..ops import lighting as lt
 from ..ops.taa import resolve_taa
 from ..ops.svgf import present
 from ..ops.vecmath import const3, length, normalize
+from . import frame_block
+
+
+def _field(name: str) -> property:
+    return property(lambda self: self._views[name],
+                    doc=f"`{name}`: its view of the block")
 
 
 @dataclasses.dataclass(frozen=True)
 class FrameInputs:
     """Per-frame camera/motion uniforms (reference: render.cpp:73-167),
-    as float32 tensors on the render device.  `moved` is `camera_moved`
-    as the host knows it (None: unknown), so the frame can skip TAA's
-    moving path without reading the device; the two must agree."""
-    cam_pos: torch.Tensor         # [3]
-    cam_right: torch.Tensor       # [3]
-    cam_up: torch.Tensor          # [3]
-    cam_fwd: torch.Tensor         # [3]
-    tan_half_fov: torch.Tensor    # []
-    aspect: torch.Tensor          # []
-    jitter: torch.Tensor          # [2] pixels, scaled by still/moving scale
-    curr_view_proj: torch.Tensor  # [4,4]
-    prev_view_proj: torch.Tensor  # [4,4]
-    camera_moved: torch.Tensor    # [] int32 (0/1)
-    moved: Optional[bool] = None  # camera_moved on the host
+    held in one device block (models/frame_block.py) that also holds the
+    frame's record: the frame index and ld2 of it.  The uniforms are read
+    as views of the block (`cam_pos` [3], `cam_right` [3], `cam_up` [3],
+    `cam_fwd` [3], `tan_half_fov` [], `aspect` [], `jitter` [2] pixels,
+    scaled by the still/moving scale, `curr_view_proj` [4,4],
+    `prev_view_proj` [4,4], `camera_moved` [] int32 0/1).  Build them with
+    `FrameInputs.stage` (or convert.frame_inputs_from_numpy), which makes
+    the block with one host-to-device copy; `words` keeps the block's host
+    words, so that the frame can restage them under another frame index
+    (`at_frame`).  `moved` is `camera_moved` as the host knows it (None:
+    unknown), so the frame can skip TAA's moving path without reading the
+    device; the two must agree."""
+    block: torch.Tensor                       # int32 [frame_block.WORDS]
+    words: Optional[np.ndarray] = dataclasses.field(default=None,
+                                                    compare=False)
+    moved: Optional[bool] = None              # camera_moved on the host
+    _views: dict = dataclasses.field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "_views", frame_block.views(self.block))
+
+    cam_pos = _field("cam_pos")
+    cam_right = _field("cam_right")
+    cam_up = _field("cam_up")
+    cam_fwd = _field("cam_fwd")
+    tan_half_fov = _field("tan_half_fov")
+    aspect = _field("aspect")
+    jitter = _field("jitter")
+    curr_view_proj = _field("curr_view_proj")
+    prev_view_proj = _field("prev_view_proj")
+    camera_moved = _field("camera_moved")
+
+    @staticmethod
+    def stage(words: np.ndarray, device, moved: Optional[bool]
+              ) -> "FrameInputs":
+        """FrameInputs of the host block `words` (frame_block.pack) on
+        `device`: one host-to-device copy."""
+        return FrameInputs(frame_block.stage(words, device), words, moved)
+
+    @property
+    def frame_index(self) -> Optional[int]:
+        """The frame index in the block, where the host words are known."""
+        return None if self.words is None else int(self.words[0])
+
+    @property
+    def frame(self) -> FrameValue:
+        """The frame index on the device, as the kernels and the RNG take
+        it."""
+        return FrameValue(self.block[:3])
+
+    def at_frame(self, frame_index: int) -> "FrameInputs":
+        """These inputs with the record of `frame_index`: themselves when
+        their block holds it, else restaged from `words` (one copy)."""
+        if self.frame_index == frame_index:
+            return self
+        if self.words is None:
+            raise ValueError("FrameInputs without host words cannot be "
+                             "restaged at another frame index")
+        return FrameInputs.stage(frame_block.at_frame(self.words,
+                                                      frame_index),
+                                 self.block.device, self.moved)
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderState:
     """Temporal state (replaces rt::Accum's ping-pong FBO, reference:
-    include/render/accum.h:24-163).  The frame counter is a host int: it
-    seeds the RNG, and keeping it on the host costs no device round trip."""
+    include/render/accum.h:24-163).  The frame counter is a host int; the
+    frame's block carries it to the device (FrameInputs.frame)."""
     accum: torch.Tensor  # [H,W,4] rgb + M2
     frame_index: int
 
@@ -70,8 +131,10 @@ class RenderState:
         return RenderState(torch.zeros((height, width, 4), device=device), 0)
 
     def reset(self) -> "RenderState":
-        """Clear history (reference: src/render/accum.cpp:98-102)."""
-        return RenderState(torch.zeros_like(self.accum), 0)
+        """Clear history (reference: src/render/accum.cpp:98-102): the
+        accumulation is zeroed in place, so a captured frame that owns it
+        keeps it; `self` must not be used after the call."""
+        return RenderState(self.accum.zero_(), 0)
 
 
 class FrameOutputs(NamedTuple):
@@ -119,15 +182,15 @@ def _sanitize_hit(h: Hit, ro, rd) -> Hit:
     """Clamp miss lanes to finite values so masked shading math stays
     NaN-free (misses are overwritten by the sky select at the end)."""
     v = h.valid
-    up = torch.tensor([0.0, 1.0, 0.0], device=h.t.device)
+    up = const3((0.0, 1.0, 0.0), h.t.device)
     return Hit(torch.where(v, h.t, 1.0),
                torch.where(v[..., None], h.p, ro + rd),
                torch.where(v[..., None], h.n, up),
                h.mat)
 
 
-def _shade_bvh(scene: SceneCtx, h: Hit, seed: int, frame_index: int, vdir,
-               px, py, active=None, ao=None):
+def _shade_bvh(scene: SceneCtx, h: Hit, seed: Frame, frame_index: Frame,
+               vdir, px, py, active=None, ao=None):
     """BVH-scene shading (reference: rt.frag:105-117): direct light, plus
     the GI bounce and times AO when they are on.  `active` marks the
     lanes whose radiance survives the sky select; the others trace
@@ -148,7 +211,7 @@ def _shade_bvh(scene: SceneCtx, h: Hit, seed: int, frame_index: int, vdir,
     return radiance
 
 
-def _shade_analytic(scene: SceneCtx, h: Hit, seed: int, frame_index: int,
+def _shade_analytic(scene: SceneCtx, h: Hit, seed: Frame, frame_index: Frame,
                     vdir, px, py, ao=None):
     """Analytic-scene material dispatch (reference: rt.frag:119-162):
     direct light (plus the GI bounce, times AO, when they are on), the
@@ -196,7 +259,8 @@ def render_frame(params: RenderParams, fin: FrameInputs, state: RenderState,
                  bvh: Optional[BVHDevice] = None,
                  *, height: int, width: int, use_bvh: bool = False,
                  show_motion: bool = False):
-    """One frame: trace + shade + TAA into the accumulation, then present.
+    """One frame, run eagerly: trace + shade + TAA into the accumulation,
+    then present.
 
     Returns (new_state, FrameOutputs).  The frame runs on the device of
     `state.accum`, which must also hold `fin` and `bvh`.  The new
@@ -205,32 +269,51 @@ def render_frame(params: RenderParams, fin: FrameInputs, state: RenderState,
     the whole history before it writes any of it, so `state` must not be
     used after the call, as with the JAX package's donated buffer.
 
+    `fin`'s block must hold `state.frame_index`, or it is restaged with it
+    (`FrameInputs.at_frame`: one host-to-device copy); the frame reads its
+    per-frame values from the block alone (`render_staged`).
+
     `env_map` is the cubemap environment as `convert.env_from_numpy`
     places it on the device (used when `params.enable_env_map`);
     `show_motion` returns the motion debug wheel as the image (the frame
     is shaded at 1 SPP and accumulated all the same).  When `fin.moved`
     is False, TAA takes its still path alone.
     """
+    return render_staged(params, fin.at_frame(state.frame_index), state,
+                         env_map, bvh, height=height, width=width,
+                         use_bvh=use_bvh, show_motion=show_motion)
+
+
+def render_staged(params: RenderParams, fin: FrameInputs, state: RenderState,
+                  env_map: Optional[torch.Tensor] = None,
+                  bvh: Optional[BVHDevice] = None,
+                  *, height: int, width: int, use_bvh: bool = False,
+                  show_motion: bool = False):
+    """`render_frame` of inputs whose block holds the frame's index: every
+    per-frame value comes from the device block, none from the host, so
+    the sequence of operations and their host arguments is the same for
+    every frame (what makes one CUDA graph capture valid for all of them,
+    models/graph.py)."""
     scene = SceneCtx.create(params, fin.cam_pos, env_map=env_map,
                             use_bvh=use_bvh, bvh=bvh)
     px, py, rd = primary_rays(height, width, fin, params)
-    frame_index = state.frame_index
+    frame = fin.frame
     curr, motion, gpos, gnrm = trace_and_shade(
-        scene, params, fin, px, py, rd, frame_index, use_bvh=use_bvh,
+        scene, params, fin, px, py, rd, frame, use_bvh=use_bvh,
         show_motion=show_motion)
     # TAA sees zero motion when the camera is static (reference:
     # rt.frag:184-190); SVGF reads the motion as traced
     taa_motion = torch.where(fin.camera_moved > 0, motion, 0.0)
-    accum = resolve_taa(curr, taa_motion, state.accum, frame_index, params,
+    accum = resolve_taa(curr, taa_motion, state.accum, frame, params,
                         out=state.accum, moved=fin.moved)
     image = present(accum, motion, gpos, gnrm, params,
                     show_motion=show_motion)
-    return (RenderState(accum, frame_index + 1),
+    return (RenderState(accum, state.frame_index + 1),
             FrameOutputs(image, motion, gpos, gnrm))
 
 
 def trace_and_shade(scene: SceneCtx, params: RenderParams, fin: FrameInputs,
-                    px, py, rd, frame_index: int, *, use_bvh: bool,
+                    px, py, rd, frame_index: Frame, *, use_bvh: bool,
                     show_motion: bool = False):
     """Trace + shade a pixel grid: primary trace, gbuffer, motion with the
     sky sentinel, the samples' shading with the sky select, their mean.
@@ -293,18 +376,35 @@ def render_device(device) -> torch.device:
 
 
 def make_render_fn(height: int, width: int, device, use_bvh: bool = False,
-                   show_motion: bool = False):
+                   show_motion: bool = False, jit: bool = True):
     """Frame function bound to an image size, a device, the scene mode and
-    the motion debug view: fn(params, fin, state, env_map=None, bvh=None).
+    the motion debug view: fn(params, fin, state, env_map=None, bvh=None)
+    -> (new_state, FrameOutputs), the contract of `render_frame`.
+
+    With `jit` (the default, the JAX package's jitted frame) on a CUDA
+    device the frame is a CUDA graph, captured once per configuration and
+    replayed (models/graph.py): the returned accumulation and outputs are
+    the graph's own tensors, overwritten by its next replay.  A failed
+    capture or replay raises; nothing runs the eager frame in its place.
+    On the CPU there is nothing to capture and `jit` runs the eager frame,
+    as `jit=False` does on the card.
 
     Raises at once when the device is CUDA and no card is present: the
     frame never runs on the CPU in its place."""
     device = render_device(device)
+    captured = jit and device.type == "cuda"
 
     def fn(params, fin, state, env_map=None, bvh=None):
         if state.accum.device != device:
             raise ValueError(f"state is on {state.accum.device}, the "
                              f"render function on {device}")
+        if captured:
+            from . import graph
+            st, out, _ = graph.render(params, fin, state, env_map, bvh,
+                                      height=height, width=width,
+                                      use_bvh=use_bvh,
+                                      show_motion=show_motion)
+            return st, out
         return render_frame(params, fin, state, env_map, bvh,
                             height=height, width=width, use_bvh=use_bvh,
                             show_motion=show_motion)

@@ -19,7 +19,6 @@ Scene parity (reference: render.cpp:264-294):
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
 import torch
@@ -48,8 +47,8 @@ def render_raster(params: RenderParams, fin: FrameInputs,
     # the reference raster pass renders with the unjittered view/proj
     # (render.cpp sets plain currView/currProj); zero the TAA jitter so
     # the preview doesn't shimmer frame-to-frame
-    fin = dataclasses.replace(fin, jitter=torch.zeros_like(fin.jitter))
-    _, _, rd = primary_rays(height, width, fin, params)
+    _, _, rd = primary_rays(height, width, fin,
+                            params.replace(enable_jitter=0))
     dev = rd.device
     ro = fin.cam_pos.expand(rd.shape)
 

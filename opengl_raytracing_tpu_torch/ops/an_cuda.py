@@ -18,9 +18,11 @@ through their strides (`cuda_lib.PixelGrid`), and compute the rest themselves:
 normalisation, the material table, the environment of the reflected view
 (the scene's cubemap, sampled in the kernel from the float32 table that
 `_AnScene.env` points to, or the gradient sky when the scene has none)
-and the disk-light offsets' hash chain.  The scene constants, the material table
-and the call's RNG keys go by value in one struct (`_AnScene`, the
-mirror of the C struct `AnScene`, filled by `scene_args`).  The wrapper
+and the disk-light offsets' hash chain.  The scene constants, the material
+table, a pointer to the frame's record and the (a, b) of the call's two
+frame values go by value in one struct (`_AnScene`, the mirror of the C
+struct `AnScene`, filled by `scene_args`): it is the same for every frame
+of a configuration, so a captured CUDA graph replays the call.  The wrapper
 makes nothing but the contiguous copies of rows that are not contiguous
 already.
 Launches go through ops/cuda_lib.py (`LAUNCHES["an_direct"]`,
@@ -44,14 +46,13 @@ from ..constants import (EPS, PI, FLOOR_NORMAL, FLOOR_D, SPHERE_LEFT_CENTER,
                          BVH_ALBEDO, BVH_SPEC_STRENGTH, BVH_GLOSS, MAT_FLOOR,
                          MAT_ALBEDO_SPHERE, MAT_GLASS_SPHERE,
                          MAT_MIRROR_SPHERE)
-from ..sampling import _frame_bits, ld2
+from ..sampling import Frame
 from . import bvh_cuda, cuda_lib
 from . import lighting as lt
 from .cuda_lib import check
 from .materials import get_material
 
 _F3 = ctypes.c_float * 3
-_U32 = ctypes.c_uint32
 # One material id per row of the kernels' table: the floor, the albedo,
 # glass and mirror spheres (the kernel takes row = id), then an id that
 # gets get_material's grey fallback, as the point-light marker does.
@@ -66,7 +67,8 @@ class _AnScene(ctypes.Structure):
     pointer first, then 4-byte fields; the layouts' sizes are compared
     when the library loads)."""
     _fields_ = [
-        ("env", ctypes.c_void_p), ("env_f", ctypes.c_int),
+        ("env", ctypes.c_void_p), ("frame", ctypes.c_void_p),
+        ("env_f", ctypes.c_int),
         ("env_intensity", ctypes.c_float),
         ("light_c", _F3), ("light_t", _F3), ("light_b", _F3),
         ("light_nneg", _F3), ("light_color", _F3),
@@ -85,8 +87,7 @@ class _AnScene(ctypes.Structure):
         ("bvh_albedo", _F3), ("bvh_spec", ctypes.c_float),
         ("bvh_gloss", ctypes.c_float),
         ("eps", ctypes.c_float),
-        ("cp_key", _U32 * 4), ("smp_key", _U32 * 2),
-        ("ld", ctypes.c_float * 2),
+        ("cp", cuda_lib.FrameAffine), ("smp", cuda_lib.FrameAffine),
         ("pi_4", ctypes.c_float), ("pi_2", ctypes.c_float),
         ("sun_e", ctypes.c_int), ("sky_e", ctypes.c_int),
         ("point_e", ctypes.c_int),
@@ -131,28 +132,29 @@ def _env_table(scene, device):
     return env
 
 
-def scene_args(scene, rng_frame: int, frame_index: int,
-               env=None) -> _AnScene:
-    """The kernels' constants for one call: the scene's (see
-    `_scene_constants`), the cubemap table `env` (`_env_table`; None
-    leaves the pointer null) and the RNG keys, sampling.rand's xor keys
-    `_frame_bits(frame)` and `_frame_bits(frame, 1663)` of cp_offset's two
-    frames (frame_index * 911 and * 577) and of `rng_frame`, with
-    ld2(frame_index)."""
+def scene_args(scene, rng_frame: Frame, frame_index: Frame, env=None,
+               device=None):
+    """(the kernels' constants for one call, the frame record they point
+    to): the scene's (see `_scene_constants`), the cubemap table `env`
+    (`_env_table`; None leaves the pointer null) and the frame record
+    with `frame_index` and `rng_frame` as (a, b) of its index
+    (`cuda_lib.frame_args`; the kernel derives sampling.rand's xor keys of
+    cp_offset's two frames, frame_index * 911 and * 577, and of
+    `rng_frame`, and reads ld2(frame_index) from the record).  The same
+    bytes for every frame of one configuration.  `device` as
+    `cuda_lib.frame_args` takes it."""
     s = _AnScene.from_buffer_copy(_scene_constants(
         scene.params, tuple(sorted(scene.host_vectors.items()))))
-
-    def keys(frame):
-        return _frame_bits(frame), _frame_bits(frame, 1663)
-    s.cp_key = (_U32 * 4)(*keys(_frame_bits(frame_index, 911)),
-                          *keys(_frame_bits(frame_index, 577)))
-    s.smp_key = (_U32 * 2)(*keys(rng_frame))
-    s.ld = (ctypes.c_float * 2)(*ld2(frame_index))
+    record, (cp, smp) = cuda_lib.frame_args(device, frame_index, rng_frame)
+    if (cp.a, cp.b) != (1, 0):
+        raise ValueError("frame_index must be the record's frame index: the "
+                         "kernels read ld2 of it from the record")
+    s.frame, s.cp, s.smp = record.data_ptr(), cp, smp
     if env is not None:
         s.env = env.data_ptr()
         s.env_f = env.shape[1]
         s.env_intensity = _f32(scene.params.env_map_intensity)
-    return s
+    return s, record
 
 
 @functools.lru_cache(maxsize=16)
@@ -223,8 +225,8 @@ def _offsets_ptr(offsets_out, n_px, device):
     return offsets_out.data_ptr()
 
 
-def direct_light(scene, h, rng_frame: int, frame_index: int, vdir, px, py,
-                 offsets_out=None):
+def direct_light(scene, h, rng_frame: Frame, frame_index: Frame, vdir, px,
+                 py, offsets_out=None):
     """Direct light of the analytic scene at hits `h` [...] (the contract
     of lighting.direct_light_plain): rgb [..., 3].  With a cubemap in the
     scene the kernel samples it on its mirror and glass lanes.  On the
@@ -244,17 +246,18 @@ def direct_light(scene, h, rng_frame: int, frame_index: int, vdir, px, py,
     offs = _offsets_ptr(offsets_out, n_px, device)
     env = _env_table(scene, device)
     out = torch.empty((n_px, 3), dtype=torch.float32, device=device)
+    args, _keep_record = scene_args(scene, rng_frame, frame_index, env,
+                                    device)
     cuda_lib.launch(_library().ort_an_direct, "an_direct", device,
-                    ctypes.byref(scene_args(scene, rng_frame, frame_index,
-                                            env)),
+                    ctypes.byref(args),
                     rows["p"].data_ptr(), rows["n"].data_ptr(),
                     rows["v"].data_ptr(), mat.data_ptr(), ctypes.byref(grid),
                     n_px, out.data_ptr(), offs)
     return out.reshape(shape + (3,))
 
 
-def direct_light_bvh(scene, h, rng_frame: int, frame_index: int, vdir, px,
-                     py, active=None, offsets_out=None):
+def direct_light_bvh(scene, h, rng_frame: Frame, frame_index: Frame, vdir,
+                     px, py, active=None, offsets_out=None):
     """Direct light of the BVH scene at hits `h` [...] (the contract of
     lighting.direct_light_bvh_plain): rgb [..., 3], with the six shadow
     walks in the same launch.  Lanes where `active` is False do no work;
@@ -273,8 +276,10 @@ def direct_light_bvh(scene, h, rng_frame: int, frame_index: int, vdir, px,
     bvh_cuda.check_bvh(bvh, device)
     offs = _offsets_ptr(offsets_out, n_px, device)
     out = torch.empty((n_px, 3), dtype=torch.float32, device=device)
+    args, _keep_record = scene_args(scene, rng_frame, frame_index,
+                                    device=device)
     cuda_lib.launch(_library().ort_bvh_direct, "bvh_direct", device,
-                    ctypes.byref(scene_args(scene, rng_frame, frame_index)),
+                    ctypes.byref(args),
                     bvh.bounds.data_ptr(), bvh.meta.data_ptr(),
                     bvh.tris.data_ptr(), bvh.bounds.shape[0],
                     rows["p"].data_ptr(), rows["n"].data_ptr(),

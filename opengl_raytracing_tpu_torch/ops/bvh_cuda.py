@@ -32,28 +32,29 @@ import torch
 
 from ..constants import EPS, PI
 from ..params import f32
-from ..sampling import _frame_bits
+from ..sampling import Frame
 from ..scene.bvh import BVHArrays
 from . import cuda_lib
 from .bvh_traverse import trace_bvh
 from .cuda_lib import LAUNCHES, check  # noqa: F401  (LAUNCHES re-exported)
 from .scene_analytic import Hit
 
-_U32x2 = ctypes.c_uint32 * 2
+_Affine = cuda_lib.FrameAffine
 
 
 class _BounceArgs(ctypes.Structure):
     """Host mirror of `BounceArgs` in csrc/bvh_trace.cu."""
     _fields_ = [("p", ctypes.c_void_p), ("n", ctypes.c_void_p),
-                ("grid", cuda_lib.PixelGrid), ("key", _U32x2),
-                ("so", ctypes.c_float), ("so2", ctypes.c_float),
+                ("grid", cuda_lib.PixelGrid), ("frame", ctypes.c_void_p),
+                ("rng", _Affine), ("seed", _Affine),
                 ("two_pi", ctypes.c_float), ("eps", ctypes.c_float)]
 
 
 class _AoArgs(ctypes.Structure):
     """Host mirror of `AoArgs` in csrc/bvh_trace.cu."""
     _fields_ = [("p", ctypes.c_void_p), ("n", ctypes.c_void_p),
-                ("grid", cuda_lib.PixelGrid), ("key", _U32x2),
+                ("grid", cuda_lib.PixelGrid), ("frame", ctypes.c_void_p),
+                ("fi", _Affine),
                 ("samples", ctypes.c_int), ("bias", ctypes.c_float),
                 ("radius", ctypes.c_float), ("ao_min", ctypes.c_float),
                 ("ao_span", ctypes.c_float), ("two_pi", ctypes.c_float)]
@@ -101,29 +102,33 @@ def _cuda_device(x):
     return cuda_lib.cuda_device(x, "BVH kernels")
 
 
-def _keys(frame: int):
-    """sampling.rand's xor keys of `frame`."""
-    return _U32x2(_frame_bits(frame), _frame_bits(frame, 1663))
+def bounce_args(rng_frame: Frame, seed: Frame, device=None):
+    """(the bounce kernel's constants for one call, the frame record they
+    point to; the hit and grid pointers left null): the record and
+    `rng_frame` and `seed` as (a, b) of its index (`cuda_lib.frame_args`:
+    the kernel derives the RNG keys and the offsets float32(seed * 19) and
+    float32(seed * 41) from them), float32(2 PI) and the origin's EPS,
+    each rounded as the plain version rounds it.  The same bytes for every
+    frame of one configuration; `device` as `cuda_lib.frame_args` takes
+    it."""
+    record, (rng, sd) = cuda_lib.frame_args(device, rng_frame, seed)
+    return _BounceArgs(frame=record.data_ptr(), rng=rng, seed=sd,
+                       two_pi=f32(2.0 * PI), eps=EPS), record
 
 
-def bounce_args(rng_frame: int, seed: int) -> _BounceArgs:
-    """The bounce kernel's constants for one call (the pointers left
-    null): the RNG keys of `rng_frame`, the offsets float32(seed * 19) and
-    float32(seed * 41), float32(2 PI) and the origin's EPS, each rounded
-    as the plain version rounds it."""
-    return _BounceArgs(key=_keys(rng_frame), so=f32(seed * 19),
-                       so2=f32(seed * 41), two_pi=f32(2.0 * PI), eps=EPS)
-
-
-def ao_args(params, frame_index: int) -> _AoArgs:
-    """The AO kernel's constants for one call (the pointers left null):
-    the RNG keys of `frame_index` and the AO parameters in float32, as
-    lighting.ambient_occlusion_plain rounds them."""
+def ao_args(params, frame_index: Frame, device=None):
+    """(the AO kernel's constants for one call, the frame record they
+    point to; the hit and grid pointers left null): the record,
+    `frame_index` as (a, b) of its index and the AO parameters in
+    float32, as lighting.ambient_occlusion_plain rounds them.  The same
+    bytes for every frame of one configuration."""
+    record, (fi,) = cuda_lib.frame_args(device, frame_index)
     ao_min = f32(params.ao_min)
-    return _AoArgs(key=_keys(frame_index), samples=int(params.ao_samples),
+    return _AoArgs(frame=record.data_ptr(), fi=fi,
+                   samples=int(params.ao_samples),
                    bias=f32(params.ao_bias), radius=f32(params.ao_radius),
                    ao_min=ao_min, ao_span=f32(1.0 - ao_min),
-                   two_pi=f32(2.0 * PI))
+                   two_pi=f32(2.0 * PI)), record
 
 
 def _hit_out(shape, device):
@@ -177,8 +182,8 @@ def trace_closest(bvh: BVHArrays, ro, rd, eps: float = EPS,
     return _hit(shape, t, p, n)
 
 
-def trace_bounce(bvh: BVHArrays, h0: Hit, rng_frame: int, seed: int, px,
-                 py, active=None):
+def trace_bounce(bvh: BVHArrays, h0: Hit, rng_frame: Frame, seed: Frame,
+                 px, py, active=None):
     """GI's bounce ray at each hit of `h0` and its closest hit: (Hit, wi,
     cos_theta), the contract of lighting.gi_bounce_plain.  The ray is
     sample_hemisphere_cosine around normalize(h0.n) from the rand pair at
@@ -198,7 +203,7 @@ def trace_bounce(bvh: BVHArrays, h0: Hit, rng_frame: int, seed: int, px,
     grid, _keep_grid = cuda_lib.pixel_grid(px, py, shape, device)
     act, _keep_act = cuda_lib.mask_bytes(active, shape, device)
     check_bvh(bvh, device)
-    args = bounce_args(rng_frame, seed)
+    args, _keep_record = bounce_args(rng_frame, seed, device)
     args.p, args.n, args.grid = p0.data_ptr(), n0.data_ptr(), grid
     t, p, n = _hit_out(shape, device)
     wi = torch.empty((shape.numel(), 3), dtype=torch.float32, device=device)
@@ -210,7 +215,7 @@ def trace_bounce(bvh: BVHArrays, h0: Hit, rng_frame: int, seed: int, px,
     return _hit(shape, t, p, n), wi.reshape(shape + (3,)), cos.reshape(shape)
 
 
-def ambient_occlusion(bvh: BVHArrays, h: Hit, frame_index: int, px, py,
+def ambient_occlusion(bvh: BVHArrays, h: Hit, frame_index: Frame, px, py,
                       params, active=None):
     """Cosine-hemisphere ambient occlusion at hits `h` (the contract of
     lighting.ambient_occlusion_plain): params.ao_samples any-hit walks in
@@ -230,7 +235,7 @@ def ambient_occlusion(bvh: BVHArrays, h: Hit, frame_index: int, px, py,
     grid, _keep_grid = cuda_lib.pixel_grid(px, py, shape, device)
     act, _keep_act = cuda_lib.mask_bytes(active, shape, device)
     check_bvh(bvh, device)
-    args = ao_args(params, frame_index)
+    args, _keep_record = ao_args(params, frame_index, device)
     args.p, args.n, args.grid = p.data_ptr(), n.data_ptr(), grid
     ao = torch.empty(shape.numel(), dtype=torch.float32, device=device)
     cuda_lib.launch(_library().ort_ambient_occlusion, "ao", device,

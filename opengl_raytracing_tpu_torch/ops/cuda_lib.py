@@ -9,8 +9,11 @@ them.  A missing nvcc or a failed build raises with the
 compiler's output.  Importing this module needs neither nvcc nor a card.
 
 `LAUNCHES` counts each wrapper's launches, so a run can show that a frame
-went through the kernels; only `launch` adds to it, after the kernel was
-accepted.  The host mirror of the kernels' `PixelGrid` (csrc/sampling.cuh)
+went through the kernels; `launch` adds to it, after the kernel was
+accepted, and `add_launches` for a replayed CUDA graph (the launches its
+capture enqueued: models/graph.py takes a capture's own counts back).
+The host mirrors of the kernels' `PixelGrid` and `FrameAffine`
+(csrc/sampling.cuh), the frame record the kernels read (`frame_args`)
 and the row helpers the wrappers share are here too.
 """
 
@@ -146,6 +149,40 @@ def launch(fn, kernel: str, device, *args):
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
                            f"cudaError {err}")
     LAUNCHES[kernel] += 1
+
+
+def add_launches(counts: dict) -> None:
+    """Add a replayed CUDA graph's launches (models/graph.py: what its
+    capture enqueued) to `LAUNCHES`."""
+    for kernel, n in counts.items():
+        LAUNCHES[kernel] += n
+
+
+class FrameAffine(ctypes.Structure):
+    """Host mirror of `FrameAffine` in csrc/sampling.cuh: a frame value
+    int32(index * a + b) of the record's frame index."""
+    _fields_ = [("a", ctypes.c_uint32), ("b", ctypes.c_uint32)]
+
+
+def frame_args(device, *frames):
+    """(the frame record the kernels read, [FrameAffine of each frame]).
+
+    Frames are `sampling.FrameValue`s sharing one record, which must lie
+    on `device` (None: wherever it lies; the tests read the arguments on
+    the CPU)."""
+    from ..sampling import FrameValue
+    for f in frames:
+        if not isinstance(f, FrameValue):
+            raise TypeError(f"a kernel takes a frame as a "
+                            f"sampling.FrameValue, not {type(f).__name__}")
+    record = frames[0].record
+    if any((f.record.data_ptr(), f.record.device)
+           != (record.data_ptr(), record.device) for f in frames):
+        raise ValueError("frame values of one call must share one frame "
+                         "record")
+    check("frame record", record, torch.int32, (3,),
+          record.device if device is None else device)
+    return record, [FrameAffine(f.a, f.b) for f in frames]
 
 
 class PixelGrid(ctypes.Structure):

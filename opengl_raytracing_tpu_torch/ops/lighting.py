@@ -21,6 +21,10 @@ and its ambient occlusion, sampled, walked and remapped
 Naming of the RNG arguments follows the GLSL call chain:
   * `rng_frame`  — the `frame` parameter of the GLSL function;
   * `frame_index` — the global uFrameIndex uniform (used by cpOffset).
+Each is a `sampling.FrameValue` (an int32 `index * a + b` of the frame
+index on the device, as the JAX package's traced seeds are); a
+seed such as `seed * 131 + 17` stays one, and `frame_f32` gives the
+sample offsets' float32 of it.
 """
 
 from __future__ import annotations
@@ -34,8 +38,8 @@ from ..constants import (EPS, PI, SOFT_SHADOW_SAMPLES, LIGHT_CENTER,
                          BVH_ALBEDO, BVH_SPEC_STRENGTH, BVH_GLOSS, GI_MAX_LUM,
                          GI_MIN_COS_THETA, GLASS_DISTORTION_STRENGTH,
                          GLASS_LOCAL_REFL_WEIGHT, YCOEFF)
-from ..sampling import (rand, eps_for_dist, concentric_sample, cp_offset,
-                        sample_hemisphere_cosine)
+from ..sampling import (Frame, rand, eps_for_dist, concentric_sample,
+                        cp_offset, frame_f32, sample_hemisphere_cosine)
 from . import bvh_cuda
 from .bvh_traverse import trace_bvh, trace_bvh_shadow
 from .materials import (get_material, MaterialProps, MTYPE_DIFFUSE,
@@ -169,7 +173,7 @@ def point_direct(scene: SceneCtx, h, mat, vdir, blocked=None):
     return torch.where(ok[..., None], out, 0.0)
 
 
-def _disk_offsets(rng_frame: int, frame_index: int, px, py):
+def _disk_offsets(rng_frame: Frame, frame_index: Frame, px, py):
     """The per-pixel unit-disk offsets (dx, dy) of the disk-light samples
     (reference: rt_lighting.glsl:359-371)."""
     rot_x, rot_y = cp_offset(px, py, frame_index)
@@ -188,8 +192,8 @@ def _disk_points(offs, device):
     """The world-space disk-light points of the unit-disk offsets
     (reference: rt_lighting.glsl:359-371)."""
     center = const3(LIGHT_CENTER, device)
-    t_axis = torch.from_numpy(LIGHT_T).to(device)
-    b_axis = torch.from_numpy(LIGHT_B).to(device)
+    t_axis = const3(LIGHT_T, device)
+    b_axis = const3(LIGHT_B, device)
     return [center + t_axis * (dx * LIGHT_RADIUS)[..., None]
             + b_axis * (dy * LIGHT_RADIUS)[..., None] for dx, dy in offs]
 
@@ -199,7 +203,7 @@ def _disk_light_sum(h, n, v, albedo, spec_strength, gloss, xls, occ_all):
     per-pixel CP rotation (reference: rt_lighting.glsl:355-387,414-445),
     given the sample points `xls` and their occlusion bits `occ_all`."""
     dev = h.t.device
-    light_n = -torch.from_numpy(LIGHT_N).to(dev)
+    light_n = const3(-LIGHT_N, dev)
     light_c = const3(LIGHT_COLOR, dev)
     acc = torch.zeros(h.t.shape + (3,), device=dev)
     for i in range(SOFT_SHADOW_SAMPLES):
@@ -216,8 +220,8 @@ def _disk_light_sum(h, n, v, albedo, spec_strength, gloss, xls, occ_all):
     return acc / float(SOFT_SHADOW_SAMPLES)
 
 
-def direct_light_plain(scene: SceneCtx, h, rng_frame: int,
-                       frame_index: int, vdir, px, py):
+def direct_light_plain(scene: SceneCtx, h, rng_frame: Frame,
+                       frame_index: Frame, vdir, px, py):
     """Direct lighting, analytic scene (reference: rt_lighting.glsl:313-395):
     the plain version of the CUDA kernel behind `direct_light`.
 
@@ -251,8 +255,8 @@ def direct_light_plain(scene: SceneCtx, h, rng_frame: int,
                                    glass_out, diff))
 
 
-def direct_light(scene: SceneCtx, h, rng_frame: int, frame_index: int, vdir,
-                 px, py):
+def direct_light(scene: SceneCtx, h, rng_frame: Frame, frame_index: Frame,
+                 vdir, px, py):
     """Direct lighting, analytic scene: the CUDA kernel for CUDA tensors,
     `direct_light_plain` for CPU tensors (ops/an_cuda.py)."""
     from . import an_cuda
@@ -260,7 +264,7 @@ def direct_light(scene: SceneCtx, h, rng_frame: int, frame_index: int, vdir,
                                 px, py)
 
 
-def direct_light_bvh(scene: SceneCtx, h, rng_frame: int, frame_index: int,
+def direct_light_bvh(scene: SceneCtx, h, rng_frame: Frame, frame_index: Frame,
                      vdir, px, py, active=None):
     """Direct lighting for BVH triangles: hard-coded white plastic
     (reference: rt_lighting.glsl:405-460).  The CUDA kernel for CUDA
@@ -285,7 +289,7 @@ def _bvh_shadow_queries(scene: SceneCtx, h, n, offs, active=None):
     multiplies vis by ndl*cosThetaL == 0), so it leaves the image
     unchanged and saves the rays."""
     params = scene.params
-    light_n = -torch.from_numpy(LIGHT_N).to(h.t.device)
+    light_n = const3(-LIGHT_N, h.t.device)
     origins, dirs, wins = [], [], []
     for xl in _disk_points(offs, h.t.device):
         o, d, w = _segment_shadow_query(h.p, xl)
@@ -308,8 +312,8 @@ def _bvh_shadow_queries(scene: SceneCtx, h, n, offs, active=None):
     return origins, dirs, wins
 
 
-def direct_light_bvh_plain(scene: SceneCtx, h, rng_frame: int,
-                           frame_index: int, vdir, px, py, active=None):
+def direct_light_bvh_plain(scene: SceneCtx, h, rng_frame: Frame,
+                           frame_index: Frame, vdir, px, py, active=None):
     """The plain version of the CUDA kernel behind `direct_light_bvh`:
     the shadow queries, traced as one stream by the plain any-hit walk
     (the wavefront form of the reference's six sequential shadow
@@ -361,7 +365,7 @@ def shade_bvh_brdf_plain(scene: SceneCtx, h, n, v, offs, occ):
     return acc
 
 
-def shade_glass(scene: SceneCtx, h, wo, mat, seed: int, frame_index: int,
+def shade_glass(scene: SceneCtx, h, wo, mat, seed: Frame, frame_index: Frame,
                 px, py):
     """Thin-glass shading: Fresnel mix of (env + local reflection) and
     (straight-through + softened bent refraction)
@@ -414,15 +418,15 @@ def shade_glass(scene: SceneCtx, h, wo, mat, seed: int, frame_index: int,
     return mix(refr_col, reflect_col, fresnel[..., None])
 
 
-def one_bounce_gi_analytic(scene: SceneCtx, h0, rng_frame: int, seed: int,
-                           frame_index: int, px, py):
+def one_bounce_gi_analytic(scene: SceneCtx, h0, rng_frame: Frame, seed: Frame,
+                           frame_index: Frame, px, py):
     """One cosine-weighted bounce + direct light at the secondary hit
     (reference: rt_lighting.glsl:473-507).  The bounce hits go to
     `direct_light` unsanitized (misses have p = o + wi * 1e30); the
     valid select drops whatever is lit there."""
     mat0 = get_material(h0.mat, scene.params)
     n0 = normalize(h0.n)
-    so, so2 = f32(seed * 13), f32(seed * 37)
+    so, so2 = frame_f32(seed * 13), frame_f32(seed * 37)
     ux = rand(px + so, py + so, rng_frame)
     uy = rand(py + so2, px + so2, rng_frame)
     wi = sample_hemisphere_cosine(n0, ux, uy)
@@ -434,11 +438,11 @@ def one_bounce_gi_analytic(scene: SceneCtx, h0, rng_frame: int, seed: int,
     return torch.where((cos_theta > 0.0)[..., None], out, 0.0)
 
 
-def _bounce_ray(h0, rng_frame: int, seed: int, px, py):
+def _bounce_ray(h0, rng_frame: Frame, seed: Frame, px, py):
     """(origin, wi, cos_theta) of the BVH GI bounce ray: a cosine-
     hemisphere sample around the hit normal from the rand pair at offsets
     seed*19 and seed*41 (reference: rt_lighting.glsl:515-527)."""
-    so, so2 = f32(seed * 19), f32(seed * 41)
+    so, so2 = frame_f32(seed * 19), frame_f32(seed * 41)
     ux = rand(px + so, py + so, rng_frame)
     uy = rand(py + so2, px + so2, rng_frame)
     n0 = normalize(h0.n)
@@ -446,7 +450,7 @@ def _bounce_ray(h0, rng_frame: int, seed: int, px, py):
     return h0.p + n0 * EPS, wi, torch.clamp_min(dot(n0, wi), 0.0)
 
 
-def gi_bounce_plain(bvh, h0, rng_frame: int, seed: int, px, py,
+def gi_bounce_plain(bvh, h0, rng_frame: Frame, seed: Frame, px, py,
                     active=None):
     """GI's bounce ray at each hit of `h0` and its closest hit (reference:
     rt_lighting.glsl:515-530): (Hit, wi, cos_theta), the plain version of
@@ -456,8 +460,8 @@ def gi_bounce_plain(bvh, h0, rng_frame: int, seed: int, px, py,
     return trace_bvh(bvh, origin, wi, active=active), wi, cos_theta
 
 
-def one_bounce_gi_bvh(scene: SceneCtx, h0, rng_frame: int, seed: int,
-                      frame_index: int, px, py, active=None):
+def one_bounce_gi_bvh(scene: SceneCtx, h0, rng_frame: Frame, seed: Frame,
+                      frame_index: Frame, px, py, active=None):
     """BVH GI with grazing-angle cut and firefly luminance clamp
     (reference: rt_lighting.glsl:515-561).
 
@@ -482,7 +486,7 @@ def one_bounce_gi_bvh(scene: SceneCtx, h0, rng_frame: int, seed: int,
                        0.0)
 
 
-def shade_mirror(scene: SceneCtx, h, wo, mat, seed: int, frame_index: int,
+def shade_mirror(scene: SceneCtx, h, wo, mat, seed: Frame, frame_index: Frame,
                  px, py):
     """Perfect mirror: one reflected trace + direct light (+ GI when it is
     on) at the reflected hit (reference: rt_lighting.glsl:675-708)."""
@@ -501,7 +505,7 @@ def shade_mirror(scene: SceneCtx, h, wo, mat, seed: int, frame_index: int,
     return col * mat.albedo
 
 
-def _ao_rays(h, frame_index: int, px, py, params):
+def _ao_rays(h, frame_index: Frame, px, py, params):
     """(origin, [direction] * ao_samples) of the AO hemisphere rays
     (reference: rt_lighting.glsl:721-744)."""
     n = normalize(h.n)
@@ -523,7 +527,7 @@ def _ao_value(occ, params):
     return torch.clamp(ao_min + f32(1.0 - ao_min) * ao, ao_min, 1.0)
 
 
-def ambient_occlusion_plain(bvh, h, frame_index: int, px, py, params,
+def ambient_occlusion_plain(bvh, h, frame_index: Frame, px, py, params,
                             active=None):
     """BVH ambient occlusion: the plain version of the CUDA kernel behind
     `bvh_cuda.ambient_occlusion`.  The `ao_samples` hemisphere batches
@@ -545,7 +549,7 @@ def ambient_occlusion_plain(bvh, h, frame_index: int, px, py, params,
     return _ao_value(occ, params)
 
 
-def compute_ao(scene: SceneCtx, h, frame_index: int, px, py, active=None):
+def compute_ao(scene: SceneCtx, h, frame_index: Frame, px, py, active=None):
     """Cosine-hemisphere ambient occlusion, radius-limited, remapped to
     [ao_min, 1] (reference: rt_lighting.glsl:721-757).
 

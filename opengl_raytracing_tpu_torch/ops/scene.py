@@ -77,6 +77,28 @@ def compute_point_light_world_pos(params: RenderParams):
                           0.0)
 
 
+_LIGHTS: dict = {}
+
+
+def light_vectors(params: RenderParams, device):
+    """({name: [3] tensor on `device`}, {name: host tuple}) of the point
+    light's position, the sun's direction and the sky's up vector, made
+    once per (params, device) and shared (read-only by contract)."""
+    key = (params, torch.device(device))
+    got = _LIGHTS.get(key)
+    if got is None:
+        host = dict(
+            point_light_pos=compute_point_light_world_pos(params),
+            sun_dir=dir_from_yaw_pitch(params.sun_yaw, params.sun_pitch),
+            sky_up=dir_from_yaw_pitch(params.sky_yaw, params.sky_pitch))
+        got = ({k: v.to(device) for k, v in host.items()},
+               {k: tuple(v.tolist()) for k, v in host.items()})
+        if len(_LIGHTS) >= 64:  # the orbit makes new params every step
+            _LIGHTS.clear()
+        _LIGHTS[key] = got
+    return got
+
+
 @dataclasses.dataclass(frozen=True)
 class SceneCtx:
     """Per-frame scene inputs and the scene mode."""
@@ -100,8 +122,10 @@ class SceneCtx:
         converted here, k / 255 by true division).
 
         The light vectors depend on the parameters alone: they are
-        computed on the host and copied to the frame's device once, so a
-        kernel can take them as arguments without reading the device."""
+        computed on the host and copied to the frame's device once per
+        (parameters, device) (`light_vectors`), so a kernel can take them
+        as arguments without reading the device and a warm frame makes no
+        copy for them."""
         if env_map is not None:
             f = env_map.shape[1] if env_map.dim() == 4 else 0
             if tuple(env_map.shape) != (6, f, f, 3):
@@ -110,16 +134,11 @@ class SceneCtx:
             env_map = texel_table(env_map).contiguous()
         if use_bvh and bvh is None:
             raise ValueError("use_bvh needs a BVHDevice")
-        host = dict(
-            point_light_pos=compute_point_light_world_pos(params),
-            sun_dir=dir_from_yaw_pitch(params.sun_yaw, params.sun_pitch),
-            sky_up=dir_from_yaw_pitch(params.sky_yaw, params.sky_pitch))
-        device = cam_pos.device
+        device, host_vectors = light_vectors(params, cam_pos.device)
         return SceneCtx(
-            params=params, cam_pos=cam_pos.to(torch.float32),
-            **{k: v.to(device) for k, v in host.items()},
-            host_vectors={k: tuple(v.tolist()) for k, v in host.items()},
-            use_bvh=use_bvh, bvh=bvh, env_map=env_map)
+            params=params, cam_pos=cam_pos.to(torch.float32), **device,
+            host_vectors=host_vectors, use_bvh=use_bvh, bvh=bvh,
+            env_map=env_map)
 
     def trace(self, ro, rd, eps: float = EPS, active=None) -> sa.Hit:
         """Closest hit against the BVH or the analytic scene.  `active`

@@ -111,8 +111,6 @@ def sky(d, params: RenderParams, env_map=None):
     if params.enable_env_map and env_map is not None:
         return sample_cubemap(env_map, d) * params.env_map_intensity
     t = torch.clamp(0.5 * (d[..., 1] + 1.0), 0.0, 1.0)
-    a = torch.tensor((0.6, 0.7, 0.9), dtype=torch.float32,
-                     device=d.device) * 0.3
-    b = torch.tensor((0.1, 0.15, 0.3), dtype=torch.float32,
-                     device=d.device) * 0.3
+    a = const3((0.6, 0.7, 0.9), d.device) * 0.3
+    b = const3((0.1, 0.15, 0.3), d.device) * 0.3
     return mix(a, b, (1.0 - t)[..., None])

@@ -8,6 +8,12 @@ CLAMP_TO_EDGE texel gathers, matching the accum texture parameters
 (reference: src/render/accum.cpp:11-14).  Rows follow GL's bottom-up y,
 so UV math carries over 1:1.
 
+The frame index is the device frame (`sampling.FrameValue`): the still
+weights and the first frame's passthrough are selects on the device, as
+in the JAX package's branch-free form, which pick the same float32
+constants as its branches do, and the frame's operations are the same for
+every frame index.
+
 Whether the camera moved is known on the host (`FrameInputs.moved`), so
 the JAX package's `lax.cond` skip is a Python branch here and costs no
 device read: with `moved=False` only the still weights are computed, no
@@ -26,6 +32,7 @@ import torch
 
 from ..constants import YCOEFF
 from ..params import RenderParams, f32
+from ..sampling import Frame, frame_value
 from .vecmath import luminance, smoothstep
 
 
@@ -46,7 +53,24 @@ def _store(col, m2, out):
     return out
 
 
-def resolve_taa(curr, motion, prev_accum, frame_index: int,
+def _still_weights(frame_index: Frame, params: RenderParams):
+    """(history weight, current weight, first frame) of the still path
+    (rt_taa.glsl:66-68,86-105): 0-d tensors on the frame's device, the
+    weights float32 as the JAX package's."""
+    min_w, avg_w, max_w = (f32(params.taa_history_min_weight),
+                           f32(params.taa_history_avg_weight),
+                           f32(params.taa_history_max_weight))
+    fi = frame_value(frame_index)
+    early, mid = fi < 8, fi < 32
+
+    def select(a, b, c):
+        return torch.where(early, a, torch.where(mid, b, c))
+    return (select(min_w, avg_w, max_w),
+            select(f32(1.0 - min_w), f32(1.0 - avg_w), f32(1.0 - max_w)),
+            fi == 0)
+
+
+def resolve_taa(curr, motion, prev_accum, frame_index: Frame,
                 params: RenderParams, out=None,
                 moved: Optional[bool] = None, row_offset: int = 0):
     """Blend the current frame with its (reprojected) history.
@@ -54,7 +78,8 @@ def resolve_taa(curr, motion, prev_accum, frame_index: int,
     curr [BH,W,3] linear colour; motion [BH,W,2] NDC motion, already
     zeroed by the caller when the camera is static (reference:
     rt.frag:188); prev_accum [H,W,4] rgb + M2, the whole history:
-    reprojection may read anywhere; frame_index a host int.  When curr is
+    reprojection may read anywhere; frame_index the device frame
+    (`sampling.FrameValue`).  When curr is
     a row band of the image, `row_offset` is its first row in prev_accum
     (the still path reads rows row_offset .. row_offset + BH of it).
     Returns [BH,W,4] (colour, M2).  Without TAA the frame is stored with
@@ -75,22 +100,29 @@ def resolve_taa(curr, motion, prev_accum, frame_index: int,
     the band: another band's pixels would be overwritten."""
     l_curr = luminance(curr, YCOEFF)
     l_curr2 = l_curr * l_curr
-    if not params.enable_taa or frame_index == 0:
-        # no TAA, or the first frame: no history (rt_taa.glsl:66-68)
+    if not params.enable_taa:
+        # no TAA: no history (rt_taa.glsl:58-61)
         return _store(curr, l_curr2, out)
+    w_still, w_curr_still, first = _still_weights(frame_index, params)
+
+    def store(col, m2):
+        # the first frame's passthrough (no history, rt_taa.glsl:66-68),
+        # selected as the result is stored (no pass of its own)
+        if out is None:
+            return torch.cat([torch.where(first, curr, col),
+                              torch.where(first, l_curr2, m2)[..., None]],
+                             dim=-1)
+        torch.where(first, curr, col, out=out[..., :3])
+        torch.where(first, l_curr2, m2, out=out[..., 3])
+        return out
 
     max_w = f32(params.taa_history_max_weight)
-    # still weights (rt_taa.glsl:86-105), float32 as the JAX package's
-    w_still = (f32(params.taa_history_min_weight) if frame_index < 8 else
-               f32(params.taa_history_avg_weight) if frame_index < 32 else
-               max_w)
-    w_curr_still = f32(1.0 - w_still)
     bh, w = curr.shape[0], curr.shape[1]
     if moved is False and f32(params.taa_still_thresh) > 0.0:
         # the camera is still: every pixel blends with its own texel
         prev = prev_accum[row_offset:row_offset + bh]
-        return _store(prev[..., :3] * w_still + curr * w_curr_still,
-                      prev[..., 3] * w_still + l_curr2 * w_curr_still, out)
+        return store(prev[..., :3] * w_still + curr * w_curr_still,
+                     prev[..., 3] * w_still + l_curr2 * w_curr_still)
 
     dev = curr.device
     uvx = ((torch.arange(w, dtype=torch.float32, device=dev) + 0.5)
@@ -135,4 +167,4 @@ def resolve_taa(curr, motion, prev_accum, frame_index: int,
 
     col = torch.where(still_px[..., None], col_still, col_mov)
     m2 = torch.where(still_px, m2_still, m2_mov)
-    return _store(col, m2, out)
+    return store(col, m2)

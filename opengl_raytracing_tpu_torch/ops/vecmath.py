@@ -8,6 +8,7 @@ in the same order on every device.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -69,5 +70,19 @@ def v3(x, y, z, device=None):
     return torch.stack(torch.broadcast_tensors(*parts), dim=-1)
 
 
+_CONSTS: dict = {}
+
+
 def const3(t, device):
-    return torch.tensor(t, dtype=torch.float32, device=device)
+    """The float32 tensor of host values `t` on `device`, made once per
+    (values, device) and shared: a frame takes its constants without a
+    host-to-device copy (a copy from pageable memory stops the host until
+    the card drains, and cannot be captured in a CUDA graph).  The tensor
+    is read-only by contract."""
+    values = tuple(float(x) for x in np.asarray(t, np.float64).reshape(-1))
+    key = (values, np.shape(t), torch.device(device))
+    c = _CONSTS.get(key)
+    if c is None:
+        c = torch.tensor(t, dtype=torch.float32, device=device)
+        _CONSTS[key] = c
+    return c

@@ -94,19 +94,22 @@ def band_shade(params: RenderParams, fin: FrameInputs, state: RenderState,
             and needs_history(params, fin, frame_index):
         raise ValueError("this frame's TAA reprojects: pass the whole "
                          "previous accumulation as `history`")
+    # the frame's per-frame values from its device block, as render_frame
+    # reads them
+    fin = fin.at_frame(frame_index)
     scene = SceneCtx.create(params, fin.cam_pos, env_map=env_map,
                             use_bvh=use_bvh, bvh=bvh)
     px, py = pixel_centers(bh, width, state.accum.device, row_offset=row0)
     rd = primary_dirs(px, py, height, width, fin, params)
     curr, motion, gpos, gnrm = trace_and_shade(
-        scene, params, fin, px, py, rd, frame_index, use_bvh=use_bvh,
+        scene, params, fin, px, py, rd, fin.frame, use_bvh=use_bvh,
         show_motion=show_motion)
     taa_motion = torch.where(fin.camera_moved > 0, motion, 0.0)
     if history is None:
-        accum = resolve_taa(curr, taa_motion, state.accum, frame_index,
+        accum = resolve_taa(curr, taa_motion, state.accum, fin.frame,
                             params, out=state.accum, moved=fin.moved)
     else:
-        accum = resolve_taa(curr, taa_motion, history, frame_index, params,
+        accum = resolve_taa(curr, taa_motion, history, fin.frame, params,
                             out=state.accum, moved=fin.moved,
                             row_offset=row0)
     return accum, motion, gpos, gnrm
@@ -233,6 +236,7 @@ def render_frame_shardmap(mesh, params: RenderParams, fin: FrameInputs,
                          f"{tuple(state.accum.shape)} on "
                          f"{state.accum.device}, not its band "
                          f"{(bh, width, 4)} on {mesh.device}")
+    fin = fin.at_frame(state.frame_index)
     history = gather_history(mesh, state.accum) \
         if needs_history(params, fin, state.frame_index) else None
     planes = band_shade(params, fin, state, history, env_map, bvh, row0=row0,
@@ -279,6 +283,7 @@ def render_bands_in_turn(params: RenderParams, fin: FrameInputs,
     in place.  Returns (new states, FrameOutputs of each band, mean_lum)."""
     n = len(states)
     frame_index = states[0].frame_index
+    fin = fin.at_frame(frame_index)
     history = torch.cat([s.accum for s in states], dim=0) \
         if needs_history(params, fin, frame_index) else None
     shaded = [band_shade(params, fin, s, history, env_map, bvh,

@@ -7,17 +7,25 @@ soft shadows.  torch's uint32 support is partial, so the hash runs on
 int64 tensors and masks with 0xFFFFFFFF after every multiply, add and
 shift: the low 32 bits are then exactly the uint32 result.
 
-Frame counters are host ints here (the JAX package traces them as int32
-arrays); `frame * 1663` wraps at 32 bits either way.
+A frame counter is a `FrameValue`, an int32 `index * a + b` of the frame
+index held on the device, as the JAX package's traced int32 seeds are
+(`frame * 1663` wraps at 32 bits every way), or a 0-d int tensor.  That
+keeps every per-frame number out of the host arguments of the frame's
+operations, so that one captured CUDA graph serves every frame
+(models/graph.py).  The host ints of the frame index stay where the host
+needs them: the record's ld2 (`record_words`) and the jitter.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Union
 
 import numpy as np
 import torch
 
 from .constants import PI
-from .ops.vecmath import cross, normalize
+from .ops.vecmath import const3, cross, normalize
 
 _M32 = 0xFFFFFFFF
 
@@ -37,16 +45,101 @@ def hash2(vx, vy):
     return _lcg(vx) ^ _lcg(vy)
 
 
-def _frame_bits(frame: int, mult: int = 1) -> int:
-    """uint32 bits of int32(frame * mult)."""
-    return (int(frame) * mult) & _M32
+@dataclasses.dataclass(frozen=True)
+class FrameValue:
+    """int32(index * a + b), where index is the frame index of `record`:
+    an int32 [3] tensor on the frame's device holding the index and
+    ld2(index) as float32 bits (`frame_record`; the first words of the
+    frame's block, models/frame_block.py).  `a` and `b` are host ints
+    taken mod 2^32 and constant per configuration, so a seed such as
+    `frame * spp + s` or the mirror GI's `seed * 131 + 17` is a FrameValue
+    too; the kernels read the record through a pointer."""
+    record: torch.Tensor
+    a: int = 1
+    b: int = 0
+
+    @staticmethod
+    def of(index: int, device) -> "FrameValue":
+        """Frame `index` itself, from a record of its own on `device` (one
+        host-to-device copy; a frame takes its record from its block)."""
+        return FrameValue(frame_record(index, device))
+
+    @property
+    def index(self) -> torch.Tensor:
+        return self.record[0]
+
+    def __mul__(self, k: int) -> "FrameValue":
+        return FrameValue(self.record, (self.a * k) & _M32,
+                          (self.b * k) & _M32)
+
+    def __add__(self, k: int) -> "FrameValue":
+        return FrameValue(self.record, self.a, (self.b + k) & _M32)
+
+    __rmul__ = __mul__
+    __radd__ = __add__
 
 
-def rand(px, py, frame: int):
+Frame = Union[torch.Tensor, FrameValue]
+
+
+def frame_record(index: int, device) -> torch.Tensor:
+    """The int32 [3] record of frame `index` on `device`: the index, then
+    ld2(index) as float32 bits (one host-to-device copy)."""
+    return torch.from_numpy(record_words(index)).to(device)
+
+
+def record_words(index: int) -> np.ndarray:
+    """The three int32 words of frame `index`'s record."""
+    ld = np.asarray(ld2(int(index)), np.float32)
+    return np.concatenate([np.asarray([np.int64(index)]).astype(np.int32),
+                           ld.view(np.int32)])
+
+
+def affine(frame: Frame):
+    """(index tensor, a, b) with frame == int32(index * a + b); a 0-d int
+    tensor is (frame, 1, 0)."""
+    if isinstance(frame, FrameValue):
+        return frame.index, frame.a, frame.b
+    if isinstance(frame, torch.Tensor):
+        return frame, 1, 0
+    raise TypeError(f"a frame is a sampling.FrameValue or a 0-d int tensor, "
+                    f"not {type(frame).__name__}")
+
+
+def _frame_bits(frame: Frame, mult: int = 1) -> torch.Tensor:
+    """uint32 bits of int32(frame * mult): a 0-d int64 tensor on the
+    frame's device."""
+    index, a, b = affine(frame)
+    a, b = (a * mult) & _M32, (b * mult) & _M32
+    bits = index.to(torch.int64)
+    if a != 1:
+        bits = bits * a
+    if b:
+        bits = bits + b
+    return bits & _M32
+
+
+def frame_value(frame: Frame) -> torch.Tensor:
+    """int32(frame): a 0-d int32 tensor on the frame's device."""
+    index, a, b = affine(frame)
+    if (a, b) == (1, 0) and index.dtype == torch.int32:
+        return index  # the frame index itself
+    bits = _frame_bits(frame)
+    return torch.where(bits > 0x7FFFFFFF, bits - (1 << 32),
+                       bits).to(torch.int32)
+
+
+def frame_f32(frame: Frame) -> torch.Tensor:
+    """float32(int32(frame)): the sample offsets' `f32(seed * 19)` of the
+    JAX package's int32 seeds, a 0-d float32 tensor."""
+    return frame_value(frame).to(torch.float32)
+
+
+def rand(px, py, frame: Frame):
     """float RNG in [0,1): rand(vec2 p, int frame)
     (reference: shaders/rt/rt_common.glsl:75-77).
 
-    px/py are float32 pixel coordinates; frame is a host int.  The
+    px/py are float32 pixel coordinates; frame as `affine` takes it.  The
     float->uint conversion truncates after max(p, 0)."""
     ux = torch.clamp_min(px, 0.0).to(torch.int64) ^ _frame_bits(frame)
     uy = torch.clamp_min(py, 0.0).to(torch.int64) ^ _frame_bits(frame, 1663)
@@ -58,10 +151,38 @@ def eps_for_dist(d):
     return torch.clamp_min(1e-3 * d, 1e-4)
 
 
-def halton(i: int, b: int) -> float:
+def _halton_steps(b: int) -> int:
+    """Digits of the largest int32 in base b: the device form's fixed
+    number of steps (the JAX package takes 31 for every base; the steps
+    past the last digit change nothing)."""
+    k = 1
+    while b ** k <= 0x7FFFFFFF:
+        k += 1
+    return k
+
+
+def halton(i, b: int):
     """i-th sample of the 1D Halton sequence in base b, in float32 steps
     exactly as the device-side JAX variant computes it
-    (reference: shaders/rt/rt_common.glsl:106-119)."""
+    (reference: shaders/rt/rt_common.glsl:106-119).  A host int gives a
+    host float.  A 0-d int32 tensor gives a 0-d float32 tensor on its
+    device, computed as JAX's device form (sampling.py:69-82 of the JAX
+    package): a fixed number of float32 steps under `where`, with a tensor
+    divisor (a division by a host scalar may multiply by its reciprocal)."""
+    if isinstance(i, torch.Tensor):
+        dev = i.device
+        base = torch.full((), float(b), device=dev)
+        n = i.to(torch.int32)
+        f = torch.ones((), device=dev)
+        r = torch.zeros((), device=dev)
+        for _ in range(_halton_steps(b)):
+            active = n > 0
+            f_next = f / base
+            r = torch.where(active, r + f_next * (n % b).to(torch.float32),
+                            r)
+            f = torch.where(active, f_next, f)
+            n = torch.where(active, n // b, n)
+        return r
     f = np.float32(1.0)
     r = np.float32(0.0)
     n = int(i)
@@ -72,10 +193,17 @@ def halton(i: int, b: int) -> float:
     return float(r)
 
 
-def ld2(i: int):
+def ld2(i):
     """2D low-discrepancy point: (halton(i+1,2), halton(i+1,3))
-    (reference: shaders/rt/rt_common.glsl:127-129)."""
-    return halton(i + 1, 2), halton(i + 1, 3)
+    (reference: shaders/rt/rt_common.glsl:127-129).  `i` a host int (the
+    record's, `record_words`: two floats), or a frame as `affine` takes it
+    (two 0-d tensors)."""
+    # i + 1 in int32, as in JAX: frame 2^31 - 1 wraps to a negative index
+    if isinstance(i, int):
+        j = ((i + 1 + (1 << 31)) & _M32) - (1 << 31)
+    else:
+        j = frame_value(i) + 1
+    return halton(j, 2), halton(j, 3)
 
 
 def host_jitter_halton(index: int, base: int) -> float:
@@ -120,9 +248,8 @@ def build_onb(n):
     """Orthonormal basis (T, B) around normal n [..., 3]
     (reference: shaders/rt/rt_lighting.glsl:227-231)."""
     up_is_y = n[..., 1].abs() < 0.99
-    up = torch.where(up_is_y[..., None],
-                     torch.tensor([0.0, 1.0, 0.0], device=n.device),
-                     torch.tensor([1.0, 0.0, 0.0], device=n.device))
+    up = torch.where(up_is_y[..., None], const3((0.0, 1.0, 0.0), n.device),
+                     const3((1.0, 0.0, 0.0), n.device))
     t = normalize(cross(up, n))
     b = cross(n, t)
     return t, b
@@ -143,7 +270,7 @@ def sample_hemisphere_cosine(n, ux, uy):
     return normalize(d)
 
 
-def cp_offset(px, py, frame: int):
+def cp_offset(px, py, frame: Frame):
     """Per-pixel rotation offset for disk-light sampling
     (reference: shaders/rt/rt_lighting.glsl:280-289)."""
     hx = rand(px, py, _frame_bits(frame, 911))

@@ -1,0 +1,82 @@
+#!/usr/bin/env python3
+"""Kernel alone-times of two checkouts on one card, in turns.
+
+    python3 probe_kernel_turns.py OTHER_DIR [ROUNDS]
+
+OTHER_DIR is another checkout of the repository, say the parent commit
+unpacked with `git archive`.  Each run is a child process in one
+checkout's directory that builds its kernels and runs chip_smoke.py's
+kernel checks there (phase `kernels`: every kernel on one frame's inputs,
+held to its plain version, and the profiler's time of one launch,
+`kernel_ms`).  The runs go other, this, this, other, ROUNDS times over
+(default 2), so that drift on the card falls on both sides alike.  One
+JSON line a run ({"tree", "kernel_ms": {kernel: ms}}), then one with each
+kernel's median on each side and their ratio (this / other), and the
+card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def child() -> None:
+    """In a checkout's directory: its kernels' alone-times, one JSON line."""
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs
+    from opengl_raytracing_tpu_torch.ops import cuda_lib
+    cuda_lib.build_all()
+    _, bvh = cs.scene("cuda")
+    records = cs.check_kernels(bvh)
+    records.update(cs.check_an_kernel())
+    records.update(cs.check_an_kernel(cs.HEIGHT, cs.WIDTH,
+                                      preset_name="full",
+                                      env=cs.sky_day("cuda")))
+    records.update(cs.check_full_kernels(bvh))
+    print(json.dumps({k: r["kernel_ms"] for k, r in records.items()}),
+          flush=True)
+
+
+def main() -> int:
+    if sys.argv[1:] == ["--child"]:
+        child()
+        return 0
+    other = os.path.abspath(sys.argv[1])
+    rounds = int(sys.argv[2]) if len(sys.argv) > 2 else 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    times = {"other": [], "this": []}
+    for side in ["other", "this", "this", "other"] * rounds:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--child"],
+            cwd=other if side == "other" else ROOT, stdout=subprocess.PIPE,
+            text=True, timeout=600)
+        if proc.returncode != 0:
+            print(json.dumps({"tree": side, "error": proc.returncode}))
+            return 1
+        ms = json.loads(proc.stdout.strip().splitlines()[-1])
+        times[side].append(ms)
+        print(json.dumps({"tree": side, "kernel_ms": ms}), flush=True)
+    medians = {}
+    for k in times["this"][0]:
+        got = {side: [t[k] for t in runs if t.get(k) is not None]
+               for side, runs in times.items()}
+        if got["this"] and got["other"]:
+            med = {side: statistics.median(v) for side, v in got.items()}
+            medians[k] = dict(med, ratio=med["this"] / med["other"],
+                              this_runs=got["this"],
+                              other_runs=got["other"])
+    print(json.dumps({"card": smi, "medians": medians}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -51,7 +51,8 @@ def tax_case(case: str) -> dict:
     cam = Camera()
     cam.aspect = b.W / b.H
     fins = b._still_fins(cam, params, FRAMES, device)
-    render = make_render_fn(b.H, b.W, device, use_bvh=True)
+    # eager frames: the tax was measured on the frame's host launches
+    render = make_render_fn(b.H, b.W, device, use_bvh=True, jit=False)
     args = (render, params, fins, None, bvh, b.H, b.W, device)
 
     def chains():

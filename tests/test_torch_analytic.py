@@ -58,6 +58,7 @@ from opengl_raytracing_tpu_torch.ops import lighting as tlt
 from opengl_raytracing_tpu_torch.ops import materials as tmat
 from opengl_raytracing_tpu_torch.ops import scene_analytic as tsa
 from opengl_raytracing_tpu_torch.ops.scene import SceneCtx
+from opengl_raytracing_tpu_torch.sampling import FrameValue
 
 torch.set_num_threads(2)
 
@@ -203,12 +204,13 @@ def test_direct_light_matches_jax_and_k3(frame, case):
           else (slice(None), slice(None)))
     h, jh, px, py, vdir = _direct_light_inputs(frame, sl)
     fi = case["frame_index"]
+    fv = FrameValue.of(fi, "cpu")
     before = dict(cuda_lib.LAUNCHES)
-    got = tlt.direct_light(scene, h, fi, fi, _t(vdir), _t(px),
+    got = tlt.direct_light(scene, h, fv, fv, _t(vdir), _t(px),
                            _t(py)).numpy()
     assert cuda_lib.LAUNCHES == before  # CPU tensors: the plain version
     np.testing.assert_array_equal(
-        got, tlt.direct_light_plain(scene, h, fi, fi, _t(vdir), _t(px),
+        got, tlt.direct_light_plain(scene, h, fv, fv, _t(vdir), _t(px),
                                     _t(py)).numpy())
     args = (jscene, jh, jnp.int32(fi), jnp.int32(fi), jnp.asarray(vdir),
             jnp.asarray(px), jnp.asarray(py))
@@ -229,7 +231,8 @@ def test_shade_mirror_and_glass_match_jax(frame, which):
     jm = jmat.get_material(jh.mat, jparams)
     fn = tlt.shade_mirror if which == "mirror" else tlt.shade_glass
     jfn = jlt.shade_mirror if which == "mirror" else jlt.shade_glass
-    got = fn(scene, h, _t(vdir), mat, 4, 4, _t(px), _t(py)).numpy()
+    four = FrameValue.of(4, "cpu")
+    got = fn(scene, h, _t(vdir), mat, four, four, _t(px), _t(py)).numpy()
     want = np.asarray(jfn(jscene, jh, jnp.asarray(vdir), jm, jnp.int32(4),
                           jnp.int32(4), jnp.asarray(px), jnp.asarray(py)))
     lanes = mat.mtype.numpy() == (tmat.MTYPE_MIRROR if which == "mirror"
@@ -264,7 +267,8 @@ def test_bvh_brdf_tail_matches_k5(frame, change):
     jscene, scene = _scenes(jparams, frame["cam_pos"])
     h, jh, px, py, vdir = _direct_light_inputs(frame)
     n, v = tlt.normalize(h.n), tlt.normalize(_t(vdir))
-    offs = tlt._disk_offsets(6, 6, _t(px), _t(py))
+    six = FrameValue.of(6, "cpu")
+    offs = tlt._disk_offsets(six, six, _t(px), _t(py))
     k = 4 + int(bool(jparams.sun_enabled)) + int(
         bool(jparams.point_light_enabled))
     occ = np.random.RandomState(3).rand(k, H, W) < 0.3

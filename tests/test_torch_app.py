@@ -28,6 +28,7 @@ import torch
 
 from opengl_raytracing_tpu.app import Application as JApplication
 from opengl_raytracing_tpu.app import AppState as JAppState
+from opengl_raytracing_tpu.app.headless import build_parser as jbuild_parser
 from opengl_raytracing_tpu.app.headless import main as jmain
 from opengl_raytracing_tpu.models.presets import preset as jpreset
 from opengl_raytracing_tpu.utils.checkpoint import (
@@ -344,8 +345,38 @@ def test_headless_defaults_to_the_card():
         make_app(args)
     with pytest.raises(RuntimeError, match="CUDA"):
         Application(height=8, width=8)
-    with pytest.raises(SystemExit):
-        build_parser().parse_args(["--jit"])
+    # the two CLIs take the same flags, --jit/--no-jit (the default on)
+    # included
+    assert build_parser().parse_args([]).jit is True
+    assert build_parser().parse_args(["--no-jit"]).jit is False
+    assert build_parser().parse_args(["--jit"]).jit is True
+
+    def flags(parser):
+        return {s for a in parser._actions for s in a.option_strings}
+    assert flags(build_parser()) == flags(jbuild_parser())
+
+
+@pytest.mark.parametrize("scene", ["analytic", "bvh"])
+def test_cpu_app_jit_renders_as_no_jit(scene, tmp_path):
+    """On the CPU `--jit` has nothing to capture and runs the eager frame:
+    the same images as `--no-jit`, a turbo chain and the camera moving
+    included."""
+    images = []
+    for jit in ("--jit", "--no-jit"):
+        args = build_parser().parse_args(
+            ["--cpu", "--size", f"{W}x{H}", "--scene", scene, "--turbo",
+             "3", jit])
+        app = make_app(args)
+        assert app.jit is (jit == "--jit")
+        got = []
+        for step in range(3):
+            if step == 1:
+                app.act("look 4 0")
+            got.append(app.step())
+        assert app.app.render_state.frame_index == 9
+        assert app.eager_frames == 0
+        images.append(torch.stack(got))
+    assert torch.equal(images[0], images[1])
 
 
 def test_sweep_writes_one_image_per_value(tmp_path):

@@ -235,6 +235,7 @@ def test_wrappers_on_cpu_use_plain_walks(scene):
     ambient_occlusion_plain; no kernel launch is counted."""
     from opengl_raytracing_tpu_torch.models import preset
     from opengl_raytracing_tpu_torch.ops import lighting as tlt
+    from opengl_raytracing_tpu_torch.sampling import FrameValue
     _, _, arrays = scene
     before = dict(bvh_cuda.LAUNCHES)
     ro, rd = _rays(4, 3 * 512)
@@ -248,13 +249,15 @@ def test_wrappers_on_cpu_use_plain_walks(scene):
     px, py = (torch.arange(3 * 512, dtype=torch.float32) + 0.5,
               torch.full((3 * 512,), 7.5))
     params = preset("full")
-    got = bvh_cuda.trace_bounce(arrays, h, 3, 3, px, py, h.valid)
-    want = tlt.gi_bounce_plain(arrays, h, 3, 3, px, py, h.valid)
+    three = FrameValue.of(3, "cpu")
+    got = bvh_cuda.trace_bounce(arrays, h, three, three, px, py, h.valid)
+    want = tlt.gi_bounce_plain(arrays, h, three, three, px, py, h.valid)
     for a, b in zip((*got[0], *got[1:]), (*want[0], *want[1:])):
         assert torch.equal(a, b)
-    ao = bvh_cuda.ambient_occlusion(arrays, h, 3, px, py, params, h.valid)
-    assert torch.equal(ao, tlt.ambient_occlusion_plain(arrays, h, 3, px, py,
-                                                       params, h.valid))
+    ao = bvh_cuda.ambient_occlusion(arrays, h, three, px, py, params,
+                                    h.valid)
+    assert torch.equal(ao, tlt.ambient_occlusion_plain(arrays, h, three, px,
+                                                       py, params, h.valid))
     assert bvh_cuda.LAUNCHES == before
 
 

@@ -51,6 +51,7 @@ from opengl_raytracing_tpu_torch.ops import lighting as tlt
 from opengl_raytracing_tpu_torch.ops import materials as tmat
 from opengl_raytracing_tpu_torch.ops import scene_analytic as tsa
 from opengl_raytracing_tpu_torch.ops.scene import SceneCtx
+from opengl_raytracing_tpu_torch.sampling import FrameValue
 from opengl_raytracing_tpu_torch.scene import (BVHArrays, gather_triangles,
                                                make_bunny, model_transform)
 from opengl_raytracing_tpu_torch.utils import image as timage
@@ -302,14 +303,15 @@ def test_scene_args_carry_the_env_table():
     _, scene = _an_scenes(jparams, [0.0, 1.0, 4.0], env)
     table = an_cuda._env_table(scene, torch.device("cpu"))
     assert table is scene.env_map
-    s = an_cuda.scene_args(scene, 3, 3, table)
+    three = FrameValue.of(3, "cpu")
+    s, _ = an_cuda.scene_args(scene, three, three, table)
     assert (s.env, s.env_f) == (table.data_ptr(), 8)
     assert s.env_intensity == np.float32(0.7)
     d = _directions("random")
     got = kernel_sample_cubemap(table.numpy().reshape(-1), s.env_f, d) \
         * F32(s.env_intensity)
     np.testing.assert_array_equal(got, scene.sky(_t(d)).numpy())
-    assert not an_cuda.scene_args(scene, 3, 3).env
+    assert not an_cuda.scene_args(scene, three, three)[0].env
     off = SceneCtx.create(scene.params.replace(enable_env_map=0),
                           scene.cam_pos, env_map=scene.env_map)
     assert an_cuda._env_table(off, torch.device("cpu")) is None
@@ -375,9 +377,10 @@ def test_direct_light_with_env_matches_jax_and_k3(frame, case):
     jparams = jpreset(case["preset"]).replace(**case.get("change", {}))
     jscene, scene = _an_scenes(jparams, frame["cam_pos"], frame["env"])
     h, jh, fi = frame["h"], frame["jh"], case["frame_index"]
+    fv = FrameValue.of(fi, "cpu")
     px, py, vdir = frame["px"], frame["py"], frame["vdir"]
     before = dict(cuda_lib.LAUNCHES)
-    got = tlt.direct_light(scene, h, fi, fi, _t(vdir), _t(px),
+    got = tlt.direct_light(scene, h, fv, fv, _t(vdir), _t(px),
                            _t(py)).numpy()
     assert cuda_lib.LAUNCHES == before  # CPU tensors: the plain version
     args = (jscene, jh, jnp.int32(fi), jnp.int32(fi), jnp.asarray(vdir),
@@ -388,7 +391,7 @@ def test_direct_light_with_env_matches_jax_and_k3(frame, case):
     np.testing.assert_allclose(got, k3, **TOL_K3)
     # the map shows on the mirror and glass lanes and nowhere else
     plain_scene = SceneCtx.create(scene.params, scene.cam_pos)
-    grad = tlt.direct_light(plain_scene, h, fi, fi, _t(vdir), _t(px),
+    grad = tlt.direct_light(plain_scene, h, fv, fv, _t(vdir), _t(px),
                             _t(py)).numpy()
     env_lanes = tmat.get_material(h.mat, scene.params).mtype.numpy() != 0
     assert env_lanes.sum() > 30
@@ -406,7 +409,8 @@ def test_shade_mirror_and_glass_with_env_match_jax(frame, which):
     jm = jmat.get_material(jh.mat, jparams)
     fn = tlt.shade_mirror if which == "mirror" else tlt.shade_glass
     jfn = jlt.shade_mirror if which == "mirror" else jlt.shade_glass
-    got = fn(scene, h, _t(vdir), mat, 4, 4, _t(px), _t(py)).numpy()
+    four = FrameValue.of(4, "cpu")
+    got = fn(scene, h, _t(vdir), mat, four, four, _t(px), _t(py)).numpy()
     want = np.asarray(jfn(jscene, jh, jnp.asarray(vdir), jm, jnp.int32(4),
                           jnp.int32(4), jnp.asarray(px), jnp.asarray(py)))
     lanes = mat.mtype.numpy() == (tmat.MTYPE_MIRROR if which == "mirror"
@@ -415,7 +419,7 @@ def test_shade_mirror_and_glass_with_env_match_jax(frame, which):
     np.testing.assert_allclose(got[lanes], want[lanes], rtol=1e-5,
                                atol=1e-5)
     grad = fn(SceneCtx.create(scene.params, scene.cam_pos), h, _t(vdir), mat,
-              4, 4, _t(px), _t(py)).numpy()
+              four, four, _t(px), _t(py)).numpy()
     assert np.abs(got - grad)[lanes].max() > 0.05
 
 
@@ -424,7 +428,8 @@ def test_gi_analytic_with_env_matches_jax(frame):
     jscene, scene = _an_scenes(jparams, frame["cam_pos"], frame["env"])
     h, jh = frame["h"], frame["jh"]
     px, py = frame["px"], frame["py"]
-    got = tlt.one_bounce_gi_analytic(scene, h, 3, 3, 3, _t(px),
+    three = FrameValue.of(3, "cpu")
+    got = tlt.one_bounce_gi_analytic(scene, h, three, three, three, _t(px),
                                      _t(py)).numpy()
     want = np.asarray(jlt.one_bounce_gi_analytic(
         jscene, jh, jnp.int32(3), jnp.int32(3), jnp.int32(3),
@@ -432,8 +437,8 @@ def test_gi_analytic_with_env_matches_jax(frame):
     valid = np.asarray(jh.t) < 1e29
     np.testing.assert_allclose(got[valid], want[valid], rtol=1e-4, atol=1e-5)
     grad = tlt.one_bounce_gi_analytic(
-        SceneCtx.create(scene.params, scene.cam_pos), h, 3, 3, 3, _t(px),
-        _t(py)).numpy()
+        SceneCtx.create(scene.params, scene.cam_pos), h, three, three,
+        three, _t(px), _t(py)).numpy()
     assert np.abs(got - grad)[valid].max() > 0.02  # bounce rays see the map
 
 
@@ -463,7 +468,8 @@ def test_gi_bvh_with_env_matches_jax():
     scene = SceneCtx.create(params_from(jparams), _t(cam.position),
                             env_map=env_from_numpy(env, "cpu"), use_bvh=True,
                             bvh=bvh)
-    got = tlt.one_bounce_gi_bvh(scene, h, 2, 2, 2, _t(px), _t(py),
+    two = FrameValue.of(2, "cpu")
+    got = tlt.one_bounce_gi_bvh(scene, h, two, two, two, _t(px), _t(py),
                                 active=_t(hit)).numpy()
     want = np.asarray(jlt.one_bounce_gi_bvh(
         jscene, jh, jnp.int32(2), jnp.int32(2), jnp.int32(2), px, py,
@@ -472,7 +478,7 @@ def test_gi_bvh_with_env_matches_jax():
     np.testing.assert_allclose(got[hit], want[hit], rtol=1e-4, atol=1e-5)
     grad = tlt.one_bounce_gi_bvh(
         SceneCtx.create(scene.params, scene.cam_pos, use_bvh=True, bvh=bvh),
-        h, 2, 2, 2, _t(px), _t(py), active=_t(hit)).numpy()
+        h, two, two, two, _t(px), _t(py), active=_t(hit)).numpy()
     assert np.abs(got - grad)[hit].max() > 0.02
 
 

@@ -47,6 +47,7 @@ from opengl_raytracing_tpu_torch.ops.svgf import (_half_texel, present,
 from opengl_raytracing_tpu_torch.ops.scene import SceneCtx, prepare_bvh
 from opengl_raytracing_tpu_torch.ops.scene_analytic import Hit
 from opengl_raytracing_tpu_torch.ops.vecmath import normalize, reflect
+from opengl_raytracing_tpu_torch.sampling import FrameValue
 from opengl_raytracing_tpu_torch.scene import (gather_triangles, make_bunny,
                                                model_transform)
 
@@ -171,6 +172,14 @@ def _grew(before):
     return {k: cuda_lib.LAUNCHES[k] - before[k] for k in before}
 
 
+def _fv(rng_frame, frame_index, device="cuda"):
+    """Host frame numbers as the frame hands them to the kernels: (rng
+    frame, frame index) as FrameValues of one record on `device`, the
+    frame index its own and the rng frame a constant of it."""
+    frame = FrameValue.of(frame_index, device)
+    return frame * 0 + rng_frame, frame
+
+
 def _want_offsets(rng_frame, frame_index, px, py, shape):
     return torch.stack([c.expand(shape).reshape(-1) for dxy in
                         lt._disk_offsets(rng_frame, frame_index, px, py)
@@ -182,6 +191,7 @@ def _an_direct(scene, h, rng_frame, frame_index, vdir, px, py,
     """K3 against direct_light_plain: one launch, the in-kernel disk
     offsets bit for bit, radiance within `max_abs` on `live` lanes (all
     by default) and within TOL; returns the kernel's radiance."""
+    rng_frame, frame_index = _fv(rng_frame, frame_index)
     offs = torch.full((8, h.t.numel()), float("nan"), device="cuda")
     before = dict(cuda_lib.LAUNCHES)
     got = an_cuda.direct_light(scene, h, rng_frame, frame_index, vdir, px,
@@ -206,6 +216,7 @@ def _bvh_direct(scene, h, rng_frame, frame_index, vdir, px, py, active,
     offsets bit for bit, radiance within BVH_DIRECT_MAX_ABS on the live
     lanes (`live`, else `active`, else all; the others are unspecified);
     returns the kernel's radiance."""
+    rng_frame, frame_index = _fv(rng_frame, frame_index)
     offs = torch.full((8, h.t.numel()), float("nan"), device="cuda")
     before = dict(cuda_lib.LAUNCHES)
     got = an_cuda.direct_light_bvh(scene, h, rng_frame, frame_index, vdir,
@@ -292,7 +303,7 @@ def test_an_direct_kernel_samples_the_cubemap(f, size):
     env = _env_table(f, seed=f)
     with_env = SceneCtx.create(params, scene.cam_pos, env_map=env)
     got = _an_direct(with_env, h, 3, 3, vdir, px, py)
-    grad = an_cuda.direct_light(scene, h, 3, 3, vdir, px, py)
+    grad = an_cuda.direct_light(scene, h, *_fv(3, 3), vdir, px, py)
     env_lanes = h.mat.eq(2) | h.mat.eq(3)
     assert int(env_lanes.sum()) > 20
     assert float((got - grad)[env_lanes].abs().max()) > 0.05
@@ -331,14 +342,14 @@ def test_an_direct_kernel_null_map_is_the_gradient_bit_for_bit():
     the kernel learned the cubemap: equal bits."""
     params = preset("baseline")
     scene, _, h, px, py, vdir = _analytic(params)
-    base = an_cuda.direct_light(scene, h, 4, 4, vdir, px, py)
+    base = an_cuda.direct_light(scene, h, *_fv(4, 4), vdir, px, py)
     off = SceneCtx.create(params.replace(enable_env_map=0), scene.cam_pos,
                           env_map=_env_table(8))
-    assert torch.equal(an_cuda.direct_light(off, h, 4, 4, vdir, px, py),
-                       base)
+    assert torch.equal(an_cuda.direct_light(off, h, *_fv(4, 4), vdir, px,
+                                            py), base)
     # the in-kernel gradient against the plain gradient sky on env lanes
     mirror = h.mat.eq(3)
-    want = lt.direct_light_plain(scene, h, 4, 4, vdir, px, py)
+    want = lt.direct_light_plain(scene, h, *_fv(4, 4), vdir, px, py)
     assert float((base - want)[mirror].abs().max()) <= K3_MAX_ABS
 
 
@@ -351,7 +362,7 @@ def test_a_card_tensor_with_a_map_never_reaches_the_plain_version(
     scene, _, h, px, py, vdir = _analytic(params)
     env = _env_table(8, seed=3)
     with_env = SceneCtx.create(params, scene.cam_pos, env_map=env)
-    want = lt.direct_light_plain(with_env, h, 6, 6, vdir, px, py)
+    want = lt.direct_light_plain(with_env, h, *_fv(6, 6), vdir, px, py)
 
     def refuse(*a, **kw):
         raise AssertionError("the plain version ran on a CUDA tensor")
@@ -360,17 +371,17 @@ def test_a_card_tensor_with_a_map_never_reaches_the_plain_version(
     monkeypatch.setattr(cubemap, "sample_cubemap", refuse)
     monkeypatch.setattr(scene_analytic, "sample_cubemap", refuse)
     before = dict(cuda_lib.LAUNCHES)
-    got = lt.direct_light(with_env, h, 6, 6, vdir, px, py)
+    got = lt.direct_light(with_env, h, *_fv(6, 6), vdir, px, py)
     assert _grew(before)["an_direct"] == 1
     assert float((got - want).abs().max()) <= K3_MAX_ABS
     # a table the kernel cannot read raises; nothing falls back
     bad = SceneCtx.create(params, scene.cam_pos, env_map=env)
     object.__setattr__(bad, "env_map", env.double())
     with pytest.raises(TypeError, match="env_map"):
-        an_cuda.direct_light(bad, h, 6, 6, vdir, px, py)
+        an_cuda.direct_light(bad, h, *_fv(6, 6), vdir, px, py)
     object.__setattr__(bad, "env_map", env.cpu())
     with pytest.raises(ValueError, match="env_map"):
-        an_cuda.direct_light(bad, h, 6, 6, vdir, px, py)
+        an_cuda.direct_light(bad, h, *_fv(6, 6), vdir, px, py)
 
 
 def _grid_layout(x, layout):
@@ -414,7 +425,7 @@ def test_bvh_brdf_kernel_matches_plain(bvh, change):
     scene, h_raw, h, px, py, vdir = _bvh_frame(bvh, params)
     hit = h_raw.valid
     got = _bvh_direct(scene, h, 2, 2, vdir, px, py, hit)
-    want = lt.direct_light_bvh_plain(scene, h, 2, 2, vdir, px, py, hit)
+    want = lt.direct_light_bvh_plain(scene, h, *_fv(2, 2), vdir, px, py, hit)
     torch.testing.assert_close(got[hit], want[hit], **TOL)
     assert got[hit].std() > 0.01
 
@@ -454,8 +465,9 @@ def test_bvh_direct_kernel_on_unsanitized_bounce_hits(bvh, size):
     params = preset("full")
     scene, h_raw, h, px, py, _ = _bvh_frame(bvh, params, *size)
     n0 = normalize(h.n)
-    wi = sample_hemisphere_cosine(n0, rand(px + 19.0, py + 19.0, 3),
-                                  rand(py + 41.0, px + 41.0, 3))
+    three = FrameValue.of(3, "cuda")
+    wi = sample_hemisphere_cosine(n0, rand(px + 19.0, py + 19.0, three),
+                                  rand(py + 41.0, px + 41.0, three))
     h1 = scene.trace(h.p + n0 * EPS, wi, active=h_raw.valid)
     act1 = h_raw.valid & h1.valid
     assert 0 < int(act1.sum()) < int(h_raw.valid.sum())
@@ -485,7 +497,7 @@ def test_direct_light_bvh_uses_both_kernels(bvh):
         h_raw = scene.trace(ro, rd)
         before = dict(cuda_lib.LAUNCHES)
         out[dev] = (lt.direct_light_bvh(scene, _sanitize_hit(h_raw, ro, rd),
-                                        0, 0, -rd, px, py,
+                                        *_fv(0, 0, dev), -rd, px, py,
                                         active=h_raw.valid).cpu(),
                     h_raw.valid.cpu())
         grew = _grew(before)
@@ -499,23 +511,23 @@ def test_direct_light_bvh_uses_both_kernels(bvh):
 def test_an_wrappers_reject_bad_inputs(bvh):
     scene, _, h, px, py, vdir = _analytic(preset("baseline"), 8, 8)
     with pytest.raises(TypeError):
-        an_cuda.direct_light(scene, Hit(h.t, h.p.double(), h.n, h.mat), 0,
-                             0, vdir, px, py)
+        an_cuda.direct_light(scene, Hit(h.t, h.p.double(), h.n, h.mat),
+                             *_fv(0, 0), vdir, px, py)
     with pytest.raises(ValueError):
-        an_cuda.direct_light(scene, h, 0, 0, vdir, px.cpu(), py.cpu())
+        an_cuda.direct_light(scene, h, *_fv(0, 0), vdir, px.cpu(), py.cpu())
     with pytest.raises(TypeError):
-        an_cuda.direct_light(scene, Hit(h.t, h.p, h.n, h.mat.long()), 0, 0,
-                             vdir, px, py)
+        an_cuda.direct_light(scene, Hit(h.t, h.p, h.n, h.mat.long()),
+                             *_fv(0, 0), vdir, px, py)
     scene, h_raw, h, px, py, vdir = _bvh_frame(bvh, preset("baseline"), 8, 8)
     with pytest.raises(ValueError, match="shape"):
-        an_cuda.direct_light_bvh(scene, h, 0, 0, vdir, px, py,
+        an_cuda.direct_light_bvh(scene, h, *_fv(0, 0), vdir, px, py,
                                  offsets_out=torch.empty(7, 64,
                                                          device="cuda"))
     with pytest.raises(TypeError):
-        an_cuda.direct_light_bvh(scene, h, 0, 0, vdir, px, py,
+        an_cuda.direct_light_bvh(scene, h, *_fv(0, 0), vdir, px, py,
                                  active=h_raw.valid.float())
     with pytest.raises(ValueError):
-        an_cuda.direct_light_bvh(scene, h, 0, 0, vdir.cpu(), px, py)
+        an_cuda.direct_light_bvh(scene, h, *_fv(0, 0), vdir.cpu(), px, py)
 
 
 def test_closest_kernel_active_lanes(bvh):
@@ -548,6 +560,7 @@ def _ao_check(bvh, scene, h, px, py, params, active, frame_index=3):
     """The AO kernel against ambient_occlusion_plain: one launch, AO equal
     on the live lanes but for at most FLIP_FRAC of them, which differ by
     exactly one sample step (a grazing walk that flips); NaN fails."""
+    frame_index = FrameValue.of(frame_index, "cuda")
     before = dict(cuda_lib.LAUNCHES)
     got = bvh_cuda.ambient_occlusion(bvh, h, frame_index, px, py, params,
                                      active)
@@ -587,9 +600,10 @@ def test_bounce_kernel_matches_plain(bvh, size, mask):
     scene, h_raw, h, px, py, _ = _bvh_frame(bvh, params, *size)
     active = _mask(mask, h_raw.valid)
     before = dict(cuda_lib.LAUNCHES)
-    h1, wi, cos = bvh_cuda.trace_bounce(bvh, h, 5, 5, px, py, active)
+    five = _fv(5, 5)
+    h1, wi, cos = bvh_cuda.trace_bounce(bvh, h, *five, px, py, active)
     assert _grew(before) == {**{k: 0 for k in before}, "bounce": 1}
-    hp, wip, cosp = lt.gi_bounce_plain(bvh, h, 5, 5, px, py, active)
+    hp, wip, cosp = lt.gi_bounce_plain(bvh, h, *five, px, py, active)
     live = torch.ones_like(h.t, dtype=torch.bool) if active is None \
         else active
     assert torch.equal(wi[live], wip[live]) and torch.equal(cos[live],
@@ -630,10 +644,12 @@ def test_gi_and_ao_calls_are_one_launch_each(bvh):
     params = preset("full")
     scene, h_raw, h, px, py, _ = _bvh_frame(bvh, params)
     before = dict(cuda_lib.LAUNCHES)
-    ao = lt.compute_ao(scene, h, 2, px, py, active=h_raw.valid)
+    two = FrameValue.of(2, "cuda")
+    ao = lt.compute_ao(scene, h, two, px, py, active=h_raw.valid)
     assert _grew(before) == {**{k: 0 for k in before}, "ao": 1}
     before = dict(cuda_lib.LAUNCHES)
-    gi = lt.one_bounce_gi_bvh(scene, h, 2, 2, 2, px, py, active=h_raw.valid)
+    gi = lt.one_bounce_gi_bvh(scene, h, two, two, two, px, py,
+                              active=h_raw.valid)
     assert _grew(before) == {**{k: 0 for k in before}, "bounce": 1,
                              "bvh_direct": 1}
     hit = h_raw.valid
@@ -644,16 +660,17 @@ def test_gi_and_ao_calls_are_one_launch_each(bvh):
 def test_walk_wrappers_reject_bad_inputs(bvh):
     params = preset("full")
     scene, h_raw, h, px, py, _ = _bvh_frame(bvh, params, 8, 8)
+    zero = FrameValue.of(0, "cuda")
     with pytest.raises(ValueError):
-        bvh_cuda.trace_bounce(bvh, h, 0, 0, px.cpu(), py.cpu())
+        bvh_cuda.trace_bounce(bvh, h, *_fv(0, 0), px.cpu(), py.cpu())
     with pytest.raises(TypeError):
         bvh_cuda.ambient_occlusion(bvh, Hit(h.t, h.p.double(), h.n, h.mat),
-                                   0, px, py, params)
+                                   zero, px, py, params)
     with pytest.raises(TypeError):
-        bvh_cuda.ambient_occlusion(bvh, h, 0, px, py, params,
+        bvh_cuda.ambient_occlusion(bvh, h, zero, px, py, params,
                                    active=h_raw.valid.float())
     with pytest.raises(ValueError, match="ao_samples"):
-        bvh_cuda.ambient_occlusion(bvh, h, 0, px, py,
+        bvh_cuda.ambient_occlusion(bvh, h, zero, px, py,
                                    params.replace(ao_samples=0))
 
 
@@ -1112,3 +1129,191 @@ def test_viewer_frames_come_from_the_card():
         served = read_png(fh.name)
     assert served.shape == (48, 64, 3) and served.dtype == np.uint8
     assert 0 < served.mean() < 255
+
+
+# ---- the captured frame (models/graph.py) ----
+
+def _graph_chain(jit, params, frames, env=None, bvh=None, moving=False,
+                 h=96, w=128):
+    """`frames` chained frames through make_render_fn: [(image, accum)]
+    copied off the graph's static tensors, and the launches a frame."""
+    from opengl_raytracing_tpu_torch.models import (RenderState,
+                                                    make_render_fn)
+    fn = make_render_fn(h, w, "cuda", use_bvh=bvh is not None, jit=jit)
+    state = RenderState.create(h, w, "cuda")
+    cam = Camera()
+    cam.aspect = w / h
+    cam.point_at((-2.0, 1.5, 0.0))
+    prev = cam.view_projection()
+    out, launches = [], []
+    for i in range(frames):
+        if moving:
+            cam.yaw += 0.7
+        fin = camera_frame_inputs(
+            cam, "cuda", jitter=(0.1 * (i % 3), -0.05 * (i % 2)),
+            prev_view_proj=prev if moving else None, moved=int(moving),
+            frame_index=i)
+        prev = cam.view_projection()
+        before = dict(cuda_lib.LAUNCHES)
+        state, o = fn(params, fin, state, env, bvh)
+        launches.append({k: cuda_lib.LAUNCHES[k] - before[k]
+                         for k in before})
+        out.append((o.image.clone(), state.accum.clone()))
+    return out, launches
+
+
+@pytest.mark.parametrize("case", ["baseline", "full", "heavy", "moving",
+                                  "an_baseline", "an_full"])
+def test_replayed_frames_equal_eager_frames(bvh, case):
+    """A chain replayed from its CUDA graph gives the eager chain's frames
+    and accumulations bit for bit and launches the same kernels a frame;
+    it captures once (its first frame runs eagerly) and replays the
+    rest."""
+    from opengl_raytracing_tpu_torch.models import graph
+    from opengl_raytracing_tpu_torch.ops.scene import BVHDevice
+    name = {"moving": "full", "an_baseline": "baseline",
+            "an_full": "full"}.get(case, case)
+    params = preset(name)
+    env = None
+    if case == "an_full":
+        faces = np.random.RandomState(0).randint(0, 256, (6, 16, 16, 3))
+        from opengl_raytracing_tpu_torch.convert import env_from_numpy
+        env = env_from_numpy(faces.astype(np.uint8), "cuda")
+        params = params.replace(enable_env_map=1)
+    scene = None if case.startswith("an_") else BVHDevice(bvh)
+    graph.clear()
+    eager, eager_launches = _graph_chain(False, params, 6, env, scene,
+                                         case == "moving")
+    stats = dict(graph.STATS)
+    replayed, replay_launches = _graph_chain(True, params, 6, env, scene,
+                                             case == "moving")
+    assert graph.STATS["captures"] == stats["captures"] + 1
+    assert graph.STATS["replays"] == stats["replays"] + 5
+    for i, ((ei, ea), (ri, ra)) in enumerate(zip(eager, replayed)):
+        assert torch.equal(ri, ei), f"image of frame {i}"
+        assert torch.equal(ra, ea), f"accumulation of frame {i}"
+    assert replay_launches == eager_launches
+    assert sum(replay_launches[-1].values()) > 0
+    graph.clear()
+
+
+def test_two_live_states_in_turns_keep_their_histories(bvh):
+    """Two live states of one size, two cameras, rendered in turns through
+    the captured frame: each keeps its own history (a static
+    accumulation each, and so a capture each), frame by frame bit for bit
+    the eager chain of its own."""
+    from opengl_raytracing_tpu_torch.models import (RenderState, graph,
+                                                    make_render_fn)
+    from opengl_raytracing_tpu_torch.ops.scene import BVHDevice
+    params, scene = preset("full"), BVHDevice(bvh)
+    cams = []
+    for yaw in (0.0, 25.0):
+        cam = Camera()
+        cam.aspect = 128 / 96
+        cam.point_at((-2.0, 1.5, 0.0))
+        cam.yaw += yaw
+        cams.append(cam)
+
+    def fin(k, i):
+        return camera_frame_inputs(cams[k], "cuda",
+                                   jitter=(0.1 * (i % 3), -0.05 * (i % 2)),
+                                   frame_index=i)
+    graph.clear()
+    want = {}
+    eager = make_render_fn(96, 128, "cuda", use_bvh=True, jit=False)
+    for k in (0, 1):
+        state, want[k] = RenderState.create(96, 128, "cuda"), []
+        for i in range(4):
+            state, out = eager(params, fin(k, i), state, None, scene)
+            want[k].append((out.image.clone(), state.accum.clone()))
+    assert not torch.equal(want[0][-1][1], want[1][-1][1])
+    fn = make_render_fn(96, 128, "cuda", use_bvh=True)
+    captures = graph.STATS["captures"]
+    states = {k: RenderState.create(96, 128, "cuda") for k in (0, 1)}
+    for i in range(4):
+        for k in (0, 1):
+            states[k], out = fn(params, fin(k, i), states[k], None, scene)
+            assert torch.equal(out.image, want[k][i][0]), (k, i)
+            assert torch.equal(states[k].accum, want[k][i][1]), (k, i)
+    assert states[0].accum.data_ptr() != states[1].accum.data_ptr()
+    assert graph.STATS["captures"] == captures + 2
+    graph.clear()
+
+
+def test_app_turbo_step_replays_the_eager_frames(bvh):
+    """The app's turbo chain on the card, replayed (the moving key, then
+    the still key) against --no-jit, bit for bit; the u8 image from the
+    graph equals the eager quantization."""
+    from opengl_raytracing_tpu_torch.app import headless
+    from opengl_raytracing_tpu_torch.models import graph
+    graph.clear()
+    runs = {}
+    for jit in ("--jit", "--no-jit"):
+        args = headless.build_parser().parse_args(
+            ["--size", "128x96", "--scene", "bvh", "--preset", "full",
+             "--turbo", "4", jit])
+        app = headless.make_app(args)
+        app.want_u8 = True
+        imgs = []
+        for step in range(3):
+            if step == 1:
+                app.act("look 5 0")
+            imgs.append(app.step().clone())
+            imgs.append(app.last_u8.clone())
+        assert app.eager_frames == 0
+        runs[jit] = (imgs, app.app.render_state.accum.clone())
+    for a, b in zip(runs["--jit"][0], runs["--no-jit"][0]):
+        assert torch.equal(a, b)
+    assert torch.equal(runs["--jit"][1], runs["--no-jit"][1])
+    assert graph.STATS["captures"] >= 2  # the still and the moving key
+    graph.clear()
+
+
+def test_orbit_frames_run_eagerly_and_are_counted():
+    from opengl_raytracing_tpu_torch.app import headless
+    from opengl_raytracing_tpu_torch.models import graph
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args = headless.build_parser().parse_args(
+        ["--size", "64x48", "--preset", "baseline", "--orbit"])
+    app = headless.make_app(args)
+    captures = graph.STATS["captures"]
+    for _ in range(3):
+        app.step()
+    assert app.eager_frames == 3
+    assert graph.STATS["captures"] == captures
+
+
+def test_a_host_copy_in_the_frame_makes_the_capture_raise(bvh, monkeypatch):
+    """A frame that copies from pageable host memory cannot be captured:
+    the capture raises, and nothing runs the eager frame in its place."""
+    from opengl_raytracing_tpu_torch.models import RenderState, graph
+    from opengl_raytracing_tpu_torch.models import pipeline
+    from opengl_raytracing_tpu_torch.ops.scene import BVHDevice
+    graph.clear()
+    real = pipeline.present
+
+    def present_with_a_copy(accum, *args, **kw):
+        bump = torch.tensor([0.0], device=accum.device)  # host -> device
+        return real(accum + bump, *args, **kw)
+    monkeypatch.setattr(pipeline, "present", present_with_a_copy)
+    fn = pipeline.make_render_fn(48, 64, "cuda", use_bvh=True)
+    params = preset("baseline").replace(exposure=1.2345)
+    cam = Camera()
+    cam.aspect = 64 / 48
+    state = RenderState.create(48, 64, "cuda")
+    captures = graph.STATS["captures"]
+    with pytest.raises(RuntimeError):
+        fn(params, camera_frame_inputs(cam, "cuda"), state, None,
+           BVHDevice(bvh))
+    torch.cuda.synchronize()
+    assert graph.STATS["captures"] == captures
+    assert not graph._GRAPHS
+    monkeypatch.undo()
+    graph.clear()
+    # the card still renders
+    fn = pipeline.make_render_fn(48, 64, "cuda", use_bvh=True)
+    _, out = fn(params, camera_frame_inputs(cam, "cuda"),
+                RenderState.create(48, 64, "cuda"), None, BVHDevice(bvh))
+    assert torch.isfinite(out.image).all()
+    graph.clear()

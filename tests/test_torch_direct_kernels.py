@@ -47,6 +47,7 @@ from opengl_raytracing_tpu_torch.ops import scene_analytic as tsa
 from opengl_raytracing_tpu_torch.ops.materials import get_material
 from opengl_raytracing_tpu_torch.ops.scene import SceneCtx
 from opengl_raytracing_tpu_torch.ops.vecmath import normalize, reflect
+from opengl_raytracing_tpu_torch.sampling import FrameValue, frame_record
 from opengl_raytracing_tpu_torch.scene import (BVHArrays, gather_triangles,
                                                make_bunny, model_transform)
 
@@ -55,6 +56,7 @@ torch.set_num_threads(2)
 H, W = 48, 64
 TOL_K3 = dict(rtol=2e-5, atol=2e-6)
 F32 = np.float32
+M32 = 0xFFFFFFFF
 WRAP = 2 ** 31 // 1663 + 5  # frame * 1663 wraps int32 here
 
 
@@ -96,15 +98,28 @@ def _concentric(s, ux, uy):
     return np.where(zero, F32(0.0), r), np.where(zero, F32(0.0), phi)
 
 
-def kernel_offsets(s, px, py):
+def kernel_keys(s, record):
+    """The kernels' RNG keys and ld2, derived as sampling.cuh and cp_rot /
+    disk_offset derive them from the struct's frame values and the frame
+    record it points to: (cp keys, sample keys, ld)."""
+    index = int(record[0]) & M32
+    fi = (index * s.cp.a + s.cp.b) & M32
+    c1, c2 = (fi * 911) & M32, (fi * 577) & M32
+    r = (index * s.smp.a + s.smp.b) & M32
+    return ((c1, (c1 * 1663) & M32, c2, (c2 * 1663) & M32),
+            (r, (r * 1663) & M32), record[1:3].numpy().view(F32))
+
+
+def kernel_offsets(s, record, px, py):
     """The kernels' disk_offset for every pixel: [(dx, dy)] * 4."""
-    rx = _rem1(_rand(px, py, s.cp_key[0], s.cp_key[1]) + F32(s.ld[0]))
-    ry = _rem1(_rand(py, px, s.cp_key[2], s.cp_key[3]) + F32(s.ld[1]))
+    cp_key, smp_key, ld = kernel_keys(s, record)
+    rx = _rem1(_rand(px, py, cp_key[0], cp_key[1]) + ld[0])
+    ry = _rem1(_rand(py, px, cp_key[2], cp_key[3]) + ld[1])
     out = []
     for k in range(4):
         fk, off = F32(k), F32(31 * k + 7)
-        ux = _rand(px + fk, py + fk, s.smp_key[0], s.smp_key[1])
-        uy = _rand(py + off, px + off, s.smp_key[0], s.smp_key[1])
+        ux = _rand(px + fk, py + fk, smp_key[0], smp_key[1])
+        uy = _rand(py + off, px + off, smp_key[0], smp_key[1])
         r, phi = _concentric(s, _rem1(ux + rx), _rem1(uy + ry))
         phi = torch.from_numpy(phi)
         out.append((r * torch.cos(phi).numpy(), r * torch.sin(phi).numpy()))
@@ -134,15 +149,42 @@ def _analytic_scene(**change):
 def test_kernel_offsets_match_disk_offsets(rng_frame, frame_index):
     """Bit for bit, on the frame's broadcast pixel grid and on a row band
     further down (row_offset), as the sharded path hands it."""
-    s = an_cuda.scene_args(_analytic_scene(), rng_frame, frame_index)
+    frame = FrameValue.of(frame_index, "cpu")
+    rng = frame * 0 + rng_frame  # a constant of the record: (0, rng_frame)
+    s, record = an_cuda.scene_args(_analytic_scene(), rng, frame)
     for row_offset in (0, 517):
         px, py = pixel_centers(H, W, "cpu", row_offset)
-        want = tlt._disk_offsets(rng_frame, frame_index, px, py)
-        got = kernel_offsets(s, px.numpy(), py.numpy())
+        want = tlt._disk_offsets(rng, frame, px, py)
+        got = kernel_offsets(s, record, px.numpy(), py.numpy())
         for (gx, gy), (wx, wy) in zip(got, want):
             np.testing.assert_array_equal(gx, wx.numpy())
             np.testing.assert_array_equal(gy, wy.numpy())
         assert np.abs(got[0][0]).max() > 0.5
+
+
+@pytest.mark.parametrize("index,spp,s", [(0, 1, 0), (7, 1, 0), (33, 4, 3),
+                                         (WRAP, 2, 1)])
+def test_kernel_offsets_of_the_device_frame(index, spp, s):
+    """The frame's own form: frame_index the record's index, rng_frame the
+    seed index * spp + s and the mirror GI's seed * 131 + 17 of it, as
+    FrameValues of one record, against the plain offsets of the same
+    device frame and of the host ints, each in a record of its own."""
+    record = frame_record(index, "cpu")
+    frame = FrameValue(record)
+    seed, host_seed = frame * spp + s, index * spp + s
+    for rng, host_rng in ((seed, host_seed),
+                          (seed * 131 + 17, host_seed * 131 + 17)):
+        args, got_record = an_cuda.scene_args(_analytic_scene(), rng, frame)
+        assert got_record is record
+        px, py = pixel_centers(H, W, "cpu", 0)
+        got = kernel_offsets(args, record, px.numpy(), py.numpy())
+        for want in (tlt._disk_offsets(rng, frame, px, py),
+                     tlt._disk_offsets(FrameValue.of(host_rng, "cpu"),
+                                       FrameValue.of(index, "cpu"), px,
+                                       py)):
+            for (gx, gy), (wx, wy) in zip(got, want):
+                np.testing.assert_array_equal(gx, wx.numpy())
+                np.testing.assert_array_equal(gy, wy.numpy())
 
 
 def test_kernel_offsets_cover_the_disk_edge_cases():
@@ -152,9 +194,11 @@ def test_kernel_offsets_cover_the_disk_edge_cases():
     px = np.concatenate([rng.uniform(-3.0, 2000.0, 512), [-0.5, 0.0, 1e6]])
     py = np.concatenate([rng.uniform(-3.0, 1200.0, 512), [-2.0, 0.5, 3.0]])
     px, py = px.astype(F32), py.astype(F32)
-    s = an_cuda.scene_args(_analytic_scene(), 9, 9)
-    want = tlt._disk_offsets(9, 9, torch.from_numpy(px), torch.from_numpy(py))
-    for (gx, gy), (wx, wy) in zip(kernel_offsets(s, px, py), want):
+    nine = FrameValue.of(9, "cpu")
+    s, record = an_cuda.scene_args(_analytic_scene(), nine, nine)
+    want = tlt._disk_offsets(nine, nine, torch.from_numpy(px),
+                             torch.from_numpy(py))
+    for (gx, gy), (wx, wy) in zip(kernel_offsets(s, record, px, py), want):
         np.testing.assert_array_equal(gx, wx.numpy())
         np.testing.assert_array_equal(gy, wy.numpy())
     r, phi = _concentric(s, np.array([0.5], F32), np.array([0.5], F32))
@@ -170,8 +214,9 @@ def test_kernel_sky_reflection_matches_plain():
     tn, tv = normalize(torch.from_numpy(n)), normalize(torch.from_numpy(v))
     scene = _analytic_scene()
     want = scene.sky(reflect(-tv, tn)).numpy()
-    got = kernel_sky_reflection(an_cuda.scene_args(scene, 0, 0), tn.numpy(),
-                                tv.numpy())
+    zero = FrameValue.of(0, "cpu")
+    got = kernel_sky_reflection(an_cuda.scene_args(scene, zero, zero)[0],
+                                tn.numpy(), tv.numpy())
     np.testing.assert_array_equal(got, want)
 
 
@@ -184,7 +229,9 @@ def test_material_table_matches_get_material(glass, mirror):
         mat_albedo_gloss=24.0, mat_glass_color=(0.9, 0.8, 0.6),
         mat_glass_distortion=0.2, mat_mirror_color=(0.9, 0.95, 0.7),
         mat_mirror_gloss=64.0)
-    s = an_cuda.scene_args(SceneCtx.create(params, torch.zeros(3)), 0, 0)
+    zero = FrameValue.of(0, "cpu")
+    s, _ = an_cuda.scene_args(SceneCtx.create(params, torch.zeros(3)), zero,
+                              zero)
     ids = torch.arange(-2, 8, dtype=torch.int32)
     want = get_material(ids, params)
     rows = [int(i) if 0 <= i < an_cuda.MAT_ROWS - 1 else an_cuda.MAT_ROWS - 1
@@ -281,7 +328,8 @@ def test_direct_light_bvh_plain_matches_jax(bunny, variant, frame_index,
     h, hit = bunny["h"], bunny["hit"]
     px, py, rd = bunny["px"], bunny["py"], bunny["rd"]
     active = torch.from_numpy(hit) if masked else None
-    args = (scene, h, frame_index, frame_index, torch.from_numpy(-rd),
+    fv = FrameValue.of(frame_index, "cpu")
+    args = (scene, h, fv, fv, torch.from_numpy(-rd),
             torch.from_numpy(px), torch.from_numpy(py), active)
     before = dict(cuda_lib.LAUNCHES)
     got = tlt.direct_light_bvh(*args).numpy()

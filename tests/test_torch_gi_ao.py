@@ -39,6 +39,7 @@ from opengl_raytracing_tpu_torch.ops import lighting as tlt
 from opengl_raytracing_tpu_torch.ops import materials as tmat
 from opengl_raytracing_tpu_torch.ops import scene_analytic as tsa
 from opengl_raytracing_tpu_torch.ops.scene import SceneCtx
+from opengl_raytracing_tpu_torch.sampling import FrameValue
 from opengl_raytracing_tpu_torch.scene import (BVHArrays, gather_triangles,
                                                make_bunny, model_transform)
 
@@ -156,8 +157,8 @@ def test_compute_ao_matches_jax(bvh_frame, an_frame, scene_kind,
     px, py, jpx, jpy = _pix(f)
     active = _t(hit) if scene_kind == "bvh" else None
     before = dict(cuda_lib.LAUNCHES)
-    got = tlt.compute_ao(scene, f["h"], frame_index, px, py,
-                         active=active).numpy()
+    got = tlt.compute_ao(scene, f["h"], FrameValue.of(frame_index, "cpu"),
+                         px, py, active=active).numpy()
     assert cuda_lib.LAUNCHES == before
     want = np.asarray(jlt.compute_ao(
         jscene, f["jh"], jnp.int32(frame_index), jpx, jpy,
@@ -185,7 +186,8 @@ def test_one_bounce_gi_bvh_matches_jax(bvh_frame, frame_index):
     hit = f["hit"]
     fi = frame_index
     before = dict(cuda_lib.LAUNCHES)
-    got = tlt.one_bounce_gi_bvh(f["scene"], f["h"], fi, fi, fi, px, py,
+    fv = FrameValue.of(fi, "cpu")
+    got = tlt.one_bounce_gi_bvh(f["scene"], f["h"], fv, fv, fv, px, py,
                                 active=_t(hit)).numpy()
     assert cuda_lib.LAUNCHES == before
     want = np.asarray(jlt.one_bounce_gi_bvh(
@@ -205,7 +207,8 @@ def test_one_bounce_gi_analytic_matches_jax(an_frame, frame_index):
     px, py, jpx, jpy = _pix(f)
     hit = f["hit"]
     fi = frame_index
-    got = tlt.one_bounce_gi_analytic(f["scene"], f["h"], fi, fi, fi, px,
+    fv = FrameValue.of(fi, "cpu")
+    got = tlt.one_bounce_gi_analytic(f["scene"], f["h"], fv, fv, fv, px,
                                      py).numpy()
     want = np.asarray(jlt.one_bounce_gi_analytic(
         f["jscene"], f["jh"], jnp.int32(fi), jnp.int32(fi), jnp.int32(fi),
@@ -220,8 +223,9 @@ def test_shade_mirror_with_gi_matches_jax(an_frame):
     px, py, jpx, jpy = _pix(f)
     mat = tmat.get_material(f["h"].mat, f["scene"].params)
     jm = jmat.get_material(f["jh"].mat, f["jscene"].params)
-    got = tlt.shade_mirror(f["scene"], f["h"], _t(f["vdir"]), mat, 4, 4, px,
-                           py).numpy()
+    four = FrameValue.of(4, "cpu")
+    got = tlt.shade_mirror(f["scene"], f["h"], _t(f["vdir"]), mat, four,
+                           four, px, py).numpy()
     want = np.asarray(jlt.shade_mirror(f["jscene"], f["jh"],
                                        jnp.asarray(f["vdir"]), jm,
                                        jnp.int32(4), jnp.int32(4), jpx, jpy))
@@ -232,8 +236,8 @@ def test_shade_mirror_with_gi_matches_jax(an_frame):
     # the GI term is there: the mirror without GI is darker
     no_gi = f["scene"].__class__.create(
         f["scene"].params.replace(enable_gi=0), f["scene"].cam_pos)
-    plain = tlt.shade_mirror(no_gi, f["h"], _t(f["vdir"]), mat, 4, 4, px,
-                             py).numpy()
+    plain = tlt.shade_mirror(no_gi, f["h"], _t(f["vdir"]), mat, four, four,
+                             px, py).numpy()
     assert (got[lanes] - plain[lanes]).mean() > 1e-3
 
 

@@ -34,6 +34,7 @@ from opengl_raytracing_tpu_torch.ops import scene_analytic as tsa
 from opengl_raytracing_tpu_torch.ops import svgf as tsvgf
 from opengl_raytracing_tpu_torch.ops import taa as ttaa
 from opengl_raytracing_tpu_torch.ops.scene import SceneCtx
+from opengl_raytracing_tpu_torch.sampling import FrameValue
 from opengl_raytracing_tpu_torch.scene import (BVHArrays, gather_triangles,
                                                make_bunny, model_transform)
 
@@ -95,7 +96,8 @@ def test_direct_light_bvh_matches_jax(frame, variant, frame_index):
                                    atol=1e-6)
     h, hit = frame["h"], frame["hit"]
     px, py, rd = frame["px"], frame["py"], frame["rd"]
-    got = tlt.direct_light_bvh(scene, h, frame_index, frame_index,
+    fv = FrameValue.of(frame_index, "cpu")
+    got = tlt.direct_light_bvh(scene, h, fv, fv,
                                torch.from_numpy(-rd), torch.from_numpy(px),
                                torch.from_numpy(py),
                                active=torch.from_numpy(hit)).numpy()
@@ -113,7 +115,9 @@ def test_disk_offsets_and_light_frame(frame):
     np.testing.assert_array_equal(tlt.LIGHT_T, jlt.LIGHT_T)
     np.testing.assert_array_equal(tlt.LIGHT_B, jlt.LIGHT_B)
     px, py = frame["px"], frame["py"]
-    got = tlt._disk_offsets(7, 7, torch.from_numpy(px), torch.from_numpy(py))
+    seven = FrameValue.of(7, "cpu")
+    got = tlt._disk_offsets(seven, seven, torch.from_numpy(px),
+                            torch.from_numpy(py))
     want = jlt._disk_offsets(jnp.int32(7), jnp.int32(7), jnp.asarray(px),
                              jnp.asarray(py))
     for (gx, gy), (wx, wy) in zip(got, want):
@@ -166,7 +170,7 @@ def test_store_and_present_match_jax(exposure):
         jnp.int32(0), jparams))
     buf = torch.full((H, W, 4), 7.0)
     got = ttaa.resolve_taa(torch.from_numpy(curr), torch.from_numpy(motion),
-                           buf, 0, params, out=buf)
+                           buf, FrameValue.of(0, "cpu"), params, out=buf)
     assert got.data_ptr() == buf.data_ptr()
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
     img = tsvgf.present(got, torch.from_numpy(motion), None, None, params)
@@ -188,7 +192,8 @@ def test_motion_view_replaces_the_image(field):
     x = rng.rand(6, 8, 3).astype(np.float32)
     motion = (rng.randn(6, 8, 2) * 0.05).astype(np.float32)
     accum = ttaa.resolve_taa(torch.from_numpy(x), torch.from_numpy(motion),
-                             torch.zeros(6, 8, 4), 3, params)
+                             torch.zeros(6, 8, 4), FrameValue.of(3, "cpu"),
+                             params)
     got = tsvgf.present(accum, torch.from_numpy(motion), torch.from_numpy(x),
                         torch.from_numpy(x), params, show_motion=True)
     want = jsvgf.present(jnp.asarray(accum.numpy()), jnp.asarray(motion),

@@ -68,7 +68,7 @@ from opengl_raytracing_tpu_torch.parallel import (make_mesh,
 from opengl_raytracing_tpu_torch.parallel.shardmap import (
     HALO, band_of, needs_history, render_bands_in_turn)
 from opengl_raytracing_tpu_torch.parallel.sharding import spawn_ranks
-from opengl_raytracing_tpu_torch.sampling import generate_jitter2d
+from opengl_raytracing_tpu_torch.sampling import FrameValue, generate_jitter2d
 from tests import torch_parallel_ranks as ranks
 
 torch.set_num_threads(2)
@@ -338,10 +338,11 @@ def test_resolve_taa_band_matches_jax(moving, row0, bh):
     params = params_from(jparams)
     rows = slice(row0, row0 + bh)
     moved = True if moving else False
-    for fi in (3, 10, 40):
+    for index in (3, 10, 40):
+        fi = FrameValue.of(index, "cpu")
         want = np.asarray(jtaa.resolve_taa(
             jnp.asarray(curr[rows]), jnp.asarray(motion[rows]),
-            jnp.asarray(hist), jnp.int32(fi), jparams, row_offset=row0,
+            jnp.asarray(hist), jnp.int32(index), jparams, row_offset=row0,
             moved=moved))
         got = resolve_taa(torch.from_numpy(curr[rows]),
                           torch.from_numpy(motion[rows]),

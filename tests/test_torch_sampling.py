@@ -50,7 +50,8 @@ def test_hash2_bit_exact():
 @pytest.mark.parametrize("frame", [0, 1, 7, 1023, 2_000_000, 2 ** 31 - 1])
 def test_rand_bit_exact(frame):
     px, py = _pixels(frame % 97)
-    got = ts.rand(torch.from_numpy(px), torch.from_numpy(py), frame).numpy()
+    got = ts.rand(torch.from_numpy(px), torch.from_numpy(py),
+                  ts.FrameValue.of(frame, "cpu")).numpy()
     want = np.asarray(js.rand(jnp.asarray(px), jnp.asarray(py),
                               jnp.int32(frame)))
     np.testing.assert_array_equal(got, want)
@@ -62,7 +63,8 @@ def test_rand_bit_exact(frame):
 @pytest.mark.parametrize("frame", [0, 3, 1000, 123457])
 def test_cp_offset_and_ld2_exact(frame):
     px, py = _pixels(frame)
-    got = ts.cp_offset(torch.from_numpy(px), torch.from_numpy(py), frame)
+    got = ts.cp_offset(torch.from_numpy(px), torch.from_numpy(py),
+                       ts.FrameValue.of(frame, "cpu"))
     want = js.cp_offset(jnp.asarray(px), jnp.asarray(py), jnp.int32(frame))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -51,6 +51,7 @@ from opengl_raytracing_tpu_torch.ops import lighting as tlt
 from opengl_raytracing_tpu_torch.ops import svgf as tsvgf
 from opengl_raytracing_tpu_torch.ops import tonemap as ttone
 from opengl_raytracing_tpu_torch.ops.scene import prepare_bvh
+from opengl_raytracing_tpu_torch.sampling import frame_value
 from opengl_raytracing_tpu_torch.scene import (BVHArrays, gather_triangles,
                                                make_bunny, model_transform)
 
@@ -150,7 +151,9 @@ def test_samples_seeds_and_ao_hoist(tris, monkeypatch, use_bvh, show_motion):
     real_direct, real_ao = getattr(tlt, name), tlt.compute_ao
 
     def direct(scene, hit, rng_frame, frame_index, *a, **kw):
-        seeds.append((rng_frame, frame_index))
+        # the frame's seeds are device frame values: their int32 values
+        seeds.append((int(frame_value(rng_frame)),
+                      int(frame_value(frame_index))))
         return real_direct(scene, hit, rng_frame, frame_index, *a, **kw)
 
     def ao(*a, **kw):

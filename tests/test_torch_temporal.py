@@ -42,6 +42,7 @@ from opengl_raytracing_tpu_torch.models import RenderState, render_frame
 from opengl_raytracing_tpu_torch.ops import cuda_lib, svgf_cuda
 from opengl_raytracing_tpu_torch.ops import svgf as tsvgf
 from opengl_raytracing_tpu_torch.ops import taa as ttaa
+from opengl_raytracing_tpu_torch.sampling import FrameValue
 
 torch.set_num_threads(2)
 
@@ -99,16 +100,17 @@ def _taa_case(case):
                                   "mixed"])
 def test_resolve_taa_matches_jax(case):
     curr, motion, hist, fi = _taa_case(case)
+    tfi = FrameValue.of(fi, "cpu")
     jparams = jpreset("full")
     params = params_from(jparams)
     want = np.asarray(jtaa.resolve_taa(jnp.asarray(curr), jnp.asarray(motion),
                                        jnp.asarray(hist), jnp.int32(fi),
                                        jparams))
-    got = ttaa.resolve_taa(_t(curr), _t(motion), _t(hist), fi, params)
+    got = ttaa.resolve_taa(_t(curr), _t(motion), _t(hist), tfi, params)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
     # in place into the history itself: the gather reads no updated pixel
     buf = _t(hist)
-    inplace = ttaa.resolve_taa(_t(curr), _t(motion), buf, fi, params,
+    inplace = ttaa.resolve_taa(_t(curr), _t(motion), buf, tfi, params,
                                out=buf)
     assert inplace.data_ptr() == buf.data_ptr()
     np.testing.assert_array_equal(inplace.numpy(), got.numpy())
@@ -117,7 +119,7 @@ def test_resolve_taa_matches_jax(case):
     if case in ("moving_oob", "hard_motion", "box_clamp", "mixed"):
         # the case reaches the moving path: it differs from the still blend
         still = ttaa.resolve_taa(_t(curr), torch.zeros(H, W, 2), _t(hist),
-                                 fi, params)
+                                 tfi, params)
         assert np.abs(got.numpy() - still.numpy()).max() > 1e-3
 
 
@@ -138,15 +140,16 @@ def test_resolve_taa_moved_flag(case, moved):
         jparams = jparams.replace(enable_taa=0)
     curr, motion, hist, fi = _taa_case(
         "still8" if case in ("thresh0", "taa_off") else case)
+    tfi = FrameValue.of(fi, "cpu")
     if moved is False:
         motion = np.zeros_like(motion)  # the caller's contract
     params = params_from(jparams)
-    base = ttaa.resolve_taa(_t(curr), _t(motion), _t(hist), fi, params)
-    got = ttaa.resolve_taa(_t(curr), _t(motion), _t(hist), fi, params,
+    base = ttaa.resolve_taa(_t(curr), _t(motion), _t(hist), tfi, params)
+    got = ttaa.resolve_taa(_t(curr), _t(motion), _t(hist), tfi, params,
                            moved=moved)
     np.testing.assert_array_equal(got.numpy(), base.numpy())
     buf = _t(hist)
-    inplace = ttaa.resolve_taa(_t(curr), _t(motion), buf, fi, params,
+    inplace = ttaa.resolve_taa(_t(curr), _t(motion), buf, tfi, params,
                                out=buf, moved=moved)
     assert inplace.data_ptr() == buf.data_ptr()
     np.testing.assert_array_equal(inplace.numpy(), base.numpy())
@@ -165,12 +168,13 @@ def test_resolve_taa_skip_runs_no_gather(monkeypatch):
     monkeypatch.setattr(ttaa, "_sample_nearest",
                         lambda *a: calls.append(1) or real(*a))
     curr, motion, hist, fi = _taa_case("still8")
+    tfi = FrameValue.of(fi, "cpu")
     params = params_from(jpreset("full"))
-    ttaa.resolve_taa(_t(curr), _t(motion), _t(hist), fi, params, moved=False)
+    ttaa.resolve_taa(_t(curr), _t(motion), _t(hist), tfi, params, moved=False)
     assert not calls
-    ttaa.resolve_taa(_t(curr), _t(motion), _t(hist), fi, params, moved=None)
-    ttaa.resolve_taa(_t(curr), _t(motion), _t(hist), fi, params, moved=True)
-    ttaa.resolve_taa(_t(curr), _t(motion), _t(hist), fi,
+    ttaa.resolve_taa(_t(curr), _t(motion), _t(hist), tfi, params, moved=None)
+    ttaa.resolve_taa(_t(curr), _t(motion), _t(hist), tfi, params, moved=True)
+    ttaa.resolve_taa(_t(curr), _t(motion), _t(hist), tfi,
                      params.replace(taa_still_thresh=0.0), moved=False)
     assert len(calls) == 3
 

@@ -60,7 +60,8 @@ from opengl_raytracing_tpu_torch.ops.bvh_traverse import (_finalize,
                                                           trace_bvh,
                                                           trace_bvh_shadow)
 from opengl_raytracing_tpu_torch.ops.scene import SceneCtx
-from opengl_raytracing_tpu_torch.sampling import (rand,
+from opengl_raytracing_tpu_torch.sampling import (FrameValue, frame_record,
+                                                  rand,
                                                   sample_hemisphere_cosine)
 from opengl_raytracing_tpu_torch.scene import (BVHArrays, gather_triangles,
                                                make_bunny, model_transform)
@@ -69,6 +70,7 @@ torch.set_num_threads(2)
 
 H, W = 48, 64
 F32 = np.float32
+M32 = 0xFFFFFFFF
 WRAP = 2 ** 31 // 1663 + 5  # frame * 1663 wraps int32 here
 EDGE_FRAC = 5e-3            # lanes a one-ulp ray direction may flip
 
@@ -87,10 +89,26 @@ def _hash2(vx, vy):
 
 
 def _rand(x, y, key):
-    """sampling.cuh rand01 with the struct's xor keys."""
+    """sampling.cuh rand01 with the xor keys (kx, ky)."""
     ux = np.maximum(x, F32(0.0)).astype(np.uint32) ^ np.uint32(key[0])
     uy = np.maximum(y, F32(0.0)).astype(np.uint32) ^ np.uint32(key[1])
     return _hash2(ux, uy).astype(F32) / F32(4294967296.0)
+
+
+def _value(record, affine):
+    """sampling.cuh frame_value: the uint32 bits of int32(index * a + b)
+    of the frame record's index."""
+    return ((int(record[0]) & M32) * affine.a + affine.b) & M32
+
+
+def _keys(bits):
+    """sampling.rand's xor keys of a frame value (key_y)."""
+    return bits, (bits * 1663) & M32
+
+
+def _f32(bits):
+    """sampling.cuh frame_f32: float32 of the int32 of `bits`."""
+    return F32(bits - (1 << 32) if bits >> 31 else bits)
 
 
 def _dot(a, b):
@@ -131,15 +149,16 @@ def _hemisphere(n, ux, uy, two_pi):
     return _norm((t * x[..., None] + b * z[..., None]) + nn * y[..., None])
 
 
-def kernel_ao_samples(a, p, n, px, py):
+def kernel_ao_samples(a, record, p, n, px, py):
     """ambient_occlusion_kernel's origin and its [(ux, uy, direction)] per
     sample, for every pixel."""
     nn = _norm(n)
+    key = _keys(_value(record, a.fi))
     out = []
     for s in range(a.samples):
         o1, o2 = F32(37 * s + 3), F32(19 * s + 11)
-        ux = _rand(px + o1, py + o1, a.key)
-        uy = _rand(py + o2, px + o2, a.key)
+        ux = _rand(px + o1, py + o1, key)
+        uy = _rand(py + o2, px + o2, key)
         out.append((ux, uy, _hemisphere(nn, ux, uy, a.two_pi)))
     return p + nn * F32(a.bias), out
 
@@ -150,10 +169,13 @@ def kernel_ao_value(a, count):
                                  F32(a.ao_min)), F32(1.0))
 
 
-def kernel_bounce_ray(b, p, n, px, py):
+def kernel_bounce_ray(b, record, p, n, px, py):
     """trace_bounce_kernel's (ux, uy, origin, wi, cos) for every pixel."""
-    ux = _rand(px + F32(b.so), py + F32(b.so), b.key)
-    uy = _rand(py + F32(b.so2), px + F32(b.so2), b.key)
+    key = _keys(_value(record, b.rng))
+    seed = _value(record, b.seed)
+    so, so2 = _f32((seed * 19) & M32), _f32((seed * 41) & M32)
+    ux = _rand(px + so, py + so, key)
+    uy = _rand(py + so2, px + so2, key)
     n0 = _norm(n)
     wi = _hemisphere(n0, ux, uy, b.two_pi)
     cos = np.maximum(_dot(n0, wi), F32(0.0))
@@ -191,21 +213,53 @@ def _grids(row_offset):
     (0, 0, 4), (7, 0, 4), (1024, 517, 7), (WRAP, 0, 1)])
 def test_kernel_ao_samples_match_plain(frame_index, row_offset, samples):
     params = preset("full").replace(ao_samples=samples)
-    a = bvh_cuda.ao_args(params, frame_index)
+    fv = FrameValue.of(frame_index, "cpu")
+    a, record = bvh_cuda.ao_args(params, fv)
     h, p, n = _hits(frame_index % 97)
     px, py, npx, npy = _grids(row_offset)
-    org, smp = kernel_ao_samples(a, p, n, npx, npy)
-    want_org, want_dirs = tlt._ao_rays(h, frame_index, px, py, params)
+    org, smp = kernel_ao_samples(a, record, p, n, npx, npy)
+    want_org, want_dirs = tlt._ao_rays(h, fv, px, py, params)
     np.testing.assert_array_equal(org, want_org.numpy())
     assert len(smp) == len(want_dirs) == samples
     for s, ((ux, uy, d), wd) in enumerate(zip(smp, want_dirs)):
         o1, o2 = float(37 * s + 3), float(19 * s + 11)
         np.testing.assert_array_equal(
-            ux, rand(px + o1, py + o1, frame_index).numpy())
+            ux, rand(px + o1, py + o1, fv).numpy())
         np.testing.assert_array_equal(
-            uy, rand(py + o2, px + o2, frame_index).numpy())
+            uy, rand(py + o2, px + o2, fv).numpy())
         np.testing.assert_array_equal(d, wd.numpy())
     assert np.abs(smp[0][2]).max() > 0.5
+
+
+@pytest.mark.parametrize("index,spp,s", [(0, 1, 0), (9, 4, 2), (WRAP, 1, 0)])
+def test_kernels_sample_the_device_frame(index, spp, s):
+    """The frame's own form: the AO and bounce kernels' rays from
+    FrameValues of one record (frame_index the record's index, the seed
+    index * spp + s) against the plain rays of the same device frame and
+    of the host ints, each in a record of its own, bit for bit."""
+    record = frame_record(index, "cpu")
+    frame = FrameValue(record)
+    seed = frame * spp + s
+    params = preset("full")
+    h, p, n = _hits(index % 83)
+    px, py, npx, npy = _grids(0)
+    a, got = bvh_cuda.ao_args(params, frame)
+    assert got is record
+    org, smp = kernel_ao_samples(a, record, p, n, npx, npy)
+    for fi in (frame, FrameValue.of(index, "cpu")):
+        want_org, want_dirs = tlt._ao_rays(h, fi, px, py, params)
+        np.testing.assert_array_equal(org, want_org.numpy())
+        for (_, _, d), wd in zip(smp, want_dirs):
+            np.testing.assert_array_equal(d, wd.numpy())
+    b, got = bvh_cuda.bounce_args(frame, seed)
+    assert got is record
+    ux, uy, org, wi, cos = kernel_bounce_ray(b, record, p, n, npx, npy)
+    for rng, sd in ((frame, seed), (FrameValue.of(index, "cpu"),
+                                    FrameValue.of(index * spp + s, "cpu"))):
+        want_org, want_wi, want_cos = tlt._bounce_ray(h, rng, sd, px, py)
+        np.testing.assert_array_equal(org, want_org.numpy())
+        np.testing.assert_array_equal(wi, want_wi.numpy())
+        np.testing.assert_array_equal(cos, want_cos.numpy())
 
 
 @pytest.mark.parametrize("samples", [1, 4, 7])
@@ -214,7 +268,7 @@ def test_kernel_ao_value_matches_plain(samples):
     ao_min values."""
     for ao_min in (0.5, 0.13):
         params = preset("full").replace(ao_samples=samples, ao_min=ao_min)
-        a = bvh_cuda.ao_args(params, 0)
+        a, _ = bvh_cuda.ao_args(params, FrameValue.of(0, "cpu"))
         occ = torch.arange(samples)[:, None] < torch.arange(samples + 1)
         want = tlt._ao_value(occ, params).numpy()
         got = np.array([kernel_ao_value(a, c) for c in range(samples + 1)])
@@ -225,16 +279,18 @@ def test_kernel_ao_value_matches_plain(samples):
 @pytest.mark.parametrize("rng_frame,seed,row_offset", [
     (0, 0, 0), (5, 5, 0), (1023, 1023, 517), (WRAP, 3 * 131 + 17, 0)])
 def test_kernel_bounce_ray_matches_plain(rng_frame, seed, row_offset):
-    b = bvh_cuda.bounce_args(rng_frame, seed)
+    rng = FrameValue.of(rng_frame, "cpu")
+    seed_v = rng * 0 + seed  # a constant of the record: (0, seed)
+    b, record = bvh_cuda.bounce_args(rng, seed_v)
     h, p, n = _hits(seed % 89)
     px, py, npx, npy = _grids(row_offset)
-    ux, uy, org, wi, cos = kernel_bounce_ray(b, p, n, npx, npy)
+    ux, uy, org, wi, cos = kernel_bounce_ray(b, record, p, n, npx, npy)
     so, so2 = float(np.float32(seed * 19)), float(np.float32(seed * 41))
     np.testing.assert_array_equal(ux,
-                                  rand(px + so, py + so, rng_frame).numpy())
+                                  rand(px + so, py + so, rng).numpy())
     np.testing.assert_array_equal(uy,
-                                  rand(py + so2, px + so2, rng_frame).numpy())
-    want_org, want_wi, want_cos = tlt._bounce_ray(h, rng_frame, seed, px, py)
+                                  rand(py + so2, px + so2, rng).numpy())
+    want_org, want_wi, want_cos = tlt._bounce_ray(h, rng, seed_v, px, py)
     np.testing.assert_array_equal(org, want_org.numpy())
     np.testing.assert_array_equal(wi, want_wi.numpy())
     np.testing.assert_array_equal(cos, want_cos.numpy())
@@ -347,7 +403,8 @@ def _pr4_ao(scene, h, frame_index, px, py, active):
 
 def _pr4_gi(scene, h0, rng_frame, seed, frame_index, px, py, active):
     """one_bounce_gi_bvh as it was before its kernel: the bounce ray in
-    PyTorch, the closest-hit walk with `active`, the same tail."""
+    PyTorch, the closest-hit walk with `active`, the same tail (`seed` the
+    host int of the sample offsets)."""
     so, so2 = float(np.float32(seed * 19)), float(np.float32(seed * 41))
     ux = rand(px + so, py + so, rng_frame)
     uy = rand(py + so2, px + so2, rng_frame)
@@ -378,11 +435,14 @@ def test_plain_versions_equal_the_composition_they_replace(bunny, mask):
     px, py = torch.from_numpy(f["px"]), torch.from_numpy(f["py"])
     active, _, _ = _mask(f, mask)
     before = dict(cuda_lib.LAUNCHES)
-    ao = tlt.compute_ao(scene, h, 3, px, py, active=active)
-    gi = tlt.one_bounce_gi_bvh(scene, h, 3, 3, 3, px, py, active=active)
+    three = FrameValue.of(3, "cpu")
+    ao = tlt.compute_ao(scene, h, three, px, py, active=active)
+    gi = tlt.one_bounce_gi_bvh(scene, h, three, three, three, px, py,
+                               active=active)
     assert cuda_lib.LAUNCHES == before
-    assert torch.equal(ao, _pr4_ao(scene, h, 3, px, py, active))
-    assert torch.equal(gi, _pr4_gi(scene, h, 3, 3, 3, px, py, active))
+    assert torch.equal(ao, _pr4_ao(scene, h, three, px, py, active))
+    assert torch.equal(gi, _pr4_gi(scene, h, three, 3, three, px, py,
+                                   active))
     assert bool(torch.isfinite(gi).all()) and bool(torch.isfinite(ao).all())
 
 
@@ -398,8 +458,9 @@ def test_ambient_occlusion_wrapper_matches_jax(bunny, frame_index, mask):
     scene, params = f["scene"], f["scene"].params
     active, jactive, lanes = _mask(f, mask)
     px, py = torch.from_numpy(f["px"]), torch.from_numpy(f["py"])
-    got = bvh_cuda.ambient_occlusion(scene.bvh.arrays, f["h"], frame_index,
-                                     px, py, params, active).numpy()
+    got = bvh_cuda.ambient_occlusion(scene.bvh.arrays, f["h"],
+                                     FrameValue.of(frame_index, "cpu"), px,
+                                     py, params, active).numpy()
     assert np.isfinite(got).all() and got.shape == (H, W)
     if not lanes.any():
         return
@@ -425,7 +486,8 @@ def test_gi_bounce_wrapper_matches_jax(bunny, frame_index, mask):
     fi = frame_index
     active, jactive, lanes = _mask(f, mask)
     px, py = torch.from_numpy(f["px"]), torch.from_numpy(f["py"])
-    got = tlt.one_bounce_gi_bvh(f["scene"], f["h"], fi, fi, fi, px, py,
+    fv = FrameValue.of(fi, "cpu")
+    got = tlt.one_bounce_gi_bvh(f["scene"], f["h"], fv, fv, fv, px, py,
                                 active=active).numpy()
     assert np.isfinite(got).all()
     kept = lanes & f["hit"]
