@@ -154,7 +154,8 @@ in phases, each printing its result and seconds on a line of its own:
      its inputs staged inside the profiled window as a caller stages
      them: device ms and operations, at most one host-to-device copy (the
      frame block; the profiler may lose a record), at most one copy call
-     eager and two replayed (the block's device copy into the graph's),
+     eager and three replayed (the frame block's and the parameter
+     block's device copies into the graph's),
      no cudaStreamSynchronize, and the host's cudaLaunchKernel and
      cudaGraphLaunch calls; each kernel's launches in replayed frames as
      the profiler sees the card run them, equal to what the counters add
@@ -163,6 +164,19 @@ in phases, each printing its result and seconds on a line of its own:
      full --turbo 8` (a moving step, then still ones: the moving key, then
      the still key) with `--jit` and `--no-jit`, 30 frames in 4 steps:
      every step's image and the accumulation bit for bit;
+  25h. params: the parameter block (models/param_block.py: every data
+     field of RenderParams on the device, so that a captured frame is
+     keyed on the static fields alone).  The app at 1920x1080, `--scene
+     bvh --preset full` and the analytic `full` with
+     cubemaps/sky_day.png: 16 steps, each changing another data field
+     through the viewer's /set path (PARAM_SWEEP: exposure, sun yaw,
+     point-light intensity, SVGF strength, a TAA weight, AO radius, a
+     material colour, env intensity, ...), then 32 `--orbit` steps; each
+     with `--jit` and `--no-jit`: every step's image and the last
+     accumulation bit for bit, one capture per run (one static
+     configuration), no eager frame under `--jit`; ms a step both ways
+     (the first step of a replayed run, which captures, apart), the
+     captures and the graphs' MB before and after;
   26. app_headless: the app layer as a user drives it, 1920x1080, through
      `app.headless`'s parser, `make_app` and `Application.step`:
      (a) `--scene bvh --preset full`, 32 still frames: the sum of the
@@ -1032,6 +1046,7 @@ def check_ao(args, timer):
     from opengl_raytracing_tpu_torch.ops import bvh_cuda
     from opengl_raytracing_tpu_torch.ops import lighting as lt
     from opengl_raytracing_tpu_torch.ops.bvh_traverse import trace_bvh_shadow
+    from opengl_raytracing_tpu_torch.params import bind
     h, params, arrays = args["h"], args["params"], args["bvh"]
     got = bvh_cuda.ambient_occlusion(**args)
     want = lt.ambient_occlusion_plain(**args)
@@ -1039,8 +1054,9 @@ def check_ao(args, timer):
     n_live, S = int(live.sum()), int(params.ao_samples)
     g, w = got[live], want[live]
     off = ~(g == w)  # a NaN counts as off
-    consts, _ = bvh_cuda.ao_args(params, args["frame_index"])
-    step = consts.ao_span / S
+    # the words the kernel reads from the parameter block
+    block = bind(params, h.t.device)
+    step = float(block["ao_span"]) / S
     steps_ok = bool((((g - w)[off].abs() - step).abs() <= 1e-6).all())
     flips = int(off.sum())
     if flips > AO_FLIP_FRAC * max(n_live, 1) or not steps_ok:
@@ -1058,8 +1074,7 @@ def check_ao(args, timer):
     trace_bvh_shadow(
         arrays, torch.cat([org.expand(shape + (3,)).reshape(-1, 3)[sel]] * S),
         torch.cat([d.reshape(-1, 3)[sel] for d in dirs]),
-        torch.full((S * n_live,), consts.radius,
-                   device=h.t.device), counts=counts)
+        block["ao_radius"].expand(S * n_live), counts=counts)
     per_pixel = OPS["normalize"] + OPS["origin"] + OPS["ao_remap"]
     per_sample = 2 * OPS["rand"] + OPS["onb"] + OPS["hemisphere"]
 
@@ -1620,6 +1635,9 @@ def main() -> int:
     phase("graph", t0, **graph_run)
 
     t0 = time.time()
+    phase("params", t0, **check_params(smi))
+
+    t0 = time.time()
     app_run = check_app_headless(frames_full, frames_an_full, smi)
     phase("app_headless", t0, **app_run)
 
@@ -1870,9 +1888,10 @@ def graph_case(name, scene_of, env):
     profiled, windows = profiled_launches(lambda: frame(True),
                                           replay_launches)
     for jit, ev in events.items():
-        # the block's copy, and a replay's device copy of it into the
-        # graph's block; the profiler may lose a record, never add one
-        copies = 2 if jit else 1
+        # the block's copy, and a replay's device copies of it and of the
+        # parameter block into the graph's; the profiler may lose a
+        # record, never add one
+        copies = 3 if jit else 1
         calls = ev["host_calls"]
         if (ev["h2d_copies"] or 0) > 1 or calls["cudaMemcpyAsync"] > copies \
                 or calls["cudaStreamSynchronize"] != 0:
@@ -1938,6 +1957,122 @@ def graph_app_turbo():
                 captures=runs["--jit"]["captures"],
                 ms_per_frame_replayed=runs["--jit"]["ms_per_frame"],
                 ms_per_frame_eager=runs["--no-jit"]["ms_per_frame"])
+
+
+# phase params: one data field a step, as the viewer's /set gets it
+PARAM_SWEEP = (
+    ("exposure", "1.6"), ("sun_yaw", "80"), ("point_light_intensity", "12"),
+    ("svgf_strength", "0.4"), ("taa_history_avg_weight", "0.8"),
+    ("ao_radius", "1.2"), ("mat_albedo_color", "0.2,0.7,0.3"),
+    ("env_map_intensity", "0.7"), ("sun_intensity", "0.6"),
+    ("sky_intensity", "1.3"), ("gi_scale_bvh", "0.35"),
+    ("gi_scale_analytic", "0.5"), ("svgf_k_color", "2.0"),
+    ("ao_min", "0.3"), ("point_light_color", "1,0.5,0.3"),
+    ("taa_history_box_size", "0.1"))
+ORBIT_STEPS = 32
+
+
+def params_run(argv, steps, sweep):
+    """One app run of phase params: make_app(argv), then `steps` steps,
+    each after the /set of PARAM_SWEEP's next field where `sweep`.
+    Returns the steps' images and last accumulation (copies), each step's
+    ms (host clock to a synchronize), the run's captures, its eager
+    frames, and the graphs' MB before and after."""
+    import torch
+    from opengl_raytracing_tpu_torch.app.viewer import make_handler
+    from opengl_raytracing_tpu_torch.models import graph
+    set_field = make_handler(None)._apply_set
+    application = app_steps(app_args(*argv), 0)
+    before = graph.stats()
+    images, ms = [], []
+    for i in range(steps):
+        if sweep:
+            set_field(application, *PARAM_SWEEP[i])
+        torch.cuda.synchronize()
+        t0 = time.time()
+        images.append(application.step().clone())
+        torch.cuda.synchronize()
+        ms.append((time.time() - t0) * 1e3)
+    after = graph.stats()
+    return dict(images=images,
+                accum=application.app.render_state.accum.clone(),
+                ms=ms, captures=after["captures"] - before["captures"],
+                eager_frames=application.eager_frames,
+                graph_mb=[before["pool_bytes"] / 2**20,
+                          after["pool_bytes"] / 2**20],
+                params=application.app.params)
+
+
+def check_params(smi):
+    """Phase params (docstring, step 25h)."""
+    import statistics
+    import torch
+    from opengl_raytracing_tpu_torch.models import graph
+    from opengl_raytracing_tpu_torch.params import static_key
+    day = os.path.join(ROOT, "cubemaps", "sky_day.png")
+    scenes = {"bvh_full": ("--scene", "bvh", "--preset", "full"),
+              "an_full": ("--scene", "analytic", "--preset", "full",
+                          "--env", day)}
+    out = dict(card=smi, sweep=[f for f, _ in PARAM_SWEEP])
+    graph.clear()
+    for name, argv in scenes.items():
+        for what, extra, steps in (("sweep", (), len(PARAM_SWEEP)),
+                                   ("orbit", ("--orbit",), ORBIT_STEPS)):
+            runs = {flag: params_run(argv + extra + (flag,), steps,
+                                     what == "sweep")
+                    for flag in ("--jit", "--no-jit")}
+            jit, eager = runs["--jit"], runs["--no-jit"]
+            same = [bool(torch.equal(a, b)) for a, b in
+                    zip(jit["images"], eager["images"])]
+            same_accum = bool(torch.equal(jit["accum"], eager["accum"]))
+            if not all(same) or not same_accum:
+                raise AssertionError(
+                    f"params {name} {what}: steps bit-equal to --no-jit "
+                    f"{same}, last accumulation {same_accum}")
+            if jit["captures"] != 1 or jit["eager_frames"] \
+                    or eager["captures"]:
+                raise AssertionError(
+                    f"params {name} {what}: {jit['captures']} captures and "
+                    f"{jit['eager_frames']} eager frames with --jit "
+                    f"(one static configuration), {eager['captures']} "
+                    f"captures with --no-jit")
+            if static_key(jit["params"]) != static_key(eager["params"]) \
+                    or jit["params"] != eager["params"]:
+                raise AssertionError(f"params {name} {what}: the two runs "
+                                     f"ended with other parameters")
+            images = torch.stack(jit["images"])
+            if not bool(torch.isfinite(images).all()) \
+                    or float(images.min()) < 0.0 or float(images.max()) > 1.0:
+                raise AssertionError(f"params {name} {what}: an image is "
+                                     f"not finite in [0, 1]")
+            distinct = len({float(x) for x in images.sum((1, 2, 3))})
+            if distinct < steps // 2:
+                raise AssertionError(f"params {name} {what}: only "
+                                     f"{distinct} distinct images of "
+                                     f"{steps} steps")
+            out[f"{name}_{what}"] = dict(
+                steps=steps, bitwise=True, captures=jit["captures"],
+                eager_frames=jit["eager_frames"], distinct_images=distinct,
+                checksum=float(images.sum()),
+                ms_first_step_replayed=jit["ms"][0],
+                ms_per_step_replayed=statistics.median(jit["ms"][1:]),
+                ms_per_step_eager=statistics.median(eager["ms"][1:]),
+                ms_per_step_replayed_mean=statistics.mean(jit["ms"][1:]),
+                ms_per_step_eager_mean=statistics.mean(eager["ms"][1:]),
+                graph_mb_before=jit["graph_mb"][0],
+                graph_mb_after=jit["graph_mb"][1],
+                point_light_yaw=float(jit["params"].point_light_yaw))
+            print(f"params {name} {what}: {steps} steps bit-equal, "
+                  f"{jit['captures']} capture, replayed "
+                  f"{out[f'{name}_{what}']['ms_per_step_replayed']:.3f} "
+                  f"ms/step, eager "
+                  f"{out[f'{name}_{what}']['ms_per_step_eager']:.3f}",
+                  flush=True)
+    stats = graph.stats()
+    out["graphs_held"], out["graph_mb_held"] = (stats["graphs"],
+                                                stats["pool_bytes"] / 2**20)
+    graph.clear()
+    return out
 
 
 def check_graph(bvh, bvh6, env, smi):

@@ -9,13 +9,13 @@ and the accumulation-reset decision driven by the exhaustive param diff.
 
 With `jit` (the default, as the JAX package's `--jit`) a frame on the
 card is a replay of its CUDA graph (models/graph.py), captured once per
-configuration: the turbo chain replays it k times, the first frame with
-the camera's key (moved or still) and the others with the still one, and
-the uint8 image the viewer streams is quantized inside the graph.  With
-the point-light orbit on, the parameters change every step and each step
-would capture anew: those frames run eagerly, through the same kernels
-(logged once, counted in `eager_frames`), as the JAX package's chain also
-steps aside under the orbit.  Without `jit`, and on the CPU, frames run
+static configuration: the turbo chain replays it k times, the first frame
+with the camera's key (moved or still) and the others with the still one,
+and the uint8 image the viewer streams is quantized inside the graph.
+The data fields reach the graph through the parameter block
+(models/param_block.py), so the point-light orbit's steps and every
+slider move replay it too; the turbo chain steps aside under the orbit,
+as the JAX package's does.  Without `jit`, and on the CPU, frames run
 eagerly (`render_frame`).  Either way the accumulation is written in place
 and the step rebinds `app.render_state` at once.  The JAX package's
 per-frame resolution of `ordered_primary` is left out: it picks between
@@ -36,7 +36,6 @@ from ..models.pipeline import FrameInputs, render_frame
 from ..models.raster import render_raster
 from ..params import params_changed
 from ..sampling import generate_jitter2d
-from ..utils.log import log
 from .input import InputState, apply_action
 from .state import AppState
 
@@ -46,7 +45,8 @@ class Application:
                  width: int = 1920, device="cuda", jit: bool = True):
         self.app = state or AppState(height, width, device=device)
         self.jit = jit
-        # frames run eagerly on the card under `jit` (the orbit's)
+        # ray frames run eagerly on the card under `jit`: none, since the
+        # orbit's steps replay their graph too (the viewer reports it)
         self.eager_frames = 0
         self.input = InputState(spp_per_frame=self.app.params.spp_per_frame,
                                 exposure=float(self.app.params.exposure))
@@ -111,12 +111,6 @@ class Application:
         image on the device when `want_u8`, else None)."""
         app = self.app
         captured = self.jit and app.device.type == "cuda"
-        if captured and app.params.point_light_orbit_enabled:
-            if not self.eager_frames:
-                log("APP", "point-light orbit: frames run eagerly (the "
-                    "parameters change every step)")
-            self.eager_frames += len(fins)
-            captured = False
         state, u8 = app.render_state, None
         kw = dict(height=app.height, width=app.width, use_bvh=app.use_bvh,
                   show_motion=app.show_motion)

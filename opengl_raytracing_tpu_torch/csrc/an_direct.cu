@@ -15,14 +15,17 @@
 // point, normal and view direction, its material id (K3) and its pixel
 // centre are all it reads; the pixel-centre grids are read in place
 // through their strides (a broadcast grid is a row or a column of
-// floats), and only by lanes that need them.  The scene constants, the material table
-// (get_material with the glass/mirror toggles resolved on the host) and
+// floats), and only by lanes that need them.  The scene's fixed
+// constants, the material types and light toggles (static parameters) and
 // the (a, b) of the call's two frame values (rng_frame and frame_index =
 // index * a + b) arrive by value in one struct, with a pointer to the
 // frame's record (sampling.cuh: the frame index and ld2 of it, computed
-// on the host with the JAX device Halton's float32 steps): the struct is
-// the same for every frame, so a captured CUDA graph replays the call
-// for any frame.  The RNG keys are derived here.  Everything else is
+// on the host with the JAX device Halton's float32 steps) and one to the
+// parameter block (param_block.cuh: the lights, the sky, the material
+// table with the glass/mirror toggles resolved on the host, the
+// environment's intensity): the struct is the same for every frame and
+// every value of the parameters, so a captured CUDA graph replays the
+// call for any of them.  The RNG keys are derived here.  Everything else is
 // computed here: normalize(n) and normalize(v), the material row, the
 // environment of the reflected view (K3's mirror and glass: the cubemap
 // when the scene has one, sampled per lane by cubemap.cuh from the table
@@ -74,6 +77,7 @@
 
 #include "bvh_walk.cuh"
 #include "cubemap.cuh"
+#include "param_block.cuh"
 #include "sampling.cuh"
 
 namespace {
@@ -89,11 +93,15 @@ constexpr int kMatRows = 5;   // material ids 0-3, then the grey fallback
 // (ops/an_cuda.py:scene_args).
 struct AnScene {
   // the cubemap environment: the float32 [6, env_f, env_f, 3] table on the
-  // device (null: the gradient sky) and scene_analytic.sky's intensity
+  // device (null: the gradient sky); its intensity is the block's
   const float* env;
   const FrameRecord* frame;  // the frame index and ld2 of it
+  // the parameters: point_light_world, sun_dir, sky_up, sun_li, sky_li,
+  // point_light_color and _intensity, sky_top and sky_bottom, the
+  // material table's mat_albedo, mat_spec and mat_gloss rows,
+  // env_map_intensity
+  const ParamBlock* prm;
   int env_f;
-  float env_intensity;
   float light_c[3], light_t[3], light_b[3];  // disk light center and frame
   float light_nneg[3];                       // -(disk light normal)
   float light_color[3];
@@ -103,20 +111,9 @@ struct AnScene {
   float sphere_c[3][3];   // albedo, glass, mirror sphere centers
   float sphere_r2[3];     // their radius * radius
   float marker_r2;        // point-light marker radius * radius
-  float point[3];         // point-light position (= marker center)
-  float sun_l[3];         // -sun_dir
-  float sky_up[3];
-  float sun_li[3];        // sun color * intensity
-  float sky_li[3];        // sky color * intensity
-  float point_color[3];
-  float point_intensity;
-  float sky_top[3];       // the gradient sky looking up, and looking down
-  float sky_bottom[3];
-  // get_material: rows for ids 0-3 (floor, albedo, glass, mirror sphere)
-  // with the toggles resolved, row 4 for every other id (the marker)
-  float mat_albedo[kMatRows][3];
-  float mat_spec[kMatRows];
-  float mat_gloss[kMatRows];
+  // get_material's types: rows for ids 0-3 (floor, albedo, glass, mirror
+  // sphere) with the toggles resolved, row 4 for every other id (the
+  // marker); the rows' values are the block's
   int mat_type[kMatRows];  // 0 diffuse, 1 mirror, 2 glass
   float bvh_albedo[3];     // the BVH scene's white plastic
   float bvh_spec, bvh_gloss;
@@ -240,7 +237,9 @@ __device__ float trace_t(const AnScene& s, V3 o, V3 d, bool marker) {
   if (fabsf(denom) >= 1e-6f && tf >= s.eps && tf < best) best = tf;
   for (int k = 0; k < 3; ++k)
     best = sphere_t(best, o, d, c3(s.sphere_c[k]), s.sphere_r2[k], s.eps);
-  if (marker) best = sphere_t(best, o, d, c3(s.point), s.marker_r2, s.eps);
+  if (marker)
+    best = sphere_t(best, o, d, c3(s.prm->point_light_world), s.marker_r2,
+                    s.eps);
   return best;
 }
 
@@ -248,10 +247,11 @@ __device__ float trace_t(const AnScene& s, V3 o, V3 d, bool marker) {
 // one, else the gradient, mix(top, bottom, 1 - t)
 __device__ __forceinline__ V3 sky(const AnScene& s, V3 d) {
   if (s.env != nullptr)
-    return scale3(sample_cubemap(s.env, s.env_f, d), s.env_intensity);
+    return scale3(sample_cubemap(s.env, s.env_f, d),
+                  s.prm->env_map_intensity[0]);
   const float t = fminf(fmaxf(0.5f * (d.y + 1.0f), 0.0f), 1.0f);
-  const V3 top = c3(s.sky_top);
-  return add3(top, scale3(sub3(c3(s.sky_bottom), top), 1.0f - t));
+  const V3 top = c3(s.prm->sky_top);
+  return add3(top, scale3(sub3(c3(s.prm->sky_bottom), top), 1.0f - t));
 }
 
 // vecmath.reflect(-v, n)
@@ -294,21 +294,28 @@ __device__ __forceinline__ V3 disk_term(const AnScene& s, V3 p, V3 n, V3 v,
   return lambert_phong(n, v, l, li, albedo, spec, gloss);
 }
 
+// -sun_dir: the direction toward the sun
+__device__ __forceinline__ V3 sun_l(const AnScene& s) {
+  const float* d = s.prm->sun_dir;
+  return {-d[0], -d[1], -d[2]};
+}
+
 // lighting.sun_direct with the shadow already decided.
 __device__ __forceinline__ V3 sun_term(const AnScene& s, V3 n, V3 vv,
                                        bool blocked, V3 albedo, float spec,
                                        float gloss) {
-  const V3 l = c3(s.sun_l);
+  const V3 l = sun_l(s);
   const float ndl = fmaxf(dot3(n, l), 0.0f);
-  const V3 out = lambert_phong(n, vv, l, c3(s.sun_li), albedo, spec, gloss);
+  const V3 out =
+      lambert_phong(n, vv, l, c3(s.prm->sun_li), albedo, spec, gloss);
   if (ndl > 0.0f && !blocked) return out;
   return {0.0f, 0.0f, 0.0f};
 }
 
 // lighting.sky_direct
 __device__ __forceinline__ V3 sky_term(const AnScene& s, V3 n, V3 albedo) {
-  const float ndl = fmaxf(dot3(n, c3(s.sky_up)), 0.0f);
-  return mul3(scale3(albedo, ndl / kPi), c3(s.sky_li));
+  const float ndl = fmaxf(dot3(n, c3(s.prm->sky_up)), 0.0f);
+  return mul3(scale3(albedo, ndl / kPi), c3(s.prm->sky_li));
 }
 
 // lighting.point_direct; `blocked_in` < 0 asks for the analytic shadow
@@ -317,7 +324,7 @@ __device__ __forceinline__ V3 sky_term(const AnScene& s, V3 n, V3 albedo) {
 __device__ __forceinline__ V3 point_term(const AnScene& s, V3 p, V3 n,
                                          V3 vv, int blocked_in, V3 albedo,
                                          float spec, float gloss) {
-  const V3 to_l = sub3(c3(s.point), p);
+  const V3 to_l = sub3(c3(s.prm->point_light_world), p);
   const float dist2 = dot3(to_l, to_l);
   const float dist = sqrtf(fmaxf(dist2, 1e-20f));
   const V3 l = {to_l.x / dist, to_l.y / dist, to_l.z / dist};
@@ -328,9 +335,9 @@ __device__ __forceinline__ V3 point_term(const AnScene& s, V3 p, V3 n,
     const float t = trace_t(s, add3(p, scale3(l, peps)), l, false);
     blocked = t < kInf && t < dist - peps;
   }
-  const float fall = s.point_intensity / fmaxf(dist2, 1e-4f);
-  const V3 li = {s.point_color[0] * fall, s.point_color[1] * fall,
-                 s.point_color[2] * fall};
+  const float fall = s.prm->point_light_intensity[0] / fmaxf(dist2, 1e-4f);
+  const float* color = s.prm->point_light_color;
+  const V3 li = {color[0] * fall, color[1] * fall, color[2] * fall};
   const V3 out = lambert_phong(n, vv, l, li, albedo, spec, gloss);
   if (dist2 > 1e-6f && ndl > 0.0f && !blocked) return out;
   return {0.0f, 0.0f, 0.0f};
@@ -367,15 +374,15 @@ struct Material {
 
 __device__ __forceinline__ Material material(const AnScene& s, int id) {
   const int row = (id >= 0 && id < kMatRows - 1) ? id : kMatRows - 1;
-  Material m = {c3(s.mat_albedo[0]), s.mat_spec[0], s.mat_gloss[0],
-                s.mat_type[0]};
-  // a select chain: no dynamic index into the parameter struct
+  int type = s.mat_type[0];
+  // a select chain: no dynamic index into the by-value struct
 #pragma unroll
   for (int r = 1; r < kMatRows; ++r) {
-    if (r == row)
-      m = {c3(s.mat_albedo[r]), s.mat_spec[r], s.mat_gloss[r], s.mat_type[r]};
+    if (r == row) type = s.mat_type[r];
   }
-  return m;
+  const ParamBlock* b = s.prm;
+  return {c3(b->mat_albedo + 3 * row), b->mat_spec[row], b->mat_gloss[row],
+          type};
 }
 
 // K3: lighting.direct_light_plain per pixel.
@@ -426,7 +433,7 @@ an_direct_light_kernel(const AnScene s, const float* __restrict__ p_in,
   if (s.sun_e) {
     // any hit blocks the sun: no window (lighting.sun_direct)
     const bool blocked =
-        trace_t(s, add3(p, scale3(n, 1.0f)), c3(s.sun_l), s.point_e) < kInf;
+        trace_t(s, add3(p, scale3(n, 1.0f)), sun_l(s), s.point_e) < kInf;
     acc = add3(acc, sun_term(s, n, vv, blocked, m.albedo, spec_d, m.gloss));
   }
   if (s.sky_e) acc = add3(acc, sky_term(s, n, m.albedo));
@@ -480,7 +487,7 @@ bvh_direct_kernel(const AnScene s, const float4* __restrict__ bounds,
   const V3 vv = norm3(v);
   if (s.sun_e) {
     // lighting._sun_shadow_query: eps 1.0, window 999
-    const V3 l = c3(s.sun_l);
+    const V3 l = sun_l(s);
     const bool blocked =
         dot3(n, l) > 0.0f &&
         any_hit(bounds, meta, tris, n_nodes, add3(p, scale3(n, 1.0f)), l,
@@ -491,7 +498,7 @@ bvh_direct_kernel(const AnScene s, const float4* __restrict__ bounds,
   if (s.sky_e) acc = add3(acc, sky_term(s, n, albedo));
   if (s.point_e) {
     // lighting._point_shadow_query
-    const V3 to_l = sub3(c3(s.point), p);
+    const V3 to_l = sub3(c3(s.prm->point_light_world), p);
     const float dist = sqrtf(fmaxf(dot3(to_l, to_l), 1e-20f));
     const V3 l = {to_l.x / dist, to_l.y / dist, to_l.z / dist};
     const float peps = fmaxf(1e-3f * dist, 1e-4f);
@@ -513,8 +520,8 @@ inline unsigned blocks_for(int64_t n) {
 }  // namespace
 
 // Plain C entry points for ctypes.  `scene` and `grid` are host pointers
-// (the grid's own pointers, `scene->env` and `scene->frame` are device
-// pointers); the other pointers are
+// (the grid's own pointers, `scene->env`, `scene->frame` and
+// `scene->prm` are device pointers); the other pointers are
 // device pointers (`active` and `offs` may be null); the stream is a
 // cudaStream_t.  Each returns cudaGetLastError() as an int.
 extern "C" int ort_an_direct(const AnScene* scene, const void* p,

@@ -63,9 +63,11 @@
 //     order per lane.
 //   * The call samples its own rays.  The AO kernel takes the raw hit
 //     point and normal, the pixel grids (in place, through their strides)
-//     and the frame's record (read through a pointer, with the RNG
-//     keys' (a, b) of the index by value: the arguments are the same for
-//     every frame, so one captured CUDA graph replays it for any frame)
+//     and the frame's record and the parameter block (read through
+//     pointers, with the RNG keys' (a, b) of the index by value: the
+//     arguments are the same for every frame and every value of
+//     ao_bias, ao_radius and ao_min, so one captured CUDA graph replays
+//     it for any of them)
 //     and computes the keys, the samples' rand pairs, the
 //     cosine-hemisphere directions, the biased origin, the walks in
 //     [eps, ao_radius] and the remapped AO value.  The bounce kernel
@@ -86,6 +88,7 @@
 #include <stdint.h>
 
 #include "bvh_walk.cuh"
+#include "param_block.cuh"
 #include "sampling.cuh"
 
 namespace {
@@ -126,11 +129,16 @@ struct AoArgs {
   const float* n;
   PixelGrid grid;
   const FrameRecord* frame;  // the frame index, read on the device
+  // ao_bias, ao_radius, ao_min and ao_span = float32(1.0 - ao_min)
+  const ParamBlock* prm;
   FrameAffine fi;   // frame_index of the index (sampling.rand's keys)
   int samples;      // ao_samples
-  float bias, radius, ao_min;  // float32 of the parameters
-  float ao_span;    // float32(1.0 - ao_min)
   float two_pi;     // float32(2.0 * PI)
+};
+
+// The AO call's parameters, read from the block once a thread.
+struct AoParams {
+  float bias, radius, ao_min, ao_span;
 };
 
 namespace {
@@ -274,7 +282,8 @@ __device__ __forceinline__ unsigned bit_range(int lo, int hi) {
 
 // Sample s of the AO pixel k: occluded within [eps, radius]?
 __device__ __forceinline__ bool ao_occluded(const Tree& tree,
-                                            const AoArgs& a, uint32_t kx,
+                                            const AoArgs& a,
+                                            const AoParams& prm, uint32_t kx,
                                             int64_t k, int s, float eps) {
   float px, py;
   pixel_centre(a.grid, k, &px, &py);
@@ -284,10 +293,10 @@ __device__ __forceinline__ bool ao_occluded(const Tree& tree,
   const float uy = rand01(py + o2, px + o2, kx, ky);
   const V3 nn = norm3(row3(a.n, k));
   const V3 d = hemisphere_cosine(nn, ux, uy, a.two_pi);
-  const V3 o = add3(row3(a.p, k), scale3(nn, a.bias));
-  return a.radius > 0.0f &&
+  const V3 o = add3(row3(a.p, k), scale3(nn, prm.bias));
+  return prm.radius > 0.0f &&
          any_hit_ww(tree.bounds, tree.meta, tree.tris, tree.n_nodes, o, d,
-                    a.radius, eps);
+                    prm.radius, eps);
 }
 
 // K2's AO call (lighting.ambient_occlusion_plain per pixel).  A unit is
@@ -305,6 +314,8 @@ ambient_occlusion_kernel(const Tree tree, const Units u,
   const unsigned below = (1u << lane) - 1u;
   const int S = a.samples;
   const uint32_t kx = frame_value(frame_index(a.frame), a.fi);
+  const AoParams prm = {__ldg(a.prm->ao_bias), __ldg(a.prm->ao_radius),
+                        __ldg(a.prm->ao_min), __ldg(a.prm->ao_span)};
   for (int64_t j = u.first(); j < u.n_units; j += u.stride()) {
     const int64_t base = u.base(j), i = base + lane;
     const bool live = is_live(active, u, base, lane, n);
@@ -320,8 +331,8 @@ ambient_occlusion_kernel(const Tree tree, const Units u,
       bool hit = false;
       if (item < items) {
         const int q = item / S;
-        hit = ao_occluded(tree, a, kx, base + slot[warp][q], item - q * S,
-                          eps);
+        hit = ao_occluded(tree, a, prm, kx, base + slot[warp][q],
+                          item - q * S, eps);
       }
       const unsigned bits = __ballot_sync(kAll, hit);
       const int lo = max(rank * S - j0, 0), hi = min(rank * S + S - j0, 32);
@@ -329,7 +340,8 @@ ambient_occlusion_kernel(const Tree tree, const Units u,
     }
     if (live) {
       const float ao = 1.0f - (float)occ / (float)S;
-      ao_out[i] = fminf(fmaxf(a.ao_min + a.ao_span * ao, a.ao_min), 1.0f);
+      ao_out[i] =
+          fminf(fmaxf(prm.ao_min + prm.ao_span * ao, prm.ao_min), 1.0f);
     }
     __syncwarp();  // the next unit rewrites slot
   }

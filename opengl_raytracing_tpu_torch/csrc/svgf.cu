@@ -21,6 +21,14 @@
 //                        filtered image in device memory;
 //   tonemap_kernel       the tail alone over accum's rgb, SVGF off.
 //
+// Their parameters (the five svgf_* values, the blend strength clamped on
+// the host, the exposure) are words of the parameter block
+// (param_block.cuh), read through a pointer where a thread uses them (the
+// filter's before its taps, the tail's after them, so that none is held
+// in a register across the tap loop): the launch's arguments are the same
+// for every value of them, so a captured CUDA graph replays the call
+// whatever the sliders say.
+//
 // What bounds the filter on this card: instruction issue, not bytes.  A
 // tap is 46 float instructions (three distances, the exponent, expf's 8,
 // the weight, four sums; nothing contracts under --fmad=false), 49 taps a
@@ -79,6 +87,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "param_block.cuh"
+
 namespace {
 
 constexpr int kRadius = 3, kTaps = 2 * kRadius + 1;
@@ -115,6 +125,15 @@ struct Params {
 struct Tone {
   float strength, exposure;
 };
+
+__device__ __forceinline__ Params params_of(const ParamBlock* __restrict__ b) {
+  return {__ldg(b->svgf_var_max), __ldg(b->svgf_k_var), __ldg(b->svgf_k_color),
+          __ldg(b->svgf_k_var_motion), __ldg(b->svgf_k_color_motion)};
+}
+
+__device__ __forceinline__ Tone tone_of(const ParamBlock* __restrict__ b) {
+  return {__ldg(b->svgf_strength_clamped), __ldg(b->exposure)};
+}
 
 // Where the output rows lie: the planes hold `halo` rows above and below
 // them (row -halo .. h + halo - 1 of the output's row numbering), and
@@ -231,7 +250,7 @@ __device__ __forceinline__ void filter_runs(
     const float4* __restrict__ a, const float4* __restrict__ b,
     const float* __restrict__ c, const float* __restrict__ accum,
     const float* __restrict__ motion, int h, int w, Band band, int bx0,
-    int by0, Params prm, Tone tone, float* __restrict__ out) {
+    int by0, const ParamBlock* __restrict__ pb, float* __restrict__ out) {
   const int xs = bx0 + threadIdx.x * kRun;
   const int y = by0 + threadIdx.y;
   if (!kInterior && (xs >= w || y >= h)) return;
@@ -241,6 +260,7 @@ __device__ __forceinline__ void filter_runs(
   // the run's tap (row 0, column col) is tile pixel t0 + tile_at(0, col):
   // its columns start a multiple of kRun into the tile row
   const int t0 = threadIdx.y * kPitch + threadIdx.x;
+  const Params prm = params_of(pb);
 #pragma unroll
   for (int j = 0; j < kRun; ++j) {
     const int t = t0 + tile_at(kRadius, j + kRadius);
@@ -291,6 +311,7 @@ __device__ __forceinline__ void filter_runs(
     }
   }
 
+  const Tone tone = kPresent ? tone_of(pb) : Tone{0.0f, 0.0f};
 #pragma unroll
   for (int j = 0; j < kRun; ++j) {
     if (!kInterior && xs + j >= w) break;
@@ -318,7 +339,8 @@ template <bool kPresent>
 __device__ __forceinline__ void svgf_block(
     const float* __restrict__ accum, const float* __restrict__ motion,
     const float* __restrict__ gpos, const float* __restrict__ gnrm, int h,
-    int w, Band band, Params prm, Tone tone, float* __restrict__ out) {
+    int w, Band band, const ParamBlock* __restrict__ pb,
+    float* __restrict__ out) {
   extern __shared__ float4 tile[];
   float4* a = tile;
   float4* b = a + kTile;
@@ -337,22 +359,22 @@ __device__ __forceinline__ void svgf_block(
                     bx0 - kRadius, by0 - kRadius, tid);
     __syncthreads();
     filter_runs<true, kPresent>(a, b, c, accum, motion, h, w, band, bx0, by0,
-                                prm, tone, out);
+                                pb, out);
   } else {
     load_tile<false>(a, b, c, accum, gpos, gnrm, h, w, band.halo,
                      bx0 - kRadius, by0 - kRadius, tid);
     __syncthreads();
     filter_runs<false, kPresent>(a, b, c, accum, motion, h, w, band, bx0,
-                                 by0, prm, tone, out);
+                                 by0, pb, out);
   }
 }
 
 __global__ void __launch_bounds__(kThreads, kBlocks)
 svgf_kernel(const float* __restrict__ accum, const float* __restrict__ motion,
             const float* __restrict__ gpos, const float* __restrict__ gnrm,
-            int h, int w, Band band, Params prm, float* __restrict__ out) {
-  svgf_block<false>(accum, motion, gpos, gnrm, h, w, band, prm,
-                    Tone{0.0f, 0.0f}, out);
+            int h, int w, Band band, const ParamBlock* __restrict__ pb,
+            float* __restrict__ out) {
+  svgf_block<false>(accum, motion, gpos, gnrm, h, w, band, pb, out);
 }
 
 __global__ void __launch_bounds__(kThreads, kBlocks)
@@ -360,19 +382,21 @@ svgf_present_kernel(const float* __restrict__ accum,
                     const float* __restrict__ motion,
                     const float* __restrict__ gpos,
                     const float* __restrict__ gnrm, int h, int w, Band band,
-                    Params prm, Tone tone, float* __restrict__ out) {
-  svgf_block<true>(accum, motion, gpos, gnrm, h, w, band, prm, tone, out);
+                    const ParamBlock* __restrict__ pb,
+                    float* __restrict__ out) {
+  svgf_block<true>(accum, motion, gpos, gnrm, h, w, band, pb, out);
 }
 
 // The tail alone, SVGF off: filtered == raw.  A thread takes kTonePixels
 // neighbouring pixels: 16-byte loads, and where all are inside the image
 // three 16-byte stores.
 __global__ void __launch_bounds__(kToneThreads)
-tonemap_kernel(const float* __restrict__ accum, int64_t n, Tone tone,
-               float* __restrict__ out) {
+tonemap_kernel(const float* __restrict__ accum, int64_t n,
+               const ParamBlock* __restrict__ pb, float* __restrict__ out) {
   const int64_t i0 =
       ((int64_t)blockIdx.x * kToneThreads + threadIdx.x) * kTonePixels;
   if (i0 >= n) return;
+  const Tone tone = tone_of(pb);
   float v[3 * kTonePixels];
 #pragma unroll
   for (int k = 0; k < kTonePixels; ++k) {
@@ -424,51 +448,45 @@ const float* band_rows(const void* plane, int halo, int w) {
 // [h, w, 4]): contiguous float32 device arrays.  The filter entries
 // compute the h rows of a band that starts at row `row0` of an image
 // `full_h` rows high, with `halo` rows of neighbour data above and below
-// it in the planes; the whole image is halo 0, row0 0, full_h h.  The
-// five svgf_* parameters, the blend strength (already clamped to [0, 1])
-// and the exposure come by value.  Each returns cudaGetLastError() as an
-// int.
+// it in the planes; the whole image is halo 0, row0 0, full_h h.  `prm`
+// is the parameter block on the device: the five svgf_* parameters, the
+// blend strength (already clamped to [0, 1]) and the exposure.  Each
+// returns cudaGetLastError() as an int.
 
 // out = the filtered rgb.
 extern "C" int ort_svgf(const void* accum, const void* motion,
                         const void* gpos, const void* gnrm, int h, int w,
-                        int halo, int row0, int full_h, float var_max,
-                        float k_var, float k_color, float k_var_m,
-                        float k_color_m, void* out, void* stream) {
+                        int halo, int row0, int full_h, const void* prm,
+                        void* out, void* stream) {
   return launch_svgf(svgf_kernel, h, w, stream, band_rows<4>(accum, halo, w),
                      band_rows<2>(motion, halo, w),
                      band_rows<3>(gpos, halo, w), band_rows<3>(gnrm, halo, w),
                      h, w, Band{halo, row0, full_h},
-                     Params{var_max, k_var, k_color, k_var_m, k_color_m},
-                     (float*)out);
+                     (const ParamBlock*)prm, (float*)out);
 }
 
 // out = sRGB of the filtered image blended with accum's rgb.
 extern "C" int ort_svgf_present(const void* accum, const void* motion,
                                 const void* gpos, const void* gnrm, int h,
                                 int w, int halo, int row0, int full_h,
-                                float var_max, float k_var, float k_color,
-                                float k_var_m, float k_color_m,
-                                float strength, float exposure, void* out,
-                                void* stream) {
+                                const void* prm, void* out, void* stream) {
   return launch_svgf(svgf_present_kernel, h, w, stream,
                      band_rows<4>(accum, halo, w),
                      band_rows<2>(motion, halo, w),
                      band_rows<3>(gpos, halo, w), band_rows<3>(gnrm, halo, w),
                      h, w, Band{halo, row0, full_h},
-                     Params{var_max, k_var, k_color, k_var_m, k_color_m},
-                     Tone{strength, exposure}, (float*)out);
+                     (const ParamBlock*)prm, (float*)out);
 }
 
 // out = sRGB of accum's rgb.
-extern "C" int ort_tonemap(const void* accum, int h, int w, float strength,
-                           float exposure, void* out, void* stream) {
+extern "C" int ort_tonemap(const void* accum, int h, int w, const void* prm,
+                           void* out, void* stream) {
   const int64_t n = (int64_t)h * w;
   if (n > 0) {
     const int64_t per_block = (int64_t)kToneThreads * kTonePixels;
     tonemap_kernel<<<(unsigned)((n + per_block - 1) / per_block),
                      kToneThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)accum, n, Tone{strength, exposure}, (float*)out);
+        (const float*)accum, n, (const ParamBlock*)prm, (float*)out);
   }
   return (int)cudaGetLastError();
 }

@@ -92,10 +92,11 @@ def views(block: torch.Tensor) -> dict:
 
 
 class _Ring:
-    """A device's pinned staging slots and the events of their copies."""
+    """A device's pinned staging slots of one block size and the events of
+    their copies."""
 
-    def __init__(self):
-        self.slots = torch.empty((SLOTS, WORDS), dtype=torch.int32,
+    def __init__(self, words: int):
+        self.slots = torch.empty((SLOTS, words), dtype=torch.int32,
                                  pin_memory=True)
         self.events = [torch.cuda.Event() for _ in range(SLOTS)]
         self.next = 0
@@ -115,15 +116,16 @@ _RINGS: dict = {}
 
 
 def stage(words: np.ndarray, device) -> torch.Tensor:
-    """A new block on `device` holding `words`: on a card one
-    `non_blocking` copy from a pinned staging slot, on the CPU a copy of
-    the array."""
+    """A new int32 block on `device` holding `words` (this module's blocks,
+    and models/param_block.py's): on a card one `non_blocking` copy from a
+    pinned staging slot, elsewhere a copy of the array there."""
     device = torch.device(device)
     if device.type != "cuda":
-        return torch.from_numpy(np.array(words, np.int32))
-    block = torch.empty(WORDS, dtype=torch.int32, device=device)
-    ring = _RINGS.get(block.device)
+        return torch.from_numpy(np.array(words, np.int32)).to(device)
+    block = torch.empty(len(words), dtype=torch.int32, device=device)
+    key = (block.device, len(words))
+    ring = _RINGS.get(key)
     if ring is None:
-        ring = _RINGS[block.device] = _Ring()
+        ring = _RINGS[key] = _Ring(len(words))
     ring.put(words, block)
     return block

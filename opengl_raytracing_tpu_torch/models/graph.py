@@ -4,18 +4,23 @@ configuration and replayed every frame.
 The port's counterpart of the JAX package's jitted frame (`--jit`,
 `Application._render_fn`, the turbo chain and bench.py's one-dispatch
 chain).  A frame's operations read every per-frame value from its device
-block (models/frame_block.py), so one capture serves every frame index
-and camera of a configuration.
+block (models/frame_block.py) and every data field of its parameters
+from their parameter block (models/param_block.py), so one capture serves
+every frame index, camera and slider value of a configuration, as one
+jitted JAX frame does.
 
   * The key (`graph_key`) holds the image size and device, `use_bvh`,
-    `show_motion`, `want_u8`, every `RenderParams` value, the host flag
+    `show_motion`, `want_u8`, the static fields of `RenderParams`
+    (`params.static_key`: JAX's pytree metadata) and the outcomes of the
+    host's branches on data fields (`params.host_branches`), the host flag
     `fin.moved`, and the identity of the BVH's and the environment's
     tensors (the entry keeps them alive, so an identity is never reused
     while its graph lives), and the static accumulation it renders into.
-    Neither the frame index nor the camera is in it.
-  * Graphs share a static block per device, and a static accumulation
-    per size and device.  A call copies its inputs' block into the static
-    one (one device copy), and its state's accumulation too where the
+    Neither the frame index, the camera nor a data field's value is in it.
+  * Graphs share a static frame block and a static parameter block per
+    device, and a static accumulation per size and device.  A call copies
+    its inputs' frame block and its parameters' block into the static
+    ones (two device copies), and its state's accumulation too where the
     state does not already hold a static one (JAX's donation: a fresh or
     reset state costs a copy, never a capture).  The last state a call
     returned with a static accumulation owns it while that state lives:
@@ -52,15 +57,15 @@ from typing import Optional
 import torch
 
 from ..ops import cuda_lib
-from ..ops.scene import light_vectors
+from ..params import host_branches, static_key
 from .pipeline import FrameInputs, RenderState, render_staged
-from . import frame_block
+from . import frame_block, param_block
 
 MAX_GRAPHS = 8  # the oldest graph is dropped beyond this many
 STATS = {"captures": 0, "replays": 0}
 
 _GRAPHS: "collections.OrderedDict" = collections.OrderedDict()
-_BLOCKS: dict = {}  # device -> the static block
+_BLOCKS: dict = {}  # (device, words) -> a static block
 _SLOTS: dict = {}   # (device, height, width) -> [_Slot]
 
 
@@ -88,20 +93,22 @@ def quantize_u8(img: torch.Tensor) -> torch.Tensor:
 def graph_key(params, fin: FrameInputs, env_map, bvh, *, device, height,
               width, use_bvh, show_motion, want_u8) -> tuple:
     """The configuration a captured frame is valid for (module docstring);
-    the frame index and the camera are not in it."""
+    the frame index, the camera and the data fields' values are not in
+    it."""
     tensors = (() if bvh is None else
                (bvh.arrays.bounds, bvh.arrays.meta, bvh.arrays.tris))
     return (torch.device(device), height, width, bool(use_bvh),
-            bool(show_motion), bool(want_u8), params, fin.moved,
+            bool(show_motion), bool(want_u8), static_key(params),
+            host_branches(params), fin.moved,
             tuple(id(t) for t in tensors),
             None if env_map is None else id(env_map))
 
 
-def _block(device) -> torch.Tensor:
-    got = _BLOCKS.get(device)
+def _block(device, words: int) -> torch.Tensor:
+    got = _BLOCKS.get((device, words))
     if got is None:
-        got = _BLOCKS[device] = torch.zeros(frame_block.WORDS,
-                                            dtype=torch.int32, device=device)
+        got = _BLOCKS[(device, words)] = torch.zeros(
+            words, dtype=torch.int32, device=device)
     return got
 
 
@@ -138,9 +145,11 @@ def render(params, fin: FrameInputs, state: RenderState, env_map=None,
     key = (graph_key(params, fin, env_map, bvh, device=device, height=height,
                      width=width, use_bvh=use_bvh, show_motion=show_motion,
                      want_u8=want_u8), slot.accum.data_ptr())
-    block = _block(device)
+    block = _block(device, frame_block.WORDS)
     block.copy_(fin.block)
     static_fin = FrameInputs(block, moved=fin.moved)
+    pblock = _block(device, param_block.WORDS)
+    pblock.copy_(param_block.block(params, device))
     static_state = RenderState(slot.accum, state.frame_index)
     new_state = RenderState(slot.accum, state.frame_index + 1)
     slot.owner = weakref.ref(new_state)
@@ -148,7 +157,8 @@ def render(params, fin: FrameInputs, state: RenderState, env_map=None,
     def frame():
         st, out = render_staged(params, static_fin, static_state, env_map,
                                 bvh, height=height, width=width,
-                                use_bvh=use_bvh, show_motion=show_motion)
+                                use_bvh=use_bvh, show_motion=show_motion,
+                                pblock=pblock)
         return out, quantize_u8(out.image) if want_u8 else None
 
     g = _GRAPHS.get(key)
@@ -159,9 +169,7 @@ def render(params, fin: FrameInputs, state: RenderState, env_map=None,
         STATS["replays"] += 1
         return (new_state, *g.outputs)
     out = frame()  # the warm-up, and this frame's result
-    _GRAPHS[key] = _capture(frame, device,
-                            keep=(bvh, env_map, slot.accum,
-                                  light_vectors(params, device)))
+    _GRAPHS[key] = _capture(frame, device, keep=(bvh, env_map, slot.accum))
     while len(_GRAPHS) > MAX_GRAPHS:
         _GRAPHS.popitem(last=False)
     return (new_state, *out)

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..constants import MAT_POINTLIGHT_SPHERE
-from ..params import RenderParams, f32
+from ..params import RenderParams, bind
 from ..sampling import Frame, FrameValue, ndc_from_world
 from ..ops.materials import MTYPE_GLASS, MTYPE_MIRROR, get_material
 from ..ops.scene import BVHDevice, SceneCtx
@@ -201,9 +201,9 @@ def _shade_bvh(scene: SceneCtx, h: Hit, seed: Frame, frame_index: Frame,
     radiance = lt.direct_light_bvh(scene, h, seed, frame_index, vdir, px, py,
                                    active=active)
     if params.enable_gi:
-        radiance = radiance + f32(params.gi_scale_bvh) * \
-            lt.one_bounce_gi_bvh(scene, h, frame_index, seed, frame_index,
-                                 px, py, active=active)
+        radiance = radiance + lt.one_bounce_gi_bvh(
+            scene, h, frame_index, seed, frame_index, px, py,
+            active=active) * params["gi_scale_bvh"]
     if params.enable_ao:
         if ao is None:
             ao = lt.compute_ao(scene, h, frame_index, px, py, active=active)
@@ -224,17 +224,16 @@ def _shade_analytic(scene: SceneCtx, h: Hit, seed: Frame, frame_index: Frame,
     mat = get_material(h.mat, params)
     radiance = lt.direct_light(scene, h, seed, frame_index, vdir, px, py)
     if params.enable_gi:
-        radiance = radiance + f32(params.gi_scale_analytic) * \
-            lt.one_bounce_gi_analytic(scene, h, frame_index, seed,
-                                      frame_index, px, py)
+        radiance = radiance + lt.one_bounce_gi_analytic(
+            scene, h, frame_index, seed, frame_index, px, py) \
+            * params["gi_scale_analytic"]
     if params.enable_ao:
         if ao is None:
             ao = lt.compute_ao(scene, h, frame_index, px, py)
         radiance = radiance * ao[..., None]
 
     # emissive point-light marker (reference: rt.frag:137-148)
-    base_col = (const3(params.point_light_color, h.t.device)
-                * params.point_light_intensity)
+    base_col = params["point_light_color"] * params["point_light_intensity"]
     d = length(h.p - scene.cam_pos)
     falloff = 1.0 / torch.clamp_min(d * d * 0.25 + 1.0, 1.0)
     emissive = base_col * falloff[..., None]
@@ -288,12 +287,17 @@ def render_staged(params: RenderParams, fin: FrameInputs, state: RenderState,
                   env_map: Optional[torch.Tensor] = None,
                   bvh: Optional[BVHDevice] = None,
                   *, height: int, width: int, use_bvh: bool = False,
-                  show_motion: bool = False):
+                  show_motion: bool = False, pblock=None):
     """`render_frame` of inputs whose block holds the frame's index: every
-    per-frame value comes from the device block, none from the host, so
-    the sequence of operations and their host arguments is the same for
-    every frame (what makes one CUDA graph capture valid for all of them,
+    per-frame value comes from the device block, none from the host, and
+    every data field of `params` from its parameter block
+    (models/param_block.py: `pblock` when given, a block holding
+    `params`' words, as a captured frame's static one; else the cached
+    block of `params`).  The sequence of operations and their host
+    arguments is then the same for every frame and every value of the
+    data fields (what makes one CUDA graph capture valid for all of them,
     models/graph.py)."""
+    params = bind(params, state.accum.device, pblock)
     scene = SceneCtx.create(params, fin.cam_pos, env_map=env_map,
                             use_bvh=use_bvh, bvh=bvh)
     px, py, rd = primary_rays(height, width, fin, params)

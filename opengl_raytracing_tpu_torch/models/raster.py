@@ -24,10 +24,10 @@ from typing import Optional
 import torch
 
 from ..constants import INF
-from ..params import RenderParams
+from ..params import RenderParams, bind
 from ..ops import bvh_cuda
 from ..ops.intersect import intersect_plane, intersect_sphere
-from ..ops.scene import BVHDevice, compute_point_light_world_pos
+from ..ops.scene import BVHDevice
 from ..ops.vecmath import const3
 from .pipeline import FrameInputs, primary_rays
 
@@ -43,7 +43,7 @@ MARKER_RADIUS = 0.15
 def render_raster(params: RenderParams, fin: FrameInputs,
                   bvh: Optional[BVHDevice], *, height: int, width: int):
     """Flat-shaded visibility image [H,W,3] (GL bottom-up rows), on the
-    device of `fin`."""
+    device of `fin`; `params` a RenderParams or a FrameParams there."""
     # the reference raster pass renders with the unjittered view/proj
     # (render.cpp sets plain currView/currProj); zero the TAA jitter so
     # the preview doesn't shimmer frame-to-frame
@@ -77,11 +77,12 @@ def render_raster(params: RenderParams, fin: FrameInputs,
                             SPHERE_RADIUS)
     best_t, color = consider(t, v, const3(SPHERE_COLOR, dev), best_t, color)
 
-    # Point-light marker
-    if params.point_light_enabled:
-        plp = compute_point_light_world_pos(params).to(dev)
-        t, v = intersect_sphere(ro, rd, plp, MARKER_RADIUS)
-        col = const3(params.point_light_color, dev) * 3.0
+    # Point-light marker, at the orbit position and in the colour of the
+    # parameter block
+    p = bind(params, dev)
+    if p.point_light_enabled:
+        t, v = intersect_sphere(ro, rd, p["point_light_world"], MARKER_RADIUS)
+        col = p["point_light_color"] * 3.0
         best_t, color = consider(t, v, col, best_t, color)
 
     return torch.clamp(color, 0.0, 1.0)

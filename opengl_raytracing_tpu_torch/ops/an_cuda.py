@@ -18,11 +18,14 @@ through their strides (`cuda_lib.PixelGrid`), and compute the rest themselves:
 normalisation, the material table, the environment of the reflected view
 (the scene's cubemap, sampled in the kernel from the float32 table that
 `_AnScene.env` points to, or the gradient sky when the scene has none)
-and the disk-light offsets' hash chain.  The scene constants, the material
-table, a pointer to the frame's record and the (a, b) of the call's two
-frame values go by value in one struct (`_AnScene`, the mirror of the C
-struct `AnScene`, filled by `scene_args`): it is the same for every frame
-of a configuration, so a captured CUDA graph replays the call.  The wrapper
+and the disk-light offsets' hash chain.  The scene's fixed constants, the
+material types and light toggles, a pointer to the frame's record, one to
+the parameter block (models/param_block.py: the lights, the sky, the
+material table, the environment's intensity) and the (a, b) of the call's
+two frame values go by value in one struct (`_AnScene`, the mirror of the
+C struct `AnScene`, filled by `scene_args`): it is the same for every
+frame and every value of the data parameters of a configuration, so a
+captured CUDA graph replays the call.  The wrapper
 makes nothing but the contiguous copies of rows that are not contiguous
 already.
 Launches go through ops/cuda_lib.py (`LAUNCHES["an_direct"]`,
@@ -50,7 +53,7 @@ from ..sampling import Frame
 from . import bvh_cuda, cuda_lib
 from . import lighting as lt
 from .cuda_lib import check
-from .materials import get_material
+from .materials import MTYPE_DIFFUSE, MTYPE_GLASS, MTYPE_MIRROR
 
 _F3 = ctypes.c_float * 3
 # One material id per row of the kernels' table: the floor, the albedo,
@@ -68,21 +71,13 @@ class _AnScene(ctypes.Structure):
     when the library loads)."""
     _fields_ = [
         ("env", ctypes.c_void_p), ("frame", ctypes.c_void_p),
-        ("env_f", ctypes.c_int),
-        ("env_intensity", ctypes.c_float),
+        ("prm", ctypes.c_void_p), ("env_f", ctypes.c_int),
         ("light_c", _F3), ("light_t", _F3), ("light_b", _F3),
         ("light_nneg", _F3), ("light_color", _F3),
         ("light_radius", ctypes.c_float),
         ("floor_n", _F3), ("floor_d", ctypes.c_float),
         ("sphere_c", _F3 * 3), ("sphere_r2", _F3),
         ("marker_r2", ctypes.c_float),
-        ("point", _F3), ("sun_l", _F3), ("sky_up", _F3),
-        ("sun_li", _F3), ("sky_li", _F3),
-        ("point_color", _F3), ("point_intensity", ctypes.c_float),
-        ("sky_top", _F3), ("sky_bottom", _F3),
-        ("mat_albedo", _F3 * MAT_ROWS),
-        ("mat_spec", ctypes.c_float * MAT_ROWS),
-        ("mat_gloss", ctypes.c_float * MAT_ROWS),
         ("mat_type", ctypes.c_int * MAT_ROWS),
         ("bvh_albedo", _F3), ("bvh_spec", ctypes.c_float),
         ("bvh_gloss", ctypes.c_float),
@@ -135,47 +130,51 @@ def _env_table(scene, device):
 def scene_args(scene, rng_frame: Frame, frame_index: Frame, env=None,
                device=None):
     """(the kernels' constants for one call, the frame record they point
-    to): the scene's (see `_scene_constants`), the cubemap table `env`
-    (`_env_table`; None leaves the pointer null) and the frame record
-    with `frame_index` and `rng_frame` as (a, b) of its index
-    (`cuda_lib.frame_args`; the kernel derives sampling.rand's xor keys of
-    cp_offset's two frames, frame_index * 911 and * 577, and of
-    `rng_frame`, and reads ld2(frame_index) from the record).  The same
-    bytes for every frame of one configuration.  `device` as
+    to): the scene's (see `_scene_constants`), the pointer to its
+    parameter block, the cubemap table `env` (`_env_table`; None leaves
+    the pointer null) and the frame record with `frame_index` and
+    `rng_frame` as (a, b) of its index (`cuda_lib.frame_args`; the kernel
+    derives sampling.rand's xor keys of cp_offset's two frames,
+    frame_index * 911 and * 577, and of `rng_frame`, and reads
+    ld2(frame_index) from the record).  The same bytes for every frame and
+    every value of the data parameters of one configuration.  `device` as
     `cuda_lib.frame_args` takes it."""
+    p = scene.params
     s = _AnScene.from_buffer_copy(_scene_constants(
-        scene.params, tuple(sorted(scene.host_vectors.items()))))
+        *(int(bool(getattr(p, k))) for k in _SCENE_TOGGLES)))
     record, (cp, smp) = cuda_lib.frame_args(device, frame_index, rng_frame)
     if (cp.a, cp.b) != (1, 0):
         raise ValueError("frame_index must be the record's frame index: the "
                          "kernels read ld2 of it from the record")
     s.frame, s.cp, s.smp = record.data_ptr(), cp, smp
+    s.prm = cuda_lib.param_block_ptr(p, device)
     if env is not None:
         s.env = env.data_ptr()
         s.env_f = env.shape[1]
-        s.env_intensity = _f32(scene.params.env_map_intensity)
     return s, record
 
 
-@functools.lru_cache(maxsize=16)
-def _scene_constants(params, host_vectors) -> bytes:
-    """The `AnScene` bytes that depend on the parameters alone (the RNG
-    keys left zero), each value rounded to float32 as the plain version
-    rounds it: products of two host floats are taken in float32, like a
-    float32 tensor times a Python float; squared radii in double first,
-    like `dot(oc, oc) - radius * radius`; the material table is
-    get_material's own rows, the glass and mirror toggles resolved."""
-    p = params
-    hv = dict(host_vectors)
+# the static parameters `_scene_constants` depends on
+_SCENE_TOGGLES = ("sun_enabled", "sky_enabled", "point_light_enabled",
+                  "mat_glass_enabled", "mat_mirror_enabled")
 
-    def prod(color, scale):
-        return _F3(*(torch.tensor(color, dtype=torch.float32)
-                     * scale).tolist())
+
+@functools.lru_cache(maxsize=None)
+def _scene_constants(sun_e, sky_e, point_e, glass_e, mirror_e) -> bytes:
+    """The `AnScene` bytes that depend on the static parameters alone (the
+    pointers and RNG keys left zero), each value rounded to float32 as
+    the plain version rounds it: squared radii in double first, like
+    `dot(oc, oc) - radius * radius`; the material types are get_material's,
+    the glass and mirror toggles resolved."""
 
     def v3(x):
         return _F3(*(_f32(c) for c in x))
 
-    mat = get_material(torch.tensor(_TABLE_IDS, dtype=torch.int32), p)
+    types = [MTYPE_DIFFUSE] * MAT_ROWS
+    if glass_e:
+        types[_TABLE_IDS.index(MAT_GLASS_SPHERE)] = MTYPE_GLASS
+    if mirror_e:
+        types[_TABLE_IDS.index(MAT_MIRROR_SPHERE)] = MTYPE_MIRROR
     return bytes(_AnScene(
         light_c=v3(LIGHT_CENTER), light_t=v3(lt.LIGHT_T),
         light_b=v3(lt.LIGHT_B), light_nneg=v3(-lt.LIGHT_N),
@@ -187,24 +186,11 @@ def _scene_constants(params, host_vectors) -> bytes:
                       _f32(GLASS_RADIUS * GLASS_RADIUS),
                       _f32(MIRROR_RADIUS * MIRROR_RADIUS)),
         marker_r2=_f32(POINT_LIGHT_MARKER_RADIUS * POINT_LIGHT_MARKER_RADIUS),
-        point=v3(hv["point_light_pos"]),
-        sun_l=v3(-np.float32(hv["sun_dir"])), sky_up=v3(hv["sky_up"]),
-        sun_li=prod(p.sun_color, p.sun_intensity),
-        sky_li=prod(p.sky_color, p.sky_intensity),
-        point_color=v3(p.point_light_color),
-        point_intensity=_f32(p.point_light_intensity),
-        # scene_analytic.sky's gradient ends
-        sky_top=prod((0.6, 0.7, 0.9), 0.3),
-        sky_bottom=prod((0.1, 0.15, 0.3), 0.3),
-        mat_albedo=(_F3 * MAT_ROWS)(*(_F3(*a) for a in mat.albedo.tolist())),
-        mat_spec=(ctypes.c_float * MAT_ROWS)(*mat.spec_strength.tolist()),
-        mat_gloss=(ctypes.c_float * MAT_ROWS)(*mat.gloss.tolist()),
-        mat_type=(ctypes.c_int * MAT_ROWS)(*mat.mtype.tolist()),
+        mat_type=(ctypes.c_int * MAT_ROWS)(*types),
         bvh_albedo=v3(BVH_ALBEDO), bvh_spec=_f32(BVH_SPEC_STRENGTH),
         bvh_gloss=_f32(BVH_GLOSS), eps=_f32(EPS),
         pi_4=_f32(PI / 4.0), pi_2=_f32(PI / 2.0),
-        sun_e=int(bool(p.sun_enabled)), sky_e=int(bool(p.sky_enabled)),
-        point_e=int(bool(p.point_light_enabled))))
+        sun_e=sun_e, sky_e=sky_e, point_e=point_e))
 
 
 def _pixel_rows(h, vdir, device):

@@ -54,10 +54,8 @@ class _AoArgs(ctypes.Structure):
     """Host mirror of `AoArgs` in csrc/bvh_trace.cu."""
     _fields_ = [("p", ctypes.c_void_p), ("n", ctypes.c_void_p),
                 ("grid", cuda_lib.PixelGrid), ("frame", ctypes.c_void_p),
-                ("fi", _Affine),
-                ("samples", ctypes.c_int), ("bias", ctypes.c_float),
-                ("radius", ctypes.c_float), ("ao_min", ctypes.c_float),
-                ("ao_span", ctypes.c_float), ("two_pi", ctypes.c_float)]
+                ("prm", ctypes.c_void_p), ("fi", _Affine),
+                ("samples", ctypes.c_int), ("two_pi", ctypes.c_float)]
 
 
 _P, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
@@ -119,15 +117,15 @@ def bounce_args(rng_frame: Frame, seed: Frame, device=None):
 def ao_args(params, frame_index: Frame, device=None):
     """(the AO kernel's constants for one call, the frame record they
     point to; the hit and grid pointers left null): the record,
-    `frame_index` as (a, b) of its index and the AO parameters in
-    float32, as lighting.ambient_occlusion_plain rounds them.  The same
-    bytes for every frame of one configuration."""
+    `frame_index` as (a, b) of its index, `ao_samples` and a pointer to
+    the parameter block, whose ao_bias, ao_radius, ao_min and ao_span the
+    kernel reads (the float32 words lighting.ambient_occlusion_plain
+    reads).  The same bytes for every frame and every value of the data
+    parameters of one configuration."""
     record, (fi,) = cuda_lib.frame_args(device, frame_index)
-    ao_min = f32(params.ao_min)
-    return _AoArgs(frame=record.data_ptr(), fi=fi,
+    return _AoArgs(frame=record.data_ptr(),
+                   prm=cuda_lib.param_block_ptr(params, device), fi=fi,
                    samples=int(params.ao_samples),
-                   bias=f32(params.ao_bias), radius=f32(params.ao_radius),
-                   ao_min=ao_min, ao_span=f32(1.0 - ao_min),
                    two_pi=f32(2.0 * PI)), record
 
 
@@ -218,7 +216,8 @@ def trace_bounce(bvh: BVHArrays, h0: Hit, rng_frame: Frame, seed: Frame,
 def ambient_occlusion(bvh: BVHArrays, h: Hit, frame_index: Frame, px, py,
                       params, active=None):
     """Cosine-hemisphere ambient occlusion at hits `h` (the contract of
-    lighting.ambient_occlusion_plain): params.ao_samples any-hit walks in
+    lighting.ambient_occlusion_plain; `params` a RenderParams or a
+    FrameParams on h's device): params.ao_samples any-hit walks in
     [EPS, ao_radius] from h.p + normalize(h.n)*ao_bias, remapped to
     [ao_min, 1].  Lanes where `active` (bool, h.t's shape) is False trace
     nothing; their values are unspecified (the kernel leaves them

@@ -13,8 +13,11 @@ went through the kernels; `launch` adds to it, after the kernel was
 accepted, and `add_launches` for a replayed CUDA graph (the launches its
 capture enqueued: models/graph.py takes a capture's own counts back).
 The host mirrors of the kernels' `PixelGrid` and `FrameAffine`
-(csrc/sampling.cuh), the frame record the kernels read (`frame_args`)
-and the row helpers the wrappers share are here too.
+(csrc/sampling.cuh), the frame record the kernels read (`frame_args`),
+the pointer to the parameter block they read (`param_block_ptr`; every
+library's layout of it, csrc/param_block.cuh, is held to
+models/param_block.py's when it loads) and the row helpers the wrappers
+share are here too.
 """
 
 from __future__ import annotations
@@ -112,8 +115,27 @@ def library(name: str, signatures: dict):
         for fn, (argtypes, restype) in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
+        _check_param_layout(lib, name)
         _libs[name] = lib
     return lib
+
+
+def _check_param_layout(lib, name: str) -> None:
+    """Raise unless library `name` lays the parameter block out as
+    models/param_block.py does: each field's first word in FIELDS' order,
+    then the words used."""
+    from ..models import param_block
+    want = ([at for at, _ in param_block.FIELDS.values()]
+            + [param_block.USED])
+    fn = lib.ort_param_block_layout
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    fn.restype = ctypes.c_int
+    got = (ctypes.c_int * len(want))()
+    if fn(got, len(want)) != len(want) - 1 or list(got) != want:
+        raise RuntimeError(f"the parameter block's layout differs between "
+                           f"csrc/param_block.cuh (library {name}: "
+                           f"{list(got)}) and models/param_block.py "
+                           f"({want})")
 
 
 def check(name, x, dtype, shape, device, align=4):
@@ -183,6 +205,21 @@ def frame_args(device, *frames):
     check("frame record", record, torch.int32, (3,),
           record.device if device is None else device)
     return record, [FrameAffine(f.a, f.b) for f in frames]
+
+
+def param_block_ptr(params, device=None) -> int:
+    """The device pointer to the parameter block of `params` (a FrameParams,
+    or a RenderParams bound to its cached block on `device`), checked: an
+    int32 [WORDS] block, 16-byte aligned, on `device` (None: wherever it
+    lies; the tests read the arguments on the CPU)."""
+    from ..models import param_block
+    from ..params import FrameParams, bind
+    if device is None and isinstance(params, FrameParams):
+        device = params.device
+    p = bind(params, "cpu" if device is None else device)
+    check("parameter block", p.block, torch.int32, (param_block.WORDS,),
+          p.block.device, align=16)
+    return p.block.data_ptr()
 
 
 class PixelGrid(ctypes.Structure):

@@ -32,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..params import f32
+from ..params import bind
 from ..constants import (EPS, PI, SOFT_SHADOW_SAMPLES, LIGHT_CENTER,
                          LIGHT_NORMAL_RAW, LIGHT_RADIUS, LIGHT_COLOR,
                          BVH_ALBEDO, BVH_SPEC_STRENGTH, BVH_GLOSS, GI_MAX_LUM,
@@ -117,8 +117,7 @@ def sun_direct(scene: SceneCtx, h, mat, vdir, blocked=None):
     if blocked is None:
         origin, ldir, _ = _sun_shadow_query(scene, h, n)
         blocked = scene.trace(origin, ldir).valid  # any hit blocks
-    li = (const3(scene.params.sun_color, h.t.device)
-          * scene.params.sun_intensity)
+    li = scene.params["sun_li"]
     spec = torch.where(mat.mtype == MTYPE_DIFFUSE, mat.spec_strength, 0.0)
     out = shade_lambert_phong(n, v, l, li, mat.albedo, spec, mat.gloss)
     return torch.where(((ndl > 0.0) & ~blocked)[..., None], out, 0.0)
@@ -131,8 +130,7 @@ def sky_direct(scene: SceneCtx, h, mat):
         return torch.zeros(h.t.shape + (3,), device=h.t.device)
     n = normalize(h.n)
     ndl = torch.clamp_min(dot(n, scene.sky_up), 0.0)
-    li = (const3(scene.params.sky_color, h.t.device)
-          * scene.params.sky_intensity)
+    li = scene.params["sky_li"]
     return mat.albedo * (ndl / PI)[..., None] * li
 
 
@@ -164,9 +162,10 @@ def point_direct(scene: SceneCtx, h, mat, vdir, blocked=None):
         # the marker sphere must not shadow its own light
         tmp = scene.trace_ignore_point_light(origin, ldir)
         blocked = tmp.valid & (tmp.t < win)
-    li = (const3(scene.params.point_light_color, h.t.device)
-          * (scene.params.point_light_intensity
-             / torch.clamp_min(dist2, 1e-4))[..., None])
+    # intensity / d2 as a host intensity divides: the reciprocal times it
+    li = (scene.params["point_light_color"]
+          * (torch.reciprocal(torch.clamp_min(dist2, 1e-4))
+             * scene.params["point_light_intensity"])[..., None])
     spec = torch.where(mat.mtype == MTYPE_DIFFUSE, mat.spec_strength, 0.0)
     out = shade_lambert_phong(n, v, l, li, mat.albedo, spec, mat.gloss)
     ok = (dist2 > 1e-6) & (ndl > 0.0) & ~blocked
@@ -498,9 +497,9 @@ def shade_mirror(scene: SceneCtx, h, wo, mat, seed: Frame, frame_index: Frame,
     if scene.params.enable_gi:
         # the GLSL call passes the mirror's seed as the bounce's rng frame
         # and a derived seed for its sample offsets
-        col_hit = col_hit + f32(scene.params.gi_scale_analytic) * \
-            one_bounce_gi_analytic(scene, h2, seed, seed * 131 + 17,
-                                   frame_index, px, py)
+        col_hit = col_hit + one_bounce_gi_analytic(
+            scene, h2, seed, seed * 131 + 17, frame_index, px, py) \
+            * scene.params["gi_scale_analytic"]
     col = torch.where(h2.valid[..., None], col_hit, scene.sky(r))
     return col * mat.albedo
 
@@ -508,6 +507,7 @@ def shade_mirror(scene: SceneCtx, h, wo, mat, seed: Frame, frame_index: Frame,
 def _ao_rays(h, frame_index: Frame, px, py, params):
     """(origin, [direction] * ao_samples) of the AO hemisphere rays
     (reference: rt_lighting.glsl:721-744)."""
+    params = bind(params, h.t.device)
     n = normalize(h.n)
     dirs = []
     for i in range(params.ao_samples):
@@ -515,16 +515,18 @@ def _ao_rays(h, frame_index: Frame, px, py, params):
         ux = rand(px + o1, py + o1, frame_index)
         uy = rand(py + o2, px + o2, frame_index)
         dirs.append(sample_hemisphere_cosine(n, ux, uy))
-    return h.p + n * f32(params.ao_bias), dirs
+    return h.p + n * params["ao_bias"], dirs
 
 
 def _ao_value(occ, params):
     """The occlusion bits [ao_samples, ...] remapped to [ao_min, 1]
     (reference: rt_lighting.glsl:745-757)."""
+    params = bind(params, occ.device)
     occluded = occ.to(torch.float32).sum(0)
-    ao_min = f32(params.ao_min)
+    ao_min = params["ao_min"]
     ao = 1.0 - occluded / float(params.ao_samples)
-    return torch.clamp(ao_min + f32(1.0 - ao_min) * ao, ao_min, 1.0)
+    return torch.clamp_max(torch.clamp_min(ao_min + params["ao_span"] * ao,
+                                           ao_min), 1.0)
 
 
 def ambient_occlusion_plain(bvh, h, frame_index: Frame, px, py, params,
@@ -535,10 +537,10 @@ def ambient_occlusion_plain(bvh, h, frame_index: Frame, px, py, params,
     of the plain any-hit walk (boolean-identical to the reference's
     closest hit within the radius); lanes where `active` is False count
     no occluder."""
+    params = bind(params, h.t.device)
     org, dirs = _ao_rays(h, frame_index, px, py, params)
     shape = h.t.shape
-    win = torch.full(shape, f32(params.ao_radius), dtype=torch.float32,
-                     device=h.t.device)
+    win = params["ao_radius"].expand(shape)
     occ = trace_bvh_shadow(
         bvh, torch.cat([org.expand(shape + (3,)).reshape(-1, 3)] * len(dirs)),
         torch.cat([d.expand(shape + (3,)).reshape(-1, 3) for d in dirs]),
@@ -563,4 +565,4 @@ def compute_ao(scene: SceneCtx, h, frame_index: Frame, px, py, active=None):
                                           px, py, params, active)
     org, dirs = _ao_rays(h, frame_index, px, py, params)
     hits = scene.trace(org[None], torch.stack(dirs))
-    return _ao_value(hits.valid & (hits.t < f32(params.ao_radius)), params)
+    return _ao_value(hits.valid & (hits.t < params["ao_radius"]), params)

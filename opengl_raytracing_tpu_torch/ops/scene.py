@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..constants import EPS
-from ..params import RenderParams
+from ..params import FrameParams, RenderParams, bind
 from ..scene.bvh import BVHArrays, build_bvh_fast, bvh_to_arrays
 from . import bvh_cuda
 from . import scene_analytic as sa
@@ -77,55 +77,34 @@ def compute_point_light_world_pos(params: RenderParams):
                           0.0)
 
 
-_LIGHTS: dict = {}
-
-
-def light_vectors(params: RenderParams, device):
-    """({name: [3] tensor on `device`}, {name: host tuple}) of the point
-    light's position, the sun's direction and the sky's up vector, made
-    once per (params, device) and shared (read-only by contract)."""
-    key = (params, torch.device(device))
-    got = _LIGHTS.get(key)
-    if got is None:
-        host = dict(
-            point_light_pos=compute_point_light_world_pos(params),
-            sun_dir=dir_from_yaw_pitch(params.sun_yaw, params.sun_pitch),
-            sky_up=dir_from_yaw_pitch(params.sky_yaw, params.sky_pitch))
-        got = ({k: v.to(device) for k, v in host.items()},
-               {k: tuple(v.tolist()) for k, v in host.items()})
-        if len(_LIGHTS) >= 64:  # the orbit makes new params every step
-            _LIGHTS.clear()
-        _LIGHTS[key] = got
-    return got
-
-
 @dataclasses.dataclass(frozen=True)
 class SceneCtx:
-    """Per-frame scene inputs and the scene mode."""
-    params: RenderParams
+    """Per-frame scene inputs and the scene mode.  `params` reads its data
+    fields from the frame's parameter block; the light vectors are views
+    of that block."""
+    params: FrameParams
     cam_pos: torch.Tensor          # [3]
     point_light_pos: torch.Tensor  # [3]
     sun_dir: torch.Tensor          # [3]
     sky_up: torch.Tensor           # [3]
-    # the three vectors above as host floats, for kernel arguments
-    host_vectors: dict
     use_bvh: bool = False
     bvh: Optional[BVHDevice] = None
     env_map: Optional[torch.Tensor] = None  # [6,F,F,3] float32 or None
 
     @staticmethod
-    def create(params: RenderParams, cam_pos: torch.Tensor, env_map=None,
+    def create(params, cam_pos: torch.Tensor, env_map=None,
                use_bvh: bool = False, bvh: Optional[BVHDevice] = None
                ) -> "SceneCtx":
         """The JAX signature.  `env_map` is the float32 [6,F,F,3] table of
         `convert.env_from_numpy` on the frame's device (a uint8 table is
-        converted here, k / 255 by true division).
+        converted here, k / 255 by true division).  `params` is a
+        RenderParams (bound to its cached parameter block on the frame's
+        device) or a FrameParams on that device.
 
-        The light vectors depend on the parameters alone: they are
-        computed on the host and copied to the frame's device once per
-        (parameters, device) (`light_vectors`), so a kernel can take them
-        as arguments without reading the device and a warm frame makes no
-        copy for them."""
+        The light vectors depend on the parameters alone: the host
+        computes them into the parameter block (models/param_block.py),
+        and the scene holds its views, so a warm frame makes no copy for
+        them and the kernels read them by pointer."""
         if env_map is not None:
             f = env_map.shape[1] if env_map.dim() == 4 else 0
             if tuple(env_map.shape) != (6, f, f, 3):
@@ -134,11 +113,11 @@ class SceneCtx:
             env_map = texel_table(env_map).contiguous()
         if use_bvh and bvh is None:
             raise ValueError("use_bvh needs a BVHDevice")
-        device, host_vectors = light_vectors(params, cam_pos.device)
+        p = bind(params, cam_pos.device)
         return SceneCtx(
-            params=params, cam_pos=cam_pos.to(torch.float32), **device,
-            host_vectors=host_vectors, use_bvh=use_bvh, bvh=bvh,
-            env_map=env_map)
+            params=p, cam_pos=cam_pos.to(torch.float32),
+            point_light_pos=p["point_light_world"], sun_dir=p["sun_dir"],
+            sky_up=p["sky_up"], use_bvh=use_bvh, bvh=bvh, env_map=env_map)
 
     def trace(self, ro, rd, eps: float = EPS, active=None) -> sa.Hit:
         """Closest hit against the BVH or the analytic scene.  `active`

@@ -18,7 +18,7 @@ from ..constants import (EPS, INF, FLOOR_NORMAL, FLOOR_D, SPHERE_LEFT_CENTER,
                          POINT_LIGHT_MARKER_RADIUS, MAT_FLOOR,
                          MAT_ALBEDO_SPHERE, MAT_GLASS_SPHERE,
                          MAT_MIRROR_SPHERE, MAT_POINTLIGHT_SPHERE)
-from ..params import RenderParams
+from ..params import RenderParams, bind
 from .cubemap import sample_cubemap
 from .intersect import intersect_plane, intersect_sphere
 from .vecmath import const3, mix, normalize
@@ -104,13 +104,13 @@ def trace_analytic_ignore_point_light(ro, rd, params, point_light_pos,
                                eps)
 
 
-def sky(d, params: RenderParams, env_map=None):
+def sky(d, params, env_map=None):
     """Environment lookup: the cubemap if one is given and enabled, else
     the analytic gradient
-    (reference: shaders/rt/rt_scene_analytic.glsl:211-223)."""
-    if params.enable_env_map and env_map is not None:
-        return sample_cubemap(env_map, d) * params.env_map_intensity
+    (reference: shaders/rt/rt_scene_analytic.glsl:211-223).  The
+    intensity and the gradient's ends come from the parameter block."""
+    p = bind(params, d.device)
+    if p.enable_env_map and env_map is not None:
+        return sample_cubemap(env_map, d) * p["env_map_intensity"]
     t = torch.clamp(0.5 * (d[..., 1] + 1.0), 0.0, 1.0)
-    a = const3((0.6, 0.7, 0.9), d.device) * 0.3
-    b = const3((0.1, 0.15, 0.3), d.device) * 0.3
-    return mix(a, b, (1.0 - t)[..., None])
+    return mix(p["sky_top"], p["sky_bottom"], (1.0 - t)[..., None])

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..constants import YCOEFF
-from ..params import RenderParams, f32
+from ..params import RenderParams, bind, f32
 from .tonemap import aces_tonemap, gamma_encode, visualize_motion
 from .vecmath import dot, luminance, normalize, smoothstep
 
@@ -27,12 +27,13 @@ K_NRM = 2.0    # rt_present.frag:160
 K_POS = 0.02   # rt_present.frag:161
 
 
-def svgf_params(params: RenderParams):
-    """(var_max, k_var, k_color, k_var_motion, k_color_motion) as float32
-    values, the kernel's by-value arguments."""
-    return tuple(f32(getattr(params, f"svgf_{k}"))
-                 for k in ("var_max", "k_var", "k_color", "k_var_motion",
-                           "k_color_motion"))
+def tone_params(params: RenderParams):
+    """(blend strength clamped to [0, 1], exposure) as host float32 values:
+    the parameter block's words that the present kernels read
+    (csrc/svgf.cu `Tone`; models/param_block.py); the clamp is the
+    host's."""
+    return (f32(min(max(float(params.svgf_strength), 0.0), 1.0)),
+            f32(params.exposure))
 
 
 def svgf_filter(accum, motion, gpos, gnrm, params: RenderParams, *,
@@ -53,7 +54,7 @@ def svgf_filter(accum, motion, gpos, gnrm, params: RenderParams, *,
     bh = rows - 2 * halo
     if full_height is None:
         full_height = bh
-    var_max, k_var0, k_col0, k_var_m, k_col_m = svgf_params(params)
+    p = bind(params, accum.device)
 
     def center(a):
         return a[halo:halo + bh]
@@ -71,12 +72,14 @@ def svgf_filter(accum, motion, gpos, gnrm, params: RenderParams, *,
     mot = center(motion)
     gpos_c = center(gpos)
     l_center = luminance(c_center, YCOEFF)
-    var_center = torch.clamp(m2_center - l_center * l_center, 0.0, var_max)
+    var_center = torch.clamp_max(
+        torch.clamp_min(m2_center - l_center * l_center, 0.0),
+        p["svgf_var_max"])
     mot_mag = torch.sqrt(mot[..., 0] * mot[..., 0] + mot[..., 1] * mot[..., 1])
     t = smoothstep(0.005, 0.05, mot_mag)
     # the parameter differences in float32, as the kernel takes them
-    k_var = k_var0 + f32(k_var_m - k_var0) * t
-    k_color = k_col0 + f32(k_col_m - k_col0) * t
+    k_var = p["svgf_k_var"] + p["svgf_dk_var"] * t
+    k_color = p["svgf_k_color"] + p["svgf_dk_color"] * t
     var_boost = 1.0 + var_center * (1.0 + k_var * 0.5)
     w_off_center = var_boost * (1.0 + var_center * 4.0)
     k_col_scale = k_color * 0.3 + 0.05
@@ -133,10 +136,11 @@ def present(accum, motion, gpos, gnrm, params: RenderParams,
     (ops/svgf_cuda.py: `svgf_present`, `tonemap`); CPU tensors run
     `present_plain`."""
     from . import svgf_cuda
+    params = bind(params, accum.device)
     half_texel = os.environ.get("ORT_PRESENT_HALF_TEXEL", "0") == "1"
     if show_motion:
         return visualize_motion(_half_texel(motion) if half_texel else motion,
-                                f32(params.motion_scale))
+                                params["motion_scale"])
     if not params.enable_svgf:
         return svgf_cuda.tonemap(_half_texel(accum) if half_texel else accum,
                                  params)
@@ -162,18 +166,12 @@ def present_plain(accum, motion, gpos, gnrm, params: RenderParams, *,
                          params)
 
 
-def tone_params(params: RenderParams):
-    """(blend strength clamped to [0, 1], exposure) as float32 values, the
-    kernels' by-value arguments."""
-    return (f32(min(max(float(params.svgf_strength), 0.0), 1.0)),
-            f32(params.exposure))
-
-
 def blend_tonemap(raw, filtered, params: RenderParams):
     """Shared present tail: SVGF strength blend -> ACES -> gamma
-    (reference: rt_present.frag:244-266).  `filtered == raw` degrades to
+    (reference: rt_present.frag:244-266), the clamped strength and the
+    exposure from the parameter block.  `filtered == raw` degrades to
     plain tonemapping."""
-    s, exposure = tone_params(params)
-    linear = raw + (filtered - raw) * s
-    mapped = aces_tonemap(linear, exposure)
+    p = bind(params, raw.device)
+    linear = raw + (filtered - raw) * p["svgf_strength_clamped"]
+    mapped = aces_tonemap(linear, p["exposure"])
     return gamma_encode(mapped)

@@ -17,9 +17,10 @@ the call raises: nothing falls back to the plain version on the card.
 
 The kernels read the HWC planes as they are (accum [H,W,4], motion
 [H,W,2], gpos and gnrm [H,W,3]; a band's [BH + 2*halo, W, C] with its
-halo rows, its first row and the image's height) and take the five
-`svgf_*` parameters, the clamped blend strength and the exposure by
-value.  They are built and launched through ops/cuda_lib.py, each counted
+halo rows, its first row and the image's height) and a pointer to the
+parameter block (models/param_block.py), whose five `svgf_*` words, the
+clamped blend strength and the exposure they read: the arguments are the
+same for every value of them, so a captured frame replays the call.  They are built and launched through ops/cuda_lib.py, each counted
 under its own name (`LAUNCHES["svgf"]`, `LAUNCHES["svgf_present"]`,
 `LAUNCHES["tonemap"]`).
 Importing this module needs neither nvcc nor a card.
@@ -34,16 +35,14 @@ import torch
 from ..params import RenderParams
 from . import cuda_lib
 from .cuda_lib import check
-from .svgf import (present_plain, svgf_filter as svgf_filter_plain,
-                   svgf_params, tone_params)
+from .svgf import present_plain, svgf_filter as svgf_filter_plain
 
-_P, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I32 = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "ort_svgf": ([_P, _P, _P, _P] + [_I32] * 5 + [_F32] * 5 + [_P, _P],
-                 ctypes.c_int),
-    "ort_svgf_present": ([_P, _P, _P, _P] + [_I32] * 5 + [_F32] * 7
-                         + [_P, _P], ctypes.c_int),
-    "ort_tonemap": ([_P, _I32, _I32, _F32, _F32, _P, _P], ctypes.c_int),
+    "ort_svgf": ([_P, _P, _P, _P] + [_I32] * 5 + [_P, _P, _P], ctypes.c_int),
+    "ort_svgf_present": ([_P, _P, _P, _P] + [_I32] * 5 + [_P, _P, _P],
+                         ctypes.c_int),
+    "ort_tonemap": ([_P, _I32, _I32, _P, _P, _P], ctypes.c_int),
 }
 
 
@@ -61,10 +60,10 @@ def _band(rows, halo, row_offset, full_height):
 
 
 def _filter_launch(kernel, accum, motion, gpos, gnrm, halo, row_offset,
-                   full_height, by_value):
+                   full_height, params):
     """Check the four planes, launch C entry `ort_<kernel>` of the filter
-    body on their band with the `by_value` floats, counted under
-    `kernel`, and return its [BH,W,3] output."""
+    body on their band with the parameter block of `params`, counted
+    under `kernel`, and return its [BH,W,3] output."""
     device = cuda_lib.cuda_device(accum, "the SVGF kernels")
     rows, w = accum.shape[0], accum.shape[1]
     bh, full_height = _band(rows, halo, row_offset, full_height)
@@ -72,12 +71,13 @@ def _filter_launch(kernel, accum, motion, gpos, gnrm, halo, row_offset,
     check("motion", motion, torch.float32, (rows, w, 2), device)
     check("gpos", gpos, torch.float32, (rows, w, 3), device)
     check("gnrm", gnrm, torch.float32, (rows, w, 3), device)
+    prm = cuda_lib.param_block_ptr(params, device)
     out = torch.empty((bh, w, 3), dtype=torch.float32, device=device)
     lib = cuda_lib.library("svgf", _SIGNATURES)
     cuda_lib.launch(getattr(lib, f"ort_{kernel}"), kernel, device,
                     accum.data_ptr(), motion.data_ptr(), gpos.data_ptr(),
                     gnrm.data_ptr(), bh, w, halo, row_offset, full_height,
-                    *by_value, out.data_ptr())
+                    prm, out.data_ptr())
     return out
 
 
@@ -92,7 +92,7 @@ def svgf_filter(accum, motion, gpos, gnrm, params: RenderParams, *,
                                  halo=halo, row_offset=row_offset,
                                  full_height=full_height)
     return _filter_launch("svgf", accum, motion, gpos, gnrm, halo,
-                          row_offset, full_height, svgf_params(params))
+                          row_offset, full_height, params)
 
 
 def svgf_present(accum, motion, gpos, gnrm, params: RenderParams, *,
@@ -105,8 +105,7 @@ def svgf_present(accum, motion, gpos, gnrm, params: RenderParams, *,
                              params.replace(enable_svgf=1), halo=halo,
                              row_offset=row_offset, full_height=full_height)
     return _filter_launch("svgf_present", accum, motion, gpos, gnrm, halo,
-                          row_offset, full_height,
-                          svgf_params(params) + tone_params(params))
+                          row_offset, full_height, params)
 
 
 def tonemap(accum, params: RenderParams):
@@ -118,8 +117,9 @@ def tonemap(accum, params: RenderParams):
     device = cuda_lib.cuda_device(accum, "the tonemap kernel")
     h, w = accum.shape[0], accum.shape[1]
     check("accum", accum, torch.float32, (h, w, 4), device, align=16)
+    prm = cuda_lib.param_block_ptr(params, device)
     out = torch.empty((h, w, 3), dtype=torch.float32, device=device)
     lib = cuda_lib.library("svgf", _SIGNATURES)
     cuda_lib.launch(lib.ort_tonemap, "tonemap", device, accum.data_ptr(), h,
-                    w, *tone_params(params), out.data_ptr())
+                    w, prm, out.data_ptr())
     return out

@@ -31,9 +31,11 @@ from typing import Optional
 import torch
 
 from ..constants import YCOEFF
-from ..params import RenderParams, f32
+from ..params import RenderParams, bind, host_branches
 from ..sampling import Frame, frame_value
-from .vecmath import luminance, smoothstep
+from .vecmath import div_host_scalar, luminance, smoothstep
+
+TAA_SOFT_MOTION = 0.02  # the motion where history starts to fade
 
 
 def _sample_nearest(tex, u, v):
@@ -45,6 +47,13 @@ def _sample_nearest(tex, u, v):
     return tex.reshape(h * w, -1)[y * w + x]
 
 
+def still_skips(params) -> bool:
+    """Whether a frame the host knows to be still skips the moving path:
+    only at `taa_still_thresh > 0` (at a threshold <= 0 zero motion is not
+    "still"), a host branch whose outcome the graph key holds."""
+    return dict(host_branches(params))["taa_still_thresh > 0"]
+
+
 def _store(col, m2, out):
     if out is None:
         return torch.cat([col, m2[..., None]], dim=-1)
@@ -53,21 +62,20 @@ def _store(col, m2, out):
     return out
 
 
-def _still_weights(frame_index: Frame, params: RenderParams):
+def _still_weights(frame_index: Frame, params):
     """(history weight, current weight, first frame) of the still path
     (rt_taa.glsl:66-68,86-105): 0-d tensors on the frame's device, the
-    weights float32 as the JAX package's."""
-    min_w, avg_w, max_w = (f32(params.taa_history_min_weight),
-                           f32(params.taa_history_avg_weight),
-                           f32(params.taa_history_max_weight))
+    weights the parameter block's float32 words."""
     fi = frame_value(frame_index)
+    p = bind(params, fi.device)
     early, mid = fi < 8, fi < 32
+    w_curr = p["taa_w_curr"]
 
     def select(a, b, c):
         return torch.where(early, a, torch.where(mid, b, c))
-    return (select(min_w, avg_w, max_w),
-            select(f32(1.0 - min_w), f32(1.0 - avg_w), f32(1.0 - max_w)),
-            fi == 0)
+    return (select(p["taa_history_min_weight"], p["taa_history_avg_weight"],
+                   p["taa_history_max_weight"]),
+            select(w_curr[0], w_curr[1], w_curr[2]), fi == 0)
 
 
 def resolve_taa(curr, motion, prev_accum, frame_index: Frame,
@@ -98,6 +106,7 @@ def resolve_taa(curr, motion, prev_accum, frame_index: Frame,
     gather never reads an updated pixel (the still path reads only a
     pixel's own texel).  It must not alias a history with more rows than
     the band: another band's pixels would be overwritten."""
+    params = bind(params, curr.device)
     l_curr = luminance(curr, YCOEFF)
     l_curr2 = l_curr * l_curr
     if not params.enable_taa:
@@ -116,9 +125,8 @@ def resolve_taa(curr, motion, prev_accum, frame_index: Frame,
         torch.where(first, l_curr2, m2, out=out[..., 3])
         return out
 
-    max_w = f32(params.taa_history_max_weight)
     bh, w = curr.shape[0], curr.shape[1]
-    if moved is False and f32(params.taa_still_thresh) > 0.0:
+    if moved is False and still_skips(params):
         # the camera is still: every pixel blends with its own texel
         prev = prev_accum[row_offset:row_offset + bh]
         return store(prev[..., :3] * w_still + curr * w_curr_still,
@@ -133,7 +141,7 @@ def resolve_taa(curr, motion, prev_accum, frame_index: Frame,
            / prev_accum.shape[0])[:, None].expand(bh, w)
     mot_mag = torch.sqrt(motion[..., 0] * motion[..., 0]
                          + motion[..., 1] * motion[..., 1])
-    box = f32(params.taa_history_box_size)
+    box = params["taa_history_box_size"]
 
     # moving: reproject (rt_taa.glsl:116-179).  One history fetch for both
     # per-pixel cases: still pixels read their own texel.
@@ -141,22 +149,27 @@ def resolve_taa(curr, motion, prev_accum, frame_index: Frame,
     uv_prev_y = uvy - motion[..., 1] * 0.5
     oob = ((uv_prev_x < 0.0) | (uv_prev_x > 1.0)
            | (uv_prev_y < 0.0) | (uv_prev_y > 1.0))
-    still_px = mot_mag < f32(params.taa_still_thresh)
+    still_px = mot_mag < params["taa_still_thresh"]
     prev = _sample_nearest(prev_accum, torch.where(still_px, uvx, uv_prev_x),
                            torch.where(still_px, uvy, uv_prev_y))
     prev_col, prev_m2 = prev[..., :3], prev[..., 3]
     col_still = prev_col * w_still + curr * w_curr_still
     m2_still = prev_m2 * w_still + l_curr2 * w_curr_still
 
-    hard = f32(params.taa_hard_moving_thresh)
-    w_hist = 1.0 - smoothstep(0.02, hard, mot_mag)
+    hard = params["taa_hard_moving_thresh"]
+    # smoothstep(0.02, hard, mot_mag), its span from the block
+    t = torch.clamp(div_host_scalar(mot_mag - TAA_SOFT_MOTION,
+                                    params["taa_hard_span"],
+                                    params["taa_hard_span_inv"]), 0.0, 1.0)
+    w_hist = 1.0 - t * t * (3.0 - 2.0 * t)
     w_hist = torch.where(mot_mag > hard, 0.0, w_hist)
     l_prev = luminance(prev_col, YCOEFF)
     max_l = torch.clamp_min(torch.maximum(l_curr, l_prev), 1e-3)
     rel_diff = (l_curr - l_prev).abs() / max_l
     w_hist = w_hist * (1.0 - smoothstep(0.03, 0.25, rel_diff))
     w_hist = torch.where((mot_mag > 0.02) & (rel_diff > 0.30), 0.0, w_hist)
-    w_hist = torch.clamp(w_hist, 0.0, max_w)
+    w_hist = torch.clamp_max(torch.clamp_min(w_hist, 0.0),
+                             params["taa_history_max_weight"])
     w_cur = 1.0 - w_hist
     hist_col = torch.minimum(torch.maximum(prev_col, curr - box), curr + box)
     taa_col = w_hist[..., None] * hist_col + w_cur[..., None] * curr

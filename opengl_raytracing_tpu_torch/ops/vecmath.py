@@ -59,6 +59,15 @@ def smoothstep(e0, e1, x):
     return t * t * (3.0 - 2.0 * t)
 
 
+def div_host_scalar(x, d, d_inv):
+    """x / d for a 0-d tensor `d` holding a host float, computed as PyTorch
+    divides by the host float itself: on the CPU a true division, on a
+    card a product with its float32 reciprocal `d_inv` (CUDA's
+    `x / host_float`).  A value from the parameter block divides so, and
+    the frame's bits stay those of the host scalar's division."""
+    return x * d_inv if x.is_cuda else x / d
+
+
 def luminance(c, coeff):
     return (c[..., 0] * coeff[0] + c[..., 1] * coeff[1] + c[..., 2] * coeff[2])
 

@@ -47,9 +47,9 @@ from ..models.pipeline import (FrameInputs, FrameOutputs, RenderState,
 from ..ops import svgf_cuda
 from ..ops.scene import BVHDevice, SceneCtx
 from ..ops.svgf import present
-from ..ops.taa import resolve_taa
+from ..ops.taa import resolve_taa, still_skips
 from ..ops.vecmath import luminance
-from ..params import RenderParams, f32
+from ..params import RenderParams, bind
 
 HALO = 3  # SVGF stencil radius
 
@@ -71,7 +71,7 @@ def needs_history(params: RenderParams, fin: FrameInputs,
     camera not known to be still (the degenerate `taa_still_thresh <= 0`
     reprojects even a still frame, as the JAX package guards).  The same
     on every rank: it reads host values only."""
-    still = fin.moved is False and f32(params.taa_still_thresh) > 0.0
+    still = fin.moved is False and still_skips(params)
     return bool(params.enable_taa) and frame_index > 0 and not still
 
 
@@ -94,9 +94,10 @@ def band_shade(params: RenderParams, fin: FrameInputs, state: RenderState,
             and needs_history(params, fin, frame_index):
         raise ValueError("this frame's TAA reprojects: pass the whole "
                          "previous accumulation as `history`")
-    # the frame's per-frame values from its device block, as render_frame
-    # reads them
+    # the frame's per-frame values from its device block, and its data
+    # parameters from their block, as render_frame reads them
     fin = fin.at_frame(frame_index)
+    params = bind(params, state.accum.device)
     scene = SceneCtx.create(params, fin.cam_pos, env_map=env_map,
                             use_bvh=use_bvh, bvh=bvh)
     px, py = pixel_centers(bh, width, state.accum.device, row_offset=row0)

@@ -2,9 +2,16 @@
 
 PyTorch-side counterpart of `opengl_raytracing_tpu.params.RenderParams`
 (reference: include/render/RenderParams.h:14-239): the same fields with the
-same defaults, as a plain frozen dataclass.  Nothing is traced here, so
-there is no data/metadata split: every field is a host value that the
-frame function reads directly.
+same defaults, as a plain frozen dataclass, and the JAX package's split of
+them:
+
+  * `STATIC_FIELDS` (JAX's pytree metadata: the int toggles and counts)
+    change the frame's operations, so a captured frame (models/graph.py)
+    is keyed on them (`static_key`);
+  * `DATA_FIELDS` (JAX's traced data: every float and colour) reach the
+    frame only through its device parameter block
+    (models/param_block.py), so moving a slider replays the captured
+    frame.
 """
 
 from __future__ import annotations
@@ -112,9 +119,29 @@ class RenderParams:
         return dataclasses.replace(self, **kw)
 
 
-_META_FIELDS = tuple(
+STATIC_FIELDS = tuple(
     f.name for f in dataclasses.fields(RenderParams) if f.type == "int"
 )
+DATA_FIELDS = tuple(
+    f.name for f in dataclasses.fields(RenderParams) if f.type != "int"
+)
+
+
+def static_key(params: RenderParams) -> tuple:
+    """The static fields' values, in field order: what a captured frame is
+    valid for (its data fields come from the parameter block)."""
+    return tuple(int(getattr(params, name)) for name in STATIC_FIELDS)
+
+
+def host_branches(params: RenderParams) -> tuple:
+    """The outcomes of the host branches on data fields: the frame's
+    operations depend on these, not on the values.  TAA skips its moving
+    path on a still camera only at `taa_still_thresh > 0`, as the JAX
+    package guards (ops/taa.py, parallel/shardmap.py).  `params` a
+    RenderParams or a FrameParams."""
+    if isinstance(params, FrameParams):
+        params = params.host
+    return (("taa_still_thresh > 0", f32(params.taa_still_thresh) > 0.0),)
 
 
 def _as_floats(x):
@@ -136,7 +163,7 @@ def params_changed(a: RenderParams, b: RenderParams, tol: float = 1e-5) -> bool:
         if f.name in ("ordered_primary", "exposure", "motion_scale"):
             continue
         va, vb = getattr(a, f.name), getattr(b, f.name)
-        if f.name in _META_FIELDS:
+        if f.name in STATIC_FIELDS:
             if int(va) != int(vb):
                 return True
         else:
@@ -147,3 +174,77 @@ def params_changed(a: RenderParams, b: RenderParams, tol: float = 1e-5) -> bool:
             elif abs(va - vb) > tol:
                 return True
     return False
+
+
+# The static fields the parameter block's derived words depend on: a
+# FrameParams cannot replace them without a new block.
+_BLOCK_STATIC = ("point_light_orbit_enabled", "mat_glass_enabled",
+                 "mat_mirror_enabled")
+
+
+class FrameParams:
+    """The parameters as a frame reads them (models/param_block.py): the
+    static fields as host values (`p.enable_gi`), every data field and
+    derived value as a float32 view of the device block (`p["sun_li"]`).
+    A data field read as an attribute raises, so no value of one can reach
+    a frame as a host number.  `host` is the RenderParams itself, for
+    `host_branches` and the graph key."""
+
+    __slots__ = ("host", "block", "views")
+
+    def __init__(self, host: RenderParams, block, views: dict):
+        self.host, self.block, self.views = host, block, views
+
+    def __getattr__(self, name):
+        if name in STATIC_FIELDS:
+            return getattr(self.host, name)
+        if name in DATA_FIELDS:
+            raise AttributeError(f"{name} is data: a frame reads it from "
+                                 f"the parameter block, p[{name!r}]")
+        raise AttributeError(name)
+
+    def __getitem__(self, name):
+        return self.views[name]
+
+    @property
+    def device(self):
+        return self.block.device
+
+    def replace(self, **static) -> "FrameParams":
+        """These parameters with other values of static fields that the
+        block does not depend on; the same block."""
+        bad = [k for k in static
+               if k not in STATIC_FIELDS or k in _BLOCK_STATIC]
+        if bad:
+            raise ValueError(f"a FrameParams replaces only the static fields "
+                             f"its block does not depend on, not {bad}")
+        return FrameParams(self.host.replace(**static), self.block,
+                           self.views)
+
+
+def bind(params, device, block=None) -> FrameParams:
+    """`params` (RenderParams or FrameParams) as a frame on `device` reads
+    them.  A FrameParams is returned as it is (it must lie on `device`).  A
+    RenderParams reads `block` when given (a block holding its words, as a
+    captured frame's static block does), else its cached block there
+    (models/param_block.py)."""
+    device = _device(device)
+    if isinstance(params, FrameParams):
+        if block is not None:
+            raise ValueError("a FrameParams already has its block")
+        if params.block.device != device:
+            raise ValueError(f"the parameter block is on "
+                             f"{params.block.device}, the frame on {device}")
+        return params
+    from .models import param_block
+    if block is None:
+        block = param_block.block(params, device)
+    return FrameParams(params, block, param_block.views(block))
+
+
+def _device(device):
+    import torch
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device

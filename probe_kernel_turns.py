@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Kernel alone-times of two checkouts on one card, in turns.
 
-    python3 probe_kernel_turns.py OTHER_DIR [ROUNDS]
+    python3 probe_kernel_turns.py OTHER_DIR [ROUNDS] [--frames]
 
 OTHER_DIR is another checkout of the repository, say the parent commit
 unpacked with `git archive`.  Each run is a child process in one
@@ -13,6 +13,11 @@ held to its plain version, and the profiler's time of one launch,
 JSON line a run ({"tree", "kernel_ms": {kernel: ms}}), then one with each
 kernel's median on each side and their ratio (this / other), and the
 card's name and power limit.
+
+With `--frames` a run times the replayed frame instead: for chip_smoke.py's
+FRAME_CASES of phase graph (baseline, an_baseline, full), after a chain
+that captures, three 32-frame chains through `make_render_fn` with its
+captured graph (host clock to a synchronize), their least ms/frame a case.
 """
 
 from __future__ import annotations
@@ -43,12 +48,50 @@ def child() -> None:
           flush=True)
 
 
+FRAME_CASES = ("baseline", "an_baseline", "full")
+
+
+def child_frames() -> None:
+    """In a checkout's directory: replayed ms/frame of FRAME_CASES, one
+    JSON line."""
+    sys.path.insert(0, os.getcwd())
+    import time
+    import torch
+    import chip_smoke as cs
+    from opengl_raytracing_tpu_torch.models import (RenderState,
+                                                    make_render_fn, preset)
+    from opengl_raytracing_tpu_torch.ops import cuda_lib
+    cuda_lib.build_all()
+    _, bvh = cs.scene("cuda")
+    out = {}
+    for name in FRAME_CASES:
+        scene_key, preset_name, (h, w), how = cs.GRAPH_CASES[name]
+        scene = bvh if scene_key else None
+        fins = list(cs.frame_inputs(h, w, cs.FRAMES, "cuda", preset_name,
+                                    how.get("camera", "still")))
+        fn = make_render_fn(h, w, "cuda", use_bvh=scene is not None)
+        params = preset(preset_name)
+        runs = []
+        for _ in range(4):  # the first captures
+            state = RenderState.create(h, w, "cuda")
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for fin in fins:
+                state, _ = fn(params, fin, state, None, scene)
+            torch.cuda.synchronize()
+            runs.append((time.time() - t0) / len(fins) * 1e3)
+        out[name] = min(runs[1:])
+    print(json.dumps(out), flush=True)
+
+
 def main() -> int:
-    if sys.argv[1:] == ["--child"]:
-        child()
+    if sys.argv[1:2] == ["--child"]:
+        (child_frames if "--frames" in sys.argv else child)()
         return 0
-    other = os.path.abspath(sys.argv[1])
-    rounds = int(sys.argv[2]) if len(sys.argv) > 2 else 2
+    frames = "--frames" in sys.argv
+    argv = [a for a in sys.argv[1:] if a != "--frames"]
+    other = os.path.abspath(argv[0])
+    rounds = int(argv[1]) if len(argv) > 1 else 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -56,7 +99,8 @@ def main() -> int:
     times = {"other": [], "this": []}
     for side in ["other", "this", "this", "other"] * rounds:
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--child"],
+            [sys.executable, os.path.abspath(__file__), "--child"]
+            + (["--frames"] if frames else []),
             cwd=other if side == "other" else ROOT, stdout=subprocess.PIPE,
             text=True, timeout=600)
         if proc.returncode != 0:
@@ -64,7 +108,8 @@ def main() -> int:
             return 1
         ms = json.loads(proc.stdout.strip().splitlines()[-1])
         times[side].append(ms)
-        print(json.dumps({"tree": side, "kernel_ms": ms}), flush=True)
+        print(json.dumps({"tree": side, ("ms_per_frame" if frames
+                                         else "kernel_ms"): ms}), flush=True)
     medians = {}
     for k in times["this"][0]:
         got = {side: [t[k] for t in runs if t.get(k) is not None]

@@ -56,6 +56,7 @@ def walks(kind, args):
     import torch
     from opengl_raytracing_tpu_torch.ops import bvh_traverse as plain
     from opengl_raytracing_tpu_torch.ops import lighting as lt
+    from opengl_raytracing_tpu_torch.params import bind
     arrays = args["bvh"]
     if kind == "closest":
         o = args["ro"].expand(args["rd"].shape).reshape(-1, 3)
@@ -83,7 +84,7 @@ def walks(kind, args):
         plain.trace_bvh_shadow(
             arrays, torch.cat([o] * len(dirs)),
             torch.cat([x.reshape(-1, 3)[live] for x in dirs]),
-            torch.full((n,), float(params.ao_radius), device=o.device),
+            bind(params, o.device)["ao_radius"].expand(n),
             counts=dict(nodes=0, tris=0))
     return c
 

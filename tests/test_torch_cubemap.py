@@ -56,6 +56,8 @@ from opengl_raytracing_tpu_torch.scene import (BVHArrays, gather_triangles,
                                                make_bunny, model_transform)
 from opengl_raytracing_tpu_torch.utils import image as timage
 
+from torch_param_block import block_at
+
 torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -295,9 +297,9 @@ def _an_scenes(jparams, cam_pos, env):
 
 def test_scene_args_carry_the_env_table():
     """The wrapper hands the kernel the table `scene.sky` samples: its
-    pointer, face size and the intensity; none when the map is disabled or
-    absent.  And the kernel's sky of a direction, from those fields,
-    equals `scene.sky` bit for bit."""
+    pointer, face size and the parameter block that holds the intensity;
+    none when the map is disabled or absent.  And the kernel's sky of a
+    direction, from those fields, equals `scene.sky` bit for bit."""
     env = _env(8, seed=5)
     jparams = jpreset("baseline").replace(env_map_intensity=0.7)
     _, scene = _an_scenes(jparams, [0.0, 1.0, 4.0], env)
@@ -306,10 +308,11 @@ def test_scene_args_carry_the_env_table():
     three = FrameValue.of(3, "cpu")
     s, _ = an_cuda.scene_args(scene, three, three, table)
     assert (s.env, s.env_f) == (table.data_ptr(), 8)
-    assert s.env_intensity == np.float32(0.7)
+    intensity = block_at(s.prm)["env_map_intensity"]
+    assert intensity == np.float32(0.7)
     d = _directions("random")
     got = kernel_sample_cubemap(table.numpy().reshape(-1), s.env_f, d) \
-        * F32(s.env_intensity)
+        * F32(intensity)
     np.testing.assert_array_equal(got, scene.sky(_t(d)).numpy())
     assert not an_cuda.scene_args(scene, three, three)[0].env
     off = SceneCtx.create(scene.params.replace(enable_env_map=0),

@@ -51,6 +51,8 @@ from opengl_raytracing_tpu_torch.sampling import FrameValue
 from opengl_raytracing_tpu_torch.scene import (gather_triangles, make_bunny,
                                                model_transform)
 
+from torch_param_block import seeded_values
+
 pytestmark = pytest.mark.cuda
 
 N = 1 << 16
@@ -570,7 +572,8 @@ def _ao_check(bvh, scene, h, px, py, params, active, frame_index=3):
     live = torch.ones_like(h.t, dtype=torch.bool) if active is None \
         else active
     g, w = got[live], want[live]
-    step = (1.0 - params.ao_min) / params.ao_samples
+    host = getattr(params, "host", params)
+    step = (1.0 - host.ao_min) / host.ao_samples
     off = ~(g == w)
     assert int(off.sum()) <= FLIP_FRAC * max(int(live.sum()), 1)
     assert bool(((g[off] - w[off]).abs() - step).abs().le(1e-6).all())
@@ -1269,19 +1272,117 @@ def test_app_turbo_step_replays_the_eager_frames(bvh):
     graph.clear()
 
 
-def test_orbit_frames_run_eagerly_and_are_counted():
+def test_orbit_frames_run_eagerly_and_are_counted(bvh):
+    """The point-light orbit's steps, whose parameters change every step,
+    replay one captured frame (the orbit's yaw reaches it through the
+    parameter block): no frame runs eagerly, and the steps equal
+    --no-jit's bit for bit."""
     from opengl_raytracing_tpu_torch.app import headless
     from opengl_raytracing_tpu_torch.models import graph
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    args = headless.build_parser().parse_args(
-        ["--size", "64x48", "--preset", "baseline", "--orbit"])
-    app = headless.make_app(args)
-    captures = graph.STATS["captures"]
-    for _ in range(3):
-        app.step()
-    assert app.eager_frames == 3
-    assert graph.STATS["captures"] == captures
+    graph.clear()
+    captures, runs = graph.STATS["captures"], {}
+    for jit in ("--jit", "--no-jit"):
+        args = headless.build_parser().parse_args(
+            ["--size", "64x48", "--preset", "full", "--orbit", jit])
+        app = headless.make_app(args)
+        runs[jit] = [app.step().clone() for _ in range(4)]
+        assert app.eager_frames == 0
+        assert app.app.params.point_light_yaw != 0.0
+    assert graph.STATS["captures"] == captures + 1
+    for a, b in zip(runs["--jit"], runs["--no-jit"]):
+        assert torch.equal(a, b)
+    assert not torch.equal(runs["--jit"][0], runs["--jit"][-1])
+    graph.clear()
+
+
+@pytest.mark.parametrize("case", ["full", "an_full"])
+def test_replayed_frames_follow_every_parameter_change(bvh, case):
+    """A chain whose every frame sets the data fields to other seeded
+    values (and moves the orbit's yaw) replays one capture, frame by frame
+    bit for bit the eager chain of the same parameters."""
+    from opengl_raytracing_tpu_torch.models import (RenderState, graph,
+                                                    make_render_fn)
+    from opengl_raytracing_tpu_torch.ops.scene import BVHDevice
+    env, scene = None, BVHDevice(bvh)
+    base = preset("full").replace(point_light_orbit_enabled=1)
+    if case == "an_full":
+        faces = np.random.RandomState(0).randint(0, 256, (6, 16, 16, 3))
+        from opengl_raytracing_tpu_torch.convert import env_from_numpy
+        env = env_from_numpy(faces.astype(np.uint8), "cuda")
+        base, scene = base.replace(enable_env_map=1), None
+    params = [base.replace(**seeded_values(seed)) for seed in range(1, 7)]
+    cam = Camera()
+    cam.aspect = 128 / 96
+    cam.point_at((-2.0, 1.5, 0.0))
+    graph.clear()
+    stats, runs = dict(graph.STATS), {}
+    for jit in (False, True):
+        fn = make_render_fn(96, 128, "cuda", use_bvh=scene is not None,
+                            jit=jit)
+        state, runs[jit] = RenderState.create(96, 128, "cuda"), []
+        for i, p in enumerate(params):
+            fin = camera_frame_inputs(cam, "cuda", jitter=(0.1 * (i % 3), 0.0),
+                                      frame_index=i)
+            state, out = fn(p, fin, state, env, scene)
+            runs[jit].append((out.image.clone(), state.accum.clone()))
+    assert graph.STATS["captures"] == stats["captures"] + 1
+    assert graph.STATS["replays"] == stats["replays"] + len(params) - 1
+    for i, ((ei, ea), (ri, ra)) in enumerate(zip(runs[False], runs[True])):
+        assert torch.equal(ri, ei), f"image of frame {i}"
+        assert torch.equal(ra, ea), f"accumulation of frame {i}"
+    graph.clear()
+
+
+def test_kernels_read_the_parameter_block_through_its_pointer(bvh):
+    """Each kernel that reads the parameter block (K3, the BVH direct
+    light, K2's AO call, K4's three entries) against its plain version on
+    one block at seeded values A, then again after B's words are copied
+    into the same block (as a replay copies them into the captured
+    frame's static block): the same argument structs, the results B's,
+    each within its kernel's stated tolerance."""
+    from opengl_raytracing_tpu_torch.models import param_block
+    from opengl_raytracing_tpu_torch.params import bind
+    a, b = (preset("full").replace(**seeded_values(seed)) for seed in (1, 2))
+    blk = param_block.block(a, "cuda").clone()
+    p = bind(a, "cuda", blk)
+    env = _env_table(8, seed=3)
+    an = _analytic(p)
+    an_env = SceneCtx.create(p.replace(enable_env_map=1), an[0].cam_pos,
+                             env_map=env, use_bvh=False)
+    bv = _bvh_frame(bvh, p)
+    inputs = _svgf_inputs(61, 97, seed=5, sky=0.2)
+
+    def run():
+        scene, h_raw, h, px, py, vdir = an
+        rng, fi = 5, 5
+        outs = [_an_direct(scene, h, rng, fi, vdir, px, py),
+                _an_direct(an_env, h, rng, fi, vdir, px, py)]
+        scene, h_raw, h, px, py, vdir = bv
+        outs.append(_bvh_direct(scene, h, rng, fi, vdir, px, py,
+                                h_raw.valid))
+        got, want, live = _ao_check(bvh, scene, h, px, py, p, h_raw.valid)
+        outs.append(got[live])
+        filtered = svgf_cuda.svgf_filter(*inputs, p)
+        torch.testing.assert_close(filtered, svgf_filter(*inputs, p),
+                                   **SVGF_TOL)
+        outs.append(filtered)
+        for q in (p, p.replace(enable_svgf=0)):
+            got = present(*inputs, q)
+            _assert_present(got, present_plain(*inputs, q))
+            outs.append(got)
+        return outs
+    three = FrameValue.of(3, "cuda")
+    structs = lambda: (bytes(an_cuda.scene_args(an[0], three, three)[0]),
+                       bytes(bvh_cuda.ao_args(p, three)[0]))
+    first, before = run(), structs()
+    blk.copy_(param_block.block(b, "cuda"))
+    second = run()
+    assert structs() == before
+    for x, y in zip(first, second):
+        assert not torch.equal(x, y)
+    # B's words through the pointer are B's own parameters
+    want = svgf_filter(*inputs, bind(b, "cuda"))
+    torch.testing.assert_close(second[4], want, **SVGF_TOL)
 
 
 def test_a_host_copy_in_the_frame_makes_the_capture_raise(bvh, monkeypatch):

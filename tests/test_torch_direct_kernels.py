@@ -3,7 +3,8 @@ themselves, held on the CPU to the plain versions they replace.
 
 The kernels cannot run here, so their per-pixel arithmetic is transcribed
 to numpy, reading every constant from the `AnScene` struct that
-ops/an_cuda.py builds for the launch:
+ops/an_cuda.py builds for the launch, and from the parameter block its
+`prm` pointer names (tests/torch_param_block.py):
 
 * the disk offsets (the uint32 hash of sampling.rand, cp_offset's
   rotation, remainder, concentric_sample) bit for bit against
@@ -12,7 +13,8 @@ ops/an_cuda.py builds for the launch:
   torch's); on the card the kernel's cosf/sinf are held to torch's by
   tests/test_torch_cuda.py;
 * the gradient sky of the reflected view, bit for bit;
-* the material table against get_material, exactly, for every id and
+* the material table (the block's rows, the struct's types) against
+  get_material and JAX's get_material, exactly, for every id and
   glass/mirror toggle;
 * the pixel-centre grids as the kernels index them through the strides
   of the wrappers' `cuda_lib.PixelGrid`, for every memory layout a caller may
@@ -30,6 +32,7 @@ import pytest
 import torch
 
 from opengl_raytracing_tpu.models import preset as jpreset
+from opengl_raytracing_tpu.ops import materials as jmaterials
 from opengl_raytracing_tpu.ops import lighting as jlt
 from opengl_raytracing_tpu.ops import scene_analytic as jsa
 from opengl_raytracing_tpu.ops.bvh_traverse import trace_bvh as jtrace_bvh
@@ -50,6 +53,8 @@ from opengl_raytracing_tpu_torch.ops.vecmath import normalize, reflect
 from opengl_raytracing_tpu_torch.sampling import FrameValue, frame_record
 from opengl_raytracing_tpu_torch.scene import (BVHArrays, gather_triangles,
                                                make_bunny, model_transform)
+
+from torch_param_block import block_at
 
 torch.set_num_threads(2)
 
@@ -133,8 +138,8 @@ def kernel_sky_reflection(s, n, v):
                      + n[..., 2] * i[..., 2])
     r = i - n * dn[..., None]
     t = np.clip(F32(0.5) * (r[..., 1] + F32(1.0)), F32(0.0), F32(1.0))
-    top = np.array(s.sky_top, F32)
-    bottom = np.array(s.sky_bottom, F32)
+    block = block_at(s.prm)
+    top, bottom = block["sky_top"], block["sky_bottom"]
     return top + (bottom - top) * (F32(1.0) - t)[..., None]
 
 
@@ -232,18 +237,27 @@ def test_material_table_matches_get_material(glass, mirror):
     zero = FrameValue.of(0, "cpu")
     s, _ = an_cuda.scene_args(SceneCtx.create(params, torch.zeros(3)), zero,
                               zero)
+    block = block_at(s.prm)
     ids = torch.arange(-2, 8, dtype=torch.int32)
-    want = get_material(ids, params)
     rows = [int(i) if 0 <= i < an_cuda.MAT_ROWS - 1 else an_cuda.MAT_ROWS - 1
             for i in ids]
-    albedo = np.array([list(s.mat_albedo[r]) for r in rows], F32)
-    np.testing.assert_array_equal(albedo, want.albedo.numpy())
-    for field, got in (("spec_strength", s.mat_spec), ("gloss", s.mat_gloss),
-                       ("mtype", s.mat_type)):
-        np.testing.assert_array_equal(
-            np.array([got[r] for r in rows]).astype(
-                getattr(want, field).numpy().dtype),
-            getattr(want, field).numpy(), err_msg=field)
+    jparams = jpreset("baseline").replace(**{
+        k: getattr(params, k) for k in (
+            "mat_glass_enabled", "mat_mirror_enabled", "mat_albedo_color",
+            "mat_albedo_spec_strength", "mat_albedo_gloss",
+            "mat_glass_color", "mat_glass_distortion", "mat_mirror_color",
+            "mat_mirror_gloss")})
+    for want in (get_material(ids, params),
+                 jmaterials.get_material(jnp.asarray(ids.numpy()), jparams)):
+        np.testing.assert_array_equal(block["mat_albedo"][rows],
+                                      np.asarray(want.albedo))
+        for field, got in (("spec_strength", block["mat_spec"]),
+                           ("gloss", block["mat_gloss"]),
+                           ("mtype", s.mat_type)):
+            np.testing.assert_array_equal(
+                np.array([got[r] for r in rows]).astype(
+                    np.asarray(getattr(want, field)).dtype),
+                np.asarray(getattr(want, field)), err_msg=field)
     assert sorted(set(s.mat_type)) == sorted(
         {0} | ({2} if glass else set()) | ({1} if mirror else set()))
 

@@ -163,7 +163,7 @@ def test_compute_ao_matches_jax(bvh_frame, an_frame, scene_kind,
     want = np.asarray(jlt.compute_ao(
         jscene, f["jh"], jnp.int32(frame_index), jpx, jpy,
         active=None if active is None else jnp.asarray(hit)))
-    params = scene.params
+    params = scene.params.host  # the RenderParams of the scene's block
     assert got[hit].min() >= params.ao_min and got[hit].max() <= 1.0
     cg, cw = _ao_counts(got[hit], params), _ao_counts(want[hit], params)
     np.testing.assert_allclose(got[hit], params.ao_min + (1 - params.ao_min)

@@ -10,8 +10,10 @@ block alone (models/frame_block.py).  Held here on the CPU:
   by stubs that record what the card's launch would take (the argument
   structs' bytes, their pointers aside) and run the plain versions out of
   the record, are the same at frame indices 1, 7, 8, 31, 32 and 2^20+5
-  with a camera that differs every frame, for baseline, full, heavy,
-  moving and an_full;
+  with a camera that differs every frame, and with every data field of
+  the parameters at three seeded non-default values
+  (tests/torch_param_block.py), for baseline, full, heavy, moving and
+  an_full;
 * no host reads: such a frame calls no aten::_local_scalar_dense, no
   aten::nonzero and no aten::lift_fresh;
 * the kernels' argument structs (`bounce_args`, `ao_args`, `scene_args`)
@@ -24,8 +26,9 @@ block alone (models/frame_block.py).  Held here on the CPU:
   2^20+5, from a history, against JAX's `render_frame` (the BVH and the
   analytic scene, GI, AO and TAA on), within test_torch_pipeline.py's
   1e-4;
-* the graph key: a parameter's value changes it, the frame index and the
-  camera do not;
+* the graph key: a static field's value and the host's branch on
+  `taa_still_thresh > 0` change it; the frame index, the camera and the
+  data fields' values do not;
 * FrameInputs' fields are views of its block; two live states get a
   static accumulation each.
 
@@ -74,12 +77,14 @@ from opengl_raytracing_tpu_torch.ops.scene import SceneCtx, prepare_bvh
 from opengl_raytracing_tpu_torch.ops.taa import _still_weights, resolve_taa
 from opengl_raytracing_tpu_torch.ops.vecmath import luminance
 from opengl_raytracing_tpu_torch.constants import YCOEFF
-from opengl_raytracing_tpu_torch.params import f32
+from opengl_raytracing_tpu_torch.params import STATIC_FIELDS, f32
 from opengl_raytracing_tpu_torch.sampling import (FrameValue, _frame_bits,
                                                   frame_f32, frame_record,
                                                   halton, ld2, rand)
 from opengl_raytracing_tpu_torch.scene import (BVHArrays, gather_triangles,
                                                make_bunny, model_transform)
+
+from torch_param_block import seeded_values
 
 torch.set_num_threads(2)
 
@@ -239,30 +244,50 @@ def _case(name, tris):
     return params, env, bvh, c["use_bvh"], c.get("moving", False)
 
 
+PARAM_SEEDS = (1, 2, 3)
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_frame_is_the_same_for_every_frame(name, tris, monkeypatch):
     params, env, bvh, use_bvh, moving = _case(name, tris)
+    # every data field at seeded values: the static fields, and so the
+    # graph key, stay the default's
+    runs = [(params, k, index) for k, index in enumerate(FRAMES)] + [
+        (params.replace(**seeded_values(seed)), seed, FRAMES[seed])
+        for seed in PARAM_SEEDS]
+    assert all(graph_key(p, _fin(0, 0, moving), env, bvh, device="cuda",
+                         height=H, width=W, use_bvh=use_bvh,
+                         show_motion=False, want_u8=False)
+               == graph_key(params, _fin(0, 0, moving), env, bvh,
+                            device="cuda", height=H, width=W,
+                            use_bvh=use_bvh, show_motion=False,
+                            want_u8=False) for p, _, _ in runs)
 
-    # warm: the constants' caches fill here
-    render_staged(params, _fin(0, 3, moving), RenderState(_history(0), 3),
-                  env, bvh, height=H, width=W, use_bvh=use_bvh)
-    records = []
-    for k, index in enumerate(FRAMES):
+    # warm: the constants' caches and each parameter set's block fill here
+    for p, _, _ in runs[:1] + runs[len(FRAMES):]:
+        render_staged(p, _fin(0, 3, moving), RenderState(_history(0), 3),
+                      env, bvh, height=H, width=W, use_bvh=use_bvh)
+    records, images = [], []
+    for p, k, index in runs:
         fin = _fin(k, index, moving)
         state = RenderState(_history(k), index)
         with recording(monkeypatch) as rec:
-            _, out = render_staged(params, fin, state, env, bvh, height=H,
+            _, out = render_staged(p, fin, state, env, bvh, height=H,
                                    width=W, use_bvh=use_bvh)
         monkeypatch.undo()
         assert torch.isfinite(out.image).all()
         records.append(rec.ops)
+        images.append(out.image)
     kernels = [op for op in records[0] if op[0] == "kernel"]
     assert kernels, "the frame reached no kernel wrapper"
     assert len(records[0]) > 100
-    for index, ops in zip(FRAMES[1:], records[1:]):
-        assert len(ops) == len(records[0]), index
+    for (p, _, index), ops in zip(runs[1:], records[1:]):
+        what = f"frame {index}" + ("" if p is params else ", seeded values")
+        assert len(ops) == len(records[0]), what
         for i, (a, b) in enumerate(zip(records[0], ops)):
-            assert a == b, f"frame {index}, operation {i}: {a} != {b}"
+            assert a == b, f"{what}, operation {i}: {a} != {b}"
+    # the seeded values reached the image: the check is not vacuous
+    assert not torch.equal(images[len(FRAMES)], images[len(FRAMES) + 1])
     reads = sorted({op[0] for op in records[0] if op[0] in HOST_READS})
     assert not reads, f"the frame reads the device: {reads}"
 
@@ -442,9 +467,23 @@ def test_graph_key_holds_the_configuration_not_the_frame(tris):
     base = key(_fin(0, 0, False))
     assert key(_fin(5, 2 ** 20 + 5, False)) == base  # index, camera
     assert key(_fin(1, 3, False).at_frame(9)) == base
-    for p in (params.replace(exposure=2.0), params.replace(spp_per_frame=2),
-              params.replace(sun_yaw=params.sun_yaw + 1.0)):
-        assert key(_fin(0, 0, False), p) != base
+    # data fields: their values reach the frame through the parameter
+    # block, not the key (a slider move or an orbit step replays)
+    for p in (params.replace(exposure=2.0),
+              params.replace(sun_yaw=params.sun_yaw + 1.0),
+              params.replace(taa_still_thresh=2e-5),
+              params.replace(**seeded_values(7))):
+        assert key(_fin(0, 0, False), p) == base
+    # every static field, and the outcome of the host's branch on
+    # taa_still_thresh
+    for name in STATIC_FIELDS:
+        value = getattr(params, name)
+        p = params.replace(**{name: value + 1 if name != "ordered_primary"
+                              else (value + 1) % 3})
+        assert key(_fin(0, 0, False), p) != base, name
+    assert key(_fin(0, 0, False), params.replace(spp_per_frame=2)) != base
+    assert key(_fin(0, 0, False), params.replace(taa_still_thresh=0.0)) \
+        != base
     assert key(_fin(0, 0, True)) != base  # the host flag moved
     assert key(dataclasses.replace(_fin(0, 0, False), moved=None)) != base
     for kw in (dict(want_u8=True), dict(show_motion=True),

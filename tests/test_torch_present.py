@@ -42,7 +42,7 @@ from opengl_raytracing_tpu.models import preset as jpreset
 from opengl_raytracing_tpu.ops import svgf as jsvgf
 
 from opengl_raytracing_tpu_torch.convert import params_from
-from opengl_raytracing_tpu_torch.models import preset
+from opengl_raytracing_tpu_torch.models import param_block, preset
 from opengl_raytracing_tpu_torch.ops import cuda_lib, svgf_cuda
 from opengl_raytracing_tpu_torch.ops import svgf as tsvgf
 from opengl_raytracing_tpu_torch.ops.tonemap import visualize_motion
@@ -285,7 +285,10 @@ def _t(x):
 
 
 def _prm(params):
-    return tsvgf.svgf_params(params)
+    """The five svgf_* words the kernel reads from the parameter block."""
+    block = param_block.views(torch.from_numpy(param_block.pack(params)))
+    return tuple(float(block[f"svgf_{k}"]) for k in (
+        "var_max", "k_var", "k_color", "k_var_motion", "k_color_motion"))
 
 
 # ---- tests ----

@@ -4,7 +4,8 @@ versions to the JAX package.
 
 The kernels cannot run here, so their per-pixel arithmetic is transcribed
 to numpy, reading every constant from the argument structs that
-ops/bvh_cuda.py builds for the launch (`ao_args`, `bounce_args`):
+ops/bvh_cuda.py builds for the launch (`ao_args`, `bounce_args`) and from
+the parameter block `ao_args` points to (tests/torch_param_block.py):
 
 * the AO kernel's samples (ambient_occlusion_kernel): the rand pair at
   offsets 37i+3 and 19i+11, the cosine-hemisphere direction around the
@@ -65,6 +66,8 @@ from opengl_raytracing_tpu_torch.sampling import (FrameValue, frame_record,
                                                   sample_hemisphere_cosine)
 from opengl_raytracing_tpu_torch.scene import (BVHArrays, gather_triangles,
                                                make_bunny, model_transform)
+
+from torch_param_block import block_at
 
 torch.set_num_threads(2)
 
@@ -160,13 +163,14 @@ def kernel_ao_samples(a, record, p, n, px, py):
         ux = _rand(px + o1, py + o1, key)
         uy = _rand(py + o2, px + o2, key)
         out.append((ux, uy, _hemisphere(nn, ux, uy, a.two_pi)))
-    return p + nn * F32(a.bias), out
+    return p + nn * F32(block_at(a.prm)["ao_bias"]), out
 
 
 def kernel_ao_value(a, count):
+    block = block_at(a.prm)
     ao = F32(1.0) - F32(count) / F32(a.samples)
-    return np.minimum(np.maximum(F32(a.ao_min) + F32(a.ao_span) * ao,
-                                 F32(a.ao_min)), F32(1.0))
+    return np.minimum(np.maximum(F32(block["ao_min"]) + F32(block["ao_span"])
+                                 * ao, F32(block["ao_min"])), F32(1.0))
 
 
 def kernel_bounce_ray(b, record, p, n, px, py):
@@ -375,7 +379,7 @@ def _mask(f, kind):
 def _pr4_ao(scene, h, frame_index, px, py, active):
     """compute_ao's BVH branch as it was before its kernel: the four
     hemisphere batches as one any-hit stream of the plain walk."""
-    params = scene.params
+    params = scene.params.host  # the RenderParams of the scene's block
     n = tlt.normalize(h.n)
     dirs = []
     for i in range(params.ao_samples):
@@ -455,7 +459,7 @@ def _ao_counts(ao, params):
 @pytest.mark.parametrize("frame_index", [0, 7])
 def test_ambient_occlusion_wrapper_matches_jax(bunny, frame_index, mask):
     f = bunny
-    scene, params = f["scene"], f["scene"].params
+    scene, params = f["scene"], f["scene"].params.host
     active, jactive, lanes = _mask(f, mask)
     px, py = torch.from_numpy(f["px"]), torch.from_numpy(f["py"])
     got = bvh_cuda.ambient_occlusion(scene.bvh.arrays, f["h"],
