@@ -177,6 +177,13 @@ in phases, each printing its result and seconds on a line of its own:
      configuration), no eager frame under `--jit`; ms a step both ways
      (the first step of a replayed run, which captures, apart), the
      captures and the graphs' MB before and after;
+  25i. raster: the app's raster preview (F2) as a replay of its CUDA graph
+     (models/graph.py:render_raster, the JAX package's jitted
+     `_raster_fn`): `--scene bvh --preset full --orbit` at 1920x1080, 16
+     steps (the orbit moves the point light's marker every step; its
+     colour is set through /set before step 8), `--jit` against
+     `--no-jit`: every step bit for bit, one capture and 15 replays, K1
+     (`trace_closest`) once a step either way, ms a step both ways;
   26. app_headless: the app layer as a user drives it, 1920x1080, through
      `app.headless`'s parser, `make_app` and `Application.step`:
      (a) `--scene bvh --preset full`, 32 still frames: the sum of the
@@ -223,15 +230,30 @@ in phases, each printing its result and seconds on a line of its own:
      the `full` path launched: every frame's stitched image and the last
      accumulation equal render_frame's bit for bit, mean_lum within 1e-4
      of the host's; (b) a one-rank NCCL group on this card through
-     `make_sharded_render_fn`, the `full` and `moving` chains of 32
-     frames (the history all-gather on every moving frame, the halo ring
-     with no neighbour, the luminance all-reduce), counters zeroed before:
-     checksums equal frames_full's and frames_moving's, the gathered last
-     image's mean luminance the all-reduce's; where the machine has two
-     cards or more, min(cards, 4) NCCL ranks, one a card, in processes of
-     their own (`sharding.spawn_ranks`): rank 0's gathered `full` and
-     `moving` frames equal (c)'s single-card frames bit for bit.  With one
-     card it says so on a line of its own;
+     `make_sharded_render_fn`, its compiled step (parallel/graph.py: one
+     CUDA graph a rank, the history all-gather on every moving frame, the
+     halo ring with no neighbour and the luminance all-reduce captured in
+     it), the `full` and `moving` chains of 32 frames after a warm frame
+     that captures, counters zeroed before: checksums equal frames_full's
+     and frames_moving's, one capture a key, 32 replays, no eager frame
+     after the capture, the gathered last image's mean luminance the
+     all-reduce's; each chain again in lockstep with the eager step, every
+     frame's image, accumulation and mean_lum bit for bit, the two chains'
+     launches equal (the eager one's counted where the wrappers launch);
+     a warm replayed frame under the profiler: 0 cudaLaunchKernel, 1
+     cudaGraphLaunch, no stream synchronization; each kernel's launches in
+     replayed band frames as the profiler sees the card run them, equal
+     to what the counters add a replay (the kernels line's
+     `sharded_replay_launches_profiled` beside `sharded_replay_launches`);
+     the graphs' memory; `full` chains in turns:
+     render_frame replayed, the band step replayed, the band step eager,
+     render_frame replayed; where the machine has two cards or more,
+     min(cards, 4) NCCL ranks, one a card, in processes of their own
+     (`sharding.spawn_ranks`), each replaying its compiled step: rank 0's
+     gathered `full` and `moving` frames equal (c)'s single-card frames
+     bit for bit, every rank's mean_lum within 1e-4 of the host's
+     reduction of the gathered image.  With one card it says so on a line
+     of its own;
   29. bench: `python3 bench_torch.py` at its defaults (the nine cases of
      bench.py, each a warm chain and five timed chains of 32 frames in a
      child process): rc 0, nine case lines with no error; each case's
@@ -1638,6 +1660,9 @@ def main() -> int:
     phase("params", t0, **check_params(smi))
 
     t0 = time.time()
+    phase("raster", t0, **check_raster_graph(smi))
+
+    t0 = time.time()
     app_run = check_app_headless(frames_full, frames_an_full, smi)
     phase("app_headless", t0, **app_run)
 
@@ -1657,6 +1682,9 @@ def main() -> int:
         "an_full": frames_an_full, "cf_close": frames_cf["cf_close"],
         "cf_far": frames_cf["cf_far"]}))
     sharded_launches = sharded["nccl_one_rank_still"]["launches"]
+    # a replayed one-rank band frame: what the counters add a replay, and
+    # what the profiler saw the card run
+    sharded_replay = sharded["nccl_one_rank_still_replay_vs_eager"]
 
     # each kernel's own count in the newest path that must run it; a
     # kernel no path runs (the filter entry alone) as `full` counted it
@@ -1689,6 +1717,12 @@ def main() -> int:
                     app_launches=app_run["launches_all"][k],
                     sharded_launches=sharded_launches[
                         KERNELS[k].get("counter", k)],
+                    sharded_replay_launches=sharded_replay[
+                        "launches_per_replay"].get(
+                            KERNELS[k].get("counter", k), 0),
+                    sharded_replay_launches_profiled=sharded_replay[
+                        "launches_per_replay_profiled"].get(
+                            KERNELS[k].get("counter", k), 0),
                     replay_launches=replayed["counted"][
                         KERNELS[k].get("counter", k)],
                     replay_launches_profiled=replayed["profiled"][
@@ -2075,6 +2109,77 @@ def check_params(smi):
     return out
 
 
+RASTER_STEPS = 16
+RASTER_SLIDER_AT = 8  # the step before which a slider moves
+
+
+def check_raster_graph(smi):
+    """Phase raster (docstring, step 25i): the app's raster preview (F2),
+    `--scene bvh --preset full --orbit` at 1080p, RASTER_STEPS steps with
+    the point light's colour set through the viewer's /set before step
+    RASTER_SLIDER_AT, with `--jit` (a replay of the preview's graph) and
+    `--no-jit`: every step bit for bit, one capture, ms a step both
+    ways."""
+    import statistics
+    import torch
+    from opengl_raytracing_tpu_torch.app.viewer import make_handler
+    from opengl_raytracing_tpu_torch.models import graph
+    from opengl_raytracing_tpu_torch.ops.cuda_lib import LAUNCHES
+    set_field = make_handler(None)._apply_set
+    runs = {}
+    for flag in ("--jit", "--no-jit"):
+        graph.clear()
+        stats0 = graph.stats()
+        application = app_steps(app_args("--scene", "bvh", "--preset",
+                                         "full", "--orbit", flag), 0)
+        application.act("toggle_ray_mode")
+        images, ms = [], []
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        for i in range(RASTER_STEPS):
+            if i == RASTER_SLIDER_AT:
+                set_field(application, "point_light_color", "0.2,1,0.4")
+            torch.cuda.synchronize()
+            t0 = time.time()
+            images.append(application.step().clone())
+            torch.cuda.synchronize()
+            ms.append((time.time() - t0) * 1e3)
+        if application.app.ray_mode:
+            raise AssertionError("the app did not enter the raster preview")
+        stats = graph.stats()
+        runs[flag] = dict(images=images, ms=ms, launches={
+                              k: n / RASTER_STEPS
+                              for k, n in LAUNCHES.items() if n},
+                          captures=stats["captures"] - stats0["captures"],
+                          replays=stats["replays"] - stats0["replays"],
+                          pool_mb=stats["pool_bytes"] / 2**20)
+    graph.clear()
+    jit, eager = runs["--jit"], runs["--no-jit"]
+    same = [bool(torch.equal(a, b)) for a, b in zip(jit["images"],
+                                                    eager["images"])]
+    distinct = len({float(x.sum()) for x in jit["images"]})
+    if not all(same) or jit["captures"] != 1 \
+            or jit["replays"] != RASTER_STEPS - 1 or eager["captures"] \
+            or distinct < RASTER_STEPS // 2 \
+            or jit["launches"] != {"closest": 1.0} \
+            or eager["launches"] != jit["launches"]:
+        raise AssertionError(f"raster: steps bit-equal to --no-jit {same}, "
+                             f"{jit['captures']} captures and "
+                             f"{jit['replays']} replays with --jit, "
+                             f"{eager['captures']} with --no-jit, "
+                             f"{distinct} distinct images, launches a step "
+                             f"{jit['launches']} and {eager['launches']}")
+    print(f"raster: {RASTER_STEPS} preview steps bit-equal to --no-jit, "
+          f"{jit['captures']} capture", flush=True)
+    return dict(card=smi, steps=RASTER_STEPS, bitwise=True,
+                captures=jit["captures"], replays=jit["replays"],
+                distinct_images=distinct, graph_mb=jit["pool_mb"],
+                launches_per_step=jit["launches"],
+                ms_per_step_replayed=statistics.median(jit["ms"][1:]),
+                ms_per_step_eager=statistics.median(eager["ms"][1:]),
+                ms_first_step_replayed=jit["ms"][0])
+
+
 def check_graph(bvh, bvh6, env, smi):
     """Phase graph (docstring, step 25g)."""
     scene_of = {"bvh": bvh, "bvh6": bvh6}
@@ -2224,27 +2329,30 @@ def check_band_kernels(bvh, device="cuda", timer=None):
             lambda: svgf_cuda.svgf_present(*planes, params), kernel))
 
 
-def sharded_frames(mesh, bvh, preset_name, camera, frames):
+def sharded_frames(mesh, bvh, preset_name, camera, frames, jit=True):
     """`frames` chained 1080p frames of the preset on the bunny scene
-    through make_sharded_render_fn on this rank's band, after one warm
-    frame, the counters zeroed just before: the record (the checksum of
-    this rank's image sums, launches, ms/frame, each frame's mean_lum),
-    and the last frame's image and accumulation gathered on rank 0 (None
-    elsewhere)."""
+    through make_sharded_render_fn on this rank's band (`jit`: the
+    compiled step, one CUDA graph a rank replayed; else the eager step),
+    after one warm frame, the counters zeroed just before: the record (the
+    checksum of this rank's image sums, launches, ms/frame, each frame's
+    mean_lum; captures and replays over the warm frame and the chain, and
+    the frames that ran eagerly after their key's capture), and the last
+    frame's image and accumulation gathered on rank 0 (None elsewhere)."""
     import torch
-    from opengl_raytracing_tpu_torch.models import RenderState, preset
+    from opengl_raytracing_tpu_torch.models import RenderState, graph, preset
     from opengl_raytracing_tpu_torch.ops.cuda_lib import LAUNCHES
     from opengl_raytracing_tpu_torch.parallel import (make_sharded_render_fn,
                                                       shard_image_rows)
     from opengl_raytracing_tpu_torch.parallel.shardmap import gather_rows
     params = preset(preset_name).replace(enable_env_map=0)
-    fn = make_sharded_render_fn(mesh, HEIGHT, WIDTH, use_bvh=True)
+    fn = make_sharded_render_fn(mesh, HEIGHT, WIDTH, use_bvh=True, jit=jit)
     state = shard_image_rows(mesh, RenderState.create(HEIGHT, WIDTH,
                                                       mesh.device))
     fins = list(frame_inputs(HEIGHT, WIDTH, frames, mesh.device, preset_name,
                              camera))
     # warm: NCCL sets its communicators up at a group's first collective
-    # of each kind (the history's all-gather needs a frame with a history)
+    # of each kind, and the compiled step captures its key
+    stats0 = graph.stats()
     warm = shard_image_rows(mesh, RenderState.create(HEIGHT, WIDTH,
                                                      mesh.device))
     fn(params, fins[0], RenderState(warm.accum, 1), None, bvh)
@@ -2256,31 +2364,128 @@ def sharded_frames(mesh, bvh, preset_name, camera, frames):
     for fin in fins:
         state, out, lum = fn(params, fin, state, None, bvh)
         sums.append(out.image.sum())
-        lums.append(lum)
+        lums.append(lum.clone())
     torch.cuda.synchronize()
     sec = (time.time() - t0) / frames
     launches = dict(LAUNCHES)
+    stats = graph.stats()
+    captures = stats["captures"] - stats0["captures"]
+    replays = stats["replays"] - stats0["replays"]
     # (CPU tensors, a rehearsal, launch nothing)
     if mesh.device.type == "cuda" \
             and min(launches[k] for k in FULL_PATH) < frames:
         raise AssertionError(f"the band step skipped a kernel of the path: "
                              f"{launches}")
+    # one key: captured by the warm frame, or by an earlier chain of it
+    if jit and mesh.device.type == "cuda" \
+            and (captures > 1 or captures + replays != frames + 1):
+        raise AssertionError(f"the compiled band step: {captures} captures "
+                             f"and {replays} replays in {frames + 1} frames "
+                             f"of one key")
     image, accum = gather_rows(mesh, out.image), gather_rows(mesh,
                                                              state.accum)
     rec = dict(preset=preset_name, camera=camera, frames=frames,
-               ranks=mesh.size, band=list(out.image.shape),
+               ranks=mesh.size, band=list(out.image.shape), jit=jit,
                ms_per_frame=sec * 1e3,
                checksum=float(torch.stack(sums).sum()), launches=launches,
-               mean_lum=[float(x) for x in lums])
+               mean_lum=[float(x) for x in lums], captures=captures,
+               replays=replays,
+               eager_frames_after_capture=frames + 1 - captures - replays
+               if jit and mesh.device.type == "cuda" else None,
+               graph_pool_mb=stats["pool_bytes"] / 2**20)
     return rec, image, accum
 
 
+def sharded_replay_vs_eager(mesh, bvh, camera, frames=FRAMES):
+    """Phase sharded (b): the compiled band step against the eager one,
+    `full` on this rank, `frames` frames in lockstep (an eager frame, then
+    the replayed frame of the same inputs): every frame's image,
+    accumulation and mean_lum bit for bit, and the chains' launches equal
+    (the eager one's counted by the wrappers as they launch, the replayed
+    one's added by the replays); then one warm replayed frame and one
+    eager frame, their inputs staged inside the window as a caller stages
+    them, under the profiler (`frame_events`: the host's cudaLaunchKernel
+    and cudaGraphLaunch calls, copies, device ms); the kernels' launches
+    in replayed band frames as the profiler sees them on the card, equal
+    to what the counters add a replay (`profiled_launches`); the graphs'
+    memory."""
+    import torch
+    from opengl_raytracing_tpu_torch.models import (FrameInputs, RenderState,
+                                                    frame_block, graph,
+                                                    preset)
+    from opengl_raytracing_tpu_torch.ops.cuda_lib import LAUNCHES
+    from opengl_raytracing_tpu_torch.parallel import (make_sharded_render_fn,
+                                                      shard_image_rows)
+    params = preset("full").replace(enable_env_map=0)
+    fins = list(frame_inputs(HEIGHT, WIDTH, frames, mesh.device, "full",
+                             camera))
+    fns = {jit: make_sharded_render_fn(mesh, HEIGHT, WIDTH, use_bvh=True,
+                                       jit=jit) for jit in (False, True)}
+    states = {jit: shard_image_rows(mesh, RenderState.create(
+        HEIGHT, WIDTH, mesh.device)) for jit in fns}
+    stats0 = graph.stats()
+    chain_launches = {jit: dict.fromkeys(LAUNCHES, 0) for jit in fns}
+    for i, fin in enumerate(fins):
+        got = {}
+        for jit, fn in fns.items():
+            before = dict(LAUNCHES)
+            states[jit], out, lum = fn(params, fin, states[jit], None, bvh)
+            for k in LAUNCHES:
+                chain_launches[jit][k] += LAUNCHES[k] - before[k]
+            got[jit] = (out.image, states[jit].accum, lum)
+        differ = [name for name, a, b in zip(("image", "accum", "mean_lum"),
+                                             got[False], got[True])
+                  if not torch.equal(a, b)]
+        if differ:
+            raise AssertionError(f"{camera} frame {i}: the replayed band "
+                                 f"step's {differ} differ from the eager "
+                                 f"step's")
+    if chain_launches[True] != chain_launches[False] \
+            or not any(chain_launches[True].values()):
+        raise AssertionError(f"{camera}: the replayed band chain launches "
+                             f"{chain_launches[True]}, the eager one "
+                             f"{chain_launches[False]}")
+    stats = graph.stats()
+
+    def frame(jit):
+        # the caller's staging of a frame's inputs, then the step
+        index = states[jit].frame_index
+        src = fins[index % frames]
+        fin = FrameInputs.stage(frame_block.at_frame(src.words, index),
+                                mesh.device, src.moved)
+        states[jit], _, _ = fns[jit](params, fin, states[jit], None, bvh)
+    events = {jit: frame_events(lambda jit=jit: frame(jit), reps=5)
+              for jit in fns}
+    calls = events[True]["host_calls"]
+    if calls["cudaLaunchKernel"] != 0 or calls["cudaGraphLaunch"] != 1 \
+            or calls["cudaStreamSynchronize"] != 0:
+        raise AssertionError(f"{camera}: a warm replayed band frame calls "
+                             f"{calls}")
+    before = dict(LAUNCHES)
+    frame(True)
+    per_replay = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    profiled, windows = profiled_launches(lambda: frame(True), per_replay)
+    return dict(camera=camera, frames=frames, bitwise=True,
+                captures=stats["captures"] - stats0["captures"],
+                replays=stats["replays"] - stats0["replays"],
+                chain_launches={k: v for k, v in chain_launches[True].items()
+                                if v},
+                launches_per_replay={k: v for k, v in per_replay.items()
+                                     if v},
+                launches_per_replay_profiled={k: v for k, v in
+                                              profiled.items() if v},
+                profiled_windows=windows,
+                graph_pool_mb=stats["pool_bytes"] / 2**20,
+                replayed_frame=events[True], eager_frame=events[False])
+
+
 def sharded_in_turns(mesh, bvh, frames=FRAMES):
-    """Phase sharded (b): 32-frame `full` chains of render_frame and of
-    the one-rank sharded function in turns (render_frame, sharded,
-    sharded, render_frame: the host's time spreads between chains), ms a
-    frame each; one frame's device launches, copies and busy ms each
-    way (the band step's own work: the halo planes, the all-reduce)."""
+    """Phase sharded (b): 32-frame `full` chains in turns: render_frame
+    replayed, the one-rank band step replayed, the band step eager,
+    render_frame replayed (the host's time spreads between chains), each
+    after an untimed chain that captures; ms a frame each; one frame's
+    device launches, copies and busy ms each way (the band step's own
+    work: the halo planes, the all-reduce)."""
     import torch
     from opengl_raytracing_tpu_torch.models import (RenderState,
                                                     make_render_fn, preset)
@@ -2290,21 +2495,29 @@ def sharded_in_turns(mesh, bvh, frames=FRAMES):
     fins = list(frame_inputs(HEIGHT, WIDTH, frames, mesh.device, "full"))
     fns = dict(render_frame=make_render_fn(HEIGHT, WIDTH, mesh.device,
                                            use_bvh=True),
-               sharded=make_sharded_render_fn(mesh, HEIGHT, WIDTH,
-                                              use_bvh=True))
+               band_replayed=make_sharded_render_fn(mesh, HEIGHT, WIDTH,
+                                                    use_bvh=True),
+               band_eager=make_sharded_render_fn(mesh, HEIGHT, WIDTH,
+                                                 use_bvh=True, jit=False))
 
     def state():  # one rank: its band is the whole image
         return shard_image_rows(mesh, RenderState.create(HEIGHT, WIDTH,
                                                          mesh.device))
-    ms = dict(render_frame=[], sharded=[])
-    for name in ("render_frame", "sharded", "sharded", "render_frame"):
+
+    def chain(name):
         st = state()
         torch.cuda.synchronize()
         t0 = time.time()
         for fin in fins:
             st = fns[name](params, fin, st, None, bvh)[0]
         torch.cuda.synchronize()
-        ms[name].append((time.time() - t0) / frames * 1e3)
+        return (time.time() - t0) / frames * 1e3
+    for name in fns:
+        chain(name)  # the capture
+    ms = {name: [] for name in fns}
+    for name in ("render_frame", "band_replayed", "band_eager",
+                 "render_frame"):
+        ms[name].append(chain(name))
     frame = {}
     for name, fn in fns.items():
         st = RenderState(state().accum, PROFILE_FRAME)
@@ -2315,8 +2528,10 @@ def sharded_in_turns(mesh, bvh, frames=FRAMES):
 
 def sharded_rank(mesh, frames):
     """One rank of the multi-card run: the `full` and `moving` chains of
-    `frames` frames at 1080p on this rank's card; rank 0's gathered last
-    image and accumulation of each, as numpy."""
+    `frames` frames at 1080p on this rank's card through the compiled band
+    step; rank 0's gathered last image and accumulation of each, as
+    numpy."""
+    from opengl_raytracing_tpu_torch.models import graph
     _, bvh = scene(mesh.device)
     out = {}
     for camera in ("still", "moving"):
@@ -2324,6 +2539,7 @@ def sharded_rank(mesh, frames):
         out[camera] = dict(
             rec, image=None if image is None else image.cpu().numpy(),
             accum=None if accum is None else accum.cpu().numpy())
+    graph.clear()  # before the group, whose collectives the graphs hold
     return out
 
 
@@ -2402,6 +2618,7 @@ def check_sharded(bvh, frames_full, frames_moving, smi, device="cuda"):
     import numpy as np
     import torch
     import torch.distributed as dist
+    from opengl_raytracing_tpu_torch.models import graph
     from opengl_raytracing_tpu_torch.parallel import make_mesh
     from opengl_raytracing_tpu_torch.parallel.sharding import (
         COLLECTIVE_TIMEOUT_S, spawn_ranks)
@@ -2422,6 +2639,7 @@ def check_sharded(bvh, frames_full, frames_moving, smi, device="cuda"):
             timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
         try:
             mesh = make_mesh(cpu=device == "cpu")
+            graph.clear()
             for camera, run in (("still", frames_full),
                                 ("moving", frames_moving)):
                 rec, image, _ = sharded_frames(mesh, bvh, "full", camera,
@@ -2431,14 +2649,38 @@ def check_sharded(bvh, frames_full, frames_moving, smi, device="cuda"):
                         f"one NCCL rank, {camera}: checksum "
                         f"{rec['checksum']}, render_frame's "
                         f"{run['checksum']}")
+                if device != "cpu" and rec["captures"] != 1:
+                    raise AssertionError(f"one NCCL rank, {camera}: "
+                                         f"{rec['captures']} captures of "
+                                         f"one key")
                 host = float(luminance_mean(image))
                 if not abs(rec["mean_lum"][-1] - host) < 1e-4:
                     raise AssertionError(f"mean_lum {rec['mean_lum'][-1]}, "
                                          f"host {host}")
                 rec["mean_lum"] = rec["mean_lum"][-1]
                 out[f"nccl_one_rank_{camera}"] = rec
-            out["nccl_one_rank_in_turns"] = sharded_in_turns(mesh, bvh)
+                if device != "cpu":
+                    lock = sharded_replay_vs_eager(mesh, bvh, camera)
+                    out[f"nccl_one_rank_{camera}_replay_vs_eager"] = lock
+                    print(f"sharded (b) {camera}: checksum "
+                          f"{rec['checksum']}, {rec['captures']} capture "
+                          f"(one key), {rec['eager_frames_after_capture']} "
+                          f"eager frames after it, {FRAMES} frames bit-equal "
+                          f"to the eager step; a warm replayed frame "
+                          f"cudaLaunchKernel "
+                          f"{lock['replayed_frame']['host_calls']['cudaLaunchKernel']}"
+                          f", cudaGraphLaunch "
+                          f"{lock['replayed_frame']['host_calls']['cudaGraphLaunch']}"
+                          f"; kernels a replay, counted "
+                          f"{lock['launches_per_replay']}, profiled "
+                          f"{lock['launches_per_replay_profiled']}"
+                          f"; graphs {lock['graph_pool_mb']:.1f} MB",
+                          flush=True)
+                graph.clear()
+            if device != "cpu":
+                out["nccl_one_rank_in_turns"] = sharded_in_turns(mesh, bvh)
         finally:
+            graph.clear()  # before the group, whose collectives they hold
             dist.destroy_process_group()
 
     cards = torch.cuda.device_count()
@@ -2455,7 +2697,15 @@ def check_sharded(bvh, frames_full, frames_moving, smi, device="cuda"):
         if not (np.array_equal(got["image"], image)
                 and np.array_equal(got["accum"], accum)):
             raise AssertionError(f"{n} NCCL ranks, {camera}: the gathered "
-                                 f"frame differs from the single-card frame")
+                                 f"replayed frame differs from the "
+                                 f"single-card frame")
+        host = float((got["image"] @ np.float32([0.299, 0.587, 0.114]))
+                     .mean())
+        if not all(abs(r[camera]["mean_lum"][-1] - host) < 1e-4
+                   for r in results):
+            raise AssertionError(f"{n} NCCL ranks, {camera}: mean_lum "
+                                 f"{[r[camera]['mean_lum'][-1] for r in results]}"
+                                 f", host {host}")
     out["multi_card"] = dict(
         ranks=n, seconds=time.time() - t0, bitwise=True,
         **{camera: [{k: v for k, v in r[camera].items()

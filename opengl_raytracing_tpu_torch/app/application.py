@@ -15,8 +15,10 @@ and the uint8 image the viewer streams is quantized inside the graph.
 The data fields reach the graph through the parameter block
 (models/param_block.py), so the point-light orbit's steps and every
 slider move replay it too; the turbo chain steps aside under the orbit,
-as the JAX package's does.  Without `jit`, and on the CPU, frames run
-eagerly (`render_frame`).  Either way the accumulation is written in place
+as the JAX package's does.  The raster preview (F2) is a replay of its
+own graph under `jit` (`graph.render_raster`, the JAX package's jitted
+`_raster_fn`), keyed on the static fields alone.  Without `jit`, and on
+the CPU, frames run eagerly (`render_frame`, `render_raster`).  Either way the accumulation is written in place
 and the step rebinds `app.render_state` at once.  The JAX package's
 per-frame resolution of `ordered_primary` is left out: it picks between
 two TPU walk schedules, and the port has one walk.
@@ -206,8 +208,11 @@ class Application:
         else:
             fin = self._frame_inputs(frame, camera_moved,
                                      app.render_state.frame_index)
-            image = render_raster(app.params, fin, app.bvh,
-                                  height=app.height, width=app.width)
+            raster = (graph.render_raster
+                      if self.jit and app.device.type == "cuda"
+                      else render_raster)
+            image = raster(app.params, fin, app.bvh, height=app.height,
+                           width=app.width)
             self.last_output = None
             # raster frames carry no u8 — clear it so the viewer falls
             # back to quantizing `image` (a stale ray frame here would

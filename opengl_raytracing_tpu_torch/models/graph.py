@@ -41,6 +41,18 @@ jitted JAX frame does.
     stay one per launch the card runs.  `STATS` counts captures and
     replays, `pool_bytes` each graph's memory.
 
+`run` (replay or warm up and capture a key), `static_inputs` (the static
+blocks filled for a call), `static` (a static object kept until `clear`)
+and `_slot` serve two more graphs: the raster preview (`render_raster`,
+the JAX package's jitted `Application._raster_fn`, keyed on `raster_key`:
+the size and device, the BVH's tensors, the static fields and the host's
+branches) and the band step of the row-band renderer
+(parallel/graph.py).  Frame and raster graphs share one table, whose
+oldest graph is dropped beyond `MAX_GRAPHS`; band steps are kept in
+another, which only `clear` empties, and take their accumulations from
+slots of their own, so that what a rank renders alone never changes
+whether its band step replays or captures.
+
 The returned accumulation is a static one, which the state's next frame
 overwrites in place (as `render_frame` does); the outputs are the graph's
 static tensors, which the next replay of the key overwrites.  Copy them to
@@ -57,16 +69,17 @@ from typing import Optional
 import torch
 
 from ..ops import cuda_lib
-from ..params import host_branches, static_key
+from ..params import bind, host_branches, static_key
 from .pipeline import FrameInputs, RenderState, render_staged
-from . import frame_block, param_block
+from . import frame_block, param_block, raster
 
-MAX_GRAPHS = 8  # the oldest graph is dropped beyond this many
+MAX_GRAPHS = 8  # the oldest frame or raster graph is dropped beyond this
 STATS = {"captures": 0, "replays": 0}
 
 _GRAPHS: "collections.OrderedDict" = collections.OrderedDict()
-_BLOCKS: dict = {}  # (device, words) -> a static block
-_SLOTS: dict = {}   # (device, height, width) -> [_Slot]
+_KEPT: dict = {}    # key -> a graph only `clear` drops (the band steps)
+_STATIC: dict = {}  # key -> a static object (the blocks, parallel/graph.py's)
+_SLOTS: dict = {}   # (pool, device, height, width) -> [_Slot]
 
 
 @dataclasses.dataclass
@@ -81,6 +94,7 @@ class _Graph:
 @dataclasses.dataclass(eq=False)
 class _Slot:
     accum: torch.Tensor               # a static accumulation
+    index: int                        # its place in its pool
     owner: Optional[weakref.ref] = None  # the last state returned with it
 
 
@@ -104,19 +118,26 @@ def graph_key(params, fin: FrameInputs, env_map, bvh, *, device, height,
             None if env_map is None else id(env_map))
 
 
-def _block(device, words: int) -> torch.Tensor:
-    got = _BLOCKS.get((device, words))
+def static(key, make):
+    """The static object of `key` (a tensor, buffers), made by `make()` at
+    its first call and kept until `clear()`."""
+    got = _STATIC.get(key)
     if got is None:
-        got = _BLOCKS[(device, words)] = torch.zeros(
-            words, dtype=torch.int32, device=device)
+        got = _STATIC[key] = make()
     return got
 
 
-def _slot(state: RenderState, height: int, width: int) -> _Slot:
-    """The static accumulation `state` renders into: the one it holds; else
-    one that no live state owns, or a new one, given `state`'s history by
-    one device copy."""
-    slots = _SLOTS.setdefault((state.accum.device, height, width), [])
+def _block(device, words: int) -> torch.Tensor:
+    return static(("block", device, words), lambda: torch.zeros(
+        words, dtype=torch.int32, device=device))
+
+
+def _slot(state: RenderState, height: int, width: int,
+          pool: str = "frame") -> _Slot:
+    """The static accumulation `state` renders into, from `pool`'s: the one
+    it holds; else one that no live state owns, or a new one, given
+    `state`'s history by one device copy."""
+    slots = _SLOTS.setdefault((pool, state.accum.device, height, width), [])
     for slot in slots:
         if slot.accum.data_ptr() == state.accum.data_ptr():
             return slot
@@ -124,10 +145,49 @@ def _slot(state: RenderState, height: int, width: int) -> _Slot:
                 None)
     if slot is None:
         slot = _Slot(torch.empty_like(state.accum,
-                                      memory_format=torch.contiguous_format))
+                                      memory_format=torch.contiguous_format),
+                     len(slots))
         slots.append(slot)
     slot.accum.copy_(state.accum)
     return slot
+
+
+def static_inputs(params, fin: FrameInputs, device):
+    """The device's static frame block and static parameter block, holding
+    `fin`'s and `params`' words (two device copies): (FrameInputs of the
+    static block, with `fin`'s host words, the static parameter block).
+    Every graph of the device reads its inputs from these."""
+    block = _block(device, frame_block.WORDS)
+    block.copy_(fin.block)
+    pblock = _block(device, param_block.WORDS)
+    pblock.copy_(param_block.block(params, device))
+    return FrameInputs(block, fin.words, fin.moved), pblock
+
+
+def run(key, frame, device, keep, before_capture=None, evict=True):
+    """The outputs of `frame()` for the configuration `key`: a replay of
+    its graph, or, at the key's first call, `frame()` run eagerly (the
+    warm-up, and this call's result) and then captured.  `keep` is what
+    the key names by identity; `before_capture()`, when given, runs before
+    the warm-up of a key that has no graph.  With `evict` the graph joins
+    the frame and raster graphs, the oldest of which is dropped beyond
+    MAX_GRAPHS; else it is kept until `clear()`."""
+    graphs = _GRAPHS if evict else _KEPT
+    g = graphs.get(key)
+    if g is not None:
+        if evict:
+            _GRAPHS.move_to_end(key)
+        g.graph.replay()
+        cuda_lib.add_launches(g.launches)
+        STATS["replays"] += 1
+        return g.outputs
+    if before_capture is not None:
+        before_capture()
+    out = frame()  # the warm-up, and this frame's result
+    graphs[key] = _capture(frame, device, keep)
+    while len(_GRAPHS) > MAX_GRAPHS:
+        _GRAPHS.popitem(last=False)
+    return out
 
 
 def render(params, fin: FrameInputs, state: RenderState, env_map=None,
@@ -145,11 +205,7 @@ def render(params, fin: FrameInputs, state: RenderState, env_map=None,
     key = (graph_key(params, fin, env_map, bvh, device=device, height=height,
                      width=width, use_bvh=use_bvh, show_motion=show_motion,
                      want_u8=want_u8), slot.accum.data_ptr())
-    block = _block(device, frame_block.WORDS)
-    block.copy_(fin.block)
-    static_fin = FrameInputs(block, moved=fin.moved)
-    pblock = _block(device, param_block.WORDS)
-    pblock.copy_(param_block.block(params, device))
+    static_fin, pblock = static_inputs(params, fin, device)
     static_state = RenderState(slot.accum, state.frame_index)
     new_state = RenderState(slot.accum, state.frame_index + 1)
     slot.owner = weakref.ref(new_state)
@@ -161,18 +217,37 @@ def render(params, fin: FrameInputs, state: RenderState, env_map=None,
                                 pblock=pblock)
         return out, quantize_u8(out.image) if want_u8 else None
 
-    g = _GRAPHS.get(key)
-    if g is not None:
-        _GRAPHS.move_to_end(key)
-        g.graph.replay()
-        cuda_lib.add_launches(g.launches)
-        STATS["replays"] += 1
-        return (new_state, *g.outputs)
-    out = frame()  # the warm-up, and this frame's result
-    _GRAPHS[key] = _capture(frame, device, keep=(bvh, env_map, slot.accum))
-    while len(_GRAPHS) > MAX_GRAPHS:
-        _GRAPHS.popitem(last=False)
+    out = run(key, frame, device, keep=(bvh, env_map, slot.accum))
     return (new_state, *out)
+
+
+def raster_key(params, bvh, *, device, height, width) -> tuple:
+    """The configuration a captured raster preview is valid for: the image
+    size and device, the identity of the BVH's tensors, the static fields
+    and the host's branches; not the camera, the frame or a data field's
+    value."""
+    tensors = (() if bvh is None else
+               (bvh.arrays.bounds, bvh.arrays.meta, bvh.arrays.tris))
+    return ("raster", torch.device(device), height, width,
+            tuple(id(t) for t in tensors), static_key(params),
+            host_branches(params))
+
+
+def render_raster(params, fin: FrameInputs, bvh=None, *, height: int,
+                  width: int):
+    """`raster.render_raster` on the card as a replay of its captured
+    graph: the flat-shaded image [H,W,3], the graph's static tensor."""
+    device = fin.block.device
+    if device.type != "cuda":
+        raise ValueError(f"a raster preview is captured on a CUDA device, "
+                         f"not {device}")
+    static_fin, pblock = static_inputs(params, fin, device)
+    key = raster_key(params, bvh, device=device, height=height, width=width)
+
+    def frame():  # the parameters bound to the static block
+        return raster.render_raster(bind(params, device, pblock), static_fin,
+                                    bvh, height=height, width=width)
+    return run(key, frame, device, keep=(bvh,))
 
 
 def _capture(frame, device, keep) -> _Graph:
@@ -197,14 +272,16 @@ def _capture(frame, device, keep) -> _Graph:
 
 def stats() -> dict:
     """Captures and replays so far, the graphs held and their memory."""
-    return dict(STATS, graphs=len(_GRAPHS),
-                pool_bytes=sum(g.pool_bytes for g in _GRAPHS.values()))
+    graphs = (*_GRAPHS.values(), *_KEPT.values())
+    return dict(STATS, graphs=len(graphs),
+                pool_bytes=sum(g.pool_bytes for g in graphs))
 
 
 def clear() -> None:
     """Drop every captured graph and the static buffers (their memory
     returns once no output or state of theirs is referenced)."""
     _GRAPHS.clear()
-    _BLOCKS.clear()
+    _KEPT.clear()
+    _STATIC.clear()
     _SLOTS.clear()
 

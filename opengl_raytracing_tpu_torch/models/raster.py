@@ -43,12 +43,15 @@ MARKER_RADIUS = 0.15
 def render_raster(params: RenderParams, fin: FrameInputs,
                   bvh: Optional[BVHDevice], *, height: int, width: int):
     """Flat-shaded visibility image [H,W,3] (GL bottom-up rows), on the
-    device of `fin`; `params` a RenderParams or a FrameParams there."""
+    device of `fin`; `params` a RenderParams or a FrameParams there, bound
+    once: the marker reads its position and colour from the parameter
+    block (a FrameParams' own, as a captured preview passes its static
+    block's, models/graph.py; a RenderParams' cached one)."""
+    p = bind(params, fin.block.device)
     # the reference raster pass renders with the unjittered view/proj
     # (render.cpp sets plain currView/currProj); zero the TAA jitter so
     # the preview doesn't shimmer frame-to-frame
-    _, _, rd = primary_rays(height, width, fin,
-                            params.replace(enable_jitter=0))
+    _, _, rd = primary_rays(height, width, fin, p.replace(enable_jitter=0))
     dev = rd.device
     ro = fin.cam_pos.expand(rd.shape)
 
@@ -79,7 +82,6 @@ def render_raster(params: RenderParams, fin: FrameInputs,
 
     # Point-light marker, at the orbit position and in the colour of the
     # parameter block
-    p = bind(params, dev)
     if p.point_light_enabled:
         t, v = intersect_sphere(ro, rd, p["point_light_world"], MARKER_RADIUS)
         col = p["point_light_color"] * 3.0

@@ -12,7 +12,9 @@ collectives out:
   * `shard_image_rows`: this rank's band of a whole-image `RenderState`;
   * `render_frame_sharded` / `make_sharded_render_fn`: the frame of this
     rank's band (shardmap.py:render_frame_shardmap), which also returns
-    the frame's mean luminance;
+    the frame's mean luminance; on the card `make_sharded_render_fn`
+    replays it as one CUDA graph a rank (parallel/graph.py), as the JAX
+    package jits its frame;
   * `spawn_ranks`: runs a function on n ranks in processes of their own
     (spawn start method, a file store in a temporary directory), for
     tests and smoke runs; a deployment starts its ranks its own way and
@@ -35,7 +37,8 @@ import torch
 import torch.distributed as dist
 
 from ..models.pipeline import RenderState, render_device
-from .shardmap import band_of, render_frame_shardmap
+from .shardmap import (band_of, make_shardmap_render_fn,
+                       render_frame_shardmap)
 
 # a rank left waiting in a collective by a peer that failed raises after this
 COLLECTIVE_TIMEOUT_S = 60
@@ -94,15 +97,16 @@ def render_frame_sharded(mesh: Mesh, params, fin, state: RenderState,
 
 
 def make_sharded_render_fn(mesh: Mesh, height: int, width: int,
-                           use_bvh: bool = False, show_motion: bool = False):
+                           use_bvh: bool = False, show_motion: bool = False,
+                           jit: bool = True):
     """The band's frame function: fn(params, fin, state, env_map=None,
-    bvh=None).  Raises at once when the mesh's device is CUDA and no card
-    is present (make_mesh)."""
-    def fn(params, fin, state, env_map=None, bvh=None):
-        return render_frame_sharded(mesh, params, fin, state, env_map, bvh,
-                                    height=height, width=width,
-                                    use_bvh=use_bvh, show_motion=show_motion)
-    return fn
+    bvh=None), `shardmap.make_shardmap_render_fn`'s: with `jit` (the
+    default) on a CUDA mesh one CUDA graph a rank, captured once per
+    configuration and replayed (parallel/graph.py); eager on a CPU mesh
+    and with `jit=False`.  Raises at once when the mesh's device is CUDA
+    and no card is present (make_mesh)."""
+    return make_shardmap_render_fn(mesh, height, width, use_bvh=use_bvh,
+                                   show_motion=show_motion, jit=jit)
 
 
 def _rank_main(rank, n, store, cpu, fn, args, results):

@@ -29,6 +29,14 @@ that the bands can also run one after another on one device
 bands' tensors.  Either way the bands equal the single-device
 `render_frame`.
 
+`render_frame_shardmap` binds its parameters once and its collectives
+write into static buffers (`exchange`): its operations are the same for
+every frame, so that `make_shardmap_render_fn` captures it once per
+configuration as one CUDA graph a rank, the collectives inside, and
+replays it (parallel/graph.py: the counterpart of the JAX package's
+`jax.jit` over `shard_map`).  Run eagerly, it is the same step on the
+same buffers.
+
 The reference's half-texel quirk (ORT_PRESENT_HALF_TEXEL=1) is not applied
 to SVGF under bands, as in the JAX package, whose band path calls the
 filter directly.
@@ -36,12 +44,14 @@ filter directly.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from ..constants import YCOEFF
+from ..models import graph
 from ..models.pipeline import (FrameInputs, FrameOutputs, RenderState,
                                pixel_centers, primary_dirs, trace_and_shade)
 from ..ops import svgf_cuda
@@ -49,9 +59,10 @@ from ..ops.scene import BVHDevice, SceneCtx
 from ..ops.svgf import present
 from ..ops.taa import resolve_taa, still_skips
 from ..ops.vecmath import luminance
-from ..params import RenderParams, bind
+from ..params import FrameParams, RenderParams, bind
 
 HALO = 3  # SVGF stencil radius
+CHANNELS = 4 + 2 + 3 + 3  # the halo rows of accum, motion, gpos, gnrm
 
 
 def band_of(height: int, n: int, rank: int):
@@ -64,18 +75,19 @@ def band_of(height: int, n: int, rank: int):
     return rank * bh, bh
 
 
-def needs_history(params: RenderParams, fin: FrameInputs,
-                  frame_index: int) -> bool:
+def needs_history(params, fin: FrameInputs) -> bool:
     """Whether this frame's TAA reads the whole previous accumulation, so
-    that every rank must gather it: TAA on, a history to read, and the
-    camera not known to be still (the degenerate `taa_still_thresh <= 0`
-    reprojects even a still frame, as the JAX package guards).  The same
-    on every rank: it reads host values only."""
+    that every rank must gather it: TAA on, and the camera not known to be
+    still (the degenerate `taa_still_thresh <= 0` reprojects even a still
+    frame), the JAX package's `moved or taa_still_thresh <= 0`.  Frame 0
+    gathers too: TAA's first-frame passthrough is a select on the device,
+    so the frame index never changes the step.  The same on every rank: it
+    reads host values only."""
     still = fin.moved is False and still_skips(params)
-    return bool(params.enable_taa) and frame_index > 0 and not still
+    return bool(params.enable_taa) and not still
 
 
-def band_shade(params: RenderParams, fin: FrameInputs, state: RenderState,
+def band_shade(params: FrameParams, fin: FrameInputs, state: RenderState,
                history: Optional[torch.Tensor] = None,
                env_map: Optional[torch.Tensor] = None,
                bvh: Optional[BVHDevice] = None, *, row0: int, height: int,
@@ -83,21 +95,18 @@ def band_shade(params: RenderParams, fin: FrameInputs, state: RenderState,
     """Trace, shade and TAA of one band: the `state.accum.shape[0]` rows of
     the image from row `row0`.
 
-    `history` is the whole [height,W,4] previous accumulation when
-    `needs_history` says the frame reads it, else None (the band's own
-    accumulation is its history).  The band's new accumulation is written
-    into `state.accum` in place, as `render_frame` does.  Returns
-    (accum, motion, gpos, gnrm) of the band."""
+    `params` are the frame's bound parameters (`params.bind`: the block
+    the whole step reads, a captured step's static one); `fin`'s block
+    holds the frame's index.  `history` is the whole [height,W,4]
+    previous accumulation when `needs_history` says the frame reads it,
+    else None (the band's own accumulation is its history).  The band's
+    new accumulation is written into `state.accum` in place, as
+    `render_frame` does.  Returns (accum, motion, gpos, gnrm) of the
+    band."""
     bh = state.accum.shape[0]
-    frame_index = state.frame_index
-    if history is None and bh != height \
-            and needs_history(params, fin, frame_index):
+    if history is None and bh != height and needs_history(params, fin):
         raise ValueError("this frame's TAA reprojects: pass the whole "
                          "previous accumulation as `history`")
-    # the frame's per-frame values from its device block, and its data
-    # parameters from their block, as render_frame reads them
-    fin = fin.at_frame(frame_index)
-    params = bind(params, state.accum.device)
     scene = SceneCtx.create(params, fin.cam_pos, env_map=env_map,
                             use_bvh=use_bvh, bvh=bvh)
     px, py = pixel_centers(bh, width, state.accum.device, row_offset=row0)
@@ -121,14 +130,16 @@ def presents_with_halo(params: RenderParams, show_motion: bool) -> bool:
     return bool(params.enable_svgf) and not show_motion
 
 
-def band_present(accum, motion, gpos, gnrm, params: RenderParams, *,
+def band_present(accum, motion, gpos, gnrm, params: FrameParams, *,
                  halo: int, row0: int, height: int,
                  show_motion: bool = False):
     """The present pass of one band whose planes carry `halo` neighbour
     rows above and below (zeros past the image's edge): SVGF with the
     band's taps tested against the whole image (K4 on the card), then the
     blend, ACES and gamma; with SVGF off the tonemap pass of the band's
-    own rows; or the motion view.  Returns the band's sRGB [BH,W,3]."""
+    own rows; or the motion view.  `params` are the step's bound
+    parameters, as `band_shade` takes them.  Returns the band's sRGB
+    [BH,W,3]."""
     if presents_with_halo(params, show_motion):
         return svgf_cuda.svgf_present(accum, motion, gpos, gnrm, params,
                                       halo=halo, row_offset=row0,
@@ -163,18 +174,42 @@ def _peer(mesh, rank: int) -> int:
                                                                 rank)
 
 
-def ring_halos(mesh, planes: Sequence[torch.Tensor]):
+@dataclasses.dataclass(frozen=True)
+class Exchange:
+    """The static buffers of a band step's collectives."""
+    history: torch.Tensor    # [H,W,4] the gathered accumulation
+    from_prev: torch.Tensor  # [HALO,W,CHANNELS] the previous band's rows
+    from_next: torch.Tensor  # [HALO,W,CHANNELS] the next band's rows
+
+
+def exchange(mesh, height: int, width: int) -> Exchange:
+    """The static buffers this rank's band step's collectives write into
+    (made once, zeros, kept until `models.graph.clear()`): the same every
+    frame, so that a captured step holds them.  Keyed on the mesh, since
+    the halo buffer an edge rank never receives into must stay zero.  A
+    step consumes them before it returns."""
+    def make():
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.float32,
+                               device=mesh.device)
+        return Exchange(zeros(height, width, 4),
+                        zeros(HALO, width, CHANNELS),
+                        zeros(HALO, width, CHANNELS))
+    return graph.static(("band exchange", mesh.device, mesh.group,
+                         mesh.rank, mesh.size, height, width), make)
+
+
+def ring_halos(mesh, planes: Sequence[torch.Tensor], buffers: Exchange):
     """Exchange HALO rows of every plane with both neighbours (two ring
-    shifts, one batch of point-to-point ops) and return the planes with
-    their halos ([BH + 2*HALO, W, C] each).  Edge ranks receive zeros:
-    the filter's image-bounds test weighs those rows 0 anyway."""
+    shifts, one batch of point-to-point ops) into the receive buffers of
+    `buffers` and return the planes with their halos ([BH + 2*HALO, W, C]
+    each).  Edge ranks receive zeros: the filter's image-bounds test
+    weighs those rows 0 anyway."""
     if planes[0].shape[0] < HALO:
         raise ValueError(f"a band of {planes[0].shape[0]} rows is thinner "
                          f"than the SVGF halo ({HALO})")
     rank, n = mesh.rank, mesh.size
-    w, c = planes[0].shape[1], sum(x.shape[-1] for x in planes)
-    from_prev = torch.zeros((HALO, w, c), device=planes[0].device)
-    from_next = torch.zeros_like(from_prev)
+    from_prev, from_next = buffers.from_prev, buffers.from_next
     ops = []
     if rank > 0:  # the previous band: my first rows, its last rows
         ops += [dist.P2POp(dist.isend, halo_rows(planes, True),
@@ -192,13 +227,12 @@ def ring_halos(mesh, planes: Sequence[torch.Tensor]):
     return with_halos(planes, from_prev, from_next)
 
 
-def gather_history(mesh, accum: torch.Tensor) -> torch.Tensor:
+def gather_history(mesh, accum: torch.Tensor,
+                   buffers: Exchange) -> torch.Tensor:
     """The whole [H,W,4] accumulation from every rank's band, on every
-    rank (an all-gather into one tensor's row blocks)."""
-    out = torch.empty((mesh.size * accum.shape[0],) + tuple(accum.shape[1:]),
-                      dtype=accum.dtype, device=accum.device)
-    dist.all_gather(list(out.chunk(mesh.size)), accum, group=mesh.group)
-    return out
+    rank: one all-gather into the row blocks of `buffers.history`."""
+    dist.all_gather_into_tensor(buffers.history, accum, group=mesh.group)
+    return buffers.history
 
 
 def gather_rows(mesh, x: torch.Tensor) -> Optional[torch.Tensor]:
@@ -216,7 +250,19 @@ def _mean_lum_sum(image):
     return luminance(image, YCOEFF).sum()
 
 
-def render_frame_shardmap(mesh, params: RenderParams, fin: FrameInputs,
+def check_band(mesh, state: RenderState, height: int, width: int):
+    """Raise unless `state` holds this rank's band of an image `height` x
+    `width` on the mesh's device."""
+    _, bh = band_of(height, mesh.size, mesh.rank)
+    if tuple(state.accum.shape) != (bh, width, 4) \
+            or state.accum.device != mesh.device:
+        raise ValueError(f"rank {mesh.rank} holds an accumulation of shape "
+                         f"{tuple(state.accum.shape)} on "
+                         f"{state.accum.device}, not its band "
+                         f"{(bh, width, 4)} on {mesh.device}")
+
+
+def render_frame_shardmap(mesh, params, fin: FrameInputs,
                           state: RenderState,
                           env_map: Optional[torch.Tensor] = None,
                           bvh: Optional[BVHDevice] = None, *, height: int,
@@ -228,25 +274,32 @@ def render_frame_shardmap(mesh, params: RenderParams, fin: FrameInputs,
     device.  `state` holds the band's [BH,W,4] accumulation
     (`sharding.shard_image_rows`) on the mesh's device, as must `fin` and
     `bvh`; it is updated in place, so it must not be used after the call.
-    Returns (new_state, FrameOutputs, mean_lum) with the band's tensors
-    and the whole image's mean luminance, a 0-d tensor, on every rank."""
-    row0, bh = band_of(height, mesh.size, mesh.rank)
-    if tuple(state.accum.shape) != (bh, width, 4) \
-            or state.accum.device != mesh.device:
-        raise ValueError(f"rank {mesh.rank} holds an accumulation of shape "
-                         f"{tuple(state.accum.shape)} on "
-                         f"{state.accum.device}, not its band "
-                         f"{(bh, width, 4)} on {mesh.device}")
+    `fin`'s block must hold `state.frame_index`, or it is restaged with it
+    (one host-to-device copy).  `params` are bound once for the whole step
+    (a FrameParams as it is, as a captured step passes its static
+    block's; a RenderParams to its cached block), and the collectives
+    write into `exchange`'s static buffers: every per-frame value comes
+    from the device block and every data field from the parameter block,
+    so the operations and their host arguments are the same for every
+    frame index, camera and value of the data fields (what makes one CUDA
+    graph valid for all of them, parallel/graph.py).  Returns (new_state,
+    FrameOutputs, mean_lum) with the band's tensors and the whole image's
+    mean luminance, a 0-d tensor, on every rank."""
+    check_band(mesh, state, height, width)
     fin = fin.at_frame(state.frame_index)
-    history = gather_history(mesh, state.accum) \
-        if needs_history(params, fin, state.frame_index) else None
+    row0, _ = band_of(height, mesh.size, mesh.rank)
+    params = bind(params, state.accum.device)
+    buffers = exchange(mesh, height, width)
+    history = None
+    if needs_history(params, fin):
+        history = gather_history(mesh, state.accum, buffers)
     planes = band_shade(params, fin, state, history, env_map, bvh, row0=row0,
                         height=height, width=width, use_bvh=use_bvh,
                         show_motion=show_motion)
     accum, motion, gpos, gnrm = planes
     halo = 0
     if presents_with_halo(params, show_motion):
-        planes, halo = ring_halos(mesh, planes), HALO
+        planes, halo = ring_halos(mesh, planes, buffers), HALO
     image = band_present(*planes, params, halo=halo, row0=row0,
                          height=height, show_motion=show_motion)
     lum = _mean_lum_sum(image).reshape(1)
@@ -258,15 +311,28 @@ def render_frame_shardmap(mesh, params: RenderParams, fin: FrameInputs,
 
 def make_shardmap_render_fn(mesh, height: int, width: int,
                             use_bvh: bool = False,
-                            show_motion: bool = False):
+                            show_motion: bool = False, jit: bool = True):
     """`render_frame_shardmap` bound to the mesh, the image size, the scene
     mode and the motion view: fn(params, fin, state, env_map=None,
-    bvh=None)."""
+    bvh=None).
+
+    With `jit` (the default, the JAX package's `jax.jit` over
+    `shard_map`) on a CUDA mesh the step is one CUDA graph a rank, its
+    collectives captured with it, captured once per configuration and
+    replayed (parallel/graph.py): the returned accumulation, outputs and
+    mean_lum are the graph's static tensors, overwritten by its next
+    replay.  A failed capture or replay raises; nothing runs the eager
+    step in its place.  On a CPU (gloo) mesh there is nothing to capture
+    and `jit` runs the eager step, as `jit=False` does on the card."""
+    if jit and mesh.device.type == "cuda":
+        from . import graph
+        step = graph.render
+    else:
+        step = render_frame_shardmap
+
     def fn(params, fin, state, env_map=None, bvh=None):
-        return render_frame_shardmap(mesh, params, fin, state, env_map, bvh,
-                                     height=height, width=width,
-                                     use_bvh=use_bvh,
-                                     show_motion=show_motion)
+        return step(mesh, params, fin, state, env_map, bvh, height=height,
+                    width=width, use_bvh=use_bvh, show_motion=show_motion)
     return fn
 
 
@@ -281,12 +347,15 @@ def render_bands_in_turn(params: RenderParams, fin: FrameInputs,
     slices of the other bands' tensors (the gathered history a
     concatenation of the bands' accumulations, each halo its neighbours'
     rows, the luminance a sum).  `states` holds the bands' states, updated
-    in place.  Returns (new states, FrameOutputs of each band, mean_lum)."""
+    in place; `params` are bound once, as `render_frame_shardmap` binds
+    them.  Returns
+    (new states, FrameOutputs of each band, mean_lum)."""
     n = len(states)
     frame_index = states[0].frame_index
     fin = fin.at_frame(frame_index)
+    params = bind(params, states[0].accum.device)
     history = torch.cat([s.accum for s in states], dim=0) \
-        if needs_history(params, fin, frame_index) else None
+        if needs_history(params, fin) else None
     shaded = [band_shade(params, fin, s, history, env_map, bvh,
                          row0=band_of(height, n, k)[0], height=height,
                          width=width, use_bvh=use_bvh,

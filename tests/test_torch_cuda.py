@@ -1418,3 +1418,152 @@ def test_a_host_copy_in_the_frame_makes_the_capture_raise(bvh, monkeypatch):
                 RenderState.create(48, 64, "cuda"), None, BVHDevice(bvh))
     assert torch.isfinite(out.image).all()
     graph.clear()
+
+
+# ---- the captured band step and raster preview (parallel/graph.py,
+# models/graph.py:render_raster) ----
+
+def _band_chain(fn, states, params_at, cam_at, scene, env, h, w):
+    """Six chained band frames through `fn`: frames 0-2 still, 3-5 with
+    the camera turning; the parameters `params_at(i)`.  [(image, accum,
+    mean_lum)] copied off the graph's static tensors."""
+    state, out = states, []
+    prev = None
+    for i in range(6):
+        cam = cam_at(i)
+        moved = i >= 3
+        fin = camera_frame_inputs(
+            cam, "cuda", jitter=(0.1 * (i % 3), -0.05 * (i % 2)),
+            prev_view_proj=prev if moved else None, moved=int(moved),
+            frame_index=i)
+        prev = cam.view_projection()
+        state, o, lum = fn(params_at(i), fin, state, env, scene)
+        out.append((o.image.clone(), state.accum.clone(), lum.clone()))
+    return out
+
+
+@pytest.mark.parametrize("scene_kind", ["bvh", "analytic"])
+def test_replayed_band_frames_equal_eager_ones(bvh, scene_kind, tmp_path):
+    """A one-rank NCCL group through make_sharded_render_fn at 144x192,
+    `full` on the BVH and on the analytic scene: the replayed step
+    (jit=True: one CUDA graph, the history gather and the all-reduce
+    inside) against the eager step, frame by frame bit for bit, across a
+    slider change (frame 2) and a camera that starts to move (frame 3):
+    one capture a key (the still and the moving), the rest replays, the
+    same launches a frame."""
+    import torch.distributed as dist
+    from opengl_raytracing_tpu_torch.models import RenderState, graph
+    from opengl_raytracing_tpu_torch.ops.scene import BVHDevice
+    from opengl_raytracing_tpu_torch.parallel import (make_mesh,
+                                                      make_sharded_render_fn,
+                                                      shard_image_rows)
+    h, w = 144, 192
+    scene = BVHDevice(bvh) if scene_kind == "bvh" else None
+    base = preset("full").replace(enable_env_map=0)
+    moved = base.replace(**seeded_values(1))
+
+    def cam_at(i):
+        cam = Camera()
+        cam.aspect = w / h
+        cam.point_at((-2.0, 1.5, 0.0))
+        cam.yaw += 0.8 * max(i - 2, 0)
+        return cam
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        graph.clear()
+        runs, launches = {}, {}
+        for jit in (False, True):
+            fn = make_sharded_render_fn(mesh, h, w, use_bvh=scene is not None,
+                                        jit=jit)
+            band = shard_image_rows(mesh, RenderState.create(h, w, "cuda"))
+            stats, before = dict(graph.STATS), dict(cuda_lib.LAUNCHES)
+            runs[jit] = _band_chain(fn, band, lambda i: base if i < 2
+                                    else moved, cam_at, scene, None, h, w)
+            launches[jit] = {k: cuda_lib.LAUNCHES[k] - before[k]
+                             for k in before}
+        assert graph.STATS["captures"] == stats["captures"] + 2
+        assert graph.STATS["replays"] == stats["replays"] + 4
+        for i, (e, r) in enumerate(zip(runs[False], runs[True])):
+            for name, x, y in zip(("image", "accum", "mean_lum"), e, r):
+                assert torch.equal(x, y), f"{name} of frame {i}"
+        assert not torch.equal(runs[True][1][0], runs[True][2][0])
+        assert launches[True] == launches[False]
+        assert launches[True]["svgf_present"] == 6
+    finally:
+        graph.clear()
+        dist.destroy_process_group()
+
+
+def test_replayed_raster_preview_equals_eager(bvh):
+    """The raster preview replayed (one capture) against render_raster,
+    bit for bit, with the camera and the point light's orbit and colour
+    changing every frame."""
+    from opengl_raytracing_tpu_torch.models import graph, render_raster
+    from opengl_raytracing_tpu_torch.ops.scene import BVHDevice
+    scene = BVHDevice(bvh)
+    graph.clear()
+    stats = dict(graph.STATS)
+    base = preset("full").replace(point_light_orbit_enabled=1)
+    for i in range(5):
+        params = base.replace(point_light_yaw=30.0 * i,
+                              point_light_color=(1.0, 0.2 * i, 0.5))
+        cam = Camera()
+        cam.aspect = 192 / 144
+        cam.point_at((0.0, 1.0, 0.0))
+        cam.yaw += 2.0 * i
+        fin = camera_frame_inputs(cam, "cuda", frame_index=i)
+        got = graph.render_raster(params, fin, scene, height=144, width=192)
+        want = render_raster(params, fin, scene, height=144, width=192)
+        assert torch.equal(got, want), i
+    assert graph.STATS["captures"] == stats["captures"] + 1
+    assert graph.STATS["replays"] == stats["replays"] + 4
+    graph.clear()
+
+
+def test_a_failed_band_capture_raises(bvh, tmp_path, monkeypatch):
+    """A band step that copies from pageable host memory cannot be
+    captured: make_sharded_render_fn raises, stores no graph and runs no
+    eager step in its place; the card renders afterwards."""
+    import torch.distributed as dist
+    from opengl_raytracing_tpu_torch.models import RenderState, graph
+    from opengl_raytracing_tpu_torch.ops.scene import BVHDevice
+    from opengl_raytracing_tpu_torch.parallel import (make_mesh,
+                                                      make_sharded_render_fn,
+                                                      shard_image_rows)
+    from opengl_raytracing_tpu_torch.parallel import shardmap
+    real = shardmap.band_shade
+
+    def band_shade_with_a_copy(params, fin, state, *args, **kw):
+        state.accum.add_(torch.tensor([0.0], device=state.accum.device))
+        return real(params, fin, state, *args, **kw)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        graph.clear()
+        cam = Camera()
+        cam.aspect = 64 / 48
+        params = preset("full").replace(exposure=1.2345)
+        # still: the copy comes before any collective of the step
+        monkeypatch.setattr(shardmap, "band_shade", band_shade_with_a_copy)
+        fn = make_sharded_render_fn(mesh, 48, 64, use_bvh=True)
+        captures = graph.STATS["captures"]
+        with pytest.raises(RuntimeError):
+            fn(params, camera_frame_inputs(cam, "cuda"),
+               shard_image_rows(mesh, RenderState.create(48, 64, "cuda")),
+               None, BVHDevice(bvh))
+        torch.cuda.synchronize()
+        assert graph.STATS["captures"] == captures and not graph._GRAPHS \
+            and not graph._KEPT
+        monkeypatch.undo()
+        graph.clear()
+        _, out, lum = fn(params, camera_frame_inputs(cam, "cuda"),
+                         shard_image_rows(mesh, RenderState.create(48, 64,
+                                                                   "cuda")),
+                         None, BVHDevice(bvh))
+        assert torch.isfinite(out.image).all() and torch.isfinite(lum)
+    finally:
+        graph.clear()
+        dist.destroy_process_group()

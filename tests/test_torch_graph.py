@@ -36,8 +36,6 @@ The card runs the capture itself (tests/test_torch_cuda.py, chip_smoke.py
 phase `graph`).
 """
 
-import contextlib
-import ctypes
 import dataclasses
 import functools
 import weakref
@@ -47,7 +45,6 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 import reference_oracle as ref
 
@@ -72,7 +69,7 @@ from opengl_raytracing_tpu_torch.models.pipeline import (FrameInputs,
                                                          pixel_centers,
                                                          render_frame,
                                                          render_staged)
-from opengl_raytracing_tpu_torch.ops import an_cuda, bvh_cuda, svgf_cuda
+from opengl_raytracing_tpu_torch.ops import an_cuda, bvh_cuda
 from opengl_raytracing_tpu_torch.ops.scene import SceneCtx, prepare_bvh
 from opengl_raytracing_tpu_torch.ops.taa import _still_weights, resolve_taa
 from opengl_raytracing_tpu_torch.ops.vecmath import luminance
@@ -85,6 +82,7 @@ from opengl_raytracing_tpu_torch.scene import (BVHArrays, gather_triangles,
                                                make_bunny, model_transform)
 
 from torch_param_block import seeded_values
+from torch_recorder import HOST_READS, recording
 
 torch.set_num_threads(2)
 
@@ -124,103 +122,6 @@ def _history(seed):
     rng = np.random.RandomState(seed)
     return torch.from_numpy(rng.uniform(0.0, 1.0, (H, W, 4)).astype(
         np.float32))
-
-
-# ---- recording a frame ----
-
-def _host(x):
-    """A record of `x` that tells frames apart on host values only:
-    tensors by dtype and shape, everything else by value."""
-    if isinstance(x, torch.Tensor):
-        return ("tensor", x.dtype, tuple(x.shape))
-    if isinstance(x, (list, tuple)):
-        return type(x).__name__, tuple(_host(v) for v in x)
-    if isinstance(x, dict):
-        return tuple(sorted((k, _host(v)) for k, v in x.items()))
-    return x
-
-
-class Recorder(TorchDispatchMode):
-    """Every ATen operation (its schema name and host arguments) and every
-    kernel wrapper call (`note`), outside `paused()`."""
-
-    def __init__(self):
-        super().__init__()
-        self.ops = []
-        self._paused = 0
-
-    @contextlib.contextmanager
-    def paused(self):
-        self._paused += 1
-        try:
-            yield
-        finally:
-            self._paused -= 1
-
-    def note(self, *entry):
-        if not self._paused:
-            self.ops.append(entry)
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        self.note(func._schema.name, _host(args), _host(kwargs))
-        return func(*args, **kwargs)
-
-
-def _struct(args):
-    """An argument struct's bytes with its device pointers zeroed (they
-    differ between frames here, where each frame has its own block; in a
-    captured frame they are the static block's)."""
-    args = type(args).from_buffer_copy(bytes(args))
-    for name, kind in type(args)._fields_:
-        if kind is ctypes.c_void_p:
-            setattr(args, name, None)
-        elif kind is bvh_cuda.cuda_lib.PixelGrid:
-            setattr(args, name, kind())
-    return bytes(args)
-
-
-@contextlib.contextmanager
-def recording(monkeypatch):
-    """A Recorder with the kernels' wrappers stubbed: each notes the host
-    arguments its launch would take and runs its plain version (the CPU
-    route) out of the record."""
-    rec = Recorder()
-
-    def stub(module, name, host_args):
-        orig = getattr(module, name)
-
-        def call(*args, **kw):
-            with rec.paused():
-                noted = host_args(*args, **kw)
-                out = orig(*args, **kw)
-            rec.note("kernel", name, noted)
-            return out
-        monkeypatch.setattr(module, name, call)
-
-    def direct(scene, h, rng_frame, frame_index, *a, **kw):
-        env = an_cuda._env_table(scene, h.t.device)
-        return _struct(an_cuda.scene_args(scene, rng_frame, frame_index,
-                                          env)[0]), tuple(h.t.shape)
-
-    def direct_bvh(scene, h, rng_frame, frame_index, *a, **kw):
-        return _struct(an_cuda.scene_args(scene, rng_frame,
-                                          frame_index)[0]), tuple(h.t.shape)
-
-    stub(an_cuda, "direct_light", direct)
-    stub(an_cuda, "direct_light_bvh", direct_bvh)
-    stub(bvh_cuda, "trace_bounce",
-         lambda bvh, h0, rng, seed, *a, **kw: _struct(
-             bvh_cuda.bounce_args(rng, seed)[0]))
-    stub(bvh_cuda, "ambient_occlusion",
-         lambda bvh, h, fi, px, py, params, *a, **kw: _struct(
-             bvh_cuda.ao_args(params, fi)[0]))
-    stub(bvh_cuda, "trace_closest",
-         lambda bvh, ro, rd, *a, **kw: (tuple(ro.shape), tuple(rd.shape)))
-    stub(svgf_cuda, "svgf_present", lambda *a, **kw: "svgf_present")
-    stub(svgf_cuda, "tonemap", lambda *a, **kw: "tonemap")
-    with rec:
-        yield rec
 
 
 CASES = {

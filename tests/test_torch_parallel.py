@@ -309,11 +309,12 @@ def test_needs_history():
         _ns(_frames(preset("full"), 1, moving=True)[0]), "cpu")
     unknown = dataclasses.replace(still, moved=None)
     p = preset("full")
-    assert not needs_history(p, still, 3)
-    assert needs_history(p, moving, 3) and needs_history(p, unknown, 3)
-    assert not needs_history(p, moving, 0)  # frame 0 reads no history
-    assert not needs_history(p.replace(enable_taa=0), moving, 3)
-    assert needs_history(p.replace(taa_still_thresh=0.0), still, 3)
+    # JAX's `moved or taa_still_thresh <= 0`: no frame index in it (frame
+    # 0's passthrough is a device select, so frame 0 gathers as frame 1)
+    assert not needs_history(p, still)
+    assert needs_history(p, moving) and needs_history(p, unknown)
+    assert not needs_history(p.replace(enable_taa=0), moving)
+    assert needs_history(p.replace(taa_still_thresh=0.0), still)
 
 
 # ---- in-process: TAA and the present pass of a band ----

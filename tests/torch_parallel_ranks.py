@@ -66,3 +66,34 @@ def fail_on_rank_one(mesh):
 
 def mesh_of_rank(mesh):
     return (mesh.rank, mesh.size, str(mesh.device))
+
+
+def band_chain(mesh, case, height, width):
+    """tests/test_torch_band_graph.py's ranks: the case's frames through
+    `make_sharded_render_fn` at its default `jit` (on a gloo mesh, the
+    eager step), with rank 0's every frame's gathered image and each
+    frame's mean_lum and gather decision; then the key agreement check of
+    the compiled step (parallel/graph.py:agree), once with what every
+    rank holds alike and once with a field that differs between ranks
+    (it must raise on every rank)."""
+    from opengl_raytracing_tpu_torch.parallel.graph import agree
+    from opengl_raytracing_tpu_torch.parallel.shardmap import needs_history
+    torch.set_num_threads(1)
+    fn = make_sharded_render_fn(mesh, height, width,
+                                show_motion=case["show_motion"])
+    state = shard_image_rows(mesh, RenderState.create(height, width, "cpu"))
+    images, lums, gathers = [], [], []
+    for f in case["frames"]:
+        fin = frame_inputs_from_numpy(SimpleNamespace(**f), mesh.device)
+        gathers.append(needs_history(case["params"], fin))
+        state, outs, lum = fn(case["params"], fin, state, None, None)
+        lums.append(float(lum))
+        whole = gather_rows(mesh, outs.image)
+        images.append(None if whole is None else whole.numpy())
+    agree(mesh, ("the same on every rank",))
+    try:
+        agree(mesh, ("differs by rank", mesh.rank))
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    return dict(images=images, lums=lums, gathers=gathers, refused=refused)

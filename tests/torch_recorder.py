@@ -1,0 +1,139 @@
+"""A recorder of what a frame dispatches, for the tests of the frames one
+CUDA graph captures (tests/test_torch_graph.py: the frame;
+tests/test_torch_band_graph.py: the band step and the raster preview).
+
+A captured frame is valid for every frame index, camera and data value
+only if its operations, and every host argument they take, are the same
+whatever those are.  `recording` runs a frame under a TorchDispatchMode
+that notes every ATen operation with its host arguments, and every
+kernel wrapper call with the host arguments its launch would take (the
+argument structs' bytes, their pointers aside), the wrappers running
+their plain versions (the CPU route) out of the record.  It also notes
+the storage of every tensor an operation reads (`storages`), so a test
+can tell which parameter block the frame read."""
+
+import contextlib
+import ctypes
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from opengl_raytracing_tpu_torch.ops import an_cuda, bvh_cuda, svgf_cuda
+
+# ATen operations that read a device value on the host: a captured frame
+# makes none
+HOST_READS = ("aten::_local_scalar_dense", "aten::nonzero",
+              "aten::lift_fresh")
+
+
+def _host(x):
+    """A record of `x` that tells frames apart on host values only:
+    tensors by dtype and shape, everything else by value."""
+    if isinstance(x, torch.Tensor):
+        return ("tensor", x.dtype, tuple(x.shape))
+    if isinstance(x, (list, tuple)):
+        return type(x).__name__, tuple(_host(v) for v in x)
+    if isinstance(x, dict):
+        return tuple(sorted((k, _host(v)) for k, v in x.items()))
+    return x
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _tensors(v)
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
+
+
+class Recorder(TorchDispatchMode):
+    """Every ATen operation (its schema name and host arguments) and every
+    kernel wrapper call (`note`), outside `paused()`; and the storages of
+    the operations' tensor arguments (`storages`, their data pointers)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+        self.storages = set()
+        self._paused = 0
+
+    @contextlib.contextmanager
+    def paused(self):
+        self._paused += 1
+        try:
+            yield
+        finally:
+            self._paused -= 1
+
+    def note(self, *entry):
+        if not self._paused:
+            self.ops.append(entry)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if not self._paused:
+            self.note(func._schema.name, _host(args), _host(kwargs))
+            self.storages.update(t.untyped_storage().data_ptr()
+                                 for t in _tensors((args, kwargs)))
+        return func(*args, **kwargs)
+
+
+def _struct(args):
+    """An argument struct's bytes with its device pointers zeroed (they
+    differ between frames where each frame has its own block; in a
+    captured frame they are the static block's)."""
+    args = type(args).from_buffer_copy(bytes(args))
+    for name, kind in type(args)._fields_:
+        if kind is ctypes.c_void_p:
+            setattr(args, name, None)
+        elif kind is bvh_cuda.cuda_lib.PixelGrid:
+            setattr(args, name, kind())
+    return bytes(args)
+
+
+@contextlib.contextmanager
+def recording(monkeypatch):
+    """A Recorder with the kernels' wrappers stubbed: each notes the host
+    arguments its launch would take and runs its plain version (the CPU
+    route) out of the record."""
+    rec = Recorder()
+
+    def stub(module, name, host_args):
+        orig = getattr(module, name)
+
+        def call(*args, **kw):
+            with rec.paused():
+                noted = host_args(*args, **kw)
+                out = orig(*args, **kw)
+            rec.note("kernel", name, noted)
+            return out
+        monkeypatch.setattr(module, name, call)
+
+    def direct(scene, h, rng_frame, frame_index, *a, **kw):
+        env = an_cuda._env_table(scene, h.t.device)
+        return _struct(an_cuda.scene_args(scene, rng_frame, frame_index,
+                                          env)[0]), tuple(h.t.shape)
+
+    def direct_bvh(scene, h, rng_frame, frame_index, *a, **kw):
+        return _struct(an_cuda.scene_args(scene, rng_frame,
+                                          frame_index)[0]), tuple(h.t.shape)
+
+    stub(an_cuda, "direct_light", direct)
+    stub(an_cuda, "direct_light_bvh", direct_bvh)
+    stub(bvh_cuda, "trace_bounce",
+         lambda bvh, h0, rng, seed, *a, **kw: _struct(
+             bvh_cuda.bounce_args(rng, seed)[0]))
+    stub(bvh_cuda, "ambient_occlusion",
+         lambda bvh, h, fi, px, py, params, *a, **kw: _struct(
+             bvh_cuda.ao_args(params, fi)[0]))
+    stub(bvh_cuda, "trace_closest",
+         lambda bvh, ro, rd, *a, **kw: (tuple(ro.shape), tuple(rd.shape)))
+    # the band entry's host arguments: halo, first row, image height
+    stub(svgf_cuda, "svgf_present",
+         lambda *a, **kw: ("svgf_present", tuple(sorted(kw.items()))))
+    stub(svgf_cuda, "tonemap", lambda *a, **kw: "tonemap")
+    with rec:
+        yield rec
