@@ -28,8 +28,11 @@ in phases, each printing its result and seconds on a line of its own:
     sampling the cubemap itself on its mirror and glass lanes, and K4's
     fused present;
   * the bench `heavy` frame: the bunny scene at 1920x1080 with 4 samples
-    a pixel (a frame: the primary trace, AO and the present pass once;
-    the bounce call four times, the BVH direct light eight times);
+    a pixel, shaded as one batch over a leading sample axis (a frame: the
+    primary trace, AO and the present pass once; the bounce call once
+    over every sample's rays, the BVH direct light twice: at the primary
+    hits, its sun and point walks once a pixel for all samples, and at
+    the bounce hits);
   * the bench `moving` frame: `full` with a camera that turns and dollies
     every frame (TAA's reprojection path, SVGF's motion-aware weights);
   * `full` and `moving` again as row bands (parallel/): each band traced,
@@ -121,8 +124,9 @@ in phases, each printing its result and seconds on a line of its own:
      reference_an_full (150x200, 3 frames, with the cubemap on both
      devices), profile_an_full (the dense cubemap lookups as stages
      sky#n);
-  18-20. frames_heavy (a frame: closest 1, bvh_direct 8, bounce 4, ao 1,
-     svgf_present 1, exactly), reference_heavy (270x480, 3 frames),
+  18-20. frames_heavy (a frame: closest 1, bvh_direct 2, bounce 1, ao 1,
+     svgf_present 1, exactly; as a host loop of samples it was
+     bvh_direct 8 and bounce 4), reference_heavy (270x480, 3 frames),
      profile_heavy;
   21-24. frames_moving, reference_motion_view (the motion debug wheel of
      the second frame of a moving pair, 270x480), reference_moving (3
@@ -164,6 +168,25 @@ in phases, each printing its result and seconds on a line of its own:
      full --turbo 8` (a moving step, then still ones: the moving key, then
      the still key) with `--jit` and `--no-jit`, 30 frames in 4 steps:
      every step's image and the accumulation bit for bit;
+  25g'. spp_batch: the sample batch of `heavy` at 1920x1080 (the samples
+     of a frame shaded as one pass over a leading sample axis, each
+     kernel of that pass taking the axis inside one launch).  On the
+     third frame's inputs of a 1080p `heavy` chain: the BVH direct light
+     at the primary hits (spp_dup: the sun and point walks once a pixel,
+     shared by the 4 samples), the GI bounce call over the 4 samples'
+     rays and the BVH direct light at their hits, each against its plain
+     version under step 3's gates; the analytic direct light (K3) on
+     every call of a 1080p analytic `heavy` frame (4 samples) at K3's
+     gate.  Each batched call's times and bound beside one single-sample
+     call's kernel time times 4.  The batched frame
+     (`trace_and_shade`) against the 4 single-sample shadings of the same
+     kernels, each with its seed frame * 4 + s, with the sky select,
+     summed in sample order and divided by 4: bit for bit on the card,
+     BVH and analytic, with both forms' launches and eager device ms.
+     `heavy`'s launches a frame (bvh_direct 2, bounce 1) and phase
+     graph's replayed `heavy` frame (device ms, operations, graph MB)
+     beside the frame with the samples as a host loop (4.501 ms, 305
+     operations, 604 MB on an H100 80GB HBM3 at 700 W);
   25h. params: the parameter block (models/param_block.py: every data
      field of RenderParams on the device, so that a captured frame is
      keyed on the static fields alone).  The app at 1920x1080, `--scene
@@ -371,12 +394,21 @@ FULL_PATH = ("closest", "bounce", "ao", "bvh_direct", "svgf_present")
 AN_FULL_PATH = ("an_direct", "svgf_present")
 # launches a frame.  an_full: K3 at the primary hits, at their GI bounce,
 # at the mirror's hit and its GI bounce, at the glass's three secondary
-# hits.  heavy: each of the 4 samples runs the direct light at the primary
-# and at the bounce hits and one bounce call; the primary trace, AO (hoisted
-# out of the samples) and the present pass run once.
+# hits.  heavy: the 4 samples shade as one batch: the direct light once at
+# the primary hits (spp_dup) and once at the bounce hits, one bounce call;
+# the primary trace, AO (hoisted out of the samples) and the present pass
+# run once.  As a host loop of samples each sample was a call of its
+# own: bvh_direct 8, bounce 4.
 AN_FULL_LAUNCHES = dict(an_direct=7, svgf_present=1, tonemap=0)
-HEAVY_LAUNCHES = dict(closest=1, bvh_direct=8, bounce=4, ao=1,
+HEAVY_LAUNCHES = dict(closest=1, bvh_direct=2, bounce=1, ao=1,
                       svgf_present=1, svgf=0, tonemap=0)
+HEAVY_SPP = 4          # the heavy preset's samples a pixel
+# the kernels that take a leading sample axis inside one launch
+SAMPLE_AXIS_KERNELS = ("bvh_direct_kernel", "trace_bounce_kernel",
+                       "an_direct_light_kernel")
+# a replayed `heavy` frame with the samples as a host loop (H100 80GB
+# HBM3, 700 W): its device ms, operations and graph MB
+HEAVY_LOOP = dict(device_ms=4.501, device_ops=305, pool_mb=604)
 
 # The least time the card could take for a kernel's work: the larger of
 # its bytes (each input read once, each output written once) over the
@@ -710,7 +742,10 @@ def _offsets_bitwise(fn, args):
 def check_bvh_direct(args, timer):
     """The BVH direct light against direct_light_bvh_plain on one call's
     arguments: offsets bit for bit, radiance on the live lanes (the others
-    are unspecified), the walks' steps for the bound; times."""
+    are unspecified), the walks' steps for the bound; times.  A call with
+    spp_dup (the samples of one hit) walks the sun and point rays of
+    sample 0 alone, and reads a pixel's hit rows and computes its shared
+    terms once: the bound counts that."""
     import torch
     from opengl_raytracing_tpu_torch.ops import an_cuda
     from opengl_raytracing_tpu_torch.ops import lighting as lt
@@ -731,9 +766,14 @@ def check_bvh_direct(args, timer):
     scene = args["scene"]
     params = scene.params
     shape = h.t.shape
+    dup = int(args.get("spp_dup") or 0)
     offs = lt._disk_offsets(args["rng_frame"], args["frame_index"],
                             args["px"], args["py"])
     o, d, w = lt._bvh_shadow_queries(scene, h, normalize(h.n), offs, active)
+    if dup > 1:  # sun and point: sample 0's rays only
+        first = (torch.arange(dup, device=h.t.device) == 0).reshape(
+            (dup,) + (1,) * (len(shape) - 1))
+        w = w[:4] + [torch.where(first, x, -1.0) for x in w[4:]]
     w = torch.cat([x.expand(shape).reshape(-1) for x in w])
     walked = w > 0.0  # the kernel walks the open windows only
     counts = dict(nodes=0, tris=0)
@@ -742,20 +782,27 @@ def check_bvh_direct(args, timer):
         torch.cat([x.expand(shape + (3,)).reshape(-1, 3) for x in o])[walked],
         torch.cat([x.expand(shape + (3,)).reshape(-1, 3) for x in d])[walked],
         w[walked], counts=counts)
-    per_lane = (3 * OPS["normalize"] + OPS["cp_rot"] + 4 * (
-        OPS["offset"] + OPS["disk_point"] + OPS["query"] + OPS["facing"]
-        + OPS["brdf"]) + bool(params.sun_enabled) * (OPS["sun"] + OPS["brdf"])
-        + bool(params.sky_enabled) * OPS["sky"]
-        + bool(params.point_light_enabled) * (OPS["point"] + OPS["brdf"]))
-    n_live = int(live.sum())
+    # a unit's shared part (its hit's rows and terms), then each sample's
+    per_unit = (3 * OPS["normalize"] + OPS["cp_rot"]
+                + bool(params.sun_enabled) * (OPS["sun"] + OPS["brdf"])
+                + bool(params.sky_enabled) * OPS["sky"]
+                + bool(params.point_light_enabled) * (OPS["point"]
+                                                      + OPS["brdf"]))
+    per_sample = 4 * (OPS["offset"] + OPS["disk_point"] + OPS["query"]
+                      + OPS["facing"] + OPS["brdf"])
+    n_live = int(live.expand(shape).sum())
+    n_units = int(live.expand(shape)[0].sum()) if dup > 1 else n_live
     def call():
         an_cuda.direct_light_bvh(**args)
-    return dict(pixels=h.t.numel(), live_lanes=n_live, max_abs_err=err,
+    return dict(pixels=h.t.numel(), live_lanes=n_live, live_units=n_units,
+                spp_dup=dup, max_abs_err=err,
                 offsets="bitwise", walk_nodes=counts["nodes"],
                 walk_tris=counts["tris"],
                 **bound(unique_bytes(active, args["px"], args["py"])
-                        + bvh_bytes(scene.bvh.arrays) + (36 + 12) * n_live,
-                        n_live * per_lane + walk_ops(counts)),
+                        + bvh_bytes(scene.bvh.arrays) + 36 * n_units
+                        + 12 * n_live,
+                        n_units * per_unit + n_live * per_sample
+                        + walk_ops(counts)),
                 ms=timer(call, 20),
                 kernel_ms=kernel_ms(call, KERNELS["bvh_direct"]["kernel"]),
                 launches_per_call=launches_per_call(call),
@@ -934,7 +981,8 @@ def check_cf_kernels(bvh, tris, camera="cf_close"):
 
 
 def check_an_kernel(height=AN_HEIGHT, width=AN_WIDTH, device="cuda",
-                    timer=None, preset_name="baseline", env=None):
+                    timer=None, preset_name="baseline", env=None,
+                    record_as=None):
     """The analytic direct-light kernel against its plain version on every
     call one analytic frame makes (primary hits, the mirror's and the
     glass's three secondary hits, with the `full` preset the GI bounces'
@@ -944,13 +992,16 @@ def check_an_kernel(height=AN_HEIGHT, width=AN_WIDTH, device="cuda",
     as check_kernels holds it at the baseline frame's.  With the cubemap
     table `env`: an an_full frame, whose mirror and glass lanes sample the
     map in the kernel (the plain version samples it through scene.sky);
-    some lane must."""
+    some lane must.  With `record_as`, the kernel's record alone under
+    that name (a `heavy` frame's calls carry the sample axis: the primary
+    call's seed is sampled, and every call's lanes are the 4 samples')."""
     from opengl_raytracing_tpu_torch.ops import an_cuda
     from opengl_raytracing_tpu_torch.ops import lighting as lt
     from opengl_raytracing_tpu_torch.ops.materials import get_material
     timer = timer or cuda_ms
+    alone = env is not None or record_as is not None
     calls = record_kernel_inputs(None, height, width, device,
-                                 AN_PATH if env is None else ("an_direct",),
+                                 ("an_direct",) if alone else AN_PATH,
                                  preset_name, env=env)
     errs, bad, lanes, env_lanes = [], 0, 0, 0
     for args in calls["an_direct"]:
@@ -989,7 +1040,8 @@ def check_an_kernel(height=AN_HEIGHT, width=AN_WIDTH, device="cuda",
     # bytes: n, v and the material id of every pixel, p of the diffuse
     # ones, the pixel grids, the cubemap table, the radiance written
     record = dict(
-        calls=len(errs), pixels=height * width, valid_lanes=lanes,
+        calls=len(errs), pixels=height * width, lanes=h.t.numel(),
+        valid_lanes=lanes,
         max_abs_err=max(errs), max_abs_err_per_call=errs,
         bad_lanes=bad, offsets="bitwise", env_pixels=n_env,
         env_lanes_all_calls=env_lanes,
@@ -1001,6 +1053,8 @@ def check_an_kernel(height=AN_HEIGHT, width=AN_WIDTH, device="cuda",
         kernel_ms=kernel_ms(call, KERNELS["an_direct"]["kernel"]),
         launches_per_call=launches_per_call(call),
         plain_ms=timer(lambda: lt.direct_light_plain(**args), 5))
+    if record_as is not None:
+        return {record_as: record}
     if env is not None:
         return dict(an_direct_env=record)
     tonemap = check_present("tonemap", calls["tonemap"][0],
@@ -1125,9 +1179,10 @@ def check_bounce(args, timer):
     `valid` on every lane, t, p and n on the lanes both hit; the bound
     from the live lanes' walks; times."""
     import torch
-    from opengl_raytracing_tpu_torch.ops import bvh_cuda
+    from opengl_raytracing_tpu_torch.ops import bvh_cuda, cuda_lib
     from opengl_raytracing_tpu_torch.ops import lighting as lt
     from opengl_raytracing_tpu_torch.ops.bvh_traverse import trace_bvh
+    from opengl_raytracing_tpu_torch.sampling import samples_of
     h0, arrays = args["h0"], args["bvh"]
     h1, wi, cos = bvh_cuda.trace_bounce(**args)
     hp, wip, cosp = lt.gi_bounce_plain(**args)
@@ -1144,6 +1199,12 @@ def check_bounce(args, timer):
                              f"rays equal {same_ray}, {mismatch} valid "
                              f"mismatches, t rel {rel}, p rel {p_rel}, n max "
                              f"abs {n_err}")
+    # the kernel reads a pixel's rows once where the samples share the hit
+    shape = h0.t.shape
+    samples = max(samples_of(args["rng_frame"]), samples_of(args["seed"]))
+    shared = all(cuda_lib.sample_rows(x, shape, samples) is not None
+                 for x in (h0.p, h0.n))
+    n_rows = int(live.expand(shape)[0].sum()) if shared else n_live
     origin, wi_p, _ = lt._bounce_ray(h0, args["rng_frame"], args["seed"],
                                      args["px"], args["py"])
     sel = live.reshape(-1)
@@ -1157,16 +1218,17 @@ def check_bounce(args, timer):
     def call():
         bvh_cuda.trace_bounce(**args)
     # bytes: the mask, the tree, the grids, the live lanes' p and n rows
-    # read; t, p, n, wi and cos written for a live lane (44 B), t, wi and
-    # cos for a dead one (20 B: a miss, NaN-free for the tail; its p and n
-    # are unspecified)
-    return dict(rays=n_rays, live_lanes=n_live,
+    # read (a pixel's once where the samples share them); t, p, n, wi and
+    # cos written for a live lane (44 B), t, wi and cos for a dead one
+    # (20 B: a miss, NaN-free for the tail; its p and n are unspecified)
+    return dict(rays=n_rays, live_lanes=n_live, samples=samples,
+                shared_rows=shared,
                 hit_frac=float(hp.valid.float().mean()),
                 mismatch_lanes=mismatch, t_max_rel_err=rel,
                 max_abs_err=err, p_max_rel_err=p_rel, n_max_abs_err=n_err,
                 walk_nodes=counts["nodes"], walk_tris=counts["tris"],
                 **bound(unique_bytes(args["active"], args["px"], args["py"])
-                        + bvh_bytes(arrays) + (24 + 44) * n_live
+                        + bvh_bytes(arrays) + 24 * n_rows + 44 * n_live
                         + 20 * (n_rays - n_live),
                         n_live * per_live + walk_ops(counts)),
                 ms=timer(call, 20),
@@ -1657,6 +1719,10 @@ def main() -> int:
     phase("graph", t0, **graph_run)
 
     t0 = time.time()
+    spp_batch = check_spp_batch(bvh, frames_heavy, graph_run["heavy"])
+    phase("spp_batch", t0, **spp_batch)
+
+    t0 = time.time()
     phase("params", t0, **check_params(smi))
 
     t0 = time.time()
@@ -1737,6 +1803,23 @@ def main() -> int:
                     band_plain_ms=band["plain_ms"],
                     band_bound_ms=band["bound_ms"],
                     band_bound_by=band["bound_by"])
+    def spp_keys(k):
+        # the kernels that take the sample axis: their batched call of a
+        # 1080p `heavy` frame (phase spp_batch; K3: the analytic `heavy`
+        # frame's primary call), one single-sample call beside it
+        axis = KERNELS[k]["kernel"] in SAMPLE_AXIS_KERNELS
+        r = spp_batch["records"].get(k)
+        if r is None:
+            return dict(sample_axis=axis)
+        return dict(sample_axis=axis,
+                    heavy_launches=launches_heavy.get(k),
+                    spp_kernel_ms=r["kernel_ms"], spp_ms=r["ms"],
+                    spp_plain_ms=r["plain_ms"], spp_bound_ms=r["bound_ms"],
+                    spp_bound_by=r["bound_by"], spp_share=r["share"],
+                    spp_max_abs_err=r["max_abs_err"],
+                    spp_single_kernel_ms=r["single_kernel_ms"])
+    launches_heavy = spp_batch["heavy_launches_per_frame"]
+
     def cf_keys(k):
         # the BVH-heavy scene: launches of the two 32-frame chains; K1 and
         # the BVH direct light alone on a cf_close frame's inputs
@@ -1752,7 +1835,8 @@ def main() -> int:
                        cf_close_bound_by=r["bound_by"],
                        cf_close_share=r["share"])
         return out
-    print(json.dumps({"kernels": [dict(line(k), **band_keys(k), **cf_keys(k))
+    print(json.dumps({"kernels": [dict(line(k), **band_keys(k), **cf_keys(k),
+                                       **spp_keys(k))
                                   for k in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -2187,6 +2271,187 @@ def check_graph(bvh, bvh6, env, smi):
     out["app_turbo"] = graph_app_turbo()
     out["card"] = smi
     return out
+
+
+def _one_sample(args, s):
+    """The arguments of the single-sample call that sample `s` of a batched
+    call (`args`, recorded from a `heavy` frame) replaces: the sample's
+    slice of every tensor with a leading sample axis, and the sample's
+    value of a sampled seed (index * a + b + s * c, without the axis)."""
+    from opengl_raytracing_tpu_torch.ops.scene_analytic import Hit
+    from opengl_raytracing_tpu_torch.sampling import FrameValue
+    shape = (args["h"] if "h" in args else args["h0"]).t.shape
+    out = {}
+    for k, v in args.items():
+        if isinstance(v, Hit):
+            v = Hit(*(x[s] for x in v))
+        elif isinstance(v, FrameValue) and v.samples > 1:
+            v = FrameValue(v.record, v.a, (v.b + s * v.c) & 0xFFFFFFFF)
+        elif k == "vdir":
+            v = v.expand(shape + (3,))[s]
+        elif k in ("px", "py", "active") and v is not None:
+            v = v.expand(shape)[s]
+        elif k == "spp_dup":
+            v = 0
+        out[k] = v
+    return out
+
+
+def batch_vs_samples(bvh, height, width, spp=HEAVY_SPP, device="cuda",
+                     timer=None):
+    """The batched `heavy` frame against the form it replaced, on the card:
+    `trace_and_shade` of the third frame of a `heavy` chain (BVH, or the
+    analytic scene when `bvh` is None) against the spp single-sample
+    shadings of the same kernels, each with the seed frame * spp + s, with
+    the sky select, added in sample order and divided by spp: bit for bit.
+    Both forms' kernel launches and eager ms (CUDA events, in turns: one
+    by one, batched, batched, one by one)."""
+    import torch
+    from opengl_raytracing_tpu_torch.models import pipeline, preset
+    from opengl_raytracing_tpu_torch.ops import lighting as lt
+    from opengl_raytracing_tpu_torch.ops.cuda_lib import LAUNCHES
+    from opengl_raytracing_tpu_torch.ops.scene import SceneCtx
+    from opengl_raytracing_tpu_torch.params import bind
+    timer = timer or cuda_ms
+    use_bvh = bvh is not None
+    params = bind(preset("heavy").replace(enable_env_map=0), device)
+    if int(params.spp_per_frame) != spp:
+        raise AssertionError(f"heavy has {params.spp_per_frame} samples")
+    fin = list(frame_inputs(height, width, PROFILE_FRAME, device,
+                            "heavy"))[-1]
+    scene = SceneCtx.create(params, fin.cam_pos, use_bvh=use_bvh, bvh=bvh)
+    px, py, rd = pipeline.primary_rays(height, width, fin, params)
+    frame = fin.frame
+
+    def batched():
+        return pipeline.trace_and_shade(scene, params, fin, px, py, rd,
+                                        frame, use_bvh=use_bvh)[0]
+
+    def one_by_one():
+        ro = fin.cam_pos.expand(rd.shape)
+        h_raw = scene.trace(ro, rd)
+        hit = h_raw.valid
+        h = pipeline._sanitize_hit(h_raw, ro, rd)
+        ao = (lt.compute_ao(scene, h, frame, px, py,
+                            active=hit if use_bvh else None)
+              if params.enable_ao else None)
+        sky = scene.sky(rd)
+        total = None
+        for s in range(spp):
+            seed = frame * spp + s
+            if use_bvh:
+                one = pipeline._shade_bvh(scene, h, seed, frame, -rd, px, py,
+                                          active=hit, ao=ao)
+            else:
+                one = pipeline._shade_analytic(scene, h, seed, frame, -rd,
+                                               px, py, ao=ao)
+            one = torch.where(hit[..., None], one, sky)
+            total = one if total is None else total + one
+        return total / torch.full((), float(spp), device=device)
+    out = {}
+    images = {}
+    for name, fn in (("batched", batched), ("one_by_one", one_by_one)):
+        before = dict(LAUNCHES)
+        images[name] = fn()
+        out[f"{name}_launches"] = {k: LAUNCHES[k] - before[k]
+                                   for k in LAUNCHES if LAUNCHES[k]
+                                   - before[k]}
+    a, b = images["batched"], images["one_by_one"]
+    if not bool(torch.isfinite(a).all()) or not torch.equal(a, b):
+        raise AssertionError(
+            f"the batched {'heavy' if use_bvh else 'analytic heavy'} frame "
+            f"differs from its samples one by one on "
+            f"{int((a != b).any(-1).sum())} pixels (max abs "
+            f"{float((a - b).abs().max())})")
+    ms = {"batched": [], "one_by_one": []}
+    for name in ("one_by_one", "batched", "batched", "one_by_one"):
+        ms[name].append(timer(batched if name == "batched"
+                              else one_by_one, 3))
+    out.update(bitwise=True, pixels=height * width, samples=spp,
+               batched_ms=ms["batched"], one_by_one_ms=ms["one_by_one"])
+    # a CPU tensor runs the plain versions: no launch to count
+    on_card = torch.device(device).type == "cuda"
+    if on_card and use_bvh and (out["batched_launches"].get("bvh_direct"),
+                                out["batched_launches"].get("bounce")) \
+            != (2, 1):
+        raise AssertionError(f"the batched frame launched "
+                             f"{out['batched_launches']}")
+    return out
+
+
+def check_spp_batch(bvh, frames_heavy, graph_heavy, timer=None):
+    """Phase spp_batch (docstring, step 25g'): each kernel that takes the
+    sample axis, on a 1080p `heavy` frame's batched calls, against its
+    plain version (step 3's gates; K3 on an analytic `heavy` frame), with
+    one single-sample call's kernel time beside it; the batched frame bit
+    for bit against its samples one by one; `heavy`'s launches a frame
+    and phase graph's replayed frame beside the host loop's (HEAVY_LOOP)."""
+    from opengl_raytracing_tpu_torch.ops import an_cuda, bvh_cuda
+    timer = timer or cuda_ms
+    calls = record_kernel_inputs(bvh, HEIGHT, WIDTH, "cuda",
+                                 ("bounce", "bvh_direct"), "heavy",
+                                 PROFILE_FRAME)
+    if (len(calls["bvh_direct"]), len(calls["bounce"])) != (2, 1):
+        raise AssertionError(f"a heavy frame called bvh_direct "
+                             f"{len(calls['bvh_direct'])} and trace_bounce "
+                             f"{len(calls['bounce'])} times")
+    primary, gi = calls["bvh_direct"]
+    bounce = calls["bounce"][0]
+    if (primary["spp_dup"], primary["rng_frame"].samples,
+            bounce["seed"].samples) != (HEAVY_SPP,) * 3:
+        raise AssertionError("the heavy frame's calls do not carry its "
+                             "sample axis")
+
+    def singles(fn, args, kernel):
+        # the spp single-sample calls the batched one replaces: the kernel
+        # time of one, their average
+        ones = [_one_sample(args, s) for s in range(HEAVY_SPP)]
+        return kernel_ms(lambda: [fn(**a) for a in ones], kernel)
+    records = {}
+    for key, args, fn, check, counter in (
+            ("bvh_direct", primary, an_cuda.direct_light_bvh,
+             check_bvh_direct, "bvh_direct"),
+            ("bvh_direct_bounce", gi, an_cuda.direct_light_bvh,
+             check_bvh_direct, "bvh_direct"),
+            ("bounce", bounce, bvh_cuda.trace_bounce, check_bounce,
+             "bounce")):
+        r = check(args, timer)
+        r["single_kernel_ms"] = singles(fn, args,
+                                        KERNELS[counter]["kernel"])
+        records[key] = r
+    del calls, primary, gi, bounce
+    an = check_an_kernel(HEIGHT, WIDTH, preset_name="heavy",
+                         record_as="an_direct")["an_direct"]
+    an_calls = record_kernel_inputs(None, HEIGHT, WIDTH, "cuda",
+                                    ("an_direct",), "heavy")["an_direct"]
+    if an_calls[0]["rng_frame"].samples != HEAVY_SPP:
+        raise AssertionError("the analytic heavy frame's primary call "
+                             "carries no sample axis")
+    an["single_kernel_ms"] = singles(an_cuda.direct_light, an_calls[0],
+                                     KERNELS["an_direct"]["kernel"])
+    records["an_direct"] = an
+    del an_calls
+    for r in records.values():
+        r["share"] = (r["bound_ms"] / r["kernel_ms"] if r["kernel_ms"]
+                      else None)
+    launches = frames_heavy["launches"]
+    if (launches["bvh_direct"], launches["bounce"]) != (2 * FRAMES,
+                                                         FRAMES):
+        raise AssertionError(f"frames_heavy launched {launches}")
+    replayed = graph_heavy["replayed_frame"]
+    return dict(
+        records=records,
+        frame_bvh=batch_vs_samples(bvh, HEIGHT, WIDTH),
+        frame_analytic=batch_vs_samples(None, HEIGHT, WIDTH),
+        heavy_launches_per_frame={k: v / FRAMES for k, v in launches.items()
+                                  if v},
+        heavy_launches_per_frame_before=dict(bvh_direct=8, bounce=4),
+        heavy_replayed=dict(device_ms=replayed["device_ms"],
+                            device_ops=replayed["device_ops"],
+                            pool_mb=graph_heavy["pool_mb"],
+                            ms_per_frame=graph_heavy[
+                                "ms_per_frame_replayed"]),
+        heavy_replayed_loop=HEAVY_LOOP)
 
 
 def check_bench(chains):

@@ -70,6 +70,25 @@
 // live warps per SM to hide that.  Spreading a pixel's walks over
 // threads is the next step.
 //
+// The samples of a pixel (spp_per_frame > 1) arrive as one call over a
+// leading sample axis, [spp, H, W] (models/pipeline.py:trace_and_shade,
+// the JAX package's SPP batch).  Lane i of a call is pixel i % n_px of
+// sample i / n_px (sampling.cuh: PixelGrid, sample_of), and draws its
+// disk offsets from rng_frame at that sample (FrameAffine's per-sample
+// stride c; 0 for a call without the axis, whose lanes all read sample
+// 0).  K3 keeps a thread a lane.  The BVH kernel's primary call shares
+// one hit among the samples (spp_dup), and there it takes a thread a
+// pixel looping over the samples: the sun and point rays depend on the
+// hit alone (the JAX package's spp_dup traces them for sample 0 and
+// broadcasts its bits), so the thread reads the hit's rows, walks those
+// two rays and computes their terms once, then walks each sample's four
+// disk rays.  A thread a (sample, pixel) with the shared walks done once
+// would need the samples of a pixel in one warp and a shuffle of the
+// bits; the loop needs neither, and a sparse call's time is set by its
+// longest live lane, which now walks 4 + 2 / spp windows a sample where
+// it walked 6.  Its other calls (GI's, on hits that differ by sample)
+// take a thread a lane, as without the axis.
+//
 // Left for later: the glass/mirror secondary traces fused into K3.
 
 #include <cuda_runtime.h>
@@ -172,30 +191,28 @@ __device__ __forceinline__ Rot cp_rot(const AnScene& s, uint32_t f,
           rem1(hy + __ldg(&s.frame->ld[1]))};
 }
 
-// Sample k's unit-disk offset.
-__device__ __forceinline__ void disk_offset(const AnScene& s, uint32_t f,
+// Sample k's unit-disk offset; `kx` is the key of the lane's rng_frame
+// (frame_value of the index at the lane's sample).
+__device__ __forceinline__ void disk_offset(const AnScene& s, uint32_t kx,
                                             float px, float py, Rot rot,
                                             int k, float* dx, float* dy) {
   const float fk = (float)k;
   const float off = (float)(31 * k + 7);
-  const uint32_t kx = frame_value(f, s.smp), ky = key_y(kx);
+  const uint32_t ky = key_y(kx);
   const float ux = rand01(px + fk, py + fk, kx, ky);
   const float uy = rand01(py + off, px + off, kx, ky);
   concentric(s, rem1(ux + rot.x), rem1(uy + rot.y), dx, dy);
 }
 
-// The offsets as [2S, N] planes, for the tests.
-__device__ void write_offsets(const AnScene& s, uint32_t f,
-                              const PixelGrid& g, int64_t i, int64_t n_px,
-                              float* __restrict__ offs) {
-  float px, py;
-  pixel_centre(g, i, &px, &py);
-  const Rot rot = cp_rot(s, f, px, py);
+// The offsets of lane `lane` as [2S, n_lanes] planes, for the tests.
+__device__ void write_offsets(const AnScene& s, uint32_t kx, float px,
+                              float py, Rot rot, int64_t lane,
+                              int64_t n_lanes, float* __restrict__ offs) {
   for (int k = 0; k < kSamples; ++k) {
     float dx, dy;
-    disk_offset(s, f, px, py, rot, k, &dx, &dy);
-    offs[(2 * k) * n_px + i] = dx;
-    offs[(2 * k + 1) * n_px + i] = dy;
+    disk_offset(s, kx, px, py, rot, k, &dx, &dy);
+    offs[(2 * k) * n_lanes + lane] = dx;
+    offs[(2 * k + 1) * n_lanes + lane] = dy;
   }
 }
 
@@ -385,19 +402,26 @@ __device__ __forceinline__ Material material(const AnScene& s, int id) {
           type};
 }
 
-// K3: lighting.direct_light_plain per pixel.
+// K3: lighting.direct_light_plain per lane.  Lane i is pixel i % n_px of
+// sample i / n_px (the grid's; a call without a sample axis has one), and
+// draws its disk offsets from rng_frame at that sample.
 __global__ void __launch_bounds__(kThreads)
 an_direct_light_kernel(const AnScene s, const float* __restrict__ p_in,
                        const float* __restrict__ n_in,
                        const float* __restrict__ v_in,
                        const int32_t* __restrict__ mat_in,
-                       const PixelGrid g, int64_t n_px,
+                       const PixelGrid g, int64_t n_lanes,
                        float* __restrict__ out,
                        float* __restrict__ offs_out) {
   const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n_px) return;
-  if (offs_out != nullptr)
-    write_offsets(s, frame_index(s.frame), g, i, n_px, offs_out);
+  if (i >= n_lanes) return;
+  if (offs_out != nullptr) {
+    const uint32_t f = frame_index(s.frame);
+    float px, py;
+    pixel_centre(g, i, &px, &py);
+    write_offsets(s, frame_value(f, s.smp, sample_of(g, i)), px, py,
+                  cp_rot(s, f, px, py), i, n_lanes, offs_out);
+  }
   const V3 n = norm3(row3(n_in, i));
   const V3 v = norm3(row3(v_in, i));
   const Material m = material(s, __ldg(mat_in + i));
@@ -414,10 +438,11 @@ an_direct_light_kernel(const AnScene s, const float* __restrict__ p_in,
   // the frame index, read by the lanes that draw samples only
   const uint32_t f = frame_index(s.frame);
   const Rot rot = cp_rot(s, f, px, py);
+  const uint32_t kx = frame_value(f, s.smp, sample_of(g, i));
   V3 acc = {0.0f, 0.0f, 0.0f};
   for (int k = 0; k < kSamples; ++k) {
     float dx, dy;
-    disk_offset(s, f, px, py, rot, k, &dx, &dy);
+    disk_offset(s, kx, px, py, rot, k, &dx, &dy);
     const V3 xl = disk_point(s, dx, dy);
     // lighting.occluded_toward: the segment query + the full trace
     const Query q = segment_query(p, xl);
@@ -442,9 +467,15 @@ an_direct_light_kernel(const AnScene s, const float* __restrict__ p_in,
   store3(out, i, acc);
 }
 
-// K5 with its shadow walks: lighting.direct_light_bvh_plain per pixel.
-// A window is walked only where the plain version leaves it open (its ndl
-// gate passed and it is > 0); the walk is bvh_walk.cuh's any_hit.
+// K5 with its shadow walks: lighting.direct_light_bvh_plain for one unit,
+// a thread a unit.  With `dup` = 1 a unit is one lane (pixel u % n_px of
+// sample u / n_px, its own hit row).  With `dup` > 1 (spp_dup) a unit is
+// one pixel of a hit shared by `dup` samples: its rows are read once, its
+// sun and point walks and their terms are done once and shared, and the
+// thread loops over the samples, each with its own disk offsets and four
+// disk walks, writing lane k * n_units + u of sample k.  A window is
+// walked only where the plain version leaves it open (its ndl gate passed
+// and it is > 0); the walk is bvh_walk.cuh's any_hit.
 __global__ void __launch_bounds__(kThreads)
 bvh_direct_kernel(const AnScene s, const float4* __restrict__ bounds,
                   const int4* __restrict__ meta,
@@ -452,39 +483,35 @@ bvh_direct_kernel(const AnScene s, const float4* __restrict__ bounds,
                   const float* __restrict__ p_in,
                   const float* __restrict__ n_in,
                   const float* __restrict__ v_in, const PixelGrid g,
-                  const uint8_t* __restrict__ active, int64_t n_px,
-                  float* __restrict__ out, float* __restrict__ offs_out) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n_px) return;
-  if (offs_out != nullptr)
-    write_offsets(s, frame_index(s.frame), g, i, n_px, offs_out);
-  // an inactive lane's radiance is unspecified by contract: not written
-  if (active != nullptr && !__ldg(active + i)) return;
-  const uint32_t f = frame_index(s.frame);
-  const V3 p = row3(p_in, i);
-  const V3 n = norm3(row3(n_in, i));
-  const V3 v = norm3(row3(v_in, i));
-  float px, py;
-  pixel_centre(g, i, &px, &py);
-  const V3 albedo = c3(s.bvh_albedo);
-  const Rot rot = cp_rot(s, f, px, py);
-  V3 acc = {0.0f, 0.0f, 0.0f};
-  for (int k = 0; k < kSamples; ++k) {
-    float dx, dy;
-    disk_offset(s, f, px, py, rot, k, &dx, &dy);
-    const V3 xl = disk_point(s, dx, dy);
-    const Query q = segment_query(p, xl);
-    const bool facing =
-        dot3(n, q.d) > 0.0f && dot3(q.d, c3(s.light_nneg)) > 0.0f;
-    const bool occ = facing && q.win > 0.0f &&
-                     any_hit(bounds, meta, tris, n_nodes, q.o, q.d, q.win,
-                             s.eps);
-    acc = add3(acc, disk_term(s, p, n, v, xl, occ, albedo, s.bvh_spec,
-                              s.bvh_gloss));
+                  const uint8_t* __restrict__ active, int64_t n_units,
+                  int dup, float* __restrict__ out,
+                  float* __restrict__ offs_out) {
+  const int64_t u = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (u >= n_units) return;
+  if (offs_out != nullptr) {
+    const uint32_t s1 = sample_of(g, u);
+    const uint32_t f = frame_index(s.frame);
+    float px, py;
+    pixel_centre(g, u, &px, &py);
+    const Rot rot = cp_rot(s, f, px, py);
+    for (int k = 0; k < dup; ++k)
+      write_offsets(s, frame_value(f, s.smp, dup > 1 ? k : s1), px, py, rot,
+                    dup > 1 ? k * n_units + u : u, n_units * dup, offs_out);
   }
-  acc = {acc.x / (float)kSamples, acc.y / (float)kSamples,
-         acc.z / (float)kSamples};
+  // an inactive lane's radiance is unspecified by contract: not written
+  if (active != nullptr && !__ldg(active + u)) return;
+  const uint32_t f = frame_index(s.frame);
+  const uint32_t s1 = sample_of(g, u);  // the lane's sample where dup == 1
+  float px, py;
+  pixel_centre(g, u, &px, &py);
+  const Rot rot = cp_rot(s, f, px, py);
+  const V3 p = row3(p_in, u);
+  const V3 n = norm3(row3(n_in, u));
+  const V3 v = norm3(row3(v_in, u));
+  const V3 albedo = c3(s.bvh_albedo);
   const V3 vv = norm3(v);
+  // the sun, sky and point terms depend on the hit alone
+  V3 sun_t = {0.0f, 0.0f, 0.0f}, sky_t = sun_t, point_t = sun_t;
   if (s.sun_e) {
     // lighting._sun_shadow_query: eps 1.0, window 999
     const V3 l = sun_l(s);
@@ -492,10 +519,9 @@ bvh_direct_kernel(const AnScene s, const float4* __restrict__ bounds,
         dot3(n, l) > 0.0f &&
         any_hit(bounds, meta, tris, n_nodes, add3(p, scale3(n, 1.0f)), l,
                 999.0f, s.eps);
-    acc = add3(acc, sun_term(s, n, vv, blocked, albedo, s.bvh_spec,
-                             s.bvh_gloss));
+    sun_t = sun_term(s, n, vv, blocked, albedo, s.bvh_spec, s.bvh_gloss);
   }
-  if (s.sky_e) acc = add3(acc, sky_term(s, n, albedo));
+  if (s.sky_e) sky_t = sky_term(s, n, albedo);
   if (s.point_e) {
     // lighting._point_shadow_query
     const V3 to_l = sub3(c3(s.prm->point_light_world), p);
@@ -507,10 +533,32 @@ bvh_direct_kernel(const AnScene s, const float4* __restrict__ bounds,
         dot3(n, l) > 0.0f && win > 0.0f &&
         any_hit(bounds, meta, tris, n_nodes, add3(p, scale3(l, peps)), l,
                 win, s.eps);
-    acc = add3(acc, point_term(s, p, n, vv, blocked ? 1 : 0, albedo,
-                               s.bvh_spec, s.bvh_gloss));
+    point_t = point_term(s, p, n, vv, blocked ? 1 : 0, albedo, s.bvh_spec,
+                         s.bvh_gloss);
   }
-  store3(out, i, acc);
+  for (int k = 0; k < dup; ++k) {
+    const uint32_t kx = frame_value(f, s.smp, dup > 1 ? k : s1);
+    V3 acc = {0.0f, 0.0f, 0.0f};
+    for (int j = 0; j < kSamples; ++j) {
+      float dx, dy;
+      disk_offset(s, kx, px, py, rot, j, &dx, &dy);
+      const V3 xl = disk_point(s, dx, dy);
+      const Query q = segment_query(p, xl);
+      const bool facing =
+          dot3(n, q.d) > 0.0f && dot3(q.d, c3(s.light_nneg)) > 0.0f;
+      const bool occ = facing && q.win > 0.0f &&
+                       any_hit(bounds, meta, tris, n_nodes, q.o, q.d, q.win,
+                               s.eps);
+      acc = add3(acc, disk_term(s, p, n, v, xl, occ, albedo, s.bvh_spec,
+                                s.bvh_gloss));
+    }
+    acc = {acc.x / (float)kSamples, acc.y / (float)kSamples,
+           acc.z / (float)kSamples};
+    if (s.sun_e) acc = add3(acc, sun_t);
+    if (s.sky_e) acc = add3(acc, sky_t);
+    if (s.point_e) acc = add3(acc, point_t);
+    store3(out, dup > 1 ? k * n_units + u : u, acc);
+  }
 }
 
 inline unsigned blocks_for(int64_t n) {
@@ -526,30 +574,32 @@ inline unsigned blocks_for(int64_t n) {
 // cudaStream_t.  Each returns cudaGetLastError() as an int.
 extern "C" int ort_an_direct(const AnScene* scene, const void* p,
                              const void* n, const void* v, const void* mat,
-                             const PixelGrid* grid, int64_t n_px, void* out,
-                             void* offs, void* stream) {
-  if (n_px > 0) {
-    an_direct_light_kernel<<<blocks_for(n_px), kThreads, 0,
+                             const PixelGrid* grid, int64_t n_lanes,
+                             void* out, void* offs, void* stream) {
+  if (n_lanes > 0) {
+    an_direct_light_kernel<<<blocks_for(n_lanes), kThreads, 0,
                              (cudaStream_t)stream>>>(
         *scene, (const float*)p, (const float*)n, (const float*)v,
-        (const int32_t*)mat, *grid, n_px, (float*)out, (float*)offs);
+        (const int32_t*)mat, *grid, n_lanes, (float*)out, (float*)offs);
   }
   return (int)cudaGetLastError();
 }
 
+// `n_units` units of `dup` samples each (bvh_direct_kernel): the hit rows
+// and `active` hold one row a unit, `out` and `offs` n_units * dup lanes.
 extern "C" int ort_bvh_direct(const AnScene* scene, const void* bounds,
                               const void* meta, const void* tris, int n_nodes,
                               const void* p, const void* n, const void* v,
                               const PixelGrid* grid, const void* active,
-                              int64_t n_px, void* out, void* offs,
-                              void* stream) {
-  if (n_px > 0) {
-    bvh_direct_kernel<<<blocks_for(n_px), kThreads, 0,
+                              int64_t n_units, int dup, void* out,
+                              void* offs, void* stream) {
+  if (n_units > 0 && dup > 0) {
+    bvh_direct_kernel<<<blocks_for(n_units), kThreads, 0,
                         (cudaStream_t)stream>>>(
         *scene, (const float4*)bounds, (const int4*)meta,
         (const float4*)tris, n_nodes, (const float*)p, (const float*)n,
-        (const float*)v, *grid, (const uint8_t*)active, n_px, (float*)out,
-        (float*)offs);
+        (const float*)v, *grid, (const uint8_t*)active, n_units, dup,
+        (float*)out, (float*)offs);
   }
   return (int)cudaGetLastError();
 }

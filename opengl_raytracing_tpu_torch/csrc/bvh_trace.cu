@@ -79,6 +79,13 @@
 // The primary call has every lane live (or an optional mask), and takes
 // the persistent loop only.
 //
+// The samples of a pixel (spp_per_frame > 1) make one bounce call over a
+// leading sample axis, [spp, H, W]: its lanes are the units of one
+// persistent launch, lane i the pixel i % n_px of sample i / n_px
+// (sampling.cuh), sampling its ray from the seed of its sample (the seed's
+// per-sample stride).  Where the samples share the primary hit, its rows
+// and the mask are read once a pixel, in place (BounceArgs::shared).
+//
 // Left for later: a queue of live units shared by all warps (a frame's
 // live pixels cluster, so the busiest warp still walks several units in
 // series), a node layout that coalesces (two children side by side, or a
@@ -112,14 +119,17 @@ struct Tree {
 // The GI bounce call's inputs (lighting.gi_bounce_plain), filled on the
 // host (ops/bvh_cuda.py:bounce_args).
 struct BounceArgs {
-  const float* p;   // the primary hits' points and raw normals, [N, 3]
+  // the primary hits' points and raw normals: [N, 3], or with `shared`
+  // [n_px, 3], one row a pixel read by every sample (as is `active`)
+  const float* p;
   const float* n;
-  PixelGrid grid;
+  PixelGrid grid;   // lane i: pixel i % n_px of sample i / n_px
   const FrameRecord* frame;  // the frame index, read on the device
   FrameAffine rng;  // rng_frame of the index (sampling.rand's keys)
   FrameAffine seed; // seed of the index: offsets float32(seed * 19), * 41
   float two_pi;     // float32(2.0 * PI)
   float eps;        // the origin's offset along the normal (EPS)
+  int shared;
 };
 
 // The AO call's inputs (lighting.ambient_occlusion_plain), filled on the
@@ -226,11 +236,13 @@ trace_closest_kernel(const Tree tree, const Units u,
   }
 }
 
-// K1 on GI's bounce rays (lighting.gi_bounce_plain per pixel): the rand
-// pair at offsets seed*19 and seed*41, n0 = normalize(n), the cosine-
-// hemisphere direction wi around n0, the origin p + n0*EPS, and the
-// closest hit along wi; also wi and cos = max(dot(n0, wi), 0).  A lane
-// that `active` marks off reads as a miss, t = 1e30, with wi and cos
+// K1 on GI's bounce rays (lighting.gi_bounce_plain per lane): the rand
+// pair at offsets seed*19 and seed*41 of the lane's sample, n0 =
+// normalize(n), the cosine-hemisphere direction wi around n0, the origin
+// p + n0*EPS, and the closest hit along wi; also wi and cos = max(dot(n0,
+// wi), 0).  The lanes of every sample are units of one persistent launch;
+// a lane reads its pixel's hit row where the samples share the hit.  A
+// lane that `active` marks off reads as a miss, t = 1e30, with wi and cos
 // zero; its p and n are not written.
 __global__ void __launch_bounds__(kThreads, 1)
 trace_bounce_kernel(const Tree tree, const Units u,
@@ -243,26 +255,33 @@ trace_bounce_kernel(const Tree tree, const Units u,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned below = (1u << lane) - 1u;
   const uint32_t f = frame_index(a.frame);
-  const uint32_t kx = frame_value(f, a.rng), ky = key_y(kx);
-  const uint32_t seed = frame_value(f, a.seed);
-  const float so = frame_f32(seed * 19u), so2 = frame_f32(seed * 41u);
   for (int64_t j = u.first(); j < u.n_units; j += u.stride()) {
     const int64_t base = u.base(j), i = base + lane;
-    const bool live = is_live(active, u, base, lane, n);
+    // the lane's hit row: its pixel's where the samples share the hit
+    const int64_t row = a.shared ? i - (int64_t)sample_of(a.grid, i) *
+                                           a.grid.n_px
+                                 : i;
+    const bool live = lane < u.unit && i < n &&
+                      (active == nullptr || __ldg(active + row));
     const unsigned mask = __ballot_sync(kAll, live);
     if (live) slot[warp][__popc(mask & below)] = (uint8_t)lane;
     __syncwarp();
     if (lane < __popc(mask)) {
       const int64_t k = base + slot[warp][lane];
+      const uint32_t smp = sample_of(a.grid, k);
+      const int64_t hr = a.shared ? k - (int64_t)smp * a.grid.n_px : k;
+      const uint32_t kx = frame_value(f, a.rng, smp), ky = key_y(kx);
+      const uint32_t seed = frame_value(f, a.seed, smp);
+      const float so = frame_f32(seed * 19u), so2 = frame_f32(seed * 41u);
       float px, py;
       pixel_centre(a.grid, k, &px, &py);
       const float ux = rand01(px + so, py + so, kx, ky);
       const float uy = rand01(py + so2, px + so2, kx, ky);
-      const V3 n0 = norm3(row3(a.n, k));
+      const V3 n0 = norm3(row3(a.n, hr));
       const V3 wi = hemisphere_cosine(n0, ux, uy, a.two_pi);
       store3(wi_out, k, wi);
       cos_out[k] = fmaxf(dot3(n0, wi), 0.0f);
-      closest_hit_out(tree, add3(row3(a.p, k), scale3(n0, a.eps)), wi, eps,
+      closest_hit_out(tree, add3(row3(a.p, hr), scale3(n0, a.eps)), wi, eps,
                       k, t_out, p_out, n_out);
     }
     if (i < n && !live) {

@@ -18,22 +18,33 @@
 
 #include "bvh_walk.cuh"
 
-// The pixel-centre grids of a call, read in place: lane i is (r, c) =
-// (i / cols, i % cols) of the call's [rows, cols] view, and its px is
+// 32-bit division where both fit (a 64-bit one is a long subroutine)
+__device__ __forceinline__ int64_t div_index(int64_t i, int64_t d) {
+  return ((i | d) >> 32) ? i / d : (int64_t)((uint32_t)i / (uint32_t)d);
+}
+
+// The pixel-centre grids of a call, read in place: lane i is pixel
+// q = i % n_px of sample i / n_px (n_px the pixels of one sample: the
+// whole call where it has no sample axis), and pixel q is (r, c) =
+// (q / cols, q % cols) of the grids' [rows, cols] view; its px is
 // px[r * px_sr + c * px_sc] (a broadcast grid has a zero stride).
 struct PixelGrid {
   const float* px;
   const float* py;
-  int64_t cols, px_sr, px_sc, py_sr, py_sc;
+  int64_t cols, n_px, px_sr, px_sc, py_sr, py_sc;
 };
+
+// the sample of lane i (ops/cuda_lib.py:pixel_grid)
+__device__ __forceinline__ uint32_t sample_of(const PixelGrid& g,
+                                              int64_t i) {
+  return (uint32_t)div_index(i, g.n_px);
+}
 
 __device__ __forceinline__ void pixel_centre(const PixelGrid& g, int64_t i,
                                              float* px, float* py) {
-  // a 32-bit division where both fit (a 64-bit one is a long subroutine)
-  const int64_t r = ((i | g.cols) >> 32)
-                        ? i / g.cols
-                        : (int64_t)((uint32_t)i / (uint32_t)g.cols);
-  const int64_t c = i - r * g.cols;
+  const int64_t q = i - div_index(i, g.n_px) * g.n_px;
+  const int64_t r = div_index(q, g.cols);
+  const int64_t c = q - r * g.cols;
   *px = __ldg(g.px + r * g.px_sr + c * g.px_sc);
   *py = __ldg(g.py + r * g.py_sr + c * g.py_sc);
 }
@@ -48,10 +59,11 @@ struct FrameRecord {
   float ld[2];
 };
 
-// int32(index * a + b) as uint32 bits: a frame value of sampling.py
-// (`FrameValue`), its (a, b) constant per configuration.
+// int32(index * a + b + s * c) of sample s as uint32 bits: a frame value
+// of sampling.py (`FrameValue`), its (a, b, c) constant per configuration
+// (c = 0: the same value for every sample).
 struct FrameAffine {
-  uint32_t a, b;
+  uint32_t a, b, c;
 };
 
 __device__ __forceinline__ uint32_t frame_index(const FrameRecord* f) {
@@ -59,8 +71,9 @@ __device__ __forceinline__ uint32_t frame_index(const FrameRecord* f) {
 }
 
 __device__ __forceinline__ uint32_t frame_value(uint32_t index,
-                                                FrameAffine v) {
-  return index * v.a + v.b;
+                                                FrameAffine v,
+                                                uint32_t sample = 0) {
+  return index * v.a + v.b + sample * v.c;
 }
 
 // float32 of the int32 value (sampling.frame_f32)

@@ -10,9 +10,14 @@ package's tile gates and swizzle are not ported: they leave the image
 unchanged.
 
 Samples a pixel (`spp_per_frame`) share the primary hit, the gbuffer, the
-motion and, when there is more than one, the ambient occlusion; the
-shading runs once a sample on the host, each with its own seed, and the
-frame is their mean.
+motion and, when there is more than one, the ambient occlusion.  As in the
+JAX package, the samples shade as one pass over a leading sample axis
+([spp, H, W]: the shared hit broadcast as views, each sample's seed
+`frame * spp + s` one `sampling.FrameValue` with a sample stride), and the
+frame is their mean.  The kernels of that pass take the axis inside one
+launch: the BVH direct light traces the sun and point shadow rays once a
+pixel for every sample (the JAX package's `spp_dup`), the GI bounce call
+and the analytic direct light sample each lane's own seed.
 
 The layout at the public functions is the JAX package's: [H,W,C] images
 with GL bottom-up rows and an [H,W,4] accumulation (rgb + M2).
@@ -36,7 +41,7 @@ import torch
 
 from ..constants import MAT_POINTLIGHT_SPHERE
 from ..params import RenderParams, bind
-from ..sampling import Frame, FrameValue, ndc_from_world
+from ..sampling import Frame, FrameValue, ndc_from_world, sample_seeds
 from ..ops.materials import MTYPE_GLASS, MTYPE_MIRROR, get_material
 from ..ops.scene import BVHDevice, SceneCtx
 from ..ops.scene_analytic import Hit
@@ -190,16 +195,20 @@ def _sanitize_hit(h: Hit, ro, rd) -> Hit:
 
 
 def _shade_bvh(scene: SceneCtx, h: Hit, seed: Frame, frame_index: Frame,
-               vdir, px, py, active=None, ao=None):
+               vdir, px, py, active=None, ao=None, spp: int = 1):
     """BVH-scene shading (reference: rt.frag:105-117): direct light, plus
     the GI bounce and times AO when they are on.  `active` marks the
     lanes whose radiance survives the sky select; the others trace
     nothing and their values are unspecified.  `ao` may carry the
     occlusion term computed once for all samples: it depends on the pixel
-    and the frame index, never on the sample's seed."""
+    and the frame index, never on the sample's seed.  With `spp` > 1 the
+    inputs carry a leading sample axis over which the hit, `vdir` and
+    `active` are broadcast, and `seed` is the samples' seeds: the direct
+    light traces the sun and point shadow rays once for all samples
+    (`spp_dup`)."""
     params = scene.params
     radiance = lt.direct_light_bvh(scene, h, seed, frame_index, vdir, px, py,
-                                   active=active)
+                                   active=active, spp_dup=spp)
     if params.enable_gi:
         radiance = radiance + lt.one_bounce_gi_bvh(
             scene, h, frame_index, seed, frame_index, px, py,
@@ -219,7 +228,8 @@ def _shade_analytic(scene: SceneCtx, h: Hit, seed: Frame, frame_index: Frame,
     computed for every lane and selected in like the fragment shader's
     divergent branches.  Direct light and GI are two calls, the JAX
     package's default (its 2-batch `direct_and_gi_analytic` is opt-in).
-    `ao` as in `_shade_bvh`."""
+    `ao` as in `_shade_bvh`; a leading sample axis broadcasts through
+    every trace and call."""
     params = scene.params
     mat = get_material(h.mat, params)
     radiance = lt.direct_light(scene, h, seed, frame_index, vdir, px, py)
@@ -316,11 +326,35 @@ def render_staged(params: RenderParams, fin: FrameInputs, state: RenderState,
             FrameOutputs(image, motion, gpos, gnrm))
 
 
+def sum_samples(x):
+    """The sum of `x` [spp, ...] over its leading sample axis, added left
+    to right, sample 0 first: ((x0 + x1) + x2) + ...  That is the JAX
+    package's `jnp.sum(..., axis=0)` on its CPU path, where XLA reduces a
+    leading axis with one accumulator per output element, starting from
+    zero (0 + x0 == x0) and adding the samples in order.  The order is
+    written out rather than left to `torch.sum`, whose order follows the
+    device and the tensor's shape."""
+    total = x[0]
+    for k in range(1, x.shape[0]):
+        total = total + x[k]
+    return total
+
+
 def trace_and_shade(scene: SceneCtx, params: RenderParams, fin: FrameInputs,
                     px, py, rd, frame_index: Frame, *, use_bvh: bool,
                     show_motion: bool = False):
     """Trace + shade a pixel grid: primary trace, gbuffer, motion with the
-    sky sentinel, the samples' shading with the sky select, their mean.
+    sky sentinel, the samples' shading with the sky select, their mean
+    (JAX `pipeline.py:trace_and_shade`).
+
+    The samples shade as one pass: with spp > 1 the primary hit, px, py
+    and the view direction are broadcast to [spp, H, W] as views, the
+    seeds are `frame_index * spp + s` as one sampled value
+    (`sampling.sample_seeds`), and `_shade_bvh` / `_shade_analytic` run
+    once over the batch; AO is computed once ahead of it, as it depends
+    on the pixel and the frame only.  Each sample takes the sky select,
+    then `sum_samples` adds them in sample order and the mean divides by a
+    tensor.  The motion view shades one sample.
 
     Returns (curr [H,W,3], motion [H,W,2], gpos, gnrm)."""
     ro = fin.cam_pos.expand(rd.shape)
@@ -347,23 +381,29 @@ def trace_and_shade(scene: SceneCtx, params: RenderParams, fin: FrameInputs,
     if params.enable_ao and spp > 1:
         ao = lt.compute_ao(scene, h, frame_index, px, py,
                            active=hit_mask if use_bvh else None)
-    frame_sum = None
-    for s in range(spp):
-        seed = frame_index * spp + s
-        if use_bvh:
-            shaded = _shade_bvh(scene, h, seed, frame_index, vdir, px, py,
-                                active=hit_mask, ao=ao)
-        else:
-            shaded = _shade_analytic(scene, h, seed, frame_index, vdir, px,
-                                     py, ao=ao)
-        sample = torch.where(hit_mask[..., None], shaded, sky_radiance)
-        frame_sum = sample if frame_sum is None else frame_sum + sample
+    seeds = sample_seeds(frame_index, spp)
+    if spp > 1:
+        def batch(x):
+            return x.expand((spp,) + x.shape)
+        h_b = Hit(*(batch(x) for x in h))
+        px_b, py_b, vdir_b, mask_b = (batch(px), batch(py), batch(vdir),
+                                      batch(hit_mask))
+    else:
+        h_b, px_b, py_b, vdir_b, mask_b = h, px, py, vdir, hit_mask
+    if use_bvh:
+        shaded = _shade_bvh(scene, h_b, seeds, frame_index, vdir_b, px_b,
+                            py_b, active=mask_b, ao=ao, spp=spp)
+    else:
+        shaded = _shade_analytic(scene, h_b, seeds, frame_index, vdir_b,
+                                 px_b, py_b, ao=ao)
+    sample = torch.where(hit_mask[..., None], shaded, sky_radiance)
     if spp == 1:
-        return frame_sum, motion, gpos, gnrm
+        return sample, motion, gpos, gnrm
     # a tensor divisor: on the card a division by a host scalar would
     # multiply by the reciprocal
-    return (frame_sum / torch.full((), float(spp), device=rd.device), motion,
-            gpos, gnrm)
+    return (sum_samples(sample) / torch.full((), float(spp),
+                                             device=rd.device),
+            motion, gpos, gnrm)
 
 
 def render_device(device) -> torch.device:

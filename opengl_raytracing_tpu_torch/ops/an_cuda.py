@@ -12,7 +12,12 @@ lighting.direct_light_bvh:
   * CUDA tensors launch the kernel, or the call raises.  Nothing falls
     back to the plain version on the card.
 
-Each call is one launch.  The kernels read the raw hit records as rows
+Each call is one launch, a frame's samples included: a call over a
+leading sample axis ([spp, H, W], its rng_frame a sampled
+`sampling.FrameValue`) draws each lane's disk offsets at its own sample,
+and `direct_light_bvh`'s primary call (`spp_dup`) walks the sun and point
+rays once a pixel for all samples.  The kernels read the raw hit records
+as rows
 ([N,3] p, n, v and [N] material id), the pixel-centre grids in place
 through their strides (`cuda_lib.PixelGrid`), and compute the rest themselves:
 normalisation, the material table, the environment of the reflected view
@@ -49,7 +54,7 @@ from ..constants import (EPS, PI, FLOOR_NORMAL, FLOOR_D, SPHERE_LEFT_CENTER,
                          BVH_ALBEDO, BVH_SPEC_STRENGTH, BVH_GLOSS, MAT_FLOOR,
                          MAT_ALBEDO_SPHERE, MAT_GLASS_SPHERE,
                          MAT_MIRROR_SPHERE)
-from ..sampling import Frame
+from ..sampling import Frame, samples_of
 from . import bvh_cuda, cuda_lib
 from . import lighting as lt
 from .cuda_lib import check
@@ -95,7 +100,7 @@ _SIGNATURES = {
     "ort_an_direct": ([ctypes.POINTER(_AnScene)] + [_P] * 4
                       + [_GRID, _I64, _P, _P, _P], ctypes.c_int),
     "ort_bvh_direct": ([ctypes.POINTER(_AnScene), _P, _P, _P, _I32]
-                       + [_P] * 3 + [_GRID, _P, _I64, _P, _P, _P],
+                       + [_P] * 3 + [_GRID, _P, _I64, _I32, _P, _P, _P],
                        ctypes.c_int),
     "ort_an_scene_size": ([], ctypes.c_int),
     "ort_pixel_grid_size": ([], ctypes.c_int),
@@ -142,8 +147,9 @@ def scene_args(scene, rng_frame: Frame, frame_index: Frame, env=None,
     p = scene.params
     s = _AnScene.from_buffer_copy(_scene_constants(
         *(int(bool(getattr(p, k))) for k in _SCENE_TOGGLES)))
-    record, (cp, smp) = cuda_lib.frame_args(device, frame_index, rng_frame)
-    if (cp.a, cp.b) != (1, 0):
+    record, (cp, smp), _ = cuda_lib.frame_args(device, frame_index,
+                                               rng_frame)
+    if (cp.a, cp.b, cp.c) != (1, 0, 0):
         raise ValueError("frame_index must be the record's frame index: the "
                          "kernels read ld2 of it from the record")
     s.frame, s.cp, s.smp = record.data_ptr(), cp, smp
@@ -203,11 +209,11 @@ def _pixel_rows(h, vdir, device):
     return rows
 
 
-def _offsets_ptr(offsets_out, n_px, device):
+def _offsets_ptr(offsets_out, n_lanes, device):
     if offsets_out is None:
         return None
     check("offsets_out", offsets_out, torch.float32,
-          (2 * SOFT_SHADOW_SAMPLES, n_px), device)
+          (2 * SOFT_SHADOW_SAMPLES, n_lanes), device)
     return offsets_out.data_ptr()
 
 
@@ -215,60 +221,108 @@ def direct_light(scene, h, rng_frame: Frame, frame_index: Frame, vdir, px,
                  py, offsets_out=None):
     """Direct light of the analytic scene at hits `h` [...] (the contract
     of lighting.direct_light_plain): rgb [..., 3].  With a cubemap in the
-    scene the kernel samples it on its mirror and glass lanes.  On the
-    card,
-    `offsets_out` (float32 [8, N], optional) receives the kernel's disk
-    offsets as planes dx0, dy0, dx1, ..."""
+    scene the kernel samples it on its mirror and glass lanes.
+
+    A sampled `rng_frame` (`FrameValue.sampled`: a leading sample axis of
+    the call, over which px and py are broadcast) is one launch: lane i
+    draws its disk offsets at sample i // (pixels a sample).  The hit rows
+    are read a lane each.  On the card, `offsets_out` (float32 [8, N],
+    optional) receives the kernel's disk offsets as planes dx0, dy0, dx1,
+    ..."""
     if h.t.device.type == "cpu":
         return lt.direct_light_plain(scene, h, rng_frame, frame_index, vdir,
                                      px, py)
     device = cuda_lib.cuda_device(h.t, "direct-light kernels")
     shape = h.t.shape
-    n_px = h.t.numel()
+    n_lanes = h.t.numel()
     rows = _pixel_rows(h, vdir, device)
-    grid, _keep = cuda_lib.pixel_grid(px, py, shape, device)
+    args, _keep_record = scene_args(scene, rng_frame, frame_index,
+                                    _env_table(scene, device), device)
+    grid, _keep = cuda_lib.pixel_grid(px, py, shape, device,
+                                      samples_of(rng_frame))
     mat = cuda_lib.flat(h.mat, shape)
-    check("mat", mat, torch.int32, (n_px,), device)
-    offs = _offsets_ptr(offsets_out, n_px, device)
-    env = _env_table(scene, device)
-    out = torch.empty((n_px, 3), dtype=torch.float32, device=device)
-    args, _keep_record = scene_args(scene, rng_frame, frame_index, env,
-                                    device)
+    check("mat", mat, torch.int32, (n_lanes,), device)
+    offs = _offsets_ptr(offsets_out, n_lanes, device)
+    out = torch.empty((n_lanes, 3), dtype=torch.float32, device=device)
     cuda_lib.launch(_library().ort_an_direct, "an_direct", device,
                     ctypes.byref(args),
                     rows["p"].data_ptr(), rows["n"].data_ptr(),
                     rows["v"].data_ptr(), mat.data_ptr(), ctypes.byref(grid),
-                    n_px, out.data_ptr(), offs)
+                    n_lanes, out.data_ptr(), offs)
     return out.reshape(shape + (3,))
 
 
+def _shared_rows(h, vdir, active, shape, dup, device):
+    """The rows of sample 0 of a hit broadcast over the leading sample axis
+    of `dup` samples (p, n, v [n_px, 3]) and its `active` mask bytes
+    (pointer or None, the tensor to keep); raise where the hit, vdir or
+    the mask is not broadcast over it."""
+    if shape[0] != dup:
+        raise ValueError(f"spp_dup={dup} needs a leading sample axis of that "
+                         f"length, got shape {tuple(shape)}")
+    n_px = shape.numel() // dup
+    rows = {}
+    for name, x in (("p", h.p), ("n", h.n), ("v", vdir)):
+        rows[name] = cuda_lib.sample_rows(x, shape, dup)
+        if rows[name] is None:
+            raise ValueError(f"spp_dup={dup}: {name} must be broadcast over "
+                             f"the sample axis (the samples' shared hit)")
+        check(name, rows[name], torch.float32, (n_px, 3), device)
+    if active is None:
+        return rows, (None, None)
+    act = active.expand(shape)
+    if act.stride(0) != 0:
+        raise ValueError(f"spp_dup={dup}: active must be broadcast over the "
+                         f"sample axis")
+    return rows, cuda_lib.mask_bytes(act[0], shape[1:], device)
+
+
 def direct_light_bvh(scene, h, rng_frame: Frame, frame_index: Frame, vdir,
-                     px, py, active=None, offsets_out=None):
+                     px, py, active=None, offsets_out=None, spp_dup=0):
     """Direct light of the BVH scene at hits `h` [...] (the contract of
     lighting.direct_light_bvh_plain): rgb [..., 3], with the six shadow
     walks in the same launch.  Lanes where `active` is False do no work;
     their values are unspecified (the kernel leaves them unwritten).
-    `offsets_out` as for `direct_light`."""
+
+    With `spp_dup` > 1 the call is a leading sample axis of that length
+    over a hit (and vdir, active, px, py) broadcast over it, the samples
+    of one pixel: the kernel reads the hit's rows once a pixel, walks the
+    sun and point rays once for all samples (the plain version traces
+    them for sample 0 and broadcasts its bits) and loops over the samples,
+    each with its own seed's disk offsets and walks.  Without it a lane
+    is a thread, its sample (for a sampled `rng_frame`) i // (pixels a
+    sample).  One launch either way.  `offsets_out` as for
+    `direct_light`."""
     if h.t.device.type == "cpu":
         return lt.direct_light_bvh_plain(scene, h, rng_frame, frame_index,
-                                         vdir, px, py, active)
+                                         vdir, px, py, active, spp_dup)
     device = cuda_lib.cuda_device(h.t, "direct-light kernels")
     shape = h.t.shape
-    n_px = h.t.numel()
-    rows = _pixel_rows(h, vdir, device)
-    grid, _keep = cuda_lib.pixel_grid(px, py, shape, device)
-    act, _keep_act = cuda_lib.mask_bytes(active, shape, device)
-    bvh = scene.bvh.arrays
-    bvh_cuda.check_bvh(bvh, device)
-    offs = _offsets_ptr(offsets_out, n_px, device)
-    out = torch.empty((n_px, 3), dtype=torch.float32, device=device)
+    n_lanes = h.t.numel()
     args, _keep_record = scene_args(scene, rng_frame, frame_index,
                                     device=device)
+    dup = int(spp_dup) if spp_dup > 1 else 1
+    samples = samples_of(rng_frame)
+    if samples > 1 and dup > 1 and samples != dup:
+        raise ValueError(f"rng_frame has {samples} samples, spp_dup is "
+                         f"{dup}")
+    if dup > 1:
+        rows, (act, _keep_act) = _shared_rows(h, vdir, active, shape, dup,
+                                              device)
+    else:
+        rows = _pixel_rows(h, vdir, device)
+        act, _keep_act = cuda_lib.mask_bytes(active, shape, device)
+    grid, _keep = cuda_lib.pixel_grid(px, py, shape, device,
+                                      max(samples, dup))
+    bvh = scene.bvh.arrays
+    bvh_cuda.check_bvh(bvh, device)
+    offs = _offsets_ptr(offsets_out, n_lanes, device)
+    out = torch.empty((n_lanes, 3), dtype=torch.float32, device=device)
     cuda_lib.launch(_library().ort_bvh_direct, "bvh_direct", device,
                     ctypes.byref(args),
                     bvh.bounds.data_ptr(), bvh.meta.data_ptr(),
                     bvh.tris.data_ptr(), bvh.bounds.shape[0],
                     rows["p"].data_ptr(), rows["n"].data_ptr(),
-                    rows["v"].data_ptr(), ctypes.byref(grid), act, n_px,
-                    out.data_ptr(), offs)
+                    rows["v"].data_ptr(), ctypes.byref(grid), act,
+                    n_lanes // dup, dup, out.data_ptr(), offs)
     return out.reshape(shape + (3,))

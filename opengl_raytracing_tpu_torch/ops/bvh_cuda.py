@@ -18,7 +18,9 @@ tensors and its inputs on one device:
     back to the plain version on the card.
 
 The kernels read the hit rows and the pixel-centre grids in place and
-write finished results: each call is one launch.  Launches go through
+write finished results: each call is one launch.  `trace_bounce` takes a
+frame's samples in that launch too: a leading sample axis with a sampled
+seed (`sampling.FrameValue.sampled`), its rays sampled per lane.  Launches go through
 ops/cuda_lib.py, which counts them (`LAUNCHES["closest"]`,
 `LAUNCHES["bounce"]`, `LAUNCHES["ao"]`).  Importing this module needs
 neither nvcc nor a card.
@@ -32,7 +34,7 @@ import torch
 
 from ..constants import EPS, PI
 from ..params import f32
-from ..sampling import Frame
+from ..sampling import Frame, samples_of
 from ..scene.bvh import BVHArrays
 from . import cuda_lib
 from .bvh_traverse import trace_bvh
@@ -47,7 +49,8 @@ class _BounceArgs(ctypes.Structure):
     _fields_ = [("p", ctypes.c_void_p), ("n", ctypes.c_void_p),
                 ("grid", cuda_lib.PixelGrid), ("frame", ctypes.c_void_p),
                 ("rng", _Affine), ("seed", _Affine),
-                ("two_pi", ctypes.c_float), ("eps", ctypes.c_float)]
+                ("two_pi", ctypes.c_float), ("eps", ctypes.c_float),
+                ("shared", ctypes.c_int)]
 
 
 class _AoArgs(ctypes.Structure):
@@ -109,7 +112,7 @@ def bounce_args(rng_frame: Frame, seed: Frame, device=None):
     each rounded as the plain version rounds it.  The same bytes for every
     frame of one configuration; `device` as `cuda_lib.frame_args` takes
     it."""
-    record, (rng, sd) = cuda_lib.frame_args(device, rng_frame, seed)
+    record, (rng, sd), _ = cuda_lib.frame_args(device, rng_frame, seed)
     return _BounceArgs(frame=record.data_ptr(), rng=rng, seed=sd,
                        two_pi=f32(2.0 * PI), eps=EPS), record
 
@@ -122,7 +125,10 @@ def ao_args(params, frame_index: Frame, device=None):
     kernel reads (the float32 words lighting.ambient_occlusion_plain
     reads).  The same bytes for every frame and every value of the data
     parameters of one configuration."""
-    record, (fi,) = cuda_lib.frame_args(device, frame_index)
+    record, (fi,), samples = cuda_lib.frame_args(device, frame_index)
+    if samples > 1:
+        raise ValueError("AO takes the frame index, not a sampled seed: it "
+                         "is computed once for all samples")
     return _AoArgs(frame=record.data_ptr(),
                    prm=cuda_lib.param_block_ptr(params, device), fi=fi,
                    samples=int(params.ao_samples),
@@ -187,6 +193,13 @@ def trace_bounce(bvh: BVHArrays, h0: Hit, rng_frame: Frame, seed: Frame,
     sample_hemisphere_cosine around normalize(h0.n) from the rand pair at
     offsets seed*19 and seed*41 of pixel (px, py), from h0.p + n0*EPS.
 
+    A sampled `seed` (`FrameValue.sampled`: a leading sample axis over
+    which px and py are broadcast) is one launch over every sample's
+    lanes, lane i sampling its ray from the seed of sample i // (pixels a
+    sample).  Where the hit and `active` are broadcast over that axis (the
+    frame's shared primary hit) the kernel reads their rows once a pixel,
+    in place.
+
     Lanes where `active` (bool, h0.t's shape) is False trace nothing and
     read as misses (t = 1e30, valid False).  There wi and cos_theta are
     finite and otherwise unspecified (the kernel writes zeros, the plain
@@ -197,11 +210,26 @@ def trace_bounce(bvh: BVHArrays, h0: Hit, rng_frame: Frame, seed: Frame,
         return gi_bounce_plain(bvh, h0, rng_frame, seed, px, py, active)
     device = _cuda_device(h0.t)
     shape = h0.t.shape
-    p0, n0 = _hit_rows(h0, device)
-    grid, _keep_grid = cuda_lib.pixel_grid(px, py, shape, device)
-    act, _keep_act = cuda_lib.mask_bytes(active, shape, device)
-    check_bvh(bvh, device)
     args, _keep_record = bounce_args(rng_frame, seed, device)
+    samples = max(samples_of(rng_frame), samples_of(seed))
+    grid, _keep_grid = cuda_lib.pixel_grid(px, py, shape, device, samples)
+    p0 = cuda_lib.sample_rows(h0.p, shape, samples)
+    n0 = cuda_lib.sample_rows(h0.n, shape, samples)
+    act_b = None if active is None else active.expand(shape)
+    if (p0 is not None and n0 is not None
+            and (act_b is None or act_b.stride(0) == 0)):
+        # one row a pixel, read by every sample
+        args.shared = 1
+        rows_shape = shape[1:]
+        act, _keep_act = cuda_lib.mask_bytes(
+            None if act_b is None else act_b[0], rows_shape, device)
+    else:
+        rows_shape = shape
+        p0, n0 = cuda_lib.rows(h0.p, shape), cuda_lib.rows(h0.n, shape)
+        act, _keep_act = cuda_lib.mask_bytes(active, shape, device)
+    for name, x in (("h.p", p0), ("h.n", n0)):
+        check(name, x, torch.float32, (rows_shape.numel(), 3), device)
+    check_bvh(bvh, device)
     args.p, args.n, args.grid = p0.data_ptr(), n0.data_ptr(), grid
     t, p, n = _hit_out(shape, device)
     wi = torch.empty((shape.numel(), 3), dtype=torch.float32, device=device)

@@ -182,16 +182,20 @@ def add_launches(counts: dict) -> None:
 
 class FrameAffine(ctypes.Structure):
     """Host mirror of `FrameAffine` in csrc/sampling.cuh: a frame value
-    int32(index * a + b) of the record's frame index."""
-    _fields_ = [("a", ctypes.c_uint32), ("b", ctypes.c_uint32)]
+    int32(index * a + b + s * c) of the record's frame index at sample
+    s."""
+    _fields_ = [("a", ctypes.c_uint32), ("b", ctypes.c_uint32),
+                ("c", ctypes.c_uint32)]
 
 
 def frame_args(device, *frames):
-    """(the frame record the kernels read, [FrameAffine of each frame]).
+    """(the frame record the kernels read, [FrameAffine of each frame], the
+    call's sample count).
 
     Frames are `sampling.FrameValue`s sharing one record, which must lie
     on `device` (None: wherever it lies; the tests read the arguments on
-    the CPU)."""
+    the CPU).  Those with a sample axis must share its length, the call's
+    sample count (1 where none has one)."""
     from ..sampling import FrameValue
     for f in frames:
         if not isinstance(f, FrameValue):
@@ -202,9 +206,15 @@ def frame_args(device, *frames):
            != (record.data_ptr(), record.device) for f in frames):
         raise ValueError("frame values of one call must share one frame "
                          "record")
+    counts = {f.samples for f in frames if f.samples > 1}
+    if len(counts) > 1:
+        raise ValueError(f"frame values of one call must share one sample "
+                         f"count, got {sorted(counts)}")
     check("frame record", record, torch.int32, (3,),
           record.device if device is None else device)
-    return record, [FrameAffine(f.a, f.b) for f in frames]
+    # a value without a sample axis reads sample 0 on every lane
+    return (record, [FrameAffine(f.a, f.b, f.c if f.samples > 1 else 0)
+                     for f in frames], counts.pop() if counts else 1)
 
 
 def param_block_ptr(params, device=None) -> int:
@@ -224,36 +234,65 @@ def param_block_ptr(params, device=None) -> int:
 
 class PixelGrid(ctypes.Structure):
     """Host mirror of `PixelGrid` in csrc/sampling.cuh: the px and py
-    grids' device pointers, the call's columns and each grid's row and
-    column strides in elements."""
+    grids' device pointers, the columns and the pixels of one sample, and
+    each grid's row and column strides in elements."""
     _fields_ = [("px", ctypes.c_void_p), ("py", ctypes.c_void_p),
-                ("cols", ctypes.c_int64),
+                ("cols", ctypes.c_int64), ("n_px", ctypes.c_int64),
                 ("px_sr", ctypes.c_int64), ("px_sc", ctypes.c_int64),
                 ("py_sr", ctypes.c_int64), ("py_sc", ctypes.c_int64)]
 
 
-def pixel_grid(px, py, shape, device):
+def pixel_grid(px, py, shape, device, samples=1):
     """(the kernels' `PixelGrid`, the tensors it points into): px and py
     broadcast to `shape` and viewed as [rows, shape[-1]] without a copy
     where their strides allow (a broadcast grid is one row or column of
-    floats); the tensors must outlive the launch."""
-    cols = max(shape[-1], 1) if len(shape) else 1
-    views = []
+    floats); the tensors must outlive the launch.
+
+    A leading axis over which both grids are broadcast (a batch of
+    samples of one pixel grid, [S, H, W]) is left out of the view: lane i
+    is then pixel i % n_px of sample i // n_px, n_px = H * W.  With
+    `samples` > 1 (the call's sample count, `frame_args`) that axis must
+    be there and be the samples'."""
+    shape = torch.Size(shape)
+    grids = []
     for name, x in (("px", px), ("py", py)):
         if x.device != device:
             raise ValueError(f"{name} is on {x.device}, expected {device}")
         if x.dtype != torch.float32:
             raise TypeError(f"{name} has dtype {x.dtype}, expected "
                             f"torch.float32")
-        x = x.expand(shape)
+        grids.append(x.expand(shape))
+    if (len(shape) > 1 and shape[0] > 1
+            and all(g.stride(0) == 0 for g in grids)):
+        grids = [g[0] for g in grids]
+    n_px = grids[0].numel()
+    if samples > 1 and n_px * samples != shape.numel():
+        raise ValueError(f"a call of {samples} samples takes pixel grids "
+                         f"broadcast over a leading sample axis of that "
+                         f"length; got shape {tuple(shape)} with "
+                         f"{n_px} pixels a sample")
+    cols = max(shape[-1], 1) if len(shape) else 1
+    views = []
+    for x in grids:
         try:
             x = x.view(-1, cols)
         except RuntimeError:  # strides that do not fold into two
             x = x.reshape(-1, cols).contiguous()
         views.append(x)
     gx, gy = views
-    return PixelGrid(gx.data_ptr(), gy.data_ptr(), cols, *gx.stride(),
-                     *gy.stride()), views
+    return PixelGrid(gx.data_ptr(), gy.data_ptr(), cols, max(n_px, 1),
+                     *gx.stride(), *gy.stride()), views
+
+
+def sample_rows(x, shape, samples):
+    """The [n_px, 3] rows of `x` [..., 3] broadcast to `shape` + (3,) that
+    a sampled call reads once a pixel: sample 0's, contiguous, when `x` is
+    broadcast over the leading sample axis of `samples` (> 1), else
+    None."""
+    x = x.expand(shape + (3,))
+    if samples <= 1 or x.stride(0) != 0:
+        return None
+    return x[0].reshape(-1, 3).contiguous()
 
 
 def rows(x, shape):

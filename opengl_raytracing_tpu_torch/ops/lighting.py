@@ -18,6 +18,12 @@ and its ambient occlusion, sampled, walked and remapped
 `direct_light_plain`, `direct_light_bvh_plain`, `gi_bounce_plain` and
 `ambient_occlusion_plain` here, which the wrappers run for CPU tensors.
 
+A frame's samples reach these functions as one batch over a leading
+sample axis ([spp, H, W], models/pipeline.py), their seed one sampled
+`FrameValue`; each kernel takes the axis inside its launch, and
+`direct_light_bvh(..., spp_dup=spp)` traces the sun and point shadow rays
+once for all samples of the shared primary hit, as the JAX package does.
+
 Naming of the RNG arguments follows the GLSL call chain:
   * `rng_frame`  — the `frame` parameter of the GLSL function;
   * `frame_index` — the global uFrameIndex uniform (used by cpOffset).
@@ -264,17 +270,24 @@ def direct_light(scene: SceneCtx, h, rng_frame: Frame, frame_index: Frame,
 
 
 def direct_light_bvh(scene: SceneCtx, h, rng_frame: Frame, frame_index: Frame,
-                     vdir, px, py, active=None):
+                     vdir, px, py, active=None, spp_dup: int = 0):
     """Direct lighting for BVH triangles: hard-coded white plastic
     (reference: rt_lighting.glsl:405-460).  The CUDA kernel for CUDA
     tensors (one launch, the shadow walks included), the plain
     `direct_light_bvh_plain` for CPU tensors (ops/an_cuda.py).
 
     `active` (bool, shape of h.t) marks lanes whose radiance the caller
-    keeps; values on the other lanes are unspecified."""
+    keeps; values on the other lanes are unspecified.
+
+    `spp_dup` > 1 (the JAX package's argument): the inputs carry a leading
+    sample axis of that length over which the hit, `vdir` and `active` are
+    broadcast (the frame's shared primary hit).  The sun and point shadow
+    rays depend on the hit alone, so they are traced once for all samples
+    and their bits shared; the disk rays keep each sample's offsets.  The
+    image is the same bits as six walks a sample."""
     from . import an_cuda
     return an_cuda.direct_light_bvh(scene, h, rng_frame, frame_index, vdir,
-                                    px, py, active)
+                                    px, py, active, spp_dup=spp_dup)
 
 
 def _bvh_shadow_queries(scene: SceneCtx, h, n, offs, active=None):
@@ -312,23 +325,44 @@ def _bvh_shadow_queries(scene: SceneCtx, h, n, offs, active=None):
 
 
 def direct_light_bvh_plain(scene: SceneCtx, h, rng_frame: Frame,
-                           frame_index: Frame, vdir, px, py, active=None):
+                           frame_index: Frame, vdir, px, py, active=None,
+                           spp_dup: int = 0):
     """The plain version of the CUDA kernel behind `direct_light_bvh`:
     the shadow queries, traced as one stream by the plain any-hit walk
     (the wavefront form of the reference's six sequential shadow
-    traces), then the BRDF sum over their occlusion bits."""
+    traces), then the BRDF sum over their occlusion bits.
+
+    `spp_dup` > 1 as for `direct_light_bvh`, in the JAX package's form:
+    the sun and point windows of samples 1.. collapse to -1 (those rays
+    trace nothing), and sample 0's bits are broadcast to every sample."""
     n = normalize(h.n)
     v = normalize(vdir)
     offs = _disk_offsets(rng_frame, frame_index, px, py)
     origins, dirs, wins = _bvh_shadow_queries(scene, h, n, offs, active)
     shape = h.t.shape
+    dup = spp_dup > 1
+    if dup:
+        if shape[0] != spp_dup:
+            raise ValueError(f"spp_dup={spp_dup} needs a leading sample "
+                             f"axis of that length, got shape "
+                             f"{tuple(shape)}")
+        first = (torch.arange(spp_dup, device=h.t.device) == 0).reshape(
+            (spp_dup,) + (1,) * (len(shape) - 1))
+        wins = (wins[:SOFT_SHADOW_SAMPLES]
+                + [torch.where(first, w, -1.0)
+                   for w in wins[SOFT_SHADOW_SAMPLES:]])
     occ = trace_bvh_shadow(
         scene.bvh.arrays,
         torch.cat([o.expand(shape + (3,)).reshape(-1, 3) for o in origins]),
         torch.cat([d.expand(shape + (3,)).reshape(-1, 3) for d in dirs]),
         torch.cat([w.expand(shape).reshape(-1) for w in wins]))
-    return shade_bvh_brdf_plain(scene, h, n, v, offs,
-                                occ.reshape((len(wins),) + shape))
+    occ = occ.reshape((len(wins),) + shape)
+    if dup:
+        # sample 0's sun and point bits are every sample's: the same rays
+        occ = torch.cat([occ[:SOFT_SHADOW_SAMPLES],
+                         occ[SOFT_SHADOW_SAMPLES:, :1].expand(
+                             (len(wins) - SOFT_SHADOW_SAMPLES,) + shape)])
+    return shade_bvh_brdf_plain(scene, h, n, v, offs, occ)
 
 
 def shade_bvh_brdf_plain(scene: SceneCtx, h, n, v, offs, occ):
@@ -454,7 +488,8 @@ def gi_bounce_plain(bvh, h0, rng_frame: Frame, seed: Frame, px, py,
     """GI's bounce ray at each hit of `h0` and its closest hit (reference:
     rt_lighting.glsl:515-530): (Hit, wi, cos_theta), the plain version of
     the CUDA kernel behind `bvh_cuda.trace_bounce`.  Lanes where `active`
-    is False do not walk and read as misses."""
+    is False do not walk and read as misses.  A sampled `seed` draws each
+    sample's ray over the batch's leading sample axis."""
     origin, wi, cos_theta = _bounce_ray(h0, rng_frame, seed, px, py)
     return trace_bvh(bvh, origin, wi, active=active), wi, cos_theta
 

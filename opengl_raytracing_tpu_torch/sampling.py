@@ -9,11 +9,18 @@ shift: the low 32 bits are then exactly the uint32 result.
 
 A frame counter is a `FrameValue`, an int32 `index * a + b` of the frame
 index held on the device, as the JAX package's traced int32 seeds are
-(`frame * 1663` wraps at 32 bits every way), or a 0-d int tensor.  That
+(`frame * 1663` wraps at 32 bits every way), or an int tensor.  That
 keeps every per-frame number out of the host arguments of the frame's
 operations, so that one captured CUDA graph serves every frame
 (models/graph.py).  The host ints of the frame index stay where the host
 needs them: the record's ld2 (`record_words`) and the jitter.
+
+A frame's samples a pixel shade as one batch over a leading sample axis
+([spp, H, W], models/pipeline.py), so a seed may carry that axis too:
+sample s of a FrameValue with a stride reads `index * a + b + s * c`
+(`FrameValue.sampled`), and its value, its bits and its float32 are
+[spp, 1, 1] tensors that broadcast over the batch's pixel grids, as the
+JAX package's `frame_index * spp + arange(spp)` seeds do.
 """
 
 from __future__ import annotations
@@ -47,16 +54,21 @@ def hash2(vx, vy):
 
 @dataclasses.dataclass(frozen=True)
 class FrameValue:
-    """int32(index * a + b), where index is the frame index of `record`:
-    an int32 [3] tensor on the frame's device holding the index and
-    ld2(index) as float32 bits (`frame_record`; the first words of the
-    frame's block, models/frame_block.py).  `a` and `b` are host ints
-    taken mod 2^32 and constant per configuration, so a seed such as
-    `frame * spp + s` or the mirror GI's `seed * 131 + 17` is a FrameValue
-    too; the kernels read the record through a pointer."""
+    """int32(index * a + b + s * c) of sample s, where index is the frame
+    index of `record`: an int32 [3] tensor on the frame's device holding
+    the index and ld2(index) as float32 bits (`frame_record`; the first
+    words of the frame's block, models/frame_block.py).  `a`, `b` and the
+    per-sample stride `c` are host ints taken mod 2^32 and constant per
+    configuration; `samples` is the length of the sample axis (1: none).
+    A seed such as `frame * spp + s`, the batch's `frame.sampled(spp)`, or
+    the mirror GI's `seed * 131 + 17` of either is a FrameValue too; the
+    kernels read the record through a pointer and derive a lane's sample
+    from its position (csrc/sampling.cuh)."""
     record: torch.Tensor
     a: int = 1
     b: int = 0
+    c: int = 0
+    samples: int = 1
 
     @staticmethod
     def of(index: int, device) -> "FrameValue":
@@ -68,12 +80,23 @@ class FrameValue:
     def index(self) -> torch.Tensor:
         return self.record[0]
 
+    def sampled(self, spp: int) -> "FrameValue":
+        """The seeds `self * spp + s` of samples s = 0 .. spp-1 as one value
+        with a sample axis of length spp (the JAX package's
+        `frame_index * spp + arange(spp)`)."""
+        if self.samples != 1:
+            raise ValueError("the value has a sample axis already")
+        v = self * spp
+        return FrameValue(v.record, v.a, v.b, 1, int(spp))
+
     def __mul__(self, k: int) -> "FrameValue":
         return FrameValue(self.record, (self.a * k) & _M32,
-                          (self.b * k) & _M32)
+                          (self.b * k) & _M32, (self.c * k) & _M32,
+                          self.samples)
 
     def __add__(self, k: int) -> "FrameValue":
-        return FrameValue(self.record, self.a, (self.b + k) & _M32)
+        return FrameValue(self.record, self.a, (self.b + k) & _M32, self.c,
+                          self.samples)
 
     __rmul__ = __mul__
     __radd__ = __add__
@@ -96,19 +119,37 @@ def record_words(index: int) -> np.ndarray:
 
 
 def affine(frame: Frame):
-    """(index tensor, a, b) with frame == int32(index * a + b); a 0-d int
-    tensor is (frame, 1, 0)."""
+    """(index tensor, a, b) with frame == int32(index * a + b) at sample 0;
+    an int tensor is (frame, 1, 0)."""
     if isinstance(frame, FrameValue):
         return frame.index, frame.a, frame.b
     if isinstance(frame, torch.Tensor):
         return frame, 1, 0
-    raise TypeError(f"a frame is a sampling.FrameValue or a 0-d int tensor, "
+    raise TypeError(f"a frame is a sampling.FrameValue or an int tensor, "
                     f"not {type(frame).__name__}")
 
 
+def samples_of(frame: Frame) -> int:
+    """The length of the frame's sample axis: 1 for a value without one."""
+    return frame.samples if isinstance(frame, FrameValue) else 1
+
+
+def sample_seeds(frame: Frame, spp: int) -> Frame:
+    """The seeds `frame * spp + s` of a frame's spp samples: `frame *
+    spp` for one sample, else one value with a sample axis (an int tensor
+    frame gives the [spp, 1, 1] tensor of them)."""
+    if spp == 1:
+        return frame * 1
+    if isinstance(frame, FrameValue):
+        return frame.sampled(spp)
+    return (frame * spp + torch.arange(spp, dtype=frame.dtype,
+                                       device=frame.device)).reshape(
+        (spp, 1, 1))
+
+
 def _frame_bits(frame: Frame, mult: int = 1) -> torch.Tensor:
-    """uint32 bits of int32(frame * mult): a 0-d int64 tensor on the
-    frame's device."""
+    """uint32 bits of int32(frame * mult): an int64 tensor on the frame's
+    device, 0-d, or [samples, 1, 1] for a value with a sample axis."""
     index, a, b = affine(frame)
     a, b = (a * mult) & _M32, (b * mult) & _M32
     bits = index.to(torch.int64)
@@ -116,13 +157,20 @@ def _frame_bits(frame: Frame, mult: int = 1) -> torch.Tensor:
         bits = bits * a
     if b:
         bits = bits + b
+    n = samples_of(frame)
+    if n > 1:
+        c = (frame.c * mult) & _M32
+        bits = bits + torch.arange(n, dtype=torch.int64,
+                                   device=bits.device).reshape(n, 1, 1) * c
     return bits & _M32
 
 
 def frame_value(frame: Frame) -> torch.Tensor:
-    """int32(frame): a 0-d int32 tensor on the frame's device."""
+    """int32(frame): an int32 tensor on the frame's device (0-d, or
+    [samples, 1, 1] for a value with a sample axis)."""
     index, a, b = affine(frame)
-    if (a, b) == (1, 0) and index.dtype == torch.int32:
+    if ((a, b) == (1, 0) and samples_of(frame) == 1
+            and index.dtype == torch.int32):
         return index  # the frame index itself
     bits = _frame_bits(frame)
     return torch.where(bits > 0x7FFFFFFF, bits - (1 << 32),
@@ -131,7 +179,8 @@ def frame_value(frame: Frame) -> torch.Tensor:
 
 def frame_f32(frame: Frame) -> torch.Tensor:
     """float32(int32(frame)): the sample offsets' `f32(seed * 19)` of the
-    JAX package's int32 seeds, a 0-d float32 tensor."""
+    JAX package's int32 seeds, a float32 tensor shaped as `frame_value`'s
+    (a sampled seed's [samples, 1, 1] broadcasts over the batch)."""
     return frame_value(frame).to(torch.float32)
 
 

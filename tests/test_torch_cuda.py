@@ -660,6 +660,161 @@ def test_gi_and_ao_calls_are_one_launch_each(bvh):
     assert bool(torch.isfinite(ao[hit]).all())
 
 
+SPP = [2, 4]
+
+
+def _batch(x, spp):
+    return x.expand((spp,) + x.shape)
+
+
+def _hit_batch(h, spp):
+    return Hit(*(_batch(x, spp) for x in h))
+
+
+@pytest.mark.parametrize("spp", SPP)
+@pytest.mark.parametrize("size", SIZES)
+def test_bvh_direct_kernel_on_a_sample_batch(bvh, size, spp):
+    """The primary call of a frame's sample batch (spp_dup: one hit for
+    every sample, the sun and point walks once a pixel): one launch, each
+    sample's disk offsets bit for bit, radiance within BVH_DIRECT_MAX_ABS
+    of the plain version (its dedup form) on live lanes, and each sample
+    bit for bit the kernel's single-sample call with the seed
+    frame * spp + s."""
+    params = preset("heavy").replace(spp_per_frame=spp)
+    scene, h_raw, h, px, py, vdir = _bvh_frame(bvh, params, *size)
+    frame = FrameValue.of(7, "cuda")
+    seeds = frame.sampled(spp)
+    live = h_raw.valid
+    args = (scene, _hit_batch(h, spp), seeds, frame, _batch(vdir, spp),
+            _batch(px, spp), _batch(py, spp), _batch(live, spp))
+    offs = torch.full((8, spp * h.t.numel()), float("nan"), device="cuda")
+    before = dict(cuda_lib.LAUNCHES)
+    got = an_cuda.direct_light_bvh(*args, offsets_out=offs, spp_dup=spp)
+    assert _grew(before) == {**{k: 0 for k in before}, "bvh_direct": 1}
+    torch.cuda.synchronize()
+    assert torch.equal(offs, _want_offsets(seeds, frame, args[5], args[6],
+                                           args[1].t.shape))
+    want = lt.direct_light_bvh_plain(*args, spp_dup=spp)
+    err = (got - want)[_batch(live, spp)].abs()
+    assert float(err.max()) <= BVH_DIRECT_MAX_ABS, float(err.max())
+    for s in range(spp):
+        one = an_cuda.direct_light_bvh(scene, h, frame * spp + s, frame,
+                                       vdir, px, py, live)
+        assert torch.equal(got[s][live], one[live]), s
+    assert float((got[0] - got[1])[live].abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("spp", SPP)
+def test_bounce_kernel_on_a_sample_batch(bvh, spp, shared):
+    """GI's bounce call over every sample's rays in one launch, the hit
+    rows read once a pixel (`shared`: the frame's broadcast hit) or a lane
+    each: wi and cos bit for bit, valid equal, t, p and n bit for bit
+    where both hit, against the plain version; each sample bit for bit the
+    single-sample call."""
+    params = preset("heavy").replace(spp_per_frame=spp)
+    scene, h_raw, h, px, py, _ = _bvh_frame(bvh, params, 96, 128)
+    frame = FrameValue.of(5, "cuda")
+    seeds = frame.sampled(spp)
+    h_b, act = _hit_batch(h, spp), _batch(h_raw.valid, spp)
+    if not shared:
+        h_b = Hit(*(x.contiguous() for x in h_b))
+        act = act.contiguous()
+    before = dict(cuda_lib.LAUNCHES)
+    h1, wi, cos = bvh_cuda.trace_bounce(bvh, h_b, frame, seeds,
+                                        _batch(px, spp), _batch(py, spp),
+                                        act)
+    assert _grew(before) == {**{k: 0 for k in before}, "bounce": 1}
+    hp, wip, cosp = lt.gi_bounce_plain(bvh, h_b, frame, seeds,
+                                       _batch(px, spp), _batch(py, spp), act)
+    assert torch.equal(wi[act], wip[act]) and torch.equal(cos[act],
+                                                          cosp[act])
+    assert torch.equal(h1.valid, hp.valid)
+    both = h1.valid & hp.valid
+    for name in ("t", "p", "n"):
+        assert torch.equal(getattr(h1, name)[both], getattr(hp, name)[both])
+    for s in range(spp):
+        one = bvh_cuda.trace_bounce(bvh, h, frame, frame * spp + s, px, py,
+                                    h_raw.valid)
+        assert torch.equal(h1.t[s], one[0].t), s
+        assert torch.equal(wi[s], one[1]) and torch.equal(cos[s], one[2])
+    assert not torch.equal(wi[0], wi[1])
+
+
+@pytest.mark.parametrize("spp", SPP)
+def test_an_direct_kernel_on_a_sample_batch(spp):
+    """K3 on the analytic frame's sample batch: one launch, lane i's disk
+    offsets those of sample i // (pixels a sample) bit for bit, K3's gate
+    against the plain version, each sample bit for bit the single-sample
+    call."""
+    scene, _, h, px, py, vdir = _analytic(preset("baseline"))
+    frame = FrameValue.of(6, "cuda")
+    seeds = frame.sampled(spp)
+    h_b = _hit_batch(h, spp)
+    offs = torch.full((8, h_b.t.numel()), float("nan"), device="cuda")
+    before = dict(cuda_lib.LAUNCHES)
+    got = an_cuda.direct_light(scene, h_b, seeds, frame, _batch(vdir, spp),
+                               _batch(px, spp), _batch(py, spp),
+                               offsets_out=offs)
+    assert _grew(before) == {**{k: 0 for k in before}, "an_direct": 1}
+    torch.cuda.synchronize()
+    assert torch.equal(offs, _want_offsets(seeds, frame, _batch(px, spp),
+                                           _batch(py, spp), h_b.t.shape))
+    want = lt.direct_light_plain(scene, h_b, seeds, frame,
+                                 _batch(vdir, spp), _batch(px, spp),
+                                 _batch(py, spp))
+    assert float((got - want).abs().max()) <= K3_MAX_ABS
+    for s in range(spp):
+        one = an_cuda.direct_light(scene, h, frame * spp + s, frame, vdir,
+                                   px, py)
+        assert torch.equal(got[s], one), s
+
+
+@pytest.mark.parametrize("use_bvh", [True, False])
+def test_batched_frame_is_its_samples_one_by_one(bvh, use_bvh):
+    """trace_and_shade of a 4-sample frame on the card: bit for bit the
+    four single-sample shadings of the same kernels summed in sample order
+    and divided by 4; the BVH batch launches bvh_direct twice and the
+    bounce once (the one-by-one form: 8 and 4)."""
+    from opengl_raytracing_tpu_torch.models import pipeline
+    from opengl_raytracing_tpu_torch.ops.scene import BVHDevice
+    from opengl_raytracing_tpu_torch.params import bind
+    params = bind(preset("heavy"), "cuda")
+    cam = Camera()
+    cam.aspect = 128 / 96
+    if use_bvh:
+        cam.fov = 12.0
+        cam.point_at((-2.0, 1.5, 0.0))
+    fin = camera_frame_inputs(cam, "cuda", frame_index=3)
+    scene = SceneCtx.create(params, fin.cam_pos, use_bvh=use_bvh,
+                            bvh=BVHDevice(bvh) if use_bvh else None)
+    px, py, rd = primary_rays(96, 128, fin, params)
+    frame = fin.frame
+    before = dict(cuda_lib.LAUNCHES)
+    got = pipeline.trace_and_shade(scene, params, fin, px, py, rd, frame,
+                                   use_bvh=use_bvh)[0]
+    grew = _grew(before)
+    if use_bvh:
+        assert (grew["bvh_direct"], grew["bounce"], grew["ao"]) == (2, 1, 1)
+    ro = fin.cam_pos.expand(rd.shape)
+    h_raw = scene.trace(ro, rd)
+    h = _sanitize_hit(h_raw, ro, rd)
+    ao = lt.compute_ao(scene, h, frame, px, py,
+                       active=h_raw.valid if use_bvh else None)
+    total = None
+    for s in range(4):
+        seed = frame * 4 + s
+        if use_bvh:
+            one = pipeline._shade_bvh(scene, h, seed, frame, -rd, px, py,
+                                      active=h_raw.valid, ao=ao)
+        else:
+            one = pipeline._shade_analytic(scene, h, seed, frame, -rd, px,
+                                           py, ao=ao)
+        one = torch.where(h_raw.valid[..., None], one, scene.sky(rd))
+        total = one if total is None else total + one
+    assert torch.equal(got, total / torch.full((), 4.0, device="cuda"))
+
+
 def test_walk_wrappers_reject_bad_inputs(bvh):
     params = preset("full")
     scene, h_raw, h, px, py, _ = _bvh_frame(bvh, params, 8, 8)

@@ -133,10 +133,11 @@ def test_heavy_chain_matches_jax(heavy_chain, i):
 @pytest.mark.parametrize("use_bvh", [False, True])
 @pytest.mark.parametrize("show_motion", [False, True])
 def test_samples_seeds_and_ao_hoist(tris, monkeypatch, use_bvh, show_motion):
-    """With 3 samples a pixel at frame 5, the direct light of the primary
-    hits runs once a sample with seeds 15, 16, 17 and the frame index 5,
-    AO once for all of them, and the frame is the samples' mean; the motion
-    view shades one sample with seed 5."""
+    """With 3 samples a pixel at frame 5, the samples shade as one batch:
+    the direct light of the primary hits runs once over [3, H, W] with the
+    seeds 15, 16, 17 (one sampled value) and the frame index 5, AO once
+    for all of them, and the frame is the samples' mean; the motion view
+    shades one sample with seed 5."""
     params = preset("full").replace(spp_per_frame=3, enable_env_map=0)
     h, w = 12, 16
     bvh = prepare_bvh(tris, "cpu") if use_bvh else None
@@ -152,8 +153,8 @@ def test_samples_seeds_and_ao_hoist(tris, monkeypatch, use_bvh, show_motion):
 
     def direct(scene, hit, rng_frame, frame_index, *a, **kw):
         # the frame's seeds are device frame values: their int32 values
-        seeds.append((int(frame_value(rng_frame)),
-                      int(frame_value(frame_index))))
+        seeds.append((frame_value(rng_frame).reshape(-1).tolist(),
+                      int(frame_value(frame_index)), tuple(hit.t.shape)))
         return real_direct(scene, hit, rng_frame, frame_index, *a, **kw)
 
     def ao(*a, **kw):
@@ -173,16 +174,18 @@ def test_samples_seeds_and_ao_hoist(tris, monkeypatch, use_bvh, show_motion):
                                     width=w, use_bvh=use_bvh,
                                     show_motion=show_motion)
     spp = 1 if show_motion else 3
-    # the primary hits' call comes first in each sample; GI, the mirror and
-    # the glass make their own calls after it
-    per_sample = len(seeds) // spp
-    assert [s for s in seeds[::per_sample]] == [(5 * spp + k, 5)
-                                                for k in range(spp)]
-    assert len(ao_calls) == 1 and len(shaded) == spp
+    # the primary hits' call comes first; GI, the mirror and the glass make
+    # their own calls after it, each over the whole batch
+    batch = (spp, h, w) if spp > 1 else (h, w)
+    assert seeds[0] == ([5 * spp + k for k in range(spp)], 5, batch)
+    assert all(shape == batch for _, _, shape in seeds)
+    assert len(ao_calls) == 1 and len(shaded) == 1
     assert state.frame_index == 6
     if show_motion:
         np.testing.assert_array_equal(out.image.numpy(), 0.0)  # no motion
         return
+    shaded = shaded[0]
+    assert shaded.shape == (spp, h, w, 3)
     hit = out.gnrm.abs().sum(-1) > 0
     mean = (shaded[0] + shaded[1] + shaded[2]) / 3.0
     # frame 5 blends the mean with an empty history by TAA's still weight
