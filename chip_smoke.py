@@ -45,7 +45,8 @@ in phases, each printing its result and seconds on a line of its own:
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every csrc/*.cu from the sources, one process
-     per source, all at once;
+     per source, all at once; a line before the phase's gives
+     bvh_direct_kernel's registers, spill and shared memory from ptxas;
   2b. native: the port's g++ library (native/) built from its sources
      (seconds); each entry against the port's numpy or Python form on this
      machine: the BVH of the 81,920 triangles passes validate_bvh (every
@@ -489,6 +490,28 @@ def bvh_bytes(arrays):
 
 def walk_ops(counts):
     return counts["nodes"] * OPS["node"] + counts["tris"] * OPS["tri"]
+
+
+def ptxas_of(log, kernel):
+    """`kernel`'s registers, spill and shared memory, from the lines ptxas
+    printed for it in the build log `log`."""
+    with open(log) as fh:
+        lines = fh.read().splitlines()
+    at = [i for i, ln in enumerate(lines)
+          if "Compiling entry function" in ln and kernel in ln]
+    if len(at) != 1:
+        raise AssertionError(f"ptxas compiled {kernel} {len(at)} times in "
+                             f"{log}")
+    text = " ".join(lines[at[0] + 1:at[0] + 4])
+
+    def num(pattern):
+        m = re.search(pattern, text)
+        return int(m.group(1)) if m else 0
+    return dict(kernel=kernel, registers=num(r"Used (\d+) registers"),
+                spill_stores=num(r"(\d+) bytes spill stores"),
+                spill_loads=num(r"(\d+) bytes spill loads"),
+                stack_bytes=num(r"(\d+) bytes stack frame"),
+                smem_bytes=num(r"(\d+) bytes smem"))
 
 
 def phase(label, t0, **result):
@@ -1538,6 +1561,9 @@ def main() -> int:
         with open(lib[:-3] + ".log") as fh:
             ptxas[name] = [ln.strip() for ln in fh
                            if "registers" in ln or "spill" in ln]
+    print("ptxas " + json.dumps(ptxas_of(libs["an_direct"][:-3] + ".log",
+                                         KERNELS["bvh_direct"]["kernel"])),
+          flush=True)
     phase("build", t0, seconds=time.time() - t0,
           libraries={k: os.path.relpath(v, ROOT) for k, v in libs.items()},
           ptxas=ptxas)

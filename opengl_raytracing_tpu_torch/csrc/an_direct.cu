@@ -11,7 +11,7 @@
 // with the six shadow walks that the any-hit kernel (K2) traced for it
 // folded in.
 //
-// Design: one thread per pixel, no shared memory.  A pixel's raw hit
+// Design.  K3: one thread per lane, no shared memory.  A pixel's raw hit
 // point, normal and view direction, its material id (K3) and its pixel
 // centre are all it reads; the pixel-centre grids are read in place
 // through their strides (a broadcast grid is a row or a column of
@@ -35,11 +35,12 @@
 // remainder and concentric_sample).  K3 traces its shadow rays against
 // the five analytic primitives (closest t only) and returns the env
 // reflection for mirror and glass pixels before any shadow work.
-// bvh_direct_kernel builds the four segment queries, the sun and the
-// point query with their ndl gates (lighting._bvh_shadow_queries) and
-// walks each open window with the any-hit walk of bvh_walk.cuh (node
-// rows from device memory); a lane that `active` marks off (the caller's
-// sky select drops it) does no work and writes nothing.  It reads the
+// bvh_direct_kernel (K5) builds the four segment queries, the sun and
+// the point query with their ndl gates (lighting._bvh_shadow_queries) and
+// walks the open windows with bvh_walk.cuh's any_hit_ww (node rows from
+// device memory), spread over its warp's lanes (below); a lane that
+// `active` marks off (the caller's sky select drops it) reads its mask
+// byte and nothing else of its row, and writes nothing.  It reads the
 // environment of no direction (its sky light is the constant-colour dome
 // of sky_term), so a cubemap changes nothing in it.
 //
@@ -57,18 +58,59 @@
 // path) receives the offsets as [8, N] planes dx0, dy0, dx1, ... so a
 // test can hold them to lighting._disk_offsets.
 //
-// What bounds it on this card.  A pixel reads 40 bytes (p, n, v and, for
-// K3, the material id) and writes 12; a BVH lane that `active` marks off
-// reads its mask byte and nothing else.  A diffuse pixel does the
-// hash chain (ten rand draws), four concentric samples with a sincos
-// each, six shadow traces (five analytic primitives each for K3, a BVH
-// walk for each open window of the BVH scene) and six Lambert-Phong
-// terms with a powf each.  K3 is bound by that arithmetic.  The BVH
-// kernel's dead lanes leave at once, and its time is the latency of its
-// longest live lane: one thread walks a pixel's windows one after
-// another, each node fetch waiting on the last, and a frame has too few
-// live warps per SM to hide that.  Spreading a pixel's walks over
-// threads is the next step.
+// What bounds them on this card.  A pixel reads 40 bytes (p, n, v and,
+// for K3, the material id) and writes 12.  A diffuse pixel does the hash
+// chain (ten rand draws), four concentric samples with a sincos each, six
+// shadow traces (five analytic primitives each for K3, a BVH walk for
+// each open window of the BVH scene) and six Lambert-Phong terms with a
+// powf each.  K3 is bound by that arithmetic.  K5 is bound by latency:
+// a walk is a chain of dependent node and triangle fetches, a frame's
+// live pixels are few (0.74% of a 1080p bunny frame, 45.6% on cf_close)
+// and clustered, and its GI call is a few hundred live lanes among 2M
+// or 8.3M.  One thread a pixel would walk its 4 * dup + 2 windows in
+// series, each a chain of fetches, and a warp would wait on its busiest
+// lane's chains: 0.171 ms on the 1080p baseline frame against a 0.00095
+// ms bound (H100 80GB HBM3, 700 W; PERF.md).  The walks take most of
+// the baseline call and about half of the cf_close call, whose other half
+// is its 946,092 live pixels' arithmetic (PERF.md).
+//
+// K5's design (the AO kernel's, bvh_trace.cu):
+//   * Persistent blocks (persistent.cuh): as many blocks of 128 threads
+//     as fit the card, each warp looping over units of 32 rows,
+//     block-minor; a dead unit costs its warp 32 mask bytes and a
+//     __ballot_sync.
+//   * Live pixels compacted per warp: a unit with no live row ends at its
+//     __ballot_sync; a live pixel's own lane reads its hit row once,
+//     computes its queries and, later, its terms, and its open windows
+//     take consecutive entries of the warp's list (__ballot_sync and
+//     __popc of the open windows).
+//   * A pixel's windows spread over the warp's lanes.  A unit is done a
+//     chunk at a time, chunk k being sample k's four disk windows of its
+//     live pixels and, in chunk 0, their sun and point windows (at most
+//     kChunkWindows = 6 a pixel, 192 a unit).  Each open window goes to
+//     the warp's list in shared memory (origin and window as a float4,
+//     the direction as three planes: 28 B an entry, 5,376 B a warp,
+//     21,600 B a block with the round bits), window by window: all lanes'
+//     disk window 0, then disk window 1, ..., the sun's, the point's.
+//     The warp walks the list 32 windows a round, a lane a window, with
+//     any_hit_ww; __ballot_sync of each round goes to the list's bits,
+//     from which each pixel's lane reads its own.  A closed window (the
+//     surface faces away, the window is <= 0) takes no lane, so a unit
+//     walks sum(open windows) / 32 rounds where a thread a pixel walked
+//     as many windows as its busiest pixel had open.
+//   * The bits stay those of the plain walk: each window is the query
+//     the plain version builds, walked by the same any-hit walk, and each
+//     pixel's terms are computed by its own lane in the plain version's
+//     order.  A chunk holds one sample, so the list never exceeds 192
+//     entries whatever `dup` (up to 16, 66 windows a pixel), a pixel's
+//     four disk offsets stay in registers from its queries to its terms,
+//     and its chunk's bits are read from the list before the next chunk.
+//   * Registers, not shared memory, set the warps an SM holds, and a walk
+//     waits on its fetches: held to 72 registers (kDirectBlocks), the
+//     kernel keeps seven blocks, 28 warps, on an SM.  ptxas (sm_90a,
+//     --fmad=false): bvh_direct_kernel 72 registers, a 96 B stack frame,
+//     108 B of spill stores and 72 B of spill loads, 21,600 B of shared
+//     memory.
 //
 // The samples of a pixel (spp_per_frame > 1) arrive as one call over a
 // leading sample axis, [spp, H, W] (models/pipeline.py:trace_and_shade,
@@ -76,18 +118,14 @@
 // sample i / n_px (sampling.cuh: PixelGrid, sample_of), and draws its
 // disk offsets from rng_frame at that sample (FrameAffine's per-sample
 // stride c; 0 for a call without the axis, whose lanes all read sample
-// 0).  K3 keeps a thread a lane.  The BVH kernel's primary call shares
-// one hit among the samples (spp_dup), and there it takes a thread a
-// pixel looping over the samples: the sun and point rays depend on the
-// hit alone (the JAX package's spp_dup traces them for sample 0 and
-// broadcasts its bits), so the thread reads the hit's rows, walks those
-// two rays and computes their terms once, then walks each sample's four
-// disk rays.  A thread a (sample, pixel) with the shared walks done once
-// would need the samples of a pixel in one warp and a shuffle of the
-// bits; the loop needs neither, and a sparse call's time is set by its
-// longest live lane, which now walks 4 + 2 / spp windows a sample where
-// it walked 6.  Its other calls (GI's, on hits that differ by sample)
-// take a thread a lane, as without the axis.
+// 0).  K3 keeps a thread a lane.  K5's primary call shares one hit among
+// the samples (spp_dup): its rows are pixels, the sun and point rays
+// depend on the hit alone (the JAX package's spp_dup traces them for
+// sample 0 and broadcasts its bits), so a pixel's lane reads the hit's
+// rows once, its sun and point windows go into chunk 0 alone and their
+// terms are computed once, and each sample k's chunk holds its four disk
+// windows.  Its other calls (GI's, on hits that differ by sample) take a
+// row a lane, as without the axis.
 //
 // Left for later: the glass/mirror secondary traces fused into K3.
 
@@ -97,14 +135,28 @@
 #include "bvh_walk.cuh"
 #include "cubemap.cuh"
 #include "param_block.cuh"
+#include "persistent.cuh"
 #include "sampling.cuh"
 
 namespace {
 
 constexpr float kPi = 3.1415926535f;
 constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kAll = 0xffffffffu;
 constexpr int kSamples = 4;   // SOFT_SHADOW_SAMPLES
 constexpr int kMatRows = 5;   // material ids 0-3, then the grey fallback
+// bvh_direct_kernel's chunk: a sample's disk windows of a unit's live
+// pixels and, in the first, their sun and point windows; its list holds a
+// full chunk, 192 windows (5,376 B a warp, 21,600 B a block with the
+// bits).  It holds the open windows alone (a fixed window a pixel, its
+// closed ones included and not walked, timed slower: PERF.md).
+constexpr int kChunkWindows = kSamples + 2;
+constexpr int kListCap = 32 * kChunkWindows;
+// bvh_direct_kernel's blocks an SM: seven hold it to 72 registers, 28
+// warps an SM (80 registers and six blocks, or 64 and eight, timed
+// slower: PERF.md)
+constexpr int kDirectBlocks = 7;
 
 }  // namespace
 
@@ -467,97 +519,199 @@ an_direct_light_kernel(const AnScene s, const float* __restrict__ p_in,
   store3(out, i, acc);
 }
 
-// K5 with its shadow walks: lighting.direct_light_bvh_plain for one unit,
-// a thread a unit.  With `dup` = 1 a unit is one lane (pixel u % n_px of
-// sample u / n_px, its own hit row).  With `dup` > 1 (spp_dup) a unit is
-// one pixel of a hit shared by `dup` samples: its rows are read once, its
-// sun and point walks and their terms are done once and shared, and the
-// thread loops over the samples, each with its own disk offsets and four
-// disk walks, writing lane k * n_units + u of sample k.  A window is
-// walked only where the plain version leaves it open (its ndl gate passed
-// and it is > 0); the walk is bvh_walk.cuh's any_hit.
-__global__ void __launch_bounds__(kThreads)
-bvh_direct_kernel(const AnScene s, const float4* __restrict__ bounds,
-                  const int4* __restrict__ meta,
-                  const float4* __restrict__ tris, int n_nodes,
+// ---- K5 with its shadow walks ----
+
+// A warp's list of shadow windows: entry e's origin and window (ow), and
+// its direction, as separate planes; and the occlusion bits of its walk
+// rounds, bit e % 32 of word e / 32.
+struct WindowList {
+  float4 ow[kWarps][kListCap];
+  float dx[kWarps][kListCap], dy[kWarps][kListCap], dz[kWarps][kListCap];
+  unsigned hit[kWarps][kListCap / 32];
+};
+
+// Give a lane's window its entry in the warp's list if it is `open`, and
+// put query q there; returns the entry, or -1 where the window is closed.
+// `n` counts the list's entries.  Every lane of the warp calls it for one
+// window of its pixel at a time, so all lanes' window w follow all lanes'
+// window w - 1 (the rays toward one light walk in one round).
+__device__ __forceinline__ int put_window(WindowList& wl, int warp,
+                                          unsigned below, bool open, int& n,
+                                          const Query& q) {
+  const unsigned b = __ballot_sync(kAll, open);
+  const int e = open ? n + __popc(b & below) : -1;
+  n += __popc(b);
+  if (e >= 0) {
+    wl.ow[warp][e] = make_float4(q.o.x, q.o.y, q.o.z, q.win);
+    wl.dx[warp][e] = q.d.x;
+    wl.dy[warp][e] = q.d.y;
+    wl.dz[warp][e] = q.d.z;
+  }
+  return e;
+}
+
+// Walk the warp's `n` entries (open windows all), 32 a round, a lane an
+// entry, and keep each round's bits (__ballot_sync) in the list.
+__device__ __forceinline__ void walk_list(WindowList& wl, int warp, int lane,
+                                          int n, const Tree& tree,
+                                          float eps) {
+  __syncwarp();  // the entries are written
+  for (int r0 = 0; r0 < n; r0 += 32) {
+    const int e = r0 + lane;
+    bool hit = false;
+    if (e < n) {
+      const float4 ow = wl.ow[warp][e];
+      hit = any_hit_ww(tree.bounds, tree.meta, tree.tris, tree.n_nodes,
+                       {ow.x, ow.y, ow.z},
+                       {wl.dx[warp][e], wl.dy[warp][e], wl.dz[warp][e]},
+                       ow.w, eps);
+    }
+    const unsigned b = __ballot_sync(kAll, hit);
+    if (lane == 0) wl.hit[warp][r0 >> 5] = b;
+  }
+  __syncwarp();  // the bits are written
+}
+
+// Is entry e (-1: none) occluded?
+__device__ __forceinline__ bool occluded(const WindowList& wl, int warp,
+                                         int e) {
+  return e >= 0 && ((wl.hit[warp][e >> 5] >> (e & 31)) & 1u);
+}
+
+// K5 with its shadow walks: lighting.direct_light_bvh_plain over rows of
+// hits, as persistent blocks over units of 32 rows.  With `dup` = 1 a
+// row is one lane (pixel i % n_px of sample i / n_px).  With `dup` > 1
+// (spp_dup) a row is one pixel of a hit shared by `dup` samples, and
+// sample k's radiance goes to lane k * n_rows + i: the row is read once,
+// and its sun and point windows are walked once for all samples.
+//
+// A unit's warp takes __ballot_sync of its live rows and works on those
+// alone, a chunk at a time: chunk k is sample k's four disk windows of
+// every live pixel, and, in chunk 0, their sun and point windows.  Each
+// live pixel's own lane builds its chunk's queries and gates
+// (lighting._bvh_shadow_queries: facing, ndl > 0, window > 0) and puts
+// its open windows in the warp's list (put_window); the warp walks the
+// list 32 windows a round with any_hit_ww (walk_list); each pixel's lane
+// then reads its windows' bits and computes its terms in the plain
+// version's order: the disk terms summed j = 0..3, divided by 4, then the
+// sun, sky and point terms.  A lane that `active` marks off reads its mask
+// byte and nothing else, and writes nothing (its radiance is unspecified
+// by contract).
+__global__ void __launch_bounds__(kThreads, kDirectBlocks)
+bvh_direct_kernel(const Units u, const AnScene s, const Tree tree,
                   const float* __restrict__ p_in,
                   const float* __restrict__ n_in,
                   const float* __restrict__ v_in, const PixelGrid g,
-                  const uint8_t* __restrict__ active, int64_t n_units,
+                  const uint8_t* __restrict__ active, int64_t n_rows,
                   int dup, float* __restrict__ out,
                   float* __restrict__ offs_out) {
-  const int64_t u = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (u >= n_units) return;
-  if (offs_out != nullptr) {
-    const uint32_t s1 = sample_of(g, u);
-    const uint32_t f = frame_index(s.frame);
-    float px, py;
-    pixel_centre(g, u, &px, &py);
-    const Rot rot = cp_rot(s, f, px, py);
-    for (int k = 0; k < dup; ++k)
-      write_offsets(s, frame_value(f, s.smp, dup > 1 ? k : s1), px, py, rot,
-                    dup > 1 ? k * n_units + u : u, n_units * dup, offs_out);
-  }
-  // an inactive lane's radiance is unspecified by contract: not written
-  if (active != nullptr && !__ldg(active + u)) return;
-  const uint32_t f = frame_index(s.frame);
-  const uint32_t s1 = sample_of(g, u);  // the lane's sample where dup == 1
-  float px, py;
-  pixel_centre(g, u, &px, &py);
-  const Rot rot = cp_rot(s, f, px, py);
-  const V3 p = row3(p_in, u);
-  const V3 n = norm3(row3(n_in, u));
-  const V3 v = norm3(row3(v_in, u));
+  __shared__ WindowList wl;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
   const V3 albedo = c3(s.bvh_albedo);
-  const V3 vv = norm3(v);
-  // the sun, sky and point terms depend on the hit alone
-  V3 sun_t = {0.0f, 0.0f, 0.0f}, sky_t = sun_t, point_t = sun_t;
-  if (s.sun_e) {
-    // lighting._sun_shadow_query: eps 1.0, window 999
-    const V3 l = sun_l(s);
-    const bool blocked =
-        dot3(n, l) > 0.0f &&
-        any_hit(bounds, meta, tris, n_nodes, add3(p, scale3(n, 1.0f)), l,
-                999.0f, s.eps);
-    sun_t = sun_term(s, n, vv, blocked, albedo, s.bvh_spec, s.bvh_gloss);
-  }
-  if (s.sky_e) sky_t = sky_term(s, n, albedo);
-  if (s.point_e) {
-    // lighting._point_shadow_query
-    const V3 to_l = sub3(c3(s.prm->point_light_world), p);
-    const float dist = sqrtf(fmaxf(dot3(to_l, to_l), 1e-20f));
-    const V3 l = {to_l.x / dist, to_l.y / dist, to_l.z / dist};
-    const float peps = fmaxf(1e-3f * dist, 1e-4f);
-    const float win = dist - peps;
-    const bool blocked =
-        dot3(n, l) > 0.0f && win > 0.0f &&
-        any_hit(bounds, meta, tris, n_nodes, add3(p, scale3(l, peps)), l,
-                win, s.eps);
-    point_t = point_term(s, p, n, vv, blocked ? 1 : 0, albedo, s.bvh_spec,
-                         s.bvh_gloss);
-  }
-  for (int k = 0; k < dup; ++k) {
-    const uint32_t kx = frame_value(f, s.smp, dup > 1 ? k : s1);
-    V3 acc = {0.0f, 0.0f, 0.0f};
-    for (int j = 0; j < kSamples; ++j) {
-      float dx, dy;
-      disk_offset(s, kx, px, py, rot, j, &dx, &dy);
-      const V3 xl = disk_point(s, dx, dy);
-      const Query q = segment_query(p, xl);
-      const bool facing =
-          dot3(n, q.d) > 0.0f && dot3(q.d, c3(s.light_nneg)) > 0.0f;
-      const bool occ = facing && q.win > 0.0f &&
-                       any_hit(bounds, meta, tris, n_nodes, q.o, q.d, q.win,
-                               s.eps);
-      acc = add3(acc, disk_term(s, p, n, v, xl, occ, albedo, s.bvh_spec,
-                                s.bvh_gloss));
+  for (int64_t j = u.first(); j < u.n_units; j += u.stride()) {
+    const int64_t base = u.base(j), i = base + lane;
+    if (offs_out != nullptr && i < n_rows) {  // every row, live or not
+      const uint32_t f = frame_index(s.frame);
+      const uint32_t s1 = sample_of(g, i);
+      float px, py;
+      pixel_centre(g, i, &px, &py);
+      const Rot rot = cp_rot(s, f, px, py);
+      for (int k = 0; k < dup; ++k)
+        write_offsets(s, frame_value(f, s.smp, dup > 1 ? k : s1), px, py,
+                      rot, dup > 1 ? k * n_rows + i : i, n_rows * dup,
+                      offs_out);
     }
-    acc = {acc.x / (float)kSamples, acc.y / (float)kSamples,
-           acc.z / (float)kSamples};
-    if (s.sun_e) acc = add3(acc, sun_t);
-    if (s.sky_e) acc = add3(acc, sky_t);
-    if (s.point_e) acc = add3(acc, point_t);
-    store3(out, dup > 1 ? k * n_units + u : u, acc);
+    const bool live = is_live(active, u, base, lane, n_rows);
+    const unsigned mask = __ballot_sync(kAll, live);
+    if (mask == 0) continue;
+    // the live row's hit, read once for all its samples
+    uint32_t f = 0, s1 = 0;
+    float px = 0.0f, py = 0.0f;
+    Rot rot = {0.0f, 0.0f};
+    V3 p = {0.0f, 0.0f, 0.0f}, n = p, v = p;
+    if (live) {
+      f = frame_index(s.frame);
+      s1 = sample_of(g, i);
+      pixel_centre(g, i, &px, &py);
+      rot = cp_rot(s, f, px, py);
+      p = row3(p_in, i);
+      n = norm3(row3(n_in, i));
+      v = norm3(row3(v_in, i));
+    }
+    // the sun, sky and point terms depend on the hit alone
+    V3 sun_t = {0.0f, 0.0f, 0.0f}, sky_t = sun_t, point_t = sun_t;
+    for (int k = 0; k < dup; ++k) {
+      const uint32_t kx = frame_value(f, s.smp, dup > 1 ? k : s1);
+      int n_ent = 0;
+      int e_disk[kSamples];
+      float dx[kSamples], dy[kSamples];
+#pragma unroll
+      for (int w = 0; w < kSamples; ++w) {
+        Query q = {};
+        bool open = false;
+        if (live) {
+          disk_offset(s, kx, px, py, rot, w, &dx[w], &dy[w]);
+          q = segment_query(p, disk_point(s, dx[w], dy[w]));
+          open = dot3(n, q.d) > 0.0f && dot3(q.d, c3(s.light_nneg)) > 0.0f &&
+                 q.win > 0.0f;
+        }
+        e_disk[w] = put_window(wl, warp, below, open, n_ent, q);
+      }
+      int e_sun = -1, e_point = -1;
+      if (k == 0 && s.sun_e) {
+        // lighting._sun_shadow_query: eps 1.0, window 999
+        Query q = {};
+        bool open = false;
+        if (live) {
+          const V3 l = sun_l(s);
+          q = {add3(p, scale3(n, 1.0f)), l, 999.0f};
+          open = dot3(n, l) > 0.0f;
+        }
+        e_sun = put_window(wl, warp, below, open, n_ent, q);
+      }
+      if (k == 0 && s.point_e) {
+        // lighting._point_shadow_query
+        Query q = {};
+        bool open = false;
+        if (live) {
+          const V3 to_l = sub3(c3(s.prm->point_light_world), p);
+          const float dist = sqrtf(fmaxf(dot3(to_l, to_l), 1e-20f));
+          const V3 l = {to_l.x / dist, to_l.y / dist, to_l.z / dist};
+          const float peps = fmaxf(1e-3f * dist, 1e-4f);
+          q = {add3(p, scale3(l, peps)), l, dist - peps};
+          open = dot3(n, l) > 0.0f && q.win > 0.0f;
+        }
+        e_point = put_window(wl, warp, below, open, n_ent, q);
+      }
+      walk_list(wl, warp, lane, n_ent, tree, s.eps);
+      if (live) {
+        if (k == 0) {
+          const V3 vv = norm3(v);
+          if (s.sun_e)
+            sun_t = sun_term(s, n, vv, occluded(wl, warp, e_sun), albedo,
+                             s.bvh_spec, s.bvh_gloss);
+          if (s.sky_e) sky_t = sky_term(s, n, albedo);
+          if (s.point_e)
+            point_t = point_term(s, p, n, vv,
+                                 occluded(wl, warp, e_point) ? 1 : 0, albedo,
+                                 s.bvh_spec, s.bvh_gloss);
+        }
+        V3 acc = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int w = 0; w < kSamples; ++w)
+          acc = add3(acc, disk_term(s, p, n, v, disk_point(s, dx[w], dy[w]),
+                                    occluded(wl, warp, e_disk[w]), albedo,
+                                    s.bvh_spec, s.bvh_gloss));
+        acc = {acc.x / (float)kSamples, acc.y / (float)kSamples,
+               acc.z / (float)kSamples};
+        if (s.sun_e) acc = add3(acc, sun_t);
+        if (s.sky_e) acc = add3(acc, sky_t);
+        if (s.point_e) acc = add3(acc, point_t);
+        store3(out, dup > 1 ? k * n_rows + i : i, acc);
+      }
+      __syncwarp();  // the next chunk rewrites the list
+    }
   }
 }
 
@@ -585,23 +739,22 @@ extern "C" int ort_an_direct(const AnScene* scene, const void* p,
   return (int)cudaGetLastError();
 }
 
-// `n_units` units of `dup` samples each (bvh_direct_kernel): the hit rows
+// `n_units` rows of `dup` samples each (bvh_direct_kernel): the hit rows
 // and `active` hold one row a unit, `out` and `offs` n_units * dup lanes.
+// Persistent blocks over units of 32 rows (persistent.cuh).
 extern "C" int ort_bvh_direct(const AnScene* scene, const void* bounds,
                               const void* meta, const void* tris, int n_nodes,
                               const void* p, const void* n, const void* v,
                               const PixelGrid* grid, const void* active,
                               int64_t n_units, int dup, void* out,
                               void* offs, void* stream) {
-  if (n_units > 0 && dup > 0) {
-    bvh_direct_kernel<<<blocks_for(n_units), kThreads, 0,
-                        (cudaStream_t)stream>>>(
-        *scene, (const float4*)bounds, (const int4*)meta,
-        (const float4*)tris, n_nodes, (const float*)p, (const float*)n,
-        (const float*)v, *grid, (const uint8_t*)active, n_units, dup,
-        (float*)out, (float*)offs);
-  }
-  return (int)cudaGetLastError();
+  if (dup <= 0) return (int)cudaGetLastError();
+  return launch_persistent(bvh_direct_kernel, kThreads,
+                           make_units(n_units, 32), (cudaStream_t)stream,
+                           *scene, make_tree(bounds, meta, tris, n_nodes),
+                           (const float*)p, (const float*)n, (const float*)v,
+                           *grid, (const uint8_t*)active, n_units, dup,
+                           (float*)out, (float*)offs);
 }
 
 // The structs' sizes, so the host can check its mirrors of the layouts.

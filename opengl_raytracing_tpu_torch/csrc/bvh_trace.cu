@@ -39,7 +39,7 @@
 //     fit an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor: one of
 //     1,024 threads), and each warp loops over units of lanes, block-minor
 //     (unit u to warp u mod (warps in the grid)), so neighbouring units
-//     land on different SMs.
+//     land on different SMs (persistent.cuh, shared with an_direct.cu).
 //   * Node rows and triangles in device memory, read through __ldg: the
 //     5,120 triangle bunny's 2,047 node rows (98 KB) and its triangles
 //     (245 KB) are served from L1 and L2.  Staging the node rows in dynamic
@@ -96,6 +96,7 @@
 
 #include "bvh_walk.cuh"
 #include "param_block.cuh"
+#include "persistent.cuh"
 #include "sampling.cuh"
 
 namespace {
@@ -107,14 +108,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kAll = 0xffffffffu;
 
 }  // namespace
-
-// The tree as the kernels take it (BVHArrays' device pointers).
-struct Tree {
-  const float4* bounds;
-  const int4* meta;
-  const float4* tris;
-  int n_nodes;
-};
 
 // The GI bounce call's inputs (lighting.gi_bounce_plain), filled on the
 // host (ops/bvh_cuda.py:bounce_args).
@@ -176,37 +169,11 @@ __device__ __forceinline__ void closest_hit_out(const Tree& tree, V3 o, V3 d,
   store3(n_out, k, t < kInf ? norm3(nb) : V3{0.0f, 0.0f, 0.0f});
 }
 
-// The unit loop of every kernel here.  A unit is `unit` consecutive
-// lanes (a run of 32, or AO's 32 / S pixels); warp `w` of block `b`
-// takes unit w * gridDim.x + b, then every (warps in the grid)-th unit
-// after, so neighbouring units land on different SMs.
-struct Units {
-  int64_t n_units;
-  int unit;
-  __device__ __forceinline__ int64_t first() const {
-    return (int64_t)(threadIdx.x >> 5) * gridDim.x + blockIdx.x;
-  }
-  __device__ __forceinline__ int64_t stride() const {
-    return (int64_t)kWarps * gridDim.x;
-  }
-  __device__ __forceinline__ int64_t base(int64_t j) const {
-    return j * unit;
-  }
-};
-
-// Is lane `lane` of the unit at `base` a live lane of n?
-__device__ __forceinline__ bool is_live(const uint8_t* __restrict__ active,
-                                        const Units& u, int64_t base,
-                                        int lane, int64_t n) {
-  const int64_t i = base + lane;
-  return lane < u.unit && i < n && (active == nullptr || __ldg(active + i));
-}
-
 // K1 on given rays: ro rows step `ro_step` floats (0: one shared origin,
 // 3: one row per ray), rd rows 3.  A lane that `active` (null: all)
 // marks off does not walk and reads as a miss, p = o + d*1e30.
 __global__ void __launch_bounds__(kThreads, 1)
-trace_closest_kernel(const Tree tree, const Units u,
+trace_closest_kernel(const Units u, const Tree tree,
                      const float* __restrict__ ro, int64_t ro_step,
                      const float* __restrict__ rd,
                      const uint8_t* __restrict__ active, int64_t n,
@@ -245,7 +212,7 @@ trace_closest_kernel(const Tree tree, const Units u,
 // lane that `active` marks off reads as a miss, t = 1e30, with wi and cos
 // zero; its p and n are not written.
 __global__ void __launch_bounds__(kThreads, 1)
-trace_bounce_kernel(const Tree tree, const Units u,
+trace_bounce_kernel(const Units u, const Tree tree,
                     const BounceArgs a, const uint8_t* __restrict__ active,
                     int64_t n, float eps, float* __restrict__ t_out,
                     float* __restrict__ p_out, float* __restrict__ n_out,
@@ -325,7 +292,7 @@ __device__ __forceinline__ bool ao_occluded(const Tree& tree,
 // ao_min)*(1 - occ/S), ao_min, 1).  A lane that `active` marks off writes
 // nothing: its value is unspecified.
 __global__ void __launch_bounds__(kThreads, 1)
-ambient_occlusion_kernel(const Tree tree, const Units u,
+ambient_occlusion_kernel(const Units u, const Tree tree,
                          const AoArgs a, const uint8_t* __restrict__ active,
                          int64_t n, float eps, float* __restrict__ ao_out) {
   __shared__ uint8_t slot[kWarps][32];
@@ -366,34 +333,6 @@ ambient_occlusion_kernel(const Tree tree, const Units u,
   }
 }
 
-Units make_units(int64_t n, int unit) { return {(n + unit - 1) / unit, unit}; }
-
-// Launch `kernel` as persistent blocks over the units of `u`.
-template <class Kernel, class... Args>
-int launch_persistent(Kernel kernel, const Tree& tree, const Units& u,
-                      cudaStream_t stream, Args... args) {
-  if (u.n_units <= 0) return (int)cudaGetLastError();
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, 0);
-  if (err != cudaSuccess) return (int)err;
-  int64_t blocks = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
-  if (blocks > (u.n_units + kWarps - 1) / kWarps)
-    blocks = (u.n_units + kWarps - 1) / kWarps;
-  kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(tree, u, args...);
-  return (int)cudaGetLastError();
-}
-
-Tree make_tree(const void* bounds, const void* meta, const void* tris,
-               int n_nodes) {
-  return {(const float4*)bounds, (const int4*)meta, (const float4*)tris,
-          n_nodes};
-}
-
 }  // namespace
 
 // Plain C entry points for ctypes.  Pointers are device pointers, but for
@@ -407,9 +346,9 @@ extern "C" int ort_trace_closest(const void* bounds, const void* meta,
                                  const void* active, int64_t n_rays, float eps,
                                  void* t_out, void* p_out, void* n_out,
                                  void* stream) {
-  return launch_persistent(trace_closest_kernel,
-                           make_tree(bounds, meta, tris, n_nodes),
+  return launch_persistent(trace_closest_kernel, kThreads,
                            make_units(n_rays, 32), (cudaStream_t)stream,
+                           make_tree(bounds, meta, tris, n_nodes),
                            (const float*)ro, ro_step, (const float*)rd,
                            (const uint8_t*)active, n_rays, eps,
                            (float*)t_out, (float*)p_out, (float*)n_out);
@@ -421,9 +360,9 @@ extern "C" int ort_trace_bounce(const void* bounds, const void* meta,
                                 int64_t n, float eps, void* t_out, void* p_out,
                                 void* n_out, void* wi_out, void* cos_out,
                                 void* stream) {
-  return launch_persistent(trace_bounce_kernel,
-                           make_tree(bounds, meta, tris, n_nodes),
-                           make_units(n, 32), (cudaStream_t)stream, *args,
+  return launch_persistent(trace_bounce_kernel, kThreads, make_units(n, 32),
+                           (cudaStream_t)stream,
+                           make_tree(bounds, meta, tris, n_nodes), *args,
                            (const uint8_t*)active, n, eps, (float*)t_out,
                            (float*)p_out, (float*)n_out, (float*)wi_out,
                            (float*)cos_out);
@@ -435,9 +374,9 @@ extern "C" int ort_ambient_occlusion(const void* bounds, const void* meta,
                                      int64_t n, float eps, void* ao_out,
                                      void* stream) {
   const int unit = args->samples <= 32 ? 32 / args->samples : 1;
-  return launch_persistent(ambient_occlusion_kernel,
-                           make_tree(bounds, meta, tris, n_nodes),
-                           make_units(n, unit), (cudaStream_t)stream, *args,
+  return launch_persistent(ambient_occlusion_kernel, kThreads,
+                           make_units(n, unit), (cudaStream_t)stream,
+                           make_tree(bounds, meta, tris, n_nodes), *args,
                            (const uint8_t*)active, n, eps, (float*)ao_out);
 }
 

@@ -1,9 +1,9 @@
 // Shared device code of the hand-written kernels: float3 arithmetic and
-// the skip-link BVH walk's pieces (slab test, triangle fetch,
-// Moller-Trumbore, the any-hit and closest-hit walks).  Included by
-// bvh_trace.cu (K1, the AO kernel) and an_direct.cu (the fused BVH direct
-// light), so that every walk in the port is one piece of code and rounds
-// the same way.
+// the skip-link BVH walk's pieces (the tree's pointers, slab test,
+// triangle fetch, Moller-Trumbore, the any-hit and closest-hit walks).
+// Included by bvh_trace.cu (K1, the AO kernel) and an_direct.cu (the
+// fused BVH direct light), so that every walk in the port is one piece of
+// code and rounds the same way.
 //
 // The arithmetic is the plain PyTorch version's (ops/vecmath.py,
 // ops/intersect.py, ops/bvh_traverse.py) expression for expression: dot
@@ -23,6 +23,20 @@
 
 constexpr float kInf = 1e30f;
 constexpr int kLeafMax = 8;
+
+// The tree as the kernels take it (BVHArrays' device pointers).
+struct Tree {
+  const float4* bounds;
+  const int4* meta;
+  const float4* tris;
+  int n_nodes;
+};
+
+inline Tree make_tree(const void* bounds, const void* meta, const void* tris,
+                      int n_nodes) {
+  return {(const float4*)bounds, (const int4*)meta, (const float4*)tris,
+          n_nodes};
+}
 
 struct V3 {
   float x, y, z;
@@ -121,46 +135,22 @@ __device__ __forceinline__ bool hit_tri(const Tri& tr, V3 o, V3 d,
          t >= eps && t <= t_max;
 }
 
+// The any-hit and closest-hit walks take the "while-while" form (Aila
+// and Laine, Understanding the efficiency of ray traversal on GPUs,
+// 2009): a lane steps through inner nodes and missed boxes until it
+// stands at a leaf whose box it hits, and only then tests the leaf's
+// triangles.  A lane visits the nodes and tests the triangles in the
+// plain walk's order, so it returns the plain walk's bits; and a warp's
+// lanes reach the leaf loop together, instead of running it once for
+// every step in which any one lane stands at a leaf.
+
 // Any occluder with t in [eps, tm] along o + t*d (bvh_traverse.
-// trace_bvh_shadow for one ray); the first one ends the walk.  The caller
-// skips windows <= 0 (and NaN), which can hold no t >= eps.  One node a
-// step, its leaf tested in the step (the BVH direct light's walks).
-__device__ __forceinline__ bool any_hit(const float4* __restrict__ bounds,
-                                        const int4* __restrict__ meta,
-                                        const float4* __restrict__ tris,
-                                        int n_nodes, V3 o, V3 d, float tm,
-                                        float eps) {
-  const V3 inv = {safe_inv(d.x), safe_inv(d.y), safe_inv(d.z)};
-  int cur = 0;
-  while (cur < n_nodes) {
-    const int4 m = __ldg(&meta[cur]);  // skip, first, count, pad
-    const bool bhit = hit_box(bounds, cur, o, inv, tm);
-    if (bhit && m.z > 0) {
-      const int cnt = m.z < kLeafMax ? m.z : kLeafMax;
-      for (int j = 0; j < cnt; ++j) {
-        float t;
-        if (hit_tri(load_tri(tris, m.y + j), o, d, tm, eps, &t)) return true;
-      }
-    }
-    cur = (bhit && m.z == 0) ? cur + 1 : m.x;
-  }
-  return false;
-}
-
-// The any-hit and closest-hit walks in the "while-while" form (Aila and
-// Laine, Understanding the efficiency of ray traversal on GPUs, 2009): a
-// lane steps through inner nodes and missed boxes until it stands at a
-// leaf whose box it hits, and only then tests the leaf's triangles.  Each
-// lane makes the same tests in the same order as in the form above, so
-// the results are the same bits; but a warp's lanes now reach the leaf
-// loop together, instead of running it once for every step in which any
-// one lane stands at a leaf.  The walk kernels of bvh_trace.cu use this
-// form.
-
-// any_hit in the while-while form.  The inner loop is written out with
-// its own exit, after which the warp's lanes meet at the leaf loop (the
-// same walk through a helper that returned from inside the inner loop
-// ran no faster than the form above on the card).
+// trace_bvh_shadow for one ray); the first one ends the walk.  The
+// callers skip windows <= 0 (and NaN), which can hold no t >= eps.  The
+// inner loop is written out with its own exit, after which the warp's
+// lanes meet at the leaf loop (the same walk through a helper that
+// returned from inside the inner loop ran no faster on the card than a
+// loop that tested one node a step).
 __device__ __forceinline__ bool any_hit_ww(const float4* __restrict__ bounds,
                                            const int4* __restrict__ meta,
                                            const float4* __restrict__ tris,

@@ -288,11 +288,12 @@ def direct_light_bvh(scene, h, rng_frame: Frame, frame_index: Frame, vdir,
     over a hit (and vdir, active, px, py) broadcast over it, the samples
     of one pixel: the kernel reads the hit's rows once a pixel, walks the
     sun and point rays once for all samples (the plain version traces
-    them for sample 0 and broadcasts its bits) and loops over the samples,
-    each with its own seed's disk offsets and walks.  Without it a lane
-    is a thread, its sample (for a sampled `rng_frame`) i // (pixels a
-    sample).  One launch either way.  `offsets_out` as for
-    `direct_light`."""
+    them for sample 0 and broadcasts its bits) and takes the samples in
+    turn, each with its own seed's disk offsets and walks.  Without it a
+    row is a lane, its sample (for a sampled `rng_frame`) i // (pixels a
+    sample).  One launch either way: persistent blocks whose warps walk
+    their live pixels' open windows 32 at a time (csrc/an_direct.cu).
+    `offsets_out` as for `direct_light`."""
     if h.t.device.type == "cpu":
         return lt.direct_light_bvh_plain(scene, h, rng_frame, frame_index,
                                          vdir, px, py, active, spp_dup)

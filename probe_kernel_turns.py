@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Kernel alone-times of two checkouts on one card, in turns.
 
-    python3 probe_kernel_turns.py OTHER_DIR [ROUNDS] [--frames]
+    python3 probe_kernel_turns.py OTHER_DIR [ROUNDS] [--frames | --k5]
 
 OTHER_DIR is another checkout of the repository, say the parent commit
 unpacked with `git archive`.  Each run is a child process in one
@@ -18,6 +18,15 @@ With `--frames` a run times the replayed frame instead: for chip_smoke.py's
 FRAME_CASES of phase graph (baseline, an_baseline, full), after a chain
 that captures, three 32-frame chains through `make_render_fn` with its
 captured graph (host clock to a synchronize), their least ms/frame a case.
+
+With `--k5` a run times the BVH direct light (`bvh_direct_kernel`) alone
+on the calls of K5_CASES' 1080p frames (baseline's one call, `full`'s and `heavy`'s primary and GI calls on a
+chain's third frame, the 81,920-triangle mesh under the cf_close and
+cf_far cameras) and saves
+each call's radiance on its live lanes under the checkout's ignored
+build directory (K5_OUTPUTS, removed from both checkouts before the first
+run); after the runs the two checkouts' outputs are compared bit for bit,
+one JSON line.
 """
 
 from __future__ import annotations
@@ -49,6 +58,67 @@ def child() -> None:
 
 
 FRAME_CASES = ("baseline", "an_baseline", "full")
+# (label, preset, camera, frames of the chain, 81,920-triangle mesh) of
+# each K5 frame, as chip_smoke.py's phases record them
+K5_CASES = (("baseline", "baseline", "still", 1, False),
+            ("full", "full", "still", 3, False),
+            ("heavy", "heavy", "still", 3, False),
+            ("cf_close", "baseline", "cf_close", 1, True),
+            ("cf_far", "baseline", "cf_far", 1, True))
+K5_OUTPUTS = os.path.join("opengl_raytracing_tpu_torch", "_build",
+                          "k5_outputs.pt")
+
+
+def child_k5() -> None:
+    """In a checkout's directory: the BVH direct light's alone-time on
+    each call of K5_CASES' frames, one JSON line; each call's radiance on
+    its live lanes saved to K5_OUTPUTS."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+    import chip_smoke as cs
+    from opengl_raytracing_tpu_torch.ops import an_cuda, cuda_lib
+    cuda_lib.build_all()
+    meshes = {False: cs.scene("cuda")[1],
+              True: cs.scene("cuda", cs.HEAVY_SUBDIV)[1]}
+    name = cs.KERNELS["bvh_direct"]["kernel"]
+    ms, outputs = {}, {}
+    for label, preset_name, camera, frames, heavy_mesh in K5_CASES:
+        calls = cs.record_kernel_inputs(
+            meshes[heavy_mesh], cs.HEIGHT, cs.WIDTH, "cuda",
+            ("bvh_direct",), preset_name, frames, camera=camera)
+        for k, args in enumerate(calls["bvh_direct"]):
+            key = label if len(calls["bvh_direct"]) == 1 else \
+                f"{label}_{('primary', 'gi')[k]}"
+            shape = args["h"].t.shape
+            live = (torch.ones(shape, dtype=torch.bool, device="cuda")
+                    if args["active"] is None
+                    else args["active"].expand(shape))
+            got = an_cuda.direct_light_bvh(**args)
+            outputs[key] = got[live].cpu()
+            ms[key] = cs.kernel_ms(lambda: an_cuda.direct_light_bvh(**args),
+                                   name)
+        del calls
+    torch.save(outputs, K5_OUTPUTS)
+    print(json.dumps(ms), flush=True)
+
+
+def compare_k5(other: str) -> dict:
+    """The two checkouts' saved K5 outputs: for each call, whether they are
+    equal bit for bit, and on how many values they differ."""
+    import torch
+    a = torch.load(os.path.join(other, K5_OUTPUTS))
+    b = torch.load(os.path.join(ROOT, K5_OUTPUTS))
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"the checkouts saved other calls: {sorted(a)} "
+                             f"against {sorted(b)}")
+    out = {}
+    for key in a:
+        same = a[key].shape == b[key].shape
+        out[key] = dict(bitwise=bool(same and torch.equal(
+            a[key].view(torch.int32), b[key].view(torch.int32))),
+            values=a[key].numel(),
+            differ=int((a[key] != b[key]).sum()) if same else None)
+    return out
 
 
 def child_frames() -> None:
@@ -86,21 +156,26 @@ def child_frames() -> None:
 
 def main() -> int:
     if sys.argv[1:2] == ["--child"]:
-        (child_frames if "--frames" in sys.argv else child)()
+        (child_frames if "--frames" in sys.argv
+         else child_k5 if "--k5" in sys.argv else child)()
         return 0
     frames = "--frames" in sys.argv
-    argv = [a for a in sys.argv[1:] if a != "--frames"]
+    mode = [a for a in sys.argv[1:] if a in ("--frames", "--k5")]
+    argv = [a for a in sys.argv[1:] if a not in ("--frames", "--k5")]
     other = os.path.abspath(argv[0])
     rounds = int(argv[1]) if len(argv) > 1 else 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    if "--k5" in mode:  # no earlier run's outputs are compared
+        for tree in (other, ROOT):
+            if os.path.exists(os.path.join(tree, K5_OUTPUTS)):
+                os.remove(os.path.join(tree, K5_OUTPUTS))
     times = {"other": [], "this": []}
     for side in ["other", "this", "this", "other"] * rounds:
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--child"]
-            + (["--frames"] if frames else []),
+            [sys.executable, os.path.abspath(__file__), "--child"] + mode,
             cwd=other if side == "other" else ROOT, stdout=subprocess.PIPE,
             text=True, timeout=600)
         if proc.returncode != 0:
@@ -120,6 +195,11 @@ def main() -> int:
                               this_runs=got["this"],
                               other_runs=got["other"])
     print(json.dumps({"card": smi, "medians": medians}), flush=True)
+    if "--k5" in mode:
+        bits = compare_k5(other)
+        print(json.dumps({"card": smi, "k5_bitwise": bits}), flush=True)
+        if not all(r["bitwise"] for r in bits.values()):
+            return 1
     return 0
 
 

@@ -28,6 +28,8 @@ present pass's tail; only their powf may round the last bits of the gamma
 curve apart from PyTorch's pow: max abs 2e-6 on every pixel.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -680,6 +682,12 @@ def test_bvh_direct_kernel_on_a_sample_batch(bvh, size, spp):
     of the plain version (its dedup form) on live lanes, and each sample
     bit for bit the kernel's single-sample call with the seed
     frame * spp + s."""
+    _sample_batch_check(bvh, size, spp)
+
+
+def _sample_batch_check(bvh, size, spp):
+    """test_bvh_direct_kernel_on_a_sample_batch's checks at `size` and
+    `spp` samples."""
     params = preset("heavy").replace(spp_per_frame=spp)
     scene, h_raw, h, px, py, vdir = _bvh_frame(bvh, params, *size)
     frame = FrameValue.of(7, "cuda")
@@ -702,6 +710,110 @@ def test_bvh_direct_kernel_on_a_sample_batch(bvh, size, spp):
                                        vdir, px, py, live)
         assert torch.equal(got[s][live], one[live]), s
     assert float((got[0] - got[1])[live].abs().max()) > 1e-3
+
+
+
+@pytest.mark.parametrize("spp", [8, 16])
+def test_bvh_direct_kernel_at_8_and_16_samples(bvh, spp):
+    """The primary call of an 8 and a 16 SPP batch (the app's F3 cycle
+    reaches both): 34 and 66 windows a pixel, the kernel's list taking one
+    sample a chunk; the checks of test_bvh_direct_kernel_on_a_sample_batch
+    at 96x128."""
+    _sample_batch_check(bvh, (96, 128), spp)
+
+
+SENTINEL = -7.0  # what a test puts in `out` before the kernel runs
+
+
+def _bvh_direct_into(scene, h, rng, frame, vdir, px, py, active, dup=1):
+    """bvh_direct_kernel's launch as an_cuda.direct_light_bvh makes it,
+    through the C entry, into a buffer of SENTINEL: returns it [N, 3], so
+    a test sees which lanes the kernel wrote."""
+    device = h.t.device
+    shape = h.t.shape
+    args, _keep_record = an_cuda.scene_args(scene, rng, frame,
+                                            device=device)
+    if dup > 1:
+        rows, (act, _keep_act) = an_cuda._shared_rows(h, vdir, active, shape,
+                                                      dup, device)
+    else:
+        rows = an_cuda._pixel_rows(h, vdir, device)
+        act, _keep_act = cuda_lib.mask_bytes(active, shape, device)
+    grid, _keep = cuda_lib.pixel_grid(px, py, shape, device,
+                                      max(an_cuda.samples_of(rng), dup))
+    tree = scene.bvh.arrays
+    out = torch.full((h.t.numel(), 3), SENTINEL, device=device)
+    cuda_lib.launch(an_cuda._library().ort_bvh_direct, "bvh_direct", device,
+                    ctypes.byref(args), tree.bounds.data_ptr(),
+                    tree.meta.data_ptr(), tree.tris.data_ptr(),
+                    tree.bounds.shape[0], rows["p"].data_ptr(),
+                    rows["n"].data_ptr(), rows["v"].data_ptr(),
+                    ctypes.byref(grid), act, h.t.numel() // dup, dup,
+                    out.data_ptr(), None)
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("spp", [1, 4])
+def test_bvh_direct_kernel_writes_no_dead_lane(bvh, spp):
+    """An all-dead mask, at 1080p, one row a lane and with spp_dup: the
+    kernel writes no lane, and `out` keeps its sentinel."""
+    params = preset("heavy").replace(spp_per_frame=spp)
+    scene, h_raw, h, px, py, vdir = _bvh_frame(bvh, params, 1080, 1920)
+    dead = torch.zeros_like(h_raw.valid)
+    rng, frame = _fv(3, 3)
+    if spp > 1:
+        h, vdir, px, py, dead = (_hit_batch(h, spp), _batch(vdir, spp),
+                                 _batch(px, spp), _batch(py, spp),
+                                 _batch(dead, spp))
+        rng = frame.sampled(spp)
+    out = _bvh_direct_into(scene, h, rng, frame, vdir, px, py, dead, spp)
+    assert bool((out == SENTINEL).all())
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_bvh_direct_kernel_one_live_pixel_in_the_last_lane(bvh, size):
+    """One live row, the call's last: the last lane of the last unit (a
+    partial unit at 37x131, lane 31 at 1080p).  Its radiance within
+    BVH_DIRECT_MAX_ABS of the plain version; every other lane of `out`
+    keeps its sentinel."""
+    scene, h_raw, h, px, py, vdir = _bvh_frame(bvh, preset("baseline"),
+                                               *size)
+    one = torch.zeros_like(h_raw.valid)
+    one.view(-1)[-1] = True
+    rng, frame = _fv(4, 4)
+    out = _bvh_direct_into(scene, h, rng, frame, vdir, px, py, one)
+    want = lt.direct_light_bvh_plain(scene, h, rng, frame, vdir, px, py, one)
+    err = float((out.view(want.shape)[one] - want[one]).abs().max())
+    assert err <= BVH_DIRECT_MAX_ABS, err
+    got = an_cuda.direct_light_bvh(scene, h, rng, frame, vdir, px, py, one)
+    assert torch.equal(got[one], out.view(want.shape)[one])
+    assert bool((out[:-1] == SENTINEL).all())
+    assert not bool((out[-1] == SENTINEL).any())
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_bvh_direct_kernel_with_the_sun_below_the_horizon(bvh, fold):
+    """The sun below the horizon (sun_pitch 90: its light travels up) and
+    the point light off, against the plain version.  With `fold` every
+    normal is turned up, so every sun window is gated shut and the list
+    holds disk windows alone; without it the bunny's underside still
+    faces the sun."""
+    params = preset("baseline").replace(sun_pitch=90.0,
+                                        point_light_enabled=0)
+    scene, h_raw, h, px, py, vdir = _bvh_frame(bvh, params)
+    if fold:
+        n = h.n
+        h = Hit(h.t, h.p, torch.stack([n[..., 0], n[..., 1].abs() + 1.0,
+                                       n[..., 2]], -1), h.mat)
+    offs = lt._disk_offsets(*_fv(2, 2), px, py)
+    _, _, wins = lt._bvh_shadow_queries(scene, h, normalize(h.n), offs,
+                                        h_raw.valid)
+    assert len(wins) == 5  # four disk windows and the sun's
+    sun_open = int((wins[4] > 0).sum())
+    assert (sun_open == 0) if fold else (sun_open > 0)
+    assert int((torch.stack(wins[:4]) > 0).sum()) > 0
+    _bvh_direct(scene, h, 2, 2, vdir, px, py, h_raw.valid)
 
 
 @pytest.mark.parametrize("shared", [True, False])
