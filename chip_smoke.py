@@ -60,10 +60,12 @@ in phases, each printing its result and seconds on a line of its own:
   3. kernels: each kernel on the exact inputs one frame hands it -- the
      closest-hit kernel, the BVH direct light and the tonemap kernel on a
      baseline frame's, the analytic direct-light kernel on every call of
-     an an_baseline frame and the tonemap kernel on that frame's
-     accumulation too, the same kernel with the cubemap on every call of a
-     1080p an_full frame (a record of its own, `an_direct_env`, with the
-     mirror and glass lanes that sampled the map: not 0), and on the
+     an an_baseline frame (each call with the mask of live lanes the
+     frame hands it) and the tonemap kernel on that frame's accumulation
+     too, the same kernel with the cubemap on every call of a 1080p
+     an_full frame (a record of its own, `an_direct_env`, with the live
+     mirror and glass lanes that sampled the map: not 0; each call's live
+     lanes, bound and time alone in `calls_detail`), and on the
      third frame of a 1080p `full` chain
      the SVGF kernel's two entries (the filter alone, the fused present),
      the AO kernel (K2's AO call), the closest-hit kernel's GI
@@ -75,8 +77,9 @@ in phases, each printing its result and seconds on a line of its own:
      direction and cosine bit for bit on live lanes.  AO:
      equal on live lanes but for at most 1e-3 of them, each off by one
      sample step.  Direct light: the in-kernel disk offsets equal
-     lighting._disk_offsets bit for bit; radiance within max abs 2e-6
-     (K3, valid lanes) and 1e-6 (BVH, live lanes).  SVGF's filter entry:
+     lighting._disk_offsets bit for bit (K3: on its live lanes);
+     radiance within max abs 2e-6 (K3) and 1e-6 (BVH), on live lanes.
+     SVGF's filter entry:
      rtol 1e-5 / atol 1e-5 on every pixel against the plain filter; the
      fused present and the tonemap kernel: max abs 2e-6 on every pixel
      against the plain present pass, and one device launch a call of
@@ -431,8 +434,6 @@ OPS = dict(
     disk_point=14,
     query=23,           # a segment shadow query
     facing=12,          # the BVH query's two ndl gates
-    trace_t=84,         # K3's closest t: the floor and three spheres
-    marker=23,          # ... and the point-light marker
     brdf=75,            # a light's geometry term and Lambert-Phong
     sun=6, sky=13, point=30,  # the light's own setup
     env=60,             # a mirror/glass pixel: normalize, reflect, sky
@@ -453,6 +454,26 @@ OPS = dict(
     cos=6,              # max(dot(n0, wi), 0)
     ao_remap=7,         # occ / S, the remap and the clamp
     hit_out=17,         # p = o + d*t and the unit normal
+    # K3's diffuse lane (csrc/an_direct.cu), by the work it needs:
+    add3=3,             # a term added to the sum, or the sum / 4
+    an_segment=26,      # a disk sample's segment: xl - p 3, its dot 5,
+                        # max_t 2, ln 1, the direction 3 (also the term's
+                        # l), seps 2, the origin 6, the occlusion test 4
+    phong=42,           # lambert_phong given l: ndl 6, kd 1, h 14, ndh 6,
+                        # powf 1, spec 3, the ndl gate 2, out 9
+    an_disk=20,         # the disk term's geometry: ndl 6, the light's
+                        # cosine 6, r2 1, geom 2, visibility 2, li 3
+    an_sun=19,          # the sun's: l 3, the shadow origin 6, blocked 1,
+                        # ndl 6, the select 3
+    an_point=41,        # the point light's: to_l 3, dist2 5, dist 2, l 3,
+                        # ndl 6, peps 2, the origin 6, blocked 4, the
+                        # falloff 2, li 3, the select 5
+    an_floor=20,        # a trace's floor test: denom 5, the safe
+                        # denominator 3, tf 8, its tests and select 4
+    an_sphere=17,       # a sphere's disc test: oc 3, b 5, c 6, disc 2, the
+                        # gate 1 (a missed sphere stops there)
+    an_root=11,         # ... where disc >= 0: the clamp and sqrtf 2, the
+                        # roots 3, t 2, the tests and select 4
 )
 
 
@@ -742,9 +763,10 @@ def _radiance_err(got, want, valid):
     return float(err.max()) if err.numel() else 0.0, bad
 
 
-def _offsets_bitwise(fn, args):
+def _offsets_bitwise(fn, args, live=None):
     """Run direct-light wrapper `fn` on `args` with its offsets output and
-    hold the in-kernel disk offsets to lighting._disk_offsets bit for bit;
+    hold the in-kernel disk offsets to lighting._disk_offsets bit for bit,
+    on the lanes `live` (bool, the call's shape; None: every lane);
     returns the radiance."""
     import torch
     from opengl_raytracing_tpu_torch.ops import lighting as lt
@@ -755,6 +777,8 @@ def _offsets_bitwise(fn, args):
                         lt._disk_offsets(args["rng_frame"],
                                          args["frame_index"], args["px"],
                                          args["py"]) for c in dxy])
+    if live is not None:
+        offs, want = offs[:, live.reshape(-1)], want[:, live.reshape(-1)]
     if not torch.equal(offs, want):
         raise AssertionError(f"{fn.__name__}: in-kernel disk offsets differ "
                              f"from _disk_offsets on "
@@ -1003,79 +1027,203 @@ def check_cf_kernels(bvh, tris, camera="cf_close"):
     return dict(camera=camera, **records)
 
 
+def an_call_labels(params):
+    """The names of an analytic frame's K3 calls, in the frame's order
+    (models/pipeline.py:_shade_analytic): the primary hits, their GI
+    bounce, the mirror's hit and its GI bounce, the glass's three
+    secondary hits."""
+    gi = bool(params.enable_gi)
+    return (["primary"] + ["gi"] * gi
+            + (["mirror"] + ["mirror_gi"] * gi) * bool(
+                params.mat_mirror_enabled)
+            + ["glass_reflect", "glass_straight", "glass_bent"] * bool(
+                params.mat_glass_enabled))
+
+
+def an_call_live(args):
+    """A K3 call's live lanes (its `active`, None: every lane), broadcast
+    to the call's shape."""
+    return _live(args["h"], args.get("active"))
+
+
+def an_traces(args, diffuse, shared):
+    """The traces K3 runs for a call's live diffuse lanes (`diffuse`, bool
+    of the call's shape), counted on the plain version's rays: the rays,
+    the sphere tests, and the tests whose discriminant is >= 0 (the only
+    ones that go on to the roots).  Four disk segments a lane, against
+    the marker too when the point light is on; the sun's ray (the marker
+    too) and the point light's (not) once a row, `shared` rows being one
+    a pixel for every sample."""
+    import torch
+    from opengl_raytracing_tpu_torch import constants as k
+    from opengl_raytracing_tpu_torch.ops import lighting as lt
+    from opengl_raytracing_tpu_torch.ops.scene_analytic import Hit
+    from opengl_raytracing_tpu_torch.ops.vecmath import dot, normalize
+    h, scene = args["h"], args["scene"]
+    shape, dev = diffuse.shape, h.t.device
+    spheres = [(torch.tensor(c, dtype=torch.float32, device=dev), r)
+               for c, r in ((k.SPHERE_LEFT_CENTER, k.SPHERE_LEFT_RADIUS),
+                            (k.GLASS_CENTER, k.GLASS_RADIUS),
+                            (k.MIRROR_CENTER, k.MIRROR_RADIUS))]
+    point_e = bool(scene.params.point_light_enabled)
+    marker = [(scene.point_light_pos, k.POINT_LIGHT_MARKER_RADIUS)] * point_e
+    counts = dict(trace_rays=0, sphere_tests=0, sphere_roots=0)
+
+    def trace(o, d, tests):
+        counts["trace_rays"] += o.shape[0]
+        counts["sphere_tests"] += o.shape[0] * len(tests)
+        for c, r in tests:
+            oc = o - c
+            b = dot(oc, d)
+            disc = b * b - (dot(oc, oc) - r * r)
+            counts["sphere_roots"] += int((disc >= 0.0).sum())
+
+    p = h.p.expand(shape + (3,))[diffuse]
+    offs = lt._disk_offsets(args["rng_frame"], args["frame_index"],
+                            args["px"], args["py"])
+    for xl in lt._disk_points(offs, dev):
+        o, d, _ = lt._segment_shadow_query(p, xl.expand(shape + (3,))[diffuse])
+        trace(o, d, spheres + marker)
+    rows = diffuse[0] if shared else diffuse
+
+    def row(x):
+        x = x.expand(shape + (3,))
+        return (x[0] if shared else x)[rows]
+    p = row(h.p)
+    if scene.params.sun_enabled:
+        trace(p + normalize(row(h.n)) * 1.0,
+              (-scene.sun_dir).expand(p.shape), spheres + marker)
+    if point_e:
+        o, d, _ = lt._point_shadow_query(scene, Hit(None, p, None, None))
+        trace(o, d, spheres)
+    return counts
+
+
+def an_call_bound(args):
+    """The least time of one K3 call on this card, from the work of its
+    live lanes (bound()): the bytes are the mask's, then each live hit
+    row's n, v and material id and a diffuse row's p (one row a pixel
+    where the rows are read once for every sample), the pixel grids, a
+    live env row's four cubemap texels, and each live lane's radiance
+    written; the operations are, for each live diffuse lane, its four
+    disk terms and its sums, for each live diffuse row its normals,
+    rotation and sun, sky and point terms (once a pixel where the rows
+    are), the traces the lanes need (an_traces: a sphere's roots only
+    where its disc test passes), and each live env row's reflection.
+    Also the call's lanes, live lanes and env lanes, and the traces."""
+    from opengl_raytracing_tpu_torch.ops import an_cuda
+    from opengl_raytracing_tpu_torch.ops.materials import get_material
+    h, scene = args["h"], args["scene"]
+    params = scene.params
+    shape = h.t.shape
+    live = an_call_live(args)
+    env = live & (get_material(h.mat, params).mtype.expand(shape) != 0)
+    n_live, n_env = int(live.sum()), int(env.sum())
+    _, rows, _keep = an_cuda.direct_rows(
+        scene, h, args["rng_frame"], args["frame_index"], args["vdir"],
+        args["px"], args["py"], args.get("active"), h.t.device)
+    shared = bool(rows.shared)
+    live_rows = int(live[0].sum()) if shared else n_live
+    env_rows = int(env[0].sum()) if shared else n_env
+    mask_bytes = (0 if args.get("active") is None
+                  else (live[0] if shared else live).numel())
+    sun_e, sky_e, point_e = (bool(params.sun_enabled),
+                             bool(params.sky_enabled),
+                             bool(params.point_light_enabled))
+    per_lane = (4 * (OPS["offset"] + OPS["disk_point"] + OPS["an_segment"]
+                     + OPS["an_disk"] + OPS["phong"] + OPS["add3"])
+                + (1 + sun_e + sky_e + point_e) * OPS["add3"])
+    per_row = (3 * OPS["normalize"] + OPS["cp_rot"]
+               + sun_e * (OPS["an_sun"] + OPS["phong"]) + sky_e * OPS["sky"]
+               + point_e * (OPS["an_point"] + OPS["phong"]))
+    traces = an_traces(args, live & ~env, shared)
+    per_env = OPS["env"] + (OPS["cubemap"] if scene.env_map is not None
+                            else 0)
+    return dict(lanes=h.t.numel(), live_lanes=n_live, env_lanes=n_env,
+                live_rows=live_rows, shared_rows=shared, **traces,
+                **bound(mask_bytes + 40 * live_rows - 12 * env_rows
+                        + unique_bytes(args["px"], args["py"])
+                        + (48 * env_rows if scene.env_map is not None else 0)
+                        + 12 * n_live,
+                        (n_live - n_env) * per_lane
+                        + (live_rows - env_rows) * per_row
+                        + traces["trace_rays"] * OPS["an_floor"]
+                        + traces["sphere_tests"] * OPS["an_sphere"]
+                        + traces["sphere_roots"] * OPS["an_root"]
+                        + env_rows * per_env))
+
+
 def check_an_kernel(height=AN_HEIGHT, width=AN_WIDTH, device="cuda",
                     timer=None, preset_name="baseline", env=None,
                     record_as=None):
     """The analytic direct-light kernel against its plain version on every
     call one analytic frame makes (primary hits, the mirror's and the
     glass's three secondary hits, with the `full` preset the GI bounces'
-    too): offsets bit for bit, radiance on the valid lanes; times, launches
-    and the bound on the primary call.  Without `env`: an an_baseline
-    frame, and the tonemap kernel on the frame's accumulation at this size,
-    as check_kernels holds it at the baseline frame's.  With the cubemap
-    table `env`: an an_full frame, whose mirror and glass lanes sample the
-    map in the kernel (the plain version samples it through scene.sky);
-    some lane must.  With `record_as`, the kernel's record alone under
-    that name (a `heavy` frame's calls carry the sample axis: the primary
-    call's seed is sampled, and every call's lanes are the 4 samples')."""
+    too), each on its live lanes (the mask the frame hands it; the others
+    are unspecified): offsets bit for bit, radiance within K3_MAX_ABS;
+    each call's live lanes, bound and time alone (`calls_detail`), and the
+    wrapper's and the plain version's times and launches on the primary
+    call.  Without `env`: an an_baseline frame, and the tonemap kernel on
+    the frame's accumulation at this size, as check_kernels holds it at
+    the baseline frame's.  With the cubemap table `env`: an an_full frame,
+    whose mirror and glass lanes sample the map in the kernel (the plain
+    version samples it through scene.sky); some live lane must.  With
+    `record_as`, the kernel's record alone under that name (a `heavy`
+    frame's calls carry the sample axis: the primary call's seed is
+    sampled, its hit rows and mask are read once a pixel, and every
+    call's lanes are the 4 samples')."""
     from opengl_raytracing_tpu_torch.ops import an_cuda
     from opengl_raytracing_tpu_torch.ops import lighting as lt
-    from opengl_raytracing_tpu_torch.ops.materials import get_material
     timer = timer or cuda_ms
     alone = env is not None or record_as is not None
     calls = record_kernel_inputs(None, height, width, device,
                                  ("an_direct",) if alone else AN_PATH,
                                  preset_name, env=env)
-    errs, bad, lanes, env_lanes = [], 0, 0, 0
-    for args in calls["an_direct"]:
+    labels = an_call_labels(calls["an_direct"][0]["scene"].params)
+    if len(labels) != len(calls["an_direct"]):
+        raise AssertionError(f"the frame made {len(calls['an_direct'])} K3 "
+                             f"calls, expected {labels}")
+    errs, bad, detail = [], 0, {}
+    for label, args in zip(labels, calls["an_direct"]):
         if (args["scene"].env_map is None) != (env is None):
             raise AssertionError("the frame's scene does not carry the "
                                  "environment it was given")
-        valid = args["h"].valid
-        e, b = _radiance_err(_offsets_bitwise(an_cuda.direct_light, args),
-                             lt.direct_light_plain(**args), valid)
+        if args["active"] is None:
+            raise AssertionError(f"the frame's {label} K3 call has no mask")
+        plain = {k: v for k, v in args.items() if k != "active"}
+        live = an_call_live(args)
+        e, b = _radiance_err(_offsets_bitwise(an_cuda.direct_light, args,
+                                              live),
+                             lt.direct_light_plain(**plain), live)
         errs.append(e)
         bad += b
-        lanes += int(valid.sum())
-        env_lanes += int((valid & (get_material(
-            args["h"].mat, args["scene"].params).mtype != 0)).sum())
+        detail[label] = dict(
+            an_call_bound(args), max_abs_err=e, bad_lanes=b,
+            kernel_ms=kernel_ms(lambda: an_cuda.direct_light(**args),
+                                KERNELS["an_direct"]["kernel"]))
     if bad or not max(errs) <= K3_MAX_ABS:  # a NaN lane counts in `bad`
         raise AssertionError(f"an_direct_light disagrees with the plain "
-                             f"direct_light on {bad} lanes (max abs "
+                             f"direct_light on {bad} live lanes (max abs "
                              f"{max(errs)})")
+    env_lanes = sum(d["env_lanes"] for d in detail.values())
     if env is not None and not env_lanes:
-        raise AssertionError("no mirror or glass lane sampled the cubemap")
+        raise AssertionError("no live mirror or glass lane sampled the "
+                             "cubemap")
     args = calls["an_direct"][0]
-    h, params = args["h"], args["scene"].params
-    n_env = int((get_material(h.mat, params).mtype != 0).sum())
-    trace = OPS["trace_t"] + bool(params.point_light_enabled) * OPS["marker"]
-    per_diffuse = (3 * OPS["normalize"] + OPS["cp_rot"] + 4 * (
-        OPS["offset"] + OPS["disk_point"] + OPS["query"] + trace
-        + OPS["brdf"]) + bool(params.sun_enabled) * (
-            trace + OPS["sun"] + OPS["brdf"])
-        + bool(params.sky_enabled) * OPS["sky"]
-        + bool(params.point_light_enabled) * (
-            OPS["point"] + OPS["trace_t"] + OPS["brdf"]))
-    per_env = OPS["env"] + (OPS["cubemap"] if env is not None else 0)
+    plain = {k: v for k, v in args.items() if k != "active"}
 
     def call():
         an_cuda.direct_light(**args)
-    # bytes: n, v and the material id of every pixel, p of the diffuse
-    # ones, the pixel grids, the cubemap table, the radiance written
     record = dict(
-        calls=len(errs), pixels=height * width, lanes=h.t.numel(),
-        valid_lanes=lanes,
+        calls=len(errs), pixels=height * width,
         max_abs_err=max(errs), max_abs_err_per_call=errs,
-        bad_lanes=bad, offsets="bitwise", env_pixels=n_env,
-        env_lanes_all_calls=env_lanes,
-        **bound(unique_bytes(h.n, h.mat, args["vdir"], args["px"],
-                             args["py"], env)
-                + 12 * (h.t.numel() - n_env) + 12 * h.t.numel(),
-                n_env * per_env + (h.t.numel() - n_env) * per_diffuse),
-        ms=timer(call, 20),
-        kernel_ms=kernel_ms(call, KERNELS["an_direct"]["kernel"]),
+        bad_lanes=bad, offsets="bitwise on live lanes",
+        env_lanes_all_calls=env_lanes, calls_detail=detail,
+        **{k: v for k, v in detail["primary"].items()
+           if k not in ("max_abs_err", "bad_lanes", "kernel_ms")},
+        ms=timer(call, 20), kernel_ms=detail["primary"]["kernel_ms"],
         launches_per_call=launches_per_call(call),
-        plain_ms=timer(lambda: lt.direct_light_plain(**args), 5))
+        plain_ms=timer(lambda: lt.direct_light_plain(**plain), 5))
     if record_as is not None:
         return {record_as: record}
     if env is not None:
@@ -2370,7 +2518,7 @@ def batch_vs_samples(bvh, height, width, spp=HEAVY_SPP, device="cuda",
                                           active=hit, ao=ao)
             else:
                 one = pipeline._shade_analytic(scene, h, seed, frame, -rd,
-                                               px, py, ao=ao)
+                                               px, py, active=hit, ao=ao)
             one = torch.where(hit[..., None], one, sky)
             total = one if total is None else total + one
         return total / torch.full((), float(spp), device=device)

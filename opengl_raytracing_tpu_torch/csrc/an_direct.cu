@@ -11,9 +11,9 @@
 // with the six shadow walks that the any-hit kernel (K2) traced for it
 // folded in.
 //
-// Design.  K3: one thread per lane, no shared memory.  A pixel's raw hit
-// point, normal and view direction, its material id (K3) and its pixel
-// centre are all it reads; the pixel-centre grids are read in place
+// Inputs.  A pixel's raw hit point, normal and view direction, its
+// material id (K3) and its pixel centre are all a lane reads; the
+// pixel-centre grids are read in place
 // through their strides (a broadcast grid is a row or a column of
 // floats), and only by lanes that need them.  The scene's fixed
 // constants, the material types and light toggles (static parameters) and
@@ -33,8 +33,10 @@
 // unit-disk offsets of the four soft-shadow samples (lighting._disk_
 // offsets: the uint32 hash of sampling.rand, cp_offset's rotation,
 // remainder and concentric_sample).  K3 traces its shadow rays against
-// the five analytic primitives (closest t only) and returns the env
-// reflection for mirror and glass pixels before any shadow work.
+// the five analytic primitives (closest t only) and shades its mirror
+// and glass lanes (the env reflection, no shadow work) on a path of
+// their own (below); a lane that `active` marks off (the caller's select
+// drops it) reads its mask byte and nothing else, and writes nothing.
 // bvh_direct_kernel (K5) builds the four segment queries, the sun and
 // the point query with their ndl gates (lighting._bvh_shadow_queries) and
 // walks the open windows with bvh_walk.cuh's any_hit_ww (node rows from
@@ -51,7 +53,11 @@
 // (center + T*(dx*R)) + B*(dy*R), the point light's radiance as
 // color * (I / max(d2, 1e-4)), the view direction normalised once more
 // for the sun and point terms, pow as powf, IEEE cosf/sinf for the disk
-// offsets.  Built with --fmad=false and without --use_fast_math, so
+// offsets.  Where a value is dropped by a select whatever it is, it may
+// be skipped (a missed sphere's root); where two forms give the same
+// float, the cheaper is taken (remainder by x - truncf(x) on [0, 2], the
+// segment's direction as the term's normalize).  Built with --fmad=false
+// and without --use_fast_math, so
 // every operation rounds once, as in PyTorch: the disk offsets equal the
 // plain version's bit for bit, and only the libraries' pow differs in
 // the last bits of the radiance.  An optional output (null on the main
@@ -63,7 +69,13 @@
 // chain (ten rand draws), four concentric samples with a sincos each, six
 // shadow traces (five analytic primitives each for K3, a BVH walk for
 // each open window of the BVH scene) and six Lambert-Phong terms with a
-// powf each.  K3 is bound by that arithmetic.  K5 is bound by latency:
+// powf each.  K3 is bound by that arithmetic, about 1,600 operations a
+// diffuse lane against 52 bytes: 0.032 ms for the 1,330,104 live lanes
+// of a 1080p an_full frame's primary call, whose six other calls keep
+// 0.1-1.2% of their 2,073,600 lanes (PERF.md).  One thread a lane
+// over every lane spent 0.31 ms on the primary call and 0.35-0.43 ms on
+// each of the others, on lanes the frame then drops.  K5 is bound by
+// latency:
 // a walk is a chain of dependent node and triangle fetches, a frame's
 // live pixels are few (0.74% of a 1080p bunny frame, 45.6% on cf_close)
 // and clustered, and its GI call is a few hundred live lanes among 2M
@@ -73,6 +85,41 @@
 // ms bound (H100 80GB HBM3, 700 W; PERF.md).  The walks take most of
 // the baseline call and about half of the cf_close call, whose other half
 // is its 946,092 live pixels' arithmetic (PERF.md).
+//
+// K3's design:
+//   * Live lanes from the frame's own selects.  The caller hands each
+//     call the lanes it keeps (models/pipeline.py:_shade_analytic: the
+//     primary call its diffuse hits, each secondary its valid hits among
+//     the lanes its caller keeps), the frame's form of the JAX package's
+//     tile gates: a masked secondary call is a scan of 2M mask bytes and
+//     a few rounds.
+//   * Persistent blocks (persistent.cuh, as K5): each warp takes units
+//     of 32 lanes, block-minor; a unit with no live lane ends at its
+//     __ballot_sync.
+//   * Live lanes compacted per warp, a queue a path.  A live lane joins
+//     the warp's diffuse queue or its env queue (mirror, glass) in shared
+//     memory (int64 lane indices, kQueueCap = 63 a queue: 4,032 B a
+//     block); once a queue holds kDrainAt = 32 the warp shades a round of
+//     32, a lane each, all on one path, so a warp never splits between
+//     the env lookup and the diffuse tree, and the sparse calls' live
+//     lanes fill whole rounds.  Each path has one call site, so the
+//     kernel is one inlined body (with two call sites of the diffuse
+//     path ptxas left a call, a 56 B stack frame and spills: 0.285
+//     against 0.259 ms on the primary call).  A unit-at-a-time form
+//     (kDrainAt 1: a unit's live lanes a round, no queue carried) timed
+//     the same on the primary call and twice as slow on the GI call
+//     (0.065 against 0.031 ms); a grid of a block a 4 units (no
+//     persistent loop) was 6% faster on the primary call and 1.7x
+//     slower on the GI call (PERF.md).
+//   * The diffuse path's arithmetic, split by probe_an_direct.py on the
+//     primary call (0.210 ms): the traces ~20%, the sincos ~7%, the hash
+//     chain ~5%, powf within the noise.  Cut without changing a bit: a
+//     missed sphere returns before its sqrtf (-10%), rem1 without fmodf
+//     (-10%); one sincosf in place of cosf and sinf gave the same bits
+//     and was 13% slower, so the pair stays.
+//   * ptxas (sm_90a, --fmad=false): an_direct_light_kernel 61 registers,
+//     no spill, a 32 B stack frame (the trig functions' slow path), 4,032
+//     B of shared memory: eight blocks, 32 warps, an SM.
 //
 // K5's design (the AO kernel's, bvh_trace.cu):
 //   * Persistent blocks (persistent.cuh): as many blocks of 128 threads
@@ -118,7 +165,10 @@
 // sample i / n_px (sampling.cuh: PixelGrid, sample_of), and draws its
 // disk offsets from rng_frame at that sample (FrameAffine's per-sample
 // stride c; 0 for a call without the axis, whose lanes all read sample
-// 0).  K3 keeps a thread a lane.  K5's primary call shares one hit among
+// 0).  K3's primary call shares one hit among the samples: where its
+// rows and mask are broadcast over the axis (AnRows::shared) a lane reads
+// its pixel's row, i % n_px, in place.  K5's primary call shares one hit
+// among
 // the samples (spp_dup): its rows are pixels, the sun and point rays
 // depend on the hit alone (the JAX package's spp_dup traces them for
 // sample 0 and broadcasts its bits), so a pixel's lane reads the hit's
@@ -157,6 +207,12 @@ constexpr int kListCap = 32 * kChunkWindows;
 // warps an SM (80 registers and six blocks, or 64 and eight, timed
 // slower: PERF.md)
 constexpr int kDirectBlocks = 7;
+// an_direct_light_kernel's queues of live lanes, one a path (diffuse,
+// env) a warp: a queue is shaded 32 lanes a round once it holds
+// kDrainAt, so it holds at most kDrainAt - 1 + 32 lanes (int64 lane
+// indices: 1,008 B a warp, 4,032 B a block)
+constexpr int kDrainAt = 32;
+constexpr int kQueueCap = kDrainAt - 1 + 32;
 
 }  // namespace
 
@@ -196,17 +252,32 @@ struct AnScene {
   int sun_e, sky_e, point_e;
 };
 
+// The hit rows of a K3 call and its live lanes, filled on the host
+// (ops/an_cuda.py:direct_rows).
+struct AnRows {
+  // p, n, v [N, 3] and the material id [N] of every lane, or with
+  // `shared` one row a pixel, [n_px], read by every sample (as is
+  // `active`)
+  const float* p;
+  const float* n;
+  const float* v;
+  const int32_t* mat;
+  const uint8_t* active;  // a byte a row, 0: dead (null: every lane live)
+  PixelGrid grid;         // lane i: pixel i % n_px of sample i / n_px
+  int shared;
+};
+
 namespace {
 
 __device__ __forceinline__ V3 c3(const float* a) { return {a[0], a[1], a[2]}; }
 
 // ---- the disk offsets (lighting._disk_offsets), on sampling.cuh's hash ----
 
-// torch.remainder(x, 1.0): fmod, then the sign fix for a negative rest
-__device__ __forceinline__ float rem1(float x) {
-  const float m = fmodf(x, 1.0f);
-  return (m != 0.0f && m < 0.0f) ? m + 1.0f : m;
-}
+// torch.remainder(x, 1.0) of a sum of two draws in [0, 1] (a rand draw
+// and a rotation): x lies in [0, 2], where x - truncf(x) is exact (for x
+// in [1, 2) by Sterbenz's lemma) and so equals fmodf(x, 1) and the
+// remainder bit for bit, without fmodf's loop
+__device__ __forceinline__ float rem1(float x) { return x - truncf(x); }
 
 // sampling.concentric_sample
 __device__ __forceinline__ void concentric(const AnScene& s, float ux,
@@ -222,6 +293,8 @@ __device__ __forceinline__ void concentric(const AnScene& s, float ux,
     r = 0.0f;
     phi = 0.0f;
   }
+  // cosf and sinf apart: one sincosf gives the same bits, but timed
+  // slower in K3 (PERF.md)
   *dx = r * cosf(phi);
   *dy = r * sinf(phi);
 }
@@ -287,6 +360,9 @@ __device__ __forceinline__ float sphere_t(float best, V3 o, V3 d, V3 c,
   const float b = dot3(oc, d);
   const float c2 = dot3(oc, oc) - r2;
   const float disc = b * b - c2;
+  // a missed sphere (disc < 0, NaN included) returns `best` whatever the
+  // root: skip the sqrtf and what follows, the same bits
+  if (!(disc >= 0.0f)) return best;
   const float s = sqrtf(fmaxf(disc, 0.0f));
   const float t_near = -b - s;
   const float t_far = -b + s;
@@ -346,21 +422,29 @@ __device__ __forceinline__ V3 lambert_phong(V3 n, V3 v, V3 l, V3 li,
           (albedo.z * kd + spec) * li.z};
 }
 
-// One disk sample's term of lighting._disk_light_sum, given its point
-// `xl` and whether it is occluded.
-__device__ __forceinline__ V3 disk_term(const AnScene& s, V3 p, V3 n, V3 v,
-                                        V3 xl, bool occ, V3 albedo,
-                                        float spec, float gloss) {
-  const V3 delta = sub3(xl, p);
-  const V3 l = norm3(delta);
+// One disk sample's term of lighting._disk_light_sum, given the unit
+// direction `l` = normalize(xl - p) toward its point xl, d2 = |xl - p|^2,
+// and whether it is occluded.
+__device__ __forceinline__ V3 disk_term_l(const AnScene& s, V3 n, V3 v, V3 l,
+                                          float d2, bool occ, V3 albedo,
+                                          float spec, float gloss) {
   const float ndl = fmaxf(dot3(n, l), 0.0f);
   const float ctl = fmaxf(dot3(c3(s.light_nneg), l), 0.0f);
-  const float r2 = fmaxf(dot3(delta, delta), 1e-4f);
+  const float r2 = fmaxf(d2, 1e-4f);
   const float geom = ndl * ctl / r2;
   const float gv = geom * (occ ? 0.0f : 1.0f);
   const V3 li = {s.light_color[0] * gv, s.light_color[1] * gv,
                  s.light_color[2] * gv};
   return lambert_phong(n, v, l, li, albedo, spec, gloss);
+}
+
+// disk_term_l of the sample whose point is `xl`
+__device__ __forceinline__ V3 disk_term(const AnScene& s, V3 p, V3 n, V3 v,
+                                        V3 xl, bool occ, V3 albedo,
+                                        float spec, float gloss) {
+  const V3 delta = sub3(xl, p);
+  return disk_term_l(s, n, v, norm3(delta), dot3(delta, delta), occ, albedo,
+                     spec, gloss);
 }
 
 // -sun_dir: the direction toward the sun
@@ -441,82 +525,185 @@ struct Material {
   int type;
 };
 
-__device__ __forceinline__ Material material(const AnScene& s, int id) {
-  const int row = (id >= 0 && id < kMatRows - 1) ? id : kMatRows - 1;
+// the table's row of material id `id`: ids 0-3, else the last
+__device__ __forceinline__ int material_row(int id) {
+  return (id >= 0 && id < kMatRows - 1) ? id : kMatRows - 1;
+}
+
+// get_material's type of material id `id` (0 diffuse, 1 mirror, 2 glass)
+__device__ __forceinline__ int material_type(const AnScene& s, int id) {
+  const int row = material_row(id);
   int type = s.mat_type[0];
   // a select chain: no dynamic index into the by-value struct
 #pragma unroll
   for (int r = 1; r < kMatRows; ++r) {
     if (r == row) type = s.mat_type[r];
   }
-  const ParamBlock* b = s.prm;
-  return {c3(b->mat_albedo + 3 * row), b->mat_spec[row], b->mat_gloss[row],
-          type};
+  return type;
 }
 
-// K3: lighting.direct_light_plain per lane.  Lane i is pixel i % n_px of
-// sample i / n_px (the grid's; a call without a sample axis has one), and
-// draws its disk offsets from rng_frame at that sample.
-__global__ void __launch_bounds__(kThreads)
-an_direct_light_kernel(const AnScene s, const float* __restrict__ p_in,
-                       const float* __restrict__ n_in,
-                       const float* __restrict__ v_in,
-                       const int32_t* __restrict__ mat_in,
-                       const PixelGrid g, int64_t n_lanes,
-                       float* __restrict__ out,
-                       float* __restrict__ offs_out) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n_lanes) return;
-  if (offs_out != nullptr) {
-    const uint32_t f = frame_index(s.frame);
-    float px, py;
-    pixel_centre(g, i, &px, &py);
-    write_offsets(s, frame_value(f, s.smp, sample_of(g, i)), px, py,
-                  cp_rot(s, f, px, py), i, n_lanes, offs_out);
-  }
-  const V3 n = norm3(row3(n_in, i));
-  const V3 v = norm3(row3(v_in, i));
-  const Material m = material(s, __ldg(mat_in + i));
-  if (m.type == 1 || m.type == 2) {
-    // mirror: tinted env reflection; glass: plus the sky's diffuse term
-    V3 c = mul3(sky(s, reflect_view(v, n)), m.albedo);
-    if (m.type == 2 && s.sky_e) c = add3(c, sky_term(s, n, m.albedo));
-    store3(out, i, c);
-    return;
-  }
-  const V3 p = row3(p_in, i);
+__device__ __forceinline__ Material material(const AnScene& s, int id) {
+  const int row = material_row(id);
+  const ParamBlock* b = s.prm;
+  return {c3(b->mat_albedo + 3 * row), b->mat_spec[row], b->mat_gloss[row],
+          material_type(s, id)};
+}
+
+// ---- K3 ----
+
+// lane i's hit row
+__device__ __forceinline__ int64_t hit_row(const AnRows& r, int64_t i) {
+  return r.shared ? i - (int64_t)sample_of(r.grid, i) * r.grid.n_px : i;
+}
+
+// Lane i, a mirror or glass hit (lighting.direct_light_plain's mirror_out
+// and glass_out): the tinted environment of the reflected view; glass
+// adds the sky's diffuse term.
+__device__ __forceinline__ void shade_env(const AnScene& s, const AnRows& r,
+                                          int64_t i,
+                                          float* __restrict__ out) {
+  const int64_t row = hit_row(r, i);
+  const V3 n = norm3(row3(r.n, row));
+  const V3 v = norm3(row3(r.v, row));
+  const Material m = material(s, __ldg(r.mat + row));
+  V3 c = mul3(sky(s, reflect_view(v, n)), m.albedo);
+  if (m.type == 2 && s.sky_e) c = add3(c, sky_term(s, n, m.albedo));
+  store3(out, i, c);
+}
+
+// Lane i, a diffuse hit (direct_light_plain's diff): the four disk-light
+// samples, each a segment query traced against the analytic primitives
+// (occluded_toward) and its Lambert-Phong term, summed k = 0..3 and
+// divided by 4; then the sun (any hit blocks it), the sky and the point
+// light (the marker ignored), in that order.
+__device__ __forceinline__ void shade_diffuse(const AnScene& s,
+                                              const AnRows& r, int64_t i,
+                                              float* __restrict__ out) {
+  const int64_t row = hit_row(r, i);
+  const V3 n = norm3(row3(r.n, row));
+  const V3 v = norm3(row3(r.v, row));
+  const Material m = material(s, __ldg(r.mat + row));
+  const V3 p = row3(r.p, row);
   float px, py;
-  pixel_centre(g, i, &px, &py);
-  // the frame index, read by the lanes that draw samples only
+  pixel_centre(r.grid, i, &px, &py);
   const uint32_t f = frame_index(s.frame);
   const Rot rot = cp_rot(s, f, px, py);
-  const uint32_t kx = frame_value(f, s.smp, sample_of(g, i));
+  const uint32_t kx = frame_value(f, s.smp, sample_of(r.grid, i));
   V3 acc = {0.0f, 0.0f, 0.0f};
   for (int k = 0; k < kSamples; ++k) {
     float dx, dy;
     disk_offset(s, kx, px, py, rot, k, &dx, &dy);
-    const V3 xl = disk_point(s, dx, dy);
-    // lighting.occluded_toward: the segment query + the full trace
-    const Query q = segment_query(p, xl);
-    const float t = trace_t(s, q.o, q.d, s.point_e);
-    const bool occ = t < kInf && t < q.win;
-    acc = add3(acc, disk_term(s, p, n, v, xl, occ, m.albedo, m.spec,
-                              m.gloss));
+    // segment_query toward the disk point; its direction is also the
+    // term's normalize(xl - p), the same expression
+    const V3 delta = sub3(disk_point(s, dx, dy), p);
+    const float d2 = dot3(delta, delta);
+    const float max_t = sqrtf(fmaxf(d2, 0.0f));
+    const float ln = fmaxf(max_t, 1e-12f);
+    const V3 l = {delta.x / ln, delta.y / ln, delta.z / ln};
+    const float seps = fmaxf(1e-3f * max_t, 1e-4f);
+    const float t = trace_t(s, add3(p, scale3(l, seps)), l, s.point_e);
+    const bool occ = t < kInf && t < max_t - seps;
+    acc = add3(acc, disk_term_l(s, n, v, l, d2, occ, m.albedo, m.spec,
+                                m.gloss));
   }
   acc = {acc.x / (float)kSamples, acc.y / (float)kSamples,
          acc.z / (float)kSamples};
-  const float spec_d = m.type == 0 ? m.spec : 0.0f;
+  // a diffuse lane's type is 0: its sun and point terms take its spec
   const V3 vv = norm3(v);
   if (s.sun_e) {
-    // any hit blocks the sun: no window (lighting.sun_direct)
     const bool blocked =
         trace_t(s, add3(p, scale3(n, 1.0f)), sun_l(s), s.point_e) < kInf;
-    acc = add3(acc, sun_term(s, n, vv, blocked, m.albedo, spec_d, m.gloss));
+    acc = add3(acc, sun_term(s, n, vv, blocked, m.albedo, m.spec, m.gloss));
   }
   if (s.sky_e) acc = add3(acc, sky_term(s, n, m.albedo));
   if (s.point_e)
-    acc = add3(acc, point_term(s, p, n, vv, -1, m.albedo, spec_d, m.gloss));
+    acc = add3(acc, point_term(s, p, n, vv, -1, m.albedo, m.spec, m.gloss));
   store3(out, i, acc);
+}
+
+// Put lane i in the warp's queue `q` (`n` entries) if `in`: the ballot of
+// the lanes that join, each at its rank among them.
+__device__ __forceinline__ void enqueue(int64_t* q, int& n, bool in,
+                                        unsigned below, int64_t i) {
+  const unsigned b = __ballot_sync(kAll, in);
+  if (in) q[n + __popc(b & below)] = i;
+  n += __popc(b);
+}
+
+// K3: lighting.direct_light_plain on the live lanes, as persistent blocks
+// over units of 32 lanes.  Lane i is pixel i % n_px of sample i / n_px
+// (the grid's; a call without a sample axis has one), and draws its disk
+// offsets from rng_frame at that sample.
+//
+// A warp takes its units in turn: it reads a unit's mask bytes and takes
+// __ballot_sync of the live lanes (a unit with none ends there); each
+// live lane reads its material id and joins one of the warp's two queues
+// in shared memory, the diffuse lanes' or the env lanes' (mirror and
+// glass).  Once a queue holds kDrainAt lanes, the warp shades a round of
+// 32 of them, a lane each, all on one path (the diffuse queue first),
+// and takes units again; after its last unit it shades what is left, a
+// round at a time.  Each path has one call site, so the kernel is one
+// inlined body.  A lane that `active` marks off reads its mask byte and
+// nothing else, and writes nothing (its radiance is unspecified by
+// contract).  With `offs_out`, every live lane writes its disk offsets
+// there as it joins its queue.
+__global__ void __launch_bounds__(kThreads)
+an_direct_light_kernel(const Units u, const AnScene s, const AnRows r,
+                       int64_t n_lanes, float* __restrict__ out,
+                       float* __restrict__ offs_out) {
+  __shared__ int64_t queue[kWarps][2][kQueueCap];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  int64_t* diffuse = queue[warp][0];
+  int64_t* env = queue[warp][1];
+  int n_diffuse = 0, n_env = 0;  // the same on every lane of the warp
+  int64_t j = u.first();
+  for (;;) {
+    // units until a queue holds kDrainAt lanes or the warp's units end
+    for (; j < u.n_units && n_diffuse < kDrainAt && n_env < kDrainAt;
+         j += u.stride()) {
+      const int64_t i = u.base(j) + lane;
+      const int64_t row = i < n_lanes ? hit_row(r, i) : 0;
+      const bool live =
+          i < n_lanes && (r.active == nullptr || __ldg(r.active + row));
+      if (__ballot_sync(kAll, live) == 0) continue;
+      const int type = live ? material_type(s, __ldg(r.mat + row)) : -1;
+      if (offs_out != nullptr && live) {
+        const uint32_t f = frame_index(s.frame);
+        float px, py;
+        pixel_centre(r.grid, i, &px, &py);
+        write_offsets(s, frame_value(f, s.smp, sample_of(r.grid, i)), px,
+                      py, cp_rot(s, f, px, py), i, n_lanes, offs_out);
+      }
+      enqueue(diffuse, n_diffuse, type == 0, below, i);
+      enqueue(env, n_env, type == 1 || type == 2, below, i);
+    }
+    // a round of the full queue, the diffuse one first; after the last
+    // unit, of what is left
+    const bool units_done = j >= u.n_units;
+    bool env_round;
+    if (n_diffuse >= kDrainAt || (units_done && n_diffuse > 0))
+      env_round = false;
+    else if (n_env > 0)
+      env_round = true;
+    else
+      break;  // the units done and both queues empty
+    const int n = env_round ? n_env : n_diffuse;
+    const int k = min(n, 32);
+    __syncwarp();  // the entries are written
+    if (lane < k) {
+      const int64_t e = (env_round ? env : diffuse)[n - k + lane];
+      if (env_round)
+        shade_env(s, r, e, out);
+      else
+        shade_diffuse(s, r, e, out);
+    }
+    if (env_round)
+      n_env -= k;
+    else
+      n_diffuse -= k;
+    __syncwarp();  // the entries are read before the next enqueue
+  }
 }
 
 // ---- K5 with its shadow walks ----
@@ -715,10 +902,6 @@ bvh_direct_kernel(const Units u, const AnScene s, const Tree tree,
   }
 }
 
-inline unsigned blocks_for(int64_t n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
-}
-
 }  // namespace
 
 // Plain C entry points for ctypes.  `scene` and `grid` are host pointers
@@ -726,17 +909,14 @@ inline unsigned blocks_for(int64_t n) {
 // `scene->prm` are device pointers); the other pointers are
 // device pointers (`active` and `offs` may be null); the stream is a
 // cudaStream_t.  Each returns cudaGetLastError() as an int.
-extern "C" int ort_an_direct(const AnScene* scene, const void* p,
-                             const void* n, const void* v, const void* mat,
-                             const PixelGrid* grid, int64_t n_lanes,
-                             void* out, void* offs, void* stream) {
-  if (n_lanes > 0) {
-    an_direct_light_kernel<<<blocks_for(n_lanes), kThreads, 0,
-                             (cudaStream_t)stream>>>(
-        *scene, (const float*)p, (const float*)n, (const float*)v,
-        (const int32_t*)mat, *grid, n_lanes, (float*)out, (float*)offs);
-  }
-  return (int)cudaGetLastError();
+// Persistent blocks over units of 32 lanes (persistent.cuh).
+extern "C" int ort_an_direct(const AnScene* scene, const AnRows* rows,
+                             int64_t n_lanes, void* out, void* offs,
+                             void* stream) {
+  return launch_persistent(an_direct_light_kernel, kThreads,
+                           make_units(n_lanes, 32), (cudaStream_t)stream,
+                           *scene, *rows, n_lanes, (float*)out,
+                           (float*)offs);
 }
 
 // `n_units` rows of `dup` samples each (bvh_direct_kernel): the hit rows
@@ -760,3 +940,4 @@ extern "C" int ort_bvh_direct(const AnScene* scene, const void* bounds,
 // The structs' sizes, so the host can check its mirrors of the layouts.
 extern "C" int ort_an_scene_size() { return (int)sizeof(AnScene); }
 extern "C" int ort_pixel_grid_size() { return (int)sizeof(PixelGrid); }
+extern "C" int ort_an_rows_size() { return (int)sizeof(AnRows); }

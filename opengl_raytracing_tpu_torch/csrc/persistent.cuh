@@ -1,6 +1,6 @@
 // Persistent blocks over units of lanes, shared by the walk kernels of
-// bvh_trace.cu (K1, the AO call) and the BVH direct light of
-// an_direct.cu.
+// bvh_trace.cu (K1, the AO call) and both direct lights of an_direct.cu
+// (K5's BVH direct light, K3's analytic one).
 //
 // A kernel launched by launch_persistent has as many blocks as fit the
 // card at once (the SM count times the blocks an SM holds, by
@@ -9,7 +9,10 @@
 // w * gridDim.x + b, then every (warps in the grid)-th unit after, so
 // neighbouring units land on different SMs.  A unit's warp reads the
 // unit's mask bytes, takes __ballot_sync of its live lanes and works on
-// those alone; a dead lane reads its mask byte and nothing else.
+// those alone; a dead lane reads its mask byte and nothing else.  A
+// kernel whose rows are shared by the samples (K3 on a sample batch's
+// hit, whose mask is one a pixel) reads a lane's mask byte at its row,
+// not at the lane, and so does not call is_live.
 
 #pragma once
 

@@ -42,7 +42,8 @@ import torch
 from ..constants import MAT_POINTLIGHT_SPHERE
 from ..params import RenderParams, bind
 from ..sampling import Frame, FrameValue, ndc_from_world, sample_seeds
-from ..ops.materials import MTYPE_GLASS, MTYPE_MIRROR, get_material
+from ..ops.materials import (MTYPE_DIFFUSE, MTYPE_GLASS, MTYPE_MIRROR,
+                             get_material)
 from ..ops.scene import BVHDevice, SceneCtx
 from ..ops.scene_analytic import Hit
 from ..ops import lighting as lt
@@ -220,22 +221,41 @@ def _shade_bvh(scene: SceneCtx, h: Hit, seed: Frame, frame_index: Frame,
     return radiance
 
 
+def _diffuse_lanes(mat_id, params):
+    """The lanes whose direct light `_shade_analytic` keeps: neither the
+    point-light marker nor a mirror or glass hit (get_material's resolved
+    type diffuse); once a pixel where `mat_id` allows (`lt.per_pixel`)."""
+    return lt.per_pixel(
+        lambda m: ((m != MAT_POINTLIGHT_SPHERE)
+                   & (get_material(m, params).mtype == MTYPE_DIFFUSE)),
+        mat_id)
+
+
 def _shade_analytic(scene: SceneCtx, h: Hit, seed: Frame, frame_index: Frame,
-                    vdir, px, py, ao=None):
+                    vdir, px, py, active=None, ao=None):
     """Analytic-scene material dispatch (reference: rt.frag:119-162):
     direct light (plus the GI bounce, times AO, when they are on), the
     emissive point-light marker, and the mirror and glass secondaries,
-    computed for every lane and selected in like the fragment shader's
-    divergent branches.  Direct light and GI are two calls, the JAX
-    package's default (its 2-batch `direct_and_gi_analytic` is opt-in).
+    selected in like the fragment shader's divergent branches.  Direct
+    light and GI are two calls, the JAX package's default (its 2-batch
+    `direct_and_gi_analytic` is opt-in).  `active` (bool, None: all)
+    marks the lanes whose radiance the caller keeps (the sky select drops
+    the misses): each direct-light call (K3 on the card) is computed on
+    the lanes that its select and the caller's keep alone -- the direct
+    light and GI on the diffuse lanes, each mirror and glass secondary on
+    its valid hits of the mirror and glass lanes -- the frame's own form
+    of the JAX package's tile gates.  Every other lane is dropped by a
+    select before any sum, so the image is the dense form's bit for bit.
     `ao` as in `_shade_bvh`; a leading sample axis broadcasts through
     every trace and call."""
     params = scene.params
     mat = get_material(h.mat, params)
-    radiance = lt.direct_light(scene, h, seed, frame_index, vdir, px, py)
+    lanes = lt.and_lanes(active, _diffuse_lanes(h.mat, params))
+    radiance = lt.direct_light(scene, h, seed, frame_index, vdir, px, py,
+                               lanes)
     if params.enable_gi:
         radiance = radiance + lt.one_bounce_gi_analytic(
-            scene, h, frame_index, seed, frame_index, px, py) \
+            scene, h, frame_index, seed, frame_index, px, py, lanes) \
             * params["gi_scale_analytic"]
     if params.enable_ao:
         if ao is None:
@@ -251,13 +271,15 @@ def _shade_analytic(scene: SceneCtx, h: Hit, seed: Frame, frame_index: Frame,
     radiance = torch.where(is_marker[..., None], emissive, radiance)
 
     if params.mat_mirror_enabled:
-        mirror_r = lt.shade_mirror(scene, h, vdir, mat, seed, frame_index,
-                                   px, py)
+        mirror_r = lt.shade_mirror(
+            scene, h, vdir, mat, seed, frame_index, px, py,
+            lt.and_lanes(active, mat.mtype == MTYPE_MIRROR))
         radiance = torch.where((mat.mtype == MTYPE_MIRROR)[..., None],
                                mirror_r, radiance)
     if params.mat_glass_enabled:
-        glass_r = lt.shade_glass(scene, h, vdir, mat, seed, frame_index,
-                                 px, py)
+        glass_r = lt.shade_glass(
+            scene, h, vdir, mat, seed, frame_index, px, py,
+            lt.and_lanes(active, mat.mtype == MTYPE_GLASS))
         radiance = torch.where((mat.mtype == MTYPE_GLASS)[..., None],
                                glass_r, radiance)
     return radiance
@@ -395,7 +417,7 @@ def trace_and_shade(scene: SceneCtx, params: RenderParams, fin: FrameInputs,
                             py_b, active=mask_b, ao=ao, spp=spp)
     else:
         shaded = _shade_analytic(scene, h_b, seeds, frame_index, vdir_b,
-                                 px_b, py_b, ao=ao)
+                                 px_b, py_b, active=mask_b, ao=ao)
     sample = torch.where(hit_mask[..., None], shaded, sky_radiance)
     if spp == 1:
         return sample, motion, gpos, gnrm

@@ -94,16 +94,27 @@ class _AnScene(ctypes.Structure):
     ]
 
 
+class _AnRows(ctypes.Structure):
+    """Host mirror of `AnRows` in csrc/an_direct.cu: a K3 call's hit rows,
+    its mask bytes and pixel grid, and whether the rows are one a pixel
+    for every sample."""
+    _fields_ = [("p", ctypes.c_void_p), ("n", ctypes.c_void_p),
+                ("v", ctypes.c_void_p), ("mat", ctypes.c_void_p),
+                ("active", ctypes.c_void_p), ("grid", cuda_lib.PixelGrid),
+                ("shared", ctypes.c_int)]
+
+
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _GRID = ctypes.POINTER(cuda_lib.PixelGrid)
 _SIGNATURES = {
-    "ort_an_direct": ([ctypes.POINTER(_AnScene)] + [_P] * 4
-                      + [_GRID, _I64, _P, _P, _P], ctypes.c_int),
+    "ort_an_direct": ([ctypes.POINTER(_AnScene), ctypes.POINTER(_AnRows),
+                       _I64, _P, _P, _P], ctypes.c_int),
     "ort_bvh_direct": ([ctypes.POINTER(_AnScene), _P, _P, _P, _I32]
                        + [_P] * 3 + [_GRID, _P, _I64, _I32, _P, _P, _P],
                        ctypes.c_int),
     "ort_an_scene_size": ([], ctypes.c_int),
     "ort_pixel_grid_size": ([], ctypes.c_int),
+    "ort_an_rows_size": ([], ctypes.c_int),
 }
 
 
@@ -111,9 +122,10 @@ def _library():
     lib = cuda_lib.library("an_direct", _SIGNATURES)
     if (lib.ort_an_scene_size() != ctypes.sizeof(_AnScene)
             or lib.ort_pixel_grid_size()
-            != ctypes.sizeof(cuda_lib.PixelGrid)):
-        raise RuntimeError("AnScene or PixelGrid layout differs between "
-                           "csrc/an_direct.cu and ops/an_cuda.py")
+            != ctypes.sizeof(cuda_lib.PixelGrid)
+            or lib.ort_an_rows_size() != ctypes.sizeof(_AnRows)):
+        raise RuntimeError("AnScene, PixelGrid or AnRows layout differs "
+                           "between csrc/an_direct.cu and ops/an_cuda.py")
     return lib
 
 
@@ -200,7 +212,7 @@ def _scene_constants(sun_e, sky_e, point_e, glass_e, mirror_e) -> bytes:
 
 
 def _pixel_rows(h, vdir, device):
-    """The rows both kernels read: p, n, v [N,3]."""
+    """The rows K5 reads a lane each: p, n, v [N,3]."""
     shape = h.t.shape
     rows = dict(p=cuda_lib.rows(h.p, shape), n=cuda_lib.rows(h.n, shape),
                 v=cuda_lib.rows(vdir, shape))
@@ -217,38 +229,73 @@ def _offsets_ptr(offsets_out, n_lanes, device):
     return offsets_out.data_ptr()
 
 
+def direct_rows(scene, h, rng_frame: Frame, frame_index: Frame, vdir, px,
+                py, active, device):
+    """(K3's `AnScene` and `AnRows` for one call, the tensors they point
+    into, which must outlive the launch): the arguments of
+    `direct_light` on `device`.  Where the samples of a sampled
+    `rng_frame` share the hit and `active` (each broadcast over the
+    leading sample axis: the frame's primary call), the rows and the mask
+    are the pixels' own, read in place, one a pixel for every sample;
+    else a row a lane, copied where not contiguous already."""
+    shape = h.t.shape
+    samples = samples_of(rng_frame)
+    args, record = scene_args(scene, rng_frame, frame_index,
+                              _env_table(scene, device), device)
+    grid, grids = cuda_lib.pixel_grid(px, py, shape, device, samples)
+    vecs = dict(p=h.p.expand(shape + (3,)), n=h.n.expand(shape + (3,)),
+                v=vdir.expand(shape + (3,)))
+    lanes = [h.mat.expand(shape)] + ([] if active is None
+                                     else [active.expand(shape)])
+    shared = samples > 1 and all(x.stride(0) == 0
+                                 for x in [*vecs.values(), *lanes])
+    if shared:
+        vecs = {name: x[0] for name, x in vecs.items()}
+        lanes = [x[0] for x in lanes]
+    rows_shape = lanes[0].shape
+    rows = {name: cuda_lib.rows(x, rows_shape) for name, x in vecs.items()}
+    for name, x in rows.items():
+        check(name, x, torch.float32, (rows_shape.numel(), 3), device)
+    mat = cuda_lib.flat(lanes[0], rows_shape)
+    check("mat", mat, torch.int32, (rows_shape.numel(),), device)
+    act_ptr, act = cuda_lib.mask_bytes(
+        None if active is None else lanes[1], rows_shape, device)
+    r = _AnRows(rows["p"].data_ptr(), rows["n"].data_ptr(),
+                rows["v"].data_ptr(), mat.data_ptr(), act_ptr, grid,
+                int(shared))
+    return args, r, [record, grids, rows, mat, act]
+
+
 def direct_light(scene, h, rng_frame: Frame, frame_index: Frame, vdir, px,
-                 py, offsets_out=None):
+                 py, active=None, offsets_out=None):
     """Direct light of the analytic scene at hits `h` [...] (the contract
     of lighting.direct_light_plain): rgb [..., 3].  With a cubemap in the
-    scene the kernel samples it on its mirror and glass lanes.
+    scene the kernel samples it on its mirror and glass lanes.  Lanes
+    where `active` (bool, h.t's shape) is False do no work; their values
+    are unspecified (the kernel leaves them unwritten).
 
     A sampled `rng_frame` (`FrameValue.sampled`: a leading sample axis of
     the call, over which px and py are broadcast) is one launch: lane i
-    draws its disk offsets at sample i // (pixels a sample).  The hit rows
-    are read a lane each.  On the card, `offsets_out` (float32 [8, N],
-    optional) receives the kernel's disk offsets as planes dx0, dy0, dx1,
-    ..."""
+    draws its disk offsets at sample i // (pixels a sample).  Where the
+    hit and `active` are broadcast over that axis the kernel reads their
+    rows once a pixel, in place (`direct_rows`).  One launch either way:
+    persistent blocks whose warps queue their live lanes by path and shade
+    them 32 at a time (csrc/an_direct.cu).  On the card, `offsets_out`
+    (float32 [8, N], optional) receives the kernel's disk offsets of the
+    live lanes as planes dx0, dy0, dx1, ..."""
     if h.t.device.type == "cpu":
         return lt.direct_light_plain(scene, h, rng_frame, frame_index, vdir,
                                      px, py)
     device = cuda_lib.cuda_device(h.t, "direct-light kernels")
     shape = h.t.shape
     n_lanes = h.t.numel()
-    rows = _pixel_rows(h, vdir, device)
-    args, _keep_record = scene_args(scene, rng_frame, frame_index,
-                                    _env_table(scene, device), device)
-    grid, _keep = cuda_lib.pixel_grid(px, py, shape, device,
-                                      samples_of(rng_frame))
-    mat = cuda_lib.flat(h.mat, shape)
-    check("mat", mat, torch.int32, (n_lanes,), device)
+    args, rows, _keep = direct_rows(scene, h, rng_frame, frame_index, vdir,
+                                    px, py, active, device)
     offs = _offsets_ptr(offsets_out, n_lanes, device)
     out = torch.empty((n_lanes, 3), dtype=torch.float32, device=device)
     cuda_lib.launch(_library().ort_an_direct, "an_direct", device,
-                    ctypes.byref(args),
-                    rows["p"].data_ptr(), rows["n"].data_ptr(),
-                    rows["v"].data_ptr(), mat.data_ptr(), ctypes.byref(grid),
-                    n_lanes, out.data_ptr(), offs)
+                    ctypes.byref(args), ctypes.byref(rows), n_lanes,
+                    out.data_ptr(), offs)
     return out.reshape(shape + (3,))
 
 

@@ -35,6 +35,9 @@ sample offsets' float32 of it.
 
 from __future__ import annotations
 
+import functools
+import operator
+
 import numpy as np
 import torch
 
@@ -261,12 +264,40 @@ def direct_light_plain(scene: SceneCtx, h, rng_frame: Frame,
 
 
 def direct_light(scene: SceneCtx, h, rng_frame: Frame, frame_index: Frame,
-                 vdir, px, py):
+                 vdir, px, py, active=None):
     """Direct lighting, analytic scene: the CUDA kernel for CUDA tensors,
-    `direct_light_plain` for CPU tensors (ops/an_cuda.py)."""
+    `direct_light_plain` for CPU tensors (ops/an_cuda.py).
+
+    `active` (bool, shape of h.t) marks lanes whose radiance the caller
+    keeps; values on the other lanes are unspecified (the kernel does no
+    work there, the plain version computes every lane)."""
     from . import an_cuda
     return an_cuda.direct_light(scene, h, rng_frame, frame_index, vdir,
-                                px, py)
+                                px, py, active)
+
+
+def per_pixel(fn, *xs):
+    """fn(*xs), `xs` broadcast to one shape.  Where every x is broadcast
+    over a leading axis (the sample batch's shared hit), fn runs once a
+    pixel, on the first sample's, and its result is broadcast over that
+    axis in turn (a mask K3 then reads once a pixel)."""
+    shape = torch.broadcast_shapes(*(x.shape for x in xs))
+    xs = [x.expand(shape) for x in xs]
+    if (len(shape) > 1 and shape[0] > 1
+            and all(x.stride(0) == 0 for x in xs)):
+        return fn(*(x[0] for x in xs)).expand(shape)
+    return fn(*xs)
+
+
+def and_lanes(*masks):
+    """The lanes that every mask of `masks` (bool, None for every lane)
+    keeps: None if all are None; once a pixel where they allow
+    (`per_pixel`)."""
+    masks = [m for m in masks if m is not None]
+    if not masks:
+        return None
+    return per_pixel(lambda *ms: functools.reduce(operator.and_, ms),
+                     *masks)
 
 
 def direct_light_bvh(scene: SceneCtx, h, rng_frame: Frame, frame_index: Frame,
@@ -399,12 +430,15 @@ def shade_bvh_brdf_plain(scene: SceneCtx, h, n, v, offs, occ):
 
 
 def shade_glass(scene: SceneCtx, h, wo, mat, seed: Frame, frame_index: Frame,
-                px, py):
+                px, py, active=None):
     """Thin-glass shading: Fresnel mix of (env + local reflection) and
     (straight-through + softened bent refraction)
     (reference: rt_lighting.glsl:576-663).  The three secondary rays
     trace and light one after the other (the JAX package's default
-    sequential form)."""
+    sequential form).  `active` (bool, None: all) marks the lanes whose
+    result the caller keeps; each secondary's direct light is computed
+    on those of its hits alone (the others are dropped by its valid
+    select)."""
     n = normalize(h.n)
     v = normalize(wo)
     i = -v
@@ -422,8 +456,8 @@ def shade_glass(scene: SceneCtx, h, wo, mat, seed: Frame, frame_index: Frame,
         # garbage lit there is dropped by the callers' valid select
         h2 = scene.trace_ignore_glass(h.p + d * EPS, d)
         v2 = normalize(scene.cam_pos - h2.p)
-        return direct_light(scene, h2, seed, frame_index, v2, px, py), \
-            h2.valid
+        return direct_light(scene, h2, seed, frame_index, v2, px, py,
+                            and_lanes(h2.valid, active)), h2.valid
 
     refl_lit, refl_valid = secondary(r)
     straight_lit, str_valid = secondary(i)
@@ -452,11 +486,13 @@ def shade_glass(scene: SceneCtx, h, wo, mat, seed: Frame, frame_index: Frame,
 
 
 def one_bounce_gi_analytic(scene: SceneCtx, h0, rng_frame: Frame, seed: Frame,
-                           frame_index: Frame, px, py):
+                           frame_index: Frame, px, py, active=None):
     """One cosine-weighted bounce + direct light at the secondary hit
     (reference: rt_lighting.glsl:473-507).  The bounce hits go to
     `direct_light` unsanitized (misses have p = o + wi * 1e30); the
-    valid select drops whatever is lit there."""
+    valid select drops whatever is lit there, so the direct light is
+    computed on the valid hits of the lanes the caller keeps (`active`,
+    bool, None: all) alone."""
     mat0 = get_material(h0.mat, scene.params)
     n0 = normalize(h0.n)
     so, so2 = frame_f32(seed * 13), frame_f32(seed * 37)
@@ -465,7 +501,8 @@ def one_bounce_gi_analytic(scene: SceneCtx, h0, rng_frame: Frame, seed: Frame,
     wi = sample_hemisphere_cosine(n0, ux, uy)
     cos_theta = torch.clamp_min(dot(n0, wi), 0.0)
     h1 = scene.trace(h0.p + n0 * EPS, wi)
-    li_hit = direct_light(scene, h1, rng_frame, frame_index, -wi, px, py)
+    li_hit = direct_light(scene, h1, rng_frame, frame_index, -wi, px, py,
+                          and_lanes(h1.valid, active))
     li = torch.where(h1.valid[..., None], li_hit, scene.sky(wi))
     out = mat0.albedo * (cos_theta / PI)[..., None] * li
     return torch.where((cos_theta > 0.0)[..., None], out, 0.0)
@@ -521,20 +558,24 @@ def one_bounce_gi_bvh(scene: SceneCtx, h0, rng_frame: Frame, seed: Frame,
 
 
 def shade_mirror(scene: SceneCtx, h, wo, mat, seed: Frame, frame_index: Frame,
-                 px, py):
+                 px, py, active=None):
     """Perfect mirror: one reflected trace + direct light (+ GI when it is
-    on) at the reflected hit (reference: rt_lighting.glsl:675-708)."""
+    on) at the reflected hit (reference: rt_lighting.glsl:675-708).
+    `active` (bool, None: all) marks the lanes whose result the caller
+    keeps: the direct light and GI at the reflected hit are computed on
+    its valid hits among them alone."""
     n = normalize(h.n)
     i = -normalize(wo)
     r = reflect(i, n)
     h2 = scene.trace(h.p + r * EPS, r)
-    col_hit = direct_light(scene, h2, seed, frame_index, -r, px, py)
+    lanes = and_lanes(h2.valid, active)
+    col_hit = direct_light(scene, h2, seed, frame_index, -r, px, py, lanes)
     if scene.params.enable_gi:
         # the GLSL call passes the mirror's seed as the bounce's rng frame
         # and a derived seed for its sample offsets
         col_hit = col_hit + one_bounce_gi_analytic(
-            scene, h2, seed, seed * 131 + 17, frame_index, px, py) \
-            * scene.params["gi_scale_analytic"]
+            scene, h2, seed, seed * 131 + 17, frame_index, px, py,
+            lanes) * scene.params["gi_scale_analytic"]
     col = torch.where(h2.valid[..., None], col_hit, scene.sky(r))
     return col * mat.albedo
 

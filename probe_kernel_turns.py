@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Kernel alone-times of two checkouts on one card, in turns.
 
-    python3 probe_kernel_turns.py OTHER_DIR [ROUNDS] [--frames | --k5]
+    python3 probe_kernel_turns.py OTHER_DIR [ROUNDS] [--frames | --k5 | --k3]
 
 OTHER_DIR is another checkout of the repository, say the parent commit
 unpacked with `git archive`.  Each run is a child process in one
@@ -15,27 +15,39 @@ kernel's median on each side and their ratio (this / other), and the
 card's name and power limit.
 
 With `--frames` a run times the replayed frame instead: for chip_smoke.py's
-FRAME_CASES of phase graph (baseline, an_baseline, full), after a chain
-that captures, three 32-frame chains through `make_render_fn` with its
-captured graph (host clock to a synchronize), their least ms/frame a case.
+FRAME_CASES of phase graph (baseline, an_baseline, full, an_full with the
+day-sky cubemap), after a chain that captures, three 32-frame chains
+through `make_render_fn` with its captured graph (host clock to a
+synchronize), their least ms/frame a case.
 
 With `--k5` a run times the BVH direct light (`bvh_direct_kernel`) alone
-on the calls of K5_CASES' 1080p frames (baseline's one call, `full`'s and `heavy`'s primary and GI calls on a
-chain's third frame, the 81,920-triangle mesh under the cf_close and
-cf_far cameras) and saves
-each call's radiance on its live lanes under the checkout's ignored
-build directory (K5_OUTPUTS, removed from both checkouts before the first
-run); after the runs the two checkouts' outputs are compared bit for bit,
-one JSON line.
+on the calls of K5_CASES' 1080p frames (baseline's one call, `full`'s
+and `heavy`'s primary and GI calls on a chain's third frame, the
+81,920-triangle mesh under the cf_close and cf_far cameras) and saves
+each call's radiance on its live lanes to the file that `--out` names:
+one a side in a temporary directory of this script's own, removed at
+the end, so that no output lands in either checkout; after the runs the
+two sides' last outputs are compared bit for bit, one JSON line.
+
+With `--k3` a run times the analytic direct light (`an_direct_light_kernel`)
+alone on every call of K3_CASES' frames (an_full's seven at 1080p with
+the day-sky cubemap, an_baseline's five at 800x600), each as the frame
+calls it (a checkout whose frame hands K3 a mask of live lanes times the
+masked call), and saves each call's radiance and mask the same way;
+after the runs each call's radiance is compared bit for bit on this
+checkout's live lanes, and its live lanes and bound
+(chip_smoke.an_call_bound) are printed beside the medians, one JSON line.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -57,7 +69,7 @@ def child() -> None:
           flush=True)
 
 
-FRAME_CASES = ("baseline", "an_baseline", "full")
+FRAME_CASES = ("baseline", "an_baseline", "full", "an_full")
 # (label, preset, camera, frames of the chain, 81,920-triangle mesh) of
 # each K5 frame, as chip_smoke.py's phases record them
 K5_CASES = (("baseline", "baseline", "still", 1, False),
@@ -65,14 +77,12 @@ K5_CASES = (("baseline", "baseline", "still", 1, False),
             ("heavy", "heavy", "still", 3, False),
             ("cf_close", "baseline", "cf_close", 1, True),
             ("cf_far", "baseline", "cf_far", 1, True))
-K5_OUTPUTS = os.path.join("opengl_raytracing_tpu_torch", "_build",
-                          "k5_outputs.pt")
 
 
-def child_k5() -> None:
+def child_k5(saved: str) -> None:
     """In a checkout's directory: the BVH direct light's alone-time on
     each call of K5_CASES' frames, one JSON line; each call's radiance on
-    its live lanes saved to K5_OUTPUTS."""
+    its live lanes saved to `saved`."""
     sys.path.insert(0, os.getcwd())
     import torch
     import chip_smoke as cs
@@ -98,16 +108,98 @@ def child_k5() -> None:
             ms[key] = cs.kernel_ms(lambda: an_cuda.direct_light_bvh(**args),
                                    name)
         del calls
-    torch.save(outputs, K5_OUTPUTS)
+    torch.save(outputs, saved)
     print(json.dumps(ms), flush=True)
 
 
-def compare_k5(other: str) -> dict:
-    """The two checkouts' saved K5 outputs: for each call, whether they are
-    equal bit for bit, and on how many values they differ."""
+# (label, preset, cubemap, height, width) of each K3 frame, as chip_smoke.py's
+# kernels phase records them
+K3_CASES = (("an_full", "full", True, 1080, 1920),
+            ("an_baseline", "baseline", False, 600, 800))
+
+
+def k3_labels(params):
+    """The names of an analytic frame's K3 calls in its order (the
+    primary hits, their GI bounce, the mirror's hit and its GI bounce, the
+    glass's three secondaries; as chip_smoke.an_call_labels, written out
+    here so that a checkout without it names them alike)."""
+    gi = bool(params.enable_gi)
+    return (["primary"] + ["gi"] * gi
+            + (["mirror"] + ["mirror_gi"] * gi) * bool(
+                params.mat_mirror_enabled)
+            + ["glass_reflect", "glass_straight", "glass_bent"] * bool(
+                params.mat_glass_enabled))
+
+
+def child_k3(saved: str) -> None:
+    """In a checkout's directory: K3's alone-time on each call of
+    K3_CASES' frames, one JSON line; each call's radiance, its mask (where
+    the checkout's frame hands one) and, where chip_smoke has it, its
+    live lanes and bound saved to `saved`."""
+    sys.path.insert(0, os.getcwd())
     import torch
-    a = torch.load(os.path.join(other, K5_OUTPUTS))
-    b = torch.load(os.path.join(ROOT, K5_OUTPUTS))
+    import chip_smoke as cs
+    from opengl_raytracing_tpu_torch.ops import an_cuda, cuda_lib
+    cuda_lib.build_all()
+    env = cs.sky_day("cuda")
+    name = cs.KERNELS["an_direct"]["kernel"]
+    ms, outputs, info = {}, {}, {}
+    for label, preset_name, with_env, height, width in K3_CASES:
+        calls = cs.record_kernel_inputs(None, height, width, "cuda",
+                                        ("an_direct",), preset_name,
+                                        env=env if with_env else None)
+        labels = k3_labels(calls["an_direct"][0]["scene"].params)
+        if len(labels) != len(calls["an_direct"]):
+            raise AssertionError(f"{label}: {len(calls['an_direct'])} K3 "
+                                 f"calls, expected {labels}")
+        for call, args in zip(labels, calls["an_direct"]):
+            key = f"{label}_{call}"
+            outputs[key] = an_cuda.direct_light(**args).reshape(-1, 3).cpu()
+            if args.get("active") is not None:
+                outputs[key + "/live"] = args["active"].expand(
+                    args["h"].t.shape).reshape(-1).cpu()
+            if hasattr(cs, "an_call_bound"):
+                info[key] = cs.an_call_bound(args)
+            ms[key] = cs.kernel_ms(lambda: an_cuda.direct_light(**args),
+                                   name)
+        del calls
+    outputs["info"] = info
+    torch.save(outputs, saved)
+    print(json.dumps(ms), flush=True)
+
+
+def compare_k3(other: str, this: str) -> dict:
+    """The two sides' saved K3 outputs (files `other`, `this`): for each
+    call, whether they are equal bit for bit on this checkout's live
+    lanes, on how many values they differ there, and this checkout's live
+    lanes and bound."""
+    import torch
+    a = torch.load(other)
+    b = torch.load(this)
+    info = b.pop("info")
+    a.pop("info")
+    out = {}
+    for key in (k for k in b if not k.endswith("/live")):
+        live = b.get(key + "/live")
+        got, want = b[key], a[key]
+        if live is not None:
+            got, want = got[live], want[live]
+        same = got.shape == want.shape
+        out[key] = dict(bitwise=bool(same and torch.equal(
+            got.view(torch.int32), want.view(torch.int32))),
+            values=got.numel(),
+            differ=int((got != want).sum()) if same else None,
+            **info.get(key, {}))
+    return out
+
+
+def compare_k5(other: str, this: str) -> dict:
+    """The two sides' saved K5 outputs (files `other`, `this`): for each
+    call, whether they are equal bit for bit, and on how many values they
+    differ."""
+    import torch
+    a = torch.load(other)
+    b = torch.load(this)
     if sorted(a) != sorted(b):
         raise AssertionError(f"the checkouts saved other calls: {sorted(a)} "
                              f"against {sorted(b)}")
@@ -133,21 +225,24 @@ def child_frames() -> None:
     from opengl_raytracing_tpu_torch.ops import cuda_lib
     cuda_lib.build_all()
     _, bvh = cs.scene("cuda")
+    sky = cs.sky_day("cuda")
     out = {}
     for name in FRAME_CASES:
         scene_key, preset_name, (h, w), how = cs.GRAPH_CASES[name]
         scene = bvh if scene_key else None
+        env = sky if how.get("env") else None
         fins = list(cs.frame_inputs(h, w, cs.FRAMES, "cuda", preset_name,
                                     how.get("camera", "still")))
         fn = make_render_fn(h, w, "cuda", use_bvh=scene is not None)
-        params = preset(preset_name)
+        params = preset(preset_name).replace(
+            enable_env_map=int(env is not None))
         runs = []
         for _ in range(4):  # the first captures
             state = RenderState.create(h, w, "cuda")
             torch.cuda.synchronize()
             t0 = time.time()
             for fin in fins:
-                state, _ = fn(params, fin, state, None, scene)
+                state, _ = fn(params, fin, state, env, scene)
             torch.cuda.synchronize()
             runs.append((time.time() - t0) / len(fins) * 1e3)
         out[name] = min(runs[1:])
@@ -155,27 +250,43 @@ def child_frames() -> None:
 
 
 def main() -> int:
+    modes = ("--frames", "--k5", "--k3")
     if sys.argv[1:2] == ["--child"]:
-        (child_frames if "--frames" in sys.argv
-         else child_k5 if "--k5" in sys.argv else child)()
+        if "--k5" in sys.argv or "--k3" in sys.argv:
+            saved = sys.argv[sys.argv.index("--out") + 1]
+            (child_k5 if "--k5" in sys.argv else child_k3)(saved)
+        else:
+            (child_frames if "--frames" in sys.argv else child)()
         return 0
-    frames = "--frames" in sys.argv
-    mode = [a for a in sys.argv[1:] if a in ("--frames", "--k5")]
-    argv = [a for a in sys.argv[1:] if a not in ("--frames", "--k5")]
+    mode = [a for a in sys.argv[1:] if a in modes]
+    argv = [a for a in sys.argv[1:] if a not in modes]
     other = os.path.abspath(argv[0])
     rounds = int(argv[1]) if len(argv) > 1 else 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    if "--k5" in mode:  # no earlier run's outputs are compared
-        for tree in (other, ROOT):
-            if os.path.exists(os.path.join(tree, K5_OUTPUTS)):
-                os.remove(os.path.join(tree, K5_OUTPUTS))
+    # the --k5 / --k3 children's outputs, a file a side, outside both
+    # checkouts and made anew each run
+    outputs = tempfile.mkdtemp(prefix="probe_kernel_turns_")
+    try:
+        return turns(other, rounds, mode, smi, outputs)
+    finally:
+        shutil.rmtree(outputs, ignore_errors=True)
+
+
+def turns(other: str, rounds: int, mode: list, smi: str,
+          outputs: str) -> int:
+    """The runs in turns, their medians and, with --k5 or --k3, the
+    comparison of the two sides' outputs (files under `outputs`)."""
+    frames = "--frames" in mode
+    saved = {side: os.path.join(outputs, side + ".pt")
+             for side in ("other", "this")}
     times = {"other": [], "this": []}
     for side in ["other", "this", "this", "other"] * rounds:
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--child"] + mode,
+            [sys.executable, os.path.abspath(__file__), "--child"] + mode
+            + ["--out", saved[side]],
             cwd=other if side == "other" else ROOT, stdout=subprocess.PIPE,
             text=True, timeout=600)
         if proc.returncode != 0:
@@ -195,11 +306,13 @@ def main() -> int:
                               this_runs=got["this"],
                               other_runs=got["other"])
     print(json.dumps({"card": smi, "medians": medians}), flush=True)
-    if "--k5" in mode:
-        bits = compare_k5(other)
-        print(json.dumps({"card": smi, "k5_bitwise": bits}), flush=True)
-        if not all(r["bitwise"] for r in bits.values()):
-            return 1
+    for flag, compare in (("--k5", compare_k5), ("--k3", compare_k3)):
+        if flag in mode:
+            bits = compare(saved["other"], saved["this"])
+            print(json.dumps({"card": smi, f"{flag[2:]}_bitwise": bits}),
+                  flush=True)
+            if not all(r["bitwise"] for r in bits.values()):
+                return 1
     return 0
 
 

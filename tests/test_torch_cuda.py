@@ -882,6 +882,164 @@ def test_an_direct_kernel_on_a_sample_batch(spp):
         assert torch.equal(got[s], one), s
 
 
+def _an_direct_into(scene, h, rng, frame, vdir, px, py, active):
+    """an_direct_light_kernel's launch as an_cuda.direct_light makes it,
+    through the C entry, into a buffer of SENTINEL: returns it [N, 3], so
+    a test sees which lanes the kernel wrote."""
+    device = h.t.device
+    args, rows, _keep = an_cuda.direct_rows(scene, h, rng, frame, vdir, px,
+                                            py, active, device)
+    out = torch.full((h.t.numel(), 3), SENTINEL, device=device)
+    cuda_lib.launch(an_cuda._library().ort_an_direct, "an_direct", device,
+                    ctypes.byref(args), ctypes.byref(rows), h.t.numel(),
+                    out.data_ptr(), None)
+    torch.cuda.synchronize()
+    return out
+
+
+def _an_frame_mask(scene, h_raw, h):
+    """The primary call's mask as the frame makes it: the hits, minus the
+    marker, minus the mirror and glass lanes."""
+    from opengl_raytracing_tpu_torch.models.pipeline import _diffuse_lanes
+    return h_raw.valid & _diffuse_lanes(h.mat, scene.params)
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("mask", ["frame", "half", "mirror_glass"])
+def test_an_direct_kernel_masked_is_the_dense_call_on_live_lanes(size,
+                                                                  mask):
+    """K3 with a mask of live lanes: one launch, the dense call's
+    (active=None) radiance bit for bit on the live lanes and K3's gate
+    against the plain version there, the in-kernel offsets bit for bit on
+    them; no other lane written.  Masks: the frame's primary one, every
+    other lane, and the mirror and glass lanes alone (the env path)."""
+    scene, h_raw, h, px, py, vdir = _analytic(preset("baseline"), *size)
+    live = {"frame": _an_frame_mask(scene, h_raw, h),
+            "half": (torch.arange(h.t.numel(), device="cuda")
+                     % 2 == 0).reshape(h.t.shape),
+            "mirror_glass": h.mat.eq(2) | h.mat.eq(3)}[mask]
+    assert 0 < int(live.sum()) < h.t.numel()
+    rng, frame = _fv(3, 3)
+    dense = an_cuda.direct_light(scene, h, rng, frame, vdir, px, py)
+    offs = torch.full((8, h.t.numel()), float("nan"), device="cuda")
+    before = dict(cuda_lib.LAUNCHES)
+    got = an_cuda.direct_light(scene, h, rng, frame, vdir, px, py, live,
+                               offsets_out=offs)
+    assert _grew(before) == {**{k: 0 for k in before}, "an_direct": 1}
+    assert torch.equal(got[live], dense[live])
+    want = lt.direct_light_plain(scene, h, rng, frame, vdir, px, py)
+    assert float((got - want)[live].abs().max()) <= K3_MAX_ABS
+    flat = live.reshape(-1)
+    assert torch.equal(offs[:, flat], _want_offsets(
+        rng, frame, px, py, h.t.shape)[:, flat])
+    assert bool(offs[:, ~flat].isnan().all())
+    out = _an_direct_into(scene, h, rng, frame, vdir, px, py, live)
+    assert torch.equal(out[flat], dense.reshape(-1, 3)[flat])
+    assert bool((out[~flat] == SENTINEL).all())
+
+
+@pytest.mark.parametrize("spp", [1, 4])
+def test_an_direct_kernel_writes_no_dead_lane(spp):
+    """An all-dead mask at 1080p, a lane each and with the rows shared by
+    the samples: the kernel writes no lane, and `out` keeps its
+    sentinel."""
+    scene, h_raw, h, px, py, vdir = _analytic(preset("full"), 1080, 1920)
+    dead = torch.zeros_like(h_raw.valid)
+    rng, frame = _fv(3, 3)
+    if spp > 1:
+        h, vdir, px, py, dead = (_hit_batch(h, spp), _batch(vdir, spp),
+                                 _batch(px, spp), _batch(py, spp),
+                                 _batch(dead, spp))
+        rng = frame.sampled(spp)
+    out = _an_direct_into(scene, h, rng, frame, vdir, px, py, dead)
+    assert bool((out == SENTINEL).all())
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_an_direct_kernel_one_live_lane_in_the_last_unit(size):
+    """One live lane, the call's last: the last lane of the last unit (a
+    partial unit at 37x131, lane 31 at 1080p; a sanitized sky lane, shaded
+    as the grey fallback's diffuse hit).  Its radiance within K3_MAX_ABS
+    of the plain version and the dense call's bit for bit; every other
+    lane of `out` keeps its sentinel."""
+    scene, h_raw, h, px, py, vdir = _analytic(preset("baseline"), *size)
+    one = torch.zeros_like(h_raw.valid)
+    one.view(-1)[-1] = True
+    rng, frame = _fv(4, 4)
+    out = _an_direct_into(scene, h, rng, frame, vdir, px, py, one)
+    want = lt.direct_light_plain(scene, h, rng, frame, vdir, px, py)
+    err = float((out.view(want.shape)[one] - want[one]).abs().max())
+    assert err <= K3_MAX_ABS, err
+    dense = an_cuda.direct_light(scene, h, rng, frame, vdir, px, py)
+    assert torch.equal(out[-1], dense.reshape(-1, 3)[-1])
+    assert bool((out[:-1] == SENTINEL).all())
+
+
+def test_an_direct_kernel_mirror_beside_diffuse_lanes_in_one_unit():
+    """A unit whose live lanes are a mirror hit, a glass hit and diffuse
+    hits around them (the env path and the diffuse path of one unit, each
+    in its own round): each lane the dense call's bits and within
+    K3_MAX_ABS of the plain version; the dead lanes of the unit keep the
+    sentinel."""
+    scene, h_raw, h, px, py, vdir = _analytic(preset("baseline"))
+    mat = h.mat.reshape(-1)
+    units = mat.reshape(-1, 32)
+    mixed = ((units == 3).any(1) & (units == 0).any(1)).nonzero()
+    assert mixed.numel() > 0
+    u = int(mixed[0])
+    lanes = torch.arange(32 * u, 32 * u + 32, device="cuda")
+    keep = torch.zeros(h.t.numel(), dtype=torch.bool, device="cuda")
+    keep[lanes[::3]] = True
+    keep[lanes[mat[lanes] == 3][:1]] = True
+    keep[lanes[mat[lanes] == 2][:1]] = True
+    keep = keep.reshape(h.t.shape)
+    flat = keep.reshape(-1)
+    assert bool((mat[flat] == 3).any() & (mat[flat] == 0).any())
+    rng, frame = _fv(5, 5)
+    out = _an_direct_into(scene, h, rng, frame, vdir, px, py, keep)
+    dense = an_cuda.direct_light(scene, h, rng, frame, vdir, px, py)
+    want = lt.direct_light_plain(scene, h, rng, frame, vdir, px, py)
+    assert torch.equal(out[flat], dense.reshape(-1, 3)[flat])
+    assert float((out[flat] - want.reshape(-1, 3)[flat]).abs().max()) \
+        <= K3_MAX_ABS
+    assert bool((out[~flat] == SENTINEL).all())
+
+
+@pytest.mark.parametrize("spp", SPP)
+def test_an_direct_kernel_reads_a_broadcast_hit_once_a_pixel(spp):
+    """The frame's primary call at spp samples: the hit, vdir and the mask
+    broadcast over the sample axis are read once a pixel in place
+    (direct_rows: shared rows); bit for bit the same call on contiguous
+    copies (a row a lane), and each sample the single-sample call on its
+    live lanes; K3's gate against the plain version there."""
+    scene, h_raw, h, px, py, vdir = _analytic(preset("baseline"))
+    frame = FrameValue.of(6, "cuda")
+    seeds = frame.sampled(spp)
+    live = _an_frame_mask(scene, h_raw, h)
+    h_b, v_b, px_b, py_b, live_b = (_hit_batch(h, spp), _batch(vdir, spp),
+                                    _batch(px, spp), _batch(py, spp),
+                                    _batch(live, spp))
+    _, rows, _keep = an_cuda.direct_rows(scene, h_b, seeds, frame, v_b,
+                                         px_b, py_b, live_b, h.t.device)
+    assert rows.shared == 1
+    got = an_cuda.direct_light(scene, h_b, seeds, frame, v_b, px_b, py_b,
+                               live_b)
+    copies = [x.contiguous() for x in (*h_b, v_b, live_b)]
+    _, rows_c, _keep_c = an_cuda.direct_rows(
+        scene, Hit(*copies[:4]), seeds, frame, copies[4], px_b, py_b,
+        copies[5], h.t.device)
+    assert rows_c.shared == 0
+    dense = an_cuda.direct_light(scene, Hit(*copies[:4]), seeds, frame,
+                                 copies[4], px_b, py_b, copies[5])
+    assert torch.equal(got[live_b], dense[live_b])
+    want = lt.direct_light_plain(scene, h_b, seeds, frame, v_b, px_b, py_b)
+    assert float((got - want)[live_b].abs().max()) <= K3_MAX_ABS
+    for s in range(spp):
+        one = an_cuda.direct_light(scene, h, frame * spp + s, frame, vdir,
+                                   px, py, live)
+        assert torch.equal(got[s][live], one[live]), s
+
+
 @pytest.mark.parametrize("use_bvh", [True, False])
 def test_batched_frame_is_its_samples_one_by_one(bvh, use_bvh):
     """trace_and_shade of a 4-sample frame on the card: bit for bit the
