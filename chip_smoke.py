@@ -10,8 +10,8 @@ in phases, each printing its result and seconds on a line of its own:
 
   * the bench `baseline` frame: the 5,120 triangle bunny BVH scene at
     1920x1080, 1 SPP, GI/AO/TAA/SVGF off (kernels K1, the BVH direct
-    light, K5 with its shadow walks, and the tonemap kernel, the present
-    pass without SVGF);
+    light, K5 with its shadow walks, the sky kernel on the misses, and the
+    tonemap kernel, the present pass without SVGF);
   * the bench `an_baseline` frame: the analytic scene (floor, albedo,
     glass and mirror spheres, point-light marker) at 800x600 with the
     same preset and the gradient sky (kernel K3 and the tonemap kernel);
@@ -126,10 +126,24 @@ in phases, each printing its result and seconds on a line of its own:
   15-17. frames_an_full (K3 exactly 7 times and svgf_present once a
      frame; the last frame goes to out/verify_torch_an_full.png),
      reference_an_full (150x200, 3 frames, with the cubemap on both
-     devices), profile_an_full (the dense cubemap lookups as stages
-     sky#n);
+     devices), profile_an_full (the sky kernel's cubemap lookups as
+     stages sky#n);
+  17b. an_gates: the analytic scene's live-lane kernels (csrc/an_trace.cu:
+     the trace, AO, GI bounce and sky kernels, the port's form of the JAX
+     package's occupancy gates) on every call of a 1080p an_full frame
+     (sky_day.png; 5, 1, 2 and 7 calls) and of an 800x600 an_baseline
+     frame (5 traces, 5 skies), the third of a chain, each on its recorded
+     inputs against its dense plain version on the card, with the frame's
+     own mask, none, a partial one and an empty one: every output bit for
+     bit on the live lanes (a difference is printed with its size and
+     fails the phase), one launch a call; each call's live lanes, bound
+     (bytes at 3.35 TB/s or operations at 67 TFLOP/s, from the live
+     lanes' work), wrapper, kernel and plain times; each kernel's launches
+     a frame in frames_an_full and frames_analytic (an_full: an_trace 5,
+     an_ao 1, an_bounce 2, sky 7, exactly; an_baseline: an_trace 5, sky
+     5);
   18-20. frames_heavy (a frame: closest 1, bvh_direct 2, bounce 1, ao 1,
-     svgf_present 1, exactly; as a host loop of samples it was
+     svgf_present 1, sky 2, exactly; as a host loop of samples it was
      bvh_direct 8 and bounce 4), reference_heavy (270x480, 3 frames),
      profile_heavy;
   21-24. frames_moving, reference_motion_view (the motion debug wheel of
@@ -139,10 +153,11 @@ in phases, each printing its result and seconds on a line of its own:
      closest-hit kernel, against the CPU: flat colours, equal but on tie
      lanes (at most 1e-4 of the pixels);
   25b-25f. the BVH-heavy scene: frames_cf_close and frames_cf_far (32
-     chained frames each; closest, bvh_direct and tonemap exactly once a
-     frame, every other counter 0; ms/frame, the checksum, and from one
-     profiled frame the device time, launches and idle share; the close
-     frame goes to out/verify_torch_cf_close.png), kernels_cf (K1's
+     chained frames each; closest, bvh_direct, tonemap and sky (the
+     misses' environment) exactly once a frame, every other counter 0;
+     ms/frame, the checksum, and from one profiled frame the device
+     time, launches and idle share; the close frame goes to
+     out/verify_torch_cf_close.png), kernels_cf (K1's
      primary call and the BVH direct light on a cf_close frame's inputs
      under step 3's gates: times, bound, share, the live lanes' share,
      node visits and triangle tests per ray or live lane; K1 on the numpy
@@ -216,7 +231,7 @@ in phases, each printing its result and seconds on a line of its own:
      (a) `--scene bvh --preset full`, 32 still frames: the sum of the
      steps' images equals frames_full's checksum bit for bit, with
      frames_full's launches a frame (closest 1, bvh_direct 2, bounce 1, AO
-     1, svgf_present 1); (b) `--scene analytic --preset full --env
+     1, svgf_present 1, sky 2); (b) `--scene analytic --preset full --env
      cubemaps/sky_day.png`: frames_an_full's checksum, K3 7 times a frame;
      (c) `--model models/bunny_lp.obj --env cubemaps/sky_noon.hdr
      --camera-anim dolly`: 8 frames finite and in [0,1], and the card
@@ -289,7 +304,7 @@ in phases, each printing its result and seconds on a line of its own:
      frames_analytic, frames_an_full, frames_cf_close, frames_cf_far), and
      its kernel launches a frame that chain's; `realistic` (no other phase
      renders it) a finite checksum and closest 1, bvh_direct 2, bounce 1,
-     ao 1, tonemap 1 a frame.  Each case's median ms/frame and spread.
+     ao 1, tonemap 1, sky 2 a frame.  Each case's median ms/frame and spread.
 
 Any failure raises, so the script exits non-zero.  It needs one CUDA
 card and exits non-zero, printing no result, without one.  Before the
@@ -327,12 +342,14 @@ HEAVY_SUBDIV = 6
 CF_CAMERAS = {"cf_close": (-2.0, 1.6, 1.2), "cf_far": (0.0, 2.0, 8.0)}
 CF_LOOK_AT = (-2.0, 1.5, 0.0)
 CF_LAUNCHES = dict(closest=1, bvh_direct=1, tonemap=1, bounce=0, ao=0,
-                   an_direct=0, svgf=0, svgf_present=0)
+                   an_direct=0, svgf=0, svgf_present=0, an_trace=0, an_ao=0,
+                   an_bounce=0, sky=1)
 # phase bench: bench_torch.py's nine cases, and realistic's launches a
 # frame (its present pass without SVGF is the tonemap kernel)
 BENCH_CASES = ("baseline", "realistic", "full", "heavy", "an_baseline",
                "an_full", "cf_far", "cf_close", "moving")
-REALISTIC_LAUNCHES = dict(closest=1, bvh_direct=2, bounce=1, ao=1, tonemap=1)
+REALISTIC_LAUNCHES = dict(closest=1, bvh_direct=2, bounce=1, ao=1, tonemap=1,
+                          sky=2)
 BENCH_TIMEOUT_S = 600
 PROFILE_FRAME = 3      # the `full` profile times frame 3 (TAA resolves)
 PROFILE_ATTEMPTS = 6   # profiles of one measurement before "not measured"
@@ -388,14 +405,38 @@ KERNELS = {  # wrapper key -> record of the JSON line
                     source="opengl_raytracing_tpu_torch/csrc/svgf.cu",
                     replaces="opengl_raytracing_tpu/ops/svgf.py:174",
                     kernel="tonemap_kernel"),
+    # the analytic scene's live-lane kernels: port-only, they replace no
+    # TPU kernel but the JAX package's jnp code behind its occupancy
+    # gates (`replaces` names that code)
+    "an_trace": dict(name="an_trace",
+                     source="opengl_raytracing_tpu_torch/csrc/an_trace.cu",
+                     replaces="opengl_raytracing_tpu/ops/scene_analytic.py:40",
+                     kernel="an_trace_kernel", wrapper="trace",
+                     port_only=True),
+    "an_ao": dict(name="an_ao",
+                  source="opengl_raytracing_tpu_torch/csrc/an_trace.cu",
+                  replaces="opengl_raytracing_tpu/ops/lighting.py:603",
+                  kernel="an_ao_kernel", wrapper="ambient_occlusion",
+                  port_only=True),
+    "an_bounce": dict(name="an_bounce",
+                      source="opengl_raytracing_tpu_torch/csrc/an_trace.cu",
+                      replaces="opengl_raytracing_tpu/ops/lighting.py:411",
+                      kernel="an_bounce_kernel", wrapper="bounce",
+                      port_only=True),
+    "sky": dict(name="sky",
+                source="opengl_raytracing_tpu_torch/csrc/an_trace.cu",
+                replaces="opengl_raytracing_tpu/ops/scene.py:220",
+                kernel="sky_kernel", wrapper="sky", port_only=True),
 }
+GATE_KERNELS = ("an_trace", "an_ao", "an_bounce", "sky")
 # the launch counters each path must move (ops/cuda_lib.py:LAUNCHES, one
 # per kernel); no path launches "svgf", the filter entry alone: `full`
 # enters the same body through svgf_present
-BVH_PATH = ("closest", "bvh_direct", "tonemap")
-AN_PATH = ("an_direct", "tonemap")
-FULL_PATH = ("closest", "bounce", "ao", "bvh_direct", "svgf_present")
-AN_FULL_PATH = ("an_direct", "svgf_present")
+BVH_PATH = ("closest", "bvh_direct", "tonemap", "sky")
+AN_PATH = ("an_direct", "tonemap", "an_trace", "sky")
+FULL_PATH = ("closest", "bounce", "ao", "bvh_direct", "svgf_present", "sky")
+AN_FULL_PATH = ("an_direct", "svgf_present", "an_trace", "an_ao",
+                "an_bounce", "sky")
 # launches a frame.  an_full: K3 at the primary hits, at their GI bounce,
 # at the mirror's hit and its GI bounce, at the glass's three secondary
 # hits.  heavy: the 4 samples shade as one batch: the direct light once at
@@ -404,12 +445,20 @@ AN_FULL_PATH = ("an_direct", "svgf_present")
 # run once.  As a host loop of samples each sample was a call of its
 # own: bvh_direct 8, bounce 4.
 AN_FULL_LAUNCHES = dict(an_direct=7, svgf_present=1, tonemap=0)
+# the analytic scene's trace, AO, bounce and sky kernels a frame: the
+# primary trace and sky, AO, the bounce and sky of GI at the primary and
+# the mirror's hit, the mirror's trace and sky, glass's three traces and
+# three skies; an_baseline has no GI or AO
+AN_FULL_LAUNCHES.update(an_trace=5, an_ao=1, an_bounce=2, sky=7)
+AN_BASELINE_LAUNCHES = dict(an_direct=5, tonemap=1, an_trace=5, an_ao=0,
+                            an_bounce=0, sky=5)
 HEAVY_LAUNCHES = dict(closest=1, bvh_direct=2, bounce=1, ao=1,
-                      svgf_present=1, svgf=0, tonemap=0)
+                      svgf_present=1, svgf=0, tonemap=0, sky=2)
 HEAVY_SPP = 4          # the heavy preset's samples a pixel
 # the kernels that take a leading sample axis inside one launch
 SAMPLE_AXIS_KERNELS = ("bvh_direct_kernel", "trace_bounce_kernel",
-                       "an_direct_light_kernel")
+                       "an_direct_light_kernel", "an_trace_kernel",
+                       "an_bounce_kernel", "sky_kernel")
 # a replayed `heavy` frame with the samples as a host loop (H100 80GB
 # HBM3, 700 W): its device ms, operations and graph MB
 HEAVY_LOOP = dict(device_ms=4.501, device_ops=305, pool_mb=604)
@@ -709,14 +758,17 @@ def record_kernel_inputs(bvh, height, width, device, keys,
     `how`: render's env, camera and moved) and keep the arguments, by
     name, of every call the last frame makes to the wrappers `keys` (the
     wrappers still launch)."""
-    from opengl_raytracing_tpu_torch.ops import an_cuda, bvh_cuda, svgf_cuda
+    from opengl_raytracing_tpu_torch.ops import (an_cuda, an_trace_cuda,
+                                                 bvh_cuda, svgf_cuda)
     where = {"closest": (bvh_cuda, "trace_closest"),
              "bounce": (bvh_cuda, "trace_bounce"),
              "ao": (bvh_cuda, "ambient_occlusion"),
              "an_direct": (an_cuda, "direct_light"),
              "bvh_direct": (an_cuda, "direct_light_bvh"),
              "svgf_present": (svgf_cuda, "svgf_present"),
-             "tonemap": (svgf_cuda, "tonemap")}
+             "tonemap": (svgf_cuda, "tonemap"),
+             **{k: (an_trace_cuda, KERNELS[k]["wrapper"])
+                for k in GATE_KERNELS}}
     calls = {k: [] for k in keys}
     real = {k: getattr(*where[k]) for k in keys}
 
@@ -1046,6 +1098,18 @@ def an_call_live(args):
     return _live(args["h"], args.get("active"))
 
 
+def an_plain_args(args):
+    """A K3 call's arguments as direct_light_plain takes them: no mask,
+    and the hit and view direction set to valid values on the lanes the
+    mask marks dead (unread), whose values the frame leaves unspecified;
+    the live lanes as they were."""
+    live = an_call_live(args)
+    plain = {k: v for k, v in args.items() if k != "active"}
+    plain["h"] = unread_hit(args["h"], live)
+    plain["vdir"] = unread(args["vdir"], live, (0.0, 1.0, 0.0))
+    return plain
+
+
 def an_traces(args, diffuse, shared):
     """The traces K3 runs for a call's live diffuse lanes (`diffuse`, bool
     of the call's shape), counted on the plain version's rays: the rays,
@@ -1190,7 +1254,7 @@ def check_an_kernel(height=AN_HEIGHT, width=AN_WIDTH, device="cuda",
                                  "environment it was given")
         if args["active"] is None:
             raise AssertionError(f"the frame's {label} K3 call has no mask")
-        plain = {k: v for k, v in args.items() if k != "active"}
+        plain = an_plain_args(args)
         live = an_call_live(args)
         e, b = _radiance_err(_offsets_bitwise(an_cuda.direct_light, args,
                                               live),
@@ -1210,7 +1274,7 @@ def check_an_kernel(height=AN_HEIGHT, width=AN_WIDTH, device="cuda",
         raise AssertionError("no live mirror or glass lane sampled the "
                              "cubemap")
     args = calls["an_direct"][0]
-    plain = {k: v for k, v in args.items() if k != "active"}
+    plain = an_plain_args(args)
 
     def call():
         an_cuda.direct_light(**args)
@@ -1682,6 +1746,358 @@ def check_raster_reference(bvh_cuda_scene, bvh_cpu_scene, height, width):
     return dict(size=[height, width], pixels_differ=flips, colours=colours,
                 mesh_pixels=mesh)
 
+# ---- phase an_gates: the analytic scene's live-lane kernels ----
+
+def unread(x, live, value):
+    """`x` (a lane's scalar or vector) with the lanes `live` marks dead set
+    to `value`: a plain version computes every lane, and those of a
+    frame's call hold unspecified values (a dead direction may be NaN,
+    which the plain cubemap's gather cannot index)."""
+    import torch
+    value = torch.tensor(value, dtype=x.dtype, device=x.device)
+    return torch.where(live[..., None] if value.dim() else live, x, value)
+
+
+def unread_hit(h, live):
+    from opengl_raytracing_tpu_torch.ops.scene_analytic import Hit
+    return Hit(unread(h.t, live, 1.0), unread(h.p, live, (0.0, 0.5, 0.0)),
+               unread(h.n, live, (0.0, 1.0, 0.0)), unread(h.mat, live, 0))
+
+
+def gate_unread(key, a):
+    """The arguments `a` of a frame's call of gate kernel `key` with the
+    per-lane inputs (rays, hits, directions) set to valid values on the
+    lanes the frame's mask marks dead (unread); the live lanes as they
+    were."""
+    live = a.get("active")
+    if live is None:
+        return a
+    up = (0.0, 1.0, 0.0)
+    if key == "an_trace":
+        return dict(a, ro=unread(a["ro"], live, (0.0, 0.5, 0.0)),
+                    rd=unread(a["rd"], live, up))
+    if key == "sky":
+        return dict(a, d=unread(a["d"], live, up))
+    field = "h" if key == "an_ao" else "h0"
+    return dict(a, **{field: unread_hit(a[field], live)})
+
+
+def gate_plain(key, a):
+    """The dense plain version of a call of gate kernel `key` on the card,
+    as {output: tensor}; `a` as gate_unread gives it."""
+    from opengl_raytracing_tpu_torch.ops import lighting as lt
+    from opengl_raytracing_tpu_torch.ops import scene_analytic as sa
+    if key == "an_trace":
+        h = sa.trace_analytic_core(a["ro"], a["rd"], a["params"],
+                                   a["point_light_pos"], a["include_glass"],
+                                   a["include_point_light"], a["eps"])
+        return dict(zip(h._fields, h))
+    if key == "an_ao":
+        return dict(ao=lt.ambient_occlusion_analytic_plain(
+            a["scene"], a["h"], a["frame_index"], a["px"], a["py"]))
+    if key == "an_bounce":
+        h, wi, cos = lt.gi_bounce_analytic_plain(
+            a["scene"], a["h0"], a["rng_frame"], a["seed"], a["px"],
+            a["py"])
+        return dict(zip(h._fields, h), wi=wi, cos=cos)
+    return dict(sky=sa.sky(a["d"], a["params"], a["env_map"]))
+
+
+def gate_call(key, a, active):
+    """A call of gate kernel `key`'s wrapper with the mask `active`, as
+    {output: tensor}."""
+    from opengl_raytracing_tpu_torch.ops import an_trace_cuda
+    out = getattr(an_trace_cuda, KERNELS[key]["wrapper"])(
+        **{k: v for k, v in a.items() if k != "active"}, active=active)
+    if key == "an_trace":
+        return dict(zip(out._fields, out))
+    if key == "an_bounce":
+        return dict(zip(out[0]._fields, out[0]), wi=out[1], cos=out[2])
+    return {"ao" if key == "an_ao" else "sky": out}
+
+
+def gate_shape(key, a):
+    import torch
+    if key == "an_trace":
+        return torch.broadcast_shapes(a["ro"].shape[:-1], a["rd"].shape[:-1])
+    if key == "sky":
+        return a["d"].shape[:-1]
+    return (a["h"] if key == "an_ao" else a["h0"]).t.shape
+
+
+def gate_rows(x, shape, width, live):
+    """The distinct rows of input `x` that the live lanes read, as the
+    kernel reads them (an_trace_cuda.lane_input: a row a lane, a pixel's
+    row once for every sample, one row)."""
+    from opengl_raytracing_tpu_torch.ops import an_trace_cuda
+    mode = an_trace_cuda.lane_input(x, shape, width, x.dtype, x.device,
+                                    "x")[0].mode
+    if mode == an_trace_cuda.ONE:
+        return 1
+    if mode == an_trace_cuda.PIXEL:
+        return int(live.reshape(shape[0], -1).any(0).sum())
+    return int(live.sum())
+
+
+def gate_mask_bytes(mask, shape):
+    """The bytes of a mask as the kernel reads every one of them: a byte a
+    lane, a pixel, or one."""
+    from opengl_raytracing_tpu_torch.ops import an_trace_cuda
+    mode = an_trace_cuda.lane_input(mask, shape, 0, mask.dtype, mask.device,
+                                    "active")[0].mode
+    return {an_trace_cuda.ONE: 1,
+            an_trace_cuda.PIXEL: an_trace_cuda.n_px_of(shape),
+            an_trace_cuda.LANE: shape.numel()}[mode]
+
+
+def sphere_roots(scene_params, plp, ro, rd, glass, marker):
+    """(sphere tests, tests whose disc >= 0) of the trace of rays ro, rd
+    [N, 3]: the kernel stops a missed sphere at its disc test."""
+    import torch
+    from opengl_raytracing_tpu_torch import constants as k
+    from opengl_raytracing_tpu_torch.ops.vecmath import dot
+    dev = rd.device
+    spheres = [(torch.tensor(c, dtype=torch.float32, device=dev), r)
+               for i, (c, r) in enumerate(
+                   ((k.SPHERE_LEFT_CENTER, k.SPHERE_LEFT_RADIUS),
+                    (k.GLASS_CENTER, k.GLASS_RADIUS),
+                    (k.MIRROR_CENTER, k.MIRROR_RADIUS))) if glass or i != 1]
+    if marker:
+        spheres.append((plp, k.POINT_LIGHT_MARKER_RADIUS))
+    roots = 0
+    for c, r in spheres:
+        oc = ro - c
+        b = dot(oc, rd)
+        roots += int(((b * b - (dot(oc, oc) - r * r)) >= 0.0).sum())
+    return len(spheres) * rd.shape[0], roots
+
+
+def cubemap_texels(env, d, live):
+    """The distinct texels of table `env` [6, F, F, 3] that the bilinear
+    lookups of the live lanes' directions `d` read, each once at best:
+    those with a weight in the plain sampler's sum, from its gradient
+    with respect to the table (a texel of weight 0 is not counted, so the
+    bound stays a lower one)."""
+    from opengl_raytracing_tpu_torch.ops.cubemap import sample_cubemap
+    table = env.detach().clone().requires_grad_(True)
+    dirs = d.expand(live.shape + (3,))[live]
+    sample_cubemap(table, dirs).sum().backward()
+    return int((table.grad != 0).any(-1).sum())
+
+
+def gate_bound(key, a, live):
+    """The least time of one call of gate kernel `key` from the work of its
+    live lanes (bound()): the bytes are the mask's (as the kernel reads
+    it), the live lanes' distinct input rows, the pixel grids where the
+    kernel samples, the distinct cubemap texels the live lanes' lookups
+    read (cubemap_texels) and the live lanes' outputs; the operations those lanes' arithmetic, with each trace's
+    floor test, sphere tests and the roots of the spheres whose disc test
+    passes."""
+    from opengl_raytracing_tpu_torch.ops import lighting as lt
+    from opengl_raytracing_tpu_torch.ops import an_trace_cuda
+    shape = gate_shape(key, a)
+    n_live = int(live.sum())
+    mask = a.get("active")
+    n_bytes = 0 if mask is None else gate_mask_bytes(mask, shape)
+    sel = live.reshape(-1)
+    trace_op = OPS["an_floor"] + OPS["hit_out"]
+    if key == "an_trace":
+        params = a["params"]
+        marker = an_trace_cuda._marker(params, a["include_point_light"])
+        ro = a["ro"].expand(shape + (3,)).reshape(-1, 3)[sel]
+        rd = a["rd"].expand(shape + (3,)).reshape(-1, 3)[sel]
+        tests, roots = sphere_roots(params, a["point_light_pos"], ro, rd,
+                                    a["include_glass"], marker)
+        n_bytes += 12 * (gate_rows(a["ro"], shape, 3, live)
+                         + gate_rows(a["rd"], shape, 3, live)) + 32 * n_live
+        n_ops = (n_live * trace_op + tests * OPS["an_sphere"]
+                 + roots * OPS["an_root"])
+        return dict(lanes=shape.numel(), live_lanes=n_live,
+                    sphere_tests=tests, sphere_roots=roots,
+                    **bound(n_bytes, n_ops))
+    if key == "sky":
+        env = a["env_map"] is not None and a["params"].enable_env_map
+        texels = cubemap_texels(a["env_map"], a["d"], live) if env else 0
+        n_bytes += 24 * n_live + 12 * texels
+        n_ops = n_live * (OPS["cubemap"] + 3 if env else OPS["sky"])
+        return dict(lanes=shape.numel(), live_lanes=n_live, cubemap=env,
+                    texels=texels, **bound(n_bytes, n_ops))
+    scene = a["scene"]
+    marker = bool(scene.params.point_light_enabled)
+    h = a["h"] if key == "an_ao" else a["h0"]
+    n_bytes += 12 * (gate_rows(h.p, shape, 3, live)
+                     + gate_rows(h.n, shape, 3, live)) + unique_bytes(
+                         a["px"], a["py"])
+    if key == "an_ao":
+        org, dirs = lt._ao_rays(h, a["frame_index"], a["px"], a["py"],
+                                scene.params)
+        ro = org.expand(shape + (3,)).reshape(-1, 3)[sel]
+        tests = roots = 0
+        for d in dirs:
+            t_, r_ = sphere_roots(scene.params, scene.point_light_pos, ro,
+                                  d.reshape(-1, 3)[sel], True, marker)
+            tests, roots = tests + t_, roots + r_
+        S = len(dirs)
+        n_bytes += 4 * n_live
+        n_ops = (n_live * (OPS["normalize"] + OPS["origin"] + OPS["ao_remap"]
+                           + S * (2 * OPS["rand"] + OPS["onb"]
+                                  + OPS["hemisphere"] + OPS["an_floor"] + 2))
+                 + tests * OPS["an_sphere"] + roots * OPS["an_root"])
+        return dict(lanes=shape.numel(), live_lanes=n_live, samples=S,
+                    sphere_tests=tests, sphere_roots=roots,
+                    **bound(n_bytes, n_ops))
+    h1, wi, _ = lt.gi_bounce_analytic_plain(scene, h, a["rng_frame"],
+                                            a["seed"], a["px"], a["py"])
+    n0 = lt.normalize(h.n).expand(shape + (3,)).reshape(-1, 3)[sel]
+    org = h.p.expand(shape + (3,)).reshape(-1, 3)[sel] + n0 * 1e-4
+    tests, roots = sphere_roots(scene.params, scene.point_light_pos, org,
+                                wi.reshape(-1, 3)[sel], True, marker)
+    n_bytes += 48 * n_live
+    n_ops = (n_live * (2 * OPS["rand"] + OPS["normalize"] + OPS["onb"]
+                       + OPS["hemisphere"] + OPS["cos"] + OPS["origin"]
+                       + trace_op)
+             + tests * OPS["an_sphere"] + roots * OPS["an_root"])
+    return dict(lanes=shape.numel(), live_lanes=n_live, sphere_tests=tests,
+                sphere_roots=roots, **bound(n_bytes, n_ops))
+
+
+def check_gate_call(key, a, timer, partial_seed):
+    """One recorded call of gate kernel `key` against its dense plain
+    version on the card, with the frame's own mask, none, a partial one
+    and an empty one: every output bit for bit on the lanes live in both
+    the mask and the frame's (the frame's dead lanes hold unspecified
+    inputs, which the kernel computes under no mask without faulting),
+    else the largest difference is printed and the phase fails; one
+    launch each; the call's live lanes, bound and times alone (the
+    frame's mask)."""
+    import torch
+    from opengl_raytracing_tpu_torch.ops import cuda_lib
+    shape = gate_shape(key, a)
+    plain = gate_unread(key, a)
+    want = gate_plain(key, plain)
+    g = torch.Generator(device="cuda").manual_seed(partial_seed)
+    masks = {"frame": a.get("active"), "none": None,
+             "partial": torch.rand(shape, generator=g, device="cuda") < 0.3,
+             "empty": torch.zeros(shape, dtype=torch.bool, device="cuda")}
+    errs = {}
+    for how, mask in masks.items():
+        before = cuda_lib.LAUNCHES[key]
+        got = gate_call(key, a, mask)
+        torch.cuda.synchronize()
+        if cuda_lib.LAUNCHES[key] != before + 1:
+            raise AssertionError(f"{key} ({how} mask) did not launch once")
+        # compared where the mask is live and the frame's mask too: the
+        # other lanes' inputs are the frame's unspecified values
+        live = _live_of(shape, mask) & _live_of(shape, a.get("active"))
+        err = 0.0
+        for field, w in want.items():
+            x, w = got[field][live], w.expand(got[field].shape)[live]
+            if not torch.equal(x, w):
+                diff = (x.double() - w.double()).abs()
+                err = max(err, float(diff.nan_to_num(float("inf")).max()))
+                print(f"an_gates: {key} ({how} mask) {field} differs from "
+                      f"the plain version on {int((x != w).sum())} values, "
+                      f"max abs {float(diff.max())}", file=sys.stderr,
+                      flush=True)
+        errs[how] = err
+    if any(errs.values()):
+        raise AssertionError(f"{key} is not the plain version's bits on "
+                             f"live lanes: {errs}")
+    live = _live_of(shape, a.get("active"))
+
+    def call():
+        gate_call(key, a, a.get("active"))
+    return dict(gate_bound(key, a, live), max_abs_err=0.0,
+                bitwise="live lanes, masks frame/none/partial/empty",
+                ms=timer(call, 20),
+                kernel_ms=kernel_ms(call, KERNELS[key]["kernel"]),
+                plain_ms=timer(lambda: gate_plain(key, plain), 3))
+
+
+def _live_of(shape, active):
+    import torch
+    return (torch.ones(shape, dtype=torch.bool, device="cuda")
+            if active is None else active.expand(shape))
+
+
+def gate_frame(height, width, preset_name, env, timer):
+    """Every call one eager analytic frame of the preset makes to the four
+    gate kernels (the third of a chain), checked and timed
+    (check_gate_call): {kernel: [call record]}."""
+    calls = record_kernel_inputs(None, height, width, "cuda", GATE_KERNELS,
+                                 preset_name, PROFILE_FRAME, env=env)
+    out = {}
+    for n, key in enumerate(GATE_KERNELS):
+        out[key] = [check_gate_call(key, a, timer, 17 * n + i)
+                    for i, a in enumerate(calls[key])]
+    return out
+
+
+def gate_record(calls, prefix=""):
+    """A gate kernel's record of one frame: its calls summed (the kernel's
+    time a frame, its bound the sum of its calls'), bound by the bound of
+    the larger share."""
+    if not calls:
+        return {}
+    by_bytes = sum(c["bound_ms"] for c in calls if c["bound_by"] == "bytes")
+    by_ops = sum(c["bound_ms"] for c in calls
+                 if c["bound_by"] == "operations")
+    kernel = [c["kernel_ms"] for c in calls]
+    rec = dict(calls=len(calls), max_abs_err=max(c["max_abs_err"]
+                                                 for c in calls),
+               ms=sum(c["ms"] for c in calls),
+               kernel_ms=sum(kernel) if None not in kernel else None,
+               plain_ms=sum(c["plain_ms"] for c in calls),
+               bound_ms=by_bytes + by_ops,
+               bound_by="bytes" if by_bytes >= by_ops else "operations",
+               live_lanes=sum(c["live_lanes"] for c in calls),
+               lanes=sum(c["lanes"] for c in calls))
+    rec["share"] = (rec["bound_ms"] / rec["kernel_ms"] if rec["kernel_ms"]
+                    else None)
+    if not prefix:
+        rec["calls_detail"] = calls
+    return {f"{prefix}{k}": v for k, v in rec.items()}
+
+
+def check_an_gates(env, frames_an_full, frames_an, timer=None):
+    """Phase an_gates: the trace, AO, bounce and sky kernels on every call
+    of a 1080p an_full frame (cubemaps/sky_day.png) and of an 800x600
+    an_baseline frame, each with its recorded inputs against its plain
+    version (check_gate_call), and their launches a frame in the frames
+    phases.  Returns the phase's record with `records`, the kernels'
+    records of the kernels line (an_full's frame, an_baseline's beside it
+    under `an_baseline_` keys)."""
+    timer = timer or cuda_ms
+    full = gate_frame(HEIGHT, WIDTH, "full", env, timer)
+    base = gate_frame(AN_HEIGHT, AN_WIDTH, "baseline", None, timer)
+    records = {}
+    for key in GATE_KERNELS:
+        records[key] = dict(gate_record(full[key]),
+                            **gate_record(base[key], "an_baseline_"))
+    per_frame = {name: {k: run["launches"][k] / run["frames"]
+                        for k in GATE_KERNELS + ("an_direct",)}
+                 for name, run in (("an_full", frames_an_full),
+                                   ("an_baseline", frames_an))}
+    # a bound is a least time: a call measured below its own is printed
+    over = [dict(kernel=k, frame=name, call=i, bound_ms=c["bound_ms"],
+                 kernel_ms=c["kernel_ms"])
+            for name, run in (("an_full", full), ("an_baseline", base))
+            for k in GATE_KERNELS for i, c in enumerate(run[k])
+            if c["kernel_ms"] and c["bound_ms"] > c["kernel_ms"]]
+    if over:
+        print(f"an_gates: calls measured below their bound: {over}",
+              file=sys.stderr, flush=True)
+    return dict(records=records, launches_per_frame=per_frame,
+                bound_above_time=over,
+                an_full={k: [dict((f, c[f]) for f in (
+                    "lanes", "live_lanes", "bound_ms", "bound_by",
+                    "kernel_ms", "ms", "plain_ms")) for c in full[k]]
+                    for k in GATE_KERNELS},
+                an_baseline={k: [dict((f, c[f]) for f in (
+                    "lanes", "live_lanes", "bound_ms", "bound_by",
+                    "kernel_ms", "ms", "plain_ms")) for c in base[k]]
+                    for k in GATE_KERNELS})
+
 
 def main() -> int:
     import torch
@@ -1745,7 +2161,8 @@ def main() -> int:
 
     t0 = time.time()
     frames_an = run_frames(None, AN_HEIGHT, AN_WIDTH, AN_PATH,
-                           "verify_torch_analytic.png", smi)
+                           "verify_torch_analytic.png", smi,
+                           expect=AN_BASELINE_LAUNCHES)
     phase("frames_analytic", t0, **frames_an)
 
     t0 = time.time()
@@ -1818,6 +2235,13 @@ def main() -> int:
     phase("profile_an_full", t0, **profile(
         None, HEIGHT, WIDTH, AN_FULL_STAGES, frames_an_full["ms_per_frame"],
         "full", PROFILE_FRAME, env=env))
+
+    # the analytic occupancy gates: the trace, AO, bounce and sky kernels
+    # on every call of an an_full and an an_baseline frame
+    t0 = time.time()
+    gates = check_an_gates(env, frames_an_full, frames_an)
+    records.update(gates.pop("records"))
+    phase("an_gates", t0, **gates)
 
     # the bench's heavy: 4 samples a pixel on the bunny scene
     t0 = time.time()
@@ -1932,6 +2356,8 @@ def main() -> int:
     for path, run in ((AN_PATH, frames_an), (BVH_PATH, frames),
                       (FULL_PATH, frames_full)):
         launches.update({k: run["launches"][k] for k in path})
+    # the analytic gates' kernels as the an_full chain launched them
+    launches.update({k: frames_an_full["launches"][k] for k in GATE_KERNELS})
     launches["an_direct_env"] = frames_an_full["launches"]["an_direct"]
     # a replay's launches, summed over the graph phase's cases: what the
     # counters add a replay, and what the profiler saw the card run
@@ -1948,7 +2374,8 @@ def main() -> int:
                     source=KERNELS[k]["source"],
                     replaces=KERNELS[k]["replaces"], launches=launches[k],
                     on_main_path=k in (BVH_PATH + AN_PATH + FULL_PATH
-                                       + ("an_direct_env",)),
+                                       + AN_FULL_PATH + ("an_direct_env",)),
+                    port_only=bool(KERNELS[k].get("port_only")),
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], kernel_ms=r["kernel_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -2009,8 +2436,13 @@ def main() -> int:
                        cf_close_bound_by=r["bound_by"],
                        cf_close_share=r["share"])
         return out
+    def gate_keys(k):
+        # the analytic gates' kernels: their calls on an an_baseline frame
+        # beside the an_full frame's of the line (phase an_gates)
+        r = records.get(k, {})
+        return {key: r[key] for key in r if key.startswith("an_baseline_")}
     print(json.dumps({"kernels": [dict(line(k), **band_keys(k), **cf_keys(k),
-                                       **spp_keys(k))
+                                       **spp_keys(k), **gate_keys(k))
                                   for k in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -3242,7 +3674,7 @@ def check_app_headless(frames_full, frames_an_full, smi):
     # (a) the bunny scene, `full`, still camera: frames_full's frames
     full_args = app_args("--scene", "bvh", "--preset", "full")
     full_expect = dict(closest=1, bvh_direct=2, bounce=1, ao=1,
-                       svgf_present=1)
+                       svgf_present=1, sky=2)
     a, sums_a, app_a = app_frames(full_args, FRAMES, full_expect)
     if a["checksum"] != frames_full["checksum"]:
         raise AssertionError(f"app (a) checksum {a['checksum']} is not "
@@ -3569,7 +4001,7 @@ BVH_STAGES = (
 AN_STAGES = (
     ("render_frame", "models.pipeline", "render_frame"),
     ("trace_and_shade", "models.pipeline", "trace_and_shade"),
-    ("trace#", "ops.scene_analytic", "trace_analytic"),
+    ("trace#", "ops.an_trace_cuda", "trace"),
     ("direct_light", "ops.an_cuda", "direct_light"),
     ("mirror", "ops.lighting", "shade_mirror"),
     ("glass", "ops.lighting", "shade_glass"),
@@ -3594,8 +4026,8 @@ FULL_STAGES = (
 AN_FULL_STAGES = (
     ("render_frame", "models.pipeline", "render_frame"),
     ("trace_and_shade", "models.pipeline", "trace_and_shade"),
-    ("trace#", "ops.scene_analytic", "trace_analytic"),
-    ("sky#", "ops.scene_analytic", "sky"),  # the dense cubemap lookups
+    ("trace#", "ops.an_trace_cuda", "trace"),
+    ("sky#", "ops.an_trace_cuda", "sky"),  # the cubemap lookups
     ("direct_light", "ops.an_cuda", "direct_light"),
     ("gi#", "ops.lighting", "one_bounce_gi_analytic"),  # 1 inside mirror
     ("ao", "ops.lighting", "compute_ao"),

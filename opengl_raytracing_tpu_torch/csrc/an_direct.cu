@@ -33,7 +33,8 @@
 // unit-disk offsets of the four soft-shadow samples (lighting._disk_
 // offsets: the uint32 hash of sampling.rand, cp_offset's rotation,
 // remainder and concentric_sample).  K3 traces its shadow rays against
-// the five analytic primitives (closest t only) and shades its mirror
+// the five analytic primitives (closest t only, an_scene.cuh's trace,
+// the body an_trace.cu's kernels trace with) and shades its mirror
 // and glass lanes (the env reflection, no shadow work) on a path of
 // their own (below); a lane that `active` marks off (the caller's select
 // drops it) reads its mask byte and nothing else, and writes nothing.
@@ -182,6 +183,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "an_scene.cuh"
 #include "bvh_walk.cuh"
 #include "cubemap.cuh"
 #include "param_block.cuh"
@@ -195,7 +197,6 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kAll = 0xffffffffu;
 constexpr int kSamples = 4;   // SOFT_SHADOW_SAMPLES
-constexpr int kMatRows = 5;   // material ids 0-3, then the grey fallback
 // bvh_direct_kernel's chunk: a sample's disk windows of a unit's live
 // pixels and, in the first, their sun and point windows; its list holds a
 // full chunk, 192 windows (5,376 B a warp, 21,600 B a block with the
@@ -216,42 +217,6 @@ constexpr int kQueueCap = kDrainAt - 1 + 32;
 
 }  // namespace
 
-// Scene constants and the call's frame values, filled on the host
-// (ops/an_cuda.py:scene_args).
-struct AnScene {
-  // the cubemap environment: the float32 [6, env_f, env_f, 3] table on the
-  // device (null: the gradient sky); its intensity is the block's
-  const float* env;
-  const FrameRecord* frame;  // the frame index and ld2 of it
-  // the parameters: point_light_world, sun_dir, sky_up, sun_li, sky_li,
-  // point_light_color and _intensity, sky_top and sky_bottom, the
-  // material table's mat_albedo, mat_spec and mat_gloss rows,
-  // env_map_intensity
-  const ParamBlock* prm;
-  int env_f;
-  float light_c[3], light_t[3], light_b[3];  // disk light center and frame
-  float light_nneg[3];                       // -(disk light normal)
-  float light_color[3];
-  float light_radius;
-  float floor_n[3];
-  float floor_d;
-  float sphere_c[3][3];   // albedo, glass, mirror sphere centers
-  float sphere_r2[3];     // their radius * radius
-  float marker_r2;        // point-light marker radius * radius
-  // get_material's types: rows for ids 0-3 (floor, albedo, glass, mirror
-  // sphere) with the toggles resolved, row 4 for every other id (the
-  // marker); the rows' values are the block's
-  int mat_type[kMatRows];  // 0 diffuse, 1 mirror, 2 glass
-  float bvh_albedo[3];     // the BVH scene's white plastic
-  float bvh_spec, bvh_gloss;
-  float eps;
-  // frame_index (the record's index itself) and rng_frame as frame values
-  FrameAffine cp;
-  FrameAffine smp;
-  float pi_4, pi_2;        // PI / 4.0 and PI / 2.0 rounded to float32
-  int sun_e, sky_e, point_e;
-};
-
 // The hit rows of a K3 call and its live lanes, filled on the host
 // (ops/an_cuda.py:direct_rows).
 struct AnRows {
@@ -268,8 +233,6 @@ struct AnRows {
 };
 
 namespace {
-
-__device__ __forceinline__ V3 c3(const float* a) { return {a[0], a[1], a[2]}; }
 
 // ---- the disk offsets (lighting._disk_offsets), on sampling.cuh's hash ----
 
@@ -348,55 +311,6 @@ __device__ __forceinline__ V3 disk_point(const AnScene& s, float dx,
   const float dyr = dy * s.light_radius;
   return add3(add3(c3(s.light_c), scale3(c3(s.light_t), dxr)),
               scale3(c3(s.light_b), dyr));
-}
-
-// ---- the analytic scene ----
-
-// intersect.intersect_sphere: (t, valid) folded into the closest-t rule
-// of scene_analytic.trace_analytic_core (valid & t < best).
-__device__ __forceinline__ float sphere_t(float best, V3 o, V3 d, V3 c,
-                                          float r2, float eps) {
-  const V3 oc = sub3(o, c);
-  const float b = dot3(oc, d);
-  const float c2 = dot3(oc, oc) - r2;
-  const float disc = b * b - c2;
-  // a missed sphere (disc < 0, NaN included) returns `best` whatever the
-  // root: skip the sqrtf and what follows, the same bits
-  if (!(disc >= 0.0f)) return best;
-  const float s = sqrtf(fmaxf(disc, 0.0f));
-  const float t_near = -b - s;
-  const float t_far = -b + s;
-  const float t = t_near < eps ? t_far : t_near;
-  return (disc >= 0.0f && t >= eps && t < best) ? t : best;
-}
-
-// Closest-hit t (kInf on a miss) against the floor, the three spheres
-// and, if `marker`, the point-light marker: trace_analytic_core without
-// the normal and material bookkeeping.
-__device__ float trace_t(const AnScene& s, V3 o, V3 d, bool marker) {
-  const V3 fn = c3(s.floor_n);
-  const float denom = dot3(d, fn);
-  const float safe = fabsf(denom) < 1e-6f ? 1.0f : denom;
-  const float tf = -(dot3(o, fn) + s.floor_d) / safe;
-  float best = kInf;
-  if (fabsf(denom) >= 1e-6f && tf >= s.eps && tf < best) best = tf;
-  for (int k = 0; k < 3; ++k)
-    best = sphere_t(best, o, d, c3(s.sphere_c[k]), s.sphere_r2[k], s.eps);
-  if (marker)
-    best = sphere_t(best, o, d, c3(s.prm->point_light_world), s.marker_r2,
-                    s.eps);
-  return best;
-}
-
-// scene_analytic.sky: the cubemap times its intensity when the scene has
-// one, else the gradient, mix(top, bottom, 1 - t)
-__device__ __forceinline__ V3 sky(const AnScene& s, V3 d) {
-  if (s.env != nullptr)
-    return scale3(sample_cubemap(s.env, s.env_f, d),
-                  s.prm->env_map_intensity[0]);
-  const float t = fminf(fmaxf(0.5f * (d.y + 1.0f), 0.0f), 1.0f);
-  const V3 top = c3(s.prm->sky_top);
-  return add3(top, scale3(sub3(c3(s.prm->sky_bottom), top), 1.0f - t));
 }
 
 // vecmath.reflect(-v, n)

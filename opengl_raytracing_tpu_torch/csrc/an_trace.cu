@@ -1,0 +1,363 @@
+// The analytic scene's closest hit, ambient occlusion, GI bounce and sky
+// for Hopper (sm_90a), each computed on the live lanes of a mask alone.
+//
+// These four kernels replace no TPU kernel.  In the JAX package their
+// work is jnp code that runs behind its occupancy gates: the analytic
+// glass and mirror gate (opengl_raytracing_tpu/models/pipeline.py
+// _tile_gated_shade, ORT_ANALYTIC_GATE_FRAC, on by default), the hit gate
+// (shade_analytic_auto, ORT_AN_HIT_GATE) and the sky miss gate
+// (ops/scene.py SceneCtx.sky_gated with ops/cubemap.py
+// sample_cubemap_gated, ORT_SKY_MISS_GATE).  Those gates compact
+// 128-lane tiles under a lax.cond with a dense fallback; a captured CUDA
+// graph holds no data-dependent branch, so here the frame hands each call
+// the lanes that read its result as a device mask (models/pipeline.py,
+// ops/lighting.py) and the kernel skips the others:
+//
+//   * an_trace_kernel: scene_analytic.trace_analytic_core (the floor, the
+//     three spheres, the marker; with or without the glass sphere and the
+//     marker) on given rays: t, p, the unit normal and the material id;
+//     the primary trace (every lane live), glass's three secondaries and
+//     the mirror's reflected ray;
+//   * an_ao_kernel: lighting.compute_ao's analytic branch whole, the
+//     hemisphere rays sampled in the kernel (offsets 37i+3 / 19i+11),
+//     traced, counted within ao_radius and remapped;
+//   * an_bounce_kernel: one_bounce_gi_analytic's bounce ray sampled in the
+//     kernel (offsets seed*13 / seed*37 at the lane's sample) and its
+//     closest hit against the whole scene, with wi and cos_theta; the
+//     analytic counterpart of bvh_trace.cu's trace_bounce_kernel;
+//   * sky_kernel: scene_analytic.sky, the cubemap (cubemap.cuh) times its
+//     intensity or the gradient, at each of the frame's sky call sites
+//     (the BVH scene's too: its misses and its GI bounce's sky).
+//
+// A lane the mask marks off reads its mask byte and nothing else, and
+// writes nothing: its outputs are unspecified (ROADMAP C, "Inactive
+// lanes"), and the callers' selects drop them.  A missed live lane of a
+// trace writes the plain version's miss: t = 1e30, p = o + d * 1e30, a
+// zero normal and material 0.
+//
+// Inputs are read in place (LaneIn): a row a lane; a row a pixel, read by
+// every sample of a leading sample axis ([spp, H, W], the frame's shared
+// primary hit and its masks, lane i reading row i % n_px); or one row for
+// every lane (the camera's origin).  The scene's constants and the
+// pointer to the parameter block go by value in AnScene (an_scene.cuh,
+// the struct K3 takes), the frame's record by pointer: the arguments are
+// the same for every frame and every value of the data parameters, so a
+// captured CUDA graph replays the calls.
+//
+// The arithmetic is the plain PyTorch version's expression for
+// expression (an_scene.cuh's trace and sky, sampling.cuh's hash and
+// hemisphere sample, the winner's normal normalize(o + d*t - c)), built
+// with --fmad=false and without --use_fast_math: the kernels return the
+// plain versions' bits on live lanes.
+//
+// What bounds them on this card.  The primary trace has every lane live
+// and moves 12 B of direction in and 32 B of hit out a lane against some
+// 150 operations: bytes (2,073,600 lanes: 0.027 ms at 3.35 TB/s).  The
+// masked calls read a mask byte a lane and work on a few percent of the
+// lanes (the mirror and glass secondaries: 1-3% of a 1080p an_full frame;
+// the sky's misses about a third).  AO is operations: four hemisphere
+// samples and four five-primitive traces a live lane, ~1,100 operations.
+// The design is K3's (an_direct.cu):
+//
+//   * Persistent blocks (persistent.cuh): as many blocks of 128 threads
+//     as fit the card, each warp looping over units of 32 lanes,
+//     block-minor; a unit with no live lane ends at its __ballot_sync.
+//   * Live lanes queued per warp: a unit's live lanes join the warp's
+//     queue in shared memory (int64 lane indices, kQueueCap = 63: 2,016 B
+//     a block); once it holds 32 the warp works a round of 32, a lane
+//     each, so a sparse mask's live lanes fill whole rounds.  After its
+//     last unit the warp works what is left.
+//   * One trace body (an_scene.cuh's trace_closest, K3's too): the
+//     winner's index is kept and its normal computed once, where the plain
+//     version computes a normal for every primitive and selects one.
+//
+// Left for later: the mirror's and glass's ray setup (still PyTorch over
+// every lane), and the secondary traces fused with K3's call at their
+// hits.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "an_scene.cuh"
+#include "bvh_walk.cuh"
+#include "param_block.cuh"
+#include "persistent.cuh"
+#include "sampling.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kAll = 0xffffffffu;
+// a warp's queue of live lanes: worked 32 a round once it holds 32, so it
+// holds at most 31 + 32 (int64 lane indices: 504 B a warp)
+constexpr int kQueueCap = 31 + 32;
+
+}  // namespace
+
+// How a call's input is read: a row a lane, a row a pixel (row i % n_px,
+// the samples of a leading axis sharing it), or one row for every lane.
+enum { kLane = 0, kPixel = 1, kOne = 2 };
+
+// An input of a call on the device, read in place.
+struct LaneIn {
+  const void* p;  // [rows, 3] float32, or [rows] bytes for a mask
+  int mode;       // kLane, kPixel or kOne
+};
+
+// A trace's rays and outputs (ops/an_trace_cuda.py:trace).
+struct AnTraceArgs {
+  LaneIn ro, rd, active;  // active.p null: every lane live
+  int64_t n_lanes, n_px;
+  float eps;
+  int glass, marker;      // trace the glass sphere, the marker
+  float* t;               // [n_lanes]
+  float* p;               // [n_lanes, 3]
+  float* nrm;             // [n_lanes, 3]
+  int32_t* mat;           // [n_lanes]
+};
+
+// The AO call (ops/an_trace_cuda.py:ambient_occlusion); ao_bias,
+// ao_radius, ao_min and ao_span come from the scene's parameter block.
+struct AnAoArgs {
+  LaneIn p, n, active;    // the hits' points and raw normals
+  PixelGrid grid;
+  const FrameRecord* frame;
+  FrameAffine fi;         // frame_index of the record's index
+  int samples;            // ao_samples
+  int marker;             // the marker is traced (the point light is on)
+  float two_pi;           // float32(2.0 * PI)
+  int64_t n_lanes, n_px;
+  float* out;             // [n_lanes]
+};
+
+// The GI bounce call (ops/an_trace_cuda.py:bounce).
+struct AnBounceArgs {
+  LaneIn p, n, active;    // the hits' points and raw normals
+  PixelGrid grid;         // lane i: pixel i % n_px of sample i / n_px
+  const FrameRecord* frame;
+  FrameAffine rng;        // rng_frame (sampling.rand's keys)
+  FrameAffine seed;       // seed: offsets float32(seed * 13), * 37
+  float two_pi;           // float32(2.0 * PI)
+  int marker;
+  int64_t n_lanes, n_px;
+  float* t;
+  float* p_out;
+  float* n_out;
+  int32_t* mat;
+  float* wi;              // [n_lanes, 3]
+  float* cos;             // [n_lanes]
+};
+
+// The sky call (ops/an_trace_cuda.py:sky).
+struct SkyArgs {
+  LaneIn d, active;
+  int64_t n_lanes, n_px;
+  float* out;             // [n_lanes, 3]
+};
+
+namespace {
+
+// the row of lane i that an input read `mode` holds
+__device__ __forceinline__ int64_t in_row(int mode, int64_t i, int64_t n_px) {
+  return mode == kLane ? i : mode == kPixel ? i - div_index(i, n_px) * n_px
+                                            : 0;
+}
+
+__device__ __forceinline__ V3 in3(const LaneIn& x, int64_t i, int64_t n_px) {
+  return row3((const float*)x.p, in_row(x.mode, i, n_px));
+}
+
+__device__ __forceinline__ void store3(float* __restrict__ out, int64_t i,
+                                       V3 c) {
+  out[3 * i] = c.x;
+  out[3 * i + 1] = c.y;
+  out[3 * i + 2] = c.z;
+}
+
+// Run work(i) on every live lane i < n of `active` (null: every lane),
+// as persistent blocks over units of 32 lanes: a warp takes its units in
+// turn and queues their live lanes (__ballot_sync, each at its rank);
+// once the queue holds 32 it works a round of 32, a lane each, and takes
+// units again; after its last unit it works what is left.  A dead lane
+// reads its mask byte and nothing else.
+template <class Work>
+__device__ __forceinline__ void live_rounds(const Units& u,
+                                            const LaneIn& active, int64_t n,
+                                            int64_t n_px, Work work) {
+  __shared__ int64_t queue[kWarps][kQueueCap];
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int64_t* q = queue[threadIdx.x >> 5];
+  const uint8_t* act = (const uint8_t*)active.p;
+  int n_q = 0;  // the same on every lane of the warp
+  int64_t j = u.first();
+  for (;;) {
+    for (; j < u.n_units && n_q < 32; j += u.stride()) {
+      const int64_t i = u.base(j) + lane;
+      const bool live =
+          i < n &&
+          (act == nullptr || __ldg(act + in_row(active.mode, i, n_px)));
+      const unsigned b = __ballot_sync(kAll, live);
+      if (live) q[n_q + __popc(b & below)] = i;
+      n_q += __popc(b);
+    }
+    if (n_q == 0) break;  // the units done and the queue empty
+    const int k = min(n_q, 32);
+    __syncwarp();  // the entries are written
+    if (lane < k) work(q[n_q - k + lane]);
+    n_q -= k;
+    __syncwarp();  // the entries are read before the next enqueue
+  }
+}
+
+// The closest hit of ray o + t*d written to lane i as trace_analytic_core
+// returns it: t, p = o + d*t, the winner's unit normal (the floor's, or
+// normalize(o + d*t - c) of the sphere's centre c) and its material id
+// (the primitive's index: MAT_FLOOR 0, the albedo, glass and mirror
+// spheres 1-3, the marker 4); on a miss t = 1e30, p = o + d*1e30, a zero
+// normal and material 0.
+__device__ __forceinline__ void hit_out(const AnScene& s, V3 o, V3 d,
+                                        bool glass, bool marker, float eps,
+                                        int64_t i, float* __restrict__ t_out,
+                                        float* __restrict__ p_out,
+                                        float* __restrict__ n_out,
+                                        int32_t* __restrict__ mat_out) {
+  const AnHit h = trace_closest(s, o, d, glass, marker, eps);
+  const V3 p = add3(o, scale3(d, h.t));
+  V3 nrm = {0.0f, 0.0f, 0.0f};
+  if (h.k == kAnFloor) {
+    nrm = c3(s.floor_n);
+  } else if (h.k != kAnMiss) {
+    // a select chain: no dynamic index into the by-value struct
+    V3 c = c3(s.prm->point_light_world);
+    if (h.k == 1) c = c3(s.sphere_c[0]);
+    if (h.k == 2) c = c3(s.sphere_c[1]);
+    if (h.k == 3) c = c3(s.sphere_c[2]);
+    nrm = norm3(sub3(p, c));
+  }
+  t_out[i] = h.t;
+  store3(p_out, i, p);
+  store3(n_out, i, nrm);
+  mat_out[i] = h.k == kAnMiss ? 0 : h.k;
+}
+
+// trace_analytic_core on the live lanes of the call's rays.
+__global__ void __launch_bounds__(kThreads)
+an_trace_kernel(const Units u, const AnScene s, const AnTraceArgs a) {
+  live_rounds(u, a.active, a.n_lanes, a.n_px, [&](int64_t i) {
+    hit_out(s, in3(a.ro, i, a.n_px), in3(a.rd, i, a.n_px), a.glass,
+            a.marker, a.eps, i, a.t, a.p, a.nrm, a.mat);
+  });
+}
+
+// compute_ao's analytic branch on the live lanes: from p + n*ao_bias
+// (n = normalize(h.n)), `samples` cosine-hemisphere rays from the rand
+// pairs at offsets 37k+3 and 19k+11 of frame_index, each occluded where
+// its closest hit is valid and within ao_radius; then _ao_value's remap,
+// clamp(ao_min + ao_span * (1 - occ / samples), ao_min, 1).
+__global__ void __launch_bounds__(kThreads)
+an_ao_kernel(const Units u, const AnScene s, const AnAoArgs a) {
+  const uint32_t kx = frame_value(frame_index(a.frame), a.fi);
+  const uint32_t ky = key_y(kx);
+  const float bias = __ldg(s.prm->ao_bias), radius = __ldg(s.prm->ao_radius);
+  const float ao_min = __ldg(s.prm->ao_min), span = __ldg(s.prm->ao_span);
+  live_rounds(u, a.active, a.n_lanes, a.n_px, [&](int64_t i) {
+    float px, py;
+    pixel_centre(a.grid, i, &px, &py);
+    const V3 nn = norm3(in3(a.n, i, a.n_px));
+    const V3 o = add3(in3(a.p, i, a.n_px), scale3(nn, bias));
+    int occ = 0;
+    for (int k = 0; k < a.samples; ++k) {
+      const float o1 = (float)(37 * k + 3), o2 = (float)(19 * k + 11);
+      const float ux = rand01(px + o1, py + o1, kx, ky);
+      const float uy = rand01(py + o2, px + o2, kx, ky);
+      const V3 d = hemisphere_cosine(nn, ux, uy, a.two_pi);
+      const float t = trace_closest(s, o, d, true, a.marker, s.eps).t;
+      occ += t < kInf && t < radius;
+    }
+    const float ao = 1.0f - (float)occ / (float)a.samples;
+    a.out[i] = fminf(fmaxf(ao_min + span * ao, ao_min), 1.0f);
+  });
+}
+
+// one_bounce_gi_analytic's bounce on the live lanes: the rand pair at
+// offsets seed*13 and seed*37 of the lane's sample, n0 = normalize(h.n),
+// the cosine-hemisphere direction wi around n0, cos = max(dot(n0, wi), 0),
+// and the closest hit of the whole scene from p + n0*EPS along wi.
+__global__ void __launch_bounds__(kThreads)
+an_bounce_kernel(const Units u, const AnScene s, const AnBounceArgs a) {
+  const uint32_t f = frame_index(a.frame);
+  live_rounds(u, a.active, a.n_lanes, a.n_px, [&](int64_t i) {
+    const uint32_t smp = sample_of(a.grid, i);
+    const uint32_t kx = frame_value(f, a.rng, smp), ky = key_y(kx);
+    const uint32_t seed = frame_value(f, a.seed, smp);
+    const float so = frame_f32(seed * 13u), so2 = frame_f32(seed * 37u);
+    float px, py;
+    pixel_centre(a.grid, i, &px, &py);
+    const float ux = rand01(px + so, py + so, kx, ky);
+    const float uy = rand01(py + so2, px + so2, kx, ky);
+    const V3 n0 = norm3(in3(a.n, i, a.n_px));
+    const V3 wi = hemisphere_cosine(n0, ux, uy, a.two_pi);
+    store3(a.wi, i, wi);
+    a.cos[i] = fmaxf(dot3(n0, wi), 0.0f);
+    hit_out(s, add3(in3(a.p, i, a.n_px), scale3(n0, s.eps)), wi, true,
+            a.marker, s.eps, i, a.t, a.p_out, a.n_out, a.mat);
+  });
+}
+
+// scene_analytic.sky on the live lanes.
+__global__ void __launch_bounds__(kThreads)
+sky_kernel(const Units u, const AnScene s, const SkyArgs a) {
+  live_rounds(u, a.active, a.n_lanes, a.n_px, [&](int64_t i) {
+    store3(a.out, i, sky(s, in3(a.d, i, a.n_px)));
+  });
+}
+
+}  // namespace
+
+// Plain C entry points for ctypes.  `scene` and `args` are host pointers
+// (their own pointers are device pointers; a null mask: every lane live);
+// the stream is a cudaStream_t.  Each returns a cudaError_t as an int: of
+// the set-up calls, else cudaGetLastError().  Persistent blocks over
+// units of 32 lanes (persistent.cuh).
+extern "C" int ort_an_trace(const AnScene* scene, const AnTraceArgs* args,
+                            void* stream) {
+  return launch_persistent(an_trace_kernel, kThreads,
+                           make_units(args->n_lanes, 32),
+                           (cudaStream_t)stream, *scene, *args);
+}
+
+extern "C" int ort_an_ao(const AnScene* scene, const AnAoArgs* args,
+                         void* stream) {
+  return launch_persistent(an_ao_kernel, kThreads,
+                           make_units(args->n_lanes, 32),
+                           (cudaStream_t)stream, *scene, *args);
+}
+
+extern "C" int ort_an_bounce(const AnScene* scene, const AnBounceArgs* args,
+                             void* stream) {
+  return launch_persistent(an_bounce_kernel, kThreads,
+                           make_units(args->n_lanes, 32),
+                           (cudaStream_t)stream, *scene, *args);
+}
+
+extern "C" int ort_sky(const AnScene* scene, const SkyArgs* args,
+                       void* stream) {
+  return launch_persistent(sky_kernel, kThreads,
+                           make_units(args->n_lanes, 32),
+                           (cudaStream_t)stream, *scene, *args);
+}
+
+// The structs' sizes, so the host can check its mirrors of the layouts:
+// AnScene, PixelGrid, LaneIn, AnTraceArgs, AnAoArgs, AnBounceArgs, SkyArgs
+// into `sizes` (room for `cap`); returns how many there are.
+extern "C" int ort_an_trace_sizes(int* sizes, int cap) {
+  const int all[] = {(int)sizeof(AnScene),     (int)sizeof(PixelGrid),
+                     (int)sizeof(LaneIn),      (int)sizeof(AnTraceArgs),
+                     (int)sizeof(AnAoArgs),    (int)sizeof(AnBounceArgs),
+                     (int)sizeof(SkyArgs)};
+  const int n = (int)(sizeof(all) / sizeof(all[0]));
+  for (int k = 0; k < n && k < cap; ++k) sizes[k] = all[k];
+  return n;
+}

@@ -6,8 +6,9 @@ src/render/render.cpp:55-243), for the BVH scene and the analytic scene,
 with GI, AO, TAA and SVGF on or off, any number of samples a pixel, the
 gradient sky or a cubemap environment, and the motion debug view: every
 preset, and every argument the JAX `render_frame` takes.  The JAX
-package's tile gates and swizzle are not ported: they leave the image
-unchanged.
+package's swizzle is not ported; its occupancy gates take the form of
+device masks of the lanes each call's result is read on, which the
+kernels honour (`_shade_analytic`): the image is the dense form's.
 
 Samples a pixel (`spp_per_frame`) share the primary hit, the gbuffer, the
 motion and, when there is more than one, the ambient occlusion.  As in the
@@ -231,6 +232,13 @@ def _diffuse_lanes(mat_id, params):
         mat_id)
 
 
+def _type_lanes(mat_id, params, mtype):
+    """The lanes of get_material's resolved type `mtype` (the mirror's or
+    glass's), once a pixel where `mat_id` allows (`lt.per_pixel`)."""
+    return lt.per_pixel(lambda m: get_material(m, params).mtype == mtype,
+                        mat_id)
+
+
 def _shade_analytic(scene: SceneCtx, h: Hit, seed: Frame, frame_index: Frame,
                     vdir, px, py, active=None, ao=None):
     """Analytic-scene material dispatch (reference: rt.frag:119-162):
@@ -238,13 +246,20 @@ def _shade_analytic(scene: SceneCtx, h: Hit, seed: Frame, frame_index: Frame,
     emissive point-light marker, and the mirror and glass secondaries,
     selected in like the fragment shader's divergent branches.  Direct
     light and GI are two calls, the JAX package's default (its 2-batch
-    `direct_and_gi_analytic` is opt-in).  `active` (bool, None: all)
-    marks the lanes whose radiance the caller keeps (the sky select drops
-    the misses): each direct-light call (K3 on the card) is computed on
-    the lanes that its select and the caller's keep alone -- the direct
-    light and GI on the diffuse lanes, each mirror and glass secondary on
-    its valid hits of the mirror and glass lanes -- the frame's own form
-    of the JAX package's tile gates.  Every other lane is dropped by a
+    `direct_and_gi_analytic` is opt-in).
+
+    `active` (bool, None: all) marks the lanes whose radiance the caller
+    keeps (the sky select drops the misses).  Every call below is handed,
+    as a device mask, the lanes that its select and the caller's read,
+    and on the card its kernel computes those alone: the direct light and
+    the GI bounce on the diffuse lanes, AO on the hit lanes, the mirror's
+    reflected ray and glass's three secondaries on the mirror and glass
+    lanes, the direct light at a secondary hit on its valid hits among
+    them, and each sky lookup where its select reads it (ops/lighting.py).
+    That is the frame's form of the JAX package's occupancy gates (the
+    glass and mirror tile gate, the hit gate, the sky miss gate), without
+    their dense fallback: the masks are elementwise tensors, so a captured
+    graph replays them for any frame.  Every other lane is dropped by a
     select before any sum, so the image is the dense form's bit for bit.
     `ao` as in `_shade_bvh`; a leading sample axis broadcasts through
     every trace and call."""
@@ -259,7 +274,7 @@ def _shade_analytic(scene: SceneCtx, h: Hit, seed: Frame, frame_index: Frame,
             * params["gi_scale_analytic"]
     if params.enable_ao:
         if ao is None:
-            ao = lt.compute_ao(scene, h, frame_index, px, py)
+            ao = lt.compute_ao(scene, h, frame_index, px, py, active=active)
         radiance = radiance * ao[..., None]
 
     # emissive point-light marker (reference: rt.frag:137-148)
@@ -273,13 +288,13 @@ def _shade_analytic(scene: SceneCtx, h: Hit, seed: Frame, frame_index: Frame,
     if params.mat_mirror_enabled:
         mirror_r = lt.shade_mirror(
             scene, h, vdir, mat, seed, frame_index, px, py,
-            lt.and_lanes(active, mat.mtype == MTYPE_MIRROR))
+            lt.and_lanes(active, _type_lanes(h.mat, params, MTYPE_MIRROR)))
         radiance = torch.where((mat.mtype == MTYPE_MIRROR)[..., None],
                                mirror_r, radiance)
     if params.mat_glass_enabled:
         glass_r = lt.shade_glass(
             scene, h, vdir, mat, seed, frame_index, px, py,
-            lt.and_lanes(active, mat.mtype == MTYPE_GLASS))
+            lt.and_lanes(active, _type_lanes(h.mat, params, MTYPE_GLASS)))
         radiance = torch.where((mat.mtype == MTYPE_GLASS)[..., None],
                                glass_r, radiance)
     return radiance
@@ -393,7 +408,8 @@ def trace_and_shade(scene: SceneCtx, params: RenderParams, fin: FrameInputs,
     gpos = torch.where(hit_mask[..., None], h.p, 0.0)
     gnrm = torch.where(hit_mask[..., None], normalize(h.n), 0.0)
 
-    sky_radiance = scene.sky(rd)
+    # the environment where the sky select below reads it: the misses
+    sky_radiance = scene.sky(rd, ~hit_mask)
     vdir = -rd
     spp = 1 if show_motion else max(int(params.spp_per_frame), 1)
     # the primary hit is the same for every sample (reference: rt.frag:79
@@ -401,8 +417,7 @@ def trace_and_shade(scene: SceneCtx, params: RenderParams, fin: FrameInputs,
     # is computed once, ahead of them
     ao = None
     if params.enable_ao and spp > 1:
-        ao = lt.compute_ao(scene, h, frame_index, px, py,
-                           active=hit_mask if use_bvh else None)
+        ao = lt.compute_ao(scene, h, frame_index, px, py, active=hit_mask)
     seeds = sample_seeds(frame_index, spp)
     if spp > 1:
         def batch(x):

@@ -71,7 +71,7 @@ MAT_ROWS = len(_TABLE_IDS)
 
 
 class _AnScene(ctypes.Structure):
-    """Host mirror of `AnScene` in csrc/an_direct.cu (the table's device
+    """Host mirror of `AnScene` in csrc/an_scene.cuh (the table's device
     pointer first, then 4-byte fields; the layouts' sizes are compared
     when the library loads)."""
     _fields_ = [
@@ -136,9 +136,15 @@ def _f32(x) -> float:
 def _env_table(scene, device):
     """The scene's cubemap as the kernel reads it, or None for the
     gradient sky: the table `scene.sky` samples, checked."""
-    if not scene.params.enable_env_map or scene.env_map is None:
+    return env_table(scene.params, scene.env_map, device)
+
+
+def env_table(params, env, device):
+    """The cubemap table `env` as the kernels read it where `params`
+    enable it, else None (the gradient sky): float32 [6, F, F, 3],
+    contiguous, on `device`."""
+    if not params.enable_env_map or env is None:
         return None
-    env = scene.env_map
     check("env_map", env, torch.float32, (6, env.shape[1], env.shape[1], 3),
           device)
     return env
@@ -156,20 +162,31 @@ def scene_args(scene, rng_frame: Frame, frame_index: Frame, env=None,
     ld2(frame_index) from the record).  The same bytes for every frame and
     every value of the data parameters of one configuration.  `device` as
     `cuda_lib.frame_args` takes it."""
-    p = scene.params
-    s = _AnScene.from_buffer_copy(_scene_constants(
-        *(int(bool(getattr(p, k))) for k in _SCENE_TOGGLES)))
+    s = scene_struct(scene.params, env, device)
     record, (cp, smp), _ = cuda_lib.frame_args(device, frame_index,
                                                rng_frame)
     if (cp.a, cp.b, cp.c) != (1, 0, 0):
         raise ValueError("frame_index must be the record's frame index: the "
                          "kernels read ld2 of it from the record")
     s.frame, s.cp, s.smp = record.data_ptr(), cp, smp
-    s.prm = cuda_lib.param_block_ptr(p, device)
+    return s, record
+
+
+def scene_struct(params, env=None, device=None) -> "_AnScene":
+    """The `AnScene` of a call without frame values (the frame pointer and
+    RNG keys left zero): the constants of the static parameters of
+    `params` (a FrameParams, or a RenderParams bound to its cached block
+    on `device`), the pointer to its parameter block and the cubemap table
+    `env` (None leaves the pointer null: the gradient sky).  K3's
+    `scene_args` and the analytic scene's kernels (ops/an_trace_cuda.py)
+    take it.  `device` as `cuda_lib.param_block_ptr` takes it."""
+    s = _AnScene.from_buffer_copy(_scene_constants(
+        *(int(bool(getattr(params, k))) for k in _SCENE_TOGGLES)))
+    s.prm = cuda_lib.param_block_ptr(params, device)
     if env is not None:
         s.env = env.data_ptr()
         s.env_f = env.shape[1]
-    return s, record
+    return s
 
 
 # the static parameters `_scene_constants` depends on

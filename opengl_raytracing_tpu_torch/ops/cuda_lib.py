@@ -33,7 +33,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 SOURCES = {name: os.path.join(_CSRC, f"{name}.cu")
-           for name in ("bvh_trace", "an_direct", "svgf")}
+           for name in ("bvh_trace", "an_direct", "an_trace", "svgf")}
 BUILD_DIR = os.path.join(_PKG, "_build")
 # No --use_fast_math: the kernels rely on IEEE division, sqrt and exact
 # comparisons.  --fmad=false keeps nvcc from contracting a*b+c into FMAs,
@@ -44,9 +44,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 # one count per kernel: "svgf" is the filter entry alone, "svgf_present"
-# the fused present pass, "tonemap" the present pass without SVGF
+# the fused present pass, "tonemap" the present pass without SVGF; the
+# analytic scene's trace, AO and GI bounce kernels and both scenes' sky
+# kernel (csrc/an_trace.cu) "an_trace", "an_ao", "an_bounce" and "sky"
 LAUNCHES = {"closest": 0, "bounce": 0, "ao": 0, "an_direct": 0,
-            "bvh_direct": 0, "svgf": 0, "svgf_present": 0, "tonemap": 0}
+            "bvh_direct": 0, "svgf": 0, "svgf_present": 0, "tonemap": 0,
+            "an_trace": 0, "an_ao": 0, "an_bounce": 0, "sky": 0}
 
 _libs: dict = {}
 

@@ -9,14 +9,19 @@ noise matches the JAX package bit for bit.  The JAX package's opt-in
 2-batch `direct_and_gi_analytic` is not ported; its default two-call form
 is.
 
-Four CUDA kernels take over on the card, each computing its whole call
-from hit records in one launch: the analytic `direct_light` tree and
-`direct_light_bvh`, its six shadow walks included (ops/an_cuda.py); the
-BVH scene's GI bounce ray, sampled and traced (`bvh_cuda.trace_bounce`),
-and its ambient occlusion, sampled, walked and remapped
-(`bvh_cuda.ambient_occlusion`).  Their plain versions are
-`direct_light_plain`, `direct_light_bvh_plain`, `gi_bounce_plain` and
-`ambient_occlusion_plain` here, which the wrappers run for CPU tensors.
+CUDA kernels take over on the card, each computing its whole call from
+hit records in one launch: the analytic `direct_light` tree and
+`direct_light_bvh`, its six shadow walks included (ops/an_cuda.py); each
+scene's GI bounce ray, sampled and traced (`bvh_cuda.trace_bounce`,
+`an_trace_cuda.bounce`), and its ambient occlusion, sampled, traced and
+remapped (`bvh_cuda.ambient_occlusion`, `an_trace_cuda.ambient_
+occlusion`).  Their plain versions are `direct_light_plain`,
+`direct_light_bvh_plain`, `gi_bounce_plain`, `gi_bounce_analytic_plain`,
+`ambient_occlusion_plain` and `ambient_occlusion_analytic_plain` here,
+which the wrappers run for CPU tensors.  The analytic scene's traces and
+sky lookups take the lanes their caller reads (`active`) down to the
+kernels of ops/an_trace_cuda.py: on the card every other lane is
+unspecified, as behind the JAX package's occupancy gates.
 
 A frame's samples reach these functions as one batch over a leading
 sample axis ([spp, H, W], models/pipeline.py), their seed one sampled
@@ -37,6 +42,7 @@ from __future__ import annotations
 
 import functools
 import operator
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
@@ -50,11 +56,14 @@ from ..constants import (EPS, PI, SOFT_SHADOW_SAMPLES, LIGHT_CENTER,
 from ..sampling import (Frame, rand, eps_for_dist, concentric_sample,
                         cp_offset, frame_f32, sample_hemisphere_cosine)
 from . import bvh_cuda
+from . import scene_analytic as sa
 from .bvh_traverse import trace_bvh, trace_bvh_shadow
 from .materials import (get_material, MaterialProps, MTYPE_DIFFUSE,
                         MTYPE_MIRROR, MTYPE_GLASS)
-from .scene import SceneCtx
 from .vecmath import dot, normalize, reflect, refract, mix, const3, length
+
+if TYPE_CHECKING:  # ops/scene.py imports the kernel wrappers, which import
+    from .scene import SceneCtx  # this module
 
 # Disk light frame, precomputed on host
 # (reference: shaders/rt/rt_lighting.glsl:29-32, 355-357).
@@ -80,11 +89,11 @@ def _segment_shadow_query(p, q):
 
 
 def occluded_toward(scene: SceneCtx, p, q):
-    """Segment occlusion test (reference: rt_lighting.glsl:49-60): a
-    closest hit inside the window.  (The BVH scene asks any-hit walks
-    instead: direct_light_bvh.)"""
+    """Segment occlusion test against the analytic scene (reference:
+    rt_lighting.glsl:49-60): a closest hit inside the window.  (The BVH
+    scene asks any-hit walks instead: direct_light_bvh.)"""
     origin, rd, win = _segment_shadow_query(p, q)
-    h = scene.trace(origin, rd)
+    h = sa.trace_analytic(origin, rd, scene.params, scene.point_light_pos)
     return h.valid & (h.t < win)
 
 
@@ -116,7 +125,8 @@ def sun_direct(scene: SceneCtx, h, mat, vdir, blocked=None):
     """Hard-shadowed directional sun (reference: rt_lighting.glsl:114-144).
 
     `blocked` is precomputed by the BVH scene's batched shadow walks
-    (direct_light_bvh_plain); without it the analytic scene traces."""
+    (direct_light_bvh_plain); without it the analytic scene traces (its
+    plain trace)."""
     if not scene.params.sun_enabled:
         return torch.zeros(h.t.shape + (3,), device=h.t.device)
     n = normalize(h.n)
@@ -125,7 +135,8 @@ def sun_direct(scene: SceneCtx, h, mat, vdir, blocked=None):
     ndl = torch.clamp_min(dot(n, l), 0.0)
     if blocked is None:
         origin, ldir, _ = _sun_shadow_query(scene, h, n)
-        blocked = scene.trace(origin, ldir).valid  # any hit blocks
+        blocked = sa.trace_analytic(origin, ldir, scene.params,
+                                    scene.point_light_pos).valid  # any hit
     li = scene.params["sun_li"]
     spec = torch.where(mat.mtype == MTYPE_DIFFUSE, mat.spec_strength, 0.0)
     out = shade_lambert_phong(n, v, l, li, mat.albedo, spec, mat.gloss)
@@ -169,7 +180,8 @@ def point_direct(scene: SceneCtx, h, mat, vdir, blocked=None):
     if blocked is None:
         origin, ldir, win = _point_shadow_query(scene, h)
         # the marker sphere must not shadow its own light
-        tmp = scene.trace_ignore_point_light(origin, ldir)
+        tmp = sa.trace_analytic_ignore_point_light(
+            origin, ldir, scene.params, scene.point_light_pos)
         blocked = tmp.valid & (tmp.t < win)
     # intensity / d2 as a host intensity divides: the reciprocal times it
     li = (scene.params["point_light_color"]
@@ -231,7 +243,8 @@ def _disk_light_sum(h, n, v, albedo, spec_strength, gloss, xls, occ_all):
 def direct_light_plain(scene: SceneCtx, h, rng_frame: Frame,
                        frame_index: Frame, vdir, px, py):
     """Direct lighting, analytic scene (reference: rt_lighting.glsl:313-395):
-    the plain version of the CUDA kernel behind `direct_light`.
+    the plain version of the CUDA kernel behind `direct_light`, in plain
+    PyTorch throughout (its traces and sky lookups too).
 
     Secondary-hit mirror/glass are approximated by environment
     reflections (no recursion), as in the reference."""
@@ -242,10 +255,11 @@ def direct_light_plain(scene: SceneCtx, h, rng_frame: Frame,
 
     # mirror-like secondary: tinted env reflection (rt_lighting.glsl:325-335)
     r = reflect(-v, n)
-    mirror_out = scene.sky(r) * mat.albedo
+    env = sa.sky(r, params, scene.env_map)
+    mirror_out = env * mat.albedo
 
     # glass-like secondary: env reflection + sky diffuse (.:337-350)
-    glass_out = scene.sky(r) * mat.albedo + sky_direct(scene, h, mat)
+    glass_out = env * mat.albedo + sky_direct(scene, h, mat)
 
     # diffuse/phong: disk area light + hybrid lights (.:352-394); the four
     # disk occlusion queries trace as one batch
@@ -436,9 +450,12 @@ def shade_glass(scene: SceneCtx, h, wo, mat, seed: Frame, frame_index: Frame,
     (reference: rt_lighting.glsl:576-663).  The three secondary rays
     trace and light one after the other (the JAX package's default
     sequential form).  `active` (bool, None: all) marks the lanes whose
-    result the caller keeps; each secondary's direct light is computed
-    on those of its hits alone (the others are dropped by its valid
-    select)."""
+    result the caller keeps: the secondaries are traced and the
+    environment looked up on those lanes alone (on the card), each
+    secondary's direct light on its valid hits among them, each sky
+    lookup where its select reads it (the reflection's on every kept
+    lane, the straight ray's where it missed, the bent ray's where it
+    refracts and missed).  The other lanes are unspecified."""
     n = normalize(h.n)
     v = normalize(wo)
     i = -v
@@ -446,7 +463,7 @@ def shade_glass(scene: SceneCtx, h, wo, mat, seed: Frame, frame_index: Frame,
     eta = 1.0 / ior
 
     r = reflect(i, n)
-    reflect_env = scene.sky(r)
+    reflect_env = scene.sky(r, active)
     cos_theta = torch.clamp(dot(-i, n), 0.0, 1.0)
     t_phys, k = refract(i, n, eta)
     t_dir = normalize(mix(i, normalize(t_phys), GLASS_DISTORTION_STRENGTH))
@@ -454,7 +471,7 @@ def shade_glass(scene: SceneCtx, h, wo, mat, seed: Frame, frame_index: Frame,
     def secondary(d):
         # misses are not sanitized: their p is ro + d * INF, and the
         # garbage lit there is dropped by the callers' valid select
-        h2 = scene.trace_ignore_glass(h.p + d * EPS, d)
+        h2 = scene.trace_ignore_glass(h.p + d * EPS, d, active=active)
         v2 = normalize(scene.cam_pos - h2.p)
         return direct_light(scene, h2, seed, frame_index, v2, px, py,
                             and_lanes(h2.valid, active)), h2.valid
@@ -469,10 +486,12 @@ def shade_glass(scene: SceneCtx, h, wo, mat, seed: Frame, frame_index: Frame,
 
     # Straight-through
     straight_col = torch.where(str_valid[..., None], straight_lit,
-                               scene.sky(i))
+                               scene.sky(i, and_lanes(active, ~str_valid)))
 
     # Bent refraction, softened toward straight-through
-    bent_col = torch.where(bent_valid[..., None], bent_lit, scene.sky(t_dir))
+    bent_col = torch.where(bent_valid[..., None], bent_lit,
+                           scene.sky(t_dir, and_lanes(active, k > 0.0,
+                                                      ~bent_valid)))
 
     refr_col = torch.where((k > 0.0)[..., None],
                            mix(straight_col, bent_col,
@@ -485,25 +504,44 @@ def shade_glass(scene: SceneCtx, h, wo, mat, seed: Frame, frame_index: Frame,
     return mix(refr_col, reflect_col, fresnel[..., None])
 
 
-def one_bounce_gi_analytic(scene: SceneCtx, h0, rng_frame: Frame, seed: Frame,
-                           frame_index: Frame, px, py, active=None):
-    """One cosine-weighted bounce + direct light at the secondary hit
-    (reference: rt_lighting.glsl:473-507).  The bounce hits go to
-    `direct_light` unsanitized (misses have p = o + wi * 1e30); the
-    valid select drops whatever is lit there, so the direct light is
-    computed on the valid hits of the lanes the caller keeps (`active`,
-    bool, None: all) alone."""
-    mat0 = get_material(h0.mat, scene.params)
+def gi_bounce_analytic_plain(scene: SceneCtx, h0, rng_frame: Frame,
+                             seed: Frame, px, py):
+    """The analytic GI bounce ray at each hit of `h0` and its closest hit
+    against the whole scene (reference: rt_lighting.glsl:473-490): (Hit,
+    wi, cos_theta), the rand pair at offsets seed*13 and seed*37; the
+    plain version of the CUDA kernel behind `an_trace_cuda.bounce`, on
+    every lane.  A sampled `seed` draws each sample's ray over the
+    batch's leading sample axis."""
     n0 = normalize(h0.n)
     so, so2 = frame_f32(seed * 13), frame_f32(seed * 37)
     ux = rand(px + so, py + so, rng_frame)
     uy = rand(py + so2, px + so2, rng_frame)
     wi = sample_hemisphere_cosine(n0, ux, uy)
     cos_theta = torch.clamp_min(dot(n0, wi), 0.0)
-    h1 = scene.trace(h0.p + n0 * EPS, wi)
+    h1 = sa.trace_analytic(h0.p + n0 * EPS, wi, scene.params,
+                           scene.point_light_pos)
+    return h1, wi, cos_theta
+
+
+def one_bounce_gi_analytic(scene: SceneCtx, h0, rng_frame: Frame, seed: Frame,
+                           frame_index: Frame, px, py, active=None):
+    """One cosine-weighted bounce + direct light at the secondary hit
+    (reference: rt_lighting.glsl:473-507).  `active` (bool, None: all)
+    marks the lanes the caller keeps: the bounce is sampled and traced on
+    those alone (`an_trace_cuda.bounce`: the kernel on the card, its plain
+    version on every lane on the CPU), the direct light computed on its
+    valid hits among them and the sky looked up where it missed.  The
+    bounce hits go to `direct_light` unsanitized (misses have p = o + wi *
+    1e30); the valid select drops whatever is lit there.  The other lanes
+    are unspecified."""
+    from . import an_trace_cuda
+    mat0 = get_material(h0.mat, scene.params)
+    h1, wi, cos_theta = an_trace_cuda.bounce(scene, h0, rng_frame, seed, px,
+                                             py, active)
     li_hit = direct_light(scene, h1, rng_frame, frame_index, -wi, px, py,
                           and_lanes(h1.valid, active))
-    li = torch.where(h1.valid[..., None], li_hit, scene.sky(wi))
+    li = torch.where(h1.valid[..., None], li_hit,
+                     scene.sky(wi, and_lanes(active, ~h1.valid)))
     out = mat0.albedo * (cos_theta / PI)[..., None] * li
     return torch.where((cos_theta > 0.0)[..., None], out, 0.0)
 
@@ -562,12 +600,14 @@ def shade_mirror(scene: SceneCtx, h, wo, mat, seed: Frame, frame_index: Frame,
     """Perfect mirror: one reflected trace + direct light (+ GI when it is
     on) at the reflected hit (reference: rt_lighting.glsl:675-708).
     `active` (bool, None: all) marks the lanes whose result the caller
-    keeps: the direct light and GI at the reflected hit are computed on
-    its valid hits among them alone."""
+    keeps: the reflected ray is traced on those alone (on the card), the
+    direct light and GI at its hit computed on its valid hits among them
+    and the sky looked up where it missed.  The other lanes are
+    unspecified."""
     n = normalize(h.n)
     i = -normalize(wo)
     r = reflect(i, n)
-    h2 = scene.trace(h.p + r * EPS, r)
+    h2 = scene.trace(h.p + r * EPS, r, active=active)
     lanes = and_lanes(h2.valid, active)
     col_hit = direct_light(scene, h2, seed, frame_index, -r, px, py, lanes)
     if scene.params.enable_gi:
@@ -576,7 +616,8 @@ def shade_mirror(scene: SceneCtx, h, wo, mat, seed: Frame, frame_index: Frame,
         col_hit = col_hit + one_bounce_gi_analytic(
             scene, h2, seed, seed * 131 + 17, frame_index, px, py,
             lanes) * scene.params["gi_scale_analytic"]
-    col = torch.where(h2.valid[..., None], col_hit, scene.sky(r))
+    col = torch.where(h2.valid[..., None], col_hit,
+                      scene.sky(r, and_lanes(active, ~h2.valid)))
     return col * mat.albedo
 
 
@@ -627,18 +668,29 @@ def ambient_occlusion_plain(bvh, h, frame_index: Frame, px, py, params,
     return _ao_value(occ, params)
 
 
+def ambient_occlusion_analytic_plain(scene: SceneCtx, h, frame_index: Frame,
+                                     px, py):
+    """Analytic ambient occlusion: the `ao_samples` hemisphere rays traced
+    as one batched closest-hit trace, counting hits with t < ao_radius,
+    remapped (reference: rt_lighting.glsl:721-757); the plain version of
+    the CUDA kernel behind `an_trace_cuda.ambient_occlusion`, on every
+    lane."""
+    params = scene.params
+    org, dirs = _ao_rays(h, frame_index, px, py, params)
+    hits = sa.trace_analytic(org[None], torch.stack(dirs), params,
+                             scene.point_light_pos)
+    return _ao_value(hits.valid & (hits.t < params["ao_radius"]), params)
+
+
 def compute_ao(scene: SceneCtx, h, frame_index: Frame, px, py, active=None):
     """Cosine-hemisphere ambient occlusion, radius-limited, remapped to
-    [ao_min, 1] (reference: rt_lighting.glsl:721-757).
-
-    BVH mode: `bvh_cuda.ambient_occlusion` (the CUDA kernel on the card,
-    `ambient_occlusion_plain` on the CPU); values on lanes where `active`
-    is False are unspecified.  Analytic mode: one batched closest-hit
-    trace, counting hits with t < ao_radius."""
-    params = scene.params
+    [ao_min, 1] (reference: rt_lighting.glsl:721-757): the CUDA kernel on
+    the card, the plain version on the CPU, for either scene
+    (`bvh_cuda.ambient_occlusion`, `an_trace_cuda.ambient_occlusion`).
+    Values on lanes where `active` is False are unspecified."""
+    from . import an_trace_cuda
     if scene.use_bvh:
         return bvh_cuda.ambient_occlusion(scene.bvh.arrays, h, frame_index,
-                                          px, py, params, active)
-    org, dirs = _ao_rays(h, frame_index, px, py, params)
-    hits = scene.trace(org[None], torch.stack(dirs))
-    return _ao_value(hits.valid & (hits.t < params["ao_radius"]), params)
+                                          px, py, scene.params, active)
+    return an_trace_cuda.ambient_occlusion(scene, h, frame_index, px, py,
+                                           active)

@@ -5,10 +5,12 @@ shaders/rt/rt_uniforms.glsl, rt_scene_analytic.glsl:132-197,
 rt_bvh.glsl:193-304).  BVH traces go to ops/bvh_cuda.py, which walks the
 tree with the CUDA kernel for CUDA tensors and with the plain PyTorch
 walk for CPU tensors (the AO and GI bounce calls go there from
-ops/lighting.py); analytic traces are plain PyTorch
-(ops/scene_analytic.py).  With a cubemap environment `sky` samples it
-(ops/cubemap.py); the analytic direct-light kernel samples the same table
-itself (ops/an_cuda.py).
+ops/lighting.py).  Analytic traces and both scenes' sky go to
+ops/an_trace_cuda.py, which computes the lanes a caller reads (`active`)
+with the kernels of csrc/an_trace.cu for CUDA tensors and every lane
+with the plain forms of ops/scene_analytic.py for CPU tensors.  With a
+cubemap environment `sky` samples it (ops/cubemap.py); the analytic
+direct-light kernel samples the same table itself (ops/an_cuda.py).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 from ..constants import EPS
 from ..params import FrameParams, RenderParams, bind
 from ..scene.bvh import BVHArrays, build_bvh_fast, bvh_to_arrays
-from . import bvh_cuda
+from . import an_trace_cuda, bvh_cuda
 from . import scene_analytic as sa
 from .cubemap import texel_table
 from .vecmath import normalize, v3
@@ -122,22 +124,26 @@ class SceneCtx:
     def trace(self, ro, rd, eps: float = EPS, active=None) -> sa.Hit:
         """Closest hit against the BVH or the analytic scene.  `active`
         (bool, the rays' shape) marks the lanes whose hit the caller
-        keeps; in BVH mode the others do not walk and read as misses
-        (values there are unspecified, as in the JAX package), the
-        analytic scene traces every lane."""
+        keeps; in BVH mode the others do not walk and read as misses, in
+        the analytic scene they are unspecified on the card (the trace
+        kernel leaves them unwritten; the CPU traces every lane), as in
+        the JAX package's gates."""
         if self.use_bvh:
             return bvh_cuda.trace_closest(self.bvh.arrays, ro, rd, eps,
                                           active)
-        return sa.trace_analytic(ro, rd, self.params, self.point_light_pos,
-                                 eps)
+        return an_trace_cuda.trace(ro, rd, self.params, self.point_light_pos,
+                                   True, True, eps, active)
 
-    def trace_ignore_glass(self, ro, rd, eps: float = EPS) -> sa.Hit:
-        return sa.trace_analytic_ignore_glass(ro, rd, self.params,
-                                              self.point_light_pos, eps)
+    def trace_ignore_glass(self, ro, rd, eps: float = EPS,
+                           active=None) -> sa.Hit:
+        """The analytic scene without the glass sphere, for refraction
+        paths; `active` as for `trace`."""
+        return an_trace_cuda.trace(ro, rd, self.params, self.point_light_pos,
+                                   False, True, eps, active)
 
-    def trace_ignore_point_light(self, ro, rd, eps: float = EPS) -> sa.Hit:
-        return sa.trace_analytic_ignore_point_light(
-            ro, rd, self.params, self.point_light_pos, eps)
-
-    def sky(self, d):
-        return sa.sky(d, self.params, self.env_map)
+    def sky(self, d, active=None):
+        """The environment of directions `d`, sampled on the lanes
+        `active` marks (bool, d's shape but the last axis; None: every
+        lane; the others are unspecified on the card: the sky kernel,
+        ops/an_trace_cuda.py)."""
+        return an_trace_cuda.sky(d, self.params, self.env_map, active)

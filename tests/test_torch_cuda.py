@@ -645,7 +645,8 @@ def test_walks_a_large_tree():
 
 def test_gi_and_ao_calls_are_one_launch_each(bvh):
     """compute_ao (BVH) is one AO launch; one_bounce_gi_bvh is one bounce
-    launch and one BVH direct-light launch at the bounce hits."""
+    launch, one BVH direct-light launch at the bounce hits and one sky
+    launch for the bounce's misses."""
     params = preset("full")
     scene, h_raw, h, px, py, _ = _bvh_frame(bvh, params)
     before = dict(cuda_lib.LAUNCHES)
@@ -656,7 +657,7 @@ def test_gi_and_ao_calls_are_one_launch_each(bvh):
     gi = lt.one_bounce_gi_bvh(scene, h, two, two, two, px, py,
                               active=h_raw.valid)
     assert _grew(before) == {**{k: 0 for k in before}, "bounce": 1,
-                             "bvh_direct": 1}
+                             "bvh_direct": 1, "sky": 1}
     hit = h_raw.valid
     assert bool(torch.isfinite(gi).all())
     assert bool(torch.isfinite(ao[hit]).all())
@@ -1591,7 +1592,7 @@ def _graph_chain(jit, params, frames, env=None, bvh=None, moving=False,
 
 
 @pytest.mark.parametrize("case", ["baseline", "full", "heavy", "moving",
-                                  "an_baseline", "an_full"])
+                                  "an_baseline", "an_full", "an_heavy"])
 def test_replayed_frames_equal_eager_frames(bvh, case):
     """A chain replayed from its CUDA graph gives the eager chain's frames
     and accumulations bit for bit and launches the same kernels a frame;
@@ -1600,7 +1601,7 @@ def test_replayed_frames_equal_eager_frames(bvh, case):
     from opengl_raytracing_tpu_torch.models import graph
     from opengl_raytracing_tpu_torch.ops.scene import BVHDevice
     name = {"moving": "full", "an_baseline": "baseline",
-            "an_full": "full"}.get(case, case)
+            "an_full": "full", "an_heavy": "heavy"}.get(case, case)
     params = preset(name)
     env = None
     if case == "an_full":
@@ -1992,3 +1993,248 @@ def test_a_failed_band_capture_raises(bvh, tmp_path, monkeypatch):
     finally:
         graph.clear()
         dist.destroy_process_group()
+
+
+# ---- the analytic scene's live-lane kernels (csrc/an_trace.cu) ----
+
+GATE_CALLS = dict(trace=5, ambient_occlusion=1, bounce=2, sky=7)
+GATE_COUNTERS = dict(trace="an_trace", ambient_occlusion="an_ao",
+                     bounce="an_bounce", sky="sky")
+
+
+def _an_gate_calls(params, size, env):
+    """The calls one eager analytic frame on the card makes to the four
+    wrappers of ops/an_trace_cuda.py: [(name, arguments, active)]."""
+    from opengl_raytracing_tpu_torch.models import RenderState, render_frame
+    from opengl_raytracing_tpu_torch.ops import an_trace_cuda
+    h, w = size
+    calls, real = [], {n: getattr(an_trace_cuda, n) for n in GATE_CALLS}
+
+    def spy(name):
+        def fn(*args, **kw):
+            import inspect
+            bound = inspect.signature(real[name]).bind(*args, **kw)
+            bound.apply_defaults()
+            a = dict(bound.arguments)
+            calls.append((name, a, a.pop("active")))
+            return real[name](*args, **kw)
+        return fn
+    cam = Camera()
+    cam.aspect = w / h
+    fin = camera_frame_inputs(cam, "cuda", jitter=(0.2, -0.1), frame_index=5)
+    try:
+        for n in GATE_CALLS:
+            setattr(an_trace_cuda, n, spy(n))
+        render_frame(params, fin, RenderState.create(h, w, "cuda"), env,
+                     height=h, width=w)
+    finally:
+        for n, fn in real.items():
+            setattr(an_trace_cuda, n, fn)
+    return calls
+
+
+def _gate_plain(name, a, active):
+    """The dense plain version of a wrapper call, on the card, on inputs
+    whose lanes the frame's mask `active` marks dead are set to a valid
+    value (_unread): the frame leaves them unspecified, and the plain
+    version computes every lane."""
+    from opengl_raytracing_tpu_torch.ops import scene_analytic as tsa
+    a = _unread(name, a, active)
+    if name == "trace":
+        h = tsa.trace_analytic_core(a["ro"], a["rd"], a["params"],
+                                    a["point_light_pos"], a["include_glass"],
+                                    a["include_point_light"], a["eps"])
+        return dict(zip(Hit._fields, h))
+    if name == "ambient_occlusion":
+        return dict(ao=lt.ambient_occlusion_analytic_plain(
+            a["scene"], a["h"], a["frame_index"], a["px"], a["py"]))
+    if name == "bounce":
+        h, wi, cos = lt.gi_bounce_analytic_plain(
+            a["scene"], a["h0"], a["rng_frame"], a["seed"], a["px"],
+            a["py"])
+        return dict(zip(Hit._fields, h), wi=wi, cos=cos)
+    return dict(sky=tsa.sky(a["d"], a["params"], a["env_map"]))
+
+
+def _unread(name, a, active):
+    """The arguments `a` of a wrapper call with every lane that `active`
+    marks dead set to one valid value in its per-lane inputs (the rays,
+    the hits, the directions); the live lanes unchanged."""
+    if active is None:
+        return a
+
+    def fill(x, value):
+        value = torch.tensor(value, dtype=x.dtype, device=x.device)
+        return torch.where(active[..., None] if value.dim() else active, x,
+                           value)
+
+    def hit(h):
+        return Hit(fill(h.t, 1.0), fill(h.p, (0.0, 0.5, 0.0)),
+                   fill(h.n, (0.0, 1.0, 0.0)), fill(h.mat, 0))
+    up = (0.0, 1.0, 0.0)
+    if name == "trace":
+        return dict(a, ro=fill(a["ro"], (0.0, 0.5, 0.0)), rd=fill(a["rd"], up))
+    if name == "sky":
+        return dict(a, d=fill(a["d"], up))
+    key = "h" if name == "ambient_occlusion" else "h0"
+    return dict(a, **{key: hit(a[key])})
+
+
+def _gate_out(name, out):
+    if name == "trace":
+        return dict(zip(Hit._fields, out))
+    if name == "bounce":
+        return dict(zip(Hit._fields, out[0]), wi=out[1], cos=out[2])
+    return {"ao" if name == "ambient_occlusion" else "sky": out}
+
+
+def _gate_shape(name, a):
+    if name == "trace":
+        return torch.broadcast_shapes(a["ro"].shape[:-1], a["rd"].shape[:-1])
+    if name == "sky":
+        return a["d"].shape[:-1]
+    return (a["h"] if name == "ambient_occlusion" else a["h0"]).t.shape
+
+
+def _gate_sentinel(monkeypatch):
+    """Kernel outputs filled with SENTINEL (-7 for the material id) before
+    the launch, so a test sees the lanes a kernel wrote."""
+    from opengl_raytracing_tpu_torch.ops import an_trace_cuda
+    monkeypatch.setattr(an_trace_cuda, "_empty",
+                        lambda shape, dtype, device: torch.full(
+                            shape if isinstance(shape, tuple) else (shape,),
+                            SENTINEL, dtype=dtype, device=device))
+
+
+@pytest.mark.parametrize("env", [True, False], ids=["cubemap", "gradient"])
+@pytest.mark.parametrize("spp", [1, 4])
+@pytest.mark.parametrize("size", SIZES)
+def test_an_gate_kernels_match_plain(size, spp, env, monkeypatch):
+    """Every call an analytic `full` frame makes to the trace, AO, bounce
+    and sky kernels (5, 1, 2 and 7 of them), with the frame's own mask,
+    none, a partial one and an empty one: one launch, every output equal
+    to the dense plain version's bit for bit on the lanes live in the
+    mask and the frame's own (the frame's dead lanes hold unspecified
+    inputs), and no dead lane written."""
+    from opengl_raytracing_tpu_torch.convert import env_from_numpy
+    from opengl_raytracing_tpu_torch.ops import an_trace_cuda
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    params = preset("full").replace(spp_per_frame=spp,
+                                    enable_env_map=int(env))
+    table = None
+    if env:
+        faces = np.random.RandomState(2).randint(0, 256, (6, 16, 16, 3))
+        table = env_from_numpy(faces.astype(np.uint8), "cuda")
+    calls = _an_gate_calls(params, size, table)
+    assert {n: sum(c[0] == n for c in calls) for n in GATE_CALLS} \
+        == GATE_CALLS
+    _gate_sentinel(monkeypatch)
+    g = torch.Generator(device="cuda").manual_seed(spp)
+    for k, (name, a, active) in enumerate(calls):
+        shape = _gate_shape(name, a)
+        want = _gate_plain(name, a, active)
+        masks = {"frame": active, "none": None,
+                 "partial": torch.rand(shape, generator=g,
+                                       device="cuda") < 0.3,
+                 "empty": torch.zeros(shape, dtype=torch.bool,
+                                      device="cuda")}
+        for how, mask in masks.items():
+            before = dict(cuda_lib.LAUNCHES)
+            got = _gate_out(name, getattr(an_trace_cuda, name)(
+                **a, active=mask))
+            assert _grew(before) == {**{c: 0 for c in before},
+                                     GATE_COUNTERS[name]: 1}
+            torch.cuda.synchronize()
+            live = (torch.ones(shape, dtype=torch.bool, device="cuda")
+                    if mask is None else mask.expand(shape))
+            # the frame's dead lanes hold unspecified inputs: compared
+            # where the frame's mask is live too
+            both = live if active is None else live & active.expand(shape)
+            for field, w in want.items():
+                x = got[field]
+                assert torch.equal(x[both], w.expand(x.shape)[both]), (
+                    k, name, how, field)
+                assert bool((x[~live] == SENTINEL).all()), (k, name, how,
+                                                            field)
+
+
+def test_an_trace_kernel_reads_a_broadcast_origin_and_rows_a_pixel():
+    """The primary trace's camera origin is one row for every lane, a
+    mask and rays broadcast over a sample axis one row a pixel: the
+    kernel's hits equal the dense plain trace's bit for bit."""
+    from opengl_raytracing_tpu_torch.ops import an_trace_cuda
+    from opengl_raytracing_tpu_torch.ops import scene_analytic as tsa
+    scene, h_raw, h, px, py, vdir = _analytic(preset("full"), 37, 131)
+    rd = -vdir
+    ro = scene.cam_pos.expand(rd.shape)
+    for ro_, rd_, act in ((ro, rd, None),
+                          (_batch(ro, 4), _batch(rd, 4),
+                           _batch(h_raw.valid, 4))):
+        shape = rd_.shape[:-1]
+        modes = [an_trace_cuda.lane_input(x, shape, w, dt, rd.device,
+                                          "x")[0].mode
+                 for x, w, dt in ((ro_, 3, torch.float32),
+                                  (rd_, 3, torch.float32))]
+        assert modes == [an_trace_cuda.ONE, an_trace_cuda.LANE
+                         if act is None else an_trace_cuda.PIXEL]
+        got = an_trace_cuda.trace(ro_, rd_, scene.params,
+                                  scene.point_light_pos, True, True,
+                                  active=act)
+        want = tsa.trace_analytic_core(ro_, rd_, scene.params,
+                                       scene.point_light_pos, True, True)
+        live = (torch.ones(shape, dtype=torch.bool, device="cuda")
+                if act is None else act)
+        for x, w in zip(got, want):
+            assert torch.equal(x[live], w.expand(x.shape)[live])
+
+
+def test_an_gate_wrappers_reject_bad_inputs():
+    from opengl_raytracing_tpu_torch.ops import an_trace_cuda
+    scene, h_raw, h, px, py, vdir = _analytic(preset("full"), 8, 8)
+    rd = -vdir
+    with pytest.raises(TypeError):
+        an_trace_cuda.trace(scene.cam_pos.expand(rd.shape).double(),
+                            rd.double(), scene.params,
+                            scene.point_light_pos, True, True)
+    with pytest.raises(ValueError, match="point_light_world"):
+        an_trace_cuda.trace(scene.cam_pos.expand(rd.shape), rd,
+                            scene.params, scene.point_light_pos.clone(),
+                            True, True)
+    with pytest.raises(TypeError):
+        an_trace_cuda.sky(rd, scene.params, None, h_raw.valid.int())
+    with pytest.raises(ValueError):
+        an_trace_cuda.sky(rd, scene.params, None, h_raw.valid.cpu())
+
+
+def test_an_bands_in_turn_on_card_match_render_frame():
+    """The analytic `full` frame under a cubemap as four row bands a frame
+    on the card, one after another, three frames: every plane of every
+    frame and the accumulation equal render_frame's bit for bit (the
+    kernels index lanes by their rows, and nothing on the path reduces in
+    an order that follows the band's shape)."""
+    from opengl_raytracing_tpu_torch.convert import env_from_numpy
+    from opengl_raytracing_tpu_torch.models import RenderState, render_frame
+    from opengl_raytracing_tpu_torch.parallel.shardmap import (
+        render_bands_in_turn)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    h, w, n = 96, 128, 4
+    params = preset("full").replace(enable_env_map=1)
+    faces = np.random.RandomState(5).randint(0, 256, (6, 16, 16, 3))
+    env = env_from_numpy(faces.astype(np.uint8), "cuda")
+    cam = Camera()
+    cam.aspect = w / h
+    state = RenderState.create(h, w, "cuda")
+    bands = [RenderState(torch.zeros((h // n, w, 4), device="cuda"), 0)
+             for _ in range(n)]
+    for i in range(3):
+        fin = camera_frame_inputs(cam, "cuda", jitter=(0.1 * i, -0.2),
+                                  frame_index=i)
+        state, out = render_frame(params, fin, state, env, None, height=h,
+                                  width=w)
+        bands, outs, _ = render_bands_in_turn(params, fin, bands, env, None,
+                                              height=h, width=w)
+        for name, got in zip(out._fields, zip(*outs)):
+            assert torch.equal(torch.cat(got), getattr(out, name)), name
+    assert torch.equal(torch.cat([b.accum for b in bands]), state.accum)

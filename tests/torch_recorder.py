@@ -18,7 +18,8 @@ import ctypes
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from opengl_raytracing_tpu_torch.ops import an_cuda, bvh_cuda, svgf_cuda
+from opengl_raytracing_tpu_torch.ops import (an_cuda, an_trace_cuda,
+                                             bvh_cuda, svgf_cuda)
 
 # ATen operations that read a device value on the host: a captured frame
 # makes none
@@ -81,17 +82,32 @@ class Recorder(TorchDispatchMode):
         return func(*args, **kwargs)
 
 
-def _struct(args):
-    """An argument struct's bytes with its device pointers zeroed (they
-    differ between frames where each frame has its own block; in a
-    captured frame they are the static block's)."""
-    args = type(args).from_buffer_copy(bytes(args))
+def _zero_pointers(args):
+    """Zero every device pointer of a ctypes struct, nested structs'
+    included, in place; a PixelGrid is zeroed whole."""
     for name, kind in type(args)._fields_:
         if kind is ctypes.c_void_p:
             setattr(args, name, None)
         elif kind is bvh_cuda.cuda_lib.PixelGrid:
             setattr(args, name, kind())
+        elif isinstance(kind, type) and issubclass(kind, ctypes.Structure):
+            _zero_pointers(getattr(args, name))
+
+
+def _struct(args):
+    """An argument struct's bytes with its device pointers zeroed (they
+    differ between frames where each frame has its own block; in a
+    captured frame they are the static block's)."""
+    args = type(args).from_buffer_copy(bytes(args))
+    _zero_pointers(args)
     return bytes(args)
+
+
+def _modes(shape, *inputs):
+    """How the analytic scene's kernels would read each input (x, width),
+    None for an absent one: an_trace_cuda.lane_input's row mode."""
+    return tuple(None if x is None else an_trace_cuda.lane_input(
+        x, shape, w, x.dtype, x.device, "x")[0].mode for x, w in inputs)
 
 
 @contextlib.contextmanager
@@ -131,6 +147,37 @@ def recording(monkeypatch):
              bvh_cuda.ao_args(params, fi)[0]))
     stub(bvh_cuda, "trace_closest",
          lambda bvh, ro, rd, *a, **kw: (tuple(ro.shape), tuple(rd.shape)))
+
+    # the analytic scene's kernels: their structs, flags, shapes and how
+    # they would read each input (a row a lane or a pixel, one row)
+    def an_trace(ro, rd, params, plp, glass, marker, eps=None, active=None):
+        shape = torch.broadcast_shapes(ro.shape[:-1], rd.shape[:-1])
+        return (_struct(an_cuda.scene_struct(params)), glass, marker, eps,
+                tuple(shape), _modes(shape, (ro, 3), (rd, 3), (active, 0)))
+
+    def an_ao(scene, h, fi, px, py, active=None):
+        return (_struct(an_trace_cuda.ao_args(scene.params, fi)[0]),
+                _struct(an_cuda.scene_struct(scene.params)),
+                tuple(h.t.shape),
+                _modes(h.t.shape, (h.p, 3), (h.n, 3), (active, 0)))
+
+    def an_bounce(scene, h0, rng, seed, px, py, active=None):
+        return (_struct(an_trace_cuda.bounce_args(scene.params, rng,
+                                                  seed)[0]),
+                _struct(an_cuda.scene_struct(scene.params)),
+                tuple(h0.t.shape),
+                _modes(h0.t.shape, (h0.p, 3), (h0.n, 3), (active, 0)))
+
+    def sky(d, params, env_map=None, active=None):
+        env = an_cuda.env_table(params, env_map, d.device)
+        return (_struct(an_cuda.scene_struct(params, env)),
+                tuple(d.shape),
+                _modes(d.shape[:-1], (d, 3), (active, 0)))
+
+    stub(an_trace_cuda, "trace", an_trace)
+    stub(an_trace_cuda, "ambient_occlusion", an_ao)
+    stub(an_trace_cuda, "bounce", an_bounce)
+    stub(an_trace_cuda, "sky", sky)
     # the band entry's host arguments: halo, first row, image height
     stub(svgf_cuda, "svgf_present",
          lambda *a, **kw: ("svgf_present", tuple(sorted(kw.items()))))
