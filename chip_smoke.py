@@ -131,17 +131,32 @@ in phases, each printing its result and seconds on a line of its own:
   17b. an_gates: the analytic scene's live-lane kernels (csrc/an_trace.cu:
      the trace, AO, GI bounce and sky kernels, the port's form of the JAX
      package's occupancy gates) on every call of a 1080p an_full frame
-     (sky_day.png; 5, 1, 2 and 7 calls) and of an 800x600 an_baseline
-     frame (5 traces, 5 skies), the third of a chain, each on its recorded
+     (sky_day.png; 1, 1, 2 and 3 calls) and of an 800x600 an_baseline
+     frame (1 trace, 1 sky), the third of a chain, each on its recorded
      inputs against its dense plain version on the card, with the frame's
      own mask, none, a partial one and an empty one: every output bit for
      bit on the live lanes (a difference is printed with its size and
      fails the phase), one launch a call; each call's live lanes, bound
      (bytes at 3.35 TB/s or operations at 67 TFLOP/s, from the live
      lanes' work), wrapper, kernel and plain times; each kernel's launches
-     a frame in frames_an_full and frames_analytic (an_full: an_trace 5,
-     an_ao 1, an_bounce 2, sky 7, exactly; an_baseline: an_trace 5, sky
-     5);
+     a frame in frames_an_full and frames_analytic (an_full: an_trace 1,
+     an_ao 1, an_bounce 2, sky 3, exactly; an_baseline: an_trace 1, sky
+     1; the mirror's and glass's traces and skies are their rays
+     kernels', step 17c);
+  17c. an_shade: glass's and the mirror's rays and mix kernels
+     (csrc/an_shade.cu: an_glass_rays_kernel, an_glass_mix_kernel,
+     an_mirror_ray_kernel, an_mirror_mix_kernel, the rest of the JAX
+     package's glass and mirror tile gate) on every call of the same two
+     frames (one call each a frame), each on its recorded inputs against
+     its dense plain version on the card (lighting.glass_rays_plain,
+     glass_mix_plain, mirror_ray_plain, mirror_mix_plain), with the
+     frame's own mask, none, a partial one and an empty one: every output
+     bit for bit on the live lanes where the kernel writes it (a rays
+     kernel's skies where the mix reads them), a mix's `out` untouched on
+     its dead lanes, one launch a call; each call's live lanes, bound
+     (bytes: the mask, the live rows in and out), wrapper, kernel and
+     plain times; each kernel's launches a frame in frames_an_full and
+     frames_analytic (one each, exactly);
   18-20. frames_heavy (a frame: closest 1, bvh_direct 2, bounce 1, ao 1,
      svgf_present 1, sky 2, exactly; as a host loop of samples it was
      bvh_direct 8 and bounce 4), reference_heavy (270x480, 3 frames),
@@ -427,16 +442,40 @@ KERNELS = {  # wrapper key -> record of the JSON line
                 source="opengl_raytracing_tpu_torch/csrc/an_trace.cu",
                 replaces="opengl_raytracing_tpu/ops/scene.py:220",
                 kernel="sky_kernel", wrapper="sky", port_only=True),
+    # glass's and the mirror's rays and mix kernels: port-only, the JAX
+    # package's shade_glass and shade_mirror behind its glass and mirror
+    # tile gate (`replaces` names them)
+    "glass_rays": dict(name="an_glass_rays",
+                       source="opengl_raytracing_tpu_torch/csrc/an_shade.cu",
+                       replaces="opengl_raytracing_tpu/ops/lighting.py:511",
+                       kernel="an_glass_rays_kernel", wrapper="glass_rays",
+                       port_only=True),
+    "glass_mix": dict(name="an_glass_mix",
+                      source="opengl_raytracing_tpu_torch/csrc/an_shade.cu",
+                      replaces="opengl_raytracing_tpu/ops/lighting.py:511",
+                      kernel="an_glass_mix_kernel", wrapper="glass_mix",
+                      port_only=True),
+    "mirror_ray": dict(name="an_mirror_ray",
+                       source="opengl_raytracing_tpu_torch/csrc/an_shade.cu",
+                       replaces="opengl_raytracing_tpu/ops/lighting.py:584",
+                       kernel="an_mirror_ray_kernel", wrapper="mirror_ray",
+                       port_only=True),
+    "mirror_mix": dict(name="an_mirror_mix",
+                       source="opengl_raytracing_tpu_torch/csrc/an_shade.cu",
+                       replaces="opengl_raytracing_tpu/ops/lighting.py:584",
+                       kernel="an_mirror_mix_kernel", wrapper="mirror_mix",
+                       port_only=True),
 }
 GATE_KERNELS = ("an_trace", "an_ao", "an_bounce", "sky")
+SHADE_KERNELS = ("glass_rays", "glass_mix", "mirror_ray", "mirror_mix")
 # the launch counters each path must move (ops/cuda_lib.py:LAUNCHES, one
 # per kernel); no path launches "svgf", the filter entry alone: `full`
 # enters the same body through svgf_present
 BVH_PATH = ("closest", "bvh_direct", "tonemap", "sky")
-AN_PATH = ("an_direct", "tonemap", "an_trace", "sky")
+AN_PATH = ("an_direct", "tonemap", "an_trace", "sky") + SHADE_KERNELS
 FULL_PATH = ("closest", "bounce", "ao", "bvh_direct", "svgf_present", "sky")
 AN_FULL_PATH = ("an_direct", "svgf_present", "an_trace", "an_ao",
-                "an_bounce", "sky")
+                "an_bounce", "sky") + SHADE_KERNELS
 # launches a frame.  an_full: K3 at the primary hits, at their GI bounce,
 # at the mirror's hit and its GI bounce, at the glass's three secondary
 # hits.  heavy: the 4 samples shade as one batch: the direct light once at
@@ -447,11 +486,14 @@ AN_FULL_PATH = ("an_direct", "svgf_present", "an_trace", "an_ao",
 AN_FULL_LAUNCHES = dict(an_direct=7, svgf_present=1, tonemap=0)
 # the analytic scene's trace, AO, bounce and sky kernels a frame: the
 # primary trace and sky, AO, the bounce and sky of GI at the primary and
-# the mirror's hit, the mirror's trace and sky, glass's three traces and
-# three skies; an_baseline has no GI or AO
-AN_FULL_LAUNCHES.update(an_trace=5, an_ao=1, an_bounce=2, sky=7)
-AN_BASELINE_LAUNCHES = dict(an_direct=5, tonemap=1, an_trace=5, an_ao=0,
-                            an_bounce=0, sky=5)
+# the mirror's hit; the mirror's ray and mix, glass's rays and mix (their
+# traces and skies inside: before those kernels, an_trace 5 and sky 7);
+# an_baseline has no GI or AO
+AN_FULL_LAUNCHES.update(an_trace=1, an_ao=1, an_bounce=2, sky=3,
+                        **{k: 1 for k in SHADE_KERNELS})
+AN_BASELINE_LAUNCHES = dict(an_direct=5, tonemap=1, an_trace=1, an_ao=0,
+                            an_bounce=0, sky=1,
+                            **{k: 1 for k in SHADE_KERNELS})
 HEAVY_LAUNCHES = dict(closest=1, bvh_direct=2, bounce=1, ao=1,
                       svgf_present=1, svgf=0, tonemap=0, sky=2)
 HEAVY_SPP = 4          # the heavy preset's samples a pixel
@@ -758,8 +800,9 @@ def record_kernel_inputs(bvh, height, width, device, keys,
     `how`: render's env, camera and moved) and keep the arguments, by
     name, of every call the last frame makes to the wrappers `keys` (the
     wrappers still launch)."""
-    from opengl_raytracing_tpu_torch.ops import (an_cuda, an_trace_cuda,
-                                                 bvh_cuda, svgf_cuda)
+    from opengl_raytracing_tpu_torch.ops import (an_cuda, an_shade_cuda,
+                                                 an_trace_cuda, bvh_cuda,
+                                                 svgf_cuda)
     where = {"closest": (bvh_cuda, "trace_closest"),
              "bounce": (bvh_cuda, "trace_bounce"),
              "ao": (bvh_cuda, "ambient_occlusion"),
@@ -768,7 +811,9 @@ def record_kernel_inputs(bvh, height, width, device, keys,
              "svgf_present": (svgf_cuda, "svgf_present"),
              "tonemap": (svgf_cuda, "tonemap"),
              **{k: (an_trace_cuda, KERNELS[k]["wrapper"])
-                for k in GATE_KERNELS}}
+                for k in GATE_KERNELS},
+             **{k: (an_shade_cuda, KERNELS[k]["wrapper"])
+                for k in SHADE_KERNELS}}
     calls = {k: [] for k in keys}
     real = {k: getattr(*where[k]) for k in keys}
 
@@ -2099,6 +2144,265 @@ def check_an_gates(env, frames_an_full, frames_an, timer=None):
                     for k in GATE_KERNELS})
 
 
+# ---- phase an_shade: glass's and the mirror's rays and mix kernels ----
+
+SHADE_RAYS = ("reflect", "straight", "bent")  # glass's secondaries
+SENTINEL = 7.0   # the mix kernels' `out` before a check: dead lanes keep it
+
+
+def shade_shape(key, a):
+    if key in ("glass_rays", "mirror_ray"):
+        return a["h"].t.shape
+    return (a["rays"].k if key == "glass_mix" else a["ray"].hit.t).shape
+
+
+def shade_plain(key, a):
+    """The dense plain version of a call of shade kernel `key` on the card,
+    as {output: tensor}: the rays kernels' hits, views, skies (glass: k
+    and cos_theta too), the mix kernels' radiance."""
+    from opengl_raytracing_tpu_torch.ops import lighting as lt
+    if key == "glass_rays":
+        r = lt.glass_rays_plain(a["scene"], a["h"], a["wo"], a["mat"])
+        out = dict(k=r.k, cos=r.cos_theta)
+        for j, ray in enumerate(SHADE_RAYS):
+            out.update({f"{ray}_{f}": x
+                        for f, x in zip(r.hits[j]._fields, r.hits[j])})
+            out.update({f"{ray}_view": r.views[j], f"{ray}_sky": r.skies[j]})
+        return out
+    if key == "mirror_ray":
+        r = lt.mirror_ray_plain(a["scene"], a["h"], a["wo"])
+        return dict(zip(r.hit._fields, r.hit), view=r.view, sky=r.sky)
+    if key == "glass_mix":
+        return dict(radiance=lt.glass_mix_plain(a["scene"], a["h"], a["mat"],
+                                                a["rays"], a["lit"]))
+    return dict(radiance=lt.mirror_mix_plain(a["scene"], a["h"], a["mat"],
+                                             a["ray"], a["direct"], a["gi"]))
+
+
+def shade_written(key, want, live):
+    """{output: the lanes of `live` the kernel writes it on}: a rays
+    kernel's skies where the mix reads them (glass: the reflected on
+    every live lane, the straight where its ray missed, the bent where it
+    refracts and missed; the mirror's where its ray missed), every other
+    output on every live lane; from the dense plain outputs `want`."""
+    out = {}
+    for field in want:
+        lanes = live
+        if field == "sky":
+            lanes = live & ~(want["t"] < 1e30)
+        elif field == "straight_sky":
+            lanes = live & ~(want["straight_t"] < 1e30)
+        elif field == "bent_sky":
+            lanes = live & (want["k"] > 0.0) & ~(want["bent_t"] < 1e30)
+        out[field] = lanes
+    return out
+
+
+def shade_call(key, a, active, out=None):
+    """A call of shade kernel `key`'s wrapper with the mask `active` (and,
+    for a mix, the radiance `out`), as {output: tensor}."""
+    from opengl_raytracing_tpu_torch.ops import an_shade_cuda
+    fn = getattr(an_shade_cuda, KERNELS[key]["wrapper"])
+    args = {k: v for k, v in a.items() if k not in ("active", "out")}
+    if key in ("glass_rays", "mirror_ray"):
+        r = fn(**args, active=active)
+        if key == "mirror_ray":
+            return dict(zip(r.hit._fields, r.hit), view=r.view, sky=r.sky)
+        got = dict(k=r.k, cos=r.cos_theta)
+        for j, ray in enumerate(SHADE_RAYS):
+            got.update({f"{ray}_{f}": x
+                        for f, x in zip(r.hits[j]._fields, r.hits[j])})
+            got.update({f"{ray}_view": r.views[j], f"{ray}_sky": r.skies[j]})
+        return got
+    return dict(radiance=fn(**args, active=active, out=out))
+
+
+def same_bits(x, w):
+    """Equal, NaN where NaN: the kernels' and the plain versions' bits."""
+    import torch
+    return bool(((x == w) | (torch.isnan(x) & torch.isnan(w))).all())
+
+
+def shade_bound(key, a, live, want):
+    """The least time of one call of shade kernel `key` from the work of
+    its live lanes (bound()): the mask's bytes as the kernel reads them,
+    the live lanes' distinct input rows, their outputs and the rows a mix
+    reads by its selects; the operations of the live lanes' setup, traces
+    (the floor test, the winner's point and normal, a sphere test a
+    sphere; the roots of the spheres whose disc test passes and the
+    cubemap's texels are not counted, so the bound stays a lower one),
+    skies and mixes."""
+    shape = shade_shape(key, a)
+    n_live = int(live.sum())
+    mask = a.get("active")
+    n_bytes = 0 if mask is None else gate_mask_bytes(mask, shape)
+    written = shade_written(key, want, live)
+    params = a["scene"].params
+    marker = int(bool(params.point_light_enabled))
+    env = a["scene"].env_map is not None and params.enable_env_map
+    sky_op = OPS["cubemap"] + 3 if env else OPS["sky"]
+    trace_op = OPS["an_floor"] + OPS["hit_out"]
+    if key in ("glass_rays", "mirror_ray"):
+        h, wo = a["h"], a["wo"]
+        n_bytes += 12 * (gate_rows(h.p, shape, 3, live)
+                         + gate_rows(h.n, shape, 3, live)
+                         + gate_rows(wo, shape, 3, live))
+        skies = sum(int(written[f].sum()) for f in written
+                    if f.endswith("sky"))
+        n_bytes += 12 * skies
+        if key == "glass_rays":
+            # the material id a row, the camera's position, three hits
+            # and views (t, p, n, id, view: 44 B), k and cos
+            n_bytes += 4 * gate_rows(h.mat, shape, 0, live) + 12
+            n_bytes += n_live * (3 * 44 + 8)
+            # setup: two normalizes, the ior, eta, reflect, cos, refract,
+            # t_dir's mix and two normalizes: ~90; a ray: its origin, the
+            # trace without the glass sphere, its view (sub and normalize)
+            n_ops = n_live * (90 + 3 * (OPS["origin"] + trace_op
+                                        + (2 + marker) * OPS["an_sphere"]
+                                        + 3 + OPS["normalize"]))
+        else:
+            n_bytes += n_live * 44
+            n_ops = n_live * (2 * OPS["normalize"] + 9 + OPS["origin"]
+                              + trace_op + (3 + marker) * OPS["an_sphere"]
+                              + 3)
+        n_ops += skies * sky_op
+    elif key == "glass_mix":
+        valid = [want_t < 1e30 for want_t in (a["rays"].hits[j].t
+                                              for j in range(3))]
+        k_pos = (a["rays"].k > 0.0).expand(shape) & live
+        n_bytes += 4 * gate_rows(a["h"].mat, shape, 0, live)
+        # t x 3, k, cos, the reflected sky, the output; the reflected
+        # light where it hit, the straight ray's light or sky, the bent
+        # ray's where it refracts
+        n_bytes += n_live * (12 + 8 + 12 + 12 + 12)
+        n_bytes += 12 * (int((valid[0].expand(shape) & live).sum())
+                         + int(k_pos.sum()))
+        n_ops = n_live * 50 + int(k_pos.sum()) * 12
+    else:
+        valid = a["ray"].hit.t.expand(shape) < 1e30
+        hit = valid & live
+        n_hit = int(hit.sum())
+        gi = a["gi"] is not None
+        n_bytes += 4 * gate_rows(a["h"].mat, shape, 0, live)
+        # t, the output; where the ray hit its id, the direct light and,
+        # with GI, the bounce's t, cos and light or sky; else the sky
+        n_bytes += n_live * 16 + n_hit * (16 + gi * 20) \
+            + (n_live - n_hit) * 12
+        n_ops = n_live * 4 + n_hit * (3 + gi * 21)
+    return dict(lanes=shape.numel(), live_lanes=n_live, **bound(n_bytes,
+                                                                n_ops))
+
+
+def check_shade_call(key, a, timer, partial_seed):
+    """One recorded call of shade kernel `key` against its dense plain
+    version on the card, with the frame's own mask, none, a partial one
+    and an empty one: every output bit for bit on the lanes live in both
+    the mask and the frame's and written there (a rays kernel's skies
+    where the mix reads them), a mix's `out` untouched on its dead lanes
+    (filled with SENTINEL before), one launch each; else the difference
+    is printed and the phase fails.  The call's live lanes, bound and
+    times alone (the frame's mask)."""
+    import torch
+    from opengl_raytracing_tpu_torch.ops import cuda_lib
+    shape = shade_shape(key, a)
+    want = shade_plain(key, a)
+    frame_live = _live_of(shape, a.get("active"))
+    g = torch.Generator(device="cuda").manual_seed(partial_seed)
+    masks = {"frame": a.get("active"), "none": None,
+             "partial": torch.rand(shape, generator=g, device="cuda") < 0.3,
+             "empty": torch.zeros(shape, dtype=torch.bool, device="cuda")}
+    mix = key in ("glass_mix", "mirror_mix")
+    bad = {}
+    for how, mask in masks.items():
+        before = cuda_lib.LAUNCHES[key]
+        out = (torch.full(shape + (3,), SENTINEL, device="cuda") if mix
+               else None)
+        got = shade_call(key, a, mask, out)
+        torch.cuda.synchronize()
+        if cuda_lib.LAUNCHES[key] != before + 1:
+            raise AssertionError(f"{key} ({how} mask) did not launch once")
+        mask_live = _live_of(shape, mask)
+        for field, lanes in shade_written(key, want,
+                                          mask_live & frame_live).items():
+            x = got[field]
+            w = want[field].expand(x.shape)
+            x, w = x[lanes], w[lanes]
+            if not same_bits(x, w):
+                diff = (x.double() - w.double()).abs()
+                n = int(((x != w) & ~(x.isnan() & w.isnan())).sum())
+                bad[f"{how}:{field}"] = n
+                print(f"an_shade: {key} ({how} mask) {field} differs from "
+                      f"the plain version on {n} values, max abs "
+                      f"{float(diff.nan_to_num(float('inf')).max())}",
+                      file=sys.stderr, flush=True)
+        if mix and not bool((out[~mask_live] == SENTINEL).all()):
+            bad[f"{how}:dead lanes written"] = int(
+                (out[~mask_live] != SENTINEL).any(-1).sum())
+    if bad:
+        raise AssertionError(f"{key} is not the plain version's bits on "
+                             f"live lanes: {bad}")
+
+    def call():
+        shade_call(key, a, a.get("active"), a.get("out") if mix else None)
+    # a mix call writes into the frame's radiance: time it on a copy
+    if mix:
+        a = dict(a, out=a["out"].clone())
+    return dict(shade_bound(key, a, frame_live, want), max_abs_err=0.0,
+                bitwise="live lanes, masks frame/none/partial/empty",
+                ms=timer(call, 20),
+                kernel_ms=kernel_ms(call, KERNELS[key]["kernel"]),
+                plain_ms=timer(lambda: shade_plain(key, a), 3))
+
+
+def shade_frame(height, width, preset_name, env, timer):
+    """Every call one eager analytic frame of the preset makes to the four
+    shade kernels (the third of a chain), checked and timed
+    (check_shade_call): {kernel: [call record]}."""
+    calls = record_kernel_inputs(None, height, width, "cuda", SHADE_KERNELS,
+                                 preset_name, PROFILE_FRAME, env=env)
+    return {key: [check_shade_call(key, a, timer, 31 * n + i)
+                  for i, a in enumerate(calls[key])]
+            for n, key in enumerate(SHADE_KERNELS)}
+
+
+def check_an_shade(env, frames_an_full, frames_an, timer=None):
+    """Phase an_shade: glass's and the mirror's rays and mix kernels on
+    every call of a 1080p an_full frame (cubemaps/sky_day.png) and of an
+    800x600 an_baseline frame, each with its recorded inputs against its
+    plain version (check_shade_call), and their launches a frame in the
+    frames phases.  Returns the phase's record with `records`, the
+    kernels' records of the kernels line (an_full's frame, an_baseline's
+    beside it under `an_baseline_` keys)."""
+    timer = timer or cuda_ms
+    full = shade_frame(HEIGHT, WIDTH, "full", env, timer)
+    base = shade_frame(AN_HEIGHT, AN_WIDTH, "baseline", None, timer)
+    records = {key: dict(gate_record(full[key]),
+                         **gate_record(base[key], "an_baseline_"))
+               for key in SHADE_KERNELS}
+    per_frame = {name: {k: run["launches"][k] / run["frames"]
+                        for k in SHADE_KERNELS + GATE_KERNELS
+                        + ("an_direct",)}
+                 for name, run in (("an_full", frames_an_full),
+                                   ("an_baseline", frames_an))}
+    over = [dict(kernel=k, frame=name, call=i, bound_ms=c["bound_ms"],
+                 kernel_ms=c["kernel_ms"])
+            for name, run in (("an_full", full), ("an_baseline", base))
+            for k in SHADE_KERNELS for i, c in enumerate(run[k])
+            if c["kernel_ms"] and c["bound_ms"] > c["kernel_ms"]]
+    if over:
+        print(f"an_shade: calls measured below their bound: {over}",
+              file=sys.stderr, flush=True)
+    fields = ("lanes", "live_lanes", "bound_ms", "bound_by", "bound_bytes",
+              "kernel_ms", "ms", "plain_ms")
+    return dict(records=records, launches_per_frame=per_frame,
+                bound_above_time=over,
+                an_full={k: [{f: c[f] for f in fields} for c in full[k]]
+                         for k in SHADE_KERNELS},
+                an_baseline={k: [{f: c[f] for f in fields} for c in base[k]]
+                             for k in SHADE_KERNELS})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2243,6 +2547,13 @@ def main() -> int:
     records.update(gates.pop("records"))
     phase("an_gates", t0, **gates)
 
+    # glass's and the mirror's rays and mix kernels on every call of an
+    # an_full and an an_baseline frame
+    t0 = time.time()
+    shade = check_an_shade(env, frames_an_full, frames_an)
+    records.update(shade.pop("records"))
+    phase("an_shade", t0, **shade)
+
     # the bench's heavy: 4 samples a pixel on the bunny scene
     t0 = time.time()
     frames_heavy = run_frames(bvh, HEIGHT, WIDTH, FULL_PATH, None, smi,
@@ -2357,7 +2668,8 @@ def main() -> int:
                       (FULL_PATH, frames_full)):
         launches.update({k: run["launches"][k] for k in path})
     # the analytic gates' kernels as the an_full chain launched them
-    launches.update({k: frames_an_full["launches"][k] for k in GATE_KERNELS})
+    launches.update({k: frames_an_full["launches"][k]
+                     for k in GATE_KERNELS + SHADE_KERNELS})
     launches["an_direct_env"] = frames_an_full["launches"]["an_direct"]
     # a replay's launches, summed over the graph phase's cases: what the
     # counters add a replay, and what the profiler saw the card run
@@ -4029,7 +4341,7 @@ AN_FULL_STAGES = (
     ("trace#", "ops.an_trace_cuda", "trace"),
     ("sky#", "ops.an_trace_cuda", "sky"),  # the cubemap lookups
     ("direct_light", "ops.an_cuda", "direct_light"),
-    ("gi#", "ops.lighting", "one_bounce_gi_analytic"),  # 1 inside mirror
+    ("gi", "ops.lighting", "one_bounce_gi_analytic"),  # the primary's GI
     ("ao", "ops.lighting", "compute_ao"),
     ("mirror", "ops.lighting", "shade_mirror"),
     ("glass", "ops.lighting", "shade_glass"),

@@ -432,37 +432,6 @@ __device__ __forceinline__ void store3(float* __restrict__ out, int64_t i,
   out[3 * i + 2] = c.z;
 }
 
-// get_material's row of material id `id`.
-struct Material {
-  V3 albedo;
-  float spec, gloss;
-  int type;
-};
-
-// the table's row of material id `id`: ids 0-3, else the last
-__device__ __forceinline__ int material_row(int id) {
-  return (id >= 0 && id < kMatRows - 1) ? id : kMatRows - 1;
-}
-
-// get_material's type of material id `id` (0 diffuse, 1 mirror, 2 glass)
-__device__ __forceinline__ int material_type(const AnScene& s, int id) {
-  const int row = material_row(id);
-  int type = s.mat_type[0];
-  // a select chain: no dynamic index into the by-value struct
-#pragma unroll
-  for (int r = 1; r < kMatRows; ++r) {
-    if (r == row) type = s.mat_type[r];
-  }
-  return type;
-}
-
-__device__ __forceinline__ Material material(const AnScene& s, int id) {
-  const int row = material_row(id);
-  const ParamBlock* b = s.prm;
-  return {c3(b->mat_albedo + 3 * row), b->mat_spec[row], b->mat_gloss[row],
-          material_type(s, id)};
-}
-
 // ---- K3 ----
 
 // lane i's hit row

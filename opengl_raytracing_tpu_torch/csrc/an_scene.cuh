@@ -5,6 +5,10 @@
 // scene's closest-hit, AO, GI bounce and sky kernels), so that every
 // analytic trace and every sky lookup of the port is one body.
 //
+// The material table is get_material's (ops/materials.py): the rows of
+// the parameter block, the types resolved on the host; K3 and the glass
+// and mirror kernels (an_shade.cu) read it with one body.
+//
 // The arithmetic is the plain PyTorch version's (ops/scene_analytic.py,
 // ops/intersect.py) expression for expression: the floor's denominator
 // guard |denom| < 1e-6, the sphere's near/far root fallback, each
@@ -135,4 +139,35 @@ __device__ __forceinline__ V3 sky(const AnScene& s, V3 d) {
   const float t = fminf(fmaxf(0.5f * (d.y + 1.0f), 0.0f), 1.0f);
   const V3 top = c3(s.prm->sky_top);
   return add3(top, scale3(sub3(c3(s.prm->sky_bottom), top), 1.0f - t));
+}
+
+// get_material's row of material id `id`.
+struct Material {
+  V3 albedo;
+  float spec, gloss, ior;
+  int type;
+};
+
+// the table's row of material id `id`: ids 0-3, else the last
+__device__ __forceinline__ int material_row(int id) {
+  return (id >= 0 && id < kMatRows - 1) ? id : kMatRows - 1;
+}
+
+// get_material's type of material id `id` (0 diffuse, 1 mirror, 2 glass)
+__device__ __forceinline__ int material_type(const AnScene& s, int id) {
+  const int row = material_row(id);
+  int type = s.mat_type[0];
+  // a select chain: no dynamic index into the by-value struct
+#pragma unroll
+  for (int r = 1; r < kMatRows; ++r) {
+    if (r == row) type = s.mat_type[r];
+  }
+  return type;
+}
+
+__device__ __forceinline__ Material material(const AnScene& s, int id) {
+  const int row = material_row(id);
+  const ParamBlock* b = s.prm;
+  return {c3(b->mat_albedo + 3 * row), b->mat_spec[row], b->mat_gloss[row],
+          b->mat_ior[row], material_type(s, id)};
 }

@@ -16,8 +16,7 @@
 //   * an_trace_kernel: scene_analytic.trace_analytic_core (the floor, the
 //     three spheres, the marker; with or without the glass sphere and the
 //     marker) on given rays: t, p, the unit normal and the material id;
-//     the primary trace (every lane live), glass's three secondaries and
-//     the mirror's reflected ray;
+//     the primary trace (every lane live);
 //   * an_ao_kernel: lighting.compute_ao's analytic branch whole, the
 //     hemisphere rays sampled in the kernel (offsets 37i+3 / 19i+11),
 //     traced, counted within ao_radius and remapped;
@@ -54,56 +53,37 @@
 // and moves 12 B of direction in and 32 B of hit out a lane against some
 // 150 operations: bytes (2,073,600 lanes: 0.027 ms at 3.35 TB/s).  The
 // masked calls read a mask byte a lane and work on a few percent of the
-// lanes (the mirror and glass secondaries: 1-3% of a 1080p an_full frame;
-// the sky's misses about a third).  AO is operations: four hemisphere
+// lanes (GI's sky at the mirror's bounce: under 1% of a 1080p an_full
+// frame; the primary sky's misses about a third).  AO is operations: four hemisphere
 // samples and four five-primitive traces a live lane, ~1,100 operations.
 // The design is K3's (an_direct.cu):
 //
 //   * Persistent blocks (persistent.cuh): as many blocks of 128 threads
 //     as fit the card, each warp looping over units of 32 lanes,
 //     block-minor; a unit with no live lane ends at its __ballot_sync.
-//   * Live lanes queued per warp: a unit's live lanes join the warp's
-//     queue in shared memory (int64 lane indices, kQueueCap = 63: 2,016 B
-//     a block); once it holds 32 the warp works a round of 32, a lane
-//     each, so a sparse mask's live lanes fill whole rounds.  After its
-//     last unit the warp works what is left.
+//   * Live lanes queued per warp (an_lanes.cuh's live_rounds, an_shade.cu's
+//     too): a unit's live lanes join the warp's queue in shared memory
+//     (int64 lane indices, kLiveQueueCap = 63: 2,016 B a block); once it
+//     holds 32 the warp works a round of 32, a lane each, so a sparse
+//     mask's live lanes fill whole rounds.  After its last unit the warp
+//     works what is left.
 //   * One trace body (an_scene.cuh's trace_closest, K3's too): the
 //     winner's index is kept and its normal computed once, where the plain
 //     version computes a normal for every primitive and selects one.
 //
-// Left for later: the mirror's and glass's ray setup (still PyTorch over
-// every lane), and the secondary traces fused with K3's call at their
-// hits.
+// The mirror's and glass's secondaries are traced by an_shade.cu's rays
+// kernels, with their setup.  Left for later: those traces fused with
+// K3's call at their hits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "an_lanes.cuh"
 #include "an_scene.cuh"
 #include "bvh_walk.cuh"
 #include "param_block.cuh"
 #include "persistent.cuh"
 #include "sampling.cuh"
-
-namespace {
-
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kAll = 0xffffffffu;
-// a warp's queue of live lanes: worked 32 a round once it holds 32, so it
-// holds at most 31 + 32 (int64 lane indices: 504 B a warp)
-constexpr int kQueueCap = 31 + 32;
-
-}  // namespace
-
-// How a call's input is read: a row a lane, a row a pixel (row i % n_px,
-// the samples of a leading axis sharing it), or one row for every lane.
-enum { kLane = 0, kPixel = 1, kOne = 2 };
-
-// An input of a call on the device, read in place.
-struct LaneIn {
-  const void* p;  // [rows, 3] float32, or [rows] bytes for a mask
-  int mode;       // kLane, kPixel or kOne
-};
 
 // A trace's rays and outputs (ops/an_trace_cuda.py:trace).
 struct AnTraceArgs {
@@ -158,92 +138,8 @@ struct SkyArgs {
 
 namespace {
 
-// the row of lane i that an input read `mode` holds
-__device__ __forceinline__ int64_t in_row(int mode, int64_t i, int64_t n_px) {
-  return mode == kLane ? i : mode == kPixel ? i - div_index(i, n_px) * n_px
-                                            : 0;
-}
-
-__device__ __forceinline__ V3 in3(const LaneIn& x, int64_t i, int64_t n_px) {
-  return row3((const float*)x.p, in_row(x.mode, i, n_px));
-}
-
-__device__ __forceinline__ void store3(float* __restrict__ out, int64_t i,
-                                       V3 c) {
-  out[3 * i] = c.x;
-  out[3 * i + 1] = c.y;
-  out[3 * i + 2] = c.z;
-}
-
-// Run work(i) on every live lane i < n of `active` (null: every lane),
-// as persistent blocks over units of 32 lanes: a warp takes its units in
-// turn and queues their live lanes (__ballot_sync, each at its rank);
-// once the queue holds 32 it works a round of 32, a lane each, and takes
-// units again; after its last unit it works what is left.  A dead lane
-// reads its mask byte and nothing else.
-template <class Work>
-__device__ __forceinline__ void live_rounds(const Units& u,
-                                            const LaneIn& active, int64_t n,
-                                            int64_t n_px, Work work) {
-  __shared__ int64_t queue[kWarps][kQueueCap];
-  const int lane = threadIdx.x & 31;
-  const unsigned below = (1u << lane) - 1u;
-  int64_t* q = queue[threadIdx.x >> 5];
-  const uint8_t* act = (const uint8_t*)active.p;
-  int n_q = 0;  // the same on every lane of the warp
-  int64_t j = u.first();
-  for (;;) {
-    for (; j < u.n_units && n_q < 32; j += u.stride()) {
-      const int64_t i = u.base(j) + lane;
-      const bool live =
-          i < n &&
-          (act == nullptr || __ldg(act + in_row(active.mode, i, n_px)));
-      const unsigned b = __ballot_sync(kAll, live);
-      if (live) q[n_q + __popc(b & below)] = i;
-      n_q += __popc(b);
-    }
-    if (n_q == 0) break;  // the units done and the queue empty
-    const int k = min(n_q, 32);
-    __syncwarp();  // the entries are written
-    if (lane < k) work(q[n_q - k + lane]);
-    n_q -= k;
-    __syncwarp();  // the entries are read before the next enqueue
-  }
-}
-
-// The closest hit of ray o + t*d written to lane i as trace_analytic_core
-// returns it: t, p = o + d*t, the winner's unit normal (the floor's, or
-// normalize(o + d*t - c) of the sphere's centre c) and its material id
-// (the primitive's index: MAT_FLOOR 0, the albedo, glass and mirror
-// spheres 1-3, the marker 4); on a miss t = 1e30, p = o + d*1e30, a zero
-// normal and material 0.
-__device__ __forceinline__ void hit_out(const AnScene& s, V3 o, V3 d,
-                                        bool glass, bool marker, float eps,
-                                        int64_t i, float* __restrict__ t_out,
-                                        float* __restrict__ p_out,
-                                        float* __restrict__ n_out,
-                                        int32_t* __restrict__ mat_out) {
-  const AnHit h = trace_closest(s, o, d, glass, marker, eps);
-  const V3 p = add3(o, scale3(d, h.t));
-  V3 nrm = {0.0f, 0.0f, 0.0f};
-  if (h.k == kAnFloor) {
-    nrm = c3(s.floor_n);
-  } else if (h.k != kAnMiss) {
-    // a select chain: no dynamic index into the by-value struct
-    V3 c = c3(s.prm->point_light_world);
-    if (h.k == 1) c = c3(s.sphere_c[0]);
-    if (h.k == 2) c = c3(s.sphere_c[1]);
-    if (h.k == 3) c = c3(s.sphere_c[2]);
-    nrm = norm3(sub3(p, c));
-  }
-  t_out[i] = h.t;
-  store3(p_out, i, p);
-  store3(n_out, i, nrm);
-  mat_out[i] = h.k == kAnMiss ? 0 : h.k;
-}
-
 // trace_analytic_core on the live lanes of the call's rays.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kLiveThreads)
 an_trace_kernel(const Units u, const AnScene s, const AnTraceArgs a) {
   live_rounds(u, a.active, a.n_lanes, a.n_px, [&](int64_t i) {
     hit_out(s, in3(a.ro, i, a.n_px), in3(a.rd, i, a.n_px), a.glass,
@@ -256,7 +152,7 @@ an_trace_kernel(const Units u, const AnScene s, const AnTraceArgs a) {
 // pairs at offsets 37k+3 and 19k+11 of frame_index, each occluded where
 // its closest hit is valid and within ao_radius; then _ao_value's remap,
 // clamp(ao_min + ao_span * (1 - occ / samples), ao_min, 1).
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kLiveThreads)
 an_ao_kernel(const Units u, const AnScene s, const AnAoArgs a) {
   const uint32_t kx = frame_value(frame_index(a.frame), a.fi);
   const uint32_t ky = key_y(kx);
@@ -285,7 +181,7 @@ an_ao_kernel(const Units u, const AnScene s, const AnAoArgs a) {
 // offsets seed*13 and seed*37 of the lane's sample, n0 = normalize(h.n),
 // the cosine-hemisphere direction wi around n0, cos = max(dot(n0, wi), 0),
 // and the closest hit of the whole scene from p + n0*EPS along wi.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kLiveThreads)
 an_bounce_kernel(const Units u, const AnScene s, const AnBounceArgs a) {
   const uint32_t f = frame_index(a.frame);
   live_rounds(u, a.active, a.n_lanes, a.n_px, [&](int64_t i) {
@@ -299,7 +195,7 @@ an_bounce_kernel(const Units u, const AnScene s, const AnBounceArgs a) {
     const float uy = rand01(py + so2, px + so2, kx, ky);
     const V3 n0 = norm3(in3(a.n, i, a.n_px));
     const V3 wi = hemisphere_cosine(n0, ux, uy, a.two_pi);
-    store3(a.wi, i, wi);
+    put3(a.wi, i, wi);
     a.cos[i] = fmaxf(dot3(n0, wi), 0.0f);
     hit_out(s, add3(in3(a.p, i, a.n_px), scale3(n0, s.eps)), wi, true,
             a.marker, s.eps, i, a.t, a.p_out, a.n_out, a.mat);
@@ -307,10 +203,10 @@ an_bounce_kernel(const Units u, const AnScene s, const AnBounceArgs a) {
 }
 
 // scene_analytic.sky on the live lanes.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kLiveThreads)
 sky_kernel(const Units u, const AnScene s, const SkyArgs a) {
   live_rounds(u, a.active, a.n_lanes, a.n_px, [&](int64_t i) {
-    store3(a.out, i, sky(s, in3(a.d, i, a.n_px)));
+    put3(a.out, i, sky(s, in3(a.d, i, a.n_px)));
   });
 }
 
@@ -323,28 +219,28 @@ sky_kernel(const Units u, const AnScene s, const SkyArgs a) {
 // units of 32 lanes (persistent.cuh).
 extern "C" int ort_an_trace(const AnScene* scene, const AnTraceArgs* args,
                             void* stream) {
-  return launch_persistent(an_trace_kernel, kThreads,
+  return launch_persistent(an_trace_kernel, kLiveThreads,
                            make_units(args->n_lanes, 32),
                            (cudaStream_t)stream, *scene, *args);
 }
 
 extern "C" int ort_an_ao(const AnScene* scene, const AnAoArgs* args,
                          void* stream) {
-  return launch_persistent(an_ao_kernel, kThreads,
+  return launch_persistent(an_ao_kernel, kLiveThreads,
                            make_units(args->n_lanes, 32),
                            (cudaStream_t)stream, *scene, *args);
 }
 
 extern "C" int ort_an_bounce(const AnScene* scene, const AnBounceArgs* args,
                              void* stream) {
-  return launch_persistent(an_bounce_kernel, kThreads,
+  return launch_persistent(an_bounce_kernel, kLiveThreads,
                            make_units(args->n_lanes, 32),
                            (cudaStream_t)stream, *scene, *args);
 }
 
 extern "C" int ort_sky(const AnScene* scene, const SkyArgs* args,
                        void* stream) {
-  return launch_persistent(sky_kernel, kThreads,
+  return launch_persistent(sky_kernel, kLiveThreads,
                            make_units(args->n_lanes, 32),
                            (cudaStream_t)stream, *scene, *args);
 }

@@ -44,7 +44,7 @@ from ..constants import MAT_POINTLIGHT_SPHERE
 from ..params import RenderParams, bind
 from ..sampling import Frame, FrameValue, ndc_from_world, sample_seeds
 from ..ops.materials import (MTYPE_DIFFUSE, MTYPE_GLASS, MTYPE_MIRROR,
-                             get_material)
+                             material_type)
 from ..ops.scene import BVHDevice, SceneCtx
 from ..ops.scene_analytic import Hit
 from ..ops import lighting as lt
@@ -222,21 +222,16 @@ def _shade_bvh(scene: SceneCtx, h: Hit, seed: Frame, frame_index: Frame,
     return radiance
 
 
-def _diffuse_lanes(mat_id, params):
-    """The lanes whose direct light `_shade_analytic` keeps: neither the
-    point-light marker nor a mirror or glass hit (get_material's resolved
-    type diffuse); once a pixel where `mat_id` allows (`lt.per_pixel`)."""
-    return lt.per_pixel(
-        lambda m: ((m != MAT_POINTLIGHT_SPHERE)
-                   & (get_material(m, params).mtype == MTYPE_DIFFUSE)),
-        mat_id)
-
-
-def _type_lanes(mat_id, params, mtype):
-    """The lanes of get_material's resolved type `mtype` (the mirror's or
-    glass's), once a pixel where `mat_id` allows (`lt.per_pixel`)."""
-    return lt.per_pixel(lambda m: get_material(m, params).mtype == mtype,
-                        mat_id)
+def _material_lanes(mat_id, params):
+    """(diffuse, mirror, glass): the lanes of each of get_material's
+    resolved types (`material_type`, once a frame), the diffuse ones
+    without the point-light marker (the lanes whose direct light the
+    frame keeps); once a pixel where `mat_id` allows (`lt.per_pixel`)."""
+    mtype = lt.per_pixel(lambda m: material_type(m, params), mat_id)
+    diffuse = lt.per_pixel(lambda m, t: (m != MAT_POINTLIGHT_SPHERE)
+                           & (t == MTYPE_DIFFUSE), mat_id, mtype)
+    return (diffuse, lt.per_pixel(lambda t: t == MTYPE_MIRROR, mtype),
+            lt.per_pixel(lambda t: t == MTYPE_GLASS, mtype))
 
 
 def _shade_analytic(scene: SceneCtx, h: Hit, seed: Frame, frame_index: Frame,
@@ -253,19 +248,22 @@ def _shade_analytic(scene: SceneCtx, h: Hit, seed: Frame, frame_index: Frame,
     as a device mask, the lanes that its select and the caller's read,
     and on the card its kernel computes those alone: the direct light and
     the GI bounce on the diffuse lanes, AO on the hit lanes, the mirror's
-    reflected ray and glass's three secondaries on the mirror and glass
-    lanes, the direct light at a secondary hit on its valid hits among
-    them, and each sky lookup where its select reads it (ops/lighting.py).
+    and glass's rays and mixes on the mirror and glass lanes, the direct
+    light at a secondary hit on its valid hits among them, and each sky
+    lookup where its select reads it (ops/lighting.py).  The masks derive
+    from one resolved material type a frame (`_material_lanes`).
     That is the frame's form of the JAX package's occupancy gates (the
     glass and mirror tile gate, the hit gate, the sky miss gate), without
     their dense fallback: the masks are elementwise tensors, so a captured
-    graph replays them for any frame.  Every other lane is dropped by a
-    select before any sum, so the image is the dense form's bit for bit.
-    `ao` as in `_shade_bvh`; a leading sample axis broadcasts through
-    every trace and call."""
+    graph replays them for any frame.  The mirror's and glass's mix calls
+    write their radiance into the frame's on their lanes, in place, in
+    the select's stead.  Every other lane is dropped by a select before
+    any sum, so the image is the dense form's bit for bit.  `ao` as in
+    `_shade_bvh`; a leading sample axis broadcasts through every trace
+    and call."""
     params = scene.params
-    mat = get_material(h.mat, params)
-    lanes = lt.and_lanes(active, _diffuse_lanes(h.mat, params))
+    diffuse, mirror, glass = _material_lanes(h.mat, params)
+    lanes = lt.and_lanes(active, diffuse)
     radiance = lt.direct_light(scene, h, seed, frame_index, vdir, px, py,
                                lanes)
     if params.enable_gi:
@@ -285,18 +283,13 @@ def _shade_analytic(scene: SceneCtx, h: Hit, seed: Frame, frame_index: Frame,
     is_marker = h.mat == MAT_POINTLIGHT_SPHERE
     radiance = torch.where(is_marker[..., None], emissive, radiance)
 
+    # the mirror and glass lanes' radiance, written in place
     if params.mat_mirror_enabled:
-        mirror_r = lt.shade_mirror(
-            scene, h, vdir, mat, seed, frame_index, px, py,
-            lt.and_lanes(active, _type_lanes(h.mat, params, MTYPE_MIRROR)))
-        radiance = torch.where((mat.mtype == MTYPE_MIRROR)[..., None],
-                               mirror_r, radiance)
+        lt.shade_mirror(scene, h, vdir, None, seed, frame_index, px, py,
+                        lt.and_lanes(active, mirror), out=radiance)
     if params.mat_glass_enabled:
-        glass_r = lt.shade_glass(
-            scene, h, vdir, mat, seed, frame_index, px, py,
-            lt.and_lanes(active, _type_lanes(h.mat, params, MTYPE_GLASS)))
-        radiance = torch.where((mat.mtype == MTYPE_GLASS)[..., None],
-                               glass_r, radiance)
+        lt.shade_glass(scene, h, vdir, None, seed, frame_index, px, py,
+                       lt.and_lanes(active, glass), out=radiance)
     return radiance
 
 

@@ -20,8 +20,12 @@ occlusion`).  Their plain versions are `direct_light_plain`,
 `ambient_occlusion_plain` and `ambient_occlusion_analytic_plain` here,
 which the wrappers run for CPU tensors.  The analytic scene's traces and
 sky lookups take the lanes their caller reads (`active`) down to the
-kernels of ops/an_trace_cuda.py: on the card every other lane is
-unspecified, as behind the JAX package's occupancy gates.
+kernels of ops/an_trace_cuda.py, and `shade_glass` and `shade_mirror`
+run on their material's lanes as a rays kernel before their direct light
+and a mix kernel after it (ops/an_shade_cuda.py; plain versions
+`glass_rays_plain`, `glass_mix_plain`, `mirror_ray_plain`,
+`mirror_mix_plain`): on the card every other lane is unspecified, as
+behind the JAX package's occupancy gates.
 
 A frame's samples reach these functions as one batch over a leading
 sample axis ([spp, H, W], models/pipeline.py), their seed one sampled
@@ -42,7 +46,7 @@ from __future__ import annotations
 
 import functools
 import operator
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, NamedTuple
 
 import numpy as np
 import torch
@@ -57,6 +61,7 @@ from ..sampling import (Frame, rand, eps_for_dist, concentric_sample,
                         cp_offset, frame_f32, sample_hemisphere_cosine)
 from . import bvh_cuda
 from . import scene_analytic as sa
+from .scene_analytic import Hit
 from .bvh_traverse import trace_bvh, trace_bvh_shadow
 from .materials import (get_material, MaterialProps, MTYPE_DIFFUSE,
                         MTYPE_MIRROR, MTYPE_GLASS)
@@ -443,42 +448,71 @@ def shade_bvh_brdf_plain(scene: SceneCtx, h, n, v, offs, occ):
     return acc
 
 
-def shade_glass(scene: SceneCtx, h, wo, mat, seed: Frame, frame_index: Frame,
-                px, py, active=None):
-    """Thin-glass shading: Fresnel mix of (env + local reflection) and
-    (straight-through + softened bent refraction)
-    (reference: rt_lighting.glsl:576-663).  The three secondary rays
-    trace and light one after the other (the JAX package's default
-    sequential form).  `active` (bool, None: all) marks the lanes whose
-    result the caller keeps: the secondaries are traced and the
-    environment looked up on those lanes alone (on the card), each
-    secondary's direct light on its valid hits among them, each sky
-    lookup where its select reads it (the reflection's on every kept
-    lane, the straight ray's where it missed, the bent ray's where it
-    refracts and missed).  The other lanes are unspecified."""
+class GlassRays(NamedTuple):
+    """What glass's rays call gives its K3 calls and its mix: the
+    reflected, straight and bent secondaries' hits (traced without the
+    glass sphere) and views normalize(cam_pos - p2), the three skies (the
+    reflected ray's, the straight ray's, the bent ray's), refract's k and
+    cos_theta."""
+    hits: tuple      # (Hit, Hit, Hit)
+    views: tuple     # ([..., 3],) * 3
+    skies: tuple     # ([..., 3],) * 3
+    k: torch.Tensor
+    cos_theta: torch.Tensor
+
+
+class MirrorRay(NamedTuple):
+    """What the mirror's ray call gives its K3 call and its mix: the
+    reflected ray's hit against the whole scene, K3's view -r there, and
+    the sky of r."""
+    hit: Hit
+    view: torch.Tensor
+    sky: torch.Tensor
+
+
+def _material(mat, h, params):
+    """get_material of the hit's ids where the caller has none."""
+    return get_material(h.mat, params) if mat is None else mat
+
+
+def glass_rays_plain(scene: SceneCtx, h, wo, mat=None) -> GlassRays:
+    """Thin glass up to its direct light (reference: rt_lighting.glsl:576-
+    640): the setup, the three secondary rays traced without the glass
+    sphere and the skies, on every lane; the plain version of the CUDA
+    kernel behind `an_shade_cuda.glass_rays`.  `mat` is get_material of
+    h.mat (None: looked up)."""
+    params = scene.params
+    mat = _material(mat, h, params)
     n = normalize(h.n)
     v = normalize(wo)
     i = -v
     ior = torch.clamp_min(mat.ior, 1.0001)
     eta = 1.0 / ior
-
     r = reflect(i, n)
-    reflect_env = scene.sky(r, active)
     cos_theta = torch.clamp(dot(-i, n), 0.0, 1.0)
     t_phys, k = refract(i, n, eta)
     t_dir = normalize(mix(i, normalize(t_phys), GLASS_DISTORTION_STRENGTH))
+    # misses are not sanitized: their p is ro + d * INF, and the garbage
+    # lit there is dropped by the mix's valid selects
+    hits = tuple(sa.trace_analytic_ignore_glass(h.p + d * EPS, d, params,
+                                                scene.point_light_pos)
+                 for d in (r, i, t_dir))
+    views = tuple(normalize(scene.cam_pos - h2.p) for h2 in hits)
+    skies = tuple(sa.sky(d, params, scene.env_map) for d in (r, i, t_dir))
+    return GlassRays(hits, views, skies, k, cos_theta)
 
-    def secondary(d):
-        # misses are not sanitized: their p is ro + d * INF, and the
-        # garbage lit there is dropped by the callers' valid select
-        h2 = scene.trace_ignore_glass(h.p + d * EPS, d, active=active)
-        v2 = normalize(scene.cam_pos - h2.p)
-        return direct_light(scene, h2, seed, frame_index, v2, px, py,
-                            and_lanes(h2.valid, active)), h2.valid
 
-    refl_lit, refl_valid = secondary(r)
-    straight_lit, str_valid = secondary(i)
-    bent_lit, bent_valid = secondary(t_dir)
+def glass_mix_plain(scene: SceneCtx, h, mat, rays: GlassRays, lit):
+    """Thin glass after its direct light (reference: rt_lighting.glsl:641-
+    663): the Fresnel mix of (env + local reflection) and (straight-through
+    + softened bent refraction), given the rays call's `rays` and the
+    direct light `lit` at its three hits; on every lane, the plain version
+    of the CUDA kernel behind `an_shade_cuda.glass_mix`."""
+    mat = _material(mat, h, scene.params)
+    reflect_env, straight_sky, bent_sky = rays.skies
+    refl_valid, str_valid, bent_valid = (h2.valid for h2 in rays.hits)
+    refl_lit, straight_lit, bent_lit = lit
+    k = rays.k
 
     # Reflection: env + local
     reflect_local = torch.where(refl_valid[..., None], refl_lit, reflect_env)
@@ -486,12 +520,10 @@ def shade_glass(scene: SceneCtx, h, wo, mat, seed: Frame, frame_index: Frame,
 
     # Straight-through
     straight_col = torch.where(str_valid[..., None], straight_lit,
-                               scene.sky(i, and_lanes(active, ~str_valid)))
+                               straight_sky)
 
     # Bent refraction, softened toward straight-through
-    bent_col = torch.where(bent_valid[..., None], bent_lit,
-                           scene.sky(t_dir, and_lanes(active, k > 0.0,
-                                                      ~bent_valid)))
+    bent_col = torch.where(bent_valid[..., None], bent_lit, bent_sky)
 
     refr_col = torch.where((k > 0.0)[..., None],
                            mix(straight_col, bent_col,
@@ -499,9 +531,32 @@ def shade_glass(scene: SceneCtx, h, wo, mat, seed: Frame, frame_index: Frame,
                            straight_col)
     refr_col = refr_col * mat.albedo
 
+    ior = torch.clamp_min(mat.ior, 1.0001)
     f0 = ((ior - 1.0) / (ior + 1.0)) ** 2
-    fresnel = f0 + (1.0 - f0) * torch.pow(1.0 - cos_theta, 5.0)
+    fresnel = f0 + (1.0 - f0) * torch.pow(1.0 - rays.cos_theta, 5.0)
     return mix(refr_col, reflect_col, fresnel[..., None])
+
+
+def shade_glass(scene: SceneCtx, h, wo, mat, seed: Frame, frame_index: Frame,
+                px, py, active=None, out=None):
+    """Thin-glass shading: Fresnel mix of (env + local reflection) and
+    (straight-through + softened bent refraction)
+    (reference: rt_lighting.glsl:576-663): the rays call (the setup, the
+    three secondaries traced, the skies), the direct light at each
+    secondary's valid hits, the mix call (an_shade_cuda).  `mat` is
+    get_material of h.mat (None: looked up; the kernels read the table by
+    h.mat).  `active` (bool, None: all) marks the lanes whose result the
+    caller keeps: on the card the kernels and K3 compute those alone (the
+    skies where the mix reads them), and the other lanes are unspecified.
+    With `out` ([..., 3], the frame's radiance) the result is written into
+    it on the `active` lanes, in place, and `out` is returned."""
+    from . import an_shade_cuda
+    rays = an_shade_cuda.glass_rays(scene, h, wo, mat, active)
+    lit = [direct_light(scene, h2, seed, frame_index, v2, px, py,
+                        and_lanes(h2.valid, active))
+           for h2, v2 in zip(rays.hits, rays.views)]
+    return an_shade_cuda.glass_mix(scene, h, mat, rays, lit,
+                                   active=active, out=out)
 
 
 def gi_bounce_analytic_plain(scene: SceneCtx, h0, rng_frame: Frame,
@@ -523,27 +578,54 @@ def gi_bounce_analytic_plain(scene: SceneCtx, h0, rng_frame: Frame,
     return h1, wi, cos_theta
 
 
-def one_bounce_gi_analytic(scene: SceneCtx, h0, rng_frame: Frame, seed: Frame,
-                           frame_index: Frame, px, py, active=None):
-    """One cosine-weighted bounce + direct light at the secondary hit
-    (reference: rt_lighting.glsl:473-507).  `active` (bool, None: all)
+class GiLight(NamedTuple):
+    """GI's bounce at hits h0 before its tail: the bounce's hit, its
+    cos_theta, the direct light at its valid hits and the sky where it
+    missed."""
+    hit: Hit
+    cos_theta: torch.Tensor
+    lit: torch.Tensor
+    sky: torch.Tensor
+
+
+def gi_light_analytic(scene: SceneCtx, h0, rng_frame: Frame, seed: Frame,
+                      frame_index: Frame, px, py, active=None) -> GiLight:
+    """One cosine-weighted bounce and the light it brings back, untailed
+    (reference: rt_lighting.glsl:473-500).  `active` (bool, None: all)
     marks the lanes the caller keeps: the bounce is sampled and traced on
     those alone (`an_trace_cuda.bounce`: the kernel on the card, its plain
     version on every lane on the CPU), the direct light computed on its
     valid hits among them and the sky looked up where it missed.  The
     bounce hits go to `direct_light` unsanitized (misses have p = o + wi *
-    1e30); the valid select drops whatever is lit there.  The other lanes
-    are unspecified."""
+    1e30); the tail's valid select drops whatever is lit there.  The other
+    lanes are unspecified."""
     from . import an_trace_cuda
-    mat0 = get_material(h0.mat, scene.params)
     h1, wi, cos_theta = an_trace_cuda.bounce(scene, h0, rng_frame, seed, px,
                                              py, active)
     li_hit = direct_light(scene, h1, rng_frame, frame_index, -wi, px, py,
                           and_lanes(h1.valid, active))
-    li = torch.where(h1.valid[..., None], li_hit,
-                     scene.sky(wi, and_lanes(active, ~h1.valid)))
-    out = mat0.albedo * (cos_theta / PI)[..., None] * li
-    return torch.where((cos_theta > 0.0)[..., None], out, 0.0)
+    sky = scene.sky(wi, and_lanes(active, ~h1.valid))
+    return GiLight(h1, cos_theta, li_hit, sky)
+
+
+def gi_tail_analytic(scene: SceneCtx, h0, gi: GiLight):
+    """GI's tail at hits h0 (reference: rt_lighting.glsl:500-507): the
+    bounce's valid select against its sky, albedo * cos / PI * li, and
+    the cos > 0 select."""
+    mat0 = get_material(h0.mat, scene.params)
+    li = torch.where(gi.hit.valid[..., None], gi.lit, gi.sky)
+    out = mat0.albedo * (gi.cos_theta / PI)[..., None] * li
+    return torch.where((gi.cos_theta > 0.0)[..., None], out, 0.0)
+
+
+def one_bounce_gi_analytic(scene: SceneCtx, h0, rng_frame: Frame, seed: Frame,
+                           frame_index: Frame, px, py, active=None):
+    """One cosine-weighted bounce + direct light at the secondary hit
+    (reference: rt_lighting.glsl:473-507): `gi_light_analytic`, then its
+    tail in PyTorch over every lane.  `active` as for
+    `gi_light_analytic`; the other lanes are unspecified."""
+    return gi_tail_analytic(scene, h0, gi_light_analytic(
+        scene, h0, rng_frame, seed, frame_index, px, py, active))
 
 
 def _bounce_ray(h0, rng_frame: Frame, seed: Frame, px, py):
@@ -595,30 +677,56 @@ def one_bounce_gi_bvh(scene: SceneCtx, h0, rng_frame: Frame, seed: Frame,
                        0.0)
 
 
-def shade_mirror(scene: SceneCtx, h, wo, mat, seed: Frame, frame_index: Frame,
-                 px, py, active=None):
-    """Perfect mirror: one reflected trace + direct light (+ GI when it is
-    on) at the reflected hit (reference: rt_lighting.glsl:675-708).
-    `active` (bool, None: all) marks the lanes whose result the caller
-    keeps: the reflected ray is traced on those alone (on the card), the
-    direct light and GI at its hit computed on its valid hits among them
-    and the sky looked up where it missed.  The other lanes are
-    unspecified."""
+def mirror_ray_plain(scene: SceneCtx, h, wo) -> MirrorRay:
+    """The perfect mirror up to its direct light (reference:
+    rt_lighting.glsl:675-690): the reflected ray traced through the whole
+    scene, K3's view -r at its hit and the sky of r, on every lane; the
+    plain version of the CUDA kernel behind `an_shade_cuda.mirror_ray`."""
     n = normalize(h.n)
     i = -normalize(wo)
     r = reflect(i, n)
-    h2 = scene.trace(h.p + r * EPS, r, active=active)
-    lanes = and_lanes(h2.valid, active)
-    col_hit = direct_light(scene, h2, seed, frame_index, -r, px, py, lanes)
+    h2 = sa.trace_analytic(h.p + r * EPS, r, scene.params,
+                           scene.point_light_pos)
+    return MirrorRay(h2, -r, sa.sky(r, scene.params, scene.env_map))
+
+
+def mirror_mix_plain(scene: SceneCtx, h, mat, ray: MirrorRay, direct,
+                     gi: GiLight = None):
+    """The perfect mirror after its direct light (reference:
+    rt_lighting.glsl:690-708): with `gi` (GI's light at the reflected
+    hit), its tail times gi_scale_analytic added to the direct light
+    `direct`; the valid select against the sky and the mirror's albedo.
+    On every lane, the plain version of the CUDA kernel behind
+    `an_shade_cuda.mirror_mix`."""
+    mat = _material(mat, h, scene.params)
+    col_hit = direct
+    if gi is not None:
+        col_hit = col_hit + gi_tail_analytic(scene, ray.hit, gi) \
+            * scene.params["gi_scale_analytic"]
+    col = torch.where(ray.hit.valid[..., None], col_hit, ray.sky)
+    return col * mat.albedo
+
+
+def shade_mirror(scene: SceneCtx, h, wo, mat, seed: Frame, frame_index: Frame,
+                 px, py, active=None, out=None):
+    """Perfect mirror: one reflected trace + direct light (+ GI when it is
+    on) at the reflected hit (reference: rt_lighting.glsl:675-708): the ray
+    call (the trace, the sky where it missed), the direct light at its
+    valid hits, GI's light there, the mix call (an_shade_cuda).  `mat`,
+    `active` and `out` as for `shade_glass`."""
+    from . import an_shade_cuda
+    ray = an_shade_cuda.mirror_ray(scene, h, wo, active)
+    lanes = and_lanes(ray.hit.valid, active)
+    direct = direct_light(scene, ray.hit, seed, frame_index, ray.view, px,
+                          py, lanes)
+    gi = None
     if scene.params.enable_gi:
         # the GLSL call passes the mirror's seed as the bounce's rng frame
         # and a derived seed for its sample offsets
-        col_hit = col_hit + one_bounce_gi_analytic(
-            scene, h2, seed, seed * 131 + 17, frame_index, px, py,
-            lanes) * scene.params["gi_scale_analytic"]
-    col = torch.where(h2.valid[..., None], col_hit,
-                      scene.sky(r, and_lanes(active, ~h2.valid)))
-    return col * mat.albedo
+        gi = gi_light_analytic(scene, ray.hit, seed, seed * 131 + 17,
+                               frame_index, px, py, lanes)
+    return an_shade_cuda.mirror_mix(scene, h, mat, ray, direct, gi,
+                                    active=active, out=out)
 
 
 def _ao_rays(h, frame_index: Frame, px, py, params):

@@ -31,17 +31,25 @@ class MaterialProps(NamedTuple):
     ior: torch.Tensor            # [...]
 
 
+def material_type(mat_id, params):
+    """get_material's resolved type of int32 ids [...] (int32: diffuse,
+    mirror or glass), a select chain on the static toggles alone, without
+    the table's gathers (the frame's masks, models/pipeline.py)."""
+    mtype = torch.full(mat_id.shape, MTYPE_DIFFUSE, dtype=torch.int32,
+                       device=mat_id.device)
+    if params.mat_glass_enabled:
+        mtype = torch.where(mat_id == MAT_GLASS_SPHERE, MTYPE_GLASS, mtype)
+    if params.mat_mirror_enabled:
+        mtype = torch.where(mat_id == MAT_MIRROR_SPHERE, MTYPE_MIRROR, mtype)
+    return mtype
+
+
 def get_material(mat_id, params) -> MaterialProps:
     """Material properties of int32 ids [...]: rows 0-3 for ids 0-3 (floor,
     albedo, glass and mirror sphere), the last row (grey diffuse) for any
     other id, as the marker (reference: rt_materials.glsl:118-124)."""
     p = bind(params, mat_id.device)
     row = torch.where((mat_id >= 0) & (mat_id < 4), mat_id, 4).long()
-    mtype = torch.full(mat_id.shape, MTYPE_DIFFUSE, dtype=torch.int32,
-                       device=mat_id.device)
-    if p.mat_glass_enabled:
-        mtype = torch.where(mat_id == MAT_GLASS_SPHERE, MTYPE_GLASS, mtype)
-    if p.mat_mirror_enabled:
-        mtype = torch.where(mat_id == MAT_MIRROR_SPHERE, MTYPE_MIRROR, mtype)
     return MaterialProps(p["mat_albedo"][row], p["mat_spec"][row],
-                         p["mat_gloss"][row], mtype, p["mat_ior"][row])
+                         p["mat_gloss"][row], material_type(mat_id, p),
+                         p["mat_ior"][row])

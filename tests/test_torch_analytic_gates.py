@@ -1,5 +1,7 @@
 """The analytic scene's live-lane kernels (csrc/an_trace.cu: the trace,
-AO, GI bounce and sky kernels behind ops/an_trace_cuda.py), on the CPU.
+AO, GI bounce and sky kernels behind ops/an_trace_cuda.py; csrc/
+an_shade.cu: glass's and the mirror's rays and mix kernels behind
+ops/an_shade_cuda.py), on the CPU.
 
 The frame hands each of these calls a device mask of the lanes that read
 its result (models/pipeline.py:_shade_analytic, ops/lighting.py), the
@@ -29,13 +31,18 @@ cannot run here, so:
     (tests/test_pipeline.py), at 32x128: a width of 128 lanes, so that
     the JAX tile gates apply;
 (c) a numpy transcription of the kernels' per-lane rules (an_scene.cuh's
-    trace_closest and an_trace.cu's hit_out: the primitive order, the
+    trace_closest and an_lanes.cuh's hit_out: the primitive order, the
     floor's denominator guard, valid & t < best, the miss's bits, the
     winner's normal; the AO rays at offsets 37i+3 / 19i+11, the count
     within ao_radius and _ao_value's remap; the bounce ray at offsets
     seed*13 / seed*37 of the lane's sample; the gradient sky and the
-    cubemap times its intensity), reading every constant from the
-    structs the wrappers build, equals the plain versions bit for bit;
+    cubemap times its intensity; glass's setup, refract, its three
+    secondaries, views and skies where the mix reads them, the mirror's
+    reflected ray, and both mixes' selects, mixes and Fresnel term),
+    reading every constant from the structs the wrappers build, equals
+    the plain versions bit for bit (the mirror's GI tail with the CPU's
+    cos / PI: on the card the kernel and PyTorch multiply by the float32
+    reciprocal);
 (d) tests/torch_recorder.py sees the same operations and host arguments
     at several frame indices and parameter sets with the masks in place,
     and no host read.
@@ -71,7 +78,8 @@ from opengl_raytracing_tpu_torch.convert import (camera_frame_inputs,
 from opengl_raytracing_tpu_torch.models import (RenderState, preset,
                                                 render_frame)
 from opengl_raytracing_tpu_torch.models.pipeline import render_staged
-from opengl_raytracing_tpu_torch.ops import an_cuda, an_trace_cuda
+from opengl_raytracing_tpu_torch.ops import (an_cuda, an_shade_cuda,
+                                             an_trace_cuda)
 from opengl_raytracing_tpu_torch.ops import lighting as tlt
 from opengl_raytracing_tpu_torch.ops import scene_analytic as tsa
 from opengl_raytracing_tpu_torch.ops.scene import prepare_bvh
@@ -95,6 +103,7 @@ INF = F32(1e30)
 ROOT = os.path.join(os.path.dirname(__file__), os.pardir)
 CUBEMAP = os.path.join(ROOT, "cubemaps", "sky_day.png")
 WRAPPERS = ("trace", "ambient_occlusion", "bounce", "sky")
+SHADE_WRAPPERS = ("glass_rays", "glass_mix", "mirror_ray", "mirror_mix")
 
 
 @pytest.fixture(scope="module")
@@ -204,10 +213,64 @@ def _spy(monkeypatch, calls, garbage=None):
                       active, offsets_out)
         return dead_as(active, out.shape[:-1], out, fv)
 
+    real_shade = {name: getattr(an_shade_cuda, name)
+                  for name in SHADE_WRAPPERS}
+
+    def sky_at(written, s, x):
+        # a sky the rays kernel looks up on the lanes `written` alone
+        if garbage is None:
+            return x
+        return dead_as(written, s, x, fv)
+
+    def glass_rays(scene, h, wo, mat=None, active=None):
+        calls.append(("glass_rays", dict(scene=scene, h=h, wo=wo, mat=mat),
+                      active))
+        s = h.t.shape
+        rays = real_shade["glass_rays"](
+            scene, unread(active, h), dead_as(active, s, wo, UNREAD[0]),
+            mat, active)
+        live = torch.ones(s, dtype=torch.bool) if active is None \
+            else active.expand(s)
+        hits = tuple(hit(active, h2) for h2 in rays.hits)
+        written = (live, live & ~rays.hits[1].valid,
+                   live & (rays.k > 0.0) & ~rays.hits[2].valid)
+        return tlt.GlassRays(
+            hits, tuple(dead_as(active, s, v, fv) for v in rays.views),
+            tuple(sky_at(w, s, x) for w, x in zip(written, rays.skies)),
+            dead_as(active, s, rays.k, fv),
+            dead_as(active, s, rays.cos_theta, fv))
+
+    def mirror_ray(scene, h, wo, active=None):
+        calls.append(("mirror_ray", dict(scene=scene, h=h, wo=wo), active))
+        s = h.t.shape
+        ray = real_shade["mirror_ray"](
+            scene, unread(active, h), dead_as(active, s, wo, UNREAD[0]),
+            active)
+        live = torch.ones(s, dtype=torch.bool) if active is None \
+            else active.expand(s)
+        return tlt.MirrorRay(hit(active, ray.hit),
+                             dead_as(active, s, ray.view, fv),
+                             sky_at(live & ~ray.hit.valid, s, ray.sky))
+
+    def mix(name):
+        def fn(scene, h, mat, *rest, active=None, out=None):
+            calls.append((name, dict(scene=scene, h=h, mat=mat, rest=rest,
+                                     out=out), active))
+            got = real_shade[name](scene, h, mat, *rest, active=active,
+                                   out=out)
+            # without `out` the kernel leaves its dead lanes unwritten
+            return got if out is not None else dead_as(
+                active, got.shape[:-1], got, fv)
+        return fn
+
     for name, fn in (("trace", trace),
                      ("ambient_occlusion", ambient_occlusion),
                      ("bounce", bounce), ("sky", sky)):
         monkeypatch.setattr(an_trace_cuda, name, fn)
+    for name, fn in (("glass_rays", glass_rays), ("mirror_ray", mirror_ray),
+                     ("glass_mix", mix("glass_mix")),
+                     ("mirror_mix", mix("mirror_mix"))):
+        monkeypatch.setattr(an_shade_cuda, name, fn)
     monkeypatch.setattr(an_cuda, "direct_light", direct_light)
 
 
@@ -282,7 +345,7 @@ def test_bvh_frames_read_no_dead_sky_lane(name, env, day_sky, monkeypatch):
 def _labels(params):
     """The wrapper calls of an analytic frame in order, each (wrapper,
     label): the primary trace and sky, AO, GI's bounce and sky, the
-    mirror's trace, GI and sky, glass's three traces and three skies."""
+    mirror's ray, GI and mix, glass's rays and mix."""
     gi, ao = bool(params.enable_gi), bool(params.enable_ao)
     out = [("trace", "primary_trace"), ("sky", "primary_sky")]
     if ao and params.spp_per_frame > 1:
@@ -292,15 +355,14 @@ def _labels(params):
     if ao and params.spp_per_frame == 1:
         out.append(("ambient_occlusion", "ao"))
     if params.mat_mirror_enabled:
-        out.append(("trace", "mirror_trace"))
+        # the mirror's trace and sky are the ray kernel's (mirror_ray)
+        out.append(("mirror_ray", "mirror_ray"))
         if gi:
             out += [("bounce", "mirror_gi_bounce"), ("sky", "mirror_gi_sky")]
-        out.append(("sky", "mirror_sky"))
+        out.append(("mirror_mix", "mirror_mix"))
     if params.mat_glass_enabled:
-        out += [("sky", "glass_reflect_sky"), ("trace", "glass_reflect_trace"),
-                ("trace", "glass_straight_trace"),
-                ("trace", "glass_bent_trace"), ("sky", "glass_straight_sky"),
-                ("sky", "glass_bent_sky")]
+        # glass's three traces and three skies are the rays kernel's
+        out += [("glass_rays", "glass_rays"), ("glass_mix", "glass_mix")]
     return out
 
 
@@ -331,11 +393,12 @@ def _plain_trace(call):
 def test_masks_are_the_lanes_each_select_reads(spp, day_sky, monkeypatch):
     """The mask each call is handed, rebuilt from the frame's dense values:
     the primary sky its misses, AO the hits, GI's bounce the diffuse hits,
-    the mirror's and glass's traces their material's hits, GI's bounce at
-    the mirror's hit the mirror's valid hits, each sky where its ray
-    missed among its caller's lanes (glass's bent sky where it refracts
-    too).  At 2 samples the shared hit's masks are broadcast over the
-    samples, and the kernels read them once a pixel."""
+    the mirror's and glass's rays and mixes their material's hits (the
+    rays kernels trace there and look each sky up where its ray missed,
+    glass's bent sky where it refracts too), GI's bounce at the mirror's
+    hit the mirror's valid hits, GI's skies where the bounce missed among
+    its caller's lanes.  At 2 samples the shared hit's masks are broadcast
+    over the samples, and the kernels read them once a pixel."""
     from opengl_raytracing_tpu_torch.constants import MAT_POINTLIGHT_SPHERE
     from opengl_raytracing_tpu_torch.ops.materials import (
         MTYPE_DIFFUSE, MTYPE_GLASS, MTYPE_MIRROR, get_material)
@@ -350,7 +413,11 @@ def test_masks_are_the_lanes_each_select_reads(spp, day_sky, monkeypatch):
                & (mat.mtype == MTYPE_DIFFUSE))
     mirror, glass = hit & (mat.mtype == MTYPE_MIRROR), hit & (
         mat.mtype == MTYPE_GLASS)
-    h_mirror = _plain_trace(calls["mirror_trace"])
+    a = calls["mirror_ray"][1]
+    mirror_ray = tlt.mirror_ray_plain(a["scene"], a["h"], a["wo"])
+    h_mirror = mirror_ray.hit
+    a = calls["glass_rays"][1]
+    glass_rays = tlt.glass_rays_plain(a["scene"], a["h"], a["wo"], a["mat"])
 
     def bounce_valid(label):
         a = calls[label][1]
@@ -363,18 +430,39 @@ def test_masks_are_the_lanes_each_select_reads(spp, day_sky, monkeypatch):
     want = {
         "primary_trace": None, "primary_sky": ~hit, "ao": hit,
         "gi_bounce": diffuse, "gi_sky": diffuse & ~bounce_valid("gi_bounce"),
-        "mirror_trace": mirror,
+        "mirror_ray": mirror, "mirror_mix": mirror,
         "mirror_gi_bounce": mirror & h_mirror.valid,
         "mirror_gi_sky": (mirror & h_mirror.valid
                           & ~bounce_valid("mirror_gi_bounce")),
-        "mirror_sky": mirror & ~h_mirror.valid,
-        "glass_reflect_sky": glass, "glass_reflect_trace": glass,
-        "glass_straight_trace": glass, "glass_bent_trace": glass,
-        "glass_straight_sky": (
-            glass & ~_plain_trace(calls["glass_straight_trace"]).valid),
-        "glass_bent_sky": (glass & (k > 0.0)
-                           & ~_plain_trace(calls["glass_bent_trace"]).valid),
+        "glass_rays": glass, "glass_mix": glass,
     }
+    # the lanes the rays kernels trace and look each sky up on, which
+    # were the masks of calls of their own: the mirror's trace and its sky
+    # where it missed; glass's three traces and reflected sky, the
+    # straight sky where it missed, the bent sky where it refracts and
+    # missed
+    shape = _shape_of("glass_rays", calls["glass_rays"][1])
+    live = {name: calls[name][2].expand(shape).reshape(-1).numpy()
+            for name in ("mirror_ray", "glass_rays")}
+    moved = {
+        "mirror_trace": (live["mirror_ray"], mirror),
+        "mirror_sky": (sky_lanes("mirror_ray", mirror_ray,
+                                 live["mirror_ray"])[0],
+                       mirror & ~h_mirror.valid),
+        **{f"glass_{ray}_trace": (live["glass_rays"], glass)
+           for ray in ("reflect", "straight", "bent")},
+        **{f"glass_{ray}_sky": (lanes, w) for ray, lanes, w in zip(
+            ("reflect", "straight", "bent"),
+            sky_lanes("glass_rays", glass_rays, live["glass_rays"]),
+            (glass, glass & ~glass_rays.hits[1].valid,
+             glass & (k > 0.0) & ~glass_rays.hits[2].valid))},
+    }
+    for label, (got, w) in moved.items():
+        np.testing.assert_array_equal(
+            got, w.expand(shape).reshape(-1).numpy(), err_msg=label)
+        assert not w.all(), label
+        assert w.any() or label in ("glass_straight_sky",
+                                    "glass_bent_sky"), label
     assert set(want) == set(calls)
     for label, (name, args, active) in calls.items():
         if want[label] is None:
@@ -389,7 +477,7 @@ def test_masks_are_the_lanes_each_select_reads(spp, day_sky, monkeypatch):
         assert want[label].any() or label in ("glass_straight_sky",
                                               "glass_bent_sky"), label
     if spp > 1:
-        for label in ("ao", "gi_bounce", "mirror_trace", "glass_bent_trace"):
+        for label in ("ao", "gi_bounce", "mirror_ray", "glass_rays"):
             mode = an_trace_cuda.lane_input(
                 calls[label][2], _shape_of(*calls[label][:2]), 0, torch.bool,
                 torch.device("cpu"), "active")[0].mode
@@ -585,8 +673,188 @@ def check_sky_call(args, live, s, block):
     _check(got, want.numpy(), live, "sky")
 
 
+def _mat_row(block, field, ids):
+    """get_material's row of each id (ids 0-3, else the last) in `field`
+    of the parameter block."""
+    rows = np.where((ids >= 0) & (ids < 4), ids, 4)
+    table = F32(block[field])
+    return table.reshape(5, -1)[rows].squeeze(-1) if table.size == 5 \
+        else table.reshape(5, 3)[rows]
+
+
+def _mix(a, b, t):
+    return a + (b - a) * t
+
+
+def _reflect(i, n):
+    return i - (F32(2.0) * _dot(n, i))[:, None] * n
+
+
+def sky_lanes(name, rays, live):
+    """The lanes on which a rays kernel looks up each of its skies
+    (csrc/an_shade.cu), given its dense plain results `rays`: glass's
+    reflected sky on every live lane, the straight ray's where it missed,
+    the bent ray's where it refracts and missed; the mirror's where its
+    ray missed."""
+    if name == "mirror_ray":
+        return (live & ~rays.hit.valid.reshape(-1).numpy(),)
+    miss = [~h2.valid.reshape(-1).numpy() for h2 in rays.hits]
+    return (live, live & miss[1],
+            live & (rays.k.reshape(-1).numpy() > F32(0.0)) & miss[2])
+
+
+def model_glass_rays(s, block, env, c, p, n, wo, mat, cam):
+    """an_glass_rays_kernel on rows: (hits, views, skies, k, cos), each
+    sky on every row (the kernel writes it where sky_lanes says)."""
+    nn, v = _norm(n), _norm(wo)
+    i = -v
+    ior = np.maximum(_mat_row(block, "mat_ior", mat), F32(c.min_ior))
+    eta = F32(1.0) / ior
+    r = _reflect(i, nn)
+    cos = np.minimum(np.maximum(_dot(-i, nn), F32(0.0)), F32(1.0))
+    cosi = _dot(nn, i)
+    k = F32(1.0) - eta * eta * (F32(1.0) - cosi * cosi)
+    kk = eta * cosi + _lib("sqrt", np.maximum(k, F32(0.0)))
+    t_phys = np.where((k < F32(0.0))[:, None], F32(0.0),
+                      eta[:, None] * i - kk[:, None] * nn)
+    t_dir = _norm(_mix(i, _norm(t_phys), F32(c.distortion)))
+    hits, views, skies = [], [], []
+    for d in (r, i, t_dir):
+        o = p + d * F32(c.eps)
+        hit = model_trace(s, block, o, d, False, c.marker, F32(c.eps))
+        hits.append(hit)
+        views.append(_norm(cam - hit[1]))
+        skies.append(model_sky(s, block, env, d))
+    return hits, views, skies, k, cos
+
+
+def model_glass_mix(block, c, mat, t, skies, lit, k, cos):
+    """an_glass_mix_kernel on rows."""
+    env = skies[0]
+    local = np.where((t[0] < INF)[:, None], lit[0], env)
+    reflect_col = _mix(env, local, F32(c.local_refl))
+    straight = np.where((t[1] < INF)[:, None], lit[1], skies[1])
+    bent = np.where((t[2] < INF)[:, None], lit[2], skies[2])
+    refr = np.where((k > F32(0.0))[:, None],
+                    _mix(straight, bent, F32(c.distortion)), straight)
+    refr = refr * _mat_row(block, "mat_albedo", mat)
+    ior = np.maximum(_mat_row(block, "mat_ior", mat), F32(c.min_ior))
+    q = (ior - F32(1.0)) / (ior + F32(1.0))
+    f0 = q * q
+    fresnel = f0 + (F32(1.0) - f0) * torch.pow(
+        torch.from_numpy(F32(1.0) - cos), 5.0).numpy()
+    return _mix(refr, reflect_col, fresnel[:, None])
+
+
+def model_mirror_ray(s, block, env, c, p, n, wo):
+    """an_mirror_ray_kernel on rows: (hit, view -r, sky)."""
+    i = -_norm(wo)
+    r = _reflect(i, _norm(n))
+    hit = model_trace(s, block, p + r * F32(c.eps), r, True, c.marker,
+                      F32(c.eps))
+    return hit, -r, model_sky(s, block, env, r)
+
+
+def model_mirror_mix(block, c, mat, t, hmat, sky, direct, gi):
+    """an_mirror_mix_kernel on rows; `gi` (t, cos, lit, sky) or None.  The
+    GI tail's cos / PI is the CPU's division, as the plain version on the
+    CPU takes it (on the card the kernel and PyTorch multiply by the
+    float32 reciprocal, `c.inv_pi`)."""
+    col = direct
+    if gi is not None:
+        gt, cs, glit, gsky = gi
+        li = np.where((gt < INF)[:, None], glit, gsky)
+        g = _mat_row(block, "mat_albedo", hmat) * (cs / F32(tlt.PI))[:, None] \
+            * li
+        g = np.where((cs > F32(0.0))[:, None], g, F32(0.0))
+        col = col + g * F32(block["gi_scale_analytic"])
+    col = np.where((t < INF)[:, None], col, sky)
+    return col * _mat_row(block, "mat_albedo", mat)
+
+
+def _rows(x, shape, width, live, dtype=torch.float32):
+    return _lanes(x, shape, width, dtype)[live]
+
+
+def _flat(x, live):
+    """A row-a-lane input (an output of the calls between the rays and
+    the mix call) on the live lanes."""
+    n = len(live)
+    return x.reshape((n, 3) if x.numel() == 3 * n else (n,)).numpy()[live]
+
+
+def check_glass_rays_call(args, live, s, block):
+    h, wo, scene = args["h"], args["wo"], args["scene"]
+    shape = h.t.shape
+    c = an_shade_cuda.shade_consts(scene.params)
+    env = an_cuda.env_table(scene.params, scene.env_map, torch.device("cpu"))
+    hits, views, skies, k, cos = model_glass_rays(
+        s, block, env, c, _rows(h.p, shape, 3, live),
+        _rows(h.n, shape, 3, live), _rows(wo, shape, 3, live),
+        _rows(h.mat, shape, 0, live, torch.int32),
+        _rows(scene.cam_pos, shape, 3, live))
+    want = tlt.glass_rays_plain(scene, h, wo, args["mat"])
+    for j in range(3):
+        for g, w, name in zip(hits[j], want.hits[j], ("t", "p", "n", "mat")):
+            _check(g, w.numpy(), live, f"ray {j} {name}")
+        _check(views[j], want.views[j].numpy(), live, f"view {j}")
+    for j, lanes in enumerate(sky_lanes("glass_rays", want, live)):
+        _check(skies[j][lanes[live]], want.skies[j].numpy(), lanes,
+               f"sky {j}")
+    _check(k, want.k.numpy(), live, "k")
+    _check(cos, want.cos_theta.numpy(), live, "cos")
+
+
+def check_glass_mix_call(args, live, s, block):
+    h, scene = args["h"], args["scene"]
+    rays, lit = args["rest"]
+    c = an_shade_cuda.shade_consts(scene.params)
+    got = model_glass_mix(
+        block, c, _rows(h.mat, rays.k.shape, 0, live, torch.int32),
+        [_flat(h2.t, live) for h2 in rays.hits],
+        [_flat(x, live) for x in rays.skies], [_flat(x, live) for x in lit],
+        _flat(rays.k, live), _flat(rays.cos_theta, live))
+    want = tlt.glass_mix_plain(scene, h, args["mat"], rays, lit)
+    _check(got, want.numpy(), live, "glass")
+
+
+def check_mirror_ray_call(args, live, s, block):
+    h, wo, scene = args["h"], args["wo"], args["scene"]
+    shape = h.t.shape
+    c = an_shade_cuda.shade_consts(scene.params)
+    env = an_cuda.env_table(scene.params, scene.env_map, torch.device("cpu"))
+    hit, view, sky = model_mirror_ray(
+        s, block, env, c, _rows(h.p, shape, 3, live),
+        _rows(h.n, shape, 3, live), _rows(wo, shape, 3, live))
+    want = tlt.mirror_ray_plain(scene, h, wo)
+    for g, w, name in zip(hit, want.hit, ("t", "p", "n", "mat")):
+        _check(g, w.numpy(), live, name)
+    _check(view, want.view.numpy(), live, "view")
+    (lanes,) = sky_lanes("mirror_ray", want, live)
+    _check(sky[lanes[live]], want.sky.numpy(), lanes, "sky")
+
+
+def check_mirror_mix_call(args, live, s, block):
+    h, scene = args["h"], args["scene"]
+    ray, direct, gi = args["rest"]
+    c = an_shade_cuda.shade_consts(scene.params)
+    got = model_mirror_mix(
+        block, c, _rows(h.mat, ray.hit.t.shape, 0, live, torch.int32),
+        _flat(ray.hit.t, live), _flat(ray.hit.mat, live),
+        _flat(ray.sky, live), _flat(direct, live),
+        None if gi is None else (_flat(gi.hit.t, live),
+                                 _flat(gi.cos_theta, live),
+                                 _flat(gi.lit, live), _flat(gi.sky, live)))
+    want = tlt.mirror_mix_plain(scene, h, args["mat"], ray, direct, gi)
+    _check(got, want.numpy(), live, "mirror")
+
+
 CHECKS = {"trace": check_trace_call, "ambient_occlusion": check_ao_call,
-          "bounce": check_bounce_call, "sky": check_sky_call}
+          "bounce": check_bounce_call, "sky": check_sky_call,
+          "glass_rays": check_glass_rays_call,
+          "glass_mix": check_glass_mix_call,
+          "mirror_ray": check_mirror_ray_call,
+          "mirror_mix": check_mirror_mix_call}
 
 
 def _shape_of(name, args):
@@ -595,7 +863,10 @@ def _shape_of(name, args):
                                       args["rd"].shape[:-1])
     if name == "sky":
         return args["d"].shape[:-1]
-    return (args["h"] if name == "ambient_occlusion" else args["h0"]).t.shape
+    if name in ("glass_mix", "mirror_mix"):
+        return args["rest"][0].k.shape if name == "glass_mix" \
+            else args["rest"][0].hit.t.shape
+    return (args["h0"] if name == "bounce" else args["h"]).t.shape
 
 
 @pytest.mark.parametrize("spp", [1, 2])
@@ -773,10 +1044,11 @@ def test_masked_frame_is_the_same_for_every_frame(case, day_sky,
     kernels = [op for op in records[0] if op[0] == "kernel"]
     names = [op[1] for op in kernels]
     labels = _labels(params)
-    assert [n for n in names if n in WRAPPERS] == [w for w, _ in labels]
+    gates = WRAPPERS + SHADE_WRAPPERS
+    assert [n for n in names if n in gates] == [w for w, _ in labels]
     # the masks reach the kernels: every call but the primary trace reads
     # one (the last of each call's input modes)
-    calls = [op for op in kernels if op[1] in WRAPPERS]
+    calls = [op for op in kernels if op[1] in gates]
     assert calls[0][2][-1][-1] is None
     assert all(op[2][-1][-1] is not None for op in calls[1:])
     for ops in records[1:]:

@@ -901,8 +901,8 @@ def _an_direct_into(scene, h, rng, frame, vdir, px, py, active):
 def _an_frame_mask(scene, h_raw, h):
     """The primary call's mask as the frame makes it: the hits, minus the
     marker, minus the mirror and glass lanes."""
-    from opengl_raytracing_tpu_torch.models.pipeline import _diffuse_lanes
-    return h_raw.valid & _diffuse_lanes(h.mat, scene.params)
+    from opengl_raytracing_tpu_torch.models.pipeline import _material_lanes
+    return h_raw.valid & _material_lanes(h.mat, scene.params)[0]
 
 
 @pytest.mark.parametrize("size", SIZES)
@@ -1997,7 +1997,10 @@ def test_a_failed_band_capture_raises(bvh, tmp_path, monkeypatch):
 
 # ---- the analytic scene's live-lane kernels (csrc/an_trace.cu) ----
 
-GATE_CALLS = dict(trace=5, ambient_occlusion=1, bounce=2, sky=7)
+# a `full` frame's calls: the mirror's and glass's traces and skies are
+# their rays kernels' since those kernels (csrc/an_shade.cu; before: 5
+# traces, 7 skies)
+GATE_CALLS = dict(trace=1, ambient_occlusion=1, bounce=2, sky=3)
 GATE_COUNTERS = dict(trace="an_trace", ambient_occlusion="an_ao",
                      bounce="an_bounce", sky="sky")
 
@@ -2111,7 +2114,7 @@ def _gate_sentinel(monkeypatch):
 @pytest.mark.parametrize("size", SIZES)
 def test_an_gate_kernels_match_plain(size, spp, env, monkeypatch):
     """Every call an analytic `full` frame makes to the trace, AO, bounce
-    and sky kernels (5, 1, 2 and 7 of them), with the frame's own mask,
+    and sky kernels (1, 1, 2 and 3 of them), with the frame's own mask,
     none, a partial one and an empty one: one launch, every output equal
     to the dense plain version's bit for bit on the lanes live in the
     mask and the frame's own (the frame's dead lanes hold unspecified
@@ -2238,3 +2241,172 @@ def test_an_bands_in_turn_on_card_match_render_frame():
         for name, got in zip(out._fields, zip(*outs)):
             assert torch.equal(torch.cat(got), getattr(out, name)), name
     assert torch.equal(torch.cat([b.accum for b in bands]), state.accum)
+
+
+# ---- glass's and the mirror's rays and mix kernels (csrc/an_shade.cu) ----
+
+SHADE_CALLS = ("mirror_ray", "mirror_mix", "glass_rays", "glass_mix")
+SHADE_RAYS = ("reflect", "straight", "bent")
+# an eager frame's launches: an_full (`full`, a cubemap) and an_baseline
+SHADE_FRAME_LAUNCHES = {
+    "an_full": dict(an_direct=7, an_trace=1, an_ao=1, an_bounce=2, sky=3,
+                    svgf_present=1, glass_rays=1, glass_mix=1, mirror_ray=1,
+                    mirror_mix=1),
+    "an_baseline": dict(an_direct=5, an_trace=1, sky=1, tonemap=1,
+                        glass_rays=1, glass_mix=1, mirror_ray=1,
+                        mirror_mix=1)}
+
+
+def _shade_calls(params, size, env):
+    """The calls one eager analytic frame on the card makes to the four
+    wrappers of ops/an_shade_cuda.py, [(name, arguments)], and the frame's
+    launches."""
+    import inspect
+    from opengl_raytracing_tpu_torch.models import RenderState, render_frame
+    from opengl_raytracing_tpu_torch.ops import an_shade_cuda
+    h, w = size
+    calls, real = [], {n: getattr(an_shade_cuda, n) for n in SHADE_CALLS}
+
+    def spy(name):
+        def fn(*args, **kw):
+            bound = inspect.signature(real[name]).bind(*args, **kw)
+            bound.apply_defaults()
+            calls.append((name, dict(bound.arguments)))
+            return real[name](*args, **kw)
+        return fn
+    cam = Camera()
+    cam.aspect = w / h
+    fin = camera_frame_inputs(cam, "cuda", jitter=(0.2, -0.1), frame_index=5)
+    before = dict(cuda_lib.LAUNCHES)
+    try:
+        for n in SHADE_CALLS:
+            setattr(an_shade_cuda, n, spy(n))
+        render_frame(params, fin, RenderState.create(h, w, "cuda"), env,
+                     height=h, width=w)
+    finally:
+        for n, fn in real.items():
+            setattr(an_shade_cuda, n, fn)
+    torch.cuda.synchronize()
+    return calls, {k: v for k, v in _grew(before).items() if v}
+
+
+def _shade_fields(name, r):
+    """{output: tensor} of a rays or mix call's result."""
+    if name == "mirror_ray":
+        return dict(zip(Hit._fields, r.hit), view=r.view, sky=r.sky)
+    if name == "glass_rays":
+        out = dict(k=r.k, cos=r.cos_theta)
+        for j, ray in enumerate(SHADE_RAYS):
+            out.update({f"{ray}_{f}": x for f, x in zip(Hit._fields,
+                                                        r.hits[j])})
+            out.update({f"{ray}_view": r.views[j], f"{ray}_sky": r.skies[j]})
+        return out
+    return dict(radiance=r)
+
+
+def _shade_plain(name, a):
+    if name == "glass_rays":
+        return _shade_fields(name, lt.glass_rays_plain(a["scene"], a["h"],
+                                                       a["wo"], a["mat"]))
+    if name == "mirror_ray":
+        return _shade_fields(name, lt.mirror_ray_plain(a["scene"], a["h"],
+                                                       a["wo"]))
+    if name == "glass_mix":
+        return _shade_fields(name, lt.glass_mix_plain(
+            a["scene"], a["h"], a["mat"], a["rays"], a["lit"]))
+    return _shade_fields(name, lt.mirror_mix_plain(
+        a["scene"], a["h"], a["mat"], a["ray"], a["direct"], a["gi"]))
+
+
+def _shade_written(want, live):
+    """{output: the live lanes the kernel writes it on}: a rays kernel's
+    skies where the mix reads them, the rest on every live lane."""
+    def missed(ray):
+        return ~(want[f"{ray}t" if ray else "t"] < 1e30)
+    out = {f: live for f in want}
+    if "sky" in want:
+        out["sky"] = live & missed("")
+    if "straight_sky" in want:
+        out["straight_sky"] = live & missed("straight_")
+        out["bent_sky"] = live & (want["k"] > 0.0) & missed("bent_")
+    return out
+
+
+def _shade_shape(name, a):
+    if name in ("glass_rays", "mirror_ray"):
+        return a["h"].t.shape
+    return (a["rays"].k if name == "glass_mix" else a["ray"].hit.t).shape
+
+
+def _nan_equal(x, w):
+    return bool(((x == w) | (torch.isnan(x) & torch.isnan(w))).all())
+
+
+@pytest.mark.parametrize("case", list(SHADE_FRAME_LAUNCHES))
+@pytest.mark.parametrize("spp", [1, 2])
+@pytest.mark.parametrize("size", SIZES)
+def test_an_shade_kernels_match_plain(size, spp, case):
+    """Every call an analytic frame makes to glass's and the mirror's rays
+    and mix kernels, with the frame's own mask, none, a partial one and an
+    empty one: one launch, every output equal to the dense plain version's
+    bit for bit on the lanes live in the mask and the frame's own and
+    written there (the rays kernels' skies where the mixes read them), a
+    mix's `out` untouched on its dead lanes; and the frame's launches."""
+    from opengl_raytracing_tpu_torch.convert import env_from_numpy
+    from opengl_raytracing_tpu_torch.ops import an_shade_cuda
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    env = case == "an_full"
+    params = preset("full" if env else "baseline").replace(
+        spp_per_frame=spp, enable_env_map=int(env))
+    table = None
+    if env:
+        faces = np.random.RandomState(3).randint(0, 256, (6, 16, 16, 3))
+        table = env_from_numpy(faces.astype(np.uint8), "cuda")
+    calls, launches = _shade_calls(params, size, table)
+    assert launches == SHADE_FRAME_LAUNCHES[case]
+    assert [c[0] for c in calls] == list(SHADE_CALLS)
+    g = torch.Generator(device="cuda").manual_seed(spp)
+    for name, a in calls:
+        shape = _shade_shape(name, a)
+        want = _shade_plain(name, a)
+        frame = a["active"]
+        assert frame is not None
+        masks = {"frame": frame, "none": None,
+                 "partial": torch.rand(shape, generator=g,
+                                       device="cuda") < 0.3,
+                 "empty": torch.zeros(shape, dtype=torch.bool,
+                                      device="cuda")}
+        mix = name.endswith("_mix")
+        args = {k: v for k, v in a.items() if k not in ("active", "out")}
+        for how, mask in masks.items():
+            out = torch.full(shape + (3,), SENTINEL, device="cuda")
+            before = dict(cuda_lib.LAUNCHES)
+            fn = getattr(an_shade_cuda, name)
+            got = _shade_fields(name, fn(**args, active=mask, out=out)
+                                if mix else fn(**args, active=mask))
+            assert _grew(before) == {**{c: 0 for c in before}, name: 1}
+            torch.cuda.synchronize()
+            live = (torch.ones(shape, dtype=torch.bool, device="cuda")
+                    if mask is None else mask.expand(shape))
+            both = live & frame.expand(shape)
+            for field, lanes in _shade_written(want, both).items():
+                x = got[field]
+                assert _nan_equal(x[lanes], want[field].expand(x.shape)[lanes]
+                                  ), (name, how, field)
+            if mix:
+                assert bool((out[~live] == SENTINEL).all()), (name, how)
+
+
+def test_an_shade_wrappers_reject_bad_inputs():
+    from opengl_raytracing_tpu_torch.ops import an_shade_cuda
+    scene, h_raw, h, px, py, vdir = _analytic(preset("full"), 8, 8)
+    with pytest.raises(TypeError):
+        an_shade_cuda.mirror_ray(scene, h, vdir.double(), h_raw.valid)
+    with pytest.raises(ValueError):
+        an_shade_cuda.glass_rays(scene, h, vdir, None, h_raw.valid.cpu())
+    rays = an_shade_cuda.glass_rays(scene, h, vdir, None, h_raw.valid)
+    lit = [torch.zeros_like(v) for v in rays.views]
+    with pytest.raises(ValueError):  # `out` of another shape
+        an_shade_cuda.glass_mix(scene, h, None, rays, lit, h_raw.valid,
+                                torch.zeros((4, 4, 3), device="cuda"))

@@ -18,8 +18,9 @@ import ctypes
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from opengl_raytracing_tpu_torch.ops import (an_cuda, an_trace_cuda,
-                                             bvh_cuda, svgf_cuda)
+from opengl_raytracing_tpu_torch.ops import (an_cuda, an_shade_cuda,
+                                             an_trace_cuda, bvh_cuda,
+                                             svgf_cuda)
 
 # ATen operations that read a device value on the host: a captured frame
 # makes none
@@ -174,6 +175,31 @@ def recording(monkeypatch):
                 tuple(d.shape),
                 _modes(d.shape[:-1], (d, 3), (active, 0)))
 
+    # glass's and the mirror's rays and mix kernels: the scene's struct,
+    # their constants, the shapes and input modes (the mask's last)
+    def shade_struct(scene, env=None):
+        return (_struct(an_cuda.scene_struct(scene.params, env)),
+                bytes(an_shade_cuda.shade_consts(scene.params)))
+
+    def rays(scene, h, wo, active):
+        env = an_cuda.env_table(scene.params, scene.env_map, h.t.device)
+        shape = h.t.shape
+        return (shade_struct(scene, env), tuple(shape),
+                _modes(shape, (h.p, 3), (h.n, 3), (wo, 3), (h.mat, 0),
+                       (active, 0)))
+
+    def mix(scene, h, mat, first, *a, active=None, out=None):
+        shape = (first.k if hasattr(first, "k") else first.hit.t).shape
+        return (shade_struct(scene), tuple(shape), out is not None,
+                _modes(shape, (h.mat, 0), (active, 0)))
+
+    stub(an_shade_cuda, "glass_rays",
+         lambda scene, h, wo, mat=None, active=None: rays(scene, h, wo,
+                                                          active))
+    stub(an_shade_cuda, "mirror_ray",
+         lambda scene, h, wo, active=None: rays(scene, h, wo, active))
+    for name in ("glass_mix", "mirror_mix"):
+        stub(an_shade_cuda, name, mix)
     stub(an_trace_cuda, "trace", an_trace)
     stub(an_trace_cuda, "ambient_occlusion", an_ao)
     stub(an_trace_cuda, "bounce", an_bounce)
