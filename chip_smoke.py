@@ -158,9 +158,23 @@ in phases, each printing its result and seconds on a line of its own:
      plain times; each kernel's launches a frame in frames_an_full and
      frames_analytic (one each, exactly);
   18-20. frames_heavy (a frame: closest 1, bvh_direct 2, bounce 1, ao 1,
-     svgf_present 1, sky 2, exactly; as a host loop of samples it was
-     bvh_direct 8 and bounce 4), reference_heavy (270x480, 3 frames),
-     profile_heavy;
+     svgf_present 1, sky 1, bvh_hit_mix 1, exactly; as a host loop of
+     samples it was bvh_direct 8 and bounce 4, and before the hit-mix
+     kernel sky 2), reference_heavy (270x480, 3 frames), profile_heavy;
+  20b. hit_mix: both scenes' shading tails (csrc/hit_mix.cu:
+     bvh_hit_mix_kernel, an_hit_mix_kernel, the rest of the JAX package's
+     hit gates) on every call of a 1080p `full` and `heavy` frame, an
+     an_full frame (sky_day.png), an 800x600 an_baseline frame and the
+     1080p analytic `heavy` frame of phase spp_batch (4 samples), the
+     third of a chain, each on its recorded inputs against its dense plain
+     version on the card (lighting.bvh_hit_mix_plain, an_hit_mix_plain),
+     with the frame's own mask, none, a partial one and an empty one: the
+     radiance bit for bit on the live lanes the kernel writes (the
+     analytic one: diffuse and marker lanes), every other lane of `out`
+     untouched, one launch a call; each call's live lanes, bound (bytes:
+     the mask, the rows a live lane reads and writes, the sky's texels),
+     wrapper, kernel and plain times; the launches a frame (one hit-mix
+     launch a GI or AO frame, `sky` once on the BVH frames);
   21-24. frames_moving, reference_motion_view (the motion debug wheel of
      the second frame of a moving pair, 270x480), reference_moving (3
      frames), profile_moving;
@@ -246,7 +260,7 @@ in phases, each printing its result and seconds on a line of its own:
      (a) `--scene bvh --preset full`, 32 still frames: the sum of the
      steps' images equals frames_full's checksum bit for bit, with
      frames_full's launches a frame (closest 1, bvh_direct 2, bounce 1, AO
-     1, svgf_present 1, sky 2); (b) `--scene analytic --preset full --env
+     1, svgf_present 1, sky 1, bvh_hit_mix 1); (b) `--scene analytic --preset full --env
      cubemaps/sky_day.png`: frames_an_full's checksum, K3 7 times a frame;
      (c) `--model models/bunny_lp.obj --env cubemaps/sky_noon.hdr
      --camera-anim dolly`: 8 frames finite and in [0,1], and the card
@@ -319,7 +333,7 @@ in phases, each printing its result and seconds on a line of its own:
      frames_analytic, frames_an_full, frames_cf_close, frames_cf_far), and
      its kernel launches a frame that chain's; `realistic` (no other phase
      renders it) a finite checksum and closest 1, bvh_direct 2, bounce 1,
-     ao 1, tonemap 1, sky 2 a frame.  Each case's median ms/frame and spread.
+     ao 1, tonemap 1, sky 1, bvh_hit_mix 1 a frame.  Each case's median ms/frame and spread.
 
 Any failure raises, so the script exits non-zero.  It needs one CUDA
 card and exits non-zero, printing no result, without one.  Before the
@@ -358,13 +372,13 @@ CF_CAMERAS = {"cf_close": (-2.0, 1.6, 1.2), "cf_far": (0.0, 2.0, 8.0)}
 CF_LOOK_AT = (-2.0, 1.5, 0.0)
 CF_LAUNCHES = dict(closest=1, bvh_direct=1, tonemap=1, bounce=0, ao=0,
                    an_direct=0, svgf=0, svgf_present=0, an_trace=0, an_ao=0,
-                   an_bounce=0, sky=1)
+                   an_bounce=0, sky=1, bvh_hit_mix=0, an_hit_mix=0)
 # phase bench: bench_torch.py's nine cases, and realistic's launches a
 # frame (its present pass without SVGF is the tonemap kernel)
 BENCH_CASES = ("baseline", "realistic", "full", "heavy", "an_baseline",
                "an_full", "cf_far", "cf_close", "moving")
 REALISTIC_LAUNCHES = dict(closest=1, bvh_direct=2, bounce=1, ao=1, tonemap=1,
-                          sky=2)
+                          sky=1, bvh_hit_mix=1)
 BENCH_TIMEOUT_S = 600
 PROFILE_FRAME = 3      # the `full` profile times frame 3 (TAA resolves)
 PROFILE_ATTEMPTS = 6   # profiles of one measurement before "not measured"
@@ -465,17 +479,34 @@ KERNELS = {  # wrapper key -> record of the JSON line
                        replaces="opengl_raytracing_tpu/ops/lighting.py:584",
                        kernel="an_mirror_mix_kernel", wrapper="mirror_mix",
                        port_only=True),
+    # both scenes' shading tails: port-only, the JAX package's jnp code
+    # behind its hit gates (`replaces` names the gated shading calls)
+    "bvh_hit_mix": dict(name="bvh_hit_mix",
+                        source="opengl_raytracing_tpu_torch/csrc/hit_mix.cu",
+                        replaces="opengl_raytracing_tpu/models/pipeline.py:"
+                                 "477",
+                        kernel="bvh_hit_mix_kernel", wrapper="bvh_hit_mix",
+                        port_only=True),
+    "an_hit_mix": dict(name="an_hit_mix",
+                       source="opengl_raytracing_tpu_torch/csrc/hit_mix.cu",
+                       replaces="opengl_raytracing_tpu/models/pipeline.py:"
+                                "317",
+                       kernel="an_hit_mix_kernel", wrapper="an_hit_mix",
+                       port_only=True),
 }
 GATE_KERNELS = ("an_trace", "an_ao", "an_bounce", "sky")
 SHADE_KERNELS = ("glass_rays", "glass_mix", "mirror_ray", "mirror_mix")
+HIT_MIX_KERNELS = ("bvh_hit_mix", "an_hit_mix")
 # the launch counters each path must move (ops/cuda_lib.py:LAUNCHES, one
 # per kernel); no path launches "svgf", the filter entry alone: `full`
 # enters the same body through svgf_present
 BVH_PATH = ("closest", "bvh_direct", "tonemap", "sky")
-AN_PATH = ("an_direct", "tonemap", "an_trace", "sky") + SHADE_KERNELS
-FULL_PATH = ("closest", "bounce", "ao", "bvh_direct", "svgf_present", "sky")
+AN_PATH = ("an_direct", "tonemap", "an_trace", "sky", "an_hit_mix") \
+    + SHADE_KERNELS
+FULL_PATH = ("closest", "bounce", "ao", "bvh_direct", "svgf_present", "sky",
+             "bvh_hit_mix")
 AN_FULL_PATH = ("an_direct", "svgf_present", "an_trace", "an_ao",
-                "an_bounce", "sky") + SHADE_KERNELS
+                "an_bounce", "sky", "an_hit_mix") + SHADE_KERNELS
 # launches a frame.  an_full: K3 at the primary hits, at their GI bounce,
 # at the mirror's hit and its GI bounce, at the glass's three secondary
 # hits.  heavy: the 4 samples shade as one batch: the direct light once at
@@ -488,19 +519,25 @@ AN_FULL_LAUNCHES = dict(an_direct=7, svgf_present=1, tonemap=0)
 # primary trace and sky, AO, the bounce and sky of GI at the primary and
 # the mirror's hit; the mirror's ray and mix, glass's rays and mix (their
 # traces and skies inside: before those kernels, an_trace 5 and sky 7);
-# an_baseline has no GI or AO
+# the hit mix (GI's tail, AO's product, the marker); an_baseline has no
+# GI or AO
 AN_FULL_LAUNCHES.update(an_trace=1, an_ao=1, an_bounce=2, sky=3,
+                        an_hit_mix=1, bvh_hit_mix=0,
                         **{k: 1 for k in SHADE_KERNELS})
 AN_BASELINE_LAUNCHES = dict(an_direct=5, tonemap=1, an_trace=1, an_ao=0,
-                            an_bounce=0, sky=1,
+                            an_bounce=0, sky=1, an_hit_mix=1, bvh_hit_mix=0,
                             **{k: 1 for k in SHADE_KERNELS})
+# heavy's sky: the primary misses; GI's sky is the BVH hit mix's (before
+# it, sky 2 and no hit-mix launch)
 HEAVY_LAUNCHES = dict(closest=1, bvh_direct=2, bounce=1, ao=1,
-                      svgf_present=1, svgf=0, tonemap=0, sky=2)
+                      svgf_present=1, svgf=0, tonemap=0, sky=1,
+                      bvh_hit_mix=1, an_hit_mix=0)
 HEAVY_SPP = 4          # the heavy preset's samples a pixel
 # the kernels that take a leading sample axis inside one launch
 SAMPLE_AXIS_KERNELS = ("bvh_direct_kernel", "trace_bounce_kernel",
                        "an_direct_light_kernel", "an_trace_kernel",
-                       "an_bounce_kernel", "sky_kernel")
+                       "an_bounce_kernel", "sky_kernel", "bvh_hit_mix_kernel",
+                       "an_hit_mix_kernel")
 # a replayed `heavy` frame with the samples as a host loop (H100 80GB
 # HBM3, 700 W): its device ms, operations and graph MB
 HEAVY_LOOP = dict(device_ms=4.501, device_ops=305, pool_mb=604)
@@ -802,7 +839,7 @@ def record_kernel_inputs(bvh, height, width, device, keys,
     wrappers still launch)."""
     from opengl_raytracing_tpu_torch.ops import (an_cuda, an_shade_cuda,
                                                  an_trace_cuda, bvh_cuda,
-                                                 svgf_cuda)
+                                                 hit_mix_cuda, svgf_cuda)
     where = {"closest": (bvh_cuda, "trace_closest"),
              "bounce": (bvh_cuda, "trace_bounce"),
              "ao": (bvh_cuda, "ambient_occlusion"),
@@ -813,7 +850,9 @@ def record_kernel_inputs(bvh, height, width, device, keys,
              **{k: (an_trace_cuda, KERNELS[k]["wrapper"])
                 for k in GATE_KERNELS},
              **{k: (an_shade_cuda, KERNELS[k]["wrapper"])
-                for k in SHADE_KERNELS}}
+                for k in SHADE_KERNELS},
+             **{k: (hit_mix_cuda, KERNELS[k]["wrapper"])
+                for k in HIT_MIX_KERNELS}}
     calls = {k: [] for k in keys}
     real = {k: getattr(*where[k]) for k in keys}
 
@@ -823,7 +862,9 @@ def record_kernel_inputs(bvh, height, width, device, keys,
         def fn(*args, **kw):
             bound = sig.bind(*args, **kw)
             bound.apply_defaults()
-            calls[key].append({k: v for k, v in bound.arguments.items()
+            # a hit mix updates `radiance` in place: kept as it came
+            calls[key].append({k: v.clone() if k == "radiance" else v
+                               for k, v in bound.arguments.items()
                                if k != "offsets_out"})
             return real[key](*args, **kw)
         return fn
@@ -2403,6 +2444,221 @@ def check_an_shade(env, frames_an_full, frames_an, timer=None):
                              for k in SHADE_KERNELS})
 
 
+# ---- phase hit_mix: both scenes' shading tails ----
+
+# (label, BVH scene, preset, size, cubemap) of each frame the phase checks;
+# the label prefixes the frame's keys in the kernels line (the first of
+# each kernel's is its main record)
+HIT_MIX_FRAMES = (("full", True, "full", (HEIGHT, WIDTH), False),
+                  ("heavy", True, "heavy", (HEIGHT, WIDTH), False),
+                  ("an_full", False, "full", (HEIGHT, WIDTH), True),
+                  ("an_baseline", False, "baseline", (AN_HEIGHT, AN_WIDTH),
+                   False),
+                  ("an_heavy", False, "heavy", (HEIGHT, WIDTH), False))
+
+
+def hit_mix_plain(key, a):
+    """The dense plain version of a call of hit-mix kernel `key` on the
+    card: the radiance."""
+    from opengl_raytracing_tpu_torch.ops import lighting as lt
+    if key == "bvh_hit_mix":
+        return lt.bvh_hit_mix_plain(a["scene"], a["radiance"], a["gi"],
+                                    a["ao"])
+    return lt.an_hit_mix_plain(a["scene"], a["h"], a["radiance"], a["gi"],
+                               a["ao"])
+
+
+def hit_mix_unread(a, live):
+    """The arguments `a` of a hit-mix call with the per-lane inputs (the
+    radiance, AO, GI's rows) set to valid values on the lanes `live` marks
+    dead (unread); the live lanes as they were."""
+    up = (0.0, 1.0, 0.0)
+    shape = live.shape
+
+    def fill(x, value):
+        if x is None:
+            return None
+        return unread(x.expand(shape + x.shape[len(shape):]), live, value)
+    out = dict(a, radiance=fill(a["radiance"], up), ao=fill(a["ao"], 1.0))
+    gi = a["gi"]
+    if gi is not None:
+        rows = dict(hit=gi.hit._replace(t=fill(gi.hit.t, 1.0)),
+                    cos_theta=fill(gi.cos_theta, 0.5), lit=fill(gi.lit, up))
+        if hasattr(gi, "wi"):
+            rows["wi"] = fill(gi.wi, up)
+        else:
+            rows["sky"] = fill(gi.sky, up)
+        out["gi"] = gi._replace(**rows)
+    return out
+
+
+def hit_mix_writes(key, a, shape):
+    """The lanes hit-mix kernel `key` writes where its mask is live: every
+    one (BVH), the diffuse and the marker lanes (analytic)."""
+    import torch
+    from opengl_raytracing_tpu_torch.ops import lighting as lt
+    if key == "bvh_hit_mix":
+        return torch.ones(shape, dtype=torch.bool, device="cuda")
+    return lt.an_mix_lanes(a["h"].mat, a["scene"].params).expand(shape)
+
+
+def hit_mix_bound(key, a, live, writes):
+    """The least time of one call of hit-mix kernel `key` from the work of
+    its live lanes (bound()): the mask's bytes as the kernel reads them;
+    a written lane's radiance in and out, AO's distinct rows, and with GI
+    its t and cosine, then where the cut keeps it its light (a hit) or
+    direction (a miss) and the sky's distinct texels (BVH) or its light
+    or sky (analytic); the analytic call's material ids, the marker's
+    point and the camera; the operations of that arithmetic."""
+    from opengl_raytracing_tpu_torch.constants import GI_MIN_COS_THETA
+    shape = live.shape
+    mask = a.get("active")
+    n_bytes = 0 if mask is None else gate_mask_bytes(mask, shape)
+    w = live & writes
+    n_w = int(w.sum())
+    gi, ao = a["gi"], a["ao"]
+    params = a["scene"].params
+    n_ops = 0
+    if key == "an_hit_mix":
+        marker = w & (a["h"].mat.expand(shape) == 4)
+        n_marker = int(marker.sum())
+        mixed = w & ~marker
+        n_mix = n_w - n_marker
+        n_bytes += 4 * gate_rows(a["h"].mat, shape, 0, live)
+        n_bytes += 12 * gate_rows(a["h"].p, shape, 3, marker) + 12
+        n_bytes += 24 * n_mix + 12 * n_marker
+        # the marker: p - cam 3, dot 5, max and sqrt 2, the falloff 5, the
+        # colour 3, the emissive 3; a mixed lane's type 5
+        n_ops += 21 * n_marker + 5 * int(live.sum())
+        if gi is not None:
+            # t, cos, the light or the sky; the select, cos * inv_pi,
+            # albedo, li, the cut, the scale and the sum
+            n_bytes += 20 * n_mix
+            n_ops += 15 * n_mix
+    else:
+        mixed, n_mix = w, n_w
+        n_bytes += 24 * n_mix
+        if gi is not None:
+            kept = mixed & (gi.cos_theta.expand(shape) > GI_MIN_COS_THETA)
+            miss = kept & ~(gi.hit.t.expand(shape) < 1e30)
+            n_kept, n_miss = int(kept.sum()), int(miss.sum())
+            n_bytes += 8 * n_mix + 12 * n_kept
+            env = a["scene"].env_map is not None and params.enable_env_map
+            texels = (cubemap_texels(a["scene"].env_map, gi.wi, miss)
+                      if env and n_miss else 0)
+            n_bytes += 12 * texels
+            # the cut 1; a kept lane's select, albedo * q 4, li 3, lum 5,
+            # the clamp's test 1 and scale 4, the scale and the sum 6
+            n_ops += n_mix + 24 * n_kept + n_miss * (
+                OPS["cubemap"] + 3 if env else OPS["sky"])
+            n_ops += 6 * (n_mix - n_kept)
+    if ao is not None:
+        n_bytes += 4 * gate_rows(ao, shape, 0, mixed)
+        n_ops += 3 * n_mix
+    return dict(lanes=shape.numel(), live_lanes=int(live.sum()),
+                written_lanes=n_w, **bound(n_bytes, n_ops))
+
+
+def check_hit_mix_call(key, a, timer, partial_seed):
+    """One recorded call of hit-mix kernel `key` against its dense plain
+    version on the card, with the frame's own mask, none, a partial one
+    and an empty one: the radiance bit for bit on the lanes live in both
+    the mask and the frame's that the kernel writes, every other lane of
+    `out` untouched (SENTINEL before the call), one launch each; else the
+    difference is printed and the phase fails.  The call's live lanes,
+    bound and times alone (the frame's mask)."""
+    import torch
+    from opengl_raytracing_tpu_torch.ops import cuda_lib, hit_mix_cuda
+    shape = a["radiance"].shape[:-1]
+    frame_live = _live_of(shape, a.get("active"))
+    plain = hit_mix_unread(a, frame_live)
+    want = hit_mix_plain(key, plain)
+    writes = hit_mix_writes(key, a, shape)
+    g = torch.Generator(device="cuda").manual_seed(partial_seed)
+    masks = {"frame": a.get("active"), "none": None,
+             "partial": torch.rand(shape, generator=g, device="cuda") < 0.3,
+             "empty": torch.zeros(shape, dtype=torch.bool, device="cuda")}
+    fn = getattr(hit_mix_cuda, KERNELS[key]["wrapper"])
+    args = {k: v for k, v in plain.items() if k not in ("active",
+                                                        "radiance")}
+    bad = {}
+    for how, mask in masks.items():
+        written = _live_of(shape, mask) & writes
+        out = torch.where(written[..., None], plain["radiance"],
+                          torch.full_like(plain["radiance"], SENTINEL))
+        before = cuda_lib.LAUNCHES[key]
+        fn(**args, radiance=out, active=mask)
+        torch.cuda.synchronize()
+        if cuda_lib.LAUNCHES[key] != before + 1:
+            raise AssertionError(f"{key} ({how} mask) did not launch once")
+        both = written & frame_live
+        x, w = out[both], want[both]
+        if not same_bits(x, w):
+            diff = (x.double() - w.double()).abs()
+            n = int(((x != w) & ~(x.isnan() & w.isnan())).sum())
+            bad[f"{how}:radiance"] = n
+            print(f"hit_mix: {key} ({how} mask) differs from the plain "
+                  f"version on {n} values, max abs "
+                  f"{float(diff.nan_to_num(float('inf')).max())}",
+                  file=sys.stderr, flush=True)
+        if not bool((out[~written] == SENTINEL).all()):
+            bad[f"{how}:dead lanes written"] = int(
+                (out[~written] != SENTINEL).any(-1).sum())
+    if bad:
+        raise AssertionError(f"{key} is not the plain version's bits on "
+                             f"live lanes: {bad}")
+    radiance = plain["radiance"].clone()
+
+    def call():  # in place on a copy of the frame's radiance
+        fn(**args, radiance=radiance, active=a.get("active"))
+    return dict(hit_mix_bound(key, a, frame_live, writes), max_abs_err=0.0,
+                bitwise="written live lanes, masks frame/none/partial/empty",
+                ms=timer(call, 20),
+                kernel_ms=kernel_ms(call, KERNELS[key]["kernel"]),
+                plain_ms=timer(lambda: hit_mix_plain(key, plain), 3))
+
+
+def check_hit_mix(bvh, env, runs, timer=None):
+    """Phase hit_mix: both hit-mix kernels on every call of HIT_MIX_FRAMES'
+    frames (the third of a chain), each against its plain version
+    (check_hit_mix_call), and their launches a frame in the frames phases
+    `runs` ({label: run_frames record}).  Returns the phase's record with
+    `records`, the kernels' records of the kernels line (each kernel's
+    first frame; the others beside it under their label's keys)."""
+    timer = timer or cuda_ms
+    frames = {}
+    for label, on_bvh, preset_name, (h, w), cube in HIT_MIX_FRAMES:
+        key = "bvh_hit_mix" if on_bvh else "an_hit_mix"
+        calls = record_kernel_inputs(bvh if on_bvh else None, h, w, "cuda",
+                                     (key,), preset_name, PROFILE_FRAME,
+                                     env=env if cube else None)[key]
+        if len(calls) != 1:
+            raise AssertionError(f"a {label} frame called {key} "
+                                 f"{len(calls)} times")
+        frames[label] = (key, [check_hit_mix_call(key, a, timer, 41 * n)
+                               for n, a in enumerate(calls)])
+    records = {}
+    for label, (key, calls) in frames.items():
+        rec = records.setdefault(key, {})
+        rec.update(gate_record(calls, "" if not rec else f"{label}_"))
+    per_frame = {name: {k: run["launches"][k] / run["frames"]
+                        for k in HIT_MIX_KERNELS + ("sky",)}
+                 for name, run in runs.items()}
+    over = [dict(frame=label, bound_ms=c["bound_ms"],
+                 kernel_ms=c["kernel_ms"])
+            for label, (_, calls) in frames.items() for c in calls
+            if c["kernel_ms"] and c["bound_ms"] > c["kernel_ms"]]
+    if over:
+        print(f"hit_mix: calls measured below their bound: {over}",
+              file=sys.stderr, flush=True)
+    fields = ("lanes", "live_lanes", "written_lanes", "bound_ms",
+              "bound_by", "bound_bytes", "kernel_ms", "ms", "plain_ms")
+    return dict(records=records, launches_per_frame=per_frame,
+                bound_above_time=over,
+                frames={label: [{f: c[f] for f in fields} for c in calls]
+                        for label, (_, calls) in frames.items()})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2569,6 +2825,15 @@ def main() -> int:
         bvh, HEIGHT, WIDTH, FULL_STAGES, frames_heavy["ms_per_frame"],
         "heavy", PROFILE_FRAME))
 
+    # both scenes' shading tails on every call of the BVH `full` and
+    # `heavy` frames and the an_full, an_baseline and analytic `heavy` ones
+    t0 = time.time()
+    hit_mix = check_hit_mix(bvh, env, {
+        "full": frames_full, "heavy": frames_heavy,
+        "an_full": frames_an_full, "an_baseline": frames_an})
+    records.update(hit_mix.pop("records"))
+    phase("hit_mix", t0, **hit_mix)
+
     # the bench's moving: `full` with a camera that moves every frame
     t0 = time.time()
     frames_moving = run_frames(bvh, HEIGHT, WIDTH, FULL_PATH, None, smi,
@@ -2669,7 +2934,7 @@ def main() -> int:
         launches.update({k: run["launches"][k] for k in path})
     # the analytic gates' kernels as the an_full chain launched them
     launches.update({k: frames_an_full["launches"][k]
-                     for k in GATE_KERNELS + SHADE_KERNELS})
+                     for k in GATE_KERNELS + SHADE_KERNELS + ("an_hit_mix",)})
     launches["an_direct_env"] = frames_an_full["launches"]["an_direct"]
     # a replay's launches, summed over the graph phase's cases: what the
     # counters add a replay, and what the profiler saw the card run
@@ -2750,9 +3015,11 @@ def main() -> int:
         return out
     def gate_keys(k):
         # the analytic gates' kernels: their calls on an an_baseline frame
-        # beside the an_full frame's of the line (phase an_gates)
+        # beside the an_full frame's of the line (phase an_gates); the hit
+        # mixes' on the other frames of phase hit_mix
         r = records.get(k, {})
-        return {key: r[key] for key in r if key.startswith("an_baseline_")}
+        return {key: r[key] for key in r if key.startswith(
+            ("an_baseline_", "heavy_", "an_heavy_"))}
     print(json.dumps({"kernels": [dict(line(k), **band_keys(k), **cf_keys(k),
                                        **spp_keys(k), **gate_keys(k))
                                   for k in KERNELS]}), flush=True)
@@ -3986,7 +4253,7 @@ def check_app_headless(frames_full, frames_an_full, smi):
     # (a) the bunny scene, `full`, still camera: frames_full's frames
     full_args = app_args("--scene", "bvh", "--preset", "full")
     full_expect = dict(closest=1, bvh_direct=2, bounce=1, ao=1,
-                       svgf_present=1, sky=2)
+                       svgf_present=1, sky=1, bvh_hit_mix=1)
     a, sums_a, app_a = app_frames(full_args, FRAMES, full_expect)
     if a["checksum"] != frames_full["checksum"]:
         raise AssertionError(f"app (a) checksum {a['checksum']} is not "
@@ -4315,6 +4582,7 @@ AN_STAGES = (
     ("trace_and_shade", "models.pipeline", "trace_and_shade"),
     ("trace#", "ops.an_trace_cuda", "trace"),
     ("direct_light", "ops.an_cuda", "direct_light"),
+    ("hit_mix", "ops.hit_mix_cuda", "an_hit_mix"),  # the marker
     ("mirror", "ops.lighting", "shade_mirror"),
     ("glass", "ops.lighting", "shade_glass"),
     ("store", "models.pipeline", "resolve_taa"),
@@ -4327,8 +4595,9 @@ FULL_STAGES = (
     ("trace_closest", "ops.bvh_cuda", "trace_closest"),  # the primary call
     ("trace_bounce", "ops.bvh_cuda", "trace_bounce"),  # inside GI
     ("direct_light#", "ops.lighting", "direct_light_bvh"),  # 1 inside GI
-    ("gi", "ops.lighting", "one_bounce_gi_bvh"),
+    ("gi", "ops.lighting", "gi_light_bvh"),  # its bounce and direct light
     ("ao", "ops.lighting", "compute_ao"),
+    ("hit_mix", "ops.hit_mix_cuda", "bvh_hit_mix"),  # GI's tail, AO's product
     ("taa", "models.pipeline", "resolve_taa"),
     ("svgf", "ops.svgf_cuda", "svgf_present"),
     ("present", "models.pipeline", "present"),
@@ -4341,8 +4610,9 @@ AN_FULL_STAGES = (
     ("trace#", "ops.an_trace_cuda", "trace"),
     ("sky#", "ops.an_trace_cuda", "sky"),  # the cubemap lookups
     ("direct_light", "ops.an_cuda", "direct_light"),
-    ("gi", "ops.lighting", "one_bounce_gi_analytic"),  # the primary's GI
+    ("gi#", "ops.lighting", "gi_light_analytic"),  # 0 the primary's GI
     ("ao", "ops.lighting", "compute_ao"),
+    ("hit_mix", "ops.hit_mix_cuda", "an_hit_mix"),  # GI's tail, AO, marker
     ("mirror", "ops.lighting", "shade_mirror"),
     ("glass", "ops.lighting", "shade_glass"),
     ("taa", "models.pipeline", "resolve_taa"),

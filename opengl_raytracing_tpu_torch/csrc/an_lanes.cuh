@@ -2,9 +2,9 @@
 // place (LaneIn), the persistent loop that queues a warp's live lanes and
 // works them 32 a round (live_rounds), and a trace's hit written as
 // trace_analytic_core returns it (hit_out).  Included by an_trace.cu (the
-// analytic scene's trace, AO, GI bounce and sky kernels) and an_shade.cu
-// (glass's and the mirror's rays and mixes).  Build with --fmad=false and
-// without --use_fast_math.
+// analytic scene's trace, AO, GI bounce and sky kernels), an_shade.cu
+// (glass's and the mirror's rays and mixes) and hit_mix.cu (both scenes'
+// shading tails).  Build with --fmad=false and without --use_fast_math.
 
 #pragma once
 
@@ -29,7 +29,8 @@ enum { kLane = 0, kPixel = 1, kOne = 2 };
 
 // An input of a call on the device, read in place.
 struct LaneIn {
-  const void* p;  // [rows, 3] float32, [rows] int32, or [rows] mask bytes
+  const void* p;  // [rows, 3] float32, [rows] int32 or float32, or [rows]
+                  // mask bytes
   int mode;       // kLane, kPixel or kOne
 };
 
@@ -46,6 +47,11 @@ __device__ __forceinline__ V3 in3(const LaneIn& x, int64_t i, int64_t n_px) {
 __device__ __forceinline__ int in_i32(const LaneIn& x, int64_t i,
                                       int64_t n_px) {
   return __ldg((const int32_t*)x.p + in_row(x.mode, i, n_px));
+}
+
+__device__ __forceinline__ float in_f32(const LaneIn& x, int64_t i,
+                                        int64_t n_px) {
+  return __ldg((const float*)x.p + in_row(x.mode, i, n_px));
 }
 
 __device__ __forceinline__ void put3(float* __restrict__ out, int64_t i,

@@ -7,7 +7,9 @@
 //
 // The material table is get_material's (ops/materials.py): the rows of
 // the parameter block, the types resolved on the host; K3 and the glass
-// and mirror kernels (an_shade.cu) read it with one body.
+// and mirror kernels (an_shade.cu) read it with one body, and GI's tail
+// (gi_tail_analytic) is one body for the mirror's mix (an_shade.cu) and
+// the primary hit's (hit_mix.cu).
 //
 // The arithmetic is the plain PyTorch version's (ops/scene_analytic.py,
 // ops/intersect.py) expression for expression: the floor's denominator
@@ -170,4 +172,22 @@ __device__ __forceinline__ Material material(const AnScene& s, int id) {
   const ParamBlock* b = s.prm;
   return {c3(b->mat_albedo + 3 * row), b->mat_spec[row], b->mat_gloss[row],
           b->mat_ior[row], material_type(s, id)};
+}
+
+// one_bounce_gi_analytic's tail (lighting.gi_tail_analytic) on lane i of a
+// hit of material id `id`: the bounce's light `lit` where it hit (its t <
+// 1e30) against its sky, times albedo * (cos * inv_pi), 0 where cos <= 0.
+// The bounce's outputs are read a row a lane; `inv_pi` is float32(1 /
+// float32(PI)), as PyTorch's CUDA cos / PI multiplies by it.
+__device__ __forceinline__ V3 gi_tail_analytic(const AnScene& s, int id,
+                                               float inv_pi,
+                                               const float* __restrict__ t,
+                                               const float* __restrict__ cos,
+                                               const float* __restrict__ lit,
+                                               const float* __restrict__ sky,
+                                               int64_t i) {
+  const V3 li = __ldg(t + i) < kInf ? row3(lit, i) : row3(sky, i);
+  const float cs = __ldg(cos + i);
+  if (!(cs > 0.0f)) return {0.0f, 0.0f, 0.0f};
+  return mul3(scale3(material(s, id).albedo, cs * inv_pi), li);
 }

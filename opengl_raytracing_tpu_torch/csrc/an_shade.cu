@@ -260,12 +260,9 @@ an_mirror_mix_kernel(const Units u, const AnScene s, const MirrorMixArgs a) {
       col = row3(a.direct, i);
       if (a.gi) {
         // one_bounce_gi_analytic's tail at the mirror's hit
-        const V3 li = __ldg(a.gi_t + i) < kInf ? row3(a.gi_lit, i)
-                                                : row3(a.gi_sky, i);
-        const float cs = __ldg(a.gi_cos + i);
-        const V3 albedo = material(s, __ldg(a.hmat + i)).albedo;
-        V3 g = mul3(scale3(albedo, cs * a.c.inv_pi), li);
-        if (!(cs > 0.0f)) g = {0.0f, 0.0f, 0.0f};
+        const V3 g = gi_tail_analytic(s, __ldg(a.hmat + i), a.c.inv_pi,
+                                      a.gi_t, a.gi_cos, a.gi_lit, a.gi_sky,
+                                      i);
         col = add3(col, scale3(g, __ldg(s.prm->gi_scale_analytic)));
       }
     } else {

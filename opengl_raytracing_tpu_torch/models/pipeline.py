@@ -47,10 +47,11 @@ from ..ops.materials import (MTYPE_DIFFUSE, MTYPE_GLASS, MTYPE_MIRROR,
                              material_type)
 from ..ops.scene import BVHDevice, SceneCtx
 from ..ops.scene_analytic import Hit
+from ..ops import hit_mix_cuda
 from ..ops import lighting as lt
 from ..ops.taa import resolve_taa
 from ..ops.svgf import present
-from ..ops.vecmath import const3, length, normalize
+from ..ops.vecmath import const3, normalize
 from . import frame_block
 
 
@@ -201,7 +202,10 @@ def _shade_bvh(scene: SceneCtx, h: Hit, seed: Frame, frame_index: Frame,
     """BVH-scene shading (reference: rt.frag:105-117): direct light, plus
     the GI bounce and times AO when they are on.  `active` marks the
     lanes whose radiance survives the sky select; the others trace
-    nothing and their values are unspecified.  `ao` may carry the
+    nothing and their values are unspecified.  On the card GI's tail
+    (the sky where its bounce missed included), the GI sum and the AO
+    product run on the `active` lanes alone, in one kernel
+    (ops/hit_mix_cuda.py): the JAX package's BVH hit gate.  `ao` may carry the
     occlusion term computed once for all samples: it depends on the pixel
     and the frame index, never on the sample's seed.  With `spp` > 1 the
     inputs carry a leading sample axis over which the hit, `vdir` and
@@ -211,15 +215,18 @@ def _shade_bvh(scene: SceneCtx, h: Hit, seed: Frame, frame_index: Frame,
     params = scene.params
     radiance = lt.direct_light_bvh(scene, h, seed, frame_index, vdir, px, py,
                                    active=active, spp_dup=spp)
+    if not (params.enable_gi or params.enable_ao):
+        return radiance
+    gi = None
     if params.enable_gi:
-        radiance = radiance + lt.one_bounce_gi_bvh(
-            scene, h, frame_index, seed, frame_index, px, py,
-            active=active) * params["gi_scale_bvh"]
-    if params.enable_ao:
-        if ao is None:
-            ao = lt.compute_ao(scene, h, frame_index, px, py, active=active)
-        radiance = radiance * ao[..., None]
-    return radiance
+        gi = lt.gi_light_bvh(scene, h, frame_index, seed, frame_index, px,
+                             py, active=active)
+    if params.enable_ao and ao is None:
+        ao = lt.compute_ao(scene, h, frame_index, px, py, active=active)
+    # GI's tail (its sky too), the GI sum and the AO product, on `active`
+    return hit_mix_cuda.bvh_hit_mix(scene, radiance, gi,
+                                    ao if params.enable_ao else None,
+                                    active)
 
 
 def _material_lanes(mat_id, params):
@@ -247,18 +254,21 @@ def _shade_analytic(scene: SceneCtx, h: Hit, seed: Frame, frame_index: Frame,
     keeps (the sky select drops the misses).  Every call below is handed,
     as a device mask, the lanes that its select and the caller's read,
     and on the card its kernel computes those alone: the direct light and
-    the GI bounce on the diffuse lanes, AO on the hit lanes, the mirror's
-    and glass's rays and mixes on the mirror and glass lanes, the direct
-    light at a secondary hit on its valid hits among them, and each sky
-    lookup where its select reads it (ops/lighting.py).  The masks derive
-    from one resolved material type a frame (`_material_lanes`).
-    That is the frame's form of the JAX package's occupancy gates (the
-    glass and mirror tile gate, the hit gate, the sky miss gate), without
-    their dense fallback: the masks are elementwise tensors, so a captured
-    graph replays them for any frame.  The mirror's and glass's mix calls
-    write their radiance into the frame's on their lanes, in place, in
-    the select's stead.  Every other lane is dropped by a select before
-    any sum, so the image is the dense form's bit for bit.  `ao` as in
+    the GI bounce on the diffuse lanes, AO on the hit lanes, GI's tail,
+    the GI sum, the AO product and the marker on the hit lanes (the
+    hit-mix kernel, ops/hit_mix_cuda.py), the mirror's and glass's rays
+    and mixes on the mirror and glass lanes, the direct light at a
+    secondary hit on its valid hits among them, and each sky lookup where
+    its select reads it (ops/lighting.py).  The masks derive from one
+    resolved material type a frame (`_material_lanes`).  That is the
+    frame's form of the JAX package's occupancy gates (the glass and
+    mirror tile gate, the hit gate, the sky miss gate), without their
+    dense fallback: the masks are elementwise tensors, so a captured
+    graph replays them for any frame.  The hit-mix call and the mirror's
+    and glass's mix calls write their radiance into the frame's on their
+    lanes, in place, in the selects' stead.  Every other lane is dropped
+    by a select before any sum, so the image is the dense form's bit for
+    bit.  `ao` as in
     `_shade_bvh`; a leading sample axis broadcasts through every trace
     and call."""
     params = scene.params
@@ -266,22 +276,18 @@ def _shade_analytic(scene: SceneCtx, h: Hit, seed: Frame, frame_index: Frame,
     lanes = lt.and_lanes(active, diffuse)
     radiance = lt.direct_light(scene, h, seed, frame_index, vdir, px, py,
                                lanes)
+    gi = None
     if params.enable_gi:
-        radiance = radiance + lt.one_bounce_gi_analytic(
-            scene, h, frame_index, seed, frame_index, px, py, lanes) \
-            * params["gi_scale_analytic"]
-    if params.enable_ao:
-        if ao is None:
-            ao = lt.compute_ao(scene, h, frame_index, px, py, active=active)
-        radiance = radiance * ao[..., None]
-
-    # emissive point-light marker (reference: rt.frag:137-148)
-    base_col = params["point_light_color"] * params["point_light_intensity"]
-    d = length(h.p - scene.cam_pos)
-    falloff = 1.0 / torch.clamp_min(d * d * 0.25 + 1.0, 1.0)
-    emissive = base_col * falloff[..., None]
-    is_marker = h.mat == MAT_POINTLIGHT_SPHERE
-    radiance = torch.where(is_marker[..., None], emissive, radiance)
+        gi = lt.gi_light_analytic(scene, h, frame_index, seed, frame_index,
+                                  px, py, lanes)
+    if params.enable_ao and ao is None:
+        ao = lt.compute_ao(scene, h, frame_index, px, py, active=active)
+    # GI's tail, the GI sum and the AO product on the diffuse lanes, the
+    # emissive point-light marker (reference: rt.frag:137-148) on its own,
+    # written in place
+    radiance = hit_mix_cuda.an_hit_mix(scene, h, radiance, gi,
+                                       ao if params.enable_ao else None,
+                                       active)
 
     # the mirror and glass lanes' radiance, written in place
     if params.mat_mirror_enabled:

@@ -64,6 +64,9 @@ _P, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                         ctypes.c_float)
 # shade_glass's clamp_min of the ior
 MIN_IOR = 1.0001
+# the float32 that PyTorch's CUDA division by the host scalar PI multiplies
+# by: float32(1) / float32(PI)
+INV_PI = float(np.float32(1.0) / np.float32(PI))
 
 
 class _ShadeConsts(ctypes.Structure):
@@ -139,8 +142,7 @@ def shade_consts(params) -> _ShadeConsts:
     return _ShadeConsts(eps=f32(EPS),
                         distortion=f32(GLASS_DISTORTION_STRENGTH),
                         local_refl=f32(GLASS_LOCAL_REFL_WEIGHT),
-                        min_ior=f32(MIN_IOR),
-                        inv_pi=float(np.float32(1.0) / np.float32(PI)),
+                        min_ior=f32(MIN_IOR), inv_pi=INV_PI,
                         marker=_marker(params, True))
 
 

@@ -34,7 +34,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 SOURCES = {name: os.path.join(_CSRC, f"{name}.cu")
            for name in ("bvh_trace", "an_direct", "an_trace", "an_shade",
-                        "svgf")}
+                        "hit_mix", "svgf")}
 BUILD_DIR = os.path.join(_PKG, "_build")
 # No --use_fast_math: the kernels rely on IEEE division, sqrt and exact
 # comparisons.  --fmad=false keeps nvcc from contracting a*b+c into FMAs,
@@ -49,12 +49,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # analytic scene's trace, AO and GI bounce kernels and both scenes' sky
 # kernel (csrc/an_trace.cu) "an_trace", "an_ao", "an_bounce" and "sky";
 # glass's and the mirror's rays and mix kernels (csrc/an_shade.cu)
-# "glass_rays", "glass_mix", "mirror_ray" and "mirror_mix"
+# "glass_rays", "glass_mix", "mirror_ray" and "mirror_mix"; both scenes'
+# shading tails (csrc/hit_mix.cu) "bvh_hit_mix" and "an_hit_mix"
 LAUNCHES = {"closest": 0, "bounce": 0, "ao": 0, "an_direct": 0,
             "bvh_direct": 0, "svgf": 0, "svgf_present": 0, "tonemap": 0,
             "an_trace": 0, "an_ao": 0, "an_bounce": 0, "sky": 0,
             "glass_rays": 0, "glass_mix": 0, "mirror_ray": 0,
-            "mirror_mix": 0}
+            "mirror_mix": 0, "bvh_hit_mix": 0, "an_hit_mix": 0}
 
 _libs: dict = {}
 

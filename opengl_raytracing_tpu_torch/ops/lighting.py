@@ -24,8 +24,12 @@ kernels of ops/an_trace_cuda.py, and `shade_glass` and `shade_mirror`
 run on their material's lanes as a rays kernel before their direct light
 and a mix kernel after it (ops/an_shade_cuda.py; plain versions
 `glass_rays_plain`, `glass_mix_plain`, `mirror_ray_plain`,
-`mirror_mix_plain`): on the card every other lane is unspecified, as
-behind the JAX package's occupancy gates.
+`mirror_mix_plain`), and each scene's shading tail after its direct
+light and GI's bounce (GI's tail, the GI sum, AO's product, the marker)
+runs on the hit lanes as one kernel (ops/hit_mix_cuda.py; plain
+versions `bvh_hit_mix_plain`, `an_hit_mix_plain`): on the card every
+other lane is unspecified, as behind the JAX package's occupancy
+gates.
 
 A frame's samples reach these functions as one batch over a leading
 sample axis ([spp, H, W], models/pipeline.py), their seed one sampled
@@ -54,6 +58,7 @@ import torch
 from ..params import bind
 from ..constants import (EPS, PI, SOFT_SHADOW_SAMPLES, LIGHT_CENTER,
                          LIGHT_NORMAL_RAW, LIGHT_RADIUS, LIGHT_COLOR,
+                         MAT_POINTLIGHT_SPHERE,
                          BVH_ALBEDO, BVH_SPEC_STRENGTH, BVH_GLOSS, GI_MAX_LUM,
                          GI_MIN_COS_THETA, GLASS_DISTORTION_STRENGTH,
                          GLASS_LOCAL_REFL_WEIGHT, YCOEFF)
@@ -63,8 +68,8 @@ from . import bvh_cuda
 from . import scene_analytic as sa
 from .scene_analytic import Hit
 from .bvh_traverse import trace_bvh, trace_bvh_shadow
-from .materials import (get_material, MaterialProps, MTYPE_DIFFUSE,
-                        MTYPE_MIRROR, MTYPE_GLASS)
+from .materials import (get_material, material_type, MaterialProps,
+                        MTYPE_DIFFUSE, MTYPE_MIRROR, MTYPE_GLASS)
 from .vecmath import dot, normalize, reflect, refract, mix, const3, length
 
 if TYPE_CHECKING:  # ops/scene.py imports the kernel wrappers, which import
@@ -628,6 +633,38 @@ def one_bounce_gi_analytic(scene: SceneCtx, h0, rng_frame: Frame, seed: Frame,
         scene, h0, rng_frame, seed, frame_index, px, py, active))
 
 
+def an_hit_mix_plain(scene: SceneCtx, h, radiance, gi: GiLight = None,
+                     ao=None):
+    """The rest of the analytic scene's shading after the direct light at
+    hits `h`, dense over every lane (reference: rt.frag:119-148): with
+    `gi`, GI's tail times gi_scale_analytic added to the direct light
+    `radiance`; with `ao`, the product with it; the point-light marker's
+    emissive where h.mat is the marker.  The plain version of the CUDA
+    kernel behind `hit_mix_cuda.an_hit_mix`, in plain PyTorch."""
+    params = scene.params
+    if gi is not None:
+        radiance = radiance + gi_tail_analytic(scene, h, gi) \
+            * params["gi_scale_analytic"]
+    if ao is not None:
+        radiance = radiance * ao[..., None]
+    # emissive point-light marker (reference: rt.frag:137-148)
+    base_col = params["point_light_color"] * params["point_light_intensity"]
+    d = length(h.p - scene.cam_pos)
+    falloff = 1.0 / torch.clamp_min(d * d * 0.25 + 1.0, 1.0)
+    emissive = base_col * falloff[..., None]
+    is_marker = h.mat == MAT_POINTLIGHT_SPHERE
+    return torch.where(is_marker[..., None], emissive, radiance)
+
+
+def an_mix_lanes(mat_id, params):
+    """The lanes `an_hit_mix` writes, of hits with material ids `mat_id`:
+    the marker's and those of get_material's diffuse type (the mirror's and
+    glass's are their mix kernels'); once a pixel where `mat_id` allows
+    (`per_pixel`)."""
+    return per_pixel(lambda m: (m == MAT_POINTLIGHT_SPHERE)
+                     | (material_type(m, params) == MTYPE_DIFFUSE), mat_id)
+
+
 def _bounce_ray(h0, rng_frame: Frame, seed: Frame, px, py):
     """(origin, wi, cos_theta) of the BVH GI bounce ray: a cosine-
     hemisphere sample around the hit normal from the rand pair at offsets
@@ -651,30 +688,76 @@ def gi_bounce_plain(bvh, h0, rng_frame: Frame, seed: Frame, px, py,
     return trace_bvh(bvh, origin, wi, active=active), wi, cos_theta
 
 
-def one_bounce_gi_bvh(scene: SceneCtx, h0, rng_frame: Frame, seed: Frame,
-                      frame_index: Frame, px, py, active=None):
-    """BVH GI with grazing-angle cut and firefly luminance clamp
-    (reference: rt_lighting.glsl:515-561).
+class GiLightBvh(NamedTuple):
+    """The BVH GI bounce at hits h0 before its tail: the bounce's hit, its
+    direction and cos_theta, and the direct light at its valid hits (the
+    sky where it missed is the tail's)."""
+    hit: Hit
+    wi: torch.Tensor
+    cos_theta: torch.Tensor
+    lit: torch.Tensor
 
-    Inactive lanes (sky pixels) do not walk the bounce ray and read as
-    misses, so their secondary lighting traces nothing; their values are
-    unspecified.  The bounce hits reach `direct_light_bvh` unsanitized
-    (misses have p = o + wi * 1e30): its windows are collapsed there, and
-    the valid select drops the radiance lit on them before any sum."""
+
+def gi_light_bvh(scene: SceneCtx, h0, rng_frame: Frame, seed: Frame,
+                 frame_index: Frame, px, py, active=None) -> GiLightBvh:
+    """One cosine-weighted bounce and the direct light at its hits,
+    untailed (reference: rt_lighting.glsl:515-530).  Inactive lanes (sky
+    pixels) do not walk the bounce ray and read as misses, so their
+    secondary lighting traces nothing.  The bounce hits reach
+    `direct_light_bvh` unsanitized (misses have p = o + wi * 1e30): its
+    windows are collapsed there, and the tail's valid select drops the
+    radiance lit on them."""
     h1, wi, cos_theta = bvh_cuda.trace_bounce(scene.bvh.arrays, h0,
                                               rng_frame, seed, px, py,
                                               active)
     li_hit = direct_light_bvh(scene, h1, rng_frame, frame_index, -wi, px, py,
                               active=h1.valid)
-    li = torch.where(h1.valid[..., None], li_hit, scene.sky(wi))
-    dev = h0.t.device
-    contrib = const3(BVH_ALBEDO, dev) * (cos_theta / PI)[..., None] * li
+    return GiLightBvh(h1, wi, cos_theta, li_hit)
+
+
+def gi_tail_bvh(gi: GiLightBvh, sky):
+    """GI's tail (reference: rt_lighting.glsl:530-561), given the sky `sky`
+    of gi.wi where the bounce missed: the valid select, albedo * cos / PI
+    * li, the firefly luminance clamp and the grazing-angle cut."""
+    dev = gi.cos_theta.device
+    li = torch.where(gi.hit.valid[..., None], gi.lit, sky)
+    contrib = const3(BVH_ALBEDO, dev) * (gi.cos_theta / PI)[..., None] * li
     lum = dot(contrib, const3(YCOEFF, dev))
     scale = torch.where(lum > GI_MAX_LUM,
                         GI_MAX_LUM / torch.clamp_min(lum, 1e-6), 1.0)
     contrib = contrib * scale[..., None]
-    return torch.where((cos_theta > GI_MIN_COS_THETA)[..., None], contrib,
+    return torch.where((gi.cos_theta > GI_MIN_COS_THETA)[..., None], contrib,
                        0.0)
+
+
+def one_bounce_gi_bvh(scene: SceneCtx, h0, rng_frame: Frame, seed: Frame,
+                      frame_index: Frame, px, py, active=None):
+    """BVH GI with grazing-angle cut and firefly luminance clamp
+    (reference: rt_lighting.glsl:515-561): `gi_light_bvh`, then its tail
+    in PyTorch over every lane, the sky looked up on every lane.  Values
+    on lanes where `active` is False are unspecified.  The frame runs the
+    tail on its hit lanes alone (`bvh_hit_mix_plain`, the kernel behind
+    ops/hit_mix_cuda.py)."""
+    gi = gi_light_bvh(scene, h0, rng_frame, seed, frame_index, px, py,
+                      active)
+    return gi_tail_bvh(gi, scene.sky(gi.wi))
+
+
+def bvh_hit_mix_plain(scene: SceneCtx, radiance, gi: GiLightBvh = None,
+                      ao=None):
+    """The rest of the BVH scene's shading after its direct light, dense
+    over every lane (reference: rt.frag:105-117): with `gi`, GI's tail
+    (the sky of its direction where the bounce missed) times gi_scale_bvh
+    added to the direct light `radiance`; with `ao`, the product with it.
+    The plain version of the CUDA kernel behind
+    `hit_mix_cuda.bvh_hit_mix`, in plain PyTorch."""
+    params = scene.params
+    if gi is not None:
+        sky = sa.sky(gi.wi, params, scene.env_map)
+        radiance = radiance + gi_tail_bvh(gi, sky) * params["gi_scale_bvh"]
+    if ao is not None:
+        radiance = radiance * ao[..., None]
+    return radiance
 
 
 def mirror_ray_plain(scene: SceneCtx, h, wo) -> MirrorRay:

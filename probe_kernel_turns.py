@@ -14,11 +14,12 @@ JSON line a run ({"tree", "kernel_ms": {kernel: ms}}), then one with each
 kernel's median on each side and their ratio (this / other), and the
 card's name and power limit.
 
-With `--frames` a run times the replayed frame instead: for chip_smoke.py's
-FRAME_CASES of phase graph (baseline, an_baseline, full, an_full with the
-day-sky cubemap), after a chain that captures, three 32-frame chains
-through `make_render_fn` with its captured graph (host clock to a
-synchronize), their least ms/frame a case.
+With `--frames` a run times the replayed frame instead: for every case of
+chip_smoke.py's phase graph (GRAPH_CASES: baseline, an_baseline, full,
+an_full with the day-sky cubemap, heavy, moving, cf_close, cf_far), after
+a chain that captures, three 32-frame chains through `make_render_fn`
+with its captured graph (host clock to a synchronize), their least
+ms/frame a case.
 
 With `--k5` a run times the BVH direct light (`bvh_direct_kernel`) alone
 on the calls of K5_CASES' 1080p frames (baseline's one call, `full`'s
@@ -69,7 +70,6 @@ def child() -> None:
           flush=True)
 
 
-FRAME_CASES = ("baseline", "an_baseline", "full", "an_full")
 # (label, preset, camera, frames of the chain, 81,920-triangle mesh) of
 # each K5 frame, as chip_smoke.py's phases record them
 K5_CASES = (("baseline", "baseline", "still", 1, False),
@@ -214,22 +214,23 @@ def compare_k5(other: str, this: str) -> dict:
 
 
 def child_frames() -> None:
-    """In a checkout's directory: replayed ms/frame of FRAME_CASES, one
-    JSON line."""
+    """In a checkout's directory: replayed ms/frame of chip_smoke.py's
+    GRAPH_CASES, one JSON line."""
     sys.path.insert(0, os.getcwd())
     import time
     import torch
     import chip_smoke as cs
-    from opengl_raytracing_tpu_torch.models import (RenderState,
+    from opengl_raytracing_tpu_torch.models import (RenderState, graph,
                                                     make_render_fn, preset)
     from opengl_raytracing_tpu_torch.ops import cuda_lib
     cuda_lib.build_all()
-    _, bvh = cs.scene("cuda")
+    scenes = {"bvh": cs.scene("cuda")[1],
+              "bvh6": cs.scene("cuda", cs.HEAVY_SUBDIV)[1], None: None}
     sky = cs.sky_day("cuda")
     out = {}
-    for name in FRAME_CASES:
-        scene_key, preset_name, (h, w), how = cs.GRAPH_CASES[name]
-        scene = bvh if scene_key else None
+    for name, (scene_key, preset_name, (h, w), how) in \
+            cs.GRAPH_CASES.items():
+        scene = scenes[scene_key]
         env = sky if how.get("env") else None
         fins = list(cs.frame_inputs(h, w, cs.FRAMES, "cuda", preset_name,
                                     how.get("camera", "still")))
@@ -246,6 +247,7 @@ def child_frames() -> None:
             torch.cuda.synchronize()
             runs.append((time.time() - t0) / len(fins) * 1e3)
         out[name] = min(runs[1:])
+        graph.clear()  # the case's graph memory back
     print(json.dumps(out), flush=True)
 
 

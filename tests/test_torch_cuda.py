@@ -2251,10 +2251,10 @@ SHADE_RAYS = ("reflect", "straight", "bent")
 SHADE_FRAME_LAUNCHES = {
     "an_full": dict(an_direct=7, an_trace=1, an_ao=1, an_bounce=2, sky=3,
                     svgf_present=1, glass_rays=1, glass_mix=1, mirror_ray=1,
-                    mirror_mix=1),
+                    mirror_mix=1, an_hit_mix=1),
     "an_baseline": dict(an_direct=5, an_trace=1, sky=1, tonemap=1,
                         glass_rays=1, glass_mix=1, mirror_ray=1,
-                        mirror_mix=1)}
+                        mirror_mix=1, an_hit_mix=1)}
 
 
 def _shade_calls(params, size, env):
@@ -2410,3 +2410,162 @@ def test_an_shade_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):  # `out` of another shape
         an_shade_cuda.glass_mix(scene, h, None, rays, lit, h_raw.valid,
                                 torch.zeros((4, 4, 3), device="cuda"))
+
+
+# ---- both scenes' hit-mix kernels (csrc/hit_mix.cu) ----
+
+# an eager frame's launches: the BVH frames' GI sky is the hit-mix
+# kernel's (before it, `sky` 2 and no hit-mix launch)
+HIT_MIX_FRAME_LAUNCHES = {
+    "full": dict(closest=1, bvh_direct=2, bounce=1, ao=1, sky=1,
+                 bvh_hit_mix=1, svgf_present=1),
+    "heavy": dict(closest=1, bvh_direct=2, bounce=1, ao=1, sky=1,
+                  bvh_hit_mix=1, svgf_present=1),
+    "an_full": SHADE_FRAME_LAUNCHES["an_full"],
+    "an_baseline": SHADE_FRAME_LAUNCHES["an_baseline"]}
+HIT_MIX_CASES = {"full": ("full", 1, True), "heavy": ("heavy", 4, True),
+                 "an_full": ("full", 2, False),
+                 "an_baseline": ("baseline", 1, False)}
+
+
+def _hit_mix_calls(params, size, env, bvh):
+    """The calls one eager frame on the card (the BVH scene with `bvh`,
+    else the analytic one) makes to the wrappers of ops/hit_mix_cuda.py,
+    [(name, arguments)], each call's `radiance` as it was before the call
+    (the wrapper updates it in place), and the frame's launches."""
+    import inspect
+    from opengl_raytracing_tpu_torch.models import RenderState, render_frame
+    from opengl_raytracing_tpu_torch.ops import hit_mix_cuda
+    from opengl_raytracing_tpu_torch.ops.scene import BVHDevice
+    h, w = size
+    names = ("bvh_hit_mix", "an_hit_mix")
+    calls, real = [], {n: getattr(hit_mix_cuda, n) for n in names}
+
+    def spy(name):
+        def fn(*args, **kw):
+            bound = inspect.signature(real[name]).bind(*args, **kw)
+            bound.apply_defaults()
+            a = dict(bound.arguments)
+            a["radiance"] = a["radiance"].clone()
+            calls.append((name, a))
+            return real[name](*args, **kw)
+        return fn
+    cam = Camera()
+    cam.aspect = w / h
+    if bvh is not None:
+        cam.fov = 12.0
+        cam.point_at((-2.0, 1.5, 0.0))
+    fin = camera_frame_inputs(cam, "cuda", jitter=(0.2, -0.1), frame_index=5)
+    before = dict(cuda_lib.LAUNCHES)
+    try:
+        for n in names:
+            setattr(hit_mix_cuda, n, spy(n))
+        render_frame(params, fin, RenderState.create(h, w, "cuda"), env,
+                     None if bvh is None else BVHDevice(bvh), height=h,
+                     width=w, use_bvh=bvh is not None)
+    finally:
+        for n, fn in real.items():
+            setattr(hit_mix_cuda, n, fn)
+    torch.cuda.synchronize()
+    return calls, {k: v for k, v in _grew(before).items() if v}
+
+
+def _hit_mix_unread(a, live):
+    """The arguments `a` of a hit-mix call with every lane `live` marks
+    dead set to one valid value in its per-lane inputs (the frame leaves
+    them unspecified; the plain version computes every lane)."""
+    def fill(x, value):
+        if x is None:
+            return None
+        shape = live.shape
+        value = torch.tensor(value, dtype=x.dtype, device=x.device)
+        x = x.expand(shape + x.shape[len(shape):])
+        return torch.where(live[..., None] if value.dim() else live, x,
+                           value)
+    up = (0.0, 1.0, 0.0)
+    out = dict(a, radiance=fill(a["radiance"], up), ao=fill(a["ao"], 1.0))
+    gi = a["gi"]
+    if gi is not None:
+        hit = gi.hit._replace(t=fill(gi.hit.t, 1.0))
+        out["gi"] = gi._replace(hit=hit, cos_theta=fill(gi.cos_theta, 0.5),
+                                lit=fill(gi.lit, up),
+                                **({"wi": fill(gi.wi, up)}
+                                   if hasattr(gi, "wi") else
+                                   {"sky": fill(gi.sky, up)}))
+    return out
+
+
+@pytest.mark.parametrize("case", list(HIT_MIX_CASES))
+@pytest.mark.parametrize("size", SIZES)
+def test_hit_mix_kernels_match_plain(bvh, size, case):
+    """Every call a frame makes to its hit-mix kernel, with the frame's own
+    mask, none, a partial one and an empty one: one launch, the radiance
+    bit for bit the dense plain version's (lighting.bvh_hit_mix_plain,
+    an_hit_mix_plain) on the lanes live in the mask and the frame's own
+    that the kernel writes (the analytic one: the diffuse and the marker
+    lanes), every other lane of `out` untouched; and the frame's
+    launches: the BVH frame's sky once, one hit-mix launch."""
+    from opengl_raytracing_tpu_torch.convert import env_from_numpy
+    from opengl_raytracing_tpu_torch.ops import hit_mix_cuda
+    preset_name, spp, on_bvh = HIT_MIX_CASES[case]
+    env = case in ("full", "an_full")
+    params = preset(preset_name).replace(spp_per_frame=spp,
+                                         enable_env_map=int(env))
+    table = None
+    if env:
+        faces = np.random.RandomState(4).randint(0, 256, (6, 16, 16, 3))
+        table = env_from_numpy(faces.astype(np.uint8), "cuda")
+    calls, launches = _hit_mix_calls(params, size, table,
+                                     bvh if on_bvh else None)
+    assert launches == HIT_MIX_FRAME_LAUNCHES[case]
+    name = "bvh_hit_mix" if on_bvh else "an_hit_mix"
+    assert [c[0] for c in calls] == [name]
+    a = calls[0][1]
+    shape = a["radiance"].shape[:-1]
+    frame = a["active"].expand(shape)
+    want_in = _hit_mix_unread(a, frame)
+    args = {k: v for k, v in want_in.items() if k != "active"}
+    if on_bvh:
+        want = lt.bvh_hit_mix_plain(args["scene"], args["radiance"],
+                                    args["gi"], args["ao"])
+        writes = torch.ones(shape, dtype=torch.bool, device="cuda")
+    else:
+        want = lt.an_hit_mix_plain(args["scene"], args["h"],
+                                   args["radiance"], args["gi"], args["ao"])
+        writes = lt.an_mix_lanes(args["h"].mat, args["scene"].params
+                                 ).expand(shape)
+        assert bool(writes[frame].any()) and not bool(writes[frame].all())
+    g = torch.Generator(device="cuda").manual_seed(spp)
+    masks = {"frame": a["active"], "none": None,
+             "partial": torch.rand(shape, generator=g, device="cuda") < 0.3,
+             "empty": torch.zeros(shape, dtype=torch.bool, device="cuda")}
+    for how, mask in masks.items():
+        live = (torch.ones(shape, dtype=torch.bool, device="cuda")
+                if mask is None else mask.expand(shape))
+        written = live & writes
+        out = torch.where(written[..., None], args["radiance"],
+                          torch.full_like(args["radiance"], SENTINEL))
+        before = dict(cuda_lib.LAUNCHES)
+        got = getattr(hit_mix_cuda, name)(**dict(args, radiance=out),
+                                          active=mask)
+        assert got is out
+        assert _grew(before) == {**{c: 0 for c in before}, name: 1}
+        torch.cuda.synchronize()
+        both = written & frame
+        assert _nan_equal(out[both], want[both]), (case, how)
+        assert bool((out[~written] == SENTINEL).all()), (case, how)
+
+
+def test_hit_mix_wrappers_reject_bad_inputs():
+    from opengl_raytracing_tpu_torch.ops import hit_mix_cuda
+    scene, h_raw, h, px, py, vdir = _analytic(preset("full"), 8, 8)
+    radiance = torch.zeros((8, 8, 3), device="cuda")
+    with pytest.raises(TypeError):  # not float32
+        hit_mix_cuda.an_hit_mix(scene, h, radiance.double(), None, None,
+                                h_raw.valid)
+    with pytest.raises(ValueError):  # the mask on another device
+        hit_mix_cuda.an_hit_mix(scene, h, radiance, None, None,
+                                h_raw.valid.cpu())
+    with pytest.raises(ValueError):  # the radiance not contiguous
+        hit_mix_cuda.bvh_hit_mix(scene, radiance.transpose(0, 1), None,
+                                 None, h_raw.valid)

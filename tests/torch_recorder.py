@@ -20,7 +20,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from opengl_raytracing_tpu_torch.ops import (an_cuda, an_shade_cuda,
                                              an_trace_cuda, bvh_cuda,
-                                             svgf_cuda)
+                                             hit_mix_cuda, svgf_cuda)
 
 # ATen operations that read a device value on the host: a captured frame
 # makes none
@@ -200,6 +200,26 @@ def recording(monkeypatch):
          lambda scene, h, wo, active=None: rays(scene, h, wo, active))
     for name in ("glass_mix", "mirror_mix"):
         stub(an_shade_cuda, name, mix)
+    # both scenes' hit-mix kernels: the scene's struct, their constants,
+    # the shape, whether GI's rows are read, the input modes (the mask's
+    # last)
+    def bvh_mix(scene, radiance, gi=None, ao=None, active=None):
+        env = an_cuda.env_table(scene.params, scene.env_map, radiance.device)
+        shape = radiance.shape[:-1]
+        return (_struct(an_cuda.scene_struct(scene.params, env)),
+                bytes(hit_mix_cuda.mix_consts()), tuple(shape),
+                gi is not None, _modes(shape, (ao, 0), (active, 0)))
+
+    def an_mix(scene, h, radiance, gi=None, ao=None, active=None):
+        shape = radiance.shape[:-1]
+        return (_struct(an_cuda.scene_struct(scene.params)),
+                bytes(hit_mix_cuda.mix_consts()), tuple(shape),
+                gi is not None,
+                _modes(shape, (h.p, 3), (h.mat, 0), (scene.cam_pos, 3),
+                       (ao, 0), (active, 0)))
+
+    stub(hit_mix_cuda, "bvh_hit_mix", bvh_mix)
+    stub(hit_mix_cuda, "an_hit_mix", an_mix)
     stub(an_trace_cuda, "trace", an_trace)
     stub(an_trace_cuda, "ambient_occlusion", an_ao)
     stub(an_trace_cuda, "bounce", an_bounce)
