@@ -136,9 +136,12 @@ in phases, each printing its result and seconds on a line of its own:
      inputs against its dense plain version on the card, with the frame's
      own mask, none, a partial one and an empty one: every output bit for
      bit on the live lanes (a difference is printed with its size and
-     fails the phase), one launch a call; each call's live lanes, bound
-     (bytes at 3.35 TB/s or operations at 67 TFLOP/s, from the live
-     lanes' work), wrapper, kernel and plain times; each kernel's launches
+     fails the phase), one launch a call; the an_full AO call again at
+     every (ao_radius, ao_samples) of 0.05, 0.8, 4.0 by 1, 4, 32 the same
+     way (AO_SWEEP); each call's live lanes, bound (bytes at 3.35 TB/s or
+     operations at 67 TFLOP/s, from the live lanes' work; a call measured
+     below its bound fails the phase, as in 17c and hit_mix), share,
+     wrapper, kernel and plain times; each kernel's launches
      a frame in frames_an_full and frames_analytic (an_full: an_trace 1,
      an_ao 1, an_bounce 2, sky 3, exactly; an_baseline: an_trace 1, sky
      1; the mirror's and glass's traces and skies are their rays
@@ -1958,6 +1961,40 @@ def sphere_roots(scene_params, plp, ro, rd, glass, marker):
     return len(spheres) * rd.shape[0], roots
 
 
+def ao_reach_lanes(scene, h, shape, sel, marker):
+    """The live lanes of an analytic AO call whose hemisphere rays can
+    meet a primitive within ao_radius: a sphere whose centre lies within
+    ao_radius + r of the lane's origin, or the floor within ao_radius of
+    it on the side its hemisphere faces (a lane whose normal is the
+    floor's, above it, faces away).  Lanes out of every primitive's reach
+    have occ = 0 whatever their directions, so they need no ray."""
+    import torch
+    from opengl_raytracing_tpu_torch import constants as k
+    from opengl_raytracing_tpu_torch.ops import lighting as lt
+    from opengl_raytracing_tpu_torch.ops.vecmath import dot
+    host = scene.params.host
+    radius = float(host.ao_radius)
+    n = lt.normalize(h.n).expand(shape + (3,)).reshape(-1, 3)[sel]
+    o = h.p.expand(shape + (3,)).reshape(-1, 3)[sel] + n * float(
+        host.ao_bias)
+    dev = o.device
+    spheres = [(torch.tensor(c, dtype=torch.float32, device=dev), r)
+               for c, r in ((k.SPHERE_LEFT_CENTER, k.SPHERE_LEFT_RADIUS),
+                            (k.GLASS_CENTER, k.GLASS_RADIUS),
+                            (k.MIRROR_CENTER, k.MIRROR_RADIUS))]
+    if marker:
+        spheres.append((scene.point_light_pos, k.POINT_LIGHT_MARKER_RADIUS))
+    near = torch.zeros(o.shape[0], dtype=torch.bool, device=dev)
+    for c, r in spheres:
+        oc = o - c
+        near |= dot(oc, oc) <= (radius + r) ** 2
+    fn = torch.tensor(k.FLOOR_NORMAL, dtype=torch.float32, device=dev)
+    height = dot(o, fn) + k.FLOOR_D     # |fn| = 1
+    up = (n[:, 0] == 0) & (n[:, 2] == 0) & (n[:, 1] > 0)
+    near |= (height.abs() <= radius) & ~(up & (height >= 0))
+    return int(near.sum())
+
+
 def cubemap_texels(env, d, live):
     """The distinct texels of table `env` [6, F, F, 3] that the bilinear
     lookups of the live lanes' directions `d` read, each once at best:
@@ -1976,9 +2013,12 @@ def gate_bound(key, a, live):
     live lanes (bound()): the bytes are the mask's (as the kernel reads
     it), the live lanes' distinct input rows, the pixel grids where the
     kernel samples, the distinct cubemap texels the live lanes' lookups
-    read (cubemap_texels) and the live lanes' outputs; the operations those lanes' arithmetic, with each trace's
-    floor test, sphere tests and the roots of the spheres whose disc test
-    passes."""
+    read (cubemap_texels) and the live lanes' outputs; the operations those
+    lanes' arithmetic, with each trace's floor test, sphere tests and the
+    roots of the spheres whose disc test passes.  AO needs one bit a ray:
+    its rays are counted on the lanes within reach of a primitive
+    (ao_reach_lanes), each with one primitive test, its basis once a
+    lane."""
     from opengl_raytracing_tpu_torch.ops import lighting as lt
     from opengl_raytracing_tpu_torch.ops import an_trace_cuda
     shape = gate_shape(key, a)
@@ -2015,23 +2055,19 @@ def gate_bound(key, a, live):
                      + gate_rows(h.n, shape, 3, live)) + unique_bytes(
                          a["px"], a["py"])
     if key == "an_ao":
-        org, dirs = lt._ao_rays(h, a["frame_index"], a["px"], a["py"],
-                                scene.params)
-        ro = org.expand(shape + (3,)).reshape(-1, 3)[sel]
-        tests = roots = 0
-        for d in dirs:
-            t_, r_ = sphere_roots(scene.params, scene.point_light_pos, ro,
-                                  d.reshape(-1, 3)[sel], True, marker)
-            tests, roots = tests + t_, roots + r_
-        S = len(dirs)
+        S = int(scene.params.ao_samples)
+        reach = ao_reach_lanes(scene, h, shape, sel, marker)
         n_bytes += 4 * n_live
-        n_ops = (n_live * (OPS["normalize"] + OPS["origin"] + OPS["ao_remap"]
-                           + S * (2 * OPS["rand"] + OPS["onb"]
-                                  + OPS["hemisphere"] + OPS["an_floor"] + 2))
-                 + tests * OPS["an_sphere"] + roots * OPS["an_root"])
+        # every live lane: its normal, origin and remap; a lane within
+        # reach of a primitive: its basis once and S rays, each with its
+        # two draws, its direction and at least one primitive test
+        n_ops = (n_live * (OPS["normalize"] + OPS["origin"] + OPS["ao_remap"])
+                 + reach * (OPS["normalize"] + OPS["onb"]
+                            + S * (2 * OPS["rand"] + OPS["hemisphere"]
+                                   - OPS["normalize"] + OPS["an_sphere"]
+                                   + 2)))
         return dict(lanes=shape.numel(), live_lanes=n_live, samples=S,
-                    sphere_tests=tests, sphere_roots=roots,
-                    **bound(n_bytes, n_ops))
+                    reach_lanes=reach, **bound(n_bytes, n_ops))
     h1, wi, _ = lt.gi_bounce_analytic_plain(scene, h, a["rng_frame"],
                                             a["seed"], a["px"], a["py"])
     n0 = lt.normalize(h.n).expand(shape + (3,)).reshape(-1, 3)[sel]
@@ -2109,14 +2145,47 @@ def _live_of(shape, active):
 def gate_frame(height, width, preset_name, env, timer):
     """Every call one eager analytic frame of the preset makes to the four
     gate kernels (the third of a chain), checked and timed
-    (check_gate_call): {kernel: [call record]}."""
+    (check_gate_call): ({kernel: [call record]}, {kernel: [call
+    arguments]})."""
     calls = record_kernel_inputs(None, height, width, "cuda", GATE_KERNELS,
                                  preset_name, PROFILE_FRAME, env=env)
     out = {}
     for n, key in enumerate(GATE_KERNELS):
         out[key] = [check_gate_call(key, a, timer, 17 * n + i)
                     for i, a in enumerate(calls[key])]
+    return out, calls
+
+
+# (ao_radius, ao_samples) at which phase an_gates holds the AO kernel to
+# its plain version besides the frame's own (0.8, 4): the viewer's range
+# of the radius (0.05-4.0) and its fewest and most samples (1-32)
+AO_SWEEP = tuple((r, n) for r in (0.05, 0.8, 4.0) for n in (1, 4, 32)
+                 if (r, n) != (0.8, 4))
+
+
+def ao_sweep(a, timer):
+    """The AO call `a` (an_full's) with the scene's ao_radius and
+    ao_samples at each of AO_SWEEP, checked and timed as the frame's own
+    (check_gate_call: bit for bit with the frame's, no, a partial and an
+    empty mask): [call record with its radius and samples]."""
+    from opengl_raytracing_tpu_torch.ops.scene import SceneCtx
+    out = []
+    for n, (radius, samples) in enumerate(AO_SWEEP):
+        scene = a["scene"]
+        params = scene.params.host.replace(ao_radius=radius,
+                                           ao_samples=samples)
+        swept = dict(a, scene=SceneCtx.create(params, scene.cam_pos))
+        rec = check_gate_call("an_ao", swept, timer, 71 + n)
+        out.append(dict(rec, ao_radius=radius, ao_samples=samples))
     return out
+
+
+def below_bound(phase, over):
+    """Fails `phase` where a call was measured below its bound (`over`: a
+    record a call): a bound is a least time, so such a bound is wrong."""
+    if over:
+        raise AssertionError(f"{phase}: calls measured below their bound: "
+                             f"{over}")
 
 
 def gate_record(calls, prefix=""):
@@ -2154,8 +2223,10 @@ def check_an_gates(env, frames_an_full, frames_an, timer=None):
     records of the kernels line (an_full's frame, an_baseline's beside it
     under `an_baseline_` keys)."""
     timer = timer or cuda_ms
-    full = gate_frame(HEIGHT, WIDTH, "full", env, timer)
-    base = gate_frame(AN_HEIGHT, AN_WIDTH, "baseline", None, timer)
+    full, calls = gate_frame(HEIGHT, WIDTH, "full", env, timer)
+    base, _ = gate_frame(AN_HEIGHT, AN_WIDTH, "baseline", None, timer)
+    sweep = ao_sweep(calls["an_ao"][0], timer)
+    del calls
     records = {}
     for key in GATE_KERNELS:
         records[key] = dict(gate_record(full[key]),
@@ -2164,25 +2235,34 @@ def check_an_gates(env, frames_an_full, frames_an, timer=None):
                         for k in GATE_KERNELS + ("an_direct",)}
                  for name, run in (("an_full", frames_an_full),
                                    ("an_baseline", frames_an))}
-    # a bound is a least time: a call measured below its own is printed
     over = [dict(kernel=k, frame=name, call=i, bound_ms=c["bound_ms"],
                  kernel_ms=c["kernel_ms"])
             for name, run in (("an_full", full), ("an_baseline", base))
             for k in GATE_KERNELS for i, c in enumerate(run[k])
             if c["kernel_ms"] and c["bound_ms"] > c["kernel_ms"]]
-    if over:
-        print(f"an_gates: calls measured below their bound: {over}",
-              file=sys.stderr, flush=True)
+    over += [dict(kernel="an_ao", frame="an_full", call=0,
+                  ao_radius=c["ao_radius"], ao_samples=c["ao_samples"],
+                  bound_ms=c["bound_ms"], kernel_ms=c["kernel_ms"])
+             for c in sweep if c["kernel_ms"] and
+             c["bound_ms"] > c["kernel_ms"]]
+    below_bound("an_gates", over)
+    fields = ("lanes", "live_lanes", "bound_ms", "bound_by", "bound_bytes",
+              "bound_ops", "kernel_ms", "ms", "plain_ms")
+
+    def brief(c, *more):
+        # AO's calls also give the lanes their rays were counted on
+        more += ("reach_lanes",) if "reach_lanes" in c else ()
+        return dict({f: c[f] for f in fields + more},
+                    share=c["bound_ms"] / c["kernel_ms"]
+                    if c["kernel_ms"] else None)
+    records["an_ao"]["ao_sweep"] = [brief(c, "ao_radius", "ao_samples")
+                                    for c in sweep]
     return dict(records=records, launches_per_frame=per_frame,
-                bound_above_time=over,
-                an_full={k: [dict((f, c[f]) for f in (
-                    "lanes", "live_lanes", "bound_ms", "bound_by",
-                    "kernel_ms", "ms", "plain_ms")) for c in full[k]]
-                    for k in GATE_KERNELS},
-                an_baseline={k: [dict((f, c[f]) for f in (
-                    "lanes", "live_lanes", "bound_ms", "bound_by",
-                    "kernel_ms", "ms", "plain_ms")) for c in base[k]]
-                    for k in GATE_KERNELS})
+                an_full={k: [brief(c) for c in full[k]]
+                         for k in GATE_KERNELS},
+                an_baseline={k: [brief(c) for c in base[k]]
+                             for k in GATE_KERNELS},
+                ao_sweep=records["an_ao"]["ao_sweep"])
 
 
 # ---- phase an_shade: glass's and the mirror's rays and mix kernels ----
@@ -2431,13 +2511,10 @@ def check_an_shade(env, frames_an_full, frames_an, timer=None):
             for name, run in (("an_full", full), ("an_baseline", base))
             for k in SHADE_KERNELS for i, c in enumerate(run[k])
             if c["kernel_ms"] and c["bound_ms"] > c["kernel_ms"]]
-    if over:
-        print(f"an_shade: calls measured below their bound: {over}",
-              file=sys.stderr, flush=True)
+    below_bound("an_shade", over)
     fields = ("lanes", "live_lanes", "bound_ms", "bound_by", "bound_bytes",
               "kernel_ms", "ms", "plain_ms")
     return dict(records=records, launches_per_frame=per_frame,
-                bound_above_time=over,
                 an_full={k: [{f: c[f] for f in fields} for c in full[k]]
                          for k in SHADE_KERNELS},
                 an_baseline={k: [{f: c[f] for f in fields} for c in base[k]]
@@ -2648,13 +2725,10 @@ def check_hit_mix(bvh, env, runs, timer=None):
                  kernel_ms=c["kernel_ms"])
             for label, (_, calls) in frames.items() for c in calls
             if c["kernel_ms"] and c["bound_ms"] > c["kernel_ms"]]
-    if over:
-        print(f"hit_mix: calls measured below their bound: {over}",
-              file=sys.stderr, flush=True)
+    below_bound("hit_mix", over)
     fields = ("lanes", "live_lanes", "written_lanes", "bound_ms",
               "bound_by", "bound_bytes", "kernel_ms", "ms", "plain_ms")
     return dict(records=records, launches_per_frame=per_frame,
-                bound_above_time=over,
                 frames={label: [{f: c[f] for f in fields} for c in calls]
                         for label, (_, calls) in frames.items()})
 

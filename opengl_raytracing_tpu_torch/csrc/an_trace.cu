@@ -19,7 +19,7 @@
 //     the primary trace (every lane live);
 //   * an_ao_kernel: lighting.compute_ao's analytic branch whole, the
 //     hemisphere rays sampled in the kernel (offsets 37i+3 / 19i+11),
-//     traced, counted within ao_radius and remapped;
+//     each an any-hit test within ao_radius, counted and remapped;
 //   * an_bounce_kernel: one_bounce_gi_analytic's bounce ray sampled in the
 //     kernel (offsets seed*13 / seed*37 at the lane's sample) and its
 //     closest hit against the whole scene, with wi and cos_theta; the
@@ -54,9 +54,8 @@
 // 150 operations: bytes (2,073,600 lanes: 0.027 ms at 3.35 TB/s).  The
 // masked calls read a mask byte a lane and work on a few percent of the
 // lanes (GI's sky at the mirror's bounce: under 1% of a 1080p an_full
-// frame; the primary sky's misses about a third).  AO is operations: four hemisphere
-// samples and four five-primitive traces a live lane, ~1,100 operations.
-// The design is K3's (an_direct.cu):
+// frame; the primary sky's misses about a third).  The design is K3's
+// (an_direct.cu):
 //
 //   * Persistent blocks (persistent.cuh): as many blocks of 128 threads
 //     as fit the card, each warp looping over units of 32 lanes,
@@ -70,6 +69,28 @@
 //   * One trace body (an_scene.cuh's trace_closest, K3's too): the
 //     winner's index is kept and its normal computed once, where the plain
 //     version computes a normal for every primitive and selects one.
+//
+// AO (an_ao_kernel) needs one bit a ray, so each ray is an any-hit test in
+// (eps, ao_radius) that stops at its first primitive with a valid root
+// below the radius (ao_blocked): the plain rule's bit, each root its
+// plain expression.  A lane's origin, its sphere terms oc and c2 and its
+// basis are built once for all its samples; a primitive that cannot
+// have a root below the radius on any direction the lane draws is culled
+// for the lane (a sphere beyond kAoReach (R + r) + kAoSlack, the floor
+// beyond R kAoReach or under a floor lane's hemisphere), and a lane with
+// nothing left draws no sample: on a 1080p an_full frame ~95% of the
+// live lanes (the floor away from the spheres' feet), so the call is the
+// mask scan, the hits' rows and the culls, and bytes bound it (24 B in and
+// 4 B out a live lane) but at a wide radius and many samples (PERF.md §6).
+//
+// The bounce (an_bounce_kernel) is bytes: 24 B in and 48 B out a live
+// lane, near the card's rate with no arithmetic; its arithmetic (the
+// hash, sincos, the basis, the trace) adds to that time, not under it.
+// build_onb takes the floor's hits' basis (~60% of the lanes) without
+// its normalize, with the same bits.  Rows read and written 16
+// bytes at a time through shared memory, the mask bytes of 16 units
+// loaded before their ballots, and the next round's rows read before
+// this round's work were each slower here (PERF.md §6).
 //
 // The mirror's and glass's secondaries are traced by an_shade.cu's rays
 // kernels, with their setup.  Left for later: those traces fused with
@@ -147,30 +168,140 @@ an_trace_kernel(const Units u, const AnScene s, const AnTraceArgs a) {
   });
 }
 
+// AO's culls (an_ao_kernel): a primitive is skipped for every sample of
+// a lane only where the plain trace cannot take a root of it below
+// ao_radius on any direction the lane draws.  kAoReach and kAoSlack widen
+// the reach by more than float32 rounding moves a root (a root's error is
+// under 0.3% of the centre's distance); tests/test_torch_ao_anyhit.py
+// reads them from this file.
+constexpr float kAoReach = 1.01f;
+constexpr float kAoSlack = 1e-3f;
+
+// The AO kernel's view of the scene's four spheres (the albedo, glass and
+// mirror spheres, the marker) for one lane: the plain sphere test's terms
+// that do not depend on the ray, oc = o - c and c2 = dot(oc, oc) - r*r,
+// and the spheres that can take a root below ao_radius.
+struct AoLane {
+  V3 oc[4];
+  float c2[4];
+  unsigned near;  // bit k: sphere k is tested
+  bool floor;     // the floor is tested
+  float num;      // the floor's numerator -(dot(o, n) + d)
+};
+
+// Whether ray o + t*d (o as `l` holds it) has a valid root t < 1e30 and
+// t < radius on some primitive: the same bit as the plain closest hit's
+// valid & t < radius, each primitive's root its plain expression (the
+// floor's num / denom behind the |denom| guard; the sphere's near root,
+// or the far one where the near is below eps), the primitives in any
+// order, stopping at the first.  Exact skips (with eps > 0: `culls`):
+// the floor where num and denom differ in sign (t <= 0); a sphere where
+// disc < 0, or where 0 <= b < eps * 2^20 and c2 >= 0 (the origin outside
+// it and the ray leaving: disc <= b*b, so both roots are below
+// 2^-23 * b + 2^-75 < eps).
+__device__ __forceinline__ bool ao_blocked(const AoLane& l, V3 fn, V3 d,
+                                           float eps, float radius,
+                                           bool culls) {
+  if (l.floor) {
+    const float denom = dot3(d, fn);
+    if (fabsf(denom) >= 1e-6f &&
+        (!culls || (l.num > 0.0f) == (denom > 0.0f))) {
+      const float tf = l.num / denom;
+      if (tf >= eps && tf < kInf && tf < radius) return true;
+    }
+  }
+  const float away = eps * 0x1p20f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (!((l.near >> k) & 1u)) continue;
+    const float b = dot3(l.oc[k], d);
+    const float disc = b * b - l.c2[k];
+    if (!(disc >= 0.0f)) continue;
+    if (b >= 0.0f && l.c2[k] >= 0.0f && b < away) continue;
+    const float sq = sqrtf(fmaxf(disc, 0.0f));
+    const float t_near = -b - sq;
+    const float t_far = -b + sq;
+    const float t = t_near < eps ? t_far : t_near;
+    if (t >= eps && t < kInf && t < radius) return true;
+  }
+  return false;
+}
+
 // compute_ao's analytic branch on the live lanes: from p + n*ao_bias
 // (n = normalize(h.n)), `samples` cosine-hemisphere rays from the rand
 // pairs at offsets 37k+3 and 19k+11 of frame_index, each occluded where
-// its closest hit is valid and within ao_radius; then _ao_value's remap,
-// clamp(ao_min + ao_span * (1 - occ / samples), ao_min, 1).
+// the plain closest hit is valid and within ao_radius (ao_blocked); then
+// _ao_value's remap, clamp(ao_min + ao_span * (1 - occ / samples), ao_min,
+// 1).  A lane's origin, sphere terms and basis are built once for all its
+// samples.  Lane culls, each sound for every direction the lane can draw
+// (|d| <= 1 + 2^-20): a sphere whose centre is farther than
+// kAoReach * (ao_radius + r) + kAoSlack (every root beyond ao_radius);
+// the floor where |num| > ao_radius * |n| * kAoReach (every root beyond
+// ao_radius), or where the floor normal and the lane's normal are both
+// (0, y > 0, 0) and num <= 0 (the basis's t.y and b.y are 0, so d.y >= 0
+// and denom >= 0 on every sample: the root is below eps or guarded).  A
+// lane with nothing left to test draws no sample: occ = 0.
 __global__ void __launch_bounds__(kLiveThreads)
 an_ao_kernel(const Units u, const AnScene s, const AnAoArgs a) {
   const uint32_t kx = frame_value(frame_index(a.frame), a.fi);
   const uint32_t ky = key_y(kx);
   const float bias = __ldg(s.prm->ao_bias), radius = __ldg(s.prm->ao_radius);
   const float ao_min = __ldg(s.prm->ao_min), span = __ldg(s.prm->ao_span);
+  const float eps = s.eps;
+  // every cull rests on eps > 0 (a root at or below 0 is invalid)
+  const bool culls = eps > 0.0f;
+  const float inf = __int_as_float(0x7f800000);
+  const V3 fn = c3(s.floor_n);
+  const bool floor_up =
+      culls && fn.x == 0.0f && fn.z == 0.0f && fn.y > 0.0f;
+  const float floor_far =
+      culls ? radius * sqrtf(dot3(fn, fn)) * kAoReach : inf;
+  const V3 mc = ldg3(s.prm->point_light_world);
+  float far2[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float r2 = k < 3 ? s.sphere_r2[k] : s.marker_r2;
+    const float reach = (radius + sqrtf(r2)) * kAoReach + kAoSlack;
+    far2[k] = culls ? reach * reach : inf;
+  }
+  const int n_spheres = a.marker ? 4 : 3;
   live_rounds(u, a.active, a.n_lanes, a.n_px, [&](int64_t i) {
-    float px, py;
-    pixel_centre(a.grid, i, &px, &py);
     const V3 nn = norm3(in3(a.n, i, a.n_px));
     const V3 o = add3(in3(a.p, i, a.n_px), scale3(nn, bias));
+    AoLane l;
+    l.near = 0;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const V3 c = m == 0 ? c3(s.sphere_c[0])
+                   : m == 1 ? c3(s.sphere_c[1])
+                   : m == 2 ? c3(s.sphere_c[2]) : mc;
+      l.oc[m] = sub3(o, c);
+      const float q = dot3(l.oc[m], l.oc[m]);
+      l.c2[m] = q - (m < 3 ? s.sphere_r2[m] : s.marker_r2);
+      if (m < n_spheres && !(q > far2[m])) l.near |= 1u << m;
+    }
+    l.num = -(dot3(o, fn) + s.floor_d);
+    // the floor: beyond ao_radius, or under every direction of a floor
+    // lane's hemisphere (nn = (0, y > 0, 0): the basis's t.y and b.y are
+    // 0, so every direction has d.y >= 0 and denom >= 0)
+    l.floor = !(fabsf(l.num) > floor_far) &&
+              !(floor_up && nn.x == 0.0f && nn.z == 0.0f && nn.y > 0.0f &&
+                !(l.num > 0.0f));
     int occ = 0;
-    for (int k = 0; k < a.samples; ++k) {
-      const float o1 = (float)(37 * k + 3), o2 = (float)(19 * k + 11);
-      const float ux = rand01(px + o1, py + o1, kx, ky);
-      const float uy = rand01(py + o2, px + o2, kx, ky);
-      const V3 d = hemisphere_cosine(nn, ux, uy, a.two_pi);
-      const float t = trace_closest(s, o, d, true, a.marker, s.eps).t;
-      occ += t < kInf && t < radius;
+    if (l.near != 0 || l.floor) {
+      // hemisphere_cosine's basis around normalize(nn), once a lane
+      const V3 n2 = norm3(nn);
+      V3 t, b;
+      build_onb(n2, &t, &b);
+      float px, py;
+      pixel_centre(a.grid, i, &px, &py);
+      for (int m = 0; m < a.samples; ++m) {
+        const float o1 = (float)(37 * m + 3), o2 = (float)(19 * m + 11);
+        const float ux = rand01(px + o1, py + o1, kx, ky);
+        const float uy = rand01(py + o2, px + o2, kx, ky);
+        const V3 d = hemisphere_dir(t, b, n2, ux, uy, a.two_pi);
+        occ += ao_blocked(l, fn, d, eps, radius, culls);
+      }
     }
     const float ao = 1.0f - (float)occ / (float)a.samples;
     a.out[i] = fminf(fmaxf(ao_min + span * ao, ao_min), 1.0f);

@@ -1,6 +1,7 @@
 // The port's one device RNG and its samplers: the uint32 hash of
 // sampling.rand, the pixel-centre grids read in place, and the cosine
-// hemisphere sample with its orthonormal basis.  Included by an_direct.cu
+// hemisphere sample with its orthonormal basis (hemisphere_dir: the
+// sample in a basis built once).  Included by an_direct.cu
 // (the disk-light offsets of K3 and the BVH direct light) and
 // bvh_trace.cu (the AO rays and the GI bounce ray).
 //
@@ -109,24 +110,42 @@ __device__ __forceinline__ float rand01(float x, float y, uint32_t kx,
   return __uint2float_rn(hash2(ux, uy)) / 4294967296.0f;
 }
 
-// sampling.build_onb: (t, b) around the unit normal n
+// sampling.build_onb: (t, b) around the unit normal n.  At n = (+0, 1, +0)
+// exactly (the analytic floor's hits) the result is taken without the
+// normalize, with the same bits: there up = (1, 0, 0) and the cross
+// products' zeros are +0 - +0, so t = (+0, +0, 1) and b = (1, +0, +0).
 __device__ __forceinline__ void build_onb(V3 n, V3* t, V3* b) {
+  if (__float_as_uint(n.x) == 0u && n.y == 1.0f &&
+      __float_as_uint(n.z) == 0u) {
+    *t = {0.0f, 0.0f, 1.0f};
+    *b = {1.0f, 0.0f, 0.0f};
+    return;
+  }
   const V3 up = fabsf(n.y) < 0.99f ? V3{0.0f, 1.0f, 0.0f}
                                    : V3{1.0f, 0.0f, 0.0f};
   *t = norm3(cross3(up, n));
   *b = cross3(n, *t);
 }
 
-// sampling.sample_hemisphere_cosine; two_pi is float32(2.0 * PI)
-__device__ __forceinline__ V3 hemisphere_cosine(V3 n, float ux, float uy,
-                                                float two_pi) {
+// sampling.sample_hemisphere_cosine's direction in the basis (t, b, nn)
+// that build_onb makes around nn = normalize(n); two_pi is
+// float32(2.0 * PI).  A kernel that draws several samples around one
+// normal builds the basis once.
+__device__ __forceinline__ V3 hemisphere_dir(V3 t, V3 b, V3 nn, float ux,
+                                             float uy, float two_pi) {
   const float phi = two_pi * ux;
   const float r = sqrtf(uy);
   const float x = r * cosf(phi);
   const float z = r * sinf(phi);
   const float y = sqrtf(fmaxf(1.0f - uy, 0.0f));
+  return norm3(add3(add3(scale3(t, x), scale3(b, z)), scale3(nn, y)));
+}
+
+// sampling.sample_hemisphere_cosine; two_pi is float32(2.0 * PI)
+__device__ __forceinline__ V3 hemisphere_cosine(V3 n, float ux, float uy,
+                                                float two_pi) {
   const V3 nn = norm3(n);
   V3 t, b;
   build_onb(nn, &t, &b);
-  return norm3(add3(add3(scale3(t, x), scale3(b, z)), scale3(nn, y)));
+  return hemisphere_dir(t, b, nn, ux, uy, two_pi);
 }

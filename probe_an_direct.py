@@ -7,10 +7,10 @@ A probe for work on `an_direct_light_kernel` (K3, csrc/an_direct.cu), not
 part of the smoke run.  It records the K3 calls of a 1080p an_full frame
 (the `full` preset with the day-sky cubemap: the primary call and its six
 masked secondaries) and of an 800x600 an_baseline frame (five calls), as
-chip_smoke.py's kernels phase does, and builds a copy of the source for
-each variant in VARIANTS (one nvcc each, all started together, under
-_build/probe_an_direct/).  Each variant drops or swaps one part of the
-diffuse path:
+chip_smoke.py's kernels phase does, and builds a copy of the source and
+its headers for each variant in VARIANTS (probe_variants.py: one nvcc
+each, all started together, under _build/probe_an_direct/).  Each variant
+drops or swaps one part of the diffuse path:
 
   no_hash    rand01 a cheap function of its coordinates: the hash chain's
              conversions, hash2 and scale gone;
@@ -28,7 +28,6 @@ diffuse path:
   blocks9    the kernel held to nine blocks an SM (56 registers);
   pow_gate   powf only where its term is kept (ndl > 0, spec > 0);
   floor_gate the floor test divides only where t can come out positive;
-  inline_trace  trace_t inlined at each of its six call sites;
   stage_prm  the parameter block copied to shared memory once a block;
   A+B        the patches of A and of B together.
 
@@ -49,82 +48,81 @@ from __future__ import annotations
 
 import ctypes
 import json
-import os
 import statistics
-import subprocess
 import sys
 
 import chip_smoke as cs
+import probe_variants as pv
 
 REPS = 20
-# name -> [(text of csrc/an_direct.cu, its replacement, times it occurs)]
+F, H = "an_direct.cu", "an_scene.cuh"  # K3's source; its scene's traces
+# name -> [(file, a text of it, its replacement)] (probe_variants.py)
 VARIANTS = {
-    "no_hash": [('#include "sampling.cuh"\n',
-                 '#include "sampling.cuh"\n'
-                 '#define rand01(x, y, kx, ky) ((x) * 1e-3f + (y) * 1e-4f)\n',
-                 1)],
-    "no_sincos": [("  *dx = r * cosf(phi);\n  *dy = r * sinf(phi);\n",
-                   "  *dx = r * phi;\n  *dy = r - phi;\n", 1)],
-    "no_traces": [("__device__ float trace_t(const AnScene& s, V3 o, V3 d, "
-                   "bool marker) {\n",
-                   "__device__ float trace_t(const AnScene& s, V3 o, V3 d, "
-                   "bool marker) {\n  if (s.eps > -1.0f) return kInf;\n", 1)],
-    "no_powf": [("  const float phong = powf(ndh, gloss);\n",
-                 "  const float phong = ndh * gloss;\n", 1)],
-    "fmodf": [("__device__ __forceinline__ float rem1(float x) "
+    "no_hash": [(F, '#include "sampling.cuh"\n',
+                 '#include "sampling.cuh"\n#define rand01(x, y, kx, ky) '
+                 '((x) * 1e-3f + (y) * 1e-4f)\n')],
+    "no_sincos": [(F, "  *dx = r * cosf(phi);\n  *dy = r * sinf(phi);\n",
+                   "  *dx = r * phi;\n  *dy = r - phi;\n")],
+    "no_traces": [(H, "                                         bool marker) "
+                   "{\n",
+                   "                                         bool marker) "
+                   "{\n  if (s.eps > -1.0f) return kInf;\n")],
+    "no_powf": [(F, "  const float phong = powf(ndh, gloss);\n",
+                 "  const float phong = ndh * gloss;\n")],
+    "fmodf": [(F, "__device__ __forceinline__ float rem1(float x) "
                "{ return x - truncf(x); }\n",
                "__device__ __forceinline__ float rem1(float x) {\n"
                "  const float m = fmodf(x, 1.0f);\n"
-               "  return (m != 0.0f && m < 0.0f) ? m + 1.0f : m;\n}\n", 1)],
-    "sincosf": [("  *dx = r * cosf(phi);\n  *dy = r * sinf(phi);\n",
+               "  return (m != 0.0f && m < 0.0f) ? m + 1.0f : m;\n}\n")],
+    "sincosf": [(F, "  *dx = r * cosf(phi);\n  *dy = r * sinf(phi);\n",
                  "  float sn, cs;\n  sincosf(phi, &sn, &cs);\n"
-                 "  *dx = r * cs;\n  *dy = r * sn;\n", 1)],
-    "no_sqrt_gate": [("  if (!(disc >= 0.0f)) return best;\n", "", 1)],
-    "unit": [("constexpr int kDrainAt = 32;", "constexpr int kDrainAt = 1;",
-              1)],
-    "pow_gate": [("  const float phong = powf(ndh, gloss);\n"
+                 "  *dx = r * cs;\n  *dy = r * sn;\n")],
+    "no_sqrt_gate": [(H, "  if (!(disc >= 0.0f)) return false;\n", "")],
+    "unit": [(F, "constexpr int kDrainAt = 32;",
+              "constexpr int kDrainAt = 1;")],
+    "pow_gate": [(F, "  const float phong = powf(ndh, gloss);\n"
                   "  const float spec = spec_strength > 0.0f ? "
                   "spec_strength * phong : 0.0f;\n"
                   "  if (!(ndl > 0.0f)) return {0.0f, 0.0f, 0.0f};\n",
                   "  if (!(ndl > 0.0f)) return {0.0f, 0.0f, 0.0f};\n"
                   "  const float spec = spec_strength > 0.0f ? "
-                  "spec_strength * powf(ndh, gloss) : 0.0f;\n", 1)],
-    "floor_gate": [("  const float tf = -(dot3(o, fn) + s.floor_d) / safe;\n"
-                    "  float best = kInf;\n"
-                    "  if (fabsf(denom) >= 1e-6f && tf >= s.eps && "
-                    "tf < best) best = tf;\n",
+                  "spec_strength * powf(ndh, gloss) : 0.0f;\n")],
+    "floor_gate": [(H, "  const float tf = -(dot3(o, fn) + s.floor_d) / "
+                    "safe;\n"
+                    "  AnHit h = {kInf, kAnMiss};\n"
+                    "  if (fabsf(denom) >= 1e-6f && tf >= eps && tf < h.t) "
+                    "h = {tf, kAnFloor};\n",
                     "  const float num = -(dot3(o, fn) + s.floor_d);\n"
-                    "  float best = kInf;\n"
+                    "  AnHit h = {kInf, kAnMiss};\n"
                     "  if (fabsf(denom) >= 1e-6f && num != 0.0f && "
                     "(num > 0.0f) == (safe > 0.0f)) {\n"
                     "    const float tf = num / safe;\n"
-                    "    if (tf >= s.eps && tf < best) best = tf;\n"
-                    "  }\n", 1)],
-    "inline_trace": [("__device__ float trace_t(const AnScene& s, V3 o, "
-                      "V3 d, bool marker) {\n",
-                      "__device__ __forceinline__ float trace_t(const "
-                      "AnScene& s, V3 o, V3 d, bool marker) {\n", 1)],
-    "grid": [("  return launch_persistent(an_direct_light_kernel, kThreads,\n"
+                    "    if (tf >= eps && tf < h.t) h = {tf, kAnFloor};\n"
+                    "  }\n")],
+    "grid": [(F, "  return launch_persistent(an_direct_light_kernel, "
+              "kThreads,\n"
               "                           make_units(n_lanes, 32), "
               "(cudaStream_t)stream,\n",
               "  const Units u = make_units(n_lanes, 32);\n"
               "  if (u.n_units > 0)\n"
-              "    an_direct_light_kernel<<<(unsigned)((u.n_units + kWarps - 1)"
+              "    an_direct_light_kernel<<<(unsigned)((u.n_units + kWarps "
+              "- 1)"
               " / kWarps),\n"
-              "                             kThreads, 0, (cudaStream_t)stream>>>"
-              "(u,\n", 1),
-             ("                           *scene, *rows, n_lanes, (float*)out,\n"
+              "                             kThreads, 0, "
+              "(cudaStream_t)stream>>>"
+              "(u,\n"),
+             (F, "                           *scene, *rows, n_lanes, "
+              "(float*)out,\n"
               "                           (float*)offs);\n",
               "        *scene, *rows, n_lanes, (float*)out, (float*)offs);\n"
-              "  return (int)cudaGetLastError();\n", 1)],
-    "blocks9": [("__launch_bounds__(kThreads)\nan_direct_light_kernel(",
-                 "__launch_bounds__(kThreads, 9)\nan_direct_light_kernel(",
-                 1)],
-    "stage_prm": [("an_direct_light_kernel(const Units u, const AnScene s, "
+              "  return (int)cudaGetLastError();\n")],
+    "blocks9": [(F, "__launch_bounds__(kThreads)\nan_direct_light_kernel(",
+                 "__launch_bounds__(kThreads, 9)\nan_direct_light_kernel(")],
+    "stage_prm": [(F, "an_direct_light_kernel(const Units u, const AnScene s, "
                    "const AnRows r,",
                    "an_direct_light_kernel(const Units u, const AnScene s0, "
-                   "const AnRows r,", 1),
-                  ("  __shared__ int64_t queue[kWarps][2][kQueueCap];\n",
+                   "const AnRows r,"),
+                  (F, "  __shared__ int64_t queue[kWarps][2][kQueueCap];\n",
                    "  __shared__ int64_t queue[kWarps][2][kQueueCap];\n"
                    "  __shared__ ParamBlock prm;\n"
                    "  for (int k = threadIdx.x; k < (int)(sizeof(ParamBlock)"
@@ -132,54 +130,11 @@ VARIANTS = {
                    "    ((float*)&prm)[k] = __ldg((const float*)s0.prm + k);\n"
                    "  __syncthreads();\n"
                    "  AnScene s = s0;\n"
-                   "  s.prm = &prm;\n", 1)],
+                   "  s.prm = &prm;\n")],
 }
 EXACT = ("fmodf", "sincosf", "no_sqrt_gate", "unit", "pow_gate",
-         "floor_gate", "inline_trace", "grid", "blocks9", "stage_prm")
+         "floor_gate", "grid", "blocks9", "stage_prm")
 DROPS = ("no_hash", "no_sincos", "no_traces", "no_powf")
-
-
-def build(names):
-    """{name: (library, ptxas record of the kernel)} of the variants
-    `names` and the kernel itself ("base"), one nvcc each, all started
-    together."""
-    from opengl_raytracing_tpu_torch.ops import an_cuda, cuda_lib
-    with open(cuda_lib.SOURCES["an_direct"]) as fh:
-        src = fh.read()
-    out_dir = os.path.join(cuda_lib.BUILD_DIR, "probe_an_direct")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for name in ("base",) + tuple(names):
-        text = src
-        patches = [] if name == "base" else [
-            p for part in name.split("+") for p in VARIANTS[part]]
-        for old, new, times in patches:
-            if text.count(old) != times:
-                raise RuntimeError(f"an_direct.cu no longer holds {old!r} "
-                                   f"{times} times")
-            text = text.replace(old, new)
-        path = os.path.join(out_dir, f"an_direct_{name}.cu")
-        with open(path, "w") as fh:
-            fh.write(text)
-        lib = path[:-3] + ".so"
-        procs[name] = (lib, subprocess.Popen(
-            [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-I", cuda_lib._CSRC,
-             "-o", lib, path], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (lib, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
-        with open(lib[:-3] + ".log", "w") as fh:
-            fh.write(log)
-        handle = ctypes.CDLL(lib)
-        argtypes, restype = an_cuda._SIGNATURES["ort_an_direct"]
-        handle.ort_an_direct.argtypes = argtypes
-        handle.ort_an_direct.restype = restype
-        libs[name] = (handle, cs.ptxas_of(lib[:-3] + ".log",
-                                          "an_direct_light_kernel"))
-    return libs
 
 
 def calls_of(env):
@@ -240,22 +195,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("probe_an_direct: no CUDA card", file=sys.stderr)
         return 1
-    names = list(VARIANTS)
-    if "--variants" in sys.argv:
-        names = sys.argv[sys.argv.index("--variants") + 1].split(",")
-    for name in names:
-        if not all(part in VARIANTS for part in name.split("+")):
-            raise SystemExit(f"unknown variant {name}")
-    rounds = (int(sys.argv[sys.argv.index("--rounds") + 1])
-              if "--rounds" in sys.argv else 3)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    from opengl_raytracing_tpu_torch.ops import an_cuda
+    names, rounds = pv.options(VARIANTS, 3)
+    smi = pv.card()
     print(smi, flush=True)
-    libs = build(names)
+    libs = pv.build("probe_an_direct", "an_direct.cu",
+                    {"ort_an_direct": an_cuda._SIGNATURES["ort_an_direct"]},
+                    {"an_direct": "an_direct_light_kernel"}, VARIANTS, names)
     calls = calls_of(cs.sky_day("cuda"))
     runs = [(call, *launcher(args)) for call, args in calls]
-    order = ["base"] + names + names[::-1] + ["base"]
+    order = pv.turn_order(names)
     times = {name: {call: [] for call, *_ in runs} for name in libs}
     bits = {name: {} for name in libs}
     for _ in range(rounds):

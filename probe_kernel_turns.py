@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Kernel alone-times of two checkouts on one card, in turns.
 
-    python3 probe_kernel_turns.py OTHER_DIR [ROUNDS] [--frames | --k5 | --k3]
+    python3 probe_kernel_turns.py OTHER_DIR [ROUNDS]
+        [--frames | --k5 | --k3 | --gates]
 
 OTHER_DIR is another checkout of the repository, say the parent commit
 unpacked with `git archive`.  Each run is a child process in one
@@ -38,6 +39,16 @@ masked call), and saves each call's radiance and mask the same way;
 after the runs each call's radiance is compared bit for bit on this
 checkout's live lanes, and its live lanes and bound
 (chip_smoke.an_call_bound) are printed beside the medians, one JSON line.
+
+With `--gates` a run times every call of the live-lane kernels (the
+analytic trace, AO, GI bounce and sky kernels, glass's and the mirror's
+rays and mixes, both hit mixes: chip_smoke's GATE_KERNELS, SHADE_KERNELS
+and HIT_MIX_KERNELS) alone on GATE_FRAMES' frames (a 1080p an_full with
+the day-sky cubemap, an 800x600 an_baseline, a 1080p `baseline`, and a
+1080p `full` and `heavy` chain's third frame), each as the frame calls
+it, and saves the AO and bounce calls' outputs on their live lanes;
+after the runs those are compared bit for bit, one JSON line with each
+call's live lanes and each gate call's bound (chip_smoke.gate_bound).
 """
 
 from __future__ import annotations
@@ -213,6 +224,96 @@ def compare_k5(other: str, this: str) -> dict:
     return out
 
 
+# (label, BVH scene, preset, size, cubemap) of each frame --gates times
+GATE_FRAMES = (("an_full", False, "full", (1080, 1920), True),
+               ("an_baseline", False, "baseline", (600, 800), False),
+               ("baseline", True, "baseline", (1080, 1920), False),
+               ("full", True, "full", (1080, 1920), False),
+               ("heavy", True, "heavy", (1080, 1920), False))
+
+
+def gate_caller(cs, key, a):
+    """A call of live-lane kernel `key`'s wrapper on the recorded
+    arguments `a`, with the frame's own mask (a mix into a copy of the
+    frame's radiance)."""
+    if key in cs.GATE_KERNELS:
+        return lambda: cs.gate_call(key, a, a.get("active"))
+    if key in cs.SHADE_KERNELS:
+        out = a["out"].clone() if key in ("glass_mix", "mirror_mix") \
+            else None
+        return lambda: cs.shade_call(key, a, a.get("active"), out)
+    from opengl_raytracing_tpu_torch.ops import hit_mix_cuda
+    fn = getattr(hit_mix_cuda, cs.KERNELS[key]["wrapper"])
+    args = {k: v for k, v in a.items() if k not in ("active", "radiance")}
+    radiance = a["radiance"].clone()
+    return lambda: fn(**args, radiance=radiance, active=a.get("active"))
+
+
+def child_gates(saved: str) -> None:
+    """In a checkout's directory: the live-lane kernels' alone-times on
+    every call of GATE_FRAMES' frames, one JSON line; the AO and bounce
+    calls' outputs on their live lanes, their live lanes, and each call
+    of the four gate kernels' live lanes and bound (chip_smoke.gate_bound)
+    saved to `saved`."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+    import chip_smoke as cs
+    from opengl_raytracing_tpu_torch.ops import cuda_lib
+    cuda_lib.build_all()
+    env = cs.sky_day("cuda")
+    bvh = cs.scene("cuda")[1]
+    keys = cs.GATE_KERNELS + cs.SHADE_KERNELS + cs.HIT_MIX_KERNELS
+    ms, outputs, info = {}, {}, {}
+    for label, on_bvh, preset_name, (h, w), cube in GATE_FRAMES:
+        calls = cs.record_kernel_inputs(bvh if on_bvh else None, h, w,
+                                        "cuda", keys, preset_name,
+                                        cs.PROFILE_FRAME,
+                                        env=env if cube else None)
+        for key in keys:
+            for n, a in enumerate(calls[key]):
+                name = f"{label}_{key}_{n}"
+                ms[name] = cs.kernel_ms(gate_caller(cs, key, a),
+                                        cs.KERNELS[key]["kernel"])
+                if key in cs.GATE_KERNELS:
+                    live = cs._live_of(cs.gate_shape(key, a),
+                                       a.get("active"))
+                    info[name] = {f: v for f, v in cs.gate_bound(
+                        key, a, live).items() if f in BOUND_FIELDS}
+                if key in ("an_ao", "an_bounce"):
+                    out = cs.gate_call(key, a, a.get("active"))
+                    outputs[name] = {f: v[live].cpu()
+                                     for f, v in out.items()}
+                    outputs[name + "/live"] = int(live.sum())
+        del calls
+    outputs["info"] = info
+    torch.save(outputs, saved)
+    print(json.dumps(ms), flush=True)
+
+
+def compare_gates(other: str, this: str) -> dict:
+    """The two sides' saved AO and bounce outputs (files `other`,
+    `this`): for each call, whether every output is equal bit for bit on
+    its live lanes, and its live lanes."""
+    import torch
+    a = torch.load(other)
+    b = torch.load(this)
+    a.pop("info")
+    out = {"info": b.pop("info")}
+    for key in (k for k in b if not k.endswith("/live")):
+        same = {f: bool(f in a[key] and a[key][f].shape == x.shape
+                        and torch.equal(a[key][f].view(torch.int32),
+                                        x.view(torch.int32)))
+                for f, x in b[key].items()}
+        out[key] = dict(bitwise=all(same.values()), fields=same,
+                        live_lanes=b[key + "/live"])
+    return out
+
+
+# the bound's fields of a gate call that --gates prints
+BOUND_FIELDS = ("lanes", "live_lanes", "bound_ms", "bound_by", "bound_bytes",
+                "bound_ops", "texels", "samples")
+
+
 def child_frames() -> None:
     """In a checkout's directory: replayed ms/frame of chip_smoke.py's
     GRAPH_CASES, one JSON line."""
@@ -252,11 +353,13 @@ def child_frames() -> None:
 
 
 def main() -> int:
-    modes = ("--frames", "--k5", "--k3")
+    modes = ("--frames", "--k5", "--k3", "--gates")
     if sys.argv[1:2] == ["--child"]:
-        if "--k5" in sys.argv or "--k3" in sys.argv:
+        saving = {"--k5": child_k5, "--k3": child_k3, "--gates": child_gates}
+        flag = next((f for f in saving if f in sys.argv), None)
+        if flag:
             saved = sys.argv[sys.argv.index("--out") + 1]
-            (child_k5 if "--k5" in sys.argv else child_k3)(saved)
+            saving[flag](saved)
         else:
             (child_frames if "--frames" in sys.argv else child)()
         return 0
@@ -268,8 +371,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    # the --k5 / --k3 children's outputs, a file a side, outside both
-    # checkouts and made anew each run
+    # the --k5 / --k3 / --gates children's outputs, a file a side, outside
+    # both checkouts and made anew each run
     outputs = tempfile.mkdtemp(prefix="probe_kernel_turns_")
     try:
         return turns(other, rounds, mode, smi, outputs)
@@ -279,8 +382,8 @@ def main() -> int:
 
 def turns(other: str, rounds: int, mode: list, smi: str,
           outputs: str) -> int:
-    """The runs in turns, their medians and, with --k5 or --k3, the
-    comparison of the two sides' outputs (files under `outputs`)."""
+    """The runs in turns, their medians and, with --k5, --k3 or --gates,
+    the comparison of the two sides' outputs (files under `outputs`)."""
     frames = "--frames" in mode
     saved = {side: os.path.join(outputs, side + ".pt")
              for side in ("other", "this")}
@@ -290,7 +393,7 @@ def turns(other: str, rounds: int, mode: list, smi: str,
             [sys.executable, os.path.abspath(__file__), "--child"] + mode
             + ["--out", saved[side]],
             cwd=other if side == "other" else ROOT, stdout=subprocess.PIPE,
-            text=True, timeout=600)
+            text=True, timeout=900)
         if proc.returncode != 0:
             print(json.dumps({"tree": side, "error": proc.returncode}))
             return 1
@@ -308,12 +411,14 @@ def turns(other: str, rounds: int, mode: list, smi: str,
                               this_runs=got["this"],
                               other_runs=got["other"])
     print(json.dumps({"card": smi, "medians": medians}), flush=True)
-    for flag, compare in (("--k5", compare_k5), ("--k3", compare_k3)):
+    for flag, compare in (("--k5", compare_k5), ("--k3", compare_k3),
+                          ("--gates", compare_gates)):
         if flag in mode:
             bits = compare(saved["other"], saved["this"])
             print(json.dumps({"card": smi, f"{flag[2:]}_bitwise": bits}),
                   flush=True)
-            if not all(r["bitwise"] for r in bits.values()):
+            if not all(r["bitwise"] for k, r in bits.items()
+                       if k != "info"):
                 return 1
     return 0
 

@@ -33,9 +33,14 @@ cannot run here, so:
 (c) a numpy transcription of the kernels' per-lane rules (an_scene.cuh's
     trace_closest and an_lanes.cuh's hit_out: the primitive order, the
     floor's denominator guard, valid & t < best, the miss's bits, the
-    winner's normal; the AO rays at offsets 37i+3 / 19i+11, the count
-    within ao_radius and _ao_value's remap; the bounce ray at offsets
-    seed*13 / seed*37 of the lane's sample; the gradient sky and the
+    winner's normal; the AO rays at offsets 37i+3 / 19i+11 from a
+    lane's origin, sphere terms and basis built once, each an any-hit
+    test within ao_radius behind the kernel's culls (ao_lanes,
+    ao_blocked; kAoReach and kAoSlack read from csrc/an_trace.cu; tests/
+    test_torch_ao_anyhit.py holds them on adversarial rays), and
+    _ao_value's remap; the bounce ray at offsets seed*13 / seed*37 of the
+    lane's sample, both kernels' basis taken without its normalize on
+    the floor's normal (build_onb); the gradient sky and the
     cubemap times its intensity; glass's setup, refract, its three
     secondaries, views and skies where the mix reads them, the mirror's
     reflected ray, and both mixes' selects, mixes and Fresnel term),
@@ -89,7 +94,7 @@ from opengl_raytracing_tpu_torch.scene import (gather_triangles, make_bunny,
 from opengl_raytracing_tpu_torch.utils import image as timage
 
 from test_torch_cubemap import kernel_sample_cubemap
-from test_torch_walk_sampling import (M32, _dot, _hemisphere, _keys, _lib,
+from test_torch_walk_sampling import (M32, _cross, _dot, _keys, _lib,
                                       _norm, _rand)
 from torch_param_block import block_at, seeded_values
 from torch_recorder import HOST_READS, recording
@@ -527,20 +532,136 @@ def model_trace(s, block, o, d, glass, marker, eps):
     return t, p, n, np.where(k < 0, 0, k).astype(np.int32)
 
 
-def model_ao(s, block, args, record, p, n, px, py):
-    """an_ao_kernel on rows: the biased origin, `samples` hemisphere rays
-    at offsets 37i+3 / 19i+11, each occluded within ao_radius, remapped."""
+def _kernel_constant(name):
+    """A float constant of csrc/an_trace.cu (`constexpr float name = v;`)."""
+    import re
+    path = os.path.join(ROOT, "opengl_raytracing_tpu_torch", "csrc",
+                        "an_trace.cu")
+    with open(path) as fh:
+        m = re.search(rf"constexpr\s+float\s+{name}\s*=\s*([-+0-9.eE]+)f;",
+                      fh.read())
+    assert m, f"{name} not in an_trace.cu"
+    return F32(m.group(1))
+
+
+AO_REACH = _kernel_constant("kAoReach")
+AO_SLACK = _kernel_constant("kAoSlack")
+
+
+def _onb(nn):
+    """sampling.cuh build_onb around unit normals nn [N, 3]: (t, b), taken
+    as (+0, +0, 1) and (1, +0, +0) without its normalize where nn is
+    (+0, 1, +0) exactly (the floor's hits)."""
+    up = np.where((np.abs(nn[..., 1]) < F32(0.99))[..., None],
+                  F32([0.0, 1.0, 0.0]), F32([1.0, 0.0, 0.0]))
+    t = _norm(_cross(up, nn))
+    b = _cross(nn, t)
+    bits = nn.view(np.uint32)
+    floor = ((bits[..., 0] == 0) & (nn[..., 1] == F32(1.0))
+             & (bits[..., 2] == 0))[..., None]
+    return (np.where(floor, F32([0.0, 0.0, 1.0]), t),
+            np.where(floor, F32([1.0, 0.0, 0.0]), b))
+
+
+def _hemisphere_dir(t, b, nn, ux, uy, two_pi):
+    """sampling.cuh hemisphere_dir: the sample in the basis (t, b, nn)."""
+    phi = F32(two_pi) * ux
+    r = _lib("sqrt", uy)
+    x, z = r * _lib("cos", phi), r * _lib("sin", phi)
+    y = _lib("sqrt", np.maximum(F32(1.0) - uy, F32(0.0)))
+    return _norm((t * x[..., None] + b * z[..., None]) + nn * y[..., None])
+
+
+def ao_lanes(s, block, o, radius, marker, eps):
+    """an_ao_kernel's terms of lanes with origins o [N, 3]: the spheres'
+    (albedo, glass, mirror, marker) oc [4, N, 3] and c2 [4, N], which of
+    them the lane tests (`near` [4, N]: not culled by their reach), the
+    floor's numerator and whether the floor is tested (not beyond
+    ao_radius * |n| * kAoReach); every cull off where eps <= 0."""
+    culls = eps > F32(0.0)
+    fn = F32(list(s.floor_n))
+    centres = [F32(list(s.sphere_c[k])) for k in range(3)] + [
+        F32(block["point_light_world"])]
+    r2 = [F32(s.sphere_r2[k]) for k in range(3)] + [F32(s.marker_r2)]
+    oc = np.stack([o - c for c in centres])
+    q = _dot(oc, oc)
+    c2 = np.stack([q[k] - r2[k] for k in range(4)])
+    near = np.zeros(q.shape, bool)
+    for k in range(3 + bool(marker)):
+        reach = (radius + _lib("sqrt", r2[k])) * AO_REACH + AO_SLACK
+        near[k] = ~(q[k] > reach * reach) if culls else True
+    num = -(_dot(o, fn) + F32(s.floor_d))
+    floor_far = radius * _lib("sqrt", _dot(fn, fn)) * AO_REACH
+    floor = ~(np.abs(num) > floor_far) if culls else np.ones(len(o), bool)
+    return dict(oc=oc, c2=c2, near=near, num=num, floor=floor, fn=fn,
+                culls=culls)
+
+
+def ao_floor_up(lanes, nn):
+    """The lanes whose every hemisphere direction stays on the floor's
+    side: the floor normal (0, y > 0, 0), the lane's normal nn = (0, y >
+    0, 0) (so that the basis's t.y and b.y are 0 and every direction has
+    d.y >= 0), the origin not below the floor; an_ao_kernel tests no
+    floor there."""
+    fn, num = lanes["fn"], lanes["num"]
+    up = bool(lanes["culls"] and fn[0] == 0 and fn[2] == 0 and fn[1] > 0)
+    return (up & (nn[:, 0] == 0) & (nn[:, 2] == 0) & (nn[:, 1] > 0)
+            & ~(num > 0))
+
+
+def ao_blocked(lanes, d, eps, radius, keep=None):
+    """an_trace.cu ao_blocked on directions d [N, 3]: whether a tested
+    primitive has a valid root below 1e30 and ao_radius, each root its
+    plain expression, with the exact skips (the floor's signs, disc < 0,
+    b >= 0 with c2 >= 0).  `keep` [N] (a lane's floor and spheres tested
+    at all) defaults to every lane."""
+    keep = np.ones(len(d), bool) if keep is None else keep
+    culls = lanes["culls"]
+    num = lanes["num"]
+    denom = _dot(d, lanes["fn"])
+    fl = keep & lanes["floor"] & (np.abs(denom) >= F32(1e-6))
+    if culls:
+        fl &= (num > 0) == (denom > 0)
+    tf = num / np.where(fl, denom, F32(1.0))
+    blocked = fl & (tf >= eps) & (tf < INF) & (tf < radius)
+    away = eps * F32(2.0 ** 20)
+    for k in range(4):
+        oc, c2 = lanes["oc"][k], lanes["c2"][k]
+        b = _dot(oc, d)
+        disc = b * b - c2
+        ok = keep & lanes["near"][k] & (disc >= 0)
+        ok &= ~((b >= 0) & (c2 >= 0) & (b < away))
+        sq = _lib("sqrt", np.maximum(disc, F32(0.0)))
+        t_near, t_far = -b - sq, -b + sq
+        t = np.where(t_near < eps, t_far, t_near)
+        blocked |= ok & (t >= eps) & (t < INF) & (t < radius)
+    return blocked
+
+
+def model_ao(s, block, args, record, p, n, px, py, stats=None):
+    """an_ao_kernel on rows: the biased origin, the lane's sphere terms,
+    culls and basis once, `samples` hemisphere rays at offsets 37i+3 /
+    19i+11, each an any-hit test within ao_radius (ao_blocked), remapped;
+    a lane with nothing left to test draws no sample.  `stats` (a dict)
+    gets the lanes that drew samples."""
+    eps, radius = F32(s.eps), F32(block["ao_radius"])
     nn = _norm(n)
     o = p + nn * F32(block["ao_bias"])
+    lanes = ao_lanes(s, block, o, radius, args.marker, eps)
+    lanes["floor"] &= ~ao_floor_up(lanes, nn)
+    sampled = lanes["near"].any(0) | lanes["floor"]
+    n2 = _norm(nn)
+    t, b = _onb(n2)
     key = _keys(((int(record[0]) & M32) * args.fi.a + args.fi.b) & M32)
     occ = np.zeros(len(p), np.int64)
     for i in range(args.samples):
         o1, o2 = F32(37 * i + 3), F32(19 * i + 11)
         ux = _rand(px + o1, py + o1, key)
         uy = _rand(py + o2, px + o2, key)
-        d = _hemisphere(nn, ux, uy, args.two_pi)
-        t = model_trace(s, block, o, d, True, args.marker, F32(s.eps))[0]
-        occ += (t < INF) & (t < F32(block["ao_radius"]))
+        d = _hemisphere_dir(t, b, n2, ux, uy, args.two_pi)
+        occ += ao_blocked(lanes, d, eps, radius, sampled)
+    if stats is not None:
+        stats["sampled"] = sampled
     ao = F32(1.0) - occ.astype(F32) / F32(args.samples)
     return np.minimum(np.maximum(F32(block["ao_min"])
                                  + F32(block["ao_span"]) * ao,
@@ -566,7 +687,9 @@ def model_bounce(s, block, args, record, p, n, px, py, smp):
     ux = _rand(px + so, py + so, key)
     uy = _rand(py + so2, px + so2, key)
     n0 = _norm(n)
-    wi = _hemisphere(n0, ux, uy, args.two_pi)
+    nn = _norm(n0)
+    t, b = _onb(nn)
+    wi = _hemisphere_dir(t, b, nn, ux, uy, args.two_pi)
     cos = np.maximum(_dot(n0, wi), F32(0.0))
     hit = model_trace(s, block, p + n0 * F32(s.eps), wi, True, args.marker,
                       F32(s.eps))

@@ -2120,7 +2120,6 @@ def test_an_gate_kernels_match_plain(size, spp, env, monkeypatch):
     mask and the frame's own (the frame's dead lanes hold unspecified
     inputs), and no dead lane written."""
     from opengl_raytracing_tpu_torch.convert import env_from_numpy
-    from opengl_raytracing_tpu_torch.ops import an_trace_cuda
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     params = preset("full").replace(spp_per_frame=spp,
@@ -2135,31 +2134,58 @@ def test_an_gate_kernels_match_plain(size, spp, env, monkeypatch):
     _gate_sentinel(monkeypatch)
     g = torch.Generator(device="cuda").manual_seed(spp)
     for k, (name, a, active) in enumerate(calls):
-        shape = _gate_shape(name, a)
-        want = _gate_plain(name, a, active)
-        masks = {"frame": active, "none": None,
-                 "partial": torch.rand(shape, generator=g,
-                                       device="cuda") < 0.3,
-                 "empty": torch.zeros(shape, dtype=torch.bool,
-                                      device="cuda")}
-        for how, mask in masks.items():
-            before = dict(cuda_lib.LAUNCHES)
-            got = _gate_out(name, getattr(an_trace_cuda, name)(
-                **a, active=mask))
-            assert _grew(before) == {**{c: 0 for c in before},
-                                     GATE_COUNTERS[name]: 1}
-            torch.cuda.synchronize()
-            live = (torch.ones(shape, dtype=torch.bool, device="cuda")
-                    if mask is None else mask.expand(shape))
-            # the frame's dead lanes hold unspecified inputs: compared
-            # where the frame's mask is live too
-            both = live if active is None else live & active.expand(shape)
-            for field, w in want.items():
-                x = got[field]
-                assert torch.equal(x[both], w.expand(x.shape)[both]), (
-                    k, name, how, field)
-                assert bool((x[~live] == SENTINEL).all()), (k, name, how,
-                                                            field)
+        _check_gate_masks(k, name, a, active, g)
+
+
+def _check_gate_masks(k, name, a, active, g):
+    """Call `k` of gate wrapper `name` (arguments `a`, the frame's mask
+    `active`) with the frame's own mask, none, a partial one (from `g`)
+    and an empty one: one launch, every output equal to the dense plain
+    version's bit for bit on the lanes live in the mask and the frame's
+    own (the frame's dead lanes hold unspecified inputs), and no dead
+    lane written (the outputs filled by _gate_sentinel)."""
+    from opengl_raytracing_tpu_torch.ops import an_trace_cuda
+    shape = _gate_shape(name, a)
+    want = _gate_plain(name, a, active)
+    masks = {"frame": active, "none": None,
+             "partial": torch.rand(shape, generator=g, device="cuda") < 0.3,
+             "empty": torch.zeros(shape, dtype=torch.bool, device="cuda")}
+    for how, mask in masks.items():
+        before = dict(cuda_lib.LAUNCHES)
+        got = _gate_out(name, getattr(an_trace_cuda, name)(**a,
+                                                           active=mask))
+        assert _grew(before) == {**{c: 0 for c in before},
+                                 GATE_COUNTERS[name]: 1}
+        torch.cuda.synchronize()
+        live = (torch.ones(shape, dtype=torch.bool, device="cuda")
+                if mask is None else mask.expand(shape))
+        both = live if active is None else live & active.expand(shape)
+        for field, w in want.items():
+            x = got[field]
+            assert torch.equal(x[both], w.expand(x.shape)[both]), (
+                k, name, how, field)
+            assert bool((x[~live] == SENTINEL).all()), (k, name, how, field)
+
+
+@pytest.mark.parametrize("samples", [1, 4, 32])
+@pytest.mark.parametrize("radius", [0.05, 0.8, 4.0])
+def test_an_ao_kernel_matches_plain_across_radius_and_samples(
+        radius, samples, monkeypatch):
+    """The AO call of a 1080p analytic `full` frame at ao_radius 0.05, 0.8
+    and 4.0 (the viewer's range) and ao_samples 1, 4 and 32 (its fewest
+    and most): with the frame's own mask, none, a partial one and an
+    empty one, one launch, AO bit for bit the plain version's on the live
+    lanes (the kernel's any-hit test and culls against the plain closest
+    hit), no dead lane written."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    params = preset("full").replace(ao_radius=radius, ao_samples=samples)
+    calls = [c for c in _an_gate_calls(params, (1080, 1920), None)
+             if c[0] == "ambient_occlusion"]
+    assert len(calls) == 1
+    _gate_sentinel(monkeypatch)
+    g = torch.Generator(device="cuda").manual_seed(samples)
+    _check_gate_masks(0, *calls[0], g)
 
 
 def test_an_trace_kernel_reads_a_broadcast_origin_and_rows_a_pixel():

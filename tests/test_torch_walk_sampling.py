@@ -139,7 +139,8 @@ def _lib(fn, x):
 
 
 def _hemisphere(n, ux, uy, two_pi):
-    """sampling.cuh hemisphere_cosine, with build_onb."""
+    """sampling.cuh hemisphere_cosine, with build_onb (its basis taken as
+    (+0, +0, 1) and (1, +0, +0) where nn is (+0, 1, +0) exactly)."""
     phi = F32(two_pi) * ux
     r = _lib("sqrt", uy)
     x, z = r * _lib("cos", phi), r * _lib("sin", phi)
@@ -149,6 +150,11 @@ def _hemisphere(n, ux, uy, two_pi):
                   F32([0.0, 1.0, 0.0]), F32([1.0, 0.0, 0.0]))
     t = _norm(_cross(up, nn))
     b = _cross(nn, t)
+    bits = nn.view(np.uint32)
+    floor = ((bits[..., 0] == 0) & (nn[..., 1] == F32(1.0))
+             & (bits[..., 2] == 0))[..., None]
+    t = np.where(floor, F32([0.0, 0.0, 1.0]), t)
+    b = np.where(floor, F32([1.0, 0.0, 0.0]), b)
     return _norm((t * x[..., None] + b * z[..., None]) + nn * y[..., None])
 
 
