@@ -132,15 +132,31 @@ __device__ __forceinline__ float trace_t(const AnScene& s, V3 o, V3 d,
   return trace_closest(s, o, d, true, marker, s.eps).t;
 }
 
+// scene_analytic.sky's gradient, mix(top, bottom, 1 - t)
+__device__ __forceinline__ V3 gradient_sky(const AnScene& s, V3 d) {
+  const float t = fminf(fmaxf(0.5f * (d.y + 1.0f), 0.0f), 1.0f);
+  const V3 top = c3(s.prm->sky_top);
+  return add3(top, scale3(sub3(c3(s.prm->sky_bottom), top), 1.0f - t));
+}
+
 // scene_analytic.sky: the cubemap times its intensity when the scene has
-// one, else the gradient, mix(top, bottom, 1 - t)
+// one, else the gradient
 __device__ __forceinline__ V3 sky(const AnScene& s, V3 d) {
   if (s.env != nullptr)
     return scale3(sample_cubemap(s.env, s.env_f, d),
                   s.prm->env_map_intensity[0]);
-  const float t = fminf(fmaxf(0.5f * (d.y + 1.0f), 0.0f), 1.0f);
-  const V3 top = c3(s.prm->sky_top);
-  return add3(top, scale3(sub3(c3(s.prm->sky_bottom), top), 1.0f - t));
+  return gradient_sky(s, d);
+}
+
+// sky()'s cubemap read from its [6, F, F, 4] copy `texels`, the same
+// bits: the sky kernel's and the BVH hit mix's, which are built once with
+// a cubemap and once with the gradient (kCube), so that a gradient call
+// does not carry the taps' registers
+__device__ __forceinline__ V3 texel_sky(const AnScene& s,
+                                        const float4* __restrict__ texels,
+                                        V3 d) {
+  return scale3(sample_cubemap4(texels, s.env_f, d),
+                s.prm->env_map_intensity[0]);
 }
 
 // get_material's row of material id `id`.

@@ -24,9 +24,9 @@
 //     kernel (offsets seed*13 / seed*37 at the lane's sample) and its
 //     closest hit against the whole scene, with wi and cos_theta; the
 //     analytic counterpart of bvh_trace.cu's trace_bounce_kernel;
-//   * sky_kernel: scene_analytic.sky, the cubemap (cubemap.cuh) times its
-//     intensity or the gradient, at each of the frame's sky call sites
-//     (the BVH scene's too: its misses and its GI bounce's sky).
+//   * sky_kernel: scene_analytic.sky, the cubemap (cubemap.cuh, its
+//     [6, F, F, 4] copy) times its intensity or the gradient, at each of
+//     the frame's sky call sites (the BVH scene's too: its misses).
 //
 // A lane the mask marks off reads its mask byte and nothing else, and
 // writes nothing: its outputs are unspecified (ROADMAP C, "Inactive
@@ -92,6 +92,14 @@
 // loaded before their ballots, and the next round's rows read before
 // this round's work were each slower here (PERF.md §6).
 //
+// The sky is bytes too, 12 B in and 12 B out a live lane and its texels,
+// but its calls range from every lane live (the BVH scene's misses) to a
+// few thousand of 2 M (the mirror's GI bounce), so it walks the mask a
+// slice of 128 bytes at a time (an_lanes.cuh's live_lanes): one 4-byte
+// load a thread, the next slice's in flight while this one's lanes are
+// worked, a full unit of 32 lanes worked where it lies without the
+// queue; and a tap is one 16-byte load.
+//
 // The mirror's and glass's secondaries are traced by an_shade.cu's rays
 // kernels, with their setup.  Left for later: those traces fused with
 // K3's call at their hits.
@@ -155,6 +163,7 @@ struct SkyArgs {
   LaneIn d, active;
   int64_t n_lanes, n_px;
   float* out;             // [n_lanes, 3]
+  const float4* texels;   // the cubemap's [6, F, F, 4] copy; null: gradient
 };
 
 namespace {
@@ -333,11 +342,16 @@ an_bounce_kernel(const Units u, const AnScene s, const AnBounceArgs a) {
   });
 }
 
-// scene_analytic.sky on the live lanes.
-__global__ void __launch_bounds__(kLiveThreads)
+// scene_analytic.sky on the live lanes, over slices of the mask
+// (live_lanes): the cubemap's taps from its [6, F, F, 4] copy (kCube),
+// else the gradient, whose full units are worked in pairs.
+template <bool kCube>
+__global__ void __launch_bounds__(kLiveThreads, kSliceBlocks)
 sky_kernel(const Units u, const AnScene s, const SkyArgs a) {
-  live_rounds(u, a.active, a.n_lanes, a.n_px, [&](int64_t i) {
-    put3(a.out, i, sky(s, in3(a.d, i, a.n_px)));
+  live_lanes<!kCube>(u, a.active, a.n_lanes, a.n_px, [&](int64_t i,
+                                                         int64_t q) {
+    const V3 d = at3(a.d, i, q);
+    put3(a.out, i, kCube ? texel_sky(s, a.texels, d) : gradient_sky(s, d));
   });
 }
 
@@ -347,7 +361,7 @@ sky_kernel(const Units u, const AnScene s, const SkyArgs a) {
 // (their own pointers are device pointers; a null mask: every lane live);
 // the stream is a cudaStream_t.  Each returns a cudaError_t as an int: of
 // the set-up calls, else cudaGetLastError().  Persistent blocks over
-// units of 32 lanes (persistent.cuh).
+// units of 32 lanes (persistent.cuh); the sky's over the mask's slices.
 extern "C" int ort_an_trace(const AnScene* scene, const AnTraceArgs* args,
                             void* stream) {
   return launch_persistent(an_trace_kernel, kLiveThreads,
@@ -371,9 +385,13 @@ extern "C" int ort_an_bounce(const AnScene* scene, const AnBounceArgs* args,
 
 extern "C" int ort_sky(const AnScene* scene, const SkyArgs* args,
                        void* stream) {
-  return launch_persistent(sky_kernel, kLiveThreads,
-                           make_units(args->n_lanes, 32),
-                           (cudaStream_t)stream, *scene, *args);
+  if (args->n_lanes > kMaxSliceLanes) return (int)cudaErrorInvalidValue;
+  const Units u = slice_units(args->active, args->n_lanes, args->n_px);
+  return args->texels != nullptr
+             ? launch_persistent(sky_kernel<true>, kLiveThreads, u,
+                                 (cudaStream_t)stream, *scene, *args)
+             : launch_persistent(sky_kernel<false>, kLiveThreads, u,
+                                 (cudaStream_t)stream, *scene, *args);
 }
 
 // The structs' sizes, so the host can check its mirrors of the layouts:

@@ -1,12 +1,17 @@
 // Cubemap environment lookup per lane: ops/cubemap.py's
-// direction_to_face_uv and sample_cubemap for one direction.  Included by
-// an_direct.cu, whose analytic direct-light kernel samples the
-// environment of the reflected view on its mirror and glass lanes.
+// direction_to_face_uv and sample_cubemap for one direction.  Included
+// (through an_scene.cuh) by an_direct.cu, whose analytic direct-light
+// kernel samples the environment of the reflected view on its mirror and
+// glass lanes, an_shade.cu, an_trace.cu's sky kernel and hit_mix.cu.
 //
 // The table is the float32 [6, F, F, 3] tensor of
-// convert.env_from_numpy, read through a plain pointer: a few percent of
-// a frame's lanes sample it, the four taps of a lane are neighbours, and
-// a 64x64-face table (295 KB) stays in L2, so no texture object is used.
+// convert.env_from_numpy, read through a plain pointer: the four taps of
+// a lane are neighbours, and a 64x64-face table (295 KB) stays in L2, so
+// no texture object is used.  The sky kernel and the BVH hit mix, whose
+// lanes look up scattered directions by the hundred thousand, read its
+// [6, F, F, 4] copy instead (ops/an_cuda.py:env_texels, made once per
+// table): each tap one aligned 16-byte load, where a 12-byte texel takes
+// three loads and may straddle two 32-byte sectors.
 //
 // The arithmetic is the plain PyTorch version's expression for
 // expression: the major axis by >= in the order x, y, z (a direction on
@@ -70,19 +75,48 @@ __device__ __forceinline__ Taps bilinear_taps(float u, int f) {
   return {i0, min(i0 + 1, f - 1), fminf(fmaxf(xs - x0, 0.0f), 1.0f)};
 }
 
-// cubemap.sample_cubemap: env [6, f, f, 3] float32, one direction.
-__device__ __forceinline__ V3 sample_cubemap(const float* __restrict__ env,
-                                             int f, V3 d) {
+// The four taps of a direction's bilinear fetch: their texel indices
+// (face, row, column flattened) and the two fractions.
+struct CubeTaps {
+  int k00, k01, k10, k11;
+  float fx, fy;
+};
+
+__device__ __forceinline__ CubeTaps cube_taps(int f, V3 d) {
   const FaceUV uv = direction_to_face_uv(d);
   const Taps x = bilinear_taps(uv.s, f);
   const Taps y = bilinear_taps(uv.t, f);
   const int row0 = (uv.face * f + y.i0) * f;
   const int row1 = (uv.face * f + y.i1) * f;
-  const V3 c00 = ldg3(env + 3 * (row0 + x.i0));
-  const V3 c01 = ldg3(env + 3 * (row0 + x.i1));
-  const V3 c10 = ldg3(env + 3 * (row1 + x.i0));
-  const V3 c11 = ldg3(env + 3 * (row1 + x.i1));
-  const V3 top = add3(c00, scale3(sub3(c01, c00), x.frac));
-  const V3 bot = add3(c10, scale3(sub3(c11, c10), x.frac));
-  return add3(top, scale3(sub3(bot, top), y.frac));
+  return {row0 + x.i0, row0 + x.i1, row1 + x.i0, row1 + x.i1, x.frac,
+          y.frac};
+}
+
+// the blend top + (bot - top) * fy of the rows' lerps
+__device__ __forceinline__ V3 cube_blend(const CubeTaps& k, V3 c00, V3 c01,
+                                         V3 c10, V3 c11) {
+  const V3 top = add3(c00, scale3(sub3(c01, c00), k.fx));
+  const V3 bot = add3(c10, scale3(sub3(c11, c10), k.fx));
+  return add3(top, scale3(sub3(bot, top), k.fy));
+}
+
+// cubemap.sample_cubemap: env [6, f, f, 3] float32, one direction.
+__device__ __forceinline__ V3 sample_cubemap(const float* __restrict__ env,
+                                             int f, V3 d) {
+  const CubeTaps k = cube_taps(f, d);
+  return cube_blend(k, ldg3(env + 3 * k.k00), ldg3(env + 3 * k.k01),
+                    ldg3(env + 3 * k.k10), ldg3(env + 3 * k.k11));
+}
+
+__device__ __forceinline__ V3 texel4(const float4* __restrict__ env, int k) {
+  const float4 c = __ldg(env + k);
+  return {c.x, c.y, c.z};
+}
+
+// sample_cubemap on the table's [6, f, f, 4] copy: the same bits.
+__device__ __forceinline__ V3 sample_cubemap4(const float4* __restrict__ env,
+                                              int f, V3 d) {
+  const CubeTaps k = cube_taps(f, d);
+  return cube_blend(k, texel4(env, k.k00), texel4(env, k.k01),
+                    texel4(env, k.k10), texel4(env, k.k11));
 }

@@ -14,10 +14,11 @@
 //
 //   * bvh_hit_mix_kernel: the rest of _shade_bvh (lighting.bvh_hit_mix_
 //     plain): with GI, the bounce's light where it hit, else the sky of
-//     its direction looked up here (an_scene.cuh's sky, the body of
-//     sky_kernel), BVH_ALBEDO * (cos * inv_pi) * li, the firefly clamp
-//     of its luminance, the grazing-angle cut, times gi_scale_bvh added
-//     to the direct light; with AO, the product with it;
+//     its direction looked up here (an_scene.cuh's texel_sky or
+//     gradient_sky, as sky_kernel), BVH_ALBEDO * (cos * inv_pi) * li,
+//     the firefly clamp of its luminance, the grazing-angle cut, times
+//     gi_scale_bvh added to the direct light; with AO, the product with
+//     it;
 //   * an_hit_mix_kernel: the rest of _shade_analytic before the mirror
 //     and glass mixes (lighting.an_hit_mix_plain): on a diffuse lane,
 //     GI's tail (gi_tail_analytic, one body with an_mirror_mix_kernel's)
@@ -54,10 +55,15 @@
 // 2,073,600, times 4 samples on `heavy`), on an_full ~65%.  A lane reads
 // ~40-60 B and writes 12, and the mask is a byte a pixel, so every call
 // is bound by its bytes; the sparse BVH calls by the mask's 2 MB and the
-// walk over its units.  The design is an_trace.cu's: persistent blocks,
-// a warp's live lanes queued 32 a round (live_rounds), so a sparse mask's
-// lanes fill whole rounds and a dead unit costs its warp 32 mask bytes
-// and a __ballot_sync.
+// walk over it.  The design is an_trace.cu's: persistent blocks, a
+// warp's live lanes queued 32 a round, so a sparse mask's lanes fill
+// whole rounds.  The BVH kernel walks the mask a slice of 128 bytes at a
+// time (live_lanes: one 4-byte load a thread, the next slice's in
+// flight, a slice with no live lane a load and a ballot), and under a
+// sample axis a byte a pixel with the samples' lanes run inside, so
+// `heavy`'s mask is read once, not once a sample; its GI sky's taps come
+// from the cubemap's [6, F, F, 4] copy.  The analytic kernel, whose mask
+// is ~65% live, keeps live_rounds' units of 32.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,6 +96,7 @@ struct BvhHitMixArgs {
   const float* gi_cos;  // its cos_theta [n_lanes]
   const float* gi_lit;  // the direct light at its hit [n_lanes, 3]
   float* out;           // the frame's radiance [n_lanes, 3], in place
+  const float4* texels;  // the cubemap's [6, F, F, 4] copy; null: gradient
 };
 
 // The analytic scene's call (ops/hit_mix_cuda.py:an_hit_mix).
@@ -112,18 +119,27 @@ __device__ __forceinline__ V3 out_row(const float* out, int64_t i) {
   return load3(out + 3 * i);
 }
 
-// _shade_bvh after its direct light on the live lanes, into the radiance.
-__global__ void __launch_bounds__(kLiveThreads)
+// _shade_bvh after its direct light on the live lanes, into the radiance;
+// GI's sky from the cubemap's [6, F, F, 4] copy (kCube), else the
+// gradient.
+template <bool kCube>
+__global__ void __launch_bounds__(kLiveThreads, kSliceBlocks)
 bvh_hit_mix_kernel(const Units u, const AnScene s, const BvhHitMixArgs a) {
-  live_rounds(u, a.active, a.n_lanes, a.n_px, [&](int64_t i) {
+  live_lanes<false>(u, a.active, a.n_lanes, a.n_px, [&](int64_t i,
+                                                        int64_t q) {
     V3 r = out_row(a.out, i);
     if (a.gi) {
       // gi_tail_bvh: the cut's select, the clamp's scale of 1 elsewhere
       V3 g = {0.0f, 0.0f, 0.0f};
       const float cs = __ldg(a.gi_cos + i);
       if (cs > a.c.min_cos) {
-        const V3 li = __ldg(a.gi_t + i) < kInf ? row3(a.gi_lit, i)
-                                                : sky(s, row3(a.gi_wi, i));
+        V3 li;
+        if (__ldg(a.gi_t + i) < kInf) {
+          li = row3(a.gi_lit, i);
+        } else {
+          const V3 wi = row3(a.gi_wi, i);
+          li = kCube ? texel_sky(s, a.texels, wi) : gradient_sky(s, wi);
+        }
         g = mul3(scale3(c3(s.bvh_albedo), cs * a.c.inv_pi), li);
         const float lum = dot3(g, c3(a.c.ycoeff));
         if (lum > a.c.max_lum)
@@ -131,7 +147,7 @@ bvh_hit_mix_kernel(const Units u, const AnScene s, const BvhHitMixArgs a) {
       }
       r = add3(r, scale3(g, __ldg(s.prm->gi_scale_bvh)));
     }
-    if (a.ao.p != nullptr) r = scale3(r, in_f32(a.ao, i, a.n_px));
+    if (a.ao.p != nullptr) r = scale3(r, at_f32(a.ao, i, q));
     put3(a.out, i, r);
   });
 }
@@ -169,13 +185,17 @@ an_hit_mix_kernel(const Units u, const AnScene s, const AnHitMixArgs a) {
 // Plain C entry points for ctypes.  `scene` and `args` are host pointers
 // (their own pointers are device pointers; a null mask: every lane live);
 // the stream is a cudaStream_t.  Each returns a cudaError_t as an int: of
-// the set-up calls, else cudaGetLastError().  Persistent blocks over
-// units of 32 lanes (persistent.cuh).
+// the set-up calls, else cudaGetLastError().  Persistent blocks over the
+// mask's slices (BVH) or units of 32 lanes (analytic; persistent.cuh).
 extern "C" int ort_bvh_hit_mix(const AnScene* scene,
                                const BvhHitMixArgs* args, void* stream) {
-  return launch_persistent(bvh_hit_mix_kernel, kLiveThreads,
-                           make_units(args->n_lanes, 32),
-                           (cudaStream_t)stream, *scene, *args);
+  if (args->n_lanes > kMaxSliceLanes) return (int)cudaErrorInvalidValue;
+  const Units u = slice_units(args->active, args->n_lanes, args->n_px);
+  return args->texels != nullptr
+             ? launch_persistent(bvh_hit_mix_kernel<true>, kLiveThreads, u,
+                                 (cudaStream_t)stream, *scene, *args)
+             : launch_persistent(bvh_hit_mix_kernel<false>, kLiveThreads, u,
+                                 (cudaStream_t)stream, *scene, *args);
 }
 
 extern "C" int ort_an_hit_mix(const AnScene* scene, const AnHitMixArgs* args,

@@ -58,6 +58,7 @@ from ..sampling import Frame, samples_of
 from . import bvh_cuda, cuda_lib
 from . import lighting as lt
 from .cuda_lib import check
+from .cubemap import texel4_table
 from .materials import MTYPE_DIFFUSE, MTYPE_GLASS, MTYPE_MIRROR
 
 _F3 = ctypes.c_float * 3
@@ -148,6 +149,15 @@ def env_table(params, env, device):
     check("env_map", env, torch.float32, (6, env.shape[1], env.shape[1], 3),
           device)
     return env
+
+
+def env_texels(params, env, device):
+    """The cubemap table `env` as the sky kernel and the BVH hit mix read
+    it where `params` enable it, else None: env_table's [6, F, F, 3] table
+    as its [6, F, F, 4] copy (cubemap.texel4_table: made once per table,
+    kept while the table lives)."""
+    table = env_table(params, env, device)
+    return None if table is None else texel4_table(table)
 
 
 def scene_args(scene, rng_frame: Frame, frame_index: Frame, env=None,

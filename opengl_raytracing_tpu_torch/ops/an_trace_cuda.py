@@ -101,7 +101,7 @@ class _BounceArgs(ctypes.Structure):
 class _SkyArgs(ctypes.Structure):
     """Host mirror of `SkyArgs` in csrc/an_trace.cu."""
     _fields_ = [("d", _LaneIn), ("active", _LaneIn), ("n_lanes", _I64),
-                ("n_px", _I64), ("out", _P)]
+                ("n_px", _I64), ("out", _P), ("texels", _P)]
 
 
 _SCENE = ctypes.POINTER(an_cuda._AnScene)
@@ -332,9 +332,11 @@ def sky(d, params, env_map=None, active=None):
     rows, keep_d = lane_input(d, shape, 3, torch.float32, device, "d")
     act, keep_a = _mask(active, shape, device)
     out = _empty((shape.numel(), 3), torch.float32, device)
-    args = _SkyArgs(rows, act, shape.numel(), n_px_of(shape),
-                    out.data_ptr())
     env = an_cuda.env_table(p, env_map, device)
+    texels = an_cuda.env_texels(p, env_map, device)
+    args = _SkyArgs(rows, act, shape.numel(), n_px_of(shape),
+                    out.data_ptr(),
+                    None if texels is None else texels.data_ptr())
     cuda_lib.launch(_library().ort_sky, "sky", device,
                     ctypes.byref(an_cuda.scene_struct(p, env, device)),
                     ctypes.byref(args))

@@ -10,8 +10,9 @@ reference: src/render/cubemap.cpp:86-91).
 
 One form only: four row gathers of the flat `[6*F*F, 3]` table and the
 blend `top + (bot - top) * fy`, the taps and the order every gather
-lowering of the JAX package bit-matches.  The analytic direct-light kernel
-repeats this arithmetic per lane (csrc/cubemap.cuh).
+lowering of the JAX package bit-matches.  The kernels repeat this
+arithmetic per lane (csrc/cubemap.cuh); the sky kernel and the BVH hit
+mix read the table's [6, F, F, 4] copy (`texel4_table`).
 
 Divisions here are tensor by tensor: PyTorch's CUDA `x / scalar` multiplies
 by the reciprocal, which may round an ulp away from the true quotient the
@@ -19,6 +20,8 @@ CPU, the JAX package and the kernel compute.
 """
 
 from __future__ import annotations
+
+import weakref
 
 import torch
 
@@ -58,6 +61,28 @@ def texel_table(env):
         return env.to(torch.float32) / torch.full((), 255.0,
                                                   device=env.device)
     return env
+
+
+# id(table) -> {the table's version: its [6, F, F, 4] copy}
+_TEXEL4 = {}
+
+
+def texel4_table(env):
+    """The float32 table `env` [6, F, F, 3] as [6, F, F, 4], the rgb its
+    bits and the fourth channel 0: the sky kernel's and the BVH hit mix's
+    taps, an aligned 16-byte load each.  Made at the first call for the
+    table as it stands (its identity and version) and kept while `env`
+    lives, so a frame never copies it and a captured frame reads the copy
+    its warm-up made (the graph key names the table by identity)."""
+    versions = _TEXEL4.get(id(env))
+    if versions is None:
+        versions = _TEXEL4[id(env)] = {}
+        weakref.finalize(env, _TEXEL4.pop, id(env), None)
+    version = 0 if env.is_inference() else env._version
+    got = versions.get(version)
+    if got is None:
+        got = versions[version] = torch.nn.functional.pad(env, (0, 1))
+    return got
 
 
 def sample_cubemap(env, d):

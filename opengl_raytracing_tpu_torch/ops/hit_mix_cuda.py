@@ -66,7 +66,7 @@ class _BvhHitMixArgs(ctypes.Structure):
     _fields_ = [("active", _LaneIn), ("ao", _LaneIn), ("c", _HitMixConsts),
                 ("n_lanes", _I64), ("n_px", _I64), ("gi", _I32),
                 ("gi_t", _P), ("gi_wi", _P), ("gi_cos", _P), ("gi_lit", _P),
-                ("out", _P)]
+                ("out", _P), ("texels", _P)]
 
 
 class _AnHitMixArgs(ctypes.Structure):
@@ -152,6 +152,9 @@ def bvh_hit_mix(scene, radiance, gi: lt.GiLightBvh = None, ao=None,
                              "gi.cos_theta")
         args.gi_lit = _lanes(gi.lit, n, 3, torch.float32, device, "gi.lit")
     env = an_cuda.env_table(params, scene.env_map, device)
+    texels = an_cuda.env_texels(params, scene.env_map, device)
+    if texels is not None:
+        args.texels = texels.data_ptr()
     cuda_lib.launch(_library().ort_bvh_hit_mix, "bvh_hit_mix", device,
                     ctypes.byref(an_cuda.scene_struct(params, env, device)),
                     ctypes.byref(args))

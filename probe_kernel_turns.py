@@ -46,7 +46,8 @@ rays and mixes, both hit mixes: chip_smoke's GATE_KERNELS, SHADE_KERNELS
 and HIT_MIX_KERNELS) alone on GATE_FRAMES' frames (a 1080p an_full with
 the day-sky cubemap, an 800x600 an_baseline, a 1080p `baseline`, and a
 1080p `full` and `heavy` chain's third frame), each as the frame calls
-it, and saves the AO and bounce calls' outputs on their live lanes;
+it, and saves the AO, bounce and sky calls' outputs on their live lanes
+and the BVH hit mix's whole radiance (its dead lanes as they came);
 after the runs those are compared bit for bit, one JSON line with each
 call's live lanes and each gate call's bound (chip_smoke.gate_bound).
 """
@@ -249,12 +250,24 @@ def gate_caller(cs, key, a):
     return lambda: fn(**args, radiance=radiance, active=a.get("active"))
 
 
+def hit_mix_radiance(a):
+    """The BVH hit mix's radiance on the recorded arguments `a`, written
+    into a copy of the frame's: its live lanes mixed, the others as they
+    came."""
+    from opengl_raytracing_tpu_torch.ops import hit_mix_cuda
+    out = a["radiance"].clone()
+    hit_mix_cuda.bvh_hit_mix(**{k: v for k, v in a.items()
+                                if k not in ("active", "radiance")},
+                             radiance=out, active=a.get("active"))
+    return out
+
+
 def child_gates(saved: str) -> None:
     """In a checkout's directory: the live-lane kernels' alone-times on
-    every call of GATE_FRAMES' frames, one JSON line; the AO and bounce
-    calls' outputs on their live lanes, their live lanes, and each call
-    of the four gate kernels' live lanes and bound (chip_smoke.gate_bound)
-    saved to `saved`."""
+    every call of GATE_FRAMES' frames, one JSON line; the AO, bounce and
+    sky calls' outputs on their live lanes and the BVH hit mix's whole
+    radiance, their live lanes, and each call of the four gate kernels'
+    live lanes and bound (chip_smoke.gate_bound) saved to `saved`."""
     sys.path.insert(0, os.getcwd())
     import torch
     import chip_smoke as cs
@@ -279,11 +292,15 @@ def child_gates(saved: str) -> None:
                                        a.get("active"))
                     info[name] = {f: v for f, v in cs.gate_bound(
                         key, a, live).items() if f in BOUND_FIELDS}
-                if key in ("an_ao", "an_bounce"):
+                if key in ("an_ao", "an_bounce", "sky"):
                     out = cs.gate_call(key, a, a.get("active"))
                     outputs[name] = {f: v[live].cpu()
                                      for f, v in out.items()}
                     outputs[name + "/live"] = int(live.sum())
+                if key == "bvh_hit_mix":
+                    outputs[name] = {"radiance": hit_mix_radiance(a).cpu()}
+                    outputs[name + "/live"] = int(cs._live_of(
+                        a["radiance"].shape[:-1], a.get("active")).sum())
         del calls
     outputs["info"] = info
     torch.save(outputs, saved)
@@ -291,9 +308,10 @@ def child_gates(saved: str) -> None:
 
 
 def compare_gates(other: str, this: str) -> dict:
-    """The two sides' saved AO and bounce outputs (files `other`,
-    `this`): for each call, whether every output is equal bit for bit on
-    its live lanes, and its live lanes."""
+    """The two sides' saved AO, bounce, sky and BVH hit-mix outputs
+    (files `other`, `this`): for each call, whether every output is equal
+    bit for bit (on its live lanes; the hit mix's radiance whole), and
+    its live lanes."""
     import torch
     a = torch.load(other)
     b = torch.load(this)

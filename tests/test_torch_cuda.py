@@ -2137,19 +2137,42 @@ def test_an_gate_kernels_match_plain(size, spp, env, monkeypatch):
         _check_gate_masks(k, name, a, active, g)
 
 
+def _mask_cases(shape, active, g):
+    """The masks a live-lane call is held to its plain version with: the
+    frame's own `active`, none, a partial one (30% of the lanes, from
+    `g`), an empty one; every lane, the last lane alone, ~1% and ~65% of
+    the lanes, one drawn a pixel (30%) and broadcast over a leading sample
+    axis, one byte for every lane (a scalar broadcast), and 30% of the
+    lanes at an address one byte past an aligned one (the kernels' wide
+    mask loads fall back to bytes)."""
+    def drawn(p, over=shape):
+        return torch.rand(over, generator=g, device="cuda") < p
+    last = torch.zeros(shape, dtype=torch.bool, device="cuda")
+    last.view(-1)[-1] = True
+    buf = torch.zeros(last.numel() + 1, dtype=torch.bool, device="cuda")
+    buf[1:] = drawn(0.3).reshape(-1)
+    return {"frame": active, "none": None, "partial": drawn(0.3),
+            "empty": torch.zeros(shape, dtype=torch.bool, device="cuda"),
+            "full": torch.ones(shape, dtype=torch.bool, device="cuda"),
+            "last": last, "sparse": drawn(0.01), "dense": drawn(0.65),
+            "pixel": drawn(0.3, shape[1:] if len(shape) > 2
+                           else shape).expand(shape),
+            "one": torch.ones((), dtype=torch.bool,
+                              device="cuda").expand(shape),
+            "unaligned": buf[1:].view(shape)}
+
+
 def _check_gate_masks(k, name, a, active, g):
     """Call `k` of gate wrapper `name` (arguments `a`, the frame's mask
-    `active`) with the frame's own mask, none, a partial one (from `g`)
-    and an empty one: one launch, every output equal to the dense plain
-    version's bit for bit on the lanes live in the mask and the frame's
-    own (the frame's dead lanes hold unspecified inputs), and no dead
-    lane written (the outputs filled by _gate_sentinel)."""
+    `active`) with each of _mask_cases (from `g`): one launch, every
+    output equal to the dense plain version's bit for bit on the lanes
+    live in the mask and the frame's own (the frame's dead lanes hold
+    unspecified inputs), and no dead lane written (the outputs filled by
+    _gate_sentinel)."""
     from opengl_raytracing_tpu_torch.ops import an_trace_cuda
     shape = _gate_shape(name, a)
     want = _gate_plain(name, a, active)
-    masks = {"frame": active, "none": None,
-             "partial": torch.rand(shape, generator=g, device="cuda") < 0.3,
-             "empty": torch.zeros(shape, dtype=torch.bool, device="cuda")}
+    masks = _mask_cases(shape, active, g)
     for how, mask in masks.items():
         before = dict(cuda_lib.LAUNCHES)
         got = _gate_out(name, getattr(an_trace_cuda, name)(**a,
@@ -2521,16 +2544,38 @@ def _hit_mix_unread(a, live):
     return out
 
 
+def _hit_mix_poisoned(a, live):
+    """The arguments `a` of a hit-mix call with GI's per-lane rows (t,
+    cosine, light, direction or sky) NaN on the lanes `live` marks dead:
+    a kernel that read another lane's row would show it."""
+    gi = a["gi"]
+    if gi is None:
+        return a
+
+    def nan(x):
+        shape = live.shape
+        x = x.expand(shape + x.shape[len(shape):])
+        keep = live[..., None] if x.dim() > len(shape) else live
+        return torch.where(keep, x, torch.full((), float("nan"),
+                                               device=x.device))
+    hit = gi.hit._replace(t=nan(gi.hit.t))
+    return dict(a, gi=gi._replace(hit=hit, cos_theta=nan(gi.cos_theta),
+                                  lit=nan(gi.lit),
+                                  **({"wi": nan(gi.wi)} if hasattr(gi, "wi")
+                                     else {"sky": nan(gi.sky)})))
+
+
 @pytest.mark.parametrize("case", list(HIT_MIX_CASES))
 @pytest.mark.parametrize("size", SIZES)
 def test_hit_mix_kernels_match_plain(bvh, size, case):
-    """Every call a frame makes to its hit-mix kernel, with the frame's own
-    mask, none, a partial one and an empty one: one launch, the radiance
-    bit for bit the dense plain version's (lighting.bvh_hit_mix_plain,
-    an_hit_mix_plain) on the lanes live in the mask and the frame's own
-    that the kernel writes (the analytic one: the diffuse and the marker
-    lanes), every other lane of `out` untouched; and the frame's
-    launches: the BVH frame's sky once, one hit-mix launch."""
+    """Every call a frame makes to its hit-mix kernel, with each of
+    _mask_cases and GI's rows poisoned on the mask's dead lanes
+    (_hit_mix_poisoned): one launch, the radiance bit for bit the dense
+    plain version's (lighting.bvh_hit_mix_plain, an_hit_mix_plain) on the
+    lanes live in the mask and the frame's own that the kernel writes
+    (the analytic one: the diffuse and the marker lanes), every other
+    lane of `out` untouched; and the frame's launches: the BVH frame's
+    sky once, one hit-mix launch."""
     from opengl_raytracing_tpu_torch.convert import env_from_numpy
     from opengl_raytracing_tpu_torch.ops import hit_mix_cuda
     preset_name, spp, on_bvh = HIT_MIX_CASES[case]
@@ -2562,9 +2607,7 @@ def test_hit_mix_kernels_match_plain(bvh, size, case):
                                  ).expand(shape)
         assert bool(writes[frame].any()) and not bool(writes[frame].all())
     g = torch.Generator(device="cuda").manual_seed(spp)
-    masks = {"frame": a["active"], "none": None,
-             "partial": torch.rand(shape, generator=g, device="cuda") < 0.3,
-             "empty": torch.zeros(shape, dtype=torch.bool, device="cuda")}
+    masks = _mask_cases(shape, a["active"], g)
     for how, mask in masks.items():
         live = (torch.ones(shape, dtype=torch.bool, device="cuda")
                 if mask is None else mask.expand(shape))
@@ -2572,8 +2615,9 @@ def test_hit_mix_kernels_match_plain(bvh, size, case):
         out = torch.where(written[..., None], args["radiance"],
                           torch.full_like(args["radiance"], SENTINEL))
         before = dict(cuda_lib.LAUNCHES)
-        got = getattr(hit_mix_cuda, name)(**dict(args, radiance=out),
-                                          active=mask)
+        got = getattr(hit_mix_cuda, name)(
+            **dict(_hit_mix_poisoned(args, live), radiance=out),
+            active=mask)
         assert got is out
         assert _grew(before) == {**{c: 0 for c in before}, name: 1}
         torch.cuda.synchronize()
