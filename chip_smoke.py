@@ -791,8 +791,12 @@ def device_rows(fn, reps, what, usable=bool):
     device activity at all, now and then several in a row for one call (a
     PyTorch kernel launched inside the window is missing from them too): a
     profile whose rows are not `usable` is reported on stderr and taken
-    again, up to PROFILE_ATTEMPTS times.  Returns the rows of every profile
-    taken."""
+    again, up to PROFILE_ATTEMPTS times.  A usable profile right after one
+    that was not is taken again too (one such, after two empty profiles,
+    gave a sky call half the time it takes in every other profile, below
+    its bound: the empty profiles' launches may land in it), so the rows
+    kept are the first profile's or a usable one's that follows a usable
+    one.  Returns the rows of every profile taken."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -807,11 +811,15 @@ def device_rows(fn, reps, what, usable=bool):
             torch.cuda.synchronize()
         taken.append([ev for ev in prof.key_averages()
                       if ev.device_type == DeviceType.CUDA])
-        if usable(taken[-1]):
+        if not usable(taken[-1]):
+            print(f"profile {attempt + 1} of {what} has no row for it; "
+                  f"device rows: {[ev.key[:60] for ev in taken[-1]]}",
+                  file=sys.stderr, flush=True)
+        elif attempt == 0 or usable(taken[-2]):
             break
-        print(f"profile {attempt + 1} of {what} has no row for it; device "
-              f"rows: {[ev.key[:60] for ev in taken[-1]]}", file=sys.stderr,
-              flush=True)
+        else:
+            print(f"profile {attempt + 1} of {what} follows one without its "
+                  f"row: taken again", file=sys.stderr, flush=True)
     return taken
 
 

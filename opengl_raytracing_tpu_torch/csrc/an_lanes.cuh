@@ -1,11 +1,13 @@
 // The live-lane kernels' shared pieces: how a call's inputs are read in
-// place (LaneIn), the persistent loops that queue a warp's live lanes and
-// work them 32 a round (live_rounds, a unit of 32 mask bytes at a time;
-// live_lanes, a slice of 128 at a time), and a trace's hit written as
-// trace_analytic_core returns it (hit_out).  Included by an_trace.cu (the
-// analytic scene's trace, AO, GI bounce and sky kernels), an_shade.cu
-// (glass's and the mirror's rays and mixes) and hit_mix.cu (both scenes'
-// shading tails).  Build with --fmad=false and without --use_fast_math.
+// place (LaneIn), the persistent loops over a mask's live lanes
+// (live_rounds, a unit of 32 mask bytes at a time, its live lanes queued
+// and worked 32 a round; live_lanes, a slice of 128 or more at a time,
+// each unit worked where it lies), and a trace's hit written as
+// trace_analytic_core returns it (hit_out).  Included by
+// an_trace.cu (the analytic scene's trace, AO, GI bounce and sky
+// kernels), an_shade.cu (glass's and the mirror's rays and mixes) and
+// hit_mix.cu (both scenes' shading tails).  Build with --fmad=false and
+// without --use_fast_math.
 
 #pragma once
 
@@ -70,6 +72,10 @@ __device__ __forceinline__ float at_f32(const LaneIn& x, int64_t i,
   return __ldg((const float*)x.p + row_of(x.mode, i, q));
 }
 
+__device__ __forceinline__ int at_i32(const LaneIn& x, int64_t i, int64_t q) {
+  return __ldg((const int32_t*)x.p + row_of(x.mode, i, q));
+}
+
 __device__ __forceinline__ void put3(float* __restrict__ out, int64_t i,
                                      V3 c) {
   out[3 * i] = c.x;
@@ -113,45 +119,51 @@ __device__ __forceinline__ void live_rounds(const Units& u,
   }
 }
 
-// live_lanes' slices: a warp reads kSliceLanes mask bytes at once,
-// kSliceBytes a thread in one aligned load, so one round trip to memory
-// serves 128 lanes where live_rounds' serves 32, and the next slice's
-// load is in flight while this one's lanes are worked.  A slice is
-// kSliceBytes units of 32 consecutive bytes, 32 / kSliceBytes threads a
-// unit, spread over the mask as live_rounds spreads its units over the
-// warps: unit g of slice j is the mask's unit j + g * (slices), so a
-// region of live lanes is worked by many warps, not by the one that
-// owns its bytes.  A unit whose lanes are all live is worked where it
-// lies, a lane each; a sparser unit's live lanes join the warp's queue,
-// which is worked 32 a round as in live_rounds.  Its kernels are held
-// to kSliceBlocks blocks an SM (40 registers).  Slices of 16 or 8 bytes
-// a thread (one slice a warp at 1080p) were faster on the sparse calls
-// and slower on the dense ones, on which the warps in flight decide
-// (probe_live_scan.py; PERF.md section 6).
+// live_lanes' slices: a warp reads 32 * kBytes mask bytes at once, kBytes
+// a thread in one aligned load (kSliceBytes = 4 unless a kernel asks for
+// 8 or 16), so one round trip to memory serves 128 lanes where
+// live_rounds' serves 32, and the next slice's load is in flight while
+// this one's lanes are worked.  A slice is kBytes units of 32
+// consecutive bytes, 32 / kBytes threads a unit, spread over the mask as
+// live_rounds spreads its units over the warps: unit g of slice j is the
+// mask's unit j + g * (slices), so a region of live lanes is worked by
+// many warps, not by the one that owns its bytes.  Every unit with a
+// live lane is worked where it lies, a lane each: the frames' masks are
+// compact (the misses, the hits, a sphere's disk), and a queue of a
+// sparse unit's lanes, worked 32 a round as in live_rounds, was slower or
+// no faster on every call timed (PERF.md section 6).  The sky and the
+// BVH hit mix are held to kSliceBlocks blocks an SM (40 registers) and
+// read 4 bytes a thread; slices of 16 or 8 bytes a thread (one slice a
+// warp at 1080p) were faster on their sparse calls and slower on the
+// dense ones, on which the warps in flight decide (probe_live_scan.py).
+// Glass's and the mirror's rays kernels, whose work is longer, take
+// blocks and widths of their own (an_shade.cu).
 constexpr int kSliceBytes = 4;
-constexpr int kSliceLanes = 32 * kSliceBytes;
 constexpr int kSliceBlocks = 12;
 // live_lanes indexes lanes and mask bytes in 32 bits (a byte offset it
-// loads is below n + 2 kSliceLanes): a call of more lanes is refused
-constexpr int64_t kMaxSliceLanes = INT32_MAX - 2 * kSliceLanes;
+// loads is below n + 2 slices, each at most 512 bytes: 16 a thread): a
+// call of more lanes is refused
+constexpr int64_t kMaxSliceLanes = INT32_MAX - 2 * 32 * 16;
 
-// A thread's kSliceBytes mask bytes from `first` on, as words (bytes at
-// or past n read 0; a null mask reads 1 for every byte below n).
+// A thread's kBytes mask bytes from `first` on, as words (bytes at or
+// past n read 0; a null mask reads 1 for every byte below n).
+template <int kBytes>
 struct SliceWords {
-  uint32_t w[kSliceBytes / 4];
+  uint32_t w[kBytes / 4];
 };
 
-__device__ __forceinline__ SliceWords slice_words(
+template <int kBytes>
+__device__ __forceinline__ SliceWords<kBytes> slice_words(
     const uint8_t* __restrict__ act, bool aligned, int first, int n) {
-  SliceWords m;
-  if (first <= n - kSliceBytes && (act == nullptr || aligned)) {
+  SliceWords<kBytes> m;
+  if (first <= n - kBytes && (act == nullptr || aligned)) {
     if (act == nullptr) {
 #pragma unroll
-      for (int k = 0; k < kSliceBytes / 4; ++k) m.w[k] = 0x01010101u;
-    } else if constexpr (kSliceBytes == 16) {
+      for (int k = 0; k < kBytes / 4; ++k) m.w[k] = 0x01010101u;
+    } else if constexpr (kBytes == 16) {
       const uint4 v = __ldg((const uint4*)(act + first));
       m.w[0] = v.x, m.w[1] = v.y, m.w[2] = v.z, m.w[3] = v.w;
-    } else if constexpr (kSliceBytes == 8) {
+    } else if constexpr (kBytes == 8) {
       const uint2 v = __ldg((const uint2*)(act + first));
       m.w[0] = v.x, m.w[1] = v.y;
     } else {
@@ -159,12 +171,12 @@ __device__ __forceinline__ SliceWords slice_words(
     }
     return m;
   }
-  // the mask's tail, or a mask not aligned to kSliceBytes: a byte at a
-  // time (unrolled, so the words stay in registers)
+  // the mask's tail, or a mask not aligned to kBytes: a byte at a time
+  // (unrolled, so the words stay in registers)
 #pragma unroll
-  for (int k = 0; k < kSliceBytes / 4; ++k) m.w[k] = 0u;
+  for (int k = 0; k < kBytes / 4; ++k) m.w[k] = 0u;
 #pragma unroll
-  for (int b = 0; b < kSliceBytes; ++b) {
+  for (int b = 0; b < kBytes; ++b) {
     if (first < n - b) {
       const uint32_t live = act == nullptr || __ldg(act + first + b) != 0;
       m.w[b >> 2] |= live << (8 * (b & 3));
@@ -174,10 +186,11 @@ __device__ __forceinline__ SliceWords slice_words(
 }
 
 // bit b: byte b of the words is not 0
-__device__ __forceinline__ unsigned live_bits(const SliceWords& m) {
+template <int kBytes>
+__device__ __forceinline__ unsigned live_bits(const SliceWords<kBytes>& m) {
   unsigned bits = 0u;
 #pragma unroll
-  for (int k = 0; k < kSliceBytes / 4; ++k) {
+  for (int k = 0; k < kBytes / 4; ++k) {
     const uint32_t w = m.w[k];
     // the high bit of each byte that is not 0, then one bit a byte
     const uint32_t hi = (((w & 0x7f7f7f7fu) + 0x7f7f7f7fu) | w) & 0x80808080u;
@@ -187,11 +200,11 @@ __device__ __forceinline__ unsigned live_bits(const SliceWords& m) {
 }
 
 // The units of live_lanes: its slices of the mask's bytes (a byte a
-// pixel for a pixel mask, else a byte a lane), kSliceLanes bytes each.
+// pixel for a pixel mask, else a byte a lane), 32 * `bytes` bytes each.
 inline Units slice_units(const LaneIn& active, int64_t n_lanes,
-                         int64_t n_px) {
+                         int64_t n_px, int bytes = kSliceBytes) {
   const bool pixel = active.p != nullptr && active.mode == kPixel;
-  return make_units(pixel ? n_px : n_lanes, kSliceLanes);
+  return make_units(pixel ? n_px : n_lanes, 32 * bytes);
 }
 
 // Run work(i, q) on every live lane i < n_lanes of `active` (null: every
@@ -202,26 +215,22 @@ inline Units slice_units(const LaneIn& active, int64_t n_lanes,
 // mask is read once and no lane's row needs a division; a lane mask runs
 // lane i = its byte (q = i % n_px).  A warp loads its next slice's words
 // before it works this one's.  Each thread turns its bytes into bits; a
-// unit's 32 bits are those of its 32 / kSliceBytes threads; the
-// warp visits its units with a live lane (__ballot_sync), works a full
-// one where it lies and queues a sparser one's live bytes, working the
-// queue 32 a round (live_rounds' queue); after its last slice it works
-// what is left.  With kPairs, two full units in a row of a call without
-// a sample axis are worked by one call site, a lane of each a thread, so
-// the second's loads may go before the first's stores (the gradient
-// sky's dense calls: 0.0217 -> 0.0188 ms; the cubemap's taps spill).
+// unit's 32 bits are those of its 32 / kBytes threads; the warp visits
+// its units with a live lane (__ballot_sync) and works each where it
+// lies, its live lanes a lane a thread.  With kPairs, two full units in
+// a row of a call without a sample axis are worked by one call site, a
+// lane of each a thread, so the second's loads may go before the first's
+// stores (the gradient sky's dense calls: 0.0217 -> 0.0188 ms; the
+// cubemap's taps spill).
 // A dead lane costs its mask byte, and a slice with no live lane one
 // load and a ballot.
-template <bool kPairs, class Work>
+template <bool kPairs, int kBytes = kSliceBytes, class Work>
 __device__ __forceinline__ void live_lanes(const Units& u,
                                            const LaneIn& active,
                                            int64_t n_lanes, int64_t n_px,
                                            Work work) {
-  __shared__ int queue[kLiveWarps][kLiveQueueCap];
-  constexpr int kPer = 32 / kSliceBytes;  // threads of a unit's bytes
+  constexpr int kPer = 32 / kBytes;  // threads of a unit's bytes
   const int lane = threadIdx.x & 31;
-  const unsigned below = (1u << lane) - 1u;
-  int* q = queue[threadIdx.x >> 5];
   const uint8_t* act = (const uint8_t*)active.p;
   if (act != nullptr && active.mode == kOne) {
     if (__ldg(act) == 0) return;  // one byte for every lane, dead
@@ -232,7 +241,7 @@ __device__ __forceinline__ void live_lanes(const Units& u,
   const int n = pixel ? px_n : (int)n_lanes;
   const int reps = pixel ? (int)n_lanes / px_n : 1;
   const bool own_px = pixel || n_lanes == n_px;
-  const bool aligned = (uintptr_t)act % kSliceBytes == 0;
+  const bool aligned = (uintptr_t)act % kBytes == 0;
   auto px_of = [&](int b) { return own_px ? b : b % px_n; };
   // the lanes of live byte b: b + s * n_px of each sample s of a pixel
   // mask, else b alone
@@ -241,37 +250,35 @@ __device__ __forceinline__ void live_lanes(const Units& u,
     for (int s = 0; s < reps; ++s) work((int64_t)(b + s * px_n), px);
   };
   // byte 32 j + off of the mask is this thread's first in slice j: unit
-  // lane / kPer of the slice, its (lane % kPer)-th kSliceBytes
+  // lane / kPer of the slice, its (lane % kPer)-th kBytes
   const int n_slices = (int)u.n_units;
   const int span = 32 * n_slices;  // bytes between a slice's units
-  const int off = (lane / kPer) * span + (lane % kPer) * kSliceBytes;
+  const int off = (lane / kPer) * span + (lane % kPer) * kBytes;
   // slice jj's words; none past the last slice
   auto words = [&](int jj) {
-    return jj < n_slices ? slice_words(act, aligned, 32 * jj + off, n)
-                         : SliceWords{};
+    return jj < n_slices ? slice_words<kBytes>(act, aligned, 32 * jj + off,
+                                               n)
+                         : SliceWords<kBytes>{};
   };
   const int step = (int)u.stride();
-  int n_q = 0;  // the same on every lane of the warp
   int j = (int)u.first();
-  SliceWords w = words(j);
+  SliceWords<kBytes> w = words(j);
   for (; j < n_slices; j += step) {
-    const SliceWords next = words(j + step);  // in flight over this slice
+    const SliceWords<kBytes> next = words(j + step);  // in flight
     const unsigned bits = live_bits(w);
     w = next;
     // on a unit's first thread: the unit's 32 bits, bit m its byte m
     unsigned g = bits;
 #pragma unroll
     for (int k = 1; k < kPer; ++k)
-      g |= __shfl_down_sync(0xffffffffu, bits, k) << (k * kSliceBytes);
+      g |= __shfl_down_sync(0xffffffffu, bits, k) << (k * kBytes);
     unsigned units = __ballot_sync(0xffffffffu, lane % kPer == 0 && g);
     while (units != 0u) {
       const int src = __ffs(units) - 1;
       units &= units - 1u;
       const unsigned live = __shfl_sync(0xffffffffu, g, src);
-      // this lane's byte of a round, if any: a full unit where it lies,
-      // else the queue's top 32 once it holds them
-      int b = (src / kPer) * span + 32 * j + lane;
-      bool mine = (live >> lane) & 1u;
+      // this lane's byte of the unit
+      const int b = (src / kPer) * span + 32 * j + lane;
       if constexpr (kPairs) {
         if (live == 0xffffffffu && units != 0u && reps == 1) {
           const int src2 = __ffs(units) - 1;
@@ -285,22 +292,9 @@ __device__ __forceinline__ void live_lanes(const Units& u,
           }
         }
       }
-      if (live != 0xffffffffu) {
-        if (mine) q[n_q + __popc(live & below)] = b;
-        n_q += __popc(live);
-        mine = n_q >= 32;
-        if (mine) {
-          __syncwarp();  // the entries are written
-          b = q[n_q - 32 + lane];
-          n_q -= 32;
-          __syncwarp();  // the entries are read before the next enqueue
-        }
-      }
-      if (mine) run(b);
+      if ((live >> lane) & 1u) run(b);
     }
   }
-  __syncwarp();
-  if (lane < n_q) run(q[lane]);
 }
 
 // The closest hit of ray o + t*d written to lane i as trace_analytic_core

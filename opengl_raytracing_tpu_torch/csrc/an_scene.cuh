@@ -149,14 +149,23 @@ __device__ __forceinline__ V3 sky(const AnScene& s, V3 d) {
 }
 
 // sky()'s cubemap read from its [6, F, F, 4] copy `texels`, the same
-// bits: the sky kernel's and the BVH hit mix's, which are built once with
-// a cubemap and once with the gradient (kCube), so that a gradient call
-// does not carry the taps' registers
+// bits
 __device__ __forceinline__ V3 texel_sky(const AnScene& s,
                                         const float4* __restrict__ texels,
                                         V3 d) {
   return scale3(sample_cubemap4(texels, s.env_f, d),
                 s.prm->env_map_intensity[0]);
+}
+
+// sky() in the kernels built once with a cubemap and once with the
+// gradient (kCube: the sky kernel, the BVH hit mix, glass's and the
+// mirror's rays), so that a gradient call does not carry the taps'
+// registers: the cubemap's taps from its [6, F, F, 4] copy, else the
+// gradient
+template <bool kCube>
+__device__ __forceinline__ V3 cube_or_gradient_sky(
+    const AnScene& s, const float4* __restrict__ texels, V3 d) {
+  return kCube ? texel_sky(s, texels, d) : gradient_sky(s, d);
 }
 
 // get_material's row of material id `id`.

@@ -62,12 +62,32 @@
 // What bounds them on this card.  A call's live lanes are the material's
 // hit lanes, ~0.6% each of a 1080p an_full frame (11,000-12,000 of
 // 2,073,600), so every call is bound by its bytes: the 2 MB mask (a byte a
-// lane) and ~100-200 B a live lane in and out, a few microseconds at 3.35
-// TB/s; the glass rays kernel's three five-primitive traces and up to
-// three cubemap lookups are ~700 operations a live lane.  The design is
-// an_trace.cu's: persistent blocks, a warp's live lanes queued 32 a round
-// (live_rounds), so a sparse mask's lanes fill whole rounds and a dead
-// unit costs its warp 32 mask bytes and a __ballot_sync.
+// lane, or a pixel under a sample axis) and ~100-200 B a live lane in and
+// out, a few microseconds at 3.35 TB/s; the glass rays kernel's three
+// five-primitive traces and up to three cubemap lookups are ~700
+// operations a live lane.  The mix kernels keep an_trace.cu's design:
+// persistent blocks, a warp's live lanes queued 32 a round (live_rounds),
+// a dead unit costing its warp 32 mask bytes and a __ballot_sync.
+//
+// The rays kernels walk the mask with an_lanes.cuh's live_lanes, as the
+// sky kernel does: a warp takes a slice of the mask at a time, a load of
+// kGlassSliceBytes (4) or kMirrorSliceBytes (16) bytes a thread, with the
+// next slice's load in flight while this one's lanes are worked, and the
+// slice's units of 32 lanes spread over the mask; every unit with a live
+// lane is worked where it lies, a lane a thread (a sphere's disk of
+// pixels is compact: queued 32 a round, its rims' lanes waited for
+// rounds and were slower).  Indices are 32-bit.
+// Under a sample axis the mask is a byte a pixel, read once, and a live
+// pixel runs its samples' lanes in turn with the pixel's rows known (no
+// division).  A cubemap tap is one 16-byte load of the table's [6, F, F,
+// 4] copy (an_scene.cuh's texel_sky); each kernel is built once with the
+// cubemap and once with the gradient (kCube, cube_or_gradient_sky), so
+// that a gradient call carries no tap.  Each is held to the blocks an SM its registers allow without a
+// spill (kGlassRaysBlocks, kMirrorRayBlocks: 8, 64 registers); at 10 or
+// 12 the glass kernel spilled and the mirror kernel (48 registers) lost
+// a third of its speed.  What is left of a call is the scan's wave over
+// the mask (~0.002-0.004 ms) and one lane's chain of loads, traces and
+// stores (PERF.md section 6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -105,6 +125,7 @@ struct GlassRaysArgs {
   float* sky;     // [3, n_lanes, 3]: reflected, straight, bent
   float* k;       // [n_lanes]: refract's k
   float* cos;     // [n_lanes]: cos_theta
+  const float4* texels;  // the cubemap's [6, F, F, 4] copy; null: gradient
 };
 
 // Glass's mix call (ops/an_shade_cuda.py:glass_mix).
@@ -133,6 +154,7 @@ struct MirrorRayArgs {
   int32_t* hmat;  // [n_lanes]
   float* view;    // [n_lanes, 3]: -r, K3's view at the hit
   float* sky;     // [n_lanes, 3]: where the reflected ray missed
+  const float4* texels;  // the cubemap's [6, F, F, 4] copy; null: gradient
 };
 
 // The mirror's mix call (ops/an_shade_cuda.py:mirror_mix); the GI rows
@@ -153,6 +175,16 @@ struct MirrorMixArgs {
   float* out;              // the frame's radiance [n_lanes, 3]
 };
 
+// The rays kernels' blocks an SM (__launch_bounds__): as many as their
+// registers allow without a spill (ptxas), and their mask bytes a thread
+// a slice (live_lanes' kBytes): 16 on the mirror's call (a slice a warp
+// at 1080p), 4 on glass's, whose longer lanes want more warps working
+// (PERF.md section 6)
+constexpr int kGlassRaysBlocks = 8;
+constexpr int kMirrorRayBlocks = 8;
+constexpr int kGlassSliceBytes = 4;
+constexpr int kMirrorSliceBytes = 16;
+
 namespace {
 
 __device__ __forceinline__ V3 neg3(V3 a) { return {-a.x, -a.y, -a.z}; }
@@ -167,16 +199,19 @@ __device__ __forceinline__ V3 reflect3(V3 i, V3 n) {
   return sub3(i, scale3(n, 2.0f * dot3(n, i)));
 }
 
-// shade_glass up to its K3 calls on the live lanes.
-__global__ void __launch_bounds__(kLiveThreads)
+// shade_glass up to its K3 calls on the live lanes, over slices of the
+// mask (live_lanes, every unit worked where it lies); lane i of pixel q.
+template <bool kCube>
+__global__ void __launch_bounds__(kLiveThreads, kGlassRaysBlocks)
 an_glass_rays_kernel(const Units u, const AnScene s, const GlassRaysArgs a) {
   const int64_t N = a.n_lanes;
-  live_rounds(u, a.active, N, a.n_px, [&](int64_t i) {
-    const V3 n = norm3(in3(a.n, i, a.n_px));
-    const V3 v = norm3(in3(a.wo, i, a.n_px));
+  live_lanes<false, kGlassSliceBytes>(u, a.active, a.n_lanes, a.n_px,
+                                      [&](int64_t i, int64_t q) {
+    const V3 n = norm3(at3(a.n, i, q));
+    const V3 v = norm3(at3(a.wo, i, q));
     const V3 iv = neg3(v);
-    const float ior =
-        fmaxf(material(s, in_i32(a.mat, i, a.n_px)).ior, a.c.min_ior);
+    const float ior = fmaxf(material(s, at_i32(a.mat, i, q)).ior,
+                            a.c.min_ior);
     const float eta = 1.0f / ior;
     const V3 r = reflect3(iv, n);
     const float ct = dot3(neg3(iv), n);
@@ -189,22 +224,23 @@ an_glass_rays_kernel(const Units u, const AnScene s, const GlassRaysArgs a) {
     if (k < 0.0f) t_phys = {0.0f, 0.0f, 0.0f};
     a.k[i] = k;
     const V3 t_dir = norm3(mix3(iv, norm3(t_phys), a.c.distortion));
-    const V3 p = in3(a.p, i, a.n_px);
-    const V3 cam = in3(a.cam, i, a.n_px);
+    const V3 p = at3(a.p, i, q);
+    const V3 cam = at3(a.cam, i, q);
     const V3 dirs[3] = {r, iv, t_dir};
-    float t_hit[3];
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       const V3 o = add3(p, scale3(dirs[j], a.c.eps));
       const int64_t at = j * N + i;
-      t_hit[j] = hit_out(s, o, dirs[j], false, a.c.marker, a.c.eps, at, a.t,
-                         a.hp, a.hn, a.hmat);
-      const V3 p2 = add3(o, scale3(dirs[j], t_hit[j]));
+      const float t = hit_out(s, o, dirs[j], false, a.c.marker, a.c.eps, at,
+                              a.t, a.hp, a.hn, a.hmat);
+      const V3 p2 = add3(o, scale3(dirs[j], t));
       put3(a.view, at, norm3(sub3(cam, p2)));
+      // the reflected ray's sky on every live lane, the straight ray's
+      // where it missed, the bent ray's where it refracts and missed
+      if (j == 0 || (!(t < kInf) && (j == 1 || k > 0.0f)))
+        put3(a.sky, at,
+             cube_or_gradient_sky<kCube>(s, a.texels, dirs[j]));
     }
-    put3(a.sky, i, sky(s, r));
-    if (!(t_hit[1] < kInf)) put3(a.sky, N + i, sky(s, iv));
-    if (k > 0.0f && !(t_hit[2] < kInf)) put3(a.sky, 2 * N + i, sky(s, t_dir));
   });
 }
 
@@ -234,18 +270,22 @@ an_glass_mix_kernel(const Units u, const AnScene s, const GlassMixArgs a) {
   });
 }
 
-// shade_mirror up to its K3 call on the live lanes.
-__global__ void __launch_bounds__(kLiveThreads)
+// shade_mirror up to its K3 call on the live lanes, over slices of the
+// mask (live_lanes, every unit worked where it lies); lane i of pixel q.
+template <bool kCube>
+__global__ void __launch_bounds__(kLiveThreads, kMirrorRayBlocks)
 an_mirror_ray_kernel(const Units u, const AnScene s, const MirrorRayArgs a) {
-  live_rounds(u, a.active, a.n_lanes, a.n_px, [&](int64_t i) {
-    const V3 n = norm3(in3(a.n, i, a.n_px));
-    const V3 iv = neg3(norm3(in3(a.wo, i, a.n_px)));
+  live_lanes<false, kMirrorSliceBytes>(u, a.active, a.n_lanes, a.n_px,
+                                       [&](int64_t i, int64_t q) {
+    const V3 n = norm3(at3(a.n, i, q));
+    const V3 iv = neg3(norm3(at3(a.wo, i, q)));
     const V3 r = reflect3(iv, n);
-    const V3 o = add3(in3(a.p, i, a.n_px), scale3(r, a.c.eps));
+    const V3 o = add3(at3(a.p, i, q), scale3(r, a.c.eps));
     const float t = hit_out(s, o, r, true, a.c.marker, a.c.eps, i, a.t, a.hp,
                             a.hn, a.hmat);
     put3(a.view, i, neg3(r));
-    if (!(t < kInf)) put3(a.sky, i, sky(s, r));
+    if (!(t < kInf))
+      put3(a.sky, i, cube_or_gradient_sky<kCube>(s, a.texels, r));
   });
 }
 
@@ -277,13 +317,19 @@ an_mirror_mix_kernel(const Units u, const AnScene s, const MirrorMixArgs a) {
 // Plain C entry points for ctypes.  `scene` and `args` are host pointers
 // (their own pointers are device pointers; a null mask: every lane live);
 // the stream is a cudaStream_t.  Each returns a cudaError_t as an int: of
-// the set-up calls, else cudaGetLastError().  Persistent blocks over
-// units of 32 lanes (persistent.cuh).
+// the set-up calls, else cudaGetLastError().  Persistent blocks over the
+// mask's slices (the rays kernels; a call over kMaxSliceLanes lanes is
+// refused) or units of 32 lanes (the mixes; persistent.cuh).
 extern "C" int ort_an_glass_rays(const AnScene* scene,
                                  const GlassRaysArgs* args, void* stream) {
-  return launch_persistent(an_glass_rays_kernel, kLiveThreads,
-                           make_units(args->n_lanes, 32),
-                           (cudaStream_t)stream, *scene, *args);
+  if (args->n_lanes > kMaxSliceLanes) return (int)cudaErrorInvalidValue;
+  const Units u = slice_units(args->active, args->n_lanes, args->n_px,
+                              kGlassSliceBytes);
+  return args->texels != nullptr
+             ? launch_persistent(an_glass_rays_kernel<true>, kLiveThreads, u,
+                                 (cudaStream_t)stream, *scene, *args)
+             : launch_persistent(an_glass_rays_kernel<false>, kLiveThreads,
+                                 u, (cudaStream_t)stream, *scene, *args);
 }
 
 extern "C" int ort_an_glass_mix(const AnScene* scene,
@@ -295,9 +341,14 @@ extern "C" int ort_an_glass_mix(const AnScene* scene,
 
 extern "C" int ort_an_mirror_ray(const AnScene* scene,
                                  const MirrorRayArgs* args, void* stream) {
-  return launch_persistent(an_mirror_ray_kernel, kLiveThreads,
-                           make_units(args->n_lanes, 32),
-                           (cudaStream_t)stream, *scene, *args);
+  if (args->n_lanes > kMaxSliceLanes) return (int)cudaErrorInvalidValue;
+  const Units u = slice_units(args->active, args->n_lanes, args->n_px,
+                              kMirrorSliceBytes);
+  return args->texels != nullptr
+             ? launch_persistent(an_mirror_ray_kernel<true>, kLiveThreads, u,
+                                 (cudaStream_t)stream, *scene, *args)
+             : launch_persistent(an_mirror_ray_kernel<false>, kLiveThreads,
+                                 u, (cudaStream_t)stream, *scene, *args);
 }
 
 extern "C" int ort_an_mirror_mix(const AnScene* scene,

@@ -60,8 +60,8 @@
 //   * Persistent blocks (persistent.cuh): as many blocks of 128 threads
 //     as fit the card, each warp looping over units of 32 lanes,
 //     block-minor; a unit with no live lane ends at its __ballot_sync.
-//   * Live lanes queued per warp (an_lanes.cuh's live_rounds, an_shade.cu's
-//     too): a unit's live lanes join the warp's queue in shared memory
+//   * Live lanes queued per warp (an_lanes.cuh's live_rounds; an_shade.cu's
+//     mixes too): a unit's live lanes join the warp's queue in shared memory
 //     (int64 lane indices, kLiveQueueCap = 63: 2,016 B a block); once it
 //     holds 32 the warp works a round of 32, a lane each, so a sparse
 //     mask's live lanes fill whole rounds.  After its last unit the warp
@@ -97,8 +97,8 @@
 // few thousand of 2 M (the mirror's GI bounce), so it walks the mask a
 // slice of 128 bytes at a time (an_lanes.cuh's live_lanes): one 4-byte
 // load a thread, the next slice's in flight while this one's lanes are
-// worked, a full unit of 32 lanes worked where it lies without the
-// queue; and a tap is one 16-byte load.
+// worked, every unit of 32 lanes with a live lane worked where it lies;
+// and a tap is one 16-byte load.
 //
 // The mirror's and glass's secondaries are traced by an_shade.cu's rays
 // kernels, with their setup.  Left for later: those traces fused with
@@ -351,7 +351,7 @@ sky_kernel(const Units u, const AnScene s, const SkyArgs a) {
   live_lanes<!kCube>(u, a.active, a.n_lanes, a.n_px, [&](int64_t i,
                                                          int64_t q) {
     const V3 d = at3(a.d, i, q);
-    put3(a.out, i, kCube ? texel_sky(s, a.texels, d) : gradient_sky(s, d));
+    put3(a.out, i, cube_or_gradient_sky<kCube>(s, a.texels, d));
   });
 }
 

@@ -55,15 +55,15 @@
 // 2,073,600, times 4 samples on `heavy`), on an_full ~65%.  A lane reads
 // ~40-60 B and writes 12, and the mask is a byte a pixel, so every call
 // is bound by its bytes; the sparse BVH calls by the mask's 2 MB and the
-// walk over it.  The design is an_trace.cu's: persistent blocks, a
-// warp's live lanes queued 32 a round, so a sparse mask's lanes fill
-// whole rounds.  The BVH kernel walks the mask a slice of 128 bytes at a
-// time (live_lanes: one 4-byte load a thread, the next slice's in
-// flight, a slice with no live lane a load and a ballot), and under a
-// sample axis a byte a pixel with the samples' lanes run inside, so
-// `heavy`'s mask is read once, not once a sample; its GI sky's taps come
-// from the cubemap's [6, F, F, 4] copy.  The analytic kernel, whose mask
-// is ~65% live, keeps live_rounds' units of 32.
+// walk over it.  Both run on persistent blocks.  The BVH kernel walks
+// the mask a slice of 128 bytes at a time (live_lanes: one 4-byte load a
+// thread, the next slice's in flight, a unit with a live lane worked
+// where it lies, a slice with no live lane a load and a ballot), and
+// under a sample axis a byte a pixel with the samples' lanes run inside,
+// so `heavy`'s mask is read once, not once a sample; its GI sky's taps
+// come from the cubemap's [6, F, F, 4] copy.  The analytic kernel, whose
+// mask is ~65% live, keeps an_trace.cu's live_rounds: units of 32, a
+// warp's live lanes queued and worked 32 a round.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -138,7 +138,7 @@ bvh_hit_mix_kernel(const Units u, const AnScene s, const BvhHitMixArgs a) {
           li = row3(a.gi_lit, i);
         } else {
           const V3 wi = row3(a.gi_wi, i);
-          li = kCube ? texel_sky(s, a.texels, wi) : gradient_sky(s, wi);
+          li = cube_or_gradient_sky<kCube>(s, a.texels, wi);
         }
         g = mul3(scale3(c3(s.bvh_albedo), cs * a.c.inv_pi), li);
         const float lum = dot3(g, c3(a.c.ycoeff));

@@ -152,10 +152,12 @@ def env_table(params, env, device):
 
 
 def env_texels(params, env, device):
-    """The cubemap table `env` as the sky kernel and the BVH hit mix read
-    it where `params` enable it, else None: env_table's [6, F, F, 3] table
-    as its [6, F, F, 4] copy (cubemap.texel4_table: made once per table,
-    kept while the table lives)."""
+    """The cubemap table `env` as the kernels built with a cubemap and
+    with the gradient read it (the sky kernel, the BVH hit mix, glass's
+    and the mirror's rays: an_scene.cuh's cube_or_gradient_sky) where
+    `params` enable it, else None: env_table's [6, F, F, 3] table as its
+    [6, F, F, 4] copy (cubemap.texel4_table: made once per table, kept
+    while the table lives)."""
     table = env_table(params, env, device)
     return None if table is None else texel4_table(table)
 

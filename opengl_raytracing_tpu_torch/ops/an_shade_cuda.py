@@ -26,6 +26,9 @@ caller reads (None: every lane):
     kernel does not look up (the straight ray's where it hit, the bent
     ray's where it hit or does not refract, the mirror's where it hit).
 
+The rays kernels read the cubemap's taps from the table's [6, F, F, 4]
+copy (`an_cuda.env_texels`, made once a table), as the sky kernel does.
+
 The mix calls take `out`, the frame's radiance: they write the material's
 radiance into it on the live lanes, in place (on the CPU by a select of
 the plain result), and return it; without `out` they return a tensor of
@@ -81,7 +84,8 @@ class _GlassRaysArgs(ctypes.Structure):
                 ("mat", _LaneIn), ("cam", _LaneIn), ("active", _LaneIn),
                 ("c", _ShadeConsts), ("n_lanes", _I64), ("n_px", _I64),
                 ("t", _P), ("hp", _P), ("hn", _P), ("hmat", _P),
-                ("view", _P), ("sky", _P), ("k", _P), ("cos", _P)]
+                ("view", _P), ("sky", _P), ("k", _P), ("cos", _P),
+                ("texels", _P)]
 
 
 class _GlassMixArgs(ctypes.Structure):
@@ -97,7 +101,7 @@ class _MirrorRayArgs(ctypes.Structure):
     _fields_ = [("p", _LaneIn), ("n", _LaneIn), ("wo", _LaneIn),
                 ("active", _LaneIn), ("c", _ShadeConsts), ("n_lanes", _I64),
                 ("n_px", _I64), ("t", _P), ("hp", _P), ("hn", _P),
-                ("hmat", _P), ("view", _P), ("sky", _P)]
+                ("hmat", _P), ("view", _P), ("sky", _P), ("texels", _P)]
 
 
 class _MirrorMixArgs(ctypes.Structure):
@@ -196,6 +200,17 @@ def _write(out, value, active):
     return out.copy_(value)
 
 
+def _skies(args, params, env_map, device):
+    """(the cubemap table the scene struct points to, its [6, F, F, 4]
+    copy, whose taps a rays kernel reads): both None for the gradient sky;
+    the copy's pointer set in `args`."""
+    env = an_cuda.env_table(params, env_map, device)
+    texels = an_cuda.env_texels(params, env_map, device)
+    if texels is not None:
+        args.texels = texels.data_ptr()
+    return env, texels
+
+
 def _shape(h, wo):
     return torch.broadcast_shapes(h.t.shape, wo.shape[:-1])
 
@@ -230,7 +245,7 @@ def glass_rays(scene, h: Hit, wo, mat=None, active=None) -> lt.GlassRays:
     for name, x in (("t", t), ("hp", hp), ("hn", hn), ("hmat", hmat),
                     ("view", view), ("sky", sky), ("k", k), ("cos", cos)):
         setattr(args, name, x.data_ptr())
-    env = an_cuda.env_table(params, scene.env_map, device)
+    env, texels = _skies(args, params, scene.env_map, device)
     cuda_lib.launch(_library().ort_an_glass_rays, "glass_rays", device,
                     ctypes.byref(an_cuda.scene_struct(params, env, device)),
                     ctypes.byref(args))
@@ -305,7 +320,7 @@ def mirror_ray(scene, h: Hit, wo, active=None) -> lt.MirrorRay:
     for name, x in (("t", t), ("hp", hp), ("hn", hn), ("hmat", hmat),
                     ("view", view), ("sky", sky)):
         setattr(args, name, x.data_ptr())
-    env = an_cuda.env_table(params, scene.env_map, device)
+    env, texels = _skies(args, params, scene.env_map, device)
     cuda_lib.launch(_library().ort_an_mirror_ray, "mirror_ray", device,
                     ctypes.byref(an_cuda.scene_struct(params, env, device)),
                     ctypes.byref(args))

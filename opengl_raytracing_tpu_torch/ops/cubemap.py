@@ -11,8 +11,9 @@ reference: src/render/cubemap.cpp:86-91).
 One form only: four row gathers of the flat `[6*F*F, 3]` table and the
 blend `top + (bot - top) * fy`, the taps and the order every gather
 lowering of the JAX package bit-matches.  The kernels repeat this
-arithmetic per lane (csrc/cubemap.cuh); the sky kernel and the BVH hit
-mix read the table's [6, F, F, 4] copy (`texel4_table`).
+arithmetic per lane (csrc/cubemap.cuh); the sky kernel, the BVH hit mix
+and glass's and the mirror's rays read the table's [6, F, F, 4] copy
+(`texel4_table`).
 
 Divisions here are tensor by tensor: PyTorch's CUDA `x / scalar` multiplies
 by the reciprocal, which may round an ulp away from the true quotient the

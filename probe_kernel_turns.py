@@ -46,10 +46,12 @@ rays and mixes, both hit mixes: chip_smoke's GATE_KERNELS, SHADE_KERNELS
 and HIT_MIX_KERNELS) alone on GATE_FRAMES' frames (a 1080p an_full with
 the day-sky cubemap, an 800x600 an_baseline, a 1080p `baseline`, and a
 1080p `full` and `heavy` chain's third frame), each as the frame calls
-it, and saves the AO, bounce and sky calls' outputs on their live lanes
-and the BVH hit mix's whole radiance (its dead lanes as they came);
-after the runs those are compared bit for bit, one JSON line with each
-call's live lanes and each gate call's bound (chip_smoke.gate_bound).
+it, and saves the AO, bounce and sky calls' outputs on their live lanes,
+glass's and the mirror's rays calls' on the live lanes where each is
+written (chip_smoke.shade_written) and the BVH hit mix's whole radiance
+(its dead lanes as they came); after the runs those are compared bit
+for bit, one JSON line with each call's live lanes and each gate call's
+bound (chip_smoke.gate_bound).
 """
 
 from __future__ import annotations
@@ -264,10 +266,11 @@ def hit_mix_radiance(a):
 
 def child_gates(saved: str) -> None:
     """In a checkout's directory: the live-lane kernels' alone-times on
-    every call of GATE_FRAMES' frames, one JSON line; the AO, bounce and
-    sky calls' outputs on their live lanes and the BVH hit mix's whole
-    radiance, their live lanes, and each call of the four gate kernels'
-    live lanes and bound (chip_smoke.gate_bound) saved to `saved`."""
+    every call of GATE_FRAMES' frames, one JSON line; the AO, bounce, sky
+    and rays calls' outputs on their live lanes (a rays call's where they
+    are written) and the BVH hit mix's whole radiance, their live lanes,
+    and each call of the four gate kernels' live lanes and bound
+    (chip_smoke.gate_bound) saved to `saved`."""
     sys.path.insert(0, os.getcwd())
     import torch
     import chip_smoke as cs
@@ -297,6 +300,15 @@ def child_gates(saved: str) -> None:
                     outputs[name] = {f: v[live].cpu()
                                      for f, v in out.items()}
                     outputs[name + "/live"] = int(live.sum())
+                if key in ("glass_rays", "mirror_ray"):
+                    live = cs._live_of(cs.shade_shape(key, a),
+                                       a.get("active"))
+                    got = cs.shade_call(key, a, a.get("active"))
+                    lanes = cs.shade_written(key, cs.shade_plain(key, a),
+                                             live)
+                    outputs[name] = {f: got[f][w].cpu()
+                                     for f, w in lanes.items()}
+                    outputs[name + "/live"] = int(live.sum())
                 if key == "bvh_hit_mix":
                     outputs[name] = {"radiance": hit_mix_radiance(a).cpu()}
                     outputs[name + "/live"] = int(cs._live_of(
@@ -308,7 +320,7 @@ def child_gates(saved: str) -> None:
 
 
 def compare_gates(other: str, this: str) -> dict:
-    """The two sides' saved AO, bounce, sky and BVH hit-mix outputs
+    """The two sides' saved AO, bounce, sky, rays and BVH hit-mix outputs
     (files `other`, `this`): for each call, whether every output is equal
     bit for bit (on its live lanes; the hit mix's radiance whole), and
     its live lanes."""

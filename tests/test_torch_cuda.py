@@ -2447,6 +2447,90 @@ def test_an_shade_kernels_match_plain(size, spp, case):
                 assert bool((out[~live] == SENTINEL).all()), (name, how)
 
 
+# the masks glass's and the mirror's rays kernels (live_lanes) are held
+# to their plain versions with
+RAYS_MASKS = ("frame", "every", "none_live", "scattered", "unaligned",
+              "heavy")
+
+
+def _rays_masks(how, frame, shape):
+    """Mask `how` of a rays call of `shape` whose frame handed it `frame`:
+    the frame's own; every lane live; none; ~1% of the lanes drawn with
+    numpy from a seed; the frame's mask at an address one byte past a
+    4-byte boundary (the kernel's wide mask loads fall back to bytes);
+    `heavy`'s own (a byte a pixel under 4 samples)."""
+    if how in ("frame", "heavy"):
+        return frame
+    if how == "every":
+        return torch.ones(shape, dtype=torch.bool, device="cuda")
+    if how == "none_live":
+        return torch.zeros(shape, dtype=torch.bool, device="cuda")
+    if how == "scattered":
+        drawn = np.random.default_rng(23).random(tuple(shape)) < 0.01
+        return torch.from_numpy(drawn).cuda()
+    buf = torch.zeros(shape.numel() + 1, dtype=torch.bool, device="cuda")
+    buf[1:] = frame.expand(shape).reshape(-1)
+    view = buf[1:].view(shape)
+    assert view.data_ptr() % 4 != 0
+    return view
+
+
+@pytest.mark.parametrize("sky", ["cubemap", "gradient"])
+@pytest.mark.parametrize("how", RAYS_MASKS)
+@pytest.mark.parametrize("name", ["glass_rays", "mirror_ray"])
+def test_an_shade_rays_kernels_on_every_kind_of_mask(name, how, sky,
+                                                     monkeypatch):
+    """Glass's or the mirror's rays kernel on an analytic frame's call
+    (`full` at 270x480; `heavy`, 4 samples, for its pixel mask) with
+    each of RAYS_MASKS, under the cubemap and the gradient sky: one
+    launch; on the lanes live in the mask and the frame's own, every
+    output the dense plain version's bits where the kernel writes it (the
+    skies where the mixes read them); on every dead lane every output as
+    it was given (NaN, -7 for a material id)."""
+    from opengl_raytracing_tpu_torch.convert import env_from_numpy
+    from opengl_raytracing_tpu_torch.ops import an_shade_cuda
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cube = sky == "cubemap"
+    params = preset("heavy" if how == "heavy" else "full").replace(
+        enable_env_map=int(cube))
+    table = None
+    if cube:
+        faces = np.random.RandomState(4).randint(0, 256, (6, 16, 16, 3))
+        table = env_from_numpy(faces.astype(np.uint8), "cuda")
+    calls, _ = _shade_calls(params, (270, 480), table)
+    a = dict(next(c for n, c in calls if n == name))
+    frame = a.pop("active")
+    shape = _shade_shape(name, a)
+    if how == "heavy":  # a byte a pixel under the 4 samples
+        from opengl_raytracing_tpu_torch.ops import an_trace_cuda
+        assert shape[0] == 4 and an_trace_cuda.lane_input(
+            frame, shape, 0, torch.bool, frame.device, "active")[0].mode \
+            == an_trace_cuda.PIXEL
+    want = _shade_plain(name, a)
+    mask = _rays_masks(how, frame, shape)
+    monkeypatch.setattr(an_shade_cuda, "_empty",
+                        lambda size, dtype, device: torch.full(
+                            size if isinstance(size, tuple) else (size,),
+                            float("nan") if dtype.is_floating_point else -7,
+                            dtype=dtype, device=device))
+    before = dict(cuda_lib.LAUNCHES)
+    got = _shade_fields(name, getattr(an_shade_cuda, name)(**a,
+                                                           active=mask))
+    assert _grew(before) == {**{c: 0 for c in before}, name: 1}
+    torch.cuda.synchronize()
+    live = mask.expand(shape)
+    both = live & frame.expand(shape)
+    assert how == "none_live" or bool(both.any())
+    for field, lanes in _shade_written(want, both).items():
+        x = got[field]
+        assert _nan_equal(x[lanes], want[field].expand(x.shape)[lanes]), (
+            field)
+        dead = x[~live]
+        assert bool((dead.isnan() if x.is_floating_point() else
+                     dead == -7).all()), field
+
+
 def test_an_shade_wrappers_reject_bad_inputs():
     from opengl_raytracing_tpu_torch.ops import an_shade_cuda
     scene, h_raw, h, px, py, vdir = _analytic(preset("full"), 8, 8)

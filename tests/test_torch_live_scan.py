@@ -1,29 +1,31 @@
 """The scan of `live_lanes` (csrc/an_lanes.cuh), on the CPU, and the
-cubemap's [6, F, F, 4] copy that the sky kernel and the BVH hit mix read.
+cubemap's [6, F, F, 4] copy that its kernels read.
 
-`sky_kernel` (csrc/an_trace.cu) and `bvh_hit_mix_kernel` (csrc/hit_mix.cu)
-run on persistent blocks over slices of their mask: a warp loads
-kSliceBytes mask bytes a thread (kSliceLanes a slice: kSliceBytes units
-of 32 bytes, unit g of slice j the mask's unit j + g * slices), turns
-each thread's bytes into bits (a bit trick on 32-bit words), joins
-32 / kSliceBytes threads' bits into the 32 bits of a unit
-(__shfl_down_sync) and visits the units with a live byte (__ballot_sync,
-__ffs).  A unit whose 32 bytes are all live is worked where it lies; a
-sparser unit's live bytes join the warp's queue, worked 32 a round, and
-what is left after the warp's last slice is worked at the end.  A
-pixel mask (a byte a pixel under a leading sample axis) runs the lanes
-q + s * n_px of every sample s of its live pixel q; a lane mask runs lane
-i of its live byte i, pixel i % n_px.
+`sky_kernel` (csrc/an_trace.cu), `bvh_hit_mix_kernel` (csrc/hit_mix.cu),
+`an_glass_rays_kernel` and `an_mirror_ray_kernel` (csrc/an_shade.cu) run
+on persistent blocks over slices of their mask: a warp loads
+kBytes mask bytes a thread (kSliceBytes unless the kernel names another
+width; 32 kBytes a slice: kBytes units of 32 bytes, unit g of slice j the
+mask's unit j + g * slices), turns each thread's bytes into bits (a bit
+trick on 32-bit words), joins 32 / kBytes threads' bits into the 32 bits
+of a unit (__shfl_down_sync) and visits the units with a live byte
+(__ballot_sync, __ffs), each worked where it lies, its live bytes a
+lane a thread.  A pixel mask (a byte a pixel under a leading sample
+axis) runs the lanes q + s * n_px of every sample s of its live pixel q;
+a lane mask runs lane i of its live byte i, pixel i % n_px.
 
 The model below transcribes that walk thread by thread with the source's
 constants, read from its text, and the launch of csrc/persistent.cuh over
 a few resident blocks, so that each warp takes several slices: every
 live lane is worked exactly once with its own pixel, no dead lane is,
-every mask byte is read once, and no queue outgrows its room.  It runs at
-the source's slice width and at the others the probe tries
-(probe_live_scan.py).
+and every mask byte is read once.  It runs at the source's slice width
+and at the others the probe tries (probe_live_scan.py), on drawn masks, on sphere-sized disks, and on the
+masks a CPU analytic frame hands the glass and mirror rays kernels (a
+pixel mask under 4 samples on `heavy`).  Each kernel's blocks an SM and
+its walk are read from its source.
 """
 
+import inspect
 import os
 import re
 import zlib
@@ -32,9 +34,13 @@ import numpy as np
 import pytest
 import torch
 
-from opengl_raytracing_tpu_torch.convert import env_from_numpy
-from opengl_raytracing_tpu_torch.models import preset
-from opengl_raytracing_tpu_torch.ops import an_cuda, an_trace_cuda
+from opengl_raytracing_tpu_torch.camera import Camera
+from opengl_raytracing_tpu_torch.convert import (camera_frame_inputs,
+                                                 env_from_numpy)
+from opengl_raytracing_tpu_torch.models import (RenderState, preset,
+                                                render_frame)
+from opengl_raytracing_tpu_torch.ops import (an_cuda, an_shade_cuda,
+                                             an_trace_cuda)
 from opengl_raytracing_tpu_torch.ops import cubemap as tcube
 from opengl_raytracing_tpu_torch.ops.scene import SceneCtx
 
@@ -42,8 +48,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "opengl_raytracing_tpu_torch", "csrc")
 
 
-def _source():
-    with open(os.path.join(SRC, "an_lanes.cuh")) as fh:
+def _source(name="an_lanes.cuh"):
+    with open(os.path.join(SRC, name)) as fh:
         return fh.read()
 
 
@@ -58,11 +64,115 @@ def test_the_model_reads_the_source_constants():
     assert _const(text, "kLiveThreads") == "128"
     assert _const(text, "kLiveQueueCap") == "31 + 32"
     assert _const(text, "kSliceBytes") == "4"
-    assert _const(text, "kSliceLanes") == "32 * kSliceBytes"
+    assert _const(text, "kSliceBlocks") == "12"
+    assert "constexpr int64_t kMaxSliceLanes = INT32_MAX - 2 * 32 * 16;" \
+        in text
+
+
+# each live_lanes kernel: its source, and its blocks an SM
+# (__launch_bounds__'s minimum, a constant the source declares); 65,536
+# registers an SM over blocks of 128 threads: 12 blocks 40 registers a
+# thread, 10 48, 8 64
+LIVE_LANES_KERNELS = {
+    "sky_kernel": ("an_trace.cu", "kSliceBlocks", 12),
+    "bvh_hit_mix_kernel": ("hit_mix.cu", "kSliceBlocks", 12),
+    "an_glass_rays_kernel": ("an_shade.cu", "kGlassRaysBlocks", 8),
+    "an_mirror_ray_kernel": ("an_shade.cu", "kMirrorRayBlocks", 8)}
+
+
+def _kernel_text(text, kernel):
+    """(its __launch_bounds__ arguments, its body) of __global__ `kernel`
+    in source `text`."""
+    m = re.search(r"__global__ void __launch_bounds__\(([^)]*)\)\n"
+                  + kernel + r"\(", text)
+    assert m, kernel
+    body = text[m.end():text.index("\n}\n", m.end())]
+    return [x.strip() for x in m.group(1).split(",")], body
+
+
+def _entry_text(text, entry):
+    at = text.index(f'extern "C" int {entry}(')
+    return text[at:text.index("\n}\n", at)]
+
+
+def _walk_of(kernel):
+    """(the constant that names `kernel`'s mask bytes a thread a slice,
+    their count): live_lanes' kBytes as its source passes it
+    (kSliceBytes where it passes none)."""
+    source = LIVE_LANES_KERNELS[kernel][0]
+    text = _source(source)
+    _, body = _kernel_text(text, kernel)
+    m = re.search(r"live_lanes<[^,>]+(?:, (\w+))?>\(", body)
+    assert m, kernel
+    width = m.group(1) or "kSliceBytes"
+    where = _source() if width == "kSliceBytes" else text
+    return width, int(_const(where, width))
+
+
+@pytest.mark.parametrize("kernel", list(LIVE_LANES_KERNELS))
+def test_each_kernels_block_cap_is_the_one_its_source_declares(kernel):
+    source, name, blocks = LIVE_LANES_KERNELS[kernel]
+    text = _source(source)
+    bounds, _ = _kernel_text(text, kernel)
+    assert bounds == ["kLiveThreads", name]
+    where = text if name != "kSliceBlocks" else _source()
+    assert int(_const(where, name)) == blocks
+    # the blocks fit an SM's 2,048 threads, with at least 32 registers
+    assert blocks * 128 <= 2048
+    assert 65536 // (blocks * 128) >= 32
+
+
+@pytest.mark.parametrize("kernel", list(LIVE_LANES_KERNELS))
+def test_each_kernel_walks_its_mask_with_live_lanes(kernel):
+    """The kernel's body is live_lanes' (not live_rounds'), its rows read
+    at the pixel live_lanes hands it (no division), and its C entry
+    launches over the mask's slices and refuses a call over
+    kMaxSliceLanes lanes."""
+    source = LIVE_LANES_KERNELS[kernel][0]
+    text = _source(source)
+    _, body = _kernel_text(text, kernel)
+    assert re.search(r"live_lanes<(!kCube|false|true)"
+                     r"(, \w+)?>\(u, a\.active, a\.n_lanes,\s*a\.n_px,\s*"
+                     r"\[&\]\(int64_t i,\s*int64_t q\)", body)
+    assert "live_rounds" not in body
+    assert not re.search(r"\bin(3|_i32|_f32)\(", body)
+    entry = {"sky_kernel": "ort_sky", "bvh_hit_mix_kernel": "ort_bvh_hit_mix",
+             "an_glass_rays_kernel": "ort_an_glass_rays",
+             "an_mirror_ray_kernel": "ort_an_mirror_ray"}[kernel]
+    launch = _entry_text(text, entry)
+    assert "if (args->n_lanes > kMaxSliceLanes) return (int)" \
+        "cudaErrorInvalidValue;" in launch
+    # over slices of the kernel's own width
+    units = re.search(r"slice_units\(args->active, args->n_lanes, "
+                      r"args->n_px(?:,\s+(\w+))?\);", launch)
+    assert units
+    assert (units.group(1) or "kSliceBytes") == _walk_of(kernel)[0]
+    # built with the cubemap and with the gradient, chosen by the table
+    for cube in ("true", "false"):
+        assert f"{kernel}<{cube}>" in launch
+    # the rays kernels: slices of their own width
+    assert _walk_of(kernel)[1] == {"sky_kernel": 4, "bvh_hit_mix_kernel": 4,
+                                   "an_glass_rays_kernel": 4,
+                                   "an_mirror_ray_kernel": 16}[kernel]
+
+
+def test_the_rays_kernels_read_the_cubemap_as_whole_texels():
+    """Every live_lanes kernel, glass's and the mirror's rays kernels
+    among them, looks its skies up through an_scene.cuh's one
+    cube_or_gradient_sky (texel_sky: the table's [6, F, F, 4] copy, or the
+    gradient), never through sky()'s three-float taps; the rays kernels'
+    args structs carry the copy."""
+    assert "return kCube ? texel_sky(s, texels, d) : gradient_sky(s, d);" \
+        in _source("an_scene.cuh")
+    for kernel, (source, _, _) in LIVE_LANES_KERNELS.items():
+        _, body = _kernel_text(_source(source), kernel)
+        assert "cube_or_gradient_sky<kCube>(s, a.texels," in body
+        assert not re.search(r"\b(texel_|gradient_)?sky\(s,", body)
+    for args in (an_shade_cuda._GlassRaysArgs, an_shade_cuda._MirrorRayArgs):
+        assert args._fields_[-1][0] == "texels"
 
 
 SLICE_BYTES = int(_const(_source(), "kSliceBytes"))
-QUEUE_CAP = 31 + 32
 WARPS = 128 // 32
 LANE, PIXEL, ONE = an_trace_cuda.LANE, an_trace_cuda.PIXEL, an_trace_cuda.ONE
 
@@ -109,12 +219,16 @@ def slice_words(mask, first, n, slice_bytes, reads):
     return raw.view("<u4")
 
 
-def walk(mask, mode, n_lanes, n_px, resident, slice_bytes=SLICE_BYTES):
+def walk(mask, mode, n_lanes, n_px, resident, slice_bytes=SLICE_BYTES,
+         stats=None):
     """(the (lane, pixel) pairs live_lanes hands `work`, in a warp's
     order, warp after warp; the mask's offsets read): `mask` the mask's
     bytes as the kernel reads them (a byte a lane, a pixel or one; None:
-    every lane live), `resident` the blocks that fit the card.  Asserts
-    the queue's room."""
+    every lane live), `resident` the blocks that fit the card.  `stats`
+    (a dict) counts the live bytes of full units ("full") and of sparser
+    ones ("partial"), each unit worked where it lies."""
+    stats = {} if stats is None else stats
+    stats.update(full=0, partial=0)
     reads = []
     if mask is not None and mode == ONE:
         reads.append(0)
@@ -139,7 +253,6 @@ def walk(mask, mode, n_lanes, n_px, resident, slice_bytes=SLICE_BYTES):
 
     for block in range(blocks):
         for warp in range(WARPS):
-            queue = []
             j = warp * blocks + block
             step = WARPS * blocks
             while j < n_units:
@@ -157,19 +270,11 @@ def walk(mask, mode, n_lanes, n_px, resident, slice_bytes=SLICE_BYTES):
                     first = src // per * span + 32 * j
                     mine = [first + lane for lane in range(32)
                             if live >> lane & 1]
-                    if live == 0xFFFFFFFF:         # worked where it lies
-                        for b in mine:
-                            run(b)
-                        continue
-                    queue.extend(mine)
-                    assert len(queue) <= QUEUE_CAP
-                    if len(queue) >= 32:
-                        for b in queue[-32:]:
-                            run(b)
-                        del queue[-32:]
+                    stats["full" if live == 0xFFFFFFFF else "partial"] += \
+                        len(mine)
+                    for b in mine:
+                        run(b)
                 j += step
-            for b in queue:
-                run(b)
     return calls, reads
 
 
@@ -237,6 +342,126 @@ def test_every_live_lane_is_worked_once(kind, per_pixel, shape, slice_bytes):
     np.testing.assert_array_equal(np.sort(lanes), want)
     for i, q in calls:
         assert q == i % n_px
+
+
+# ---- the glass and mirror rays kernels' masks ----
+
+RAYS = ("glass_rays", "mirror_ray")
+# the CPU analytic frames whose rays calls are walked (96x128): an_full's
+# and an_baseline's presets (a byte a lane), analytic `heavy` (4 samples,
+# a byte a pixel)
+RAY_FRAMES = {"an_full": "full", "an_baseline": "baseline", "heavy": "heavy"}
+_RAY_CALLS = {}
+
+
+def _ray_calls(case):
+    """{kernel: (its call's mask bytes as the kernel reads them, their
+    mode, n_lanes, n_px, the live lanes)} of the glass and mirror rays
+    calls of one eager CPU analytic frame of RAY_FRAMES[case]."""
+    if case in _RAY_CALLS:
+        return _RAY_CALLS[case]
+    h, w = 96, 128
+    real = {n: getattr(an_shade_cuda, n) for n in RAYS}
+    calls = {}
+
+    def spy(name):
+        def fn(*args, **kw):
+            bound = inspect.signature(real[name]).bind(*args, **kw)
+            bound.apply_defaults()
+            calls[name] = dict(bound.arguments)
+            return real[name](*args, **kw)
+        return fn
+    cam = Camera()
+    cam.aspect = w / h
+    fin = camera_frame_inputs(cam, "cpu", jitter=(0.2, -0.1), frame_index=5)
+    try:
+        for n in RAYS:
+            setattr(an_shade_cuda, n, spy(n))
+        render_frame(preset(RAY_FRAMES[case]), fin,
+                     RenderState.create(h, w, "cpu"), None, height=h,
+                     width=w)
+    finally:
+        for n, fn in real.items():
+            setattr(an_shade_cuda, n, fn)
+    out = {}
+    for name, a in calls.items():
+        shape = torch.broadcast_shapes(a["h"].t.shape, a["wo"].shape[:-1])
+        lane_in, rows = an_trace_cuda.lane_input(
+            a["active"], shape, 0, torch.bool, torch.device("cpu"), "active")
+        out[name] = (rows.numpy().astype(np.uint8), lane_in.mode,
+                     shape.numel(), an_trace_cuda.n_px_of(shape),
+                     a["active"].expand(shape).reshape(-1).numpy())
+    _RAY_CALLS[case] = out
+    return out
+
+
+def _check_once(calls, live, n_lanes, n_px, pixel_bytes=None):
+    """Every live lane worked once, with its own pixel; with
+    `pixel_bytes` (a pixel mask) every sample of a live pixel once."""
+    lanes = np.array([i for i, _ in calls], dtype=np.int64)
+    assert len(set(lanes.tolist())) == len(lanes), "a lane worked twice"
+    np.testing.assert_array_equal(np.sort(lanes), np.flatnonzero(live))
+    for i, q in calls:
+        assert q == i % n_px
+    if pixel_bytes is not None:
+        pairs = {(q, i // n_px) for i, q in calls}
+        assert len(pairs) == len(calls) == \
+            (n_lanes // n_px) * int((pixel_bytes != 0).sum())
+
+
+@pytest.mark.parametrize("kernel", RAYS)
+@pytest.mark.parametrize("case", list(RAY_FRAMES))
+def test_the_rays_calls_masks_are_worked_once(case, kernel):
+    """The mask a CPU analytic frame hands glass's or the mirror's rays
+    kernel, walked by the model at the slice width the kernel's source
+    gives it: every mask byte read once, every
+    live lane worked once, and under `heavy`'s 4 samples a byte a pixel
+    with each sample of a live pixel worked once."""
+    bytes_, mode, n_lanes, n_px, live = _ray_calls(case)[kernel]
+    assert mode == (PIXEL if case == "heavy" else LANE)
+    assert live.any() and not live.all()
+    _, slice_bytes = _walk_of(f"an_{kernel}_kernel")
+    calls, reads = walk(bytes_, mode, n_lanes, n_px, resident=3,
+                        slice_bytes=slice_bytes)
+    assert sorted(reads) == list(range(len(bytes_)))
+    _check_once(calls, live, n_lanes, n_px,
+                bytes_ if mode == PIXEL else None)
+
+
+def _disks(rows, cols, rng, n=2):
+    """A bool mask [rows, cols] of `n` disks of radius 20-40 pixels at
+    drawn centres: the footprint of a glass or mirror sphere."""
+    y, x = np.mgrid[:rows, :cols]
+    m = np.zeros((rows, cols), bool)
+    for _ in range(n):
+        cy, cx = rng.uniform(0, rows), rng.uniform(0, cols)
+        r = rng.uniform(20, 40)
+        m |= (y - cy) ** 2 + (x - cx) ** 2 < r * r
+    return m
+
+
+@pytest.mark.parametrize("spp", [1, 4])
+@pytest.mark.parametrize("seed", range(3))
+def test_sphere_disks_work_full_units_in_place_and_lanes_once(spp, seed):
+    """Sphere-sized disks of live pixels: their full units of 32 and their
+    rims' sparser units are each worked where they lie, each live lane
+    once (a pixel mask under 4 samples: each sample of a live pixel
+    once)."""
+    rows, cols = 120, 256
+    m = torch.from_numpy(_disks(rows, cols, np.random.default_rng(seed)))
+    call = torch.Size((spp, rows, cols) if spp > 1 else (rows, cols))
+    lane_in, rows_t = an_trace_cuda.lane_input(
+        m, call, 0, torch.bool, torch.device("cpu"), "active")
+    assert lane_in.mode == (PIXEL if spp > 1 else LANE)
+    bytes_ = rows_t.numpy().astype(np.uint8)
+    stats = {}
+    calls, reads = walk(bytes_, lane_in.mode, call.numel(), rows * cols,
+                        resident=3, stats=stats)
+    assert sorted(reads) == list(range(rows * cols))
+    assert stats["full"] > 0 and stats["partial"] > 0
+    assert stats["full"] + stats["partial"] == int(m.sum())
+    _check_once(calls, m.expand(call).reshape(-1).numpy(), call.numel(),
+                rows * cols, bytes_ if spp > 1 else None)
 
 
 # ---- the cubemap's [6, F, F, 4] copy ----
