@@ -85,9 +85,12 @@ in phases, each printing its result and seconds on a line of its own:
      against the plain present pass, and one device launch a call of
      `present`.  A NaN fails every check.
      Wrapper and plain times from CUDA events, the kernel alone and the
-     launches of one direct-light call from the profiler (a profile that
-     saw no device activity is taken again, up to PROFILE_ATTEMPTS times;
-     a kernel time no profile saw is null); each kernel's bound
+     launches of one direct-light call from the profiler (each window
+     opened by throwaway launches; a kernel's time only from a window
+     that counted exactly the launches it timed, as the launch counters
+     count them; any other window, an empty one too, is taken again, up
+     to PROFILE_ATTEMPTS times; a kernel time not kept is null); each
+     kernel's bound
      (`bound_ms`) from the bytes and operations of these inputs;
   4. frames: 32 chained baseline frames; launch counters are zeroed just
      before and each kernel of the path (the tonemap kernel too) must
@@ -385,6 +388,9 @@ REALISTIC_LAUNCHES = dict(closest=1, bvh_direct=2, bounce=1, ao=1, tonemap=1,
 BENCH_TIMEOUT_S = 600
 PROFILE_FRAME = 3      # the `full` profile times frame 3 (TAA resolves)
 PROFILE_ATTEMPTS = 6   # profiles of one measurement before "not measured"
+PROFILE_LEAD = 8       # throwaway launches that open a profile window
+LEAD_KERNEL = "spin_kernel"  # theirs: torch.cuda._sleep's
+LEAD_CYCLES = 1000     # each spins this many cycles (~0.5 us)
 MISMATCH_FRAC = 1e-5   # lanes allowed to differ in valid
 AO_FLIP_FRAC = 1e-3    # live AO lanes that may differ, by one sample step
 T_RTOL = 1e-5          # t, and p relative to t, on lanes both kernels hit
@@ -785,36 +791,61 @@ def is_kernel(key, kernel):
     return re.search(rf"(?<!\w){re.escape(kernel)}(?!\w)", key) is not None
 
 
-def device_rows(fn, reps, what, usable=bool):
-    """The profiler's device rows (kernels and copies) over `reps` calls of
-    `fn`, called once before, unprofiled.  Some profiles come back with no
-    device activity at all, now and then several in a row for one call (a
-    PyTorch kernel launched inside the window is missing from them too): a
-    profile whose rows are not `usable` is reported on stderr and taken
-    again, up to PROFILE_ATTEMPTS times.  A usable profile right after one
-    that was not is taken again too (one such, after two empty profiles,
-    gave a sky call half the time it takes in every other profile, below
-    its bound: the empty profiles' launches may land in it), so the rows
-    kept are the first profile's or a usable one's that follows a usable
-    one.  Returns the rows of every profile taken."""
+def throwaway_launches(n):
+    """`n` launches of torch.cuda._sleep's kernel (LEAD_KERNEL), each a
+    spin of LEAD_CYCLES cycles, for a profile window to open with; no
+    call of the port launches that kernel."""
+    import torch
+    for _ in range(n):
+        torch.cuda._sleep(LEAD_CYCLES)
+
+
+def profile_window(fn, reps):
+    """The device rows (kernels and copies) one profiler window saw over
+    `reps` calls of `fn` and a synchronize.  On the card a window now and
+    then drops its first launches (PERF.md section 6, "The profiler"), so
+    it opens with PROFILE_LEAD throwaway launches and a synchronize;
+    their rows are left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
+    with torch.profiler.profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        throwaway_launches(PROFILE_LEAD)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [ev for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and not is_kernel(ev.key, LEAD_KERNEL)]
+
+
+def device_rows(fn, reps, what, usable=bool, seen=None):
+    """The profiler's device rows (kernels and copies) over `reps` calls of
+    `fn`, called once before, unprofiled (profile_window).  Some profiles
+    come back with no device activity at all, now and then several in a
+    row for one call, or with launches missing or extra: a profile whose
+    rows are not `usable` is reported on stderr (`seen(rows)`: what it
+    saw; by default its device rows) and taken again, up to
+    PROFILE_ATTEMPTS times.  A usable profile right after one that was not
+    is taken again too (one such, after two empty profiles, gave a sky
+    call half the time it takes in every other profile, below its bound:
+    the empty profiles' launches may land in it), so the rows kept are
+    the first profile's or a usable one's that follows a usable one.
+    Returns the rows of every profile taken."""
+    import torch
     fn()
     torch.cuda.synchronize()
     taken = []
     for attempt in range(PROFILE_ATTEMPTS):
-        with torch.profiler.profile(
-                activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        taken.append([ev for ev in prof.key_averages()
-                      if ev.device_type == DeviceType.CUDA])
+        taken.append(profile_window(fn, reps))
         if not usable(taken[-1]):
-            print(f"profile {attempt + 1} of {what} has no row for it; "
-                  f"device rows: {[ev.key[:60] for ev in taken[-1]]}",
-                  file=sys.stderr, flush=True)
+            print(f"profile {attempt + 1} of {what} " + (
+                seen(taken[-1]) if seen else
+                f"has no row for it; device rows: "
+                f"{[ev.key[:60] for ev in taken[-1]]}"),
+                file=sys.stderr, flush=True)
         elif attempt == 0 or usable(taken[-2]):
             break
         else:
@@ -823,22 +854,64 @@ def device_rows(fn, reps, what, usable=bool):
     return taken
 
 
+def kernel_launches(fn, kernel):
+    """The launches of `kernel` (by name) that one call of `fn` makes: the
+    change in the launch counters that count it (cuda_lib.LAUNCHES, by
+    KERNELS) across the call, which is made here."""
+    import torch
+    from opengl_raytracing_tpu_torch.ops.cuda_lib import LAUNCHES
+    counters = {rec.get("counter", key) for key, rec in KERNELS.items()
+                if rec["kernel"] == kernel}
+    if not counters:
+        raise AssertionError(f"no launch counter counts {kernel}")
+    before = sum(LAUNCHES[c] for c in counters)
+    fn()
+    torch.cuda.synchronize()
+    return sum(LAUNCHES[c] for c in counters) - before
+
+
 def kernel_ms(fn, kernel, reps=5):
     """Device time of one launch of `kernel` (by name), from the profiler
-    over `reps` calls of `fn` (device_rows).  Profiles that saw device
-    activity but never the kernel raise; if none saw any device activity,
-    the time is not measured (None): the launches and the results of each
-    kernel are checked apart from the profiler."""
-    taken = device_rows(fn, reps, kernel, lambda rows: any(
-        is_kernel(ev.key, kernel) for ev in rows))
-    for ev in taken[-1]:
-        if is_kernel(ev.key, kernel):
-            return ev.self_device_time_total / 1e3 / ev.count
-    if any(taken):
+    over `reps` calls of `fn` (device_rows), after one unprofiled call
+    that counts the kernel's launches a call (kernel_launches).  A
+    profile is usable only if its rows of the kernel count exactly the
+    launches it timed, `reps` times those of a call: on the card a window
+    now and then counts fewer or more (PERF.md section 6, "The
+    profiler").  The reading itself is held to nothing but its bound, in
+    its phase.  Windows that saw device activity but never the kernel
+    raise;
+    if no profile is usable, the time is not measured (None): the
+    launches and the results of each kernel are checked apart from the
+    profiler."""
+    per_call = kernel_launches(fn, kernel)
+    if per_call <= 0:
+        raise AssertionError(f"a call launched {per_call} of {kernel}")
+    want = reps * per_call
+
+    def mine(rows):
+        return [ev for ev in rows if is_kernel(ev.key, kernel)]
+
+    def counted(rows):
+        return sum(ev.count for ev in mine(rows))
+
+    def usable(rows):
+        return counted(rows) == want
+
+    def seen(rows):
+        return (f"counted {counted(rows)} launches of it where {want} were "
+                f"timed ({len(rows)} device rows): taken again")
+    taken = device_rows(fn, reps, kernel, usable, seen)
+    # device_rows keeps the first profile or one that follows a usable one
+    if usable(taken[-1]) and (len(taken) == 1 or usable(taken[-2])):
+        return sum(ev.self_device_time_total
+                   for ev in mine(taken[-1])) / 1e3 / want
+    if any(taken) and not any(map(counted, taken)):
         raise AssertionError(f"the profiler saw no launch of {kernel} in "
                              f"{len(taken)} profiles of {reps} calls")
-    print(f"kernel_ms: {kernel} not measured: no profile saw device "
-          f"activity", file=sys.stderr, flush=True)
+    print(f"kernel_ms: {kernel} not measured: no profile of {len(taken)} "
+          f"counted the {want} launches timed (they counted "
+          f"{[counted(rows) for rows in taken]})", file=sys.stderr,
+          flush=True)
     return None
 
 
@@ -2188,6 +2261,17 @@ def ao_sweep(a, timer):
     return out
 
 
+def under_bound(calls, *fields, **tag):
+    """The calls of `calls` (records with `kernel_ms` and `bound_ms`) whose
+    profiled time is under their bound, each as {**tag, call: its index,
+    its `fields`, bound_ms, kernel_ms}; a call not measured (kernel_ms
+    None) is not under it."""
+    return [dict(tag, call=i, **{f: c[f] for f in fields},
+                 bound_ms=c["bound_ms"], kernel_ms=c["kernel_ms"])
+            for i, c in enumerate(calls)
+            if c["kernel_ms"] is not None and c["kernel_ms"] < c["bound_ms"]]
+
+
 def below_bound(phase, over):
     """Fails `phase` where a call was measured below its bound (`over`: a
     record a call): a bound is a least time, so such a bound is wrong."""
@@ -2243,16 +2327,11 @@ def check_an_gates(env, frames_an_full, frames_an, timer=None):
                         for k in GATE_KERNELS + ("an_direct",)}
                  for name, run in (("an_full", frames_an_full),
                                    ("an_baseline", frames_an))}
-    over = [dict(kernel=k, frame=name, call=i, bound_ms=c["bound_ms"],
-                 kernel_ms=c["kernel_ms"])
-            for name, run in (("an_full", full), ("an_baseline", base))
-            for k in GATE_KERNELS for i, c in enumerate(run[k])
-            if c["kernel_ms"] and c["bound_ms"] > c["kernel_ms"]]
-    over += [dict(kernel="an_ao", frame="an_full", call=0,
-                  ao_radius=c["ao_radius"], ao_samples=c["ao_samples"],
-                  bound_ms=c["bound_ms"], kernel_ms=c["kernel_ms"])
-             for c in sweep if c["kernel_ms"] and
-             c["bound_ms"] > c["kernel_ms"]]
+    over = [r for name, run in (("an_full", full), ("an_baseline", base))
+            for k in GATE_KERNELS
+            for r in under_bound(run[k], kernel=k, frame=name)]
+    over += under_bound(sweep, "ao_radius", "ao_samples", kernel="an_ao",
+                        frame="an_full")
     below_bound("an_gates", over)
     fields = ("lanes", "live_lanes", "bound_ms", "bound_by", "bound_bytes",
               "bound_ops", "kernel_ms", "ms", "plain_ms")
@@ -2514,11 +2593,9 @@ def check_an_shade(env, frames_an_full, frames_an, timer=None):
                         + ("an_direct",)}
                  for name, run in (("an_full", frames_an_full),
                                    ("an_baseline", frames_an))}
-    over = [dict(kernel=k, frame=name, call=i, bound_ms=c["bound_ms"],
-                 kernel_ms=c["kernel_ms"])
-            for name, run in (("an_full", full), ("an_baseline", base))
-            for k in SHADE_KERNELS for i, c in enumerate(run[k])
-            if c["kernel_ms"] and c["bound_ms"] > c["kernel_ms"]]
+    over = [r for name, run in (("an_full", full), ("an_baseline", base))
+            for k in SHADE_KERNELS
+            for r in under_bound(run[k], kernel=k, frame=name)]
     below_bound("an_shade", over)
     fields = ("lanes", "live_lanes", "bound_ms", "bound_by", "bound_bytes",
               "kernel_ms", "ms", "plain_ms")
@@ -2729,10 +2806,8 @@ def check_hit_mix(bvh, env, runs, timer=None):
     per_frame = {name: {k: run["launches"][k] / run["frames"]
                         for k in HIT_MIX_KERNELS + ("sky",)}
                  for name, run in runs.items()}
-    over = [dict(frame=label, bound_ms=c["bound_ms"],
-                 kernel_ms=c["kernel_ms"])
-            for label, (_, calls) in frames.items() for c in calls
-            if c["kernel_ms"] and c["bound_ms"] > c["kernel_ms"]]
+    over = [r for label, (key, calls) in frames.items()
+            for r in under_bound(calls, kernel=key, frame=label)]
     below_bound("hit_mix", over)
     fields = ("lanes", "live_lanes", "written_lanes", "bound_ms",
               "bound_by", "bound_bytes", "kernel_ms", "ms", "plain_ms")

@@ -136,8 +136,8 @@ __device__ __forceinline__ void live_rounds(const Units& u,
 // read 4 bytes a thread; slices of 16 or 8 bytes a thread (one slice a
 // warp at 1080p) were faster on their sparse calls and slower on the
 // dense ones, on which the warps in flight decide (probe_live_scan.py).
-// Glass's and the mirror's rays kernels, whose work is longer, take
-// blocks and widths of their own (an_shade.cu).
+// Glass's and the mirror's rays and mix kernels take blocks and widths
+// of their own (an_shade.cu).
 constexpr int kSliceBytes = 4;
 constexpr int kSliceBlocks = 12;
 // live_lanes indexes lanes and mask bytes in 32 bits (a byte offset it

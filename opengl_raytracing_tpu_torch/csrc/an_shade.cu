@@ -65,29 +65,31 @@
 // lane, or a pixel under a sample axis) and ~100-200 B a live lane in and
 // out, a few microseconds at 3.35 TB/s; the glass rays kernel's three
 // five-primitive traces and up to three cubemap lookups are ~700
-// operations a live lane.  The mix kernels keep an_trace.cu's design:
-// persistent blocks, a warp's live lanes queued 32 a round (live_rounds),
-// a dead unit costing its warp 32 mask bytes and a __ballot_sync.
+// operations a live lane; a mix lane's ~10 row loads and ~50 operations
+// are far less, so the scan of the mask is most of a mix call.
 //
-// The rays kernels walk the mask with an_lanes.cuh's live_lanes, as the
+// All four kernels walk the mask with an_lanes.cuh's live_lanes, as the
 // sky kernel does: a warp takes a slice of the mask at a time, a load of
-// kGlassSliceBytes (4) or kMirrorSliceBytes (16) bytes a thread, with the
-// next slice's load in flight while this one's lanes are worked, and the
+// kGlassSliceBytes (4), kMirrorSliceBytes (16), kGlassMixSliceBytes (4)
+// or kMirrorMixSliceBytes (8) bytes a thread, with the next slice's load
+// in flight while this one's lanes are worked, and the
 // slice's units of 32 lanes spread over the mask; every unit with a live
 // lane is worked where it lies, a lane a thread (a sphere's disk of
 // pixels is compact: queued 32 a round, its rims' lanes waited for
-// rounds and were slower).  Indices are 32-bit.
+// rounds and were slower).  Indices are 32-bit, and the material id of a
+// mix lane is read at its pixel, not by a division.
 // Under a sample axis the mask is a byte a pixel, read once, and a live
 // pixel runs its samples' lanes in turn with the pixel's rows known (no
 // division).  A cubemap tap is one 16-byte load of the table's [6, F, F,
 // 4] copy (an_scene.cuh's texel_sky); each kernel is built once with the
 // cubemap and once with the gradient (kCube, cube_or_gradient_sky), so
-// that a gradient call carries no tap.  Each is held to the blocks an SM its registers allow without a
-// spill (kGlassRaysBlocks, kMirrorRayBlocks: 8, 64 registers); at 10 or
-// 12 the glass kernel spilled and the mirror kernel (48 registers) lost
-// a third of its speed.  What is left of a call is the scan's wave over
-// the mask (~0.002-0.004 ms) and one lane's chain of loads, traces and
-// stores (PERF.md section 6).
+// that a gradient call carries no tap.  Each kernel is held to its own
+// blocks an SM: the rays kernels to 8 (kGlassRaysBlocks,
+// kMirrorRayBlocks: 64 registers; at 10 or 12 the glass kernel spilled
+// and the mirror kernel, at 48 registers, lost a third of its speed), the
+// mixes to 8 and 12 (kGlassMixBlocks, kMirrorMixBlocks).  What is left of
+// a call is the scan's wave over the mask (~0.002-0.004 ms) and one
+// lane's chain of loads, traces and stores (PERF.md section 6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -184,6 +186,15 @@ constexpr int kGlassRaysBlocks = 8;
 constexpr int kMirrorRayBlocks = 8;
 constexpr int kGlassSliceBytes = 4;
 constexpr int kMirrorSliceBytes = 16;
+// The mixes' blocks an SM and mask bytes a thread a slice, the same way
+// (probe_live_scan.py --kernels glass_mix,mirror_mix): glass's mix, whose
+// selects chain three rows' loads, is fastest with 8 blocks (53
+// registers) and 4 bytes; the mirror's at 12 (40) and 8 bytes; 14 or 16
+// blocks (32 registers) spill both
+constexpr int kGlassMixBlocks = 8;
+constexpr int kMirrorMixBlocks = 12;
+constexpr int kGlassMixSliceBytes = 4;
+constexpr int kMirrorMixSliceBytes = 8;
 
 namespace {
 
@@ -244,11 +255,13 @@ an_glass_rays_kernel(const Units u, const AnScene s, const GlassRaysArgs a) {
   });
 }
 
-// shade_glass after its K3 calls on the live lanes, into the radiance.
-__global__ void __launch_bounds__(kLiveThreads)
+// shade_glass after its K3 calls on the live lanes, into the radiance,
+// over slices of the mask (live_lanes); lane i of pixel q.
+__global__ void __launch_bounds__(kLiveThreads, kGlassMixBlocks)
 an_glass_mix_kernel(const Units u, const AnScene s, const GlassMixArgs a) {
-  live_rounds(u, a.active, a.n_lanes, a.n_px, [&](int64_t i) {
-    const Material m = material(s, in_i32(a.mat, i, a.n_px));
+  live_lanes<false, kGlassMixSliceBytes>(u, a.active, a.n_lanes, a.n_px,
+                                         [&](int64_t i, int64_t q) {
+    const Material m = material(s, at_i32(a.mat, i, q));
     const V3 env = row3(a.sky[0], i);
     const V3 local = __ldg(a.t[0] + i) < kInf ? row3(a.lit[0], i) : env;
     const V3 reflect_col = mix3(env, local, a.c.local_refl);
@@ -262,8 +275,8 @@ an_glass_mix_kernel(const Units u, const AnScene s, const GlassMixArgs a) {
     }
     refr = mul3(refr, m.albedo);
     const float ior = fmaxf(m.ior, a.c.min_ior);
-    const float q = (ior - 1.0f) / (ior + 1.0f);
-    const float f0 = q * q;
+    const float ratio = (ior - 1.0f) / (ior + 1.0f);
+    const float f0 = ratio * ratio;
     const float fresnel =
         f0 + (1.0f - f0) * powf(1.0f - __ldg(a.cos + i), 5.0f);
     put3(a.out, i, mix3(refr, reflect_col, fresnel));
@@ -290,11 +303,12 @@ an_mirror_ray_kernel(const Units u, const AnScene s, const MirrorRayArgs a) {
 }
 
 // shade_mirror after K3 (and GI's bounce) on the live lanes, into the
-// radiance.
-__global__ void __launch_bounds__(kLiveThreads)
+// radiance, over slices of the mask (live_lanes); lane i of pixel q.
+__global__ void __launch_bounds__(kLiveThreads, kMirrorMixBlocks)
 an_mirror_mix_kernel(const Units u, const AnScene s, const MirrorMixArgs a) {
-  live_rounds(u, a.active, a.n_lanes, a.n_px, [&](int64_t i) {
-    const Material m = material(s, in_i32(a.mat, i, a.n_px));
+  live_lanes<false, kMirrorMixSliceBytes>(u, a.active, a.n_lanes, a.n_px,
+                                          [&](int64_t i, int64_t q) {
+    const Material m = material(s, at_i32(a.mat, i, q));
     V3 col;
     if (__ldg(a.t + i) < kInf) {
       col = row3(a.direct, i);
@@ -318,8 +332,8 @@ an_mirror_mix_kernel(const Units u, const AnScene s, const MirrorMixArgs a) {
 // (their own pointers are device pointers; a null mask: every lane live);
 // the stream is a cudaStream_t.  Each returns a cudaError_t as an int: of
 // the set-up calls, else cudaGetLastError().  Persistent blocks over the
-// mask's slices (the rays kernels; a call over kMaxSliceLanes lanes is
-// refused) or units of 32 lanes (the mixes; persistent.cuh).
+// mask's slices of the kernel's width; a call over kMaxSliceLanes lanes
+// is refused.
 extern "C" int ort_an_glass_rays(const AnScene* scene,
                                  const GlassRaysArgs* args, void* stream) {
   if (args->n_lanes > kMaxSliceLanes) return (int)cudaErrorInvalidValue;
@@ -334,8 +348,10 @@ extern "C" int ort_an_glass_rays(const AnScene* scene,
 
 extern "C" int ort_an_glass_mix(const AnScene* scene,
                                 const GlassMixArgs* args, void* stream) {
-  return launch_persistent(an_glass_mix_kernel, kLiveThreads,
-                           make_units(args->n_lanes, 32),
+  if (args->n_lanes > kMaxSliceLanes) return (int)cudaErrorInvalidValue;
+  const Units u = slice_units(args->active, args->n_lanes, args->n_px,
+                              kGlassMixSliceBytes);
+  return launch_persistent(an_glass_mix_kernel, kLiveThreads, u,
                            (cudaStream_t)stream, *scene, *args);
 }
 
@@ -353,8 +369,10 @@ extern "C" int ort_an_mirror_ray(const AnScene* scene,
 
 extern "C" int ort_an_mirror_mix(const AnScene* scene,
                                  const MirrorMixArgs* args, void* stream) {
-  return launch_persistent(an_mirror_mix_kernel, kLiveThreads,
-                           make_units(args->n_lanes, 32),
+  if (args->n_lanes > kMaxSliceLanes) return (int)cudaErrorInvalidValue;
+  const Units u = slice_units(args->active, args->n_lanes, args->n_px,
+                              kMirrorMixSliceBytes);
+  return launch_persistent(an_mirror_mix_kernel, kLiveThreads, u,
                            (cudaStream_t)stream, *scene, *args);
 }
 

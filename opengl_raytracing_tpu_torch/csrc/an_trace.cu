@@ -60,12 +60,12 @@
 //   * Persistent blocks (persistent.cuh): as many blocks of 128 threads
 //     as fit the card, each warp looping over units of 32 lanes,
 //     block-minor; a unit with no live lane ends at its __ballot_sync.
-//   * Live lanes queued per warp (an_lanes.cuh's live_rounds; an_shade.cu's
-//     mixes too): a unit's live lanes join the warp's queue in shared memory
-//     (int64 lane indices, kLiveQueueCap = 63: 2,016 B a block); once it
-//     holds 32 the warp works a round of 32, a lane each, so a sparse
-//     mask's live lanes fill whole rounds.  After its last unit the warp
-//     works what is left.
+//   * Live lanes queued per warp (an_lanes.cuh's live_rounds; the
+//     analytic hit mix's too): a unit's live lanes join the warp's queue
+//     in shared memory (int64 lane indices, kLiveQueueCap = 63: 2,016 B
+//     a block); once it holds 32 the warp works a round of 32, a lane
+//     each, so a sparse mask's live lanes fill whole rounds.  After its
+//     last unit the warp works what is left.
 //   * One trace body (an_scene.cuh's trace_closest, K3's too): the
 //     winner's index is kept and its normal computed once, where the plain
 //     version computes a normal for every primitive and selects one.

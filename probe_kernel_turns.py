@@ -48,10 +48,11 @@ the day-sky cubemap, an 800x600 an_baseline, a 1080p `baseline`, and a
 1080p `full` and `heavy` chain's third frame), each as the frame calls
 it, and saves the AO, bounce and sky calls' outputs on their live lanes,
 glass's and the mirror's rays calls' on the live lanes where each is
-written (chip_smoke.shade_written) and the BVH hit mix's whole radiance
-(its dead lanes as they came); after the runs those are compared bit
-for bit, one JSON line with each call's live lanes and each gate call's
-bound (chip_smoke.gate_bound).
+written (chip_smoke.shade_written), and the BVH hit mix's and glass's
+and the mirror's mixes' whole radiance (written into a copy of the
+frame's: their dead lanes as they came); after the runs those are
+compared bit for bit, one JSON line with each call's live lanes and each
+gate call's bound (chip_smoke.gate_bound).
 """
 
 from __future__ import annotations
@@ -268,7 +269,8 @@ def child_gates(saved: str) -> None:
     """In a checkout's directory: the live-lane kernels' alone-times on
     every call of GATE_FRAMES' frames, one JSON line; the AO, bounce, sky
     and rays calls' outputs on their live lanes (a rays call's where they
-    are written) and the BVH hit mix's whole radiance, their live lanes,
+    are written) and the BVH hit mix's and the glass and mirror mixes'
+    whole radiance, their live lanes,
     and each call of the four gate kernels' live lanes and bound
     (chip_smoke.gate_bound) saved to `saved`."""
     sys.path.insert(0, os.getcwd())
@@ -309,6 +311,12 @@ def child_gates(saved: str) -> None:
                     outputs[name] = {f: got[f][w].cpu()
                                      for f, w in lanes.items()}
                     outputs[name + "/live"] = int(live.sum())
+                if key in ("glass_mix", "mirror_mix"):
+                    out = a["out"].clone()
+                    cs.shade_call(key, a, a.get("active"), out)
+                    outputs[name] = {"radiance": out.cpu()}
+                    outputs[name + "/live"] = int(cs._live_of(
+                        cs.shade_shape(key, a), a.get("active")).sum())
                 if key == "bvh_hit_mix":
                     outputs[name] = {"radiance": hit_mix_radiance(a).cpu()}
                     outputs[name + "/live"] = int(cs._live_of(
@@ -320,10 +328,10 @@ def child_gates(saved: str) -> None:
 
 
 def compare_gates(other: str, this: str) -> dict:
-    """The two sides' saved AO, bounce, sky, rays and BVH hit-mix outputs
-    (files `other`, `this`): for each call, whether every output is equal
-    bit for bit (on its live lanes; the hit mix's radiance whole), and
-    its live lanes."""
+    """The two sides' saved AO, bounce, sky, rays, BVH hit-mix and glass
+    and mirror mix outputs (files `other`, `this`): for each call, whether
+    every output is equal bit for bit (on its live lanes; a mix's radiance
+    whole), and its live lanes."""
     import torch
     a = torch.load(other)
     b = torch.load(this)

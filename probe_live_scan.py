@@ -2,16 +2,19 @@
 """Where the live_lanes kernels' time goes, on one NVIDIA card.
 
     python3 probe_live_scan.py [--variants NAME,A+B,...] [--rounds N]
-        [--kernels sky,bvh_hit_mix,glass_rays,mirror_ray]
+        [--kernels sky,bvh_hit_mix,glass_rays,mirror_ray,glass_mix,
+                   mirror_mix]
 
 A probe for work on `sky_kernel` (csrc/an_trace.cu), `bvh_hit_mix_kernel`
-(csrc/hit_mix.cu), `an_glass_rays_kernel` and `an_mirror_ray_kernel`
-(csrc/an_shade.cu), not part of the smoke run.  It records, as
+(csrc/hit_mix.cu), `an_glass_rays_kernel`, `an_mirror_ray_kernel`,
+`an_glass_mix_kernel` and `an_mirror_mix_kernel` (csrc/an_shade.cu), not
+part of the smoke run.  It records, as
 chip_smoke.py's phases an_gates, hit_mix and an_shade do, the three sky
 calls of a 1080p an_full frame (the `full` preset with the day-sky
 cubemap: the primary misses, the primary hits' GI bounce, the mirror's
-GI bounce) and its glass rays and mirror ray calls, the glass rays and
-mirror ray calls of an 800x600 an_baseline frame (the gradient sky), the
+GI bounce) and its glass and mirror rays and mix calls, the glass and
+mirror rays and mix calls of an 800x600 an_baseline frame (the gradient
+sky), the
 sky call (the misses, the gradient sky) and the hit mix of a 1080p
 `full` frame, and the hit mix of a 1080p `heavy` frame (4 samples, the
 mask a byte a pixel), each the third of a chain; `--kernels` keeps the
@@ -21,14 +24,15 @@ in VARIANTS (probe_variants.py: one nvcc each, all started together,
 under _build/probe_live_scan/).  A variant drops or swaps one part:
 
   scan_only  each live lane writes one float and nothing else: the mask
-             scan;
+             scan (a mix: its radiance's first float);
   no_traces  the rays kernels' closest hit a stand-in (the floor where
              the ray points down, else a miss), not traced;
   no_rows    the sky's direction a hash of the lane index, not read (the
              taps as scattered as the bounce's);
   no_taps    the cubemap's four taps read as values of their indices;
   no_store   the outputs written only where a value is 12345 (the rays
-             kernels' hits, views, skies, k and cos too);
+             kernels' hits, views, skies, k and cos too, the mixes'
+             radiance);
   one_lane   a live byte runs its own lane alone, its pixel the lane
              (right for a call without a sample axis only);
   slice16, slice8
@@ -53,6 +57,16 @@ under _build/probe_live_scan/).  A variant drops or swaps one part:
              the glass or the mirror rays kernel's slices of that many
              mask bytes a thread (kGlassSliceBytes 4, kMirrorSliceBytes 16
              in the source);
+  glass_mix8 ... glass_mix16, mirror_mix8 ... mirror_mix16
+             the glass or the mirror mix kernel held to that many blocks
+             an SM (8, 10, 12, 14 or 16; 16: 32 registers) where its
+             source holds it to kGlassMixBlocks or kMirrorMixBlocks (that
+             number's variant is left out);
+  glass_mix_slice4 ... 16, mirror_mix_slice4 ... 16
+             the glass or the mirror mix kernel's slices of 4, 8 or 16
+             mask bytes a thread where its source reads
+             kGlassMixSliceBytes or kMirrorMixSliceBytes (that width's
+             variant is left out);
   free       the kernels' registers left to the compiler, not held to
              their blocks an SM;
   one_body   each kernel's cubemap and gradient skies chosen by the
@@ -65,14 +79,16 @@ under _build/probe_live_scan/).  A variant drops or swaps one part:
              mask read once a sample) in every kernel:
              rounds+taps3+free+one_body is the sky's and the hit mix's
              form before live_lanes, rounds+taps3+free the rays
-             kernels' (each still built twice, kCube);
+             kernels' (each still built twice, kCube), rounds+free the
+             mixes';
   A+B        the patches of A and of B together.
 
 The drop variants' outputs are wrong (a time without the part, for the
 split); the others leave every bit as it is and must give the base's
-bits: the sky on every call's live lanes, the hit mix's whole radiance
-(its dead lanes untouched), the rays kernels' outputs on the live lanes
-they write (chip_smoke.shade_written).  Every library then runs on each
+bits: the sky on every call's live lanes, the hit mix's and the glass
+and mirror mixes' whole radiance (their dead lanes untouched), the rays
+kernels' outputs on the live lanes they write
+(chip_smoke.shade_written).  Every library then runs on each
 call in turns (base, variants, variants reversed, base, `--rounds` times,
 default 3), timed by the profiler (chip_smoke.kernel_ms, the device time
 of one launch).  One JSON line a variant (its median ms a call, its
@@ -84,6 +100,8 @@ variant's bits differ.
 from __future__ import annotations
 
 import json
+import os
+import re
 import statistics
 import sys
 
@@ -106,8 +124,24 @@ _LANES = {SKY: "  live_lanes<!kCube>(u, a.active, a.n_lanes, a.n_px, "
                "[&](int64_t i,\n" + " " * 56 + "int64_t q) {\n"}
 _UNITS = ("  const Units u = slice_units(args->active, args->n_lanes, "
           "args->n_px);\n")
-# the rays kernels' slice widths, walks and slice launches
-_RAYS_WIDTHS = ("kGlassSliceBytes", "kMirrorSliceBytes")
+# the mixes' statements after their first (glass, mirror)
+_GLASS_MIX_BODY = "    const V3 env = row3(a.sky[0], i);\n"
+_MIRROR_MIX_BODY = "    V3 col;\n"
+
+
+def _shade_const(name):
+    """The value of `constexpr int name` in csrc/an_shade.cu."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "opengl_raytracing_tpu_torch", "csrc",
+                           SHADE)) as fh:
+        return re.search(rf"constexpr int {name} = (\d+);",
+                         fh.read()).group(1)
+
+
+# glass's and the mirror's rays and mix kernels' slice widths, walks and
+# slice launches
+_RAYS_WIDTHS = ("kGlassSliceBytes", "kMirrorSliceBytes",
+                "kGlassMixSliceBytes", "kMirrorMixSliceBytes")
 _RAYS_WALKS = tuple(
     f"  live_lanes<false, {w}>(u, a.active, a.n_lanes, a.n_px,\n"
     + " " * (22 + len(w)) + "[&](int64_t i, int64_t q) {\n"
@@ -115,9 +149,12 @@ _RAYS_WALKS = tuple(
 _RAYS_UNITS = tuple("  const Units u = slice_units(args->active, "
                     f"args->n_lanes, args->n_px,\n{' ' * 30}{w});\n"
                     for w in _RAYS_WIDTHS)
-# the rays kernels' blocks an SM
-_RAYS_BLOCKS = {"an_glass_rays_kernel": ("kGlassRaysBlocks", "8"),
-                "an_mirror_ray_kernel": ("kMirrorRayBlocks", "8")}
+# their blocks an SM
+_RAYS_BLOCKS = {kernel: (name, _shade_const(name)) for kernel, name in (
+    ("an_glass_rays_kernel", "kGlassRaysBlocks"),
+    ("an_mirror_ray_kernel", "kMirrorRayBlocks"),
+    ("an_glass_mix_kernel", "kGlassMixBlocks"),
+    ("an_mirror_mix_kernel", "kMirrorMixBlocks"))}
 # trace_closest's first lines and a stand-in hit of direction {}: the
 # floor where it points down
 _TRACE_HEAD = ("                                               float eps) "
@@ -170,15 +207,21 @@ VARIANTS = {
          + _GLASS_BODY),
         (SHADE, _MIRROR_BODY, "    a.t[i] = 1.0f;\n"
                               "    if (a.n_lanes > 0) return;\n"
-         + _MIRROR_BODY)],
+         + _MIRROR_BODY)]
+    + [(SHADE, body, "    a.out[3 * i] = 1.0f;\n"
+                     "    if (a.n_lanes > 0) return;\n" + body)
+       for body in (_GLASS_MIX_BODY, _MIRROR_MIX_BODY)],
     "no_traces": [
         ("an_scene.cuh", _TRACE_HEAD,
          _TRACE_HEAD + "  if (eps > -1.0f)\n    return " + _FAKE_HIT.format(
              "d") + ";\n")],
     **{f"{kernel}_slice{k}": [(SHADE, f"constexpr int {w} = {n};\n",
                                f"constexpr int {w} = {k};\n")]
-       for kernel, w, n in (("glass", "kGlassSliceBytes", 4),
-                            ("mirror", "kMirrorSliceBytes", 16))
+       for kernel, w in (("glass", "kGlassSliceBytes"),
+                         ("mirror", "kMirrorSliceBytes"),
+                         ("glass_mix", "kGlassMixSliceBytes"),
+                         ("mirror_mix", "kMirrorMixSliceBytes"))
+       for n in [int(_shade_const(w))]
        for k in (4, 8, 16) if k != n},
     "no_rows": [
         (SKY, _SKY_BODY,
@@ -215,6 +258,9 @@ VARIANTS = {
        for k in (6, 7, 10, 12)},
     **{f"mirror{k}": [_blocks("an_mirror_ray_kernel", k)]
        for k in (5, 6, 7, 10, 12)},
+    **{f"{kernel[3:-7]}{k}": [_blocks(kernel, k)]
+       for kernel in ("an_glass_mix_kernel", "an_mirror_mix_kernel")
+       for k in (8, 10, 12, 14, 16) if str(k) != _RAYS_BLOCKS[kernel][1]},
     **{f"blocks{k}": [
         (src, "__launch_bounds__(kLiveThreads, kSliceBlocks)\n" + kernel,
          f"__launch_bounds__(kLiveThreads, {k})\n" + kernel)
@@ -244,15 +290,14 @@ VARIANTS = {
 }
 DROPS = ("scan_only", "no_traces", "no_rows", "no_taps", "no_store",
          "one_lane")
-EXACT = ("slice16", "slice8", "no_ahead", "no_pairs", "pairs_all",
-         "glass6", "glass7", "glass10", "glass12", "mirror5", "mirror6",
-         "mirror7", "mirror10", "mirror12", "glass_slice8", "glass_slice16", "mirror_slice4", "mirror_slice8",
-         "blocks14", "blocks16", "free", "one_body", "taps3", "rounds")
+EXACT = tuple(name for name in VARIANTS if name not in DROPS)
 KERNELS = {"sky": "sky_kernel", "bvh_hit_mix": "bvh_hit_mix_kernel",
            "glass_rays": "an_glass_rays_kernel",
-           "mirror_ray": "an_mirror_ray_kernel"}
+           "mirror_ray": "an_mirror_ray_kernel",
+           "glass_mix": "an_glass_mix_kernel",
+           "mirror_mix": "an_mirror_mix_kernel"}
 SOURCES = {"sky": SKY, "bvh_hit_mix": MIX, "glass_rays": SHADE,
-           "mirror_ray": SHADE}
+           "mirror_ray": SHADE, "glass_mix": SHADE, "mirror_mix": SHADE}
 # each source's builds in ptxas's mangled names (kCube true, false)
 BUILDS = {SKY: {"sky_cube": "sky_kernelILb1", "sky_gradient":
                 "sky_kernelILb0"},
@@ -261,10 +306,13 @@ BUILDS = {SKY: {"sky_cube": "sky_kernelILb1", "sky_gradient":
           SHADE: {"glass_cube": "an_glass_rays_kernelILb1",
                   "glass_gradient": "an_glass_rays_kernelILb0",
                   "mirror_cube": "an_mirror_ray_kernelILb1",
-                  "mirror_gradient": "an_mirror_ray_kernelILb0"}}
+                  "mirror_gradient": "an_mirror_ray_kernelILb0",
+                  "glass_mix": "an_glass_mix_kernel",
+                  "mirror_mix": "an_mirror_mix_kernel"}}
 # the wrappers' modules under opengl_raytracing_tpu_torch.ops
 MODULES = {SKY: "an_trace_cuda", MIX: "hit_mix_cuda", SHADE: "an_shade_cuda"}
 RAYS = ("glass_rays", "mirror_ray")
+MIXES = ("glass_mix", "mirror_mix")
 
 
 def for_source(source):
@@ -278,7 +326,7 @@ def calls_of(env, bvh, keys):
     """[(name, kernel key, the call's wrapper arguments)] of the recorded
     calls of the kernels `keys`."""
     out = []
-    an_keys = tuple(k for k in ("sky",) + RAYS if k in keys)
+    an_keys = tuple(k for k in ("sky",) + RAYS + MIXES if k in keys)
     if an_keys:
         an = cs.record_kernel_inputs(None, cs.HEIGHT, cs.WIDTH, "cuda",
                                      an_keys, "full", cs.PROFILE_FRAME,
@@ -286,8 +334,9 @@ def calls_of(env, bvh, keys):
         if "sky" in keys:
             out += [(f"an_full_sky_{label}", "sky", a) for label, a in
                     zip(("primary", "gi", "mirror_gi"), an["sky"])]
-        out += [(f"an_full_{k}", k, an[k][0]) for k in RAYS if k in keys]
-    rays = tuple(k for k in RAYS if k in keys)
+        out += [(f"an_full_{k}", k, an[k][0]) for k in RAYS + MIXES
+                if k in keys]
+    rays = tuple(k for k in RAYS + MIXES if k in keys)
     if rays:
         base = cs.record_kernel_inputs(None, cs.AN_HEIGHT, cs.AN_WIDTH,
                                        "cuda", rays, "baseline",
@@ -317,6 +366,9 @@ def caller(key, a):
         return lambda: cs.gate_call(key, a, a.get("active"))
     if key in RAYS:
         return lambda: cs.shade_call(key, a, a.get("active"))
+    if key in MIXES:
+        out = a["out"].clone()
+        return lambda: cs.shade_call(key, a, a.get("active"), out)
     args = {k: v for k, v in a.items() if k not in ("active", "radiance")}
     radiance = a["radiance"].clone()
     return lambda: hit_mix_cuda.bvh_hit_mix(**args, radiance=radiance,
@@ -324,16 +376,17 @@ def caller(key, a):
 
 
 def shape_of(key, a):
-    if key in RAYS:
+    if key in RAYS + MIXES:
         return cs.shade_shape(key, a)
     return a["d" if key == "sky" else "radiance"].shape[:-1]
 
 
 def outputs(key, a, written):
     """What the call computes that must not change, as int32 bits: the sky
-    on the live lanes; the hit mix's whole radiance from a copy of the
-    frame's (its dead lanes as they came); a rays kernel's outputs on the
-    lanes `written` holds for each (chip_smoke.shade_written)."""
+    on the live lanes; a hit mix's or a glass or mirror mix's whole
+    radiance from a copy of the frame's (its dead lanes as they came); a
+    rays kernel's outputs on the lanes `written` holds for each
+    (chip_smoke.shade_written)."""
     import torch
     if key == "sky":
         live = cs._live_of(shape_of(key, a), a.get("active"))
@@ -343,6 +396,10 @@ def outputs(key, a, written):
         got = cs.shade_call(key, a, a.get("active"))
         return torch.cat([got[f][lanes].reshape(-1).view(torch.int32)
                           for f, lanes in sorted(written.items())])
+    if key in MIXES:
+        out = a["out"].clone()
+        cs.shade_call(key, a, a.get("active"), out)
+        return out.view(torch.int32)
     from opengl_raytracing_tpu_torch.ops import hit_mix_cuda
     out = a["radiance"].clone()
     hit_mix_cuda.bvh_hit_mix(**{k: v for k, v in a.items()

@@ -2531,6 +2531,73 @@ def test_an_shade_rays_kernels_on_every_kind_of_mask(name, how, sky,
                      dead == -7).all()), field
 
 
+# the masks glass's and the mirror's mix kernels (live_lanes) are held to
+# their plain versions with
+MIX_MASKS = ("frame", "null", "empty", "scattered", "one_live", "one_dead",
+             "unaligned", "heavy")
+
+
+def _mix_masks(how, frame, shape):
+    """Mask `how` of a mix call of `shape` whose frame handed it `frame`:
+    as _rays_masks, a null mask (every lane live), an empty one, and one
+    byte for every lane (kOne), live or dead."""
+    if how == "null":
+        return None
+    if how == "empty":
+        return _rays_masks("none_live", frame, shape)
+    if how in ("one_live", "one_dead"):
+        return torch.full((), how == "one_live", dtype=torch.bool,
+                          device="cuda").expand(shape)
+    return _rays_masks(how, frame, shape)
+
+
+@pytest.mark.parametrize("gi", [True, False])
+@pytest.mark.parametrize("how", MIX_MASKS)
+@pytest.mark.parametrize("name", ["glass_mix", "mirror_mix"])
+def test_an_shade_mix_kernels_on_every_kind_of_mask(name, how, gi):
+    """Glass's or the mirror's mix kernel on an analytic frame's call
+    (`full` at 270x480, with GI and without; `heavy`, 4 samples, for its
+    pixel mask) with each of MIX_MASKS: one launch; on the lanes live in
+    the mask and the frame's own, `out` the dense plain version's bits; on
+    every dead lane `out` as it was given (NaN and -7 in turn)."""
+    from opengl_raytracing_tpu_torch.ops import an_shade_cuda, an_trace_cuda
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    params = preset("heavy" if how == "heavy" else "full").replace(
+        enable_gi=int(gi))
+    calls, _ = _shade_calls(params, (270, 480), None)
+    a = dict(next(c for n, c in calls if n == name))
+    frame = a.pop("active")
+    a.pop("out")
+    shape = _shade_shape(name, a)
+    if name == "mirror_mix":
+        assert (a["gi"] is not None) == gi
+    if how == "heavy":  # a byte a pixel under the 4 samples
+        assert shape[0] == 4 and an_trace_cuda.lane_input(
+            frame, shape, 0, torch.bool, frame.device, "active")[0].mode \
+            == an_trace_cuda.PIXEL
+    if how in ("one_live", "one_dead"):
+        assert an_trace_cuda.lane_input(
+            _mix_masks(how, frame, shape), shape, 0, torch.bool,
+            frame.device, "active")[0].mode == an_trace_cuda.ONE
+    want = _shade_plain(name, a)["radiance"]
+    mask = _mix_masks(how, frame, shape)
+    out = torch.full(shape + (3,), -7.0, device="cuda")
+    out.view(-1, 3)[::2] = float("nan")
+    given = out.clone()
+    before = dict(cuda_lib.LAUNCHES)
+    got = getattr(an_shade_cuda, name)(**a, active=mask, out=out)
+    assert got is out
+    assert _grew(before) == {**{c: 0 for c in before}, name: 1}
+    torch.cuda.synchronize()
+    live = (torch.ones(shape, dtype=torch.bool, device="cuda")
+            if mask is None else mask.expand(shape))
+    both = live & frame.expand(shape)
+    assert how in ("empty", "one_dead") or bool(both.any())
+    assert _nan_equal(out[both], want.expand(out.shape)[both])
+    assert _nan_equal(out[~live], given[~live])
+
+
 def test_an_shade_wrappers_reject_bad_inputs():
     from opengl_raytracing_tpu_torch.ops import an_shade_cuda
     scene, h_raw, h, px, py, vdir = _analytic(preset("full"), 8, 8)

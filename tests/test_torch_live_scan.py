@@ -2,8 +2,10 @@
 cubemap's [6, F, F, 4] copy that its kernels read.
 
 `sky_kernel` (csrc/an_trace.cu), `bvh_hit_mix_kernel` (csrc/hit_mix.cu),
-`an_glass_rays_kernel` and `an_mirror_ray_kernel` (csrc/an_shade.cu) run
-on persistent blocks over slices of their mask: a warp loads
+glass's and the mirror's rays and mix kernels (csrc/an_shade.cu:
+`an_glass_rays_kernel`, `an_mirror_ray_kernel`, `an_glass_mix_kernel`,
+`an_mirror_mix_kernel`) run on persistent blocks over slices of their
+mask: a warp loads
 kBytes mask bytes a thread (kSliceBytes unless the kernel names another
 width; 32 kBytes a slice: kBytes units of 32 bytes, unit g of slice j the
 mask's unit j + g * slices), turns each thread's bytes into bits (a bit
@@ -19,10 +21,11 @@ constants, read from its text, and the launch of csrc/persistent.cuh over
 a few resident blocks, so that each warp takes several slices: every
 live lane is worked exactly once with its own pixel, no dead lane is,
 and every mask byte is read once.  It runs at the source's slice width
-and at the others the probe tries (probe_live_scan.py), on drawn masks, on sphere-sized disks, and on the
-masks a CPU analytic frame hands the glass and mirror rays kernels (a
-pixel mask under 4 samples on `heavy`).  Each kernel's blocks an SM and
-its walk are read from its source.
+and at the others the probe tries (probe_live_scan.py), on drawn masks,
+on sphere-sized disks, and on the masks a CPU analytic frame hands the
+glass and mirror rays and mix kernels (a pixel mask under 4 samples on
+`heavy`).  Each kernel's blocks an SM, its slice width and its walk are
+read from its source.
 """
 
 import inspect
@@ -71,13 +74,26 @@ def test_the_model_reads_the_source_constants():
 
 # each live_lanes kernel: its source, and its blocks an SM
 # (__launch_bounds__'s minimum, a constant the source declares); 65,536
-# registers an SM over blocks of 128 threads: 12 blocks 40 registers a
-# thread, 10 48, 8 64
+# registers an SM over blocks of 128 threads: 16 blocks 32 registers a
+# thread, 12 40, 10 48, 8 64
 LIVE_LANES_KERNELS = {
     "sky_kernel": ("an_trace.cu", "kSliceBlocks", 12),
     "bvh_hit_mix_kernel": ("hit_mix.cu", "kSliceBlocks", 12),
     "an_glass_rays_kernel": ("an_shade.cu", "kGlassRaysBlocks", 8),
-    "an_mirror_ray_kernel": ("an_shade.cu", "kMirrorRayBlocks", 8)}
+    "an_mirror_ray_kernel": ("an_shade.cu", "kMirrorRayBlocks", 8),
+    "an_glass_mix_kernel": ("an_shade.cu", "kGlassMixBlocks", 8),
+    "an_mirror_mix_kernel": ("an_shade.cu", "kMirrorMixBlocks", 12)}
+# the kernels that read no sky, built once (no kCube)
+MIXES = ("an_glass_mix_kernel", "an_mirror_mix_kernel")
+# each kernel's C entry, and its mask bytes a thread a slice
+ENTRIES = {"sky_kernel": "ort_sky", "bvh_hit_mix_kernel": "ort_bvh_hit_mix",
+           "an_glass_rays_kernel": "ort_an_glass_rays",
+           "an_mirror_ray_kernel": "ort_an_mirror_ray",
+           "an_glass_mix_kernel": "ort_an_glass_mix",
+           "an_mirror_mix_kernel": "ort_an_mirror_mix"}
+WIDTHS = {"sky_kernel": 4, "bvh_hit_mix_kernel": 4,
+          "an_glass_rays_kernel": 4, "an_mirror_ray_kernel": 16,
+          "an_glass_mix_kernel": 4, "an_mirror_mix_kernel": 8}
 
 
 def _kernel_text(text, kernel):
@@ -136,10 +152,7 @@ def test_each_kernel_walks_its_mask_with_live_lanes(kernel):
                      r"\[&\]\(int64_t i,\s*int64_t q\)", body)
     assert "live_rounds" not in body
     assert not re.search(r"\bin(3|_i32|_f32)\(", body)
-    entry = {"sky_kernel": "ort_sky", "bvh_hit_mix_kernel": "ort_bvh_hit_mix",
-             "an_glass_rays_kernel": "ort_an_glass_rays",
-             "an_mirror_ray_kernel": "ort_an_mirror_ray"}[kernel]
-    launch = _entry_text(text, entry)
+    launch = _entry_text(text, ENTRIES[kernel])
     assert "if (args->n_lanes > kMaxSliceLanes) return (int)" \
         "cudaErrorInvalidValue;" in launch
     # over slices of the kernel's own width
@@ -148,25 +161,26 @@ def test_each_kernel_walks_its_mask_with_live_lanes(kernel):
     assert units
     assert (units.group(1) or "kSliceBytes") == _walk_of(kernel)[0]
     # built with the cubemap and with the gradient, chosen by the table
+    # (a mix, which reads no sky, once)
     for cube in ("true", "false"):
-        assert f"{kernel}<{cube}>" in launch
-    # the rays kernels: slices of their own width
-    assert _walk_of(kernel)[1] == {"sky_kernel": 4, "bvh_hit_mix_kernel": 4,
-                                   "an_glass_rays_kernel": 4,
-                                   "an_mirror_ray_kernel": 16}[kernel]
+        assert (f"{kernel}<{cube}>" in launch) == (kernel not in MIXES)
+    # glass's and the mirror's kernels: slices of their own width
+    assert _walk_of(kernel)[1] == WIDTHS[kernel]
 
 
 def test_the_rays_kernels_read_the_cubemap_as_whole_texels():
-    """Every live_lanes kernel, glass's and the mirror's rays kernels
-    among them, looks its skies up through an_scene.cuh's one
-    cube_or_gradient_sky (texel_sky: the table's [6, F, F, 4] copy, or the
-    gradient), never through sky()'s three-float taps; the rays kernels'
-    args structs carry the copy."""
+    """Every live_lanes kernel that looks a sky up, glass's and the
+    mirror's rays kernels among them, looks it up through an_scene.cuh's
+    one cube_or_gradient_sky (texel_sky: the table's [6, F, F, 4] copy, or
+    the gradient), never through sky()'s three-float taps; the rays
+    kernels' args structs carry the copy.  The mixes read the skies the
+    rays kernels wrote and look none up."""
     assert "return kCube ? texel_sky(s, texels, d) : gradient_sky(s, d);" \
         in _source("an_scene.cuh")
     for kernel, (source, _, _) in LIVE_LANES_KERNELS.items():
         _, body = _kernel_text(_source(source), kernel)
-        assert "cube_or_gradient_sky<kCube>(s, a.texels," in body
+        assert ("cube_or_gradient_sky<kCube>(s, a.texels," in body) == (
+            kernel not in MIXES)
         assert not re.search(r"\b(texel_|gradient_)?sky\(s,", body)
     for args in (an_shade_cuda._GlassRaysArgs, an_shade_cuda._MirrorRayArgs):
         assert args._fields_[-1][0] == "texels"
@@ -344,24 +358,34 @@ def test_every_live_lane_is_worked_once(kind, per_pixel, shape, slice_bytes):
         assert q == i % n_px
 
 
-# ---- the glass and mirror rays kernels' masks ----
+# ---- the glass and mirror rays and mix kernels' masks ----
 
 RAYS = ("glass_rays", "mirror_ray")
-# the CPU analytic frames whose rays calls are walked (96x128): an_full's
-# and an_baseline's presets (a byte a lane), analytic `heavy` (4 samples,
-# a byte a pixel)
+MIX_CALLS = ("glass_mix", "mirror_mix")
+# the CPU analytic frames whose rays and mix calls are walked (96x128):
+# an_full's and an_baseline's presets (a byte a lane), analytic `heavy`
+# (4 samples, a byte a pixel)
 RAY_FRAMES = {"an_full": "full", "an_baseline": "baseline", "heavy": "heavy"}
 _RAY_CALLS = {}
 
 
+def _call_shape(name, a):
+    """The lanes of a recorded call of shade wrapper `name`."""
+    if name == "glass_mix":
+        return a["rays"].k.shape
+    if name == "mirror_mix":
+        return a["ray"].hit.t.shape
+    return torch.broadcast_shapes(a["h"].t.shape, a["wo"].shape[:-1])
+
+
 def _ray_calls(case):
-    """{kernel: (its call's mask bytes as the kernel reads them, their
+    """{wrapper: (its call's mask bytes as the kernel reads them, their
     mode, n_lanes, n_px, the live lanes)} of the glass and mirror rays
-    calls of one eager CPU analytic frame of RAY_FRAMES[case]."""
+    and mix calls of one eager CPU analytic frame of RAY_FRAMES[case]."""
     if case in _RAY_CALLS:
         return _RAY_CALLS[case]
     h, w = 96, 128
-    real = {n: getattr(an_shade_cuda, n) for n in RAYS}
+    real = {n: getattr(an_shade_cuda, n) for n in RAYS + MIX_CALLS}
     calls = {}
 
     def spy(name):
@@ -375,7 +399,7 @@ def _ray_calls(case):
     cam.aspect = w / h
     fin = camera_frame_inputs(cam, "cpu", jitter=(0.2, -0.1), frame_index=5)
     try:
-        for n in RAYS:
+        for n in real:
             setattr(an_shade_cuda, n, spy(n))
         render_frame(preset(RAY_FRAMES[case]), fin,
                      RenderState.create(h, w, "cpu"), None, height=h,
@@ -385,7 +409,7 @@ def _ray_calls(case):
             setattr(an_shade_cuda, n, fn)
     out = {}
     for name, a in calls.items():
-        shape = torch.broadcast_shapes(a["h"].t.shape, a["wo"].shape[:-1])
+        shape = _call_shape(name, a)
         lane_in, rows = an_trace_cuda.lane_input(
             a["active"], shape, 0, torch.bool, torch.device("cpu"), "active")
         out[name] = (rows.numpy().astype(np.uint8), lane_in.mode,
@@ -420,6 +444,30 @@ def test_the_rays_calls_masks_are_worked_once(case, kernel):
     bytes_, mode, n_lanes, n_px, live = _ray_calls(case)[kernel]
     assert mode == (PIXEL if case == "heavy" else LANE)
     assert live.any() and not live.all()
+    _, slice_bytes = _walk_of(f"an_{kernel}_kernel")
+    calls, reads = walk(bytes_, mode, n_lanes, n_px, resident=3,
+                        slice_bytes=slice_bytes)
+    assert sorted(reads) == list(range(len(bytes_)))
+    _check_once(calls, live, n_lanes, n_px,
+                bytes_ if mode == PIXEL else None)
+
+
+@pytest.mark.parametrize("kernel", MIX_CALLS)
+@pytest.mark.parametrize("case", list(RAY_FRAMES))
+def test_the_mix_calls_masks_are_worked_once(case, kernel):
+    """The mask a CPU analytic frame hands glass's or the mirror's mix
+    kernel (its material's lanes, as the rays call's), walked by the model
+    at the slice width the kernel's source gives it: every mask byte read
+    once, every live lane worked once with its own pixel, and under
+    `heavy`'s 4 samples a byte a pixel with each sample of a live pixel
+    worked once."""
+    calls_of = _ray_calls(case)
+    bytes_, mode, n_lanes, n_px, live = calls_of[kernel]
+    assert mode == (PIXEL if case == "heavy" else LANE)
+    assert live.any() and not live.all()
+    # the mix's lanes are its rays call's
+    ray = {"glass_mix": "glass_rays", "mirror_mix": "mirror_ray"}[kernel]
+    np.testing.assert_array_equal(live, calls_of[ray][4])
     _, slice_bytes = _walk_of(f"an_{kernel}_kernel")
     calls, reads = walk(bytes_, mode, n_lanes, n_px, resident=3,
                         slice_bytes=slice_bytes)
